@@ -1,0 +1,289 @@
+// Packed segment-causal flash attention, forward, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel behind areal_tpu/ops/pallas/flash_attention.py:200
+// `flash_attention` (which calls the Pallas library kernel's forward,
+// `_flash_attention_impl`): softmax(scale * q k^T + mask) v with an online
+// softmax over KV tiles. A query row attends a key column when both carry
+// the same nonzero segment id and, when causal, the column index is <= the
+// row index (causal by index, exactly as the TPU kernel).
+//
+// Differences from the TPU wrapper: GQA reads kv head h / G directly (no
+// repeat of K/V); head_dim 64 and 128 are template cases (no padding to 128
+// lanes); any T and S work (ragged tails are masked); KV tiles wholly in the
+// causal future are never loaded; rows without a valid key (pad queries,
+// segment 0) come out as exact zeros with logsumexp -inf.
+//
+// What bounds it on this card: at prefill shapes (T = S = 512..1024,
+// D = 64) the work is ~4*D flops per unmasked (q, k) pair against ~2 bytes
+// per element of q, k, v, o, so the bf16 tensor-core rate bounds it. This
+// first version does the products with scalar f32 FMAs out of shared memory
+// (no mma.sync / wgmma / TMA yet), so in practice shared-memory load
+// bandwidth bounds it. The design keeps that in check: every shared load
+// is 16 bytes, each q row's float4 feeds 16 keys, row strides are padded by
+// 4 floats so a quarter-warp's 16-byte loads hit distinct banks, and the
+// score tile lives in registers (only P goes through shared memory, and
+// only within a warp). Tensor-core products come in a later version.
+//
+// Layout: one block per (64-row q tile, q head, batch row), 256 threads,
+// four threads per query row. Thread (row, quarter) computes the scores of
+// keys quarter + 4*m of each 64-key tile and owns head dims
+// 4*quarter + 16*c + {0..3} of the output accumulator.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kBlockQ = 64;
+constexpr int kBlockKV = 64;
+constexpr int kThreads = 256;
+constexpr int kPad = 4;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half(x); }
+
+template <int D>
+constexpr size_t smem_bytes() {
+  // q, k, v tiles [64][D + 4] f32, P tile [64][64 + 4] f32, two seg vectors.
+  return sizeof(float) * (3 * kBlockQ * (D + kPad) + kBlockQ * (kBlockKV + kPad)) +
+         sizeof(int) * (kBlockQ + kBlockKV);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
+                 T* __restrict__ out, float* __restrict__ lse, int T_len, int S_len, int Hq,
+                 int Hkv, int causal, float scale_log2) {
+  constexpr int LD = D + kPad;
+  constexpr int LDP = kBlockKV + kPad;
+  constexpr int KPT = kBlockKV / 4;  // keys per thread per tile
+  constexpr int DPT = D / 4;         // output dims per thread
+
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* k_s = q_s + kBlockQ * LD;
+  float* v_s = k_s + kBlockKV * LD;
+  float* p_s = v_s + kBlockKV * LD;
+  int* qseg_s = reinterpret_cast<int*>(p_s + kBlockQ * LDP);
+  int* kseg_s = qseg_s + kBlockQ;
+
+  const int tid = threadIdx.x;
+  const int row = tid >> 2;
+  const int quarter = tid & 3;
+  // Causal tiles near the end of the row do the most work: start them first.
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+
+  const size_t q_stride = (size_t)Hq * D;
+  const size_t kv_stride = (size_t)Hkv * D;
+  const T* q_base = q + (size_t)b * T_len * q_stride + (size_t)h * D;
+  const T* k_base = k + (size_t)b * S_len * kv_stride + (size_t)hk * D;
+  const T* v_base = v + (size_t)b * S_len * kv_stride + (size_t)hk * D;
+
+  // Q tile, pre-scaled into the log2 domain of exp2f.
+  for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
+    const int r = idx / D, c = idx % D, t = q0 + r;
+    q_s[r * LD + c] = t < T_len ? to_f32(q_base[(size_t)t * q_stride + c]) * scale_log2 : 0.f;
+  }
+  if (tid < kBlockQ) {
+    const int t = q0 + tid;
+    qseg_s[tid] = t < T_len ? q_seg[(size_t)b * T_len + t] : 0;
+  }
+  __syncthreads();
+
+  const int i_glob = q0 + row;
+  const int my_seg = qseg_s[row];
+  float acc[DPT];
+#pragma unroll
+  for (int c = 0; c < DPT; ++c) acc[c] = 0.f;
+  float m_run = -INFINITY;
+  float l_run = 0.f;
+
+  int kv_end = S_len;
+  if (causal) kv_end = min(S_len, min(q0 + kBlockQ, T_len));
+
+  for (int k0 = 0; k0 < kv_end; k0 += kBlockKV) {
+    for (int idx = tid; idx < kBlockKV * D; idx += kThreads) {
+      const int r = idx / D, c = idx % D, s = k0 + r;
+      const bool in = s < S_len;
+      k_s[r * LD + c] = in ? to_f32(k_base[(size_t)s * kv_stride + c]) : 0.f;
+      v_s[r * LD + c] = in ? to_f32(v_base[(size_t)s * kv_stride + c]) : 0.f;
+    }
+    if (tid < kBlockKV) {
+      const int s = k0 + tid;
+      kseg_s[tid] = s < S_len ? kv_seg[(size_t)b * S_len + s] : 0;
+    }
+    __syncthreads();
+
+    // Scores of keys quarter + 4*m: each float4 of the q row feeds KPT keys.
+    float sc[KPT];
+#pragma unroll
+    for (int m = 0; m < KPT; ++m) sc[m] = 0.f;
+    const float4* q_row = reinterpret_cast<const float4*>(q_s + row * LD);
+#pragma unroll 4
+    for (int d4 = 0; d4 < D / 4; ++d4) {
+      const float4 qv = q_row[d4];
+#pragma unroll
+      for (int m = 0; m < KPT; ++m) {
+        const float4 kv = reinterpret_cast<const float4*>(k_s + (quarter + 4 * m) * LD)[d4];
+        sc[m] = fmaf(qv.x, kv.x, sc[m]);
+        sc[m] = fmaf(qv.y, kv.y, sc[m]);
+        sc[m] = fmaf(qv.z, kv.z, sc[m]);
+        sc[m] = fmaf(qv.w, kv.w, sc[m]);
+      }
+    }
+
+    float tile_max = -INFINITY;
+#pragma unroll
+    for (int m = 0; m < KPT; ++m) {
+      const int j = quarter + 4 * m;
+      const int s = k0 + j;
+      const bool ok = my_seg != 0 && s < S_len && kseg_s[j] == my_seg && (!causal || s <= i_glob);
+      sc[m] = ok ? sc[m] : -INFINITY;
+      tile_max = fmaxf(tile_max, sc[m]);
+    }
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
+    const float m_new = fmaxf(m_run, tile_max);
+    // A row with no valid key so far keeps m = -inf: subtract 0 instead, so
+    // exp2f never sees -inf - -inf.
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    const float alpha = exp2f(m_run - m_use);
+    float p_sum = 0.f;
+#pragma unroll
+    for (int m = 0; m < KPT; ++m) {
+      const float p = exp2f(sc[m] - m_use);
+      p_sum += p;
+      p_s[row * LDP + quarter + 4 * m] = p;
+    }
+    p_sum += __shfl_xor_sync(0xffffffffu, p_sum, 1);
+    p_sum += __shfl_xor_sync(0xffffffffu, p_sum, 2);
+    l_run = l_run * alpha + p_sum;
+    m_run = m_new;
+    // Row `row`'s P was written by the four threads of its quad, all in
+    // this warp: a warp barrier is enough before reading it back.
+    __syncwarp();
+
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) acc[c] *= alpha;
+    const float4* p_row = reinterpret_cast<const float4*>(p_s + row * LDP);
+    for (int j4 = 0; j4 < kBlockKV / 4; ++j4) {
+      const float4 p4 = p_row[j4];
+      const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float4* v_row = reinterpret_cast<const float4*>(v_s + (4 * j4 + jj) * LD);
+#pragma unroll
+        for (int c = 0; c < D / 16; ++c) {
+          const float4 vv = v_row[quarter + 4 * c];
+          acc[4 * c + 0] = fmaf(pj[jj], vv.x, acc[4 * c + 0]);
+          acc[4 * c + 1] = fmaf(pj[jj], vv.y, acc[4 * c + 1]);
+          acc[4 * c + 2] = fmaf(pj[jj], vv.z, acc[4 * c + 2]);
+          acc[4 * c + 3] = fmaf(pj[jj], vv.w, acc[4 * c + 3]);
+        }
+      }
+    }
+    __syncthreads();  // the next tile overwrites k_s, v_s, kseg_s
+  }
+
+  if (i_glob < T_len) {
+    const bool any = l_run > 0.f;
+    const float inv = any ? 1.f / l_run : 0.f;
+    T* o_row = out + ((size_t)b * T_len + i_glob) * q_stride + (size_t)h * D;
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        o_row[4 * quarter + 16 * c + e] = from_f32<T>(acc[4 * c + e] * inv);
+      }
+    }
+    if (quarter == 0) {
+      lse[((size_t)b * Hq + h) * T_len + i_glob] =
+          any ? (m_run + log2f(l_run)) * kLn2 : -INFINITY;
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* q_seg,
+                   const int* kv_seg, void* out, float* lse, int B, int T_len, int S_len, int Hq,
+                   int Hkv, int causal, float scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T_len + kBlockQ - 1) / kBlockQ, Hq, B);
+  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), q_seg, kv_seg,
+      static_cast<T*>(out), lse, T_len, S_len, Hq, Hkv, causal, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, const int* q_seg,
+                         const int* kv_seg, void* out, float* lse, int B, int T_len, int S_len,
+                         int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+  switch (D) {
+    case 64:
+      return launch<T, 64>(q, k, v, q_seg, kv_seg, out, lse, B, T_len, S_len, Hq, Hkv, causal,
+                           scale, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, q_seg, kv_seg, out, lse, B, T_len, S_len, Hq, Hkv, causal,
+                            scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. q [B,T,Hq,D], k/v [B,S,Hkv,D],
+// segment ids int32 [B,T] / [B,S], out like q, lse f32 [B,Hq,T]; all contiguous.
+// Returns the cudaError_t of the launch (0 on success).
+int areal_flash_attention_fwd(const void* q, const void* k, const void* v, const void* q_seg,
+                              const void* kv_seg, void* out, void* lse, int B, int T_len,
+                              int S_len, int Hq, int Hkv, int D, int dtype, int causal,
+                              float scale, void* stream) {
+  if (B <= 0 || T_len <= 0 || Hq <= 0) return cudaSuccess;
+  if (Hkv <= 0 || Hq % Hkv != 0 || S_len < 0) return cudaErrorInvalidValue;
+  const int* qs = static_cast<const int*>(q_seg);
+  const int* ks = static_cast<const int*>(kv_seg);
+  float* l = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return dispatch_dim<float>(D, q, k, v, qs, ks, out, l, B, T_len, S_len, Hq, Hkv, causal,
+                                 scale, st);
+    case 1:
+      return dispatch_dim<__nv_bfloat16>(D, q, k, v, qs, ks, out, l, B, T_len, S_len, Hq, Hkv,
+                                         causal, scale, st);
+    case 2:
+      return dispatch_dim<__half>(D, q, k, v, qs, ks, out, l, B, T_len, S_len, Hq, Hkv, causal,
+                                  scale, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+const char* areal_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,58 @@
+"""The port stands alone: every module of areal_tpu_torch imports with ``jax``
+blocked, and no file of the package (nor chip_smoke.py) names ``jax`` or a
+module of the reference package."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import areal_tpu_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "areal_tpu_torch"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import areal_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    areal_tpu_torch.__path__, "areal_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert not any(m == "jax" or m.startswith(("jax.", "areal_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print(len(names))
+"""
+
+
+def test_every_module_imports_with_jax_blocked():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 11  # every module was walked
+
+
+def test_no_file_names_jax_or_the_reference_package():
+    files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    bad = re.compile(r"\bjax\b|\bareal_tpu\.")
+    for path in files:
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            assert not bad.search(line), f"{path.relative_to(ROOT)}:{i}: {line}"
+
+
+def test_resolve_device():
+    assert areal_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError):
+        areal_tpu_torch.resolve_device()
+    with pytest.raises(RuntimeError):
+        areal_tpu_torch.resolve_device("cuda")

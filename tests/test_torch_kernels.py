@@ -1,0 +1,96 @@
+"""K1's wrapper (areal_tpu_torch/ops/flash_attention.py) without the JAX
+package: input checks and the plain version's edge cases on the CPU, and the
+CUDA kernel against its plain version on the card (``cuda`` marker).
+
+This file imports neither jax nor areal_tpu, so on a machine with a card and
+without jax it runs alone:
+``python -m pytest --noconftest tests/test_torch_kernels.py -m cuda``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from areal_tpu_torch.ops import flash_attention as fa
+
+
+def _inputs(seqlens, T, Hq, Hkv, D, dtype=torch.float32, device="cpu", seed=0):
+    """One row per entry of ``seqlens``: documents packed from column 0,
+    the rest of the row padding (segment 0)."""
+    rng = np.random.RandomState(seed)
+    B = len(seqlens)
+    seg = np.zeros((B, T), np.int32)
+    for b, lens in enumerate(seqlens):
+        col = 0
+        for i, n in enumerate(lens):
+            seg[b, col:col + n] = i + 1
+            col += n
+    q, k, v = (torch.from_numpy(rng.randn(B, T, h, D).astype(np.float32))
+               for h in (Hq, Hkv, Hkv))
+    return ([x.to(device, dtype) for x in (q, k, v)],
+            torch.from_numpy(seg).to(device))
+
+
+def test_wrapper_rejects_bad_inputs():
+    (q, k, v), seg = _inputs([[8]], 8, 4, 2, 64)
+    k3 = k[:, :, :1].repeat(1, 1, 3, 1)
+    with pytest.raises(ValueError):  # 4 q heads over 3 kv heads
+        fa.flash_attention(q, k3, k3, seg, seg)
+    with pytest.raises(ValueError):  # segment ids of the wrong length
+        fa.flash_attention(q, k, v, seg[:, :4], seg)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k.double(), v, seg, seg)
+    meta = [x.to("meta") for x in (q, k, v, seg)]
+    with pytest.raises(RuntimeError):  # no kernel and no plain version there
+        fa.flash_attention(*meta, meta[3])
+
+
+def test_plain_version_empty_rows_and_causality():
+    (q, k, v), seg = _inputs([[5, 3], []], 12, 4, 2, 64)
+    out, lse = fa.flash_attention(q, k, v, seg, seg, return_lse=True)
+    assert (out[1] == 0).all() and torch.isneginf(lse[1]).all()
+    assert (out[0, 8:] == 0).all() and torch.isneginf(lse[0, :, 8:]).all()
+    assert torch.isfinite(lse[0, :, :8]).all()
+    # a row's first token attends only itself: the output is its own v row
+    torch.testing.assert_close(out[0, 0], v[0, 0].repeat_interleave(2, 0))
+    torch.testing.assert_close(out[0, 5], v[0, 5].repeat_interleave(2, 0))
+    # non-causal: every token of a segment sees the whole segment
+    full = fa.flash_attention(q, k, v, seg, seg, causal=False)
+    assert not torch.allclose(full[0, 0], out[0, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seqlens,T,D,Hq,Hkv", [
+    ([[300, 200], [512], [100, 100, 250]], 512, 64, 14, 2),
+    ([[90, 70, 30], [150], []], 200, 128, 28, 4),
+])
+def test_kernel_matches_plain_on_card(dtype, seqlens, T, D, Hq, Hkv):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    (q, k, v), seg = _inputs(seqlens, T, Hq, Hkv, D, dtype, "cuda", seed=5)
+    before = fa.launch_count()
+    out, lse = fa.flash_attention(q, k, v, seg, seg, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.launch_count() == before + 1
+    ref, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                            seg, seg)
+    # float32: summation order only; bf16: one ulp at the largest output
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8 * ref.abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= tol
+    assert (out[seg == 0] == 0).all() and not out.isnan().any()
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    assert (lse[fin] - ref_lse[fin]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_what_it_cannot_run():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    (q, k, v), seg = _inputs([[16]], 16, 2, 1, 96, device="cuda")
+    with pytest.raises(ValueError):  # head_dim 96 is not a template case
+        fa.flash_attention(q, k, v, seg, seg)
+    (q, k, v), seg = _inputs([[16]], 16, 2, 1, 64, device="cuda")
+    with pytest.raises(ValueError):  # not contiguous
+        fa.flash_attention(torch.cat([q, q], -1)[..., :64], k, v, seg, seg)
