@@ -1,0 +1,509 @@
+"""The PyTorch train engine — counterpart of ``areal_tpu/backend/jax_train.py``
+(``JaxTrainEngine``, ``JaxTrainBackend``), its uniform fast path.
+
+ - f32 master parameters live on the device as leaf tensors; every grad
+   step casts them to the compute dtype *inside* the differentiated
+   function (``_cast:291``: ``torch.func.functional_call`` over ``.to()``
+   copies), so the gradients arrive in f32, as in the reference, and
+   accumulate over the micro-batches in the masters' ``.grad``.
+ - The whole batch is packed once and uploaded once as ``[n_mbs·R, L]``
+   grids (``upload_uniform:516``); the advantage prep runs over it on the
+   device (``run_prep:558``); each micro-batch's grad step slices its rows
+   there (``_get_sliced_grad_fn:587``).
+ - ``train_uniform:654`` takes one optimizer step with one host sync: the
+   stats, the loss and the pre-clip global grad norm come back together,
+   then the skip rule (``:478-490``) decides on the host whether the update
+   is applied. A skipped update leaves the parameters, the moments and the
+   step count as they were.
+ - The optimizer is the reference's optax chain written out on
+   ``torch._foreach_*`` (``build_optimizer:128``, ``scale_by_adam_mixed:77``):
+   clip by global norm, Adam with its moment math in f32 and the moments
+   stored in ``mu_dtype``/``nu_dtype``, ``+ weight_decay·param``, ``×
+   −lr(count)`` with the schedule read at the pre-increment count.
+   ``torch.optim.AdamW`` orders these steps differently and cannot keep
+   bf16 moments with f32 math.
+ - The log-prob head is chunked over columns, each chunk under
+   ``torch.utils.checkpoint`` (``_forward_token_logprobs:321``): the
+   ``[R, L, V]`` logits never exist at once, forward or backward.
+
+Not ported yet: ``train_batch``, ``forward`` with ``scatter_back``,
+``generate``, train-state checkpointing, meshes, MoE and the critic.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from areal_tpu_torch import resolve_device
+from areal_tpu_torch.algorithms import ppo_functional as PF
+from areal_tpu_torch.api.data import MicroBatchSpec, SequenceSample
+from areal_tpu_torch.api.model import (
+    FinetuneSpec,
+    Model,
+    ModelBackend,
+    TrainableEngine,
+)
+from areal_tpu_torch.api.train_config import OptimizerConfig
+from areal_tpu_torch.backend import microbatch as mbu
+from areal_tpu_torch.models.config import TransformerConfig
+from areal_tpu_torch.models.packing import round_up
+from areal_tpu_torch.models.transformer import (
+    Transformer,
+    head_logits,
+    head_param_name,
+)
+from areal_tpu_torch.ops.xent import gather_logprobs
+
+# Loss functions receive (logits or [R, L] logprobs, batch) and return
+# (loss_sum, stats-sums).
+LossFn = Callable[[torch.Tensor, Dict[str, torch.Tensor]],
+                  Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+
+
+# ---------------- lr schedule ----------------
+
+def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
+    """optax.linear_schedule."""
+    def f(count: int) -> float:
+        frac = 1 - min(max(count, 0), steps) / steps
+        return (init - end) * frac + end
+    return f
+
+
+def _cosine(init: float, steps: int, alpha: float) -> Callable[[int], float]:
+    """optax.cosine_decay_schedule."""
+    def f(count: int) -> float:
+        cosine = 0.5 * (1 + math.cos(math.pi * min(count, steps) / steps))
+        return init * ((1 - alpha) * cosine + alpha)
+    return f
+
+
+def build_lr_schedule(cfg: OptimizerConfig,
+                      total_steps: int) -> Callable[[int], float]:
+    """Warmup + {constant, cosine, linear} decay to min_lr_ratio·lr, as a
+    function of the optimizer step count (reference
+    ``build_lr_schedule:54``)."""
+    total_steps = max(total_steps, 1)
+    warmup = int(cfg.warmup_steps_proportion * total_steps)
+    rest = max(total_steps - warmup, 1)
+    if cfg.lr_scheduler_type == "cosine":
+        decay = _cosine(cfg.lr, rest, cfg.min_lr_ratio)
+    elif cfg.lr_scheduler_type == "linear":
+        decay = _linear(cfg.lr, cfg.lr * cfg.min_lr_ratio, rest)
+    else:
+        def decay(count: int) -> float:
+            return cfg.lr
+    if warmup <= 0:
+        return decay
+    warm = _linear(0.0, cfg.lr, warmup)
+    return lambda count: warm(count) if count < warmup else decay(count - warmup)
+
+
+# ---------------- optimizer ----------------
+
+def _dtype(name: Optional[str], default: torch.dtype) -> torch.dtype:
+    return getattr(torch, name) if name else default
+
+
+class Optimizer:
+    """The reference's optimizer chain (``build_optimizer:128``) as one
+    update over lists of tensors: clip by global norm
+    (``gradient_clipping``), then AdamW (``scale_by_adam_mixed:77`` +
+    ``add_decayed_weights`` + ``scale_by_learning_rate``) or SGD. ``count``
+    is the number of applied updates: Adam's bias-correction count and the
+    schedule's step."""
+
+    def __init__(self, cfg: OptimizerConfig, params: List[torch.Tensor],
+                 total_steps: int):
+        if cfg.type not in ("adamw", "sgd"):
+            raise ValueError(f"unknown optimizer type {cfg.type!r}")
+        self.cfg = cfg
+        self.lr_schedule = build_lr_schedule(cfg, total_steps)
+        self.count = 0
+        self.mu: List[torch.Tensor] = []
+        self.nu: List[torch.Tensor] = []
+        if cfg.type == "adamw":
+            self.mu = [torch.zeros_like(p, dtype=_dtype(cfg.mu_dtype, p.dtype))
+                       for p in params]
+            self.nu = [torch.zeros_like(p, dtype=_dtype(cfg.nu_dtype, p.dtype))
+                       for p in params]
+
+    @torch.no_grad()
+    def step(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+             grad_norm: torch.Tensor, grad_norm_host: float) -> None:
+        """One update in place: ``grads`` (f32, consumed) into ``params``.
+        ``grad_norm`` is the device global norm; its host copy picks the
+        clip branch, as the reference's ``select`` does on the device."""
+        cfg = self.cfg
+        clip = cfg.gradient_clipping
+        if clip and clip > 0 and not grad_norm_host < clip:
+            torch._foreach_div_(grads, grad_norm)
+            torch._foreach_mul_(grads, clip)
+        lr = self.lr_schedule(self.count)
+        if cfg.type == "sgd":
+            torch._foreach_add_(params, grads, alpha=-lr)
+            self.count += 1
+            return
+        b1, b2 = cfg.beta1, cfg.beta2
+        f32 = torch.float32
+        mu = [m.to(f32) for m in self.mu]  # the same tensors when stored in f32
+        nu = [n.to(f32) for n in self.nu]
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, grads, alpha=1 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
+        count = np.float32(self.count + 1)
+        bc1 = float(np.float32(1) - np.float32(b1) ** count)
+        bc2 = float(np.float32(1) - np.float32(b2) ** count)
+        upd = torch._foreach_div(mu, bc1)
+        den = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, cfg.eps)
+        torch._foreach_div_(upd, den)
+        del den
+        if cfg.weight_decay:
+            torch._foreach_add_(upd, params, alpha=cfg.weight_decay)
+        torch._foreach_mul_(upd, -lr)
+        torch._foreach_add_(params, upd)
+        for store, new in zip(self.mu + self.nu, mu + nu):
+            if store is not new:
+                store.copy_(new)
+        self.count += 1
+
+
+# ---------------- the engine ----------------
+
+@dataclasses.dataclass
+class UniformBatch:
+    """A whole batch resident on the device as one ``[n_mbs·R, L]`` grid set.
+
+    ``grids``: per-token keys (+ prep outputs); ``seq``: ``[n_mbs, S]``
+    stacked per-micro-batch sequence arrays (grid coordinates, masks,
+    scalar keys). Host-side layouts stay in ``mbs``."""
+
+    mbs: List[mbu.MicroBatch]
+    R: int
+    L: int
+    S: int
+    grids: Dict[str, torch.Tensor]
+    seq: Dict[str, torch.Tensor]
+
+    @property
+    def n_mbs(self) -> int:
+        return len(self.mbs)
+
+
+def _chunk_scores(h_c: torch.Tensor, labels_c: torch.Tensor,
+                  head: torch.Tensor) -> torch.Tensor:
+    return gather_logprobs(head_logits(h_c, head), labels_c)
+
+
+class TorchTrainEngine(TrainableEngine):
+    """Owns the f32 masters and the optimizer state on one device."""
+
+    def __init__(
+        self,
+        cfg: TransformerConfig,
+        params: Dict[str, torch.Tensor],  # a Transformer state dict
+        opt_cfg: Optional[OptimizerConfig] = None,
+        ft_spec: Optional[FinetuneSpec] = None,
+        device=None,
+        compute_dtype: str = "bfloat16",
+        length_bucket: int = 128,
+        rows_bucket: int = 8,
+        seqs_bucket: int = 8,
+        attn_impl: str = "auto",
+        remat=False,
+        logprob_chunk: Optional[int] = 512,
+        fill_bucket: Optional[int] = None,
+    ):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.compute_dtype = getattr(torch, compute_dtype)
+        self.length_bucket = length_bucket
+        self.rows_bucket = rows_bucket
+        self.seqs_bucket = seqs_bucket
+        self.fill_bucket = fill_bucket
+        self.attn_impl = attn_impl
+        self.remat = remat
+        self.logprob_chunk = logprob_chunk
+        # The module holds no weights: every forward runs it through
+        # functional_call over compute-dtype copies of self.params.
+        self.model = Transformer(cfg, device="meta")
+        expected = set(self.model.state_dict())
+        if set(params) != expected:
+            raise KeyError(f"params do not match the model: missing "
+                           f"{sorted(expected - set(params))}, unexpected "
+                           f"{sorted(set(params) - expected)}")
+        train = opt_cfg is not None
+        # Training keeps explicit f32 masters: bf16 rounds away small Adam
+        # updates; compute still runs in compute_dtype.
+        self.params = {
+            n: t.detach().to(
+                self.device,
+                torch.float32 if train and t.is_floating_point() else t.dtype,
+            ).requires_grad_(train)
+            for n, t in params.items()
+        }
+        self.optimizer = None
+        if train:
+            total = ft_spec.total_train_steps if ft_spec is not None else 1000
+            self.optimizer = Optimizer(opt_cfg, list(self.params.values()),
+                                       total)
+        # With time_phases, train_uniform synchronizes after the fwd-bwd and
+        # after the optimizer and records both times in last_phase_secs.
+        self.time_phases = False
+        self.last_phase_secs: Dict[str, float] = {}
+
+    @property
+    def opt_step_count(self) -> int:
+        return self.optimizer.count if self.optimizer is not None else 0
+
+    @property
+    def lr_schedule(self) -> Callable[[int], float]:
+        return self.optimizer.lr_schedule
+
+    # -------------- internals --------------
+
+    def _cast(self) -> Dict[str, torch.Tensor]:
+        cd = self.compute_dtype
+        return {n: p.to(cd) if p.is_floating_point() else p
+                for n, p in self.params.items()}
+
+    def _hidden_or_logits(self, cast, batch, return_hidden: bool):
+        out, _ = torch.func.functional_call(
+            self.model, cast, (batch["tokens"], batch["positions"]),
+            dict(segment_ids=batch["segment_ids"], attn_impl=self.attn_impl,
+                 remat=self.remat, return_kv=False,
+                 return_hidden=return_hidden),
+        )
+        return out
+
+    def _forward_token_logprobs(self, cast, batch) -> torch.Tensor:
+        """[R, L] per-token logprobs through the chunked head: each column
+        chunk computes its logits and gathers its scores under checkpoint,
+        so the backward recomputes the chunk's logits instead of keeping
+        them (the head matmul is redone once)."""
+        h = self._hidden_or_logits(cast, batch, return_hidden=True)
+        L = h.shape[1]
+        labels = PF.next_token_labels(batch["tokens"])
+        C = self.logprob_chunk or L
+        if L % C != 0:
+            C = L  # bucketing guarantees divisibility in practice
+        head = cast[head_param_name(self.cfg)]
+        s = torch.cat([
+            checkpoint(_chunk_scores, h[:, c:c + C], labels[:, c:c + C], head,
+                       use_reentrant=False)
+            for c in range(0, L, C)
+        ], dim=1)
+        return PF.shift_mask_scores(s, batch["segment_ids"])
+
+    def _use_chunked_logprobs(self, fn) -> bool:
+        return (
+            self.logprob_chunk is not None
+            and not self.cfg.is_critic
+            and bool(getattr(fn, "wants_token_logprobs", False))
+        )
+
+    @staticmethod
+    def _slice(ub: UniformBatch, i: int) -> Dict[str, torch.Tensor]:
+        batch = {k: g[i * ub.R:(i + 1) * ub.R] for k, g in ub.grids.items()}
+        batch.update({k: v[i] for k, v in ub.seq.items()})
+        return batch
+
+    def _grad_step(self, ub, loss_fn, i, denom, scale):
+        """One micro-batch: forward, loss, backward into the masters'
+        ``.grad`` (which sums over the micro-batches)."""
+        batch = self._slice(ub, i)
+        cast = self._cast()
+        if self._use_chunked_logprobs(loss_fn):
+            out = self._forward_token_logprobs(cast, batch)
+        else:
+            out = self._hidden_or_logits(cast, batch, return_hidden=False)
+        loss_sum, stats = loss_fn(out, batch)
+        loss = loss_sum / max(denom, 1.0)
+        (loss * scale if scale != 1.0 else loss).backward()
+        return loss.detach() * scale, {k: v.detach() for k, v in stats.items()}
+
+    def accumulate_grads(self, ub: UniformBatch, loss_fn: LossFn,
+                         idxs: List[int], weights: List[float],
+                         glob: bool = True):
+        """Gradients of the micro-batches ``idxs`` summed into the masters'
+        ``.grad``; returns the summed (loss, stats)."""
+        total_w = sum(weights)
+        scale = 1.0 if glob else 1.0 / len(idxs)
+        for p in self.params.values():
+            p.grad = None
+        loss_acc, stats_acc = None, {}
+        for i, w in zip(idxs, weights):
+            loss, stats = self._grad_step(ub, loss_fn, i,
+                                          total_w if glob else w, scale)
+            loss_acc = loss if loss_acc is None else loss + loss_acc
+            stats_acc = {k: stats[k] + stats_acc[k] if k in stats_acc
+                         else stats[k] for k in stats}
+        return loss_acc, stats_acc
+
+    # -------------- upload-once uniform batches --------------
+
+    def upload_uniform(self, input_: SequenceSample,
+                       mb_spec: MicroBatchSpec) -> UniformBatch:
+        """Pack the whole batch into micro-batches of one ``[R, L]`` shape
+        and upload it to the device once."""
+        mbs = mbu.split_into_microbatches(
+            input_, mb_spec, length_bucket=self.length_bucket,
+            rows_bucket=self.rows_bucket, seqs_bucket=self.seqs_bucket,
+            fill_bucket=self.fill_bucket,
+        )
+        R, L = mbs[0].layout.shape
+        S = round_up(max(len(mb.seq_mask) for mb in mbs), self.seqs_bucket)
+
+        def up(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        grids = {k: up(np.concatenate([mb.grids[k] for mb in mbs], axis=0))
+                 for k in mbs[0].grids}
+
+        def pad_stack(getter) -> torch.Tensor:
+            rows = []
+            for mb in mbs:
+                v = np.asarray(getter(mb))
+                pad = np.zeros((S,) + v.shape[1:], v.dtype)
+                pad[: len(v)] = v
+                rows.append(pad)
+            return up(np.stack(rows))
+
+        seq = {
+            "seq_rows": pad_stack(lambda mb: mb.seq_rows),
+            "seq_first_cols": pad_stack(lambda mb: mb.seq_first_cols),
+            "seq_last_cols": pad_stack(lambda mb: mb.seq_last_cols),
+            "seq_mask": pad_stack(lambda mb: mb.seq_mask),
+        }
+        for k in mbs[0].scalars:
+            seq[k] = pad_stack(lambda mb, k=k: mb.scalars[k])
+        return UniformBatch(mbs=mbs, R=R, L=L, S=S, grids=grids, seq=seq)
+
+    @torch.no_grad()
+    def run_prep(self, ub: UniformBatch, prep_fn: Callable,
+                 scalars: Optional[Dict[str, float]] = None
+                 ) -> Dict[str, torch.Tensor]:
+        """Full-batch preprocessing on the device:
+        ``prep_fn(grids, seq, R, scalars) -> (extra_grids, out_scalars)``.
+        The extra grids join ``ub.grids``; the returned scalars stay on the
+        device for the end-of-step fetch."""
+        sc = {k: torch.tensor(v, dtype=torch.float32, device=self.device)
+              for k, v in (scalars or {}).items()}
+        extra, out_scalars = prep_fn(ub.grids, ub.seq, ub.R, sc)
+        ub.grids.update(extra)
+        return out_scalars
+
+    def train_uniform(
+        self,
+        ub: UniformBatch,
+        loss_fn: LossFn,
+        loss_weight_fn: Callable[[mbu.MicroBatch], float],
+        mb_indices: Optional[List[int]] = None,
+        token_normalize_scope: str = "global",
+        skip_update_rule: Optional[Tuple[str, str, float]] = None,
+        extra_fetch: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> Dict[str, float]:
+        """One optimizer step over the micro-batches ``mb_indices`` (default
+        all) of an uploaded batch, with one host sync.
+
+        ``loss_fn`` returns the SUM of per-token losses; it is divided by
+        the total ``loss_weight_fn`` mass of the step ("global" scope) or of
+        each micro-batch ("mb"). ``skip_update_rule=(num_key, den_key,
+        cap)`` skips the update when stats[num]/max(stats[den], 1) > cap.
+        ``grad_norm`` is the global norm before clipping."""
+        if self.optimizer is None:
+            raise RuntimeError("engine built without an optimizer")
+        idxs = list(mb_indices) if mb_indices is not None else list(range(ub.n_mbs))
+        weights = [float(loss_weight_fn(ub.mbs[i])) for i in idxs]
+        glob = token_normalize_scope == "global"
+        t0 = self._phase_clock()
+        loss_acc, stats_acc = self.accumulate_grads(ub, loss_fn, idxs, weights,
+                                                    glob)
+        params = list(self.params.values())
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        fetch = {**stats_acc, **(extra_fetch or {}), "loss": loss_acc,
+                 "grad_norm": grad_norm}
+        values = torch.stack([v.detach().float().reshape(()) for v in fetch.values()])
+        fetched = dict(zip(fetch, values.tolist()))  # the one host sync
+        t1 = self._phase_clock()
+        apply = True
+        if skip_update_rule is not None and skip_update_rule[2]:
+            num, den, cap = skip_update_rule
+            ratio = fetched[num] / max(fetched[den], 1.0)
+            apply = cap <= 0.0 or ratio <= cap
+        # The schedule is read at the pre-increment count.
+        applied_lr = float(self.lr_schedule(self.opt_step_count))
+        if apply:
+            self.optimizer.step(params, grads, grad_norm, fetched["grad_norm"])
+        for p in params:
+            p.grad = None
+        t2 = self._phase_clock()
+        if self.time_phases:
+            self.last_phase_secs = {"fwd_bwd": t1 - t0, "optimizer": t2 - t1}
+        out = self._finish_stats(fetched)
+        out["update_applied"] = float(apply)
+        out["lr"] = applied_lr
+        out["total_tokens"] = float(sum(ub.mbs[i].n_tokens for i in idxs))
+        out["loss_weight"] = sum(weights)
+        return out
+
+    def _phase_clock(self) -> float:
+        if not self.time_phases:
+            return 0.0
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    @staticmethod
+    def _finish_stats(fetched: Dict[str, Any]) -> Dict[str, float]:
+        """Host-side stat post-processing (reference ``_finish_stats:757``
+        without its MoE and telemetry parts)."""
+        return {k: float(v) for k, v in fetched.items()}
+
+
+@dataclasses.dataclass
+class TorchTrainBackend(ModelBackend):
+    """Builds a TorchTrainEngine for a Model whose ``module`` is a
+    ``(TransformerConfig, state dict)`` pair."""
+
+    optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
+    device: Any = None  # cuda unless named
+    compute_dtype: str = "bfloat16"
+    length_bucket: int = 128
+    rows_bucket: int = 8
+    seqs_bucket: int = 8
+    attn_impl: str = "auto"
+    remat: Any = False
+    logprob_chunk: Optional[int] = 512
+    fill_bucket: Optional[int] = None
+
+    def initialize(self, model: Model, spec: FinetuneSpec) -> Model:
+        cfg, params = model.module
+        model.module = TorchTrainEngine(
+            cfg,
+            params,
+            opt_cfg=self.optimizer,
+            ft_spec=spec,
+            device=self.device,
+            compute_dtype=self.compute_dtype,
+            length_bucket=self.length_bucket,
+            rows_bucket=self.rows_bucket,
+            seqs_bucket=self.seqs_bucket,
+            attn_impl=self.attn_impl,
+            remat=self.remat,
+            logprob_chunk=self.logprob_chunk,
+            fill_bucket=self.fill_bucket,
+        )
+        return model

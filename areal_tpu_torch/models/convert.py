@@ -15,6 +15,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from areal_tpu_torch import resolve_device
 from areal_tpu_torch.models.config import TransformerConfig
 
 # matrix key -> its bias key in the reference layout (None: no bias)
@@ -46,7 +47,9 @@ _TRANSPOSED = set(_LINEAR) | {"lm_head"}
 def params_from_jax(flat: Mapping[str, np.ndarray], cfg: TransformerConfig,
                     device=None, dtype=None) -> Dict[str, torch.Tensor]:
     """Reference flat params (numpy) → the port's ``Transformer`` state dict
-    on ``device`` (in ``dtype``, or the arrays' own dtype)."""
+    on ``device`` (cuda unless the caller names one; in ``dtype``, or the
+    arrays' own dtype)."""
+    device = resolve_device(device)
     layer_map = _layer_key_map()
     out: Dict[str, torch.Tensor] = {}
 

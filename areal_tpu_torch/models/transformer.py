@@ -14,19 +14,28 @@ form, not in arithmetic:
    cache buffers they own (``models/generate.py``).
 
 Supports GQA, rotate-half RoPE, RMSNorm or LayerNorm, gated or plain MLP,
-optional qk-norm and attention biases, and tied or untied embeddings. MoE,
-the critic head, learned positions, ring/pipeline parallelism and remat
-wait for later slices.
+optional qk-norm and attention biases, tied or untied embeddings, and the
+training forward: no KV stack (``return_kv=False``), the final hidden
+instead of logits (``return_hidden=True``) and per-layer remat
+(``_maybe_checkpoint:385``). MoE, the critic head, learned positions and
+ring/pipeline parallelism wait for later slices.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
+from areal_tpu_torch import resolve_device
 from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.ops.attention import decode_attention, packed_attention
 
@@ -241,43 +250,116 @@ class Transformer(nn.Module):
         cache_write_index=None,
         kv_valid: Optional[torch.Tensor] = None,
         attn_impl: str = "auto",
-    ) -> Tuple[torch.Tensor, KVCache]:
-        """Returns (logits [B, T, V], kv) with kv {"k", "v"} stacking per-layer
+        remat=False,  # False | True / "full" | "dots" (packed, no KV only)
+        return_kv: bool = True,  # False in training: no per-layer K/V stack
+        return_hidden: bool = False,  # skip the head; return final hidden
+    ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+        """Returns (output, kv): output is logits [B, T, V] (the final hidden
+        [B, T, D] with ``return_hidden``); kv {"k", "v"} stacks per-layer
         keys/values [n_layers, B, S, Hkv, Dh] (S = T in packed mode, the
-        cache length in decode mode).
+        cache length in decode mode), or is None with ``return_kv=False``.
 
         Packed mode: ``segment_ids`` given, no cache — block-causal attention.
         Decode mode: ``kv_cache`` given — T new tokens are written at
-        ``cache_write_index`` (in place) and attend the ``kv_valid`` slots."""
+        ``cache_write_index`` (in place) and attend the ``kv_valid`` slots.
+        ``remat`` recomputes each layer in the backward (reference
+        ``_maybe_checkpoint:385``); it applies to the training forward only
+        (packed mode with ``return_kv=False``)."""
         cfg = self.cfg
         decode = kv_cache is not None
+        if remat not in _REMAT_MODES:
+            raise ValueError(f"unknown remat mode {remat!r}")
+        if remat and (decode or return_kv):
+            raise ValueError("remat needs the packed forward with return_kv=False")
         h = self.embedding(tokens)
         if cfg.scale_embeddings:  # gemma normalizer
             h = h * torch.tensor(cfg.hidden_dim ** 0.5, dtype=h.dtype)
         cos, sin = rope_tables(positions, cfg.head_dim, cfg.rotary_base)
         ks, vs = [], []
         for i, layer in enumerate(self.layers):
+            if remat:
+                h = _checkpointed_layer(layer, remat, h, cos, sin, segment_ids,
+                                        positions, attn_impl)
+                continue
             cache = (kv_cache["k"][i], kv_cache["v"][i]) if decode else None
             h, (k, v) = layer(
                 h, cos, sin, None if decode else segment_ids,
                 None if decode else positions, cache, cache_write_index,
                 kv_valid, attn_impl,
             )
-            ks.append(k)
-            vs.append(v)
+            if return_kv and not decode:
+                ks.append(k)
+                vs.append(v)
         h = self.final_ln(h)
-        kv = kv_cache if decode else {"k": torch.stack(ks), "v": torch.stack(vs)}
-        return self.apply_head(h), kv
+        if decode:
+            kv = kv_cache
+        elif return_kv:
+            kv = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        else:
+            kv = None
+        return (h if return_hidden else self.apply_head(h)), kv
 
     def apply_head(self, h: torch.Tensor) -> torch.Tensor:
         """Final hidden → logits (tied embeddings or a separate head)."""
-        if self.cfg.tie_word_embeddings:
-            return F.linear(h, self.embedding.weight)
-        return self.lm_head(h)
+        head = self.embedding if self.cfg.tie_word_embeddings else self.lm_head
+        return head_logits(h, head.weight)
+
+
+def head_param_name(cfg: TransformerConfig) -> str:
+    """The state-dict name of the head matrix ``[V, D]``: the embedding
+    when tied."""
+    return "embedding.weight" if cfg.tie_word_embeddings else "lm_head.weight"
+
+
+def head_logits(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """The head's one definition (reference ``apply_head:519``): hidden
+    ``[..., D]`` times the head matrix ``[V, D]``. The train engine calls it
+    per column chunk with the compute-dtype copy of the matrix."""
+    return F.linear(h, head)
+
+
+# ---------------- remat ----------------
+
+_REMAT_MODES = (False, None, True, "full", "dots")
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The ``"dots"`` policy (reference ``dots_with_no_batch_dims_saveable``):
+    keep the outputs of non-batched matrix products, recompute the rest —
+    norms, rope, activations and attention (K1 reruns in the backward)."""
+    if op in _SAVED_BY_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed_layer(layer: Block, remat, h, cos, sin, segment_ids,
+                        positions, attn_impl) -> torch.Tensor:
+    """One layer under ``torch.utils.checkpoint``. Its parameters go in as
+    explicit inputs and are swapped back in for the recompute, so the
+    recompute sees the tensors the forward saw even when a caller ran the
+    forward through ``torch.func.functional_call`` (the train engine's
+    compute-dtype copies of its masters)."""
+    names, tensors = zip(*layer.named_parameters())
+
+    def run(h, *tensors):
+        out, _ = torch.func.functional_call(
+            layer, dict(zip(names, tensors)),
+            (h, cos, sin, segment_ids, positions, None, None, None, attn_impl),
+        )
+        return out
+
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls)
+    return checkpoint(run, h, *tensors, use_reentrant=False, **kw)
 
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, length: int,
                   dtype=torch.float32, device=None) -> KVCache:
+    """Zero K/V caches on ``device`` (cuda unless the caller names one)."""
+    device = resolve_device(device)
     shape = (cfg.n_layers, batch, length, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -285,10 +367,11 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, length: int,
 
 def init_params(cfg: TransformerConfig, seed: int, device=None,
                 dtype=torch.float32) -> Dict[str, torch.Tensor]:
-    """Synthetic weights made from ``seed`` on ``device``: normal(0, 0.02)
-    matrices and embeddings, zero biases, unit norm scales (the reference's
-    init recipe; not its numbers)."""
-    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    """Synthetic weights made from ``seed`` on ``device`` (cuda unless the
+    caller names one): normal(0, 0.02) matrices and embeddings, zero biases,
+    unit norm scales (the reference's init recipe; not its numbers)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
     params: Dict[str, torch.Tensor] = {}
     for name, mod in Transformer(cfg, device="meta").named_modules():
         prefix = f"{name}." if name else ""
@@ -303,3 +386,42 @@ def init_params(cfg: TransformerConfig, seed: int, device=None,
                                    dtype=torch.float32) * 0.02).to(dtype)
             params[prefix + pname] = val
     return params
+
+
+def param_count(cfg: TransformerConfig) -> int:
+    """Parameters of the model as the reference counts them
+    (``param_count:537``: attention and MLP matrices, norms, embedding and
+    head; biases are left out)."""
+    n, d, f, v = cfg.n_layers, cfg.hidden_dim, cfg.intermediate_dim, cfg.vocab_size
+    attn = d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
+    if cfg.moe is not None:
+        fr = cfg.moe.routed_intermediate_dim or f
+        mlp = cfg.moe.num_experts * 3 * d * fr + d * cfg.moe.num_experts
+        if cfg.moe.shared_intermediate_dim:
+            mlp += 3 * d * cfg.moe.shared_intermediate_dim
+    elif cfg.mlp_type == "plain":
+        mlp = 2 * d * f
+    else:
+        mlp = 3 * d * f
+    per_layer = attn + mlp + 2 * d
+    head = d * v if not (cfg.tie_word_embeddings or cfg.is_critic) else 0
+    pos = (
+        cfg.max_position_embeddings * d
+        if cfg.pos_embedding == "learned"
+        else 0
+    )
+    return v * d + n * per_layer + d + head + pos + (d if cfg.is_critic else 0)
+
+
+def activated_param_count(cfg: TransformerConfig) -> int:
+    """Parameters a token actually touches in one forward (reference
+    ``activated_param_count:559``): for MoE, only ``top_k`` of the
+    ``num_experts`` routed FFNs; equals :func:`param_count` for dense
+    models."""
+    if cfg.moe is None:
+        return param_count(cfg)
+    n, d, f = cfg.n_layers, cfg.hidden_dim, cfg.intermediate_dim
+    fr = cfg.moe.routed_intermediate_dim or f
+    total_mlp = cfg.moe.num_experts * 3 * d * fr
+    active_mlp = cfg.moe.top_k * 3 * d * fr
+    return param_count(cfg) - n * (total_mlp - active_mlp)

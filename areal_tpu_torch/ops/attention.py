@@ -3,10 +3,11 @@
 Counterpart of ``areal_tpu/ops/attention.py``. Sequences are packed into
 ``[B, L]`` rows with per-token segment ids (0 = padding) and attend
 block-causally within their own segment. :func:`packed_attention`
-dispatches between the hand-written flash kernel (K1,
-``ops/flash_attention.py``) for CUDA tensors and the plain reference below
-for CPU tensors; :func:`decode_attention` is the KV-cache attention of the
-decode path, plain PyTorch as in the reference.
+dispatches between the hand-written flash kernels
+(``ops/flash_attention.py``: K1 forward, and K1 with K2/K3 behind
+``FlashAttention`` when a gradient is needed) for CUDA tensors and the
+plain reference below for CPU tensors; :func:`decode_attention` is the
+KV-cache attention of the decode path, plain PyTorch as in the reference.
 
 Shapes: q ``[B, T, Hq, D]``; k, v ``[B, S, Hkv, D]`` with Hq = G * Hkv (GQA).
 """
@@ -17,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from areal_tpu_torch.ops.flash_attention import flash_attention
+from areal_tpu_torch.ops.flash_attention import FlashAttention, flash_attention
 
 _NEG_INF = -1e30
 
@@ -92,9 +93,11 @@ def packed_attention(
     impl: str = "auto",
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """``impl``: "auto" (the flash kernel for CUDA tensors, the reference
-    for CPU tensors), "flash" or "reference". A sliding window always takes
-    the reference; ``scale`` defaults to ``head_dim ** -0.5``."""
+    """``impl``: "auto" (the flash kernels for CUDA tensors, the reference
+    for CPU tensors), "flash" or "reference". Under "flash", a forward that
+    needs a gradient goes through :class:`FlashAttention` (K1, then K2/K3 in
+    the backward; their plain versions on the CPU). A sliding window always
+    takes the reference; ``scale`` defaults to ``head_dim ** -0.5``."""
     if impl not in ("auto", "flash", "reference"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if sliding_window is not None:
@@ -107,6 +110,10 @@ def packed_attention(
     if impl == "auto":
         impl = "flash" if q.is_cuda else "reference"
     if impl == "flash":
+        if torch.is_grad_enabled() and any(
+                x.requires_grad for x in (q, k, v)):
+            return FlashAttention.apply(q, k, v, q_segment_ids,
+                                        kv_segment_ids, causal, scale)
         return flash_attention(q, k, v, q_segment_ids, kv_segment_ids,
                                causal=causal, scale=scale)
     mask = segment_mask(q_segment_ids, kv_segment_ids, q_positions,

@@ -29,30 +29,11 @@
 // keys quarter + 4*m of each 64-key tile and owns head dims
 // 4*quarter + 16*c + {0..3} of the output accumulator.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockKV = 64;
-constexpr int kThreads = 256;
-constexpr int kPad = 4;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half(x); }
+using namespace areal_flash;
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -280,10 +261,6 @@ int areal_flash_attention_fwd(const void* q, const void* k, const void* v, const
     default:
       return cudaErrorInvalidValue;
   }
-}
-
-const char* areal_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

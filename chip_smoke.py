@@ -6,7 +6,8 @@
 Phases (any failed check raises, and the script exits non-zero):
 
  (a) card: print its name and power limit, build the CUDA kernels from the
-     sources in this checkout (nvcc, sm_90a);
+     sources in this checkout (one nvcc per source, in parallel, sm_90a) and
+     print ptxas's registers and spills for each kernel;
  (b) K1, the packed flash-attention kernel, against its plain PyTorch
      version computed in float32 on the same bf16 inputs: the main-path
      shape (B=8, T=S=512, 14/2 heads of 64, packed segments and pad rows),
@@ -29,7 +30,35 @@ Phases (any failed check raises, and the script exits non-zero):
      them in f32, and 24 layers carry the difference forward);
  (e) where the time goes: warm prefill and decode-step times at the
      slice's widest prefill, K1's share of the prefill's device time, and
-     the device's idle share during decode (from torch.profiler).
+     the device's idle share during decode (from torch.profiler);
+ (f) K2 (dk, dv) and K3 (dq), the flash-attention backward kernels, against
+     their plain PyTorch version computed in float32 on the same bf16
+     inputs (K1's out and logsumexp, a random dO): the train shape (B=2,
+     T=S=1792, 14/2 heads of 64, packed segments with pad tails), D=128
+     with GQA (28/4 heads) and a ragged T=200. Tolerance: two bf16 ulps at
+     each gradient's largest magnitude (2**-7 * max|ref|; the kernels and
+     the plain version both sum in f32 from the same bf16 inputs and round
+     once); pad rows and columns exactly 0; nothing NaN. Times K1, K2, K3,
+     the plain backward and SDPA's backward at the train shape;
+ (g) the train slice: PPO actor train steps of Qwen2.5-0.5B at full width
+     and depth (bf16 compute, f32 masters, weights from seed 0) on
+     bench.py's batch and recipe (32 trajectories, 27,554 tokens, cap 4096
+     tokens per micro-batch -> 8 micro-batches of [2, 1792]; "dots" remat,
+     log-prob chunks of 512, AdamW lr 1e-5 with bf16 moments). One warm-up
+     step and 3 timed ones: trained tokens/s, ms per step, the fwd-bwd /
+     optimizer split, peak memory. Checks finite loss and grad norm > 0,
+     moved parameters, K2 and K3 launched layers x micro-batches x steps
+     times, and K1 twice that (the "dots" remat reruns K1 in the backward);
+ (h) one micro-batch's loss and per-parameter grad norms through K1-K3
+     against the same micro-batch through the plain attention, on the card;
+     the micro-batch with the most positive-advantage tokens, since with
+     random weights only those carry a gradient (tolerance: loss within 1%,
+     each grad norm within 10%, gradient cosine >= 0.99; the plain
+     attention rounds scores and probabilities to bf16, the kernels keep
+     them in f32, and 24 layers carry the difference forward and back);
+ (i) where the time goes in one train step (torch.profiler): the shares of
+     K1, K2, K3, GEMMs and the rest of the device time, the device's idle
+     share and the kernels per step.
 
 The line before the last is the card's name and power limit, the line
 before that the kernels' JSON record, and the last line
@@ -40,6 +69,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import math
 import os
 import re
 import subprocess
@@ -128,29 +158,101 @@ def check_k1(fa, B, T, Hq, Hkv, D, seed) -> dict:
     return rec
 
 
-def k1_record(fa, seed=0) -> dict:
-    """Times at the main-path shape, and the bound of the same work."""
-    B, T, Hq, Hkv, D = 8, 512, 14, 2, 64
+def kept_mask(seg):
+    """[B, T, T] bool: the (row, column) pairs the kernels keep."""
+    T = seg.shape[1]
+    keep = (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] != 0)
+    return keep & torch.ones(T, T, dtype=torch.bool, device=seg.device).tril()
+
+
+def bound(flops: int, nbytes: int) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the bf16 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, bytes=nbytes)
+
+
+def k1_record(fa, B, T, Hq=14, Hkv=2, D=64, seed=0) -> dict:
+    """Times at one shape, and the bound of the same work."""
     (q, k, v), seg = packed_inputs(B, T, Hq, Hkv, D, seed)
     kernel_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, seg, seg))
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, seg, seg))
-    keep = (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] != 0)
-    keep &= torch.ones(T, T, dtype=torch.bool, device=seg.device).tril()
+    keep = kept_mask(seg)
     pairs = int(keep.sum())  # (row, column) pairs this data needs, per head
     flops = 4 * D * Hq * pairs  # q.k and p.v, 2 flops per multiply-add
     nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) \
         + 4 * 2 * seg.numel() + 4 * B * Hq * T  # q,k,v,o bf16; segs; lse
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     # The yardstick: one PyTorch call of the same function (the port never
     # calls it). Its rows with no valid key come out NaN; only timed.
     mask = keep[:, None]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True))
-    return dict(kernel_ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=max(t_ops, t_bytes) * 1e3,
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                library_ms=library_ms, flops=flops, bytes=nbytes)
+    return dict(B=B, T=T, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, **bound(flops, nbytes))
+
+
+# ---------------- (f) K2 and K3 against their plain version ----------------
+
+def bwd_inputs(fa, B, T, Hq, Hkv, D, seed):
+    """q, k, v, segment ids, K1's out and lse, and a random dO (bf16)."""
+    (q, k, v), seg = packed_inputs(B, T, Hq, Hkv, D, seed)
+    out, lse = fa.flash_attention(q, k, v, seg, seg, return_lse=True)
+    gen = torch.Generator().manual_seed(seed + 100)
+    dout = torch.randn(q.shape, generator=gen).to("cuda", torch.bfloat16)
+    return q, k, v, seg, out, lse, dout
+
+
+def check_bwd(fa, B, T, Hq, Hkv, D, seed) -> dict:
+    q, k, v, seg, out, lse, dout = bwd_inputs(fa, B, T, Hq, Hkv, D, seed)
+    got = fa.flash_attention_bwd(q, k, v, seg, seg, out, lse, dout)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), seg,
+                                       seg, out.float(), lse, dout.float())
+    pad = seg == 0
+    rec = dict(B=B, T=T, Hq=Hq, Hkv=Hkv, D=D, pad_rows=int(pad.sum()))
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        err = (a.float() - b).abs().max().item()
+        tol = 2.0 ** -7 * b.abs().max().item()
+        rec[f"{name}_max_abs_err"], rec[f"{name}_tol"] = err, tol
+        check(not torch.isnan(a).any().item(), f"{name} NaN at {rec}")
+        check(err <= tol, f"{name} disagrees with the plain backward: {rec}")
+        check(bool((a[pad] == 0).all().item()), f"{name} pad rows not 0: {rec}")
+    print("K2/K3 check", json.dumps(rec), flush=True)
+    return rec
+
+
+def bwd_records(fa, B=2, T=1792, Hq=14, Hkv=2, D=64, seed=0) -> dict:
+    """Times of K2, K3, the plain backward and SDPA's backward at one shape,
+    with each kernel's bound."""
+    q, k, v, seg, out, lse, dout = bwd_inputs(fa, B, T, Hq, Hkv, D, seed)
+    scale = D ** -0.5
+    di = fa.backward_di(out, dout)
+    args = (q, k, v, seg, seg, dout, lse, di, True, scale)
+    k3_ms = cuda_ms(lambda: fa.launch_bwd_dq(*args))
+    k2_ms = cuda_ms(lambda: fa.launch_bwd_dkv(*args))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, seg, seg, out, lse, dout), iters=5, warmup=1)
+    keep = kept_mask(seg)
+    pairs = Hq * int(keep.sum())  # kept pairs over all q heads
+    qkv = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, dO, k, v in bf16
+    rows = 4 * 2 * B * Hq * T + 4 * 2 * seg.numel()  # lse, di; segment ids
+    k2 = bound(4 * 2 * D * pairs, qkv + rows + 2 * (k.numel() + v.numel()))
+    k3 = bound(3 * 2 * D * pairs, qkv + rows + 2 * q.numel())
+    # The yardstick: SDPA's backward over the same bool mask (the port never
+    # calls it; its fully masked rows are NaN, so it is only timed).
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    o = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=keep[:, None], enable_gqa=True)
+    g = dout.transpose(1, 2)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        o, (qt, kt, vt), g, retain_graph=True))
+    return {"B": B, "T": T, "plain_bwd_ms": plain_ms,
+            "sdpa_bwd_ms": library_ms,
+            "flash_attention_bwd_dkv": dict(kernel_ms=k2_ms, **k2),
+            "flash_attention_bwd_dq": dict(kernel_ms=k3_ms, **k3)}
 
 
 # ---------------- (c) the slice ----------------
@@ -291,9 +393,224 @@ def time_breakdown(genmod, model, toks, lens, S, eos) -> dict:
     }
 
 
+# ---------------- (g) the train slice ----------------
+
+def bench_batch(vocab: int):
+    """bench.py's PPO batch (bench.py:98-124): 32 trajectories of ~250
+    prompt + ~640 generated tokens, drawn in bench.py's order."""
+    import numpy as np
+
+    from areal_tpu_torch.api.data import SequenceSample
+    from areal_tpu_torch.base.testing import bench_trajectory_dist
+
+    n_seq = 32
+    rng, plens, glens = bench_trajectory_dist(0, n_seq)
+    seqlens = (plens + glens).astype(int)
+    total = int(seqlens.sum())
+    toks = rng.randint(2, vocab, total).astype(np.int32)
+    pmask, lps = [], []
+    for p, g in zip(plens, glens):
+        pmask.append(np.concatenate([np.ones(p, np.int32), np.zeros(g, np.int32)]))
+        lps.append(np.concatenate([np.zeros(p, np.float32),
+                                   -rng.rand(g).astype(np.float32)]))
+    return SequenceSample.from_default(
+        ids=[f"b{i}" for i in range(n_seq)],
+        data={
+            "packed_input_ids": toks,
+            "prompt_mask": np.concatenate(pmask),
+            "packed_logprobs": np.concatenate(lps),
+            "rewards": rng.rand(n_seq).astype(np.float32),
+            "seq_no_eos_mask": np.zeros(n_seq, np.float32),
+        },
+        seqlens=seqlens.tolist(),
+    )
+
+
+def build_trainer(cfg):
+    """bench.py's backend and PPO recipe (bench.py:56-96) on the port."""
+    from areal_tpu_torch.algorithms.ppo import (
+        PPOActorInterface,
+        PPOHyperparameters,
+    )
+    from areal_tpu_torch.api.model import FinetuneSpec, Model
+    from areal_tpu_torch.api.train_config import OptimizerConfig
+    from areal_tpu_torch.backend.torch_train import TorchTrainBackend
+    from areal_tpu_torch.models.transformer import init_params
+
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    backend = TorchTrainBackend(
+        optimizer=OptimizerConfig(lr=1e-5, lr_scheduler_type="constant",
+                                  warmup_steps_proportion=0.0,
+                                  mu_dtype="bfloat16", nu_dtype="bfloat16"),
+        device="cuda", compute_dtype="bfloat16", length_bucket=512,
+        rows_bucket=4, seqs_bucket=16, remat="dots", logprob_chunk=512,
+    )
+    model = backend.initialize(Model("actor", (cfg, params)),
+                               FinetuneSpec(1, 512, 64))
+    del params  # the engine holds f32 masters
+    hp = PPOHyperparameters(ppo_n_minibatches=1, adv_norm=True, kl_ctl=0.0,
+                            disable_value=True)
+    return model, PPOActorInterface(hp)
+
+
+def run_train_slice(fa, cfg, model, iface, batch, spec, steps: int = 3) -> dict:
+    from areal_tpu_torch.backend import microbatch as mbu
+
+    eng = model.module
+    mbs = mbu.split_into_microbatches(
+        batch, spec, length_bucket=eng.length_bucket,
+        rows_bucket=eng.rows_bucket, seqs_bucket=eng.seqs_bucket)
+    n_mbs, shape, fill = len(mbs), mbs[0].layout.shape, mbu.pack_fill(mbs)
+    check(n_mbs == 8 and shape == (2, 1792),
+          f"packer gave {n_mbs} micro-batches of {shape}, expected 8 of (2, 1792)")
+    tokens = int(batch.total_lens().sum())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = iface.train_step(model, batch, spec)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    watch = ["embedding.weight", "layers.0.wq.weight", "layers.23.w_down.weight"]
+    before = {n: eng.params[n].detach().clone() for n in watch}
+    eng.time_phases = True
+    fa.reset_launch_count()
+    stats, phases = [], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        stats.append(iface.train_step(model, batch, spec))
+        phases.append(eng.last_phase_secs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.launch_counts()
+    eng.time_phases = False
+    moved = {n: (eng.params[n].detach() - before[n]).abs().max().item()
+             for n in watch}
+    per = cfg.n_layers * n_mbs * steps
+    rec = {
+        "n_mbs": n_mbs, "mb_shape": list(shape), "pack_fill": fill,
+        "tokens_per_step": tokens, "steps": steps,
+        "trained_tokens_per_s": steps * tokens / wall,
+        "ms_per_step": 1e3 * wall / steps, "warmup_step_s": warm_s,
+        "fwd_bwd_ms": 1e3 * sum(p["fwd_bwd"] for p in phases) / steps,
+        "optimizer_ms": 1e3 * sum(p["optimizer"] for p in phases) / steps,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": launches, "launches_expected_k2_k3": per,
+        "loss": [s["actor_loss"] for s in stats],
+        "grad_norm": [s["grad_norm"] for s in stats],
+        "importance_weight": [s["importance_weight"] for s in stats],
+        "warmup_loss": warm["actor_loss"], "param_max_abs_change": moved,
+    }
+    for s in stats:
+        check(math.isfinite(s["actor_loss"]) and math.isfinite(s["grad_norm"])
+              and s["grad_norm"] > 0, f"bad train stats {s}")
+        check(s["n_ppo_steps"] == 1.0 and s["lr"] == 1e-5,
+              f"unexpected step {s}")
+    check(all(v > 0 for v in moved.values()), f"parameters did not move: {moved}")
+    check(launches["flash_attention_bwd_dkv"] == per
+          and launches["flash_attention_bwd_dq"] == per,
+          f"K2/K3 launches {launches} != {per} "
+          f"({cfg.n_layers} layers x {n_mbs} micro-batches x {steps} steps)")
+    check(launches["flash_attention_fwd"] == 2 * per,
+          f"K1 launches {launches['flash_attention_fwd']} != 2 x {per} "
+          "(forward + the remat recompute)")
+    return rec
+
+
+# ---------------- (h) the backward through K1-K3 vs plain attention ----------------
+
+def compare_attention_impls(model, iface, batch, spec) -> dict:
+    from areal_tpu_torch.algorithms.ppo import _action_token_weight
+
+    eng = model.module
+    ub = eng.upload_uniform(batch, spec)
+    eng.run_prep(ub, iface._prep_fn, scalars={"kl_coef": 0.0})
+    # The micro-batch with the most positive-advantage tokens: with random
+    # weights every ratio is far below 1 - eps_clip, so only tokens with a
+    # positive advantage carry a gradient.
+    positive = (ub.grids["advantages"] > 0).reshape(ub.n_mbs, -1).sum(-1)
+    mb = int(positive.argmax())
+    weight = _action_token_weight(ub.mbs[mb])
+    res = {}
+    for impl in ("auto", "reference"):
+        eng.attn_impl = impl
+        loss, stats = eng.accumulate_grads(ub, iface._loss_fn, [mb], [weight])
+        grads = {n: p.grad.detach().clone() for n, p in eng.params.items()}
+        res[impl] = (float(loss), float(stats["importance_weight_sum"]), grads)
+        for p in eng.params.values():
+            p.grad = None
+    eng.attn_impl = "auto"
+    (l_k, iw_k, g_k), (l_r, iw_r, g_r) = res["auto"], res["reference"]
+    rel = {n: abs(g_k[n].norm().item() - g_r[n].norm().item())
+           / max(g_r[n].norm().item(), 1e-30) for n in g_r}
+    dot = sum((g_k[n].double() * g_r[n].double()).sum().item() for n in g_r)
+    nk = math.sqrt(sum(g_k[n].double().pow(2).sum().item() for n in g_r))
+    nr = math.sqrt(sum(g_r[n].double().pow(2).sum().item() for n in g_r))
+    worst = max(rel, key=rel.get)
+    rec = {"micro_batch": mb, "positive_advantage_tokens": int(positive[mb]),
+           "loss_kernels": l_k, "loss_plain": l_r,
+           "loss_rel_err": abs(l_k - l_r) / max(abs(l_r), 1e-30),
+           "importance_weight_sum_kernels": iw_k,
+           "importance_weight_sum_plain": iw_r,
+           "grad_norm_kernels": nk, "grad_norm_plain": nr,
+           "grad_cosine": dot / max(nk * nr, 1e-300),
+           "max_grad_norm_rel_err": rel[worst], "worst_param": worst}
+    print("train micro-batch K1-K3 vs plain attention", json.dumps(rec),
+          flush=True)
+    check(all(math.isfinite(x) for x in (l_k, nk)) and nk > 0,
+          "non-finite loss or grads, or no gradient at all")
+    check(rec["loss_rel_err"] <= 0.01, "loss through K1-K3 disagrees")
+    check(rec["max_grad_norm_rel_err"] <= 0.1, "a grad norm disagrees")
+    check(rec["grad_cosine"] >= 0.99, "grad directions disagree")
+    return rec
+
+
+# ---------------- (i) where the time goes in one train step ----------------
+
+KERNEL_CLASSES = (
+    ("K1", ("flash_fwd_kernel",)),
+    ("K2", ("flash_bwd_dkv_kernel",)),
+    ("K3", ("flash_bwd_dq_kernel",)),
+    # cuBLAS's kernels on Hopper: nvjet_* (CUDA 12.8), else *gemm*/cutlass
+    ("gemm", ("nvjet", "gemm", "cutlass", "xmma", "cublas")),
+)
+
+
+def train_breakdown(model, iface, batch, spec, step_ms: float) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        iface.train_step(model, batch, spec)
+        torch.cuda.synchronize()
+        profiled_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(e.device_time for e in events)
+    shares = dict.fromkeys([c for c, _ in KERNEL_CLASSES] + ["rest"], 0.0)
+    by_name: dict = {}
+    for e in events:
+        name = e.name.lower()
+        cls = next((c for c, keys in KERNEL_CLASSES
+                    if any(key in name for key in keys)), "rest")
+        shares[cls] += e.device_time
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.device_time
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    device_ms = total_us / 1e3
+    return {
+        "device_ms_per_step": device_ms, "step_ms": step_ms,
+        "profiled_step_ms": profiled_ms,
+        "device_idle_share": 1 - device_ms / step_ms,
+        "kernels_per_step": len(events),
+        "shares": {k: v / total_us for k, v in shares.items()},
+        "device_ms": {k: v / 1e3 for k, v in shares.items()},
+        "top_kernels_ms": [(n, t / 1e3) for n, t in top],
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
+    from areal_tpu_torch.api.data import MicroBatchSpec
     from areal_tpu_torch.models.config import qwen2_5_0_5b
     from areal_tpu_torch.models import generate as genmod
     from areal_tpu_torch.models.transformer import Transformer, init_params
@@ -306,28 +623,34 @@ def main() -> None:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    # (a) build
+    # (a) build, one nvcc per source, together
     t0 = time.monotonic()
-    lib = fa.build_library()
-    ptxas = re.findall(r"flash_fwd_kernelI(\w+?)Li(\d+)E.*?(\d+) bytes spill "
-                       r"stores.*?Used (\d+) registers",
-                       (lib.parent / "build.log").read_text(), re.S)
-    print(f"built {os.path.relpath(lib)} in {time.monotonic() - t0:.1f}s; "
-          "ptxas (type, head_dim, spill-store bytes, registers):",
-          json.dumps(ptxas), flush=True)
+    libs = fa.build_libraries()
+    ptxas = []
+    for lib in libs.values():
+        ptxas += re.findall(r"(flash_(?:fwd|bwd_dkv|bwd_dq)_kernel)I\d*(\w+?)Li"
+                            r"(\d+)E.*?(\d+) bytes spill stores.*?Used (\d+) "
+                            r"registers", (lib.parent / "build.log").read_text(),
+                            re.S)
+    print(f"built {', '.join(os.path.relpath(p) for p in libs.values())} in "
+          f"{time.monotonic() - t0:.1f}s; ptxas (kernel, type, head_dim, "
+          "spill-store bytes, registers):", json.dumps(ptxas), flush=True)
 
     # (b) K1 against its plain version
-    main_rec = check_k1(fa, 8, 512, 14, 2, 64, seed=0)
+    check_k1(fa, 8, 512, 14, 2, 64, seed=0)
     check_k1(fa, 2, 512, 28, 4, 128, seed=1)
     check_k1(fa, 3, 200, 14, 2, 64, seed=2)
-    timing = k1_record(fa)
-    print("K1 timing", json.dumps(timing), f"({card})", flush=True)
+    k1_train_check = check_k1(fa, 2, 1792, 14, 2, 64, seed=3)
+    timing = k1_record(fa, 8, 512)
+    timing_train = k1_record(fa, 2, 1792)
+    print("K1 timing", json.dumps([timing, timing_train]), f"({card})",
+          flush=True)
 
-    # (c) the slice, through the server's HTTP entry point
+    # (c) the serving slice, through the server's HTTP entry point
     cfg = qwen2_5_0_5b()
     eos = 151643  # Qwen2.5's <|endoftext|>
     params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
-    stats, launches, wall, prompts = run_slice(fa, cfg, params, eos)
+    stats, serve_launches, wall, prompts = run_slice(fa, cfg, params, eos)
     prefill_ms = 1e3 * stats["prefill_secs"] / stats["prefill_calls"]
     decode_ms = 1e3 * stats["decode_secs"] / stats["decode_steps"]
     tok_s = stats["generated_tokens"] / (stats["prefill_secs"]
@@ -338,7 +661,7 @@ def main() -> None:
         "prefill_ms_per_call": prefill_ms,
         "decode_ms_per_step": decode_ms,
         "generated_tokens": stats["generated_tokens"],
-        "tokens_per_s": tok_s, "wall_s": wall, "k1_launches": launches,
+        "tokens_per_s": tok_s, "wall_s": wall, "k1_launches": serve_launches,
         "shapes": stats["shapes"]}), f"({card})", flush=True)
 
     # (d) prefill through K1 against the plain attention, same weights
@@ -360,19 +683,69 @@ def main() -> None:
           "prefill logits not finite / wrong shape")
     check(diff <= tol, "prefill through K1 disagrees with the plain attention")
 
-    # (e) where the time goes
+    # (e) where the time goes in serving
     print("breakdown", json.dumps(time_breakdown(genmod, model, toks, lens, S,
                                                  eos)), f"({card})", flush=True)
+    del model, params, got, ref
+    torch.cuda.empty_cache()
 
+    # (f) K2 and K3 against their plain version
+    bwd_train_check = check_bwd(fa, 2, 1792, 14, 2, 64, seed=0)
+    check_bwd(fa, 2, 512, 28, 4, 128, seed=1)
+    check_bwd(fa, 3, 200, 14, 2, 64, seed=2)
+    bwd_timing = bwd_records(fa)
+    print("K2/K3 timing", json.dumps(bwd_timing), f"({card})", flush=True)
+    torch.cuda.empty_cache()
+
+    # (g) the train slice, through PPOActorInterface.train_step
+    model, iface = build_trainer(cfg)
+    batch = bench_batch(cfg.vocab_size)
+    spec = MicroBatchSpec(max_tokens_per_mb=4096)
+    train = run_train_slice(fa, cfg, model, iface, batch, spec)
+    print("train slice", json.dumps(train), f"({card})", flush=True)
+
+    # (h) one micro-batch through K1-K3 against the plain attention
+    compare_attention_impls(model, iface, batch, spec)
+
+    # (i) where the time goes in one train step
+    print("train breakdown", json.dumps(train_breakdown(
+        model, iface, batch, spec, train["ms_per_step"])), f"({card})",
+        flush=True)
+
+    lib_line = ("areal_tpu/ops/pallas/flash_attention.py:200 backward: the "
+                "Pallas TPU library's {} :{} (pallas_call :{})")
+    train_launches = train["launches"]
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "areal_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "areal_tpu/ops/pallas/flash_attention.py:200",
-        "launches": launches, "max_abs_err": main_rec["max_abs_err"],
-        "ms": timing["kernel_ms"], "kernel_ms": timing["kernel_ms"],
-        "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
+        "launches": serve_launches + train_launches["flash_attention_fwd"],
+        "launches_by_path": {"serve": serve_launches,
+                             "train": train_launches["flash_attention_fwd"]},
+        "max_abs_err": k1_train_check["max_abs_err"],
+        "ms": timing_train["kernel_ms"], "kernel_ms": timing_train["kernel_ms"],
+        "plain_ms": timing_train["plain_ms"],
+        "bound_ms": timing_train["bound_ms"],
+        "bound_by": timing_train["bound_by"],
+        "library_ms": timing_train["library_ms"],
     }]
+    for name, fn, line, call, err in (
+            ("flash_attention_bwd_dkv", "_flash_attention_bwd_dkv", 941, 1121,
+             max(bwd_train_check["dk_max_abs_err"],
+                 bwd_train_check["dv_max_abs_err"])),
+            ("flash_attention_bwd_dq", "_flash_attention_bwd_dq", 1287, 1456,
+             bwd_train_check["dq_max_abs_err"])):
+        rec = bwd_timing[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "areal_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            "replaces": lib_line.format(fn, line, call),
+            "launches": train_launches[name], "max_abs_err": err,
+            "ms": rec["kernel_ms"], "kernel_ms": rec["kernel_ms"],
+            "plain_ms": bwd_timing["plain_bwd_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": bwd_timing["sdpa_bwd_ms"],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

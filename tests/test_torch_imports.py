@@ -35,7 +35,7 @@ def test_every_module_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 11  # every module was walked
+    assert int(res.stdout.strip()) >= 27  # every module was walked
 
 
 def test_no_file_names_jax_or_the_reference_package():
@@ -56,3 +56,22 @@ def test_resolve_device():
         areal_tpu_torch.resolve_device()
     with pytest.raises(RuntimeError):
         areal_tpu_torch.resolve_device("cuda")
+
+
+def test_entry_points_need_a_device():
+    """Without a GPU and without an explicit device, the helpers that make
+    tensors raise instead of landing on the CPU."""
+    from areal_tpu_torch.models.config import tiny_config
+    from areal_tpu_torch.models.convert import params_from_jax
+    from areal_tpu_torch.models.transformer import init_kv_cache, init_params
+
+    cfg = tiny_config()
+    assert init_params(cfg, seed=0, device="cpu")["final_ln.weight"].is_cpu
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    flat = {"final_ln": torch.ones(cfg.hidden_dim).numpy()}
+    for make in (lambda: init_params(cfg, seed=0),
+                 lambda: init_kv_cache(cfg, 1, 8),
+                 lambda: params_from_jax(flat, cfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

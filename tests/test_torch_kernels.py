@@ -1,6 +1,7 @@
-"""K1's wrapper (areal_tpu_torch/ops/flash_attention.py) without the JAX
-package: input checks and the plain version's edge cases on the CPU, and the
-CUDA kernel against its plain version on the card (``cuda`` marker).
+"""The flash-attention wrappers (areal_tpu_torch/ops/flash_attention.py)
+without the JAX package: input checks and the plain versions' edge cases on
+the CPU, and the CUDA kernels (K1 forward, K2 dk/dv, K3 dq) against their
+plain versions on the card (``cuda`` marker).
 
 This file imports neither jax nor areal_tpu, so on a machine with a card and
 without jax it runs alone:
@@ -82,6 +83,75 @@ def test_kernel_matches_plain_on_card(dtype, seqlens, T, D, Hq, Hkv):
     fin = torch.isfinite(ref_lse)
     assert torch.equal(torch.isfinite(lse), fin)
     assert (lse[fin] - ref_lse[fin]).abs().max().item() <= 1e-4
+
+
+def _bwd_case(seqlens, T, Hq, Hkv, D, dtype, device, seed):
+    """Inputs of the backward: q, k, v, segment ids, K1's out and lse (from
+    the plain version on the CPU, from K1 on the card) and a random dO."""
+    (q, k, v), seg = _inputs(seqlens, T, Hq, Hkv, D, dtype, device, seed)
+    out, lse = fa.flash_attention(q, k, v, seg, seg, return_lse=True)
+    gen = torch.Generator().manual_seed(seed + 1)
+    dout = torch.randn(q.shape, generator=gen).to(device, dtype)
+    return q, k, v, seg, out, lse, dout
+
+
+def test_backward_wrapper_takes_plain_version_on_cpu():
+    q, k, v, seg, out, lse, dout = _bwd_case([[9, 5], [3]], 16, 4, 2, 64,
+                                             torch.float32, "cpu", 0)
+    got = fa.flash_attention_bwd(q, k, v, seg, seg, out, lse, dout)
+    want = fa.flash_attention_bwd_plain(q, k, v, seg, seg, out, lse, dout)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    dq, dk, dv = got
+    pad = seg == 0
+    assert (dq[pad] == 0).all() and (dk[pad] == 0).all() and (dv[pad] == 0).all()
+    with pytest.raises(ValueError):  # lse of the wrong shape
+        fa.flash_attention_bwd(q, k, v, seg, seg, out, lse[:, :, :4], dout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seqlens,T,D,Hq,Hkv", [
+    ([[300, 200], [512], [100, 100, 250]], 512, 64, 14, 2),
+    ([[90, 70, 30], [150], []], 200, 128, 28, 4),
+])
+def test_backward_kernels_match_plain_on_card(dtype, seqlens, T, D, Hq, Hkv):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    q, k, v, seg, out, lse, dout = _bwd_case(seqlens, T, Hq, Hkv, D, dtype,
+                                             "cuda", 7)
+    before = fa.launch_counts()
+    got = fa.flash_attention_bwd(q, k, v, seg, seg, out, lse, dout)
+    torch.cuda.synchronize()
+    after = fa.launch_counts()
+    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        assert after[name] == before[name] + 1
+    want = fa.flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), seg, seg, out.float(), lse,
+        dout.float())
+    pad = seg == 0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        # float32: summation order only; bf16: two ulps at the largest value
+        scale = b.abs().max().item()
+        tol = 1e-4 * scale if dtype == torch.float32 \
+            else 2.0 ** -7 * scale
+        err = (a.float() - b).abs().max().item()
+        assert err <= tol, (name, err, tol)
+        assert (a[pad] == 0).all() and not a.isnan().any(), name
+
+
+@pytest.mark.cuda
+def test_autograd_function_launches_all_three_kernels():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    (q, k, v), seg = _inputs([[40, 24], [64]], 64, 4, 2, 64, device="cuda")
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    fa.reset_launch_count()
+    out = fa.FlashAttention.apply(q, k, v, seg, seg)
+    (out * out).sum().backward()
+    torch.cuda.synchronize()
+    assert fa.launch_counts() == dict.fromkeys(fa.KERNELS, 1)
+    assert all(x.grad is not None and x.grad.isfinite().all() for x in (q, k, v))
 
 
 @pytest.mark.cuda

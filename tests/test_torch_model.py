@@ -45,7 +45,8 @@ def make_model(name, seed=0, **over):
         is_scale = key.split("/")[-1] in NORM_SCALES
         flat[key] = ((1.0 if is_scale else 0.0)
                      + 0.1 * rng.randn(*a.shape)).astype(np.float32)
-    model = Transformer.from_params(tcfg, params_from_jax(flat, tcfg))
+    model = Transformer.from_params(tcfg, params_from_jax(flat, tcfg,
+                                                     device="cpu"))
     return jcfg, tcfg, flat, model
 
 
@@ -65,7 +66,7 @@ def test_params_round_trip():
     for key in flat:
         np.testing.assert_array_equal(back[key], flat[key], err_msg=key)
     # the port's own init produces exactly the state dict the model holds
-    own = init_params(tcfg, seed=0)
+    own = init_params(tcfg, seed=0, device="cpu")
     assert {k: tuple(v.shape) for k, v in own.items()} == {
         k: tuple(v.shape) for k, v in model.state_dict().items()}
 
@@ -152,4 +153,4 @@ def test_unported_features_raise():
         Transformer(tconfig.tiny_config(is_critic=True), device="meta")
     with pytest.raises(KeyError):
         params_from_jax({"value_head": np.zeros((32, 1), np.float32)},
-                        tconfig.tiny_config())
+                        tconfig.tiny_config(), device="cpu")

@@ -38,7 +38,7 @@ def served():
     server = GenerationServer(
         GenerationServerConfig(chunk_tokens=8, prompt_bucket=16, kv_bucket=32,
                                eos_token_id=EOS, batch_window_ms=20),
-        tcfg, params_from_jax(flat, tcfg), device="cpu",
+        tcfg, params_from_jax(flat, tcfg, device="cpu"), device="cpu",
     )
     url = server.start()
     yield server, url, jcfg, flat
