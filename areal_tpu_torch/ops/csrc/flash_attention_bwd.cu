@@ -4,8 +4,9 @@
 // areal_tpu/ops/pallas/flash_attention.py:200 `flash_attention` (the Pallas
 // TPU flash-attention library file, experimental/pallas/ops/tpu/
 // flash_attention.py, release 0.9.0):
-//   K2 `_flash_attention_bwd_dkv` -> flash_bwd_dkv_kernel (dk, dv)
-//   K3 `_flash_attention_bwd_dq`  -> flash_bwd_dq_kernel  (dq)
+//   K2 `_flash_attention_bwd_dkv` -> flash_bwd_dkv_mma_kernel and
+//      flash_bwd_dkv_reduce_kernel (dk, dv; flash_bwd_dkv_kernel for f32)
+//   K3 `_flash_attention_bwd_dq`  -> flash_bwd_dq_kernel (dq)
 // under K1's mask (flash_attention.cu): a (row i, column j) pair is kept when
 // both segment ids are equal and nonzero and, when causal, j <= i.
 //
@@ -19,27 +20,56 @@
 // -inf - -inf. Pad columns (segment 0) come out as exact zeros.
 //
 // Differences from the TPU kernels: GQA without repeating K/V (K2 sums the
-// G = Hq / Hkv query heads of its kv head itself, K3 reads kv head h / G);
-// head_dim 64 and 128 are template cases (no padding to 128 lanes); any T and
-// S (ragged tails are masked); no block-size knobs; causal-future tiles are
-// skipped in both kernels.
+// G = Hq / Hkv query heads of each kv head, K3 reads kv head h / G); head_dim
+// 64 and 128 are template cases (no padding to 128 lanes); any T and S
+// (ragged tails are masked); no block-size knobs; causal-future tiles are
+// skipped in both kernels, and K2 also skips tile pairs that share no
+// segment id.
 //
-// Design. K3: one block per (64-row q tile, q head, batch row), 256 threads,
-// four per query row, looping over the KV tiles up to the diagonal, as K1.
-// K2: one block per (64-key kv tile, kv head, batch row), four threads per
-// key row, looping over the G query heads and every q tile at or after the
-// diagonal; dk and dv accumulate in registers (no atomics, deterministic) and
-// are rounded to the input dtype once, at the end.
-//
-// What bounds it on this card: the work is 4 (K2) or 3 (K3) products of
+// What bounds them on this card: the work is 4 (K2) or 3 (K3) products of
 // 2*D flops per kept pair against ~2 bytes per element of q, k, v, dO and
-// the gradients, so the bf16 tensor-core rate bounds both. This first
-// version does the products with scalar f32 FMAs out of shared memory, like
-// K1, so shared-memory load bandwidth bounds it in practice: 16-byte shared
-// loads, rows padded by 4 floats, scores in registers and only P / dS passed
-// through shared memory within a warp. K2 has few blocks (B * Hkv * S / 64)
-// and its first kv tiles do the most work, so it fills the card poorly;
-// tensor cores and a better split come in a later version.
+// the gradients, so the bf16 tensor-core rate bounds both.
+//
+// K2, bf16 / fp16 (`flash_bwd_dkv_mma_kernel`, the main path):
+// FlashAttention-2's dk/dv recipe on tensor cores (mma.sync.m16n8k16, f32
+// accumulate). One block per (64-key kv tile, q head, batch row), 4 warps of
+// 16 keys; B * Hq * S / 64 blocks (784 at the train shape), where one block
+// per kv head left 20 of 132 SMs idle and put 7 heads on the first tile's
+// critical path. Per q tile of BQ rows (64 at D = 64, 32 at D = 128, which
+// keeps the accumulators in registers): S^T = K Q^T and dP^T = V dO^T in
+// accumulator fragments, P^T = exp2(S^T scale log2e - lse log2e) and
+// dS^T = P^T (dP^T - di) in place, then dV += P^T dO and dK += dS^T Q with P
+// and dS rounded to the input type in registers as A operands (the TPU
+// kernel rounds them the same way, lib :900 and :918) and dO, Q read through
+// ldmatrix.trans; dk and dv stay in f32 registers for the whole loop. K and
+// V are loaded once; the q, dO, lse, di and segment tiles are
+// double-buffered with cp.async (16-bit tiles XOR-swizzled), so the next
+// kept q tile is in flight while this one computes. The block lists its q
+// tiles first: causally before the kv tile, or with a range of nonzero
+// segment ids that does not overlap the kv tile's, are skipped. With G > 1
+// each block writes f32 partial dk, dv for its q head into scratch
+// [B, S, Hq, D] (allocated by the wrapper); `flash_bwd_dkv_reduce_kernel`
+// then sums the G partials of each kv head in a fixed order, scales dk and
+// rounds once: deterministic, no atomics. With G = 1 the block writes dk,
+// dv directly. The low kv tiles, which do the most work under causal
+// masking, start first. A thread-block cluster over the G heads reducing in
+// distributed shared memory would skip the scratch, at the price of blocks
+// that must be co-scheduled in groups of G; the scratch keeps every block
+// independent and costs ~26 MB of traffic (~8 us at 3.35 TB/s) at the train
+// shape.
+//
+// K3 (`flash_bwd_dq_kernel`, every dtype) and K2 for float32
+// (`flash_bwd_dkv_kernel`, dtype code 0; the exact-f32 specialisation: TF32
+// tensor cores would not hold float32's tolerances) are the scalar kernels:
+// f32 FMAs out of shared memory, 256 threads, four per row, 16-byte shared
+// loads, rows padded by 4 floats, P / dS passed through shared memory
+// within a warp. K3: one block per (64-row q tile, q head, batch row),
+// looping over the KV tiles up to the diagonal, as K1. Scalar K2: one block
+// per (64-key kv tile, kv head, batch row), looping over the G query heads
+// and every q tile at or after the diagonal; dk and dv accumulate in
+// registers and are rounded once.
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -337,12 +367,247 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
+// ---------------- K2, bf16 / fp16: tensor cores ----------------
+
+template <int D>
+__host__ __device__ constexpr int dkv_block_q() {
+  return 4096 / D;  // q rows per step: 64 at D = 64, 32 at D = 128
+}
+
+template <int D>
+size_t dkv_mma_smem_bytes(int n_q_tiles) {
+  constexpr int BQ = dkv_block_q<D>();
+  // K, V tiles; Q, dO tiles x2 (16-bit); lse, di, q segment ids x2; kv
+  // segment ids; the tile count and the list of kept q tiles.
+  return 2 * (2 * kBlockKV * D + 4 * BQ * D) +
+         sizeof(int) * (6 * BQ + kBlockKV + 1 + n_q_tiles);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const int* __restrict__ q_seg,
+                         const int* __restrict__ kv_seg, const T* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ di,
+                         T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dk_part,
+                         float* __restrict__ dv_part, int T_len, int S_len, int Hq, int Hkv,
+                         int causal, float scale) {
+  constexpr int BQ = dkv_block_q<D>();
+  constexpr int NQ = BQ / 8;  // query n-blocks of a q tile
+  constexpr int KD = D / 16;  // 16-wide steps over the head dim
+
+  extern __shared__ float4 smem4[];
+  T* k_s = reinterpret_cast<T*>(smem4);
+  T* v_s = k_s + kBlockKV * D;
+  T* q_s = v_s + kBlockKV * D;  // [2][BQ][D]
+  T* do_s = q_s + 2 * BQ * D;   // [2][BQ][D]
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * BQ * D);  // [2][BQ]
+  float* di_s = lse_s + 2 * BQ;                                 // [2][BQ]
+  int* qseg_s = reinterpret_cast<int*>(di_s + 2 * BQ);          // [2][BQ]
+  int* kseg_s = qseg_s + 2 * BQ;
+  int* count_s = kseg_s + kBlockKV;
+  int* list_s = count_s + 1;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int per_tile = gridDim.x / ((S_len + kBlockKV - 1) / kBlockKV);  // Hq * B
+  // The low kv tiles do the most work under causal masking: start them first.
+  const int k0 = (int)blockIdx.x / per_tile * kBlockKV;
+  const int h = blockIdx.x % per_tile % Hq;
+  const int b = blockIdx.x % per_tile / Hq;
+  const int G = Hq / Hkv;
+  const int hk = h / G;
+
+  const size_t q_stride = (size_t)Hq * D;
+  const size_t kv_stride = (size_t)Hkv * D;
+  const T* q_base = q + (size_t)b * T_len * q_stride + (size_t)h * D;
+  const T* do_base = dout + (size_t)b * T_len * q_stride + (size_t)h * D;
+  const float* lse_row = lse + ((size_t)b * Hq + h) * T_len;
+  const float* di_row = di + ((size_t)b * Hq + h) * T_len;
+  const int* qseg_row = q_seg + (size_t)b * T_len;
+  const int* kseg_row = kv_seg + (size_t)b * S_len;
+
+  load_tile_async<T, kBlockKV, D>(k_s, k + (size_t)b * S_len * kv_stride + (size_t)hk * D,
+                                  kv_stride, k0, S_len);
+  load_tile_async<T, kBlockKV, D>(v_s, v + (size_t)b * S_len * kv_stride + (size_t)hk * D,
+                                  kv_stride, k0, S_len);
+  cp_async_commit();
+  if (tid < kBlockKV) kseg_s[tid] = k0 + tid < S_len ? kseg_row[k0 + tid] : 0;
+
+  // The q tiles this kv tile needs: not wholly before it (causal), and
+  // sharing a range of nonzero segment ids.
+  const SegRange kv_range = warp_seg_range(kseg_row, k0, kBlockKV, S_len);
+  const int n_qt = (T_len + BQ - 1) / BQ;
+  const int n = build_tile_list(list_s, count_s, causal ? min(k0 / BQ, n_qt) : 0, n_qt,
+                                [&](int t) {
+    return (!causal || min(t * BQ + BQ, T_len) - 1 >= k0) &&
+           ranges_overlap(kv_range, warp_seg_range(qseg_row, t * BQ, BQ, T_len));
+  });
+
+  auto load_q = [&](int i, int buf) {
+    const int q0 = list_s[i] * BQ;
+    load_tile_async<T, BQ, D>(q_s + buf * BQ * D, q_base, q_stride, q0, T_len);
+    load_tile_async<T, BQ, D>(do_s + buf * BQ * D, do_base, q_stride, q0, T_len);
+    if (tid < BQ) {
+      const int t = q0 + tid;
+      const bool ok = t < T_len;
+      cp_async_4(lse_s + buf * BQ + tid, lse_row + (ok ? t : 0), ok);
+      cp_async_4(di_s + buf * BQ + tid, di_row + (ok ? t : 0), ok);
+      cp_async_4(qseg_s + buf * BQ + tid, qseg_row + (ok ? t : 0), ok);
+    }
+  };
+  if (n > 0) load_q(0, 0);
+  cp_async_commit();
+
+  // This lane's two keys (r = 0, 1) and its query columns 2 (lane % 4) +
+  // {0, 1} of every 8-wide n-block.
+  const int key_l = warp * 16 + (lane >> 2);
+  const int keys[2] = {k0 + key_l, k0 + key_l + 8};
+  const int ksegs[2] = {kseg_s[key_l], kseg_s[key_l + 8]};
+  const int col_l = 2 * (lane & 3);
+  const float scale_log2 = scale * kLog2e;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int db = 0; db < D / 8; ++db) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[db][e] = dv_acc[db][e] = 0.f;
+  }
+
+  for (int it = 0; it < n; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n) load_q(it + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // K, V and q tile `it` have landed
+    __syncthreads();
+    const T* qt = q_s + buf * BQ * D;
+    const T* dot = do_s + buf * BQ * D;
+    const float* lse_t = lse_s + buf * BQ;
+    const float* di_t = di_s + buf * BQ;
+    const int* qseg_t = qseg_s + buf * BQ;
+    const int q0 = list_s[it] * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys.
+    float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+    for (int nb = 0; nb < NQ; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[nb][e] = dpt[nb][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ka[4], va[4];
+      ldmatrix_x4(ka, a_frag_addr<D>(k_s, warp * 16, kk, lane));
+      ldmatrix_x4(va, a_frag_addr<D>(v_s, warp * 16, kk, lane));
+#pragma unroll
+      for (int nb2 = 0; nb2 < NQ / 2; ++nb2) {
+        uint32_t bq[4], bo[4];
+        ldmatrix_x4(bq, b_frag_addr<D>(qt, nb2 * 16, kk, lane));
+        mma_16816<T>(st[2 * nb2], ka, bq[0], bq[1]);
+        mma_16816<T>(st[2 * nb2 + 1], ka, bq[2], bq[3]);
+        ldmatrix_x4(bo, b_frag_addr<D>(dot, nb2 * 16, kk, lane));
+        mma_16816<T>(dpt[2 * nb2], va, bo[0], bo[1]);
+        mma_16816<T>(dpt[2 * nb2 + 1], va, bo[2], bo[3]);
+      }
+    }
+
+    // P^T in place of S^T, dS^T in place of dP^T. A kept pair needs a
+    // finite row lse, so exp2f never sees -inf - -inf.
+#pragma unroll
+    for (int nb = 0; nb < NQ; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int ql = nb * 8 + col_l + (e & 1);
+        const float lse2 = lse_t[ql] * kLog2e;
+        const bool ok = ksegs[r] != 0 && qseg_t[ql] == ksegs[r] && lse2 > -INFINITY &&
+                        (!causal || keys[r] <= q0 + ql);
+        const float p = ok ? exp2f(st[nb][e] * scale_log2 - lse2) : 0.f;
+        st[nb][e] = p;
+        dpt[nb][e] = p * (dpt[nb][e] - di_t[ql]);
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q, the A operands from registers.
+#pragma unroll
+    for (int kq = 0; kq < BQ / 16; ++kq) {
+      uint32_t pa[4], sa[4];
+      acc_to_a<T>(pa, st[2 * kq], st[2 * kq + 1]);
+      acc_to_a<T>(sa, dpt[2 * kq], dpt[2 * kq + 1]);
+#pragma unroll
+      for (int db2 = 0; db2 < D / 16; ++db2) {
+        uint32_t bo[4], bq[4];
+        ldmatrix_x4_trans(bo, bt_frag_addr<D>(dot, kq * 16, db2, lane));
+        mma_16816<T>(dv_acc[2 * db2], pa, bo[0], bo[1]);
+        mma_16816<T>(dv_acc[2 * db2 + 1], pa, bo[2], bo[3]);
+        ldmatrix_x4_trans(bq, bt_frag_addr<D>(qt, kq * 16, db2, lane));
+        mma_16816<T>(dk_acc[2 * db2], sa, bq[0], bq[1]);
+        mma_16816<T>(dk_acc[2 * db2 + 1], sa, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();  // the next iteration's loads overwrite this buffer
+  }
+  cp_async_wait<0>();  // nothing left in flight (a block with no kept tile)
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (keys[r] >= S_len) continue;
+    if (G == 1) {
+      const size_t at = ((size_t)b * S_len + keys[r]) * kv_stride + (size_t)hk * D + col_l;
+#pragma unroll
+      for (int db = 0; db < D / 8; ++db) {
+        *reinterpret_cast<uint32_t*>(dk + at + db * 8) =
+            pack2<T>(dk_acc[db][2 * r] * scale, dk_acc[db][2 * r + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + at + db * 8) =
+            pack2<T>(dv_acc[db][2 * r], dv_acc[db][2 * r + 1]);
+      }
+    } else {
+      const size_t at = ((size_t)b * S_len + keys[r]) * q_stride + (size_t)h * D + col_l;
+#pragma unroll
+      for (int db = 0; db < D / 8; ++db) {
+        *reinterpret_cast<float2*>(dk_part + at + db * 8) =
+            make_float2(dk_acc[db][2 * r], dk_acc[db][2 * r + 1]);
+        *reinterpret_cast<float2*>(dv_part + at + db * 8) =
+            make_float2(dv_acc[db][2 * r], dv_acc[db][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// dk[b, s, hk] = scale * sum_g dk_part[b, s, hk * G + g] and dv likewise, g
+// in order, rounded once. One thread per 4 head dims of a (row, kv head).
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_dkv_reduce_kernel(const float* __restrict__ dk_part, const float* __restrict__ dv_part,
+                            T* __restrict__ dk, T* __restrict__ dv, long long rows, int Hkv, int G,
+                            int D, float scale) {
+  const int quads = D / 4;
+  const long long n = rows * Hkv * quads;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long rh = i / quads;  // row * Hkv + hk
+    const int c = (int)(i % quads) * 4;
+    const float* pk = dk_part + (size_t)rh * G * D + c;  // q head hk * G of this row
+    const float* pv = dv_part + (size_t)rh * G * D + c;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), w = a;
+    for (int g = 0; g < G; ++g) {
+      const float4 x = *reinterpret_cast<const float4*>(pk + (size_t)g * D);
+      const float4 y = *reinterpret_cast<const float4*>(pv + (size_t)g * D);
+      a.x += x.x, a.y += x.y, a.z += x.z, a.w += x.w;
+      w.x += y.x, w.y += y.y, w.z += y.z, w.w += y.w;
+    }
+    const size_t at = (size_t)rh * D + c;
+    *reinterpret_cast<uint2*>(dk + at) =
+        make_uint2(pack2<T>(a.x * scale, a.y * scale), pack2<T>(a.z * scale, a.w * scale));
+    *reinterpret_cast<uint2*>(dv + at) = make_uint2(pack2<T>(w.x, w.y), pack2<T>(w.z, w.w));
+  }
+}
+
 struct BwdArgs {
   const void *q, *k, *v;
   const int *q_seg, *kv_seg;
   const void* dout;
   const float *lse, *di;
   void *dq, *dk, *dv;
+  float *dk_part, *dv_part;  // K2's f32 scratch [B, S, Hq, D] (bf16/fp16, G > 1)
   int B, T_len, S_len, Hq, Hkv, causal;
   float scale;
   cudaStream_t stream;
@@ -364,16 +629,42 @@ cudaError_t launch_dq(const BwdArgs& a) {
 
 template <typename T, int D>
 cudaError_t launch_dkv(const BwdArgs& a) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.S_len + kBlockKV - 1) / kBlockKV, a.Hkv, a.B);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      a.q_seg, a.kv_seg, static_cast<const T*>(a.dout), a.lse, a.di, static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.T_len, a.S_len, a.Hq, a.Hkv, a.causal, a.scale);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr size_t smem = dkv_smem_bytes<D>();
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.S_len + kBlockKV - 1) / kBlockKV, a.Hkv, a.B);
+    flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        a.q_seg, a.kv_seg, static_cast<const T*>(a.dout), a.lse, a.di, static_cast<T*>(a.dk),
+        static_cast<T*>(a.dv), a.T_len, a.S_len, a.Hq, a.Hkv, a.causal, a.scale);
+    return cudaGetLastError();
+  } else {
+    const int G = a.Hq / a.Hkv;
+    if (G > 1 && (a.dk_part == nullptr || a.dv_part == nullptr)) return cudaErrorInvalidValue;
+    const int n_qt = (a.T_len + dkv_block_q<D>() - 1) / dkv_block_q<D>();
+    const size_t smem = dkv_mma_smem_bytes<D>(n_qt);
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_mma_kernel<T, D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const int grid = (a.S_len + kBlockKV - 1) / kBlockKV * a.Hq * a.B;
+    flash_bwd_dkv_mma_kernel<T, D><<<grid, kMmaThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        a.q_seg, a.kv_seg, static_cast<const T*>(a.dout), a.lse, a.di, static_cast<T*>(a.dk),
+        static_cast<T*>(a.dv), a.dk_part, a.dv_part, a.T_len, a.S_len, a.Hq, a.Hkv, a.causal,
+        a.scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || G == 1) return err;
+    const long long rows = (long long)a.B * a.S_len;
+    const long long quads = rows * a.Hkv * (D / 4);
+    const long long want = (quads + 255) / 256;
+    const int blocks = want < 65536 ? (int)want : 65536;  // grid-stride beyond
+    flash_bwd_dkv_reduce_kernel<T><<<blocks, 256, 0, a.stream>>>(
+        a.dk_part, a.dv_part, static_cast<T*>(a.dk), static_cast<T*>(a.dv), rows, a.Hkv, G, D,
+        a.scale);
+    return cudaGetLastError();
+  }
 }
 
 // Picks the (dtype, head_dim) instance of `Launch`: dtype 0 = float32,
@@ -402,11 +693,12 @@ struct DkvLaunch {
 
 BwdArgs make_args(const void* q, const void* k, const void* v, const void* q_seg,
                   const void* kv_seg, const void* dout, const void* lse, const void* di, void* dq,
-                  void* dk, void* dv, int B, int T_len, int S_len, int Hq, int Hkv, int causal,
-                  float scale, void* stream) {
+                  void* dk, void* dv, void* dk_part, void* dv_part, int B, int T_len, int S_len,
+                  int Hq, int Hkv, int causal, float scale, void* stream) {
   return BwdArgs{q, k, v, static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), dout,
-                 static_cast<const float*>(lse), static_cast<const float*>(di), dq, dk, dv, B,
-                 T_len, S_len, Hq, Hkv, causal, scale, static_cast<cudaStream_t>(stream)};
+                 static_cast<const float*>(lse), static_cast<const float*>(di), dq, dk, dv,
+                 static_cast<float*>(dk_part), static_cast<float*>(dv_part), B, T_len, S_len, Hq,
+                 Hkv, causal, scale, static_cast<cudaStream_t>(stream)};
 }
 
 }  // namespace
@@ -415,7 +707,7 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. q, dout, dq [B,T,Hq,D];
 // k, v, dk, dv [B,S,Hkv,D]; segment ids int32 [B,T] / [B,S]; lse and di f32
-// [B,Hq,T]; all contiguous. Each returns the cudaError_t of its launch.
+// [B,Hq,T]; all contiguous. Each returns the cudaError_t of its launches.
 int areal_flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* q_seg,
                                  const void* kv_seg, const void* dout, const void* lse,
                                  const void* di, void* dq, int B, int T_len, int S_len, int Hq,
@@ -423,20 +715,23 @@ int areal_flash_attention_bwd_dq(const void* q, const void* k, const void* v, co
                                  void* stream) {
   if (B <= 0 || T_len <= 0 || Hq <= 0) return cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv != 0 || S_len < 0) return cudaErrorInvalidValue;
-  const BwdArgs a = make_args(q, k, v, q_seg, kv_seg, dout, lse, di, dq, nullptr, nullptr, B,
-                              T_len, S_len, Hq, Hkv, causal, scale, stream);
+  const BwdArgs a = make_args(q, k, v, q_seg, kv_seg, dout, lse, di, dq, nullptr, nullptr,
+                              nullptr, nullptr, B, T_len, S_len, Hq, Hkv, causal, scale, stream);
   return dispatch<DqLaunch>(D, dtype, a);
 }
 
+// K2 launches its partial kernel and, for bf16 / fp16 with G = Hq / Hkv > 1,
+// the G reduction; dk_part and dv_part are f32 scratch [B,S,Hq,D] then (null
+// otherwise).
 int areal_flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* q_seg,
                                   const void* kv_seg, const void* dout, const void* lse,
-                                  const void* di, void* dk, void* dv, int B, int T_len,
-                                  int S_len, int Hq, int Hkv, int D, int dtype, int causal,
-                                  float scale, void* stream) {
+                                  const void* di, void* dk, void* dv, void* dk_part,
+                                  void* dv_part, int B, int T_len, int S_len, int Hq, int Hkv,
+                                  int D, int dtype, int causal, float scale, void* stream) {
   if (B <= 0 || S_len <= 0 || Hkv <= 0) return cudaSuccess;
-  if (Hq % Hkv != 0 || T_len < 0) return cudaErrorInvalidValue;
-  const BwdArgs a = make_args(q, k, v, q_seg, kv_seg, dout, lse, di, nullptr, dk, dv, B, T_len,
-                              S_len, Hq, Hkv, causal, scale, stream);
+  if (Hq <= 0 || Hq % Hkv != 0 || T_len < 0) return cudaErrorInvalidValue;
+  const BwdArgs a = make_args(q, k, v, q_seg, kv_seg, dout, lse, di, nullptr, dk, dv, dk_part,
+                              dv_part, B, T_len, S_len, Hq, Hkv, causal, scale, stream);
   return dispatch<DkvLaunch>(D, dtype, a);
 }
 

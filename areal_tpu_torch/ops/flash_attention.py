@@ -9,6 +9,12 @@ flash_attention`` and its gradient. Three kernels, CUDA C++ for ``sm_90a``:
  - K2, dk and dv, and K3, dq (``csrc/flash_attention_bwd.cu``), from q, k,
    v, dO, K1's logsumexp and ``di = rowsum(dO * O)``.
 
+For bf16 and fp16, K1 and K2 run on tensor cores (``mma.sync``) with
+``cp.async`` double buffering and skip the tile pairs that share no segment
+id (:func:`tile_pairs` counts them); K2 splits its work per q head and sums
+the heads of each kv head in a second kernel, deterministically. float32
+inputs take exact scalar-f32 instances; K3 is scalar for every dtype.
+
 Each source is built with ``nvcc`` into a shared library at first use (keyed
 by a hash of the sources, under the repository's ``build/`` directory; the
 sources build in parallel) and called through ``ctypes``.
@@ -143,7 +149,7 @@ _SIGNATURES = {
     "areal_flash_attention_bwd_dq": (
         "bwd", [_PTR] * 9 + [_INT] * 8 + [ctypes.c_float, _PTR]),
     "areal_flash_attention_bwd_dkv": (
-        "bwd", [_PTR] * 10 + [_INT] * 8 + [ctypes.c_float, _PTR]),
+        "bwd", [_PTR] * 12 + [_INT] * 8 + [ctypes.c_float, _PTR]),
 }
 
 
@@ -201,6 +207,8 @@ def _check_launch(q, tensors, segment_ids) -> None:
         raise ValueError("segment ids must be int32")
     if not all(t.is_contiguous() for t in everything):
         raise ValueError("inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("inputs must start on a 16-byte boundary")
 
 
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -217,6 +225,54 @@ def _keep_mask(q_segment_ids, kv_segment_ids, causal: bool) -> torch.Tensor:
         rows = torch.arange(T, device=keep.device)
         keep = keep & (cols[None, :] <= rows[:, None])
     return keep
+
+
+def _tile_ranges(seg: torch.Tensor, block: int):
+    """[B, n] min and max of the nonzero ids of each ``block``-long tile of
+    ``seg`` [B, L] (min > max for a tile without one)."""
+    B, L = seg.shape
+    n = -(-L // block)
+    s = torch.nn.functional.pad(seg.long(), (0, n * block - L)).view(B, n, block)
+    big = torch.iinfo(torch.int64).max
+    lo = torch.where(s != 0, s, big).amin(-1)
+    hi = torch.where(s != 0, s, -big).amax(-1)
+    return lo, hi
+
+
+def tile_walk(q_segment_ids: torch.Tensor, kv_segment_ids: torch.Tensor,
+              causal: bool = True, block_q: int = 64, block_kv: int = 64
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tile walk of the tensor-core kernels: ``(executed [B, nq, nk],
+    visited [nq, nk])`` bool over (q tile, kv tile) pairs. A pair is visited
+    unless the kv tile lies wholly in the q tile's causal future; it is
+    executed only if besides the two tiles' ranges ``[min, max]`` of nonzero
+    segment ids overlap. Disjoint ranges share no id, so the skip drops no
+    kept pair whatever the ids. K1 walks (64, 64) tiles; K2 (64, 64) at
+    head_dim 64 and (32, 64) at 128."""
+    q_lo, q_hi = _tile_ranges(q_segment_ids, block_q)
+    k_lo, k_hi = _tile_ranges(kv_segment_ids, block_kv)
+    T = q_segment_ids.shape[1]
+    nq, nk = q_lo.shape[1], k_lo.shape[1]
+    dev = q_lo.device
+    q_last = torch.clamp(torch.arange(nq, device=dev) * block_q + block_q,
+                         max=T) - 1
+    k_first = torch.arange(nk, device=dev) * block_kv
+    visited = (k_first[None, :] <= q_last[:, None]) if causal else \
+        torch.ones(nq, nk, dtype=torch.bool, device=dev)
+    overlap = ((q_lo <= q_hi)[:, :, None] & (k_lo <= k_hi)[:, None, :]
+               & (q_lo[:, :, None] <= k_hi[:, None, :])
+               & (k_lo[:, None, :] <= q_hi[:, :, None]))
+    return overlap & visited[None], visited
+
+
+def tile_pairs(q_segment_ids: torch.Tensor, kv_segment_ids: torch.Tensor,
+               causal: bool = True, block_q: int = 64, block_kv: int = 64
+               ) -> Tuple[int, int]:
+    """:func:`tile_walk` counted per head over the batch rows:
+    ``(executed, visited)`` tile pairs."""
+    executed, visited = tile_walk(q_segment_ids, kv_segment_ids, causal,
+                                  block_q, block_kv)
+    return int(executed.sum()), int(visited.sum()) * executed.shape[0]
 
 
 # ---------------- K1: forward ----------------
@@ -362,14 +418,24 @@ def launch_bwd_dq(q, k, v, q_segment_ids, kv_segment_ids, dout, lse, di,
 def launch_bwd_dkv(q, k, v, q_segment_ids, kv_segment_ids, dout, lse, di,
                    causal: bool, scale: float
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2 alone on CUDA tensors that :func:`flash_attention_bwd` checked."""
+    """K2 alone on CUDA tensors that :func:`flash_attention_bwd` checked.
+    For bf16/fp16 with more q heads than kv heads, the per-q-head f32
+    partials of dk and dv go through scratch ``[2, B, S, Hq, D]`` allocated
+    here; one C call launches the partial and the reduction kernels."""
     ptrs, dims = _bwd_args(q, k, v, q_segment_ids, kv_segment_ids, dout, lse,
                            di, causal)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    B, S, Hkv, D = k.shape
+    Hq = q.shape[2]
+    parts = (0, 0)
+    if q.dtype != torch.float32 and Hq > Hkv:
+        scratch = torch.empty((2, B, S, Hq, D), dtype=torch.float32,
+                              device=q.device)
+        parts = (scratch[0].data_ptr(), scratch[1].data_ptr())
     with torch.cuda.device(q.device):
         _call("areal_flash_attention_bwd_dkv", "flash_attention_bwd_dkv",
-              *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, float(scale),
-              torch.cuda.current_stream(q.device).cuda_stream)
+              *ptrs, dk.data_ptr(), dv.data_ptr(), *parts, *dims,
+              float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     return dk, dv
 
 

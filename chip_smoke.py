@@ -7,7 +7,8 @@ Phases (any failed check raises, and the script exits non-zero):
 
  (a) card: print its name and power limit, build the CUDA kernels from the
      sources in this checkout (one nvcc per source, in parallel, sm_90a) and
-     print ptxas's registers and spills for each kernel;
+     print ptxas's registers and spills for each kernel instance; the
+     tensor-core instances (bf16, fp16) must not spill;
  (b) K1, the packed flash-attention kernel, against its plain PyTorch
      version computed in float32 on the same bf16 inputs: the main-path
      shape (B=8, T=S=512, 14/2 heads of 64, packed segments and pad rows),
@@ -27,7 +28,8 @@ Phases (any failed check raises, and the script exits non-zero):
  (d) the prefill's last logits through K1 against the same prefill through
      the plain attention on the card (tolerance: 5% of the largest |logit|;
      the plain attention rounds scores and probabilities to bf16, K1 keeps
-     them in f32, and 24 layers carry the difference forward);
+     scores and the softmax in f32 and rounds only P before P V, and 24
+     layers carry the difference forward);
  (e) where the time goes: warm prefill and decode-step times at the
      slice's widest prefill, K1's share of the prefill's device time, and
      the device's idle share during decode (from torch.profiler);
@@ -39,14 +41,16 @@ Phases (any failed check raises, and the script exits non-zero):
      each gradient's largest magnitude (2**-7 * max|ref|; the kernels and
      the plain version both sum in f32 from the same bf16 inputs and round
      once); pad rows and columns exactly 0; nothing NaN. Times K1, K2, K3,
-     the plain backward and SDPA's backward at the train shape;
+     the plain backward and SDPA's backward at the train shape, and counts
+     the tile pairs K1 and K2 execute there against the causal walk's;
  (g) the train slice: PPO actor train steps of Qwen2.5-0.5B at full width
      and depth (bf16 compute, f32 masters, weights from seed 0) on
      bench.py's batch and recipe (32 trajectories, 27,554 tokens, cap 4096
      tokens per micro-batch -> 8 micro-batches of [2, 1792]; "dots" remat,
      log-prob chunks of 512, AdamW lr 1e-5 with bf16 moments). One warm-up
      step and 3 timed ones: trained tokens/s, ms per step, the fwd-bwd /
-     optimizer split, peak memory. Checks finite loss and grad norm > 0,
+     optimizer split, peak memory, the tile pairs K1 and K2 execute on the
+     micro-batches against the causal walk's. Checks finite loss and grad norm > 0,
      moved parameters, K2 and K3 launched layers x micro-batches x steps
      times, and K1 twice that (the "dots" remat reruns K1 in the backward);
  (h) one micro-batch's loss and per-parameter grad norms through K1-K3
@@ -55,10 +59,12 @@ Phases (any failed check raises, and the script exits non-zero):
      random weights only those carry a gradient (tolerance: loss within 1%,
      each grad norm within 10%, gradient cosine >= 0.99; the plain
      attention rounds scores and probabilities to bf16, the kernels keep
-     them in f32, and 24 layers carry the difference forward and back);
+     scores in f32 and round only P and dS before their products, and 24
+     layers carry the difference forward and back);
  (i) where the time goes in one train step (torch.profiler): the shares of
-     K1, K2, K3, GEMMs and the rest of the device time, the device's idle
-     share and the kernels per step.
+     K1, K2 (its partial and reduction kernels), K3, GEMMs and the rest of
+     the device time, the device's idle share and the kernels per step;
+     K1, K2 and K3 must each show device time.
 
 The line before the last is the card's name and power limit, the line
 before that the kernels' JSON record, and the last line
@@ -102,18 +108,41 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, queued: bool = False) -> float:
+    """Milliseconds per call of `fn` between CUDA events. With `queued`, the
+    timed calls are enqueued behind a ~25 ms device-side sleep, so kernels
+    shorter than their host launch path (tens of microseconds) run back to
+    back and the events time the device, not the host's launch rate."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(50_000_000)  # clock cycles
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ptxas_report(log: str) -> list:
+    """(kernel, type, head_dim, spill-store bytes, registers) of every
+    kernel instance in an `nvcc -Xptxas -v` log."""
+    out = []
+    for m in re.finditer(r"Compiling entry function '(\w+)'.*?(\d+) bytes "
+                         r"spill stores.*?Used (\d+) registers", log, re.S):
+        name = m.group(1)
+        kernel = re.search(r"(flash_(?:fwd|bwd)[a-z_]*?_kernel)I", name)
+        dtype = ("bf16" if "__nv_bfloat16" in name else
+                 "fp16" if "6__half" in name else "f32")
+        dim = re.search(r"Li(\d+)E", name)
+        out.append((kernel.group(1) if kernel else name, dtype,
+                    int(dim.group(1)) if dim else None, int(m.group(2)),
+                    int(m.group(3))))
+    return out
 
 
 # ---------------- (b) K1 against its plain version ----------------
@@ -177,8 +206,10 @@ def bound(flops: int, nbytes: int) -> dict:
 def k1_record(fa, B, T, Hq=14, Hkv=2, D=64, seed=0) -> dict:
     """Times at one shape, and the bound of the same work."""
     (q, k, v), seg = packed_inputs(B, T, Hq, Hkv, D, seed)
-    kernel_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, seg, seg))
-    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, seg, seg))
+    kernel_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, seg, seg),
+                        queued=True)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, seg, seg),
+                       queued=True)
     keep = kept_mask(seg)
     pairs = int(keep.sum())  # (row, column) pairs this data needs, per head
     flops = 4 * D * Hq * pairs  # q.k and p.v, 2 flops per multiply-add
@@ -189,7 +220,7 @@ def k1_record(fa, B, T, Hq=14, Hkv=2, D=64, seed=0) -> dict:
     mask = keep[:, None]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True))
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), queued=True)
     return dict(B=B, T=T, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, **bound(flops, nbytes))
 
@@ -231,10 +262,10 @@ def bwd_records(fa, B=2, T=1792, Hq=14, Hkv=2, D=64, seed=0) -> dict:
     scale = D ** -0.5
     di = fa.backward_di(out, dout)
     args = (q, k, v, seg, seg, dout, lse, di, True, scale)
-    k3_ms = cuda_ms(lambda: fa.launch_bwd_dq(*args))
-    k2_ms = cuda_ms(lambda: fa.launch_bwd_dkv(*args))
+    k3_ms = cuda_ms(lambda: fa.launch_bwd_dq(*args), queued=True)
+    k2_ms = cuda_ms(lambda: fa.launch_bwd_dkv(*args), queued=True)
     plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
-        q, k, v, seg, seg, out, lse, dout), iters=5, warmup=1)
+        q, k, v, seg, seg, out, lse, dout), iters=5, warmup=1, queued=True)
     keep = kept_mask(seg)
     pairs = Hq * int(keep.sum())  # kept pairs over all q heads
     qkv = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, dO, k, v in bf16
@@ -248,9 +279,14 @@ def bwd_records(fa, B=2, T=1792, Hq=14, Hkv=2, D=64, seed=0) -> dict:
         qt, kt, vt, attn_mask=keep[:, None], enable_gqa=True)
     g = dout.transpose(1, 2)
     library_ms = cuda_ms(lambda: torch.autograd.grad(
-        o, (qt, kt, vt), g, retain_graph=True))
+        o, (qt, kt, vt), g, retain_graph=True), queued=True)
+    # The tile pairs the tensor-core kernels execute against the causal
+    # walk's (per head, both rows): the segment-range skip at work.
+    tiles = {"k1": fa.tile_pairs(seg, seg, True, 64, 64),
+             "k2": fa.tile_pairs(seg, seg, True, 4096 // D, 64)}
     return {"B": B, "T": T, "plain_bwd_ms": plain_ms,
             "sdpa_bwd_ms": library_ms,
+            "tile_pairs_executed_vs_causal": tiles,
             "flash_attention_bwd_dkv": dict(kernel_ms=k2_ms, **k2),
             "flash_attention_bwd_dq": dict(kernel_ms=k3_ms, **k3)}
 
@@ -381,7 +417,7 @@ def time_breakdown(genmod, model, toks, lens, S, eos) -> dict:
 
     pre = device_events(lambda: genmod.prefill_state(model, toks, lens, S))
     pre_us = sum(e.device_time for e in pre)
-    k1_us = sum(e.device_time for e in pre if "flash_fwd_kernel" in e.name)
+    k1_us = sum(e.device_time for e in pre if "flash_fwd" in e.name)
     dec = device_events(decode)
     dec_ms = sum(e.device_time for e in dec) / 1e3 / steps
     return {
@@ -464,6 +500,11 @@ def run_train_slice(fa, cfg, model, iface, batch, spec, steps: int = 3) -> dict:
     check(n_mbs == 8 and shape == (2, 1792),
           f"packer gave {n_mbs} micro-batches of {shape}, expected 8 of (2, 1792)")
     tokens = int(batch.total_lens().sum())
+    # The tile pairs K1 and K2 execute on these micro-batches (per head and
+    # layer) against the causal walk's.
+    tiles = [fa.tile_pairs(torch.from_numpy(mb.grids["segment_ids"]),
+                           torch.from_numpy(mb.grids["segment_ids"]))
+             for mb in mbs]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     warm = iface.train_step(model, batch, spec)
@@ -487,6 +528,8 @@ def run_train_slice(fa, cfg, model, iface, batch, spec, steps: int = 3) -> dict:
     per = cfg.n_layers * n_mbs * steps
     rec = {
         "n_mbs": n_mbs, "mb_shape": list(shape), "pack_fill": fill,
+        "tile_pairs_executed_vs_causal": [sum(t[0] for t in tiles),
+                                          sum(t[1] for t in tiles)],
         "tokens_per_step": tokens, "steps": steps,
         "trained_tokens_per_s": steps * tokens / wall,
         "ms_per_step": 1e3 * wall / steps, "warmup_step_s": warm_s,
@@ -566,9 +609,11 @@ def compare_attention_impls(model, iface, batch, spec) -> dict:
 # ---------------- (i) where the time goes in one train step ----------------
 
 KERNEL_CLASSES = (
-    ("K1", ("flash_fwd_kernel",)),
-    ("K2", ("flash_bwd_dkv_kernel",)),
-    ("K3", ("flash_bwd_dq_kernel",)),
+    # flash_fwd_kernel (f32) / flash_fwd_mma_kernel; flash_bwd_dkv_kernel
+    # (f32) / flash_bwd_dkv_mma_kernel + flash_bwd_dkv_reduce_kernel
+    ("K1", ("flash_fwd",)),
+    ("K2", ("flash_bwd_dkv",)),
+    ("K3", ("flash_bwd_dq",)),
     # cuBLAS's kernels on Hopper: nvjet_* (CUDA 12.8), else *gemm*/cutlass
     ("gemm", ("nvjet", "gemm", "cutlass", "xmma", "cublas")),
 )
@@ -596,6 +641,9 @@ def train_breakdown(model, iface, batch, spec, step_ms: float) -> dict:
         by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.device_time
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     device_ms = total_us / 1e3
+    for cls in ("K1", "K2", "K3"):
+        check(shares[cls] > 0, f"{cls} shows no device time in the profile: "
+              f"a kernel name is missing from KERNEL_CLASSES ({top})")
     return {
         "device_ms_per_step": device_ms, "step_ms": step_ms,
         "profiled_step_ms": profiled_ms,
@@ -626,15 +674,15 @@ def main() -> None:
     # (a) build, one nvcc per source, together
     t0 = time.monotonic()
     libs = fa.build_libraries()
-    ptxas = []
-    for lib in libs.values():
-        ptxas += re.findall(r"(flash_(?:fwd|bwd_dkv|bwd_dq)_kernel)I\d*(\w+?)Li"
-                            r"(\d+)E.*?(\d+) bytes spill stores.*?Used (\d+) "
-                            r"registers", (lib.parent / "build.log").read_text(),
-                            re.S)
+    ptxas = [rec for lib in libs.values()
+             for rec in ptxas_report((lib.parent / "build.log").read_text())]
     print(f"built {', '.join(os.path.relpath(p) for p in libs.values())} in "
           f"{time.monotonic() - t0:.1f}s; ptxas (kernel, type, head_dim, "
           "spill-store bytes, registers):", json.dumps(ptxas), flush=True)
+    # K1: 2 scalar f32 + 4 tensor-core; K2: 2 + 4 + 2 reductions; K3: 6
+    check(len(ptxas) == 20, f"expected 20 kernel instances, ptxas shows {ptxas}")
+    spills = [r for r in ptxas if r[1] != "f32" and r[3] > 0]
+    check(not spills, f"tensor-core instances spill: {spills}")
 
     # (b) K1 against its plain version
     check_k1(fa, 8, 512, 14, 2, 64, seed=0)

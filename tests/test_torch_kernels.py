@@ -17,19 +17,35 @@ from areal_tpu_torch.ops import flash_attention as fa
 
 def _inputs(seqlens, T, Hq, Hkv, D, dtype=torch.float32, device="cpu", seed=0):
     """One row per entry of ``seqlens``: documents packed from column 0,
-    the rest of the row padding (segment 0)."""
+    the rest of the row padding (segment 0). A document is a length (ids
+    1, 2, ... in order) or a ``(length, id)`` pair (ids in any order)."""
     rng = np.random.RandomState(seed)
     B = len(seqlens)
     seg = np.zeros((B, T), np.int32)
     for b, lens in enumerate(seqlens):
         col = 0
-        for i, n in enumerate(lens):
-            seg[b, col:col + n] = i + 1
+        for i, doc in enumerate(lens):
+            n, sid = doc if isinstance(doc, tuple) else (doc, i + 1)
+            seg[b, col:col + n] = sid
             col += n
     q, k, v = (torch.from_numpy(rng.randn(B, T, h, D).astype(np.float32))
                for h in (Hq, Hkv, Hkv))
     return ([x.to(device, dtype) for x in (q, k, v)],
             torch.from_numpy(seg).to(device))
+
+
+# Cases for the tensor-core kernels: the train shape (two documents per row
+# and a pad tail, G = 7), G = 1 (K2 writes dk/dv directly), and segment ids
+# out of order, with one id on two separate documents, which the tile skip
+# must still keep ("any ids").
+_NON_MONOTONIC = [[(100, 2), (90, 1), (120, 3), (80, 1)], [(150, 3), (150, 2)]]
+_TC_CASES = (
+    ([[900, 800], [1000, 700]], 1792, 64, 14, 2),
+    ([[200, 150], [300]], 320, 64, 4, 4),
+    ([[120, 90], [250]], 256, 128, 2, 2),
+    (_NON_MONOTONIC, 400, 64, 14, 2),
+    (_NON_MONOTONIC, 400, 128, 8, 1),
+)
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -65,6 +81,7 @@ def test_plain_version_empty_rows_and_causality():
 @pytest.mark.parametrize("seqlens,T,D,Hq,Hkv", [
     ([[300, 200], [512], [100, 100, 250]], 512, 64, 14, 2),
     ([[90, 70, 30], [150], []], 200, 128, 28, 4),
+    *_TC_CASES,
 ])
 def test_kernel_matches_plain_on_card(dtype, seqlens, T, D, Hq, Hkv):
     if not torch.cuda.is_available():
@@ -114,6 +131,7 @@ def test_backward_wrapper_takes_plain_version_on_cpu():
 @pytest.mark.parametrize("seqlens,T,D,Hq,Hkv", [
     ([[300, 200], [512], [100, 100, 250]], 512, 64, 14, 2),
     ([[90, 70, 30], [150], []], 200, 128, 28, 4),
+    *_TC_CASES,
 ])
 def test_backward_kernels_match_plain_on_card(dtype, seqlens, T, D, Hq, Hkv):
     if not torch.cuda.is_available():
@@ -138,6 +156,61 @@ def test_backward_kernels_match_plain_on_card(dtype, seqlens, T, D, Hq, Hkv):
         err = (a.float() - b).abs().max().item()
         assert err <= tol, (name, err, tol)
         assert (a[pad] == 0).all() and not a.isnan().any(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Hq,Hkv", [(64, 14, 2), (128, 8, 1)])
+def test_dkv_kernel_is_deterministic_on_card(D, Hq, Hkv):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    q, k, v, seg, out, lse, dout = _bwd_case(
+        [[900, 800], [1000, 700]], 1792, Hq, Hkv, D, torch.bfloat16, "cuda", 3)
+    di = fa.backward_di(out, dout)
+    args = (q, k, v, seg, seg, dout, lse, di, True, D ** -0.5)
+    first = fa.launch_bwd_dkv(*args)
+    second = fa.launch_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):  # no atomics: bit-identical
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("blocks", [(64, 64), (32, 64), (16, 8)])
+@pytest.mark.parametrize("ids", ["packed", "shuffled", "few"])
+def test_tile_walk_keeps_every_kept_pair(ids, blocks, causal):
+    """The tensor-core kernels skip (q tile, kv tile) pairs whose ranges of
+    nonzero segment ids do not overlap: whatever the ids, no kept pair may
+    sit in a skipped tile pair."""
+    rng = np.random.RandomState(len(ids) + blocks[0])
+    B, T = 3, 300
+    seg = np.zeros((B, T), np.int32)
+    for b in range(B):
+        cuts = np.sort(rng.choice(np.arange(1, T), 5, replace=False))
+        for i, (lo, hi) in enumerate(zip([0, *cuts], [*cuts, T])):
+            seg[b, lo:hi] = {"packed": i + 1, "shuffled": rng.randint(0, 7),
+                             "few": rng.randint(1, 3)}[ids]
+        seg[b, T - rng.randint(0, 40):] = 0
+    seg = torch.from_numpy(seg)
+    bq, bk = blocks
+    executed, visited = fa.tile_walk(seg, seg, causal, bq, bk)
+    keep = fa._keep_mask(seg, seg, causal)
+    nq, nk = executed.shape[1:]
+    keep = torch.nn.functional.pad(keep, (0, nk * bk - T, 0, nq * bq - T))
+    needed = keep.view(B, nq, bq, nk, bk).any(4).any(2)
+    assert not (needed & ~executed).any()
+    assert not (executed & ~visited).any()
+    n_exec, n_visit = fa.tile_pairs(seg, seg, causal, bq, bk)
+    assert n_exec == int(executed.sum()) and n_visit == B * int(visited.sum())
+    if ids == "packed":  # ascending ids: most off-diagonal pairs are skipped
+        assert n_exec < n_visit
+
+
+def test_tile_walk_counts_at_the_train_shape():
+    (_, _, _), seg = _inputs([[900, 800], [1000, 700]], 1792, 1, 1, 64)
+    executed, visited = fa.tile_pairs(seg, seg)
+    assert visited == 2 * 28 * 29 // 2
+    # two documents per row: about half the causal tile pairs share an id
+    assert visited * 0.4 < executed < visited * 0.7
 
 
 @pytest.mark.cuda
