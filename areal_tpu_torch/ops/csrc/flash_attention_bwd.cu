@@ -6,7 +6,8 @@
 // flash_attention.py, release 0.9.0):
 //   K2 `_flash_attention_bwd_dkv` -> flash_bwd_dkv_mma_kernel and
 //      flash_bwd_dkv_reduce_kernel (dk, dv; flash_bwd_dkv_kernel for f32)
-//   K3 `_flash_attention_bwd_dq`  -> flash_bwd_dq_kernel (dq)
+//   K3 `_flash_attention_bwd_dq`  -> flash_bwd_dq_mma_kernel (dq;
+//      flash_bwd_dq_kernel for f32)
 // under K1's mask (flash_attention.cu): a (row i, column j) pair is kept when
 // both segment ids are equal and nonzero and, when causal, j <= i.
 //
@@ -22,13 +23,16 @@
 // Differences from the TPU kernels: GQA without repeating K/V (K2 sums the
 // G = Hq / Hkv query heads of each kv head, K3 reads kv head h / G); head_dim
 // 64 and 128 are template cases (no padding to 128 lanes); any T and S
-// (ragged tails are masked); no block-size knobs; causal-future tiles are
-// skipped in both kernels, and K2 also skips tile pairs that share no
-// segment id.
+// (ragged tails are masked); no block-size knobs; both kernels skip
+// causal-future tiles and, for bf16 / fp16, tile pairs that share no segment
+// id.
 //
 // What bounds them on this card: the work is 4 (K2) or 3 (K3) products of
 // 2*D flops per kept pair against ~2 bytes per element of q, k, v, dO and
-// the gradients, so the bf16 tensor-core rate bounds both.
+// the gradients. At the train shape (B = 2, T = S = 1792, 14 / 2 heads of
+// 64, packed documents) K2 is bound by operations (0.0076 ms); K3's bytes
+// (21.5 MB, 0.0064 ms at 3.35 TB/s) and operations (0.0057 ms at 989
+// TFLOP/s) are about even.
 //
 // K2, bf16 / fp16 (`flash_bwd_dkv_mma_kernel`, the main path):
 // FlashAttention-2's dk/dv recipe on tensor cores (mma.sync.m16n8k16, f32
@@ -58,13 +62,43 @@
 // independent and costs ~26 MB of traffic (~8 us at 3.35 TB/s) at the train
 // shape.
 //
-// K3 (`flash_bwd_dq_kernel`, every dtype) and K2 for float32
-// (`flash_bwd_dkv_kernel`, dtype code 0; the exact-f32 specialisation: TF32
-// tensor cores would not hold float32's tolerances) are the scalar kernels:
+// K3, bf16 / fp16 (`flash_bwd_dq_mma_kernel`, the main path):
+// FlashAttention-2's dq pass on mma.sync.m16n8k16 (f32 accumulate), built
+// on K1's skeleton. What held the scalar kernel (1.68 ms at the train shape,
+// 261x its bound) back, and what this design does about it:
+//  - no tensor cores: S = Q K^T, dP = dO V^T and dQ += dS K now run on
+//    them, with K and V as B operands through ldmatrix (and K through
+//    ldmatrix.trans for dS K, the depth running along K's rows as V's does
+//    in K1's P V);
+//  - every kv tile up to the diagonal was visited: the block lists its kv
+//    tiles first and drops the causal-future ones and those whose range of
+//    nonzero segment ids does not overlap the q tile's (disjoint ranges
+//    share no id, so the skip is exact);
+//  - synchronous converting loads with a barrier per tile: 16-bit tiles
+//    (XOR-swizzled) arrive by cp.async and K, V and their segment ids are
+//    double-buffered, so the next kept tile is in flight while this one
+//    computes;
+//  - ~87 KB of f32 shared tiles allowed 2 blocks per SM: the 16-bit tiles
+//    take 48 KB at D = 64 (64 KB at D = 128).
+// One block per (64-row q tile, q head, batch row), 4 warps of 16 query
+// rows; 784 blocks at the train shape, the late q tiles (the most causal
+// work) first; GQA reads kv head h / G. Each warp holds its Q and dO A
+// fragments in registers, each lane its two rows' lse log2e and di, and dq in
+// f32 registers for the whole loop. Per kept kv tile: S and dP into
+// accumulator fragments, P = exp2(S scale log2e - lse log2e) and
+// dS = P (dP - di) in place under the mask, dS rounded to the input type in
+// registers (as the TPU kernel rounds it, lib :1257-1258) as the A operand
+// of dQ += dS K. dq is written once per block: no scratch, no atomics,
+// deterministic. kv tiles of 64 columns at D = 64 and 32 at D = 128 keep the
+// fragments in registers (as K2 halves its q tile).
+//
+// K3 for float32 (`flash_bwd_dq_kernel`) and K2 for float32
+// (`flash_bwd_dkv_kernel`), dtype code 0, are the exact-f32
+// specialisations (TF32 tensor cores would not hold float32's tolerances):
 // f32 FMAs out of shared memory, 256 threads, four per row, 16-byte shared
 // loads, rows padded by 4 floats, P / dS passed through shared memory
-// within a warp. K3: one block per (64-row q tile, q head, batch row),
-// looping over the KV tiles up to the diagonal, as K1. Scalar K2: one block
+// within a warp. Scalar K3: one block per (64-row q tile, q head, batch
+// row), looping over the KV tiles up to the diagonal. Scalar K2: one block
 // per (64-key kv tile, kv head, batch row), looping over the G query heads
 // and every q tile at or after the diagonal; dk and dv accumulate in
 // registers and are rounded once.
@@ -254,6 +288,196 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       for (int e = 0; e < 4; ++e) {
         o_row[4 * quarter + 16 * c + e] = from_f32<T>(acc[4 * c + e] * scale);
       }
+    }
+  }
+}
+
+// ---------------- K3, bf16 / fp16: tensor cores ----------------
+
+template <int D>
+__host__ __device__ constexpr int dq_block_kv() {
+  return 4096 / D;  // kv columns per step: 64 at D = 64, 32 at D = 128
+}
+
+template <int D>
+size_t dq_mma_smem_bytes(int n_kv_tiles) {
+  constexpr int BKV = dq_block_kv<D>();
+  // Q, dO tiles; K, V tiles x2 (16-bit); q segment ids, kv segment ids x2,
+  // the tile count and the list of kept kv tiles.
+  return 2 * (2 * kBlockQ * D + 4 * BKV * D) +
+         sizeof(int) * (kBlockQ + 2 * BKV + 1 + n_kv_tiles);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const int* __restrict__ q_seg,
+                        const int* __restrict__ kv_seg, const T* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ di,
+                        T* __restrict__ dq, int T_len, int S_len, int Hq, int Hkv, int causal,
+                        float scale) {
+  constexpr int BKV = dq_block_kv<D>();
+  constexpr int NB = BKV / 8;  // key n-blocks of a kv tile
+  constexpr int KD = D / 16;   // 16-wide steps over the head dim
+
+  extern __shared__ float4 smem4[];
+  T* q_s = reinterpret_cast<T*>(smem4);
+  T* do_s = q_s + kBlockQ * D;
+  T* k_s = do_s + kBlockQ * D;  // [2][BKV][D]
+  T* v_s = k_s + 2 * BKV * D;   // [2][BKV][D]
+  int* qseg_s = reinterpret_cast<int*>(v_s + 2 * BKV * D);
+  int* kseg_s = qseg_s + kBlockQ;  // [2][BKV]
+  int* count_s = kseg_s + 2 * BKV;
+  int* list_s = count_s + 1;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_qt = (T_len + kBlockQ - 1) / kBlockQ;
+  const int per_tile = gridDim.x / n_qt;  // Hq * B blocks share a q tile index
+  // Causal tiles near the end of the row do the most work: start them first.
+  const int q0 = (n_qt - 1 - (int)blockIdx.x / per_tile) * kBlockQ;
+  const int h = blockIdx.x % per_tile % Hq;
+  const int b = blockIdx.x % per_tile / Hq;
+  const int hk = h / (Hq / Hkv);
+
+  const size_t q_stride = (size_t)Hq * D;
+  const size_t kv_stride = (size_t)Hkv * D;
+  const size_t q_off = (size_t)b * T_len * q_stride + (size_t)h * D;
+  const T* k_base = k + (size_t)b * S_len * kv_stride + (size_t)hk * D;
+  const T* v_base = v + (size_t)b * S_len * kv_stride + (size_t)hk * D;
+  const int* qseg_row = q_seg + (size_t)b * T_len;
+  const int* kseg_row = kv_seg + (size_t)b * S_len;
+
+  load_tile_async<T, kBlockQ, D>(q_s, q + q_off, q_stride, q0, T_len);
+  load_tile_async<T, kBlockQ, D>(do_s, dout + q_off, q_stride, q0, T_len);
+  cp_async_commit();
+  if (tid < kBlockQ) qseg_s[tid] = q0 + tid < T_len ? qseg_row[q0 + tid] : 0;
+
+  // The kv tiles this q tile needs: not wholly in the causal future, and
+  // sharing a range of nonzero segment ids.
+  const SegRange q_range = warp_seg_range(qseg_row, q0, kBlockQ, T_len);
+  const int n_kv = (S_len + BKV - 1) / BKV;
+  const int q_last = min(q0 + kBlockQ, T_len) - 1;
+  const int kv_end = causal ? min(n_kv, q_last / BKV + 1) : n_kv;
+  const int n = build_tile_list(list_s, count_s, 0, kv_end, [&](int t) {
+    return ranges_overlap(q_range, warp_seg_range(kseg_row, t * BKV, BKV, S_len));
+  });
+
+  auto load_kv = [&](int i, int buf) {
+    const int k0 = list_s[i] * BKV;
+    load_tile_async<T, BKV, D>(k_s + buf * BKV * D, k_base, kv_stride, k0, S_len);
+    load_tile_async<T, BKV, D>(v_s + buf * BKV * D, v_base, kv_stride, k0, S_len);
+    if (tid < BKV) {
+      const int s = k0 + tid;
+      cp_async_4(kseg_s + buf * BKV + tid, kseg_row + (s < S_len ? s : 0), s < S_len);
+    }
+  };
+  if (n > 0) load_kv(0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // this thread's part of the Q and dO tiles has landed
+  __syncthreads();
+
+  // This warp's 16 query rows of Q and dO: the A operands of S = Q K^T and
+  // dP = dO V^T.
+  uint32_t qf[KD][4], of[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    ldmatrix_x4(qf[kk], a_frag_addr<D>(q_s, warp * 16, kk, lane));
+    ldmatrix_x4(of[kk], a_frag_addr<D>(do_s, warp * 16, kk, lane));
+  }
+
+  // This lane's two rows (r = 0, 1) and its columns 2 (lane % 4) + {0, 1} of
+  // every 8-wide n-block. A row keeps no pair unless its lse is finite, so
+  // exp2f never sees -inf - -inf.
+  const int row_l = warp * 16 + (lane >> 2);
+  const int rows[2] = {q0 + row_l, q0 + row_l + 8};
+  const int segs[2] = {qseg_s[row_l], qseg_s[row_l + 8]};
+  const int col_l = 2 * (lane & 3);
+  const float* lse_row = lse + ((size_t)b * Hq + h) * T_len;
+  const float* di_row = di + ((size_t)b * Hq + h) * T_len;
+  float lse2[2], dis[2];
+  bool live[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = rows[r] < T_len;
+    lse2[r] = in ? lse_row[rows[r]] * kLog2e : -INFINITY;
+    dis[r] = in ? di_row[rows[r]] : 0.f;
+    live[r] = segs[r] != 0 && lse2[r] > -INFINITY;
+  }
+  const float scale_log2 = scale * kLog2e;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int db = 0; db < D / 8; ++db) acc[db][0] = acc[db][1] = acc[db][2] = acc[db][3] = 0.f;
+
+  for (int it = 0; it < n; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n) load_kv(it + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile `it` has landed
+    __syncthreads();
+    const T* kt = k_s + buf * BKV * D;
+    const T* vt = v_s + buf * BKV * D;
+    const int* ks = kseg_s + buf * BKV;
+    const int k0 = list_s[it] * BKV;
+
+    // S = Q K^T and dP = dO V^T for this warp's 16 rows.
+    float s[NB][4], dp[NB][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int nb2 = 0; nb2 < NB / 2; ++nb2) {
+        uint32_t bk[4], bv[4];
+        ldmatrix_x4(bk, b_frag_addr<D>(kt, nb2 * 16, kk, lane));
+        mma_16816<T>(s[2 * nb2], qf[kk], bk[0], bk[1]);
+        mma_16816<T>(s[2 * nb2 + 1], qf[kk], bk[2], bk[3]);
+        ldmatrix_x4(bv, b_frag_addr<D>(vt, nb2 * 16, kk, lane));
+        mma_16816<T>(dp[2 * nb2], of[kk], bv[0], bv[1]);
+        mma_16816<T>(dp[2 * nb2 + 1], of[kk], bv[2], bv[3]);
+      }
+    }
+
+    // dS = P (dP - di) in place of dP, P = 0 off the mask.
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int jl = nb * 8 + col_l + (e & 1);
+        const bool ok = live[r] && ks[jl] == segs[r] && (!causal || k0 + jl <= rows[r]);
+        const float p = ok ? exp2f(s[nb][e] * scale_log2 - lse2[r]) : 0.f;
+        dp[nb][e] = p * (dp[nb][e] - dis[r]);
+      }
+    }
+
+    // dQ += dS K, dS from registers, K through ldmatrix.trans.
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      uint32_t sa[4];
+      acc_to_a<T>(sa, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int db2 = 0; db2 < D / 16; ++db2) {
+        uint32_t bk[4];
+        ldmatrix_x4_trans(bk, bt_frag_addr<D>(kt, kk * 16, db2, lane));
+        mma_16816<T>(acc[2 * db2], sa, bk[0], bk[1]);
+        mma_16816<T>(acc[2 * db2 + 1], sa, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // the next iteration's loads overwrite this buffer
+  }
+  cp_async_wait<0>();  // nothing left in flight (a block with no kept tile)
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= T_len) continue;
+    T* o_row = dq + q_off + (size_t)rows[r] * q_stride + col_l;
+#pragma unroll
+    for (int db = 0; db < D / 8; ++db) {
+      *reinterpret_cast<uint32_t*>(o_row + db * 8) =
+          pack2<T>(acc[db][2 * r] * scale, acc[db][2 * r + 1] * scale);
     }
   }
 }
@@ -615,15 +839,28 @@ struct BwdArgs {
 
 template <typename T, int D>
 cudaError_t launch_dq(const BwdArgs& a) {
-  constexpr size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.T_len + kBlockQ - 1) / kBlockQ, a.Hq, a.B);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      a.q_seg, a.kv_seg, static_cast<const T*>(a.dout), a.lse, a.di, static_cast<T*>(a.dq),
-      a.T_len, a.S_len, a.Hq, a.Hkv, a.causal, a.scale);
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr size_t smem = dq_smem_bytes<D>();
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.T_len + kBlockQ - 1) / kBlockQ, a.Hq, a.B);
+    flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        a.q_seg, a.kv_seg, static_cast<const T*>(a.dout), a.lse, a.di, static_cast<T*>(a.dq),
+        a.T_len, a.S_len, a.Hq, a.Hkv, a.causal, a.scale);
+  } else {
+    const int n_kv = (a.S_len + dq_block_kv<D>() - 1) / dq_block_kv<D>();
+    const size_t smem = dq_mma_smem_bytes<D>(n_kv);
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<T, D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const int grid = (a.T_len + kBlockQ - 1) / kBlockQ * a.Hq * a.B;
+    flash_bwd_dq_mma_kernel<T, D><<<grid, kMmaThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        a.q_seg, a.kv_seg, static_cast<const T*>(a.dout), a.lse, a.di, static_cast<T*>(a.dq),
+        a.T_len, a.S_len, a.Hq, a.Hkv, a.causal, a.scale);
+  }
   return cudaGetLastError();
 }
 

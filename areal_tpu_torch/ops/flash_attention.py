@@ -9,11 +9,11 @@ flash_attention`` and its gradient. Three kernels, CUDA C++ for ``sm_90a``:
  - K2, dk and dv, and K3, dq (``csrc/flash_attention_bwd.cu``), from q, k,
    v, dO, K1's logsumexp and ``di = rowsum(dO * O)``.
 
-For bf16 and fp16, K1 and K2 run on tensor cores (``mma.sync``) with
+For bf16 and fp16, K1, K2 and K3 run on tensor cores (``mma.sync``) with
 ``cp.async`` double buffering and skip the tile pairs that share no segment
 id (:func:`tile_pairs` counts them); K2 splits its work per q head and sums
-the heads of each kv head in a second kernel, deterministically. float32
-inputs take exact scalar-f32 instances; K3 is scalar for every dtype.
+the heads of each kv head in a second kernel, deterministically; K3 writes
+each q tile's dq once. float32 inputs take exact scalar-f32 instances.
 
 Each source is built with ``nvcc`` into a shared library at first use (keyed
 by a hash of the sources, under the repository's ``build/`` directory; the
@@ -248,7 +248,8 @@ def tile_walk(q_segment_ids: torch.Tensor, kv_segment_ids: torch.Tensor,
     executed only if besides the two tiles' ranges ``[min, max]`` of nonzero
     segment ids overlap. Disjoint ranges share no id, so the skip drops no
     kept pair whatever the ids. K1 walks (64, 64) tiles; K2 (64, 64) at
-    head_dim 64 and (32, 64) at 128."""
+    head_dim 64 and (32, 64) at 128; K3 (64, 64) at head_dim 64 and
+    (64, 32) at 128."""
     q_lo, q_hi = _tile_ranges(q_segment_ids, block_q)
     k_lo, k_hi = _tile_ranges(kv_segment_ids, block_kv)
     T = q_segment_ids.shape[1]

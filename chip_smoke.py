@@ -33,26 +33,28 @@ Phases (any failed check raises, and the script exits non-zero):
  (e) where the time goes: warm prefill and decode-step times at the
      slice's widest prefill, K1's share of the prefill's device time, and
      the device's idle share during decode (from torch.profiler);
- (f) K2 (dk, dv) and K3 (dq), the flash-attention backward kernels, against
-     their plain PyTorch version computed in float32 on the same bf16
-     inputs (K1's out and logsumexp, a random dO): the train shape (B=2,
-     T=S=1792, 14/2 heads of 64, packed segments with pad tails), D=128
-     with GQA (28/4 heads) and a ragged T=200. Tolerance: two bf16 ulps at
-     each gradient's largest magnitude (2**-7 * max|ref|; the kernels and
-     the plain version both sum in f32 from the same bf16 inputs and round
-     once); pad rows and columns exactly 0; nothing NaN. Times K1, K2, K3,
-     the plain backward and SDPA's backward at the train shape, and counts
-     the tile pairs K1 and K2 execute there against the causal walk's;
+ (f) K2 (dk, dv) and K3 (dq), the flash-attention backward kernels (both on
+     tensor cores for bf16), against their plain PyTorch version computed
+     in float32 on the same bf16 inputs (K1's out and logsumexp, a random
+     dO): the train shape (B=2, T=S=1792, 14/2 heads of 64, packed segments
+     with pad tails), D=128 with GQA (28/4 heads) and a ragged T=200.
+     Tolerance: two bf16 ulps at each gradient's largest magnitude (2**-7 *
+     max|ref|; the kernels and the plain version both sum in f32 from the
+     same bf16 inputs and round once); pad rows and columns exactly 0;
+     nothing NaN. Times K2, K3, the plain backward and SDPA's backward at
+     the train shape, and counts the tile pairs K1, K2 and K3 execute there
+     against the causal walk's (K3 must execute fewer);
  (g) the train slice: PPO actor train steps of Qwen2.5-0.5B at full width
      and depth (bf16 compute, f32 masters, weights from seed 0) on
      bench.py's batch and recipe (32 trajectories, 27,554 tokens, cap 4096
      tokens per micro-batch -> 8 micro-batches of [2, 1792]; "dots" remat,
      log-prob chunks of 512, AdamW lr 1e-5 with bf16 moments). One warm-up
      step and 3 timed ones: trained tokens/s, ms per step, the fwd-bwd /
-     optimizer split, peak memory, the tile pairs K1 and K2 execute on the
-     micro-batches against the causal walk's. Checks finite loss and grad norm > 0,
-     moved parameters, K2 and K3 launched layers x micro-batches x steps
-     times, and K1 twice that (the "dots" remat reruns K1 in the backward);
+     optimizer split, peak memory, the tile pairs K1, K2 and K3 execute on
+     the micro-batches against the causal walk's. Checks finite loss and
+     grad norm > 0, moved parameters, K2 and K3 launched layers x
+     micro-batches x steps times, and K1 twice that (the "dots" remat
+     reruns K1 in the backward);
  (h) one micro-batch's loss and per-parameter grad norms through K1-K3
      against the same micro-batch through the plain attention, on the card;
      the micro-batch with the most positive-advantage tokens, since with
@@ -61,10 +63,10 @@ Phases (any failed check raises, and the script exits non-zero):
      attention rounds scores and probabilities to bf16, the kernels keep
      scores in f32 and round only P and dS before their products, and 24
      layers carry the difference forward and back);
- (i) where the time goes in one train step (torch.profiler): the shares of
-     K1, K2 (its partial and reduction kernels), K3, GEMMs and the rest of
-     the device time, the device's idle share and the kernels per step;
-     K1, K2 and K3 must each show device time.
+ (i) where the time goes in one train step (torch.profiler): the device ms,
+     share and launches of K1, K2 (its partial and reduction kernels), K3,
+     GEMMs and the rest of the device time, the device's idle share and the
+     kernels per step; K1, K2 and K3 must each show device time.
 
 The line before the last is the card's name and power limit, the line
 before that the kernels' JSON record, and the last line
@@ -255,6 +257,15 @@ def check_bwd(fa, B, T, Hq, Hkv, D, seed) -> dict:
     return rec
 
 
+def kernel_tile_pairs(fa, seg, D: int) -> dict:
+    """(executed, causal-walk) tile pairs per head of K1, K2 and K3 at head
+    dim D, each at its own (q, kv) tile sizes: the segment-range skip at
+    work."""
+    return {"k1": fa.tile_pairs(seg, seg, True, 64, 64),
+            "k2": fa.tile_pairs(seg, seg, True, 4096 // D, 64),
+            "k3": fa.tile_pairs(seg, seg, True, 64, 4096 // D)}
+
+
 def bwd_records(fa, B=2, T=1792, Hq=14, Hkv=2, D=64, seed=0) -> dict:
     """Times of K2, K3, the plain backward and SDPA's backward at one shape,
     with each kernel's bound."""
@@ -280,10 +291,9 @@ def bwd_records(fa, B=2, T=1792, Hq=14, Hkv=2, D=64, seed=0) -> dict:
     g = dout.transpose(1, 2)
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         o, (qt, kt, vt), g, retain_graph=True), queued=True)
-    # The tile pairs the tensor-core kernels execute against the causal
-    # walk's (per head, both rows): the segment-range skip at work.
-    tiles = {"k1": fa.tile_pairs(seg, seg, True, 64, 64),
-             "k2": fa.tile_pairs(seg, seg, True, 4096 // D, 64)}
+    tiles = kernel_tile_pairs(fa, seg, D)
+    check(tiles["k3"][0] < tiles["k3"][1],
+          f"K3 executes no fewer tile pairs than the causal walk: {tiles}")
     return {"B": B, "T": T, "plain_bwd_ms": plain_ms,
             "sdpa_bwd_ms": library_ms,
             "tile_pairs_executed_vs_causal": tiles,
@@ -500,11 +510,10 @@ def run_train_slice(fa, cfg, model, iface, batch, spec, steps: int = 3) -> dict:
     check(n_mbs == 8 and shape == (2, 1792),
           f"packer gave {n_mbs} micro-batches of {shape}, expected 8 of (2, 1792)")
     tokens = int(batch.total_lens().sum())
-    # The tile pairs K1 and K2 execute on these micro-batches (per head and
+    # The tile pairs K1-K3 execute on these micro-batches (per head and
     # layer) against the causal walk's.
-    tiles = [fa.tile_pairs(torch.from_numpy(mb.grids["segment_ids"]),
-                           torch.from_numpy(mb.grids["segment_ids"]))
-             for mb in mbs]
+    tiles = [kernel_tile_pairs(fa, torch.from_numpy(mb.grids["segment_ids"]),
+                               cfg.head_dim) for mb in mbs]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     warm = iface.train_step(model, batch, spec)
@@ -528,8 +537,9 @@ def run_train_slice(fa, cfg, model, iface, batch, spec, steps: int = 3) -> dict:
     per = cfg.n_layers * n_mbs * steps
     rec = {
         "n_mbs": n_mbs, "mb_shape": list(shape), "pack_fill": fill,
-        "tile_pairs_executed_vs_causal": [sum(t[0] for t in tiles),
-                                          sum(t[1] for t in tiles)],
+        "tile_pairs_executed_vs_causal": {
+            kern: [sum(t[kern][0] for t in tiles), sum(t[kern][1] for t in tiles)]
+            for kern in tiles[0]},
         "tokens_per_step": tokens, "steps": steps,
         "trained_tokens_per_s": steps * tokens / wall,
         "ms_per_step": 1e3 * wall / steps, "warmup_step_s": warm_s,
@@ -632,12 +642,14 @@ def train_breakdown(model, iface, batch, spec, step_ms: float) -> dict:
               if e.device_type == torch.autograd.DeviceType.CUDA]
     total_us = sum(e.device_time for e in events)
     shares = dict.fromkeys([c for c, _ in KERNEL_CLASSES] + ["rest"], 0.0)
+    launches = dict.fromkeys(shares, 0)
     by_name: dict = {}
     for e in events:
         name = e.name.lower()
         cls = next((c for c, keys in KERNEL_CLASSES
                     if any(key in name for key in keys)), "rest")
         shares[cls] += e.device_time
+        launches[cls] += 1
         by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.device_time
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     device_ms = total_us / 1e3
@@ -651,6 +663,7 @@ def train_breakdown(model, iface, batch, spec, step_ms: float) -> dict:
         "kernels_per_step": len(events),
         "shares": {k: v / total_us for k, v in shares.items()},
         "device_ms": {k: v / 1e3 for k, v in shares.items()},
+        "launches": launches,
         "top_kernels_ms": [(n, t / 1e3) for n, t in top],
     }
 
@@ -679,8 +692,11 @@ def main() -> None:
     print(f"built {', '.join(os.path.relpath(p) for p in libs.values())} in "
           f"{time.monotonic() - t0:.1f}s; ptxas (kernel, type, head_dim, "
           "spill-store bytes, registers):", json.dumps(ptxas), flush=True)
-    # K1: 2 scalar f32 + 4 tensor-core; K2: 2 + 4 + 2 reductions; K3: 6
+    # K1: 2 scalar f32 + 4 tensor-core; K2: 2 + 4 + 2 reductions; K3: 2 + 4
     check(len(ptxas) == 20, f"expected 20 kernel instances, ptxas shows {ptxas}")
+    check(sorted((r[1], r[2]) for r in ptxas if r[0] == "flash_bwd_dq_mma_kernel")
+          == [("bf16", 64), ("bf16", 128), ("fp16", 64), ("fp16", 128)],
+          f"K3's tensor-core instances missing from {ptxas}")
     spills = [r for r in ptxas if r[1] != "f32" and r[3] > 0]
     check(not spills, f"tensor-core instances spill: {spills}")
 

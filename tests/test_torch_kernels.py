@@ -34,17 +34,32 @@ def _inputs(seqlens, T, Hq, Hkv, D, dtype=torch.float32, device="cpu", seed=0):
             torch.from_numpy(seg).to(device))
 
 
+def _kv_ids(seg):
+    """The key side's segment ids: documents with ids from 100 up exist on
+    the query side only (their key columns are padding), so their rows meet
+    no key."""
+    return torch.where(seg >= 100, 0, seg)
+
+
 # Cases for the tensor-core kernels: the train shape (two documents per row
-# and a pad tail, G = 7), G = 1 (K2 writes dk/dv directly), and segment ids
-# out of order, with one id on two separate documents, which the tile skip
-# must still keep ("any ids").
+# and a pad tail, G = 7), G = 1 (K2 writes dk/dv directly), segment ids out
+# of order, with one id on two separate documents, which the tile skip must
+# still keep ("any ids"); 40 short documents per row with ids descending or
+# swapped in pairs, where the walk skips most tile pairs; and a query-only
+# document whose q tiles meet no kv tile, so their dq must be exactly 0.
 _NON_MONOTONIC = [[(100, 2), (90, 1), (120, 3), (80, 1)], [(150, 3), (150, 2)]]
+_SHORT_DOCS = [[(9 + (7 * i) % 32, 80 - i) for i in range(40)],
+               [(12 + (5 * i) % 27, (i ^ 1) + 1) for i in range(40)]]
+_QUERY_ONLY = [[(300, 1), (200, 2), (250, 101)], [(700, 1)]]
 _TC_CASES = (
     ([[900, 800], [1000, 700]], 1792, 64, 14, 2),
     ([[200, 150], [300]], 320, 64, 4, 4),
     ([[120, 90], [250]], 256, 128, 2, 2),
     (_NON_MONOTONIC, 400, 64, 14, 2),
     (_NON_MONOTONIC, 400, 128, 8, 1),
+    (_SHORT_DOCS, 1024, 64, 14, 2),
+    (_QUERY_ONLY, 768, 64, 14, 2),
+    (_QUERY_ONLY, 768, 128, 28, 4),
 )
 
 
@@ -87,34 +102,38 @@ def test_kernel_matches_plain_on_card(dtype, seqlens, T, D, Hq, Hkv):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     (q, k, v), seg = _inputs(seqlens, T, Hq, Hkv, D, dtype, "cuda", seed=5)
+    kv_seg = _kv_ids(seg)
     before = fa.launch_count()
-    out, lse = fa.flash_attention(q, k, v, seg, seg, return_lse=True)
+    out, lse = fa.flash_attention(q, k, v, seg, kv_seg, return_lse=True)
     torch.cuda.synchronize()
     assert fa.launch_count() == before + 1
     ref, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(),
-                                            seg, seg)
+                                            seg, kv_seg)
     # float32: summation order only; bf16: one ulp at the largest output
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8 * ref.abs().max().item()
     assert (out.float() - ref).abs().max().item() <= tol
-    assert (out[seg == 0] == 0).all() and not out.isnan().any()
+    no_key = ~fa._keep_mask(seg, kv_seg, True).any(-1)  # pad rows and more
+    assert (out[no_key] == 0).all() and not out.isnan().any()
     fin = torch.isfinite(ref_lse)
     assert torch.equal(torch.isfinite(lse), fin)
     assert (lse[fin] - ref_lse[fin]).abs().max().item() <= 1e-4
 
 
 def _bwd_case(seqlens, T, Hq, Hkv, D, dtype, device, seed):
-    """Inputs of the backward: q, k, v, segment ids, K1's out and lse (from
-    the plain version on the CPU, from K1 on the card) and a random dO."""
+    """Inputs of the backward: q, k, v, the query and key segment ids, K1's
+    out and lse (from the plain version on the CPU, from K1 on the card) and
+    a random dO."""
     (q, k, v), seg = _inputs(seqlens, T, Hq, Hkv, D, dtype, device, seed)
-    out, lse = fa.flash_attention(q, k, v, seg, seg, return_lse=True)
+    kv_seg = _kv_ids(seg)
+    out, lse = fa.flash_attention(q, k, v, seg, kv_seg, return_lse=True)
     gen = torch.Generator().manual_seed(seed + 1)
     dout = torch.randn(q.shape, generator=gen).to(device, dtype)
-    return q, k, v, seg, out, lse, dout
+    return q, k, v, seg, kv_seg, out, lse, dout
 
 
 def test_backward_wrapper_takes_plain_version_on_cpu():
-    q, k, v, seg, out, lse, dout = _bwd_case([[9, 5], [3]], 16, 4, 2, 64,
-                                             torch.float32, "cpu", 0)
+    q, k, v, seg, _, out, lse, dout = _bwd_case([[9, 5], [3]], 16, 4, 2, 64,
+                                                torch.float32, "cpu", 0)
     got = fa.flash_attention_bwd(q, k, v, seg, seg, out, lse, dout)
     want = fa.flash_attention_bwd_plain(q, k, v, seg, seg, out, lse, dout)
     for a, b in zip(got, want):
@@ -136,61 +155,72 @@ def test_backward_wrapper_takes_plain_version_on_cpu():
 def test_backward_kernels_match_plain_on_card(dtype, seqlens, T, D, Hq, Hkv):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    q, k, v, seg, out, lse, dout = _bwd_case(seqlens, T, Hq, Hkv, D, dtype,
-                                             "cuda", 7)
+    q, k, v, seg, kv_seg, out, lse, dout = _bwd_case(seqlens, T, Hq, Hkv, D,
+                                                     dtype, "cuda", 7)
     before = fa.launch_counts()
-    got = fa.flash_attention_bwd(q, k, v, seg, seg, out, lse, dout)
+    got = fa.flash_attention_bwd(q, k, v, seg, kv_seg, out, lse, dout)
     torch.cuda.synchronize()
     after = fa.launch_counts()
     for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
         assert after[name] == before[name] + 1
     want = fa.flash_attention_bwd_plain(
-        q.float(), k.float(), v.float(), seg, seg, out.float(), lse,
+        q.float(), k.float(), v.float(), seg, kv_seg, out.float(), lse,
         dout.float())
-    pad = seg == 0
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+    # Rows that keep no key (pad rows, query-only documents) get dq = 0,
+    # columns that no row keeps (pad columns) dk = dv = 0, exactly.
+    keep = fa._keep_mask(seg, kv_seg, True)
+    empty = (~keep.any(2), ~keep.any(1), ~keep.any(1))
+    for name, a, b, zero in zip(("dq", "dk", "dv"), got, want, empty):
         # float32: summation order only; bf16: two ulps at the largest value
         scale = b.abs().max().item()
         tol = 1e-4 * scale if dtype == torch.float32 \
             else 2.0 ** -7 * scale
         err = (a.float() - b).abs().max().item()
         assert err <= tol, (name, err, tol)
-        assert (a[pad] == 0).all() and not a.isnan().any(), name
+        assert (a[zero] == 0).all() and not a.isnan().any(), name
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dkv", "dq"])
 @pytest.mark.parametrize("D,Hq,Hkv", [(64, 14, 2), (128, 8, 1)])
-def test_dkv_kernel_is_deterministic_on_card(D, Hq, Hkv):
+def test_dkv_kernel_is_deterministic_on_card(D, Hq, Hkv, kernel):
+    """K2 (dk, dv) and K3 (dq) give the same bits on every launch: neither
+    uses atomics, and K2 sums the q heads of a kv head in a fixed order."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    q, k, v, seg, out, lse, dout = _bwd_case(
+    q, k, v, seg, kv_seg, out, lse, dout = _bwd_case(
         [[900, 800], [1000, 700]], 1792, Hq, Hkv, D, torch.bfloat16, "cuda", 3)
     di = fa.backward_di(out, dout)
-    args = (q, k, v, seg, seg, dout, lse, di, True, D ** -0.5)
-    first = fa.launch_bwd_dkv(*args)
-    second = fa.launch_bwd_dkv(*args)
+    args = (q, k, v, seg, kv_seg, dout, lse, di, True, D ** -0.5)
+    launch = {"dkv": fa.launch_bwd_dkv,
+              "dq": lambda *a: (fa.launch_bwd_dq(*a),)}[kernel]
+    first, second = launch(*args), launch(*args)
     torch.cuda.synchronize()
-    for a, b in zip(first, second):  # no atomics: bit-identical
+    for a, b in zip(first, second):
         assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("blocks", [(64, 64), (32, 64), (16, 8)])
-@pytest.mark.parametrize("ids", ["packed", "shuffled", "few"])
+@pytest.mark.parametrize("blocks", [(64, 64), (32, 64), (64, 32), (16, 8)])
+@pytest.mark.parametrize("ids", ["packed", "shuffled", "few", "short"])
 def test_tile_walk_keeps_every_kept_pair(ids, blocks, causal):
     """The tensor-core kernels skip (q tile, kv tile) pairs whose ranges of
     nonzero segment ids do not overlap: whatever the ids, no kept pair may
     sit in a skipped tile pair."""
-    rng = np.random.RandomState(len(ids) + blocks[0])
-    B, T = 3, 300
-    seg = np.zeros((B, T), np.int32)
-    for b in range(B):
-        cuts = np.sort(rng.choice(np.arange(1, T), 5, replace=False))
-        for i, (lo, hi) in enumerate(zip([0, *cuts], [*cuts, T])):
-            seg[b, lo:hi] = {"packed": i + 1, "shuffled": rng.randint(0, 7),
-                             "few": rng.randint(1, 3)}[ids]
-        seg[b, T - rng.randint(0, 40):] = 0
-    seg = torch.from_numpy(seg)
+    if ids == "short":  # 40 short documents a row, ids out of order
+        (_, _, _), seg = _inputs(_SHORT_DOCS, 1024, 1, 1, 64)
+    else:
+        rng = np.random.RandomState(len(ids) + blocks[0])
+        B, T = 3, 300
+        seg = np.zeros((B, T), np.int32)
+        for b in range(B):
+            cuts = np.sort(rng.choice(np.arange(1, T), 5, replace=False))
+            for i, (lo, hi) in enumerate(zip([0, *cuts], [*cuts, T])):
+                seg[b, lo:hi] = {"packed": i + 1, "shuffled": rng.randint(0, 7),
+                                 "few": rng.randint(1, 3)}[ids]
+            seg[b, T - rng.randint(0, 40):] = 0
+        seg = torch.from_numpy(seg)
+    B, T = seg.shape
     bq, bk = blocks
     executed, visited = fa.tile_walk(seg, seg, causal, bq, bk)
     keep = fa._keep_mask(seg, seg, causal)
@@ -203,6 +233,8 @@ def test_tile_walk_keeps_every_kept_pair(ids, blocks, causal):
     assert n_exec == int(executed.sum()) and n_visit == B * int(visited.sum())
     if ids == "packed":  # ascending ids: most off-diagonal pairs are skipped
         assert n_exec < n_visit
+    if ids == "short":  # ranges local to their tiles: most pairs are skipped
+        assert n_exec < 0.3 * n_visit
 
 
 def test_tile_walk_counts_at_the_train_shape():
