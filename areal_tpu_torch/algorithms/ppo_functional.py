@@ -1,5 +1,6 @@
 """PPO math on the packed ``[B, L]`` grid: log-prob gathering, masks,
-normalization, GAE, the decoupled actor loss and the KL controllers.
+normalization, GAE, the decoupled actor loss, the clipped value loss and
+the KL controllers.
 
 Counterpart of ``areal_tpu/algorithms/ppo_functional.py`` on torch tensors
 (:func:`action_token_mask` and :func:`shift_right_in_doc` also take numpy
@@ -227,6 +228,40 @@ def actor_loss(
         "behav_tail": behav_tail,
     }
     return loss, stats
+
+
+def critic_loss(
+    value: torch.Tensor,  # [B, L] new value prediction
+    old_value: torch.Tensor,  # [B, L] value at rollout time
+    returns: torch.Tensor,  # [B, L] GAE returns (target)
+    mask: torch.Tensor,
+    value_eps_clip: float = 0.2,
+    loss_fn: str = "huber",
+    huber_delta: float = 10.0,
+    loss_scale: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Clipped value loss (reference ppo_functional.py:277; the Huber delta
+    defaults to the reference's 10.0)."""
+    mask = mask.to(torch.bool)
+    denom = torch.clamp_min(
+        torch.as_tensor(loss_scale, dtype=torch.float32, device=mask.device)
+        if loss_scale is not None else mask.sum().float(), 1.0
+    )
+
+    def base(x, y):
+        if loss_fn != "huber":
+            return 0.5 * (x - y) ** 2
+        d = (x - y).abs()
+        return torch.where(d < huber_delta, 0.5 * d * d,
+                           huber_delta * (d - 0.5 * huber_delta))
+
+    clipped = old_value + torch.clamp(value - old_value, -value_eps_clip,
+                                      value_eps_clip)
+    l1 = base(value, returns)
+    l2 = base(clipped, returns)
+    clip_mask = (l2 > l1) & mask
+    loss = torch.where(mask, torch.maximum(l1, l2), 0.0).sum() / denom
+    return loss, {"value_clip_ratio": clip_mask.sum() / denom}
 
 
 # ---------------- KL controllers ----------------

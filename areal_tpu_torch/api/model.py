@@ -9,7 +9,9 @@ The port's own copy of the engine contracts of ``areal_tpu/api/model.py``:
  - ``ModelBackend`` wraps a model into a ``TrainableEngine``;
  - ``ModelInterface`` is the algorithm operating on an engine and a
    ``SequenceSample``.
-The string registries wait for a later slice.
+Plus the backend and interface registries (``:162-189``), so experiments
+build engines and interfaces by name; the model, dataset, agent and env
+registries wait for later slices.
 """
 
 from __future__ import annotations
@@ -144,3 +146,31 @@ class ModelInterface:
 
     def load_state_dict(self, d: dict) -> None:
         pass
+
+
+# ---------------- registries ----------------
+
+_BACKEND_REGISTRY: Dict[str, Callable] = {}
+_INTERFACE_REGISTRY: Dict[str, Callable] = {}
+
+
+def _make(registry: Dict[str, Callable], kind: str, name: str, *args, **kwargs):
+    if name not in registry:
+        raise KeyError(f"unknown {kind} '{name}'; known: {sorted(registry)}")
+    return registry[name](*args, **kwargs)
+
+
+def register_backend(name: str, cls: Callable) -> None:
+    _BACKEND_REGISTRY[name] = cls
+
+
+def make_backend(name: str, *args, **kwargs) -> ModelBackend:
+    return _make(_BACKEND_REGISTRY, "backend", name, *args, **kwargs)
+
+
+def register_interface(name: str, cls: Callable) -> None:
+    _INTERFACE_REGISTRY[name] = cls
+
+
+def make_interface(name: str, *args, **kwargs) -> ModelInterface:
+    return _make(_INTERFACE_REGISTRY, "interface", name, *args, **kwargs)

@@ -1,5 +1,5 @@
 """The PyTorch train engine — counterpart of ``areal_tpu/backend/jax_train.py``
-(``JaxTrainEngine``, ``JaxTrainBackend``), its uniform fast path.
+(``JaxTrainEngine``, ``JaxTrainBackend``).
 
  - f32 master parameters live on the device as leaf tensors; every grad
    step casts them to the compute dtype *inside* the differentiated
@@ -24,16 +24,30 @@
    bf16 moments with f32 math.
  - The log-prob head is chunked over columns, each chunk under
    ``torch.utils.checkpoint`` (``_forward_token_logprobs:321``): the
-   ``[R, L, V]`` logits never exist at once, forward or backward.
+   ``[R, L, V]`` logits never exist at once, forward or backward. A
+   critic's values ``[R, L]`` come out of the model and are cast to f32.
+ - ``train_batch`` (reference ``:802``) packs its sample per call and runs
+   ``train_uniform`` over every micro-batch: one copy of the optimizer
+   step and its skip rule.
+ - ``forward`` (``:1010``) runs under ``torch.no_grad()`` without remat,
+   fetches once per micro-batch and returns per-sample arrays
+   (``scatter_back``); ``generate`` (``:1057``) runs ``models/generate.py``
+   over compute-dtype copies, its draws from a ``torch.Generator``.
+ - ``save_train_state`` / ``load_train_state`` (``:924``, ``:983``) keep the
+   masters, the Adam moments in their stored dtype and the step count,
+   each entry named by its state-dict name (the reference uses leaf
+   positions, so a train state does not cross packages).
+ - ``TorchTrainBackend(train=False)`` (``"torch_inference"``) keeps the
+   parameters in their own dtype and builds no optimizer.
 
-Not ported yet: ``train_batch``, ``forward`` with ``scatter_back``,
-``generate``, train-state checkpointing, meshes, MoE and the critic.
+Not ported yet: meshes and MoE.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -46,12 +60,16 @@ from areal_tpu_torch.algorithms import ppo_functional as PF
 from areal_tpu_torch.api.data import MicroBatchSpec, SequenceSample
 from areal_tpu_torch.api.model import (
     FinetuneSpec,
+    GenerationHyperparameters,
     Model,
     ModelBackend,
     TrainableEngine,
+    register_backend,
 )
 from areal_tpu_torch.api.train_config import OptimizerConfig
 from areal_tpu_torch.backend import microbatch as mbu
+from areal_tpu_torch.base import safetensors_io as sio
+from areal_tpu_torch.models import generate as genmod
 from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.models.packing import round_up
 from areal_tpu_torch.models.transformer import (
@@ -277,30 +295,34 @@ class TorchTrainEngine(TrainableEngine):
         return {n: p.to(cd) if p.is_floating_point() else p
                 for n, p in self.params.items()}
 
-    def _hidden_or_logits(self, cast, batch, return_hidden: bool):
+    def _hidden_or_logits(self, cast, batch, return_hidden: bool, remat):
+        """The model's final hidden, logits, or a critic's values (cast to
+        f32 after the head, as the reference does)."""
         out, _ = torch.func.functional_call(
             self.model, cast, (batch["tokens"], batch["positions"]),
             dict(segment_ids=batch["segment_ids"], attn_impl=self.attn_impl,
-                 remat=self.remat, return_kv=False,
-                 return_hidden=return_hidden),
+                 remat=remat, return_kv=False, return_hidden=return_hidden),
         )
-        return out
+        return out.float() if self.cfg.is_critic and not return_hidden else out
 
-    def _forward_token_logprobs(self, cast, batch) -> torch.Tensor:
+    def _forward_token_logprobs(self, cast, batch, remat) -> torch.Tensor:
         """[R, L] per-token logprobs through the chunked head: each column
         chunk computes its logits and gathers its scores under checkpoint,
         so the backward recomputes the chunk's logits instead of keeping
-        them (the head matmul is redone once)."""
-        h = self._hidden_or_logits(cast, batch, return_hidden=True)
+        them (the head matmul is redone once). Without grad, the chunks just
+        run one after another."""
+        h = self._hidden_or_logits(cast, batch, return_hidden=True, remat=remat)
         L = h.shape[1]
         labels = PF.next_token_labels(batch["tokens"])
         C = self.logprob_chunk or L
         if L % C != 0:
             C = L  # bucketing guarantees divisibility in practice
         head = cast[head_param_name(self.cfg)]
+        grad = torch.is_grad_enabled()
         s = torch.cat([
             checkpoint(_chunk_scores, h[:, c:c + C], labels[:, c:c + C], head,
-                       use_reentrant=False)
+                       use_reentrant=False) if grad
+            else _chunk_scores(h[:, c:c + C], labels[:, c:c + C], head)
             for c in range(0, L, C)
         ], dim=1)
         return PF.shift_mask_scores(s, batch["segment_ids"])
@@ -324,9 +346,10 @@ class TorchTrainEngine(TrainableEngine):
         batch = self._slice(ub, i)
         cast = self._cast()
         if self._use_chunked_logprobs(loss_fn):
-            out = self._forward_token_logprobs(cast, batch)
+            out = self._forward_token_logprobs(cast, batch, self.remat)
         else:
-            out = self._hidden_or_logits(cast, batch, return_hidden=False)
+            out = self._hidden_or_logits(cast, batch, return_hidden=False,
+                                         remat=self.remat)
         loss_sum, stats = loss_fn(out, batch)
         loss = loss_sum / max(denom, 1.0)
         (loss * scale if scale != 1.0 else loss).backward()
@@ -472,6 +495,130 @@ class TorchTrainEngine(TrainableEngine):
         without its MoE and telemetry parts)."""
         return {k: float(v) for k, v in fetched.items()}
 
+    # -------------- TrainableEngine API --------------
+
+    def train_batch(
+        self,
+        input_: SequenceSample,
+        mb_spec: MicroBatchSpec,
+        loss_fn: LossFn,
+        loss_weight_fn: Callable[[mbu.MicroBatch], float],
+        token_normalize_scope: str = "global",
+        version_steps: int = 0,
+        skip_update_rule: Optional[Tuple[str, str, float]] = None,
+    ) -> Dict[str, float]:
+        """Gradients accumulated over the micro-batches of ``input_``, then
+        one optimizer step (reference ``train_batch:802``; see
+        :meth:`train_uniform` for the loss scope and the skip rule). The
+        sample is packed and uploaded per call."""
+        ub = self.upload_uniform(input_, mb_spec)
+        return self.train_uniform(
+            ub, loss_fn, loss_weight_fn,
+            token_normalize_scope=token_normalize_scope,
+            skip_update_rule=skip_update_rule,
+        )
+
+    @torch.no_grad()
+    def forward(
+        self,
+        input_: SequenceSample,
+        mb_spec: MicroBatchSpec,
+        output_key: str = "logprobs",
+        post_hook: Optional[Callable] = None,
+    ) -> List[np.ndarray]:
+        """Micro-batched inference without autograd or remat.
+        ``post_hook(out, batch)`` maps the model's output (``[R, L]``
+        logprobs through the chunked head when the hook declares
+        ``wants_token_logprobs``, else logits or a critic's values) to a
+        per-token ``[R, L, ...]`` quantity on the device; one fetch per
+        micro-batch. Returns per-sample packed arrays in input order."""
+        ub = self.upload_uniform(input_, mb_spec)
+        use_lp = self._use_chunked_logprobs(post_hook)
+        cast = self._cast()
+        outs = []
+        for i in range(ub.n_mbs):
+            batch = self._slice(ub, i)
+            if use_lp:
+                out = self._forward_token_logprobs(cast, batch, remat=False)
+            else:
+                out = self._hidden_or_logits(cast, batch, return_hidden=False,
+                                             remat=False)
+            if post_hook is not None:
+                out = post_hook(out, batch)
+            if out.dtype == torch.bfloat16:  # numpy has no bf16
+                out = out.float()
+            outs.append(out.cpu().numpy())
+        return mbu.scatter_back(ub.mbs, outs, input_.bs)
+
+    @torch.no_grad()
+    def generate(
+        self,
+        input_: SequenceSample,
+        mb_spec: MicroBatchSpec,
+        gconfig: GenerationHyperparameters,
+        generator: Optional[torch.Generator] = None,
+        prompt_key: str = "packed_prompts",
+        eos_token_id: int = 1,
+        pad_token_id: int = 0,
+    ) -> Dict[str, np.ndarray]:
+        """In-process generation over compute-dtype copies of the weights;
+        ``gconfig.n`` samples per prompt by repeating it. ``generator``
+        (on the engine's device) stands in for the reference's PRNG key;
+        the default is seeded from the optimizer step count."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(
+                self.opt_step_count)
+        offs = input_.offsets(prompt_key)
+        lens = input_.total_lens(prompt_key)
+        prompts = [input_.data[prompt_key][o:o + n] for o, n in zip(offs, lens)]
+        prompts = [p for p in prompts for _ in range(gconfig.n)]
+        padded, plens = genmod.pad_prompts(prompts, pad_token_id)
+        model = Transformer.from_params(
+            self.cfg, {n: p.detach() for n, p in self._cast().items()})
+        out = genmod.generate_batch(
+            model, torch.from_numpy(padded).to(self.device),
+            torch.from_numpy(plens).to(self.device), generator, gconfig,
+            max_new_tokens=gconfig.max_new_tokens, eos_token_id=eos_token_id,
+            pad_token_id=pad_token_id, attn_impl=self.attn_impl,
+        )
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    # -------------- train-state checkpointing --------------
+
+    def save_train_state(self, ckpt_dir: str) -> int:
+        """``params.safetensors`` (the masters) and, with an optimizer,
+        ``opt_state.safetensors`` (``mu/<name>``, ``nu/<name>`` in their
+        stored dtype, and ``opt_step_count``). Returns the bytes written."""
+        os.makedirs(ckpt_dir, exist_ok=True)
+        n = sio.save_file(self.params,
+                          os.path.join(ckpt_dir, "params.safetensors"))
+        opt = self.optimizer
+        if opt is not None:
+            state = {"opt_step_count": torch.tensor(opt.count)}
+            for kind, moments in (("mu", opt.mu), ("nu", opt.nu)):
+                state.update({f"{kind}/{name}": m
+                              for name, m in zip(self.params, moments)})
+            n += sio.save_file(state,
+                               os.path.join(ckpt_dir, "opt_state.safetensors"))
+        return n
+
+    @torch.no_grad()
+    def load_train_state(self, ckpt_dir: str) -> None:
+        """Restore what :meth:`save_train_state` wrote, in place: each tensor
+        keeps its dtype, shape and device."""
+        z = sio.load_file(os.path.join(ckpt_dir, "params.safetensors"))
+        for name, p in self.params.items():
+            p.copy_(z[name].reshape(p.shape))
+        path = os.path.join(ckpt_dir, "opt_state.safetensors")
+        opt = self.optimizer
+        if opt is None or not os.path.exists(path):
+            return
+        z = sio.load_file(path)
+        for kind, moments in (("mu", opt.mu), ("nu", opt.nu)):
+            for name, m in zip(self.params, moments):
+                m.copy_(z[f"{kind}/{name}"].reshape(m.shape))
+        opt.count = int(z["opt_step_count"])
+
 
 @dataclasses.dataclass
 class TorchTrainBackend(ModelBackend):
@@ -488,13 +635,14 @@ class TorchTrainBackend(ModelBackend):
     remat: Any = False
     logprob_chunk: Optional[int] = 512
     fill_bucket: Optional[int] = None
+    train: bool = True  # False: an inference engine, no optimizer
 
     def initialize(self, model: Model, spec: FinetuneSpec) -> Model:
         cfg, params = model.module
         model.module = TorchTrainEngine(
             cfg,
             params,
-            opt_cfg=self.optimizer,
+            opt_cfg=self.optimizer if self.train else None,
             ft_spec=spec,
             device=self.device,
             compute_dtype=self.compute_dtype,
@@ -507,3 +655,8 @@ class TorchTrainBackend(ModelBackend):
             fill_bucket=self.fill_bucket,
         )
         return model
+
+
+register_backend("torch_train", TorchTrainBackend)
+register_backend("torch_inference",
+                 lambda **kw: TorchTrainBackend(train=False, **kw))

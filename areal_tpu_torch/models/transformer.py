@@ -14,11 +14,13 @@ form, not in arithmetic:
    cache buffers they own (``models/generate.py``).
 
 Supports GQA, rotate-half RoPE, RMSNorm or LayerNorm, gated or plain MLP,
-optional qk-norm and attention biases, tied or untied embeddings, and the
-training forward: no KV stack (``return_kv=False``), the final hidden
-instead of logits (``return_hidden=True``) and per-layer remat
-(``_maybe_checkpoint:385``). MoE, the critic head, learned positions and
-ring/pipeline parallelism wait for later slices.
+optional qk-norm and attention biases, tied or untied embeddings, the
+critic's value head (``is_critic``: ``value_head [1, D]``, no bias, values
+``[B, T]`` in the compute dtype) and the training forward: no KV stack
+(``return_kv=False``), the final hidden instead of logits
+(``return_hidden=True``) and per-layer remat (``_maybe_checkpoint:385``).
+MoE, learned positions and ring/pipeline parallelism wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -215,7 +217,7 @@ class Transformer(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None, dtype=None):
         super().__init__()
         unsupported = [name for name, on in (
-            ("moe", cfg.moe is not None), ("is_critic", cfg.is_critic),
+            ("moe", cfg.moe is not None),
             ("pos_embedding='learned'", cfg.pos_embedding != "rope"),
         ) if on]
         if unsupported:
@@ -227,7 +229,9 @@ class Transformer(nn.Module):
         self.embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_dim, **f)
         self.layers = nn.ModuleList(Block(cfg, **f) for _ in range(cfg.n_layers))
         self.final_ln = _norm(cfg, cfg.hidden_dim, **f)
-        if not cfg.tie_word_embeddings:
+        if cfg.is_critic:
+            self.value_head = nn.Linear(cfg.hidden_dim, 1, bias=False, **f)
+        elif not cfg.tie_word_embeddings:
             self.lm_head = nn.Linear(cfg.hidden_dim, cfg.vocab_size,
                                      bias=False, **f)
 
@@ -254,8 +258,8 @@ class Transformer(nn.Module):
         return_kv: bool = True,  # False in training: no per-layer K/V stack
         return_hidden: bool = False,  # skip the head; return final hidden
     ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-        """Returns (output, kv): output is logits [B, T, V] (the final hidden
-        [B, T, D] with ``return_hidden``); kv {"k", "v"} stacks per-layer
+        """Returns (output, kv): output is logits [B, T, V] (a critic's
+        values [B, T]; the final hidden [B, T, D] with ``return_hidden``); kv {"k", "v"} stacks per-layer
         keys/values [n_layers, B, S, Hkv, Dh] (S = T in packed mode, the
         cache length in decode mode), or is None with ``return_kv=False``.
 
@@ -300,21 +304,26 @@ class Transformer(nn.Module):
         return (h if return_hidden else self.apply_head(h)), kv
 
     def apply_head(self, h: torch.Tensor) -> torch.Tensor:
-        """Final hidden → logits (tied embeddings or a separate head)."""
-        head = self.embedding if self.cfg.tie_word_embeddings else self.lm_head
-        return head_logits(h, head.weight)
+        """Final hidden → logits (tied embeddings or a separate head), or a
+        critic's values ``[..., T]`` (reference ``apply_head:519``), in the
+        hidden's dtype."""
+        head = getattr(self, head_param_name(self.cfg).split(".")[0])
+        out = head_logits(h, head.weight)
+        return out[..., 0] if self.cfg.is_critic else out
 
 
 def head_param_name(cfg: TransformerConfig) -> str:
-    """The state-dict name of the head matrix ``[V, D]``: the embedding
-    when tied."""
+    """The state-dict name of the head matrix: ``[V, D]`` (the embedding
+    when tied), or a critic's ``value_head`` ``[1, D]``."""
+    if cfg.is_critic:
+        return "value_head.weight"
     return "embedding.weight" if cfg.tie_word_embeddings else "lm_head.weight"
 
 
 def head_logits(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
-    """The head's one definition (reference ``apply_head:519``): hidden
-    ``[..., D]`` times the head matrix ``[V, D]``. The train engine calls it
-    per column chunk with the compute-dtype copy of the matrix."""
+    """The head's one definition: hidden ``[..., D]`` times the head matrix
+    ``[V, D]``. The train engine calls it per column chunk with the
+    compute-dtype copy of the matrix."""
     return F.linear(h, head)
 
 

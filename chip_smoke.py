@@ -66,7 +66,36 @@ Phases (any failed check raises, and the script exits non-zero):
  (i) where the time goes in one train step (torch.profiler): the device ms,
      share and launches of K1, K2 (its partial and reduction kernels), K3,
      GEMMs and the rest of the device time, the device's idle share and the
-     kernels per step; K1, K2 and K3 must each show device time.
+     kernels per step; K1, K2 and K3 must each show device time;
+ (j) the trainer's model functions of the async-PPO recipe (the README's
+     `ppo.use_decoupled_loss=true group_size=16`, the rest at defaults:
+     kl_ctl 0.1, a critic, 4 PPO minibatches, advantage whitening), the
+     engines of (g) freed first: an actor and a critic (same geometry with
+     a value head; trunk from the actor's seed) with f32 masters and bf16
+     moments, and a bf16 reference engine without optimizer. Batch: (g)'s
+     32 trajectories as 2 prompts x 16 samples, behaviour logprobs set to
+     ref_inf's output (importance ratios start at 1). One warm-up and 2
+     timed steps of ref_inf -> actor_inf -> critic_inf -> actor_train ->
+     critic_train: ms per MFC and per step, trained tokens/s, peak memory,
+     K1-K3 launches per MFC. Checks: prox_logprobs == packed_ref_logprobs
+     before the first update (exactly), the first actor minibatch's
+     importance weight within 2% of 1, finite losses, grad norms > 0,
+     finite value moments, both models' parameters moved, no early stop,
+     each inference MFC launches K1 24 x its micro-batches and no K2/K3,
+     each train MFC K2 and K3 24 x its micro-batches and K1 twice that.
+     Then actor_inf and one actor step with group_adv_norm (the host
+     advantage path through train_batch), the same checks; ref_inf's logprobs on one
+     micro-batch's sequences through K1 against the plain attention
+     (tolerance 0.3 nats: twice (d)'s logits bound, as a logprob is a logit
+     minus a logsumexp); and the device ms and idle share of each MFC of
+     one profiled step;
+ (k) checkpoints at full width under a temporary directory (deleted): the
+     actor's HF checkpoint loads into a new inference engine whose
+     actor_inf logprobs equal the saved engine's exactly; the train state
+     loads into a fresh engine, and one actor step on each gives equal
+     masters. Seconds and bytes of each write and read;
+ (l) one SFT train_step on the batch: finite loss and perplexity, K2 and
+     K3 launched 24 x the micro-batches.
 
 The line before the last is the card's name and power limit, the line
 before that the kernels' JSON record, and the last line
@@ -76,12 +105,15 @@ before that the kernels' JSON record, and the last line
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 
@@ -472,27 +504,38 @@ def bench_batch(vocab: int):
     )
 
 
+def make_model(name: str, cfg, params, train: bool = True,
+               device: str = "cuda"):
+    """A Model on bench.py's backend settings (bench.py:56-96): bf16
+    compute, f32 masters and AdamW lr 1e-5 with bf16 moments when
+    training, "dots" remat, log-prob chunks of 512. Without ``train``, an
+    inference engine that keeps ``params`` as they are."""
+    from areal_tpu_torch.api.model import FinetuneSpec, Model, make_backend
+    from areal_tpu_torch.api.train_config import OptimizerConfig
+    from areal_tpu_torch.backend import torch_train  # noqa: F401 (registry)
+
+    backend = make_backend(
+        "torch_train" if train else "torch_inference",
+        optimizer=OptimizerConfig(lr=1e-5, lr_scheduler_type="constant",
+                                  warmup_steps_proportion=0.0,
+                                  mu_dtype="bfloat16", nu_dtype="bfloat16"),
+        device=device, compute_dtype="bfloat16", length_bucket=512,
+        rows_bucket=4, seqs_bucket=16, remat="dots", logprob_chunk=512,
+    )
+    return backend.initialize(Model(name, (cfg, params)),
+                              FinetuneSpec(1, 512, 64))
+
+
 def build_trainer(cfg):
     """bench.py's backend and PPO recipe (bench.py:56-96) on the port."""
     from areal_tpu_torch.algorithms.ppo import (
         PPOActorInterface,
         PPOHyperparameters,
     )
-    from areal_tpu_torch.api.model import FinetuneSpec, Model
-    from areal_tpu_torch.api.train_config import OptimizerConfig
-    from areal_tpu_torch.backend.torch_train import TorchTrainBackend
     from areal_tpu_torch.models.transformer import init_params
 
     params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
-    backend = TorchTrainBackend(
-        optimizer=OptimizerConfig(lr=1e-5, lr_scheduler_type="constant",
-                                  warmup_steps_proportion=0.0,
-                                  mu_dtype="bfloat16", nu_dtype="bfloat16"),
-        device="cuda", compute_dtype="bfloat16", length_bucket=512,
-        rows_bucket=4, seqs_bucket=16, remat="dots", logprob_chunk=512,
-    )
-    model = backend.initialize(Model("actor", (cfg, params)),
-                               FinetuneSpec(1, 512, 64))
+    model = make_model("actor", cfg, params)
     del params  # the engine holds f32 masters
     hp = PPOHyperparameters(ppo_n_minibatches=1, adv_norm=True, kl_ctl=0.0,
                             disable_value=True)
@@ -668,6 +711,416 @@ def train_breakdown(model, iface, batch, spec, step_ms: float) -> dict:
     }
 
 
+# ---------------- (j)-(l) the trainer's model functions ----------------
+
+KERNEL_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                "flash_attention_bwd_dq")
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+class Trainer:
+    """The five model functions of the async-PPO recipe
+    (experiments/ppo_math_exp.py:111 build_dfg with the README's
+    ``ppo.use_decoupled_loss=true group_size=16`` and the other
+    PPOHyperparameters at their defaults: kl_ctl 0.1, a critic, 4 PPO
+    minibatches, advantage whitening) on three engines: the actor and the
+    critic (f32 masters, bf16 moments) and the reference policy (bf16, no
+    optimizer). Every call goes through ``mfc``, which times it and reads
+    K1-K3's launches around it."""
+
+    ORDER = ("ref_inf", "actor_inf", "critic_inf", "actor_train",
+             "critic_train")
+
+    def __init__(self, fa, cfg, device="cuda"):
+        from areal_tpu_torch.algorithms.ppo import (
+            LogprobInterface,
+            PPOActorInterface,
+            PPOCriticInterface,
+            PPOHyperparameters,
+        )
+        from areal_tpu_torch.models.transformer import init_params
+
+        self.fa, self.device = fa, device
+        params = init_params(cfg, seed=0, device=device, dtype=torch.bfloat16)
+        # The reference engine keeps these bf16 tensors; the actor copies
+        # them into f32 masters.
+        self.ref = make_model("ref", cfg, params, train=False, device=device)
+        self.actor = make_model("actor", cfg, params, device=device)
+        del params
+        ccfg = dataclasses.replace(cfg, is_critic=True)
+        # The critic's trunk draws the actor's seed-0 numbers, its value
+        # head the next ones (init_params draws in module order).
+        self.critic = make_model("critic", ccfg, init_params(
+            ccfg, seed=0, device=device, dtype=torch.bfloat16), device=device)
+        self.hp = PPOHyperparameters(use_decoupled_loss=True, group_size=16)
+        self.ref_iface = LogprobInterface()
+        self.actor_iface = PPOActorInterface(self.hp)
+        self.critic_iface = PPOCriticInterface(self.hp)
+        self.group_iface = PPOActorInterface(
+            dataclasses.replace(self.hp, group_adv_norm=True))
+        self.launches = dict.fromkeys(KERNEL_NAMES, 0)
+        # Every optimizer step's stats, in order (train_batch runs through
+        # train_uniform).
+        self.steps = []
+        eng = self.actor.module
+        train_uniform = eng.train_uniform
+        eng.train_uniform = lambda *a, **k: self.steps.append(
+            train_uniform(*a, **k)) or self.steps[-1]
+
+    def mfc(self, fn, *args):
+        """(result, seconds, K1-K3 launches) of one call; the launches also
+        add up into ``self.launches``, the trainer path's count."""
+        self.fa.reset_launch_count()
+        sync(self.device)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        sync(self.device)
+        secs = time.perf_counter() - t0
+        counts = {k: self.fa.launch_counts()[k] for k in KERNEL_NAMES}
+        for k, v in counts.items():
+            self.launches[k] += v
+        return out, secs, counts
+
+    def step(self, batch, spec):
+        """One trainer step in DFG order; (stats, data, seconds and
+        launches per MFC)."""
+        from areal_tpu_torch.algorithms.ppo import attach_keys
+
+        ref, t_ref, l_ref = self.mfc(self.ref_iface.inference, self.ref,
+                                     batch, spec)
+        prox, t_prox, l_prox = self.mfc(self.actor_iface.inference,
+                                        self.actor, batch, spec)
+        vals, t_val, l_val = self.mfc(self.critic_iface.inference,
+                                      self.critic, batch, spec)
+        data = attach_keys(batch, {**ref.data, **prox.data, **vals.data})
+        a, t_a, l_a = self.mfc(self.actor_iface.train_step, self.actor, data,
+                               spec)
+        c, t_c, l_c = self.mfc(self.critic_iface.train_step, self.critic,
+                               data, spec)
+        secs = dict(zip(self.ORDER, (t_ref, t_prox, t_val, t_a, t_c)))
+        launches = dict(zip(self.ORDER, (l_ref, l_prox, l_val, l_a, l_c)))
+        return {"actor": a, "critic": c}, data, secs, launches
+
+
+def n_micro_batches(eng, sample, spec, k=None) -> int:
+    """How many micro-batches the engine packs ``sample`` into; with ``k``,
+    summed over the sample's k PPO minibatches (the train_batch path)."""
+    from areal_tpu_torch.backend import microbatch as mbu
+
+    parts = sample.split(k=k)[0] if k else [sample]
+    return sum(len(mbu.split_into_microbatches(
+        p, spec, length_bucket=eng.length_bucket, rows_bucket=eng.rows_bucket,
+        seqs_bucket=eng.seqs_bucket, fill_bucket=eng.fill_bucket))
+        for p in parts if p.bs)
+
+
+def trainer_batch(vocab: int):
+    """bench_batch's 32 trajectories regrouped as 2 prompts x 16 samples,
+    generated at version 0."""
+    import numpy as np
+
+    from areal_tpu_torch.api.data import SequenceSample
+
+    b = bench_batch(vocab)
+    return SequenceSample.from_default(
+        ids=b.ids, data={**b.data, "version_start": np.zeros(b.bs, np.int32)},
+        seqlens=b.total_lens().tolist(),
+        metadata={"group": [f"p{i // 16}" for i in range(b.bs)]})
+
+
+def check_launches(name: str, counts: dict, n_mbs: int, layers: int,
+                   train: bool) -> None:
+    want = {"flash_attention_fwd": (2 if train else 1) * layers * n_mbs,
+            "flash_attention_bwd_dkv": layers * n_mbs if train else 0,
+            "flash_attention_bwd_dq": layers * n_mbs if train else 0}
+    check(counts == want, f"{name}: K1-K3 launches {counts}, expected {want} "
+          f"({layers} layers x {n_mbs} micro-batches)")
+
+
+def check_train_stats(name: str, st: dict, loss_key: str) -> None:
+    check(math.isfinite(st[loss_key]) and math.isfinite(st["grad_norm"])
+          and st["grad_norm"] > 0, f"{name}: bad stats {st}")
+
+
+def run_trainer(fa, cfg, batch, spec, device="cuda", steps: int = 2):
+    """(j): one warm-up and ``steps`` timed trainer steps, then one actor
+    step with group_adv_norm (the host advantage path through
+    train_batch), with the checks of chip_smoke's docstring."""
+    import numpy as np
+
+    from areal_tpu_torch.algorithms.ppo import attach_keys
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(fa, cfg, device)
+    build_s = time.perf_counter() - t0
+    act, crit, ref = tr.actor.module, tr.critic.module, tr.ref.module
+    # Behaviour logprobs := the reference policy's, so the importance
+    # ratios start at 1 and the decoupled loss has a real gradient.
+    ref_lp, _, _ = tr.mfc(tr.ref_iface.inference, tr.ref, batch, spec)
+    batch = attach_keys(batch, {
+        "packed_logprobs": ref_lp.data["packed_ref_logprobs"]})
+    n_inf = n_micro_batches(ref, batch, spec)
+    n_actor = n_micro_batches(act, batch, dataclasses.replace(
+        spec, n_mbs=max(spec.n_mbs or 1, tr.hp.ppo_n_minibatches)))
+    n_critic = n_micro_batches(crit, batch, spec, k=tr.hp.ppo_n_minibatches)
+    expect_mbs = {"ref_inf": n_inf, "actor_inf": n_inf, "critic_inf": n_inf,
+                  "actor_train": n_actor, "critic_train": n_critic}
+    watch = ["embedding.weight", "layers.0.wq.weight",
+             f"layers.{cfg.n_layers - 1}.w_down.weight"]
+    before = {m: {n: e.params[n].detach().clone() for n in watch}
+              for m, e in (("actor", act), ("critic", crit))}
+    before["critic"]["value_head.weight"] = \
+        crit.params["value_head.weight"].detach().clone()
+
+    records = []
+    for i in range(1 + steps):
+        n_opt = len(tr.steps)
+        t0 = time.perf_counter()
+        stats, data, secs, launches = tr.step(batch, spec)
+        wall = time.perf_counter() - t0
+        if i == 0:
+            prox = data.data["prox_logprobs"]
+            refd = data.data["packed_ref_logprobs"]
+            diff = float(np.abs(prox - refd).max())
+            print("trainer: prox_logprobs vs packed_ref_logprobs before the "
+                  f"first actor_train: max |diff| {diff}", flush=True)
+            check(np.array_equal(prox, refd), "prox_logprobs != "
+                  "packed_ref_logprobs before any update (same bf16 weights, "
+                  "same packing, deterministic kernels)")
+            first = tr.steps[n_opt]
+            iw = first["importance_weight_sum"] / max(first["n_action_tokens"], 1)
+            print(f"trainer: first actor minibatch importance weight {iw}",
+                  flush=True)
+            check(abs(iw - 1) <= 0.02, f"first importance weight {iw} not "
+                  "within 2% of 1")
+        check_train_stats("actor_train", stats["actor"], "actor_loss")
+        check_train_stats("critic_train", stats["critic"], "critic_loss")
+        check(stats["actor"]["n_ppo_steps"] == tr.hp.ppo_n_minibatches,
+              f"actor early-stopped: {stats['actor']}")
+        check(math.isfinite(stats["critic"]["value_mean"])
+              and math.isfinite(stats["critic"]["value_var"]),
+              f"critic moments not finite: {stats['critic']}")
+        for name in Trainer.ORDER:
+            check_launches(name, launches[name], expect_mbs[name],
+                           cfg.n_layers, train=name.endswith("train"))
+        records.append({"wall_s": wall, "secs": secs, "launches": launches,
+                        "actor": stats["actor"], "critic": stats["critic"]})
+    moved = {m: {n: (e.params[n].detach() - before[m][n]).abs().max().item()
+                 for n in before[m]} for m, e in (("actor", act),
+                                                  ("critic", crit))}
+    check(all(v > 0 for d in moved.values() for v in d.values()),
+          f"parameters did not move: {moved}")
+
+    # The host path: group-normalised advantages, minibatches through
+    # train_batch, after a fresh actor_inf (as in the DFG).
+    prox, _, _ = tr.mfc(tr.actor_iface.inference, tr.actor, data, spec)
+    data = attach_keys(data, prox.data)
+    n_group = n_micro_batches(act, data, spec, k=tr.hp.ppo_n_minibatches)
+    before = {n: act.params[n].detach().clone() for n in watch}
+    n_opt = len(tr.steps)
+    gstats, gsecs, glaunch = tr.mfc(tr.group_iface.train_step, tr.actor, data,
+                                    spec)
+    check_train_stats("actor_train (group_adv_norm)", gstats, "actor_loss")
+    check_launches("actor_train (group_adv_norm)", glaunch, n_group,
+                   cfg.n_layers, train=True)
+    check(gstats["n_ppo_steps"] == tr.hp.ppo_n_minibatches,
+          f"group step early-stopped: {gstats}")
+    first = tr.steps[n_opt]
+    giw = first["importance_weight_sum"] / max(first["n_action_tokens"], 1)
+    check(abs(giw - 1) <= 0.02, f"group step: first importance weight {giw}")
+    gmoved = {n: (act.params[n].detach() - before[n]).abs().max().item()
+              for n in watch}
+    check(all(v > 0 for v in gmoved.values()),
+          f"group step: parameters did not move: {gmoved}")
+
+    timed = records[1:]
+    tokens = int(batch.total_lens().sum())
+    step_s = sum(r["wall_s"] for r in timed) / len(timed)
+    rec = {
+        "tokens_per_step": tokens, "timed_steps": len(timed),
+        "build_s": build_s, "warmup_step_s": records[0]["wall_s"],
+        "ms_per_step": 1e3 * step_s,
+        "trained_tokens_per_s": tokens / step_s,
+        "ms_per_mfc": {n: 1e3 * sum(r["secs"][n] for r in timed) / len(timed)
+                       for n in Trainer.ORDER},
+        "micro_batches_per_mfc": expect_mbs,
+        "launches_per_mfc": timed[-1]["launches"],
+        "group_adv_norm_step": {"ms": 1e3 * gsecs, "micro_batches": n_group,
+                                "launches": glaunch,
+                                "actor_loss": gstats["actor_loss"],
+                                "grad_norm": gstats["grad_norm"],
+                                "first_importance_weight": giw,
+                                "param_max_abs_change": gmoved},
+        "actor": [{k: r["actor"][k] for k in ("actor_loss", "grad_norm",
+                                              "importance_weight", "mean_kl",
+                                              "n_ppo_steps")} for r in records],
+        "critic": [{k: r["critic"][k] for k in ("critic_loss", "grad_norm",
+                                                "value_mean", "value_var")}
+                   for r in records],
+        "param_max_abs_change": moved,
+    }
+    if torch.device(device).type == "cuda":
+        rec["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return tr, batch, data, rec
+
+
+def compare_ref_inf(tr, batch, spec) -> dict:
+    """ref_inf's logprobs on the first micro-batch's sequences through K1
+    against the same through the plain attention (attn_impl="reference").
+    Tolerance 0.3 nats: phase (d) holds the prefill's logits through K1 to
+    5% of max |logit| (~3 for these weights, so ~0.15) of the plain
+    attention's, and a logprob is a logit minus a logsumexp, each carrying
+    that error."""
+    import numpy as np
+
+    from areal_tpu_torch.backend import microbatch as mbu
+
+    eng = tr.ref.module
+    mb = mbu.split_into_microbatches(
+        batch, spec, length_bucket=eng.length_bucket,
+        rows_bucket=eng.rows_bucket, seqs_bucket=eng.seqs_bucket)[0]
+    sub = batch.select_idx(mb.sample_indices)
+    got = tr.ref_iface.inference(tr.ref, sub, spec).data["packed_ref_logprobs"]
+    eng.attn_impl = "reference"
+    try:
+        ref = tr.ref_iface.inference(tr.ref, sub, spec).data[
+            "packed_ref_logprobs"]
+    finally:
+        eng.attn_impl = "auto"
+    err = np.abs(got - ref)
+    rec = {"sequences": sub.bs, "tokens": int(sub.total_lens().sum()),
+           "max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+           "tol": 0.3, "max_abs_ref": float(np.abs(ref).max())}
+    print("ref_inf logprobs K1 vs plain attention", json.dumps(rec), flush=True)
+    check(np.isfinite(got).all() and got.shape == ref.shape,
+          "ref_inf logprobs not finite / wrong shape")
+    check(np.array_equal(got == 0, ref == 0), "zero (masked) slots differ")
+    check(rec["max_abs_err"] <= rec["tol"],
+          "ref_inf through K1 disagrees with the plain attention")
+    return rec
+
+
+def run_checkpoints(tr, cfg, batch, data, spec, tmp: str,
+                    device="cuda") -> dict:
+    """(k), under ``tmp``: the actor's HF checkpoint into a new inference
+    engine (its logprobs equal the saved engine's), and the train state
+    into a fresh engine (one actor step on ``data`` on each gives equal
+    masters)."""
+    import numpy as np
+
+    from areal_tpu_torch.algorithms.ppo import PPOActorInterface
+    from areal_tpu_torch.models.hf import load_hf_checkpoint
+    from areal_tpu_torch.models.transformer import init_params
+
+    def timed(fn, *args):
+        sync(device)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        sync(device)
+        return out, time.perf_counter() - t0
+
+    def du(path: str) -> int:
+        return sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+
+    rec = {}
+    hf_dir, st_dir = os.path.join(tmp, "hf"), os.path.join(tmp, "train_state")
+    _, rec["hf_write_s"] = timed(tr.actor_iface.save, tr.actor, hf_dir)
+    rec["hf_bytes"] = du(hf_dir)
+    (lcfg, lparams), rec["hf_read_s"] = timed(load_hf_checkpoint, hf_dir,
+                                              device)
+    check(lcfg == cfg, f"checkpoint config {lcfg} != {cfg}")
+    loaded = make_model("loaded", lcfg, lparams, train=False, device=device)
+    del lparams
+    saved_lp, _, _ = tr.mfc(tr.actor_iface.inference, tr.actor, batch, spec)
+    loaded_lp, _, _ = tr.mfc(tr.actor_iface.inference, loaded, batch, spec)
+    a, b = saved_lp.data["prox_logprobs"], loaded_lp.data["prox_logprobs"]
+    rec["hf_logprobs_max_abs_diff"] = float(np.abs(a - b).max())
+    check(np.array_equal(a, b), "the loaded checkpoint's actor_inf logprobs "
+          "differ from the saved engine's")
+    del loaded
+
+    _, rec["train_state_write_s"] = timed(tr.actor.module.save_train_state,
+                                          st_dir)
+    rec["train_state_bytes"] = du(st_dir)
+    fresh = make_model("fresh", cfg, init_params(
+        cfg, seed=1, device=device, dtype=torch.bfloat16), device=device)
+    _, rec["train_state_read_s"] = timed(fresh.module.load_train_state, st_dir)
+    check(fresh.module.opt_step_count == tr.actor.module.opt_step_count,
+          "step count not restored")
+    for model in (tr.actor, fresh):
+        st, _, _ = tr.mfc(PPOActorInterface(tr.hp).train_step, model, data,
+                          spec)
+        check_train_stats("train_state step", st, "actor_loss")
+    pa, pb = tr.actor.module.params, fresh.module.params
+    rec["train_state_masters_max_abs_diff"] = max(
+        (pa[n] - pb[n]).abs().max().item() for n in pa)
+    check(all(torch.equal(pa[n], pb[n]) for n in pa),
+          "masters differ after a train step from a restored train state: "
+          f"max |diff| {rec['train_state_masters_max_abs_diff']}")
+    print("checkpoints", json.dumps(rec), flush=True)
+    return rec
+
+
+def run_sft(tr, cfg, batch, spec) -> dict:
+    """(l): one SFT train_step on the batch through train_batch."""
+    from areal_tpu_torch.algorithms.sft import SFTInterface
+
+    n = n_micro_batches(tr.actor.module, batch, spec)
+    st, secs, launches = tr.mfc(SFTInterface().train_step, tr.actor, batch,
+                                spec)
+    check(math.isfinite(st["loss"]) and math.isfinite(st["ppl"])
+          and st["grad_norm"] > 0, f"bad SFT stats {st}")
+    check_launches("sft", launches, n, cfg.n_layers, train=True)
+    rec = {"ms": 1e3 * secs, "micro_batches": n, "launches": launches,
+           "loss": st["loss"], "ppl": st["ppl"], "grad_norm": st["grad_norm"]}
+    print("sft", json.dumps(rec), flush=True)
+    return rec
+
+
+def trainer_breakdown(tr, batch, spec) -> dict:
+    """Device ms, wall ms and the device's idle share of each MFC of one
+    trainer step (torch.profiler, device activity only: the host-side
+    events of a train MFC, hundreds of thousands, take longer to collect
+    than the step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from areal_tpu_torch.algorithms.ppo import attach_keys
+
+    out, data = {}, batch
+
+    def run(name, fn, *args):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = fn(*args)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        dev = sum(e.device_time for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        check(dev > 0, f"{name}: the profiler shows no device time")
+        out[name] = {"wall_ms": wall, "device_ms": dev,
+                     "device_idle_share": 1 - dev / wall}
+        return res
+
+    ref = run("ref_inf", tr.ref_iface.inference, tr.ref, data, spec)
+    prox = run("actor_inf", tr.actor_iface.inference, tr.actor, data, spec)
+    vals = run("critic_inf", tr.critic_iface.inference, tr.critic, data, spec)
+    data = attach_keys(data, {**ref.data, **prox.data, **vals.data})
+    run("actor_train", tr.actor_iface.train_step, tr.actor, data, spec)
+    run("critic_train", tr.critic_iface.train_step, tr.critic, data, spec)
+    wall = sum(v["wall_ms"] for v in out.values())
+    dev = sum(v["device_ms"] for v in out.values())
+    out["step"] = {"wall_ms": wall, "device_ms": dev,
+                   "device_idle_share": 1 - dev / wall}
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -677,6 +1130,7 @@ def main() -> None:
     from areal_tpu_torch.models.transformer import Transformer, init_params
     from areal_tpu_torch.ops import flash_attention as fa
 
+    t_start = time.monotonic()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -775,6 +1229,31 @@ def main() -> None:
     print("train breakdown", json.dumps(train_breakdown(
         model, iface, batch, spec, train["ms_per_step"])), f"({card})",
         flush=True)
+    del model, iface  # (j) builds three engines of its own
+    torch.cuda.empty_cache()
+
+    # (j) trainer steps of the async-PPO recipe, then the host path
+    t_trainer = time.monotonic()
+    tr, tbatch, tdata, trainer = run_trainer(fa, cfg, trainer_batch(
+        cfg.vocab_size), spec)
+    print("trainer step", json.dumps(trainer), f"({card})", flush=True)
+    compare_ref_inf(tr, tbatch, spec)
+    print("trainer breakdown", json.dumps(trainer_breakdown(tr, tbatch, spec)),
+          f"({card})", flush=True)
+
+    # (k) checkpoints at full width, under a temporary directory
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ckpt = run_checkpoints(tr, cfg, tbatch, tdata, spec, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (l) one SFT step
+    sft = run_sft(tr, cfg, tbatch, spec)
+    print("trainer path", json.dumps({
+        "launches": tr.launches, "checkpoints": ckpt, "sft_ms": sft["ms"],
+        "phases_j_to_l_s": time.monotonic() - t_trainer,
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
 
     lib_line = ("areal_tpu/ops/pallas/flash_attention.py:200 backward: the "
                 "Pallas TPU library's {} :{} (pallas_call :{})")
@@ -783,9 +1262,11 @@ def main() -> None:
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "areal_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "areal_tpu/ops/pallas/flash_attention.py:200",
-        "launches": serve_launches + train_launches["flash_attention_fwd"],
+        "launches": serve_launches + train_launches["flash_attention_fwd"]
+        + tr.launches["flash_attention_fwd"],
         "launches_by_path": {"serve": serve_launches,
-                             "train": train_launches["flash_attention_fwd"]},
+                             "train": train_launches["flash_attention_fwd"],
+                             "trainer": tr.launches["flash_attention_fwd"]},
         "max_abs_err": k1_train_check["max_abs_err"],
         "ms": timing_train["kernel_ms"], "kernel_ms": timing_train["kernel_ms"],
         "plain_ms": timing_train["plain_ms"],
@@ -804,7 +1285,10 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": "areal_tpu_torch/ops/csrc/flash_attention_bwd.cu",
             "replaces": lib_line.format(fn, line, call),
-            "launches": train_launches[name], "max_abs_err": err,
+            "launches": train_launches[name] + tr.launches[name],
+            "launches_by_path": {"train": train_launches[name],
+                                 "trainer": tr.launches[name]},
+            "max_abs_err": err,
             "ms": rec["kernel_ms"], "kernel_ms": rec["kernel_ms"],
             "plain_ms": bwd_timing["plain_bwd_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],

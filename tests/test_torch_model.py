@@ -149,8 +149,13 @@ def test_qwen2_5_0_5b_geometry():
 
 
 def test_unported_features_raise():
-    with pytest.raises(NotImplementedError):
-        Transformer(tconfig.tiny_config(is_critic=True), device="meta")
+    """MoE and learned positions still raise (the critic head is ported:
+    tests/test_torch_critic.py); a parameter with no port counterpart is a
+    KeyError."""
+    for kw in (dict(moe=dict(num_experts=4, top_k=2)),
+               dict(pos_embedding="learned", max_position_embeddings=64)):
+        with pytest.raises(NotImplementedError):
+            Transformer(tconfig.tiny_config(**kw), device="meta")
     with pytest.raises(KeyError):
-        params_from_jax({"value_head": np.zeros((32, 1), np.float32)},
+        params_from_jax({"layers/router": np.zeros((2, 32, 4), np.float32)},
                         tconfig.tiny_config(), device="cpu")

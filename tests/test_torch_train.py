@@ -232,11 +232,21 @@ def test_ppo_train_step_matches_reference(n_minibatches, cap, caplog):
     _assert_masters_match(jm.module, tm.module, tm.module.cfg)
 
 
-def test_group_adv_norm_waits_for_the_host_path():
+def test_group_adv_norm_waits_for_the_host_path(monkeypatch):
+    """group_adv_norm takes the host advantage path: no device prep, one
+    train_batch per PPO minibatch (its parity with the reference is in
+    tests/test_torch_trainer.py)."""
     _, tm = _engines()
-    iface = tppo.PPOActorInterface(group_adv_norm=True)
-    with pytest.raises(NotImplementedError, match="host advantage path"):
-        iface.train_step(tm, _tsample(_make_batch()), TSpec(**SPEC))
+    eng = tm.module
+    calls = []
+    monkeypatch.setattr(eng, "run_prep", lambda *a, **k: pytest.fail("prep"))
+    train_batch = eng.train_batch
+    monkeypatch.setattr(eng, "train_batch",
+                        lambda *a, **k: calls.append(a[0].bs) or train_batch(*a, **k))
+    iface = tppo.PPOActorInterface(group_adv_norm=True, ppo_n_minibatches=2)
+    stats = iface.train_step(tm, _tsample(_make_batch()), TSpec(**SPEC))
+    assert len(calls) == stats["n_ppo_steps"] == 2 and sum(calls) == 9
+    assert eng.opt_step_count == 2
 
 
 @pytest.mark.parametrize("kind,warmup", [
