@@ -1,7 +1,7 @@
-"""Optimizer configuration.
+"""Optimizer and weight-sync configuration.
 
-The port's own copy of ``OptimizerConfig`` from
-``areal_tpu/api/train_config.py:20``, with the same defaults.
+The port's own copies of ``OptimizerConfig`` and ``WeightSyncConfig`` from
+``areal_tpu/api/train_config.py:20, :43``, with the same defaults.
 """
 
 from __future__ import annotations
@@ -30,3 +30,30 @@ class OptimizerConfig:
     # carried state.
     mu_dtype: Optional[str] = "float32"
     nu_dtype: Optional[str] = "float32"
+
+
+@dataclasses.dataclass
+class WeightSyncConfig:
+    """Trainer → generation-server weight transport.
+
+    ``stream`` serves per-tensor chunks from the trainer's host cache over
+    TCP (``system/weight_stream.py``); ``disk`` writes a native checkpoint
+    under the trainer's ``realloc_dir``. The reference's ``device``
+    transport (an on-device reshard) is not ported: asking for it raises,
+    and no other transport stands in for it. The consumer's window of
+    in-flight chunk requests is the generation server's own setting
+    (``GenerationServerConfig.weight_stream_pipeline_depth``)."""
+
+    transport: str = "stream"  # stream | disk
+    # Wire chunk size (MB) of the streamed transport.
+    chunk_mb: int = 32
+
+    def __post_init__(self):
+        if self.transport == "device":
+            raise NotImplementedError(
+                "weight_sync.transport='device' (the on-device reshard) is "
+                "not ported yet: ROADMAP.md Queue 1 item 8, multi-GPU "
+                "parallelism. Use 'stream' or 'disk'.")
+        if self.transport not in ("stream", "disk"):
+            raise ValueError(
+                f"unknown weight_sync.transport {self.transport!r}")

@@ -42,27 +42,55 @@ _HF_ARCH = {
 }
 
 
+# What each family's ``transformers`` config class fills in for a key that
+# ``config.json`` leaves out (``LlamaConfig``, ``Qwen2Config``,
+# ``Qwen3Config``, ``MistralConfig`` as of transformers 4.57). ``None`` for
+# ``num_key_value_heads`` / ``head_dim`` means "derived" (rules in
+# ``config_from_hf``). Llama and Mistral have no ``use_sliding_window``: the
+# reference reads its absence as True.
+_COMMON = dict(num_hidden_layers=32, hidden_size=4096, num_attention_heads=32,
+               rope_theta=10000.0, rms_norm_eps=1e-6,
+               tie_word_embeddings=False)
+_HF_DEFAULTS: Dict[str, Dict[str, Any]] = {
+    "llama": dict(_COMMON, vocab_size=32000, intermediate_size=11008,
+                  num_key_value_heads=None, head_dim=None,
+                  sliding_window=None, use_sliding_window=True),
+    "qwen2": dict(_COMMON, vocab_size=151936, intermediate_size=22016,
+                  num_key_value_heads=32, head_dim=None,
+                  sliding_window=4096, use_sliding_window=False),
+    "qwen3": dict(_COMMON, vocab_size=151936, intermediate_size=22016,
+                  num_key_value_heads=32, head_dim=128,
+                  sliding_window=4096, use_sliding_window=False),
+    "mistral": dict(_COMMON, vocab_size=32000, intermediate_size=14336,
+                    num_key_value_heads=8, head_dim=None,
+                    sliding_window=4096, use_sliding_window=True),
+}
+
+
 def config_from_hf(hf_config: Mapping[str, Any]) -> TransformerConfig:
     """A ``TransformerConfig`` from a llama-like ``config.json`` dict
-    (reference ``config_from_hf:145`` over ``_llama_like:62``)."""
-    c = hf_config
-    mt = c.get("model_type", "llama")
+    (reference ``config_from_hf:145`` over ``_base_kwargs:43`` and
+    ``_llama_like:62``), with each family's defaults for the keys it leaves
+    out, as ``transformers`` resolves them: a missing or null
+    ``num_key_value_heads`` that the family leaves open is the q-head
+    count, a null ``head_dim`` is hidden / heads, and a window counts only
+    with ``use_sliding_window``."""
+    mt = hf_config.get("model_type", "llama")
     if mt not in LLAMA_FAMILIES:
         raise NotImplementedError(f"HF model family {mt!r} is not ported yet")
+    c = {**_HF_DEFAULTS[mt], **hf_config}
     return TransformerConfig(
         n_layers=c["num_hidden_layers"],
         hidden_dim=c["hidden_size"],
         n_q_heads=c["num_attention_heads"],
-        n_kv_heads=c.get("num_key_value_heads") or c["num_attention_heads"],
-        head_dim=c.get("head_dim")
-        or c["hidden_size"] // c["num_attention_heads"],
+        n_kv_heads=c["num_key_value_heads"] or c["num_attention_heads"],
+        head_dim=c["head_dim"] or c["hidden_size"] // c["num_attention_heads"],
         intermediate_dim=c["intermediate_size"],
         vocab_size=c["vocab_size"],
-        rotary_base=c.get("rope_theta", 10000.0),
-        rms_norm_eps=c.get("rms_norm_eps", 1e-6),
-        tie_word_embeddings=c.get("tie_word_embeddings", False),
-        sliding_window=c.get("sliding_window")
-        if c.get("use_sliding_window", True) else None,
+        rotary_base=c["rope_theta"],
+        rms_norm_eps=c["rms_norm_eps"],
+        tie_word_embeddings=c["tie_word_embeddings"],
+        sliding_window=c["sliding_window"] if c["use_sliding_window"] else None,
         use_attention_bias=mt == "qwen2",
         use_qk_norm=mt == "qwen3",
         hf_family=mt,

@@ -15,8 +15,20 @@ threads enqueue requests on a FIFO and wait; one runner thread forms batches
 ``output_logprobs``, ``finished``, ``version``. ``GET /health`` reports
 liveness and the weight version.
 
-Weight updates, telemetry, goodput, compile/memory watches, name-resolve
-registration, request classes and prefix reuse wait for later slices.
+``POST /update_weights`` swaps the served weights (reference
+``handle_update_weights:877``): ``{"path", "version"}`` loads a native
+checkpoint (``disk``), ``{"endpoint", "version", "timeout"}`` pulls a
+publish from a ``WeightStreamPublisher`` (``stream``). Either way the new
+tensors (reference names, stacked ``[L, in, out]`` layers) are checked by
+name and shape against the live model, converted into the live dtype on the
+live device as a shadow model, and — for a stream, after the publisher's
+digest verifies — published with the new version as one ``(model,
+version)`` pair that each batch captures once. The retained KV states are
+cleared. Any failure leaves the old pair live, the stats unchanged, and
+answers 500 with ``{"ok": false, "version": <old>, "error"}``.
+
+Telemetry, goodput, compile/memory watches, name-resolve registration,
+request classes and prefix reuse wait for later slices.
 """
 
 from __future__ import annotations
@@ -24,18 +36,21 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import logging
 import queue
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from areal_tpu_torch import resolve_device
 from areal_tpu_torch.api.model import GenerationHyperparameters
+from areal_tpu_torch.models import convert
 from areal_tpu_torch.models import generate as genmod
+from areal_tpu_torch.models import hf
 from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.models.transformer import Transformer
 from areal_tpu_torch.ops.sampling import sampling_from_gconfigs
@@ -44,6 +59,12 @@ from areal_tpu_torch.system.serving import (
     ReqState,
     ShapeBucketPolicy,
 )
+from areal_tpu_torch.system.weight_stream import (
+    WeightStreamConsumer,
+    WeightStreamError,
+)
+
+logger = logging.getLogger("areal_tpu_torch.generation_server")
 
 
 @dataclasses.dataclass
@@ -61,6 +82,8 @@ class GenerationServerConfig:
     kv_slots: int = 256
     kv_bucket: int = 256  # KV capacity granularity (slots)
     kv_bytes_budget: int = 4 << 30  # retained-KV bytes before LRU eviction
+    # In-flight chunk requests of a streamed weight update.
+    weight_stream_pipeline_depth: int = 4
 
 
 class BadRequest(ValueError):
@@ -90,9 +113,19 @@ class GenerationServer:
         self.cfg = cfg
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
-        self.model = Transformer.from_params(
-            model_cfg, {k: v.to(self.device) for k, v in params.items()})
-        self.version = 0
+        # The served (model, version) pair: each batch reads it once, and a
+        # weight update replaces it in one assignment.
+        self._published: Tuple[Transformer, int] = (Transformer.from_params(
+            model_cfg, {k: v.to(self.device) for k, v in params.items()}), 0)
+        # Reference names -> (shape, dtype) of the live weights: what an
+        # update must deliver (the layout is fixed for the server's life).
+        meta = {k: torch.empty_like(v, device="meta")
+                for k, v in self.model.state_dict().items()}
+        self._ref_specs = {k: (tuple(v.shape), v.dtype) for k, v in
+                           convert.params_to_reference(meta, model_cfg).items()}
+        self._update_lock = threading.Lock()
+        self._last_update_latency = 0.0
+        self._last_stream_stats: Dict[str, float] = {}
         self._generator = torch.Generator(device=self.device).manual_seed(0)
         self.kv = KVStateStore(cfg.kv_slots, cfg.kv_bytes_budget)
         self.shapes = ShapeBucketPolicy(cfg.kv_bucket)
@@ -109,6 +142,14 @@ class GenerationServer:
         self._decode_steps = 0
         self._decode_secs = 0.0
 
+    @property
+    def model(self) -> Transformer:
+        return self._published[0]
+
+    @property
+    def version(self) -> int:
+        return self._published[1]
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -117,7 +158,9 @@ class GenerationServer:
 
     def _decode_batch(self, batch: List[_Pending]) -> List[Dict[str, Any]]:
         cfg, kv, shapes, dev = self.cfg, self.kv, self.shapes, self.device
-        version = self.version
+        # One read of the pair: a swap mid-batch cannot tag new-weight
+        # tokens with the old version.
+        model, version = self._published
         # Rows with a smaller budget than the batch chunk stop early via
         # row_budget.
         chunk = shapes.round_chunk(
@@ -154,7 +197,7 @@ class GenerationServer:
             shapes.observe("prefill", B_pad, padded.shape[1], S)
             t0 = time.monotonic()
             st = genmod.prefill_state(
-                self.model, torch.from_numpy(padded).to(dev),
+                model, torch.from_numpy(padded).to(dev),
                 torch.from_numpy(plens).to(dev), S)
             self._sync()
             self._prefill_secs += time.monotonic() - t0
@@ -191,7 +234,7 @@ class GenerationServer:
             shapes.observe("decode", rows, S, chunk)
             t0 = time.monotonic()
             new_state, out = genmod.decode_chunk_rows(
-                self.model, stacked, done, self._generator, sampling,
+                model, stacked, done, self._generator, sampling,
                 n_tokens=chunk, eos_token_id=cfg.eos_token_id,
                 pad_token_id=cfg.pad_token_id, row_budget=budget)
             ids = out["output_ids"].cpu().numpy()
@@ -307,7 +350,123 @@ class GenerationServer:
             "kv_states": self.kv.count,
             "kv_bytes": self.kv.nbytes,
             "shapes": self.shapes.shapes(),
+            "version": self.version,
+            "last_weight_update_latency_s": self._last_update_latency,
+            # The last successful streamed update's legs (absent until one
+            # lands; a later disk update does not describe them).
+            **{f"last_stream_{k}": v
+               for k, v in self._last_stream_stats.items()},
         }
+
+    # ---------------- weight updates ----------------
+
+    def _shadow(self, tensors: Iterable[Tuple[str, torch.Tensor]]
+                ) -> Tuple[Dict[str, torch.Tensor], float]:
+        """The port state dict of an update's tensors (reference names and
+        layout), each checked by name and shape against the live weights
+        and converted into the live dtype on the live device as it
+        arrives; raises before anything live changes. Returns it with the
+        seconds this thread spent in the conversions (h2d and layout)."""
+        out: Dict[str, torch.Tensor] = {}
+        seen = set()
+        upload_secs = 0.0
+        for name, t in tensors:
+            spec = self._ref_specs.get(name)
+            if spec is None:
+                raise WeightStreamError(
+                    f"update tensor {name!r} not in the live weights")
+            if tuple(t.shape) != spec[0]:
+                raise WeightStreamError(
+                    f"tensor {name!r}: update shape {tuple(t.shape)} != "
+                    f"live {spec[0]}")
+            seen.add(name)
+            t0 = time.monotonic()
+            out.update(convert.params_from_jax(
+                {name: t}, self.model_cfg, device=self.device, dtype=spec[1]))
+            upload_secs += time.monotonic() - t0
+        missing = sorted(set(self._ref_specs) - seen)
+        if missing:
+            raise WeightStreamError(f"incomplete update: {len(missing)} "
+                                    f"tensors missing (e.g. {missing[:3]})")
+        return out, upload_secs
+
+    def _load_and_put_weights(self, path: str) -> Dict[str, torch.Tensor]:
+        """Disk transport: a native checkpoint's tensors (or an HF
+        checkpoint's, in the reference layout) into a shadow state dict."""
+        if hf.is_native_checkpoint(path):
+            flat = hf.load_hf_state_dict(path)
+        else:
+            _, params = hf.load_hf_checkpoint(path, device="cpu")
+            flat = convert.params_to_reference(params, self.model_cfg)
+        return self._shadow(flat.items())[0]
+
+    def _stream_and_put_weights(self, endpoint: str, version: int,
+                                timeout_secs: Optional[float] = None):
+        """Stream transport: pull the publish into a shadow state dict, each
+        tensor uploaded as it lands (its h2d overlaps the wire leg of the
+        next), and verify the digest before returning. Returns (state
+        dict, the consume's stats)."""
+        consumer = WeightStreamConsumer(
+            endpoint, pipeline_depth=self.cfg.weight_stream_pipeline_depth,
+            **({} if timeout_secs is None
+               else {"timeout_secs": float(timeout_secs)}))
+        try:
+            manifest = consumer.fetch_manifest(version)
+            params, upload_secs = self._shadow(
+                consumer.iter_tensors(version, manifest))
+            # The gate: no swap without a checksum-verified stream.
+            consumer.verify_digest(version)
+            # The legs on this thread: waiting on the socket, CRCs with the
+            # reassembly, and the conversions onto the device.
+            return params, {
+                "stream_bytes": float(consumer.bytes_received),
+                "digest_verify_secs": consumer.checksum_secs,
+                "wire_wait_secs": consumer.wire_wait_secs,
+                "upload_secs": upload_secs,
+            }
+        finally:
+            consumer.close()
+
+    def handle_update_weights(self, d: Dict[str, Any]
+                              ) -> Tuple[int, Dict[str, Any]]:
+        """Serve one /update_weights body; returns (HTTP status, reply)."""
+        t0 = time.monotonic()
+        with self._update_lock:
+            try:
+                # The version first: a bad one fails before any load.
+                version = int(d["version"] if d.get("endpoint")
+                              else d.get("version", self.version + 1))
+                stream_stats = None
+                if d.get("device"):
+                    raise NotImplementedError(
+                        "the device transport is not ported yet (ROADMAP.md "
+                        "Queue 1 item 8, multi-GPU parallelism)")
+                if d.get("endpoint"):
+                    params, stream_stats = self._stream_and_put_weights(
+                        d["endpoint"], version, d.get("timeout"))
+                else:
+                    params = self._load_and_put_weights(d["path"])
+                new = Transformer.from_params(self.model_cfg, params)
+                # The upload ran on this thread's stream: the shadow weights
+                # are complete before any batch can read them.
+                self._sync()
+            except Exception as e:  # noqa: BLE001 — keep old weights, report
+                logger.error(f"weight update failed; keeping v{self.version}: "
+                             f"{e!r}")
+                return 500, {"ok": False, "version": self.version,
+                             "error": repr(e)}
+            # The swap: batches in flight captured the old pair and tag their
+            # tokens with the old version.
+            self._published = (new, version)
+            # States decoded under the old weights are stale; a continuation
+            # whose state survives a race re-prefills on its version check.
+            self.kv.clear()
+            dt = time.monotonic() - t0
+            self._last_update_latency = dt
+            if stream_stats is not None:
+                self._last_stream_stats = stream_stats
+        logger.info(f"weights updated to v{version} in {dt:.2f}s")
+        return 200, {"ok": True, "version": version, "latency_s": dt}
 
     # ---------------- lifecycle ----------------
 
@@ -325,13 +484,15 @@ class GenerationServer:
                 self.wfile.write(data)
 
             def do_POST(self):  # noqa: N802 (http.server naming)
-                if self.path != "/generate":
+                if self.path not in ("/generate", "/update_weights"):
                     return self._reply(404, {"ok": False, "error": "not found"})
                 try:
                     n = int(self.headers.get("Content-Length", 0))
                     body = json.loads(self.rfile.read(n) or b"{}")
                     if not isinstance(body, dict):
                         raise BadRequest("body must be a JSON object")
+                    if self.path == "/update_weights":
+                        return self._reply(*server.handle_update_weights(body))
                     reply = server.handle_generate(body)
                 except (BadRequest, json.JSONDecodeError) as e:
                     return self._reply(400, {"ok": False, "error": str(e)})

@@ -85,6 +85,11 @@ class KVStateStore:
         with self._lock:
             return self._states.pop(rid, None)
 
+    def clear(self) -> None:
+        """Drop every retained state (a weight swap makes them stale)."""
+        with self._lock:
+            self._states.clear()
+
     @property
     def count(self) -> int:
         with self._lock:

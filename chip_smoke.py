@@ -84,7 +84,10 @@ Phases (any failed check raises, and the script exits non-zero):
      each inference MFC launches K1 24 x its micro-batches and no K2/K3,
      each train MFC K2 and K3 24 x its micro-batches and K1 twice that.
      Then actor_inf and one actor step with group_adv_norm (the host
-     advantage path through train_batch), the same checks; ref_inf's logprobs on one
+     advantage path through train_batch), the same checks; before it, its
+     first PPO minibatch's logprobs recomputed by engine.forward under the
+     minibatch's own packing, printed against actor_inf's (which packed
+     the whole batch) with the importance weight each gives; ref_inf's logprobs on one
      micro-batch's sequences through K1 against the plain attention
      (tolerance 0.3 nats: twice (d)'s logits bound, as a logprob is a logit
      minus a logsumexp); and the device ms and idle share of each MFC of
@@ -95,7 +98,31 @@ Phases (any failed check raises, and the script exits non-zero):
      loads into a fresh engine, and one actor step on each gives equal
      masters. Seconds and bytes of each write and read;
  (l) one SFT train_step on the batch: finite loss and perplexity, K2 and
-     K3 launched 24 x the micro-batches.
+     K3 launched 24 x the micro-batches;
+ (m) weight sync at full width, under a temporary directory (deleted): a
+     port server in bf16 on the seed-0 weights, holding one retained KV
+     state, swaps through POST /update_weights to (1) the trained actor's
+     weights, published in bf16 by a TrainerWorker over "disk" (a native
+     checkpoint), then (2) seed-1 weights, published over "stream" by a
+     TrainerWorker on a bf16 inference engine in a second process (spawned;
+     it builds the same seed-1 weights), while a client sends one greedy
+     request at a time and a sampler reads the server's prefill and decode
+     counters every 10 ms. Checks: each update answers 200 with its version
+     and /health shows it; the KV store is empty after each swap; the live
+     weights equal the published ones bit for bit; the disk swap changed
+     some elements; every reply under load carries the old or the new
+     version, the last one the new, and exactly the greedy tokens of its
+     version's weights (the replies before the swap; a fresh server on the
+     new weights). Then (3) an update from a dead endpoint answers 500 and
+     leaves the version and the tokens as they were. Bytes, trainer-side
+     publish seconds, seconds from the publish's start to the server's
+     reply; for the stream the gather (d2h and CRCs, in the publisher's
+     process), the server thread's legs (wire wait, CRCs with the
+     reassembly, h2d with the layout conversion, the rest), the runner's
+     decode ms per step and busy share before and during the update, the
+     longest reply before and during it, and a replay of the cached publish
+     into host memory (the transport alone); peak device memory and K1's
+     launches per transport; K1 launched n_layers x the server's prefills.
 
 The line before the last is the card's name and power limit, the line
 before that the kernels' JSON record, and the last line
@@ -114,7 +141,9 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
 import urllib.request
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -846,6 +875,32 @@ def check_train_stats(name: str, st: dict, loss_key: str) -> None:
           and st["grad_norm"] > 0, f"{name}: bad stats {st}")
 
 
+def recompute_first_minibatch(tr, data, spec) -> dict:
+    """The group step's first PPO minibatch (``data.split``, as its
+    train_step splits it), its logprobs recomputed by ``engine.forward``,
+    which packs it as ``train_batch`` does, with the weights unchanged;
+    against actor_inf's prox logprobs, which packed the whole batch, on the
+    same action tokens. Returns the largest difference and the importance
+    weight the recompute gives."""
+    import numpy as np
+
+    from areal_tpu_torch.algorithms.ppo import _logprob_hook
+
+    mb = data.split(k=min(tr.hp.ppo_n_minibatches, data.bs))[0][0]
+    got = np.concatenate(tr.actor.module.forward(mb, spec,
+                                                 post_hook=_logprob_hook))
+    prox = np.asarray(mb.data["prox_logprobs"])
+    lens = mb.total_lens()
+    doc_first = np.zeros(len(prox), bool)
+    doc_first[np.cumsum(lens) - lens] = True
+    action = (np.asarray(mb.data["prompt_mask"]) == 0) & ~doc_first
+    d = (got - prox)[action].astype(np.float64)
+    return {"sequences": mb.bs, "action_tokens": int(action.sum()),
+            "max_abs_diff": float(np.abs(d).max()),
+            "tokens_differing": int((d != 0).sum()),
+            "importance_weight": float(np.exp(d).mean())}
+
+
 def run_trainer(fa, cfg, batch, spec, device="cuda", steps: int = 2):
     """(j): one warm-up and ``steps`` timed trainer steps, then one actor
     step with group_adv_norm (the host advantage path through
@@ -921,6 +976,7 @@ def run_trainer(fa, cfg, batch, spec, device="cuda", steps: int = 2):
     # train_batch, after a fresh actor_inf (as in the DFG).
     prox, _, _ = tr.mfc(tr.actor_iface.inference, tr.actor, data, spec)
     data = attach_keys(data, prox.data)
+    recompute = recompute_first_minibatch(tr, data, spec)
     n_group = n_micro_batches(act, data, spec, k=tr.hp.ppo_n_minibatches)
     before = {n: act.params[n].detach().clone() for n in watch}
     n_opt = len(tr.steps)
@@ -933,6 +989,10 @@ def run_trainer(fa, cfg, batch, spec, device="cuda", steps: int = 2):
           f"group step early-stopped: {gstats}")
     first = tr.steps[n_opt]
     giw = first["importance_weight_sum"] / max(first["n_action_tokens"], 1)
+    recompute["train_step_importance_weight"] = giw
+    recompute["train_step_action_tokens"] = first["n_action_tokens"]
+    print("group step: prox logprobs of the first minibatch recomputed under "
+          "its own packing", json.dumps(recompute), flush=True)
     check(abs(giw - 1) <= 0.02, f"group step: first importance weight {giw}")
     gmoved = {n: (act.params[n].detach() - before[n]).abs().max().item()
               for n in watch}
@@ -956,6 +1016,7 @@ def run_trainer(fa, cfg, batch, spec, device="cuda", steps: int = 2):
                                 "actor_loss": gstats["actor_loss"],
                                 "grad_norm": gstats["grad_norm"],
                                 "first_importance_weight": giw,
+                                "prox_recompute": recompute,
                                 "param_max_abs_change": gmoved},
         "actor": [{k: r["actor"][k] for k in ("actor_loss", "grad_norm",
                                               "importance_weight", "mean_kl",
@@ -1121,6 +1182,382 @@ def trainer_breakdown(tr, batch, spec) -> dict:
     return out
 
 
+# ---------------- (m) weight sync ----------------
+
+def post_json(url: str, path: str, body: dict, timeout: float = 600):
+    """(HTTP status, reply) of one POST, error statuses included."""
+    req = urllib.request.Request(url + path, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def health(url: str) -> dict:
+    with urllib.request.urlopen(url + "/health", timeout=60) as r:
+        return json.loads(r.read())
+
+
+def mem_reset(device):
+    """Start a peak-memory window; returns the GB allocated now (None off
+    the card)."""
+    if torch.device(device).type != "cuda":
+        return None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2 ** 30
+
+
+def mem_peak(device):
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def stream_publisher(conn, cfg, tmp: str, exp: str, trial: str,
+                     version: int, device: str) -> None:
+    """(m)'s trainer side of the stream, in a process of its own, so that
+    only the server's legs share the server's process: a bf16 inference
+    engine on the seed-1 weights behind a TrainerWorker that publishes over
+    "stream". On ``conn`` it sends ("ready", None), takes "publish", sends
+    ("published", seconds), takes "close" and sends ("closed", stats); on
+    a failure it sends ("error", traceback)."""
+    import traceback
+
+    try:
+        from areal_tpu_torch.api.train_config import WeightSyncConfig
+        from areal_tpu_torch.base import name_resolve
+        from areal_tpu_torch.models.transformer import init_params
+        from areal_tpu_torch.system.trainer_worker import (
+            TrainerWorker,
+            TrainerWorkerConfig,
+        )
+
+        def expect(what: str) -> None:
+            if not conn.poll(600):
+                raise TimeoutError(f"no {what!r} from the parent in 600 s")
+            got = conn.recv()
+            if got != what:
+                raise RuntimeError(f"expected {what!r}, got {got!r}")
+
+        name_resolve.reconfigure(name_resolve.NameResolveConfig(
+            type="nfs", nfs_record_root=os.path.join(tmp, "name_resolve")))
+        src = make_model("stream_src", cfg, init_params(
+            cfg, seed=1, device=device, dtype=torch.bfloat16), train=False,
+            device=device)
+        src.version.global_step = version
+        w = TrainerWorker(TrainerWorkerConfig(
+            experiment=exp, trial=trial,
+            realloc_dir=os.path.join(tmp, "realloc"),
+            weight_sync=WeightSyncConfig(transport="stream")),
+            models={"actor": src})
+        try:
+            conn.send(("ready", None))
+            expect("publish")
+            mem_reset(device)
+            t0 = time.perf_counter()
+            w.publish_weights("actor")
+            conn.send(("published", time.perf_counter() - t0))
+            expect("close")
+            pub = w._weight_publishers["actor"]
+            done = pub.wait_complete(version, timeout=120)
+            conn.send(("closed", {
+                "gather_s": pub._cache[version].gather_secs if done else None,
+                "peak_gb": mem_peak(device)}))
+        finally:
+            w.close()
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+        raise
+
+
+def from_publisher(conn, proc, what: str, timeout: float = 300):
+    """The stream publisher's next message, which must be ``what``."""
+    deadline = time.monotonic() + timeout
+    while not conn.poll(0.5):
+        check(proc.is_alive() and time.monotonic() < deadline,
+              f"stream publisher: no {what!r} (exit code {proc.exitcode})")
+    kind, val = conn.recv()
+    check(kind == what, f"stream publisher sent {kind}: {val}")
+    return val
+
+
+def runner_window(timeline, a: float, b: float):
+    """The server runner's progress between two perf_counter times, from
+    the stats samples inside them: seconds, prefills, decode steps, decode
+    ms per step and the share of the window spent in prefill and decode."""
+    inside = [x for x in timeline if a <= x[0] <= b]
+    if len(inside) < 2:
+        return None
+    (t0, p0, ps0, d0, ds0), (t1, p1, ps1, d1, ds1) = inside[0], inside[-1]
+    return {"s": t1 - t0, "prefills": p1 - p0, "decode_steps": d1 - d0,
+            "decode_ms_per_step": (1e3 * (ds1 - ds0) / (d1 - d0)
+                                   if d1 > d0 else None),
+            "busy": (ps1 - ps0 + ds1 - ds0) / (t1 - t0)}
+
+
+def run_weight_sync(fa, cfg, actor, eos: int, tmp: str,
+                    device="cuda") -> dict:
+    """(m): a port server in bf16 on the seed-0 weights swaps to (1) the
+    trained actor's weights published over ``disk`` by a TrainerWorker and
+    (2) seed-1 weights published over ``stream`` by a TrainerWorker in a
+    process of its own, while a client sends one greedy request at a time;
+    then (3) an update from a dead endpoint fails. Checks and numbers as in
+    the docstring."""
+    import multiprocessing
+
+    from areal_tpu_torch.api.train_config import WeightSyncConfig
+    from areal_tpu_torch.base import name_resolve, names, network
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.system.generation_server import (
+        GenerationServer,
+        GenerationServerConfig,
+    )
+    from areal_tpu_torch.system.trainer_worker import (
+        TrainerWorker,
+        TrainerWorkerConfig,
+    )
+    from areal_tpu_torch.system.weight_stream import WeightStreamConsumer
+
+    exp, trial = "chip_smoke", "m"
+    old_repo = name_resolve.DEFAULT_REPO
+    name_resolve.reconfigure(name_resolve.NameResolveConfig(
+        type="nfs", nfs_record_root=os.path.join(tmp, "name_resolve")))
+    scfg = GenerationServerConfig(chunk_tokens=32, eos_token_id=eos,
+                                  pad_token_id=eos, batch_window_ms=2)
+    gen = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, eos, (n,), generator=gen).tolist()
+               for n in (37, 150, 301)]
+    v1 = actor.version.global_step
+    v2 = v1 + 1
+
+    def greedy(url, i):
+        return post(url, {"prompt_ids": prompts[i],
+                          "gconfig": {"greedy": True}, "max_tokens": 16})
+
+    def same(live, want, what):
+        check(set(live) == set(want) and all(
+            live[k].dtype == want[k].dtype and torch.equal(live[k], want[k])
+            for k in want), f"{what}: live weights != the published ones")
+
+    # The stream's publisher starts first: it builds its engine while this
+    # process computes the new version's greedy tokens on the same seed-1
+    # weights with a fresh server, before the counts are reset (they are
+    # the check's launches).
+    ctx = multiprocessing.get_context("spawn")
+    conn, child_conn = ctx.Pipe()
+    proc = ctx.Process(target=stream_publisher, daemon=True,
+                       name="stream-publisher",
+                       args=(child_conn, cfg, tmp, exp, trial, v2, device))
+    proc.start()
+    server = None
+    workers = []
+    rec: dict = {}
+    try:
+        src_params = init_params(cfg, seed=1, device=device,
+                                 dtype=torch.bfloat16)
+        ref_server = GenerationServer(scfg, cfg, src_params, device)
+        url = ref_server.start()
+        try:
+            want_new = [greedy(url, i)["output_ids"]
+                        for i in range(len(prompts))]
+        finally:
+            ref_server.stop()
+        del ref_server
+        from_publisher(conn, proc, "ready")
+
+        fa.reset_launch_count()
+        server = GenerationServer(scfg, cfg, init_params(
+            cfg, seed=0, device=device, dtype=torch.bfloat16), device)
+        url = server.start()
+
+        def retain_one_state():
+            post(url, {"prompt_ids": prompts[1], "gconfig": {"greedy": True},
+                       "max_tokens": 64, "rid": "m"})
+            check(server.stats()["kv_states"] == 1, "no retained KV state")
+
+        # (1) disk: the trained actor's masters in bf16
+        retain_one_state()
+        old = server.model.state_dict()  # swapped, never written: no copy
+        workers.append(TrainerWorker(TrainerWorkerConfig(
+            experiment=exp, trial=trial,
+            realloc_dir=os.path.join(tmp, "realloc"),
+            weight_sync=WeightSyncConfig(transport="disk")),
+            models={"actor": actor}))
+        path = os.path.join(tmp, "realloc", "actor", str(v1))
+        resident = mem_reset(device)
+        k1 = fa.launch_count()
+        t0 = time.perf_counter()
+        workers[-1].publish_weights("actor")
+        publish_s = time.perf_counter() - t0
+        status, body = post_json(url, "/update_weights",
+                                 {"path": path, "version": v1})
+        reply_s = time.perf_counter() - t0
+        check(status == 200 and body["version"] == v1,
+              f"disk update: {status} {body}")
+        check(health(url)["version"] == v1, "disk: /health not at the new "
+              "version")
+        check(server.stats()["kv_states"] == 0, "disk: KV store not cleared")
+        live = server.model.state_dict()
+        same(live, workers[-1]._compute_dtype_params("actor"), "disk")
+        changed = sum(int((live[k] != old[k]).sum()) for k in live)
+        check(changed > 0, "disk: no element differs from the old weights")
+        want_old = [greedy(url, i)["output_ids"] for i in range(len(prompts))]
+        rec["disk"] = {
+            "version": v1, "bytes": sum(os.path.getsize(os.path.join(path, f))
+                                        for f in os.listdir(path)),
+            "publish_s": publish_s, "publish_to_reply_s": reply_s,
+            "server_update_s": body["latency_s"],
+            "elements_changed": changed,
+            "elements": sum(v.numel() for v in live.values()),
+            "peak_gb": mem_peak(device), "resident_gb_before": resident,
+            "k1_launches": fa.launch_count() - k1}
+        del old, live
+        print("weight sync disk", json.dumps(rec["disk"]), flush=True)
+
+        # (2) stream, from the other process, under one-at-a-time greedy
+        # traffic; a sampler records the runner's cumulative prefill and
+        # decode counters every 10 ms
+        retain_one_state()
+        replies, timeline, stop = [], [], threading.Event()
+
+        def load():
+            i = 0
+            while not stop.is_set() and i < 1000:
+                t = time.perf_counter()
+                r = greedy(url, i % len(prompts))
+                replies.append((i % len(prompts), r, t, time.perf_counter()))
+                i += 1
+
+        def sample():
+            while not stop.is_set():
+                st = server.stats()
+                timeline.append((time.perf_counter(), st["prefill_calls"],
+                                 st["prefill_secs"], st["decode_steps"],
+                                 st["decode_secs"]))
+                time.sleep(0.01)
+
+        k1 = fa.launch_count()
+        threads = [threading.Thread(target=f, daemon=True)
+                   for f in (load, sample)]
+        t_load = time.perf_counter()
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 120
+        while len(replies) < 3 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        resident = mem_reset(device)
+        t0 = time.perf_counter()
+        conn.send("publish")
+        publish_s = from_publisher(conn, proc, "published")
+        endpoint = name_resolve.get(names.weight_stream(exp, trial, "actor"))
+        t_post = time.perf_counter()
+        status, body = post_json(url, "/update_weights",
+                                 {"endpoint": endpoint, "version": v2})
+        t_reply = time.perf_counter()
+        reply_s = t_reply - t0
+        n_swap = len(replies)
+        deadline = time.monotonic() + 120
+        while len(replies) < n_swap + 3 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        check(not any(t.is_alive() for t in threads),
+              "the load client or the sampler did not stop")
+        check(status == 200 and body["version"] == v2,
+              f"stream update: {status} {body}")
+        versions = [r["version"] for _, r, _, _ in replies]
+        check(set(versions) <= {v1, v2} and versions[-1] == v2,
+              f"stream: reply versions {versions}")
+        want = {v1: want_old, v2: want_new}
+        wrong = [(i, r["version"]) for i, r, _, _ in replies
+                 if r["output_ids"] != want[r["version"]][i]]
+        check(not wrong, f"stream: replies with another version's tokens: "
+              f"{wrong}")
+        same(server.model.state_dict(), src_params, "stream")
+        del src_params
+        stats = server.stats()
+        check(stats["kv_states"] == 0, "stream: KV store not cleared")
+        # What generation felt: the replies that overlapped the update, and
+        # the runner's progress before and during it.
+        during = [b - a for _, _, a, b in replies if a < t_reply and b > t0]
+        before = [b - a for _, _, a, b in replies if b <= t0]
+        # The transport alone: a replay of the cached publish from the
+        # other process into host memory, with no upload and no load.
+        consumer = WeightStreamConsumer(endpoint, timeout_secs=600)
+        try:
+            t = time.perf_counter()
+            consumer.fetch(v2)
+            replay_s = time.perf_counter() - t
+        finally:
+            consumer.close()
+        conn.send("close")
+        publisher = from_publisher(conn, proc, "closed")
+        proc.join(timeout=60)
+        check(proc.exitcode == 0, f"stream publisher exit code {proc.exitcode}")
+        legs = {k: stats[f"last_stream_{k}"] for k in
+                ("wire_wait_secs", "digest_verify_secs", "upload_secs")}
+        rec["stream"] = {
+            "version": v2, "bytes": stats["last_stream_stream_bytes"],
+            "publish_s": publish_s, "publish_to_reply_s": reply_s,
+            "server_update_s": body["latency_s"],
+            "wire_wait_s": legs["wire_wait_secs"],
+            "checksum_s": legs["digest_verify_secs"],
+            "upload_s": legs["upload_secs"],
+            "other_s": body["latency_s"] - sum(legs.values()),
+            "replies_old_new": [versions.count(v1), versions.count(v2)],
+            "reply_s_before_max": max(before),
+            "replies_during_update": len(during),
+            "reply_s_during_max": max(during, default=0.0),
+            "runner_before": runner_window(timeline, t_load, t0),
+            "runner_during": runner_window(timeline, t_post, t_reply),
+            "gather_s": publisher["gather_s"], "replay_fetch_s": replay_s,
+            "peak_gb": mem_peak(device), "resident_gb_before": resident,
+            "publisher_peak_gb": publisher["peak_gb"],
+            "k1_launches": fa.launch_count() - k1}
+        print("weight sync stream", json.dumps(rec["stream"]), flush=True)
+
+        # (3) a dead endpoint: 500, the new weights stay live
+        dead = f"tcp://127.0.0.1:{network.find_free_port()}"
+        status, body = post_json(url, "/update_weights",
+                                 {"endpoint": dead, "version": v2 + 1,
+                                  "timeout": 2})
+        check(status == 500 and body["version"] == v2
+              and health(url)["version"] == v2,
+              f"dead endpoint: {status} {body}")
+        r = greedy(url, 0)
+        check(r["version"] == v2 and r["output_ids"] == want_new[0],
+              "dead endpoint: the served tokens changed")
+        rec["failure"] = {"status": status, "version": body["version"],
+                          "error": body["error"]}
+        stats = server.stats()
+        rec["k1_launches"] = fa.launch_count()
+        rec["prefill_calls"] = stats["prefill_calls"]
+        check(rec["k1_launches"] == cfg.n_layers * stats["prefill_calls"] > 0,
+              f"weight sync: K1 launches {rec['k1_launches']} != "
+              f"{cfg.n_layers} x {stats['prefill_calls']} prefills")
+    finally:
+        if server is not None:
+            server.stop()
+        for w in workers:
+            w.close()
+        if proc.is_alive():
+            try:
+                conn.send("close")
+            except OSError:
+                pass
+            proc.join(timeout=30)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(timeout=10)
+        conn.close()
+        name_resolve.DEFAULT_REPO = old_repo
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -1255,6 +1692,18 @@ def main() -> None:
         "phases_j_to_l_s": time.monotonic() - t_trainer,
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
 
+    # (m) weight sync: the trained actor over disk, a second model over the
+    # stream, a dead endpoint; under a temporary directory
+    t_sync = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sync_")
+    try:
+        wsync = run_weight_sync(fa, cfg, tr.actor, eos, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("weight sync", json.dumps({
+        **wsync, "phase_m_s": time.monotonic() - t_sync,
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+
     lib_line = ("areal_tpu/ops/pallas/flash_attention.py:200 backward: the "
                 "Pallas TPU library's {} :{} (pallas_call :{})")
     train_launches = train["launches"]
@@ -1263,10 +1712,11 @@ def main() -> None:
         "source": "areal_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "areal_tpu/ops/pallas/flash_attention.py:200",
         "launches": serve_launches + train_launches["flash_attention_fwd"]
-        + tr.launches["flash_attention_fwd"],
+        + tr.launches["flash_attention_fwd"] + wsync["k1_launches"],
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_attention_fwd"],
-                             "trainer": tr.launches["flash_attention_fwd"]},
+                             "trainer": tr.launches["flash_attention_fwd"],
+                             "weight_sync": wsync["k1_launches"]},
         "max_abs_err": k1_train_check["max_abs_err"],
         "ms": timing_train["kernel_ms"], "kernel_ms": timing_train["kernel_ms"],
         "plain_ms": timing_train["plain_ms"],

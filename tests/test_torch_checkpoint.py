@@ -220,6 +220,40 @@ def test_native_checkpoint_crosses_packages(kw, tmp_path):
     _flat_equal(params_to_jax(back, tcfg), params_to_jax(bf, tcfg))
 
 
+_HF_KEYS = ("num_hidden_layers", "hidden_size", "num_attention_heads",
+            "num_key_value_heads", "head_dim", "intermediate_size",
+            "vocab_size", "rope_theta", "rms_norm_eps", "tie_word_embeddings",
+            "sliding_window", "use_sliding_window")
+_HF_FULL = dict(num_hidden_layers=2, hidden_size=32, num_attention_heads=4,
+                num_key_value_heads=2, head_dim=16, intermediate_size=64,
+                vocab_size=97, rope_theta=1e6, rms_norm_eps=1e-5,
+                tie_word_embeddings=True, sliding_window=24,
+                use_sliding_window=True)
+
+
+@pytest.mark.parametrize("left_out", ("nothing",) + _HF_KEYS
+                         + ("null head_dim", "null num_key_value_heads",
+                            "no window flag or size"))
+@pytest.mark.parametrize("family", ["llama", "qwen2", "qwen3", "mistral"])
+def test_config_from_hf_defaults_match_the_reference(family, left_out):
+    """A ``config.json`` that leaves a key out (or sets it null): the port's
+    json reader fills in what the family's ``transformers`` config does, so
+    every field equals the reference's ``config_from_hf`` over
+    ``AutoConfig.for_model``."""
+    import transformers
+
+    d = dict(_HF_FULL)
+    if left_out.startswith("null "):
+        d[left_out[5:]] = None
+    elif left_out == "no window flag or size":
+        del d["sliding_window"], d["use_sliding_window"]
+    elif left_out != "nothing":
+        del d[left_out]
+    ref = jhf.config_from_hf(transformers.AutoConfig.for_model(family, **d))
+    port = thf.config_from_hf({"model_type": family, **d})
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+
+
 def test_unported_families_raise():
     for kw in (dict(hf_family="gpt2"), dict(hf_family="gemma"),
                dict(hf_family="qwen2", moe=dict(num_experts=4, top_k=2))):
