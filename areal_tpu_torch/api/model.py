@@ -9,9 +9,9 @@ The port's own copy of the engine contracts of ``areal_tpu/api/model.py``:
  - ``ModelBackend`` wraps a model into a ``TrainableEngine``;
  - ``ModelInterface`` is the algorithm operating on an engine and a
    ``SequenceSample``.
-Plus the backend and interface registries (``:162-189``), so experiments
-build engines and interfaces by name; the model, dataset, agent and env
-registries wait for later slices.
+Plus the backend, interface and dataset registries (``:162-197``), so
+experiments build engines, interfaces and datasets by name; the model,
+agent and env registries wait for later slices.
 """
 
 from __future__ import annotations
@@ -152,6 +152,7 @@ class ModelInterface:
 
 _BACKEND_REGISTRY: Dict[str, Callable] = {}
 _INTERFACE_REGISTRY: Dict[str, Callable] = {}
+_DATASET_REGISTRY: Dict[str, Callable] = {}
 
 
 def _make(registry: Dict[str, Callable], kind: str, name: str, *args, **kwargs):
@@ -174,3 +175,11 @@ def register_interface(name: str, cls: Callable) -> None:
 
 def make_interface(name: str, *args, **kwargs) -> ModelInterface:
     return _make(_INTERFACE_REGISTRY, "interface", name, *args, **kwargs)
+
+
+def register_dataset(name: str, cls: Callable) -> None:
+    _DATASET_REGISTRY[name] = cls
+
+
+def make_dataset(name: str, *args, **kwargs):
+    return _make(_DATASET_REGISTRY, "dataset", name, *args, **kwargs)

@@ -1,7 +1,8 @@
-"""Optimizer and weight-sync configuration.
+"""Optimizer, weight-sync and save/eval configuration.
 
-The port's own copies of ``OptimizerConfig`` and ``WeightSyncConfig`` from
-``areal_tpu/api/train_config.py:20, :43``, with the same defaults.
+The port's own copies of ``OptimizerConfig``, ``WeightSyncConfig`` and
+``ExperimentSaveEvalControl`` from ``areal_tpu/api/train_config.py:20, :43,
+:486``, with the same defaults.
 """
 
 from __future__ import annotations
@@ -57,3 +58,15 @@ class WeightSyncConfig:
         if self.transport not in ("stream", "disk"):
             raise ValueError(
                 f"unknown weight_sync.transport {self.transport!r}")
+
+
+@dataclasses.dataclass
+class ExperimentSaveEvalControl:
+    """Reference cli_args.py:702."""
+
+    total_train_epochs: int = 1
+    benchmark_steps: Optional[int] = None  # stop after N train steps
+    save_freq_steps: Optional[int] = None
+    ckpt_freq_steps: Optional[int] = None
+    ckpt_freq_secs: Optional[int] = None
+    eval_freq_steps: Optional[int] = None

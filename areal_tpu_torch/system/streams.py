@@ -1,0 +1,185 @@
+"""The master ↔ trainer request/reply stream.
+
+The port's counterpart of ``areal_tpu/system/streams.py:42-196``
+(reference ``realhf/system/request_reply_stream.py``): ``Payload``, the
+master's :class:`MasterRequestStream` and the worker's
+:class:`WorkerRequestServer`, with the reference's semantics, over the
+port's frames (``system/frames.py``) instead of a zmq DEALER/ROUTER pair:
+
+ - one connection per handler, its address advertised in name_resolve
+   under :func:`req_reply_addr_key` and withdrawn on ``close()``;
+ - the server remembers which connection each ``request_id`` came from and
+   answers there (a ROUTER's per-peer routing);
+ - a reply completes because the worker set ``done``, whatever its output
+   (a ``None`` output included);
+ - ``gather`` re-raises a worker's exception as ``RuntimeError`` and times
+   out; a worker that closes its end makes it raise ``ConnectionError``.
+
+Payloads are pickled (trusted intra-cluster traffic, the reference's trust
+model). The rollout → trainer push/pull stream comes with the async-PPO
+loop (ROADMAP.md Queue 1 item 3).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import pickle
+import select
+import socket
+import threading
+import time
+import uuid
+from typing import Any, Dict, List, Optional, Sequence
+
+from areal_tpu_torch.base import logging, name_resolve, network
+from areal_tpu_torch.system.frames import FrameServer, _recv, _send
+
+logger = logging.getLogger("system.streams")
+
+# The longest a started message may take to arrive in full.
+IO_TIMEOUT_SECS = 60.0
+
+
+def req_reply_addr_key(experiment: str, trial: str, handler: str) -> str:
+    return f"areal_tpu/{experiment}/{trial}/req_reply/{handler}"
+
+
+@dataclasses.dataclass
+class Payload:
+    handler: str  # target worker name
+    handle_name: str  # e.g. "fetch" / "mfc" / "clear" / "model_info"
+    request_id: str = dataclasses.field(default_factory=lambda: uuid.uuid4().hex)
+    data: Any = None  # SequenceSample metadata / small control values
+    mb_spec: Any = None
+    # hooks the worker runs around the MFC (weight update, param realloc,
+    # save; reference request_reply_stream:47)
+    pre_hooks: List[Dict] = dataclasses.field(default_factory=list)
+    post_hooks: List[Dict] = dataclasses.field(default_factory=list)
+    output: Any = None
+    exception: Optional[str] = None
+    # Set by WorkerRequestServer.reply: a reply is done because the worker
+    # said so, not because its output happens to be non-None.
+    done: bool = False
+
+
+class MasterRequestStream:
+    """The master's end: one connection per handler.
+
+    Thread safety: the master runs ``post`` / ``gather`` / ``call`` from
+    several ``asyncio.to_thread`` workers at once, and two threads must
+    never read one socket. Every send and every read happens under
+    ``_io_lock``, held only across one bounded wait and the reads of the
+    messages that arrived, never across a whole gather; a thread files each
+    reply it reads in ``_pending``, where its owner finds it (the wedge of
+    ``areal_tpu/system/streams.py:64-74``)."""
+
+    def __init__(self, experiment: str, trial: str, handlers: Sequence[str],
+                 timeout: float = 300.0):
+        self._socks: Dict[str, socket.socket] = {}
+        self._pending: Dict[str, Payload] = {}
+        self._io_lock = threading.Lock()
+        for h in handlers:
+            addr = name_resolve.wait(req_reply_addr_key(experiment, trial, h),
+                                     timeout=timeout)
+            s = socket.create_connection(network.parse_tcp(addr),
+                                         timeout=timeout)
+            s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            s.settimeout(IO_TIMEOUT_SECS)
+            self._socks[h] = s
+        self._handler_of = {s: h for h, s in self._socks.items()}
+
+    def post(self, p: Payload) -> str:
+        raw = pickle.dumps(p)
+        with self._io_lock:
+            _send(self._socks[p.handler], [raw])
+            self._pending[p.request_id] = p
+        return p.request_id
+
+    def _drain(self, timeout_ms: int) -> None:
+        with self._io_lock:
+            readable, _, _ = select.select(list(self._socks.values()), [], [],
+                                           timeout_ms / 1000)
+            for sock in readable:
+                try:
+                    frames = _recv(sock)
+                except OSError as e:
+                    raise ConnectionError(
+                        f"lost the connection to worker "
+                        f"{self._handler_of[sock]}: {e}") from None
+                reply: Payload = pickle.loads(frames[0])
+                self._pending[reply.request_id] = reply
+
+    def gather(self, request_ids: Sequence[str],
+               timeout: float = 3600.0) -> List[Payload]:
+        """Blocking gather; raises on a worker-side exception."""
+        deadline = time.monotonic() + timeout
+        out: Dict[str, Payload] = {}
+        while len(out) < len(request_ids):
+            for rid in request_ids:
+                p = self._pending.get(rid)
+                # The request parked here by post() has done=False.
+                if p is not None and p.done:
+                    out[rid] = self._pending.pop(rid)
+            if len(out) >= len(request_ids):
+                break
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(f"gather timed out; got {len(out)}")
+            self._drain(int(min(left, 0.2) * 1000))
+        for p in out.values():
+            if p.exception:
+                raise RuntimeError(
+                    f"worker {p.handler} failed on {p.handle_name}: "
+                    f"{p.exception}")
+        return [out[rid] for rid in request_ids]
+
+    def call(self, handler: str, handle_name: str, data: Any = None,
+             **kw) -> Any:
+        rid = self.post(Payload(handler=handler, handle_name=handle_name,
+                                data=data, **kw))
+        return self.gather([rid])[0].output
+
+    def close(self):
+        for s in self._socks.values():
+            s.close()
+
+
+class WorkerRequestServer:
+    """The worker's end, bound to a free port and advertised in
+    name_resolve. Under a supervisor the advertisement carries a liveness
+    lease (AREAL_WORKER_KEEPALIVE_TTL) that the worker's control heartbeat
+    keeps alive (``WorkerControl.lease(server._key)``)."""
+
+    def __init__(self, experiment: str, trial: str, handler: str):
+        from areal_tpu_torch.system.worker_base import env_keepalive_ttl
+
+        self.handler = handler
+        self._server = FrameServer(IO_TIMEOUT_SECS)
+        self._key = req_reply_addr_key(experiment, trial, handler)
+        self._addr = self._server.endpoint
+        name_resolve.add(self._key, self._addr,
+                         replace=True, keepalive_ttl=env_keepalive_ttl())
+        self._peer_of: Dict[str, socket.socket] = {}
+
+    def poll(self, timeout_ms: int = 0) -> Optional[Payload]:
+        got = self._server.poll(timeout_ms)
+        if got is None:
+            return None
+        conn, frames = got
+        p: Payload = pickle.loads(frames[0])
+        self._peer_of[p.request_id] = conn
+        return p
+
+    def reply(self, p: Payload) -> None:
+        conn = self._peer_of.pop(p.request_id)
+        p.done = True
+        self._server.send(conn, [pickle.dumps(p)])
+
+    def close(self):
+        # Withdraw the advertisement first: a restarted experiment's master
+        # must not resolve this (about-to-die) address.
+        try:
+            name_resolve.delete(self._key)
+        except name_resolve.NameEntryNotFoundError:
+            pass
+        self._server.close()

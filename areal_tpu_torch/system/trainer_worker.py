@@ -1,70 +1,305 @@
-"""The trainer worker — for now only its weight-publish half.
+"""The trainer worker: hosts the model roles and executes MFCs.
 
-Counterpart of ``areal_tpu/system/trainer_worker.py``'s ``_save_role:683``
-(its ``fmt="native"`` case), ``_compute_dtype_params:701``, ``publish_weights:720``
-(disk), ``_publish_weights_stream:765``, ``_clear_stale_transport_keys:866``
-and ``_bump_version:884``, under the same names. A ``TrainerWorker`` holds
-the role → ``Model`` map and publishes a role's weights in its engine's
-compute dtype, at the version ``model.version.global_step``:
+The port's counterpart of ``areal_tpu/system/trainer_worker.py:68-1164``
+(reference ``realhf/system/model_worker.py:101``). One process holds every
+role's engine on one device and serves the master's request stream:
 
- - ``disk`` writes a native checkpoint (``models/hf.py
-   save_native_checkpoint``) under ``realloc_dir/<role>/<version>``;
- - ``stream`` hands the tensors to the role's ``WeightStreamPublisher``,
-   which serves them from its host cache.
+ - ``fetch``       the next dataset batch → store → metadata
+ - ``mfc``         one MFC (generate / inference / train_step) over stored
+                   samples, with its hooks; outputs stored, metadata replied
+ - ``clear``       drop sample ids from the store
+ - ``model_info``  geometry and device for the master's FLOPs and MFU
+ - ``ckpt`` / ``restore``  recover checkpoints (train state, interface
+                   state, the dataset cursor)
+ - ``version`` / ``exit``
 
-Either way ``names.model_version_time`` (publish start, the anchor of the
-weight-sync latency) and ``names.model_version`` are set, and the other
-transport's discovery key is deleted. The request/reply fabric, the model
-functions' dispatch, telemetry and the ``device`` transport wait for later
-slices.
+Hooks on an MFC: ``weight_update`` publishes a role's weights for the
+generation servers over ``weight_sync.transport`` (``disk``: a native
+checkpoint under ``realloc_dir/<role>/<version>``; ``stream``: the role's
+``WeightStreamPublisher``), sets ``names.model_version_time`` and
+``names.model_version`` and deletes the other transport's key; ``save``
+writes an HF checkpoint; ``param_realloc`` moves a target role toward a
+source by EMA, in f32.
+
+Left out until the port has them: the rollout stream and durable ingest
+(ROADMAP.md Queue 1 item 3), telemetry, goodput and the profiler trigger
+(item 4), multi-host broadcast (item 8) and the ``device`` transport.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import logging
+import json
 import os
 import tempfile
 import time
-from typing import Dict, Optional
+import traceback
+from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
-from areal_tpu_torch.api.model import Model
+from areal_tpu_torch import resolve_device
+from areal_tpu_torch.api.data import MicroBatchSpec, SequenceSample
+from areal_tpu_torch.api.model import (
+    FinetuneSpec,
+    Model,
+    make_backend,
+    make_dataset,
+    make_interface,
+)
 from areal_tpu_torch.api.train_config import WeightSyncConfig
-from areal_tpu_torch.base import name_resolve, names
+from areal_tpu_torch.base import logging, name_resolve, names
 from areal_tpu_torch.models import convert, hf
+from areal_tpu_torch.system.streams import Payload, WorkerRequestServer
 from areal_tpu_torch.system.weight_stream import WeightStreamPublisher
+from areal_tpu_torch.system.worker_base import WorkerControl
 
-logger = logging.getLogger("areal_tpu_torch.trainer_worker")
+logger = logging.getLogger("system.trainer")
+
+
+@dataclasses.dataclass
+class ModelRoleConfig:
+    """One model role (actor / critic / ref / reward) of the trainer."""
+
+    # The model's source: {"hf_dir": path} (an HF model directory; with
+    # "is_critic": True a value head instead of the LM head),
+    # {"ckpt_dir": path} (a native or port HF checkpoint),
+    # {"tiny": {**tiny_config kwargs, "seed": n}} or {"null": True}.
+    init: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    backend: str = "torch_train"
+    backend_args: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    train: bool = True
+
+
+@dataclasses.dataclass
+class MFCRuntimeConfig:
+    """Interface binding for one MFC name."""
+
+    interface: str = "ppo_actor"
+    interface_args: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    model_name: str = "actor"
+    method: str = "train_step"
 
 
 @dataclasses.dataclass
 class TrainerWorkerConfig:
     experiment: str = "exp"
     trial: str = "trial"
+    handler: str = "trainer"
+    models: Dict[str, ModelRoleConfig] = dataclasses.field(default_factory=dict)
+    mfcs: Dict[str, MFCRuntimeConfig] = dataclasses.field(default_factory=dict)
+    dataset: Optional[str] = None
+    dataset_args: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    batch_size: int = 8
+    ft_spec: FinetuneSpec = dataclasses.field(default_factory=FinetuneSpec)
+    tokenizer: Any = None
     realloc_dir: str = dataclasses.field(default_factory=lambda: os.path.join(
         tempfile.gettempdir(), "areal_tpu", "realloc"))
+    # The worker's default transport is disk, as the reference's is.
     weight_sync: WeightSyncConfig = dataclasses.field(
-        default_factory=WeightSyncConfig)
+        default_factory=lambda: WeightSyncConfig(transport="disk"))
+    # Where every role lives (areal_tpu_torch.resolve_device): cuda unless
+    # named; without a GPU and without a device, setup() raises.
+    device: Optional[str] = None
 
 
 class TrainerWorker:
     def __init__(self, cfg: TrainerWorkerConfig,
-                 models: Optional[Dict[str, Model]] = None):
+                 model_factory: Optional[Callable[[str, ModelRoleConfig],
+                                                  Model]] = None):
+        """``model_factory(role, role_cfg) -> Model`` lets a caller bring
+        its own models; the default builds them from ``role_cfg.init``.
+        ``setup()`` builds the roles; a caller that sets ``models`` itself
+        may publish without it."""
         self.cfg = cfg
-        self.models: Dict[str, Model] = dict(models or {})
+        self.store: Dict[Any, SequenceSample] = {}
+        self.models: Dict[str, Model] = {}
+        self.interfaces: Dict[str, Any] = {}
+        self._mfc_cfg = cfg.mfcs
+        self._server: Optional[WorkerRequestServer] = None
+        self._dataset = None
+        self._data_iter: List[int] = []
+        self._epoch = 0
+        self._epoch_pos = 0
+        self._model_factory = model_factory or self._default_model_factory
+        self._exiting = False
         self._weight_publishers: Dict[str, WeightStreamPublisher] = {}
+        self.device: Optional[torch.device] = None
 
-    def _save_role(self, role: str, path: str) -> int:
-        """The role's weights under ``path`` in the native weight-sync
-        layout and the compute dtype (the reference's ``fmt="native"``; its
-        HF-format save hooks come with the rest of the worker). Returns the
-        bytes written."""
+    # ---------------- setup ----------------
+
+    def _default_model_factory(self, role: str, rc: ModelRoleConfig) -> Model:
+        if "hf_dir" in rc.init:
+            # The reference loads hf_dir with an LM head whatever the role
+            # (its trainer_worker.py:195-196); "is_critic" asks for the
+            # value head (ROADMAP.md, accepted differences).
+            cfg, params = hf.load_hf_model(
+                rc.init["hf_dir"], is_critic=bool(rc.init.get("is_critic")),
+                device=self.device)
+            return Model(role, (cfg, params))
+        if "ckpt_dir" in rc.init:
+            return Model(role, hf.load_checkpoint_auto(rc.init["ckpt_dir"],
+                                                       self.device))
+        if "tiny" in rc.init:  # a fabricated test model
+            from areal_tpu_torch.models.config import tiny_config
+            from areal_tpu_torch.models.transformer import init_params
+
+            kw = dict(rc.init["tiny"])
+            seed = kw.pop("seed", 0)
+            cfg = tiny_config(**kw)
+            return Model(role, (cfg, init_params(cfg, seed, self.device)))
+        if rc.init.get("null"):  # tokenizer-only role (rule-based reward)
+            return Model(role, None)
+        raise ValueError(f"role {role}: no model source in init={rc.init}")
+
+    def setup(self) -> None:
+        # The registries fill as their modules import.
+        import areal_tpu_torch.algorithms.ppo  # noqa: F401
+        import areal_tpu_torch.algorithms.reward  # noqa: F401
+        import areal_tpu_torch.algorithms.sft  # noqa: F401
+        import areal_tpu_torch.backend.torch_train  # noqa: F401
+        import areal_tpu_torch.datasets.jsonl  # noqa: F401
+
+        cfg = self.cfg
+        self.device = resolve_device(cfg.device)
+        for role, rc in cfg.models.items():
+            model = self._model_factory(role, rc)
+            if model.tokenizer is None:
+                model.tokenizer = cfg.tokenizer
+            if rc.backend == "null" or model.module is None:
+                self.models[role] = model
+                continue
+            backend = make_backend(rc.backend, **{
+                "train": rc.train, "device": self.device, **rc.backend_args})
+            self.models[role] = backend.initialize(model, cfg.ft_spec)
+        for mfc_name, mc in self._mfc_cfg.items():
+            self.interfaces[mfc_name] = make_interface(mc.interface,
+                                                       **mc.interface_args)
+        if cfg.dataset is not None:
+            self._dataset = make_dataset(cfg.dataset, tokenizer=cfg.tokenizer,
+                                         **cfg.dataset_args)
+            self._reshuffle()
+        self._server = WorkerRequestServer(cfg.experiment, cfg.trial,
+                                           cfg.handler)
+        logger.info(f"trainer up on {self.device}: models={list(self.models)} "
+                    f"mfcs={list(self.interfaces)}")
+
+    def _reshuffle(self):
+        rng = np.random.RandomState(self._epoch + 1)
+        self._data_iter = list(rng.permutation(len(self._dataset)))
+        self._epoch_pos = 0
+
+    # ---------------- handlers ----------------
+
+    def _read_batch(self, n: int) -> SequenceSample:
+        idx = []
+        while len(idx) < n and self._dataset is not None:
+            if self._epoch_pos >= len(self._data_iter):
+                self._epoch += 1
+                self._reshuffle()
+            idx.append(self._data_iter[self._epoch_pos])
+            self._epoch_pos += 1
+        return SequenceSample.gather([self._dataset[i] for i in idx])
+
+    def _store_batch(self, batch: SequenceSample) -> None:
+        for i in range(batch.bs):
+            s = batch.select_idx([i])
+            self.store[s.ids[0]] = s
+
+    def _handle_fetch(self, p: Payload) -> Any:
+        batch = self._read_batch(int(p.data or self.cfg.batch_size))
+        self._store_batch(batch)
+        return {
+            "meta": batch.meta(),
+            "epoch": self._epoch,
+            "epoch_pos": self._epoch_pos,
+            "dataset_size": len(self._dataset) if self._dataset else -1,
+        }
+
+    def _gather_input(self, ids, input_keys, remap) -> SequenceSample:
+        batch = SequenceSample.gather([self.store[i] for i in ids])
+        if remap:
+            batch = SequenceSample(
+                ids=list(batch.ids), keys=set(batch.keys),
+                seqlens=dict(batch.seqlens), data=dict(batch.data),
+                metadata=dict(batch.metadata))
+            batch.remap_keys_(remap)
+        return batch
+
+    def _handle_mfc(self, p: Payload) -> Any:
+        req = p.data  # {"mfc": name, "ids": [...], "method": ...}
+        if req.get("method") == "noop":
+            # a hook-only request (a save the master asked for)
+            for hook in p.pre_hooks + p.post_hooks:
+                self._run_hook(hook)
+            return {"stats": None, "meta": None}
+        mfc_name = req["mfc"]
+        mc = self._mfc_cfg[mfc_name]
+        iface = self.interfaces[mfc_name]
+        model = self.models[mc.model_name]
+        batch = self._gather_input(req["ids"], req.get("input_keys"),
+                                   req.get("input_remap"))
+        mb_spec = p.mb_spec or MicroBatchSpec()
+        method = req.get("method", mc.method)
+        for hook in p.pre_hooks:
+            self._run_hook(hook)
+        out = getattr(iface, method)(model, batch, mb_spec)
+        result: Dict[str, Any] = {"stats": None, "meta": None}
+        if method == "train_step":
+            result["stats"] = out
+        elif out is not None:
+            remap = req.get("output_remap") or {}
+            if remap:
+                out.remap_keys_(remap)
+            if method == "generate":
+                # Flattened trajectories replace the prompt samples.
+                for i in range(out.bs):
+                    s = out.select_idx([i])
+                    self.store[s.ids[0]] = s
+                for old_id in req["ids"]:
+                    self.store.pop(old_id, None)
+            else:
+                for i, sid in enumerate(out.ids):
+                    self.store[sid].update_(out.select_idx([i]))
+            result["meta"] = out.meta()
+        for hook in p.post_hooks:
+            self._run_hook(hook)
+        return result
+
+    @torch.no_grad()
+    def _run_hook(self, hook: Dict) -> None:
+        kind = hook.get("kind")
+        if kind == "weight_update":
+            self.publish_weights(hook.get("role", "actor"))
+        elif kind == "save":
+            self._save_role(hook.get("role", "actor"), hook["path"])
+        elif kind == "param_realloc":
+            # EMA: target := eta * source + (1 - eta) * target, in f32,
+            # cast back to each target tensor's dtype.
+            src = self.models[hook["source"]].module.params
+            dst = self.models[hook["target"]].module.params
+            eta = float(hook.get("eta", 1.0))
+            for name, d in dst.items():
+                s = src[name].detach().to(d.device, torch.float32)
+                d.copy_((eta * s + (1 - eta) * d.float()).to(d.dtype))
+        else:
+            raise ValueError(f"unknown hook {hook}")
+
+    # ---------------- weights ----------------
+
+    def _save_role(self, role: str, path: str, fmt: str = "hf") -> int:
+        """The role's weights under ``path``: an HF checkpoint of the
+        masters, or (``fmt="native"``) the weight-sync layout in the
+        compute dtype. Returns the bytes written."""
         model = self.models[role]
-        return hf.save_native_checkpoint(
-            self._compute_dtype_params(role), model.module.cfg, path,
-            meta={"version": model.version.global_step})
+        meta = {"version": model.version.global_step}
+        if fmt == "native":
+            return hf.save_native_checkpoint(
+                self._compute_dtype_params(role), model.module.cfg, path,
+                meta=meta)
+        return hf.save_hf_checkpoint(model.module.params, model.module.cfg,
+                                     path, meta=meta)
 
     @torch.no_grad()
     def _compute_dtype_params(self, role: str) -> Dict[str, torch.Tensor]:
@@ -95,7 +330,7 @@ class TrainerWorker:
         version = self.models[role].version.global_step
         path = os.path.join(self.cfg.realloc_dir, role, str(version))
         t0 = time.monotonic()
-        self._save_role(role, path)
+        self._save_role(role, path, fmt="native")
         save_secs = time.monotonic() - t0
         # A stream-mode predecessor may have left its endpoint behind.
         self._clear_stale_transport_keys(role, keep="disk")
@@ -148,8 +383,162 @@ class TrainerWorker:
             names.model_version(self.cfg.experiment, self.cfg.trial, role),
             str(version), replace=True)
 
+    # ---------------- bookkeeping ----------------
+
+    def _handle_model_info(self) -> Dict[str, Any]:
+        """Model geometry and device for the master's FLOPs and MFU."""
+        from areal_tpu_torch.models.transformer import (
+            activated_param_count,
+            param_count,
+        )
+
+        cuda = self.device.type == "cuda"
+        info: Dict[str, Any] = {
+            "n_devices": 1,  # every role lives on this one device
+            "device_kind": (torch.cuda.get_device_name(self.device) if cuda
+                            else str(self.device)),
+            "roles": {},
+        }
+        for role, m in self.models.items():
+            cfg = getattr(m.module, "cfg", None)
+            if cfg is None:
+                continue
+            moe = cfg.moe
+            info["roles"][role] = {
+                "n_layers": cfg.n_layers, "hidden_dim": cfg.hidden_dim,
+                "q_dim": cfg.q_dim, "kv_dim": cfg.kv_dim,
+                "intermediate_dim": cfg.intermediate_dim,
+                "vocab_size": cfg.vocab_size, "is_critic": cfg.is_critic,
+                "n_params": param_count(cfg),
+                "n_params_activated": activated_param_count(cfg),
+                "moe": None if moe is None else {
+                    "num_experts": moe.num_experts, "top_k": moe.top_k,
+                    "routed_intermediate_dim": moe.routed_intermediate_dim,
+                    "shared_intermediate_dim": moe.shared_intermediate_dim,
+                },
+                # remat runs the forward again in the backward: 4x forward
+                # FLOPs instead of 3x
+                "remat": bool(getattr(m.module, "remat", False)),
+            }
+        return info
+
+    def _handle_clear(self, p: Payload) -> Any:
+        for sid in p.data or []:
+            self.store.pop(sid, None)
+        return {"n_stored": len(self.store)}
+
+    # A recover checkpoint: every trainable role's train state (masters,
+    # optimizer moments, step count) and version, each interface's state
+    # (KL controller, value normalizer) and the dataset cursor
+    # (reference megatron.py:711-760, master_worker.py:585).
+
+    def _handle_ckpt(self, p: Payload) -> Any:
+        ckpt_dir = p.data["dir"]
+        os.makedirs(ckpt_dir, exist_ok=True)
+        meta: Dict[str, Any] = {"versions": {}, "epoch": self._epoch,
+                                "epoch_pos": self._epoch_pos}
+        for role, model in self.models.items():
+            if hasattr(model.module, "save_train_state"):
+                model.module.save_train_state(os.path.join(ckpt_dir, role))
+            meta["versions"][role] = model.version.global_step
+        iface_states = {n: iface.state_dict()
+                        for n, iface in self.interfaces.items()
+                        if hasattr(iface, "state_dict")}
+        # trainer_state.json also marks the directory complete
+        # (recover.ckpt_is_complete): written whole or not at all.
+        path = os.path.join(ckpt_dir, "trainer_state.json")
+        tmp = path + f".tmp{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump({"meta": meta, "interfaces": iface_states}, f)
+        os.replace(tmp, path)
+        logger.info(f"checkpointed trainer state -> {ckpt_dir}")
+        return {"ok": True}
+
+    def _handle_restore(self, p: Payload) -> Any:
+        ckpt_dir = p.data["dir"]
+        with open(os.path.join(ckpt_dir, "trainer_state.json")) as f:
+            d = json.load(f)
+        meta = d["meta"]
+        for role, model in self.models.items():
+            role_dir = os.path.join(ckpt_dir, role)
+            if hasattr(model.module, "load_train_state") \
+                    and os.path.isdir(role_dir):
+                model.module.load_train_state(role_dir)
+            model.version.global_step = int(meta["versions"].get(role, 0))
+        for mfc_name, st in d["interfaces"].items():
+            iface = self.interfaces.get(mfc_name)
+            if iface is not None and hasattr(iface, "load_state_dict"):
+                iface.load_state_dict(st)
+        self._epoch = int(meta["epoch"])
+        self._epoch_pos = int(meta["epoch_pos"])
+        if self._dataset is not None:
+            # The same seed gives the same permutation: (epoch, pos) resume
+            # the dataset where the checkpoint left it.
+            rng = np.random.RandomState(self._epoch + 1)
+            self._data_iter = list(rng.permutation(len(self._dataset)))
+        logger.info(f"restored trainer state from {ckpt_dir}")
+        return {"ok": True, "versions": meta["versions"]}
+
+    # ---------------- loop ----------------
+
+    def _dispatch(self, p: Payload) -> None:
+        """Execute one request; a failure travels back to the master."""
+        try:
+            if p.handle_name == "fetch":
+                p.output = self._handle_fetch(p)
+            elif p.handle_name == "mfc":
+                p.output = self._handle_mfc(p)
+            elif p.handle_name == "clear":
+                p.output = self._handle_clear(p)
+            elif p.handle_name == "version":
+                p.output = {r: m.version.global_step
+                            for r, m in self.models.items()}
+            elif p.handle_name == "model_info":
+                p.output = self._handle_model_info()
+            elif p.handle_name == "ckpt":
+                p.output = self._handle_ckpt(p)
+            elif p.handle_name == "restore":
+                p.output = self._handle_restore(p)
+            elif p.handle_name == "exit":
+                p.output = "bye"
+                self._exiting = True
+            else:
+                raise ValueError(f"unknown handle {p.handle_name}")
+        except Exception as e:  # noqa: BLE001 — surfaced to the master
+            p.exception = f"{e}\n{traceback.format_exc()}"
+            logger.error(f"handler {p.handle_name} failed: {p.exception}")
+
+    def serve_once(self, timeout_ms: int = 100) -> bool:
+        p = self._server.poll(timeout_ms)
+        if p is None:
+            return False
+        self._dispatch(p)
+        self._server.reply(p)
+        return True
+
+    def run(self) -> None:
+        self.setup()
+        ctrl = WorkerControl(self.cfg.experiment, self.cfg.trial,
+                             self.cfg.handler)
+        # Under a supervisor the control heartbeat also keeps the request
+        # stream's advertisement leased.
+        ctrl.lease(self._server._key, self._server._addr)
+        try:
+            while not self._exiting:
+                ctrl.step(lambda: {"roles": sorted(self.models)})
+                if ctrl.should_exit:
+                    break
+                self.serve_once(timeout_ms=100)
+        finally:
+            ctrl.close()
+            self.close()
+
     def close(self) -> None:
-        """Stop every weight-stream publisher (their keys are deleted)."""
+        """Withdraw the request stream and stop every weight-stream
+        publisher (their keys are deleted)."""
+        if self._server is not None:
+            self._server.close()
+            self._server = None
         for pub in self._weight_publishers.values():
             pub.close()
         self._weight_publishers.clear()

@@ -29,9 +29,8 @@ its request order aborts. Payloads are a tensor's raw little-endian bytes
 (``view(torch.uint8)``: numpy has no bfloat16); CRCs are ``zlib.crc32``.
 
 Transport: the reference carries these frames over a zmq DEALER/ROUTER
-pair. Here they travel over a plain TCP socket as length-prefixed multipart
-messages: a little-endian u32 frame count, then for each frame a u64 length
-and its bytes. The publisher serves each connection from a thread of its
+pair. Here they travel over a plain TCP socket as the port's multipart
+messages (``system/frames.py``). The publisher serves each connection from a thread of its
 own, answering its requests in order; a request that needs data the gather
 has not produced yet waits for it (up to a deadline) without holding up
 other consumers. The consumer's socket (:class:`FrameSocket`) has the four
@@ -49,21 +48,19 @@ tensors are synchronized before ``publish`` returns.
 
 from __future__ import annotations
 
-import collections
 import json
 import logging
-import select
 import socket
-import struct
 import threading
 import time
 import zlib
-from typing import Any, Deque, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from areal_tpu_torch.base import name_resolve, names, network
+from areal_tpu_torch.system.frames import FrameSocket, _recv, _send
 
 logger = logging.getLogger("areal_tpu_torch.weight_stream")
 
@@ -73,9 +70,6 @@ DEFAULT_PIPELINE_DEPTH = 4  # in-flight chunk requests per consumer
 # what a request needs, for the consumer's next request, or for it to
 # take a reply.
 CONN_WAIT_SECS = 300.0
-
-_COUNT = struct.Struct("<I")  # frames in a message
-_LEN = struct.Struct("<Q")  # bytes in a frame
 
 
 class WeightStreamError(RuntimeError):
@@ -102,101 +96,6 @@ def _host_bytes(t: torch.Tensor) -> np.ndarray:
     if t.device.type != "cpu":
         t = t.to("cpu")
     return t.contiguous().reshape(-1).view(torch.uint8).numpy()
-
-
-# ---------------- frames over TCP ----------------
-
-def _encode(frames: Sequence[Any]) -> List[memoryview]:
-    """One multipart message as buffers to send in order (payloads are not
-    copied)."""
-    out = [memoryview(_COUNT.pack(len(frames)))]
-    for f in frames:
-        m = memoryview(f).cast("B")
-        out += [memoryview(_LEN.pack(m.nbytes)), m]
-    return out
-
-
-def _send(sock: socket.socket, frames: Sequence[Any]) -> None:
-    """Send one message: the small buffers joined, payloads as they are."""
-    head = bytearray()
-    for m in _encode(frames):
-        if m.nbytes < (1 << 16):
-            head += m
-            continue
-        if head:
-            sock.sendall(head)
-            head = bytearray()
-        sock.sendall(m)
-    if head:
-        sock.sendall(head)
-
-
-def _recv_exact(sock: socket.socket, n: int) -> bytearray:
-    buf = bytearray(n)
-    view, got = memoryview(buf), 0
-    while got < n:
-        k = sock.recv_into(view[got:])
-        if k == 0:
-            raise ConnectionError("the peer closed the connection")
-        got += k
-    return buf
-
-
-def _recv(sock: socket.socket) -> List[bytearray]:
-    """One whole message (each read waits at most the socket's timeout)."""
-    (n,) = _COUNT.unpack(_recv_exact(sock, _COUNT.size))
-    return [_recv_exact(sock, _LEN.unpack(_recv_exact(sock, _LEN.size))[0])
-            for _ in range(n)]
-
-
-class FrameSocket:
-    """The consumer's end of the frame transport: a TCP connection to
-    ``endpoint``, made on first use, with the zmq socket methods the
-    consumer calls. Each blocking read waits at most ``timeout_secs``."""
-
-    def __init__(self, endpoint: str, timeout_secs: float):
-        self.endpoint = endpoint
-        self.timeout_secs = timeout_secs
-        self._sock: Optional[socket.socket] = None
-        self._poller = select.poll()
-        self._ready: Deque[List[bytearray]] = collections.deque()
-
-    def _conn(self) -> socket.socket:
-        if self._sock is None:
-            s = socket.create_connection(network.parse_tcp(self.endpoint),
-                                         timeout=self.timeout_secs)
-            s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-            self._poller.register(s, select.POLLIN)
-            self._sock = s
-        return self._sock
-
-    def send_multipart(self, frames: Sequence[Any]) -> None:
-        _send(self._conn(), frames)
-
-    def poll(self, timeout_ms: int) -> int:
-        """1 once a whole message has arrived, 0 if none started arriving
-        within ``timeout_ms``."""
-        if self._ready:
-            return 1
-        self._conn()
-        if not self._poller.poll(max(int(timeout_ms), 0)):
-            return 0
-        try:
-            self._ready.append(_recv(self._sock))
-        except ConnectionError as e:
-            raise ConnectionError(f"{self.endpoint}: {e}") from None
-        return 1
-
-    def recv_multipart(self) -> List[bytearray]:
-        if not self.poll(int(self.timeout_secs * 1000)):
-            raise TimeoutError(f"no message from {self.endpoint} within "
-                               f"{self.timeout_secs}s")
-        return self._ready.popleft()
-
-    def close(self, linger: int = 0) -> None:
-        if self._sock is not None:
-            self._sock.close()
-            self._sock = None
 
 
 # ---------------- publisher ----------------

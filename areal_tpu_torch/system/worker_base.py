@@ -1,0 +1,382 @@
+"""Worker lifecycle FSM + out-of-band control channel.
+
+The port's counterpart of ``areal_tpu/system/worker_base.py:39-476``
+(reference ``realhf/system/worker_base.py:474``, ``WorkerControlPanel``
+:218, and ``worker_control.py:22-170``), over the port's frames
+(``system/frames.py``) instead of zmq REQ/REP sockets.
+
+Workers are not a class hierarchy: each loop embeds a ``WorkerControl`` and
+calls ``control.step(status_fn)`` once per iteration; a
+``WorkerControlPanel`` (a launcher, an operator shell, a test) discovers
+workers through name_resolve and sends pause / resume / exit / status /
+reconfigure or a registered custom command. ``pause`` blocks the worker
+inside ``step`` until resume or exit; commands are served while paused.
+Under a supervisor, a ``HeartbeatThread`` keeps the worker's leased
+name-resolve keys alive and publishes its heartbeat. The reference's
+compile-inflight flag is left out: the port compiles nothing at run time.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+import threading
+import time
+from enum import Enum
+from typing import Any, Callable, Dict, Iterable, List, Optional
+
+from areal_tpu_torch.base import logging, name_resolve, names
+from areal_tpu_torch.system.frames import FrameServer, FrameSocket
+
+logger = logging.getLogger("system.worker_base")
+
+# Set by a supervisor on every spawned child: the incarnation id tells a
+# respawned worker's registrations from its dead predecessor's, and the
+# keepalive TTL puts a liveness lease on its name-resolve advertisements.
+ENV_INCARNATION = "AREAL_WORKER_INCARNATION"
+ENV_KEEPALIVE_TTL = "AREAL_WORKER_KEEPALIVE_TTL"
+ENV_HEARTBEAT_INTERVAL = "AREAL_WORKER_HEARTBEAT_INTERVAL"
+
+
+def env_incarnation() -> int:
+    try:
+        return int(os.environ.get(ENV_INCARNATION, "0"))
+    except ValueError:
+        return 0
+
+
+def _env_positive_float(name: str) -> Optional[float]:
+    try:
+        v = float(os.environ.get(name, "0"))
+    except ValueError:
+        return None
+    return v if v > 0 else None
+
+
+def env_keepalive_ttl() -> Optional[float]:
+    return _env_positive_float(ENV_KEEPALIVE_TTL)
+
+
+def env_heartbeat_interval() -> Optional[float]:
+    return _env_positive_float(ENV_HEARTBEAT_INTERVAL)
+
+
+def default_heartbeat_interval(ttl: float) -> float:
+    """The heartbeat cadence for a lease of ``ttl`` seconds: the operator's
+    override (AREAL_WORKER_HEARTBEAT_INTERVAL) or ttl/3."""
+    return env_heartbeat_interval() or ttl / 3.0
+
+
+def read_heartbeats(experiment: str, trial: str) -> Dict[str, Dict]:
+    """Heartbeat age of every worker publishing one: worker ->
+    {age_secs, incarnation, pid}."""
+    root = names.worker_heartbeat_root(experiment, trial)
+    out: Dict[str, Dict] = {}
+    now = time.time()
+    for key in name_resolve.find_subtree(root):
+        worker = key[len(root.rstrip("/")) + 1:]
+        try:
+            d = json.loads(name_resolve.get(key))
+            out[worker] = {
+                "age_secs": round(now - float(d.get("ts", 0.0)), 3),
+                "incarnation": int(d.get("incarnation", 0)),
+                "pid": d.get("pid"),
+            }
+        except Exception:  # noqa: BLE001 — torn write / stale format
+            out[worker] = {"age_secs": None}
+    return out
+
+
+class WorkerState(str, Enum):
+    CREATED = "created"
+    RUNNING = "running"
+    PAUSED = "paused"
+    EXITING = "exiting"
+
+
+def worker_control_key(experiment: str, trial: str, worker: str) -> str:
+    return f"{names.trial_root(experiment, trial)}/worker_control/{worker}"
+
+
+def worker_control_root(experiment: str, trial: str) -> str:
+    return f"{names.trial_root(experiment, trial)}/worker_control/"
+
+
+class HeartbeatThread:
+    """Liveness heartbeat on a daemon thread of its own, so that a worker
+    busy in a long step or paused still looks alive (the lease exists to
+    catch killed processes, which take their threads with them). Every
+    ``interval`` seconds it ``touch``es each leased key, re-registering a
+    lapsed one whose value it knows, and rewrites
+    ``names.worker_heartbeat`` with {ts, incarnation, pid}."""
+
+    def __init__(self, experiment: str, trial: str, worker_name: str,
+                 keys: Iterable[str] = (), interval: float = 2.0,
+                 incarnation: Optional[int] = None):
+        self.worker_name = worker_name
+        self.incarnation = (incarnation if incarnation is not None
+                            else env_incarnation())
+        # key -> (value, ttl) | None (touch-only)
+        self._keys: Dict[str, Optional[tuple]] = {k: None for k in keys}
+        self._interval = max(float(interval), 0.05)
+        self._lock = threading.Lock()
+        self._hb_key = names.worker_heartbeat(experiment, trial, worker_name)
+        self._stop = threading.Event()
+        self._beat()  # visible before the first interval elapses
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name=f"heartbeat-{worker_name}")
+        self._thread.start()
+
+    def lease(self, key: str, value: Optional[str] = None,
+              ttl: Optional[float] = None) -> None:
+        """Add a key to the touch set; with ``value`` (and ``ttl``), an
+        expired lease is re-registered on the next beat."""
+        with self._lock:
+            self._keys[key] = (value, ttl) if value is not None else None
+
+    def _beat(self) -> None:
+        with self._lock:
+            keys = dict(self._keys)
+        for k, reg in keys.items():
+            try:
+                name_resolve.touch(k)
+            except name_resolve.NameEntryNotFoundError:
+                if reg is None:
+                    continue  # touch-only key: the owner re-registers
+                value, ttl = reg
+                try:
+                    name_resolve.add(k, value, replace=True,
+                                     keepalive_ttl=ttl)
+                    logger.warning(f"lease on {k} had lapsed (late "
+                                   "heartbeat?); re-registered")
+                except Exception:  # noqa: BLE001 — retried next beat
+                    pass
+            except Exception:  # noqa: BLE001 — a heartbeat must never
+                pass  # kill a worker
+        try:
+            name_resolve.add(
+                self._hb_key,
+                json.dumps({"ts": time.time(), "incarnation": self.incarnation,
+                            "pid": os.getpid()}),
+                replace=True, delete_on_exit=False)
+        except Exception:  # noqa: BLE001
+            pass
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self._interval):
+            self._beat()
+
+    def close(self) -> None:
+        self._stop.set()
+        # Join before deleting: a beat in flight would re-add the key
+        # after the delete and leave a ghost heartbeat.
+        self._thread.join(timeout=2.0)
+        try:
+            name_resolve.delete(self._hb_key)
+        except Exception:  # noqa: BLE001 — already gone / repo reset
+            pass
+
+
+class WorkerControl:
+    """The worker's control endpoint, served between loop iterations."""
+
+    def __init__(self, experiment: str, trial: str, worker_name: str,
+                 keepalive_ttl: Optional[float] = None,
+                 heartbeat_interval: Optional[float] = None):
+        self.worker_name = worker_name
+        self.state = WorkerState.CREATED
+        self.incarnation = env_incarnation()
+        self._server = FrameServer()
+        self._key = worker_control_key(experiment, trial, worker_name)
+        if keepalive_ttl is None:
+            keepalive_ttl = env_keepalive_ttl()
+        self._keepalive_ttl = keepalive_ttl
+        addr = self._server.endpoint
+        name_resolve.add(self._key, addr, replace=True,
+                         keepalive_ttl=keepalive_ttl)
+        self._hb: Optional[HeartbeatThread] = None
+        if keepalive_ttl:
+            self._hb = HeartbeatThread(
+                experiment, trial, worker_name,
+                interval=(heartbeat_interval
+                          or default_heartbeat_interval(keepalive_ttl)),
+                incarnation=self.incarnation)
+            self._hb.lease(self._key, addr, keepalive_ttl)
+        self._reconfigure_cb: Optional[Callable[[Any], Any]] = None
+        self._commands: Dict[str, Callable[[Any], Any]] = {}
+        self._t_start = time.monotonic()
+        self._iterations = 0
+
+    def on_reconfigure(self, cb: Callable[[Any], Any]) -> None:
+        """Register the worker's reconfigure handler (payload → result)."""
+        self._reconfigure_cb = cb
+
+    def on_command(self, name: str, cb: Callable[[Any], Any]) -> None:
+        """Register a custom command (payload → result), served like pause
+        and resume from within ``step``, while paused too."""
+        self._commands[name] = cb
+
+    def lease(self, key: str, value: Optional[str] = None,
+              ttl: Optional[float] = None) -> None:
+        """Keep another name-resolve key alive on this worker's heartbeat;
+        a no-op without a keepalive lease."""
+        if self._hb is not None:
+            self._hb.lease(key, value, ttl or self._keepalive_ttl)
+
+    @property
+    def should_exit(self) -> bool:
+        return self.state == WorkerState.EXITING
+
+    def _status(self, status_fn: Optional[Callable[[], Dict]]) -> Dict:
+        d = {
+            "worker": self.worker_name,
+            "state": self.state.value,
+            "incarnation": self.incarnation,
+            "uptime_s": round(time.monotonic() - self._t_start, 3),
+            "iterations": self._iterations,
+        }
+        if status_fn is not None:
+            try:
+                d.update(status_fn())
+            except Exception as e:  # noqa: BLE001 — status must never kill
+                d["status_error"] = str(e)
+        return d
+
+    def _handle(self, msg: Dict, status_fn) -> Dict:
+        cmd = msg.get("cmd")
+        if cmd == "pause":
+            if self.state == WorkerState.RUNNING:
+                self.state = WorkerState.PAUSED
+            return {"ok": True, "state": self.state.value}
+        if cmd == "resume":
+            if self.state == WorkerState.PAUSED:
+                self.state = WorkerState.RUNNING
+            return {"ok": True, "state": self.state.value}
+        if cmd == "exit":
+            self.state = WorkerState.EXITING
+            return {"ok": True, "state": self.state.value}
+        if cmd == "status":
+            return {"ok": True, **self._status(status_fn)}
+        if cmd == "reconfigure":
+            if self._reconfigure_cb is None:
+                return {"ok": False, "error": "no reconfigure handler"}
+            try:
+                return {"ok": True,
+                        "result": self._reconfigure_cb(msg.get("payload"))}
+            except Exception as e:  # noqa: BLE001 — reported to the panel
+                return {"ok": False, "error": str(e)}
+        if cmd in self._commands:
+            try:
+                return {"ok": True,
+                        "result": self._commands[cmd](msg.get("payload"))}
+            except Exception as e:  # noqa: BLE001 — reported to the panel
+                return {"ok": False, "error": str(e)}
+        return {"ok": False, "error": f"unknown command {cmd!r}"}
+
+    def step(self, status_fn: Optional[Callable[[], Dict]] = None,
+             timeout_ms: int = 0) -> WorkerState:
+        """Serve pending control messages; block while paused. Call once
+        per loop iteration."""
+        if self.state == WorkerState.CREATED:
+            self.state = WorkerState.RUNNING
+        self._iterations += 1
+        while True:
+            wait = 200 if self.state == WorkerState.PAUSED else timeout_ms
+            got = self._server.poll(wait)
+            if got is None:
+                if self.state == WorkerState.PAUSED:
+                    continue
+                return self.state
+            conn, frames = got
+            reply = self._handle(pickle.loads(frames[0]), status_fn)
+            self._server.send(conn, [pickle.dumps(reply)])
+            if self.state != WorkerState.PAUSED:
+                return self.state
+
+    def close(self) -> None:
+        if self._hb is not None:
+            self._hb.close()
+        # Withdraw the advertisement so that a restarted experiment's panel
+        # never resolves this dead endpoint.
+        try:
+            name_resolve.delete(self._key)
+        except Exception:  # noqa: BLE001 — already gone / repo reset
+            pass
+        self._server.close()
+
+
+class WorkerControlPanel:
+    """The launcher's or operator's client: discover and command workers."""
+
+    def __init__(self, experiment: str, trial: str, timeout: float = 10.0):
+        self.experiment = experiment
+        self.trial = trial
+        self.timeout = timeout
+        self._socks: Dict[str, FrameSocket] = {}
+
+    def list_workers(self) -> List[str]:
+        root = worker_control_root(self.experiment, self.trial)
+        return sorted(k[len(root):] for k in name_resolve.find_subtree(root))
+
+    def _sock_for(self, worker: str) -> FrameSocket:
+        if worker not in self._socks:
+            addr = name_resolve.wait(
+                worker_control_key(self.experiment, self.trial, worker),
+                timeout=self.timeout)
+            self._socks[worker] = FrameSocket(addr, self.timeout)
+        return self._socks[worker]
+
+    def command(self, worker: str, cmd: str, **kw) -> Dict:
+        s = self._sock_for(worker)
+        try:
+            s.send_multipart([pickle.dumps({"cmd": cmd, **kw})])
+            return pickle.loads(s.recv_multipart()[0])
+        except (OSError, TimeoutError) as e:
+            # A late reply must not answer the next command: drop the
+            # connection, the next command reconnects. Workers serve
+            # control only between loop iterations, so a timeout during a
+            # long step is normal.
+            s.close()
+            self._socks.pop(worker, None)
+            raise TimeoutError(
+                f"worker {worker!r} did not answer {cmd!r} within "
+                f"{self.timeout}s (busy in a step?): {e}") from None
+
+    def pause(self, worker: str) -> Dict:
+        return self.command(worker, "pause")
+
+    def resume(self, worker: str) -> Dict:
+        return self.command(worker, "resume")
+
+    def exit(self, worker: str) -> Dict:
+        return self.command(worker, "exit")
+
+    def status(self, worker: str) -> Dict:
+        return self.command(worker, "status")
+
+    def reconfigure(self, worker: str, payload: Any) -> Dict:
+        return self.command(worker, "reconfigure", payload=payload)
+
+    def try_command(self, worker: str, cmd: str, **kw) -> Dict:
+        """``command`` that reports a timeout instead of raising."""
+        try:
+            return self.command(worker, cmd, **kw)
+        except TimeoutError as e:
+            return {"ok": False, "error": str(e)}
+
+    def pause_all(self) -> Dict[str, Dict]:
+        return {w: self.pause(w) for w in self.list_workers()}
+
+    def resume_all(self) -> Dict[str, Dict]:
+        return {w: self.resume(w) for w in self.list_workers()}
+
+    def exit_all(self) -> Dict[str, Dict]:
+        return {w: self.try_command(w, "exit") for w in self.list_workers()}
+
+    def heartbeats(self) -> Dict[str, Dict]:
+        return read_heartbeats(self.experiment, self.trial)
+
+    def close(self) -> None:
+        for s in self._socks.values():
+            s.close()

@@ -122,11 +122,42 @@ Phases (any failed check raises, and the script exits non-zero):
      decode ms per step and busy share before and during the update, the
      longest reply before and during it, and a replay of the cached publish
      into host memory (the transport alone); peak device memory and K1's
-     launches per transport; K1 launched n_layers x the server's prefills.
+     launches per transport; K1 launches n_layers x the server's prefills;
+ (n) the sync-PPO loop, the engines of (j) freed first: the README's sync
+     recipe (`ppo.kl_ctl=0.05 group_size=8`, the rest at defaults: a
+     critic, 4 PPO minibatches, no actor_inf) as the graph of
+     experiments/ppo_math_exp.py:111 build_dfg (actor_gen -> rew_inf,
+     ref_inf, critic_inf -> actor_train, which publishes the actor over
+     disk -> critic_train), walked by the port's MasterWorker in this
+     process (in a thread joined within 600 s) over the port's request
+     stream to a TrainerWorker in a spawned process, which loads the
+     kernels (a) built. Every role loads one HF checkpoint written from
+     seed 0 under a temporary directory (deleted): actor and critic on
+     (g)'s backend (the critic with a value head), a bf16 reference
+     engine, a tokenizer-only reward role; a byte tokenizer (eos 151643);
+     the "math_code_prompt" dataset of seeded math records (prompts of
+     100-400 byte tokens); 4 prompts x 8 samples of 256 new tokens at
+     temperature 1 per step; 4096 tokens per micro-batch in the forward
+     and train MFCs. 3 steps, the first a warm-up: ms per step and per MFC
+     (the master's timeperf/* and the trainer's CUDA-event ms), generated
+     and trained tokens/s, publish seconds, the trainer's peak memory,
+     K1-K3 launches per MFC, the reward mean and verdicts, whether sympy
+     imports. Checks: 3 steps; finite losses, action tokens and grad norms
+     > 0 for actor and critic every step; model_version >= 3; the last
+     published checkpoint holds model.safetensors and its native JSON, its
+     tensors hash to the trainer's actor bit for bit and differ from the
+     initial weights; K1 launches n_layers x the prefills in actor_gen and
+     n_layers x the micro-batches in each forward MFC, K2 and K3 n_layers x
+     the micro-batches in each train MFC and K1 twice that; the trainer
+     exits 0. Rehearse on the CPU with
+     `run_sync_loop(tiny_cfg, tmpdir, device="cpu", eos=...)` (tied
+     embeddings; the launch checks run only on the card).
 
-The line before the last is the card's name and power limit, the line
-before that the kernels' JSON record, and the last line
-{"ok": true, "device": {...}}.
+The script exits 0 only when every phase passed and the last line is
+printed; any failed check raises and exits 1, as does a run where
+areal_tpu_torch is not beside the script. The line before the last is the
+card's name and power limit, the line before that the kernels' JSON
+record, and the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -921,11 +952,11 @@ def run_trainer(fa, cfg, batch, spec, device="cuda", steps: int = 2):
     batch = attach_keys(batch, {
         "packed_logprobs": ref_lp.data["packed_ref_logprobs"]})
     n_inf = n_micro_batches(ref, batch, spec)
-    n_actor = n_micro_batches(act, batch, dataclasses.replace(
-        spec, n_mbs=max(spec.n_mbs or 1, tr.hp.ppo_n_minibatches)))
-    n_critic = n_micro_batches(crit, batch, spec, k=tr.hp.ppo_n_minibatches)
     expect_mbs = {"ref_inf": n_inf, "actor_inf": n_inf, "critic_inf": n_inf,
-                  "actor_train": n_actor, "critic_train": n_critic}
+                  "actor_train": expected_micro_batches(
+                      tr.actor, tr.actor_iface, batch, spec, "train_step"),
+                  "critic_train": expected_micro_batches(
+                      tr.critic, tr.critic_iface, batch, spec, "train_step")}
     watch = ["embedding.weight", "layers.0.wq.weight",
              f"layers.{cfg.n_layers - 1}.w_down.weight"]
     before = {m: {n: e.params[n].detach().clone() for n in watch}
@@ -1251,8 +1282,8 @@ def stream_publisher(conn, cfg, tmp: str, exp: str, trial: str,
         w = TrainerWorker(TrainerWorkerConfig(
             experiment=exp, trial=trial,
             realloc_dir=os.path.join(tmp, "realloc"),
-            weight_sync=WeightSyncConfig(transport="stream")),
-            models={"actor": src})
+            weight_sync=WeightSyncConfig(transport="stream")))
+        w.models["actor"] = src  # setup()-free: the publish half only
         try:
             conn.send(("ready", None))
             expect("publish")
@@ -1384,8 +1415,8 @@ def run_weight_sync(fa, cfg, actor, eos: int, tmp: str,
         workers.append(TrainerWorker(TrainerWorkerConfig(
             experiment=exp, trial=trial,
             realloc_dir=os.path.join(tmp, "realloc"),
-            weight_sync=WeightSyncConfig(transport="disk")),
-            models={"actor": actor}))
+            weight_sync=WeightSyncConfig(transport="disk"))))
+        workers[-1].models["actor"] = actor  # setup()-free: publish only
         path = os.path.join(tmp, "realloc", "actor", str(v1))
         resident = mem_reset(device)
         k1 = fa.launch_count()
@@ -1558,9 +1589,506 @@ def run_weight_sync(fa, cfg, actor, eos: int, tmp: str,
     return rec
 
 
+# ---------------- (n) the sync-PPO loop ----------------
+
+SYNC_MFCS = ("actor_gen", "rew_inf", "ref_inf", "critic_inf", "actor_train",
+             "critic_train")
+
+
+class ByteTokenizer:
+    """A byte-level tokenizer for a model of any vocabulary: byte b is id
+    b + 2 (0 pads, as in the port's MockTokenizer); decode maps every id
+    but pad and eos to a byte, so whatever a random model samples from a
+    151,936-token vocabulary decodes. Defined at module level: it travels
+    to the spawned trainer by pickle."""
+
+    pad_token_id = 0
+
+    def __init__(self, eos_token_id: int):
+        self.eos_token_id = eos_token_id
+
+    def encode(self, text: str) -> list:
+        return [b + 2 for b in text.encode()]
+
+    def decode(self, ids) -> str:
+        skip = (self.pad_token_id, self.eos_token_id)
+        return bytes((int(i) - 2) % 256 for i in ids
+                     if int(i) not in skip).decode(errors="replace")
+
+
+def write_math_prompts(path: str, n: int, seed: int) -> None:
+    """``n`` math records from ``seed``: a fixed preamble, 0-24 seeded
+    definitions, then a sum whose boxed value is the ground truth. Prompts
+    run 100-400 byte tokens."""
+    import random
+
+    rng = random.Random(seed)
+    preamble = ("Solve the problem below. Think step by step, then put the "
+                "final answer in \\boxed{}. ")
+    with open(path, "w") as f:
+        for i in range(n):
+            a, b = rng.randint(0, 999), rng.randint(0, 999)
+            defs = " ".join(f"Let x{j} = {rng.randint(0, 99)}."
+                            for j in range(rng.randint(0, 24)))
+            f.write(json.dumps({
+                "query_id": f"q{i}", "task": "math",
+                "prompt": f"{preamble}{defs} What is {a}+{b}? ",
+                "solutions": [f"\\boxed{{{a + b}}}"]}) + "\n")
+
+
+def sync_dfg(n_prompts: int, group_size: int, spec):
+    """The graph ``experiments/ppo_math_exp.py:111 build_dfg`` gives for the
+    README's sync recipe (``ppo.kl_ctl=0.05 group_size=8``, the rest at
+    defaults: a critic, no actor_inf, no fused reward/ref): actor_gen ->
+    rew_inf, ref_inf, critic_inf -> actor_train (publishing the actor) ->
+    critic_train. ``spec`` is the forward and train MFCs' micro-batch
+    spec."""
+    from areal_tpu_torch.api import dfg
+    from areal_tpu_torch.api.data import MicroBatchSpec
+
+    n = n_prompts * group_size
+
+    def node(name, role, kind, impl, inputs, outputs=(), n_seqs=n, **kw):
+        return dfg.MFCDef(
+            name=name, model_name=role,
+            interface_type=getattr(dfg.MFCInterfaceType, kind),
+            interface_impl=dfg.ModelInterfaceAbstraction(impl),
+            input_keys=tuple(inputs), output_keys=tuple(outputs),
+            n_seqs=n_seqs, **{"mb_spec": spec, **kw})
+
+    traj = ("packed_input_ids", "prompt_mask", "packed_logprobs",
+            "seq_no_eos_mask", "task_ids", "version_start", "version_end")
+    train_in = ("packed_input_ids", "prompt_mask", "packed_logprobs",
+                "rewards", "seq_no_eos_mask", "packed_ref_logprobs", "values")
+    return dfg.build_graph([
+        node("actor_gen", "actor", "GENERATE", "ppo_actor",
+             ("packed_prompts", "task_ids"), traj, n_seqs=n_prompts,
+             mb_spec=MicroBatchSpec()),
+        node("rew_inf", "rew", "INFERENCE", "rw_math_code",
+             ("packed_input_ids", "prompt_mask"), ("rewards",)),
+        node("ref_inf", "ref", "INFERENCE", "ref_logprob",
+             ("packed_input_ids",), ("packed_ref_logprobs",)),
+        node("critic_inf", "critic", "INFERENCE", "ppo_critic",
+             ("packed_input_ids",), ("values",)),
+        node("actor_train", "actor", "TRAIN_STEP", "ppo_actor", train_in,
+             post_hooks=[dfg.WeightUpdateHook(role="actor")]),
+        node("critic_train", "critic", "TRAIN_STEP", "ppo_critic", train_in),
+    ])
+
+
+def sync_trainer_config(exp: str, trial: str, hf_dir: str, data_path: str,
+                        n_records: int, realloc_dir: str, tok, hp, n_prompts,
+                        device: str):
+    """The TrainerWorkerConfig of the sync recipe: actor and critic on
+    bench.py's backend (f32 masters, bf16 compute and moments, "dots"
+    remat), the critic with a value head over the actor's trunk, a bf16
+    reference engine without optimizer, a tokenizer-only reward role, the
+    "math_code_prompt" dataset; weights published over disk."""
+    from areal_tpu_torch.api.model import FinetuneSpec
+    from areal_tpu_torch.api.train_config import (
+        OptimizerConfig,
+        WeightSyncConfig,
+    )
+    from areal_tpu_torch.system.trainer_worker import (
+        MFCRuntimeConfig,
+        ModelRoleConfig,
+        TrainerWorkerConfig,
+    )
+
+    args = dict(
+        optimizer=OptimizerConfig(lr=1e-5, lr_scheduler_type="constant",
+                                  warmup_steps_proportion=0.0,
+                                  mu_dtype="bfloat16", nu_dtype="bfloat16"),
+        compute_dtype="bfloat16", length_bucket=512, rows_bucket=4,
+        seqs_bucket=16, remat="dots", logprob_chunk=512)
+    models = {
+        "actor": ModelRoleConfig(init={"hf_dir": hf_dir}, backend_args=args),
+        # The reference loads an hf_dir without a value head whatever the
+        # role (ROADMAP.md Queue 3); "is_critic" asks for one.
+        "critic": ModelRoleConfig(init={"hf_dir": hf_dir, "is_critic": True},
+                                  backend_args=args),
+        "ref": ModelRoleConfig(init={"hf_dir": hf_dir}, train=False,
+                               backend_args=args),
+        "rew": ModelRoleConfig(init={"null": True}, backend="null"),
+    }
+    ppo = {"interface_args": {"hp": hp}}
+    mfcs = {
+        "actor_gen": MFCRuntimeConfig("ppo_actor", model_name="actor", **ppo),
+        "rew_inf": MFCRuntimeConfig(
+            "rw_math_code", model_name="rew",
+            interface_args={"dataset_path": data_path,
+                            "group_size": hp.group_size}),
+        "ref_inf": MFCRuntimeConfig("ref_logprob", model_name="ref"),
+        "critic_inf": MFCRuntimeConfig("ppo_critic", model_name="critic",
+                                       **ppo),
+        "actor_train": MFCRuntimeConfig("ppo_actor", model_name="actor",
+                                        **ppo),
+        "critic_train": MFCRuntimeConfig("ppo_critic", model_name="critic",
+                                         **ppo),
+    }
+    return TrainerWorkerConfig(
+        experiment=exp, trial=trial, models=models, mfcs=mfcs,
+        dataset="math_code_prompt", dataset_args={"dataset_path": data_path},
+        batch_size=n_prompts,
+        ft_spec=FinetuneSpec(1, n_records, n_prompts), tokenizer=tok,
+        realloc_dir=realloc_dir,
+        weight_sync=WeightSyncConfig(transport="disk"), device=device)
+
+
+def expected_micro_batches(model, iface, batch, spec, method: str):
+    """How many micro-batches an MFC packs: an inference packs the batch; the
+    actor's train step (no group_adv_norm) at least ppo_n_minibatches of
+    the whole batch; the critic's packs each of its minibatches; generate
+    runs one prefill (None here)."""
+    import dataclasses as dc
+
+    from areal_tpu_torch.algorithms.ppo import PPOCriticInterface
+
+    if method == "generate" or model.module is None:
+        return None
+    eng = model.module
+    if method != "train_step":
+        return n_micro_batches(eng, batch, spec)
+    k = iface.hp.ppo_n_minibatches
+    if isinstance(iface, PPOCriticInterface):
+        return n_micro_batches(eng, batch, spec, k=k)
+    return n_micro_batches(eng, batch, dc.replace(
+        spec, n_mbs=max(spec.n_mbs or 1, k)))
+
+
+def sync_loop_trainer(conn, tcfg, nr_root: str) -> None:
+    """(n)'s trainer, in a spawned process: ``TrainerWorker(tcfg).run()``,
+    with each MFC's K1-K3 launches, prefills, wall and CUDA-event ms, tokens
+    and micro-batches recorded, and each publish timed. After ``run()``
+    returns it sends ("done", record) with the peak memory, the reward
+    verdicts, whether sympy imports and a SHA-256 of each compute-dtype
+    actor parameter; on a failure ("error", traceback)."""
+    import hashlib
+    import traceback
+
+    try:
+        import numpy as np
+
+        from areal_tpu_torch.api.data import MicroBatchSpec
+        from areal_tpu_torch.base import name_resolve
+        from areal_tpu_torch.models import generate as genmod
+        from areal_tpu_torch.ops import flash_attention as fa
+        from areal_tpu_torch.rewards import client as reward_client
+        from areal_tpu_torch.system.trainer_worker import TrainerWorker
+
+        name_resolve.reconfigure(name_resolve.NameResolveConfig(
+            type="nfs", nfs_record_root=nr_root))
+        cuda = tcfg.device is None or str(tcfg.device).startswith("cuda")
+        # the libraries phase (a) built, found by their source hash
+        prebuilt = all(fa._lib_path(n).exists() for n in fa._SOURCES)
+        prefills = [0]
+        prefill = genmod._prefill
+
+        def counted_prefill(*a, **k):
+            prefills[0] += 1
+            return prefill(*a, **k)
+
+        genmod._prefill = counted_prefill
+        records, publishes = [], []
+
+        class Timed(TrainerWorker):
+            def publish_weights(self, role):
+                t0 = time.perf_counter()
+                super().publish_weights(role)
+                publishes.append(time.perf_counter() - t0)
+
+            def _handle_mfc(self, p):
+                req = p.data
+                if req.get("method") == "noop":
+                    return super()._handle_mfc(p)
+                name = req["mfc"]
+                mc = self._mfc_cfg[name]
+                model, iface = self.models[mc.model_name], self.interfaces[name]
+                batch = self._gather_input(req["ids"], req.get("input_keys"),
+                                           req.get("input_remap"))
+                spec = p.mb_spec or MicroBatchSpec()
+                method = req.get("method", mc.method)
+                rec = {"mfc": name, "tokens": int(batch.total_lens().sum()),
+                       "micro_batches": expected_micro_batches(
+                           model, iface, batch, spec, method)}
+                fa.reset_launch_count()
+                prefills[0] = 0
+                n_pub = len(publishes)
+                if cuda:
+                    torch.cuda.synchronize()
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    ev[0].record()
+                t0 = time.perf_counter()
+                out = super()._handle_mfc(p)
+                if cuda:
+                    ev[1].record()
+                    torch.cuda.synchronize()
+                    rec["device_ms"] = ev[0].elapsed_time(ev[1])
+                rec["wall_s"] = time.perf_counter() - t0
+                rec["launches"] = fa.launch_counts()
+                rec["prefills"] = prefills[0]
+                rec["publish_s"] = sum(publishes[n_pub:])
+                if name == "actor_gen":
+                    rec["generated_tokens"] = int(sum(
+                        (np.asarray(self.store[i].data["prompt_mask"]) == 0
+                         ).sum() for i in out["meta"].ids))
+                elif name == "rew_inf":
+                    rec["rewards"] = [float(np.asarray(
+                        self.store[i].data["rewards"]).reshape(-1)[0])
+                        for i in out["meta"].ids]
+                elif method == "train_step":
+                    rec["stats"] = out["stats"]
+                records.append(rec)
+                return out
+
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        w = Timed(tcfg)
+        w.run()
+        digests = {
+            n: hashlib.sha256(t.contiguous().reshape(-1).view(torch.uint8)
+                              .cpu().numpy().tobytes()).hexdigest()
+            for n, t in w._compute_dtype_params("actor").items()}
+        try:
+            import sympy  # noqa: F401
+            has_sympy = True
+        except ImportError:
+            has_sympy = False
+        conn.send(("done", {
+            "records": records, "publish_s": publishes, "digests": digests,
+            "kernels_prebuilt": prebuilt,
+            "peak_gb": (torch.cuda.max_memory_allocated() / 2 ** 30
+                        if cuda else None),
+            "verdicts": dict(reward_client.verdict_counts),
+            "sympy": has_sympy}))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+        raise
+    finally:
+        conn.close()
+
+
+def run_sync_loop(cfg, tmp: str, device: str = "cuda", steps: int = 3,
+                  n_prompts: int = 4, group_size: int = 8,
+                  max_new_tokens: int = 256, eos: int = 151643,
+                  max_tokens_per_mb: int = 4096,
+                  timeout: float = 600.0) -> dict:
+    """(n): the README's sync-PPO recipe through the port's MasterWorker
+    (here, in a thread joined within ``timeout``) and a TrainerWorker in a
+    spawned process, over the port's request stream, for ``steps`` steps
+    (the first a warm-up) from seed-0 weights written once as an HF
+    checkpoint under ``tmp``. The checks of the module docstring; the
+    launch checks only on the card (on the CPU no kernel launches)."""
+    import hashlib
+    import multiprocessing
+
+    import numpy as np
+
+    from areal_tpu_torch.algorithms.ppo import PPOHyperparameters
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.api.model import GenerationHyperparameters
+    from areal_tpu_torch.api.train_config import ExperimentSaveEvalControl
+    from areal_tpu_torch.base import name_resolve, names
+    from areal_tpu_torch.models import hf
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.system.master_worker import (
+        MasterWorker,
+        MasterWorkerConfig,
+    )
+
+    exp, trial = "chip_smoke", "n"
+    cuda = torch.device(device).type == "cuda"
+    t_setup = time.monotonic()
+    # One HF checkpoint serves every role: the critic's seed-0 parameters,
+    # whose trunk draws the actor's seed-0 numbers and whose value head
+    # (score.weight) the next ones. The actor and the reference read the
+    # trunk and the tied LM head, the critic ("is_critic") the value head
+    # as well: a zero head would predict the zero returns of unrewarded
+    # samples exactly, and the critic would get no gradient.
+    check(cfg.tie_word_embeddings, "sync loop: one checkpoint serves actor "
+          "and critic only with tied embeddings")
+    hf_dir = os.path.join(tmp, "init_hf")
+    init = init_params(dataclasses.replace(cfg, is_critic=True), seed=0,
+                       device=device, dtype=torch.bfloat16)
+    hf.save_hf_checkpoint(init, dataclasses.replace(cfg, is_critic=True),
+                          hf_dir)
+    init = {k: v.cpu() for k, v in init.items()}
+    data_path = os.path.join(tmp, "math.jsonl")
+    n_records = 4 * n_prompts * steps
+    write_math_prompts(data_path, n_records, seed=0)
+    hp = PPOHyperparameters(
+        gen=GenerationHyperparameters(max_new_tokens=max_new_tokens),
+        kl_ctl=0.05, group_size=group_size)
+    nr_root = os.path.join(tmp, "name_resolve")
+    realloc = os.path.join(tmp, "realloc")
+    tcfg = sync_trainer_config(exp, trial, hf_dir, data_path, n_records,
+                               realloc, ByteTokenizer(eos), hp, n_prompts,
+                               device)
+    old_repo = name_resolve.DEFAULT_REPO
+    name_resolve.reconfigure(name_resolve.NameResolveConfig(
+        type="nfs", nfs_record_root=nr_root))
+    ctx = multiprocessing.get_context("spawn")
+    conn, child_conn = ctx.Pipe()
+    proc = ctx.Process(target=sync_loop_trainer, daemon=True,
+                       name="sync-trainer", args=(child_conn, tcfg, nr_root))
+    proc.start()
+    child_conn.close()
+    box: dict = {}
+    master = MasterWorker(MasterWorkerConfig(
+        experiment=exp, trial=trial, train_batch_size=n_prompts,
+        exp_ctrl=ExperimentSaveEvalControl(benchmark_steps=steps),
+        save_dir=os.path.join(tmp, "save")),
+        sync_dfg(n_prompts, group_size,
+                 MicroBatchSpec(max_tokens_per_mb=max_tokens_per_mb)))
+
+    def run_master():
+        try:
+            box["result"] = master.run()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            box["error"] = e
+
+    try:
+        t0 = time.monotonic()
+        thread = threading.Thread(target=run_master, daemon=True,
+                                  name="sync-master")
+        thread.start()
+        thread.join(timeout)
+        loop_s = time.monotonic() - t0
+        check(not thread.is_alive(), f"sync loop: the master did not finish "
+              f"within {timeout:.0f} s (trainer exit code {proc.exitcode})")
+        if "error" in box:
+            raise box["error"]
+        result = box["result"]
+        deadline = time.monotonic() + 120
+        while not conn.poll(0.5):
+            check(proc.is_alive() and time.monotonic() < deadline,
+                  f"sync loop: no record from the trainer (exit code "
+                  f"{proc.exitcode})")
+        kind, got = conn.recv()
+        check(kind == "done", f"sync loop trainer failed:\n{got}")
+        proc.join(60)
+        check(proc.exitcode == 0,
+              f"sync loop: trainer exit code {proc.exitcode}")
+        version = int(name_resolve.get(names.model_version(exp, trial,
+                                                           "actor")))
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(10)
+        conn.close()
+        name_resolve.DEFAULT_REPO = old_repo
+
+    # the loop's own stats, step by step
+    check(result["steps"] == steps, f"sync loop: {result['steps']} steps, "
+          f"expected {steps}")
+    stats = result["stats"]
+    for i, st in enumerate(stats):
+        for k in ("actor_train/actor_loss", "critic_train/critic_loss",
+                  "actor_train/grad_norm", "critic_train/grad_norm"):
+            check(k in st and math.isfinite(st[k]),
+                  f"sync loop step {i}: {k} = {st.get(k)}")
+        check(st["actor_train/n_action_tokens"] > 0,
+              f"sync loop step {i}: no action tokens")
+        check(st["actor_train/grad_norm"] > 0
+              and st["critic_train/grad_norm"] > 0,
+              f"sync loop step {i}: zero grad norm {st}")
+    check(version >= steps, f"sync loop: model_version {version} < {steps}")
+
+    # the last published checkpoint: the trainer's actor, bit for bit
+    path = os.path.join(realloc, "actor", str(version))
+    for f in ("model.safetensors", "areal_tpu_native.json"):
+        check(os.path.exists(os.path.join(path, f)),
+              f"sync loop: {path} has no {f}")
+    _, pub = hf.load_native_checkpoint(path, device="cpu")
+    digests = {n: hashlib.sha256(t.contiguous().reshape(-1).view(torch.uint8)
+                                 .numpy().tobytes()).hexdigest()
+               for n, t in pub.items()}
+    check(digests == got["digests"], "sync loop: the published checkpoint "
+          "differs from the trainer's actor")
+    changed = sum(int((pub[n] != init[n].to(pub[n].dtype)).sum()) for n in pub)
+    numel = sum(t.numel() for t in pub.values())
+    check(changed > 0, "sync loop: the published actor equals the initial "
+          "weights")
+
+    recs = got["records"]
+    # every step runs each MFC once, actor_gen first (the three inferences
+    # and the two train steps reach the trainer in the order they became
+    # ready)
+    order = [r["mfc"] for r in recs]
+    n = len(SYNC_MFCS)
+    check(len(order) == n * steps and all(
+        order[i] == "actor_gen" and sorted(order[i:i + n]) == sorted(SYNC_MFCS)
+        for i in range(0, len(order), n)), f"sync loop: MFC order {order}")
+    if cuda:
+        check(got["kernels_prebuilt"], "sync loop: the trainer process did "
+              "not find the kernels phase (a) built")
+        for r in recs:
+            # actor_gen: one K1 pass per prefill; rew_inf: none
+            if r["mfc"] == "actor_gen":
+                check(r["prefills"] >= 1, "sync loop: actor_gen ran no "
+                      "prefill")
+                passes = r["prefills"]
+            else:
+                passes = r["micro_batches"] or 0
+            check_launches(f"sync loop {r['mfc']}", r["launches"], passes,
+                           cfg.n_layers, train=r["mfc"].endswith("_train"))
+
+    timed = recs[n:]
+    per_mfc = {}
+    for name in SYNC_MFCS:
+        rs = [r for r in timed if r["mfc"] == name]
+        per_mfc[name] = {
+            "ms": 1e3 * np.mean([st[f"timeperf/{name}"]
+                                 for st in stats[1:]]),
+            "trainer_wall_ms": 1e3 * np.mean([r["wall_s"] for r in rs]),
+            "device_ms": (float(np.mean([r["device_ms"] for r in rs]))
+                          if cuda else None),
+            "micro_batches": rs[-1]["micro_batches"],
+            "launches": rs[-1]["launches"],
+        }
+    gen = [r for r in timed if r["mfc"] == "actor_gen"]
+    train_tokens = [r["tokens"] for r in timed if r["mfc"] == "actor_train"]
+    step_s = [st["timeperf/e2e"] for st in stats[1:]]
+    rewards = [x for r in recs if r["mfc"] == "rew_inf" for x in r["rewards"]]
+    return {
+        "steps": result["steps"], "timed_steps": len(step_s),
+        "ms_per_step": 1e3 * float(np.mean(step_s)),
+        "warmup_step_ms": 1e3 * stats[0]["timeperf/e2e"],
+        "per_mfc": per_mfc,
+        "generated_tokens_per_s": float(
+            sum(r["generated_tokens"] for r in gen)
+            / sum(r["wall_s"] for r in gen)),
+        "generated_tokens_per_step": gen[-1]["generated_tokens"],
+        "trained_tokens_per_s": float(np.mean(train_tokens)
+                                      / np.mean(step_s)),
+        "trained_tokens_per_step": train_tokens[-1],
+        "publish_s": got["publish_s"],
+        "trainer_peak_gb": got["peak_gb"],
+        "mfu": [st.get("timeperf/mfu") for st in stats],
+        "reward_mean": float(np.mean(rewards)),
+        "reward_verdicts": got["verdicts"],
+        "sympy_imports": got["sympy"],
+        "model_version": version,
+        "published_changed_fraction": changed / numel,
+        "actor": [{k: st[f"actor_train/{k}"] for k in (
+            "actor_loss", "grad_norm", "n_action_tokens")} for st in stats],
+        "critic": [{k: st[f"critic_train/{k}"] for k in (
+            "critic_loss", "grad_norm")} for st in stats],
+        "launches_total": {k: sum(r["launches"][k] for r in recs)
+                           for k in KERNEL_NAMES},
+        "loop_s": loop_s, "setup_s": t0 - t_setup,
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
+    try:
+        import areal_tpu_torch  # noqa: F401
+    except ImportError as e:
+        sys.exit(f"chip_smoke: the areal_tpu_torch package is not beside "
+                 f"this script ({e}); run it from the repository's root")
     from areal_tpu_torch.api.data import MicroBatchSpec
     from areal_tpu_torch.models.config import qwen2_5_0_5b
     from areal_tpu_torch.models import generate as genmod
@@ -1687,6 +2215,7 @@ def main() -> None:
 
     # (l) one SFT step
     sft = run_sft(tr, cfg, tbatch, spec)
+    trainer_launches = dict(tr.launches)
     print("trainer path", json.dumps({
         "launches": tr.launches, "checkpoints": ckpt, "sft_ms": sft["ms"],
         "phases_j_to_l_s": time.monotonic() - t_trainer,
@@ -1703,6 +2232,20 @@ def main() -> None:
     print("weight sync", json.dumps({
         **wsync, "phase_m_s": time.monotonic() - t_sync,
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+    del tr  # (n)'s trainer process builds its own engines
+    torch.cuda.empty_cache()
+
+    # (n) the sync-PPO loop: a master here, a trainer in a spawned process
+    t_loop = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    try:
+        loop = run_sync_loop(cfg, tmp, eos=eos)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("sync loop", json.dumps({
+        **loop, "phase_n_s": time.monotonic() - t_loop,
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+    loop_launches = loop["launches_total"]
 
     lib_line = ("areal_tpu/ops/pallas/flash_attention.py:200 backward: the "
                 "Pallas TPU library's {} :{} (pallas_call :{})")
@@ -1712,11 +2255,13 @@ def main() -> None:
         "source": "areal_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "areal_tpu/ops/pallas/flash_attention.py:200",
         "launches": serve_launches + train_launches["flash_attention_fwd"]
-        + tr.launches["flash_attention_fwd"] + wsync["k1_launches"],
+        + trainer_launches["flash_attention_fwd"] + wsync["k1_launches"]
+        + loop_launches["flash_attention_fwd"],
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_attention_fwd"],
-                             "trainer": tr.launches["flash_attention_fwd"],
-                             "weight_sync": wsync["k1_launches"]},
+                             "trainer": trainer_launches["flash_attention_fwd"],
+                             "weight_sync": wsync["k1_launches"],
+                             "sync_loop": loop_launches["flash_attention_fwd"]},
         "max_abs_err": k1_train_check["max_abs_err"],
         "ms": timing_train["kernel_ms"], "kernel_ms": timing_train["kernel_ms"],
         "plain_ms": timing_train["plain_ms"],
@@ -1735,9 +2280,11 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": "areal_tpu_torch/ops/csrc/flash_attention_bwd.cu",
             "replaces": lib_line.format(fn, line, call),
-            "launches": train_launches[name] + tr.launches[name],
+            "launches": train_launches[name] + trainer_launches[name]
+            + loop_launches[name],
             "launches_by_path": {"train": train_launches[name],
-                                 "trainer": tr.launches[name]},
+                                 "trainer": trainer_launches[name],
+                                 "sync_loop": loop_launches[name]},
             "max_abs_err": err,
             "ms": rec["kernel_ms"], "kernel_ms": rec["kernel_ms"],
             "plain_ms": bwd_timing["plain_bwd_ms"],

@@ -1,8 +1,8 @@
 """The port stands alone: every module of areal_tpu_torch imports with ``jax``,
-``safetensors``, ``transformers``, ``zmq`` and ``aiohttp`` blocked (the
-machine with the card has none of them), and no file of the package (nor
-chip_smoke.py) names ``jax`` or a module of the reference package, nor
-imports one of the others."""
+``safetensors``, ``transformers``, ``zmq``, ``aiohttp`` and ``msgpack``
+blocked (the machine with the card is not known to have any of them), and
+no file of the package (nor chip_smoke.py) names ``jax`` or a module of the
+reference package, nor imports one of the others."""
 
 import os
 import re
@@ -20,7 +20,8 @@ PKG = ROOT / "areal_tpu_torch"
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
-BLOCKED = ("jax", "safetensors", "transformers", "zmq", "aiohttp")
+BLOCKED = ("jax", "safetensors", "transformers", "zmq", "aiohttp",
+           "msgpack")
 for blocked in BLOCKED:
     sys.modules[blocked] = None  # any import of it now raises ImportError
 import areal_tpu_torch
@@ -36,13 +37,13 @@ print(len(names))
 
 
 def test_every_module_imports_with_jax_blocked():
-    """(``safetensors``, ``transformers``, ``zmq`` and ``aiohttp`` are
-    blocked as well.)"""
+    """(``safetensors``, ``transformers``, ``zmq``, ``aiohttp`` and
+    ``msgpack`` are blocked as well.)"""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 35  # every module was walked
+    assert int(res.stdout.strip()) >= 54  # every module was walked
 
 
 def test_no_file_names_jax_or_the_reference_package():
@@ -50,7 +51,7 @@ def test_no_file_names_jax_or_the_reference_package():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
     bad = re.compile(r"\bjax\b|\bareal_tpu\."
-                     r"|\b(import|from) (safetensors|transformers|zmq|aiohttp)\b")
+                     r"|\b(import|from) (safetensors|transformers|zmq|aiohttp|msgpack)\b")
     for path in files:
         for i, line in enumerate(path.read_text().splitlines(), 1):
             assert not bad.search(line), f"{path.relative_to(ROOT)}:{i}: {line}"
@@ -75,6 +76,10 @@ def test_entry_points_need_a_device():
     from areal_tpu_torch.models.convert import params_from_jax
     from areal_tpu_torch.models.hf import load_hf_checkpoint
     from areal_tpu_torch.models.transformer import init_kv_cache, init_params
+    from areal_tpu_torch.system.trainer_worker import (
+        TrainerWorker,
+        TrainerWorkerConfig,
+    )
 
     cfg = tiny_config()
     assert init_params(cfg, seed=0, device="cpu")["final_ln.weight"].is_cpu
@@ -87,6 +92,7 @@ def test_entry_points_need_a_device():
                  lambda: params_from_jax(flat, cfg),
                  lambda: make_backend("torch_inference").initialize(
                      Model("ref", (cfg, params)), FinetuneSpec()),
-                 lambda: load_hf_checkpoint("no/such/dir")):
+                 lambda: load_hf_checkpoint("no/such/dir"),
+                 lambda: TrainerWorker(TrainerWorkerConfig()).setup()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

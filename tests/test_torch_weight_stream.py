@@ -382,8 +382,8 @@ def test_publish_serves_pre_step_bytes_after_an_optimizer_step(port_nr,
     before = {k: v.detach().clone() for k, v in eng.params.items()}
     w = TrainerWorker(TrainerWorkerConfig(
         experiment=EXP, trial=TRIAL, realloc_dir=str(tmp_path / "never"),
-        weight_sync=WeightSyncConfig(transport="stream", chunk_mb=1)),
-        models={"actor": model})
+        weight_sync=WeightSyncConfig(transport="stream", chunk_mb=1)))
+    w.models["actor"] = model  # setup()-free: the publish half only
     try:
         owned = w._compute_dtype_params("actor")
         assert all(owned[k].data_ptr() != p.data_ptr()

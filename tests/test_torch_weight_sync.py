@@ -366,8 +366,8 @@ def test_trainer_stream_publish_end_to_end(port_nr, tmp_path):
     realloc = tmp_path / "never"
     w = TrainerWorker(TrainerWorkerConfig(
         experiment=EXP, trial=TRIAL, realloc_dir=str(realloc),
-        weight_sync=WeightSyncConfig(transport="stream")),
-        models={"actor": model})
+        weight_sync=WeightSyncConfig(transport="stream")))
+    w.models["actor"] = model  # setup()-free: the publish half only
     server, url = _server()
     try:
         t0 = time.time()
@@ -412,8 +412,8 @@ def test_trainer_disk_publish_end_to_end(port_nr, tmp_path):
                      "tcp://127.0.0.1:1")
     w = TrainerWorker(TrainerWorkerConfig(
         experiment=EXP, trial=TRIAL, realloc_dir=str(tmp_path / "realloc"),
-        weight_sync=WeightSyncConfig(transport="disk")),
-        models={"actor": model})
+        weight_sync=WeightSyncConfig(transport="disk")))
+    w.models["actor"] = model  # setup()-free: the publish half only
     server, url = _server()
     try:
         w.publish_weights("actor")
