@@ -1,0 +1,315 @@
+"""Experiment configuration tree and the command line's dotted overrides.
+
+The port's copy of what its experiments read from ``areal_tpu/api/
+cli_args.py``: the dataclasses of the PPO experiments (field names as the
+reference's, so launch commands carry over), :func:`apply_overrides` with
+``_coerce`` (``a.b.c=value`` onto nested dataclasses, typed by the field's
+annotation; an unknown key raises :class:`ConfigError` with the closest
+names), :func:`print_config_help` and the parts of
+:func:`validate_config` that check ported fields.
+
+Differences: ``backend`` is ``cuda`` (default) or ``cpu``, the device every
+worker runs on; ``n_gpus_per_node`` defaults to 1, the port's one card; a
+model role's ``backend`` defaults to ``torch_train``. Left out with the
+pieces that read them: telemetry, goodput, sentinel, compile_watch,
+serving, fault_tolerance, autoscale, durability, reward_service,
+auto_eval, multi-process trainers, and the YAML dump and load (``yaml`` is
+not known on the card's machine).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import difflib
+import json
+import os
+import tempfile
+import typing
+from typing import Any, Dict, List, Optional
+
+from areal_tpu_torch.api.data import MicroBatchSpec
+from areal_tpu_torch.api.train_config import (
+    ExperimentSaveEvalControl,
+    OptimizerConfig,
+    WeightSyncConfig,
+)
+from areal_tpu_torch.base.name_resolve import NameResolveConfig
+
+
+@dataclasses.dataclass
+class ModelFamily:
+    """Reference cli_args.py:99. ``_class`` names the HF family."""
+
+    _class: str = "qwen3"
+    is_critic: bool = False
+
+
+@dataclasses.dataclass
+class ModelTrainEvalConfig:
+    """One model role (reference cli_args.py:433)."""
+
+    type: ModelFamily = dataclasses.field(default_factory=ModelFamily)
+    path: str = ""  # an HF model directory
+    init_from_scratch: bool = False
+    gradient_checkpointing: bool = True
+    bf16: bool = True
+    optimizer: OptimizerConfig = dataclasses.field(
+        default_factory=OptimizerConfig)
+    backend: str = "torch_train"
+    # A fabricated tiny model for CPU tests: e.g. actor.tiny.vocab_size=258.
+    tiny: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class MFCConfig:
+    """Per-MFC runtime knobs (reference cli_args.py:496)."""
+
+    mb_spec: MicroBatchSpec = dataclasses.field(default_factory=MicroBatchSpec)
+
+
+@dataclasses.dataclass
+class PromptOnlyDatasetConfig:
+    """Reference cli_args.py:44."""
+
+    path: str = ""
+    max_prompt_len: int = 1024
+    train_bs_n_seqs: int = 256
+
+
+@dataclasses.dataclass
+class ClusterSpecConfig:
+    """Reference cli_args.py:896."""
+
+    fileroot: str = dataclasses.field(default_factory=lambda: os.path.join(
+        tempfile.gettempdir(), "areal_tpu", "experiments"))
+    name_resolve: NameResolveConfig = dataclasses.field(
+        default_factory=NameResolveConfig)
+
+
+@dataclasses.dataclass
+class WandBConfig:
+    mode: str = "disabled"
+
+
+@dataclasses.dataclass
+class TensorBoardConfig:
+    path: Optional[str] = None
+
+
+@dataclasses.dataclass
+class BaseExperimentConfig:
+    """Reference cli_args.py:944 (BaseExperimentConfig), what the port
+    reads. ``mode`` is ``local`` (every worker on this host)."""
+
+    experiment_name: str = "areal-tpu"
+    trial_name: str = ""
+    mode: str = "local"
+    backend: str = "cuda"  # cuda | cpu: the device of every worker
+    recover_mode: str = "disabled"  # disabled | resume
+    allocation_mode: str = ""
+    n_nodes: int = 1
+    n_gpus_per_node: int = 1
+    seed: int = 1
+    cluster: ClusterSpecConfig = dataclasses.field(
+        default_factory=ClusterSpecConfig)
+    exp_ctrl: ExperimentSaveEvalControl = dataclasses.field(
+        default_factory=ExperimentSaveEvalControl)
+    wandb: WandBConfig = dataclasses.field(default_factory=WandBConfig)
+    tensorboard: TensorBoardConfig = dataclasses.field(
+        default_factory=TensorBoardConfig)
+    # Trainer -> generation-fleet weight transport: stream | disk.
+    weight_sync: WeightSyncConfig = dataclasses.field(
+        default_factory=WeightSyncConfig)
+    # Test and bring-up runs: the byte-level mock tokenizer.
+    mock_tokenizer: bool = False
+
+    def resolve_trial_name(self) -> str:
+        if not self.trial_name:
+            import datetime
+
+            self.trial_name = ("run" + datetime.datetime.now().strftime(
+                "%Y%m%d-%H%M%S"))
+        return self.trial_name
+
+
+# ---------------- dotted overrides ----------------
+
+
+def _field_map(obj) -> Dict[str, dataclasses.Field]:
+    return {f.name: f for f in dataclasses.fields(obj)}
+
+
+_HINT_CACHE: Dict[type, Dict[str, Any]] = {}
+
+
+def _field_type(obj, name: str):
+    """The resolved annotation of a field (``from __future__ import
+    annotations`` stores strings)."""
+    cls = type(obj)
+    if cls not in _HINT_CACHE:
+        try:
+            _HINT_CACHE[cls] = typing.get_type_hints(cls)
+        except Exception:  # noqa: BLE001 — unresolvable: per-field fallback
+            _HINT_CACHE[cls] = {}
+    return _HINT_CACHE[cls].get(name, _field_map(obj)[name].type)
+
+
+def _strip_optional(tp):
+    if typing.get_origin(tp) is typing.Union:
+        args = [a for a in typing.get_args(tp) if a is not type(None)]
+        if len(args) == 1:
+            return args[0]
+    return tp
+
+
+def _coerce(value: str, tp) -> Any:
+    """Parse a command-line string into the annotated field type."""
+    tp = _strip_optional(tp)
+    if value.lower() in ("null", "none"):
+        return None
+    if tp is bool or tp == "bool":
+        if value.lower() in ("1", "true", "yes", "on"):
+            return True
+        if value.lower() in ("0", "false", "no", "off"):
+            return False
+        raise ValueError(f"cannot parse bool from {value!r}")
+    if tp is int or tp == "int":
+        return int(value)
+    if tp is float or tp == "float":
+        return float(value)
+    if tp is str or tp == "str":
+        return value
+    origin = typing.get_origin(tp)
+    if origin in (list, List):
+        (etp,) = typing.get_args(tp) or (str,)
+        if not value:
+            return []
+        return [_coerce(v.strip(), etp) for v in value.split(",")]
+    if origin in (dict, Dict):
+        return json.loads(value)
+    if tp is Any:
+        try:
+            return json.loads(value)
+        except (ValueError, TypeError):
+            return value
+    raise ValueError(f"don't know how to parse {value!r} as {tp}")
+
+
+class ConfigError(ValueError):
+    pass
+
+
+def _safe_set(obj, key: str, val):
+    """setattr that tolerates frozen dataclasses; returns the object holding
+    the assignment."""
+    try:
+        setattr(obj, key, val)
+        return obj
+    except dataclasses.FrozenInstanceError:
+        return dataclasses.replace(obj, **{key: val})
+
+
+def _unknown_key_msg(obj, key: str, path: str) -> str:
+    names = [f.name for f in dataclasses.fields(obj)]
+    close = difflib.get_close_matches(key, names, n=3)
+    hint = f" (did you mean: {', '.join(close)}?)" if close else ""
+    return (f"unknown config key '{path}' on {type(obj).__name__}{hint}; "
+            f"valid keys: {', '.join(sorted(names))}")
+
+
+def _assign(obj, parts: List[str], value: str, path: str):
+    fm = _field_map(obj)
+    key = parts[0]
+    if key not in fm:
+        raise ConfigError(_unknown_key_msg(obj, key, path))
+    if len(parts) == 1:
+        return _safe_set(obj, key, _coerce(value, _field_type(obj, key)))
+    child = getattr(obj, key)
+    if dataclasses.is_dataclass(child):
+        return _safe_set(obj, key, _assign(child, parts[1:], value, path))
+    if isinstance(child, dict):
+        # a dict leaf: the rest of the path is one key, the value JSON
+        child[".".join(parts[1:])] = _coerce(value, Any)
+        return obj
+    raise ConfigError(f"'{key}' is a leaf; cannot descend into '{path}'")
+
+
+def apply_overrides(cfg, overrides: List[str]):
+    """Apply ``a.b.c=value`` assignments in order. Mutates and returns
+    ``cfg``."""
+    for ov in overrides:
+        if "=" not in ov:
+            raise ConfigError(f"override {ov!r} is not of the form key=value")
+        key, _, value = ov.partition("=")
+        path = key.strip()
+        if _assign(cfg, path.split("."), value.strip(), path) is not cfg:
+            raise ConfigError(f"top-level config {type(cfg).__name__} must "
+                              "not be frozen")
+    return cfg
+
+
+VALID_MODES = ("local",)
+VALID_BACKENDS = ("cuda", "cpu")
+
+# MFC names the PPO experiment graph schedules (experiments/ppo_math_exp.py).
+KNOWN_MFCS = ("actor_train", "actor_gen", "actor_inf", "critic_train",
+              "critic_inf", "ref_inf", "rew_inf")
+
+
+def validate_config(cfg) -> None:
+    """Checks at parse time, called after the overrides (training/_cli.py)
+    and again by the launcher."""
+    mode = getattr(cfg, "mode", "local")
+    if mode not in VALID_MODES:
+        raise ConfigError(f"mode={mode!r} is not supported by the port: "
+                          f"valid modes are {', '.join(VALID_MODES)}")
+    backend = getattr(cfg, "backend", "cuda")
+    if backend not in VALID_BACKENDS:
+        raise ConfigError(f"backend={backend!r}: valid backends are "
+                          f"{', '.join(VALID_BACKENDS)}")
+    recover = getattr(cfg, "recover_mode", "disabled")
+    if recover not in ("disabled", "resume"):
+        raise ConfigError(f"recover_mode={recover!r}: the port resumes "
+                          "(resume) or starts fresh (disabled); relaunching "
+                          "on a worker's death needs the supervisor, which "
+                          "is not ported")
+    alloc_str = getattr(cfg, "allocation_mode", "") or ""
+    if alloc_str:
+        from areal_tpu_torch.parallel.mesh import AllocationMode
+
+        try:
+            alloc = AllocationMode.parse(alloc_str)
+        except ValueError as e:
+            raise ConfigError(
+                f"invalid allocation_mode {alloc_str!r}: {e}") from None
+        n_devices = (getattr(cfg, "n_nodes", 1)
+                     * getattr(cfg, "n_gpus_per_node", 1))
+        for mfc, spec in sorted(alloc.per_mfc.items()):
+            if mfc not in KNOWN_MFCS:
+                raise ConfigError(
+                    f"allocation_mode names unknown MFC '{mfc}': known MFCs "
+                    f"are {', '.join(KNOWN_MFCS)}")
+        specs = [("global", alloc.global_spec), ("generation", alloc.gen_spec)]
+        specs += [(f"MFC '{m}'", s) for m, s in sorted(alloc.per_mfc.items())]
+        for label, spec in specs:
+            if spec is not None and spec.world_size > n_devices:
+                raise ConfigError(
+                    f"allocation_mode {label} spec '{spec}' needs "
+                    f"{spec.world_size} devices but the experiment has "
+                    f"n_nodes×n_gpus_per_node = {n_devices}")
+    nr = getattr(getattr(cfg, "cluster", None), "name_resolve", None)
+    if nr is not None and getattr(nr, "type", "nfs") not in ("nfs", "memory"):
+        raise ConfigError(f"cluster.name_resolve.type={nr.type!r}: use nfs "
+                          "(the default) or memory")
+
+
+def print_config_help(cfg, _indent: int = 0) -> None:
+    """The recursive ``--help`` printer (reference cli_args.py:1421)."""
+    pad = "  " * _indent
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if dataclasses.is_dataclass(v):
+            print(f"{pad}{f.name}:  ({type(v).__name__})")
+            print_config_help(v, _indent + 1)
+        else:
+            print(f"{pad}{f.name} = {v!r}")

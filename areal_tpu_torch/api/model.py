@@ -9,9 +9,10 @@ The port's own copy of the engine contracts of ``areal_tpu/api/model.py``:
  - ``ModelBackend`` wraps a model into a ``TrainableEngine``;
  - ``ModelInterface`` is the algorithm operating on an engine and a
    ``SequenceSample``.
-Plus the backend, interface and dataset registries (``:162-197``), so
-experiments build engines, interfaces and datasets by name; the model,
-agent and env registries wait for later slices.
+Plus the backend, interface, dataset, agent and env registries
+(``:162-213``), so experiments build engines, interfaces, datasets, rollout
+agents and reward environments by name; the model registry waits for a
+later slice.
 """
 
 from __future__ import annotations
@@ -183,3 +184,23 @@ def register_dataset(name: str, cls: Callable) -> None:
 
 def make_dataset(name: str, *args, **kwargs):
     return _make(_DATASET_REGISTRY, "dataset", name, *args, **kwargs)
+
+
+_AGENT_REGISTRY: Dict[str, Callable] = {}
+_ENV_REGISTRY: Dict[str, Callable] = {}
+
+
+def register_agent(name: str, cls: Callable) -> None:
+    _AGENT_REGISTRY[name] = cls
+
+
+def make_agent(name: str, *args, **kwargs):
+    return _make(_AGENT_REGISTRY, "agent", name, *args, **kwargs)
+
+
+def register_env(name: str, cls: Callable) -> None:
+    _ENV_REGISTRY[name] = cls
+
+
+def make_env(name: str, *args, **kwargs):
+    return _make(_ENV_REGISTRY, "env", name, *args, **kwargs)

@@ -41,13 +41,14 @@ class WeightSyncConfig:
     TCP (``system/weight_stream.py``); ``disk`` writes a native checkpoint
     under the trainer's ``realloc_dir``. The reference's ``device``
     transport (an on-device reshard) is not ported: asking for it raises,
-    and no other transport stands in for it. The consumer's window of
-    in-flight chunk requests is the generation server's own setting
-    (``GenerationServerConfig.weight_stream_pipeline_depth``)."""
+    and no other transport stands in for it."""
 
     transport: str = "stream"  # stream | disk
     # Wire chunk size (MB) of the streamed transport.
     chunk_mb: int = 32
+    # The servers' window of in-flight chunk requests (the experiments
+    # thread it into GenerationServerConfig.weight_stream_pipeline_depth).
+    pipeline_depth: int = 4
 
     def __post_init__(self):
         if self.transport == "device":

@@ -238,10 +238,18 @@ class NfsNameRecordRepo(NameRecordRepository):
         path = self._path(name)
         if os.path.exists(path) and not (replace or self._lease_expired(path)):
             raise NameEntryExistsError(name)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = path + f".tmp{os.getpid()}"
-        with open(tmp, "w") as f:
-            f.write(str(value))
+        # Unique per writer: two threads of one process may add one key.
+        tmp = path + f".tmp{os.getpid()}.{threading.get_ident()}"
+        for attempt in range(64):
+            try:
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                with open(tmp, "w") as f:
+                    f.write(str(value))
+                break
+            except (FileNotFoundError, FileExistsError):
+                # A concurrent delete pruned a directory as it was made.
+                if attempt == 63:
+                    raise
         # ENTRY first, TTL sidecar second. The other order opens a purge
         # race: a concurrent reader sees the NEW ttl against the STALE
         # entry's old mtime, judges the lease expired, and deletes the
@@ -253,9 +261,10 @@ class NfsNameRecordRepo(NameRecordRepository):
         os.replace(tmp, path)
         ttl_path = self._ttl_path(path)
         if keepalive_ttl:
-            with open(ttl_path + f".tmp{os.getpid()}", "w") as f:
+            ttl_tmp = ttl_path + f".tmp{os.getpid()}.{threading.get_ident()}"
+            with open(ttl_tmp, "w") as f:
                 f.write(repr(float(keepalive_ttl)))
-            os.replace(ttl_path + f".tmp{os.getpid()}", ttl_path)
+            os.replace(ttl_tmp, ttl_path)
         elif os.path.exists(ttl_path):
             # Re-registration WITHOUT a lease must not inherit the dead
             # predecessor's TTL and expire out from under the new owner.
@@ -285,19 +294,24 @@ class NfsNameRecordRepo(NameRecordRepository):
 
     def delete(self, name):
         path = self._path(name)
-        if not os.path.exists(path):
-            raise NameEntryNotFoundError(name)
-        os.remove(path)
-        ttl_path = self._ttl_path(path)
-        if os.path.exists(ttl_path):
-            try:
-                os.remove(ttl_path)
-            except OSError:
-                pass
-        # Prune empty dirs up to root.
+        try:
+            os.remove(path)
+        except FileNotFoundError:
+            # Absent, or another process's delete won the race.
+            raise NameEntryNotFoundError(name) from None
+        try:
+            os.remove(self._ttl_path(path))
+        except OSError:
+            pass
+        # Prune empty dirs up to root. A concurrent delete may have pruned
+        # one already, and a concurrent add may have just refilled one:
+        # either ends the pruning, never the delete.
         d = os.path.dirname(path)
-        while d != self._root and not os.listdir(d):
-            os.rmdir(d)
+        while d != self._root:
+            try:
+                os.rmdir(d)
+            except OSError:
+                break
             d = os.path.dirname(d)
 
     def clear_subtree(self, root):

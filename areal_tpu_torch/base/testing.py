@@ -1,7 +1,8 @@
 """Test fixtures: a mock tokenizer and fabricated datasets.
 
 The port's own copies from ``areal_tpu/base/testing.py``: ``MockTokenizer``
-and the jsonl makers (``:18-135``), and ``bench_trajectory_dist`` (``:137``),
+(and ``ByteTokenizer``, its decode for any vocabulary) and the jsonl makers
+(``:18-135``), and ``bench_trajectory_dist`` (``:137``),
 the PPO trajectory length distribution that ``bench.py`` trains on and that
 ``chip_smoke.py`` rebuilds without the JAX package.
 """
@@ -38,6 +39,20 @@ class MockTokenizer:
         if isinstance(texts, str):
             texts = [texts]
         return {"input_ids": [self.encode(t) for t in texts]}
+
+
+class ByteTokenizer(MockTokenizer):
+    """``MockTokenizer`` whose ``decode`` maps any id to a byte (id - 2 mod
+    256; pad and eos dropped), so that what a model with a larger
+    vocabulary samples decodes too (``MockTokenizer``, as the reference's,
+    raises past id 257); on ids below 258 the two agree. The experiments'
+    tokenizer under ``mock_tokenizer=true``."""
+
+    def decode(self, ids) -> str:
+        return bytes(
+            (int(i) - 2) % 256 for i in ids
+            if int(i) not in (PAD_TOKEN, EOS_TOKEN)
+        ).decode(errors="replace")
 
 
 def make_math_jsonl(path: str, n: int = 32, seed: int = 0) -> List[dict]:

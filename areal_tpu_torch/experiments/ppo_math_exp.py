@@ -1,0 +1,268 @@
+"""Sync PPO (math/code) experiment definition.
+
+The port of ``areal_tpu/experiments/ppo_math_exp.py`` (reference
+``realhf/experiments/common/ppo_math_exp.py:30``): the PPO DFG
+
+    actor_gen -> {rew_inf, ref_inf, actor_inf, critic_inf}
+              -> {actor_train, critic_train}
+
+pruned as the reference prunes it (``ppo.disable_value`` drops the critic,
+``ppo.kl_ctl == 0`` the reference model, ``recompute_logprob`` or
+``use_decoupled_loss`` adds actor_inf; ``ref_ema_eta`` adds the EMA hook),
+and the trainer's and the master's configs. In async mode generation
+leaves the graph: the trainer's stream dataset yields trajectories with
+their rewards.
+
+Differences: the critic role always gets a value head
+(``experiments/common.py``); the fused reward + reference node
+(``fuse_rew_ref``, ``algorithms/fused.py``) and the reward-service fleet
+are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Dict, List, Optional
+
+from areal_tpu_torch.algorithms.ppo import PPOHyperparameters
+from areal_tpu_torch.api.cli_args import (
+    BaseExperimentConfig,
+    MFCConfig,
+    ModelTrainEvalConfig,
+    PromptOnlyDatasetConfig,
+)
+from areal_tpu_torch.api.dfg import (
+    DataFlowGraph,
+    MFCDef,
+    MFCInterfaceType,
+    ModelInterfaceAbstraction,
+    ParamReallocHook,
+    WeightUpdateHook,
+    build_graph,
+)
+from areal_tpu_torch.api.model import FinetuneSpec
+from areal_tpu_torch.base import logging
+from areal_tpu_torch.experiments import common as C
+from areal_tpu_torch.experiments import register_experiment
+
+logger = logging.getLogger("experiments.ppo_math")
+
+# The keys the generate MFC produces (the trajectory contract).
+TRAJ_KEYS = (
+    "packed_input_ids", "prompt_mask", "packed_logprobs",
+    "seq_no_eos_mask", "task_ids", "version_start", "version_end",
+)
+
+
+@dataclasses.dataclass
+class PPOMATHConfig(BaseExperimentConfig):
+    """The reference's command-line surface, so run scripts carry over."""
+
+    actor: ModelTrainEvalConfig = dataclasses.field(
+        default_factory=ModelTrainEvalConfig)
+    ref: ModelTrainEvalConfig = dataclasses.field(
+        default_factory=ModelTrainEvalConfig)
+    critic: ModelTrainEvalConfig = dataclasses.field(
+        default_factory=ModelTrainEvalConfig)
+
+    actor_train: MFCConfig = dataclasses.field(default_factory=MFCConfig)
+    actor_gen: MFCConfig = dataclasses.field(default_factory=MFCConfig)
+    actor_inf: MFCConfig = dataclasses.field(default_factory=MFCConfig)
+    critic_train: MFCConfig = dataclasses.field(default_factory=MFCConfig)
+    critic_inf: MFCConfig = dataclasses.field(default_factory=MFCConfig)
+    rew_inf: MFCConfig = dataclasses.field(default_factory=MFCConfig)
+    ref_inf: MFCConfig = dataclasses.field(default_factory=MFCConfig)
+
+    dataset: PromptOnlyDatasetConfig = dataclasses.field(
+        default_factory=PromptOnlyDatasetConfig)
+    ppo: PPOHyperparameters = dataclasses.field(
+        default_factory=PPOHyperparameters)
+    group_size: int = 1
+    ref_ema_eta: Optional[float] = None  # ref := eta*actor + (1-eta)*ref
+
+    @property
+    def _use_critic(self) -> bool:
+        return not self.ppo.disable_value
+
+    @property
+    def _use_ref(self) -> bool:
+        return self.ppo.kl_ctl != 0.0
+
+    @property
+    def _use_actor_inf(self) -> bool:
+        return self.ppo.recompute_logprob or self.ppo.use_decoupled_loss
+
+    def _hp(self) -> PPOHyperparameters:
+        hp = dataclasses.replace(self.ppo)
+        hp.group_size = self.group_size
+        return hp
+
+    def build_dfg(self, n_prompts: int,
+                  async_mode: bool = False) -> DataFlowGraph:
+        """``n_prompts`` = train_bs_n_seqs; the nodes after generation see
+        n_prompts * group_size trajectories."""
+        n_traj = n_prompts * self.group_size
+        mfcs: List[MFCDef] = []
+
+        def node(name, role, kind, impl, inputs, outputs=(), n_seqs=n_traj,
+                 **kw):
+            mfcs.append(MFCDef(
+                name=name, model_name=role, interface_type=kind,
+                interface_impl=ModelInterfaceAbstraction(impl),
+                input_keys=tuple(inputs), output_keys=tuple(outputs),
+                n_seqs=n_seqs, mb_spec=getattr(self, name).mb_spec, **kw))
+
+        if not async_mode:
+            node("actor_gen", "actor", MFCInterfaceType.GENERATE,
+                 "ppo_actor", ("packed_prompts", "task_ids"), TRAJ_KEYS,
+                 n_seqs=n_prompts)
+            node("rew_inf", "rew", MFCInterfaceType.INFERENCE,
+                 "rw_math_code", ("packed_input_ids", "prompt_mask"),
+                 ("rewards",))
+        if self._use_ref:
+            node("ref_inf", "ref", MFCInterfaceType.INFERENCE, "ref_logprob",
+                 ("packed_input_ids",), ("packed_ref_logprobs",))
+        if self._use_actor_inf:
+            node("actor_inf", "actor", MFCInterfaceType.INFERENCE,
+                 "ppo_actor", ("packed_input_ids",), ("prox_logprobs",))
+        if self._use_critic:
+            node("critic_inf", "critic", MFCInterfaceType.INFERENCE,
+                 "ppo_critic", ("packed_input_ids",), ("values",))
+        train_inputs = ["packed_input_ids", "prompt_mask", "packed_logprobs",
+                        "rewards", "seq_no_eos_mask"]
+        if self._use_ref:
+            train_inputs.append("packed_ref_logprobs")
+        if self._use_actor_inf:
+            train_inputs.append("prox_logprobs")
+        if self._use_critic:
+            train_inputs.append("values")
+        actor_post = [WeightUpdateHook(role="actor")]
+        if self.ref_ema_eta is not None:
+            actor_post.append(ParamReallocHook(
+                source="actor", target="ref", eta=self.ref_ema_eta))
+        node("actor_train", "actor", MFCInterfaceType.TRAIN_STEP, "ppo_actor",
+             train_inputs, post_hooks=actor_post)
+        if self._use_critic:
+            node("critic_train", "critic", MFCInterfaceType.TRAIN_STEP,
+                 "ppo_critic",
+                 [k for k in train_inputs if k != "prox_logprobs"])
+        return build_graph(mfcs)
+
+    def _dataset_size(self) -> int:
+        """The dataset's line count, for epochs and the LR schedule."""
+        try:
+            with open(self.dataset.path, "rb") as f:
+                return max(1, sum(1 for line in f if line.strip()))
+        except OSError:
+            logger.warning(f"cannot read dataset {self.dataset.path}; "
+                           "assuming 10000 samples for schedule math")
+            return 10000
+
+    def _device(self) -> Optional[str]:
+        """Every worker's device: the CPU only when asked for."""
+        return "cpu" if self.backend == "cpu" else None
+
+    def build_trainer_config(self, async_mode: bool = False):
+        from areal_tpu_torch.system.trainer_worker import (
+            MFCRuntimeConfig,
+            ModelRoleConfig,
+            TrainerWorkerConfig,
+        )
+
+        C.resolve_allocation(self)
+        paths = C.experiment_paths(self)
+        dataset_size = self._dataset_size()
+        hp = self._hp()
+
+        def role(mc, **kw):
+            return ModelRoleConfig(init=C.model_init_dict(mc),
+                                   backend=mc.backend,
+                                   backend_args=C.backend_args_for(mc), **kw)
+
+        models: Dict[str, ModelRoleConfig] = {"actor": role(self.actor)}
+        if self._use_ref:
+            models["ref"] = role(self.ref, train=False)
+        if self._use_critic:
+            critic = self.critic
+            if not critic.tiny and not critic.path:
+                critic = self.actor  # the critic starts from the actor
+            models["critic"] = role(dataclasses.replace(  # a value head
+                critic, type=dataclasses.replace(critic.type,
+                                                 is_critic=True)))
+        ppo = {"interface_args": {"hp": hp}}
+        mfcs: Dict[str, MFCRuntimeConfig] = {}
+        if not async_mode:
+            mfcs["actor_gen"] = MFCRuntimeConfig(
+                interface="ppo_actor", model_name="actor", **ppo)
+            models["rew"] = ModelRoleConfig(init={"null": True},
+                                            backend="null")
+            mfcs["rew_inf"] = MFCRuntimeConfig(
+                interface="rw_math_code", model_name="rew",
+                interface_args={"dataset_path": self.dataset.path,
+                                "group_size": self.group_size})
+        if self._use_ref:
+            mfcs["ref_inf"] = MFCRuntimeConfig(interface="ref_logprob",
+                                               model_name="ref")
+        if self._use_actor_inf:
+            mfcs["actor_inf"] = MFCRuntimeConfig(
+                interface="ppo_actor", model_name="actor", **ppo)
+        if self._use_critic:
+            for name in ("critic_inf", "critic_train"):
+                mfcs[name] = MFCRuntimeConfig(
+                    interface="ppo_critic", model_name="critic", **ppo)
+        mfcs["actor_train"] = MFCRuntimeConfig(
+            interface="ppo_actor", model_name="actor", **ppo)
+        return TrainerWorkerConfig(
+            experiment=self.experiment_name, trial=self.trial_name,
+            handler="trainer", models=models, mfcs=mfcs,
+            dataset=None if async_mode else "math_code_prompt",
+            dataset_args={} if async_mode else {
+                "dataset_path": self.dataset.path,
+                "max_length": self.dataset.max_prompt_len},
+            batch_size=self.dataset.train_bs_n_seqs,
+            ft_spec=FinetuneSpec(
+                total_train_epochs=self.exp_ctrl.total_train_epochs,
+                dataset_size=dataset_size,
+                train_batch_size=self.dataset.train_bs_n_seqs),
+            tokenizer=None,  # resolved in the trainer's process
+            stream_dataset=async_mode,
+            realloc_dir=paths["realloc"],
+            weight_sync=self.weight_sync,
+            device=self._device(),
+        )
+
+    def build_master_config(self, async_mode: bool = False):
+        from areal_tpu_torch.system.master_worker import MasterWorkerConfig
+
+        paths = C.experiment_paths(self)
+        # Sync: the master fetches prompts (actor_gen makes group_size
+        # trajectories of each). Async: the stream yields trajectories, so
+        # a step takes n_prompts * group_size samples.
+        bs = self.dataset.train_bs_n_seqs
+        if async_mode:
+            bs *= self.group_size
+        return MasterWorkerConfig(
+            experiment=self.experiment_name, trial=self.trial_name,
+            trainer_handler="trainer",
+            train_batch_size=bs,
+            exp_ctrl=self.exp_ctrl,
+            save_dir=paths["save"],
+            tensorboard_path=(self.tensorboard.path
+                              or os.path.join(paths["log"], "tensorboard")),
+            wandb_mode=self.wandb.mode,
+            recover_dir=paths["recover"],
+            recover=self.recover_mode == "resume",
+        )
+
+    def initial_setup(self) -> Dict[str, Any]:
+        """-> {dfg, master, trainer} (sync: generation in the trainer)."""
+        return {
+            "dfg": self.build_dfg(self.dataset.train_bs_n_seqs,
+                                  async_mode=False),
+            "master": self.build_master_config(async_mode=False),
+            "trainer": self.build_trainer_config(async_mode=False),
+        }
+
+
+register_experiment("ppo-math", PPOMATHConfig)

@@ -2,12 +2,13 @@
 
 The port's copy of ``areal_tpu/rewards/client.py:52-82, 374-402``:
 ``task_from_record`` (the one dataset-record → grading-task builder),
-``_grade_local`` and the local path of ``batch_reward``. The reference can
-also fan tasks out to a reward-service fleet or to the fixed host named by
-``FUNCTIONCALL_SERVICE_DOMAIN``; both come with the async-PPO loop
-(ROADMAP.md Queue 1 item 3). Until then ``batch_reward`` raises when that
-variable is set, rather than grade locally what its caller meant to send
-away.
+``_grade_local`` and the local paths of ``batch_reward`` and of
+``abatch_reward`` (``:345``, the rollout agents' entry point). The
+reference can also fan tasks out to a reward-service fleet or to the fixed
+host named by ``FUNCTIONCALL_SERVICE_DOMAIN``; neither is ported yet
+(ROADMAP.md Queue 1 item 3, left for later). Until then both entry points
+raise when that variable is set, rather than grade locally what their
+caller meant to send away.
 
 ``verdict_counts`` counts the verdicts of every local grade in this
 process (the reference counts them in its telemetry registry).
@@ -54,6 +55,32 @@ def _grade_local(task: Dict[str, Any],
     return float(out["score"])
 
 
+def _refuse_remote() -> None:
+    if os.getenv(SERVICE_ENV, ""):
+        raise NotImplementedError(
+            f"{SERVICE_ENV} is set, but remote grading (the reward-service "
+            "fleet and the fixed-host path) is not ported yet: ROADMAP.md "
+            "Queue 1 item 3, left for later. Unset it to grade locally.")
+
+
+async def abatch_reward(
+    tasks: List[Dict[str, Any]],
+    max_workers: int = 8,
+) -> List[float]:
+    """Grade a batch of tasks locally without blocking the event loop: each
+    task on a worker thread, at most ``max_workers`` at a time."""
+    if not tasks:
+        return []
+    _refuse_remote()
+    sem = asyncio.Semaphore(max(int(max_workers), 1))
+
+    async def one(t):
+        async with sem:
+            return await asyncio.to_thread(_grade_local, t)
+
+    return list(await asyncio.gather(*[one(t) for t in tasks]))
+
+
 def batch_reward(
     tasks: List[Dict[str, Any]],
     max_workers: int = 8,
@@ -71,13 +98,9 @@ def batch_reward(
         pass
     else:
         raise RuntimeError(
-            "batch_reward called on a running event loop; the async "
-            "entry point comes with the async-PPO loop")
-    if os.getenv(SERVICE_ENV, ""):
-        raise NotImplementedError(
-            f"{SERVICE_ENV} is set, but remote grading (the reward-service "
-            "fleet and the fixed-host path) is not ported yet: ROADMAP.md "
-            "Queue 1 item 3, the async-PPO loop. Unset it to grade locally.")
+            "batch_reward called on a running event loop; await "
+            "abatch_reward instead")
+    _refuse_remote()
     if len(tasks) == 1:
         return [_grade_local(tasks[0])]
     with cf.ThreadPoolExecutor(max_workers=max_workers) as pool:

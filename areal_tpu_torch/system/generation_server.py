@@ -7,13 +7,21 @@ Counterpart of ``areal_tpu/system/generation_server.py`` (``_decode_batch``,
 the client re-submits prompt + accumulated tokens with the same ``rid`` and
 the server continues from the retained KV state instead of re-prefilling.
 
-The HTTP side is the standard library (``ThreadingHTTPServer``): handler
+The HTTP side is the standard library (``system/http.py``'s
+``FleetHTTPServer``, a thread per connection): handler
 threads enqueue requests on a FIFO and wait; one runner thread forms batches
 (``batch_window_ms``, up to ``max_batch_size``) and runs the decode under
 ``torch.inference_mode()``. JSON in: ``prompt_ids``, ``gconfig``,
 ``max_tokens``, ``rid``, ``tokens_done``; out: ``output_ids``,
-``output_logprobs``, ``finished``, ``version``. ``GET /health`` reports
-liveness and the weight version.
+``output_logprobs``, ``finished``, ``version``; the chunked rollout
+client's ``class`` and ``budget_total`` are accepted and, with the serving
+engine off (the reference's default), do not change what is served.
+``GET /health`` carries the body the fleet manager reads
+(``areal_tpu/system/generation_server.py:948``): liveness, ``server_id``,
+the weight ``version``, ``queue_depth``, ``inflight`` and the EWMAs of the
+per-token decode time and of the time to first chunk. ``start()``
+registers the URL under ``names.gen_servers`` (leased by a heartbeat when
+``AREAL_WORKER_KEEPALIVE_TTL`` is set) and ``stop()`` withdraws it.
 
 ``POST /update_weights`` swaps the served weights (reference
 ``handle_update_weights:877``): ``{"path", "version"}`` loads a native
@@ -27,8 +35,8 @@ version)`` pair that each batch captures once. The retained KV states are
 cleared. Any failure leaves the old pair live, the stats unchanged, and
 answers 500 with ``{"ok": false, "version": <old>, "error"}``.
 
-Telemetry, goodput, compile/memory watches, name-resolve registration,
-request classes and prefix reuse wait for later slices.
+Telemetry, goodput, compile/memory watches, request classes and prefix
+reuse wait for later slices.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ import logging
 import queue
 import threading
 import time
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -48,12 +56,14 @@ import torch
 
 from areal_tpu_torch import resolve_device
 from areal_tpu_torch.api.model import GenerationHyperparameters
+from areal_tpu_torch.base import name_resolve, names
 from areal_tpu_torch.models import convert
 from areal_tpu_torch.models import generate as genmod
 from areal_tpu_torch.models import hf
 from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.models.transformer import Transformer
 from areal_tpu_torch.ops.sampling import sampling_from_gconfigs
+from areal_tpu_torch.system.http import FleetHTTPServer
 from areal_tpu_torch.system.serving import (
     KVStateStore,
     ReqState,
@@ -63,12 +73,19 @@ from areal_tpu_torch.system.weight_stream import (
     WeightStreamConsumer,
     WeightStreamError,
 )
+from areal_tpu_torch.system.worker_base import (
+    HeartbeatThread,
+    default_heartbeat_interval,
+    env_keepalive_ttl,
+)
 
 logger = logging.getLogger("areal_tpu_torch.generation_server")
 
 
 @dataclasses.dataclass
 class GenerationServerConfig:
+    experiment: str = "exp"
+    trial: str = "trial"
     server_id: str = "gen0"
     chunk_tokens: int = 128  # most new tokens one /generate call decodes
     batch_window_ms: int = 5
@@ -92,7 +109,7 @@ class BadRequest(ValueError):
 
 class _Pending:
     __slots__ = ("rid", "prompt", "gconfig", "max_tokens", "tokens_done",
-                 "future")
+                 "future", "t_enqueue")
 
     def __init__(self, prompt, gconfig, max_tokens, rid=None, tokens_done=0):
         self.rid = rid
@@ -101,6 +118,7 @@ class _Pending:
         self.max_tokens = max_tokens
         self.tokens_done = tokens_done
         self.future: concurrent.futures.Future = concurrent.futures.Future()
+        self.t_enqueue = time.monotonic()
 
 
 class GenerationServer:
@@ -130,7 +148,7 @@ class GenerationServer:
         self.kv = KVStateStore(cfg.kv_slots, cfg.kv_bytes_budget)
         self.shapes = ShapeBucketPolicy(cfg.kv_bucket)
         self._queue: "queue.Queue[Optional[_Pending]]" = queue.Queue()
-        self._http: Optional[ThreadingHTTPServer] = None
+        self._http: Optional[FleetHTTPServer] = None
         self._threads: List[threading.Thread] = []
         self._t_start = time.monotonic()
         # Counters read by stats(): prefill calls and the wall time of
@@ -141,6 +159,12 @@ class GenerationServer:
         self._prefill_secs = 0.0
         self._decode_steps = 0
         self._decode_secs = 0.0
+        # /health's load and latency fields (the manager reads them)
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
+        self._decode_ewma_secs: Optional[float] = None
+        self._ttfc_ewma_secs: Optional[float] = None
+        self._hb = None
 
     @property
     def model(self) -> Transformer:
@@ -287,6 +311,7 @@ class GenerationServer:
                     stop = True
                     break
                 batch.append(p)
+            t_formed = time.monotonic()
             try:
                 # inference_mode is thread-local: entered in this thread.
                 with torch.inference_mode():
@@ -295,10 +320,31 @@ class GenerationServer:
                 for p in batch:
                     p.future.set_exception(e)
             else:
+                self._observe_latency(batch, results,
+                                      time.monotonic() - t_formed)
                 for p, r in zip(batch, results):
                     p.future.set_result(r)
             if stop:
                 return
+
+    def _observe_latency(self, batch: List[_Pending],
+                         results: List[Dict[str, Any]], dt: float) -> None:
+        """The EWMAs of /health (reference ``_runner``): decode seconds per
+        token of the batch's longest reply, and, for each new generation,
+        the time from its enqueue to its first chunk."""
+        chunk_tokens = max((len(r["output_ids"]) for r in results), default=0)
+        if chunk_tokens > 0:
+            sample = dt / chunk_tokens
+            self._decode_ewma_secs = (
+                sample if self._decode_ewma_secs is None
+                else 0.7 * self._decode_ewma_secs + 0.3 * sample)
+        now = time.monotonic()
+        for p in batch:
+            if p.tokens_done == 0:
+                ttfc = now - p.t_enqueue
+                self._ttfc_ewma_secs = (
+                    ttfc if self._ttfc_ewma_secs is None
+                    else 0.7 * self._ttfc_ewma_secs + 0.3 * ttfc)
 
     # ---------------- requests ----------------
 
@@ -308,6 +354,12 @@ class GenerationServer:
             prompt = np.asarray(d["prompt_ids"], dtype=np.int64)
             max_tokens = int(d.get("max_tokens", gconfig.max_new_tokens))
             tokens_done = int(d.get("tokens_done", 0))
+            # The chunked client's remaining budget and request class: read
+            # by the serving engine's admission, which is off here.
+            if d.get("budget_total") is not None:
+                int(d["budget_total"])
+            if not isinstance(d.get("class", ""), (str, type(None))):
+                raise TypeError("class must be a string")
         except (KeyError, TypeError, ValueError) as e:
             raise BadRequest(f"malformed /generate body: {e!r}") from e
         if prompt.ndim != 1 or prompt.size == 0:
@@ -327,8 +379,14 @@ class GenerationServer:
         p = self._parse(d)
         if self._http is None:
             raise RuntimeError("generation server is not running")
-        self._queue.put(p)
-        return p.future.result()
+        with self._inflight_lock:
+            self._inflight += 1
+        try:
+            self._queue.put(p)
+            return p.future.result()
+        finally:
+            with self._inflight_lock:
+                self._inflight -= 1
 
     def health(self) -> Dict[str, Any]:
         return {
@@ -337,6 +395,9 @@ class GenerationServer:
             "server_id": self.cfg.server_id,
             "uptime_secs": time.monotonic() - self._t_start,
             "queue_depth": self._queue.qsize(),
+            "inflight": self._inflight,
+            "decode_ewma_secs": self._decode_ewma_secs,
+            "ttfc_ewma_secs": self._ttfc_ewma_secs,
         }
 
     def stats(self) -> Dict[str, Any]:
@@ -470,8 +531,13 @@ class GenerationServer:
 
     # ---------------- lifecycle ----------------
 
+    def _key(self) -> str:
+        return names.gen_servers(self.cfg.experiment, self.cfg.trial,
+                                 self.cfg.server_id)
+
     def start(self) -> str:
-        """Start the runner and the HTTP server; returns the base URL."""
+        """Start the runner and the HTTP server, register the URL under
+        ``names.gen_servers``; returns the URL."""
         server = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -508,9 +574,8 @@ class GenerationServer:
             def log_message(self, *args):
                 pass
 
-        self._http = ThreadingHTTPServer((self.cfg.host, self.cfg.port or 0),
+        self._http = FleetHTTPServer((self.cfg.host, self.cfg.port or 0),
                                          Handler)
-        self._http.daemon_threads = True
         self._threads = [
             threading.Thread(target=self._runner, name="genserver-runner",
                              daemon=True),
@@ -520,13 +585,36 @@ class GenerationServer:
         for t in self._threads:
             t.start()
         host, port = self._http.server_address[:2]
-        return f"http://{host}:{port}"
+        url = f"http://{host}:{port}"
+        ttl = env_keepalive_ttl() or 0.0
+        name_resolve.add(self._key(), url, replace=True,
+                         keepalive_ttl=ttl or None)
+        if ttl:
+            # A thread of its own keeps the lease: a long batch must not
+            # let it lapse, and a killed process loses it with its threads.
+            self._hb = HeartbeatThread(
+                self.cfg.experiment, self.cfg.trial,
+                f"genserver_{self.cfg.server_id}",
+                interval=default_heartbeat_interval(ttl))
+            self._hb.lease(self._key(), url, ttl)
+        logger.info(f"generation server {self.cfg.server_id} at {url}"
+                    + (f" (keepalive {ttl:.0f}s)" if ttl else ""))
+        return url
 
     def stop(self, timeout: float = 60.0) -> None:
         """Stop accepting requests, finish the batch in flight, fail any
         request still queued, and join both threads."""
         if self._http is None:
             return
+        if self._hb is not None:
+            self._hb.close()
+            self._hb = None
+        # Withdraw discovery first: the manager forgets this URL on its
+        # next sweep instead of probing a stopped server.
+        try:
+            name_resolve.delete(self._key())
+        except name_resolve.NameEntryNotFoundError:
+            pass
         self._http.shutdown()
         self._http.server_close()
         self._queue.put(None)

@@ -195,8 +195,9 @@ class MasterWorker:
     # ---------------- per-step DFG traversal ----------------
 
     async def _load_data(self) -> None:
-        """Fill one step's batch from the trainer's dataset. A fetch may
-        return fewer samples than asked (or none): keep fetching until
+        """Fill one step's batch from the trainer's dataset or stream. A
+        fetch may return fewer samples than asked (or none; in stream mode,
+        whatever the rollout workers pushed): keep fetching until
         ``train_batch_size`` samples are in the buffer."""
         got = 0
         while got < self.cfg.train_batch_size:

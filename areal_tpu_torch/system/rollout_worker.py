@@ -1,0 +1,398 @@
+"""Rollout worker: the asyncio loop that runs agents against the generation
+fleet.
+
+The port of ``areal_tpu/system/rollout_worker.py`` (reference
+``realhf/system/rollout_worker.py:43``). It owns a shard of the dataset;
+for each prompt it asks the manager for quota (``/allocate_rollout``, the
+staleness gate, in sample units), runs ``agent.collect_trajectory`` with
+its queues bridged to the chunked generation client, grades through the
+agent's environment in this process, pushes the accepted trajectories to
+the trainer's stream and reports ``/finish_rollout`` on every path. A push
+that finds the trainer gone does not end the worker (in the reference the
+zmq socket drops it): the rollout reports what went out as accepted and
+its prompt stays unconsumed.
+
+The allocation is atomic under cancellation: a task cancelled after the
+manager booked its quota sends the compensating ``/finish_rollout``.
+Consumed prompt ids go to an fsynced log (:class:`ConsumedLog`) that a
+restarted worker skips.
+
+This process never initialises CUDA: generation runs on the servers.
+Left out: telemetry, goodput, the durable spool and the reward-service
+fleet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import os
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+import areal_tpu_torch.agents  # noqa: F401 — registers the agents and envs
+from areal_tpu_torch.api.data import SequenceSample
+from areal_tpu_torch.api.model import (
+    GenerationHyperparameters,
+    make_agent,
+    make_env,
+)
+from areal_tpu_torch.base import logging, name_resolve, names
+from areal_tpu_torch.base.retry import (
+    DEFAULT_GENERATION_RETRY,
+    FaultInjector,
+    RetryPolicy,
+)
+from areal_tpu_torch.datasets.jsonl import (
+    RL_TASKS,
+    load_jsonl,
+    load_shuffle_split,
+)
+from areal_tpu_torch.system.http import AsyncHttp
+from areal_tpu_torch.system.partial_rollout import (
+    GenerationAbandonedError,
+    PartialRolloutClient,
+    trajectory_from_gen,
+)
+from areal_tpu_torch.system.streams import TrajectoryPusher
+
+logger = logging.getLogger("system.rollout")
+
+
+@dataclasses.dataclass
+class RolloutWorkerConfig:
+    experiment: str = "exp"
+    trial: str = "trial"
+    worker_index: int = 0
+    n_workers: int = 1
+    dataset_path: str = ""
+    trainer_handler: str = "trainer"  # puller name to push to
+    agent: str = "math_single_step"
+    agent_args: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # The reward environment: math and code by task kind by default.
+    env: str = "math_code_single_step"
+    env_args: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    gconfig: GenerationHyperparameters = dataclasses.field(
+        default_factory=GenerationHyperparameters)
+    group_size: int = 1
+    chunk_tokens: int = 128
+    max_concurrent: int = 8
+    eos_token_id: int = 1
+    seed: int = 1
+    tokenizer: Any = None
+    max_rollouts: Optional[int] = None  # stop after N (tests); None: forever
+    # Consumed prompt ids go to {recover_dir}/rollout_consumed_{index}.log;
+    # a restarted worker skips them.
+    recover_dir: str = ""
+    # Chunk failover: after max_attempts consecutive failures a rollout is
+    # abandoned (a clean /finish_rollout; the worker stays up).
+    retry: RetryPolicy = dataclasses.field(
+        default_factory=lambda: DEFAULT_GENERATION_RETRY)
+
+
+class ConsumedLog:
+    """Append-only consumed-uid log, one file per rollout worker. Every
+    append is flushed and fsynced before ``add`` returns; a torn last line
+    (a crash mid-append) is dropped and truncated away."""
+
+    def __init__(self, recover_dir: str, worker_index: int):
+        self.path = (
+            os.path.join(recover_dir, f"rollout_consumed_{worker_index}.log")
+            if recover_dir else None)
+        self.seen = set()
+        self._fh = None
+        if self.path and os.path.exists(self.path):
+            with open(self.path, "rb") as f:
+                raw = f.read()
+            data = raw.decode(errors="replace")
+            lines = data.split("\n")
+            if data and not data.endswith("\n"):
+                torn = lines.pop()
+                logger.warning(f"consumed log {self.path}: dropping torn tail "
+                               f"{torn[:64]!r}; the prompt will be re-trained")
+                with open(self.path, "rb+") as f:
+                    f.truncate(raw.rfind(b"\n") + 1)
+            self.seen = {ln.strip() for ln in lines if ln.strip()}
+
+    def __contains__(self, uid: str) -> bool:
+        return uid in self.seen
+
+    def add(self, uid: str) -> None:
+        if uid in self.seen:
+            return
+        self.seen.add(uid)
+        if self.path:
+            if self._fh is None:
+                os.makedirs(os.path.dirname(self.path), exist_ok=True)
+                self._fh = open(self.path, "a")
+            self._fh.write(uid + "\n")
+            self._fh.flush()
+            os.fsync(self._fh.fileno())
+
+    def close(self) -> None:
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+
+
+class RolloutWorker:
+    def __init__(self, cfg: RolloutWorkerConfig,
+                 fault_injector: Optional[FaultInjector] = None):
+        self.cfg = cfg
+        self.faults = fault_injector
+        self.records = load_shuffle_split(load_jsonl(cfg.dataset_path),
+                                          cfg.seed, cfg.worker_index,
+                                          cfg.n_workers)
+        self.id2info = {str(d["query_id"]): d for d in self.records}
+        self.agent = make_agent(cfg.agent, tokenizer=cfg.tokenizer,
+                                **cfg.agent_args)
+        self.env = make_env(cfg.env, self.id2info, **cfg.env_args)
+        self.consumed = ConsumedLog(cfg.recover_dir, cfg.worker_index)
+        self.client: Optional[PartialRolloutClient] = None
+        self._mgr_url0 = ""
+        self._done = 0
+        self._pushed = 0
+        self._abandoned = 0
+        # allocation denials by reason
+        self.denials: Dict[str, int] = {}
+
+    def _prompt_sample(self, rec, uid: str) -> SequenceSample:
+        ids = self.cfg.tokenizer.encode(rec["prompt"])
+        return SequenceSample.from_default(
+            ids=[uid],
+            data={"packed_prompts": np.asarray(ids, np.int32)},
+            seqlens=[len(ids)],
+            metadata={"task": [rec.get("task", "math")]})
+
+    @staticmethod
+    async def _post_json(session: AsyncHttp, url: str, payload: Dict,
+                         timeout_secs: float = 15.0) -> Dict:
+        # Bounded: quota calls run inside cancellation shields, and a hung
+        # manager must not pin the worker's shutdown.
+        status, d = await session.post(url, payload, timeout=timeout_secs)
+        if status != 200:
+            raise RuntimeError(f"{url}: status {status} {d}")
+        return d
+
+    @property
+    def _mgr_url(self) -> str:
+        """The manager's endpoint, owned by the client once it exists."""
+        return (self.client.manager_url if self.client is not None
+                else self._mgr_url0)
+
+    async def _rollout_one(self, rec, uid, client, pusher, session):
+        cfg = self.cfg
+        # The allocation must be atomic under cancellation: shield the
+        # call, and if this task is cancelled after quota was booked, let
+        # the call finish and return the booking.
+        alloc_fut = asyncio.ensure_future(self._post_json(
+            session, f"{self._mgr_url}/allocate_rollout",
+            {"n_samples": cfg.group_size}))
+        try:
+            alloc = await asyncio.shield(alloc_fut)
+        except asyncio.CancelledError:
+            try:
+                alloc = await alloc_fut
+            except Exception:  # noqa: BLE001 — the call failed: no booking
+                alloc = None
+            if alloc is not None and alloc.get("allowed"):
+                try:
+                    await self._post_json(
+                        session, f"{self._mgr_url}/finish_rollout",
+                        {"accepted": False, "n_samples": cfg.group_size,
+                         "n_accepted": 0})
+                except Exception as e2:  # noqa: BLE001 — manager hung/dead
+                    logger.warning(f"compensating finish_rollout failed "
+                                   f"({e2}); {cfg.group_size} samples of "
+                                   "quota may leak until the manager "
+                                   "restarts")
+            raise
+        except Exception as e:  # noqa: BLE001 — a manager blip: no booking
+            logger.warning(f"allocate_rollout failed ({e}); retrying")
+            if self.client is not None:
+                self.client._refresh_manager_url()
+            await asyncio.sleep(1.0)
+            return "retry"
+        if not alloc.get("allowed"):
+            reason = alloc.get("reason", "unknown")
+            self.denials[reason] = self.denials.get(reason, 0) + 1
+            # With a Retry-After hint (overload backpressure) slow down to
+            # its cadence instead of re-polling every 0.5 s.
+            retry_secs = 0.5
+            if alloc.get("retry_after") is not None:
+                try:
+                    retry_secs = max(float(alloc["retry_after"]), 0.05)
+                except (TypeError, ValueError):
+                    pass
+            await asyncio.sleep(retry_secs)
+            return "retry"
+        accepted = 0
+        abandoned = undelivered = False
+        task = None
+        try:
+            prompt = self._prompt_sample(rec, uid)
+            obs_q: asyncio.Queue = asyncio.Queue()
+            act_q: asyncio.Queue = asyncio.Queue()
+            task = asyncio.create_task(
+                self.agent.collect_trajectory(prompt, self.env, obs_q, act_q))
+            rec_task = rec.get("task", "math")
+            # Serve the agent's obs -> act exchanges until it returns (one
+            # round for single-step agents).
+            turn = 0
+            while True:
+                get_obs = asyncio.create_task(obs_q.get())
+                done, _ = await asyncio.wait(
+                    {task, get_obs}, return_when=asyncio.FIRST_COMPLETED)
+                if get_obs not in done:
+                    get_obs.cancel()
+                    break
+                qid, prompt_ids, gconfig = get_obs.result()
+                gconfig = gconfig or cfg.gconfig
+                results = await client.generate_group(
+                    list(map(int, prompt_ids)), gconfig,
+                    gconfig.n if gconfig is not cfg.gconfig
+                    else cfg.group_size,
+                    eos_token_id=cfg.eos_token_id)
+                trajs = [
+                    trajectory_from_gen(
+                        f"{qid}@t{turn}" if turn else qid, j,
+                        np.asarray(prompt_ids, np.int32), res,
+                        task=rec_task, task_id=RL_TASKS.index(rec_task),
+                        eos_token_id=cfg.eos_token_id)
+                    for j, res in enumerate(results)
+                ]
+                turn += 1
+                await act_q.put(trajs)
+            final = await task
+            for t in final:
+                pusher.push(t.as_json_compatible())
+                accepted += 1
+        except GenerationAbandonedError as e:
+            # The fleet stayed dead through the failover budget: abandon
+            # this rollout (the finally reports it) and keep the worker up.
+            self._abandoned += 1
+            abandoned = True
+            logger.warning(f"rollout {uid} abandoned: {e}")
+        except ConnectionError as e:
+            # The trainer's end is gone (its run ended, or it died): what did
+            # not go out is lost, reported as not accepted, and the prompt
+            # stays unconsumed.
+            undelivered = True
+            logger.error(f"rollout {uid}: push failed after {accepted} of "
+                         f"its trajectories ({e})")
+        finally:
+            # Return exactly the allocation (group_size samples), shielded
+            # like the allocation: a cancellation during cleanup must not
+            # skip the report.
+            async def _cleanup():
+                if task is not None and not task.done():
+                    task.cancel()
+                    await asyncio.gather(task, return_exceptions=True)
+                try:
+                    await self._post_json(
+                        session, f"{self._mgr_url}/finish_rollout",
+                        {"accepted": accepted > 0,
+                         "n_samples": cfg.group_size,
+                         "n_accepted": accepted})
+                except Exception as e:  # noqa: BLE001 — manager hung/dead
+                    logger.warning(f"finish_rollout failed ({e}); "
+                                   f"{cfg.group_size} samples of quota may "
+                                   "leak until the manager restarts")
+
+            cleanup = asyncio.ensure_future(_cleanup())
+            try:
+                await asyncio.shield(cleanup)
+            except asyncio.CancelledError:
+                await cleanup
+                raise
+        self._done += 1
+        self._pushed += accepted
+        # An abandoned or undelivered prompt counts toward done but is not
+        # consumed: a transient outage must not delete prompts from training.
+        if abandoned:
+            return "abandoned"
+        return "undelivered" if undelivered else "ok"
+
+    async def run_async(self) -> None:
+        from areal_tpu_torch.system.worker_base import WorkerControl
+
+        cfg = self.cfg
+        ctrl = WorkerControl(cfg.experiment, cfg.trial,
+                             f"rollout{cfg.worker_index}")
+        mgr_key = names.gen_server_manager(cfg.experiment, cfg.trial)
+        self._mgr_url0 = await asyncio.to_thread(name_resolve.wait, mgr_key,
+                                                 300)
+        pusher = await asyncio.to_thread(
+            TrajectoryPusher, cfg.experiment, cfg.trial, cfg.trainer_handler)
+        # Threads enough for every generation in flight (each holds one for
+        # its chunk) plus the quota calls.
+        session = AsyncHttp(max_workers=cfg.max_concurrent * cfg.group_size
+                            + 16)
+        client = PartialRolloutClient(
+            self._mgr_url, session, chunk_tokens=cfg.chunk_tokens,
+            retry=cfg.retry, fault_injector=self.faults,
+            manager_resolver=lambda: name_resolve.get(mgr_key))
+        self.client = client
+        sem = asyncio.Semaphore(cfg.max_concurrent)
+        pos = 0
+
+        async def one(rec, uid):
+            async with sem:
+                # A denied allocation does not drop the prompt: retry until
+                # the gate opens.
+                while True:
+                    status = await self._rollout_one(rec, uid, client,
+                                                     pusher, session)
+                    if status != "retry":
+                        break
+            if status == "ok":
+                self.consumed.add(uid)
+
+        pending = set()
+        try:
+            while cfg.max_rollouts is None or self._done < cfg.max_rollouts:
+                # The control channel between scheduling rounds: pause stops
+                # new rollouts; exit leaves the loop.
+                await asyncio.to_thread(
+                    ctrl.step,
+                    lambda: {"done": self._done, "pushed": self._pushed,
+                             "abandoned": self._abandoned,
+                             "failovers": client.n_failovers})
+                if ctrl.should_exit:
+                    break
+                while len(pending) < cfg.max_concurrent:
+                    rec = self.records[pos % len(self.records)]
+                    # An epoch over a small dataset revisits a query id: tag
+                    # the pass so trajectory ids stay unique.
+                    epoch = pos // len(self.records)
+                    qid = str(rec["query_id"])
+                    uid = qid if epoch == 0 else f"{qid}@r{epoch}"
+                    pos += 1
+                    if uid in self.consumed:  # a recovered run pushed it
+                        continue
+                    pending.add(asyncio.create_task(one(rec, uid)))
+                # bounded, so that the control channel is served while
+                # every rollout waits at a closed gate
+                done, pending = await asyncio.wait(
+                    pending, timeout=1.0,
+                    return_when=asyncio.FIRST_COMPLETED)
+                for d in done:
+                    d.result()  # surface exceptions
+        finally:
+            # Cancel what is in flight while the session is open, so their
+            # finally blocks report /finish_rollout and no quota leaks.
+            for t in pending:
+                t.cancel()
+            if pending:
+                await asyncio.gather(*pending, return_exceptions=True)
+            session.close()
+            pusher.close()
+            ctrl.close()
+            self.consumed.close()
+        logger.info(f"rollout worker done: {self._pushed} trajectories "
+                    f"pushed ({self._abandoned} abandoned, "
+                    f"{client.n_failovers} chunk failovers)")
+
+    def run(self) -> None:
+        asyncio.run(self.run_async())

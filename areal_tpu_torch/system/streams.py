@@ -16,8 +16,17 @@ port's frames (``system/frames.py``) instead of a zmq DEALER/ROUTER pair:
    out; a worker that closes its end makes it raise ``ConnectionError``.
 
 Payloads are pickled (trusted intra-cluster traffic, the reference's trust
-model). The rollout → trainer push/pull stream comes with the async-PPO
-loop (ROADMAP.md Queue 1 item 3).
+model).
+
+The rollout → trainer trajectory stream (``areal_tpu/system/streams.py:231
+ZmqPuller``, ``:265 ZmqPusher``) rides the same frames: the trainer's
+:class:`TrajectoryPuller` binds a free port and advertises it under
+:func:`push_pull_addr_key` (leased by keepalive, withdrawn on close); a
+rollout worker's :class:`TrajectoryPusher` resolves it and sends each
+trajectory's ``as_json_compatible()`` dict as one pickled frame, where the
+reference sends msgpack over a zmq PUSH socket. A push never wedges its
+caller: a send that cannot finish within ``block_secs`` drops the
+connection and raises ``TimeoutError``.
 """
 
 from __future__ import annotations
@@ -32,7 +41,12 @@ import uuid
 from typing import Any, Dict, List, Optional, Sequence
 
 from areal_tpu_torch.base import logging, name_resolve, network
-from areal_tpu_torch.system.frames import FrameServer, _recv, _send
+from areal_tpu_torch.system.frames import (
+    FrameServer,
+    _encode,
+    _recv,
+    _send,
+)
 
 logger = logging.getLogger("system.streams")
 
@@ -42,6 +56,10 @@ IO_TIMEOUT_SECS = 60.0
 
 def req_reply_addr_key(experiment: str, trial: str, handler: str) -> str:
     return f"areal_tpu/{experiment}/{trial}/req_reply/{handler}"
+
+
+def push_pull_addr_key(experiment: str, trial: str, puller: str) -> str:
+    return f"areal_tpu/{experiment}/{trial}/push_pull/{puller}"
 
 
 @dataclasses.dataclass
@@ -183,3 +201,91 @@ class WorkerRequestServer:
         except name_resolve.NameEntryNotFoundError:
             pass
         self._server.close()
+
+
+# ---------------- push/pull (rollout → trainer) ----------------
+
+
+class TrajectoryPuller:
+    """The trainer's end of the trajectory stream: a frame server on a free
+    port, advertised under :func:`push_pull_addr_key` with the worker's
+    keepalive lease (AREAL_WORKER_KEEPALIVE_TTL; the trainer's control
+    heartbeat keeps it alive)."""
+
+    def __init__(self, experiment: str, trial: str, name: str):
+        from areal_tpu_torch.system.worker_base import env_keepalive_ttl
+
+        self._server = FrameServer(IO_TIMEOUT_SECS)
+        self._key = push_pull_addr_key(experiment, trial, name)
+        self._addr = self._server.endpoint
+        name_resolve.add(self._key, self._addr, replace=True,
+                         keepalive_ttl=env_keepalive_ttl())
+
+    def pull(self, timeout_ms: int = 0) -> Optional[Any]:
+        """The next pushed object, or None if none came within
+        ``timeout_ms``."""
+        got = self._server.poll(timeout_ms)
+        if got is None:
+            return None
+        return pickle.loads(got[1][0])
+
+    def close(self) -> None:
+        # Withdraw the advertisement first: a successor run must not
+        # resolve this (about-to-die) address and push into the void.
+        try:
+            name_resolve.delete(self._key)
+        except name_resolve.NameEntryNotFoundError:
+            pass
+        self._server.close()
+
+
+class TrajectoryPusher:
+    """A rollout worker's end: resolves the puller through name_resolve
+    (reference ``NameResolvingZmqPusher``) and connects on first push.
+
+    Sends never wedge the caller: each push gets ``block_secs`` to go out
+    whole; past that the connection is dropped (the next push reconnects)
+    and ``TimeoutError`` is raised, loud instead of silent. A puller that is
+    gone (closed connection, withdrawn address) raises ``ConnectionError``;
+    the next push resolves the address again."""
+
+    def __init__(self, experiment: str, trial: str, puller: str,
+                 timeout: float = 300.0, block_secs: float = 120.0):
+        self._key = push_pull_addr_key(experiment, trial, puller)
+        self.endpoint = name_resolve.wait(self._key, timeout=timeout)
+        self.block_secs = block_secs
+        self._sock: Optional[socket.socket] = None
+
+    def push(self, obj: Any) -> None:
+        budget = self.block_secs
+        deadline = time.monotonic() + budget
+        data = b"".join(bytes(m) for m in _encode([pickle.dumps(obj)]))
+        try:
+            if self._sock is None:
+                # a restarted puller registers a new address
+                try:
+                    self.endpoint = name_resolve.get(self._key)
+                except name_resolve.NameEntryNotFoundError:
+                    raise ConnectionError("the puller withdrew its address")
+                s = socket.create_connection(network.parse_tcp(self.endpoint),
+                                             timeout=budget)
+                s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+                self._sock = s
+            # sendall's timeout bounds the whole call
+            self._sock.settimeout(max(deadline - time.monotonic(), 1e-3))
+            self._sock.sendall(data)
+        except socket.timeout:
+            self.close()
+            raise TimeoutError(
+                f"push to {self.endpoint} blocked for {budget:.1f}s (the "
+                "trainer is not pulling); the trajectory was not sent"
+            ) from None
+        except OSError as e:
+            self.close()
+            raise ConnectionError(
+                f"push to {self.endpoint} failed: {e}") from None
+
+    def close(self) -> None:
+        if self._sock is not None:
+            self._sock.close()
+            self._sock = None

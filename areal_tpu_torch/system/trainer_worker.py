@@ -21,9 +21,15 @@ checkpoint under ``realloc_dir/<role>/<version>``; ``stream``: the role's
 writes an HF checkpoint; ``param_realloc`` moves a target role toward a
 source by EMA, in f32.
 
-Left out until the port has them: the rollout stream and durable ingest
-(ROADMAP.md Queue 1 item 3), telemetry, goodput and the profiler trigger
-(item 4), multi-host broadcast (item 8) and the ``device`` transport.
+With ``stream_dataset`` (the async loop) there is no dataset: a
+``TrajectoryPuller`` registered under the trainer's handler name receives
+the rollout workers' trajectories on a thread of its own, and ``fetch``
+returns whatever arrived within 0.5 s (possibly fewer samples than asked,
+possibly none; the master accumulates across fetches).
+
+Left out until the port has them: durable ingest (the sample spool),
+telemetry, goodput and the profiler trigger (ROADMAP.md Queue 1 items 3-4),
+multi-host broadcast (item 8) and the ``device`` transport.
 """
 
 from __future__ import annotations
@@ -31,7 +37,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import queue
 import tempfile
+import threading
 import time
 import traceback
 from typing import Any, Callable, Dict, List, Optional
@@ -51,7 +59,11 @@ from areal_tpu_torch.api.model import (
 from areal_tpu_torch.api.train_config import WeightSyncConfig
 from areal_tpu_torch.base import logging, name_resolve, names
 from areal_tpu_torch.models import convert, hf
-from areal_tpu_torch.system.streams import Payload, WorkerRequestServer
+from areal_tpu_torch.system.streams import (
+    Payload,
+    TrajectoryPuller,
+    WorkerRequestServer,
+)
 from areal_tpu_torch.system.weight_stream import WeightStreamPublisher
 from areal_tpu_torch.system.worker_base import WorkerControl
 
@@ -94,6 +106,8 @@ class TrainerWorkerConfig:
     batch_size: int = 8
     ft_spec: FinetuneSpec = dataclasses.field(default_factory=FinetuneSpec)
     tokenizer: Any = None
+    # The async loop: samples come from the rollout stream, not a dataset.
+    stream_dataset: bool = False
     realloc_dir: str = dataclasses.field(default_factory=lambda: os.path.join(
         tempfile.gettempdir(), "areal_tpu", "realloc"))
     # The worker's default transport is disk, as the reference's is.
@@ -126,6 +140,9 @@ class TrainerWorker:
         self._exiting = False
         self._weight_publishers: Dict[str, WeightStreamPublisher] = {}
         self.device: Optional[torch.device] = None
+        self._puller: Optional[TrajectoryPuller] = None
+        self._pull_q: "queue.Queue[SequenceSample]" = queue.Queue()
+        self._pull_thread: Optional[threading.Thread] = None
 
     # ---------------- setup ----------------
 
@@ -180,6 +197,12 @@ class TrainerWorker:
             self._dataset = make_dataset(cfg.dataset, tokenizer=cfg.tokenizer,
                                          **cfg.dataset_args)
             self._reshuffle()
+        if cfg.stream_dataset:
+            self._puller = TrajectoryPuller(cfg.experiment, cfg.trial,
+                                            cfg.handler)
+            self._pull_thread = threading.Thread(
+                target=self._pull_loop, daemon=True, name="trainer-pull")
+            self._pull_thread.start()
         self._server = WorkerRequestServer(cfg.experiment, cfg.trial,
                                            cfg.handler)
         logger.info(f"trainer up on {self.device}: models={list(self.models)} "
@@ -190,9 +213,28 @@ class TrainerWorker:
         self._data_iter = list(rng.permutation(len(self._dataset)))
         self._epoch_pos = 0
 
+    def _pull_loop(self) -> None:
+        while not self._exiting:
+            obj = self._puller.pull(timeout_ms=200)
+            if obj is not None:
+                self._pull_q.put(SequenceSample.from_json_compatible(obj))
+
     # ---------------- handlers ----------------
 
-    def _read_batch(self, n: int) -> SequenceSample:
+    def _read_batch(self, n: int) -> Optional[SequenceSample]:
+        """The next ``n`` dataset samples; in stream mode whatever arrived
+        within 0.5 s (fewer than ``n``, or None): returning early keeps the
+        serve loop responsive while the master accumulates."""
+        if self.cfg.stream_dataset:
+            out: List[SequenceSample] = []
+            deadline = time.monotonic() + 0.5
+            while len(out) < n and time.monotonic() < deadline:
+                try:
+                    out.append(self._pull_q.get(timeout=0.1))
+                except queue.Empty:
+                    if out:
+                        break
+            return SequenceSample.gather(out) if out else None
         idx = []
         while len(idx) < n and self._dataset is not None:
             if self._epoch_pos >= len(self._data_iter):
@@ -209,9 +251,10 @@ class TrainerWorker:
 
     def _handle_fetch(self, p: Payload) -> Any:
         batch = self._read_batch(int(p.data or self.cfg.batch_size))
-        self._store_batch(batch)
+        if batch is not None:
+            self._store_batch(batch)
         return {
-            "meta": batch.meta(),
+            "meta": batch.meta() if batch is not None else None,
             "epoch": self._epoch,
             "epoch_pos": self._epoch_pos,
             "dataset_size": len(self._dataset) if self._dataset else -1,
@@ -521,8 +564,10 @@ class TrainerWorker:
         ctrl = WorkerControl(self.cfg.experiment, self.cfg.trial,
                              self.cfg.handler)
         # Under a supervisor the control heartbeat also keeps the request
-        # stream's advertisement leased.
+        # stream's and the trajectory puller's advertisements leased.
         ctrl.lease(self._server._key, self._server._addr)
+        if self._puller is not None:
+            ctrl.lease(self._puller._key, self._puller._addr)
         try:
             while not self._exiting:
                 ctrl.step(lambda: {"roles": sorted(self.models)})
@@ -534,11 +579,19 @@ class TrainerWorker:
             self.close()
 
     def close(self) -> None:
-        """Withdraw the request stream and stop every weight-stream
-        publisher (their keys are deleted)."""
+        """Withdraw the request stream and the trajectory puller and stop
+        every weight-stream publisher (their keys are deleted)."""
+        self._exiting = True
         if self._server is not None:
             self._server.close()
             self._server = None
+        if self._pull_thread is not None:
+            # the loop sees _exiting within one 200 ms poll
+            self._pull_thread.join(timeout=2.0)
+            self._pull_thread = None
+        if self._puller is not None:
+            self._puller.close()
+            self._puller = None
         for pub in self._weight_publishers.values():
             pub.close()
         self._weight_publishers.clear()

@@ -151,7 +151,36 @@ Phases (any failed check raises, and the script exits non-zero):
      the micro-batches in each train MFC and K1 twice that; the trainer
      exits 0. Rehearse on the CPU with
      `run_sync_loop(tiny_cfg, tmpdir, device="cpu", eos=...)` (tied
-     embeddings; the launch checks run only on the card).
+     embeddings; the launch checks run only on the card);
+ (o) the async-PPO loop, the trainer of (n) gone: the README's async recipe
+     (`max_head_offpolicyness=4 ppo.use_decoupled_loss=true group_size=16`,
+     the rest at defaults: a critic, kl_ctl 0.1, 4 PPO minibatches, 256
+     new tokens at temperature 1, 64 concurrent rollouts, server batches of
+     up to 64, the stream weight sync) through the port's run_experiment
+     (what `python -m areal_tpu_torch.training.main_async_ppo` calls): the
+     master here, the trainer, the generation fleet (one bf16 server and
+     the manager) and one rollout worker spawned, all on this card, every
+     role from one seed-0 HF checkpoint and the byte tokenizer. Cuts:
+     dataset.train_bs_n_seqs=4 (64 trajectories a step),
+     new_tokens_per_chunk=128 (two chunks a trajectory, a weight swap may
+     land between them), 4 steps (the first a warm-up), seeded math
+     records. The launcher's probes record each child's counters and send
+     them through pipes. Prints ms per step, the trainer's wall and
+     CUDA-event ms per MFC, trained and generated tokens/s, each version's
+     publish-to-swap and fanout seconds, the staleness histogram and the
+     share of trajectories spanning versions, allocation denials by
+     reason, the server's batch sizes and decode ms per step during
+     training and outside it, both peak memories. Checks: 4 steps within
+     600 s; finite losses and grad norms > 0 for actor and critic; each MFC
+     once a step; version_start <= version_end <= the trainer's version at
+     its train step for every trained trajectory; the manager and the
+     server at one version >= 3, and the server's weights the actor
+     published as that version, bit for bit; running_rollouts 0 after the
+     master stops; the rollout worker never initialised CUDA; K1 launched
+     n_layers x the server's prefills, K1-K3 per MFC as in (n); every child
+     gone after the teardown. Rehearse on the CPU with
+     `run_async_loop(tiny_cfg, tmpdir, device="cpu", ...)` under a
+     `__main__` guard.
 
 The script exits 0 only when every phase passed and the last line is
 printed; any failed check raises and exits 1, as does a run where
@@ -2081,6 +2110,436 @@ def run_sync_loop(cfg, tmp: str, device: str = "cuda", steps: int = 3,
     }
 
 
+# ---------------- (o) the async-PPO loop ----------------
+
+ASYNC_MFCS = ("ref_inf", "actor_inf", "critic_inf", "actor_train",
+              "critic_train")
+
+
+def sha256_digests(params: dict) -> dict:
+    import hashlib
+
+    return {n: hashlib.sha256(t.detach().contiguous().reshape(-1)
+                              .view(torch.uint8).cpu().numpy().tobytes())
+            .hexdigest() for n, t in params.items()}
+
+
+def async_trainer_probe(conn, worker):
+    """(o)'s trainer probe, called by the launcher in the trainer's process
+    with the TrainerWorker before its run: per MFC the K1-K3 launches, the
+    micro-batches it packs, the wall and CUDA-event ms, its tokens and its
+    wall-clock window; for actor_train the batch's version_start /
+    version_end and the actor's version; per publish its version and
+    seconds. Each publish's own compute-dtype tensors are copied to the
+    host as the publish makes them (no extra device memory) and hashed in
+    a thread of the probe's, so only the digests outlive the publish.
+    After the run it sends ("done", record) with the SHA-256 per tensor of
+    every published version and the peak memory."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.ops import flash_attention as fa
+
+    prebuilt = all(fa._lib_path(n).exists() for n in fa._SOURCES)
+    records, publishes, digests = [], [], {}
+    handle, publish = worker._handle_mfc, worker.publish_weights
+    cast = worker._compute_dtype_params
+    hasher = ThreadPoolExecutor(1, thread_name_prefix="probe-sha256")
+
+    def cuda() -> bool:
+        return worker.device is not None and worker.device.type == "cuda"
+
+    def timed(p):
+        req = p.data
+        if req.get("method") == "noop":
+            return handle(p)
+        name = req["mfc"]
+        mc = worker._mfc_cfg[name]
+        model, iface = worker.models[mc.model_name], worker.interfaces[name]
+        batch = worker._gather_input(req["ids"], req.get("input_keys"),
+                                     req.get("input_remap"))
+        spec = p.mb_spec or MicroBatchSpec()
+        method = req.get("method", mc.method)
+        rec = {"mfc": name, "tokens": int(batch.total_lens().sum()),
+               "micro_batches": expected_micro_batches(model, iface, batch,
+                                                       spec, method)}
+        if name == "actor_train":
+            rec["version"] = model.version.global_step
+            for k in ("version_start", "version_end"):
+                rec[k] = np.asarray(batch.data[k]).reshape(-1).tolist()
+        fa.reset_launch_count()
+        if cuda():
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        rec["t0"], t0 = time.time(), time.perf_counter()
+        out = handle(p)
+        if cuda():
+            ev[1].record()
+            torch.cuda.synchronize()
+            rec["device_ms"] = ev[0].elapsed_time(ev[1])
+        rec["wall_s"], rec["t1"] = time.perf_counter() - t0, time.time()
+        rec["launches"] = fa.launch_counts()
+        if method == "train_step":
+            rec["stats"] = out["stats"]
+        records.append(rec)
+        return out
+
+    def published(role):
+        host, copy_s = {}, [0.0]
+
+        def cast_and_copy(r):
+            out = cast(r)
+            t = time.perf_counter()
+            host.update((n, x.cpu()) for n, x in out.items())
+            copy_s[0] += time.perf_counter() - t
+            return out
+
+        worker._compute_dtype_params = cast_and_copy
+        t0 = time.perf_counter()
+        try:
+            publish(role)
+        finally:
+            worker._compute_dtype_params = cast
+        v = worker.models[role].version.global_step
+        digests[v] = hasher.submit(sha256_digests, host)
+        # publish_s includes the probe's d2h copy, reported beside it.
+        publishes.append({"version": v,
+                          "publish_s": time.perf_counter() - t0,
+                          "probe_copy_s": copy_s[0]})
+
+    worker._handle_mfc = timed
+    worker.publish_weights = published
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+
+    def done():
+        peak = mem_peak(worker.device)
+        hashed = {v: f.result() for v, f in digests.items()}
+        hasher.shutdown()
+        conn.send(("done", {
+            "records": records, "publishes": publishes, "digests": hashed,
+            "kernels_prebuilt": prebuilt, "peak_gb": peak}))
+        conn.close()
+    return done
+
+
+def async_fleet_probe(conn, servers, mgr):
+    """(o)'s fleet probe, in the generation fleet's process once the server
+    and the manager run: counts K1's launches and the server's prefills
+    (and K1's launches inside each), times every batch; on SIGTERM (the
+    launcher's teardown) it sends ("done", record) with them, the server's
+    stats, version and live weights' SHA-256 per tensor, the manager's
+    version, quota and weight-sync history, and exits."""
+    import signal
+    import traceback
+
+    from areal_tpu_torch.models import generate as genmod
+    from areal_tpu_torch.ops import flash_attention as fa
+
+    srv = servers[0]
+    prebuilt = all(fa._lib_path(n).exists() for n in fa._SOURCES)
+    prefill_k1, batches = [], []
+    prefill, decode = genmod._prefill, srv._decode_batch
+
+    def counted_prefill(*a, **k):
+        before = fa.launch_counts()["flash_attention_fwd"]
+        out = prefill(*a, **k)
+        prefill_k1.append(fa.launch_counts()["flash_attention_fwd"] - before)
+        return out
+
+    def timed_batch(batch):
+        t0, d0, s0 = time.time(), srv._decode_secs, srv._decode_steps
+        p0 = srv._prefill_secs
+        out = decode(batch)
+        batches.append({
+            "t0": t0, "t1": time.time(), "rows": len(batch),
+            "fresh": sum(p.tokens_done == 0 for p in batch),
+            "decode_s": srv._decode_secs - d0,
+            "decode_steps": srv._decode_steps - s0,
+            "prefill_s": srv._prefill_secs - p0,
+            "tokens": sum(len(r["output_ids"]) for r in out)})
+        return out
+
+    genmod._prefill = counted_prefill
+    srv._decode_batch = timed_batch
+    fa.reset_launch_count()
+    if srv.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    def on_term(signum, frame):
+        try:
+            stats = srv.stats()
+            stats.pop("shapes", None)
+            conn.send(("done", {
+                "k1": fa.launch_counts()["flash_attention_fwd"],
+                "prefill_k1": prefill_k1, "batches": batches,
+                "stats": stats, "server_version": srv.version,
+                "manager_version": mgr.version,
+                "running_rollouts": mgr.running_rollouts,
+                "accepted_rollouts": mgr.accepted_rollouts,
+                "sync_history": mgr.sync_history,
+                "digests": sha256_digests(srv.model.state_dict()),
+                "kernels_prebuilt": prebuilt,
+                "peak_gb": mem_peak(srv.device)}))
+        except BaseException:  # noqa: BLE001 — reported to the script
+            conn.send(("error", traceback.format_exc()))
+        finally:
+            conn.close()
+            os._exit(0)
+
+    signal.signal(signal.SIGTERM, on_term)
+
+
+def async_rollout_probe(conn, worker):
+    """(o)'s rollout-worker probe: after its run, the denials by reason, the
+    pushed and abandoned rollouts, and whether this process initialised
+    CUDA."""
+    def done():
+        conn.send(("done", {
+            "denials": worker.denials, "pushed": worker._pushed,
+            "abandoned": worker._abandoned,
+            "failovers": worker.client.n_failovers,
+            "cuda_initialized": torch.cuda.is_initialized()}))
+        conn.close()
+    return done
+
+
+def run_async_loop(cfg, tmp: str, device: str = "cuda", steps: int = 4,
+                   n_prompts: int = 4, group_size: int = 16,
+                   chunk_tokens: int = 128, max_new_tokens: int = 256,
+                   timeout: float = 600.0, extra=()) -> dict:
+    """(o): the README's async recipe through the port's ``run_experiment``
+    (what ``python -m areal_tpu_torch.training.main_async_ppo`` calls), with
+    the launcher's probes recording each process's counters. The checks of
+    the module docstring; the launch checks only on the card."""
+    import collections
+    import functools
+    import multiprocessing
+
+    import numpy as np
+
+    from areal_tpu_torch.api import cli_args as CA
+    from areal_tpu_torch.apps.launcher import run_experiment
+    from areal_tpu_torch.base import name_resolve
+    from areal_tpu_torch.experiments.async_ppo_math_exp import (
+        AsyncPPOMATHConfig,
+    )
+    from areal_tpu_torch.models import hf
+    from areal_tpu_torch.models.transformer import init_params
+
+    cuda = torch.device(device).type == "cuda"
+    t_setup = time.monotonic()
+    # One HF checkpoint for every role, as in (n): the critic's seed-0
+    # parameters (the actor's trunk and a seeded value head).
+    check(cfg.tie_word_embeddings, "async loop: one checkpoint serves actor "
+          "and critic only with tied embeddings")
+    hf_dir = os.path.join(tmp, "init_hf")
+    critic_cfg = dataclasses.replace(cfg, is_critic=True)
+    hf.save_hf_checkpoint(init_params(critic_cfg, seed=0, device=device,
+                                      dtype=torch.bfloat16), critic_cfg, hf_dir)
+    data_path = os.path.join(tmp, "math.jsonl")
+    write_math_prompts(data_path, 128, seed=1)
+    exp = AsyncPPOMATHConfig(experiment_name="chip_smoke", trial_name="o",
+                             backend="cuda" if cuda else "cpu")
+    CA.apply_overrides(exp, [
+        f"cluster.fileroot={tmp}", f"dataset.path={data_path}",
+        f"actor.path={hf_dir}", f"ref.path={hf_dir}", "mock_tokenizer=true",
+        # the README's async recipe; the rest at its defaults
+        f"group_size={group_size}", "max_head_offpolicyness=4",
+        "ppo.use_decoupled_loss=true",
+        # the cuts
+        f"dataset.train_bs_n_seqs={n_prompts}",
+        f"new_tokens_per_chunk={chunk_tokens}",
+        f"exp_ctrl.benchmark_steps={steps}",
+        f"ppo.gen.max_new_tokens={max_new_tokens}", *extra])
+    ctx = multiprocessing.get_context("spawn")
+    pipes = {k: ctx.Pipe(duplex=False) for k in ("trainer", "gen_fleet",
+                                                  "rollout")}
+    probes = {"trainer": functools.partial(async_trainer_probe,
+                                           pipes["trainer"][1]),
+              "gen_fleet": functools.partial(async_fleet_probe,
+                                             pipes["gen_fleet"][1]),
+              "rollout": functools.partial(async_rollout_probe,
+                                           pipes["rollout"][1])}
+    old_repo = name_resolve.DEFAULT_REPO
+    box: dict = {}
+    got: dict = {}
+
+    def run():
+        try:
+            box["result"] = run_experiment(exp, probes=probes)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            box["error"] = e
+
+    def read(kind, recv):
+        # Read while the loop runs: a record larger than the pipe's buffer
+        # blocks its sender until it is read.
+        try:
+            got[kind] = recv.recv()
+        except (EOFError, OSError) as e:
+            got[kind] = ("error", f"the pipe closed before a record ({e!r})")
+
+    readers = [threading.Thread(target=read, args=(k, recv), daemon=True)
+               for k, (recv, _) in pipes.items()]
+    for r in readers:
+        r.start()
+    t0 = time.monotonic()
+    try:
+        thread = threading.Thread(target=run, daemon=True, name="async-loop")
+        thread.start()
+        # the steps' bound, the loads before them and the bounded teardown
+        thread.join(timeout + 300)
+        loop_s = time.monotonic() - t0
+        check(not thread.is_alive(), "async loop: run_experiment did not "
+              f"return within {timeout + 300:.0f} s")
+        if "error" in box:
+            raise box["error"]
+        result = box["result"]
+        for (_, send), reader in zip(pipes.values(), readers):
+            send.close()  # a child that died sent nothing: EOF
+            reader.join(60)
+        for kind in pipes:
+            check(kind in got, f"async loop: no record from the {kind}")
+            status, got[kind] = got[kind]
+            check(status == "done", f"async loop {kind} failed:\n"
+                  f"{got[kind]}")
+        check(not multiprocessing.active_children(), "async loop: children "
+              f"outlived the teardown: {multiprocessing.active_children()}")
+    finally:
+        name_resolve.DEFAULT_REPO = old_repo
+        for recv, send in pipes.values():
+            recv.close()
+            send.close()
+    tr, fleet, roll = got["trainer"], got["gen_fleet"], got["rollout"]
+
+    # the loop's stats, step by step
+    check(result["steps"] == steps, f"async loop: {result['steps']} steps, "
+          f"expected {steps}")
+    stats = result["stats"]
+    steps_s = sum(st["timeperf/e2e"] for st in stats)
+    check(steps_s <= timeout, f"async loop: {steps} steps took "
+          f"{steps_s:.1f} s > {timeout:.0f} s")
+    for i, st in enumerate(stats):
+        for k in ("actor_train/actor_loss", "critic_train/critic_loss",
+                  "actor_train/grad_norm", "critic_train/grad_norm"):
+            check(k in st and math.isfinite(st[k]),
+                  f"async loop step {i}: {k} = {st.get(k)}")
+        check(st["actor_train/grad_norm"] > 0
+              and st["critic_train/grad_norm"] > 0,
+              f"async loop step {i}: zero grad norm")
+    recs = tr["records"]
+    counts = collections.Counter(r["mfc"] for r in recs)
+    check(counts == {m: steps for m in ASYNC_MFCS},
+          f"async loop: MFCs per run {dict(counts)}")
+
+    # versions: every trained trajectory version_start <= version_end <=
+    # the trainer's version at its train step; the fleet at one version
+    lags, spans = [], 0
+    for r in recs:
+        if r["mfc"] != "actor_train":
+            continue
+        for vs, ve in zip(r["version_start"], r["version_end"]):
+            check(vs <= ve <= r["version"], f"async loop: trajectory "
+                  f"versions {vs}..{ve} trained at version {r['version']}")
+            lags.append(r["version"] - vs)
+            spans += ve > vs
+    check(fleet["manager_version"] == fleet["server_version"] >= steps - 1,
+          f"async loop: manager v{fleet['manager_version']}, server "
+          f"v{fleet['server_version']} (want equal and >= {steps - 1})")
+    check(fleet["running_rollouts"] == 0, "async loop: running_rollouts "
+          f"{fleet['running_rollouts']} after the master stopped")
+    sv = fleet["server_version"]
+    check(sv in tr["digests"] and fleet["digests"] == tr["digests"][sv],
+          f"async loop: the server's weights at v{sv} differ from the "
+          "actor the trainer published as that version")
+    check(not roll["cuda_initialized"], "async loop: the rollout worker "
+          "initialised CUDA")
+    check(roll["pushed"] >= steps * n_prompts * group_size,
+          f"async loop: {roll['pushed']} trajectories pushed")
+    if cuda:
+        check(tr["kernels_prebuilt"] and fleet["kernels_prebuilt"],
+              "async loop: a child did not find the kernels phase (a) built")
+        check(fleet["prefill_k1"] and all(
+            k == cfg.n_layers for k in fleet["prefill_k1"])
+            and fleet["k1"] == cfg.n_layers * len(fleet["prefill_k1"]),
+            f"async loop: K1 launched {fleet['k1']} times in the fleet over "
+            f"{len(fleet['prefill_k1'])} prefills")
+        for r in recs:
+            check_launches(f"async loop {r['mfc']}", r["launches"],
+                           r["micro_batches"], cfg.n_layers,
+                           train=r["mfc"].endswith("_train"))
+
+    # what the script prints
+    per_mfc = {}
+    for name in ASYNC_MFCS:
+        rs = [r for r in recs if r["mfc"] == name][1:]  # after the warm-up
+        per_mfc[name] = {
+            "master_ms": 1e3 * float(np.mean([st[f"timeperf/{name}"]
+                                              for st in stats[1:]])),
+            "trainer_wall_ms": 1e3 * float(np.mean([r["wall_s"]
+                                                    for r in rs])),
+            "device_ms": (float(np.mean([r["device_ms"] for r in rs]))
+                          if cuda else None),
+            "micro_batches": rs[-1]["micro_batches"],
+            "launches": rs[-1]["launches"]}
+    windows = [(r["t0"], r["t1"]) for r in recs]
+
+    def busy(b):
+        mid = (b["t0"] + b["t1"]) / 2
+        return any(a <= mid <= z for a, z in windows)
+
+    def decode_ms(bs):
+        steps_ = sum(b["decode_steps"] for b in bs)
+        return 1e3 * sum(b["decode_s"] for b in bs) / steps_ if steps_ else None
+
+    bt = fleet["batches"]
+    step_s = [st["timeperf/e2e"] for st in stats[1:]]
+    train_tokens = [r["tokens"] for r in recs if r["mfc"] == "actor_train"]
+    launches = {k: sum(r["launches"][k] for r in recs) for k in KERNEL_NAMES}
+    launches["flash_attention_fwd"] += fleet["k1"]
+    return {
+        "steps": result["steps"], "timed_steps": len(step_s),
+        "ms_per_step": 1e3 * float(np.mean(step_s)),
+        "step_ms": [1e3 * st["timeperf/e2e"] for st in stats],
+        "per_mfc": per_mfc,
+        "trained_tokens_per_step": train_tokens[-1],
+        "trained_tokens_per_s": float(np.mean(train_tokens[1:])
+                                      / np.mean(step_s)),
+        "fleet_generated_tokens": sum(b["tokens"] for b in bt),
+        "fleet_generated_tokens_per_s": sum(b["tokens"] for b in bt) / max(
+            bt[-1]["t1"] - bt[0]["t0"], 1e-9),
+        "weight_sync": [{"version": v, "fanout_s": f, "publish_to_swap_s": e}
+                        for v, f, e in fleet["sync_history"]],
+        "trainer_publish_s": {p["version"]: p["publish_s"]
+                              for p in tr["publishes"]},
+        "probe_copy_s": sum(p["probe_copy_s"] for p in tr["publishes"]),
+        "staleness_hist": dict(sorted(collections.Counter(lags).items())),
+        "share_version_end_after_start": spans / max(len(lags), 1),
+        "denials": roll["denials"], "pushed": roll["pushed"],
+        "abandoned": roll["abandoned"], "failovers": roll["failovers"],
+        "server_batch_rows": dict(sorted(collections.Counter(
+            b["rows"] for b in bt).items())),
+        "server_prefills": len(fleet["prefill_k1"]),
+        "decode_ms_per_step_during_training": decode_ms(
+            [b for b in bt if busy(b)]),
+        "decode_ms_per_step_outside_training": decode_ms(
+            [b for b in bt if not busy(b)]),
+        "batches_during_training": sum(busy(b) for b in bt),
+        "batches": len(bt),
+        "trainer_peak_gb": tr["peak_gb"], "server_peak_gb": fleet["peak_gb"],
+        "final_version": sv,
+        "actor": [{k: st[f"actor_train/{k}"] for k in (
+            "actor_loss", "grad_norm", "n_action_tokens")} for st in stats],
+        "critic": [{k: st[f"critic_train/{k}"] for k in (
+            "critic_loss", "grad_norm")} for st in stats],
+        "launches_total": launches,
+        "loop_s": loop_s, "setup_s": t0 - t_setup,
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -2247,6 +2706,19 @@ def main() -> None:
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
     loop_launches = loop["launches_total"]
 
+    # (o) the async-PPO loop: run_experiment spawns the trainer, the
+    # generation fleet and a rollout worker; the master runs here
+    t_async = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_async_")
+    try:
+        async_loop = run_async_loop(cfg, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("async loop", json.dumps({
+        **async_loop, "phase_o_s": time.monotonic() - t_async,
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+    async_launches = async_loop["launches_total"]
+
     lib_line = ("areal_tpu/ops/pallas/flash_attention.py:200 backward: the "
                 "Pallas TPU library's {} :{} (pallas_call :{})")
     train_launches = train["launches"]
@@ -2256,12 +2728,15 @@ def main() -> None:
         "replaces": "areal_tpu/ops/pallas/flash_attention.py:200",
         "launches": serve_launches + train_launches["flash_attention_fwd"]
         + trainer_launches["flash_attention_fwd"] + wsync["k1_launches"]
-        + loop_launches["flash_attention_fwd"],
+        + loop_launches["flash_attention_fwd"]
+        + async_launches["flash_attention_fwd"],
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_attention_fwd"],
                              "trainer": trainer_launches["flash_attention_fwd"],
                              "weight_sync": wsync["k1_launches"],
-                             "sync_loop": loop_launches["flash_attention_fwd"]},
+                             "sync_loop": loop_launches["flash_attention_fwd"],
+                             "async_loop":
+                             async_launches["flash_attention_fwd"]},
         "max_abs_err": k1_train_check["max_abs_err"],
         "ms": timing_train["kernel_ms"], "kernel_ms": timing_train["kernel_ms"],
         "plain_ms": timing_train["plain_ms"],
@@ -2281,10 +2756,11 @@ def main() -> None:
             "source": "areal_tpu_torch/ops/csrc/flash_attention_bwd.cu",
             "replaces": lib_line.format(fn, line, call),
             "launches": train_launches[name] + trainer_launches[name]
-            + loop_launches[name],
+            + loop_launches[name] + async_launches[name],
             "launches_by_path": {"train": train_launches[name],
                                  "trainer": trainer_launches[name],
-                                 "sync_loop": loop_launches[name]},
+                                 "sync_loop": loop_launches[name],
+                                 "async_loop": async_launches[name]},
             "max_abs_err": err,
             "ms": rec["kernel_ms"], "kernel_ms": rec["kernel_ms"],
             "plain_ms": bwd_timing["plain_bwd_ms"],

@@ -1,8 +1,9 @@
 """The port stands alone: every module of areal_tpu_torch imports with ``jax``,
-``safetensors``, ``transformers``, ``zmq``, ``aiohttp`` and ``msgpack``
-blocked (the machine with the card is not known to have any of them), and
-no file of the package (nor chip_smoke.py) names ``jax`` or a module of the
-reference package, nor imports one of the others."""
+``safetensors``, ``transformers``, ``zmq``, ``aiohttp``, ``msgpack`` and
+``yaml`` blocked (the machine with the card is not known to have any of
+them), and no file of the package (nor chip_smoke.py) names ``jax`` or a
+module of the reference package, nor imports one of the others. The rollout
+worker's module imports without initialising CUDA."""
 
 import os
 import re
@@ -21,7 +22,7 @@ PKG = ROOT / "areal_tpu_torch"
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 BLOCKED = ("jax", "safetensors", "transformers", "zmq", "aiohttp",
-           "msgpack")
+           "msgpack", "yaml")
 for blocked in BLOCKED:
     sys.modules[blocked] = None  # any import of it now raises ImportError
 import areal_tpu_torch
@@ -37,13 +38,13 @@ print(len(names))
 
 
 def test_every_module_imports_with_jax_blocked():
-    """(``safetensors``, ``transformers``, ``zmq``, ``aiohttp`` and
-    ``msgpack`` are blocked as well.)"""
+    """(``safetensors``, ``transformers``, ``zmq``, ``aiohttp``, ``msgpack``
+    and ``yaml`` are blocked as well.)"""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 54  # every module was walked
+    assert int(res.stdout.strip()) >= 76  # every module was walked
 
 
 def test_no_file_names_jax_or_the_reference_package():
@@ -51,10 +52,29 @@ def test_no_file_names_jax_or_the_reference_package():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
     bad = re.compile(r"\bjax\b|\bareal_tpu\."
-                     r"|\b(import|from) (safetensors|transformers|zmq|aiohttp|msgpack)\b")
+                     r"|\b(import|from) (safetensors|transformers|zmq|aiohttp"
+                     r"|msgpack|yaml)\b")
     for path in files:
         for i, line in enumerate(path.read_text().splitlines(), 1):
             assert not bad.search(line), f"{path.relative_to(ROOT)}:{i}: {line}"
+
+
+_ROLLOUT_NO_CUDA = """
+import torch
+import areal_tpu_torch.system.rollout_worker
+import areal_tpu_torch.apps.launcher
+assert not torch.cuda.is_initialized()
+print("ok")
+"""
+
+
+def test_rollout_worker_import_leaves_cuda_alone():
+    """The rollout worker's process never initialises CUDA: importing its
+    module (and the launcher's entries) does not."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _ROLLOUT_NO_CUDA], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
 def test_resolve_device():
@@ -71,6 +91,10 @@ def test_entry_points_need_a_device():
     """Without a GPU and without an explicit device, the helpers that make
     tensors raise instead of landing on the CPU."""
     from areal_tpu_torch.api.model import FinetuneSpec, Model, make_backend
+    from areal_tpu_torch.apps.launcher import run_experiment
+    from areal_tpu_torch.experiments.async_ppo_math_exp import (
+        AsyncPPOMATHConfig,
+    )
     from areal_tpu_torch.backend import torch_train  # noqa: F401 (registry)
     from areal_tpu_torch.models.config import tiny_config
     from areal_tpu_torch.models.convert import params_from_jax
@@ -93,6 +117,7 @@ def test_entry_points_need_a_device():
                  lambda: make_backend("torch_inference").initialize(
                      Model("ref", (cfg, params)), FinetuneSpec()),
                  lambda: load_hf_checkpoint("no/such/dir"),
-                 lambda: TrainerWorker(TrainerWorkerConfig()).setup()):
+                 lambda: TrainerWorker(TrainerWorkerConfig()).setup(),
+                 lambda: run_experiment(AsyncPPOMATHConfig())):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

@@ -13,7 +13,9 @@ trainer_worker}.py over the port's request stream) on the CPU at
    ``reward_output_bias=0.5`` so the gradients are not zero. Tolerances:
    tokens and rewards equal; actor_train stats rtol 1e-4 / atol 1e-5;
    the last published actor checkpoints within 1e-5 (f32, another
-   summation order, two optimizer steps).
+   summation order, two optimizer steps);
+ - the entry point: ``python -m areal_tpu_torch.training.main_sync_ppo``'s
+   ``main`` with ``--backend=cpu`` runs the recipe through the launcher.
 """
 
 import json
@@ -518,3 +520,34 @@ def test_mfc_flops_count_the_main_token_key():
         counts.append(master._flops.pop())
     assert counts[0] == pytest.approx(want.pop(), rel=1e-12)
     assert counts[1] < counts[0] / 50  # the reference: 4 "tokens"
+
+
+# --------------------------------------------------------- the entry point
+
+
+def test_main_sync_ppo_on_the_cpu(tmp_path, monkeypatch):
+    """``python -m areal_tpu_torch.training.main_sync_ppo --backend=cpu``:
+    the sync recipe at tiny size through the command line and the
+    launcher's sync path (a spawned trainer, the master here), 2 steps."""
+    from areal_tpu_torch.experiments.ppo_math_exp import PPOMATHConfig
+    from areal_tpu_torch.training import _cli
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")  # the spawned trainer's
+    data_path = str(tmp_path / "math.jsonl")
+    make_math_jsonl(data_path, n=8)
+    argv = ["--backend=cpu", f"cluster.fileroot={tmp_path}",
+            "experiment_name=clisync", "trial_name=t0", "mock_tokenizer=true",
+            "actor.tiny.vocab_size=258", "ref.tiny.vocab_size=258",
+            f"dataset.path={data_path}", "dataset.train_bs_n_seqs=2",
+            "group_size=2", "ppo.gen.max_new_tokens=8",
+            "ppo.ppo_n_minibatches=2", "exp_ctrl.benchmark_steps=2"]
+    old = tnr.DEFAULT_REPO
+    try:
+        result = _run_bounded(lambda: _cli.main("ppo-math", PPOMATHConfig,
+                                                argv=argv))
+    finally:
+        tnr.DEFAULT_REPO = old
+    assert result["steps"] == 2
+    for st in result["stats"]:
+        for k in ("actor_train/actor_loss", "critic_train/critic_loss"):
+            assert np.isfinite(st[k]), k
