@@ -10,11 +10,13 @@ names), :func:`print_config_help` and the parts of
 
 Differences: ``backend`` is ``cuda`` (default) or ``cpu``, the device every
 worker runs on; ``n_gpus_per_node`` defaults to 1, the port's one card; a
-model role's ``backend`` defaults to ``torch_train``. Left out with the
-pieces that read them: telemetry, goodput, sentinel, compile_watch,
-serving, fault_tolerance, autoscale, durability, reward_service,
-auto_eval, multi-process trainers, and the YAML dump and load (``yaml`` is
-not known on the card's machine).
+model role's ``backend`` defaults to ``torch_train``;
+``compile_watch.storm_warmup_calls`` is left out (no jitted function to
+watch); a list field also takes a JSON list (``sentinel.rules=[{...}]``:
+the reference sets rule packs through its YAML). Left out with the pieces that read them: serving, fault_tolerance,
+autoscale, durability, reward_service, auto_eval, multi-process trainers,
+and the YAML dump and load (``yaml`` is not known on the card's
+machine).
 """
 
 from __future__ import annotations
@@ -29,8 +31,12 @@ from typing import Any, Dict, List, Optional
 
 from areal_tpu_torch.api.data import MicroBatchSpec
 from areal_tpu_torch.api.train_config import (
+    CompileWatchConfig,
     ExperimentSaveEvalControl,
+    GoodputConfig,
     OptimizerConfig,
+    SentinelConfig,
+    TelemetryConfig,
     WeightSyncConfig,
 )
 from areal_tpu_torch.base.name_resolve import NameResolveConfig
@@ -120,6 +126,17 @@ class BaseExperimentConfig:
     # Trainer -> generation-fleet weight transport: stream | disk.
     weight_sync: WeightSyncConfig = dataclasses.field(
         default_factory=WeightSyncConfig)
+    # Observability, every block off by default: `telemetry.enabled=true`
+    # turns on cross-worker metrics, trace spans, the merged Prometheus
+    # /metrics and the profiler trigger; goodput, compile_watch (the
+    # kernel build and device-memory gauges) and the sentinel need it.
+    telemetry: TelemetryConfig = dataclasses.field(
+        default_factory=TelemetryConfig)
+    goodput: GoodputConfig = dataclasses.field(default_factory=GoodputConfig)
+    sentinel: SentinelConfig = dataclasses.field(
+        default_factory=SentinelConfig)
+    compile_watch: CompileWatchConfig = dataclasses.field(
+        default_factory=CompileWatchConfig)
     # Test and bring-up runs: the byte-level mock tokenizer.
     mock_tokenizer: bool = False
 
@@ -181,6 +198,10 @@ def _coerce(value: str, tp) -> Any:
         return value
     origin = typing.get_origin(tp)
     if origin in (list, List):
+        if value.lstrip().startswith("["):
+            # a JSON list: how a list of mappings (sentinel.rules) is given
+            # without the reference's YAML
+            return json.loads(value)
         (etp,) = typing.get_args(tp) or (str,)
         if not value:
             return []
@@ -297,10 +318,50 @@ def validate_config(cfg) -> None:
                     f"allocation_mode {label} spec '{spec}' needs "
                     f"{spec.world_size} devices but the experiment has "
                     f"n_nodes×n_gpus_per_node = {n_devices}")
+    _validate_observability(cfg)
     nr = getattr(getattr(cfg, "cluster", None), "name_resolve", None)
     if nr is not None and getattr(nr, "type", "nfs") not in ("nfs", "memory"):
         raise ConfigError(f"cluster.name_resolve.type={nr.type!r}: use nfs "
                           "(the default) or memory")
+
+
+def _validate_observability(cfg) -> None:
+    """The reference's checks of the goodput, compile_watch and sentinel
+    blocks: each needs telemetry, and a bad rule pack fails here, naming
+    the rule, not inside the spawned master."""
+    tel_on = getattr(getattr(cfg, "telemetry", None), "enabled", False)
+    for block in ("goodput", "compile_watch", "sentinel"):
+        sub = getattr(cfg, block, None)
+        if getattr(sub, "enabled", False) and not tel_on:
+            raise ConfigError(
+                f"{block}.enabled=true requires telemetry.enabled=true: it "
+                "exports through the telemetry registry and the master's "
+                "aggregator; without telemetry there is nowhere to export")
+    gp = getattr(cfg, "goodput", None)
+    if getattr(gp, "enabled", False):
+        if gp.export_interval_secs <= 0:
+            raise ConfigError(f"goodput.export_interval_secs="
+                              f"{gp.export_interval_secs} must be > 0")
+        if gp.peak_flops_override < 0:
+            raise ConfigError(
+                f"goodput.peak_flops_override={gp.peak_flops_override} "
+                "must be >= 0 (0 = from the card's name)")
+    cw = getattr(cfg, "compile_watch", None)
+    if getattr(cw, "enabled", False) and cw.mem_sample_interval_secs < 0:
+        raise ConfigError(f"compile_watch.mem_sample_interval_secs="
+                          f"{cw.mem_sample_interval_secs} must be >= 0")
+    sn = getattr(cfg, "sentinel", None)
+    if getattr(sn, "enabled", False):
+        if sn.eval_interval_secs <= 0:
+            raise ConfigError(f"sentinel.eval_interval_secs="
+                              f"{sn.eval_interval_secs} must be > 0")
+        from areal_tpu_torch.system.sentinel import rules_from_config
+
+        try:
+            rules_from_config(sn, compile_watch_enabled=getattr(
+                cw, "enabled", False))
+        except ValueError as e:
+            raise ConfigError(f"invalid sentinel rule pack: {e}") from None
 
 
 def print_config_help(cfg, _indent: int = 0) -> None:

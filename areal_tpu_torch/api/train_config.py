@@ -1,14 +1,16 @@
-"""Optimizer, weight-sync and save/eval configuration.
+"""Optimizer, weight-sync, observability and save/eval configuration.
 
-The port's own copies of ``OptimizerConfig``, ``WeightSyncConfig`` and
-``ExperimentSaveEvalControl`` from ``areal_tpu/api/train_config.py:20, :43,
-:486``, with the same defaults.
+The port's own copies of ``OptimizerConfig``, ``WeightSyncConfig``,
+``TelemetryConfig``, ``GoodputConfig``, ``CompileWatchConfig``,
+``SentinelConfig`` and ``ExperimentSaveEvalControl`` from
+``areal_tpu/api/train_config.py``, with the same defaults. Every
+observability block is off by default.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, List, Optional
 
 
 @dataclasses.dataclass
@@ -59,6 +61,121 @@ class WeightSyncConfig:
         if self.transport not in ("stream", "disk"):
             raise ValueError(
                 f"unknown weight_sync.transport {self.transport!r}")
+
+
+@dataclasses.dataclass
+class TelemetryConfig:
+    """Unified telemetry layer (``base/telemetry.py``).
+
+    Off by default: with ``enabled=False`` every instrumented call site
+    routes to a shared no-op sink — no sockets, no HTTP servers, no span
+    allocation — so the hot paths carry no passive overhead."""
+
+    enabled: bool = False
+    # Worker→aggregator snapshot push cadence.
+    flush_interval_secs: float = 2.0
+    # Aggregated per-snapshot stream; defaults under the experiment log
+    # dir (<log>/telemetry.jsonl) when the experiment tree wires it.
+    jsonl_path: Optional[str] = None
+    # >0: the master's aggregator serves the merged fleet state as
+    # Prometheus text on this plain-HTTP port (GET /metrics).
+    http_port: int = 0
+    # Span buffer bound per process between flushes (oldest drop first).
+    max_buffered_spans: int = 4096
+    # Stitched end-to-end traces (one JSON line per trained sample);
+    # defaults next to telemetry.jsonl when unset.
+    traces_path: Optional[str] = None
+    # How long a terminal span waits for sibling workers' slower span
+    # flushes before the trace is stitched. Should exceed
+    # flush_interval_secs; lower it together with the flush interval.
+    stitch_grace_secs: float = 5.0
+    # Per-worker crash-evidence ring of recent span/event records
+    # (0 disables the ring entirely).
+    flight_recorder_len: int = 512
+    # Where flight_<worker>.jsonl dumps land on crash/SIGTERM/eviction.
+    # None: no crash hooks are installed (on-demand dumps still work —
+    # the trigger request carries its own directory).
+    flight_dir: Optional[str] = None
+
+
+@dataclasses.dataclass
+class GoodputConfig:
+    """Goodput ledger (``system/goodput.py``).
+
+    Off by default: every worker gets the shared null ledger. Enabled
+    (requires ``telemetry.enabled``), each worker classifies its wall
+    clock into ``compute / comm / data_wait / idle`` counters, the
+    trainer and the generation servers export live achieved-TFLOP/s and
+    MFU gauges against the card's peak (``base/monitor.py``), and the
+    master's aggregator stitches fleet goodput onto the merged scrape."""
+
+    enabled: bool = False
+    # Minimum interval between counter exports from a ledger into its
+    # telemetry registry.
+    export_interval_secs: float = 1.0
+    # Override the per-card peak FLOP/s of the MFU gauges; 0 = from the
+    # card's name (monitor.device_peak_flops). On an unknown device the
+    # MFU gauges degrade to achieved-TFLOP/s-only with a one-time warning.
+    peak_flops_override: float = 0.0
+
+
+@dataclasses.dataclass
+class CompileWatchConfig:
+    """Compile & device-memory observatory (``base/compile_watch.py``,
+    ``system/memwatch.py``).
+
+    Off by default. Enabled (requires ``telemetry.enabled``), the kernel
+    build at first use is recorded (``compile/events{fn=}``,
+    ``compile/secs{fn=}``, ``compile/inflight``), every device-bearing
+    worker samples its allocator's gauges with high-water marks around
+    the big allocators, and the sentinel arms its compile/memory rules.
+    The reference's ``storm_warmup_calls`` is left out: the port compiles
+    no jitted function, so there is no recompile storm to detect."""
+
+    enabled: bool = False
+    # Min interval between device memory polls (samples piggyback on
+    # worker cadences, so this bounds poll cost, not wakeups).
+    mem_sample_interval_secs: float = 10.0
+
+
+@dataclasses.dataclass
+class SentinelConfig:
+    """Training-health sentinel (``system/sentinel.py``).
+
+    Off by default: nothing is constructed. Enabled (requires
+    ``telemetry.enabled``), the master's aggregator hosts a rule engine
+    over the merged fleet telemetry and the trainer's training-dynamics
+    series; firing alerts land in ``alerts.jsonl``, export as
+    ``areal_alerts_total{rule,severity}`` / ``areal_alert_active`` on the
+    merged scrape, and capture evidence into ``evidence/<rule>-<ts>/``."""
+
+    enabled: bool = False
+    # Rule evaluation cadence inside the aggregator's ingest loop.
+    eval_interval_secs: float = 1.0
+    # Include the built-in rule pack (system/sentinel.DEFAULT_RULES).
+    default_rules: bool = True
+    # Extra rules (dicts in the rule grammar; validated at parse time).
+    rules: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
+    # A source that has not reported within this window is dropped from
+    # rule aggregation.
+    source_expiry_secs: float = 120.0
+    # Alert stream; defaults next to telemetry.jsonl.
+    alerts_path: Optional[str] = None
+    # Per-alert evidence bundles; defaults to <log>/evidence.
+    evidence_dir: Optional[str] = None
+    # Hard cap on bundles per run.
+    max_evidence_bundles: int = 8
+    # Critical alerts also request a trainer profiler capture into the
+    # bundle (off by default: it costs trainer time).
+    profile_on_critical: bool = False
+    profile_secs: float = 5.0
+    # How many recent stitched trace ids to pin into each bundle.
+    pinned_traces: int = 8
+    # Rules with action=pause may command a master pause.
+    allow_pause: bool = False
+    # Critical alerts publish an autoscale-inhibit hint.
+    autoscale_inhibit: bool = True
+    inhibit_secs: float = 300.0
 
 
 @dataclasses.dataclass

@@ -40,7 +40,18 @@
  - ``TorchTrainBackend(train=False)`` (``"torch_inference"``) keeps the
    parameters in their own dtype and builds no optimizer.
 
-Not ported yet: meshes and MoE.
+With telemetry on (``base/telemetry.py``) a train step records the
+reference's ``train/split_pack``, ``train/fwd_bwd`` and
+``train/optimizer`` spans, the ``train/pack_fill`` / ``infer/pack_fill``
+gauges, the ``train/tokens`` and ``train/optimizer_steps`` counters and
+the ``train/fwd_bwd`` memory watermark; it then synchronises the device
+at the end of the fwd-bwd and of the optimizer spans, so that each span
+times the work and not its launches. With telemetry off the step keeps
+its one host sync.
+
+Not ported yet: meshes and MoE (and with them the reference's
+``train/pp_engaged``, ``train/ring_engaged`` and ``train/moe_ep_engaged``
+gauges).
 """
 
 from __future__ import annotations
@@ -69,6 +80,7 @@ from areal_tpu_torch.api.model import (
 from areal_tpu_torch.api.train_config import OptimizerConfig
 from areal_tpu_torch.backend import microbatch as mbu
 from areal_tpu_torch.base import safetensors_io as sio
+from areal_tpu_torch.base import telemetry
 from areal_tpu_torch.models import generate as genmod
 from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.models.packing import round_up
@@ -78,6 +90,7 @@ from areal_tpu_torch.models.transformer import (
     head_param_name,
 )
 from areal_tpu_torch.ops.xent import gather_logprobs
+from areal_tpu_torch.system import memwatch
 
 # Loss functions receive (logits or [R, L] logprobs, batch) and return
 # (loss_sum, stats-sums).
@@ -375,15 +388,28 @@ class TorchTrainEngine(TrainableEngine):
 
     # -------------- upload-once uniform batches --------------
 
-    def upload_uniform(self, input_: SequenceSample,
-                       mb_spec: MicroBatchSpec) -> UniformBatch:
-        """Pack the whole batch into micro-batches of one ``[R, L]`` shape
-        and upload it to the device once."""
-        mbs = mbu.split_into_microbatches(
+    def _split(self, input_: SequenceSample,
+               mb_spec: MicroBatchSpec) -> List[mbu.MicroBatch]:
+        return mbu.split_into_microbatches(
             input_, mb_spec, length_bucket=self.length_bucket,
             rows_bucket=self.rows_bucket, seqs_bucket=self.seqs_bucket,
             fill_bucket=self.fill_bucket,
         )
+
+    def upload_uniform(self, input_: SequenceSample,
+                       mb_spec: MicroBatchSpec,
+                       train: bool = True) -> UniformBatch:
+        """Pack the whole batch into micro-batches of one ``[R, L]`` shape
+        and upload it to the device once. ``train=False`` (the inference
+        forward) reports its fill as ``infer/pack_fill``, outside the
+        ``train/split_pack`` span."""
+        if train:
+            with telemetry.span("train/split_pack"):
+                mbs = self._split(input_, mb_spec)
+                telemetry.set_gauge("train/pack_fill", mbu.pack_fill(mbs))
+        else:
+            mbs = self._split(input_, mb_spec)
+            telemetry.set_gauge("infer/pack_fill", mbu.pack_fill(mbs))
         R, L = mbs[0].layout.shape
         S = round_up(max(len(mb.seq_mask) for mb in mbs), self.seqs_bucket)
 
@@ -450,28 +476,40 @@ class TorchTrainEngine(TrainableEngine):
         weights = [float(loss_weight_fn(ub.mbs[i])) for i in idxs]
         glob = token_normalize_scope == "global"
         t0 = self._phase_clock()
-        loss_acc, stats_acc = self.accumulate_grads(ub, loss_fn, idxs, weights,
-                                                    glob)
-        params = list(self.params.values())
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
-        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        fetch = {**stats_acc, **(extra_fetch or {}), "loss": loss_acc,
-                 "grad_norm": grad_norm}
-        values = torch.stack([v.detach().float().reshape(()) for v in fetch.values()])
-        fetched = dict(zip(fetch, values.tolist()))  # the one host sync
-        t1 = self._phase_clock()
-        apply = True
-        if skip_update_rule is not None and skip_update_rule[2]:
-            num, den, cap = skip_update_rule
-            ratio = fetched[num] / max(fetched[den], 1.0)
-            apply = cap <= 0.0 or ratio <= cap
-        # The schedule is read at the pre-increment count.
-        applied_lr = float(self.lr_schedule(self.opt_step_count))
-        if apply:
-            self.optimizer.step(params, grads, grad_norm, fetched["grad_norm"])
-        for p in params:
-            p.grad = None
+        with telemetry.span("train/fwd_bwd", n_mbs=len(idxs)), \
+                memwatch.watermark("train/fwd_bwd"):
+            loss_acc, stats_acc = self.accumulate_grads(ub, loss_fn, idxs,
+                                                        weights, glob)
+            if telemetry.enabled():
+                # An honest fwd-bwd / optimizer split; without telemetry
+                # this sync does not exist.
+                self._sync()
+        with telemetry.span("train/optimizer"):
+            params = list(self.params.values())
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in params]
+            grad_norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
+            fetch = {**stats_acc, **(extra_fetch or {}), "loss": loss_acc,
+                     "grad_norm": grad_norm}
+            values = torch.stack([v.detach().float().reshape(())
+                                  for v in fetch.values()])
+            fetched = dict(zip(fetch, values.tolist()))  # the one host sync
+            t1 = self._phase_clock()
+            apply = True
+            if skip_update_rule is not None and skip_update_rule[2]:
+                num, den, cap = skip_update_rule
+                ratio = fetched[num] / max(fetched[den], 1.0)
+                apply = cap <= 0.0 or ratio <= cap
+            # The schedule is read at the pre-increment count.
+            applied_lr = float(self.lr_schedule(self.opt_step_count))
+            if apply:
+                self.optimizer.step(params, grads, grad_norm,
+                                    fetched["grad_norm"])
+            for p in params:
+                p.grad = None
+            if telemetry.enabled():
+                self._sync()
         t2 = self._phase_clock()
         if self.time_phases:
             self.last_phase_secs = {"fwd_bwd": t1 - t0, "optimizer": t2 - t1}
@@ -480,13 +518,18 @@ class TorchTrainEngine(TrainableEngine):
         out["lr"] = applied_lr
         out["total_tokens"] = float(sum(ub.mbs[i].n_tokens for i in idxs))
         out["loss_weight"] = sum(weights)
+        telemetry.inc("train/tokens", out["total_tokens"])
+        telemetry.inc("train/optimizer_steps", float(apply))
         return out
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _phase_clock(self) -> float:
         if not self.time_phases:
             return 0.0
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
         return time.perf_counter()
 
     @staticmethod
@@ -532,7 +575,7 @@ class TorchTrainEngine(TrainableEngine):
         ``wants_token_logprobs``, else logits or a critic's values) to a
         per-token ``[R, L, ...]`` quantity on the device; one fetch per
         micro-batch. Returns per-sample packed arrays in input order."""
-        ub = self.upload_uniform(input_, mb_spec)
+        ub = self.upload_uniform(input_, mb_spec, train=False)
         use_lp = self._use_chunked_logprobs(post_hook)
         cast = self._cast()
         outs = []

@@ -54,6 +54,9 @@ class AsyncPPOMATHConfig(PPOMATHConfig):
                 max_batch_size=self.gen_max_batch_size,
                 prompt_bucket=self.gen_prompt_bucket,
                 weight_stream_pipeline_depth=self.weight_sync.pipeline_depth,
+                telemetry=self._telemetry(),
+                goodput=self.goodput,
+                compile_watch=self.compile_watch,
             )
             for i in range(n_gen)
         ]
@@ -66,6 +69,7 @@ class AsyncPPOMATHConfig(PPOMATHConfig):
             max_concurrent_rollouts=self.max_concurrent_rollouts,
             schedule_policy=self.schedule_policy,
             realloc_dir=paths["realloc"],
+            telemetry=self._telemetry(),
         )
         rollout_workers = [
             RolloutWorkerConfig(
@@ -80,6 +84,8 @@ class AsyncPPOMATHConfig(PPOMATHConfig):
                 seed=self.seed + i,
                 # the consumed-prompt log lives next to the recover ckpts
                 recover_dir=paths["recover"],
+                telemetry=self._telemetry(),
+                goodput=self.goodput,
             )
             for i in range(self.n_rollout_workers)
         ]

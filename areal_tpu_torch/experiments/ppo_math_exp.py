@@ -163,6 +163,17 @@ class PPOMATHConfig(BaseExperimentConfig):
         """Every worker's device: the CPU only when asked for."""
         return "cpu" if self.backend == "cpu" else None
 
+    def _telemetry(self):
+        """``self.telemetry`` with ``flight_dir`` defaulted under the
+        run's log dir: crash and eviction flight dumps land next to
+        telemetry.jsonl unless the operator pointed them elsewhere."""
+        if not self.telemetry.enabled or self.telemetry.flight_dir:
+            return self.telemetry
+        return dataclasses.replace(
+            self.telemetry,
+            flight_dir=os.path.join(C.experiment_paths(self)["log"],
+                                    "flight"))
+
     def build_trainer_config(self, async_mode: bool = False):
         from areal_tpu_torch.system.trainer_worker import (
             MFCRuntimeConfig,
@@ -229,6 +240,9 @@ class PPOMATHConfig(BaseExperimentConfig):
             stream_dataset=async_mode,
             realloc_dir=paths["realloc"],
             weight_sync=self.weight_sync,
+            telemetry=self._telemetry(),
+            goodput=self.goodput,
+            compile_watch=self.compile_watch,
             device=self._device(),
         )
 
@@ -242,6 +256,12 @@ class PPOMATHConfig(BaseExperimentConfig):
         bs = self.dataset.train_bs_n_seqs
         if async_mode:
             bs *= self.group_size
+        # The master hosts the aggregator; its telemetry.jsonl defaults
+        # next to the run's tensorboard stream under the log dir.
+        tel = dataclasses.replace(
+            self._telemetry(),
+            jsonl_path=(self.telemetry.jsonl_path
+                        or os.path.join(paths["log"], "telemetry.jsonl")))
         return MasterWorkerConfig(
             experiment=self.experiment_name, trial=self.trial_name,
             trainer_handler="trainer",
@@ -253,6 +273,11 @@ class PPOMATHConfig(BaseExperimentConfig):
             wandb_mode=self.wandb.mode,
             recover_dir=paths["recover"],
             recover=self.recover_mode == "resume",
+            telemetry=tel,
+            # the sentinel and fleet goodput ride in the aggregator
+            sentinel=self.sentinel,
+            goodput=self.goodput,
+            compile_watch=self.compile_watch,
         )
 
     def initial_setup(self) -> Dict[str, Any]:

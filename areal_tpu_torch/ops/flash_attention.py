@@ -153,18 +153,34 @@ _SIGNATURES = {
 }
 
 
+def _load_libraries() -> None:
+    """Build (or find built) and load every library, under the process's
+    compile watch (``base/compile_watch.py``): one watched compile per
+    source, named by its stem, a cache hit when it was already built."""
+    from areal_tpu_torch.base import compile_watch
+
+    watch = compile_watch.get()
+    with ExitStack() as stack:
+        for name in sorted(_SOURCES):
+            path = _lib_path(name)
+            rec = stack.enter_context(watch.compiling(
+                Path(_SOURCES[name]).stem, path.parent.name))
+            rec["cache_hit"] = path.exists()
+        for lib_name, path in build_libraries().items():
+            lib = ctypes.CDLL(str(path))
+            lib.areal_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.areal_cuda_error_string.restype = ctypes.c_char_p
+            _libs[lib_name] = lib
+    for fn_name, (lib_name, argtypes) in _SIGNATURES.items():
+        fn = getattr(_libs[lib_name], fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+
+
 def _library(name: str) -> ctypes.CDLL:
     with _lib_lock:
         if not _libs:
-            for lib_name, path in build_libraries().items():
-                lib = ctypes.CDLL(str(path))
-                lib.areal_cuda_error_string.argtypes = [ctypes.c_int]
-                lib.areal_cuda_error_string.restype = ctypes.c_char_p
-                _libs[lib_name] = lib
-            for fn_name, (lib_name, argtypes) in _SIGNATURES.items():
-                fn = getattr(_libs[lib_name], fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+            _load_libraries()
         return _libs[name]
 
 

@@ -4,9 +4,9 @@ The port's copy of ``areal_tpu/system/buffer.py`` (reference
 ``realhf/system/buffer.py:117``, AsyncIOSequenceBuffer): a per-slot state
 machine (empty → put → amend* → read* → free), asyncio condition
 signalling, per-MFC readiness from input keys, oldest-first batch
-selection, and slots freed once every consuming MFC has read them. The
-reference's telemetry (duplicate counter, per-MFC sample-age histogram)
-waits for the port's telemetry (ROADMAP.md Queue 1 item 4).
+selection, and slots freed once every consuming MFC has read them, with
+the reference's telemetry: the ``buffer/duplicate_dropped`` counter and
+the per-MFC sample-age histogram (``buffer/<mfc>_sample_age_secs``).
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import time
 from typing import Dict, Hashable, List, Optional, Sequence, Set
 
 from areal_tpu_torch.api.data import SequenceSample
+from areal_tpu_torch.base import telemetry
 
 
 @dataclasses.dataclass
@@ -24,6 +25,7 @@ class _Slot:
     sample: SequenceSample  # metadata only (data=None)
     birth_time: float  # monotonic: local oldest-first order
     reads_left: int
+    birth_wall: float = 0.0  # wall clock: composes with stitched traces
     read_by: Set[str] = dataclasses.field(default_factory=set)
 
 
@@ -53,12 +55,14 @@ class AsyncSequenceBuffer:
                 if sid in self._slots:
                     # A duplicate is skipped: the live slot keeps its read
                     # state and the id does not re-enter _freed.
+                    telemetry.inc("buffer/duplicate_dropped")
                     continue
                 if len(self._slots) >= self.max_size:
                     raise RuntimeError("buffer overflow")
                 self._slots[sid] = _Slot(sample=s.meta(),
                                          birth_time=time.monotonic(),
-                                         reads_left=self._n_reads)
+                                         reads_left=self._n_reads,
+                                         birth_wall=time.time())
             self._changed.notify_all()
 
     async def amend_batch(self, sample: SequenceSample) -> None:
@@ -94,10 +98,15 @@ class AsyncSequenceBuffer:
                 ids = ready()
                 if len(ids) >= n_seqs:
                     out = []
+                    now_wall = time.time()
                     for sid in ids[:n_seqs]:
                         slot = self._slots[sid]
                         slot.read_by.add(rpc_name)
                         slot.reads_left -= 1
+                        # the sample's dwell at selection (no-op when off)
+                        telemetry.observe(
+                            f"buffer/{rpc_name}_sample_age_secs",
+                            max(now_wall - slot.birth_wall, 0.0))
                         out.append(slot.sample.meta())
                         if slot.reads_left <= 0:
                             del self._slots[sid]

@@ -35,8 +35,22 @@ version)`` pair that each batch captures once. The retained KV states are
 cleared. Any failure leaves the old pair live, the stats unchanged, and
 answers 500 with ``{"ok": false, "version": <old>, "error"}``.
 
-Telemetry, goodput, compile/memory watches, request classes and prefix
-reuse wait for later slices.
+Observability (``telemetry``, ``goodput``, ``compile_watch``; all off by
+default), as the reference's server has it: a telemetry registry of the
+server's own (several servers may share a process), the
+``genserver/decode_chunk`` span and counters of every batch, the trace
+spans of every traced request (``genserver/queue_wait``,
+``genserver/prefill``, ``genserver/decode``, adopted from the
+``X-Areal-Trace`` header), the weight-update span, gauges and watermark,
+a goodput ledger (the runner thread owns idle ↔ compute; weight updates
+accrue as overlapping comm), live decode MFU and prefill TFLOP/s,
+device-memory gauges, and ``GET /metrics`` (Prometheus text: the live
+state as ``areal_genserver_*`` gauges plus the registry) and
+``GET /metrics.json``. The serving engine's per-class latency histograms
+(``serving/<class>/*``) are recorded as the reference records them with
+the engine off.
+
+Request classes' admission and prefix reuse wait for a later slice.
 """
 
 from __future__ import annotations
@@ -56,13 +70,21 @@ import torch
 
 from areal_tpu_torch import resolve_device
 from areal_tpu_torch.api.model import GenerationHyperparameters
-from areal_tpu_torch.base import name_resolve, names
+from areal_tpu_torch.api.train_config import (
+    CompileWatchConfig,
+    GoodputConfig,
+    TelemetryConfig,
+)
+from areal_tpu_torch.base import compile_watch, monitor, name_resolve, names
+from areal_tpu_torch.base import telemetry as telemetry_mod
 from areal_tpu_torch.models import convert
 from areal_tpu_torch.models import generate as genmod
 from areal_tpu_torch.models import hf
 from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.models.transformer import Transformer
 from areal_tpu_torch.ops.sampling import sampling_from_gconfigs
+from areal_tpu_torch.system import goodput as goodput_mod
+from areal_tpu_torch.system import memwatch as memwatch_mod
 from areal_tpu_torch.system.http import FleetHTTPServer
 from areal_tpu_torch.system.serving import (
     KVStateStore,
@@ -101,17 +123,29 @@ class GenerationServerConfig:
     kv_bytes_budget: int = 4 << 30  # retained-KV bytes before LRU eviction
     # In-flight chunk requests of a streamed weight update.
     weight_stream_pipeline_depth: int = 4
+    telemetry: TelemetryConfig = dataclasses.field(
+        default_factory=TelemetryConfig)
+    goodput: GoodputConfig = dataclasses.field(default_factory=GoodputConfig)
+    # arms the kernel-build watch and the device-memory gauges
+    compile_watch: CompileWatchConfig = dataclasses.field(
+        default_factory=CompileWatchConfig)
 
 
 class BadRequest(ValueError):
     """A /generate body the server cannot serve (HTTP 400)."""
 
 
+# The request classes the serving engine knows; its latency histograms
+# are recorded per class.
+REQUEST_CLASSES = ("interactive", "eval", "rollout")
+
+
 class _Pending:
     __slots__ = ("rid", "prompt", "gconfig", "max_tokens", "tokens_done",
-                 "future", "t_enqueue")
+                 "future", "t_enqueue", "t_enqueue_wall", "cls", "trace")
 
-    def __init__(self, prompt, gconfig, max_tokens, rid=None, tokens_done=0):
+    def __init__(self, prompt, gconfig, max_tokens, rid=None, tokens_done=0,
+                 cls="rollout", trace=None):
         self.rid = rid
         self.prompt = prompt
         self.gconfig = gconfig
@@ -119,6 +153,10 @@ class _Pending:
         self.tokens_done = tokens_done
         self.future: concurrent.futures.Future = concurrent.futures.Future()
         self.t_enqueue = time.monotonic()
+        self.t_enqueue_wall = time.time()
+        self.cls = cls
+        # The caller's trace (telemetry.TraceContext), None if untraced.
+        self.trace = trace
 
 
 class GenerationServer:
@@ -165,6 +203,38 @@ class GenerationServer:
         self._decode_ewma_secs: Optional[float] = None
         self._ttfc_ewma_secs: Optional[float] = None
         self._hb = None
+        # Observability: a registry of this server's own (the fleet
+        # process hosts several workers), keyed by the server id's digits.
+        idx = int("".join(c for c in cfg.server_id if c.isdigit()) or 0)
+        self.telemetry = (
+            telemetry_mod.Telemetry(cfg.experiment, cfg.trial,
+                                    "generation_server", idx,
+                                    cfg=cfg.telemetry)
+            if cfg.telemetry.enabled else telemetry_mod.NULL)
+        # idle is the base state (queue-empty waits), batches are compute,
+        # weight updates accrue as overlapping comm
+        self.ledger = goodput_mod.make_ledger(cfg.goodput, self.telemetry)
+        self._mfu: Optional[goodput_mod.MfuEmitter] = None
+        if self.ledger.enabled:
+            self._mfu = goodput_mod.MfuEmitter(
+                self.telemetry,
+                goodput_mod.resolve_peak_flops(
+                    cfg.goodput,
+                    torch.cuda.get_device_name(self.device)
+                    if self.device.type == "cuda" else str(self.device)),
+                tflops_name="genserver/decode_tflops",
+                mfu_name="genserver/decode_mfu",
+                context=f"genserver {cfg.server_id}")
+        arm_watch = cfg.compile_watch.enabled and cfg.telemetry.enabled
+        self.memwatch = (
+            memwatch_mod.MemWatch(
+                self.telemetry,
+                sample_interval_secs=cfg.compile_watch.mem_sample_interval_secs)
+            if arm_watch else memwatch_mod.NULL)
+        if arm_watch and not compile_watch.enabled():
+            # The kernel libraries are built once per process: their build
+            # is recorded on the first armed server's registry.
+            compile_watch.configure(cfg.compile_watch, self.telemetry)
 
     @property
     def model(self) -> Transformer:
@@ -219,16 +289,32 @@ class GenerationServer:
                     [plens, np.ones(B_pad - len(fresh), plens.dtype)])
             S = shapes.round_capacity(padded.shape[1] + chunk)
             shapes.observe("prefill", B_pad, padded.shape[1], S)
+            t_wall = time.time()
             t0 = time.monotonic()
             st = genmod.prefill_state(
                 model, torch.from_numpy(padded).to(dev),
                 torch.from_numpy(plens).to(dev), S)
             self._sync()
-            self._prefill_secs += time.monotonic() - t0
+            prefill_secs = time.monotonic() - t0
+            n_prefill = int(plens[:len(fresh)].sum())
+            self._prefill_secs += prefill_secs
             self._prefill_calls += 1
-            self._prefill_tokens += int(plens[:len(fresh)].sum())
+            self._prefill_tokens += n_prefill
+            if self._mfu is not None and prefill_secs > 0 and n_prefill:
+                # analytic forward-only FLOP/s (base/monitor.py formulas)
+                pf = monitor.model_flops_per_token(
+                    self.model_cfg, n_prefill / len(fresh),
+                    backward=False) * n_prefill
+                self.telemetry.set_gauge("genserver/prefill_tflops",
+                                         pf / prefill_secs / 1e12)
             for i, p in enumerate(fresh):
                 row_states[id(p)] = genmod.slice_state(st, i)
+                if p.trace is not None:
+                    # the shared batched prefill, tagged per request
+                    self.telemetry.add_span(
+                        "genserver/prefill", t_wall, prefill_secs,
+                        trace=p.trace, prompt_len=len(p.prompt),
+                        batch_size=len(fresh))
             del st
         for p, rs in cont:
             row_states[id(p)] = genmod.grow_state(
@@ -296,6 +382,9 @@ class GenerationServer:
     def _runner(self) -> None:
         cfg = self.cfg
         while True:
+            # The runner owns the ledger's partition: queue-empty waits are
+            # idle, batches compute.
+            self.ledger.enter("idle")
             first = self._queue.get()
             if first is None:
                 return
@@ -312,20 +401,73 @@ class GenerationServer:
                     break
                 batch.append(p)
             t_formed = time.monotonic()
+            for p in batch:
+                self._record_queue_wait(p, t_formed - p.t_enqueue)
             try:
-                # inference_mode is thread-local: entered in this thread.
-                with torch.inference_mode():
-                    results = self._decode_batch(batch)
+                with self.telemetry.span("genserver/decode_chunk",
+                                         batch_size=len(batch)) as attrs, \
+                        self.ledger.state("compute"):
+                    # inference_mode is thread-local: entered in this thread.
+                    with torch.inference_mode():
+                        results = self._decode_batch(batch)
+                    attrs["tokens"] = sum(len(r["output_ids"])
+                                          for r in results)
             except Exception as e:  # noqa: BLE001 — fail this batch, keep serving
                 for p in batch:
                     p.future.set_exception(e)
             else:
-                self._observe_latency(batch, results,
-                                      time.monotonic() - t_formed)
+                dt = time.monotonic() - t_formed
+                self._observe_latency(batch, results, dt)
+                self._record_batch(batch, results, dt, attrs["tokens"])
                 for p, r in zip(batch, results):
                     p.future.set_result(r)
             if stop:
                 return
+
+    def _record_queue_wait(self, p: _Pending, secs: float) -> None:
+        """The serving engine's queue-wait histogram, and the same dwell
+        as the request's ``genserver/queue_wait`` trace span."""
+        if not self.telemetry.enabled:
+            return
+        self.telemetry.observe(f"serving/{p.cls}/queue_wait_secs", secs)
+        if p.trace is not None:
+            self.telemetry.add_span("genserver/queue_wait", p.t_enqueue_wall,
+                                    secs, trace=p.trace, cls=p.cls)
+
+    def _record_batch(self, batch: List[_Pending],
+                      results: List[Dict[str, Any]], dt: float,
+                      tokens: int) -> None:
+        """One batch's counters, live decode MFU, per-request decode spans
+        and the serving engine's latency histograms."""
+        tel = self.telemetry
+        if not tel.enabled:
+            return
+        tel.inc("genserver/decode_chunks")
+        tel.inc("genserver/generated_tokens", tokens)
+        if self._mfu is not None and tokens and dt > 0:
+            # each new token runs one forward at about its row's context
+            avg_ctx = sum(len(p.prompt) + p.tokens_done
+                          for p in batch) / len(batch)
+            self._mfu.emit(monitor.model_flops_per_token(
+                self.model_cfg, avg_ctx, backward=False) * tokens / dt)
+        t_wall = time.time() - dt
+        for p, r in zip(batch, results):
+            n_tok = len(r["output_ids"])
+            if p.trace is not None:
+                # this request's share of the batched decode window
+                tel.add_span("genserver/decode", t_wall, dt, trace=p.trace,
+                             tokens=n_tok, batch_size=len(batch),
+                             version=r.get("version"))
+            if p.tokens_done == 0:
+                tel.observe(f"serving/{p.cls}/ttfc_secs",
+                            time.monotonic() - p.t_enqueue)
+            if n_tok:
+                tel.observe(f"serving/{p.cls}/token_secs", dt / n_tok,
+                            buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01,
+                                     0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5))
+        tel.set_gauge("serving/compiled_shapes", len(self.shapes.shapes()))
+        tel.set_gauge("genserver/kv_states", self.kv.count)
+        tel.set_gauge("genserver/kv_bytes", self.kv.nbytes)
 
     def _observe_latency(self, batch: List[_Pending],
                          results: List[Dict[str, Any]], dt: float) -> None:
@@ -348,7 +490,7 @@ class GenerationServer:
 
     # ---------------- requests ----------------
 
-    def _parse(self, d: Dict[str, Any]) -> _Pending:
+    def _parse(self, d: Dict[str, Any], headers=None) -> _Pending:
         try:
             gconfig = GenerationHyperparameters(**d.get("gconfig", {}))
             prompt = np.asarray(d["prompt_ids"], dtype=np.int64)
@@ -369,14 +511,22 @@ class GenerationServer:
         if max_tokens < 1 or tokens_done < 0:
             raise BadRequest("max_tokens must be >= 1, tokens_done >= 0")
         rid = d.get("rid")
-        return _Pending(prompt, gconfig, max_tokens,
-                        rid=None if rid is None else str(rid),
-                        tokens_done=tokens_done)
+        cls = d.get("class")
+        return _Pending(
+            prompt, gconfig, max_tokens,
+            rid=None if rid is None else str(rid), tokens_done=tokens_done,
+            cls=cls if cls in REQUEST_CLASSES else "rollout",
+            # the caller's trace (none without telemetry or the header)
+            trace=(telemetry_mod.extract_headers(headers)
+                   if self.telemetry.enabled and headers is not None
+                   else None))
 
-    def handle_generate(self, d: Dict[str, Any]) -> Dict[str, Any]:
-        """Serve one /generate body: enqueue, wait for the batch it lands
-        in, return the reply. Raises BadRequest for a malformed body."""
-        p = self._parse(d)
+    def handle_generate(self, d: Dict[str, Any],
+                        headers=None) -> Dict[str, Any]:
+        """Serve one /generate body (``headers``: the request's, for its
+        trace): enqueue, wait for the batch it lands in, return the reply.
+        Raises BadRequest for a malformed body."""
+        p = self._parse(d, headers)
         if self._http is None:
             raise RuntimeError("generation server is not running")
         with self._inflight_lock:
@@ -389,6 +539,8 @@ class GenerationServer:
                 self._inflight -= 1
 
     def health(self) -> Dict[str, Any]:
+        # the manager's probe doubles as the ledger's heartbeat
+        self.ledger.poll()
         return {
             "ok": True,
             "version": self.version,
@@ -399,6 +551,41 @@ class GenerationServer:
             "decode_ewma_secs": self._decode_ewma_secs,
             "ttfc_ewma_secs": self._ttfc_ewma_secs,
         }
+
+    def metrics_dict(self) -> Dict[str, Any]:
+        """``GET /metrics.json``: the live state (reference
+        ``_metrics_dict``); samples the device-memory gauges."""
+        self.ledger.poll()  # scrape-time freshness for the idle state
+        self.memwatch.sample()
+        dt = max(time.monotonic() - self._t_start, 1e-6)
+        return {
+            "generated_tokens": self._tokens_out,
+            "prefill_tokens": self._prefill_tokens,
+            "tokens_per_sec": self._tokens_out / dt,
+            "kv_states": self.kv.count,
+            "kv_bytes": self.kv.nbytes,
+            "compiled_shapes": len(self.shapes.shapes()),
+            "version": self.version,
+            "inflight_requests": self._inflight,
+            "queue_depth": self._queue.qsize(),
+            "decode_ewma_secs": self._decode_ewma_secs or 0.0,
+            "ttfc_ewma_secs": self._ttfc_ewma_secs or 0.0,
+            "last_weight_update_latency_s": self._last_update_latency,
+            **{f"last_stream_{k}": v
+               for k, v in self._last_stream_stats.items()},
+        }
+
+    def metrics_text(self) -> str:
+        """``GET /metrics``: the live state as ``areal_genserver_*``
+        gauges plus this server's telemetry registry, labelled with its
+        server id."""
+        d = self.metrics_dict()
+        extra = {f"genserver_{k}": v for k, v in d.items()}
+        # the canonical name, present from boot
+        extra["genserver_weight_version"] = d["version"]
+        return telemetry_mod.render_prometheus(
+            self.telemetry.snapshot(reset=False), extra_gauges=extra,
+            labels={"server_id": self.cfg.server_id})
 
     def stats(self) -> Dict[str, Any]:
         return {
@@ -471,6 +658,12 @@ class GenerationServer:
             endpoint, pipeline_depth=self.cfg.weight_stream_pipeline_depth,
             **({} if timeout_secs is None
                else {"timeout_secs": float(timeout_secs)}))
+        # The shadow swap is the server's device-memory high-water mark:
+        # old and new weights coexist until the verified swap.
+        with self.memwatch.watermark("genserver/shadow_swap"):
+            return self._stream_shadow(consumer, version)
+
+    def _stream_shadow(self, consumer: WeightStreamConsumer, version: int):
         try:
             manifest = consumer.fetch_manifest(version)
             params, upload_secs = self._shadow(
@@ -492,30 +685,41 @@ class GenerationServer:
                               ) -> Tuple[int, Dict[str, Any]]:
         """Serve one /update_weights body; returns (HTTP status, reply)."""
         t0 = time.monotonic()
+        transport = ("device" if d.get("device")
+                     else "stream" if d.get("endpoint") else "disk")
         with self._update_lock:
             try:
-                # The version first: a bad one fails before any load.
-                version = int(d["version"] if d.get("endpoint")
-                              else d.get("version", self.version + 1))
-                stream_stats = None
-                if d.get("device"):
-                    raise NotImplementedError(
-                        "the device transport is not ported yet (ROADMAP.md "
-                        "Queue 1 item 8, multi-GPU parallelism)")
-                if d.get("endpoint"):
-                    params, stream_stats = self._stream_and_put_weights(
-                        d["endpoint"], version, d.get("timeout"))
-                else:
-                    params = self._load_and_put_weights(d["path"])
-                new = Transformer.from_params(self.model_cfg, params)
-                # The upload ran on this thread's stream: the shadow weights
-                # are complete before any batch can read them.
-                self._sync()
+                with self.telemetry.span("genserver/weight_update",
+                                         transport=transport,
+                                         version=d.get("version", -1)):
+                    # The version first: a bad one fails before any load.
+                    version = int(d["version"] if d.get("endpoint")
+                                  else d.get("version", self.version + 1))
+                    stream_stats = None
+                    if d.get("device"):
+                        raise NotImplementedError(
+                            "the device transport is not ported yet "
+                            "(ROADMAP.md Queue 1 item 8, multi-GPU "
+                            "parallelism)")
+                    if d.get("endpoint"):
+                        params, stream_stats = self._stream_and_put_weights(
+                            d["endpoint"], version, d.get("timeout"))
+                    else:
+                        params = self._load_and_put_weights(d["path"])
+                    new = Transformer.from_params(self.model_cfg, params)
+                    # The upload ran on this thread's stream: the shadow
+                    # weights are complete before any batch can read them.
+                    self._sync()
             except Exception as e:  # noqa: BLE001 — keep old weights, report
+                self.telemetry.inc("genserver/weight_update_failures")
                 logger.error(f"weight update failed; keeping v{self.version}: "
                              f"{e!r}")
                 return 500, {"ok": False, "version": self.version,
                              "error": repr(e)}
+            finally:
+                # Accrued, not a transition: the update overlaps decodes
+                # whose runner owns the ledger's partition.
+                self.ledger.add_overlap("comm", time.monotonic() - t0)
             # The swap: batches in flight captured the old pair and tag their
             # tokens with the old version.
             self._published = (new, version)
@@ -526,6 +730,12 @@ class GenerationServer:
             self._last_update_latency = dt
             if stream_stats is not None:
                 self._last_stream_stats = stream_stats
+        self.telemetry.set_gauge("genserver/weight_version", version)
+        self.telemetry.set_gauge("genserver/weight_update_secs", dt)
+        if stream_stats is not None:
+            # a disk update must not republish a stream's stats
+            for k, v in stream_stats.items():
+                self.telemetry.set_gauge(f"genserver/{k}", v)
         logger.info(f"weights updated to v{version} in {dt:.2f}s")
         return 200, {"ok": True, "version": version, "latency_s": dt}
 
@@ -559,7 +769,7 @@ class GenerationServer:
                         raise BadRequest("body must be a JSON object")
                     if self.path == "/update_weights":
                         return self._reply(*server.handle_update_weights(body))
-                    reply = server.handle_generate(body)
+                    reply = server.handle_generate(body, self.headers)
                 except (BadRequest, json.JSONDecodeError) as e:
                     return self._reply(400, {"ok": False, "error": str(e)})
                 except Exception as e:  # noqa: BLE001 — report, keep serving
@@ -567,9 +777,19 @@ class GenerationServer:
                 self._reply(200, reply)
 
             def do_GET(self):  # noqa: N802
-                if self.path != "/health":
+                if self.path == "/health":
+                    return self._reply(200, server.health())
+                if self.path == "/metrics.json":
+                    return self._reply(200, server.metrics_dict())
+                if self.path != "/metrics":
                     return self._reply(404, {"ok": False, "error": "not found"})
-                self._reply(200, server.health())
+                data = server.metrics_text().encode()
+                self.send_response(200)
+                self.send_header("Content-Type",
+                                 "text/plain; version=0.0.4; charset=utf-8")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
 
             def log_message(self, *args):
                 pass
@@ -629,3 +849,6 @@ class GenerationServer:
                 p.future.set_exception(RuntimeError("generation server stopped"))
         self._http = None
         self._threads = []
+        self.ledger.flush()
+        self.memwatch.close()
+        self.telemetry.close()

@@ -28,9 +28,17 @@ lease, quota and version state sits under one lock.
    older version is demoted. Publish-to-swap seconds are anchored on
    ``names.model_version_time``; old disk versions are removed.
 
-Left out: the autoscaler, cordon and drain, the straggler sweep, the
-serving engine's request classes (every lease is a rollout's), the
-``device`` transport, telemetry and ``/metrics*`` (ROADMAP.md).
+Observability (``telemetry``, off by default): a registry of the
+manager's own with the fleet gauges, the probe, eviction and fanout
+counters, the fanout ack histogram, an eviction event with a flight dump,
+the ``gsmgr/alloc`` and ``gsmgr/finish`` spans of traced rollouts, and
+``GET /metrics`` (Prometheus text), ``/metrics.json`` and
+``/metrics_discovery`` (every metrics endpoint of the experiment, in
+Prometheus http_sd format).
+
+Left out: the autoscaler (and its ``autoscale/*`` metrics), cordon and
+drain, the straggler sweep, the serving engine's request classes (every
+lease is a rollout's) and the ``device`` transport (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -46,7 +54,14 @@ import time
 from http.server import BaseHTTPRequestHandler
 from typing import Callable, Dict, List, Optional, Tuple
 
-from areal_tpu_torch.base import logging, name_resolve, names, network
+from areal_tpu_torch.api.train_config import TelemetryConfig
+from areal_tpu_torch.base import (
+    logging,
+    name_resolve,
+    names,
+    network,
+    telemetry,
+)
 from areal_tpu_torch.base.retry import FaultInjector, RetryPolicy, retry
 from areal_tpu_torch.system.http import FleetHTTPServer, request_json
 from areal_tpu_torch.system.worker_base import (
@@ -84,6 +99,8 @@ class GserverManagerConfig:
     fanout_retry: RetryPolicy = dataclasses.field(
         default_factory=lambda: RetryPolicy(
             max_attempts=2, base_delay_secs=0.2, max_delay_secs=2.0))
+    telemetry: TelemetryConfig = dataclasses.field(
+        default_factory=TelemetryConfig)
 
 
 @dataclasses.dataclass
@@ -125,6 +142,10 @@ class GserverManager:
         self._http: Optional[FleetHTTPServer] = None
         self._hb = None
         self._url: Optional[str] = None
+        self.telemetry = (
+            telemetry.Telemetry(cfg.experiment, cfg.trial, "gserver_manager",
+                                0, cfg=cfg.telemetry)
+            if cfg.telemetry.enabled else telemetry.NULL)
 
     # ---------------- discovery ----------------
 
@@ -167,11 +188,19 @@ class GserverManager:
             if url in self.servers:
                 self.servers.remove(url)
             dropped = self._drop_server_leases(url)
-            why = (f"; last failure: {st.last_failure}"
-                   if st.last_failure and st.last_failure not in reason
-                   else "")
+            last_failure = st.last_failure
+            why = (f"; last failure: {last_failure}"
+                   if last_failure and last_failure not in reason else "")
             logger.warning(f"evicted {url} ({reason}{why}); dropped {dropped} "
                            f"leases, {len(self.servers)} servers remain")
+        self.telemetry.inc("gsmgr/evictions")
+        # Post-mortem evidence, written outside the lock: the eviction lands
+        # in the flight ring as an event, and the ring is dumped (with a
+        # flight_dir).
+        self.telemetry.event("gsmgr/evict", url=url, reason=reason,
+                             last_failure=last_failure,
+                             dropped_leases=dropped)
+        self.telemetry.flight_dump(reason=f"evict {url}: {reason}")
 
     def _admit(self, url: str) -> None:
         with self._lock:
@@ -213,6 +242,8 @@ class GserverManager:
         if payload is None:
             payload = self._update_payload(v, path)
 
+        t0 = time.monotonic()
+
         def post():
             if self.faults is not None:
                 self.faults.maybe_fail("fanout", url=url, version=v)
@@ -230,8 +261,11 @@ class GserverManager:
                 st = self.health.get(url)
                 if st is not None:
                     st.last_failure = f"weight push v{v}: {e!r}"
+            self.telemetry.inc("gsmgr/fanout_failures")
             logger.warning(f"weight push v{v} -> {url} gave up: {e}")
             return False
+        self.telemetry.observe("gsmgr/fanout_ack_secs",
+                               time.monotonic() - t0)
         with self._lock:
             st = self.health.get(url)
             if st is not None:
@@ -310,6 +344,7 @@ class GserverManager:
         except name_resolve.NameEntryNotFoundError:
             pass
         self.sync_history.append((v, fanout_secs, e2e_secs))
+        self._update_fleet_gauges()
         logger.info(f"weight sync v{v}: fanout {fanout_secs:.2f}s over "
                     f"{len(self.servers)} servers"
                     + (f", publish->swap {e2e_secs:.2f}s"
@@ -345,6 +380,7 @@ class GserverManager:
             if status != 200:
                 raise RuntimeError(f"/health status {status}")
         except Exception as e:  # noqa: BLE001 — any probe failure counts
+            self.telemetry.inc("gsmgr/health_probe_failures")
             with self._lock:
                 st.consecutive_failures += 1
                 st.last_failure = f"health probe: {e!r}"
@@ -354,6 +390,7 @@ class GserverManager:
                 self._evict(url, f"{st.consecutive_failures} consecutive "
                                  f"health failures ({e})")
             return
+        self.telemetry.inc("gsmgr/health_probe_ok")
         with self._lock:
             st.consecutive_failures = 0
             st.last_failure = ""
@@ -408,6 +445,24 @@ class GserverManager:
                 with self._lock:
                     self.health.pop(url, None)
         list(self._pool.map(self._check_one, list(self.health)))
+        self._update_fleet_gauges()
+
+    def _update_fleet_gauges(self) -> None:
+        t = self.telemetry
+        if not t.enabled:
+            return
+        with self._lock:
+            last = self.sync_history[-1] if self.sync_history else None
+            t.set_gauge("gsmgr/healthy_servers", len(self.servers))
+            t.set_gauge("gsmgr/known_servers", len(self.health))
+            t.set_gauge("gsmgr/lease_depth", len(self._leases))
+            t.set_gauge("gsmgr/running_rollouts", self.running_rollouts)
+            t.set_gauge("gsmgr/accepted_rollouts", self.accepted_rollouts)
+            t.set_gauge("gsmgr/weight_version", self.version)
+        if last is not None:
+            t.set_gauge("gsmgr/weight_sync_fanout_secs", last[1])
+            if last[2] is not None:
+                t.set_gauge("gsmgr/weight_sync_e2e_secs", last[2])
 
     def _loop(self, interval: float, step: Callable[[], None],
               what: str) -> None:
@@ -445,7 +500,7 @@ class GserverManager:
 
     # ---------------- handlers: (status, reply) ----------------
 
-    def schedule_request(self, d: Dict) -> Tuple[int, Dict]:
+    def schedule_request(self, d: Dict, headers=None) -> Tuple[int, Dict]:
         with self._lock:
             url = self._pick_server()
             if url is None:
@@ -456,10 +511,11 @@ class GserverManager:
             lease_id = f"l{self._lease_seq}"
             self._leases[lease_id] = (
                 url, time.monotonic() + self.cfg.lease_ttl_secs)
+            self.telemetry.inc("gsmgr/scheduled_rollout")
             return 200, {"url": url, "version": self.version,
                          "lease_id": lease_id, "class": "rollout"}
 
-    def renew(self, d: Dict) -> Tuple[int, Dict]:
+    def renew(self, d: Dict, headers=None) -> Tuple[int, Dict]:
         lid = d.get("lease_id")
         with self._lock:
             if lid in self._leases:
@@ -469,7 +525,7 @@ class GserverManager:
                 return 200, {"ok": True}
         return 200, {"ok": False, "reason": "unknown lease"}
 
-    def release(self, d: Dict) -> Tuple[int, Dict]:
+    def release(self, d: Dict, headers=None) -> Tuple[int, Dict]:
         with self._lock:
             lid = d.get("lease_id")
             if lid is not None:
@@ -489,7 +545,7 @@ class GserverManager:
                 self._inflight[u] -= 1
             return 200, {"ok": True}
 
-    def allocate_rollout(self, d: Dict) -> Tuple[int, Dict]:
+    def allocate_rollout(self, d: Dict, headers=None) -> Tuple[int, Dict]:
         n = int(d.get("n_samples", 1))
         with self._lock:
             if self.running_rollouts >= self.cfg.max_concurrent_rollouts:
@@ -497,9 +553,14 @@ class GserverManager:
             if self.is_staled():
                 return 200, {"allowed": False, "reason": "staleness"}
             self.running_rollouts += n
-            return 200, {"allowed": True, "version": self.version}
+            version = self.version
+        # The gate's admission joins the rollout's trace (denials stay
+        # counters on the rollout worker: a closed gate is polled often).
+        self._trace_event("gsmgr/alloc", headers, n_samples=n,
+                          version=version)
+        return 200, {"allowed": True, "version": version}
 
-    def finish_rollout(self, d: Dict) -> Tuple[int, Dict]:
+    def finish_rollout(self, d: Dict, headers=None) -> Tuple[int, Dict]:
         # n_samples mirrors what /allocate_rollout booked; n_accepted is
         # how many of them went to the trainer.
         n = int(d.get("n_samples", 1))
@@ -507,10 +568,81 @@ class GserverManager:
         with self._lock:
             self.running_rollouts = max(0, self.running_rollouts - n)
             self.accepted_rollouts += n_accepted
+        self._trace_event("gsmgr/finish", headers, n_samples=n,
+                          n_accepted=n_accepted)
         return 200, {"ok": True}
 
-    def get_model_version(self, d: Dict) -> Tuple[int, Dict]:
+    def _trace_event(self, name: str, headers, **attrs) -> None:
+        if not self.telemetry.enabled or headers is None:
+            return
+        ctx = telemetry.extract_headers(headers)
+        if ctx is not None:
+            self.telemetry.add_span(name, time.time(), 0.0, trace=ctx,
+                                    **attrs)
+
+    def get_model_version(self, d: Dict, headers=None) -> Tuple[int, Dict]:
         return 200, {"version": self.version}
+
+    # ---------------- metrics ----------------
+
+    def metrics_text(self) -> str:
+        """``GET /metrics``: the fleet gauges plus the manager's registry
+        (probe and fanout counters, histograms)."""
+        with self._lock:
+            gauges = {
+                "gsmgr_weight_version": self.version,
+                "gsmgr_running_rollouts": self.running_rollouts,
+                "gsmgr_accepted_rollouts": self.accepted_rollouts,
+                "gsmgr_healthy_servers": len(self.servers),
+                "gsmgr_known_servers": len(self.health),
+                "gsmgr_lease_depth": len(self._leases),
+                "gsmgr_inflight_requests": sum(self._inflight.values()),
+                "gsmgr_staled": float(self.is_staled()),
+            }
+            last = self.sync_history[-1] if self.sync_history else None
+        gauges["gsmgr_weight_sync_fanout_secs"] = last and last[1]
+        gauges["gsmgr_weight_sync_e2e_secs"] = last and last[2]
+        return telemetry.render_prometheus(
+            self.telemetry.snapshot(reset=False), extra_gauges=gauges)
+
+    def metrics_json(self, d: Dict = None, headers=None) -> Tuple[int, Dict]:
+        with self._lock:
+            last = self.sync_history[-1] if self.sync_history else None
+            return 200, {
+                "version": self.version,
+                "running_rollouts": self.running_rollouts,
+                "accepted_rollouts": self.accepted_rollouts,
+                "healthy_servers": len(self.servers),
+                "known_servers": len(self.health),
+                "fleet": {
+                    u: {"routable": st.routable,
+                        "consecutive_failures": st.consecutive_failures,
+                        "acked_version": st.acked_version,
+                        "evicted_reason": st.evicted_reason,
+                        "last_failure": st.last_failure}
+                    for u, st in self.health.items()},
+                "weight_sync_fanout_secs": last and last[1],
+                "weight_sync_e2e_secs": last and last[2],
+                "weight_sync_history": [
+                    {"version": v, "fanout_secs": f, "e2e_secs": e}
+                    for v, f, e in self.sync_history[-20:]],
+            }
+
+    def metrics_discovery(self, d: Dict = None,
+                          headers=None) -> Tuple[int, List[Dict]]:
+        """Every metrics endpoint of this experiment (the servers' and
+        this manager's) in Prometheus http_sd format."""
+        def host(u: str) -> str:
+            return u.split("//", 1)[-1]
+
+        labels = {"experiment": self.cfg.experiment, "trial": self.cfg.trial}
+        with self._lock:
+            groups = [{"targets": [host(u) for u in self.servers],
+                       "labels": {**labels, "role": "generation_server"}}]
+        if self._url:
+            groups.append({"targets": [host(self._url)],
+                           "labels": {**labels, "role": "gserver_manager"}})
+        return 200, groups
 
     # ---------------- lifecycle ----------------
 
@@ -526,24 +658,32 @@ class GserverManager:
             ("POST", "/allocate_rollout"): self.allocate_rollout,
             ("POST", "/finish_rollout"): self.finish_rollout,
             ("GET", "/get_model_version"): self.get_model_version,
+            ("GET", "/metrics.json"): self.metrics_json,
+            ("GET", "/metrics_discovery"): self.metrics_discovery,
         }
+        mgr = self
 
         class Handler(BaseHTTPRequestHandler):
             def _serve(self, method: str):
                 fn = routes.get((method, self.path))
-                if fn is None:
+                ctype = "application/json"
+                if (method, self.path) == ("GET", "/metrics"):
+                    data = mgr.metrics_text().encode()
+                    status, ctype = 200, "text/plain; version=0.0.4"
+                elif fn is None:
                     status, reply = 404, {"ok": False, "error": "not found"}
                 else:
                     try:
                         n = int(self.headers.get("Content-Length", 0))
                         body = json.loads(self.rfile.read(n) or b"{}")
                         status, reply = fn(body if isinstance(body, dict)
-                                           else {})
+                                           else {}, self.headers)
                     except Exception as e:  # noqa: BLE001 — report, serve on
                         status, reply = 500, {"ok": False, "error": repr(e)}
-                data = json.dumps(reply).encode()
+                if ctype == "application/json":
+                    data = json.dumps(reply).encode()
                 self.send_response(status)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(data)))
                 self.end_headers()
                 self.wfile.write(data)
@@ -607,3 +747,4 @@ class GserverManager:
             t.join(timeout)
         self._threads = []
         self._pool.shutdown(wait=False, cancel_futures=True)
+        self.telemetry.close()

@@ -18,7 +18,7 @@ import json
 import urllib.error
 import urllib.request
 from http.server import ThreadingHTTPServer
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 # No proxy for any request: the fleet's URLs are its own hosts.
 _OPENER = urllib.request.build_opener(urllib.request.ProxyHandler({}))
@@ -32,14 +32,16 @@ def _decode(raw: bytes) -> Any:
 
 
 def request_json(url: str, body: Optional[Any] = None,
-                 timeout: float = 30.0) -> Tuple[int, Any]:
-    """POST ``body`` as JSON (GET when it is None); returns (status, the
-    reply's JSON). A reply with an error status returns too; a connection
-    failure or a timeout raises ``OSError``."""
+                 timeout: float = 30.0,
+                 headers: Optional[Dict[str, str]] = None) -> Tuple[int, Any]:
+    """POST ``body`` as JSON (GET when it is None), with extra ``headers``
+    (a trace context); returns (status, the reply's JSON). A reply with an
+    error status returns too; a connection failure or a timeout raises
+    ``OSError``."""
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(
         url, data=data, method="GET" if body is None else "POST",
-        headers={"Content-Type": "application/json"})
+        headers={"Content-Type": "application/json", **(headers or {})})
     try:
         with _OPENER.open(req, timeout=timeout) as r:
             return r.status, _decode(r.read())
@@ -55,10 +57,13 @@ class AsyncHttp:
         self._pool = concurrent.futures.ThreadPoolExecutor(
             max_workers, thread_name_prefix="areal-http")
 
-    async def post(self, url: str, body: Any,
-                   timeout: float = 300.0) -> Tuple[int, Any]:
+    async def post(self, url: str, body: Any, timeout: float = 300.0,
+                   headers: Optional[Dict[str, str]] = None
+                   ) -> Tuple[int, Any]:
+        """``headers`` are computed by the caller: the pool's threads do
+        not see the caller's context (its trace)."""
         return await asyncio.get_running_loop().run_in_executor(
-            self._pool, request_json, url, body, timeout)
+            self._pool, request_json, url, body, timeout, headers)
 
     def close(self) -> None:
         self._pool.shutdown(wait=False, cancel_futures=True)

@@ -10,9 +10,15 @@ outputs. Save and recover-checkpoint cadence come from ``FrequencyControl``;
 epochs from the trainer's fetch replies; per-step ``timeperf/*`` seconds,
 analytic TFLOP/s and MFU against the card's peak (``base/monitor.py``).
 
-Left out until the port has them (ROADMAP.md Queue 1 item 4): the
-telemetry aggregator, the sentinel, goodput, durability and compile_watch
-blocks of the reference's config.
+With ``telemetry.enabled`` the master hosts the fleet's
+:class:`~areal_tpu_torch.base.telemetry.TelemetryAggregator` (up before
+anything else looks for it), with the sentinel (``sentinel.enabled``) and
+fleet goodput (``goodput.enabled``) inside it; the step loop records the
+``master/mfc_gate``, ``master/mfc_exec`` and ``master/step`` spans and the
+``master/step_secs`` gauge, which it also feeds to the sentinel directly.
+With telemetry off none of it is constructed.
+
+Left out until the port has it: the durability block.
 """
 
 from __future__ import annotations
@@ -35,13 +41,20 @@ from areal_tpu_torch.api.dfg import (
     ParamReallocHook,
     WeightUpdateHook,
 )
-from areal_tpu_torch.api.train_config import ExperimentSaveEvalControl
+from areal_tpu_torch.api.train_config import (
+    CompileWatchConfig,
+    ExperimentSaveEvalControl,
+    GoodputConfig,
+    SentinelConfig,
+    TelemetryConfig,
+)
 from areal_tpu_torch.base import (
     logging,
     monitor,
     name_resolve,
     names,
     recover,
+    telemetry,
 )
 from areal_tpu_torch.base.stats_tracker import StatsTracker
 from areal_tpu_torch.base.timeutil import FrequencyControl
@@ -69,6 +82,14 @@ class MasterWorkerConfig:
     # resume from the latest recover checkpoint at startup
     recover: bool = False
     keep_recover_ckpts: int = 2
+    telemetry: TelemetryConfig = dataclasses.field(
+        default_factory=TelemetryConfig)
+    sentinel: SentinelConfig = dataclasses.field(
+        default_factory=SentinelConfig)
+    goodput: GoodputConfig = dataclasses.field(default_factory=GoodputConfig)
+    # arms the sentinel's compile/memory rules
+    compile_watch: CompileWatchConfig = dataclasses.field(
+        default_factory=CompileWatchConfig)
 
 
 class MasterWorker:
@@ -102,6 +123,12 @@ class MasterWorker:
         self.ctrl = WorkerControl(self.cfg.experiment, self.cfg.trial,
                                   "master")
         self.ctrl.on_command("checkpoint", self._on_demand_ckpt)
+        # The aggregator must exist before any worker's pusher looks for
+        # it, and before the master's own telemetry is configured.
+        self._aggregator: Optional[telemetry.TelemetryAggregator] = None
+        self._sentinel = None
+        if self.cfg.telemetry.enabled:
+            self._setup_aggregator()
         self.stream = MasterRequestStream(
             self.cfg.experiment, self.cfg.trial, [self.cfg.trainer_handler])
         self._model_info = self.stream.call(
@@ -112,8 +139,47 @@ class MasterWorker:
         self._writer = monitor.MetricWriter(
             tensorboard_path=self.cfg.tensorboard_path,
             wandb_mode=self.cfg.wandb_mode)
+        if self._aggregator is not None:
+            # per-worker telemetry scalars into the same tensorboard stream
+            self._aggregator.set_metric_writer(self._writer)
         if self.cfg.recover and self.cfg.recover_dir:
             self._try_recover()
+
+    def _setup_aggregator(self) -> None:
+        cfg = self.cfg
+        # telemetry.jsonl defaults next to the tensorboard stream.
+        jsonl = cfg.telemetry.jsonl_path or os.path.join(
+            os.path.dirname(cfg.tensorboard_path) if cfg.tensorboard_path
+            else cfg.save_dir, "telemetry.jsonl")
+        log_dir = os.path.dirname(jsonl) or "."
+        if cfg.sentinel.enabled:
+            from areal_tpu_torch.system.sentinel import (
+                Sentinel,
+                rules_from_config,
+            )
+
+            self._sentinel = Sentinel(
+                cfg.sentinel, cfg.experiment, cfg.trial,
+                rules=rules_from_config(
+                    cfg.sentinel,
+                    compile_watch_enabled=cfg.compile_watch.enabled),
+                alerts_path=(cfg.sentinel.alerts_path
+                             or os.path.join(log_dir, "alerts.jsonl")),
+                evidence_dir=(cfg.sentinel.evidence_dir
+                              or os.path.join(log_dir, "evidence")))
+        fleet_goodput = None
+        if cfg.goodput.enabled:
+            from areal_tpu_torch.system.goodput import FleetGoodput
+
+            fleet_goodput = FleetGoodput()
+        self._aggregator = telemetry.TelemetryAggregator(
+            cfg.experiment, cfg.trial, jsonl_path=jsonl,
+            http_port=cfg.telemetry.http_port,
+            traces_path=cfg.telemetry.traces_path,
+            stitch_grace_secs=cfg.telemetry.stitch_grace_secs,
+            sentinel=self._sentinel, goodput=fleet_goodput)
+        telemetry.configure(cfg.experiment, cfg.trial, "master", 0,
+                            cfg.telemetry)
 
     def _try_recover(self) -> None:
         """Resume from the latest recover checkpoint (reference
@@ -225,8 +291,9 @@ class MasterWorker:
         return out
 
     async def _run_mfc(self, node: MFCDef) -> None:
-        metas = await self.buffer.get_batch_for_rpc(
-            node.name, set(node.input_keys), node.n_seqs)
+        with telemetry.span("master/mfc_gate", mfc=node.name):
+            metas = await self.buffer.get_batch_for_rpc(
+                node.name, set(node.input_keys), node.n_seqs)
         t_mfc = time.monotonic()
         self._count_mfc_flops(node, metas)
         ids = [m.ids[0] for m in metas]
@@ -246,7 +313,9 @@ class MasterWorker:
             post_hooks=self._hook_dicts(node, post=True),
         )
         rid = self.stream.post(payload)
-        reply = (await asyncio.to_thread(self.stream.gather, [rid]))[0]
+        with telemetry.span("master/mfc_exec", mfc=node.name,
+                            n_seqs=len(ids)):
+            reply = (await asyncio.to_thread(self.stream.gather, [rid]))[0]
         out = reply.output
         if node.interface_type == MFCInterfaceType.TRAIN_STEP:
             if out["stats"]:
@@ -296,7 +365,8 @@ class MasterWorker:
                 logger.info("master: exit requested via control channel")
                 break
             t0 = time.monotonic()
-            await self._execute_step()
+            with telemetry.span("master/step", step=self.step):
+                await self._execute_step()
             self.step += 1
             step_stats = self.stats.export(reset=True)
             dt = time.monotonic() - t0
@@ -312,6 +382,14 @@ class MasterWorker:
                     step_stats["timeperf/mfu"] = per_card / self._peak_flops
             self._stats_history.append(step_stats)
             self._writer.write(step_stats, self.step)
+            # Step wall time on the scrape, and a direct sentinel feed
+            # (no flush latency) under the identity the flushed copy
+            # arrives with. Feed only: rules are evaluated on the
+            # aggregator's thread.
+            telemetry.set_gauge("master/step_secs", dt)
+            if self._sentinel is not None:
+                self._sentinel.feed("master:0", {
+                    "master/step_secs": dt, "master/step": float(self.step)})
             logger.info(
                 f"step {self.step} epoch {self.epoch} ({dt:.2f}s): "
                 + " ".join(f"{k}={v:.4g}" for k, v in sorted(step_stats.items())
@@ -337,6 +415,9 @@ class MasterWorker:
         await asyncio.to_thread(self.stream.call, self.cfg.trainer_handler,
                                 "exit")
         self.stream.close()
+        if self._aggregator is not None:
+            telemetry.shutdown()  # the master's final flush into it
+            self._aggregator.close()
         self._writer.close()
         self.ctrl.close()
         return {"steps": self.step, "stats": self._stats_history}

@@ -17,13 +17,16 @@ backpressure (429) wait on their own budget (``no_server_wait_secs``).
 
 HTTP goes through ``system/http.py``'s ``AsyncHttp`` (each call on a
 thread, off the event loop) instead of an ``aiohttp`` session; the wire
-contract is the reference's. The reference's telemetry spans and counters
-are left out.
+contract is the reference's. With telemetry on, every generation is a
+``rollout/generate`` span whose trace rides each ``/generate`` call in
+the ``X-Areal-Trace`` header, with the reference's chunk-latency
+histogram and its backoff, failover and abandonment counters and events.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import time
 import uuid
@@ -32,7 +35,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from areal_tpu_torch.api.model import GenerationHyperparameters
-from areal_tpu_torch.base import logging
+from areal_tpu_torch.base import logging, telemetry
 from areal_tpu_torch.base.retry import (
     DEFAULT_GENERATION_RETRY,
     FaultInjector,
@@ -101,11 +104,19 @@ class PartialRolloutClient:
     async def _schedule(self) -> Dict:
         if self.faults is not None:
             self.faults.maybe_fail("schedule")
+        post = asyncio.ensure_future(self.session.post(
+            f"{self.manager_url}/schedule_request",
+            {"class": self.request_class}, timeout=30.0))
         try:
-            _, d = await self.session.post(
-                f"{self.manager_url}/schedule_request",
-                {"class": self.request_class}, timeout=30.0)
+            _, d = await asyncio.shield(post)
         except asyncio.CancelledError:
+            # The call runs on in its thread and the manager may grant the
+            # lease after this task's cancel: return it, or it pins the
+            # server's inflight count until it expires.
+            with contextlib.suppress(Exception):
+                _, late = await post
+                if late.get("url"):
+                    await self._release_quiet(late)
             raise
         except Exception as e:  # noqa: BLE001 — the manager itself is down
             # An unreachable manager is an empty fleet to this client: the
@@ -150,6 +161,19 @@ class PartialRolloutClient:
         gconfig: GenerationHyperparameters,
         eos_token_id: int = 1,
     ) -> GenResult:
+        with telemetry.span("rollout/generate") as span_attrs:
+            res = await self._generate_one(prompt_ids, gconfig, eos_token_id)
+            span_attrs["n_chunks"] = res.n_chunks
+            span_attrs["n_tokens"] = len(res.output_ids)
+            span_attrs["versions"] = [res.version_start, res.version_end]
+        return res
+
+    async def _generate_one(
+        self,
+        prompt_ids: List[int],
+        gconfig: GenerationHyperparameters,
+        eos_token_id: int = 1,
+    ) -> GenResult:
         acc_ids: List[int] = []
         acc_lps: List[float] = []
         version_start: Optional[int] = None
@@ -186,16 +210,25 @@ class PartialRolloutClient:
                     if self.faults is not None:
                         self.faults.maybe_fail("generate", url=url,
                                                tokens_done=len(acc_ids))
+                    t_chunk = time.monotonic()
+                    # The server adopts this trace for its spans; {} (off,
+                    # or no trace) leaves the request as it was.
                     status, out = await self.session.post(
-                        f"{url}/generate", body, timeout=300.0)
+                        f"{url}/generate", body, timeout=300.0,
+                        headers=telemetry.inject_headers())
                     if status == 429:
                         # Admission backpressure: honour the hint on its own
                         # budget; a throttle is not a failure.
                         ra = float(out.get("retry_after", 0.2))
+                        telemetry.inc("rollout/admission_backoff")
+                        telemetry.event("rollout/backoff_429", url=url,
+                                        retry_after=ra,
+                                        tokens_done=len(acc_ids))
                         await self._release_quiet(route)
                         route = None
                         if throttled >= self.no_server_wait_secs:
                             self.n_abandoned += 1
+                            telemetry.inc("rollout/abandoned")
                             raise GenerationAbandonedError(
                                 f"admission-rejected for {throttled:.0f}s "
                                 f"({len(acc_ids)} tokens accumulated)")
@@ -208,12 +241,15 @@ class PartialRolloutClient:
                     if status == 413:
                         # permanent: the prefix can never fit the KV capacity
                         self.n_abandoned += 1
+                        telemetry.inc("rollout/abandoned")
                         raise GenerationAbandonedError(
                             f"prompt too long for the serving engine's KV "
                             f"capacity ({len(prompt_ids) + len(acc_ids)} "
                             "tokens)")
                     if status != 200:
                         raise RuntimeError(f"/generate status {status}")
+                    telemetry.observe("rollout/chunk_secs",
+                                      time.monotonic() - t_chunk)
                 except asyncio.CancelledError:
                     raise
                 except GenerationAbandonedError:
@@ -223,8 +259,10 @@ class PartialRolloutClient:
                     # out on the longer budget, not the failover attempts.
                     await self._release_quiet(route)
                     route = None
+                    telemetry.inc("rollout/no_server_503")
                     if fleet_waited >= self.no_server_wait_secs:
                         self.n_abandoned += 1
+                        telemetry.inc("rollout/abandoned")
                         raise GenerationAbandonedError(
                             f"no routable generation server for "
                             f"{fleet_waited:.0f}s ({len(acc_ids)} tokens "
@@ -238,11 +276,18 @@ class PartialRolloutClient:
                     route = None
                     if failures >= self.retry.max_attempts:
                         self.n_abandoned += 1
+                        telemetry.inc("rollout/abandoned")
                         raise GenerationAbandonedError(
                             f"generation abandoned after {failures} "
                             f"consecutive chunk failures ({len(acc_ids)} "
                             f"tokens accumulated): {e}") from e
                     self.n_failovers += 1
+                    telemetry.inc("rollout/chunk_failovers")
+                    # the trace (and the flight ring) shows when the chunk
+                    # died and how many tokens the replay re-prefills
+                    telemetry.event("rollout/failover", attempt=failures,
+                                    tokens_done=len(acc_ids),
+                                    error=str(e)[:200])
                     logger.warning(
                         f"chunk failed ({e}); re-scheduling (attempt "
                         f"{failures}/{self.retry.max_attempts}, "

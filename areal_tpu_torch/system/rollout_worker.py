@@ -17,9 +17,16 @@ manager booked its quota sends the compensating ``/finish_rollout``.
 Consumed prompt ids go to an fsynced log (:class:`ConsumedLog`) that a
 restarted worker skips.
 
+With telemetry on, each admitted prompt originates a trace (the
+``rollout/rollout`` span, with ``rollout/gate`` for the time the gate held
+it) carried through the quota calls, every ``/generate`` chunk and the
+push to the trainer; the worker exports the denial and backpressure
+counters, the allocation latency and staleness histograms and its
+progress gauges, and a goodput ledger in accrual mode (concurrent
+rollouts export task-seconds, not a wall partition).
+
 This process never initialises CUDA: generation runs on the servers.
-Left out: telemetry, goodput, the durable spool and the reward-service
-fleet (ROADMAP.md).
+Left out: the durable spool and the reward-service fleet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import os
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -38,7 +46,8 @@ from areal_tpu_torch.api.model import (
     make_agent,
     make_env,
 )
-from areal_tpu_torch.base import logging, name_resolve, names
+from areal_tpu_torch.api.train_config import GoodputConfig, TelemetryConfig
+from areal_tpu_torch.base import logging, name_resolve, names, telemetry
 from areal_tpu_torch.base.retry import (
     DEFAULT_GENERATION_RETRY,
     FaultInjector,
@@ -49,6 +58,7 @@ from areal_tpu_torch.datasets.jsonl import (
     load_jsonl,
     load_shuffle_split,
 )
+from areal_tpu_torch.system import goodput as goodput_mod
 from areal_tpu_torch.system.http import AsyncHttp
 from areal_tpu_torch.system.partial_rollout import (
     GenerationAbandonedError,
@@ -89,6 +99,9 @@ class RolloutWorkerConfig:
     # abandoned (a clean /finish_rollout; the worker stays up).
     retry: RetryPolicy = dataclasses.field(
         default_factory=lambda: DEFAULT_GENERATION_RETRY)
+    telemetry: TelemetryConfig = dataclasses.field(
+        default_factory=TelemetryConfig)
+    goodput: GoodputConfig = dataclasses.field(default_factory=GoodputConfig)
 
 
 class ConsumedLog:
@@ -156,6 +169,7 @@ class RolloutWorker:
         self._abandoned = 0
         # allocation denials by reason
         self.denials: Dict[str, int] = {}
+        self._ledger = goodput_mod.NULL_LEDGER  # armed by run_async
 
     def _prompt_sample(self, rec, uid: str) -> SequenceSample:
         ids = self.cfg.tokenizer.encode(rec["prompt"])
@@ -169,8 +183,10 @@ class RolloutWorker:
     async def _post_json(session: AsyncHttp, url: str, payload: Dict,
                          timeout_secs: float = 15.0) -> Dict:
         # Bounded: quota calls run inside cancellation shields, and a hung
-        # manager must not pin the worker's shutdown.
-        status, d = await session.post(url, payload, timeout=timeout_secs)
+        # manager must not pin the worker's shutdown. The sample's trace
+        # rides the quota calls ({} when off: the request is unchanged).
+        status, d = await session.post(url, payload, timeout=timeout_secs,
+                                       headers=telemetry.inject_headers())
         if status != 200:
             raise RuntimeError(f"{url}: status {status} {d}")
         return d
@@ -186,6 +202,7 @@ class RolloutWorker:
         # The allocation must be atomic under cancellation: shield the
         # call, and if this task is cancelled after quota was booked, let
         # the call finish and return the booking.
+        t_alloc = time.monotonic()
         alloc_fut = asyncio.ensure_future(self._post_json(
             session, f"{self._mgr_url}/allocate_rollout",
             {"n_samples": cfg.group_size}))
@@ -217,6 +234,8 @@ class RolloutWorker:
         if not alloc.get("allowed"):
             reason = alloc.get("reason", "unknown")
             self.denials[reason] = self.denials.get(reason, 0) + 1
+            telemetry.inc("rollout/alloc_denied")
+            telemetry.inc(f"rollout/alloc_denied_{reason}")
             # With a Retry-After hint (overload backpressure) slow down to
             # its cadence instead of re-polling every 0.5 s.
             retry_secs = 0.5
@@ -225,8 +244,12 @@ class RolloutWorker:
                     retry_secs = max(float(alloc["retry_after"]), 0.05)
                 except (TypeError, ValueError):
                     pass
+                else:
+                    telemetry.inc("rollout/backpressure_throttled")
             await asyncio.sleep(retry_secs)
             return "retry"
+        telemetry.observe("rollout/alloc_rpc_secs",
+                          time.monotonic() - t_alloc)
         accepted = 0
         abandoned = undelivered = False
         task = None
@@ -249,11 +272,14 @@ class RolloutWorker:
                     break
                 qid, prompt_ids, gconfig = get_obs.result()
                 gconfig = gconfig or cfg.gconfig
+                t_gen = time.monotonic()
                 results = await client.generate_group(
                     list(map(int, prompt_ids)), gconfig,
                     gconfig.n if gconfig is not cfg.gconfig
                     else cfg.group_size,
                     eos_token_id=cfg.eos_token_id)
+                # generation-wait: blocked on the fleet
+                self._ledger.add("comm", time.monotonic() - t_gen)
                 trajs = [
                     trajectory_from_gen(
                         f"{qid}@t{turn}" if turn else qid, j,
@@ -264,10 +290,21 @@ class RolloutWorker:
                 ]
                 turn += 1
                 await act_q.put(trajs)
+            t_grade = time.monotonic()
             final = await task
+            # grading and finalisation after the last chunk
+            self._ledger.add("compute", time.monotonic() - t_grade)
             for t in final:
                 pusher.push(t.as_json_compatible())
                 accepted += 1
+                # Weight versions that passed while the trajectory
+                # generated: the off-policyness the gate bounds.
+                lag = float(np.asarray(t.data["version_end"])[0]
+                            - np.asarray(t.data["version_start"])[0])
+                telemetry.observe("rollout/staleness_lag", lag,
+                                  buckets=(0.0, 1.0, 2.0, 4.0, 8.0, 16.0))
+                telemetry.set_gauge("rollout/staleness_current", lag)
+            telemetry.inc("rollout/trajectories_pushed", accepted)
         except GenerationAbandonedError as e:
             # The fleet stayed dead through the failover budget: abandon
             # this rollout (the finally reports it) and keep the worker up.
@@ -318,6 +355,12 @@ class RolloutWorker:
         from areal_tpu_torch.system.worker_base import WorkerControl
 
         cfg = self.cfg
+        if cfg.telemetry.enabled:
+            telemetry.configure(cfg.experiment, cfg.trial, "rollout",
+                                cfg.worker_index, cfg.telemetry)
+            # accrual-only: concurrent rollouts are not a wall partition
+            self._ledger = goodput_mod.make_ledger(
+                cfg.goodput, telemetry.get(), initial_state=None)
         ctrl = WorkerControl(cfg.experiment, cfg.trial,
                              f"rollout{cfg.worker_index}")
         mgr_key = names.gen_server_manager(cfg.experiment, cfg.trial)
@@ -339,13 +382,32 @@ class RolloutWorker:
 
         async def one(rec, uid):
             async with sem:
-                # A denied allocation does not drop the prompt: retry until
-                # the gate opens.
-                while True:
-                    status = await self._rollout_one(rec, uid, client,
-                                                     pusher, session)
-                    if status != "retry":
-                        break
+                # The trace's origin: one per admitted prompt, carried (in
+                # the task's context) through the quota calls, every chunk
+                # and the push, and closed by the trainer's train span.
+                with telemetry.start_trace() as tctx, \
+                        telemetry.span("rollout/rollout", uid=uid) as attrs:
+                    if tctx is not None:
+                        attrs["trace_id"] = tctx.trace_id
+                    t0, t0_wall = time.monotonic(), time.time()
+                    # A denied allocation does not drop the prompt: retry
+                    # until the gate opens.
+                    while True:
+                        t_attempt = time.monotonic()
+                        status = await self._rollout_one(rec, uid, client,
+                                                         pusher, session)
+                        if status != "retry":
+                            break
+                    # held by the gate (and manager blips) before the
+                    # attempt that went through
+                    telemetry.observe("rollout/alloc_wait_secs",
+                                      t_attempt - t0)
+                    self._ledger.add("data_wait", t_attempt - t0)
+                    if tctx is not None:
+                        telemetry.add_span("rollout/gate", t0_wall,
+                                           t_attempt - t0, trace=tctx,
+                                           uid=uid)
+                    attrs["status"] = status
             if status == "ok":
                 self.consumed.add(uid)
 
@@ -361,6 +423,10 @@ class RolloutWorker:
                              "failovers": client.n_failovers})
                 if ctrl.should_exit:
                     break
+                telemetry.set_gauge("rollout/inflight", len(pending))
+                telemetry.set_gauge("rollout/done", self._done)
+                telemetry.set_gauge("rollout/failovers", client.n_failovers)
+                self._ledger.poll()
                 while len(pending) < cfg.max_concurrent:
                     rec = self.records[pos % len(self.records)]
                     # An epoch over a small dataset revisits a query id: tag
@@ -390,6 +456,9 @@ class RolloutWorker:
             pusher.close()
             ctrl.close()
             self.consumed.close()
+            if cfg.telemetry.enabled:
+                self._ledger.flush()
+                telemetry.shutdown()  # the final flush to the aggregator
         logger.info(f"rollout worker done: {self._pushed} trajectories "
                     f"pushed ({self._abandoned} abandoned, "
                     f"{client.n_failovers} chunk failovers)")

@@ -26,7 +26,10 @@ rollout worker's :class:`TrajectoryPusher` resolves it and sends each
 trajectory's ``as_json_compatible()`` dict as one pickled frame, where the
 reference sends msgpack over a zmq PUSH socket. A push never wedges its
 caller: a send that cannot finish within ``block_secs`` drops the
-connection and raises ``TimeoutError``.
+connection and raises ``TimeoutError``. With telemetry on, a pushed dict
+carries the active trace under ``_trace`` (``telemetry.inject_payload``),
+and a push that finds the socket's send buffer full counts
+``stream/push_blocked``.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ import time
 import uuid
 from typing import Any, Dict, List, Optional, Sequence
 
-from areal_tpu_torch.base import logging, name_resolve, network
+from areal_tpu_torch.base import logging, name_resolve, network, telemetry
 from areal_tpu_torch.system.frames import (
     FrameServer,
     _encode,
@@ -259,7 +262,10 @@ class TrajectoryPusher:
     def push(self, obj: Any) -> None:
         budget = self.block_secs
         deadline = time.monotonic() + budget
-        data = b"".join(bytes(m) for m in _encode([pickle.dumps(obj)]))
+        # The trainer re-attaches the trace to the sample's metadata; with
+        # telemetry off (or no trace) the object is untouched.
+        data = b"".join(bytes(m) for m in _encode(
+            [pickle.dumps(telemetry.inject_payload(obj))]))
         try:
             if self._sock is None:
                 # a restarted puller registers a new address
@@ -271,6 +277,11 @@ class TrajectoryPusher:
                                              timeout=budget)
                 s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
                 self._sock = s
+            if telemetry.enabled():
+                writable = select.poll()
+                writable.register(self._sock, select.POLLOUT)
+                if not writable.poll(0):
+                    telemetry.inc("stream/push_blocked")  # buffer is full
             # sendall's timeout bounds the whole call
             self._sock.settimeout(max(deadline - time.monotonic(), 1e-3))
             self._sock.sendall(data)

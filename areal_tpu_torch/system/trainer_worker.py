@@ -27,15 +27,27 @@ the rollout workers' trajectories on a thread of its own, and ``fetch``
 returns whatever arrived within 0.5 s (possibly fewer samples than asked,
 possibly none; the master accumulates across fetches).
 
+Observability (``telemetry``, ``goodput``, ``compile_watch``; all off by
+default): the ``trainer/data_wait``, ``trainer/mfc`` and
+``trainer/weight_publish`` spans, the ``train/*`` gauges of every train
+step (what the sentinel's rules read), live MFU, the terminal
+``trainer/train_sample`` span of every traced sample, the goodput ledger
+(data_wait / compute / comm / idle), device-memory gauges and watermarks,
+and the profiler trigger (``torch.profiler``), polled between requests.
+With ``AREAL_DUMP_TRACE=<dir>`` every MFC runs under its own
+``torch.profiler`` capture (a Chrome trace under ``<dir>/<mfc>_<version>``).
+
 Left out until the port has them: durable ingest (the sample spool),
-telemetry, goodput and the profiler trigger (ROADMAP.md Queue 1 items 3-4),
-multi-host broadcast (item 8) and the ``device`` transport.
+multi-host broadcast (ROADMAP.md Queue 1 item 8) and the ``device``
+transport.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
 import os
 import queue
 import tempfile
@@ -56,9 +68,23 @@ from areal_tpu_torch.api.model import (
     make_dataset,
     make_interface,
 )
-from areal_tpu_torch.api.train_config import WeightSyncConfig
-from areal_tpu_torch.base import logging, name_resolve, names
+from areal_tpu_torch.api.train_config import (
+    CompileWatchConfig,
+    GoodputConfig,
+    TelemetryConfig,
+    WeightSyncConfig,
+)
+from areal_tpu_torch.base import (
+    compile_watch,
+    logging,
+    monitor,
+    name_resolve,
+    names,
+    telemetry,
+)
 from areal_tpu_torch.models import convert, hf
+from areal_tpu_torch.system import goodput as goodput_mod
+from areal_tpu_torch.system import memwatch
 from areal_tpu_torch.system.streams import (
     Payload,
     TrajectoryPuller,
@@ -113,6 +139,12 @@ class TrainerWorkerConfig:
     # The worker's default transport is disk, as the reference's is.
     weight_sync: WeightSyncConfig = dataclasses.field(
         default_factory=lambda: WeightSyncConfig(transport="disk"))
+    telemetry: TelemetryConfig = dataclasses.field(
+        default_factory=TelemetryConfig)
+    goodput: GoodputConfig = dataclasses.field(default_factory=GoodputConfig)
+    # arms the kernel-build watch and the device-memory gauges
+    compile_watch: CompileWatchConfig = dataclasses.field(
+        default_factory=CompileWatchConfig)
     # Where every role lives (areal_tpu_torch.resolve_device): cuda unless
     # named; without a GPU and without a device, setup() raises.
     device: Optional[str] = None
@@ -143,6 +175,10 @@ class TrainerWorker:
         self._puller: Optional[TrajectoryPuller] = None
         self._pull_q: "queue.Queue[SequenceSample]" = queue.Queue()
         self._pull_thread: Optional[threading.Thread] = None
+        # Observability, armed by setup() (the null objects while off).
+        self._profiler: Optional[telemetry.ProfilerTriggerWatcher] = None
+        self._ledger = goodput_mod.NULL_LEDGER
+        self._mfu: Optional[goodput_mod.MfuEmitter] = None
 
     # ---------------- setup ----------------
 
@@ -205,8 +241,36 @@ class TrainerWorker:
             self._pull_thread.start()
         self._server = WorkerRequestServer(cfg.experiment, cfg.trial,
                                            cfg.handler)
+        if cfg.telemetry.enabled:
+            self._setup_observability()
         logger.info(f"trainer up on {self.device}: models={list(self.models)} "
                     f"mfcs={list(self.interfaces)}")
+
+    def _setup_observability(self) -> None:
+        """Telemetry, the profiler trigger, the goodput ledger with live
+        MFU, and the compile and memory watches (the module-global
+        facades the engine's spans and watermarks call through)."""
+        cfg = self.cfg
+        telemetry.configure(cfg.experiment, cfg.trial, "trainer", 0,
+                            cfg.telemetry)
+        self._profiler = telemetry.ProfilerTriggerWatcher(cfg.experiment,
+                                                          cfg.trial)
+        if cfg.goodput.enabled:
+            self._ledger = goodput_mod.make_ledger(cfg.goodput,
+                                                   telemetry.get())
+            self._mfu = goodput_mod.MfuEmitter(
+                telemetry.get(),
+                goodput_mod.resolve_peak_flops(cfg.goodput,
+                                               self._device_kind()),
+                tflops_name="train/achieved_tflops", mfu_name="train/mfu",
+                context="trainer")
+        compile_watch.configure(cfg.compile_watch, telemetry.get())
+        memwatch.configure(cfg.compile_watch, telemetry.get())
+
+    def _device_kind(self) -> str:
+        if self.device.type == "cuda":
+            return torch.cuda.get_device_name(self.device)
+        return str(self.device)
 
     def _reshuffle(self):
         rng = np.random.RandomState(self._epoch + 1)
@@ -217,7 +281,14 @@ class TrainerWorker:
         while not self._exiting:
             obj = self._puller.pull(timeout_ms=200)
             if obj is not None:
-                self._pull_q.put(SequenceSample.from_json_compatible(obj))
+                # The rollout worker's trace context rides in the sample's
+                # metadata through the master's buffer and this store, so
+                # the train step can close the trace.
+                trace = telemetry.extract_payload(obj)
+                s = SequenceSample.from_json_compatible(obj)
+                if trace is not None:
+                    s.metadata["_trace"] = [trace.as_dict()]
+                self._pull_q.put(s)
 
     # ---------------- handlers ----------------
 
@@ -250,7 +321,12 @@ class TrainerWorker:
             self.store[s.ids[0]] = s
 
     def _handle_fetch(self, p: Payload) -> Any:
-        batch = self._read_batch(int(p.data or self.cfg.batch_size))
+        with telemetry.span("trainer/data_wait",
+                            stream=self.cfg.stream_dataset) as attrs, \
+                self._ledger.state("data_wait"):
+            batch = self._read_batch(int(p.data or self.cfg.batch_size))
+            attrs["n_seqs"] = batch.bs if batch is not None else 0
+        telemetry.set_gauge("trainer/pull_queue_depth", self._pull_q.qsize())
         if batch is not None:
             self._store_batch(batch)
         return {
@@ -287,10 +363,26 @@ class TrainerWorker:
         method = req.get("method", mc.method)
         for hook in p.pre_hooks:
             self._run_hook(hook)
-        out = getattr(iface, method)(model, batch, mb_spec)
+        trace_dir = os.environ.get("AREAL_DUMP_TRACE")
+        t_mfc_wall = time.time()
+        t_mfc = time.monotonic()
+        with telemetry.span("trainer/mfc", mfc=mfc_name, method=method,
+                            n_seqs=batch.bs), \
+                self._ledger.state("compute"):
+            if trace_dir:
+                out = self._profiled_mfc(
+                    os.path.join(trace_dir,
+                                 f"{mfc_name}_{model.version.global_step}"),
+                    getattr(iface, method), model, batch, mb_spec)
+            else:
+                out = getattr(iface, method)(model, batch, mb_spec)
         result: Dict[str, Any] = {"stats": None, "meta": None}
         if method == "train_step":
             result["stats"] = out
+            dur = time.monotonic() - t_mfc
+            self._export_train_stats(mfc_name, out)
+            self._emit_mfu(mc.model_name, batch, dur)
+            self._emit_terminal_spans(req["ids"], model, t_mfc_wall, dur)
         elif out is not None:
             remap = req.get("output_remap") or {}
             if remap:
@@ -309,6 +401,90 @@ class TrainerWorker:
         for hook in p.post_hooks:
             self._run_hook(hook)
         return result
+
+    def _profiled_mfc(self, out_dir: str, fn, *args):
+        """One MFC under its own ``torch.profiler`` capture (reference
+        ``REAL_DUMP_TRACE``), written as a Chrome trace under
+        ``out_dir``."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            out = fn(*args)
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+        return out
+
+    # The divergence signatures that kill RL runs get a distribution view
+    # on top of the last-value gauge (suffix _dist: a gauge and a
+    # histogram cannot share one Prometheus family name).
+    _TRAIN_DIST_KEYS = ("approx_kl", "entropy", "grad_norm",
+                        "importance_weight", "clip_ratio")
+
+    def _export_train_stats(self, mfc_name: str,
+                            stats: Optional[Dict[str, Any]]) -> None:
+        """Every train-step scalar as a ``train/<name>{mfc=...}`` gauge:
+        the sentinel's rules and any Prometheus reader consume these.
+        No-op with telemetry disabled."""
+        if not stats or not telemetry.enabled():
+            return
+        for k, v in stats.items():
+            if isinstance(v, bool) or not isinstance(v, (int, float)) \
+                    or not math.isfinite(v):
+                continue
+            telemetry.set_gauge(f"train/{k}{{mfc={mfc_name}}}", float(v))
+            if k in self._TRAIN_DIST_KEYS:
+                telemetry.observe(f"train/{k}_dist{{mfc={mfc_name}}}",
+                                  float(v))
+
+    def _emit_mfu(self, role: str, batch: SequenceSample,
+                  dur_secs: float) -> None:
+        """Live achieved FLOP/s and MFU of one train MFC: the batch's
+        token counts through ``base/monitor.py``'s formulas (the engine's
+        remat factor included) over the MFC's wall time on this one
+        device. No-op with goodput disabled."""
+        if self._mfu is None or dur_secs <= 0:
+            return
+        engine = self.models[role].module
+        cfg = getattr(engine, "cfg", None)
+        if cfg is None or not batch.seqlens:
+            return
+        # The main token key: seqlens also holds scalar keys.
+        lens = [float(v) for v in batch.total_lens()]
+        n_tokens = sum(lens)
+        if n_tokens <= 0:
+            return
+        flops = monitor.FlopsCounter()
+        flops.add_train(cfg, n_tokens, n_tokens / max(len(lens), 1),
+                        remat=bool(getattr(engine, "remat", False)))
+        self._mfu.emit(flops.pop() / dur_secs)
+
+    def _emit_terminal_spans(self, ids, model, t_start: float,
+                             dur_secs: float) -> None:
+        """Close each traced sample's lineage with a terminal
+        ``trainer/train_sample`` span naming the weight version that
+        trained it. The trace is consumed from the stored sample's
+        metadata: when several train MFCs read one sample in a step, the
+        first to train it terminates the trace. No-op with telemetry
+        disabled or for untraced samples."""
+        if not telemetry.enabled():
+            return
+        version = model.version.global_step
+        for sid in ids:
+            s = self.store.get(sid)
+            if s is None:
+                continue
+            tr = (s.metadata.pop("_trace", None) or [None])[0]
+            if not isinstance(tr, dict):
+                continue
+            ctx = telemetry.TraceContext.from_dict(tr)
+            if ctx is None:
+                continue
+            telemetry.add_span(
+                "trainer/train_sample", t_start, dur_secs, trace=ctx,
+                sample_id=str(sid), weight_version=version)
 
     @torch.no_grad()
     def _run_hook(self, hook: Dict) -> None:
@@ -373,8 +549,10 @@ class TrainerWorker:
         version = self.models[role].version.global_step
         path = os.path.join(self.cfg.realloc_dir, role, str(version))
         t0 = time.monotonic()
-        self._save_role(role, path, fmt="native")
+        with self._publish_span(role, version, "disk"):
+            self._save_role(role, path, fmt="native")
         save_secs = time.monotonic() - t0
+        self._publish_done(save_secs)
         # A stream-mode predecessor may have left its endpoint behind.
         self._clear_stale_transport_keys(role, keep="disk")
         self._bump_version(role, version, save_secs)
@@ -385,23 +563,41 @@ class TrainerWorker:
         model = self.models[role]
         version = model.version.global_step
         t0 = time.monotonic()
-        flat = convert.params_to_reference(self._compute_dtype_params(role),
-                                           model.module.cfg)
-        pub = self._weight_publishers.get(role)
-        if pub is None:
-            pub = WeightStreamPublisher(
-                self.cfg.experiment, self.cfg.trial, role,
-                chunk_bytes=self.cfg.weight_sync.chunk_mb << 20)
-            self._weight_publishers[role] = pub
-        # publish() returns once the manifest is registered; the d2h gather
-        # runs in the publisher's thread, overlapping the wire leg.
-        pub.publish(sorted(flat.items()), version)
+        with self._publish_span(role, version, "stream"):
+            flat = convert.params_to_reference(
+                self._compute_dtype_params(role), model.module.cfg)
+            pub = self._weight_publishers.get(role)
+            if pub is None:
+                pub = WeightStreamPublisher(
+                    self.cfg.experiment, self.cfg.trial, role,
+                    chunk_bytes=self.cfg.weight_sync.chunk_mb << 20)
+                self._weight_publishers[role] = pub
+            # publish() returns once the manifest is registered; the d2h
+            # gather runs in the publisher's thread, overlapping the wire
+            # leg.
+            pub.publish(sorted(flat.items()), version)
         publish_secs = time.monotonic() - t0
+        self._publish_done(publish_secs)
         self._clear_stale_transport_keys(role, keep="stream")
         self._bump_version(role, version, publish_secs)
         logger.info(f"published {role} weights v{version} -> {pub.endpoint} "
                     f"(stream publish {publish_secs:.2f}s; the gather "
                     "continues in the background)")
+
+    @contextlib.contextmanager
+    def _publish_span(self, role: str, version: int, transport: str):
+        """A weight publish: its span, the ledger's comm state and the
+        device-memory watermark."""
+        with telemetry.span("trainer/weight_publish", role=role,
+                            version=version, transport=transport), \
+                self._ledger.state("comm"), \
+                memwatch.watermark("trainer/weight_publish"):
+            yield
+
+    @staticmethod
+    def _publish_done(secs: float) -> None:
+        telemetry.set_gauge("trainer/weight_publish_secs", secs)
+        telemetry.inc("trainer/weight_publishes")
 
     def _clear_stale_transport_keys(self, role: str, keep: str) -> None:
         """Drop the other transports' discovery keys, so nothing steers a
@@ -545,6 +741,11 @@ class TrainerWorker:
             elif p.handle_name == "exit":
                 p.output = "bye"
                 self._exiting = True
+                # Hand the last step's spans to the aggregator before the
+                # reply: the master closes the aggregator once it has it.
+                pusher = telemetry.get().pusher
+                if pusher is not None:
+                    pusher.flush()
             else:
                 raise ValueError(f"unknown handle {p.handle_name}")
         except Exception as e:  # noqa: BLE001 — surfaced to the master
@@ -573,7 +774,15 @@ class TrainerWorker:
                 ctrl.step(lambda: {"roles": sorted(self.models)})
                 if ctrl.should_exit:
                     break
+                if self._profiler is not None:
+                    self._profiler.poll()
                 self.serve_once(timeout_ms=100)
+                # Accrue the in-progress state (idle between requests)
+                # so the scrape moves even when no handler runs.
+                self._ledger.poll()
+                # rate-limited inside the watch; the null watch is a no-op
+                memwatch.sample()
+                telemetry.set_gauge("trainer/store_size", len(self.store))
         finally:
             ctrl.close()
             self.close()
@@ -595,3 +804,9 @@ class TrainerWorker:
         for pub in self._weight_publishers.values():
             pub.close()
         self._weight_publishers.clear()
+        if self._profiler is not None:  # this worker armed observability
+            self._profiler = None
+            self._ledger.flush()
+            memwatch.shutdown()
+            compile_watch.shutdown()
+            telemetry.shutdown()  # the final flush to the aggregator

@@ -59,7 +59,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from areal_tpu_torch.base import name_resolve, names, network
+from areal_tpu_torch.base import name_resolve, names, network, telemetry
 from areal_tpu_torch.system.frames import FrameSocket, _recv, _send
 
 logger = logging.getLogger("areal_tpu_torch.weight_stream")
@@ -193,11 +193,23 @@ class WeightStreamPublisher:
         return pub.manifest()
 
     def _gather_loop(self, pub: _PublishedVersion) -> None:
+        from areal_tpu_torch.system import memwatch
+
         t0 = time.monotonic()
         try:
-            self._gather_leaves(pub)
+            # The d2h gather holds the compute-dtype copy on the device
+            # until each tensor's reference drops: the trainer's memory
+            # high-water mark of a streamed publish.
+            with memwatch.watermark("weight_stream/gather"):
+                self._gather_leaves(pub)
             pub.gather_secs = time.monotonic() - t0
             pub.complete.set()
+            total = float(sum(pub.nbytes))
+            telemetry.set_gauge("weight_stream/gather_secs", pub.gather_secs)
+            telemetry.set_gauge(
+                "weight_stream/gather_mb_per_sec",
+                total / max(pub.gather_secs, 1e-9) / (1 << 20))
+            telemetry.inc("weight_stream/published_bytes", total)
         except Exception as e:  # noqa: BLE001 — surfaced via chunk errors
             logger.error(f"weight gather v{pub.version} failed: {e}")
             with self._lock:
@@ -261,6 +273,7 @@ class WeightStreamPublisher:
             if not (0 <= t < len(pub.names)) or not (0 <= c < pub.n_chunks[t]):
                 raise WeightStreamError(f"chunk ({t},{c}) out of range")
             self._wait(pub.ready[t], version)
+            telemetry.inc("weight_stream/chunks_served")
             return [
                 b"ok",
                 json.dumps({"version": version, "tensor": t, "chunk": c,

@@ -178,9 +178,36 @@ Phases (any failed check raises, and the script exits non-zero):
      published as that version, bit for bit; running_rollouts 0 after the
      master stops; the rollout worker never initialised CUDA; K1 launched
      n_layers x the server's prefills, K1-K3 per MFC as in (n); every child
-     gone after the teardown. Rehearse on the CPU with
+     gone after the teardown. With every observability switch off, no
+     telemetry endpoint is advertised and no telemetry thread runs in the
+     master's process (watched every 0.2 s). Rehearse on the CPU with
      `run_async_loop(tiny_cfg, tmpdir, device="cpu", ...)` under a
-     `__main__` guard.
+     `__main__` guard;
+ (p) the loop of (o) again, 3 steps (the first a warm-up), with
+     telemetry (the merged /metrics on a free port, flight dumps on
+     SIGTERM), goodput, compile_watch (memory sampled every serve-loop
+     iteration) and the sentinel (the default rules and an operator rule
+     `master/step_secs > 0 for 1 s`) on. Once step 2's batch is in, a
+     ~3 s torch.profiler capture is requested from the trainer through
+     the trigger; as the master closes its aggregator, its merged /metrics
+     (found through names.telemetry_http), the server's /metrics and
+     /metrics.json and the manager's /metrics are scraped. Checks: the
+     merged scrape has series of the master, trainer, generation server,
+     manager and rollout worker; the trainer's and the server's goodput
+     ledgers sum to their wall within 1% (and export it all); fleet
+     goodput of each side in (0, 1]; live MFU of trainer and server in
+     (0, 1), against the peak of the card's name; each process's
+     hbm/peak_bytes within 1% of its torch.cuda.max_memory_allocated; one
+     stitched trace per trained trajectory of the timed steps, each
+     joining a rollout, a server and a trainer span; the operator rule in
+     alerts.jsonl and areal_alerts_total, with a flight dump of every
+     worker in its evidence directory; the capture shows K1, K2 and K3
+     with device time; the flight dumps written on SIGTERM parse; (o)'s
+     launch and teardown checks. Prints ms per step beside (o)'s, fleet
+     goodput, each ledger's state seconds, live MFU beside the master's
+     timeperf/mfu, both peaks and their sum, the trainer's split_pack /
+     fwd_bwd / optimizer spans, the server's decode-chunk spans, the
+     default rules that fired and the device's busy share in the capture.
 
 The script exits 0 only when every phase passed and the last line is
 printed; any failed check raises and exits 1, as does a run where
@@ -2167,6 +2194,7 @@ def async_trainer_probe(conn, worker):
                                                        spec, method)}
         if name == "actor_train":
             rec["version"] = model.version.global_step
+            rec["ids"] = [str(i) for i in req["ids"]]
             for k in ("version_start", "version_end"):
                 rec[k] = np.asarray(batch.data[k]).reshape(-1).tolist()
         fa.reset_launch_count()
@@ -2221,9 +2249,27 @@ def async_trainer_probe(conn, worker):
         hasher.shutdown()
         conn.send(("done", {
             "records": records, "publishes": publishes, "digests": hashed,
-            "kernels_prebuilt": prebuilt, "peak_gb": peak}))
+            "kernels_prebuilt": prebuilt, "peak_gb": peak,
+            "peak_bytes": (torch.cuda.max_memory_allocated() if cuda()
+                           else None),
+            # (p): the goodput ledger, flushed by the worker's close
+            **ledger_record(worker._ledger, worker._mfu)}))
         conn.close()
     return done
+
+
+def ledger_record(ledger, mfu) -> dict:
+    """(p): a wall-partition ledger's state totals, what it exported and
+    its wall (from its origin to its last transition), and the peak its
+    MFU gauge divides by; {} while goodput is off."""
+    if not ledger.enabled:
+        return {}
+    with ledger._lock:
+        wall = ledger._t_cur - ledger.t_start
+        exported = dict(ledger._exported)
+    return {"ledger": {"totals": ledger.totals(), "exported": exported,
+                       "wall": wall},
+            "mfu_peak": mfu.peak if mfu is not None else None}
 
 
 def async_fleet_probe(conn, servers, mgr):
@@ -2268,12 +2314,23 @@ def async_fleet_probe(conn, servers, mgr):
     fa.reset_launch_count()
     if srv.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    # (p): telemetry's flight-dump hook, run after the record is sent
+    prev_term = signal.getsignal(signal.SIGTERM)
 
     def on_term(signum, frame):
         try:
             stats = srv.stats()
             stats.pop("shapes", None)
+            srv.ledger.flush()
+            hbm = {}
+            if srv.memwatch.enabled:
+                srv.memwatch.sample(force=True)
+                hbm = {k: v for k, v in srv.telemetry.snapshot()[
+                    "gauges"].items() if k.startswith("hbm/")}
             conn.send(("done", {
+                **ledger_record(srv.ledger, srv._mfu), "hbm": hbm,
+                "peak_bytes": (torch.cuda.max_memory_allocated()
+                               if srv.device.type == "cuda" else None),
                 "k1": fa.launch_counts()["flash_attention_fwd"],
                 "prefill_k1": prefill_k1, "batches": batches,
                 "stats": stats, "server_version": srv.version,
@@ -2288,6 +2345,8 @@ def async_fleet_probe(conn, servers, mgr):
             conn.send(("error", traceback.format_exc()))
         finally:
             conn.close()
+            if callable(prev_term):
+                prev_term(signum, frame)  # dumps the flight rings, exits
             os._exit(0)
 
     signal.signal(signal.SIGTERM, on_term)
@@ -2310,11 +2369,16 @@ def async_rollout_probe(conn, worker):
 def run_async_loop(cfg, tmp: str, device: str = "cuda", steps: int = 4,
                    n_prompts: int = 4, group_size: int = 16,
                    chunk_tokens: int = 128, max_new_tokens: int = 256,
-                   timeout: float = 600.0, extra=()) -> dict:
+                   timeout: float = 600.0, extra=(),
+                   observe: bool = False) -> dict:
     """(o): the README's async recipe through the port's ``run_experiment``
     (what ``python -m areal_tpu_torch.training.main_async_ppo`` calls), with
     the launcher's probes recording each process's counters. The checks of
-    the module docstring; the launch checks only on the card."""
+    the module docstring; the launch checks only on the card. With every
+    observability switch off, it also checks that no telemetry endpoint is
+    advertised and no telemetry thread runs here. ``observe=True`` is (p):
+    the same loop with telemetry, goodput, compile_watch and the sentinel
+    on, checked by :func:`check_observability`."""
     import collections
     import functools
     import multiprocessing
@@ -2342,8 +2406,17 @@ def run_async_loop(cfg, tmp: str, device: str = "cuda", steps: int = 4,
                                       dtype=torch.bfloat16), critic_cfg, hf_dir)
     data_path = os.path.join(tmp, "math.jsonl")
     write_math_prompts(data_path, 128, seed=1)
-    exp = AsyncPPOMATHConfig(experiment_name="chip_smoke", trial_name="o",
+    trial = "p" if observe else "o"
+    exp = AsyncPPOMATHConfig(experiment_name="chip_smoke", trial_name=trial,
                              backend="cuda" if cuda else "cpu")
+    obs = {}
+    if observe:
+        from areal_tpu_torch.base.network import find_free_port
+
+        obs = {"prof_dir": os.path.join(tmp, "profile"),
+               "flight_dir": os.path.join(tmp, "flight")}
+        extra = (*extra, *observability_overrides(find_free_port(),
+                                                  obs["flight_dir"]))
     CA.apply_overrides(exp, [
         f"cluster.fileroot={tmp}", f"dataset.path={data_path}",
         f"actor.path={hf_dir}", f"ref.path={hf_dir}", "mock_tokenizer=true",
@@ -2386,6 +2459,8 @@ def run_async_loop(cfg, tmp: str, device: str = "cuda", steps: int = 4,
                for k, (recv, _) in pipes.items()]
     for r in readers:
         r.start()
+    restore = (observe_master(exp, obs) if observe
+               else watch_disabled(exp, obs))
     t0 = time.monotonic()
     try:
         thread = threading.Thread(target=run, daemon=True, name="async-loop")
@@ -2409,11 +2484,15 @@ def run_async_loop(cfg, tmp: str, device: str = "cuda", steps: int = 4,
         check(not multiprocessing.active_children(), "async loop: children "
               f"outlived the teardown: {multiprocessing.active_children()}")
     finally:
+        restore()
         name_resolve.DEFAULT_REPO = old_repo
         for recv, send in pipes.values():
             recv.close()
             send.close()
     tr, fleet, roll = got["trainer"], got["gen_fleet"], got["rollout"]
+    if not observe:
+        check(not obs["violations"], "async loop with every observability "
+              f"switch off: {obs['violations'][:5]}")
 
     # the loop's stats, step by step
     check(result["steps"] == steps, f"async loop: {result['steps']} steps, "
@@ -2537,6 +2616,296 @@ def run_async_loop(cfg, tmp: str, device: str = "cuda", steps: int = 4,
             "critic_loss", "grad_norm")} for st in stats],
         "launches_total": launches,
         "loop_s": loop_s, "setup_s": t0 - t_setup,
+        **({"observability": check_observability(
+            cfg, exp, obs, result, tr, fleet, cuda)} if observe else {}),
+    }
+
+
+# ---------------- (p) the async-PPO loop with observability on ----------------
+
+OP_RULE = {"id": "op_step_secs", "metric": "master/step_secs",
+           "kind": "threshold", "op": "gt", "value": 0, "for": 1,
+           "severity": "warn",
+           "description": "operator rule of the smoke run: must fire"}
+WORKERS = ("master", "trainer", "generation_server", "gserver_manager",
+           "rollout")
+
+
+def observability_overrides(http_port: int, flight_dir: str) -> list:
+    """(p)'s switches: every observability block on, the merged /metrics on
+    a free port, flight dumps on SIGTERM, memory sampled every serve-loop
+    iteration, the default rules plus :data:`OP_RULE`."""
+    return [
+        "telemetry.enabled=true", f"telemetry.http_port={http_port}",
+        f"telemetry.flight_dir={flight_dir}",
+        "telemetry.flush_interval_secs=1", "telemetry.stitch_grace_secs=3",
+        "goodput.enabled=true", "compile_watch.enabled=true",
+        "compile_watch.mem_sample_interval_secs=0", "sentinel.enabled=true",
+        f"sentinel.rules={json.dumps([OP_RULE])}"]
+
+
+_NO_PROXY = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
+def http_text(url: str) -> str:
+    with _NO_PROXY.open(url, timeout=60) as r:
+        return r.read().decode()
+
+
+def prom_samples(text: str) -> list:
+    """Prometheus exposition text -> [(name, {label: value}, value)]."""
+    out = []
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = re.match(r"^([A-Za-z_:][\w:]*)(?:\{(.*)\})? (\S+)$", line)
+        check(m is not None, f"malformed exposition line {line!r}")
+        labels = dict(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"',
+                                 m.group(2) or ""))
+        out.append((m.group(1), labels, float(m.group(3))))
+    return out
+
+
+def observe_master(exp, obs: dict):
+    """(p)'s hooks in this process, where the launcher runs the master:
+    once step 2's batch is in (its ref_inf passes the buffer's gate), a
+    profiler capture of ~3 s is requested from the trainer; just before the aggregator closes, the master's merged
+    /metrics (found through names.telemetry_http), the server's /metrics
+    and /metrics.json and the manager's /metrics are scraped. Returns the
+    function that removes the hooks."""
+    from areal_tpu_torch.base import name_resolve, names
+    from areal_tpu_torch.base import telemetry as T
+    from areal_tpu_torch.system.master_worker import MasterWorker
+
+    e, t = exp.experiment_name, exp.trial_name
+    close, count = T.TelemetryAggregator.close, MasterWorker._count_mfc_flops
+
+    def scraping_close(agg):
+        try:
+            obs["merged"] = http_text(
+                name_resolve.get(names.telemetry_http(e, t)) + "/metrics")
+            (srv,) = name_resolve.get_subtree(names.gen_server_root(e, t))
+            obs["server_json"] = json.loads(http_text(srv + "/metrics.json"))
+            obs["server"] = http_text(srv + "/metrics")
+            obs["manager"] = http_text(
+                name_resolve.get(names.gen_server_manager(e, t)) + "/metrics")
+        except Exception as err:  # noqa: BLE001 — a failed check below
+            obs["scrape_error"] = repr(err)
+        finally:
+            close(agg)
+
+    def profiled_step(master, node, metas):
+        # step 2's first MFC has its batch: the trainer's MFCs follow
+        # (the trainer polls the request between requests)
+        if master.step == 1 and node.name == "ref_inf":
+            T.request_profiler_capture(e, t, obs["prof_dir"], secs=3.0)
+        return count(master, node, metas)
+
+    T.TelemetryAggregator.close = scraping_close
+    MasterWorker._count_mfc_flops = profiled_step
+
+    def restore():
+        T.TelemetryAggregator.close = close
+        MasterWorker._count_mfc_flops = count
+    return restore
+
+
+def watch_disabled(exp, obs: dict):
+    """(o)'s disabled contract, watched every 0.2 s while the loop runs: no
+    telemetry endpoint advertised, no telemetry thread in this process.
+    Returns the function that stops the watch."""
+    from areal_tpu_torch.base import name_resolve, names
+
+    e, t = exp.experiment_name, exp.trial_name
+    stop = threading.Event()
+    obs["violations"] = []
+
+    def watch():
+        while not stop.wait(0.2):
+            for key in (names.telemetry_aggregator(e, t),
+                        names.telemetry_http(e, t)):
+                try:
+                    name_resolve.get(key)
+                    obs["violations"].append(f"{key} advertised")
+                except name_resolve.NameEntryNotFoundError:
+                    pass
+            obs["violations"] += [
+                f"thread {th.name}" for th in threading.enumerate()
+                if th.name.startswith("telemetry")]
+
+    th = threading.Thread(target=watch, daemon=True, name="disabled-watch")
+    th.start()
+
+    def restore():
+        stop.set()
+        th.join(5)
+    return restore
+
+
+def device_profile(prof_dir: str) -> dict:
+    """K1-K3's device time and launches in the trainer's capture, and the
+    device's busy share over the capture's window (the union of kernel,
+    memcpy and memset intervals)."""
+    import collections
+    import glob
+
+    files = glob.glob(os.path.join(prof_dir, "trace_*.json"))
+    check(len(files) == 1, f"profiler capture: trace files {files}")
+    with open(files[0]) as f:
+        events = [ev for ev in json.load(f)["traceEvents"]
+                  if ev.get("ph") == "X" and "dur" in ev]
+    gpu = sorted((float(ev["ts"]), float(ev["ts"]) + float(ev["dur"]))
+                 for ev in events if ev.get("cat") in
+                 ("kernel", "gpu_memcpy", "gpu_memset"))
+    cats = dict(collections.Counter(str(ev.get("cat")) for ev in events))
+    check(gpu, f"profiler capture: no device events (categories {cats})")
+    window = (max(b for _, b in gpu) - min(a for a, _ in gpu)) / 1e3
+    busy, end = 0.0, -math.inf
+    for a, b in gpu:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    kernels = {}
+    for prefix in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        ks = [ev for ev in events if ev.get("cat") == "kernel"
+              and prefix in ev["name"]]
+        kernels[prefix] = {"launches": len(ks),
+                           "device_ms": sum(ev["dur"] for ev in ks) / 1e3}
+        check(kernels[prefix]["device_ms"] > 0,
+              f"profiler capture: no device time for {prefix}")
+    return {"file_mb": os.path.getsize(files[0]) / 2 ** 20,
+            "window_ms": window, "busy_share": busy / 1e3 / window,
+            "device_events": len(gpu), "kernels": kernels}
+
+
+def check_observability(cfg, exp, obs, result, tr, fleet, cuda) -> dict:
+    """(p)'s checks of the module docstring, and what it prints."""
+    import collections
+    import glob
+
+    from areal_tpu_torch.base import monitor
+    from areal_tpu_torch.experiments import common as C
+
+    check("scrape_error" not in obs, f"(p) scrape: {obs.get('scrape_error')}")
+    merged = prom_samples(obs["merged"])
+    kinds = {lab.get("worker_kind") for _, lab, _ in merged}
+    check(set(WORKERS) <= kinds, f"(p) merged scrape: workers {kinds}")
+
+    def value(name, **want):
+        vals = [v for n, lab, v in merged if n == name
+                and all(lab.get(k) == w for k, w in want.items())]
+        check(vals, f"(p) merged scrape: no {name} {want}")
+        return vals[-1]
+
+    # goodput: each partition-owning ledger sums to its wall; fleet sides
+    states = {}
+    for who, rec in (("trainer", tr), ("generation_server", fleet)):
+        led = rec["ledger"]
+        total = sum(led["totals"].values())
+        check(abs(total - led["wall"]) <= 0.01 * led["wall"]
+              and abs(sum(led["exported"].values()) - total) <= 0.01 * total,
+              f"(p) {who} ledger: states {led['totals']} sum to {total}, "
+              f"exported {sum(led['exported'].values())}, wall {led['wall']}")
+        states[who] = led["totals"]
+    fleet_goodput = {side: value("areal_fleet_goodput", side=side)
+                     for side in ("trainer", "generation")}
+    check(all(0 < v <= 1 for v in fleet_goodput.values()),
+          f"(p) fleet goodput {fleet_goodput}")
+    scraped_states = collections.defaultdict(dict)
+    for n, lab, v in merged:
+        if n == "areal_goodput_secs_total":
+            scraped_states[lab["worker_kind"]][lab["state"]] = v
+    # live MFU against the peak from the card's name
+    mfu = {"trainer": value("areal_train_mfu"),
+           "generation_server": value("areal_genserver_decode_mfu")}
+    check(all(0 < v < 1 for v in mfu.values()), f"(p) live MFU {mfu}")
+    if cuda:
+        peak = monitor.device_peak_flops(torch.cuda.get_device_name())
+        check(peak is not None and tr["mfu_peak"] == fleet["mfu_peak"] == peak,
+              f"(p) MFU peaks {tr['mfu_peak']} / {fleet['mfu_peak']}, the "
+              f"card's {peak}")
+    # device memory: each process's peak gauge against its allocator's
+    hbm = {}
+    if cuda:
+        dev = torch.cuda.current_device()
+        hbm["trainer"] = value("areal_hbm_peak_bytes", worker_kind="trainer")
+        hbm["generation_server"] = fleet["hbm"][
+            f"hbm/peak_bytes{{device={dev}}}"]
+        for who, rec in (("trainer", tr), ("generation_server", fleet)):
+            check(abs(hbm[who] - rec["peak_bytes"]) <= 0.01 * rec["peak_bytes"],
+                  f"(p) {who} hbm/peak_bytes {hbm[who]} vs "
+                  f"max_memory_allocated {rec['peak_bytes']}")
+    # traces: one per trained trajectory of the timed steps, each joining a
+    # rollout, a server and a trainer span
+    log = C.experiment_paths(exp)["log"]
+    with open(os.path.join(log, "traces.jsonl")) as f:
+        traces = {}
+        for line in f:
+            d = json.loads(line)
+            traces[d["sample_id"]] = {sp["name"] for sp in d["spans"]}
+    timed = [i for r in [r for r in tr["records"]
+                         if r["mfc"] == "actor_train"][1:] for i in r["ids"]]
+    for sid in timed:
+        names_ = traces.get(sid)
+        check(names_ is not None, f"(p) no stitched trace for {sid}")
+        check(any(n.startswith("rollout/") for n in names_)
+              and any(n.startswith("genserver/") for n in names_)
+              and "trainer/train_sample" in names_,
+              f"(p) trace of {sid} joins only {sorted(names_)}")
+    # the sentinel: the operator rule fired with its evidence
+    with open(os.path.join(log, "alerts.jsonl")) as f:
+        alerts = [json.loads(line) for line in f]
+    fired = [a for a in alerts if a["event"] == "firing"]
+    op = [a for a in fired if a["rule"] == OP_RULE["id"]]
+    check(op and op[0].get("evidence_dir"), f"(p) alerts: {alerts}")
+    check(value("areal_alerts_total", rule=OP_RULE["id"]) >= 1,
+          "(p) areal_alerts_total misses the operator rule")
+    ev_dir = op[0]["evidence_dir"]
+    dumps = sorted(os.path.basename(p)
+                   for p in glob.glob(os.path.join(ev_dir, "flight_*.jsonl")))
+    want = {"flight_master0.jsonl", "flight_trainer0.jsonl",
+            "flight_generation_server0.jsonl",
+            "flight_gserver_manager0.jsonl", "flight_rollout0.jsonl"}
+    check(want <= set(dumps), f"(p) evidence {ev_dir} holds {dumps}")
+    # the teardown's SIGTERM dumps parse, each ending in its marker
+    term = {}
+    for path in glob.glob(os.path.join(obs["flight_dir"], "flight_*.jsonl")):
+        with open(path) as f:
+            recs = [json.loads(line) for line in f]
+        check(recs and recs[-1]["kind"] == "dump"
+              and recs[-1]["reason"] == "sigterm",
+              f"(p) flight dump {path} ends {recs[-1:]}")
+        term[os.path.basename(path)] = len(recs)
+    check({"flight_generation_server0.jsonl",
+           "flight_gserver_manager0.jsonl"} <= set(term),
+          f"(p) SIGTERM flight dumps {sorted(term)}")
+    prof = device_profile(obs["prof_dir"]) if cuda else None
+    server = {n: v for n, lab, v in prom_samples(obs["server"])}
+    # read after the JSON: a weight update may land between the two
+    check(server.get("areal_genserver_weight_version", -1) >=
+          obs["server_json"]["version"] >= 1, "(p) server /metrics vs .json")
+
+    def hist(name, kind):
+        return {"count": value(f"{name}_count", worker_kind=kind),
+                "sum_s": value(f"{name}_sum", worker_kind=kind)}
+
+    return {
+        "fleet_goodput": fleet_goodput, "ledger_states_s": states,
+        "scraped_goodput_s": dict(scraped_states), "live_mfu": mfu,
+        "master_mfu": [st.get("timeperf/mfu") for st in result["stats"]],
+        "peak_bytes": hbm, "peak_bytes_sum": sum(hbm.values()),
+        "trainer_spans": {k: hist(f"areal_train_{k}_secs", "trainer")
+                          for k in ("split_pack", "fwd_bwd", "optimizer")},
+        "decode_chunk_spans": hist("areal_genserver_decode_chunk_secs",
+                                   "generation_server"),
+        "traces": len(traces), "traced_samples_checked": len(timed),
+        "alerts_fired": [{"rule": a["rule"], "value": a["value"]}
+                         for a in fired],
+        "evidence_dumps": dumps, "sigterm_dumps": term,
+        "compile_secs": {lab.get("fn"): v for n, lab, v in merged
+                         if n == "areal_compile_secs_total" and "fn" in lab},
+        "profile": prof,
+        "merged_families": len({n for n, _, _ in merged}),
     }
 
 
@@ -2719,6 +3088,24 @@ def main() -> None:
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
     async_launches = async_loop["launches_total"]
 
+    # (p) the same loop with every observability switch on
+    t_obs = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_observed_")
+    try:
+        observed = run_async_loop(cfg, tmp, steps=3, observe=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("observed async loop", json.dumps({
+        "ms_per_step": observed["ms_per_step"],
+        "ms_per_step_o": async_loop["ms_per_step"],
+        "step_ms": observed["step_ms"], "per_mfc": observed["per_mfc"],
+        "trainer_peak_gb": observed["trainer_peak_gb"],
+        "server_peak_gb": observed["server_peak_gb"],
+        **observed["observability"],
+        "phase_p_s": time.monotonic() - t_obs,
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+    observed_launches = observed["launches_total"]
+
     lib_line = ("areal_tpu/ops/pallas/flash_attention.py:200 backward: the "
                 "Pallas TPU library's {} :{} (pallas_call :{})")
     train_launches = train["launches"]
@@ -2729,14 +3116,17 @@ def main() -> None:
         "launches": serve_launches + train_launches["flash_attention_fwd"]
         + trainer_launches["flash_attention_fwd"] + wsync["k1_launches"]
         + loop_launches["flash_attention_fwd"]
-        + async_launches["flash_attention_fwd"],
+        + async_launches["flash_attention_fwd"]
+        + observed_launches["flash_attention_fwd"],
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_attention_fwd"],
                              "trainer": trainer_launches["flash_attention_fwd"],
                              "weight_sync": wsync["k1_launches"],
                              "sync_loop": loop_launches["flash_attention_fwd"],
                              "async_loop":
-                             async_launches["flash_attention_fwd"]},
+                             async_launches["flash_attention_fwd"],
+                             "async_loop_observed":
+                             observed_launches["flash_attention_fwd"]},
         "max_abs_err": k1_train_check["max_abs_err"],
         "ms": timing_train["kernel_ms"], "kernel_ms": timing_train["kernel_ms"],
         "plain_ms": timing_train["plain_ms"],
@@ -2756,11 +3146,14 @@ def main() -> None:
             "source": "areal_tpu_torch/ops/csrc/flash_attention_bwd.cu",
             "replaces": lib_line.format(fn, line, call),
             "launches": train_launches[name] + trainer_launches[name]
-            + loop_launches[name] + async_launches[name],
+            + loop_launches[name] + async_launches[name]
+            + observed_launches[name],
             "launches_by_path": {"train": train_launches[name],
                                  "trainer": trainer_launches[name],
                                  "sync_loop": loop_launches[name],
-                                 "async_loop": async_launches[name]},
+                                 "async_loop": async_launches[name],
+                                 "async_loop_observed":
+                                 observed_launches[name]},
             "max_abs_err": err,
             "ms": rec["kernel_ms"], "kernel_ms": rec["kernel_ms"],
             "plain_ms": bwd_timing["plain_bwd_ms"],

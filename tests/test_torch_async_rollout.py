@@ -532,6 +532,60 @@ def _client(url, inj, attempts):
         fault_injector=inj)
 
 
+class _SlowSession:
+    """An ``AsyncHttp`` stand-in: each call runs on as a task of its own
+    when its caller is cancelled (as a call on the pool's threads does).
+    ``/schedule_request`` grants a lease after ``schedule_delay`` s,
+    ``/generate`` hangs, ``/release`` records its lease after 50 ms."""
+
+    def __init__(self, schedule_delay=0.0):
+        self.schedule_delay = schedule_delay
+        self.granted, self.released = [], []
+
+    async def _call(self, path, body):
+        if path == "schedule_request":
+            await asyncio.sleep(self.schedule_delay)
+            lid = f"l{len(self.granted)}"
+            self.granted.append(lid)
+            return 200, {"url": "http://fake", "version": 0, "lease_id": lid}
+        if path == "release":
+            await asyncio.sleep(0.05)
+            self.released.append(body["lease_id"])
+            return 200, {"ok": True}
+        await asyncio.sleep(3600)  # /generate: never answers
+
+    async def post(self, url, body, timeout=30.0, headers=None):
+        return await asyncio.shield(asyncio.ensure_future(
+            self._call(url.rsplit("/", 1)[-1], body)))
+
+
+@pytest.mark.parametrize("schedule_delay", [0.0, 0.2])
+def test_cancelled_group_returns_every_lease(schedule_delay):
+    """A rollout cancelled mid-generation (the worker's exit) returns every
+    lease its group holds before the cancel reaches the caller, who closes
+    the session next; a lease granted after the cancel (the schedule call
+    still in flight) is returned too. A kept lease pins the server's
+    inflight count until it expires."""
+    from areal_tpu_torch.api.model import GenerationHyperparameters
+    from areal_tpu_torch.system.partial_rollout import PartialRolloutClient
+
+    async def main():
+        session = _SlowSession(schedule_delay)
+        client = PartialRolloutClient("http://mgr", session, chunk_tokens=4)
+        task = asyncio.ensure_future(client.generate_group(
+            [1, 2, 3], GenerationHyperparameters(max_new_tokens=8), 3))
+        await asyncio.sleep(0.1)
+        task.cancel()
+        with pytest.raises(asyncio.CancelledError):
+            await task
+        # what the caller sees as the cancel reaches it
+        return list(session.granted), list(session.released)
+
+    granted, released = asyncio.run(asyncio.wait_for(main(), WAIT))
+    assert len(granted) == 3
+    assert sorted(released) == sorted(granted)
+
+
 def test_client_failover_replays_from_accumulated_tokens(fake_fleet):
     """A failed chunk re-schedules and resumes at the same tokens_done: the
     tokens are contiguous and no lease leaks."""
