@@ -13,10 +13,10 @@ worker runs on; ``n_gpus_per_node`` defaults to 1, the port's one card; a
 model role's ``backend`` defaults to ``torch_train``;
 ``compile_watch.storm_warmup_calls`` is left out (no jitted function to
 watch); a list field also takes a JSON list (``sentinel.rules=[{...}]``:
-the reference sets rule packs through its YAML). Left out with the pieces that read them: serving, fault_tolerance,
-autoscale, durability, reward_service, auto_eval, multi-process trainers,
-and the YAML dump and load (``yaml`` is not known on the card's
-machine).
+the reference sets rule packs through its YAML). Left out with the
+pieces that read them: fault_tolerance, autoscale, durability,
+reward_service, auto_eval, multi-process trainers, and the YAML dump and
+load (``yaml`` is not known on the card's machine).
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from areal_tpu_torch.api.train_config import (
     GoodputConfig,
     OptimizerConfig,
     SentinelConfig,
+    ServingConfig,
     TelemetryConfig,
     WeightSyncConfig,
 )
@@ -137,6 +138,10 @@ class BaseExperimentConfig:
         default_factory=SentinelConfig)
     compile_watch: CompileWatchConfig = dataclasses.field(
         default_factory=CompileWatchConfig)
+    # The generation fleet's serving engine, off by default:
+    # `serving.enabled=true` turns on request classes with 429/413
+    # admission, priority batches, prefix-reuse KV and bounded shapes.
+    serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
     # Test and bring-up runs: the byte-level mock tokenizer.
     mock_tokenizer: bool = False
 
@@ -318,11 +323,60 @@ def validate_config(cfg) -> None:
                     f"allocation_mode {label} spec '{spec}' needs "
                     f"{spec.world_size} devices but the experiment has "
                     f"n_nodes×n_gpus_per_node = {n_devices}")
+    _validate_serving(cfg)
     _validate_observability(cfg)
     nr = getattr(getattr(cfg, "cluster", None), "name_resolve", None)
     if nr is not None and getattr(nr, "type", "nfs") not in ("nfs", "memory"):
         raise ConfigError(f"cluster.name_resolve.type={nr.type!r}: use nfs "
                           "(the default) or memory")
+
+
+def _validate_serving(cfg) -> None:
+    """The reference's serving checks: a bad bucket list fails here, not
+    in every spawned server. ``experiment_policy_kwargs`` is the mapping
+    the async experiment gives its servers, so this is the construction
+    they will run."""
+    serving = getattr(cfg, "serving", None)
+    if not getattr(serving, "enabled", False):
+        return
+    from areal_tpu_torch.system.serving import (
+        experiment_policy_kwargs,
+        policy_from_config,
+    )
+
+    try:
+        policy_from_config(serving, **experiment_policy_kwargs(cfg))
+    except ValueError as e:
+        raise ConfigError(f"invalid serving config: {e}") from None
+    share = float(getattr(serving, "min_rollout_share", 0.0))
+    if not 0.0 <= share <= 1.0:
+        raise ConfigError(
+            f"serving.min_rollout_share={share} must be in [0, 1] "
+            f"(fraction of each batch reserved for rollout traffic)")
+
+
+def _check_shape_budget(cfg) -> None:
+    """With compile_watch and serving on, one shape budget covers both: the
+    trainer's fill sweep may not mint more shapes than
+    ``serving.max_compiled_shapes`` allows (reference cli_args.py:678)."""
+    serving = getattr(cfg, "serving", None)
+    if not getattr(serving, "enabled", False):
+        return
+    from areal_tpu_torch.backend.microbatch import worst_case_row_candidates
+
+    max_shapes = int(getattr(serving, "max_compiled_shapes", 0))
+    trainer_cands = worst_case_row_candidates()
+    if 0 < max_shapes < trainer_cands:
+        raise ConfigError(
+            f"serving.max_compiled_shapes={max_shapes} is below "
+            f"the trainer fill sweep's worst-case candidate count "
+            f"({trainer_cands}, from backend/microbatch.py "
+            f"worst_case_row_candidates): the trainer alone could "
+            f"exceed the shape budget the serving policy enforces. "
+            f"Raise serving.max_compiled_shapes to at least "
+            f"{trainer_cands}, or coarsen the trainer's "
+            f"fill_bucket (actor.backend fill_bucket) to shrink "
+            f"the sweep.")
 
 
 def _validate_observability(cfg) -> None:
@@ -347,9 +401,11 @@ def _validate_observability(cfg) -> None:
                 f"goodput.peak_flops_override={gp.peak_flops_override} "
                 "must be >= 0 (0 = from the card's name)")
     cw = getattr(cfg, "compile_watch", None)
-    if getattr(cw, "enabled", False) and cw.mem_sample_interval_secs < 0:
-        raise ConfigError(f"compile_watch.mem_sample_interval_secs="
-                          f"{cw.mem_sample_interval_secs} must be >= 0")
+    if getattr(cw, "enabled", False):
+        if cw.mem_sample_interval_secs < 0:
+            raise ConfigError(f"compile_watch.mem_sample_interval_secs="
+                              f"{cw.mem_sample_interval_secs} must be >= 0")
+        _check_shape_budget(cfg)
     sn = getattr(cfg, "sentinel", None)
     if getattr(sn, "enabled", False):
         if sn.eval_interval_secs <= 0:

@@ -2,9 +2,9 @@
 
 The port's own copies of ``OptimizerConfig``, ``WeightSyncConfig``,
 ``TelemetryConfig``, ``GoodputConfig``, ``CompileWatchConfig``,
-``SentinelConfig`` and ``ExperimentSaveEvalControl`` from
-``areal_tpu/api/train_config.py``, with the same defaults. Every
-observability block is off by default.
+``SentinelConfig``, ``ServingConfig`` and ``ExperimentSaveEvalControl``
+from ``areal_tpu/api/train_config.py``, with the same defaults. Every
+observability block, and the serving engine, is off by default.
 """
 
 from __future__ import annotations
@@ -176,6 +176,42 @@ class SentinelConfig:
     # Critical alerts publish an autoscale-inhibit hint.
     autoscale_inhibit: bool = True
     inhibit_secs: float = 300.0
+
+
+@dataclasses.dataclass
+class ServingConfig:
+    """The generation fleet's serving engine (system/serving.py; reference
+    train_config.py:227). Off by default: the server is then the
+    rollout-only decode loop — one FIFO without admission limits, no
+    cross-request KV reuse, capacities in unbounded ``kv_bucket``
+    multiples. The distinct-shapes gauge is kept either way."""
+
+    enabled: bool = False
+    # Admission, per request class (0 = unbounded): a full class queue
+    # answers 429 with a Retry-After hint.
+    queue_limit_rollout: int = 512
+    queue_limit_interactive: int = 64
+    queue_limit_eval: int = 128
+    retry_after_secs: float = 0.5
+    # Share of each drained batch kept for waiting rollouts, in [0, 1]
+    # (strict priority alone can starve them); 0 is strict priority.
+    min_rollout_share: float = 0.25
+    # Seed a request's decode state from another's retained KV where
+    # their token prefixes agree, and prefill only the suffix.
+    prefix_reuse: bool = True
+    # Shorter shared prefixes prefill plainly.
+    min_prefix_tokens: int = 4
+    # Decode chunk buckets (empty: a factor-4 ladder down from
+    # chunk_tokens) and batch-row buckets (empty: powers of two up to
+    # max_batch_size).
+    chunk_buckets: List[int] = dataclasses.field(default_factory=list)
+    row_buckets: List[int] = dataclasses.field(default_factory=list)
+    # KV capacities are kv_bucket * 2^k up to this ceiling; a prompt that
+    # cannot fit answers 413.
+    max_kv_capacity: int = 16384
+    # The policy refuses bucket lists whose worst-case shape count (decode
+    # + prefill + suffix extend) exceeds this.
+    max_compiled_shapes: int = 512
 
 
 @dataclasses.dataclass

@@ -17,6 +17,7 @@ from typing import Any, Dict
 from areal_tpu_torch.experiments import common as C
 from areal_tpu_torch.experiments import register_experiment
 from areal_tpu_torch.experiments.ppo_math_exp import PPOMATHConfig
+from areal_tpu_torch.system import serving
 
 
 @dataclasses.dataclass
@@ -45,15 +46,20 @@ class AsyncPPOMATHConfig(PPOMATHConfig):
         C.resolve_allocation(self)  # one device: one server
         n_gen = 1
         paths = C.experiment_paths(self)
+        # the mapping validate_config checked the serving policy with, so
+        # the servers build exactly the validated policy
+        shape_kw = serving.experiment_policy_kwargs(self)
         gen_servers = [
             GenerationServerConfig(
                 experiment=self.experiment_name, trial=self.trial_name,
                 server_id=f"gen{i}",
-                chunk_tokens=self.new_tokens_per_chunk,
+                chunk_tokens=shape_kw["chunk_tokens"],
                 batch_window_ms=self.gen_batch_window_ms,
-                max_batch_size=self.gen_max_batch_size,
-                prompt_bucket=self.gen_prompt_bucket,
+                max_batch_size=shape_kw["max_batch_size"],
+                prompt_bucket=shape_kw["prompt_bucket"],
+                kv_bucket=shape_kw["kv_bucket"],
                 weight_stream_pipeline_depth=self.weight_sync.pipeline_depth,
+                serving=self.serving,
                 telemetry=self._telemetry(),
                 goodput=self.goodput,
                 compile_watch=self.compile_watch,

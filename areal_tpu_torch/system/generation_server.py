@@ -1,27 +1,45 @@
 """Generation server: batched prefill + chunked KV-cache decode over HTTP.
 
 Counterpart of ``areal_tpu/system/generation_server.py`` (``_decode_batch``,
-``_runner``, ``handle_generate``) with the default configuration
-(``serving.enabled=false``). Every ``POST /generate`` decodes at most
-``chunk_tokens`` new tokens and returns them tagged with the weight version;
-the client re-submits prompt + accumulated tokens with the same ``rid`` and
-the server continues from the retained KV state instead of re-prefilling.
+``_try_seed_from_prefix``, ``_runner``, ``handle_generate``). Every
+``POST /generate`` decodes at most ``chunk_tokens`` new tokens and returns
+them tagged with the weight version; the client re-submits prompt +
+accumulated tokens with the same ``rid`` and the server continues from the
+retained KV state instead of re-prefilling.
 
 The HTTP side is the standard library (``system/http.py``'s
-``FleetHTTPServer``, a thread per connection): handler
-threads enqueue requests on a FIFO and wait; one runner thread forms batches
-(``batch_window_ms``, up to ``max_batch_size``) and runs the decode under
-``torch.inference_mode()``. JSON in: ``prompt_ids``, ``gconfig``,
-``max_tokens``, ``rid``, ``tokens_done``; out: ``output_ids``,
-``output_logprobs``, ``finished``, ``version``; the chunked rollout
-client's ``class`` and ``budget_total`` are accepted and, with the serving
-engine off (the reference's default), do not change what is served.
-``GET /health`` carries the body the fleet manager reads
-(``areal_tpu/system/generation_server.py:948``): liveness, ``server_id``,
-the weight ``version``, ``queue_depth``, ``inflight`` and the EWMAs of the
-per-token decode time and of the time to first chunk. ``start()``
-registers the URL under ``names.gen_servers`` (leased by a heartbeat when
-``AREAL_WORKER_KEEPALIVE_TTL`` is set) and ``stop()`` withdraws it.
+``FleetHTTPServer``, a thread per connection): handler threads admit
+requests into the serving engine's queue and wait; one runner thread forms
+batches (``batch_window_ms``, up to ``max_batch_size``) and runs the decode
+under ``torch.inference_mode()``. JSON in: ``prompt_ids``, ``gconfig``,
+``max_tokens``, ``rid``, ``tokens_done``, and the chunked client's
+``class`` and ``budget_total``; out: ``output_ids``, ``output_logprobs``,
+``finished``, ``version``. ``GET /health`` carries the body the fleet
+manager reads (``areal_tpu/system/generation_server.py:948``): liveness,
+``server_id``, the weight ``version``, ``queue_depth``, ``inflight`` and the
+EWMAs of the per-token decode time and of the time to first chunk.
+``start()`` registers the URL under ``names.gen_servers`` (leased by a
+heartbeat when ``AREAL_WORKER_KEEPALIVE_TTL`` is set) and ``stop()``
+withdraws it.
+
+Scheduling is the serving engine's (system/serving.py). With
+``serving.enabled=false`` (the default) it is the rollout-only server: one
+FIFO, no admission limits, a state kept only after a full chunk with
+budget left. With ``serving.enabled=true``: an unknown ``class`` is served
+as ``rollout``; a full class queue answers **429** with the reference's
+body and an integer ``Retry-After`` header; a prompt whose bucketed width
+(or, with ``budget_total``, the generation's last chunk) cannot fit the
+largest capacity answers **413** with ``needed_slots`` / ``max_slots``;
+batches drain interactive > eval > rollout; chunks are clamped under the
+largest capacity bucket and prompt widths snapped to width buckets; a
+state that used its whole allowance is kept, with its tokens in the prefix
+trie; and a new request whose prompt shares at least
+``min_prefix_tokens`` with a retained state clones the donor's KV and
+prefills only the suffix (one B=1 ``extend_state``), unless the bucketed
+suffix is no narrower than the prompt's own prefill width
+(``serving/prefix_skipped_no_savings``). A donor's retained tensors are
+never written: ``clone_prefix`` copies, and ``stack_states`` copies again
+before ``decode_chunk_rows`` writes in place.
 
 ``POST /update_weights`` swaps the served weights (reference
 ``handle_update_weights:877``): ``{"path", "version"}`` loads a native
@@ -31,9 +49,10 @@ tensors (reference names, stacked ``[L, in, out]`` layers) are checked by
 name and shape against the live model, converted into the live dtype on the
 live device as a shadow model, and — for a stream, after the publisher's
 digest verifies — published with the new version as one ``(model,
-version)`` pair that each batch captures once. The retained KV states are
-cleared. Any failure leaves the old pair live, the stats unchanged, and
-answers 500 with ``{"ok": false, "version": <old>, "error"}``.
+version)`` pair that each batch captures once. The retained KV states and
+the prefix trie are cleared. Any failure leaves the old pair live, the
+stats unchanged, and answers 500 with ``{"ok": false, "version": <old>,
+"error"}``.
 
 Observability (``telemetry``, ``goodput``, ``compile_watch``; all off by
 default), as the reference's server has it: a telemetry registry of the
@@ -42,24 +61,21 @@ server's own (several servers may share a process), the
 spans of every traced request (``genserver/queue_wait``,
 ``genserver/prefill``, ``genserver/decode``, adopted from the
 ``X-Areal-Trace`` header), the weight-update span, gauges and watermark,
-a goodput ledger (the runner thread owns idle ↔ compute; weight updates
+a goodput ledger (the runner thread owns idle <-> compute; weight updates
 accrue as overlapping comm), live decode MFU and prefill TFLOP/s,
-device-memory gauges, and ``GET /metrics`` (Prometheus text: the live
-state as ``areal_genserver_*`` gauges plus the registry) and
-``GET /metrics.json``. The serving engine's per-class latency histograms
-(``serving/<class>/*``) are recorded as the reference records them with
-the engine off.
-
-Request classes' admission and prefix reuse wait for a later slice.
+device-memory gauges, the serving engine's per-class counters, histograms
+and queue gauges, and ``GET /metrics`` (Prometheus text: the live state as
+``areal_genserver_*`` gauges plus the registry) and ``GET /metrics.json``.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
 import json
 import logging
-import queue
+import math
 import threading
 import time
 from http.server import BaseHTTPRequestHandler
@@ -73,6 +89,7 @@ from areal_tpu_torch.api.model import GenerationHyperparameters
 from areal_tpu_torch.api.train_config import (
     CompileWatchConfig,
     GoodputConfig,
+    ServingConfig,
     TelemetryConfig,
 )
 from areal_tpu_torch.base import compile_watch, monitor, name_resolve, names
@@ -85,11 +102,17 @@ from areal_tpu_torch.models.transformer import Transformer
 from areal_tpu_torch.ops.sampling import sampling_from_gconfigs
 from areal_tpu_torch.system import goodput as goodput_mod
 from areal_tpu_torch.system import memwatch as memwatch_mod
+from areal_tpu_torch.system import serving as serving_mod
 from areal_tpu_torch.system.http import FleetHTTPServer
 from areal_tpu_torch.system.serving import (
+    REQUEST_CLASSES,
+    AdmissionReject,
     KVStateStore,
+    PromptTooLong,
     ReqState,
+    ServingEngine,
     ShapeBucketPolicy,
+    round_up,
 )
 from areal_tpu_torch.system.weight_stream import (
     WeightStreamConsumer,
@@ -109,20 +132,25 @@ class GenerationServerConfig:
     experiment: str = "exp"
     trial: str = "trial"
     server_id: str = "gen0"
-    chunk_tokens: int = 128  # most new tokens one /generate call decodes
+    # most new tokens one /generate call decodes
+    chunk_tokens: int = serving_mod.GEN_CHUNK_TOKENS_DEFAULT
     batch_window_ms: int = 5
-    max_batch_size: int = 64
-    prompt_bucket: int = 128
+    max_batch_size: int = serving_mod.GEN_MAX_BATCH_SIZE_DEFAULT
+    prompt_bucket: int = serving_mod.GEN_PROMPT_BUCKET_DEFAULT
     eos_token_id: int = 1
     pad_token_id: int = 0
     host: str = "127.0.0.1"
     port: Optional[int] = None  # None: any free port
     # Retained decode states for chunk continuations (0 disables).
     kv_slots: int = 256
-    kv_bucket: int = 256  # KV capacity granularity (slots)
+    # KV capacity granularity (slots)
+    kv_bucket: int = serving_mod.GEN_KV_BUCKET_DEFAULT
     kv_bytes_budget: int = 4 << 30  # retained-KV bytes before LRU eviction
     # In-flight chunk requests of a streamed weight update.
     weight_stream_pipeline_depth: int = 4
+    # request classes, admission, prefix reuse, bounded shapes (off: the
+    # rollout-only server)
+    serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
     telemetry: TelemetryConfig = dataclasses.field(
         default_factory=TelemetryConfig)
     goodput: GoodputConfig = dataclasses.field(default_factory=GoodputConfig)
@@ -135,9 +163,17 @@ class BadRequest(ValueError):
     """A /generate body the server cannot serve (HTTP 400)."""
 
 
-# The request classes the serving engine knows; its latency histograms
-# are recorded per class.
-REQUEST_CLASSES = ("interactive", "eval", "rollout")
+def rejection_reply(e: Exception) -> Tuple[int, Dict[str, Any], Dict[str, str]]:
+    """(status, body, headers) of an admission refusal, as the reference's
+    ``handle_generate`` answers it: 429 with the exact retry-after in the
+    body and RFC 9110 delay-seconds (an integer) in ``Retry-After``, or
+    413."""
+    if isinstance(e, AdmissionReject):
+        return 429, {"ok": False, "reason": "admission", "class": e.cls,
+                     "queue_depth": e.depth, "retry_after": e.retry_after}, \
+            {"Retry-After": str(math.ceil(e.retry_after))}
+    return 413, {"ok": False, "reason": "prompt_too_long",
+                 "needed_slots": e.needed, "max_slots": e.cap}, {}
 
 
 class _Pending:
@@ -154,7 +190,7 @@ class _Pending:
         self.future: concurrent.futures.Future = concurrent.futures.Future()
         self.t_enqueue = time.monotonic()
         self.t_enqueue_wall = time.time()
-        self.cls = cls
+        self.cls = cls  # request class (serving.REQUEST_CLASSES)
         # The caller's trace (telemetry.TraceContext), None if untraced.
         self.trace = trace
 
@@ -183,20 +219,22 @@ class GenerationServer:
         self._last_update_latency = 0.0
         self._last_stream_stats: Dict[str, float] = {}
         self._generator = torch.Generator(device=self.device).manual_seed(0)
-        self.kv = KVStateStore(cfg.kv_slots, cfg.kv_bytes_budget)
-        self.shapes = ShapeBucketPolicy(cfg.kv_bucket)
-        self._queue: "queue.Queue[Optional[_Pending]]" = queue.Queue()
         self._http: Optional[FleetHTTPServer] = None
         self._threads: List[threading.Thread] = []
         self._t_start = time.monotonic()
-        # Counters read by stats(): prefill calls and the wall time of
-        # prefill / decode work (device-synchronised on CUDA).
+        # Counters read by stats(): batched prefills and seeded suffix
+        # extensions, the wall time of prefill / extend / decode work
+        # (device-synchronised on CUDA), and the serving counters.
         self._tokens_out = 0
         self._prefill_tokens = 0
         self._prefill_calls = 0
         self._prefill_secs = 0.0
+        self._extend_calls = 0
+        self._extend_secs = 0.0
         self._decode_steps = 0
         self._decode_secs = 0.0
+        self._counts: collections.Counter = collections.Counter()
+        self._kv_peak_bytes = 0
         # /health's load and latency fields (the manager reads them)
         self._inflight = 0
         self._inflight_lock = threading.Lock()
@@ -235,6 +273,14 @@ class GenerationServer:
             # The kernel libraries are built once per process: their build
             # is recorded on the first armed server's registry.
             compile_watch.configure(cfg.compile_watch, self.telemetry)
+        # The serving engine owns the queue, the retained KV and the shape
+        # set; the handlers and the runner delegate to it.
+        self.serving = ServingEngine(
+            cfg.serving, kv_slots=cfg.kv_slots,
+            kv_bytes_budget=cfg.kv_bytes_budget, kv_bucket=cfg.kv_bucket,
+            chunk_tokens=cfg.chunk_tokens, max_batch_size=cfg.max_batch_size,
+            prompt_bucket=cfg.prompt_bucket, telemetry=self.telemetry)
+        self._queue = self.serving.queue
 
     @property
     def model(self) -> Transformer:
@@ -244,24 +290,48 @@ class GenerationServer:
     def version(self) -> int:
         return self._published[1]
 
+    @property
+    def kv(self) -> KVStateStore:
+        return self.serving.kv
+
+    @property
+    def shapes(self) -> ShapeBucketPolicy:
+        return self.serving.shapes
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _count(self, name: str, n: int = 1) -> None:
+        """A serving counter, in stats() and in the telemetry registry."""
+        self._counts[name] += n
+        self.telemetry.inc(name, n)
 
     # ---------------- decode core ----------------
 
     def _decode_batch(self, batch: List[_Pending]) -> List[Dict[str, Any]]:
         cfg, kv, shapes, dev = self.cfg, self.kv, self.shapes, self.device
         # One read of the pair: a swap mid-batch cannot tag new-weight
-        # tokens with the old version.
+        # tokens with the old version (nor retained KV, which seeds others).
         model, version = self._published
         # Rows with a smaller budget than the batch chunk stop early via
         # row_budget.
         chunk = shapes.round_chunk(
             min(cfg.chunk_tokens, max(p.max_tokens for p in batch)))
+        if shapes.capacity_buckets is not None:
+            # The room left under the largest capacity bucket above the
+            # widest bucketed prompt (what admission checked: >= 1 slot),
+            # snapped down to a chunk bucket.
+            widest = max(shapes.round_width(round_up(len(p.prompt),
+                                                     cfg.prompt_bucket))
+                         for p in batch)
+            room = shapes.capacity_buckets[-1] - widest
+            chunk = max(1, shapes.round_chunk_down(min(chunk, room)))
 
         # Continuations whose retained state matches (same weight version,
-        # same prefix length) decode from their KV; the rest prefill.
+        # same prefix length) decode from their KV; the rest prefill, from
+        # a shared-prefix donor where the engine finds one. The state object
+        # is captured here: /update_weights may clear the store meanwhile.
         cont, fresh = [], []
         for p in batch:
             st = kv.get(p.rid) if p.rid is not None and cfg.kv_slots > 0 \
@@ -272,12 +342,23 @@ class GenerationServer:
                 cont.append((p, st))
             else:
                 fresh.append(p)
+                if p.tokens_done > 0:
+                    self._counts["reprefilled_continuations"] += 1
 
         row_states: Dict[int, genmod.State] = {}
+        fresh = [p for p in fresh if not self._try_seed_from_prefix(
+            p, row_states, model, version, chunk)]
         if fresh:
             padded, plens = genmod.pad_prompts(
                 [p.prompt for p in fresh], cfg.pad_token_id,
                 bucket=cfg.prompt_bucket)
+            # Snap the width to a width bucket (pass-through with serving
+            # off).
+            W = shapes.round_width(padded.shape[1])
+            if W > padded.shape[1]:
+                padded = np.concatenate([padded, np.full(
+                    (padded.shape[0], W - padded.shape[1]), cfg.pad_token_id,
+                    dtype=padded.dtype)], axis=1)
             # Pad prefill rows up to the row bucket with dummy one-token
             # prompts, sliced away below.
             B_pad = shapes.round_rows(len(fresh))
@@ -317,6 +398,8 @@ class GenerationServer:
                         batch_size=len(fresh))
             del st
         for p, rs in cont:
+            # the retained state itself when large enough: stack_states
+            # copies it before the decode writes
             row_states[id(p)] = genmod.grow_state(
                 rs.state, shapes.round_capacity(rs.cur_len + chunk))
 
@@ -342,6 +425,8 @@ class GenerationServer:
                 [min(p.max_tokens, chunk) for p in group] + [0] * n_dummy,
                 dtype=torch.int32, device=dev)
             shapes.observe("decode", rows, S, chunk)
+            self._counts["decode_row_steps"] += rows * chunk
+            self._counts["dummy_row_steps"] += n_dummy * chunk
             t0 = time.monotonic()
             new_state, out = genmod.decode_chunk_rows(
                 model, stacked, done, self._generator, sampling,
@@ -367,17 +452,96 @@ class GenerationServer:
                 }
                 self._tokens_out += n
                 if p.rid is not None and cfg.kv_slots > 0:
-                    # Keep only full-chunk continuations with budget left:
-                    # the client's next prefix is exactly prompt + n.
-                    keep = n == chunk and n < p.max_tokens
+                    allowance = min(p.max_tokens, chunk)
+                    keep = (
+                        # serving: the client's next prefix is prompt + n
+                        # whenever the row used its allowance; a state whose
+                        # client never returns still serves as a donor,
+                        # and LRU and the byte budget reclaim it
+                        (cfg.serving.enabled and n == allowance)
+                        # default: a full chunk with budget left only
+                        or (not cfg.serving.enabled
+                            and n == chunk and n < p.max_tokens))
                     if emitted_eos or not keep:
                         kv.pop(p.rid)
                     else:
                         kv.put(p.rid, ReqState(
                             genmod.slice_state(new_state, i),
-                            cur_len=len(p.prompt) + n, version=version))
+                            cur_len=len(p.prompt) + n, version=version,
+                            # the sequence feeds only the prefix trie
+                            tokens=np.concatenate([
+                                np.asarray(p.prompt, np.int64),
+                                toks.astype(np.int64)])
+                            if kv.prefix_reuse else None))
         kv.evict()
+        self._kv_peak_bytes = max(self._kv_peak_bytes, kv.nbytes)
         return [res_by_id[id(p)] for p in batch]
+
+    def _try_seed_from_prefix(self, p: _Pending, row_states: Dict,
+                              model: Transformer, version: int,
+                              chunk: int) -> bool:
+        """Cross-request prefix seeding: when a retained state's tokens
+        share a prefix with this prompt, clone the donor's KV at the shared
+        length and prefill only the suffix. True when ``row_states[id(p)]``
+        was seeded."""
+        cfg, shapes, kv = self.cfg, self.shapes, self.kv
+        got = kv.acquire_prefix(p.prompt, version,
+                                min_len=cfg.serving.min_prefix_tokens)
+        if got is None:
+            return False
+        rid, shared = got
+        try:
+            T = None
+            if shared < len(p.prompt):
+                # Prefill and extend pad to the same width buckets: a clone
+                # and extend saves work only when the bucketed suffix is
+                # narrower than the prompt's own prefill width.
+                try:
+                    W_full = shapes.round_width(
+                        round_up(len(p.prompt), cfg.prompt_bucket))
+                    T = shapes.round_width(
+                        round_up(len(p.prompt) - shared, cfg.prompt_bucket))
+                except PromptTooLong:
+                    return False  # near the capacity ceiling: plain prefill
+                if T >= W_full:
+                    self._count("serving/prefix_skipped_no_savings")
+                    return False
+            donor = kv.get(rid)
+            if donor is None:
+                # /update_weights cleared the store since the acquire
+                return False
+            # a copy: extending or decoding it never writes the donor
+            st = genmod.clone_prefix(donor.state, shared)
+            suffix = p.prompt[shared:]
+            if len(suffix) == 0:
+                # An exact match of the donor's whole sequence: its last
+                # logits are this prompt's; a pure clone, no prefill.
+                row_states[id(p)] = genmod.grow_state(
+                    st, shapes.round_capacity(len(p.prompt) + chunk))
+            else:
+                try:
+                    need = shapes.round_capacity(
+                        max(len(p.prompt) + chunk, shared + T))
+                except PromptTooLong:
+                    return False  # near the capacity ceiling: plain prefill
+                st = genmod.grow_state(st, need)
+                padded = np.full((1, T), cfg.pad_token_id, np.int32)
+                padded[0, :len(suffix)] = suffix
+                shapes.observe("extend", 1, T, st["kv_k"].shape[2])
+                t0 = time.monotonic()
+                row_states[id(p)] = genmod.extend_state(
+                    model, st, torch.from_numpy(padded).to(self.device),
+                    torch.tensor([len(suffix)], dtype=torch.int32,
+                                 device=self.device))
+                self._sync()
+                self._extend_secs += time.monotonic() - t0
+                self._extend_calls += 1
+                self._prefill_tokens += len(suffix)
+            self._count("serving/prefix_hits")
+            self._count("serving/prefix_tokens_saved", shared)
+            return True
+        finally:
+            kv.release(rid)
 
     def _runner(self) -> None:
         cfg = self.cfg
@@ -387,22 +551,17 @@ class GenerationServer:
             self.ledger.enter("idle")
             first = self._queue.get()
             if first is None:
-                return
+                return  # closed and empty
             batch = [first]
             time.sleep(cfg.batch_window_ms / 1000)
-            stop = False
-            while len(batch) < cfg.max_batch_size:
-                try:
-                    p = self._queue.get_nowait()
-                except queue.Empty:
-                    break
-                if p is None:
-                    stop = True
-                    break
-                batch.append(p)
+            # up to max_batch_size, in class priority order (FIFO with
+            # serving off); sampling is per row, so gconfigs mix freely
+            batch += self._queue.drain(cfg.max_batch_size - 1)
             t_formed = time.monotonic()
             for p in batch:
-                self._record_queue_wait(p, t_formed - p.t_enqueue)
+                self.serving.record_queue_wait(
+                    p.cls, t_formed - p.t_enqueue, trace=p.trace,
+                    t_start_wall=p.t_enqueue_wall)
             try:
                 with self.telemetry.span("genserver/decode_chunk",
                                          batch_size=len(batch)) as attrs, \
@@ -421,24 +580,12 @@ class GenerationServer:
                 self._record_batch(batch, results, dt, attrs["tokens"])
                 for p, r in zip(batch, results):
                     p.future.set_result(r)
-            if stop:
-                return
-
-    def _record_queue_wait(self, p: _Pending, secs: float) -> None:
-        """The serving engine's queue-wait histogram, and the same dwell
-        as the request's ``genserver/queue_wait`` trace span."""
-        if not self.telemetry.enabled:
-            return
-        self.telemetry.observe(f"serving/{p.cls}/queue_wait_secs", secs)
-        if p.trace is not None:
-            self.telemetry.add_span("genserver/queue_wait", p.t_enqueue_wall,
-                                    secs, trace=p.trace, cls=p.cls)
 
     def _record_batch(self, batch: List[_Pending],
                       results: List[Dict[str, Any]], dt: float,
                       tokens: int) -> None:
         """One batch's counters, live decode MFU, per-request decode spans
-        and the serving engine's latency histograms."""
+        and the serving engine's latency histograms and gauges."""
         tel = self.telemetry
         if not tel.enabled:
             return
@@ -459,15 +606,11 @@ class GenerationServer:
                              tokens=n_tok, batch_size=len(batch),
                              version=r.get("version"))
             if p.tokens_done == 0:
-                tel.observe(f"serving/{p.cls}/ttfc_secs",
-                            time.monotonic() - p.t_enqueue)
+                self.serving.record_first_chunk(
+                    p.cls, time.monotonic() - p.t_enqueue)
             if n_tok:
-                tel.observe(f"serving/{p.cls}/token_secs", dt / n_tok,
-                            buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01,
-                                     0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5))
-        tel.set_gauge("serving/compiled_shapes", len(self.shapes.shapes()))
-        tel.set_gauge("genserver/kv_states", self.kv.count)
-        tel.set_gauge("genserver/kv_bytes", self.kv.nbytes)
+                self.serving.record_token_latency(p.cls, dt / n_tok)
+        self.serving.export_gauges()
 
     def _observe_latency(self, batch: List[_Pending],
                          results: List[Dict[str, Any]], dt: float) -> None:
@@ -496,12 +639,8 @@ class GenerationServer:
             prompt = np.asarray(d["prompt_ids"], dtype=np.int64)
             max_tokens = int(d.get("max_tokens", gconfig.max_new_tokens))
             tokens_done = int(d.get("tokens_done", 0))
-            # The chunked client's remaining budget and request class: read
-            # by the serving engine's admission, which is off here.
             if d.get("budget_total") is not None:
                 int(d["budget_total"])
-            if not isinstance(d.get("class", ""), (str, type(None))):
-                raise TypeError("class must be a string")
         except (KeyError, TypeError, ValueError) as e:
             raise BadRequest(f"malformed /generate body: {e!r}") from e
         if prompt.ndim != 1 or prompt.size == 0:
@@ -511,11 +650,11 @@ class GenerationServer:
         if max_tokens < 1 or tokens_done < 0:
             raise BadRequest("max_tokens must be >= 1, tokens_done >= 0")
         rid = d.get("rid")
-        cls = d.get("class")
         return _Pending(
             prompt, gconfig, max_tokens,
             rid=None if rid is None else str(rid), tokens_done=tokens_done,
-            cls=cls if cls in REQUEST_CLASSES else "rollout",
+            # any unknown class, of any JSON type, is served as rollout
+            cls=serving_mod.normalize_class(d.get("class")),
             # the caller's trace (none without telemetry or the header)
             trace=(telemetry_mod.extract_headers(headers)
                    if self.telemetry.enabled and headers is not None
@@ -524,15 +663,23 @@ class GenerationServer:
     def handle_generate(self, d: Dict[str, Any],
                         headers=None) -> Dict[str, Any]:
         """Serve one /generate body (``headers``: the request's, for its
-        trace): enqueue, wait for the batch it lands in, return the reply.
-        Raises BadRequest for a malformed body."""
+        trace): admit, wait for the batch it lands in, return the reply.
+        Raises BadRequest for a malformed body, and the serving engine's
+        AdmissionReject (429) or PromptTooLong (413) for a refusal
+        (:func:`rejection_reply` makes the answer)."""
         p = self._parse(d, headers)
         if self._http is None:
             raise RuntimeError("generation server is not running")
+        budget = d.get("budget_total")
+        # Admission and enqueue are one decision under the queue's lock.
+        # budget_total (the chunked client's whole remaining budget) makes
+        # the feasibility check cover the generation's last chunk.
+        self.serving.admit(
+            p, p.cls, prompt_len=len(p.prompt),
+            planned_len=len(p.prompt) + int(budget) if budget else None)
         with self._inflight_lock:
             self._inflight += 1
         try:
-            self._queue.put(p)
             return p.future.result()
         finally:
             with self._inflight_lock:
@@ -558,13 +705,13 @@ class GenerationServer:
         self.ledger.poll()  # scrape-time freshness for the idle state
         self.memwatch.sample()
         dt = max(time.monotonic() - self._t_start, 1e-6)
-        return {
+        d = {
             "generated_tokens": self._tokens_out,
             "prefill_tokens": self._prefill_tokens,
             "tokens_per_sec": self._tokens_out / dt,
             "kv_states": self.kv.count,
             "kv_bytes": self.kv.nbytes,
-            "compiled_shapes": len(self.shapes.shapes()),
+            "compiled_shapes": self.shapes.distinct_shapes,
             "version": self.version,
             "inflight_requests": self._inflight,
             "queue_depth": self._queue.qsize(),
@@ -574,6 +721,10 @@ class GenerationServer:
             **{f"last_stream_{k}": v
                for k, v in self._last_stream_stats.items()},
         }
+        if self.cfg.serving.enabled:
+            for c in REQUEST_CLASSES:
+                d[f"serving_queue_{c}"] = self._queue.depth(c)
+        return d
 
     def metrics_text(self) -> str:
         """``GET /metrics``: the live state as ``areal_genserver_*``
@@ -593,13 +744,22 @@ class GenerationServer:
             "prefill_tokens": self._prefill_tokens,
             "prefill_calls": self._prefill_calls,
             "prefill_secs": self._prefill_secs,
+            "extend_calls": self._extend_calls,
+            "extend_secs": self._extend_secs,
             "decode_steps": self._decode_steps,
             "decode_secs": self._decode_secs,
             "kv_states": self.kv.count,
             "kv_bytes": self.kv.nbytes,
+            "kv_peak_bytes": self._kv_peak_bytes,
             "shapes": self.shapes.shapes(),
             "version": self.version,
             "last_weight_update_latency_s": self._last_update_latency,
+            # prefix hits, tokens saved and skipped seeds, decode and dummy
+            # row-steps, continuations that found no state of their own
+            **{k: self._counts[k] for k in (
+                "serving/prefix_hits", "serving/prefix_tokens_saved",
+                "serving/prefix_skipped_no_savings", "decode_row_steps",
+                "dummy_row_steps", "reprefilled_continuations")},
             # The last successful streamed update's legs (absent until one
             # lands; a later disk update does not describe them).
             **{f"last_stream_{k}": v
@@ -751,11 +911,14 @@ class GenerationServer:
         server = self
 
         class Handler(BaseHTTPRequestHandler):
-            def _reply(self, status: int, body: Dict[str, Any]) -> None:
+            def _reply(self, status: int, body: Dict[str, Any],
+                       headers: Optional[Dict[str, str]] = None) -> None:
                 data = json.dumps(body).encode()
                 self.send_response(status)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(data)))
+                for k, v in (headers or {}).items():
+                    self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(data)
 
@@ -772,6 +935,8 @@ class GenerationServer:
                     reply = server.handle_generate(body, self.headers)
                 except (BadRequest, json.JSONDecodeError) as e:
                     return self._reply(400, {"ok": False, "error": str(e)})
+                except (AdmissionReject, PromptTooLong) as e:
+                    return self._reply(*rejection_reply(e))
                 except Exception as e:  # noqa: BLE001 — report, keep serving
                     return self._reply(500, {"ok": False, "error": repr(e)})
                 self._reply(200, reply)
@@ -822,8 +987,8 @@ class GenerationServer:
         return url
 
     def stop(self, timeout: float = 60.0) -> None:
-        """Stop accepting requests, finish the batch in flight, fail any
-        request still queued, and join both threads."""
+        """Stop accepting requests, serve what is queued, fail anything
+        still queued after ``timeout``, and join both threads."""
         if self._http is None:
             return
         if self._hb is not None:
@@ -837,16 +1002,15 @@ class GenerationServer:
             pass
         self._http.shutdown()
         self._http.server_close()
-        self._queue.put(None)
+        self._queue.close()  # past every limit and the priority order
         for t in self._threads:
             t.join(timeout)
         while True:
             try:
                 p = self._queue.get_nowait()
-            except queue.Empty:
+            except IndexError:
                 break
-            if p is not None:
-                p.future.set_exception(RuntimeError("generation server stopped"))
+            p.future.set_exception(RuntimeError("generation server stopped"))
         self._http = None
         self._threads = []
         self.ledger.flush()

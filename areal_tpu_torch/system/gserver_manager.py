@@ -7,9 +7,14 @@ threaded HTTP server answers the rollout clients, a health thread probes
 the fleet, a watcher thread fans new weight versions out; every piece of
 lease, quota and version state sits under one lock.
 
- - Routing: ``/schedule_request`` hands out a lease on a server
-   (``round_robin`` or ``least_requests``), ``/renew`` extends it, ``/release`` retires it by lease id or, unambiguously, by
-   URL; leases expire after ``lease_ttl_secs``.
+ - Routing: ``/schedule_request`` hands out a lease on a server for a
+   request class (``{"class": ...}``; an unknown one is ``rollout``):
+   rollout by ``round_robin`` or ``least_requests``, interactive and eval
+   to the server with the least interactive+eval leases (total leases
+   break ties). ``/renew`` extends a lease, ``/release`` retires it by
+   lease id or, unambiguously, by URL; leases expire after
+   ``lease_ttl_secs``. The per-class lease counts are the
+   ``gsmgr_inflight_{class}`` gauges.
  - The staleness gate (reference ``is_staled``): in sample units,
    ``(accepted + running) // train_batch_size`` may not exceed
    ``max_head_offpolicyness + version``; ``/allocate_rollout`` also denies
@@ -37,8 +42,7 @@ the ``gsmgr/alloc`` and ``gsmgr/finish`` spans of traced rollouts, and
 Prometheus http_sd format).
 
 Left out: the autoscaler (and its ``autoscale/*`` metrics), cordon and
-drain, the straggler sweep, the serving engine's request classes (every
-lease is a rollout's) and the ``device`` transport (ROADMAP.md).
+drain, the straggler sweep and the ``device`` transport (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -64,6 +68,7 @@ from areal_tpu_torch.base import (
 )
 from areal_tpu_torch.base.retry import FaultInjector, RetryPolicy, retry
 from areal_tpu_torch.system.http import FleetHTTPServer, request_json
+from areal_tpu_torch.system.serving import REQUEST_CLASSES, normalize_class
 from areal_tpu_torch.system.worker_base import (
     HeartbeatThread,
     default_heartbeat_interval,
@@ -127,6 +132,10 @@ class GserverManager:
         self._inflight: Dict[str, int] = {}  # url -> outstanding leases
         self._leases: Dict[str, Tuple[str, float]] = {}  # id -> (url, expiry)
         self._lease_seq = 0
+        # Each lease's request class, and the leases per url and class:
+        # one fleet carries rollout and interactive/eval traffic.
+        self._lease_class: Dict[str, str] = {}
+        self._inflight_cls: Dict[str, Dict[str, int]] = {}
         # Both staleness terms count samples: an allocation of group_size
         # samples adds group_size to running.
         self.running_rollouts = 0
@@ -172,7 +181,9 @@ class GserverManager:
         dropped = [lid for lid, (u, _) in self._leases.items() if u == url]
         for lid in dropped:
             del self._leases[lid]
+            self._lease_class.pop(lid, None)
         self._inflight.pop(url, None)
+        self._inflight_cls.pop(url, None)
         return len(dropped)
 
     def _evict(self, url: str, reason: str) -> None:
@@ -459,6 +470,8 @@ class GserverManager:
             t.set_gauge("gsmgr/running_rollouts", self.running_rollouts)
             t.set_gauge("gsmgr/accepted_rollouts", self.accepted_rollouts)
             t.set_gauge("gsmgr/weight_version", self.version)
+            for c, n in self._inflight_by_class().items():
+                t.set_gauge(f"gsmgr/inflight_{c}", n)
         if last is not None:
             t.set_gauge("gsmgr/weight_sync_fanout_secs", last[1])
             if last[2] is not None:
@@ -474,6 +487,12 @@ class GserverManager:
 
     # ---------------- scheduling (under the lock) ----------------
 
+    def _drop_lease_class(self, lid: str, url: str) -> None:
+        cls = self._lease_class.pop(lid, "rollout")
+        by = self._inflight_cls.get(url)
+        if by and by.get(cls, 0) > 0:
+            by[cls] -= 1
+
     def _expire_leases(self) -> None:
         now = time.monotonic()
         for lid in [lid for lid, (_, exp) in self._leases.items()
@@ -481,12 +500,28 @@ class GserverManager:
             url, _ = self._leases.pop(lid)
             if self._inflight.get(url, 0) > 0:
                 self._inflight[url] -= 1
+            self._drop_lease_class(lid, url)
             logger.warning(f"lease {lid} on {url} expired (client gone?)")
 
-    def _pick_server(self) -> Optional[str]:
+    def _cls_inflight(self, url: str, classes) -> int:
+        by = self._inflight_cls.get(url, {})
+        return sum(by.get(c, 0) for c in classes)
+
+    def _inflight_by_class(self) -> Dict[str, int]:
+        return {c: sum(by.get(c, 0) for by in self._inflight_cls.values())
+                for c in REQUEST_CLASSES}
+
+    def _pick_server(self, cls: str = "rollout") -> Optional[str]:
         self._expire_leases()
         if not self.servers:
             return None
+        if cls != "rollout":
+            # latency-sensitive classes go where the least interactive and
+            # eval load is (total leases break ties); bulk rollout keeps
+            # the configured policy
+            return min(self.servers, key=lambda u: (
+                self._cls_inflight(u, ("interactive", "eval")),
+                self._inflight.get(u, 0)))
         if self.cfg.schedule_policy == "least_requests":
             return min(self.servers, key=lambda u: self._inflight.get(u, 0))
         url = self.servers[self._rr % len(self.servers)]
@@ -501,8 +536,9 @@ class GserverManager:
     # ---------------- handlers: (status, reply) ----------------
 
     def schedule_request(self, d: Dict, headers=None) -> Tuple[int, Dict]:
+        cls = normalize_class(d.get("class"))
         with self._lock:
-            url = self._pick_server()
+            url = self._pick_server(cls)
             if url is None:
                 # The whole fleet is out: clients back off and retry.
                 return 503, {"url": None, "reason": "no_healthy_servers"}
@@ -511,9 +547,12 @@ class GserverManager:
             lease_id = f"l{self._lease_seq}"
             self._leases[lease_id] = (
                 url, time.monotonic() + self.cfg.lease_ttl_secs)
-            self.telemetry.inc("gsmgr/scheduled_rollout")
+            self._lease_class[lease_id] = cls
+            by = self._inflight_cls.setdefault(url, {})
+            by[cls] = by.get(cls, 0) + 1
+            self.telemetry.inc(f"gsmgr/scheduled_{cls}")
             return 200, {"url": url, "version": self.version,
-                         "lease_id": lease_id, "class": "rollout"}
+                         "lease_id": lease_id, "class": cls}
 
     def renew(self, d: Dict, headers=None) -> Tuple[int, Dict]:
         lid = d.get("lease_id")
@@ -533,6 +572,7 @@ class GserverManager:
                     u, _ = self._leases.pop(lid)
                     if self._inflight.get(u, 0) > 0:
                         self._inflight[u] -= 1
+                    self._drop_lease_class(lid, u)
                 return 200, {"ok": True}
             # By url: retire the lease too, but only when exactly one
             # lease is on it (never guess another client's); with several
@@ -541,6 +581,18 @@ class GserverManager:
             matches = [l for l, (lu, _) in self._leases.items() if lu == u]
             if len(matches) == 1:
                 del self._leases[matches[0]]
+                self._drop_lease_class(matches[0], u)
+            elif matches:
+                # No lease retired, but the class count moves with the
+                # total: a rollout lease's class first (by-url clients
+                # predate classes).
+                lid2 = next((l for l in matches
+                             if self._lease_class.get(l, "rollout")
+                             == "rollout"), matches[0])
+                cls = self._lease_class.get(lid2, "rollout")
+                by = self._inflight_cls.get(u)
+                if by and by.get(cls, 0) > 0:
+                    by[cls] -= 1
             if u in self._inflight and self._inflight[u] > 0:
                 self._inflight[u] -= 1
             return 200, {"ok": True}
@@ -597,6 +649,9 @@ class GserverManager:
                 "gsmgr_known_servers": len(self.health),
                 "gsmgr_lease_depth": len(self._leases),
                 "gsmgr_inflight_requests": sum(self._inflight.values()),
+                # per-class lease load
+                **{f"gsmgr_inflight_{c}": n
+                   for c, n in self._inflight_by_class().items()},
                 "gsmgr_staled": float(self.is_staled()),
             }
             last = self.sync_history[-1] if self.sync_history else None
@@ -614,6 +669,7 @@ class GserverManager:
                 "accepted_rollouts": self.accepted_rollouts,
                 "healthy_servers": len(self.servers),
                 "known_servers": len(self.health),
+                "inflight_by_class": self._inflight_by_class(),
                 "fleet": {
                     u: {"routable": st.routable,
                         "consecutive_failures": st.consecutive_failures,

@@ -207,7 +207,53 @@ Phases (any failed check raises, and the script exits non-zero):
      goodput, each ledger's state seconds, live MFU beside the master's
      timeperf/mfu, both peaks and their sum, the trainer's split_pack /
      fwd_bwd / optimizer spans, the server's decode-chunk spans, the
-     default rules that fired and the device's busy share in the capture.
+     default rules that fired and the device's busy share in the capture;
+ (q) the serving engine on the seed-0 weights in bf16 (a fresh copy, the
+     earlier phases' engines freed), every server with
+     ``serving.enabled=true`` at its defaults but as said.
+     (q1) prefix reuse: a donor (a 768-token preamble + 32 tokens, greedy,
+     one full chunk of 128) on a server with prefix reuse and on one
+     without; then eight concurrent requests of the preamble + suffixes of
+     16-64 tokens (first tokens distinct, none the donor's), 32 greedy
+     tokens each, on both. Checks: prefix hits +8, tokens saved +8 x 768,
+     prefill tokens + the suffixes' sum, no batched prefill and no K1
+     launch for the seeded requests (eight B=1 suffix extends through the
+     plain attention), the donor's K and V bytes unchanged (SHA-256),
+     each seeded row's first logits within 5% of max|logit| of the
+     reuse-off server's full K1 prefill of the same prompt, which two
+     wrong seeds (the donor cloned one token short, a donor of another
+     768-token preamble) must fail; and within 1e-4 of max|logit| of the
+     same extend redone outside the server on a fresh clone of the donor
+     at the server's shapes, which both wrong seeds must fail too. Prints
+     each reading, and the seeded rows against a plain-attention full
+     prefill. A request
+     whose prompt is the donor's whole sequence is a pure clone (no
+     prefill, no extend) and its greedy tokens and logprobs equal the
+     donor's rid continuation bit for bit; a 100-token overlap counts as
+     prefix_skipped_no_savings; K1 launched n_layers x the batched
+     prefills. Prints the seeded extend and unseeded prefill ms and how
+     many of the eight greedy continuations equal reuse-off's.
+     (q2) classes, on one server (telemetry on, batches of up to 16,
+     queue_limit_interactive=4) behind a manager: 64 rollouts of 256
+     tokens at temperature 1 (two 128-token chunks each, through the
+     manager's leases) in flight, then a burst of 16 interactive requests
+     (32 greedy tokens) and a 16,400-token prompt. Checks: some
+     interactive requests get 429 with Retry-After "1" and the
+     reference's body, the rest 200; the admitted interactive requests'
+     mean queue wait is below the rollouts'; the long prompt gets 413 and
+     every rollout finishes; the server's /metrics has the areal_serving_*
+     families and the manager's areal_gsmgr_inflight_{interactive,eval,
+     rollout}; ``perf_probe decode-bench`` (24 mixed requests) sees no
+     non-200 reply but 429 and 413; K1 launched n_layers x the prefills,
+     the decode-bench's included.
+     Prints per-class latency, queue wait and time to first chunk, the
+     429/413 counts and the share of decode row-steps that are dummies.
+     (q3) the loop of (o) with ``serving.enabled=true``, 3 steps (the first
+     a warm-up), while a thread here sends three interactive requests
+     through the manager: (o)'s checks and at least one interactive reply.
+     Prints ms per step beside (o)'s, prefill tokens per step, prefix hits,
+     continuations that re-prefilled and the retained KV's peak bytes,
+     beside (o)'s.
 
 The script exits 0 only when every phase passed and the last line is
 printed; any failed check raises and exits 1, as does a run where
@@ -2370,7 +2416,7 @@ def run_async_loop(cfg, tmp: str, device: str = "cuda", steps: int = 4,
                    n_prompts: int = 4, group_size: int = 16,
                    chunk_tokens: int = 128, max_new_tokens: int = 256,
                    timeout: float = 600.0, extra=(),
-                   observe: bool = False) -> dict:
+                   observe: bool = False, interactive: bool = False) -> dict:
     """(o): the README's async recipe through the port's ``run_experiment``
     (what ``python -m areal_tpu_torch.training.main_async_ppo`` calls), with
     the launcher's probes recording each process's counters. The checks of
@@ -2378,7 +2424,9 @@ def run_async_loop(cfg, tmp: str, device: str = "cuda", steps: int = 4,
     observability switch off, it also checks that no telemetry endpoint is
     advertised and no telemetry thread runs here. ``observe=True`` is (p):
     the same loop with telemetry, goodput, compile_watch and the sentinel
-    on, checked by :func:`check_observability`."""
+    on, checked by :func:`check_observability`. ``interactive=True`` is
+    (q3)'s probe: three interactive requests through the manager while the
+    loop runs, at least one answered."""
     import collections
     import functools
     import multiprocessing
@@ -2462,9 +2510,13 @@ def run_async_loop(cfg, tmp: str, device: str = "cuda", steps: int = 4,
     restore = (observe_master(exp, obs) if observe
                else watch_disabled(exp, obs))
     t0 = time.monotonic()
+    probed, stop_probe = [], threading.Event()
     try:
         thread = threading.Thread(target=run, daemon=True, name="async-loop")
         thread.start()
+        if interactive:
+            threading.Thread(target=interactive_probe, daemon=True,
+                             args=(exp, probed, stop_probe)).start()
         # the steps' bound, the loads before them and the bounded teardown
         thread.join(timeout + 300)
         loop_s = time.monotonic() - t0
@@ -2484,6 +2536,7 @@ def run_async_loop(cfg, tmp: str, device: str = "cuda", steps: int = 4,
         check(not multiprocessing.active_children(), "async loop: children "
               f"outlived the teardown: {multiprocessing.active_children()}")
     finally:
+        stop_probe.set()
         restore()
         name_resolve.DEFAULT_REPO = old_repo
         for recv, send in pipes.values():
@@ -2536,6 +2589,11 @@ def run_async_loop(cfg, tmp: str, device: str = "cuda", steps: int = 4,
           "actor the trainer published as that version")
     check(not roll["cuda_initialized"], "async loop: the rollout worker "
           "initialised CUDA")
+    answered = [r for r in probed if r.get("status") == 200]
+    if interactive:
+        check(answered and all(r["class"] == "interactive"
+                               and r["output_ids"] for r in answered),
+              f"async loop: no interactive reply: {probed}")
     check(roll["pushed"] >= steps * n_prompts * group_size,
           f"async loop: {roll['pushed']} trajectories pushed")
     if cuda:
@@ -2615,6 +2673,15 @@ def run_async_loop(cfg, tmp: str, device: str = "cuda", steps: int = 4,
         "critic": [{k: st[f"critic_train/{k}"] for k in (
             "critic_loss", "grad_norm")} for st in stats],
         "launches_total": launches,
+        # the server's prefill work and its serving counters
+        "server": {k: fleet["stats"][k] for k in (
+            "prefill_tokens", "prefill_calls", "extend_calls",
+            "serving/prefix_hits", "serving/prefix_tokens_saved",
+            "reprefilled_continuations", "kv_peak_bytes",
+            "dummy_row_steps", "decode_row_steps")},
+        "prefill_tokens_per_step": fleet["stats"]["prefill_tokens"] / steps,
+        "interactive": [{k: r.get(k) for k in ("status", "ms", "version",
+                                               "error")} for r in probed],
         "loop_s": loop_s, "setup_s": t0 - t_setup,
         **({"observability": check_observability(
             cfg, exp, obs, result, tr, fleet, cuda)} if observe else {}),
@@ -2909,6 +2976,507 @@ def check_observability(cfg, exp, obs, result, tr, fleet, cuda) -> dict:
     }
 
 
+# ---------------- (q) the serving engine ----------------
+
+
+def http_post(url: str, path: str, body: dict, timeout: float = 600):
+    """(HTTP status, reply, headers) of one POST, error statuses included."""
+    req = urllib.request.Request(url + path, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}"), dict(e.headers)
+
+
+def kv_digest(state: dict) -> str:
+    """SHA-256 of a decode state's K and V bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in ("kv_k", "kv_v"):
+        h.update(state[k].contiguous().reshape(-1).view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def record_prefills(genmod):
+    """Wrap ``prefill_state`` and ``extend_state``: each call's tokens,
+    lengths, KV capacity and last logits (f32, on the host) are recorded.
+    Returns the records and a restore function."""
+    calls = {"prefill": [], "extend": []}
+    orig = {"prefill": genmod.prefill_state, "extend": genmod.extend_state}
+
+    def wrap(kind):
+        def fn(model, st_or_prompts, *args, **kw):
+            out = orig[kind](model, st_or_prompts, *args, **kw)
+            if kind == "prefill":
+                toks, lens = st_or_prompts, args[0]
+            else:
+                toks, lens = args[0], args[1]
+            calls[kind].append((toks.cpu(), lens.cpu(), out["kv_k"].shape[2],
+                                out["last_logits"].float().cpu()))
+            return out
+        return fn
+
+    genmod.prefill_state, genmod.extend_state = wrap("prefill"), wrap("extend")
+
+    def restore():
+        genmod.prefill_state = orig["prefill"]
+        genmod.extend_state = orig["extend"]
+    return calls, restore
+
+
+def row_of(calls, kind: str, seq):
+    """The recorded row whose real tokens are ``seq``: (its padded tokens
+    [1, T], its length [1], the KV capacity, its last logits)."""
+    seq = torch.tensor(seq)
+    for toks, lens, S, logits in calls[kind]:
+        for i in range(len(lens)):
+            n = int(lens[i])
+            if n == len(seq) and torch.equal(toks[i, :n].long(), seq):
+                return toks[i:i + 1], lens[i:i + 1], S, logits[i]
+    raise SmokeFailure(f"(q1) no {kind} row of {len(seq)} tokens recorded")
+
+
+# (q1): a seeded row's first logits against the same suffix extend redone
+# outside the server on a fresh clone of the donor, at the server's own
+# shapes, as a share of max|logit| of K1's full prefill.
+SEED_TOL = 1e-4
+
+
+@torch.inference_mode()
+def seed_readings(model, donor: dict, other: dict, n_shared: int, prompt,
+                  tokens, lens, S: int) -> dict:
+    """The last logits of ``prompt`` (the donor's first ``n_shared`` tokens
+    + a suffix) computed four ways outside the server, at B=1 and through
+    the plain attention only (no K1 launch). ``seed``: the suffix
+    ``tokens`` / ``lens`` (padded as the server padded them) extended on a
+    clone of the donor at ``n_shared`` and capacity ``S``, as the server
+    seeds it; ``short``: the same on a clone one token short (a wrong
+    length); ``other``: the same on ``other``, a state of another prompt of
+    ``n_shared`` tokens (a wrong donor); ``plain``: a full prefill."""
+    from areal_tpu_torch.models import generate as genmod
+
+    dev = donor["kv_k"].device
+    tokens, lens = tokens.to(dev), lens.to(dev)
+
+    def extend(st, n):
+        st = genmod.grow_state(genmod.clone_prefix(st, n), S)
+        return genmod.extend_state(model, st, tokens, lens)[
+            "last_logits"][0].cpu()
+    full = torch.tensor([prompt], device=dev)
+    plain = genmod.prefill_state(model, full, torch.tensor(
+        [len(prompt)], device=dev), max(S, len(prompt)),
+        attn_impl="reference")
+    return {"seed": extend(donor, n_shared),
+            "short": extend(donor, n_shared - 1),
+            "other": extend(other, n_shared),
+            "plain": plain["last_logits"][0].cpu()}
+
+
+def serving_server(cfg, params, eos, server_id: str, device="cuda",
+                   server_kw=None, **serving):
+    """A (q) server with ``serving.enabled=true`` and the ``serving`` fields
+    given; ``server_kw`` sets other fields of its config."""
+    from areal_tpu_torch.api.train_config import ServingConfig
+    from areal_tpu_torch.system.generation_server import (
+        GenerationServer,
+        GenerationServerConfig,
+    )
+
+    return GenerationServer(GenerationServerConfig(
+        experiment="chip_q", trial="q", server_id=server_id,
+        eos_token_id=eos, pad_token_id=eos, batch_window_ms=20,
+        serving=ServingConfig(enabled=True, **serving), **(server_kw or {})),
+        cfg, params, device=device)
+
+
+def run_prefix_reuse(fa, cfg, params, eos, device="cuda") -> dict:
+    """(q1): a donor request, eight requests sharing its 768-token preamble,
+    a pure clone, a rid continuation and a short overlap, on a server with
+    prefix reuse and on one without (the full K1 prefills). The launch
+    checks run only on the card."""
+    from areal_tpu_torch.models import generate as genmod
+
+    cuda = torch.device(device).type == "cuda"
+    on = serving_server(cfg, params, eos, "q1on", device)
+    off = serving_server(cfg, params, eos, "q1off", device,
+                         prefix_reuse=False)
+    urls = {"on": on.start(), "off": off.start()}
+    gen = torch.Generator().manual_seed(7)
+
+    def toks(n):
+        return torch.randint(0, eos, (n,), generator=gen).tolist()
+
+    preamble, s0 = toks(768), toks(32)
+    firsts, suffixes = {s0[0]}, []
+    for n in (16, 22, 28, 34, 40, 46, 52, 64):
+        s = toks(n)
+        while s[0] in firsts:  # the shared prefix is the preamble alone
+            s[0] = (s[0] + 1) % eos
+        firsts.add(s[0])
+        suffixes.append(s)
+    calls, restore = record_prefills(genmod)
+    fa.reset_launch_count()
+    try:
+        donor_body = {"prompt_ids": preamble + s0, "max_tokens": 128,
+                      "gconfig": {"greedy": True}, "rid": "donor"}
+        donor = {k: post(u, donor_body) for k, u in urls.items()}
+        check_reply(donor["on"], 128, eos, "(q1) donor")
+        check(not donor["on"]["finished"], "(q1) the donor ended at EOS")
+        check(donor["on"]["output_ids"] == donor["off"]["output_ids"],
+              "(q1) the donor's greedy tokens differ between the servers")
+        donor_st = on.kv.get("donor")
+        check(donor_st is not None, "(q1) the donor's state was not kept")
+        h0 = kv_digest(donor_st.state)
+
+        prompts = [preamble + s for s in suffixes]
+        bodies = [{"prompt_ids": p, "max_tokens": 32, "rid": f"q1-{i}",
+                   "gconfig": {"greedy": True}}
+                  for i, p in enumerate(prompts)]
+        s1 = {"on": on.stats(), "off": off.stats()}
+        k1 = fa.launch_count()
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            seeded = list(pool.map(lambda b: post(urls["on"], b), bodies))
+        s2_on, k1_seeded = on.stats(), fa.launch_count() - k1
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            plain = list(pool.map(lambda b: post(urls["off"], b), bodies))
+        s2_off = off.stats()
+        for i, r in enumerate(seeded):
+            check_reply(r, 32, eos, f"(q1) seeded request {i}")
+
+        def delta(key, a=s1["on"], b=s2_on):
+            return b[key] - a[key]
+        check(delta("serving/prefix_hits") == 8,
+              f"(q1) prefix hits rose by {delta('serving/prefix_hits')}")
+        check(delta("serving/prefix_tokens_saved") == 8 * 768,
+              "(q1) prefix tokens saved rose by "
+              f"{delta('serving/prefix_tokens_saved')}, not 8 x 768")
+        check(delta("prefill_tokens") == sum(map(len, suffixes)),
+              f"(q1) prefill tokens rose by {delta('prefill_tokens')}, not "
+              f"the suffixes' {sum(map(len, suffixes))}")
+        check(delta("prefill_calls") == 0 and (k1_seeded == 0 or not cuda),
+              f"(q1) the seeded requests ran {delta('prefill_calls')} "
+              f"batched prefills and {k1_seeded} K1 launches")
+        check(delta("extend_calls") == 8, "(q1) extends "
+              f"{delta('extend_calls')}")
+        check(kv_digest(donor_st.state) == h0,
+              "(q1) the seeded requests changed the donor's KV")
+        errs = []
+        for p, s in zip(prompts, suffixes):
+            ref = row_of(calls, "prefill", p)[3]
+            got = row_of(calls, "extend", s)[3]
+            check(bool(torch.isfinite(got).all()), "(q1) seeded logits")
+            err = (got - ref).abs().max().item()
+            tol = 0.05 * ref.abs().max().item()
+            check(err <= tol, f"(q1) seeded first logits off by {err} > "
+                  f"{tol} from the full K1 prefill")
+            errs.append(err / ref.abs().max().item())
+        same = sum(a["output_ids"] == b["output_ids"]
+                   for a, b in zip(seeded, plain))
+
+        # a pure clone: the donor's whole sequence, no prefill at all
+        seq = preamble + s0 + donor["on"]["output_ids"]
+        s3 = on.stats()
+        clone = post(urls["on"], {"prompt_ids": seq, "max_tokens": 32,
+                                  "rid": "clone",
+                                  "gconfig": {"greedy": True}})
+        s4 = on.stats()
+        check(delta("prefill_tokens", s3, s4) == 0
+              and delta("extend_calls", s3, s4) == 0
+              and delta("prefill_calls", s3, s4) == 0,
+              "(q1) the exact-match clone prefilled")
+        check(delta("serving/prefix_hits", s3, s4) == 1
+              and delta("serving/prefix_tokens_saved", s3, s4) == len(seq),
+              "(q1) the clone was not counted as a full hit")
+        cont = post(urls["on"], {"prompt_ids": seq, "max_tokens": 32,
+                                 "rid": "donor", "tokens_done": 128,
+                                 "gconfig": {"greedy": True}})
+        check(delta("prefill_calls", s4, on.stats()) == 0,
+              "(q1) the donor's rid continuation prefilled")
+        check(clone["output_ids"] == cont["output_ids"]
+              and clone["output_logprobs"] == cont["output_logprobs"],
+              "(q1) the pure clone's tokens differ from the donor's rid "
+              "continuation")
+        check(kv_digest(donor_st.state) == h0,
+              "(q1) the clone changed the donor's KV")
+
+        # a short overlap: seeding would not narrow the prefill
+        s5 = on.stats()
+        short = post(urls["on"], {"prompt_ids": preamble[:100] + toks(20),
+                                  "max_tokens": 8, "rid": "short",
+                                  "gconfig": {"greedy": True}})
+        check_reply(short, 8, eos, "(q1) short overlap")
+        check(delta("serving/prefix_skipped_no_savings", s5, on.stats())
+              == 1, "(q1) the short overlap did not count as skipped")
+        launches = fa.launch_count()
+        n_prefills = on.stats()["prefill_calls"] + off.stats()["prefill_calls"]
+        check(launches == cfg.n_layers * n_prefills or not cuda,
+              f"(q1) K1 launched {launches} times over {n_prefills} "
+              "batched prefills")
+
+        # Controls: a seed one token short and a seed of another preamble
+        # must fail the 5% limit above (on the card: on a tiny model the
+        # last token's own logit dominates and the limit separates
+        # nothing). The tight check redoes each seeded extend outside the
+        # server on a fresh clone of the donor at the server's shapes; the
+        # right clone must agree within SEED_TOL of max|logit| and both
+        # wrong ones must not.
+        dev = donor_st.state["kv_k"].device
+        other = torch.randint(0, eos, (1, len(preamble)),
+                              generator=torch.Generator().manual_seed(8))
+        with torch.inference_mode():
+            other = genmod.prefill_state(
+                on.model, other.to(dev),
+                torch.tensor([len(preamble)], device=dev),
+                donor_st.state["kv_k"].shape[2], attn_impl="reference")
+        rel = {k: [] for k in ("seed", "short_seed", "other_seed", "plain",
+                               "k1_plain", "short_k1", "other_k1")}
+        own = 0
+        for p, s in zip(prompts, suffixes):
+            ref = row_of(calls, "prefill", p)[3]
+            tokens, lens, S, got = row_of(calls, "extend", s)
+            r = seed_readings(on.model, donor_st.state, other, len(preamble),
+                              p, tokens, lens, S)
+            scale = ref.abs().max().item()
+            own += int(ref.argmax()) == p[-1]
+            for key, (x, y) in {
+                    "seed": (got, r["seed"]),
+                    "short_seed": (r["short"], r["seed"]),
+                    "other_seed": (r["other"], r["seed"]),
+                    "plain": (got, r["plain"]), "k1_plain": (ref, r["plain"]),
+                    "short_k1": (r["short"], ref),
+                    "other_k1": (r["other"], ref)}.items():
+                rel[key].append((x - y).abs().max().item() / scale)
+        check(min(rel["short_k1"] + rel["other_k1"]) > 0.05 or not cuda,
+              "(q1) a wrong seed is within 5% of max|logit| of K1's full "
+              f"prefill: one token short {rel['short_k1']}, another "
+              f"preamble {rel['other_k1']}")
+        check(max(rel["seed"]) <= SEED_TOL,
+              f"(q1) seeded first logits off by {rel['seed']} of max|logit| "
+              f"> {SEED_TOL} from the extend redone on the donor's clone")
+        check(min(rel["short_seed"] + rel["other_seed"]) > SEED_TOL,
+              f"(q1) a wrong seed is within {SEED_TOL} of the right one: "
+              f"one token short {rel['short_seed']}, another preamble "
+              f"{rel['other_seed']}")
+    finally:
+        restore()
+        on.stop()
+        off.stop()
+    return {
+        "k1_launches": launches, "batched_prefills": n_prefills,
+        "prefix_hits": delta("serving/prefix_hits"),
+        "prefix_tokens_saved": delta("serving/prefix_tokens_saved"),
+        "seeded_prefill_tokens": delta("prefill_tokens"),
+        "unseeded_prefill_tokens": s2_off["prefill_tokens"]
+        - s1["off"]["prefill_tokens"],
+        "seeded_extend_ms_each": 1e3 * delta("extend_secs") / 8,
+        "seeded_extend_ms_total": 1e3 * delta("extend_secs"),
+        "unseeded_prefill_ms_total": 1e3 * (s2_off["prefill_secs"]
+                                            - s1["off"]["prefill_secs"]),
+        "unseeded_prefill_calls": s2_off["prefill_calls"]
+        - s1["off"]["prefill_calls"],
+        "seeded_logit_err_rel_max": max(errs),
+        "logit_err_rel_max": {k: max(v) for k, v in rel.items()},
+        "control_err_rel_min": {k: min(rel[k]) for k in (
+            "short_seed", "other_seed", "short_k1", "other_k1")},
+        "seed_tol_rel": SEED_TOL,
+        "rows_whose_own_token_has_max_logit": f"{own}/8",
+        "greedy_continuations_equal_to_reuse_off": f"{same}/8",
+        "kv_bytes_after": on.stats()["kv_bytes"],
+    }
+
+
+def hist_mean(snap: dict, name: str):
+    h = snap["hists"].get(name)
+    return h["sum"] / h["count"] if h and h["count"] else None
+
+
+def run_classes(fa, cfg, params, eos, device="cuda") -> dict:
+    """(q2): 64 rollouts of 256 tokens in flight through the manager, a
+    burst of 16 interactive requests at an interactive queue limit of 4, a
+    16,400-token prompt, the scrapes, then ``perf_probe decode-bench``."""
+    from areal_tpu_torch.api.train_config import TelemetryConfig
+    from areal_tpu_torch.base import name_resolve
+    from areal_tpu_torch.system.gserver_manager import (
+        GserverManager,
+        GserverManagerConfig,
+    )
+    from areal_tpu_torch.tools import perf_probe
+
+    old_repo = name_resolve.DEFAULT_REPO
+    name_resolve.DEFAULT_REPO = name_resolve.MemoryNameRecordRepo()
+    tel = TelemetryConfig(enabled=True, flush_interval_secs=3600)
+    cuda = torch.device(device).type == "cuda"
+    srv = serving_server(cfg, params, eos, "gen0", device,
+                         server_kw={"max_batch_size": 16, "telemetry": tel},
+                         queue_limit_interactive=4)
+    mgr = GserverManager(GserverManagerConfig(
+        experiment="chip_q", trial="q", n_servers=1, telemetry=tel,
+        health_check_interval_secs=1.0))
+    gen = torch.Generator().manual_seed(11)
+    fa.reset_launch_count()
+    url = srv.start()
+    try:
+        murl = mgr.start()
+
+        def request(cls, prompt, rid, budget, gconfig):
+            """One generation through the manager, chunk by chunk: (status
+            of each chunk, reply, headers, seconds)."""
+            _, route = post_json(murl, "/schedule_request", {"class": cls})
+            acc, statuses, t0 = [], [], time.monotonic()
+            out, hdrs = {}, {}
+            while len(acc) < budget:
+                left = budget - len(acc)
+                s, out, hdrs = http_post(route["url"], "/generate", {
+                    "prompt_ids": prompt + acc, "rid": rid, "class": cls,
+                    "tokens_done": len(acc), "max_tokens": left,
+                    "budget_total": left, "gconfig": gconfig})
+                statuses.append(s)
+                if s != 200:
+                    break
+                acc += out["output_ids"]
+                if out["finished"]:
+                    break
+            post_json(murl, "/release", {"lease_id": route["lease_id"]})
+            return statuses, out, hdrs, time.monotonic() - t0, len(acc)
+
+        def toks(n):
+            return torch.randint(0, eos, (n,), generator=gen).tolist()
+
+        rollout_prompts = [toks(64 + 2 * i) for i in range(64)]
+        inter_prompts = [toks(48) for _ in range(16)]
+        pool = concurrent.futures.ThreadPoolExecutor(96)
+        t0 = time.monotonic()
+        rollouts = [pool.submit(request, "rollout", p, f"ro{i}", 256,
+                                {"temperature": 1.0})
+                    for i, p in enumerate(rollout_prompts)]
+        deadline = time.monotonic() + 120
+        while srv._inflight < 64 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        check(srv._inflight == 64, f"(q2) {srv._inflight} rollouts in flight")
+        inter = [pool.submit(request, "interactive", p, f"in{i}", 32,
+                             {"greedy": True})
+                 for i, p in enumerate(inter_prompts)]
+        too_long = pool.submit(http_post, url, "/generate", {
+            "prompt_ids": toks(16400), "rid": "long", "class": "rollout",
+            "max_tokens": 16, "gconfig": {"greedy": True}})
+        inter = [f.result(timeout=600) for f in inter]
+        too_long = too_long.result(timeout=600)
+        rollouts = [f.result(timeout=900) for f in rollouts]
+        wall = time.monotonic() - t0
+        pool.shutdown()
+
+        rejected = [r for r in inter if r[0][0] == 429]
+        admitted = [r for r in inter if r[0] == [200]]
+        check(rejected and admitted and len(rejected) + len(admitted) == 16,
+              f"(q2) interactive statuses {[r[0] for r in inter]}")
+        for statuses, body, hdrs, _, _ in rejected:
+            check(hdrs.get("Retry-After") == "1" and body == {
+                "ok": False, "reason": "admission", "class": "interactive",
+                "queue_depth": 4, "retry_after": 0.5},
+                f"(q2) 429 reply {body} Retry-After {hdrs.get('Retry-After')}")
+        for r in admitted:
+            check_reply(r[1], 32, eos, "(q2) interactive reply")
+        check(all(set(r[0]) == {200} and (r[4] == 256 or r[1]["finished"])
+                  for r in rollouts),
+              f"(q2) a rollout failed: {[r[0] for r in rollouts]}")
+        s, body, _ = too_long
+        check(s == 413 and body.get("reason") == "prompt_too_long"
+              and body["needed_slots"] > body["max_slots"],
+              f"(q2) 16,400-token prompt: {s} {body}")
+        snap = srv.telemetry.snapshot(reset=False)
+        waits = {c: hist_mean(snap, f"serving/{c}/queue_wait_secs")
+                 for c in ("interactive", "rollout")}
+        check(waits["interactive"] < waits["rollout"],
+              f"(q2) mean queue wait {waits}: interactive not below rollout")
+        prom = http_text(url + "/metrics")
+        mgr._update_fleet_gauges()
+        mprom = http_text(murl + "/metrics")
+        for fam in ("areal_serving_interactive_rejected_total",
+                    "areal_serving_rollout_admitted_total",
+                    "areal_serving_rollout_too_long_total",
+                    "areal_serving_compiled_shapes",
+                    "areal_serving_interactive_queue_wait_secs_bucket"):
+            check(fam in prom, f"(q2) {fam} missing from the server's "
+                  "/metrics")
+        for c in ("interactive", "eval", "rollout"):
+            check(f"areal_gsmgr_inflight_{c}" in mprom,
+                  f"(q2) areal_gsmgr_inflight_{c} missing from the "
+                  "manager's /metrics")
+        bench = perf_probe.decode_bench(url, n_requests=24, max_tokens=32)
+        bad = [e for e in bench["non_200"]
+               if not e.endswith(("http429", "http413"))]
+        check(not bad, f"(q2) decode-bench non-200 replies {bad}")
+        st, launches = srv.stats(), fa.launch_count()
+        check(launches == cfg.n_layers * st["prefill_calls"] or not cuda,
+              f"(q2) K1 launched {launches} times over {st['prefill_calls']} "
+              "prefills, the decode-bench's included")
+    finally:
+        mgr.stop()
+        srv.stop()
+        name_resolve.DEFAULT_REPO = old_repo
+    ms = sorted(1e3 * r[3] for r in admitted)
+    rl = sorted(1e3 * r[3] for r in rollouts)
+    return {
+        "wall_s": wall, "k1_launches": launches,
+        "prefills": st["prefill_calls"],
+        "interactive_429": len(rejected), "interactive_200": len(admitted),
+        "too_long_413": too_long[1],
+        "interactive_ms_mean": sum(ms) / len(ms),
+        "rollout_256_tokens_ms_mean": sum(rl) / len(rl),
+        "queue_wait_ms_mean": {c: 1e3 * v for c, v in waits.items()},
+        "ttfc_ms_mean": {c: 1e3 * (hist_mean(
+            snap, f"serving/{c}/ttfc_secs") or 0.0)
+            for c in ("interactive", "rollout")},
+        "dummy_row_share": st["dummy_row_steps"] / max(
+            st["decode_row_steps"], 1),
+        "compiled_shapes": len(st["shapes"]),
+        "kv_peak_bytes": st["kv_peak_bytes"],
+        "decode_bench": {k: bench[k] for k in (
+            "requests", "non_200", "tokens", "wall_s", "tokens_per_s",
+            "per_class")},
+    }
+
+
+def interactive_probe(exp, results: list, stop) -> None:
+    """(q3): three interactive requests through the manager's class-aware
+    schedule while the loop runs (the reference's e2e probe)."""
+    from areal_tpu_torch.base import name_resolve, names
+    from areal_tpu_torch.experiments import common as C
+
+    repo = name_resolve.NfsNameRecordRepo(
+        C.experiment_paths(exp)["name_resolve"])
+    try:
+        murl = repo.wait(names.gen_server_manager(exp.experiment_name,
+                                                  exp.trial_name), timeout=600)
+    except Exception as e:  # noqa: BLE001 — checked by the caller
+        results.append({"error": repr(e)})
+        return
+    for i in range(3):
+        if stop.is_set():
+            return
+        try:
+            _, route = post_json(murl, "/schedule_request",
+                                 {"class": "interactive"})
+            if not route.get("url"):
+                time.sleep(0.5)
+                continue
+            t0 = time.monotonic()
+            s, out, _ = http_post(route["url"], "/generate", {
+                "prompt_ids": [7, 8, 9, 10 + i], "class": "interactive",
+                "rid": f"interactive{i}", "max_tokens": 16,
+                "gconfig": {"greedy": True}})
+            post_json(murl, "/release", {"lease_id": route.get("lease_id")})
+            results.append({"status": s, "class": route.get("class"),
+                            "ms": 1e3 * (time.monotonic() - t0), **out})
+        except Exception as e:  # noqa: BLE001 — checked by the caller
+            results.append({"error": repr(e)})
+        time.sleep(1.0)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -3106,6 +3674,41 @@ def main() -> None:
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
     observed_launches = observed["launches_total"]
 
+    # (q) the serving engine: prefix reuse, request classes, and the loop
+    # of (o) with the engine on
+    t_q = time.monotonic()
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    prefix = run_prefix_reuse(fa, cfg, params, eos)
+    print("(q1) prefix reuse", json.dumps(prefix), f"({card})", flush=True)
+    classes = run_classes(fa, cfg, params, eos)
+    print("(q2) request classes", json.dumps(classes), f"({card})",
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    try:
+        served = run_async_loop(cfg, tmp, steps=3,
+                                extra=("serving.enabled=true",),
+                                interactive=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("(q3) async loop with serving", json.dumps({
+        "ms_per_step": served["ms_per_step"],
+        "ms_per_step_o": async_loop["ms_per_step"],
+        "step_ms": served["step_ms"],
+        "prefill_tokens_per_step": served["prefill_tokens_per_step"],
+        "prefill_tokens_per_step_o": async_loop["prefill_tokens_per_step"],
+        "server": served["server"], "server_o": async_loop["server"],
+        "interactive": served["interactive"],
+        "server_peak_gb": served["server_peak_gb"],
+        "trainer_peak_gb": served["trainer_peak_gb"],
+        "weight_sync": served["weight_sync"],
+        "phase_q_s": time.monotonic() - t_q,
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+    served_launches = served["launches_total"]
+    serving_k1 = (prefix["k1_launches"] + classes["k1_launches"]
+                  + served_launches["flash_attention_fwd"])
+
     lib_line = ("areal_tpu/ops/pallas/flash_attention.py:200 backward: the "
                 "Pallas TPU library's {} :{} (pallas_call :{})")
     train_launches = train["launches"]
@@ -3117,7 +3720,7 @@ def main() -> None:
         + trainer_launches["flash_attention_fwd"] + wsync["k1_launches"]
         + loop_launches["flash_attention_fwd"]
         + async_launches["flash_attention_fwd"]
-        + observed_launches["flash_attention_fwd"],
+        + observed_launches["flash_attention_fwd"] + serving_k1,
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_attention_fwd"],
                              "trainer": trainer_launches["flash_attention_fwd"],
@@ -3126,7 +3729,8 @@ def main() -> None:
                              "async_loop":
                              async_launches["flash_attention_fwd"],
                              "async_loop_observed":
-                             observed_launches["flash_attention_fwd"]},
+                             observed_launches["flash_attention_fwd"],
+                             "serving": serving_k1},
         "max_abs_err": k1_train_check["max_abs_err"],
         "ms": timing_train["kernel_ms"], "kernel_ms": timing_train["kernel_ms"],
         "plain_ms": timing_train["plain_ms"],
@@ -3147,13 +3751,14 @@ def main() -> None:
             "replaces": lib_line.format(fn, line, call),
             "launches": train_launches[name] + trainer_launches[name]
             + loop_launches[name] + async_launches[name]
-            + observed_launches[name],
+            + observed_launches[name] + served_launches[name],
             "launches_by_path": {"train": train_launches[name],
                                  "trainer": trainer_launches[name],
                                  "sync_loop": loop_launches[name],
                                  "async_loop": async_launches[name],
                                  "async_loop_observed":
-                                 observed_launches[name]},
+                                 observed_launches[name],
+                                 "serving": served_launches[name]},
             "max_abs_err": err,
             "ms": rec["kernel_ms"], "kernel_ms": rec["kernel_ms"],
             "plain_ms": bwd_timing["plain_bwd_ms"],

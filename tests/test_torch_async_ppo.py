@@ -14,7 +14,9 @@
    within 1e-5;
  - the twin of tests/test_system_async_ppo.py:302 test_async_ppo_full_loop
    (without its telemetry, sentinel, goodput, compile-watch, serving and
-   reward-fleet checks), through ``run_experiment`` with a critic;
+   reward-fleet checks), through ``run_experiment`` with a critic; the
+   loop with the serving engine on and its interactive probe is
+   tests/test_torch_serving.py's;
  - the command line of both packages.
 
 Every spawned process is joined with a bound and terminated.

@@ -44,7 +44,7 @@ def test_every_module_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 82  # every module was walked
+    assert int(res.stdout.strip()) >= 84  # every module was walked
 
 
 def test_no_file_names_jax_or_the_reference_package():
@@ -117,6 +117,7 @@ def test_entry_points_need_a_device():
     """Without a GPU and without an explicit device, the helpers that make
     tensors raise instead of landing on the CPU."""
     from areal_tpu_torch.api.model import FinetuneSpec, Model, make_backend
+    from areal_tpu_torch.api.train_config import ServingConfig
     from areal_tpu_torch.apps.launcher import run_experiment
     from areal_tpu_torch.experiments.async_ppo_math_exp import (
         AsyncPPOMATHConfig,
@@ -126,10 +127,15 @@ def test_entry_points_need_a_device():
     from areal_tpu_torch.models.convert import params_from_jax
     from areal_tpu_torch.models.hf import load_hf_checkpoint
     from areal_tpu_torch.models.transformer import init_kv_cache, init_params
+    from areal_tpu_torch.system.generation_server import (
+        GenerationServer,
+        GenerationServerConfig,
+    )
     from areal_tpu_torch.system.trainer_worker import (
         TrainerWorker,
         TrainerWorkerConfig,
     )
+    from areal_tpu_torch.tools.perf_probe import decode_bench
 
     cfg = tiny_config()
     assert init_params(cfg, seed=0, device="cpu")["final_ln.weight"].is_cpu
@@ -144,6 +150,14 @@ def test_entry_points_need_a_device():
                      Model("ref", (cfg, params)), FinetuneSpec()),
                  lambda: load_hf_checkpoint("no/such/dir"),
                  lambda: TrainerWorker(TrainerWorkerConfig()).setup(),
-                 lambda: run_experiment(AsyncPPOMATHConfig())):
+                 lambda: run_experiment(AsyncPPOMATHConfig()),
+                 lambda: GenerationServer(GenerationServerConfig(
+                     serving=ServingConfig(enabled=True)), cfg, params)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+    # the probe's burst needs a live server on a card: none listening, it
+    # raises instead of reporting numbers
+    from areal_tpu_torch.base.network import find_free_port
+
+    with pytest.raises(OSError):
+        decode_bench(f"http://127.0.0.1:{find_free_port()}", n_requests=2)

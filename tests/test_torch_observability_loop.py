@@ -46,10 +46,6 @@ OBSERVE = ("telemetry.enabled=true", "telemetry.flush_interval_secs=0.5",
 
 # Families only the reference's scrape has, by the piece they wait for.
 NOT_PORTED = {
-    # the serving engine's admission and classes, and the manager's
-    # per-class leases
-    "areal_serving_rollout_admitted_total", "areal_gsmgr_inflight_eval",
-    "areal_gsmgr_inflight_interactive", "areal_gsmgr_inflight_rollout",
     # the autoscaler
     "areal_autoscale_cordoned_servers", "areal_autoscale_current_size",
     # meshes and MoE
