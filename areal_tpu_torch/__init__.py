@@ -3,19 +3,25 @@
 Module names mirror the reference package ``areal_tpu`` so each counterpart
 is easy to find. The port never imports the reference package: it keeps its
 own copies of what it needs.
+
+Importing the package loads no torch: the CPU-only processes (a sandbox
+reward worker) import its host modules alone.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import TYPE_CHECKING, Optional, Union
 
-import torch
+if TYPE_CHECKING:
+    import torch
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names
     another. Never picks the CPU on its own — without a GPU and without an
     explicit ``device``, it raises."""
+    import torch
+
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

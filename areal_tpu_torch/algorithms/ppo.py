@@ -30,9 +30,9 @@ import torch
 
 from areal_tpu_torch import resolve_device
 from areal_tpu_torch.algorithms import ppo_functional as F
+from areal_tpu_torch.api.cli_args import PPOHyperparameters
 from areal_tpu_torch.api.data import MicroBatchSpec, SequenceSample
 from areal_tpu_torch.api.model import (
-    GenerationHyperparameters,
     Model,
     ModelInterface,
     register_interface,
@@ -41,40 +41,6 @@ from areal_tpu_torch.backend import microbatch as mbu
 from areal_tpu_torch.models import hf
 
 logger = logging.getLogger("areal_tpu_torch.algorithms.ppo")
-
-
-@dataclasses.dataclass
-class PPOHyperparameters:
-    """Reference cli_args.py:597 (PPOHyperparameters)."""
-
-    gen: GenerationHyperparameters = dataclasses.field(
-        default_factory=GenerationHyperparameters
-    )
-    ppo_n_minibatches: int = 4
-    eps_clip: float = 0.2
-    c_clip: Optional[float] = None
-    value_eps_clip: float = 0.2
-    early_stop_imp_ratio: float = 5.0
-    reward_output_scaling: float = 1.0
-    reward_output_bias: float = 0.0
-    max_reward_clip: float = 20.0
-    mask_no_eos_with_zero: bool = False
-    discount: float = 1.0
-    gae_lambda: float = 1.0
-    adv_norm: bool = True
-    kl_ctl: float = 0.1
-    use_adaptive_kl_ctl: bool = False
-    adaptive_kl_target: float = 6.0
-    adaptive_kl_horizon: float = 10000.0
-    disable_value: bool = False  # GRPO: no critic
-    value_norm: bool = True
-    value_norm_beta: float = 0.99995
-    value_norm_eps: float = 1e-5
-    group_size: int = 1
-    group_adv_norm: bool = False
-    use_decoupled_loss: bool = False
-    behav_imp_weight_cap: Optional[float] = None
-    recompute_logprob: bool = False
 
 
 class RunningMoments:

@@ -14,9 +14,9 @@ model role's ``backend`` defaults to ``torch_train``;
 ``compile_watch.storm_warmup_calls`` is left out (no jitted function to
 watch); a list field also takes a JSON list (``sentinel.rules=[{...}]``:
 the reference sets rule packs through its YAML). Left out with the
-pieces that read them: fault_tolerance, autoscale, durability,
-reward_service, auto_eval, multi-process trainers, and the YAML dump and
-load (``yaml`` is not known on the card's machine).
+pieces that read them: autoscale, durability, auto_eval, multi-process
+trainers, and the YAML dump and load (``yaml`` is not known on the card's
+machine).
 """
 
 from __future__ import annotations
@@ -30,11 +30,14 @@ import typing
 from typing import Any, Dict, List, Optional
 
 from areal_tpu_torch.api.data import MicroBatchSpec
+from areal_tpu_torch.api.model import GenerationHyperparameters
 from areal_tpu_torch.api.train_config import (
     CompileWatchConfig,
     ExperimentSaveEvalControl,
+    FaultToleranceConfig,
     GoodputConfig,
     OptimizerConfig,
+    RewardServiceConfig,
     SentinelConfig,
     ServingConfig,
     TelemetryConfig,
@@ -75,6 +78,41 @@ class MFCConfig:
 
 
 @dataclasses.dataclass
+class PPOHyperparameters:
+    """Reference cli_args.py:597 (PPOHyperparameters). Here, beside the
+    other config blocks, so that the experiment trees import no torch."""
+
+    gen: GenerationHyperparameters = dataclasses.field(
+        default_factory=GenerationHyperparameters
+    )
+    ppo_n_minibatches: int = 4
+    eps_clip: float = 0.2
+    c_clip: Optional[float] = None
+    value_eps_clip: float = 0.2
+    early_stop_imp_ratio: float = 5.0
+    reward_output_scaling: float = 1.0
+    reward_output_bias: float = 0.0
+    max_reward_clip: float = 20.0
+    mask_no_eos_with_zero: bool = False
+    discount: float = 1.0
+    gae_lambda: float = 1.0
+    adv_norm: bool = True
+    kl_ctl: float = 0.1
+    use_adaptive_kl_ctl: bool = False
+    adaptive_kl_target: float = 6.0
+    adaptive_kl_horizon: float = 10000.0
+    disable_value: bool = False  # GRPO: no critic
+    value_norm: bool = True
+    value_norm_beta: float = 0.99995
+    value_norm_eps: float = 1e-5
+    group_size: int = 1
+    group_adv_norm: bool = False
+    use_decoupled_loss: bool = False
+    behav_imp_weight_cap: Optional[float] = None
+    recompute_logprob: bool = False
+
+
+@dataclasses.dataclass
 class PromptOnlyDatasetConfig:
     """Reference cli_args.py:44."""
 
@@ -112,7 +150,12 @@ class BaseExperimentConfig:
     trial_name: str = ""
     mode: str = "local"
     backend: str = "cuda"  # cuda | cpu: the device of every worker
-    recover_mode: str = "disabled"  # disabled | resume
+    # disabled | resume | auto | fault: "resume" restores from the last
+    # recover checkpoint; "auto"/"fault" also relaunch the whole experiment
+    # (with recovery) when a worker's death escalates, up to
+    # recover_retries times.
+    recover_mode: str = "disabled"
+    recover_retries: int = 1
     allocation_mode: str = ""
     n_nodes: int = 1
     n_gpus_per_node: int = 1
@@ -142,6 +185,15 @@ class BaseExperimentConfig:
     # `serving.enabled=true` turns on request classes with 429/413
     # admission, priority batches, prefix-reuse KV and bounded shapes.
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
+    # Launcher-level supervision and liveness leases: stateless workers
+    # respawn in place, a trainer death escalates to the relaunch loop.
+    fault_tolerance: FaultToleranceConfig = dataclasses.field(
+        default_factory=FaultToleranceConfig)
+    # The sandboxed reward fleet, off by default:
+    # `reward_service.enabled=true` spawns CPU-only reward workers, and the
+    # rollout and trainer reward paths grade there.
+    reward_service: RewardServiceConfig = dataclasses.field(
+        default_factory=RewardServiceConfig)
     # Test and bring-up runs: the byte-level mock tokenizer.
     mock_tokenizer: bool = False
 
@@ -276,6 +328,7 @@ def apply_overrides(cfg, overrides: List[str]):
 
 VALID_MODES = ("local",)
 VALID_BACKENDS = ("cuda", "cpu")
+VALID_RECOVER_MODES = ("disabled", "resume", "auto", "fault")
 
 # MFC names the PPO experiment graph schedules (experiments/ppo_math_exp.py).
 KNOWN_MFCS = ("actor_train", "actor_gen", "actor_inf", "critic_train",
@@ -294,11 +347,9 @@ def validate_config(cfg) -> None:
         raise ConfigError(f"backend={backend!r}: valid backends are "
                           f"{', '.join(VALID_BACKENDS)}")
     recover = getattr(cfg, "recover_mode", "disabled")
-    if recover not in ("disabled", "resume"):
-        raise ConfigError(f"recover_mode={recover!r}: the port resumes "
-                          "(resume) or starts fresh (disabled); relaunching "
-                          "on a worker's death needs the supervisor, which "
-                          "is not ported")
+    if recover not in VALID_RECOVER_MODES:
+        raise ConfigError(f"recover_mode={recover!r}: valid modes are "
+                          f"{', '.join(VALID_RECOVER_MODES)}")
     alloc_str = getattr(cfg, "allocation_mode", "") or ""
     if alloc_str:
         from areal_tpu_torch.parallel.mesh import AllocationMode
@@ -325,6 +376,7 @@ def validate_config(cfg) -> None:
                     f"n_nodes×n_gpus_per_node = {n_devices}")
     _validate_serving(cfg)
     _validate_observability(cfg)
+    _validate_reward_service(cfg)
     nr = getattr(getattr(cfg, "cluster", None), "name_resolve", None)
     if nr is not None and getattr(nr, "type", "nfs") not in ("nfs", "memory"):
         raise ConfigError(f"cluster.name_resolve.type={nr.type!r}: use nfs "
@@ -418,6 +470,41 @@ def _validate_observability(cfg) -> None:
                 cw, "enabled", False))
         except ValueError as e:
             raise ConfigError(f"invalid sentinel rule pack: {e}") from None
+
+
+def _validate_reward_service(cfg) -> None:
+    """The reference's reward-service checks (cli_args.py:764)."""
+    rs = getattr(cfg, "reward_service", None)
+    if not getattr(rs, "enabled", False):
+        return
+    if rs.n_workers < 1:
+        raise ConfigError(
+            f"reward_service.n_workers={rs.n_workers} must be >= 1 (an "
+            "enabled fleet needs at least one sandbox worker)")
+    for knob in ("max_inflight", "pool_size", "max_concurrency"):
+        if getattr(rs, knob) < 1:
+            raise ConfigError(
+                f"reward_service.{knob}={getattr(rs, knob)} must be >= 1")
+    for knob in ("grade_timeout_secs", "request_timeout_secs"):
+        if getattr(rs, knob) <= 0:
+            raise ConfigError(
+                f"reward_service.{knob}={getattr(rs, knob)} must be > 0 (a "
+                "reward grade must have a finite wall budget)")
+    if not rs.languages:
+        raise ConfigError(
+            "reward_service.languages is empty: an enabled fleet that "
+            "grades no language returns 0.0 for every code task; list at "
+            "least one of rewards/code_verify.py GRADERS (e.g. "
+            "reward_service.languages=python)")
+    from areal_tpu_torch.rewards.code_verify import GRADERS
+
+    unknown = [lang for lang in rs.languages if lang not in GRADERS]
+    if unknown:
+        raise ConfigError(
+            f"reward_service.languages={rs.languages}: no grader is "
+            f"registered for {unknown} (available: "
+            f"{', '.join(sorted(GRADERS))}; new languages register in "
+            "rewards/code_verify.py GRADERS)")
 
 
 def print_config_help(cfg, _indent: int = 0) -> None:

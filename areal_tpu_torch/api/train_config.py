@@ -2,9 +2,11 @@
 
 The port's own copies of ``OptimizerConfig``, ``WeightSyncConfig``,
 ``TelemetryConfig``, ``GoodputConfig``, ``CompileWatchConfig``,
-``SentinelConfig``, ``ServingConfig`` and ``ExperimentSaveEvalControl``
-from ``areal_tpu/api/train_config.py``, with the same defaults. Every
-observability block, and the serving engine, is off by default.
+``SentinelConfig``, ``ServingConfig``, ``RewardServiceConfig``,
+``FaultToleranceConfig`` and ``ExperimentSaveEvalControl`` from
+``areal_tpu/api/train_config.py``, with the same defaults. Every
+observability block, the serving engine and the reward-service fleet are
+off by default; supervision is on.
 """
 
 from __future__ import annotations
@@ -212,6 +214,86 @@ class ServingConfig:
     # The policy refuses bucket lists whose worst-case shape count (decode
     # + prefill + suffix extend) exceeds this.
     max_compiled_shapes: int = 512
+
+
+@dataclasses.dataclass
+class RewardServiceConfig:
+    """The sandboxed reward service, the sixth worker kind
+    (``system/reward_worker.py`` + ``rewards/service.py``; reference
+    train_config.py:283).
+
+    Off by default: grading then runs the local path in the calling
+    process, bit for bit as without the service. Enabled, the launcher
+    spawns ``n_workers`` CPU-only reward workers, each an HTTP fleet member
+    grading math and code tasks, and the rollout and trainer reward paths
+    fan out to them (``rewards/client.py``) with bounded concurrency, retry
+    on a surviving replica and per-task degradation to local grading."""
+
+    enabled: bool = False
+    # One reward-worker process each; CPU-only.
+    n_workers: int = 1
+    # Fixed port of worker 0 (worker i binds port+i); 0 = free ports,
+    # discovered through name_resolve either way.
+    port: int = 0
+    # ---- worker-side grading ----
+    # Concurrent grades per worker, clamped to pool_size (an admitted task
+    # starts grading at once, so its wall budget never times queue wait).
+    max_inflight: int = 16
+    # Grader threads per worker; a code grade runs its own rlimit-guarded
+    # subprocess underneath.
+    pool_size: int = 8
+    # Server-side wall budget per task: an overrun answers score 0.0 with
+    # verdict "timeout". Code tasks floor at their legal worst case.
+    grade_timeout_secs: float = 30.0
+    # Languages this fleet grades; others answer "unsupported_language".
+    languages: List[str] = dataclasses.field(
+        default_factory=lambda: ["python"])
+    # ---- client-side fanout (rewards/client.py) ----
+    # In-flight requests across one batch.
+    max_concurrency: int = 64
+    # Per-task HTTP timeout (queue wait + grading on the worker).
+    request_timeout_secs: float = 120.0
+    # Retries per task across surviving replicas before degrading.
+    max_retries: int = 2
+    retry_base_delay_secs: float = 0.2
+    retry_max_delay_secs: float = 2.0
+    # Degrade to local grading when a task's retries run out; False scores
+    # it 0.0 instead of running untrusted code in the calling process.
+    local_fallback: bool = True
+
+
+@dataclasses.dataclass
+class FaultToleranceConfig:
+    """Launcher-level supervision and liveness (``system/supervisor.py``;
+    reference train_config.py:407).
+
+    Stateless workers (rollout workers, the generation-fleet process, the
+    reward workers) are respawned in place with exponential backoff behind
+    a crash-loop circuit breaker; a stateful worker's death (the trainer)
+    escalates to ``run_experiment``'s ``recover_mode=auto`` relaunch.
+    Supervised workers lease their name-resolve advertisements for
+    ``keepalive_ttl_secs`` and heartbeat them from a thread of their own."""
+
+    # False: any child death fails the run (the relaunch loop still applies).
+    supervise: bool = True
+    # More than this many restarts of one worker inside the rolling window
+    # opens the circuit breaker and escalates.
+    max_restarts: int = 3
+    restart_window_secs: float = 300.0
+    # Respawn backoff (per worker; restarts outside the window are pruned).
+    backoff_base_secs: float = 0.5
+    backoff_max_secs: float = 30.0
+    backoff_multiplier: float = 2.0
+    # Liveness lease on worker advertisements (0 disables leases; the
+    # heartbeat defaults to ttl/3).
+    keepalive_ttl_secs: float = 15.0
+    heartbeat_interval_secs: float = 0.0
+    # Graceful drain (SIGTERM): budget for pause -> out-of-band recover
+    # checkpoint -> orderly exits before the fallback teardown.
+    drain_timeout_secs: float = 60.0
+    # Backoff between whole-experiment relaunches (recover_mode=auto|fault).
+    relaunch_backoff_secs: float = 5.0
+    relaunch_backoff_max_secs: float = 60.0
 
 
 @dataclasses.dataclass

@@ -3,34 +3,44 @@
 The port of ``areal_tpu/apps/launcher.py`` (reference
 ``realhf/apps/main.py:80`` + ``scheduler/local/client.py:71`` +
 ``training/utils.py:123``) on its local paths: one spawned process per
-worker, the master in this process, the children watched while it runs,
-then an orderly teardown.
+worker, the master in this process, the children supervised while it
+runs, then an orderly teardown.
 
  - sync (``ppo-math``): the trainer (generation included);
  - async (``async-ppo-math``): the trainer, a generation-fleet process (the
    servers and the manager, each on threads of their own) and the rollout
-   workers, which never initialise CUDA.
+   workers, which never initialise CUDA;
+ - either, with ``reward_service.enabled``: the reward workers, CPU-only
+   processes that see no card, spawned before the rollout side.
 
 Processes are spawned, never forked, so no child inherits a CUDA context.
-Every worker runs on ``exp_cfg.backend``'s device: ``cuda``, or the CPU
-when asked for. A dead child fails the run loudly: nothing restarts it.
-At the end the rollout workers are told to exit (their in-flight rollouts
-return their quota), the trainer has exited on the master's word, and the
-fleet process is terminated; every wait is bounded.
+Every worker but the reward workers runs on ``exp_cfg.backend``'s device:
+``cuda``, or the CPU when asked for.
+
+Supervision (``system/supervisor.py``, ``fault_tolerance``): a dead
+rollout worker, generation fleet or reward worker is respawned in place
+with backoff behind a crash-loop breaker; a trainer's death escalates, and
+``run_experiment``'s ``recover_mode=auto|fault`` loop relaunches the whole
+experiment from the last recover checkpoint. With
+``fault_tolerance.supervise=false`` any death fails the run. SIGTERM (or
+:meth:`LocalLauncher.request_drain`) drains gracefully: pause, an
+out-of-band recover checkpoint, orderly exits. At the end the rollout and
+reward workers are told to exit (in-flight rollouts return their quota),
+the trainer exits on the master's word, and the rest is terminated; every
+wait is bounded.
 
 ``probes`` is an instrumentation seam for measurement scripts: a map from
-a worker kind (``trainer``, ``gen_fleet``, ``rollout``) to a picklable
-callable that the child calls with its worker object(s) once they are
-built; a callable it returns is called after the worker's run.
+a worker kind (``trainer``, ``gen_fleet``, ``rollout``, ``reward``) to a
+picklable callable that the child calls with its worker object(s) once
+they are built; a callable it returns is called after the worker's run. A
+respawned child gets its kind's probe too.
 
-Left out: the supervisor's restarts, drain and relaunch, the autoscale
-executor, the evaluator, reward workers and slurm (ROADMAP.md).
+Left out: the autoscale executor, the evaluator, multi-process trainers
+and slurm (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-import json
-import multiprocessing as mp
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
@@ -117,6 +127,22 @@ def gen_fleet_entry(exp_cfg, server_cfgs, manager_cfg, probe=None) -> None:
         time.sleep(3600)
 
 
+def reward_worker_entry(exp_cfg, rw_cfg, probe=None) -> None:
+    """One sandbox reward worker (``system/reward_worker.py``). It sees no
+    card (the launcher spawns it with ``CUDA_VISIBLE_DEVICES=""``):
+    untrusted code grades on spare host cores, never on the card that
+    trains."""
+    from areal_tpu_torch.experiments import common as C
+    from areal_tpu_torch.system.reward_worker import RewardWorker
+
+    C.setup_name_resolve(exp_cfg)
+    worker = RewardWorker(rw_cfg)
+    done = probe(worker) if probe is not None else None
+    worker.run()
+    if done is not None:
+        done()
+
+
 def rollout_entry(exp_cfg, rollout_cfg, probe=None) -> None:
     """One rollout worker: asyncio and HTTP, no device."""
     from areal_tpu_torch.experiments import common as C
@@ -135,8 +161,7 @@ def rollout_entry(exp_cfg, rollout_cfg, probe=None) -> None:
 
 
 class LocalLauncher:
-    """Spawn the workers, run the master here, watch the children, tear
-    down."""
+    """Spawn the workers, run the master here, supervise, tear down."""
 
     # bounds on the teardown's waits
     ROLLOUT_EXIT_SECS = 60.0
@@ -144,47 +169,69 @@ class LocalLauncher:
     TERMINATE_SECS = 15.0
 
     def __init__(self, exp_cfg, probes: Optional[Dict[str, Callable]] = None):
+        from areal_tpu_torch.api.train_config import FaultToleranceConfig
+
         self.exp_cfg = exp_cfg
         self.probes = probes or {}
-        self._ctx = mp.get_context("spawn")
-        # (name, kind, process, required)
-        self.children: List[tuple] = []
+        self.ft = (getattr(exp_cfg, "fault_tolerance", None)
+                   or FaultToleranceConfig())
+        self.supervisor = None  # built in run() once the trial is known
+        self._drain_evt = threading.Event()
+        self._drain_thread: Optional[threading.Thread] = None
+        self._drain_deadline: Optional[float] = None
+        self._drain_failed = False
+
+    def request_drain(self) -> None:
+        """Ask for a graceful drain (the SIGTERM handler's path): pause,
+        an out-of-band recover checkpoint, orderly exits. Safe from any
+        thread or signal handler."""
+        self._drain_evt.set()
+
+    @property
+    def procs(self) -> List:
+        return self.supervisor.procs() if self.supervisor else []
 
     def _spawn(self, target, *args, name: str, kind: str,
-               required: bool = True) -> None:
-        p = self._ctx.Process(target=target,
-                              args=(*args, self.probes.get(kind)),
-                              name=name, daemon=True)
-        p.start()
-        self.children.append((name, kind, p, required))
-        logger.info(f"spawned {name} (pid {p.pid})")
+               required: bool = True,
+               env: Optional[Dict[str, str]] = None) -> None:
+        from areal_tpu_torch.system.supervisor import WorkerSpec
 
-    def _finishing(self) -> bool:
-        """The master's marker: the trainer's clean exit is expected."""
-        from areal_tpu_torch.base import name_resolve, names
-
-        exp = self.exp_cfg
-        try:
-            st = json.loads(name_resolve.get(names.experiment_status(
-                exp.experiment_name, exp.trial_name)))
-        except (name_resolve.NameEntryNotFoundError, ValueError):
-            return False
-        return st.get("status") == "finishing"
+        self.supervisor.spawn(WorkerSpec(
+            name=name, kind=kind, target=target,
+            args=(*args, self.probes.get(kind)), required=required,
+            env=env or {}))
 
     def _check_children(self) -> None:
-        for name, kind, p, required in self.children:
-            code = p.exitcode
-            if code is None or (code == 0 and not required):
-                continue
-            if code == 0 and kind == "trainer" and self._finishing():
-                continue
-            raise RuntimeError(f"worker {name} exited with code {code} "
-                               "while the experiment ran; no supervisor "
-                               "restarts it")
+        """One supervision sweep: a stateless death respawns in place; a
+        stateful death or a crash loop raises SupervisorEscalation."""
+        self.supervisor.check()
+
+    def _install_sigterm(self) -> Callable[[], None]:
+        """SIGTERM drives the graceful drain instead of killing children
+        outright. Returns the restore; a no-op off the main thread (a test
+        launching in a thread)."""
+        import signal
+
+        try:
+            prev = signal.getsignal(signal.SIGTERM)
+
+            def on_term(signum, frame):
+                logger.warning("SIGTERM: starting the graceful drain")
+                self._drain_evt.set()
+
+            signal.signal(signal.SIGTERM, on_term)
+            return lambda: signal.signal(signal.SIGTERM, prev)
+        except ValueError:  # not the main thread
+            return lambda: None
 
     def run(self) -> Dict[str, Any]:
         from areal_tpu_torch.experiments import common as C
         from areal_tpu_torch.system.master_worker import MasterWorker
+        from areal_tpu_torch.system.supervisor import (
+            STATELESS_KINDS,
+            RestartPolicy,
+            Supervisor,
+        )
 
         exp = self.exp_cfg
         if _device(exp) is None:
@@ -198,22 +245,39 @@ class LocalLauncher:
                                    "the CPU")
         exp.resolve_trial_name()
         C.setup_name_resolve(exp)
+        self.supervisor = Supervisor(
+            exp.experiment_name, exp.trial_name,
+            policy=RestartPolicy.from_config(self.ft),
+            keepalive_ttl=self.ft.keepalive_ttl_secs,
+            heartbeat_interval=self.ft.heartbeat_interval_secs,
+            # supervise=false: any death escalates at once
+            restartable_kinds=STATELESS_KINDS if self.ft.supervise else ())
         setup = exp.initial_setup()
+        restore_sigterm = lambda: None  # noqa: E731
         try:
             self._spawn(trainer_entry, exp, setup["trainer"], name="trainer",
                         kind="trainer")
+            # The reward fleet before the rollout side: it registers well
+            # within the fleet's start-up, so the first grade never races
+            # its registration into local code execution.
+            for i, rw in enumerate(setup.get("reward_workers", [])):
+                self._spawn(reward_worker_entry, exp, rw, name=f"reward{i}",
+                            kind="reward", env={"CUDA_VISIBLE_DEVICES": ""})
             if "gen_servers" in setup:
                 self._spawn(gen_fleet_entry, exp, setup["gen_servers"],
                             setup["gserver_manager"], name="gen_fleet",
                             kind="gen_fleet")
                 for i, rc in enumerate(setup["rollout_workers"]):
-                    # A bounded worker (max_rollouts) may finish early.
+                    # A bounded worker (max_rollouts) finishing its quota
+                    # exits 0 by design.
                     self._spawn(rollout_entry, exp, rc, name=f"rollout{i}",
                                 kind="rollout",
                                 required=rc.max_rollouts is None)
             master = MasterWorker(setup["master"], setup["dfg"])
+            restore_sigterm = self._install_sigterm()
             return self._run_master_monitored(master)
         finally:
+            restore_sigterm()
             self.shutdown()
 
     def _run_master_monitored(self, master) -> Dict[str, Any]:
@@ -229,54 +293,102 @@ class LocalLauncher:
         t = threading.Thread(target=run, daemon=True, name="master")
         t.start()
         while t.is_alive():
-            # A dead child would leave the master waiting forever: fail the
-            # run instead (the master thread is a daemon).
+            if self._drain_evt.is_set() and self._drain_thread is None:
+                self._start_drain()
+            if self._drain_deadline is not None and (
+                    self._drain_failed
+                    or time.monotonic() > self._drain_deadline):
+                # The graceful path failed or overran its budget while the
+                # master kept running: tear down now rather than train
+                # through a preemption notice.
+                raise RuntimeError("graceful drain failed or timed out; "
+                                   "forcing teardown")
+            # A dead child would leave the master waiting forever: the
+            # supervisor respawns it or escalates.
             self._check_children()
             t.join(timeout=1.0)
         if err:
+            # A dead child is the likelier cause (the master's stream to a
+            # killed trainer breaks first): the supervisor's verdict wins.
+            self._check_children()
             raise err[0]
         return result
 
-    def shutdown(self) -> None:
-        """Rollout workers exit on command (their in-flight rollouts return
-        their quota); the trainer exits on the master's word; the fleet is
-        terminated. Whatever outlives its bound is terminated, then
-        killed."""
-        from areal_tpu_torch.system.worker_base import WorkerControlPanel
+    def _start_drain(self) -> None:
+        """The drain's control sequence on a side thread, while the monitor
+        loop keeps watching the children; the master returning ends the
+        run. If the sequence fails, or the master outlives twice the
+        budget, the monitor loop tears the run down."""
+        from areal_tpu_torch.system.supervisor import drain_experiment
 
-        rollouts = [c for c in self.children if c[1] == "rollout"]
-        if rollouts:
-            exp = self.exp_cfg
-            panel = WorkerControlPanel(exp.experiment_name, exp.trial_name,
-                                       timeout=10.0)
+        exp = self.exp_cfg
+        self.supervisor.begin_drain()
+        budget = self.ft.drain_timeout_secs
+        self._drain_deadline = time.monotonic() + 2 * budget
+
+        def _drain():
             try:
-                for name, _, p, _ in rollouts:
-                    if p.is_alive():
-                        panel.try_command(name, "exit")
-            finally:
-                panel.close()
-            deadline = time.monotonic() + self.ROLLOUT_EXIT_SECS
-            for _, _, p, _ in rollouts:
-                p.join(max(deadline - time.monotonic(), 0.1))
-        for name, kind, p, _ in self.children:
-            if kind == "trainer":
-                p.join(self.TRAINER_EXIT_SECS)
-        for name, _, p, _ in self.children:
-            if p.is_alive():
-                p.terminate()
-                p.join(self.TERMINATE_SECS)
-            if p.is_alive():
-                logger.warning(f"{name} outlived SIGTERM; killing it")
-                p.kill()
-                p.join(self.TERMINATE_SECS)
+                drain_experiment(exp.experiment_name, exp.trial_name,
+                                 timeout=budget)
+            except Exception as e:  # noqa: BLE001 — the monitor enforces
+                logger.warning(f"graceful drain failed ({e}); the monitor "
+                               "loop will force the teardown")
+                self._drain_failed = True
+
+        self._drain_thread = threading.Thread(target=_drain, daemon=True,
+                                              name="drain")
+        self._drain_thread.start()
+
+    def shutdown(self) -> None:
+        """Rollout and reward workers exit on command, the trainer on the
+        master's word; the rest is terminated, then killed. Every child is
+        joined before this returns."""
+        if self._drain_thread is not None:
+            self._drain_thread.join(timeout=self.ft.drain_timeout_secs)
+        if self.supervisor is not None:
+            self.supervisor.shutdown(timeout=2 * self.TERMINATE_SECS,
+                                     exit_secs=self.ROLLOUT_EXIT_SECS,
+                                     stateful_secs=self.TRAINER_EXIT_SECS)
 
 
 def run_experiment(exp_cfg, probes: Optional[Dict[str, Callable]] = None
                    ) -> Dict[str, Any]:
     """The entry of ``training/main_*.py`` (reference
     ``training/utils.py:339``): validate, launch locally, return the
-    master's result (``steps``, per-step ``stats``)."""
+    master's result (``steps``, per-step ``stats``).
+
+    ``recover_mode`` in {disabled, resume, auto, fault}: "resume" restores
+    from the last recover checkpoint; "auto" and "fault" also relaunch the
+    whole experiment, with recovery, when a launch fails (a supervisor
+    escalation among the causes), up to ``recover_retries`` times, after a
+    capped exponential backoff. Before a relaunch the trial's name-resolve
+    subtree is cleared: every key in it belongs to the torn-down launch."""
     from areal_tpu_torch.api.cli_args import validate_config
 
     validate_config(exp_cfg)
-    return LocalLauncher(exp_cfg, probes=probes).run()
+    recover_mode = getattr(exp_cfg, "recover_mode", "disabled")
+    retries = (getattr(exp_cfg, "recover_retries", 1)
+               if recover_mode in ("auto", "fault") else 0)
+    ft = getattr(exp_cfg, "fault_tolerance", None)
+    base = getattr(ft, "relaunch_backoff_secs", 5.0)
+    cap = getattr(ft, "relaunch_backoff_max_secs", 60.0)
+    attempt = 0
+    while True:
+        try:
+            return LocalLauncher(exp_cfg, probes=probes).run()
+        except Exception:
+            attempt += 1
+            if attempt > retries:
+                raise
+            backoff = min(base * 2 ** (attempt - 1), cap)
+            logger.warning(f"experiment failed (attempt {attempt}/{retries}); "
+                           f"relaunching with recovery in {backoff:.1f}s")
+            try:
+                from areal_tpu_torch.base import name_resolve, names
+
+                name_resolve.clear_subtree(names.trial_root(
+                    exp_cfg.experiment_name, exp_cfg.trial_name))
+            except Exception as e:  # noqa: BLE001 — best-effort hygiene
+                logger.warning(f"stale name_resolve clear failed: {e}")
+            time.sleep(backoff)
+            exp_cfg.recover_mode = "resume"

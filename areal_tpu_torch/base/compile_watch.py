@@ -16,10 +16,12 @@ load per library and records, on the worker's telemetry registry:
    already built under ``build/kernels/<hash>/`` is a hit, one ``nvcc``
    had to build is a miss.
 
+:func:`inflight` is what a supervised worker's heartbeat
+(``system/worker_base.py HeartbeatThread``) reads to publish
+``names.compile_inflight`` while a build runs.
+
 Left out with the pieces that need them: ``watched_jit`` and the
-recompile-storm detector (no jitted function to watch), and the
-heartbeat that publishes ``names.compile_inflight`` (it comes with the
-supervisor).
+recompile-storm detector (no jitted function to watch).
 
 Disabled contract: until :func:`configure` installs an enabled watch,
 :func:`get` returns a shared null object whose :meth:`compiling` records

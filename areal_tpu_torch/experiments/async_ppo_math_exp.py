@@ -6,7 +6,9 @@ leaves the DFG; rollout workers drive the generation fleet through the
 manager's staleness gate and push trajectories, rewards included, to the
 trainer's stream dataset; ``version_start`` / ``version_end`` ride along
 for the decoupled loss. ``initial_setup`` adds the generation servers, the
-manager and the rollout workers to the sync experiment's pieces.
+manager and the rollout workers to the sync experiment's pieces, and the
+reward workers when ``reward_service.enabled``: the rollout workers then
+grade there, never in their own process.
 """
 
 from __future__ import annotations
@@ -92,10 +94,12 @@ class AsyncPPOMATHConfig(PPOMATHConfig):
                 recover_dir=paths["recover"],
                 telemetry=self._telemetry(),
                 goodput=self.goodput,
+                # agents grade on the reward fleet when it is on
+                reward_service=self.reward_service,
             )
             for i in range(self.n_rollout_workers)
         ]
-        return {
+        setup = {
             "dfg": self.build_dfg(self.dataset.train_bs_n_seqs,
                                   async_mode=True),
             "master": self.build_master_config(async_mode=True),
@@ -104,6 +108,9 @@ class AsyncPPOMATHConfig(PPOMATHConfig):
             "gserver_manager": manager,
             "rollout_workers": rollout_workers,
         }
+        if self.reward_service.enabled:
+            setup["reward_workers"] = self.build_reward_workers()
+        return setup
 
 
 register_experiment("async-ppo-math", AsyncPPOMATHConfig)

@@ -13,10 +13,13 @@ and the trainer's and the master's configs. In async mode generation
 leaves the graph: the trainer's stream dataset yields trajectories with
 their rewards.
 
+With ``reward_service.enabled`` the setup adds the reward workers
+(:meth:`PPOMATHConfig.build_reward_workers`), and the trainer's rw_inf
+grades on them.
+
 Differences: the critic role always gets a value head
 (``experiments/common.py``); the fused reward + reference node
-(``fuse_rew_ref``, ``algorithms/fused.py``) and the reward-service fleet
-are not ported.
+(``fuse_rew_ref``, ``algorithms/fused.py``) is not ported.
 """
 
 from __future__ import annotations
@@ -25,11 +28,11 @@ import dataclasses
 import os
 from typing import Any, Dict, List, Optional
 
-from areal_tpu_torch.algorithms.ppo import PPOHyperparameters
 from areal_tpu_torch.api.cli_args import (
     BaseExperimentConfig,
     MFCConfig,
     ModelTrainEvalConfig,
+    PPOHyperparameters,
     PromptOnlyDatasetConfig,
 )
 from areal_tpu_torch.api.dfg import (
@@ -243,6 +246,8 @@ class PPOMATHConfig(BaseExperimentConfig):
             telemetry=self._telemetry(),
             goodput=self.goodput,
             compile_watch=self.compile_watch,
+            # Sync mode's rw_inf grades on the reward fleet when it is on.
+            reward_service=self.reward_service,
             device=self._device(),
         )
 
@@ -280,14 +285,35 @@ class PPOMATHConfig(BaseExperimentConfig):
             compile_watch=self.compile_watch,
         )
 
+    def build_reward_workers(self) -> List[Any]:
+        """The reward workers' configs (none while the service is off);
+        shared by the sync and async setups."""
+        if not self.reward_service.enabled:
+            return []
+        from areal_tpu_torch.system.reward_worker import RewardWorkerConfig
+
+        return [
+            RewardWorkerConfig(
+                experiment=self.experiment_name, trial=self.trial_name,
+                worker_index=i, port=self.reward_service.port,
+                reward=self.reward_service, telemetry=self._telemetry(),
+                keepalive_ttl_secs=self.fault_tolerance.keepalive_ttl_secs)
+            for i in range(self.reward_service.n_workers)
+        ]
+
     def initial_setup(self) -> Dict[str, Any]:
-        """-> {dfg, master, trainer} (sync: generation in the trainer)."""
-        return {
+        """-> {dfg, master, trainer[, reward_workers]} (sync: generation in
+        the trainer)."""
+        setup = {
             "dfg": self.build_dfg(self.dataset.train_bs_n_seqs,
                                   async_mode=False),
             "master": self.build_master_config(async_mode=False),
             "trainer": self.build_trainer_config(async_mode=False),
         }
+        if self.reward_service.enabled:
+            # The fleet keeps untrusted code out of the trainer too.
+            setup["reward_workers"] = self.build_reward_workers()
+        return setup
 
 
 register_experiment("ppo-math", PPOMATHConfig)

@@ -980,7 +980,9 @@ class GenerationServer:
             self._hb = HeartbeatThread(
                 self.cfg.experiment, self.cfg.trial,
                 f"genserver_{self.cfg.server_id}",
-                interval=default_heartbeat_interval(ttl))
+                interval=default_heartbeat_interval(ttl),
+                # names.compile_inflight while a kernel library builds
+                inflight_fn=compile_watch.inflight)
             self._hb.lease(self._key(), url, ttl)
         logger.info(f"generation server {self.cfg.server_id} at {url}"
                     + (f" (keepalive {ttl:.0f}s)" if ttl else ""))

@@ -19,6 +19,11 @@ lease, quota and version state sits under one lock.
    ``(accepted + running) // train_batch_size`` may not exceed
    ``max_head_offpolicyness + version``; ``/allocate_rollout`` also denies
    at ``max_concurrent_rollouts``; ``/finish_rollout`` returns the booking.
+   A booking that names its rollout worker and incarnation (``worker``,
+   ``incarnation``) is also counted per worker: the first allocation of a
+   respawned worker's new incarnation returns what its killed predecessor
+   still held (a SIGKILL sends no ``/finish_rollout``; the reference leaks
+   that quota until the manager restarts).
  - Fleet health: every ``health_check_interval_secs`` the manager reads the
    registrations under ``names.gen_servers`` and probes each server's
    ``/health``; ``health_failure_threshold`` consecutive failures evict a
@@ -140,6 +145,10 @@ class GserverManager:
         # samples adds group_size to running.
         self.running_rollouts = 0
         self.accepted_rollouts = 0
+        # worker -> [incarnation, samples it holds]: bookings that name
+        # their worker, so that a respawn returns its predecessor's quota
+        self._booked: Dict[str, List[int]] = {}
+        self.reclaimed_samples = 0
         self.faults = fault_injector
         # Weight-sync latency: (version, fanout secs, publish-to-swap secs)
         self.sync_history: List[tuple] = []
@@ -600,11 +609,13 @@ class GserverManager:
     def allocate_rollout(self, d: Dict, headers=None) -> Tuple[int, Dict]:
         n = int(d.get("n_samples", 1))
         with self._lock:
+            self._reclaim_predecessor(d)
             if self.running_rollouts >= self.cfg.max_concurrent_rollouts:
                 return 200, {"allowed": False, "reason": "capacity"}
             if self.is_staled():
                 return 200, {"allowed": False, "reason": "staleness"}
             self.running_rollouts += n
+            self._book(d, n)
             version = self.version
         # The gate's admission joins the rollout's trace (denials stay
         # counters on the rollout worker: a closed gate is polled often).
@@ -620,9 +631,38 @@ class GserverManager:
         with self._lock:
             self.running_rollouts = max(0, self.running_rollouts - n)
             self.accepted_rollouts += n_accepted
+            self._book(d, -n)
         self._trace_event("gsmgr/finish", headers, n_samples=n,
                           n_accepted=n_accepted)
         return 200, {"ok": True}
+
+    def _reclaim_predecessor(self, d: Dict) -> None:
+        """A booking from a newer incarnation of a worker returns what the
+        older one still held (under the lock)."""
+        worker = d.get("worker")
+        if worker is None:
+            return
+        inc = int(d.get("incarnation", 0))
+        held = self._booked.get(worker)
+        if held is not None and held[0] < inc:
+            if held[1] > 0:
+                self.running_rollouts = max(0, self.running_rollouts
+                                            - held[1])
+                self.reclaimed_samples += held[1]
+                logger.warning(f"{worker} incarnation {inc} replaces "
+                               f"{held[0]}: returned the {held[1]} samples "
+                               "of quota it still held")
+                self.telemetry.inc("gsmgr/reclaimed_samples", held[1])
+            self._booked[worker] = [inc, 0]
+
+    def _book(self, d: Dict, n: int) -> None:
+        worker = d.get("worker")
+        if worker is None:
+            return
+        inc = int(d.get("incarnation", 0))
+        held = self._booked.setdefault(worker, [inc, 0])
+        if held[0] == inc:
+            held[1] = max(0, held[1] + n)
 
     def _trace_event(self, name: str, headers, **attrs) -> None:
         if not self.telemetry.enabled or headers is None:

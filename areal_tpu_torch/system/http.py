@@ -56,6 +56,7 @@ class AsyncHttp:
     def __init__(self, max_workers: int = 256):
         self._pool = concurrent.futures.ThreadPoolExecutor(
             max_workers, thread_name_prefix="areal-http")
+        self.closed = False
 
     async def post(self, url: str, body: Any, timeout: float = 300.0,
                    headers: Optional[Dict[str, str]] = None
@@ -66,6 +67,7 @@ class AsyncHttp:
             self._pool, request_json, url, body, timeout, headers)
 
     def close(self) -> None:
+        self.closed = True
         self._pool.shutdown(wait=False, cancel_futures=True)
 
 

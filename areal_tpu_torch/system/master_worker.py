@@ -196,8 +196,15 @@ class MasterWorker:
             self._save_ctl.load_state_dict(info.save_ctl_states["save"])
         if info.ckpt_ctl_states.get("ckpt"):
             self._ckpt_ctl.load_state_dict(info.ckpt_ctl_states["ckpt"])
+        # The roles the graph publishes are published again from the
+        # restored weights, so that a relaunched generation fleet serves
+        # the checkpoint's policy, not its initial weights, until the first
+        # step after the resume.
+        published = sorted({h.role for n in self.dfg.nodes.values()
+                            for h in n.post_hooks
+                            if isinstance(h, WeightUpdateHook)})
         reply = self.stream.call(self.cfg.trainer_handler, "restore",
-                                 {"dir": ckpt})
+                                 {"dir": ckpt, "publish": published})
         logger.info(f"recovered at step {self.step} epoch {self.epoch} from "
                     f"{ckpt} (model versions: {reply.get('versions')})")
 

@@ -6,14 +6,18 @@ The port of ``areal_tpu/system/rollout_worker.py`` (reference
 for each prompt it asks the manager for quota (``/allocate_rollout``, the
 staleness gate, in sample units), runs ``agent.collect_trajectory`` with
 its queues bridged to the chunked generation client, grades through the
-agent's environment in this process, pushes the accepted trajectories to
+agent's environment (in this process, or on the reward fleet when
+``reward_service.enabled``: then no code grade runs here), pushes the
+accepted trajectories to
 the trainer's stream and reports ``/finish_rollout`` on every path. A push
 that finds the trainer gone does not end the worker (in the reference the
 zmq socket drops it): the rollout reports what went out as accepted and
 its prompt stays unconsumed.
 
 The allocation is atomic under cancellation: a task cancelled after the
-manager booked its quota sends the compensating ``/finish_rollout``.
+manager booked its quota sends the compensating ``/finish_rollout``. Every
+quota call names the worker and its incarnation, so that a respawned
+worker's first allocation returns the quota a killed predecessor held.
 Consumed prompt ids go to an fsynced log (:class:`ConsumedLog`) that a
 restarted worker skips.
 
@@ -26,7 +30,7 @@ progress gauges, and a goodput ledger in accrual mode (concurrent
 rollouts export task-seconds, not a wall partition).
 
 This process never initialises CUDA: generation runs on the servers.
-Left out: the durable spool and the reward-service fleet (ROADMAP.md).
+Left out: the durable spool (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -46,7 +50,11 @@ from areal_tpu_torch.api.model import (
     make_agent,
     make_env,
 )
-from areal_tpu_torch.api.train_config import GoodputConfig, TelemetryConfig
+from areal_tpu_torch.api.train_config import (
+    GoodputConfig,
+    RewardServiceConfig,
+    TelemetryConfig,
+)
 from areal_tpu_torch.base import logging, name_resolve, names, telemetry
 from areal_tpu_torch.base.retry import (
     DEFAULT_GENERATION_RETRY,
@@ -58,6 +66,7 @@ from areal_tpu_torch.datasets.jsonl import (
     load_jsonl,
     load_shuffle_split,
 )
+from areal_tpu_torch.rewards import client as reward_client
 from areal_tpu_torch.system import goodput as goodput_mod
 from areal_tpu_torch.system.http import AsyncHttp
 from areal_tpu_torch.system.partial_rollout import (
@@ -102,6 +111,10 @@ class RolloutWorkerConfig:
     telemetry: TelemetryConfig = dataclasses.field(
         default_factory=TelemetryConfig)
     goodput: GoodputConfig = dataclasses.field(default_factory=GoodputConfig)
+    # The sandbox reward fleet: enabled, the agents' reward callbacks grade
+    # over HTTP on the reward workers instead of in this process.
+    reward_service: RewardServiceConfig = dataclasses.field(
+        default_factory=RewardServiceConfig)
 
 
 class ConsumedLog:
@@ -161,6 +174,9 @@ class RolloutWorker:
         self.agent = make_agent(cfg.agent, tokenizer=cfg.tokenizer,
                                 **cfg.agent_args)
         self.env = make_env(cfg.env, self.id2info, **cfg.env_args)
+        # This process's grading mode (rewards/client.py).
+        reward_client.configure_service(cfg.reward_service, cfg.experiment,
+                                        cfg.trial)
         self.consumed = ConsumedLog(cfg.recover_dir, cfg.worker_index)
         self.client: Optional[PartialRolloutClient] = None
         self._mgr_url0 = ""
@@ -169,6 +185,12 @@ class RolloutWorker:
         self._abandoned = 0
         # allocation denials by reason
         self.denials: Dict[str, int] = {}
+        # Named in every quota call: a respawned incarnation's first
+        # allocation returns what this one still holds if it is killed.
+        from areal_tpu_torch.system.worker_base import env_incarnation
+
+        self._who = {"worker": f"rollout{cfg.worker_index}",
+                     "incarnation": env_incarnation()}
         self._ledger = goodput_mod.NULL_LEDGER  # armed by run_async
 
     def _prompt_sample(self, rec, uid: str) -> SequenceSample:
@@ -205,7 +227,7 @@ class RolloutWorker:
         t_alloc = time.monotonic()
         alloc_fut = asyncio.ensure_future(self._post_json(
             session, f"{self._mgr_url}/allocate_rollout",
-            {"n_samples": cfg.group_size}))
+            {"n_samples": cfg.group_size, **self._who}))
         try:
             alloc = await asyncio.shield(alloc_fut)
         except asyncio.CancelledError:
@@ -218,7 +240,7 @@ class RolloutWorker:
                     await self._post_json(
                         session, f"{self._mgr_url}/finish_rollout",
                         {"accepted": False, "n_samples": cfg.group_size,
-                         "n_accepted": 0})
+                         "n_accepted": 0, **self._who})
                 except Exception as e2:  # noqa: BLE001 — manager hung/dead
                     logger.warning(f"compensating finish_rollout failed "
                                    f"({e2}); {cfg.group_size} samples of "
@@ -331,7 +353,7 @@ class RolloutWorker:
                         session, f"{self._mgr_url}/finish_rollout",
                         {"accepted": accepted > 0,
                          "n_samples": cfg.group_size,
-                         "n_accepted": accepted})
+                         "n_accepted": accepted, **self._who})
                 except Exception as e:  # noqa: BLE001 — manager hung/dead
                     logger.warning(f"finish_rollout failed ({e}); "
                                    f"{cfg.group_size} samples of quota may "
@@ -372,6 +394,11 @@ class RolloutWorker:
         # its chunk) plus the quota calls.
         session = AsyncHttp(max_workers=cfg.max_concurrent * cfg.group_size
                             + 16)
+        # Reward fanout rides this worker's pool (owned here, never closed
+        # by the client).
+        svc = reward_client.service_client()
+        if svc is not None:
+            svc.use_session(session)
         client = PartialRolloutClient(
             self._mgr_url, session, chunk_tokens=cfg.chunk_tokens,
             retry=cfg.retry, fault_injector=self.faults,

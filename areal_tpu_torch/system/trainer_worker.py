@@ -10,7 +10,8 @@ role's engine on one device and serves the master's request stream:
  - ``clear``       drop sample ids from the store
  - ``model_info``  geometry and device for the master's FLOPs and MFU
  - ``ckpt`` / ``restore``  recover checkpoints (train state, interface
-                   state, the dataset cursor)
+                   state, the dataset cursor); a restore republishes the
+                   roles the master names, at the restored version
  - ``version`` / ``exit``
 
 Hooks on an MFC: ``weight_update`` publishes a role's weights for the
@@ -71,6 +72,7 @@ from areal_tpu_torch.api.model import (
 from areal_tpu_torch.api.train_config import (
     CompileWatchConfig,
     GoodputConfig,
+    RewardServiceConfig,
     TelemetryConfig,
     WeightSyncConfig,
 )
@@ -145,6 +147,9 @@ class TrainerWorkerConfig:
     # arms the kernel-build watch and the device-memory gauges
     compile_watch: CompileWatchConfig = dataclasses.field(
         default_factory=CompileWatchConfig)
+    # Sync mode's rw_inf grades on the reward fleet when it is enabled.
+    reward_service: RewardServiceConfig = dataclasses.field(
+        default_factory=RewardServiceConfig)
     # Where every role lives (areal_tpu_torch.resolve_device): cuda unless
     # named; without a GPU and without a device, setup() raises.
     device: Optional[str] = None
@@ -229,6 +234,13 @@ class TrainerWorker:
         for mfc_name, mc in self._mfc_cfg.items():
             self.interfaces[mfc_name] = make_interface(mc.interface,
                                                        **mc.interface_args)
+        # This process's grading mode (rewards/client.py): with the service
+        # on, rw_inf's batch_reward fans out to the reward fleet; off, the
+        # local path is unchanged.
+        from areal_tpu_torch.rewards import client as reward_client
+
+        reward_client.configure_service(cfg.reward_service, cfg.experiment,
+                                        cfg.trial)
         if cfg.dataset is not None:
             self._dataset = make_dataset(cfg.dataset, tokenizer=cfg.tokenizer,
                                          **cfg.dataset_args)
@@ -716,6 +728,11 @@ class TrainerWorker:
             rng = np.random.RandomState(self._epoch + 1)
             self._data_iter = list(rng.permutation(len(self._dataset)))
         logger.info(f"restored trainer state from {ckpt_dir}")
+        # Republished at the restored version: the fleet's weights are the
+        # checkpoint's from here on.
+        for role in p.data.get("publish", ()):
+            if role in self.models:
+                self.publish_weights(role)
         return {"ok": True, "versions": meta["versions"]}
 
     # ---------------- loop ----------------
@@ -762,8 +779,11 @@ class TrainerWorker:
 
     def run(self) -> None:
         self.setup()
+        # The heartbeat publishes names.compile_inflight while a kernel
+        # library builds (the null watch reports none).
         ctrl = WorkerControl(self.cfg.experiment, self.cfg.trial,
-                             self.cfg.handler)
+                             self.cfg.handler,
+                             inflight_fn=compile_watch.inflight)
         # Under a supervisor the control heartbeat also keeps the request
         # stream's and the trajectory puller's advertisements leased.
         ctrl.lease(self._server._key, self._server._addr)

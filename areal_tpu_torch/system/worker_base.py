@@ -12,8 +12,10 @@ workers through name_resolve and sends pause / resume / exit / status /
 reconfigure or a registered custom command. ``pause`` blocks the worker
 inside ``step`` until resume or exit; commands are served while paused.
 Under a supervisor, a ``HeartbeatThread`` keeps the worker's leased
-name-resolve keys alive and publishes its heartbeat. The reference's
-compile-inflight flag is left out: the port compiles nothing at run time.
+name-resolve keys alive and publishes its heartbeat, and while a kernel
+library build is in flight (``base/compile_watch.py``: the port's one
+compile) it publishes ``names.compile_inflight`` so that an observer can
+tell "building" from "wedged".
 """
 
 from __future__ import annotations
@@ -109,11 +111,16 @@ class HeartbeatThread:
     catch killed processes, which take their threads with them). Every
     ``interval`` seconds it ``touch``es each leased key, re-registering a
     lapsed one whose value it knows, and rewrites
-    ``names.worker_heartbeat`` with {ts, incarnation, pid}."""
+    ``names.worker_heartbeat`` with {ts, incarnation, pid}. While
+    ``inflight_fn()`` reports a kernel library build in flight it rewrites
+    ``names.compile_inflight`` with a fresh ts each beat, and deletes it
+    the beat the build ends (no name-resolve traffic for a worker that
+    builds nothing)."""
 
     def __init__(self, experiment: str, trial: str, worker_name: str,
                  keys: Iterable[str] = (), interval: float = 2.0,
-                 incarnation: Optional[int] = None):
+                 incarnation: Optional[int] = None,
+                 inflight_fn: Optional[Callable[[], bool]] = None):
         self.worker_name = worker_name
         self.incarnation = (incarnation if incarnation is not None
                             else env_incarnation())
@@ -122,6 +129,10 @@ class HeartbeatThread:
         self._interval = max(float(interval), 0.05)
         self._lock = threading.Lock()
         self._hb_key = names.worker_heartbeat(experiment, trial, worker_name)
+        self._inflight_fn = inflight_fn
+        self._inflight_key = names.compile_inflight(experiment, trial,
+                                                    worker_name)
+        self._inflight_written = False
         self._stop = threading.Event()
         self._beat()  # visible before the first interval elapses
         self._thread = threading.Thread(
@@ -162,6 +173,22 @@ class HeartbeatThread:
                 replace=True, delete_on_exit=False)
         except Exception:  # noqa: BLE001
             pass
+        if self._inflight_fn is None:
+            return
+        try:
+            if self._inflight_fn():
+                # Rewritten every beat: observers judge freshness by ts, so
+                # a killed worker's stale flag stops counting within a
+                # minute.
+                name_resolve.add(self._inflight_key,
+                                 json.dumps({"ts": time.time()}),
+                                 replace=True, delete_on_exit=False)
+                self._inflight_written = True
+            elif self._inflight_written:
+                self._inflight_written = False
+                name_resolve.delete(self._inflight_key)
+        except Exception:  # noqa: BLE001 — a heartbeat must never
+            pass  # kill a worker
 
     def _loop(self) -> None:
         while not self._stop.wait(self._interval):
@@ -172,10 +199,13 @@ class HeartbeatThread:
         # Join before deleting: a beat in flight would re-add the key
         # after the delete and leave a ghost heartbeat.
         self._thread.join(timeout=2.0)
-        try:
-            name_resolve.delete(self._hb_key)
-        except Exception:  # noqa: BLE001 — already gone / repo reset
-            pass
+        for key in [self._hb_key] + ([self._inflight_key]
+                                     if self._inflight_written else []):
+            try:
+                name_resolve.delete(key)
+            except Exception:  # noqa: BLE001 — already gone / repo reset
+                pass
+        self._inflight_written = False
 
 
 class WorkerControl:
@@ -183,7 +213,8 @@ class WorkerControl:
 
     def __init__(self, experiment: str, trial: str, worker_name: str,
                  keepalive_ttl: Optional[float] = None,
-                 heartbeat_interval: Optional[float] = None):
+                 heartbeat_interval: Optional[float] = None,
+                 inflight_fn: Optional[Callable[[], bool]] = None):
         self.worker_name = worker_name
         self.state = WorkerState.CREATED
         self.incarnation = env_incarnation()
@@ -201,7 +232,7 @@ class WorkerControl:
                 experiment, trial, worker_name,
                 interval=(heartbeat_interval
                           or default_heartbeat_interval(keepalive_ttl)),
-                incarnation=self.incarnation)
+                incarnation=self.incarnation, inflight_fn=inflight_fn)
             self._hb.lease(self._key, addr, keepalive_ttl)
         self._reconfigure_cb: Optional[Callable[[Any], Any]] = None
         self._commands: Dict[str, Callable[[Any], Any]] = {}

@@ -1,11 +1,21 @@
 """Probes of a live fleet, from any host that can reach it.
 
 The port's counterparts of the reference's ``tools/perf_probe.py``
-``scrape`` (:195) and ``decode_bench`` (:245), on the standard library
-(``urllib`` on a thread pool: the card's machine has no ``aiohttp``)::
+``scrape`` (:195), ``decode_bench`` (:245), ``reward_bench`` (:317),
+``flight_dump`` (:502), ``fleet_status`` (:750) and ``drain`` (:890), on
+the standard library (``urllib`` on a thread pool: the card's machine has
+no ``aiohttp``)::
 
     python -m areal_tpu_torch.tools.perf_probe scrape <url>
     python -m areal_tpu_torch.tools.perf_probe decode-bench <url> [n] [max_tokens]
+    python -m areal_tpu_torch.tools.perf_probe reward-bench <exp> <trial> [n]
+    python -m areal_tpu_torch.tools.perf_probe reward-bench <url> [n]
+    python -m areal_tpu_torch.tools.perf_probe fleet-status <exp> <trial>
+    python -m areal_tpu_torch.tools.perf_probe drain <exp> <trial>
+    python -m areal_tpu_torch.tools.perf_probe flight-dump <exp> <trial> <dir>
+
+The commands that take ``<exp> <trial>`` find the run through name_resolve
+(``AREAL_NAME_RESOLVE_ROOT`` or the repository's default root).
 
 ``scrape`` prints a worker's ``/metrics`` (Prometheus text as an aligned
 table, histograms as count and mean; JSON as it is). ``decode-bench`` fires
@@ -14,7 +24,14 @@ rollout, interactive, eval, ...) with seeded prompt lengths and budgets at
 a generation server, then prints the client's tokens/s, each class's
 latency and the server's own counters from ``/metrics.json``. Non-200
 replies (429 admission, 413 too long, 5xx) are counted, not fatal; a
-server that cannot be reached raises.
+server that cannot be reached raises. ``reward-bench`` fans ``n`` seeded
+math and code tasks (3:1) through the fleet client (local fallback off)
+and prints the grades/s, each kind's p50 and p99 and the fleet's verdict
+counters. ``fleet-status`` prints heartbeat ages and incarnations, the
+control endpoints, the drain phase, the manager's fleet map and the
+``supervisor_*`` series of the merged scrape. ``drain`` runs the graceful
+drain against a live run. ``flight-dump`` asks every live worker to dump
+its flight-recorder ring into ``<dir>``.
 """
 
 from __future__ import annotations
@@ -153,22 +170,262 @@ def decode_bench(server_url: str, n_requests: int = 24,
             "per_class": per_class, "server": m}
 
 
+def reward_tasks(n_tasks: int) -> List[Dict[str, Any]]:
+    """The reference's seeded workload: every fourth task code (a program
+    that passes or fails two cases), the rest math (right or off by one)."""
+    rng = random.Random(0)
+    tasks = []
+    for i in range(n_tasks):
+        if i % 4 == 3:
+            k = rng.randint(1, 9)
+            ok = rng.random() < 0.5
+            code = (f"```python\nx = int(input())\nprint(x + "
+                    f"{k if ok else k + 1})\n```")
+            tasks.append({"task": "code", "generated": code,
+                          "input_output": json.dumps({
+                              "inputs": ["1\n", "2\n"],
+                              "outputs": [f"{1 + k}\n", f"{2 + k}\n"]})})
+        else:
+            v = rng.randint(0, 999)
+            guess = v if rng.random() < 0.5 else v + 1
+            tasks.append({"task": "math",
+                          "generated": f"\\boxed{{{guess}}}",
+                          "solutions": [f"\\boxed{{{v}}}"]})
+    return tasks
+
+
+def _get_text(url: str) -> str:
+    with _OPENER.open(url, timeout=10) as r:
+        return r.read().decode()
+
+
+def reward_bench(exp_or_url: str, trial: str = "",
+                 n_tasks: int = 32) -> Dict[str, Any]:
+    """Grade latency of a live reward fleet (found through name_resolve, or
+    one worker's URL): :func:`reward_tasks` through the fleet client (16 in
+    flight, retry across replicas, local fallback off: a dead fleet shows
+    as 0.0 scores, never as local grading here), each kind's p50 and p99,
+    then the fleet's verdict counters from the merged scrape (or each
+    worker's /metrics). Prints the reference's lines and returns them."""
+    import asyncio
+
+    from areal_tpu_torch.api.train_config import RewardServiceConfig
+    from areal_tpu_torch.rewards.client import RewardServiceClient
+    from areal_tpu_torch.system.http import AsyncHttp
+
+    if exp_or_url.startswith("http"):
+        urls = [exp_or_url.rstrip("/")]
+    else:
+        from areal_tpu_torch.system.reward_worker import resolve_fleet
+
+        urls = resolve_fleet(exp_or_url, trial)
+        if not urls:
+            sys.exit(f"reward-bench: no reward workers registered for "
+                     f"{exp_or_url}/{trial}.\nEither the fleet is down or "
+                     "the service is disabled: relaunch with "
+                     "reward_service.enabled=true, or probe one worker "
+                     "directly: reward-bench <url>.")
+    print(f"[reward-bench] fleet: {len(urls)} worker(s)")
+    tasks = reward_tasks(n_tasks)
+    client = RewardServiceClient(
+        RewardServiceConfig(enabled=True, local_fallback=False), urls=urls)
+    lats: Dict[str, List[float]] = {"math": [], "code": []}
+
+    async def run():
+        sem = asyncio.Semaphore(16)
+        session = AsyncHttp(max_workers=16)
+
+        async def one(t):
+            t0 = time.monotonic()
+            s = await client.grade_one(session, t, sem)
+            lats[t["task"]].append(time.monotonic() - t0)
+            return s
+
+        try:
+            t0 = time.monotonic()
+            scores = await asyncio.gather(*[one(t) for t in tasks])
+            return scores, time.monotonic() - t0
+        finally:
+            session.close()
+
+    scores, wall = asyncio.run(run())
+    out: Dict[str, Any] = {"tasks": n_tasks, "wall_s": wall,
+                           "grades_per_s": n_tasks / max(wall, 1e-9),
+                           "mean_score": sum(scores) / max(len(scores), 1),
+                           "client": dict(client.counts)}
+    print(f"[reward-bench] {n_tasks} tasks in {wall:.2f}s -> "
+          f"{out['grades_per_s']:.1f} grades/s, "
+          f"mean score {out['mean_score']:.3f}")
+    for kind in ("math", "code"):
+        ls = sorted(lats[kind])
+        if ls:
+            p50 = ls[len(ls) // 2] * 1e3
+            p99 = ls[min(int(0.99 * len(ls)), len(ls) - 1)] * 1e3
+            out[kind] = {"n": len(ls), "p50_ms": p50, "p99_ms": p99}
+            print(f"[reward-bench] {kind:<5} n={len(ls)} p50={p50:.1f}ms "
+                  f"p99={p99:.1f}ms")
+    bodies = []
+    if trial:
+        from areal_tpu_torch.base import name_resolve, names
+
+        try:
+            murl = name_resolve.get(names.telemetry_http(exp_or_url, trial))
+            bodies = [("merged", _get_text(f"{murl}/metrics"))]
+        except Exception:  # noqa: BLE001 — no aggregator: per worker
+            pass
+    if not bodies:
+        for u in urls:
+            try:
+                bodies.append((u, _get_text(f"{u}/metrics")))
+            except OSError as e:
+                print(f"[reward-bench] scrape {u} failed: {e}")
+    verdicts: Dict[str, float] = {}
+    for _, body in bodies:
+        for ln in body.splitlines():
+            if ln.startswith("areal_reward_verdicts_total{"):
+                labels, _, val = ln.rpartition(" ")
+                verdicts[labels] = verdicts.get(labels, 0.0) + float(val)
+    out["verdicts"] = verdicts
+    if verdicts:
+        src = "merged scrape" if bodies[0][0] == "merged" else "per-worker"
+        print(f"[reward-bench] fleet verdicts ({src}):")
+        for k, v in sorted(verdicts.items()):
+            print(f"  {k} {v:g}")
+    else:
+        print("[reward-bench] no verdict counters scraped "
+              "(telemetry disabled on the fleet?)")
+    return out
+
+
+def fleet_status(experiment: str, trial: str) -> None:
+    """The supervision view of a live run: heartbeat ages and incarnations
+    (the liveness leases), control endpoints, the drain phase, the
+    manager's fleet map and the supervisor series of the merged scrape."""
+    from areal_tpu_torch.base import name_resolve, names
+    from areal_tpu_torch.system.worker_base import WorkerControlPanel
+
+    panel = WorkerControlPanel(experiment, trial, timeout=2.0)
+    try:
+        hbs = panel.heartbeats()
+        if hbs:
+            print("heartbeats (liveness leases):")
+            w = max(len(k) for k in hbs)
+            for worker, d in sorted(hbs.items()):
+                age = d.get("age_secs")
+                print(f"  {worker:<{w}}  "
+                      f"age={'?' if age is None else f'{age:.1f}s'}  "
+                      f"incarnation={d.get('incarnation', '?')}  "
+                      f"pid={d.get('pid', '?')}")
+        else:
+            print("no heartbeats registered (run not supervised, or "
+                  "fault_tolerance.keepalive_ttl_secs=0)")
+        workers = panel.list_workers()
+        print(f"control endpoints: {', '.join(workers) or 'none'}")
+    finally:
+        panel.close()
+    try:
+        d = json.loads(name_resolve.get(names.drain_status(experiment,
+                                                           trial)))
+        at = time.strftime("%H:%M:%S", time.localtime(d.get("ts", 0)))
+        print(f"drain phase: {d.get('phase')} (at {at})")
+    except Exception:  # noqa: BLE001 — no drain ever requested
+        print("drain phase: none")
+    try:
+        mgr = name_resolve.get(names.gen_server_manager(experiment, trial))
+        m = json.loads(_get_text(f"{mgr.rstrip('/')}/metrics.json"))
+        print(f"fleet: {m.get('healthy_servers')}/{m.get('known_servers')} "
+              "routable, 0 cordoned")
+        for u, st in sorted((m.get("fleet") or {}).items()):
+            state = "routable" if st.get("routable") else "evicted"
+            extra = [st["server_id"]] if st.get("server_id") else []
+            if st.get("evicted_reason") and state == "evicted":
+                extra.append(st["evicted_reason"])
+            print(f"  {u}  {state}" + ("  [" + ", ".join(extra) + "]"
+                                       if extra else ""))
+    except Exception as e:  # noqa: BLE001 — manager down
+        print(f"fleet map: manager unreachable ({e})")
+    try:
+        url = name_resolve.get(names.telemetry_http(experiment, trial))
+        lines = [ln for ln in _get_text(f"{url.rstrip('/')}/metrics")
+                 .splitlines()
+                 if "areal_supervisor_" in ln and not ln.startswith("#")]
+        if lines:
+            print("supervisor metrics (merged scrape):")
+            for ln in lines:
+                print(f"  {ln}")
+        else:
+            print("supervisor metrics: none yet (no restarts)")
+    except Exception:  # noqa: BLE001 — telemetry off / no http port
+        print("supervisor metrics: merged scrape unavailable "
+              "(telemetry disabled or no http_port)")
+
+
+def drain(experiment: str, trial: str) -> Dict[str, Any]:
+    """The graceful drain against a live run: the launcher's SIGTERM path
+    (pause, an out-of-band recover checkpoint, orderly exits)."""
+    from areal_tpu_torch.system.supervisor import drain_experiment
+
+    report = drain_experiment(experiment, trial)
+    print(json.dumps(report, indent=2, sort_keys=True))
+    ck = report.get("checkpoint") or {}
+    res = ck.get("result") or {}
+    if res.get("saved"):
+        print(f"recover checkpoint: {res.get('dir')} (step {res.get('step')})")
+    else:
+        print("WARNING: no recover checkpoint was written "
+              f"({ck.get('error') or res.get('reason') or 'master absent'})")
+    return report
+
+
+def flight_dump(experiment: str, trial: str, out_dir: str) -> str:
+    """Ask every live worker to dump its flight-recorder ring."""
+    from areal_tpu_torch.base import telemetry
+
+    nonce = telemetry.request_flight_dump(experiment, trial, out_dir)
+    print(f"flight-dump trigger {nonce} set for {experiment}/{trial}: "
+          f"every worker dumps flight_<worker>.jsonl into {out_dir} "
+          "within one telemetry flush interval (~2s at defaults)")
+    return nonce
+
+
 USAGE = """usage: python -m areal_tpu_torch.tools.perf_probe <command> ...
   scrape <url>                           print a worker's /metrics
-  decode-bench <url> [n] [max_tokens]    mixed-class burst at a server"""
+  decode-bench <url> [n] [max_tokens]    mixed-class burst at a server
+  reward-bench <exp> <trial> [n]         grade latency of a live reward fleet
+  reward-bench <url> [n]                 ... of one reward worker
+  fleet-status <exp> <trial>             heartbeats, drain phase, fleet map
+  drain <exp> <trial>                    graceful drain of a live run
+  flight-dump <exp> <trial> <dir>        every worker dumps its flight ring"""
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) >= 2 and argv[0] == "scrape":
-        scrape(argv[1])
-        return 0
-    if len(argv) >= 2 and argv[0] == "decode-bench":
-        decode_bench(argv[1], int(argv[2]) if len(argv) > 2 else 24,
-                     int(argv[3]) if len(argv) > 3 else 32)
-        return 0
-    print(USAGE, file=sys.stderr)
-    return 2
+    cmd = argv[0] if argv else ""
+    try:
+        if cmd == "scrape":
+            scrape(argv[1])
+        elif cmd == "decode-bench":
+            decode_bench(argv[1], int(argv[2]) if len(argv) > 2 else 24,
+                         int(argv[3]) if len(argv) > 3 else 32)
+        elif cmd == "reward-bench" and argv[1].startswith("http"):
+            reward_bench(argv[1],
+                         n_tasks=int(argv[2]) if len(argv) > 2 else 32)
+        elif cmd == "reward-bench":
+            reward_bench(argv[1], argv[2],
+                         int(argv[3]) if len(argv) > 3 else 32)
+        elif cmd == "fleet-status":
+            fleet_status(argv[1], argv[2])
+        elif cmd == "drain":
+            drain(argv[1], argv[2])
+        elif cmd == "flight-dump":
+            flight_dump(argv[1], argv[2], argv[3])
+        else:
+            print(USAGE, file=sys.stderr)
+            return 2
+    except IndexError:
+        print(f"missing operand for {cmd!r}\n\n{USAGE}", file=sys.stderr)
+        return 2
+    return 0
 
 
 if __name__ == "__main__":

@@ -255,6 +255,55 @@ Phases (any failed check raises, and the script exits non-zero):
      continuations that re-prefilled and the retained KV's peak bytes,
      beside (o)'s.
 
+ (r) the reward fleet and respawns: (o)'s loop, 5 steps (the first a
+     warm-up), with ``reward_service.enabled=true n_workers=2`` and
+     ``fault_tolerance`` at its defaults, on seeded records half math and
+     half python code (2-4 stdin/stdout cases each), through the
+     launcher's supervisor. The script SIGKILLs ``reward0`` after step 1,
+     ``rollout0`` after step 2 and the generation fleet (server and
+     manager) after step 3, each once its next incarnation registered
+     again. While the loop runs: the open /dev/nvidia* nodes of the
+     reward workers (the trainer and the fleet the control), each reward worker's /metrics.json, and ``perf_probe
+     reward-bench`` (32 seeded tasks) at the live fleet. Checks: 5 steps
+     with finite losses; restarts {reward: 1, rollout: 1, gen_fleet: 1},
+     no escalation; no local fallback and no local grade in the rollout
+     process, its answered tasks at least the trained trajectories, and
+     the fleet's grades between the answers and the tasks sent (a grade
+     whose worker or client was killed before its answer landed is the
+     difference; reward-bench's included); no reward worker holds a CUDA
+     context, imported torch or saw a card; the respawned server's
+     weights, as its first batch at a version > 0 starts, equal the
+     actor the trainer published as that version (SHA-256 per tensor);
+     quota 0 after the master stops; (o)'s launch checks on the
+     respawned fleet; no child left. Prints ms per step and the step
+     after each kill, respawn seconds per kind from the kill to the new
+     incarnation's registration (the fleet's split into the supervisor's
+     backoff, process start, model build and start, first weight update),
+     the client's tasks, answers, retries and fallbacks, the fleet's
+     verdicts by task kind, the grading call's ms beside (o)'s, each
+     reward worker's peak RSS beside a bare ``import torch``'s and
+     reward-bench's line;
+ (s) relaunch and drain: (o)'s loop with ``recover_mode=auto``, a recover
+     checkpoint every step and 4 steps, through ``run_experiment``. Once
+     step 2's checkpoint and the actor's v2 publish are in, the trainer is
+     SIGKILLed: the supervisor escalates, ``run_experiment`` clears the
+     trial's name-resolve subtree and relaunches with ``resume``; after
+     the relaunched run's first step, ``request_drain()`` (the SIGTERM
+     handler's path): pause, checkpoint, exit. Checks: the first launch
+     failed on the escalation; none of its children lived when the
+     relaunch started; the relaunched trainer's first step ran at the
+     checkpoint's actor version and the master resumed at its step; the
+     drain (requested as the relaunched master comes up, so it lands after
+     its first step) ended the run before its 4 steps; the
+     relaunched actor's first publish (at the restore) equals the killed
+     trainer's publish of that version bit for bit; the drain ended the
+     run with the trainer and the rollout worker exiting 0 and a complete
+     recover checkpoint at the last step; no child left. Prints
+     kill-to-escalation, escalation-to-relaunch and escalation-to-first-
+     step seconds, the card's memory in use as the relaunch starts
+     (before its trainer allocates), the drain seconds, and the recover
+     checkpoints' bytes and write seconds.
+
 The script exits 0 only when every phase passed and the last line is
 printed; any failed check raises and exits 1, as does a run where
 areal_tpu_torch is not beside the script. The line before the last is the
@@ -264,6 +313,7 @@ record, and the last line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
 import dataclasses
 import json
@@ -281,7 +331,13 @@ import urllib.request
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-import torch  # noqa: E402
+if __name__ == "__mp_main__" and os.environ.get("CUDA_VISIBLE_DEVICES") == "":
+    # A sandbox reward worker, spawned from this script, imports it again
+    # to find its probe: it loads no torch, as under the port's own entry
+    # points (``training/main_async_ppo.py``).
+    torch = None
+else:
+    import torch  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -2197,7 +2253,7 @@ def sha256_digests(params: dict) -> dict:
             .hexdigest() for n, t in params.items()}
 
 
-def async_trainer_probe(conn, worker):
+def async_trainer_probe(conn, worker, digest_dir=None):
     """(o)'s trainer probe, called by the launcher in the trainer's process
     with the TrainerWorker before its run: per MFC the K1-K3 launches, the
     micro-batches it packs, the wall and CUDA-event ms, its tokens and its
@@ -2207,7 +2263,9 @@ def async_trainer_probe(conn, worker):
     host as the publish makes them (no extra device memory) and hashed in
     a thread of the probe's, so only the digests outlive the publish.
     After the run it sends ("done", record) with the SHA-256 per tensor of
-    every published version and the peak memory."""
+    every published version and the peak memory. With ``digest_dir`` each
+    version's digests also go to ``trainer_<pid>_v<version>.json`` there as
+    soon as they are hashed ((s): a killed trainer sends no record)."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -2278,7 +2336,18 @@ def async_trainer_probe(conn, worker):
         finally:
             worker._compute_dtype_params = cast
         v = worker.models[role].version.global_step
-        digests[v] = hasher.submit(sha256_digests, host)
+
+        def digest(host=host, v=v):
+            d = sha256_digests(host)
+            if digest_dir is not None:
+                path = os.path.join(digest_dir,
+                                    f"trainer_{os.getpid()}_v{v}.json")
+                with open(path + ".tmp", "w") as f:
+                    json.dump(d, f)
+                os.replace(path + ".tmp", path)
+            return d
+
+        digests[v] = hasher.submit(digest)
         # publish_s includes the probe's d2h copy, reported beside it.
         publishes.append({"version": v,
                           "publish_s": time.perf_counter() - t0,
@@ -2318,13 +2387,27 @@ def ledger_record(ledger, mfu) -> dict:
             "mfu_peak": mfu.peak if mfu is not None else None}
 
 
-def async_fleet_probe(conn, servers, mgr):
+def proc_start_wall() -> float:
+    """This process's start, in wall-clock seconds (from /proc)."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    return time.time() - uptime + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def async_fleet_probe(conn, servers, mgr, first_digest: bool = False):
     """(o)'s fleet probe, in the generation fleet's process once the server
     and the manager run: counts K1's launches and the server's prefills
     (and K1's launches inside each), times every batch; on SIGTERM (the
     launcher's teardown) it sends ("done", record) with them, the server's
     stats, version and live weights' SHA-256 per tensor, the manager's
-    version, quota and weight-sync history, and exits."""
+    version, quota and weight-sync history, and exits. Also the process's
+    start, the probe's call (the model built, server and manager up) and
+    the first accepted weight update, in wall-clock seconds; with
+    ``first_digest`` ((r): a respawned fleet) the SHA-256 of the server's
+    weights as it starts its first batch at a version > 0, before that
+    batch runs."""
     import signal
     import traceback
 
@@ -2335,6 +2418,18 @@ def async_fleet_probe(conn, servers, mgr):
     prebuilt = all(fa._lib_path(n).exists() for n in fa._SOURCES)
     prefill_k1, batches = [], []
     prefill, decode = genmod._prefill, srv._decode_batch
+    times = {"proc_start": proc_start_wall(), "ready": time.time(),
+             "first_update": None}
+    first = {}
+    update = srv.handle_update_weights
+
+    def timed_update(body):
+        out = update(body)
+        if out[0] == 200 and times["first_update"] is None:
+            times["first_update"] = time.time()
+        return out
+
+    srv.handle_update_weights = timed_update
 
     def counted_prefill(*a, **k):
         before = fa.launch_counts()["flash_attention_fwd"]
@@ -2343,6 +2438,9 @@ def async_fleet_probe(conn, servers, mgr):
         return out
 
     def timed_batch(batch):
+        if first_digest and not first and srv.version > 0:
+            first.update(version=srv.version, t=time.time(),
+                         digests=sha256_digests(srv.model.state_dict()))
         t0, d0, s0 = time.time(), srv._decode_secs, srv._decode_steps
         p0 = srv._prefill_secs
         out = decode(batch)
@@ -2385,6 +2483,7 @@ def async_fleet_probe(conn, servers, mgr):
                 "accepted_rollouts": mgr.accepted_rollouts,
                 "sync_history": mgr.sync_history,
                 "digests": sha256_digests(srv.model.state_dict()),
+                "times": times, "first_versioned_batch": first,
                 "kernels_prebuilt": prebuilt,
                 "peak_gb": mem_peak(srv.device)}))
         except BaseException:  # noqa: BLE001 — reported to the script
@@ -2398,25 +2497,256 @@ def async_fleet_probe(conn, servers, mgr):
     signal.signal(signal.SIGTERM, on_term)
 
 
-def async_rollout_probe(conn, worker):
+def async_rollout_probe(conn, worker, log_dir=None):
     """(o)'s rollout-worker probe: after its run, the denials by reason, the
-    pushed and abandoned rollouts, and whether this process initialised
-    CUDA."""
+    pushed and abandoned rollouts, the ms of each grading call (the
+    environment's step: one group's rewards), the verdicts of the grades
+    this process ran itself, and whether it initialised CUDA. With
+    ``log_dir`` ((r)) every event of the reward-fleet client (remote,
+    retries, local_fallback, ...) and every task it POSTs to a reward
+    worker ("attempt") is appended to ``client_<pid>.log`` there as it
+    happens, so a killed incarnation's count survives it."""
+    from areal_tpu_torch.rewards import client as reward_client
+
+    grade_ms = []
+    step = worker.env.step
+
+    async def timed_step(action):
+        t0 = time.perf_counter()
+        out = await step(action)
+        grade_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    worker.env.step = timed_step
+    svc = reward_client.service_client()
+    if log_dir is not None and svc is not None:
+        count, use = svc._count, svc.use_session
+        path = os.path.join(log_dir, f"client_{os.getpid()}.log")
+
+        def log(what):
+            with open(path, "a") as f:
+                f.write(what + "\n")
+
+        def logged(what):
+            count(what)
+            log(what)
+
+        def attach(session):
+            # every POST of a task to a reward worker: an "attempt"
+            post = session.post
+
+            async def logged_post(url, body, *a, **k):
+                if url.endswith(("/math_verify", "/code_verify")):
+                    log("attempt")
+                return await post(url, body, *a, **k)
+
+            session.post = logged_post
+            use(session)
+
+        svc._count, svc.use_session = logged, attach
+
     def done():
         conn.send(("done", {
             "denials": worker.denials, "pushed": worker._pushed,
             "abandoned": worker._abandoned,
             "failovers": worker.client.n_failovers,
+            "grade_ms": grade_ms,
+            "local_verdicts": dict(reward_client.verdict_counts),
+            "client": dict(svc.counts) if svc is not None else None,
             "cuda_initialized": torch.cuda.is_initialized()}))
         conn.close()
     return done
+
+
+def reward_probe(log_dir, worker):
+    """(r)'s reward-worker probe: every grade's kind and verdict is
+    appended to ``reward_<pid>.log`` as it is answered; after the run
+    ``reward_<pid>.json`` holds the process's peak RSS (resident pages,
+    sampled every 0.5 s), whether it imported torch or initialised CUDA,
+    the cards it was shown and its incarnation."""
+    from areal_tpu_torch.system.worker_base import env_incarnation
+
+    grade = worker.service.grade
+    path = os.path.join(log_dir, f"reward_{os.getpid()}")
+
+    def logged(task):
+        out = grade(task)
+        with open(path + ".log", "a") as f:
+            f.write(f"{task.get('task', 'math')} {out['verdict']}\n")
+        return out
+
+    worker.service.grade = logged
+    # Peak RSS, sampled: /proc/self/status does not carry VmHWM on every
+    # kernel, and getrusage counts the forked image a spawned child
+    # starts from.
+    peak, stop = [0], threading.Event()
+
+    def sample():
+        page = os.sysconf("SC_PAGE_SIZE")
+        while True:
+            with open("/proc/self/statm") as f:
+                peak[0] = max(peak[0], int(f.read().split()[1]) * page)
+            if stop.wait(0.5):
+                return
+
+    threading.Thread(target=sample, daemon=True).start()
+
+    def done():
+        stop.set()
+        with open(path + ".json", "w") as f:
+            json.dump({"pid": os.getpid(), "peak_rss_mb": peak[0] / 2 ** 20,
+                       "incarnation": env_incarnation(),
+                       "graded": worker.service._graded,
+                       "torch_imported": "torch" in sys.modules,
+                       "cuda_initialized": "torch" in sys.modules
+                       and sys.modules["torch"].cuda.is_initialized(),
+                       "cuda_visible_devices":
+                       os.environ.get("CUDA_VISIBLE_DEVICES")}, f)
+    return done
+
+
+class LoopRun:
+    """A launch on a thread of its own, with the launcher's probes' pipes
+    read while it runs (a record larger than a pipe's buffer blocks its
+    sender until it is read): ``records[kind]`` gathers every record a
+    kind's processes send (a respawned or relaunched child sends again)."""
+
+    def __init__(self, fn, pipes, what: str):
+        self.box, self.records = {}, {k: [] for k in pipes}
+        self.pipes, self.what = pipes, what
+
+        def target():
+            try:
+                self.box["result"] = fn()
+            except BaseException as e:  # noqa: BLE001 — re-raised in join
+                self.box["error"] = e
+
+        def read(kind, recv):
+            while True:
+                try:
+                    self.records[kind].append(recv.recv())
+                except (EOFError, OSError):
+                    return
+
+        self.readers = [threading.Thread(target=read, args=(k, recv),
+                                         daemon=True)
+                        for k, (recv, _) in pipes.items()]
+        for r in self.readers:
+            r.start()
+        self.thread = threading.Thread(target=target, daemon=True,
+                                       name=what)
+        self.thread.start()
+
+    def join(self, secs: float) -> dict:
+        import multiprocessing
+
+        try:
+            self.thread.join(secs)
+            check(not self.thread.is_alive(),
+                  f"{self.what}: did not return within {secs:.0f} s")
+            for _, send in self.pipes.values():
+                send.close()  # EOF once every child's end is closed too
+            for r in self.readers:
+                r.join(60)
+        finally:
+            for recv, send in self.pipes.values():
+                recv.close()
+                send.close()
+        if "error" in self.box:
+            raise self.box["error"]
+        check(not multiprocessing.active_children(), f"{self.what}: "
+              f"children outlived the teardown: "
+              f"{multiprocessing.active_children()}")
+        return self.box["result"]
+
+    def done(self, kind: str) -> list:
+        """Every ("done", record) of ``kind``; fails on an ("error", ...)."""
+        out = []
+        for status, rec in self.records[kind]:
+            check(status == "done", f"{self.what} {kind} failed:\n{rec}")
+            out.append(rec)
+        return out
+
+
+def loop_checkpoint(cfg, path: str, device: str) -> str:
+    """One HF checkpoint for every role of the async loops: the critic's
+    seed-0 parameters (the actor's trunk and a seeded value head, as in
+    (n)), written once to ``path``."""
+    from areal_tpu_torch.models import hf
+    from areal_tpu_torch.models.transformer import init_params
+
+    check(cfg.tie_word_embeddings, "async loop: one checkpoint serves actor "
+          "and critic only with tied embeddings")
+    critic_cfg = dataclasses.replace(cfg, is_critic=True)
+    hf.save_hf_checkpoint(init_params(critic_cfg, seed=0, device=device,
+                                      dtype=torch.bfloat16), critic_cfg, path)
+    return path
+
+
+def async_loop_config(cfg, tmp: str, trial: str, device: str, steps: int,
+                      n_prompts: int, group_size: int, chunk_tokens: int,
+                      max_new_tokens: int, extra=(), mixed: bool = False,
+                      hf_dir=None):
+    """The README's async recipe at (o)'s cuts, as an AsyncPPOMATHConfig
+    under ``tmp``: every role from ``hf_dir`` (written under ``tmp`` by
+    :func:`loop_checkpoint` when None), seeded math records (``mixed``:
+    half math, half python code), then ``extra`` overrides."""
+    from areal_tpu_torch.api import cli_args as CA
+    from areal_tpu_torch.experiments.async_ppo_math_exp import (
+        AsyncPPOMATHConfig,
+    )
+    if hf_dir is None:
+        hf_dir = loop_checkpoint(cfg, os.path.join(tmp, "init_hf"), device)
+    data_path = os.path.join(tmp, "prompts.jsonl")
+    if mixed:
+        write_mixed_prompts(data_path, 128, seed=1)
+    else:
+        write_math_prompts(data_path, 128, seed=1)
+    exp = AsyncPPOMATHConfig(
+        experiment_name="chip_smoke", trial_name=trial,
+        backend="cuda" if torch.device(device).type == "cuda" else "cpu")
+    CA.apply_overrides(exp, [
+        f"cluster.fileroot={tmp}", f"dataset.path={data_path}",
+        f"actor.path={hf_dir}", f"ref.path={hf_dir}", "mock_tokenizer=true",
+        # the README's async recipe; the rest at its defaults
+        f"group_size={group_size}", "max_head_offpolicyness=4",
+        "ppo.use_decoupled_loss=true",
+        # the cuts
+        f"dataset.train_bs_n_seqs={n_prompts}",
+        f"new_tokens_per_chunk={chunk_tokens}",
+        f"exp_ctrl.benchmark_steps={steps}",
+        f"ppo.gen.max_new_tokens={max_new_tokens}", *extra])
+    return exp
+
+
+def write_mixed_prompts(path: str, n: int, seed: int) -> None:
+    """``n`` seeded records, half math (as :func:`write_math_prompts`) and
+    half python code: a program that reads an integer and prints a seeded
+    function of it, with 2-4 stdin/stdout cases."""
+    import random
+
+    write_math_prompts(path, n - n // 2, seed)
+    rng = random.Random(seed + 1)
+    with open(path, "a") as f:
+        for i in range(n // 2):
+            k, m = rng.randint(1, 9), rng.randint(2, 5)
+            xs = [rng.randint(0, 99) for _ in range(rng.randint(2, 4))]
+            f.write(json.dumps({
+                "query_id": f"c{i}", "task": "code", "solutions": [],
+                "prompt": (f"Write a python program that reads an integer x "
+                           f"from stdin and prints {m}*x+{k}. Put the "
+                           "program in a ```python block. "),
+                "input_output": json.dumps({
+                    "inputs": [f"{x}\n" for x in xs],
+                    "outputs": [f"{m * x + k}\n" for x in xs]})}) + "\n")
 
 
 def run_async_loop(cfg, tmp: str, device: str = "cuda", steps: int = 4,
                    n_prompts: int = 4, group_size: int = 16,
                    chunk_tokens: int = 128, max_new_tokens: int = 256,
                    timeout: float = 600.0, extra=(),
-                   observe: bool = False, interactive: bool = False) -> dict:
+                   observe: bool = False, interactive: bool = False,
+                   hf_dir=None) -> dict:
     """(o): the README's async recipe through the port's ``run_experiment``
     (what ``python -m areal_tpu_torch.training.main_async_ppo`` calls), with
     the launcher's probes recording each process's counters. The checks of
@@ -2433,30 +2763,11 @@ def run_async_loop(cfg, tmp: str, device: str = "cuda", steps: int = 4,
 
     import numpy as np
 
-    from areal_tpu_torch.api import cli_args as CA
     from areal_tpu_torch.apps.launcher import run_experiment
     from areal_tpu_torch.base import name_resolve
-    from areal_tpu_torch.experiments.async_ppo_math_exp import (
-        AsyncPPOMATHConfig,
-    )
-    from areal_tpu_torch.models import hf
-    from areal_tpu_torch.models.transformer import init_params
 
     cuda = torch.device(device).type == "cuda"
     t_setup = time.monotonic()
-    # One HF checkpoint for every role, as in (n): the critic's seed-0
-    # parameters (the actor's trunk and a seeded value head).
-    check(cfg.tie_word_embeddings, "async loop: one checkpoint serves actor "
-          "and critic only with tied embeddings")
-    hf_dir = os.path.join(tmp, "init_hf")
-    critic_cfg = dataclasses.replace(cfg, is_critic=True)
-    hf.save_hf_checkpoint(init_params(critic_cfg, seed=0, device=device,
-                                      dtype=torch.bfloat16), critic_cfg, hf_dir)
-    data_path = os.path.join(tmp, "math.jsonl")
-    write_math_prompts(data_path, 128, seed=1)
-    trial = "p" if observe else "o"
-    exp = AsyncPPOMATHConfig(experiment_name="chip_smoke", trial_name=trial,
-                             backend="cuda" if cuda else "cpu")
     obs = {}
     if observe:
         from areal_tpu_torch.base.network import find_free_port
@@ -2465,17 +2776,9 @@ def run_async_loop(cfg, tmp: str, device: str = "cuda", steps: int = 4,
                "flight_dir": os.path.join(tmp, "flight")}
         extra = (*extra, *observability_overrides(find_free_port(),
                                                   obs["flight_dir"]))
-    CA.apply_overrides(exp, [
-        f"cluster.fileroot={tmp}", f"dataset.path={data_path}",
-        f"actor.path={hf_dir}", f"ref.path={hf_dir}", "mock_tokenizer=true",
-        # the README's async recipe; the rest at its defaults
-        f"group_size={group_size}", "max_head_offpolicyness=4",
-        "ppo.use_decoupled_loss=true",
-        # the cuts
-        f"dataset.train_bs_n_seqs={n_prompts}",
-        f"new_tokens_per_chunk={chunk_tokens}",
-        f"exp_ctrl.benchmark_steps={steps}",
-        f"ppo.gen.max_new_tokens={max_new_tokens}", *extra])
+    exp = async_loop_config(cfg, tmp, "p" if observe else "o", device, steps,
+                            n_prompts, group_size, chunk_tokens,
+                            max_new_tokens, extra, hf_dir=hf_dir)
     ctx = multiprocessing.get_context("spawn")
     pipes = {k: ctx.Pipe(duplex=False) for k in ("trainer", "gen_fleet",
                                                   "rollout")}
@@ -2486,62 +2789,29 @@ def run_async_loop(cfg, tmp: str, device: str = "cuda", steps: int = 4,
               "rollout": functools.partial(async_rollout_probe,
                                            pipes["rollout"][1])}
     old_repo = name_resolve.DEFAULT_REPO
-    box: dict = {}
-    got: dict = {}
-
-    def run():
-        try:
-            box["result"] = run_experiment(exp, probes=probes)
-        except BaseException as e:  # noqa: BLE001 — re-raised below
-            box["error"] = e
-
-    def read(kind, recv):
-        # Read while the loop runs: a record larger than the pipe's buffer
-        # blocks its sender until it is read.
-        try:
-            got[kind] = recv.recv()
-        except (EOFError, OSError) as e:
-            got[kind] = ("error", f"the pipe closed before a record ({e!r})")
-
-    readers = [threading.Thread(target=read, args=(k, recv), daemon=True)
-               for k, (recv, _) in pipes.items()]
-    for r in readers:
-        r.start()
     restore = (observe_master(exp, obs) if observe
                else watch_disabled(exp, obs))
     t0 = time.monotonic()
     probed, stop_probe = [], threading.Event()
     try:
-        thread = threading.Thread(target=run, daemon=True, name="async-loop")
-        thread.start()
+        run = LoopRun(lambda: run_experiment(exp, probes=probes), pipes,
+                      "async loop")
         if interactive:
             threading.Thread(target=interactive_probe, daemon=True,
                              args=(exp, probed, stop_probe)).start()
         # the steps' bound, the loads before them and the bounded teardown
-        thread.join(timeout + 300)
+        result = run.join(timeout + 300)
         loop_s = time.monotonic() - t0
-        check(not thread.is_alive(), "async loop: run_experiment did not "
-              f"return within {timeout + 300:.0f} s")
-        if "error" in box:
-            raise box["error"]
-        result = box["result"]
-        for (_, send), reader in zip(pipes.values(), readers):
-            send.close()  # a child that died sent nothing: EOF
-            reader.join(60)
+        got = {}
         for kind in pipes:
-            check(kind in got, f"async loop: no record from the {kind}")
-            status, got[kind] = got[kind]
-            check(status == "done", f"async loop {kind} failed:\n"
-                  f"{got[kind]}")
-        check(not multiprocessing.active_children(), "async loop: children "
-              f"outlived the teardown: {multiprocessing.active_children()}")
+            recs = run.done(kind)
+            check(len(recs) == 1, f"async loop: {len(recs)} records from "
+                  f"the {kind}")
+            got[kind] = recs[0]
     finally:
         stop_probe.set()
         restore()
         name_resolve.DEFAULT_REPO = old_repo
-        for recv, send in pipes.values():
-            recv.close()
-            send.close()
     tr, fleet, roll = got["trainer"], got["gen_fleet"], got["rollout"]
     if not observe:
         check(not obs["violations"], "async loop with every observability "
@@ -2657,6 +2927,7 @@ def run_async_loop(cfg, tmp: str, device: str = "cuda", steps: int = 4,
         "share_version_end_after_start": spans / max(len(lags), 1),
         "denials": roll["denials"], "pushed": roll["pushed"],
         "abandoned": roll["abandoned"], "failovers": roll["failovers"],
+        "grade_ms_mean": float(np.mean(roll["grade_ms"])),
         "server_batch_rows": dict(sorted(collections.Counter(
             b["rows"] for b in bt).items())),
         "server_prefills": len(fleet["prefill_k1"]),
@@ -3046,7 +3317,6 @@ def row_of(calls, kind: str, seq):
 SEED_TOL = 1e-4
 
 
-@torch.inference_mode()
 def seed_readings(model, donor: dict, other: dict, n_shared: int, prompt,
                   tokens, lens, S: int) -> dict:
     """The last logits of ``prompt`` (the donor's first ``n_shared`` tokens
@@ -3059,21 +3329,22 @@ def seed_readings(model, donor: dict, other: dict, n_shared: int, prompt,
     ``n_shared`` tokens (a wrong donor); ``plain``: a full prefill."""
     from areal_tpu_torch.models import generate as genmod
 
-    dev = donor["kv_k"].device
-    tokens, lens = tokens.to(dev), lens.to(dev)
+    with torch.inference_mode():
+        dev = donor["kv_k"].device
+        tokens, lens = tokens.to(dev), lens.to(dev)
 
-    def extend(st, n):
-        st = genmod.grow_state(genmod.clone_prefix(st, n), S)
-        return genmod.extend_state(model, st, tokens, lens)[
-            "last_logits"][0].cpu()
-    full = torch.tensor([prompt], device=dev)
-    plain = genmod.prefill_state(model, full, torch.tensor(
-        [len(prompt)], device=dev), max(S, len(prompt)),
-        attn_impl="reference")
-    return {"seed": extend(donor, n_shared),
-            "short": extend(donor, n_shared - 1),
-            "other": extend(other, n_shared),
-            "plain": plain["last_logits"][0].cpu()}
+        def extend(st, n):
+            st = genmod.grow_state(genmod.clone_prefix(st, n), S)
+            return genmod.extend_state(model, st, tokens, lens)[
+                "last_logits"][0].cpu()
+        full = torch.tensor([prompt], device=dev)
+        plain = genmod.prefill_state(model, full, torch.tensor(
+            [len(prompt)], device=dev), max(S, len(prompt)),
+            attn_impl="reference")
+        return {"seed": extend(donor, n_shared),
+                "short": extend(donor, n_shared - 1),
+                "other": extend(other, n_shared),
+                "plain": plain["last_logits"][0].cpu()}
 
 
 def serving_server(cfg, params, eos, server_id: str, device="cuda",
@@ -3477,6 +3748,513 @@ def interactive_probe(exp, results: list, stop) -> None:
         time.sleep(1.0)
 
 
+# ---------------- (r) the reward fleet and respawns ----------------
+
+# (r): the worker killed after each step
+REWARD_KILLS = ((1, "reward0"), (2, "rollout0"), (3, "gen_fleet"))
+
+
+def nr_json(name_resolve, key):
+    try:
+        return json.loads(name_resolve.get(key))
+    except (name_resolve.NameEntryNotFoundError, ValueError):
+        return None
+
+
+def nr_value(name_resolve, key):
+    try:
+        return name_resolve.get(key)
+    except name_resolve.NameEntryNotFoundError:
+        return None
+
+
+def wait_master_step(exp, n: int, deadline: float, run: LoopRun) -> int:
+    """Poll the master's control status until its step reaches ``n``. It
+    answers between steps only, one message a step, so a request waits up
+    to a minute for its answer: one abandoned every few seconds would pile
+    up unanswered ahead of the next."""
+    from areal_tpu_torch.system.worker_base import WorkerControlPanel
+
+    panel = WorkerControlPanel(exp.experiment_name, exp.trial_name,
+                               timeout=60.0)
+    try:
+        while time.monotonic() < deadline:
+            check(run.thread.is_alive(), f"supervised loop ended before "
+                  f"step {n}: {run.box.get('error')!r}")
+            try:
+                st = panel.status("master")
+                if st.get("step", 0) >= n:
+                    return st["step"]
+            except TimeoutError:
+                pass
+            time.sleep(0.2)
+    finally:
+        panel.close()
+    raise SmokeFailure(f"the master never reached step {n}")
+
+
+def kill_and_respawn(sup, exp, name: str, deadline: float,
+                     run: LoopRun) -> dict:
+    """SIGKILL ``name``'s process and wait for its next incarnation's
+    registration in name_resolve: a reward worker's heartbeat and URL, a
+    rollout worker's heartbeat, the fleet's server and manager (the
+    manager registers last). Seconds from the kill."""
+    import signal
+
+    from areal_tpu_torch.base import name_resolve, names
+
+    e, E, T = sup.entry(name), exp.experiment_name, exp.trial_name
+    hb = {"reward0": "reward0", "rollout0": "rollout0",
+          "gen_fleet": "gserver_manager"}[name]
+    keys = [names.worker_heartbeat(E, T, hb)]
+    if name == "reward0":
+        keys.append(names.reward_worker(E, T, "rw0"))
+    if name == "gen_fleet":
+        keys += [names.gen_servers(E, T, "gen0"),
+                 names.gen_server_manager(E, T)]
+    inc, pid = e.incarnation, e.proc.pid
+    t_kill = time.time()
+    os.kill(pid, signal.SIGKILL)
+    while time.monotonic() < deadline:
+        check(run.thread.is_alive(), f"supervised loop ended before {name} "
+              f"registered again: {run.box.get('error')!r}")
+        beat = nr_json(name_resolve, keys[0])
+        if (e.incarnation == inc + 1 and beat is not None
+                and beat.get("incarnation") == inc + 1
+                and all(nr_value(name_resolve, k) for k in keys[1:])):
+            break
+        time.sleep(0.05)
+    else:
+        raise SmokeFailure(f"{name}: no new incarnation registered")
+    t_reg = time.time()
+    return {"name": name, "kind": e.spec.kind, "killed_pid": pid,
+            "new_pid": e.proc.pid, "t_kill": t_kill,
+            "respawned_s": sup.respawn_times[name][-1] - t_kill,
+            "registered_s": t_reg - t_kill}
+
+
+def opens_card(pid: int) -> bool:
+    """Whether the process holds a descriptor of a /dev/nvidia* node (a
+    CUDA context does)."""
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            if os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia"):
+                return True
+        except OSError:
+            pass
+    return False
+
+
+def torch_import_rss_mb() -> float:
+    """The resident set of a fresh interpreter that imports torch and sees
+    no card, as a reward worker would pay if it imported torch."""
+    code = ("import os, torch; print(int(open('/proc/self/statm').read()"
+            ".split()[1]) * os.sysconf('SC_PAGE_SIZE'))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, check=True,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    return int(out.stdout.split()[-1]) / 2 ** 20
+
+
+def card_contexts(sup) -> dict:
+    """(r): whether the reward workers hold a descriptor of a /dev/nvidia*
+    node, with the trainer and the fleet as the control (they must). This
+    stands in for ``nvidia-smi --query-compute-apps=pid``, which lists no
+    pid of a process in the card machine's sandbox, the trainer's neither."""
+    pids = {n: sup.entry(n).proc.pid
+            for n in ("reward0", "reward1", "trainer", "gen_fleet")}
+    out = {n: {"pid": p, "opens_card": opens_card(p)}
+           for n, p in pids.items()}
+    for n in ("trainer", "gen_fleet"):
+        check(out[n]["opens_card"], f"(r) control: {n} holds no "
+              f"/dev/nvidia descriptor: {out}")
+    for n in ("reward0", "reward1"):
+        check(not out[n]["opens_card"],
+              f"(r): reward worker {n} holds a CUDA context: {out}")
+    return out
+
+
+def count_lines(paths) -> "collections.Counter":
+    import collections
+
+    c = collections.Counter()
+    for path in paths:
+        with open(path) as f:
+            c.update(ln.strip() for ln in f if ln.strip())
+    return c
+
+
+def check_loop_stats(stats, what: str) -> None:
+    for i, st in enumerate(stats):
+        for k in ("actor_train/actor_loss", "critic_train/critic_loss",
+                  "actor_train/grad_norm", "critic_train/grad_norm"):
+            check(k in st and math.isfinite(st[k]),
+                  f"{what} step {i}: {k} = {st.get(k)}")
+
+
+def run_reward_fleet(cfg, tmp: str, device: str = "cuda", steps: int = 5,
+                     n_prompts: int = 4, group_size: int = 16,
+                     chunk_tokens: int = 128, max_new_tokens: int = 256,
+                     timeout: float = 600.0, extra=(), hf_dir=None) -> dict:
+    """(r): (o)'s loop with the reward fleet on (two reward workers) on a
+    seeded half-math half-code dataset, through the launcher's
+    supervisor, killing a reward worker, the rollout worker and the
+    generation fleet after steps 1, 2 and 3. The checks of the module
+    docstring; the launch checks only on the card."""
+    import functools
+    import glob
+    import multiprocessing
+
+    import numpy as np
+
+    from areal_tpu_torch.api.cli_args import validate_config
+    from areal_tpu_torch.apps.launcher import LocalLauncher
+    from areal_tpu_torch.base import name_resolve
+    from areal_tpu_torch.experiments import common as C
+    from areal_tpu_torch.system.http import request_json
+    from areal_tpu_torch.system.reward_worker import resolve_fleet
+    from areal_tpu_torch.tools import perf_probe
+
+    cuda = torch.device(device).type == "cuda"
+    t_setup = time.monotonic()
+    exp = async_loop_config(cfg, tmp, "r", device, steps, n_prompts,
+                            group_size, chunk_tokens, max_new_tokens,
+                            ("reward_service.enabled=true",
+                             "reward_service.n_workers=2", *extra),
+                            mixed=True, hf_dir=hf_dir)
+    validate_config(exp)
+    log_dir = os.path.join(tmp, "probe")
+    os.makedirs(log_dir)
+    ctx = multiprocessing.get_context("spawn")
+    pipes = {k: ctx.Pipe(duplex=False)
+             for k in ("trainer", "gen_fleet", "rollout")}
+    probes = {
+        "trainer": functools.partial(async_trainer_probe,
+                                     pipes["trainer"][1]),
+        "gen_fleet": functools.partial(async_fleet_probe,
+                                       pipes["gen_fleet"][1],
+                                       first_digest=True),
+        "rollout": functools.partial(async_rollout_probe,
+                                     pipes["rollout"][1], log_dir=log_dir),
+        "reward": functools.partial(reward_probe, log_dir)}
+    old_repo = name_resolve.DEFAULT_REPO
+    C.setup_name_resolve(exp)
+    launcher = LocalLauncher(exp, probes=probes)
+    t0 = time.monotonic()
+    deadline = t0 + timeout + 300
+    run = LoopRun(launcher.run, pipes, "(r)")
+    try:
+        kills = []
+        for after, name in REWARD_KILLS:
+            step = wait_master_step(exp, after, deadline, run)
+            kills.append({**kill_and_respawn(launcher.supervisor, exp, name,
+                                             deadline, run),
+                          "killed_after_step": step})
+        # while the loop runs: CUDA contexts, the fleet's counters, and a
+        # reward-bench burst at the live fleet
+        contexts = card_contexts(launcher.supervisor) if cuda else None
+        fleet_json = {u: request_json(f"{u}/metrics.json")[1]
+                      for u in resolve_fleet(exp.experiment_name, "r")}
+        bench = perf_probe.reward_bench(exp.experiment_name, "r", 32)
+        result = run.join(max(deadline - time.monotonic(), 1))
+    finally:
+        if run.thread.is_alive():
+            launcher.request_drain()
+            run.thread.join(120)
+        name_resolve.DEFAULT_REPO = old_repo
+    loop_s = time.monotonic() - t0
+    (tr,), (fleet,), (roll,) = (run.done(k) for k in
+                                ("trainer", "gen_fleet", "rollout"))
+    rewards = []
+    for path in sorted(glob.glob(os.path.join(log_dir, "reward_*.json"))):
+        with open(path) as f:
+            rewards.append(json.load(f))
+    verdicts = count_lines(glob.glob(os.path.join(log_dir, "reward_*.log")))
+    client = count_lines(glob.glob(os.path.join(log_dir, "client_*.log")))
+
+    check(result["steps"] == steps, f"(r): {result['steps']} steps")
+    stats = result["stats"]
+    check_loop_stats(stats, "(r)")
+    check(launcher.supervisor.restart_counts == {
+        "reward": 1, "rollout": 1, "gen_fleet": 1},
+        f"(r): restarts {launcher.supervisor.restart_counts}")
+    fleet_graded = sum(verdicts.values())
+    trained = steps * n_prompts * group_size
+    check(client["local_fallback"] == 0 and not roll["local_verdicts"],
+          f"(r): local grading in the rollout process: {dict(client)}, "
+          f"{roll['local_verdicts']}")
+    check(client["remote"] >= trained, f"(r): {client['remote']} remote "
+          f"grades for {trained} trained trajectories")
+    # Every answered task is a fleet grade, and every fleet grade answers
+    # a task a client sent: a grade whose worker or client was killed
+    # before the answer landed is the difference.
+    # (reward-bench's tasks are graded by the same fleet)
+    bench_sent = bench["client"].get("remote", 0) + bench["client"].get(
+        "retries", 0)
+    check(client["remote"] + bench["client"].get("remote", 0)
+          <= fleet_graded <= client["attempt"] + bench_sent,
+          f"(r): the fleet graded {fleet_graded}; the rollout clients sent "
+          f"{client['attempt']} tasks and got {client['remote']} answers, "
+          f"reward-bench {bench['client']}")
+    check(len(rewards) == 2 and all(
+        not r["cuda_initialized"] and r["cuda_visible_devices"] == ""
+        for r in rewards), f"(r): reward workers {rewards}")
+    if cuda:  # this script is the main module of the spawned workers
+        check(not any(r["torch_imported"] for r in rewards),
+              f"(r): a reward worker imported torch: {rewards}")
+    first = fleet["first_versioned_batch"]
+    check(first and first["version"] in tr["digests"]
+          and first["digests"] == tr["digests"][first["version"]],
+          "(r): the respawned server's first batch at "
+          f"v{first.get('version')} ran on weights other than the actor "
+          "the trainer published as that version")
+    check(fleet["running_rollouts"] == 0, "(r): running_rollouts "
+          f"{fleet['running_rollouts']} after the master stopped")
+    check(not roll["cuda_initialized"], "(r): the rollout worker "
+          "initialised CUDA")
+    recs = tr["records"]
+    if cuda:
+        check(fleet["prefill_k1"] and fleet["k1"]
+              == cfg.n_layers * len(fleet["prefill_k1"]),
+              f"(r): K1 launched {fleet['k1']} times in the respawned "
+              f"fleet over {len(fleet['prefill_k1'])} prefills")
+        for r in recs:
+            check_launches(f"(r) {r['mfc']}", r["launches"],
+                           r["micro_batches"], cfg.n_layers,
+                           train=r["mfc"].endswith("_train"))
+    launches = {k: sum(r["launches"][k] for r in recs) for k in KERNEL_NAMES}
+    launches["flash_attention_fwd"] += fleet["k1"]
+    times = fleet["times"]
+    respawn = next(k for k in kills if k["name"] == "gen_fleet")
+    t_spawn = respawn["t_kill"] + respawn["respawned_s"]
+    return {
+        "steps": result["steps"],
+        "ms_per_step": 1e3 * float(np.mean([st["timeperf/e2e"]
+                                            for st in stats[1:]])),
+        "step_ms": [1e3 * st["timeperf/e2e"] for st in stats],
+        "kills": [{**{k: v for k, v in kill.items() if k != "t_kill"},
+                   "next_step_ms": 1e3 * stats[kill["killed_after_step"]][
+                       "timeperf/e2e"]
+                   if kill["killed_after_step"] < len(stats) else None}
+                  for kill in kills],
+        "fleet_respawn_split_s": {
+            "kill_to_spawn": respawn["respawned_s"],
+            "spawn_to_process_start": times["proc_start"] - t_spawn,
+            "model_build_and_start": times["ready"] - times["proc_start"],
+            "to_first_weight_update": (times["first_update"] - times["ready"]
+                                       if times["first_update"] else None),
+            "kill_to_registered": respawn["registered_s"]},
+        "first_versioned_batch": {"version": first["version"],
+                                  "s_after_ready": first["t"]
+                                  - times["ready"]},
+        "client": dict(client), "fleet_verdicts": dict(verdicts),
+        "fleet_graded": fleet_graded, "fleet_metrics_json": fleet_json,
+        "grade_ms_mean": float(np.mean(roll["grade_ms"])),
+        "grade_calls": len(roll["grade_ms"]),
+        "reward_workers": rewards, "card_contexts": contexts,
+        "torch_import_rss_mb": torch_import_rss_mb(),
+        "reward_bench": bench,
+        "trainer_peak_gb": tr["peak_gb"], "server_peak_gb": fleet["peak_gb"],
+        "launches_total": launches, "loop_s": loop_s,
+        "setup_s": t0 - t_setup,
+    }
+
+
+# ---------------- (s) relaunch and drain ----------------
+
+
+def gpu_memory_used_mb() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout
+    return float(out.split()[0])
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def run_relaunch_drain(cfg, tmp: str, device: str = "cuda", steps: int = 4,
+                       n_prompts: int = 4, group_size: int = 16,
+                       chunk_tokens: int = 128, max_new_tokens: int = 256,
+                       timeout: float = 600.0, kill_after: int = 2,
+                       extra=(), hf_dir=None) -> dict:
+    """(s): (o)'s loop with ``recover_mode=auto`` and a recover checkpoint
+    every step through ``run_experiment``: the trainer SIGKILLed once step
+    ``kill_after``'s checkpoint and publish are in; the relaunch resumes;
+    after its first step, ``request_drain()`` (the SIGTERM handler's
+    path). The checks of the module docstring."""
+    import functools
+    import glob
+    import multiprocessing
+    import signal
+
+    import numpy as np
+
+    from areal_tpu_torch.apps import launcher as L
+    from areal_tpu_torch.base import name_resolve, recover
+    from areal_tpu_torch.experiments import common as C
+    from areal_tpu_torch.system import master_worker as MW
+
+    cuda = torch.device(device).type == "cuda"
+    t_setup = time.monotonic()
+    exp = async_loop_config(cfg, tmp, "s", device, steps, n_prompts,
+                            group_size, chunk_tokens, max_new_tokens,
+                            ("recover_mode=auto", "exp_ctrl.ckpt_freq_steps=1",
+                             *extra), hf_dir=hf_dir)
+    digest_dir = os.path.join(tmp, "digests")
+    os.makedirs(digest_dir)
+    recover_dir = C.experiment_paths(exp)["recover"]
+    ctx = multiprocessing.get_context("spawn")
+    pipes = {k: ctx.Pipe(duplex=False)
+             for k in ("trainer", "gen_fleet", "rollout")}
+    probes = {
+        "trainer": functools.partial(async_trainer_probe,
+                                     pipes["trainer"][1],
+                                     digest_dir=digest_dir),
+        "gen_fleet": functools.partial(async_fleet_probe,
+                                       pipes["gen_fleet"][1]),
+        "rollout": functools.partial(async_rollout_probe,
+                                     pipes["rollout"][1])}
+    launches, ckpts = [], []
+    base, do_ckpt = L.LocalLauncher, MW.MasterWorker._do_ckpt
+
+    class Recorded(base):
+        """Each launch, when it started and failed, and (for a relaunch)
+        the earlier launch's live children and the card's memory in use
+        as it starts, before its trainer allocates."""
+
+        def run(self):
+            rec = {"launcher": self, "t_start": time.time()}
+            if launches:
+                rec["alive_before"] = [p.name for p in launches[-1][
+                    "launcher"].procs if p.is_alive()]
+                if cuda:
+                    free, total = torch.cuda.mem_get_info()
+                    rec["card_used_mb_smi"] = gpu_memory_used_mb()
+                    rec["card_used_mb_torch"] = (total - free) / 2 ** 20
+            launches.append(rec)
+            try:
+                return super().run()
+            except BaseException as e:
+                rec["t_fail"], rec["error"] = time.time(), repr(e)
+                raise
+
+    def timed_ckpt(master):
+        t = time.perf_counter()
+        out = do_ckpt(master)
+        ckpts.append({"step": master.step, "dir": out, "t": time.time(),
+                      "write_s": time.perf_counter() - t})
+        return out
+
+    old_repo = name_resolve.DEFAULT_REPO
+    L.LocalLauncher, MW.MasterWorker._do_ckpt = Recorded, timed_ckpt
+    t0 = time.monotonic()
+    deadline = t0 + 2 * timeout + 300
+    run = LoopRun(lambda: L.run_experiment(exp, probes=probes), pipes, "(s)")
+    try:
+        wait_master_step(exp, kill_after, deadline, run)
+        sup = launches[0]["launcher"].supervisor
+        trainer_pid = sup.entry("trainer").proc.pid
+        digest_v = os.path.join(digest_dir,
+                                f"trainer_{trainer_pid}_v{kill_after}.json")
+        while not (os.path.exists(digest_v) and any(
+                c["step"] >= kill_after for c in ckpts)):
+            check(time.monotonic() < deadline, "(s): step "
+                  f"{kill_after}'s checkpoint or publish never landed")
+            time.sleep(0.1)
+        t_kill = time.time()
+        os.kill(trainer_pid, signal.SIGKILL)
+        while len(launches) < 2:
+            check(time.monotonic() < deadline and run.thread.is_alive(),
+                  f"(s): no relaunch: {run.box.get('error')!r}")
+            time.sleep(0.1)
+        # The relaunched master answers once restored, between steps; its
+        # first step starts then, and the drain's pause lands after it.
+        wait_master_step(exp, kill_after, deadline, run)
+        t_drain = time.monotonic()
+        launches[1]["launcher"].request_drain()
+        result = run.join(max(deadline - time.monotonic(), 1))
+        drain_s = time.monotonic() - t_drain
+    finally:
+        L.LocalLauncher, MW.MasterWorker._do_ckpt = base, do_ckpt
+        if run.thread.is_alive() and len(launches) > 1:
+            launches[-1]["launcher"].request_drain()
+            run.thread.join(120)
+        name_resolve.DEFAULT_REPO = old_repo
+    loop_s = time.monotonic() - t0
+    first, second = launches
+    check(len(launches) == 2 and "stateful worker trainer died" in
+          first.get("error", ""), f"(s): launches {launches}")
+    check(not second["alive_before"], "(s): the relaunch started with the "
+          f"first launch's {second['alive_before']} alive")
+    ckpt_step = max(c["step"] for c in ckpts if c["t"] <= t_kill)
+    trs = run.done("trainer")
+    check(len(trs) == 1, f"(s): {len(trs)} trainer records")
+    tr = trs[0]
+    recs = tr["records"]
+    trained = [r for r in recs if r["mfc"] == "actor_train"]
+    check(trained and trained[0]["version"] == ckpt_step, "(s): the "
+          f"relaunched trainer's first step at actor v"
+          f"{trained[0]['version'] if trained else None}, the checkpoint "
+          f"holds v{ckpt_step}")
+    check(ckpt_step < result["steps"] < steps
+          and len(result["stats"]) == result["steps"] - ckpt_step,
+          f"(s): resumed at step {ckpt_step}, drained at {result['steps']} "
+          f"of {steps} with {len(result['stats'])} steps of stats")
+    # the relaunched run's first step ends as its checkpoint starts
+    first_ck = next(c for c in ckpts if c["t"] > t_kill)
+    t_first = first_ck["t"] - first_ck["write_s"]
+    check_loop_stats(result["stats"], "(s)")
+    by_pid = {}
+    for path in glob.glob(os.path.join(digest_dir, "trainer_*_v*.json")):
+        pid, v = os.path.basename(path)[8:-5].split("_v")
+        with open(path) as f:
+            by_pid.setdefault(int(pid), {})[int(v)] = json.load(f)
+    relaunched = [p for p in by_pid if p != trainer_pid]
+    check(len(relaunched) == 1 and min(by_pid[relaunched[0]]) == ckpt_step
+          and by_pid[relaunched[0]][ckpt_step]
+          == by_pid[trainer_pid][ckpt_step],
+          "(s): the relaunched actor's first publish is not the "
+          f"checkpoint's v{ckpt_step} bit for bit")
+    procs = {p.name: p.exitcode for p in second["launcher"].procs}
+    check(procs.get("trainer") == 0 and procs.get("rollout0") == 0,
+          f"(s): exit codes after the drain {procs}")
+    info = recover.load(recover_dir)
+    ck = recover.discover_ckpt(recover_dir)
+    check(info is not None and info.last_step_info.global_step
+          == result["steps"] and ck is not None
+          and recover.ckpt_is_complete(ck),
+          f"(s): no complete recover checkpoint at step {result['steps']}")
+    fleets = run.done("gen_fleet")
+    if cuda:
+        for r in recs:
+            check_launches(f"(s) {r['mfc']}", r["launches"],
+                           r["micro_batches"], cfg.n_layers,
+                           train=r["mfc"].endswith("_train"))
+    launches_total = {k: sum(r["launches"][k] for r in recs)
+                      for k in KERNEL_NAMES}
+    launches_total["flash_attention_fwd"] += sum(f["k1"] for f in fleets)
+    return {
+        "steps": result["steps"], "resumed_at": ckpt_step,
+        "step_ms": [1e3 * st["timeperf/e2e"] for st in result["stats"]],
+        "kill_to_escalation_s": first["t_fail"] - t_kill,
+        "escalation_to_relaunch_s": second["t_start"] - first["t_fail"],
+        "escalation_to_first_step_s": t_first - first["t_fail"],
+        "card_used_mb_at_relaunch_smi": second.get("card_used_mb_smi"),
+        "card_used_mb_at_relaunch_torch": second.get("card_used_mb_torch"),
+        "drain_s": drain_s,
+        "recover_ckpt_bytes": dir_bytes(ck),
+        "recover_ckpt_write_s": [[c["step"], c["write_s"]] for c in ckpts],
+        "exit_codes": procs,
+        "trainer_peak_gb": tr["peak_gb"],
+        "launches_total": launches_total, "loop_s": loop_s,
+        "setup_s": t0 - t_setup,
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -3635,7 +4413,7 @@ def main() -> None:
     t_loop = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_loop_")
     try:
-        loop = run_sync_loop(cfg, tmp, eos=eos)
+        loop = run_sync_loop(cfg, tmp, steps=3, eos=eos)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("sync loop", json.dumps({
@@ -3644,11 +4422,15 @@ def main() -> None:
     loop_launches = loop["launches_total"]
 
     # (o) the async-PPO loop: run_experiment spawns the trainer, the
-    # generation fleet and a rollout worker; the master runs here
+    # generation fleet and a rollout worker; the master runs here. (o)-(s)
+    # load one HF checkpoint, written once.
     t_async = time.monotonic()
+    hf_tmp = tempfile.mkdtemp(prefix="chip_smoke_hf_")
+    atexit.register(shutil.rmtree, hf_tmp, True)
+    loop_hf = loop_checkpoint(cfg, os.path.join(hf_tmp, "init_hf"), "cuda")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_async_")
     try:
-        async_loop = run_async_loop(cfg, tmp)
+        async_loop = run_async_loop(cfg, tmp, steps=4, hf_dir=loop_hf)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("async loop", json.dumps({
@@ -3660,7 +4442,8 @@ def main() -> None:
     t_obs = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_observed_")
     try:
-        observed = run_async_loop(cfg, tmp, steps=3, observe=True)
+        observed = run_async_loop(cfg, tmp, steps=3, observe=True,
+                                  hf_dir=loop_hf)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("observed async loop", json.dumps({
@@ -3687,7 +4470,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_serving_")
     try:
-        served = run_async_loop(cfg, tmp, steps=3,
+        served = run_async_loop(cfg, tmp, steps=3, hf_dir=loop_hf,
                                 extra=("serving.enabled=true",),
                                 interactive=True)
     finally:
@@ -3709,6 +4492,32 @@ def main() -> None:
     serving_k1 = (prefix["k1_launches"] + classes["k1_launches"]
                   + served_launches["flash_attention_fwd"])
 
+    # (r) the reward fleet and respawns in the async loop
+    t_r = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_reward_")
+    try:
+        fleet = run_reward_fleet(cfg, tmp, hf_dir=loop_hf)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("(r) reward fleet and respawns", json.dumps({
+        **fleet, "ms_per_step_o": async_loop["ms_per_step"],
+        "grade_ms_mean_o": async_loop["grade_ms_mean"],
+        "phase_r_s": time.monotonic() - t_r,
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+    fleet_launches = fleet["launches_total"]
+
+    # (s) relaunch and drain
+    t_s = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_relaunch_")
+    try:
+        relaunch = run_relaunch_drain(cfg, tmp, hf_dir=loop_hf)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("(s) relaunch and drain", json.dumps({
+        **relaunch, "phase_s_s": time.monotonic() - t_s,
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+    relaunch_launches = relaunch["launches_total"]
+
     lib_line = ("areal_tpu/ops/pallas/flash_attention.py:200 backward: the "
                 "Pallas TPU library's {} :{} (pallas_call :{})")
     train_launches = train["launches"]
@@ -3720,7 +4529,9 @@ def main() -> None:
         + trainer_launches["flash_attention_fwd"] + wsync["k1_launches"]
         + loop_launches["flash_attention_fwd"]
         + async_launches["flash_attention_fwd"]
-        + observed_launches["flash_attention_fwd"] + serving_k1,
+        + observed_launches["flash_attention_fwd"] + serving_k1
+        + fleet_launches["flash_attention_fwd"]
+        + relaunch_launches["flash_attention_fwd"],
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_attention_fwd"],
                              "trainer": trainer_launches["flash_attention_fwd"],
@@ -3730,7 +4541,11 @@ def main() -> None:
                              async_launches["flash_attention_fwd"],
                              "async_loop_observed":
                              observed_launches["flash_attention_fwd"],
-                             "serving": serving_k1},
+                             "serving": serving_k1,
+                             "reward_fleet":
+                             fleet_launches["flash_attention_fwd"],
+                             "relaunch_drain":
+                             relaunch_launches["flash_attention_fwd"]},
         "max_abs_err": k1_train_check["max_abs_err"],
         "ms": timing_train["kernel_ms"], "kernel_ms": timing_train["kernel_ms"],
         "plain_ms": timing_train["plain_ms"],
@@ -3751,14 +4566,17 @@ def main() -> None:
             "replaces": lib_line.format(fn, line, call),
             "launches": train_launches[name] + trainer_launches[name]
             + loop_launches[name] + async_launches[name]
-            + observed_launches[name] + served_launches[name],
+            + observed_launches[name] + served_launches[name]
+            + fleet_launches[name] + relaunch_launches[name],
             "launches_by_path": {"train": train_launches[name],
                                  "trainer": trainer_launches[name],
                                  "sync_loop": loop_launches[name],
                                  "async_loop": async_launches[name],
                                  "async_loop_observed":
                                  observed_launches[name],
-                                 "serving": served_launches[name]},
+                                 "serving": served_launches[name],
+                                 "reward_fleet": fleet_launches[name],
+                                 "relaunch_drain": relaunch_launches[name]},
             "max_abs_err": err,
             "ms": rec["kernel_ms"], "kernel_ms": rec["kernel_ms"],
             "plain_ms": bwd_timing["plain_bwd_ms"],

@@ -16,7 +16,9 @@
    (without its telemetry, sentinel, goodput, compile-watch, serving and
    reward-fleet checks), through ``run_experiment`` with a critic; the
    loop with the serving engine on and its interactive probe is
-   tests/test_torch_serving.py's;
+   tests/test_torch_serving.py's, the loop grading on the reward fleet
+   (and under the supervisor's respawns, drain and resume)
+   tests/test_torch_supervised_loop.py's;
  - the command line of both packages.
 
 Every spawned process is joined with a bound and terminated.

@@ -3,7 +3,8 @@
 ``yaml`` blocked (the machine with the card is not known to have any of
 them), and no file of the package (nor chip_smoke.py) names ``jax`` or a
 module of the reference package, nor imports one of the others. The rollout
-worker's module imports without initialising CUDA."""
+worker's module imports without initialising CUDA, and a reward worker
+grades without it and without importing torch."""
 
 import os
 import re
@@ -44,7 +45,7 @@ def test_every_module_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 84  # every module was walked
+    assert int(res.stdout.strip()) >= 86  # every module was walked
 
 
 def test_no_file_names_jax_or_the_reference_package():
@@ -99,6 +100,87 @@ def test_rollout_worker_import_leaves_cuda_alone():
     module (and the launcher's entries) does not."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", _ROLLOUT_NO_CUDA], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+_REWARD_NO_CUDA = """
+import json
+import os
+os.environ["CUDA_VISIBLE_DEVICES"] = ""
+import sys
+for blocked in ("jax", "zmq", "aiohttp", "msgpack", "yaml"):
+    sys.modules[blocked] = None
+import torch
+from areal_tpu_torch.api.train_config import RewardServiceConfig
+from areal_tpu_torch.base import name_resolve
+from areal_tpu_torch.system import reward_worker, supervisor  # noqa: F401
+from areal_tpu_torch.system.http import request_json
+name_resolve.DEFAULT_REPO = name_resolve.MemoryNameRecordRepo()
+w = reward_worker.RewardWorker(reward_worker.RewardWorkerConfig(
+    reward=RewardServiceConfig(enabled=True)))
+url = w.start()
+nl = chr(10)
+task = {"task": "code", "generated": "```python" + nl + "print(input())"
+        + nl + "```", "input_output": json.dumps(
+            {"inputs": ["1" + nl], "outputs": ["1" + nl]})}
+assert request_json(url + "/code_verify", task)[1]["score"] == 1.0
+w.stop()
+assert not torch.cuda.is_initialized()
+print("ok")
+"""
+
+
+def test_reward_worker_grades_without_cuda():
+    """A reward worker, as the launcher starts one (every card hidden),
+    imports and grades code with jax, zmq, aiohttp, msgpack and yaml
+    blocked, and never initialises CUDA."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _REWARD_NO_CUDA], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+_REWARD_NO_TORCH = """
+import json
+import os
+import pickle
+import sys
+os.environ["CUDA_VISIBLE_DEVICES"] = ""
+sys.modules["torch"] = None  # any import of torch raises
+from areal_tpu_torch.apps import launcher
+from areal_tpu_torch.experiments import common as C
+from areal_tpu_torch.experiments.async_ppo_math_exp import AsyncPPOMATHConfig
+from areal_tpu_torch.system.http import request_json
+from areal_tpu_torch.system.reward_worker import RewardWorker
+from areal_tpu_torch.training import main_async_ppo, main_sync_ppo  # noqa
+exp = AsyncPPOMATHConfig(experiment_name="e", trial_name="t")
+exp.reward_service.enabled = True
+exp.cluster.name_resolve.type = "memory"
+exp, (rw, *_) = pickle.loads(pickle.dumps((exp, exp.build_reward_workers())))
+C.setup_name_resolve(exp)
+assert launcher.reward_worker_entry is not None
+w = RewardWorker(rw)
+url = w.start()
+nl = chr(10)
+math = {"task": "math", "generated": "\\boxed{4}", "solutions": ["4"]}
+code = {"task": "code", "generated": "```python" + nl + "print(input())"
+        + nl + "```", "input_output": json.dumps(
+            {"inputs": ["1" + nl], "outputs": ["1" + nl]})}
+assert request_json(url + "/math_verify", math)[1]["score"] == 1.0
+assert request_json(url + "/code_verify", code)[1]["score"] == 1.0
+w.stop()
+print("ok")
+"""
+
+
+def test_reward_worker_path_imports_no_torch():
+    """A spawned reward worker loads the launcher's entry, the experiment
+    config it is handed (pickled), the training mains (the spawn's main
+    module) and the reward modules: none of them imports torch, so a
+    sandbox worker pays no torch in host memory. Torch is blocked."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _REWARD_NO_TORCH], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 

@@ -11,6 +11,13 @@ sync, 3 steps on the CPU):
    ``rollout/trajectories_pushed``, ``genserver/generated_tokens``,
    ``train/tokens`` and ``train/optimizer_steps``.
 
+The port's launcher supervises its children: they heartbeat under a
+keepalive lease and the supervisor exports their heartbeat ages
+(``supervisor/heartbeat_age_secs``). The reference's loop is wired by hand,
+so the test gives it the same: its children get the lease through the
+environment, and a reference ``Supervisor`` with no children of its own
+exports their heartbeat ages from the master's process.
+
 And the disabled contract: with every switch off, the port's workers start
 no telemetry thread, socket or HTTP server and advertise nothing.
 
@@ -123,6 +130,8 @@ def test_observed_loop_matches_reference(tmp_path, monkeypatch):
 
     from areal_tpu.base import name_resolve as jnr
     from areal_tpu.experiments import common as JC
+    from areal_tpu.system import supervisor as jsup
+    from areal_tpu.system import worker_base as jwb
     from areal_tpu.system.master_worker import MasterWorker
     from areal_tpu_torch.apps.launcher import run_experiment
     from areal_tpu_torch.base import name_resolve as tnr
@@ -151,6 +160,17 @@ def test_observed_loop_matches_reference(tmp_path, monkeypatch):
     ]
     box = {}
     restores = [_hooks("ref", box), _hooks("port", box)]
+    # the reference's children heartbeat under the launcher's default lease
+    monkeypatch.setenv(jwb.ENV_KEEPALIVE_TTL, "15")
+    watch = jsup.Supervisor(ref.experiment_name, ref.trial_name,
+                            keepalive_ttl=15.0)
+    stop_watch = threading.Event()
+
+    def export_heartbeats():
+        while not stop_watch.wait(0.5):
+            watch.check()
+
+    threading.Thread(target=export_heartbeats, daemon=True).start()
     try:
         for p in procs:
             p.start()
@@ -169,6 +189,7 @@ def test_observed_loop_matches_reference(tmp_path, monkeypatch):
                 raise box[pkg + "_error"]
         procs[0].join(60)
     finally:
+        stop_watch.set()
         for restore in restores:
             restore()
         _stop(procs)

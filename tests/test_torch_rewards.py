@@ -148,10 +148,33 @@ def test_math_code_dataset_items_match_the_reference(tmp_path):
 
 
 def test_batch_reward_refuses_the_remote_service(monkeypatch):
-    """With FUNCTIONCALL_SERVICE_DOMAIN set the port raises and names the
-    slice that brings remote grading; it never grades locally in silence."""
+    """With FUNCTIONCALL_SERVICE_DOMAIN set, the port grades on that host
+    (here a port reward worker) and nothing locally; the reference's client
+    on the same host answers the same. With the variable unset, grading
+    stays local. (The name is the one this test had when the port refused
+    the variable; it keeps it so that its history can be followed.)"""
+    from areal_tpu.rewards import client as jclient
+    from areal_tpu_torch.api.train_config import RewardServiceConfig
+    from areal_tpu_torch.base import name_resolve as tnr
+    from areal_tpu_torch.system.reward_worker import (
+        RewardWorker,
+        RewardWorkerConfig,
+    )
+
     task = {"task": "math", "generated": "\\boxed{4}", "solutions": ["4"]}
     assert tclient.batch_reward([task]) == [1.0]
-    monkeypatch.setenv(tclient.SERVICE_ENV, "http://localhost:1")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tclient.batch_reward([task])
+    monkeypatch.setattr(tnr, "DEFAULT_REPO", tnr.MemoryNameRecordRepo())
+    w = RewardWorker(RewardWorkerConfig(
+        reward=RewardServiceConfig(enabled=True)))
+    url = w.start()
+    try:
+        monkeypatch.setenv(tclient.SERVICE_ENV, url.split("//", 1)[1])
+        before = dict(tclient.verdict_counts)
+        assert tclient.batch_reward([task, {**task, "solutions": ["5"]}]) \
+            == [1.0, 0.0]
+        assert w.service._graded == 2
+        assert dict(tclient.verdict_counts) == before  # nothing local
+        assert jclient.batch_reward([task]) == [1.0]
+        assert w.service._graded == 3
+    finally:
+        w.stop()
