@@ -14,9 +14,8 @@ model role's ``backend`` defaults to ``torch_train``;
 ``compile_watch.storm_warmup_calls`` is left out (no jitted function to
 watch); a list field also takes a JSON list (``sentinel.rules=[{...}]``:
 the reference sets rule packs through its YAML). Left out with the
-pieces that read them: autoscale, durability, auto_eval, multi-process
-trainers, and the YAML dump and load (``yaml`` is not known on the card's
-machine).
+pieces that read them: auto_eval, multi-process trainers, and the YAML dump
+and load (``yaml`` is not known on the card's machine).
 """
 
 from __future__ import annotations
@@ -32,7 +31,9 @@ from typing import Any, Dict, List, Optional
 from areal_tpu_torch.api.data import MicroBatchSpec
 from areal_tpu_torch.api.model import GenerationHyperparameters
 from areal_tpu_torch.api.train_config import (
+    AutoscaleConfig,
     CompileWatchConfig,
+    DurabilityConfig,
     ExperimentSaveEvalControl,
     FaultToleranceConfig,
     GoodputConfig,
@@ -194,6 +195,16 @@ class BaseExperimentConfig:
     # rollout and trainer reward paths grade there.
     reward_service: RewardServiceConfig = dataclasses.field(
         default_factory=RewardServiceConfig)
+    # The elastic generation fleet, off by default: `autoscale.enabled=true`
+    # sizes the fleet from the manager's signals, spawns dynamic servers and
+    # cordons stragglers (the cordon API works either way).
+    autoscale: AutoscaleConfig = dataclasses.field(
+        default_factory=AutoscaleConfig)
+    # The durable trajectory spool, off by default: `durability.enabled=true`
+    # turns on at-least-once rollout -> trainer delivery with acks after the
+    # step commits, and crash replay with idempotent ingest.
+    durability: DurabilityConfig = dataclasses.field(
+        default_factory=DurabilityConfig)
     # Test and bring-up runs: the byte-level mock tokenizer.
     mock_tokenizer: bool = False
 
@@ -377,6 +388,8 @@ def validate_config(cfg) -> None:
     _validate_serving(cfg)
     _validate_observability(cfg)
     _validate_reward_service(cfg)
+    _validate_autoscale(cfg)
+    _validate_durability(cfg)
     nr = getattr(getattr(cfg, "cluster", None), "name_resolve", None)
     if nr is not None and getattr(nr, "type", "nfs") not in ("nfs", "memory"):
         raise ConfigError(f"cluster.name_resolve.type={nr.type!r}: use nfs "
@@ -466,8 +479,10 @@ def _validate_observability(cfg) -> None:
         from areal_tpu_torch.system.sentinel import rules_from_config
 
         try:
-            rules_from_config(sn, compile_watch_enabled=getattr(
-                cw, "enabled", False))
+            rules_from_config(
+                sn, durability_enabled=getattr(
+                    getattr(cfg, "durability", None), "enabled", False),
+                compile_watch_enabled=getattr(cw, "enabled", False))
         except ValueError as e:
             raise ConfigError(f"invalid sentinel rule pack: {e}") from None
 
@@ -505,6 +520,56 @@ def _validate_reward_service(cfg) -> None:
             f"registered for {unknown} (available: "
             f"{', '.join(sorted(GRADERS))}; new languages register in "
             "rewards/code_verify.py GRADERS)")
+
+
+def _validate_autoscale(cfg) -> None:
+    """The reference's autoscale checks (cli_args.py:581)."""
+    asc = getattr(cfg, "autoscale", None)
+    if not getattr(asc, "enabled", False):
+        return
+    if asc.min_servers < 1:
+        raise ConfigError(
+            f"autoscale.min_servers={asc.min_servers} must be >= 1 (the "
+            "fleet can never scale to zero routable servers)")
+    if asc.max_servers < asc.min_servers:
+        raise ConfigError(f"autoscale.max_servers={asc.max_servers} < "
+                          f"min_servers={asc.min_servers}")
+    if asc.interval_secs <= 0:
+        raise ConfigError(
+            f"autoscale.interval_secs={asc.interval_secs} must be > 0")
+    if not 0.0 <= asc.down_utilization < asc.up_utilization:
+        raise ConfigError(
+            "autoscale utilization thresholds must satisfy 0 <= down "
+            f"({asc.down_utilization}) < up ({asc.up_utilization}): equal "
+            "or inverted thresholds make the fleet flap every interval")
+    if asc.straggler_defense and asc.straggler_factor <= 1.0:
+        raise ConfigError(
+            f"autoscale.straggler_factor={asc.straggler_factor} must be > 1 "
+            "(a server is only a straggler when it is slower than its "
+            "peers)")
+
+
+def _validate_durability(cfg) -> None:
+    """The reference's durability checks (cli_args.py:740)."""
+    dur = getattr(cfg, "durability", None)
+    if not getattr(dur, "enabled", False):
+        return
+    if dur.spool_segment_bytes <= 0:
+        raise ConfigError(f"durability.spool_segment_bytes="
+                          f"{dur.spool_segment_bytes} must be > 0")
+    if dur.spool_max_bytes < dur.spool_segment_bytes:
+        raise ConfigError(
+            f"durability.spool_max_bytes={dur.spool_max_bytes} < "
+            f"spool_segment_bytes={dur.spool_segment_bytes}: the spool "
+            "could never roll a full segment")
+    if dur.resend_timeout_secs <= 0:
+        raise ConfigError(
+            f"durability.resend_timeout_secs={dur.resend_timeout_secs} "
+            "must be > 0 (it is the only recovery path for a lost ack)")
+    if dur.push_block_secs <= 0:
+        raise ConfigError(
+            f"durability.push_block_secs={dur.push_block_secs} must be > 0 "
+            "(a zero budget fails every send)")
 
 
 def print_config_help(cfg, _indent: int = 0) -> None:

@@ -3,9 +3,10 @@
 The port's own copies of ``OptimizerConfig``, ``WeightSyncConfig``,
 ``TelemetryConfig``, ``GoodputConfig``, ``CompileWatchConfig``,
 ``SentinelConfig``, ``ServingConfig``, ``RewardServiceConfig``,
-``FaultToleranceConfig`` and ``ExperimentSaveEvalControl`` from
-``areal_tpu/api/train_config.py``, with the same defaults. Every
-observability block, the serving engine and the reward-service fleet are
+``AutoscaleConfig``, ``FaultToleranceConfig``, ``DurabilityConfig`` and
+``ExperimentSaveEvalControl`` from ``areal_tpu/api/train_config.py``, with
+the same fields and defaults. Every observability block, the serving
+engine, the reward-service fleet, the autoscaler and the durable spool are
 off by default; supervision is on.
 """
 
@@ -263,6 +264,62 @@ class RewardServiceConfig:
 
 
 @dataclasses.dataclass
+class AutoscaleConfig:
+    """The elastic generation fleet (``system/autoscaler.py``; reference
+    train_config.py:341).
+
+    Off by default. Enabled, the gserver manager runs a slow control loop
+    that sets a target fleet size from its own signals (rollout capacity
+    utilization, per-server queue depth, the staleness gate, time-to-first-
+    chunk SLO misses, weight-fanout ack latency, heartbeat ages) with
+    hysteresis and cooldowns, publishes the plan through name_resolve, and
+    the launcher's executor spawns supervised single-server workers to meet
+    it. Scale-down and straggler defense go through the manager's cordon:
+    the server stops receiving leases, its rollouts drain (or fail over),
+    then a commanded exit reaps a dynamic server."""
+
+    enabled: bool = False
+    # Bounds on the routable server count.
+    min_servers: int = 1
+    max_servers: int = 4
+    # Cadence of the manager's control loop.
+    interval_secs: float = 5.0
+    # Rollout capacity utilization (running / max_concurrent_rollouts).
+    up_utilization: float = 0.85
+    down_utilization: float = 0.25
+    # Mean per-server decode queue depth (from /health).
+    queue_high: float = 8.0
+    queue_low: float = 1.0
+    # Time-to-first-chunk SLO (0 disables): scale up when at least
+    # slo_miss_fraction of the servers miss it.
+    slo_ttfc_secs: float = 0.0
+    slo_miss_fraction: float = 0.5
+    # Weight-fanout ack latency high-water (0 disables).
+    fanout_ack_high_secs: float = 0.0
+    # Hysteresis and cooldowns (both directions move one server a step).
+    up_consecutive: int = 2
+    down_consecutive: int = 5
+    scale_up_cooldown_secs: float = 30.0
+    scale_down_cooldown_secs: float = 120.0
+    # How long a cordoned server may drain before its exit goes ahead
+    # anyway (clients fail over by chunk replay).
+    drain_timeout_secs: float = 120.0
+    # Straggler defense on per-server decode-latency EWMAs: "slow" past
+    # factor x the peers' median for straggler_slow_sweeps sweeps
+    # (deprioritized), cordoned after straggler_cordon_sweeps; samples
+    # below floor_secs are noise.
+    straggler_defense: bool = True
+    straggler_factor: float = 3.0
+    straggler_min_probes: int = 5
+    straggler_slow_sweeps: int = 2
+    straggler_cordon_sweeps: int = 6
+    straggler_floor_secs: float = 0.002
+    # Pinned at max_servers and still saturated: capacity denials of
+    # /allocate_rollout carry this Retry-After hint.
+    backpressure_retry_secs: float = 2.0
+
+
+@dataclasses.dataclass
 class FaultToleranceConfig:
     """Launcher-level supervision and liveness (``system/supervisor.py``;
     reference train_config.py:407).
@@ -294,6 +351,40 @@ class FaultToleranceConfig:
     # Backoff between whole-experiment relaunches (recover_mode=auto|fault).
     relaunch_backoff_secs: float = 5.0
     relaunch_backoff_max_secs: float = 60.0
+
+
+@dataclasses.dataclass
+class DurabilityConfig:
+    """Durable rollout -> trainer delivery (``system/sample_spool.py``;
+    reference train_config.py:446).
+
+    Enabled, every accepted trajectory is fsynced to a per-rollout-worker
+    append-only spool before its prompt is marked consumed, pushes carry
+    ``(worker_index, seqno)``, and the trainer acks a seqno only once the
+    sample is trained (the master's "clear" after the step's recover
+    checkpoint) or durably dropped (a too-stale replay). A trainer death
+    costs replay, not samples.
+
+    Off by default: no spool, no ``_spool`` key, and the push wire bytes
+    are exactly those of the non-durable stream."""
+
+    enabled: bool = False
+    # Segment roll size; acked prefixes are deleted a whole segment at once.
+    spool_segment_bytes: int = 8 * 1024 * 1024
+    # Cap on disk (and on the in-memory mirror) per worker; appends past it
+    # block the submitting rollout (backpressure, not loss).
+    spool_max_bytes: int = 256 * 1024 * 1024
+    # A record unacked this long after its last send is re-sent, flagged
+    # as a replay.
+    resend_timeout_secs: float = 30.0
+    # A replay whose version lags the trained version by more than this is
+    # durably dropped (and acked); negative disables the gate.
+    replay_staleness_limit: int = 8
+    # On a clean worker exit, wait this long for in-flight acks.
+    drain_timeout_secs: float = 5.0
+    # The budget of one blocked push (streams.TrajectoryPusher); with
+    # durability on only the sender thread pushes.
+    push_block_secs: float = 120.0
 
 
 @dataclasses.dataclass

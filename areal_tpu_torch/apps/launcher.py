@@ -29,14 +29,21 @@ reward workers are told to exit (in-flight rollouts return their quota),
 the trainer exits on the master's word, and the rest is terminated; every
 wait is bounded.
 
-``probes`` is an instrumentation seam for measurement scripts: a map from
-a worker kind (``trainer``, ``gen_fleet``, ``rollout``, ``reward``) to a
-picklable callable that the child calls with its worker object(s) once
-they are built; a callable it returns is called after the worker's run. A
-respawned child gets its kind's probe too.
+With ``autoscale.enabled`` the monitor loop also steps the
+:class:`~areal_tpu_torch.system.autoscaler.AutoscaleExecutor`: it reads the
+manager's plan and spawns dynamic single-server workers (``gen_server``,
+not required, expendable) on the baseline fleet's device with the baseline
+server's serving settings; each joins through the manager's discovery and
+weight reconcile and serves a control endpoint, so that a drained one ends
+in a commanded exit.
 
-Left out: the autoscale executor, the evaluator, multi-process trainers
-and slurm (ROADMAP.md).
+``probes`` is an instrumentation seam for measurement scripts: a map from
+a worker kind (``trainer``, ``gen_fleet``, ``gen_server``, ``rollout``,
+``reward``) to a picklable callable that the child calls with its
+worker(s) once they are built; a callable it returns is called after the
+worker's run. A respawned child gets its kind's probe too.
+
+Left out: the evaluator, multi-process trainers and slurm (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -127,6 +134,43 @@ def gen_fleet_entry(exp_cfg, server_cfgs, manager_cfg, probe=None) -> None:
         time.sleep(3600)
 
 
+def gen_server_entry(exp_cfg, server_cfg, probe=None) -> None:
+    """One dynamic generation server, the autoscaler's unit of scale-up. It
+    starts from the actor's initial weights, registers under
+    ``names.gen_servers`` and is reconciled to the current version by the
+    manager's health gate before it serves; its control endpoint
+    (``genserver_<server_id>``) takes the commanded exit of a drained
+    scale-down or of the launcher's shutdown."""
+    from areal_tpu_torch import resolve_device
+    from areal_tpu_torch.experiments import common as C
+    from areal_tpu_torch.system.generation_server import GenerationServer
+    from areal_tpu_torch.system.worker_base import WorkerControl
+
+    C.setup_name_resolve(exp_cfg)
+    device = resolve_device(_device(exp_cfg))
+    cfg, params = _build_gen_model(exp_cfg, device)
+    eos = getattr(_resolve_tokenizer(exp_cfg), "eos_token_id", None)
+    if eos is not None:
+        server_cfg.eos_token_id = int(eos)
+    srv = GenerationServer(server_cfg, cfg, params, device=device)
+    del params
+    # before the start: the manager may route to the server as soon as it
+    # registers
+    done = probe(srv) if probe is not None else None
+    srv.start()
+    ctrl = WorkerControl(exp_cfg.experiment_name, exp_cfg.trial_name,
+                         f"genserver_{server_cfg.server_id}")
+    try:
+        while not ctrl.should_exit:
+            ctrl.step(lambda: {"server_id": server_cfg.server_id,
+                               "version": srv.version}, 200)
+    finally:
+        ctrl.close()
+        srv.stop()
+    if done is not None:
+        done()
+
+
 def reward_worker_entry(exp_cfg, rw_cfg, probe=None) -> None:
     """One sandbox reward worker (``system/reward_worker.py``). It sees no
     card (the launcher spawns it with ``CUDA_VISIBLE_DEVICES=""``):
@@ -176,6 +220,7 @@ class LocalLauncher:
         self.ft = (getattr(exp_cfg, "fault_tolerance", None)
                    or FaultToleranceConfig())
         self.supervisor = None  # built in run() once the trial is known
+        self._scaler = None  # the AutoscaleExecutor, with autoscale on
         self._drain_evt = threading.Event()
         self._drain_thread: Optional[threading.Thread] = None
         self._drain_deadline: Optional[float] = None
@@ -192,14 +237,36 @@ class LocalLauncher:
         return self.supervisor.procs() if self.supervisor else []
 
     def _spawn(self, target, *args, name: str, kind: str,
-               required: bool = True,
+               required: bool = True, expendable: bool = False,
                env: Optional[Dict[str, str]] = None) -> None:
         from areal_tpu_torch.system.supervisor import WorkerSpec
 
         self.supervisor.spawn(WorkerSpec(
             name=name, kind=kind, target=target,
             args=(*args, self.probes.get(kind)), required=required,
-            env=env or {}))
+            expendable=expendable, env=env or {}))
+
+    def _build_scaler(self, exp, setup: Dict[str, Any]):
+        """The actuator of the manager's plan: dynamic single-server
+        workers from a copy of the baseline server's config, on the same
+        device. Not required (a commanded exit after a drain is expected)
+        and expendable (a crash loop removes one; the plan replaces it)."""
+        import copy
+
+        from areal_tpu_torch.system.autoscaler import AutoscaleExecutor
+
+        template = setup["gen_servers"][0]
+
+        def spawn_dyn(server_id: str) -> None:
+            sc = copy.deepcopy(template)
+            sc.server_id = server_id
+            sc.port = None
+            self._spawn(gen_server_entry, exp, sc,
+                        name=f"genserver_{server_id}", kind="gen_server",
+                        required=False, expendable=True)
+
+        return AutoscaleExecutor(exp.experiment_name, exp.trial_name,
+                                 self.supervisor, spawn_dyn)
 
     def _check_children(self) -> None:
         """One supervision sweep: a stateless death respawns in place; a
@@ -273,6 +340,8 @@ class LocalLauncher:
                     self._spawn(rollout_entry, exp, rc, name=f"rollout{i}",
                                 kind="rollout",
                                 required=rc.max_rollouts is None)
+                if getattr(getattr(exp, "autoscale", None), "enabled", False):
+                    self._scaler = self._build_scaler(exp, setup)
             master = MasterWorker(setup["master"], setup["dfg"])
             restore_sigterm = self._install_sigterm()
             return self._run_master_monitored(master)
@@ -306,6 +375,12 @@ class LocalLauncher:
             # A dead child would leave the master waiting forever: the
             # supervisor respawns it or escalates.
             self._check_children()
+            if self._scaler is not None:
+                try:
+                    self._scaler.step()
+                except Exception as e:  # noqa: BLE001 — scaling is best
+                    # effort: a bad plan must not end the run
+                    logger.warning(f"autoscale executor step failed: {e}")
             t.join(timeout=1.0)
         if err:
             # A dead child is the likelier cause (the master's stream to a

@@ -8,7 +8,10 @@ trainer's stream dataset; ``version_start`` / ``version_end`` ride along
 for the decoupled loss. ``initial_setup`` adds the generation servers, the
 manager and the rollout workers to the sync experiment's pieces, and the
 reward workers when ``reward_service.enabled``: the rollout workers then
-grade there, never in their own process.
+grade there, never in their own process. ``autoscale`` reaches the
+manager (its scaling loop; the launcher's executor reads the same block)
+and ``durability`` the rollout workers (the spool under ``recover_dir``),
+the trainer and the master.
 """
 
 from __future__ import annotations
@@ -78,6 +81,8 @@ class AsyncPPOMATHConfig(PPOMATHConfig):
             schedule_policy=self.schedule_policy,
             realloc_dir=paths["realloc"],
             telemetry=self._telemetry(),
+            # the scaling loop; the launcher's executor reads the same block
+            autoscale=self.autoscale,
         )
         rollout_workers = [
             RolloutWorkerConfig(
@@ -96,6 +101,8 @@ class AsyncPPOMATHConfig(PPOMATHConfig):
                 goodput=self.goodput,
                 # agents grade on the reward fleet when it is on
                 reward_service=self.reward_service,
+                # the spool lands under recover_dir, beside the consumed log
+                durability=self.durability,
             )
             for i in range(self.n_rollout_workers)
         ]

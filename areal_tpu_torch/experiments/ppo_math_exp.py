@@ -249,6 +249,8 @@ class PPOMATHConfig(BaseExperimentConfig):
             # Sync mode's rw_inf grades on the reward fleet when it is on.
             reward_service=self.reward_service,
             device=self._device(),
+            # the staleness gate of spooled replays
+            durability=self.durability,
         )
 
     def build_master_config(self, async_mode: bool = False):
@@ -283,6 +285,8 @@ class PPOMATHConfig(BaseExperimentConfig):
             sentinel=self.sentinel,
             goodput=self.goodput,
             compile_watch=self.compile_watch,
+            # arms the sentinel's sample_loss rule with the spool
+            durability=self.durability,
         )
 
     def build_reward_workers(self) -> List[Any]:

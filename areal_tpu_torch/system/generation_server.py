@@ -242,8 +242,12 @@ class GenerationServer:
         self._ttfc_ewma_secs: Optional[float] = None
         self._hb = None
         # Observability: a registry of this server's own (the fleet
-        # process hosts several workers), keyed by the server id's digits.
+        # process hosts several workers), keyed by the server id's digits;
+        # a dynamic server ("dynN") from 1000 up, so that dyn1 never
+        # overwrites gen1's series at the aggregator.
         idx = int("".join(c for c in cfg.server_id if c.isdigit()) or 0)
+        if cfg.server_id.startswith("dyn"):
+            idx += 1000
         self.telemetry = (
             telemetry_mod.Telemetry(cfg.experiment, cfg.trial,
                                     "generation_server", idx,

@@ -46,8 +46,26 @@ the ``gsmgr/alloc`` and ``gsmgr/finish`` spans of traced rollouts, and
 ``/metrics_discovery`` (every metrics endpoint of the experiment, in
 Prometheus http_sd format).
 
-Left out: the autoscaler (and its ``autoscale/*`` metrics), cordon and
-drain, the straggler sweep and the ``device`` transport (ROADMAP.md).
+The elastic fleet (``system/autoscaler.py``): the **cordon** takes a
+server out of the routing without dropping its leases (its rollouts drain
+on them, or fail over), the health sweep never re-admits it, and
+``uncordon`` sends it back through the health gate (probe and weight
+reconcile); ``POST /cordon`` and ``/uncordon`` (``{url | server_id}``) are
+the operator's preemption hook and work with the autoscaler off. With
+``autoscale.enabled`` a loop every ``interval_secs`` feeds the
+:class:`~areal_tpu_torch.system.autoscaler.AutoscalerCore` the fleet's
+signals (utilization, queue depth, the staleness gate, TTFC and fanout
+latency, stale heartbeats, the sentinel's inhibit hint), cordons a victim
+to scale down (a drained dynamic server is told to exit over
+WorkerControl), reclaims a cordoned server before asking for a new one, and
+publishes the plan the launcher's executor spawns dynamic servers from;
+the straggler sweep deprioritizes, then cordons, a server whose decode
+EWMA stays past ``straggler_factor`` x its peers' median; and at
+``max_servers`` under sustained saturation, capacity denials carry a
+``retry_after`` hint. The ``autoscale/*`` gauges are on the scrape either
+way.
+
+Left out: the ``device`` transport.
 """
 
 from __future__ import annotations
@@ -63,7 +81,7 @@ import time
 from http.server import BaseHTTPRequestHandler
 from typing import Callable, Dict, List, Optional, Tuple
 
-from areal_tpu_torch.api.train_config import TelemetryConfig
+from areal_tpu_torch.api.train_config import AutoscaleConfig, TelemetryConfig
 from areal_tpu_torch.base import (
     logging,
     name_resolve,
@@ -72,6 +90,7 @@ from areal_tpu_torch.base import (
     telemetry,
 )
 from areal_tpu_torch.base.retry import FaultInjector, RetryPolicy, retry
+from areal_tpu_torch.system import autoscaler as autoscale_mod
 from areal_tpu_torch.system.http import FleetHTTPServer, request_json
 from areal_tpu_torch.system.serving import REQUEST_CLASSES, normalize_class
 from areal_tpu_torch.system.worker_base import (
@@ -111,6 +130,10 @@ class GserverManagerConfig:
             max_attempts=2, base_delay_secs=0.2, max_delay_secs=2.0))
     telemetry: TelemetryConfig = dataclasses.field(
         default_factory=TelemetryConfig)
+    # The elastic fleet, straggler defense and overload backpressure; the
+    # cordon routes work with it off.
+    autoscale: AutoscaleConfig = dataclasses.field(
+        default_factory=AutoscaleConfig)
 
 
 @dataclasses.dataclass
@@ -124,6 +147,26 @@ class _ServerHealth:
     # The last probe or push failure, kept so an eviction can say why.
     last_failure: str = ""
     reconciling: bool = False  # re-admission weight push in flight
+    # Cordoned: out of the routing but not forgotten; its leases stay valid
+    # so that rollouts drain on them, and the health sweep keeps probing
+    # without re-admitting it until an uncordon.
+    cordoned: bool = False
+    cordon_reason: str = ""
+    cordon_deadline: float = 0.0  # monotonic; 0: no drain in progress
+    exit_commanded: bool = False  # a dynamic server told to exit
+    # Uncordoned, not yet re-admitted: pending capacity, so that the plan
+    # does not ask for a replacement in the one-sweep gap.
+    uncordon_pending: bool = False
+    # from the /health bodies
+    server_id: str = ""
+    queue_depth: int = 0
+    ttfc_ewma_secs: float = 0.0
+    # a straggler: routed only when no faster server is left
+    deprioritized: bool = False
+
+
+# the read-only state of a url that raced out of ``health``
+_DEFAULT_HEALTH = _ServerHealth()
 
 
 class GserverManager:
@@ -164,6 +207,20 @@ class GserverManager:
             telemetry.Telemetry(cfg.experiment, cfg.trial, "gserver_manager",
                                 0, cfg=cfg.telemetry)
             if cfg.telemetry.enabled else telemetry.NULL)
+        # The slow scaling controller beside this router, and the straggler
+        # tracker (it needs only the health sweep).
+        ac = cfg.autoscale
+        self.autoscaler = (autoscale_mod.AutoscalerCore(ac) if ac.enabled
+                           else None)
+        self.straggler = (
+            autoscale_mod.StragglerTracker(
+                factor=ac.straggler_factor,
+                min_probes=ac.straggler_min_probes,
+                slow_sweeps=ac.straggler_slow_sweeps,
+                cordon_sweeps=ac.straggler_cordon_sweeps,
+                floor_secs=ac.straggler_floor_secs)
+            if ac.enabled and ac.straggler_defense else None)
+        self._overloaded = False  # pinned at max_servers and saturated
 
     # ---------------- discovery ----------------
 
@@ -200,8 +257,11 @@ class GserverManager:
         stays in ``health`` so probes can re-admit it."""
         with self._lock:
             st = self.health.setdefault(url, _ServerHealth())
+            # (a cordoned server keeps its leases until it drains: evicting
+            # one must still drop them)
             if (not st.routable and url not in self.servers
-                    and url not in self._inflight):
+                    and url not in self._inflight
+                    and not any(u == url for u, _ in self._leases.values())):
                 return  # already out
             st.routable = False
             st.evicted_reason = reason
@@ -227,13 +287,82 @@ class GserverManager:
             st = self.health.get(url)
             if st is None:
                 return  # deregistered while reconciling: stay forgotten
+            if st.cordoned:
+                return  # only an uncordon lets the health gate route it
             st.routable = True
             st.consecutive_failures = 0
             st.evicted_reason = ""
+            st.uncordon_pending = False
             if url not in self.servers:
                 self.servers.append(url)
                 self.servers.sort()
             self._inflight.setdefault(url, 0)
+
+    # ---------------- cordon and drain ----------------
+
+    def cordon(self, url: str, reason: str, source: str = "operator") -> bool:
+        """Take ``url`` out of the routing without dropping its leases: new
+        requests stop landing, rollouts in flight drain on their leases (or
+        fail over if it dies), and the health sweep keeps probing but never
+        re-admits it. Scale-down, straggler defense and preemption notices
+        all come here."""
+        with self._lock:
+            st = self.health.get(url)
+            if st is None or st.cordoned:
+                return False
+            st.cordoned = True
+            st.cordon_reason = reason
+            st.routable = False
+            st.deprioritized = False
+            st.exit_commanded = False
+            st.uncordon_pending = False
+            st.cordon_deadline = (time.monotonic()
+                                  + self.cfg.autoscale.drain_timeout_secs)
+            if url in self.servers:
+                self.servers.remove(url)
+            if self.straggler is not None:
+                self.straggler.forget(url)
+            inflight = self._inflight.get(url, 0)
+            n_routable = len(self.servers)
+        self.telemetry.inc("autoscale/cordons")
+        self.telemetry.inc(f"autoscale/cordons_{source}")
+        self.telemetry.event("autoscale/cordon", url=url, reason=reason,
+                             source=source, inflight=inflight)
+        logger.warning(f"cordoned {url} ({reason}, source={source}); "
+                       f"{inflight} requests in flight draining, "
+                       f"{n_routable} servers remain routable")
+        self._update_fleet_gauges()
+        return True
+
+    def uncordon(self, url: str) -> bool:
+        """Lift a cordon. The server does not route at once: it goes back
+        through the health gate (probe and weight reconcile), as a new
+        server does; its weights may be several versions old by now."""
+        with self._lock:
+            st = self.health.get(url)
+            if st is None or not st.cordoned:
+                return False
+            st.cordoned = False
+            st.cordon_reason = ""
+            st.cordon_deadline = 0.0
+            st.exit_commanded = False
+            st.consecutive_failures = 0
+            st.uncordon_pending = True
+        self.telemetry.inc("autoscale/uncordons")
+        self.telemetry.event("autoscale/uncordon", url=url)
+        logger.info(f"uncordoned {url}; re-admission through the health gate")
+        return True
+
+    def _server_draining_load(self, url: str) -> int:
+        """The work that pins a cordoned server: its live leases, or the
+        in-flight slots they hold."""
+        with self._lock:
+            leases = sum(1 for u, _ in self._leases.values() if u == url)
+            return max(leases, self._inflight.get(url, 0))
+
+    def _cordoned_count(self) -> int:
+        with self._lock:
+            return sum(1 for st in self.health.values() if st.cordoned)
 
     # ---------------- weights ----------------
 
@@ -404,8 +533,16 @@ class GserverManager:
             with self._lock:
                 st.consecutive_failures += 1
                 st.last_failure = f"health probe: {e!r}"
-                evict = (st.routable and st.consecutive_failures
-                         >= self.cfg.health_failure_threshold)
+                dead = (st.consecutive_failures
+                        >= self.cfg.health_failure_threshold)
+                evict = st.routable and dead
+                if st.cordoned and dead:
+                    # A cordoned server died mid-drain: its clients fail
+                    # over by chunk replay; retire its leases now instead of
+                    # at their expiry.
+                    self._drop_server_leases(url)
+                if dead:
+                    st.uncordon_pending = False  # dead, not pending capacity
             if evict:
                 self._evict(url, f"{st.consecutive_failures} consecutive "
                                  f"health failures ({e})")
@@ -414,6 +551,15 @@ class GserverManager:
         with self._lock:
             st.consecutive_failures = 0
             st.last_failure = ""
+            # the load and latency the autoscale signals and the straggler
+            # EWMAs read come with the probe
+            st.server_id = str(body.get("server_id", st.server_id) or "")
+            st.queue_depth = int(body.get("queue_depth", 0) or 0)
+            st.ttfc_ewma_secs = float(body.get("ttfc_ewma_secs", 0.0) or 0.0)
+            decode_ewma = body.get("decode_ewma_secs")
+            if (self.straggler is not None and st.routable
+                    and decode_ewma is not None):
+                self.straggler.observe(url, float(decode_ewma))
             server_version = int(body.get("version", 0))
             restarted = st.routable and server_version < version_at_probe
         if restarted:
@@ -422,7 +568,8 @@ class GserverManager:
             self._evict(url, f"reports v{server_version} < fleet "
                              f"v{version_at_probe} (in-place restart?)")
         with self._lock:
-            if st.routable or st.reconciling:
+            # a cordoned server never re-admits here: uncordon first
+            if st.routable or st.reconciling or st.cordoned:
                 return
             st.reconciling = True
         # Detached: a slow reconcile must not stall the sweep.
@@ -465,7 +612,47 @@ class GserverManager:
                 with self._lock:
                     self.health.pop(url, None)
         list(self._pool.map(self._check_one, list(self.health)))
+        self._straggler_sweep()
         self._update_fleet_gauges()
+
+    def _straggler_sweep(self) -> None:
+        """Score every routable server's decode EWMA against its peers: a
+        persistently slow one is deprioritized, then cordoned, before it
+        pins the oldest rollouts on the slowest decode and wedges the
+        staleness gate."""
+        if self.straggler is None:
+            return
+        with self._lock:
+            if len(self.servers) < 2:
+                return
+            verdicts = self.straggler.sweep(list(self.servers))
+        factor = self.cfg.autoscale.straggler_factor
+        for url, verdict in verdicts.items():
+            with self._lock:
+                st = self.health.get(url)
+                if st is None or st.cordoned:
+                    continue
+                ewma_ms = (self.straggler.ewma(url) or 0.0) * 1e3
+                newly_slow = verdict == "slow" and not st.deprioritized
+                recovered = verdict == "ok" and st.deprioritized
+                if newly_slow:
+                    st.deprioritized = True
+                elif recovered:
+                    st.deprioritized = False
+            if verdict == "cordon":
+                self.telemetry.inc("autoscale/straggler_cordons")
+                self.cordon(url, f"straggler: decode EWMA {ewma_ms:.1f}ms "
+                                 "vs peers", source="straggler")
+            elif newly_slow:
+                self.telemetry.inc("autoscale/straggler_deprioritized")
+                self.telemetry.event("autoscale/deprioritize", url=url,
+                                     ewma_secs=ewma_ms / 1e3)
+                logger.warning(f"{url} deprioritized: decode EWMA "
+                               f"{ewma_ms:.1f}ms is {factor:.0f}x over the "
+                               "peer median")
+            elif recovered:
+                logger.info(f"{url} back within peer latency; restored to "
+                            "full routing priority")
 
     def _update_fleet_gauges(self) -> None:
         t = self.telemetry
@@ -475,6 +662,11 @@ class GserverManager:
             last = self.sync_history[-1] if self.sync_history else None
             t.set_gauge("gsmgr/healthy_servers", len(self.servers))
             t.set_gauge("gsmgr/known_servers", len(self.health))
+            t.set_gauge("autoscale/cordoned_servers", self._cordoned_count())
+            t.set_gauge("autoscale/current_size", len(self.servers))
+            if self.autoscaler is not None:
+                t.set_gauge("autoscale/target_size", self._target())
+                t.set_gauge("autoscale/overloaded", float(self._overloaded))
             t.set_gauge("gsmgr/lease_depth", len(self._leases))
             t.set_gauge("gsmgr/running_rollouts", self.running_rollouts)
             t.set_gauge("gsmgr/accepted_rollouts", self.accepted_rollouts)
@@ -493,6 +685,202 @@ class GserverManager:
                 step()
             except Exception as e:  # noqa: BLE001 — the loop must survive
                 logger.warning(f"{what} error: {e!r}")
+
+    # ---------------- the elastic fleet ----------------
+
+    def _target(self) -> int:
+        t = self.autoscaler.target if self.autoscaler is not None else None
+        return t if t is not None else len(self.servers)
+
+    def _stale_heartbeat_urls(self, routable) -> set:
+        """Routable servers whose heartbeat went stale (alive to the OS,
+        wedged to the lease): not capacity, so the plan replaces them at a
+        constant target."""
+        ttl = env_keepalive_ttl() or 0.0
+        if ttl <= 0 or not routable:
+            return set()
+        try:
+            from areal_tpu_torch.system.worker_base import read_heartbeats
+
+            hbs = read_heartbeats(self.cfg.experiment, self.cfg.trial)
+        except Exception:  # noqa: BLE001 — a name-resolve hiccup
+            return set()
+        stale_ids = set()
+        for worker, d in hbs.items():
+            if not worker.startswith("genserver_"):
+                continue
+            age = d.get("age_secs")
+            if age is not None and age > 3 * ttl:
+                stale_ids.add(worker[len("genserver_"):])
+        with self._lock:
+            return {u for u in routable
+                    if self.health.get(u, _DEFAULT_HEALTH).server_id
+                    in stale_ids}
+
+    def _autoscale_signals(self, stale_urls: set
+                           ) -> "autoscale_mod.FleetSignals":
+        ac = self.cfg.autoscale
+        with self._lock:
+            routable = list(self.servers)
+            qd = slo_frac = 0.0
+            if routable:
+                sts = [self.health.get(u, _DEFAULT_HEALTH) for u in routable]
+                qd = sum(st.queue_depth for st in sts) / len(routable)
+                if ac.slo_ttfc_secs > 0:
+                    slo_frac = sum(1 for st in sts if st.ttfc_ewma_secs
+                                   > ac.slo_ttfc_secs) / len(routable)
+            last = self.sync_history[-1] if self.sync_history else None
+            return autoscale_mod.FleetSignals(
+                current_size=len(routable),
+                cordoned=self._cordoned_count(),
+                utilization=(self.running_rollouts
+                             / max(self.cfg.max_concurrent_rollouts, 1)),
+                queue_depth=qd, staled=self.is_staled(),
+                slo_miss_frac=slo_frac,
+                fanout_ack_secs=(last[1] if last else 0.0) or 0.0,
+                stale_heartbeats=len(stale_urls))
+
+    def _pick_scale_down_victim(self) -> Optional[str]:
+        with self._lock:
+            if len(self.servers) <= 1:
+                return None  # never cordon the last routable server
+
+            def key(u):
+                st = self.health.get(u, _DEFAULT_HEALTH)
+                return (0 if st.deprioritized else 1,  # slow servers first
+                        # dynamic before baseline: a baseline server shares
+                        # the fleet process and can only idle, never exit
+                        0 if st.server_id.startswith("dyn") else 1,
+                        self._inflight.get(u, 0))  # least left to drain
+
+            return min(self.servers, key=key)
+
+    def _autoscale_tick(self) -> None:
+        """One interval of the scaling controller: feed the core the
+        signals, act on its verdict (cordon a victim, or reclaim a cordoned
+        server), and publish the plan the launcher's executor spawns
+        from."""
+        ac = self.cfg.autoscale
+        with self._lock:
+            routable = list(self.servers)
+        stale_urls = self._stale_heartbeat_urls(routable)
+        sig = self._autoscale_signals(stale_urls)
+        # The sentinel's inhibit hint (a critical training-health alert is
+        # live): no scale-up while it lasts; more decode capacity cannot fix
+        # a diverging trainer.
+        inhibit = autoscale_mod.read_inhibit(self.cfg.experiment,
+                                             self.cfg.trial)
+        sig.inhibited = inhibit is not None
+        self.telemetry.set_gauge("autoscale/inhibited",
+                                 1.0 if inhibit else 0.0)
+        if inhibit:
+            logger.debug(f"autoscale: scale-up inhibited by sentinel rule "
+                         f"{inhibit.get('rule')!r}")
+        with self._lock:
+            action = self.autoscaler.observe(sig)
+            self._overloaded = self.autoscaler.overloaded
+            target = self._target()
+            n_routable = len(self.servers)
+        if action is not None:
+            self.telemetry.inc("autoscale/scale_up" if action["action"] == "up"
+                               else "autoscale/target_down")
+            self.telemetry.event("autoscale/retarget", **action)
+            logger.info(f"autoscale: target -> {action['target']} "
+                        f"({action['action']}: {action['reason']})")
+        if n_routable > target:
+            victim = self._pick_scale_down_victim()
+            if victim is not None:
+                self.cordon(victim, f"scale-down to {target}",
+                            source="autoscaler")
+        elif n_routable < target:
+            # the cheapest capacity first: a healthy server cordoned for
+            # scale-down still holds near-current weights (never one told
+            # to exit: a passing probe could route leases onto a corpse)
+            with self._lock:
+                reclaim = next(
+                    (url for url, st in self.health.items()
+                     if st.cordoned
+                     and st.cordon_reason.startswith("scale-down")
+                     and st.consecutive_failures == 0
+                     and not st.exit_commanded), None)
+            if reclaim is not None:
+                self.uncordon(reclaim)
+        # A wedged (stale-heartbeat) server stays routable (eviction is the
+        # health sweep's call) but is not counted: the plan asks for a
+        # replacement without moving the target.
+        with self._lock:
+            baseline_alive = sum(
+                1 for url, st in self.health.items()
+                if not st.cordoned and url not in stale_urls
+                and (st.routable or st.reconciling or st.uncordon_pending)
+                and not st.server_id.startswith("dyn"))
+            overloaded = self._overloaded
+        dynamic = max(0, min(target, ac.max_servers) - baseline_alive)
+        autoscale_mod.publish_plan(self.cfg.experiment, self.cfg.trial, {
+            "target": target, "dynamic": dynamic, "overloaded": overloaded,
+            "ts": time.time()})
+        self._update_fleet_gauges()
+
+    def _command_server_exit(self, server_id: str) -> bool:
+        """The commanded exit of a drained dynamic server: the supervisor
+        sees the clean exit of a worker that is not required, and never
+        respawns it."""
+        from areal_tpu_torch.system.worker_base import WorkerControlPanel
+
+        panel = WorkerControlPanel(self.cfg.experiment, self.cfg.trial,
+                                   timeout=5.0)
+        try:
+            return bool(panel.try_command(f"genserver_{server_id}",
+                                          "exit").get("ok"))
+        except Exception as e:  # noqa: BLE001 — endpoint gone / resolving
+            logger.warning(f"exit command to genserver_{server_id} failed: "
+                           f"{e}")
+            return False
+        finally:
+            panel.close()
+
+    def _drain_cordoned(self) -> None:
+        """Walk the cordoned servers: once one holds no lease (or its drain
+        deadline passed; clients fail over by chunk replay), count the
+        scale-down and command a dynamic server's exit."""
+        now = time.monotonic()
+        for url in list(self.health):
+            with self._lock:
+                st = self.health.get(url)
+                if st is None or not st.cordoned or st.exit_commanded:
+                    continue
+                load = self._server_draining_load(url)
+                if load > 0 and now < st.cordon_deadline:
+                    continue
+                if load > 0:
+                    logger.warning(f"{url} drain deadline passed with {load} "
+                                   "leases outstanding; going ahead "
+                                   "(clients fail over by chunk replay)")
+                    self._drop_server_leases(url)
+                sid = st.server_id
+            dynamic = sid.startswith("dyn")
+            if dynamic and not self._command_server_exit(sid):
+                continue  # again next interval
+            with self._lock:
+                st.exit_commanded = True
+            self.telemetry.inc("autoscale/scale_down")
+            self.telemetry.event("autoscale/drained", url=url,
+                                 reason=st.cordon_reason, forced=load > 0)
+            logger.info(f"cordoned server {url} drained ({st.cordon_reason}); "
+                        + ("exit commanded" if dynamic
+                           else "idling in the baseline fleet process"))
+
+    def _autoscale_loop(self) -> None:
+        """The scaling controller's thread: a tick at once, then one every
+        ``interval_secs``."""
+        while True:
+            try:
+                self._autoscale_tick()
+                self._drain_cordoned()
+            except Exception as e:  # noqa: BLE001 — the loop must survive
+                logger.warning(f"autoscale tick error: {e!r}")
+            if self._stop.wait(self.cfg.autoscale.interval_secs):
+                return
 
     # ---------------- scheduling (under the lock) ----------------
 
@@ -524,16 +912,21 @@ class GserverManager:
         self._expire_leases()
         if not self.servers:
             return None
+        # Straggler defense: a deprioritized server is routed only when no
+        # faster peer is left.
+        pool = [u for u in self.servers
+                if not self.health.get(u, _DEFAULT_HEALTH).deprioritized
+                ] or self.servers
         if cls != "rollout":
             # latency-sensitive classes go where the least interactive and
             # eval load is (total leases break ties); bulk rollout keeps
             # the configured policy
-            return min(self.servers, key=lambda u: (
+            return min(pool, key=lambda u: (
                 self._cls_inflight(u, ("interactive", "eval")),
                 self._inflight.get(u, 0)))
         if self.cfg.schedule_policy == "least_requests":
-            return min(self.servers, key=lambda u: self._inflight.get(u, 0))
-        url = self.servers[self._rr % len(self.servers)]
+            return min(pool, key=lambda u: self._inflight.get(u, 0))
+        url = pool[self._rr % len(pool)]
         self._rr += 1
         return url
 
@@ -611,7 +1004,14 @@ class GserverManager:
         with self._lock:
             self._reclaim_predecessor(d)
             if self.running_rollouts >= self.cfg.max_concurrent_rollouts:
-                return 200, {"allowed": False, "reason": "capacity"}
+                reply = {"allowed": False, "reason": "capacity"}
+                if self._overloaded:
+                    # pinned at max_servers and still saturated: polling
+                    # every 0.5 s will not open the gate sooner
+                    reply["retry_after"] = (
+                        self.cfg.autoscale.backpressure_retry_secs)
+                    self.telemetry.inc("autoscale/backpressure_denials")
+                return 200, reply
             if self.is_staled():
                 return 200, {"allowed": False, "reason": "staleness"}
             self.running_rollouts += n
@@ -675,6 +1075,36 @@ class GserverManager:
     def get_model_version(self, d: Dict, headers=None) -> Tuple[int, Dict]:
         return 200, {"version": self.version}
 
+    def _resolve_server(self, d: Dict) -> Optional[str]:
+        """A ``{url}`` or ``{server_id}`` body -> a known url."""
+        with self._lock:
+            url = d.get("url")
+            if url:
+                return url if url in self.health else None
+            sid = str(d.get("server_id") or "")
+            if sid:
+                return next((u for u, st in self.health.items()
+                             if st.server_id == sid), None)
+            return None
+
+    def handle_cordon(self, d: Dict, headers=None) -> Tuple[int, Dict]:
+        """The operator's (preemption-notice) cordon:
+        ``{url | server_id, reason}``."""
+        url = self._resolve_server(d)
+        if url is None:
+            return 404, {"ok": False, "reason": "unknown server"}
+        ok = self.cordon(url, str(d.get("reason") or "operator request"),
+                         source="operator")
+        return 200, {"ok": ok, "url": url,
+                     "draining": self._server_draining_load(url),
+                     "already_cordoned": not ok}
+
+    def handle_uncordon(self, d: Dict, headers=None) -> Tuple[int, Dict]:
+        url = self._resolve_server(d)
+        if url is None:
+            return 404, {"ok": False, "reason": "unknown server"}
+        return 200, {"ok": self.uncordon(url), "url": url}
+
     # ---------------- metrics ----------------
 
     def metrics_text(self) -> str:
@@ -693,7 +1123,13 @@ class GserverManager:
                 **{f"gsmgr_inflight_{c}": n
                    for c, n in self._inflight_by_class().items()},
                 "gsmgr_staled": float(self.is_staled()),
+                # the elastic fleet, on a bare scrape too
+                "autoscale_cordoned_servers": self._cordoned_count(),
+                "autoscale_current_size": len(self.servers),
             }
+            if self.autoscaler is not None:
+                gauges["autoscale_target_size"] = self._target()
+                gauges["autoscale_overloaded"] = float(self._overloaded)
             last = self.sync_history[-1] if self.sync_history else None
         gauges["gsmgr_weight_sync_fanout_secs"] = last and last[1]
         gauges["gsmgr_weight_sync_e2e_secs"] = last and last[2]
@@ -710,12 +1146,26 @@ class GserverManager:
                 "healthy_servers": len(self.servers),
                 "known_servers": len(self.health),
                 "inflight_by_class": self._inflight_by_class(),
+                "autoscale": {
+                    "enabled": self.cfg.autoscale.enabled,
+                    "target_size": (self.autoscaler.target
+                                    if self.autoscaler is not None else None),
+                    "current_size": len(self.servers),
+                    "cordoned": self._cordoned_count(),
+                    "overloaded": self._overloaded},
                 "fleet": {
                     u: {"routable": st.routable,
                         "consecutive_failures": st.consecutive_failures,
                         "acked_version": st.acked_version,
                         "evicted_reason": st.evicted_reason,
-                        "last_failure": st.last_failure}
+                        "last_failure": st.last_failure,
+                        "server_id": st.server_id,
+                        "cordoned": st.cordoned,
+                        "cordon_reason": st.cordon_reason,
+                        "deprioritized": st.deprioritized,
+                        "queue_depth": st.queue_depth,
+                        "draining": (self._server_draining_load(u)
+                                     if st.cordoned else 0)}
                     for u, st in self.health.items()},
                 "weight_sync_fanout_secs": last and last[1],
                 "weight_sync_e2e_secs": last and last[2],
@@ -754,6 +1204,8 @@ class GserverManager:
             ("POST", "/allocate_rollout"): self.allocate_rollout,
             ("POST", "/finish_rollout"): self.finish_rollout,
             ("GET", "/get_model_version"): self.get_model_version,
+            ("POST", "/cordon"): self.handle_cordon,
+            ("POST", "/uncordon"): self.handle_uncordon,
             ("GET", "/metrics.json"): self.metrics_json,
             ("GET", "/metrics_discovery"): self.metrics_discovery,
         }
@@ -807,6 +1259,10 @@ class GserverManager:
                              args=(self.cfg.health_check_interval_secs,
                                    self.check_fleet, "health sweep")),
         ]
+        if self.autoscaler is not None:
+            self._threads.append(threading.Thread(
+                target=self._autoscale_loop, daemon=True,
+                name="gsmgr-autoscale"))
         for t in self._threads:
             t.start()
         self._url = f"http://{network.gethostip()}:{self._http.server_address[1]}"

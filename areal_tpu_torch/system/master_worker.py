@@ -18,7 +18,11 @@ fleet goodput (``goodput.enabled``) inside it; the step loop records the
 ``master/step_secs`` gauge, which it also feeds to the sentinel directly.
 With telemetry off none of it is constructed.
 
-Left out until the port has it: the durability block.
+The durable spool (``durability``) reaches the master only through the
+order of a step's end: the recover checkpoint is written before ``clear``
+names the freed samples, and ``clear`` is where the trainer acks them, so
+no ack runs ahead of a checkpoint taken every step; with the sentinel on,
+durability also arms its ``sample_loss`` rule on ``spool/acked``.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from areal_tpu_torch.api.dfg import (
 )
 from areal_tpu_torch.api.train_config import (
     CompileWatchConfig,
+    DurabilityConfig,
     ExperimentSaveEvalControl,
     GoodputConfig,
     SentinelConfig,
@@ -90,6 +95,9 @@ class MasterWorkerConfig:
     # arms the sentinel's compile/memory rules
     compile_watch: CompileWatchConfig = dataclasses.field(
         default_factory=CompileWatchConfig)
+    # arms the sentinel's sample_loss rule (the spool's acks)
+    durability: DurabilityConfig = dataclasses.field(
+        default_factory=DurabilityConfig)
 
 
 class MasterWorker:
@@ -160,8 +168,11 @@ class MasterWorker:
 
             self._sentinel = Sentinel(
                 cfg.sentinel, cfg.experiment, cfg.trial,
+                # each pack only with the series it reads: on a run without
+                # the spool an absence rule on its acks would false-fire
                 rules=rules_from_config(
                     cfg.sentinel,
+                    durability_enabled=cfg.durability.enabled,
                     compile_watch_enabled=cfg.compile_watch.enabled),
                 alerts_path=(cfg.sentinel.alerts_path
                              or os.path.join(log_dir, "alerts.jsonl")),

@@ -29,8 +29,15 @@ counters, the allocation latency and staleness histograms and its
 progress gauges, and a goodput ledger in accrual mode (concurrent
 rollouts export task-seconds, not a wall partition).
 
+With ``durability.enabled`` (``system/sample_spool.py``) each accepted
+trajectory is fsynced into the worker's spool under
+``{recover_dir}/spool_{index}`` (off the event loop) before its prompt is
+marked consumed, and the spool's sender thread owns the pushes: it reads
+the trainer's acks on the worker's own channel and replays at startup what
+a dead incarnation left unacked. A durable worker without a
+``recover_dir`` refuses to start.
+
 This process never initialises CUDA: generation runs on the servers.
-Left out: the durable spool (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from areal_tpu_torch.api.model import (
     make_env,
 )
 from areal_tpu_torch.api.train_config import (
+    DurabilityConfig,
     GoodputConfig,
     RewardServiceConfig,
     TelemetryConfig,
@@ -74,7 +82,12 @@ from areal_tpu_torch.system.partial_rollout import (
     PartialRolloutClient,
     trajectory_from_gen,
 )
-from areal_tpu_torch.system.streams import TrajectoryPusher
+from areal_tpu_torch.system.sample_spool import (
+    SampleSpool,
+    SpoolSender,
+    ack_channel_name,
+)
+from areal_tpu_torch.system.streams import TrajectoryPuller, TrajectoryPusher
 
 logger = logging.getLogger("system.rollout")
 
@@ -115,6 +128,9 @@ class RolloutWorkerConfig:
     # over HTTP on the reward workers instead of in this process.
     reward_service: RewardServiceConfig = dataclasses.field(
         default_factory=RewardServiceConfig)
+    # The durable spool: off, trajectories are pushed directly.
+    durability: DurabilityConfig = dataclasses.field(
+        default_factory=DurabilityConfig)
 
 
 class ConsumedLog:
@@ -192,6 +208,7 @@ class RolloutWorker:
         self._who = {"worker": f"rollout{cfg.worker_index}",
                      "incarnation": env_incarnation()}
         self._ledger = goodput_mod.NULL_LEDGER  # armed by run_async
+        self._sender: Optional[SpoolSender] = None  # armed by run_async
 
     def _prompt_sample(self, rec, uid: str) -> SequenceSample:
         ids = self.cfg.tokenizer.encode(rec["prompt"])
@@ -317,7 +334,15 @@ class RolloutWorker:
             # grading and finalisation after the last chunk
             self._ledger.add("compute", time.monotonic() - t_grade)
             for t in final:
-                pusher.push(t.as_json_compatible())
+                if self._sender is not None:
+                    # durable: fsynced into the spool (off the event loop:
+                    # the append waits on the disk, and on backpressure)
+                    # before one() marks the prompt consumed; the sender
+                    # thread pushes
+                    await asyncio.to_thread(self._sender.submit,
+                                            t.as_json_compatible())
+                else:
+                    pusher.push(t.as_json_compatible())
                 accepted += 1
                 # Weight versions that passed while the trajectory
                 # generated: the off-policyness the gate bounds.
@@ -377,6 +402,11 @@ class RolloutWorker:
         from areal_tpu_torch.system.worker_base import WorkerControl
 
         cfg = self.cfg
+        if cfg.durability.enabled and not cfg.recover_dir:
+            raise ValueError(
+                "durability.enabled=true needs a recover_dir: the spool must "
+                "land next to the consumed-prompt log so that a respawned "
+                "worker can replay it")
         if cfg.telemetry.enabled:
             telemetry.configure(cfg.experiment, cfg.trial, "rollout",
                                 cfg.worker_index, cfg.telemetry)
@@ -389,7 +419,11 @@ class RolloutWorker:
         self._mgr_url0 = await asyncio.to_thread(name_resolve.wait, mgr_key,
                                                  300)
         pusher = await asyncio.to_thread(
-            TrajectoryPusher, cfg.experiment, cfg.trial, cfg.trainer_handler)
+            TrajectoryPusher, cfg.experiment, cfg.trial, cfg.trainer_handler,
+            block_secs=cfg.durability.push_block_secs)
+        ack_puller = None
+        if cfg.durability.enabled:
+            ack_puller = self._arm_spool(pusher, ctrl)
         # Threads enough for every generation in flight (each holds one for
         # its chunk) plus the quota calls.
         session = AsyncHttp(max_workers=cfg.max_concurrent * cfg.group_size
@@ -480,6 +514,12 @@ class RolloutWorker:
             if pending:
                 await asyncio.gather(*pending, return_exceptions=True)
             session.close()
+            if self._sender is not None:
+                # a clean exit: in-flight acks get a bounded window, so the
+                # spool drains; what stays unacked replays next incarnation
+                await asyncio.to_thread(self._sender.close,
+                                        cfg.durability.drain_timeout_secs)
+                ack_puller.close()
             pusher.close()
             ctrl.close()
             self.consumed.close()
@@ -489,6 +529,24 @@ class RolloutWorker:
         logger.info(f"rollout worker done: {self._pushed} trajectories "
                     f"pushed ({self._abandoned} abandoned, "
                     f"{client.n_failovers} chunk failovers)")
+
+    def _arm_spool(self, pusher, ctrl) -> TrajectoryPuller:
+        """Open the spool, bind the ack channel (leased on the control
+        heartbeat like every advertisement) and start the sender."""
+        cfg = self.cfg
+        dur = cfg.durability
+        spool = SampleSpool(
+            os.path.join(cfg.recover_dir, f"spool_{cfg.worker_index}"),
+            segment_bytes=dur.spool_segment_bytes,
+            max_bytes=dur.spool_max_bytes)
+        ack_puller = TrajectoryPuller(cfg.experiment, cfg.trial,
+                                      ack_channel_name(cfg.worker_index))
+        ctrl.lease(ack_puller._key, ack_puller._addr)
+        self._sender = SpoolSender(
+            spool, pusher, ack_puller, cfg.worker_index,
+            resend_timeout_secs=dur.resend_timeout_secs)
+        self._sender.start()
+        return ack_puller
 
     def run(self) -> None:
         asyncio.run(self.run_async())

@@ -3,8 +3,8 @@ alerting, and automatic evidence capture.
 
 The port's copy of ``areal_tpu/system/sentinel.py``: the rule grammar and
 parser, the rule packs (:data:`DEFAULT_RULES`, :data:`COMPILE_RULES`, and
-:data:`DURABILITY_RULES`, armed only with the durable sample spool, which
-the port does not have yet) and the engine. It is hosted inside the
+:data:`DURABILITY_RULES`, armed only with the durable sample spool) and
+the engine. It is hosted inside the
 master's :class:`~areal_tpu_torch.base.telemetry.TelemetryAggregator` (the
 one process that sees every worker's snapshots) and evaluates a
 declarative rule set over two streams:
@@ -45,8 +45,8 @@ trigger evidence capture while the anomaly is still live:
 
 bundled into a per-alert ``evidence/<rule>-<ts>/`` directory. Critical
 alerts also publish an autoscale-inhibit hint
-(``names.autoscale_inhibit``; nothing in the port reads it until the
-autoscaler is ported), and rules with ``action: pause`` may (with
+(``names.autoscale_inhibit``, which the manager's autoscale loop reads:
+no scale-up while it is live), and rules with ``action: pause`` may (with
 ``allow_pause``) command a master pause at the next step boundary through
 the WorkerControl panel.
 

@@ -29,7 +29,10 @@ caller: a send that cannot finish within ``block_secs`` drops the
 connection and raises ``TimeoutError``. With telemetry on, a pushed dict
 carries the active trace under ``_trace`` (``telemetry.inject_payload``),
 and a push that finds the socket's send buffer full counts
-``stream/push_blocked``.
+``stream/push_blocked``. With the durable spool (``system/sample_spool.py``)
+a pushed dict also carries ``_spool`` (the worker and the record's seqno),
+and the trainer acks settled seqnos back to each rollout worker's own
+puller (``sample_spool.ack_channel_name``) over the same frames.
 """
 
 from __future__ import annotations
@@ -209,6 +212,17 @@ class WorkerRequestServer:
 # ---------------- push/pull (rollout → trainer) ----------------
 
 
+def pack(obj: Any) -> bytes:
+    """One pushed object's bytes on the trajectory stream (the reference's
+    ``streams._pack``, msgpack there)."""
+    return pickle.dumps(obj)
+
+
+def unpack(raw: bytes) -> Any:
+    return pickle.loads(raw)
+
+
+
 class TrajectoryPuller:
     """The trainer's end of the trajectory stream: a frame server on a free
     port, advertised under :func:`push_pull_addr_key` with the worker's
@@ -230,7 +244,7 @@ class TrajectoryPuller:
         got = self._server.poll(timeout_ms)
         if got is None:
             return None
-        return pickle.loads(got[1][0])
+        return unpack(got[1][0])
 
     def close(self) -> None:
         # Withdraw the advertisement first: a successor run must not
@@ -260,12 +274,16 @@ class TrajectoryPusher:
         self._sock: Optional[socket.socket] = None
 
     def push(self, obj: Any) -> None:
-        budget = self.block_secs
-        deadline = time.monotonic() + budget
         # The trainer re-attaches the trace to the sample's metadata; with
         # telemetry off (or no trace) the object is untouched.
-        data = b"".join(bytes(m) for m in _encode(
-            [pickle.dumps(telemetry.inject_payload(obj))]))
+        self.push_packed(pack(telemetry.inject_payload(obj)))
+
+    def push_packed(self, raw: bytes) -> None:
+        """Send an object already packed with :func:`pack` (the durable
+        spool sends its records as they are stored)."""
+        budget = self.block_secs
+        deadline = time.monotonic() + budget
+        data = b"".join(bytes(m) for m in _encode([raw]))
         try:
             if self._sock is None:
                 # a restarted puller registers a new address

@@ -27,9 +27,13 @@ cleared so that nothing addresses a corpse. Restarts, deaths, the breaker,
 heartbeat ages and the drain phase are exported through the telemetry
 registry (``supervisor_*`` on the merged scrape).
 
+A dynamic generation server (kind ``gen_server``, spawned by the
+autoscaler's executor) is stateless and also *expendable*: a crash loop
+removes it from supervision instead of escalating, and the executor, which
+counts live workers with :meth:`Supervisor.alive_count`, spawns a fresh one
+within the plan's bounds.
+
 Processes are spawned, never forked, so no child inherits a CUDA context.
-Left out with the autoscaler (ROADMAP.md): expendable single-server
-workers and ``alive_count``.
 """
 
 from __future__ import annotations
@@ -45,13 +49,15 @@ from areal_tpu_torch.base import logging, name_resolve, names, telemetry
 
 logger = logging.getLogger("system.supervisor")
 
-# The failure domains the launcher restarts in place.
-STATELESS_KINDS = ("rollout", "gen_fleet", "reward")
+# The failure domains the launcher restarts in place ("gen_server": a
+# dynamic single server of the autoscaler, expendable as well).
+STATELESS_KINDS = ("rollout", "gen_fleet", "reward", "gen_server")
 
 # Workers with a control endpoint that shutdown asks to exit, in this
 # order, before it terminates anything: a rollout worker returns its quota,
-# a reward worker withdraws its URL.
-_ORDERLY_KINDS = ("rollout", "reward")
+# a reward worker withdraws its URL, a dynamic generation server its
+# registration.
+_ORDERLY_KINDS = ("rollout", "reward", "gen_server")
 
 
 class SupervisorEscalation(RuntimeError):
@@ -101,6 +107,10 @@ class WorkerSpec:
     # Environment overrides in the child's spawn snapshot (a reward worker
     # hides every card: CUDA_VISIBLE_DEVICES="").
     env: Dict[str, str] = dataclasses.field(default_factory=dict)
+    # A crash loop removes an expendable worker (a dynamic generation
+    # server) for good instead of escalating: the autoscale plan replaces
+    # it, and one flapping server never takes the run down.
+    expendable: bool = False
 
 
 class _Entry:
@@ -196,6 +206,14 @@ class Supervisor:
     def entry(self, name: str) -> _Entry:
         return self._entries[name]
 
+    def alive_count(self, kind: str) -> int:
+        """Workers of ``kind`` still in the fleet: running, dead but not yet
+        classified, or waiting for a respawn. Clean exits and removed
+        (crash-looped expendable) workers do not count: that is how the
+        autoscale executor sees capacity to replace."""
+        return sum(1 for e in self._entries.values()
+                   if e.spec.kind == kind and not e.done)
+
     def begin_drain(self) -> None:
         """A planned teardown from here on: child exits (any code) are
         expected and never restarted or escalated."""
@@ -262,10 +280,23 @@ class Supervisor:
         if len(entry.restarts) >= self.policy.max_restarts:
             telemetry.set_gauge(
                 f"supervisor/crash_loop_open{{worker_kind={spec.kind}}}", 1.0)
-            self._escalate(entry, f"{spec.name} crash-looped: "
-                           f"{len(entry.restarts)} restarts inside "
-                           f"{self.policy.window_secs:.0f}s (last death: "
-                           f"{reason}); circuit breaker open")
+            msg = (f"{spec.name} crash-looped: {len(entry.restarts)} "
+                   f"restarts inside {self.policy.window_secs:.0f}s (last "
+                   f"death: {reason}); circuit breaker open")
+            if spec.expendable:
+                # out of the fleet for good, nothing escalates: the plan
+                # notices the lost capacity and spawns a fresh worker
+                entry.done = True
+                self._clear_ghost_keys(spec)
+                telemetry.inc(f"supervisor/removed{{worker_kind={spec.kind}}}")
+                t = telemetry.get()
+                if t.enabled:
+                    t.event("supervisor/removed", worker=spec.name,
+                            kind=spec.kind, reason=msg)
+                logger.error(f"{msg}; removed (expendable): the autoscaler "
+                             "replaces it within its bounds")
+                return
+            self._escalate(entry, msg)
         entry.restarts.append(now)
         backoff = self.policy.backoff(len(entry.restarts))
         entry.respawn_due = now + backoff
@@ -312,6 +343,10 @@ class Supervisor:
             # out to it now, not when its lease lapses.
             doomed.append(names.reward_worker(
                 self.experiment, self.trial, "rw" + spec.name[len("reward"):]))
+        if spec.kind == "gen_server" and spec.name.startswith("genserver_"):
+            # a dynamic server's discovery key, by its server_id
+            doomed.append(names.gen_servers(
+                self.experiment, self.trial, spec.name[len("genserver_"):]))
         if spec.kind == "gen_fleet":
             # The fleet process hosts the servers and the manager: clear
             # their discovery keys, so that rollout clients fail fast and

@@ -38,8 +38,14 @@ and the profiler trigger (``torch.profiler``), polled between requests.
 With ``AREAL_DUMP_TRACE=<dir>`` every MFC runs under its own
 ``torch.profiler`` capture (a Chrome trace under ``<dir>/<mfc>_<version>``).
 
-Left out until the port has them: durable ingest (the sample spool),
-multi-host broadcast (ROADMAP.md Queue 1 item 8) and the ``device``
+Durable ingest (``system/sample_spool.py``): a pushed dict that carries
+``_spool`` passes :class:`~areal_tpu_torch.system.sample_spool.SpoolIngest`
+at the puller (duplicates dropped, a replay past
+``durability.replay_staleness_limit`` durably dropped and acked), and
+``clear``, which the master sends after the step's recover checkpoint,
+acks the settled samples back to each rollout worker's ack channel.
+
+Left out until the port has them: multi-host broadcast and the ``device``
 transport.
 """
 
@@ -71,6 +77,7 @@ from areal_tpu_torch.api.model import (
 )
 from areal_tpu_torch.api.train_config import (
     CompileWatchConfig,
+    DurabilityConfig,
     GoodputConfig,
     RewardServiceConfig,
     TelemetryConfig,
@@ -87,9 +94,15 @@ from areal_tpu_torch.base import (
 from areal_tpu_torch.models import convert, hf
 from areal_tpu_torch.system import goodput as goodput_mod
 from areal_tpu_torch.system import memwatch
+from areal_tpu_torch.system.sample_spool import (
+    SPOOL_KEY,
+    SpoolIngest,
+    ack_channel_name,
+)
 from areal_tpu_torch.system.streams import (
     Payload,
     TrajectoryPuller,
+    TrajectoryPusher,
     WorkerRequestServer,
 )
 from areal_tpu_torch.system.weight_stream import WeightStreamPublisher
@@ -153,6 +166,9 @@ class TrainerWorkerConfig:
     # Where every role lives (areal_tpu_torch.resolve_device): cuda unless
     # named; without a GPU and without a device, setup() raises.
     device: Optional[str] = None
+    # the staleness gate of spooled replays (replay_staleness_limit)
+    durability: DurabilityConfig = dataclasses.field(
+        default_factory=DurabilityConfig)
 
 
 class TrainerWorker:
@@ -180,6 +196,11 @@ class TrainerWorker:
         self._puller: Optional[TrajectoryPuller] = None
         self._pull_q: "queue.Queue[SequenceSample]" = queue.Queue()
         self._pull_thread: Optional[threading.Thread] = None
+        # durable ingest (armed with the puller) and one ack pusher per
+        # rollout worker
+        self._ingest: Optional[SpoolIngest] = None
+        self._ack_pushers: Dict[int, TrajectoryPusher] = {}
+        self._ack_lock = threading.Lock()
         # Observability, armed by setup() (the null objects while off).
         self._profiler: Optional[telemetry.ProfilerTriggerWatcher] = None
         self._ledger = goodput_mod.NULL_LEDGER
@@ -248,6 +269,8 @@ class TrainerWorker:
         if cfg.stream_dataset:
             self._puller = TrajectoryPuller(cfg.experiment, cfg.trial,
                                             cfg.handler)
+            self._ingest = SpoolIngest(
+                staleness_limit=cfg.durability.replay_staleness_limit)
             self._pull_thread = threading.Thread(
                 target=self._pull_loop, daemon=True, name="trainer-pull")
             self._pull_thread.start()
@@ -293,6 +316,9 @@ class TrainerWorker:
         while not self._exiting:
             obj = self._puller.pull(timeout_ms=200)
             if obj is not None:
+                # the durable spool's framing, absent on a plain push
+                spool_meta = (obj.pop(SPOOL_KEY, None)
+                              if isinstance(obj, dict) else None)
                 # The rollout worker's trace context rides in the sample's
                 # metadata through the master's buffer and this store, so
                 # the train step can close the trace.
@@ -300,7 +326,60 @@ class TrainerWorker:
                 s = SequenceSample.from_json_compatible(obj)
                 if trace is not None:
                     s.metadata["_trace"] = [trace.as_dict()]
+                if (spool_meta is not None and self._ingest is not None
+                        and not self._ingest_spooled(s, spool_meta)):
+                    continue
                 self._pull_q.put(s)
+
+    def _ingest_spooled(self, s: SequenceSample, meta: Dict) -> bool:
+        """The at-least-once ingest decision; False: drop the sample.
+
+        A duplicate is a normal event (a re-send racing its own ack, or a
+        replay of a settled record whose ack was lost): dropped, and acked
+        again when already settled. A replay whose version lags past the
+        bound is durably dropped, counted and acked: the staleness contract
+        holds across a trainer outage too."""
+        cur = max((m.version.global_step for m in self.models.values()),
+                  default=0)
+        sample_ver = None
+        if "version_end" in s.data:
+            sample_ver = float(np.asarray(s.data["version_end"]).reshape(-1)[0])
+        action, ackp = self._ingest.observe(s.ids[0], meta, cur, sample_ver)
+        if action == "duplicate":
+            telemetry.inc("spool/duplicate_dropped")
+            if ackp is not None:
+                self._send_acks({ackp[0]: [ackp[1]]})
+            return False
+        if action == "stale":
+            telemetry.inc("spool/replay_stale_dropped")
+            self._send_acks({ackp[0]: [ackp[1]]})
+            return False
+        return True
+
+    def _send_acks(self, by_worker: Dict[int, List[int]]) -> None:
+        """Push settled seqnos to each rollout worker's ack channel. Best
+        effort: a lost ack is recovered by the worker's resend timer and the
+        settled-duplicate re-ack here, so a failure is logged, not
+        retried."""
+        if not by_worker:
+            return
+        with self._ack_lock:
+            for w, seqnos in by_worker.items():
+                try:
+                    pusher = self._ack_pushers.get(w)
+                    if pusher is None:
+                        pusher = TrajectoryPusher(
+                            self.cfg.experiment, self.cfg.trial,
+                            ack_channel_name(w), timeout=5.0, block_secs=1.0)
+                        self._ack_pushers[w] = pusher
+                    pusher.push({"seqnos": [int(x) for x in seqnos]})
+                except Exception as e:  # noqa: BLE001 — worker down/respawning
+                    logger.warning(f"ack push to rollout worker {w} failed "
+                                   f"({e}); its resend timer will recover")
+                    # a respawned worker binds a new address under the key
+                    stale = self._ack_pushers.pop(w, None)
+                    if stale is not None:
+                        stale.close()
 
     # ---------------- handlers ----------------
 
@@ -674,8 +753,14 @@ class TrainerWorker:
         return info
 
     def _handle_clear(self, p: Payload) -> Any:
-        for sid in p.data or []:
+        sids = list(p.data or [])
+        for sid in sids:
             self.store.pop(sid, None)
+        if self._ingest is not None and sids:
+            # Freed ids are settled samples (consumed by every MFC after the
+            # step's recover checkpoint, or durably dropped by the master's
+            # buffer): the ack point of the at-least-once loop.
+            self._send_acks(self._ingest.pop_settled(sids))
         return {"n_stored": len(self.store)}
 
     # A recover checkpoint: every trainable role's train state (masters,
@@ -821,6 +906,10 @@ class TrainerWorker:
         if self._puller is not None:
             self._puller.close()
             self._puller = None
+        with self._ack_lock:
+            for pusher in self._ack_pushers.values():
+                pusher.close()
+            self._ack_pushers.clear()
         for pub in self._weight_publishers.values():
             pub.close()
         self._weight_publishers.clear()

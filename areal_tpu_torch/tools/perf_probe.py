@@ -2,7 +2,8 @@
 
 The port's counterparts of the reference's ``tools/perf_probe.py``
 ``scrape`` (:195), ``decode_bench`` (:245), ``reward_bench`` (:317),
-``flight_dump`` (:502), ``fleet_status`` (:750) and ``drain`` (:890), on
+``flight_dump`` (:502), ``spool_status`` (:511), ``fleet_status`` (:750),
+``cordon`` (:856) and ``drain`` (:890), on
 the standard library (``urllib`` on a thread pool: the card's machine has
 no ``aiohttp``)::
 
@@ -11,6 +12,9 @@ no ``aiohttp``)::
     python -m areal_tpu_torch.tools.perf_probe reward-bench <exp> <trial> [n]
     python -m areal_tpu_torch.tools.perf_probe reward-bench <url> [n]
     python -m areal_tpu_torch.tools.perf_probe fleet-status <exp> <trial>
+    python -m areal_tpu_torch.tools.perf_probe spool-status <exp> <trial>
+    python -m areal_tpu_torch.tools.perf_probe cordon <exp> <trial> <server> [why]
+    python -m areal_tpu_torch.tools.perf_probe uncordon <exp> <trial> <server>
     python -m areal_tpu_torch.tools.perf_probe drain <exp> <trial>
     python -m areal_tpu_torch.tools.perf_probe flight-dump <exp> <trial> <dir>
 
@@ -28,8 +32,13 @@ server that cannot be reached raises. ``reward-bench`` fans ``n`` seeded
 math and code tasks (3:1) through the fleet client (local fallback off)
 and prints the grades/s, each kind's p50 and p99 and the fleet's verdict
 counters. ``fleet-status`` prints heartbeat ages and incarnations, the
-control endpoints, the drain phase, the manager's fleet map and the
-``supervisor_*`` series of the merged scrape. ``drain`` runs the graceful
+control endpoints, the drain phase, the autoscale plan, the manager's
+fleet map (routable, cordoned, deprioritized, draining leases) and the
+``supervisor_*`` series of the merged scrape. ``spool-status`` prints each
+rollout worker's spool depth, bytes and oldest unacked age and the fleet's
+delivery counters, from the merged scrape. ``cordon`` (the preemption-
+notice hook) and ``uncordon`` take a server id (``gen0``, ``dyn1``) or a
+URL. ``drain`` runs the graceful
 drain against a live run. ``flight-dump`` asks every live worker to dump
 its flight-recorder ring into ``<dir>``.
 """
@@ -331,13 +340,30 @@ def fleet_status(experiment: str, trial: str) -> None:
     except Exception:  # noqa: BLE001 — no drain ever requested
         print("drain phase: none")
     try:
+        plan = json.loads(name_resolve.get(names.autoscale_plan(experiment,
+                                                                trial)))
+        print(f"autoscale plan: target={plan.get('target')} "
+              f"dynamic={plan.get('dynamic')} "
+              f"overloaded={plan.get('overloaded')}")
+    except Exception:  # noqa: BLE001 — autoscale off / no plan yet
+        print("autoscale plan: none (autoscale disabled?)")
+    try:
         mgr = name_resolve.get(names.gen_server_manager(experiment, trial))
         m = json.loads(_get_text(f"{mgr.rstrip('/')}/metrics.json"))
+        asc = m.get("autoscale") or {}
         print(f"fleet: {m.get('healthy_servers')}/{m.get('known_servers')} "
-              "routable, 0 cordoned")
+              f"routable, {asc.get('cordoned', 0)} cordoned"
+              + (f", target {asc.get('target_size')}"
+                 if asc.get("enabled") else ""))
         for u, st in sorted((m.get("fleet") or {}).items()):
-            state = "routable" if st.get("routable") else "evicted"
+            state = ("cordoned" if st.get("cordoned")
+                     else "routable" if st.get("routable") else "evicted")
             extra = [st["server_id"]] if st.get("server_id") else []
+            if st.get("deprioritized"):
+                extra.append("deprioritized(straggler)")
+            if st.get("cordoned"):
+                extra.append(f"reason={st.get('cordon_reason', '?')}")
+                extra.append(f"draining={st.get('draining', 0)}")
             if st.get("evicted_reason") and state == "evicted":
                 extra.append(st["evicted_reason"])
             print(f"  {u}  {state}" + ("  [" + ", ".join(extra) + "]"
@@ -358,6 +384,105 @@ def fleet_status(experiment: str, trial: str) -> None:
     except Exception:  # noqa: BLE001 — telemetry off / no http port
         print("supervisor metrics: merged scrape unavailable "
               "(telemetry disabled or no http_port)")
+
+
+def spool_status(experiment: str, trial: str) -> Dict[str, Any]:
+    """The durable spool's delivery view of a live run, from the merged
+    scrape: each rollout worker's depth, bytes on disk and oldest unacked
+    age, and the fleet's delivery counters. ``appended == acked`` (and depth
+    0 everywhere) means every spooled trajectory settled; a growing oldest
+    unacked age means the ack path is wedged. Returns what it printed."""
+    import re
+
+    from areal_tpu_torch.base import name_resolve, names
+
+    try:
+        url = name_resolve.get(names.telemetry_http(experiment, trial))
+        body = _get_text(f"{url.rstrip('/')}/metrics")
+    except Exception as e:  # noqa: BLE001 — no aggregator / dead run
+        sys.exit(f"spool-status: cannot scrape the merged telemetry endpoint "
+                 f"of {experiment}/{trial}: {e}\nIt needs "
+                 "telemetry.enabled=true and telemetry.http_port on the "
+                 "master. For a dead run, open the spools under "
+                 "recover_dir/spool_<worker> (system/sample_spool.py).")
+    lab_re = re.compile(r'(\w+)="([^"]*)"')
+    gauges: Dict[str, Dict[str, float]] = {}  # worker_index -> metric
+    totals: Dict[str, float] = {}
+    gauge_families = {
+        "areal_spool_depth": "depth", "areal_spool_bytes": "bytes",
+        "areal_spool_oldest_unacked_age_secs": "oldest_unacked_s"}
+    counter_families = (
+        "areal_spool_appended_total", "areal_spool_acked_total",
+        "areal_spool_replayed_total", "areal_spool_resent_total",
+        "areal_spool_replay_stale_dropped_total",
+        "areal_spool_duplicate_dropped_total",
+        "areal_spool_backpressure_waits_total",
+        "areal_stream_push_blocked_total",
+        "areal_buffer_duplicate_dropped_total")
+    for ln in body.splitlines():
+        if not ln or ln.startswith("#"):
+            continue
+        name, _, val = ln.rpartition(" ")
+        base, _, rest = name.partition("{")
+        if base in gauge_families:
+            w = dict(lab_re.findall(rest)).get("worker_index", "?")
+            gauges.setdefault(w, {})[gauge_families[base]] = float(val)
+        elif base in counter_families:
+            totals[base] = totals.get(base, 0.0) + float(val)
+    if not gauges and not totals:
+        sys.exit("spool-status: no spool series on the merged scrape: the "
+                 "spool is off (durability.enabled=false) or no rollout "
+                 "worker has flushed its telemetry yet")
+    if gauges:
+        print("per-worker spool state:")
+        print(f"  {'worker':>6}  {'depth':>7}  {'bytes':>12}  "
+              f"{'oldest unacked':>14}")
+        for w in sorted(gauges, key=lambda x: (len(x), x)):
+            g = gauges[w]
+            print(f"  {w:>6}  {g.get('depth', 0):>7g}  "
+                  f"{g.get('bytes', 0):>12g}  "
+                  f"{g.get('oldest_unacked_s', 0):>13.1f}s")
+    if totals:
+        print("fleet delivery totals:")
+        width = max(len(k) for k in totals)
+        for k in counter_families:
+            if k in totals:
+                print(f"  {k:<{width}}  {totals[k]:g}")
+        appended = totals.get("areal_spool_appended_total", 0.0)
+        if appended:
+            in_flight = sum(g.get("depth", 0) for g in gauges.values())
+            print(f"  settled {totals.get('areal_spool_acked_total', 0.0):g}"
+                  f"/{appended:g} ({in_flight:g} durably queued on disk)")
+    return {"workers": gauges, "totals": totals}
+
+
+def cordon(experiment: str, trial: str, server: str,
+           reason: str = "operator request", un: bool = False
+           ) -> Dict[str, Any]:
+    """Cordon (or uncordon) one generation server of a live run: the
+    operator's preemption-notice hook. ``server`` is a server id (``gen0``,
+    ``dyn1``) or its URL. A cordoned server gets no new lease, its rollouts
+    drain, and the autoscale loop commands a drained dynamic server's exit;
+    an uncordoned one re-admits through the health gate."""
+    from areal_tpu_torch.base import name_resolve, names
+
+    try:
+        mgr = name_resolve.get(names.gen_server_manager(experiment, trial))
+    except Exception as e:  # noqa: BLE001 — run down / wrong root
+        sys.exit(f"cannot resolve the gserver manager of {experiment}/{trial}"
+                 f": {e}\n(is the run up, and AREAL_NAME_RESOLVE_ROOT "
+                 "pointing at its store?)")
+    key = "url" if server.startswith("http") else "server_id"
+    verb = "uncordon" if un else "cordon"
+    status, d = _post(f"{mgr.rstrip('/')}/{verb}",
+                      {key: server, "reason": reason})
+    if status != 200:
+        sys.exit(f"{verb} {server}: the manager said {status} ({d})")
+    print(json.dumps(d, indent=2, sort_keys=True))
+    if not un and d.get("ok"):
+        print(f"{d.get('url')} cordoned; {d.get('draining', 0)} leases "
+              f"draining (watch `fleet-status {experiment} {trial}`)")
+    return d
 
 
 def drain(experiment: str, trial: str) -> Dict[str, Any]:
@@ -393,7 +518,10 @@ USAGE = """usage: python -m areal_tpu_torch.tools.perf_probe <command> ...
   decode-bench <url> [n] [max_tokens]    mixed-class burst at a server
   reward-bench <exp> <trial> [n]         grade latency of a live reward fleet
   reward-bench <url> [n]                 ... of one reward worker
-  fleet-status <exp> <trial>             heartbeats, drain phase, fleet map
+  fleet-status <exp> <trial>             heartbeats, drain, plan, fleet map
+  spool-status <exp> <trial>             the durable spool's delivery state
+  cordon <exp> <trial> <server> [why]    stop leasing to a server, drain it
+  uncordon <exp> <trial> <server>        re-admit it through the health gate
   drain <exp> <trial>                    graceful drain of a live run
   flight-dump <exp> <trial> <dir>        every worker dumps its flight ring"""
 
@@ -415,6 +543,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                          int(argv[3]) if len(argv) > 3 else 32)
         elif cmd == "fleet-status":
             fleet_status(argv[1], argv[2])
+        elif cmd == "spool-status":
+            spool_status(argv[1], argv[2])
+        elif cmd == "cordon":
+            cordon(argv[1], argv[2], argv[3],
+                   " ".join(argv[4:]) or "operator request")
+        elif cmd == "uncordon":
+            cordon(argv[1], argv[2], argv[3], un=True)
         elif cmd == "drain":
             drain(argv[1], argv[2])
         elif cmd == "flight-dump":

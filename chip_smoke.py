@@ -67,6 +67,9 @@ Phases (any failed check raises, and the script exits non-zero):
      share and launches of K1, K2 (its partial and reduction kernels), K3,
      GEMMs and the rest of the device time, the device's idle share and the
      kernels per step; K1, K2 and K3 must each show device time;
+ (j)-(n) run at 8 of the model's 24 layers (full width; ``CUT_LAYERS``):
+     the cut that makes room for (s) and (t) at full depth in the time
+     limit. Wherever a check below counts per layer, it counts 8.
  (j) the trainer's model functions of the async-PPO recipe (the README's
      `ppo.use_decoupled_loss=true group_size=16`, the rest at defaults:
      kl_ctl 0.1, a critic, 4 PPO minibatches, advantage whitening), the
@@ -81,8 +84,9 @@ Phases (any failed check raises, and the script exits non-zero):
      before the first update (exactly), the first actor minibatch's
      importance weight within 2% of 1, finite losses, grad norms > 0,
      finite value moments, both models' parameters moved, no early stop,
-     each inference MFC launches K1 24 x its micro-batches and no K2/K3,
-     each train MFC K2 and K3 24 x its micro-batches and K1 twice that.
+     each inference MFC launches K1 n_layers x its micro-batches and no
+     K2/K3, each train MFC K2 and K3 n_layers x its micro-batches and K1
+     twice that.
      Then actor_inf and one actor step with group_adv_norm (the host
      advantage path through train_batch), the same checks; before it, its
      first PPO minibatch's logprobs recomputed by engine.forward under the
@@ -98,7 +102,7 @@ Phases (any failed check raises, and the script exits non-zero):
      loads into a fresh engine, and one actor step on each gives equal
      masters. Seconds and bytes of each write and read;
  (l) one SFT train_step on the batch: finite loss and perplexity, K2 and
-     K3 launched 24 x the micro-batches;
+     K3 launched n_layers x the micro-batches;
  (m) weight sync at full width, under a temporary directory (deleted): a
      port server in bf16 on the seed-0 weights, holding one retained KV
      state, swaps through POST /update_weights to (1) the trained actor's
@@ -183,7 +187,9 @@ Phases (any failed check raises, and the script exits non-zero):
      master's process (watched every 0.2 s). Rehearse on the CPU with
      `run_async_loop(tiny_cfg, tmpdir, device="cpu", ...)` under a
      `__main__` guard;
- (p) the loop of (o) again, 3 steps (the first a warm-up), with
+ (p) the loop of (o) again at 8 of the model's 24 layers (full width,
+     from a second seeded checkpoint: the cut that makes room for (t) in
+     the time limit), 3 steps (the first a warm-up), with
      telemetry (the merged /metrics on a free port, flight dumps on
      SIGTERM), goodput, compile_watch (memory sampled every serve-loop
      iteration) and the sentinel (the default rules and an operator rule
@@ -248,14 +254,16 @@ Phases (any failed check raises, and the script exits non-zero):
      the decode-bench's included.
      Prints per-class latency, queue wait and time to first chunk, the
      429/413 counts and the share of decode row-steps that are dummies.
-     (q3) the loop of (o) with ``serving.enabled=true``, 3 steps (the first
+     (q3) the loop of (o) at (p)'s 8 layers with ``serving.enabled=true``,
+     3 steps (the first
      a warm-up), while a thread here sends three interactive requests
      through the manager: (o)'s checks and at least one interactive reply.
      Prints ms per step beside (o)'s, prefill tokens per step, prefix hits,
      continuations that re-prefilled and the retained KV's peak bytes,
      beside (o)'s.
 
- (r) the reward fleet and respawns: (o)'s loop, 5 steps (the first a
+ (r) the reward fleet and respawns: (o)'s loop at (p)'s 8 layers, 4
+     steps (the first a
      warm-up), with ``reward_service.enabled=true n_workers=2`` and
      ``fault_tolerance`` at its defaults, on seeded records half math and
      half python code (2-4 stdin/stdout cases each), through the
@@ -264,7 +272,7 @@ Phases (any failed check raises, and the script exits non-zero):
      manager) after step 3, each once its next incarnation registered
      again. While the loop runs: the open /dev/nvidia* nodes of the
      reward workers (the trainer and the fleet the control), each reward worker's /metrics.json, and ``perf_probe
-     reward-bench`` (32 seeded tasks) at the live fleet. Checks: 5 steps
+     reward-bench`` (32 seeded tasks) at the live fleet. Checks: 4 steps
      with finite losses; restarts {reward: 1, rollout: 1, gen_fleet: 1},
      no escalation; no local fallback and no local grade in the rollout
      process, its answered tasks at least the trained trajectories, and
@@ -283,26 +291,70 @@ Phases (any failed check raises, and the script exits non-zero):
      verdicts by task kind, the grading call's ms beside (o)'s, each
      reward worker's peak RSS beside a bare ``import torch``'s and
      reward-bench's line;
- (s) relaunch and drain: (o)'s loop with ``recover_mode=auto``, a recover
-     checkpoint every step and 4 steps, through ``run_experiment``. Once
-     step 2's checkpoint and the actor's v2 publish are in, the trainer is
-     SIGKILLed: the supervisor escalates, ``run_experiment`` clears the
-     trial's name-resolve subtree and relaunches with ``resume``; after
-     the relaunched run's first step, ``request_drain()`` (the SIGTERM
-     handler's path): pause, checkpoint, exit. Checks: the first launch
-     failed on the escalation; none of its children lived when the
+ (s) relaunch and drain with the durable spool: (o)'s loop with
+     ``recover_mode=auto``, a recover checkpoint every step,
+     ``durability.enabled=true`` and 4 steps, through ``run_experiment``.
+     Once step 1's checkpoint and the actor's v1 publish are in, and the
+     trainer holds a group of spooled samples it has not acked, the
+     trainer is SIGKILLed: the supervisor escalates, ``run_experiment``
+     clears the trial's name-resolve subtree and relaunches with
+     ``resume``, and the relaunched rollout worker replays its spool;
+     after the relaunched run's first step, ``request_drain()`` (the
+     SIGTERM handler's path): pause, checkpoint, exit. Checks: the first
+     launch failed on the escalation; none of its children lived when the
      relaunch started; the relaunched trainer's first step ran at the
      checkpoint's actor version and the master resumed at its step; the
-     drain (requested as the relaunched master comes up, so it lands after
-     its first step) ended the run before its 4 steps; the
-     relaunched actor's first publish (at the restore) equals the killed
-     trainer's publish of that version bit for bit; the drain ended the
-     run with the trainer and the rollout worker exiting 0 and a complete
-     recover checkpoint at the last step; no child left. Prints
-     kill-to-escalation, escalation-to-relaunch and escalation-to-first-
-     step seconds, the card's memory in use as the relaunch starts
-     (before its trainer allocates), the drain seconds, and the recover
-     checkpoints' bytes and write seconds.
+     drain ended the run before its 4 steps; the relaunched actor's first
+     publish (at the restore) equals the killed trainer's publish of that
+     version bit for bit; the trainer and the rollout worker exit 0 and a
+     complete recover checkpoint is at the last step; no sample lost: on
+     disk the spool's appended records equal the acked watermark plus its
+     depth, every sample of every prompt in the consumed log was acked by
+     a trainer (trained in a committed step), dropped as a stale replay or
+     is still spooled, no prompt was consumed twice, both incarnations'
+     appends add up to the spool's and the relaunch replayed; no child
+     left. Prints kill-to-escalation, escalation-to-relaunch and
+     escalation-to-first-step seconds (beside PR 11's 53.37), the card's
+     memory in use as the relaunch starts, the drain seconds, the recover
+     checkpoints' bytes and write seconds, the steps before the kill
+     beside (o)'s, and the spool's delivery counters (appended, acked,
+     replayed, resent), the trainer's duplicate and stale drops, the
+     samples trained twice, the peak depth and bytes and the append
+     (write and fsync) ms p50 and p99, overall and during a checkpoint's
+     write;
+ (t) the elastic fleet: (o)'s loop, 5 steps, with ``autoscale.enabled=
+     true min_servers=1 max_servers=2 interval_secs=1`` (the rest at the
+     reference's defaults; the one-second tick is a cut: the replacement
+     a cordoned gen0 draws is scaled down as soon as it is admitted, so
+     that a third server's memory is held briefly on the one card) through
+     the launcher. While it runs, the script waits for
+     the manager's plan to ask for a dynamic server (64 rollouts in flight
+     against ``max_concurrent_rollouts=64``: utilization 1.0), its spawn,
+     registration, admission and first generated tokens (a rollout keeps
+     its server for all its chunks, so the new server's share starts with
+     the next rollouts the gate admits); keeps two servers for 10 s and runs
+     ``perf_probe fleet-status`` (the card's memory in use is sampled with
+     nvidia-smi every second throughout);
+     cordons gen0 with ``perf_probe cordon`` (a preemption notice) and
+     follows its drain on the manager's fleet map; then ``perf_probe
+     uncordon`` and its re-admission through the health gate. The cordon
+     leaves one routable server under a target of 2, so the plan may spawn
+     a replacement; the re-admission puts the fleet over its target and
+     the loop scales a dynamic server down (cordon, drain, commanded
+     exit). Checks: 5 steps with finite losses; the plan reached 2 and the
+     first spawn was dyn1; every dynamic server sent its record and exited
+     0; dyn1's weights, as its first batch at a version > 0 starts, equal
+     the actor the trainer published as that version (SHA-256 per tensor,
+     as (r)); the cordoned gen0's outstanding leases only fell to 0 (no new
+     lease), it was re-admitted at the fleet's version; no rollout
+     abandoned, quota 0 at the end; K1 n_layers x prefills on every
+     server, K1-K3 per MFC as in (n); no child left. Prints the seconds
+     from the plan to the spawn, the process start, the model built, its
+     registration and admission; each server's decode ms per step and
+     generated tokens/s with one server and with two; the loop's ms per
+     step after the scale-up beside (o)'s; the card's memory with two
+     servers and at its most, and each process's peak; the drain and
+     re-admission seconds.
 
 The script exits 0 only when every phase passed and the last line is
 printed; any failed check raises and exits 1, as does a run where
@@ -339,6 +391,8 @@ if __name__ == "__mp_main__" and os.environ.get("CUDA_VISIBLE_DEVICES") == "":
 else:
     import torch  # noqa: E402
 
+# (p), (q3) and (r) run at this many of the model's layers (full width)
+CUT_LAYERS = 8
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
@@ -2265,7 +2319,12 @@ def async_trainer_probe(conn, worker, digest_dir=None):
     After the run it sends ("done", record) with the SHA-256 per tensor of
     every published version and the peak memory. With ``digest_dir`` each
     version's digests also go to ``trainer_<pid>_v<version>.json`` there as
-    soon as they are hashed ((s): a killed trainer sends no record)."""
+    soon as they are hashed ((s): a killed trainer sends no record), and
+    ``ids_<pid>.txt`` there gets a line per sample as it happens: "trained
+    <version> <id>" at each actor_train, "ingest <id>" as the durable
+    ingest takes a spooled sample, "settled <id>" as it acks one, "stale
+    <id>" as it drops a replay; the record then also carries the ingest's
+    verdict counts."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -2355,6 +2414,9 @@ def async_trainer_probe(conn, worker, digest_dir=None):
 
     worker._handle_mfc = timed
     worker.publish_weights = published
+    if digest_dir is not None:
+        log_sample_ids(worker, records,
+                       os.path.join(digest_dir, f"ids_{os.getpid()}.txt"))
     if torch.cuda.is_available():
         torch.cuda.reset_peak_memory_stats()
 
@@ -2367,10 +2429,51 @@ def async_trainer_probe(conn, worker, digest_dir=None):
             "kernels_prebuilt": prebuilt, "peak_gb": peak,
             "peak_bytes": (torch.cuda.max_memory_allocated() if cuda()
                            else None),
+            "ingest": (dict(worker._ingest.counts)
+                       if worker._ingest is not None else None),
             # (p): the goodput ledger, flushed by the worker's close
             **ledger_record(worker._ledger, worker._mfu)}))
         conn.close()
     return done
+
+
+def log_sample_ids(worker, records, path: str) -> None:
+    """(s): append each trained, settled (acked) and stale-dropped sample id
+    to ``path`` as it happens (see :func:`async_trainer_probe`)."""
+    from areal_tpu_torch.system import sample_spool
+
+    def write(lines):
+        with open(path, "a") as f:
+            f.write("".join(ln + "\n" for ln in lines))
+
+    handle = worker._handle_mfc
+
+    def logged(p):
+        n = len(records)
+        out = handle(p)
+        write(f"trained {r['version']} {i}" for r in records[n:]
+              if r["mfc"] == "actor_train" for i in r["ids"])
+        return out
+
+    pop, observe = (sample_spool.SpoolIngest.pop_settled,
+                    sample_spool.SpoolIngest.observe)
+
+    def pop_settled(ing, sample_ids):
+        with ing._lock:
+            settled = [s for s in sample_ids if s in ing._pending]
+        out = pop(ing, sample_ids)
+        write(f"settled {i}" for i in settled)
+        return out
+
+    def observing(ing, sample_id, meta, cur, ver):
+        verdict = observe(ing, sample_id, meta, cur, ver)
+        if verdict[0] in ("stale", "ingest"):
+            write([f"{verdict[0]} {sample_id}"])
+        return verdict
+
+    worker._handle_mfc = logged
+    sample_spool.SpoolIngest.pop_settled = pop_settled
+    sample_spool.SpoolIngest.observe = observing
 
 
 def ledger_record(ledger, mfu) -> dict:
@@ -2396,26 +2499,16 @@ def proc_start_wall() -> float:
     return time.time() - uptime + ticks / os.sysconf("SC_CLK_TCK")
 
 
-def async_fleet_probe(conn, servers, mgr, first_digest: bool = False):
-    """(o)'s fleet probe, in the generation fleet's process once the server
-    and the manager run: counts K1's launches and the server's prefills
-    (and K1's launches inside each), times every batch; on SIGTERM (the
-    launcher's teardown) it sends ("done", record) with them, the server's
-    stats, version and live weights' SHA-256 per tensor, the manager's
-    version, quota and weight-sync history, and exits. Also the process's
-    start, the probe's call (the model built, server and manager up) and
-    the first accepted weight update, in wall-clock seconds; with
-    ``first_digest`` ((r): a respawned fleet) the SHA-256 of the server's
-    weights as it starts its first batch at a version > 0, before that
-    batch runs."""
-    import signal
-    import traceback
-
+def record_server(srv, first_digest: bool) -> dict:
+    """Hook a generation server (in its own process) for the probes, before
+    it serves: K1's launches per prefill, every batch timed, the process's
+    start, the probe's call ("ready": the model built) and the first
+    accepted weight update in wall-clock seconds, and (``first_digest``)
+    the SHA-256 of its weights as its first batch at a version > 0 starts.
+    Returns the containers the hooks fill."""
     from areal_tpu_torch.models import generate as genmod
     from areal_tpu_torch.ops import flash_attention as fa
 
-    srv = servers[0]
-    prebuilt = all(fa._lib_path(n).exists() for n in fa._SOURCES)
     prefill_k1, batches = [], []
     prefill, decode = genmod._prefill, srv._decode_batch
     times = {"proc_start": proc_start_wall(), "ready": time.time(),
@@ -2458,6 +2551,55 @@ def async_fleet_probe(conn, servers, mgr, first_digest: bool = False):
     fa.reset_launch_count()
     if srv.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    return {"prefill_k1": prefill_k1, "batches": batches, "times": times,
+            "first_versioned_batch": first}
+
+
+def dyn_server_probe(conn, srv):
+    """(t)'s probe of a dynamic generation server (the autoscaler's spawn),
+    in its process once the server is built: :func:`record_server` with the
+    first versioned batch's digests; after its commanded exit it sends
+    ("done", record) with them, K1's launches, its version, stats and peak
+    memory."""
+    from areal_tpu_torch.ops import flash_attention as fa
+
+    prebuilt = all(fa._lib_path(n).exists() for n in fa._SOURCES)
+    rec = record_server(srv, first_digest=True)
+
+    def done():
+        stats = srv.stats()
+        stats.pop("shapes", None)
+        conn.send(("done", {
+            **rec, "k1": fa.launch_counts()["flash_attention_fwd"],
+            "server_id": srv.cfg.server_id,
+            "server_version": srv.version, "stats": stats,
+            "kernels_prebuilt": prebuilt, "peak_gb": mem_peak(srv.device)}))
+        conn.close()
+    return done
+
+
+def async_fleet_probe(conn, servers, mgr, first_digest: bool = False):
+    """(o)'s fleet probe, in the generation fleet's process once the server
+    and the manager run: counts K1's launches and the server's prefills
+    (and K1's launches inside each), times every batch; on SIGTERM (the
+    launcher's teardown) it sends ("done", record) with them, the server's
+    stats, version and live weights' SHA-256 per tensor, the manager's
+    version, quota and weight-sync history, and exits. Also the process's
+    start, the probe's call (the model built, server and manager up) and
+    the first accepted weight update, in wall-clock seconds; with
+    ``first_digest`` ((r): a respawned fleet) the SHA-256 of the server's
+    weights as it starts its first batch at a version > 0, before that
+    batch runs."""
+    import signal
+    import traceback
+
+    from areal_tpu_torch.ops import flash_attention as fa
+
+    srv = servers[0]
+    prebuilt = all(fa._lib_path(n).exists() for n in fa._SOURCES)
+    rec = record_server(srv, first_digest)
+    prefill_k1, batches = rec["prefill_k1"], rec["batches"]
+    times, first = rec["times"], rec["first_versioned_batch"]
     # (p): telemetry's flight-dump hook, run after the record is sent
     prev_term = signal.getsignal(signal.SIGTERM)
 
@@ -2505,8 +2647,25 @@ def async_rollout_probe(conn, worker, log_dir=None):
     ``log_dir`` ((r)) every event of the reward-fleet client (remote,
     retries, local_fallback, ...) and every task it POSTs to a reward
     worker ("attempt") is appended to ``client_<pid>.log`` there as it
-    happens, so a killed incarnation's count survives it."""
+    happens, so a killed incarnation's count survives it. With the durable
+    spool on ((s)): every append's wall time, its ms (the record's write
+    and fsync) and the spool's depth and bytes after it, and the sender's
+    delivery counters."""
     from areal_tpu_torch.rewards import client as reward_client
+    from areal_tpu_torch.system import sample_spool
+
+    appends = []
+    append = sample_spool.SampleSpool.append_framed
+
+    def timed_append(spool, frame, ts=None):
+        t0, w0 = time.perf_counter(), time.time()
+        out = append(spool, frame, ts)
+        ms = 1e3 * (time.perf_counter() - t0)
+        st = spool.stats()
+        appends.append((w0, ms, st.depth, st.bytes))
+        return out
+
+    sample_spool.SampleSpool.append_framed = timed_append
 
     grade_ms = []
     step = worker.env.step
@@ -2553,6 +2712,9 @@ def async_rollout_probe(conn, worker, log_dir=None):
             "grade_ms": grade_ms,
             "local_verdicts": dict(reward_client.verdict_counts),
             "client": dict(svc.counts) if svc is not None else None,
+            "spool_appends": appends,
+            "spool_counts": (dict(worker._sender.counts)
+                             if worker._sender is not None else None),
             "cuda_initialized": torch.cuda.is_initialized()}))
         conn.close()
     return done
@@ -4076,16 +4238,114 @@ def dir_bytes(path: str) -> int:
                for d, _, fs in os.walk(path) for f in fs)
 
 
+def percentile(xs, q: float):
+    import numpy as np
+
+    return float(np.percentile(xs, q)) if len(xs) else None
+
+
+def unacked_at_trainer(path: str) -> int:
+    """(s): spooled samples a trainer ingested and has not acked, from its
+    ``ids_<pid>.txt``."""
+    try:
+        with open(path) as f:
+            kinds = [line.split(" ", 1)[0] for line in f]
+    except FileNotFoundError:
+        return 0
+    return kinds.count("ingest") - kinds.count("settled")
+
+
+def check_spool(recover_dir: str, ids_dir: str, rollouts: list,
+                killed_pid: int, ckpt_step: int, group_size: int,
+                ckpts: list, t_kill: float) -> dict:
+    """(s): no sample lost. On disk, ``appended == acked watermark + depth``;
+    every sample of every prompt in the consumed log was settled by a
+    trainer (acked: trained in a committed step) or dropped as a stale
+    replay, or is still in the spool for the next incarnation; no prompt
+    consumed twice; the relaunched worker replayed. Returns the spool's
+    numbers: the delivery counters of both incarnations, the peak depth
+    and bytes, append ms p50/p99 (all, and during a checkpoint's write),
+    and the samples the relaunched trainer trained again (trained by the
+    killed one in a committed step, their ack lost with it)."""
+    import glob
+
+    from areal_tpu_torch.system.sample_spool import SampleSpool
+    from areal_tpu_torch.system.streams import unpack
+
+    spool = SampleSpool(os.path.join(recover_dir, "spool_0"))
+    st = spool.stats()
+    pending = {unpack(raw)["ids"][0] for _, _, raw in spool.pending()}
+    spool.close()
+    appended = st.next_seqno - 1
+    check(appended == st.acked_watermark + st.depth and appended > 0,
+          f"(s): spool appended {appended} != acked {st.acked_watermark} + "
+          f"depth {st.depth}")
+    settled, stale, trained = set(), set(), {}
+    for path in glob.glob(os.path.join(ids_dir, "ids_*.txt")):
+        pid = int(os.path.basename(path)[4:-4])
+        with open(path) as f:
+            for line in f:
+                kind, *rest = line.split()
+                if kind == "settled":
+                    settled.add(rest[0])
+                elif kind == "stale":
+                    stale.add(rest[0])
+                elif kind == "trained":
+                    trained.setdefault(pid, []).append((int(rest[0]),
+                                                        rest[1]))
+    with open(os.path.join(recover_dir, "rollout_consumed_0.log")) as f:
+        consumed = [ln.strip() for ln in f if ln.strip()]
+    check(consumed and len(consumed) == len(set(consumed)),
+          "(s): a prompt consumed twice, or none consumed")
+    lost = [f"{u}@{j}" for u in consumed for j in range(group_size)
+            if f"{u}@{j}" not in settled | stale | pending]
+    check(not lost, f"(s): {len(lost)} consumed samples neither settled, "
+          f"dropped as stale nor spooled: {lost[:8]}")
+    counts = [r["spool_counts"] or {} for r in rollouts]
+    check(len(rollouts) == 2 and sum(c.get("replayed", 0) for c in counts)
+          > 0, f"(s): rollout incarnations' spool counters {counts}")
+    check(sum(c.get("appended", 0) for c in counts) == appended,
+          f"(s): the incarnations appended {counts}, the spool {appended}")
+    relaunched = [p for p in trained if p != killed_pid]
+    committed = {i for v, i in trained.get(killed_pid, []) if v < ckpt_step}
+    again = {i for p in relaunched for _, i in trained[p]} & committed
+    appends = [a for r in rollouts for a in r["spool_appends"]]
+    windows = [(c["t"] - c["write_s"], c["t"]) for c in ckpts]
+    in_ckpt = [ms for w, ms, _, _ in appends
+               if any(a <= w <= b for a, b in windows)]
+    all_ms = [ms for _, ms, _, _ in appends]
+    total = {k: sum(c.get(k, 0) for c in counts) for k in (
+        "appended", "acked", "replayed", "resent", "backpressure_waits")}
+    return {
+        "appended": appended, "acked_watermark": st.acked_watermark,
+        "depth_at_end": st.depth, "consumed_prompts": len(consumed),
+        "settled": len(settled), "stale_dropped": len(stale),
+        "spooled_at_end": len(pending & {f"{u}@{j}" for u in consumed
+                                         for j in range(group_size)}),
+        "counters": total, "by_incarnation": counts,
+        "trained_again": len(again),
+        "peak_depth": max((d for _, _, d, _ in appends), default=0),
+        "peak_bytes": max((b for _, _, _, b in appends), default=0),
+        "append_ms_p50": percentile(all_ms, 50),
+        "append_ms_p99": percentile(all_ms, 99),
+        "append_ms_max": max(all_ms, default=None),
+        "appends_during_ckpt": len(in_ckpt),
+        "append_ms_p50_during_ckpt": percentile(in_ckpt, 50),
+        "append_ms_p99_during_ckpt": percentile(in_ckpt, 99),
+        "kill_wall": t_kill}
+
+
 def run_relaunch_drain(cfg, tmp: str, device: str = "cuda", steps: int = 4,
                        n_prompts: int = 4, group_size: int = 16,
                        chunk_tokens: int = 128, max_new_tokens: int = 256,
-                       timeout: float = 600.0, kill_after: int = 2,
+                       timeout: float = 600.0, kill_after: int = 1,
                        extra=(), hf_dir=None) -> dict:
-    """(s): (o)'s loop with ``recover_mode=auto`` and a recover checkpoint
-    every step through ``run_experiment``: the trainer SIGKILLed once step
-    ``kill_after``'s checkpoint and publish are in; the relaunch resumes;
-    after its first step, ``request_drain()`` (the SIGTERM handler's
-    path). The checks of the module docstring."""
+    """(s): (o)'s loop with ``recover_mode=auto``, a recover checkpoint
+    every step and the durable spool, through ``run_experiment``: the
+    trainer SIGKILLed once step ``kill_after``'s checkpoint and publish are
+    in; the relaunch resumes and replays the spool; after its first step,
+    ``request_drain()`` (the SIGTERM handler's path). The checks of the
+    module docstring."""
     import functools
     import glob
     import multiprocessing
@@ -4103,7 +4363,8 @@ def run_relaunch_drain(cfg, tmp: str, device: str = "cuda", steps: int = 4,
     exp = async_loop_config(cfg, tmp, "s", device, steps, n_prompts,
                             group_size, chunk_tokens, max_new_tokens,
                             ("recover_mode=auto", "exp_ctrl.ckpt_freq_steps=1",
-                             *extra), hf_dir=hf_dir)
+                             "durability.enabled=true", *extra),
+                            hf_dir=hf_dir)
     digest_dir = os.path.join(tmp, "digests")
     os.makedirs(digest_dir)
     recover_dir = C.experiment_paths(exp)["recover"]
@@ -4146,10 +4407,15 @@ def run_relaunch_drain(cfg, tmp: str, device: str = "cuda", steps: int = 4,
         t = time.perf_counter()
         out = do_ckpt(master)
         ckpts.append({"step": master.step, "dir": out, "t": time.time(),
-                      "write_s": time.perf_counter() - t})
+                      "write_s": time.perf_counter() - t,
+                      "step_ms": [1e3 * st["timeperf/e2e"]
+                                  for st in master._stats_history]})
         return out
 
     old_repo = name_resolve.DEFAULT_REPO
+    # the repository run_experiment sets up, here before the first status
+    # poll (a poll on another repository waits out its timeout)
+    C.setup_name_resolve(exp)
     L.LocalLauncher, MW.MasterWorker._do_ckpt = Recorded, timed_ckpt
     t0 = time.monotonic()
     deadline = t0 + 2 * timeout + 300
@@ -4165,6 +4431,13 @@ def run_relaunch_drain(cfg, tmp: str, device: str = "cuda", steps: int = 4,
             check(time.monotonic() < deadline, "(s): step "
                   f"{kill_after}'s checkpoint or publish never landed")
             time.sleep(0.1)
+        # and once the trainer holds a group of spooled samples it has not
+        # acked, so that the relaunch has something to replay
+        ids_path = os.path.join(digest_dir, f"ids_{trainer_pid}.txt")
+        while unacked_at_trainer(ids_path) < group_size:
+            check(time.monotonic() < deadline, "(s): the trainer never held "
+                  f"{group_size} unacked spooled samples")
+            time.sleep(0.05)
         t_kill = time.time()
         os.kill(trainer_pid, signal.SIGKILL)
         while len(launches) < 2:
@@ -4237,8 +4510,15 @@ def run_relaunch_drain(cfg, tmp: str, device: str = "cuda", steps: int = 4,
     launches_total = {k: sum(r["launches"][k] for r in recs)
                       for k in KERNEL_NAMES}
     launches_total["flash_attention_fwd"] += sum(f["k1"] for f in fleets)
+    spool = check_spool(recover_dir, digest_dir, run.done("rollout"),
+                        trainer_pid, ckpt_step, group_size, ckpts, t_kill)
+    spool["ingest_relaunched"] = tr["ingest"]
     return {
         "steps": result["steps"], "resumed_at": ckpt_step,
+        "spool": spool,
+        "step_ms_before_kill": next(
+            (c["step_ms"] for c in ckpts if c["step"] == ckpt_step
+             and c["t"] <= t_kill), None),
         "step_ms": [1e3 * st["timeperf/e2e"] for st in result["stats"]],
         "kill_to_escalation_s": first["t_fail"] - t_kill,
         "escalation_to_relaunch_s": second["t_start"] - first["t_fail"],
@@ -4251,6 +4531,311 @@ def run_relaunch_drain(cfg, tmp: str, device: str = "cuda", steps: int = 4,
         "exit_codes": procs,
         "trainer_peak_gb": tr["peak_gb"],
         "launches_total": launches_total, "loop_s": loop_s,
+        "setup_s": t0 - t_setup,
+    }
+
+
+# ---------------- (t) the elastic fleet ----------------
+
+
+def get_json(url: str, timeout: float = 30.0) -> dict:
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def window_rate(batches: list, a: float, b: float) -> dict:
+    """A server's batches that started in [a, b): decode ms per step and
+    generated tokens per second of the window."""
+    bs = [x for x in batches if a <= x["t0"] < b]
+    steps = sum(x["decode_steps"] for x in bs)
+    return {"batches": len(bs),
+            "decode_ms_per_step": (1e3 * sum(x["decode_s"] for x in bs)
+                                   / steps if steps else None),
+            "generated_tokens_per_s": (sum(x["tokens"] for x in bs)
+                                       / (b - a) if b > a else None),
+            "window_s": b - a}
+
+
+def elastic_sequence(exp, launcher, run, deadline: float,
+                     two_server_secs: float) -> dict:
+    """(t)'s operator side, while the loop runs: wait for the plan to ask
+    for a dynamic server, its spawn, registration and admission; keep two
+    servers for ``two_server_secs``; cordon the
+    baseline server with ``perf_probe cordon`` (a preemption notice) and
+    follow its drain on the manager's fleet map (its outstanding leases may
+    only fall: no new lease); ``perf_probe uncordon`` it and wait for its
+    re-admission through the health gate. Wall-clock times of each stage,
+    the fleet map at each and the manager's plan."""
+    from areal_tpu_torch.base import name_resolve, names
+    from areal_tpu_torch.system.autoscaler import read_plan
+    from areal_tpu_torch.tools import perf_probe
+
+    E, T = exp.experiment_name, exp.trial_name
+    out = {}
+
+    def wait(cond, what):
+        while True:
+            check(run.thread.is_alive(), f"(t): the loop ended before "
+                  f"{what}: {run.box.get('error')!r}")
+            check(time.monotonic() < deadline, f"(t): no {what}")
+            got = cond()
+            if got:
+                return got
+            time.sleep(0.1)
+
+    mgr = wait(lambda: nr_value(name_resolve, names.gen_server_manager(E, T)),
+               "manager")
+    fleet = lambda: get_json(f"{mgr}/metrics.json")  # noqa: E731
+
+    def server(sid):
+        m = fleet()
+        return next(((u, st, m) for u, st in m["fleet"].items()
+                     if st["server_id"] == sid), (None, None, m))
+
+    out["plan"] = wait(lambda: (read_plan(E, T) or {}).get("dynamic", 0) >= 1
+                       and read_plan(E, T), "plan for a dynamic server")
+    out["t_plan"] = time.time()
+    m = fleet()
+    out["at_plan"] = {"running_rollouts": m["running_rollouts"],
+                      "autoscale": m["autoscale"],
+                      "healthy_servers": m["healthy_servers"]}
+    wait(lambda: launcher._scaler is not None and launcher._scaler.spawned,
+         "dynamic spawn")
+    out["t_spawn"] = time.time()
+    wait(lambda: nr_value(name_resolve, names.gen_servers(E, T, "dyn1")),
+         "dynamic server's registration")
+    out["t_registered"] = time.time()
+
+    def admitted(sid):
+        u, st, m = server(sid)
+        return (u and st["routable"] and st["acked_version"] == m["version"]
+                and (u, m["version"]))
+
+    dyn_url, out["version_at_admission"] = wait(lambda: admitted("dyn1"),
+                                                "dynamic server's admission")
+    out["t_routable"] = time.time()
+    # a rollout stays on its server for all its chunks: dyn1's share of the
+    # load starts with the next rollouts the gate admits
+    wait(lambda: get_json(f"{dyn_url}/metrics.json")["generated_tokens"] > 0,
+         "dyn1's first generated tokens")
+    out["t_serving"] = time.time()
+    print("(t) fleet-status with two servers:", flush=True)
+    perf_probe.fleet_status(E, T)
+    t_end = time.monotonic() + two_server_secs
+    while time.monotonic() < t_end:
+        check(run.thread.is_alive(), "(t): the loop ended with two servers")
+        time.sleep(0.2)
+    base_url, _, _ = server("gen0")
+    check(base_url is not None, "(t): no baseline server gen0")
+    out["t_cordon"] = time.time()
+    reply = perf_probe.cordon(E, T, "gen0", "preemption notice")
+    check(reply.get("ok") and reply.get("url") == base_url,
+          f"(t): cordon gen0 answered {reply}")
+    drains = [reply.get("draining", 0)]
+
+    def drained():
+        _, st, _ = server("gen0")
+        check(st is not None and st["cordoned"] and not st["routable"],
+              f"(t): gen0 while draining: {st}")
+        drains.append(st["draining"])
+        return st["draining"] == 0
+
+    wait(drained, "drain of the cordoned gen0")
+    out["t_drained"] = time.time()
+    check(all(b <= a for a, b in zip(drains, drains[1:])), "(t): the "
+          f"cordoned gen0 got a new lease: outstanding leases {drains}")
+    out["drain_leases"] = drains[0]
+    res = perf_probe.cordon(E, T, "gen0", un=True)
+    check(res.get("ok"), f"(t): uncordon gen0 answered {res}")
+    out["t_uncordon"] = time.time()
+    _, out["version_at_readmission"] = wait(lambda: admitted("gen0"),
+                                            "gen0's re-admission")
+    out["t_readmitted"] = time.time()
+    out["servers"] = {"gen0": base_url, "dyn1": dyn_url}
+    return out
+
+
+def run_elastic_fleet(cfg, tmp: str, device: str = "cuda", steps: int = 5,
+                      n_prompts: int = 4, group_size: int = 16,
+                      chunk_tokens: int = 128, max_new_tokens: int = 256,
+                      timeout: float = 600.0, two_server_secs: float = 10.0,
+                      extra=(), hf_dir=None) -> dict:
+    """(t): (o)'s loop with ``autoscale.enabled=true min_servers=1
+    max_servers=2`` through the launcher, and :func:`elastic_sequence`
+    while it runs. The checks of the module docstring; the launch checks
+    only on the card."""
+    import functools
+    import multiprocessing
+
+    import numpy as np
+
+    from areal_tpu_torch.api.cli_args import validate_config
+    from areal_tpu_torch.apps.launcher import LocalLauncher
+    from areal_tpu_torch.base import name_resolve
+    from areal_tpu_torch.experiments import common as C
+
+    cuda = torch.device(device).type == "cuda"
+    t_setup = time.monotonic()
+    exp = async_loop_config(cfg, tmp, "t", device, steps, n_prompts,
+                            group_size, chunk_tokens, max_new_tokens,
+                            ("autoscale.enabled=true",
+                             "autoscale.min_servers=1",
+                             "autoscale.max_servers=2",
+                             # the one cut: a tick a second, so that the
+                             # replacement a cordoned gen0 draws is scaled
+                             # down as soon as it is admitted (a third
+                             # server's memory on one card)
+                             "autoscale.interval_secs=1", *extra),
+                            hf_dir=hf_dir)
+    validate_config(exp)
+    ctx = multiprocessing.get_context("spawn")
+    pipes = {k: ctx.Pipe(duplex=False)
+             for k in ("trainer", "gen_fleet", "gen_server", "rollout")}
+    probes = {
+        "trainer": functools.partial(async_trainer_probe,
+                                     pipes["trainer"][1]),
+        "gen_fleet": functools.partial(async_fleet_probe,
+                                       pipes["gen_fleet"][1]),
+        "gen_server": functools.partial(dyn_server_probe,
+                                        pipes["gen_server"][1]),
+        "rollout": functools.partial(async_rollout_probe,
+                                     pipes["rollout"][1])}
+    old_repo = name_resolve.DEFAULT_REPO
+    C.setup_name_resolve(exp)
+    launcher = LocalLauncher(exp, probes=probes)
+    mem, stop_mem = [], threading.Event()
+
+    def sample_mem():  # the card's memory in use, every second
+        while not stop_mem.wait(1.0):
+            mem.append((time.time(), gpu_memory_used_mb()))
+
+    if cuda:
+        threading.Thread(target=sample_mem, daemon=True).start()
+    t0 = time.monotonic()
+    deadline = t0 + timeout + 300
+    run = LoopRun(launcher.run, pipes, "(t)")
+    try:
+        ev = elastic_sequence(exp, launcher, run, deadline, two_server_secs)
+        result = run.join(max(deadline - time.monotonic(), 1))
+    finally:
+        stop_mem.set()
+        if run.thread.is_alive():
+            launcher.request_drain()
+            run.thread.join(120)
+        name_resolve.DEFAULT_REPO = old_repo
+    loop_s = time.monotonic() - t0
+    (tr,), (fleet,), (roll,) = (run.done(k) for k in
+                                ("trainer", "gen_fleet", "rollout"))
+    dyns = {d["server_id"]: d for d in run.done("gen_server")}
+    check(result["steps"] == steps, f"(t): {result['steps']} steps")
+    stats = result["stats"]
+    check_loop_stats(stats, "(t)")
+    # The cordoned gen0 leaves one routable server under a target of 2, so
+    # the plan may ask for a replacement (dyn2); gen0's re-admission then
+    # puts the fleet over its target and the loop scales a dynamic server
+    # down (cordon, drain, commanded exit). Every dynamic server must exit
+    # 0, by that command or at the shutdown, and send its record.
+    spawned = launcher._scaler.spawned
+    check(ev["plan"]["target"] == 2 and spawned[:1] == ["dyn1"]
+          and sorted(dyns) == sorted(spawned),
+          f"(t): plan {ev['plan']}, spawned {spawned}, records "
+          f"{sorted(dyns)}")
+    exits = {sid: launcher.supervisor.entry(f"genserver_{sid}").proc.exitcode
+             for sid in spawned}
+    check(all(code == 0 for code in exits.values()),
+          f"(t): dynamic servers' exit codes {exits}")
+    dyn = dyns["dyn1"]
+    first = dyn["first_versioned_batch"]
+    for sid, d in dyns.items():
+        f = d["first_versioned_batch"]
+        check(sid != "dyn1" or f, "(t): dyn1 served no batch at a version "
+              "> 0")
+        check(not f or (f["version"] in tr["digests"]
+                        and f["digests"] == tr["digests"][f["version"]]),
+              f"(t): {sid}'s first batch at v{f.get('version')} ran on "
+              "weights other than the actor the trainer published as that "
+              "version")
+    check(roll["abandoned"] == 0 and fleet["running_rollouts"] == 0,
+          f"(t): {roll['abandoned']} rollouts abandoned, "
+          f"{fleet['running_rollouts']} samples of quota held at the end")
+    check(roll["pushed"] >= steps * n_prompts * group_size,
+          f"(t): {roll['pushed']} trajectories pushed")
+    recs = tr["records"]
+    if cuda:
+        for who, f in (("gen0", fleet), *dyns.items()):
+            check(f["kernels_prebuilt"] and f["k1"]
+                  == cfg.n_layers * len(f["prefill_k1"])
+                  and (f["prefill_k1"] or who not in ("gen0", "dyn1")),
+                  f"(t): K1 launched {f['k1']} times in {who} over "
+                  f"{len(f['prefill_k1'])} prefills")
+        for r in recs:
+            check_launches(f"(t) {r['mfc']}", r["launches"],
+                           r["micro_batches"], cfg.n_layers,
+                           train=r["mfc"].endswith("_train"))
+    launches = {k: sum(r["launches"][k] for r in recs) for k in KERNEL_NAMES}
+    launches["flash_attention_fwd"] += fleet["k1"] + sum(
+        d["k1"] for d in dyns.values())
+    # the step ends (the last MFC of each step) split at the admission
+    ends = [max(r["t1"] for r in recs[i:i + len(ASYNC_MFCS)])
+            for i in range(0, len(recs), len(ASYNC_MFCS))]
+    starts = [None] + ends[:-1]
+    step_ms = [1e3 * st["timeperf/e2e"] for st in stats]
+    before = [ms for ms, e in zip(step_ms[1:], ends[1:])
+              if e <= ev["t_routable"]]
+    after = [ms for ms, a in zip(step_ms, starts)
+             if a is not None and a >= ev["t_routable"]]
+    t_first = fleet["batches"][0]["t0"] if fleet["batches"] else t0
+    one = {"gen0": window_rate(fleet["batches"], t_first, ev["t_routable"])}
+    two = {"gen0": window_rate(fleet["batches"], ev["t_serving"],
+                               ev["t_cordon"]),
+           "dyn1": window_rate(dyn["batches"], ev["t_serving"],
+                               ev["t_cordon"])}
+    cordoned = {"dyn1": window_rate(dyn["batches"], ev["t_cordon"],
+                                    ev["t_drained"])}
+    times = dyn["times"]
+    return {
+        "steps": result["steps"], "step_ms": step_ms,
+        "ms_per_step_before_scale_up": (float(np.mean(before))
+                                        if before else None),
+        "ms_per_step_after_scale_up": float(np.mean(after)) if after else None,
+        "plan": ev["plan"], "at_plan": ev["at_plan"],
+        "plan_to_spawn_s": ev["t_spawn"] - ev["t_plan"],
+        "plan_to_process_start_s": times["proc_start"] - ev["t_plan"],
+        "plan_to_model_built_s": times["ready"] - ev["t_plan"],
+        "plan_to_registered_s": ev["t_registered"] - ev["t_plan"],
+        "plan_to_routable_s": ev["t_routable"] - ev["t_plan"],
+        "routable_to_first_tokens_s": ev["t_serving"] - ev["t_routable"],
+        "version_at_admission": ev["version_at_admission"],
+        "first_versioned_batch": {"version": first["version"],
+                                  "s_after_ready": first["t"]
+                                  - times["ready"]},
+        "one_server": one, "two_servers": two,
+        "two_servers_tokens_per_s": sum(
+            w["generated_tokens_per_s"] or 0.0 for w in two.values()),
+        "while_gen0_drains": cordoned,
+        "cordon_to_drained_s": ev["t_drained"] - ev["t_cordon"],
+        "leases_draining_at_cordon": ev["drain_leases"],
+        "uncordon_to_readmitted_s": ev["t_readmitted"] - ev["t_uncordon"],
+        "version_at_readmission": ev["version_at_readmission"],
+        "card_used_mb_two_servers": max(
+            (mb for t, mb in mem if ev["t_serving"] <= t < ev["t_cordon"]),
+            default=None),
+        "card_used_mb_max": max((mb for _, mb in mem), default=None),
+        "card_used_mb_max_after_plan_s": (max(mem, key=lambda x: x[1])[0]
+                                          - ev["t_plan"] if mem else None),
+        "peak_gb": {"trainer": tr["peak_gb"], "gen0": fleet["peak_gb"],
+                    "dyn1": dyn["peak_gb"]},
+        "failovers": roll["failovers"], "denials": roll["denials"],
+        "dynamic_servers": {sid: {
+            "batches": len(d["batches"]), "exit_code": exits[sid],
+            "prefills": len(d["prefill_k1"]),
+            "proc_start_after_plan_s": d["times"]["proc_start"]
+            - ev["t_plan"],
+            "ready_after_plan_s": d["times"]["ready"] - ev["t_plan"],
+            "first_versioned_batch": (d["first_versioned_batch"] or {}).get(
+                "version"), "peak_gb": d["peak_gb"]}
+            for sid, d in dyns.items()},
+        "launches_total": launches, "loop_s": loop_s,
         "setup_s": t0 - t_setup,
     }
 
@@ -4371,10 +4956,13 @@ def main() -> None:
     del model, iface  # (j) builds three engines of its own
     torch.cuda.empty_cache()
 
-    # (j) trainer steps of the async-PPO recipe, then the host path
+    # (j) trainer steps of the async-PPO recipe, then the host path; (j)-(n)
+    # and (p), (q3), (r) run at 8 of the 24 layers (full width): the cut
+    # that makes room for (s) and (t) at full depth in the time limit
+    cut = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
     t_trainer = time.monotonic()
-    tr, tbatch, tdata, trainer = run_trainer(fa, cfg, trainer_batch(
-        cfg.vocab_size), spec)
+    tr, tbatch, tdata, trainer = run_trainer(fa, cut, trainer_batch(
+        cut.vocab_size), spec)
     print("trainer step", json.dumps(trainer), f"({card})", flush=True)
     compare_ref_inf(tr, tbatch, spec)
     print("trainer breakdown", json.dumps(trainer_breakdown(tr, tbatch, spec)),
@@ -4383,12 +4971,12 @@ def main() -> None:
     # (k) checkpoints at full width, under a temporary directory
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
-        ckpt = run_checkpoints(tr, cfg, tbatch, tdata, spec, tmp)
+        ckpt = run_checkpoints(tr, cut, tbatch, tdata, spec, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # (l) one SFT step
-    sft = run_sft(tr, cfg, tbatch, spec)
+    sft = run_sft(tr, cut, tbatch, spec)
     trainer_launches = dict(tr.launches)
     print("trainer path", json.dumps({
         "launches": tr.launches, "checkpoints": ckpt, "sft_ms": sft["ms"],
@@ -4400,7 +4988,7 @@ def main() -> None:
     t_sync = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_sync_")
     try:
-        wsync = run_weight_sync(fa, cfg, tr.actor, eos, tmp)
+        wsync = run_weight_sync(fa, cut, tr.actor, eos, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("weight sync", json.dumps({
@@ -4413,7 +5001,7 @@ def main() -> None:
     t_loop = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_loop_")
     try:
-        loop = run_sync_loop(cfg, tmp, steps=3, eos=eos)
+        loop = run_sync_loop(cut, tmp, steps=3, eos=eos)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("sync loop", json.dumps({
@@ -4422,12 +5010,14 @@ def main() -> None:
     loop_launches = loop["launches_total"]
 
     # (o) the async-PPO loop: run_experiment spawns the trainer, the
-    # generation fleet and a rollout worker; the master runs here. (o)-(s)
-    # load one HF checkpoint, written once.
+    # generation fleet and a rollout worker; the master runs here. (o), (s)
+    # and (t) load one HF checkpoint at full depth, (p), (q3) and (r) a
+    # second at 8 of the 24 layers (full width); each is written once.
     t_async = time.monotonic()
     hf_tmp = tempfile.mkdtemp(prefix="chip_smoke_hf_")
     atexit.register(shutil.rmtree, hf_tmp, True)
     loop_hf = loop_checkpoint(cfg, os.path.join(hf_tmp, "init_hf"), "cuda")
+    cut_hf = loop_checkpoint(cut, os.path.join(hf_tmp, "cut_hf"), "cuda")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_async_")
     try:
         async_loop = run_async_loop(cfg, tmp, steps=4, hf_dir=loop_hf)
@@ -4438,12 +5028,12 @@ def main() -> None:
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
     async_launches = async_loop["launches_total"]
 
-    # (p) the same loop with every observability switch on
+    # (p) the same loop with every observability switch on, at the cut depth
     t_obs = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_observed_")
     try:
-        observed = run_async_loop(cfg, tmp, steps=3, observe=True,
-                                  hf_dir=loop_hf)
+        observed = run_async_loop(cut, tmp, steps=3, observe=True,
+                                  hf_dir=cut_hf)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("observed async loop", json.dumps({
@@ -4469,8 +5059,8 @@ def main() -> None:
     del params
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_serving_")
-    try:
-        served = run_async_loop(cfg, tmp, steps=3, hf_dir=loop_hf,
+    try:  # (q3) at the cut depth
+        served = run_async_loop(cut, tmp, steps=3, hf_dir=cut_hf,
                                 extra=("serving.enabled=true",),
                                 interactive=True)
     finally:
@@ -4492,11 +5082,11 @@ def main() -> None:
     serving_k1 = (prefix["k1_launches"] + classes["k1_launches"]
                   + served_launches["flash_attention_fwd"])
 
-    # (r) the reward fleet and respawns in the async loop
+    # (r) the reward fleet and respawns in the async loop, at the cut depth
     t_r = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_reward_")
     try:
-        fleet = run_reward_fleet(cfg, tmp, hf_dir=loop_hf)
+        fleet = run_reward_fleet(cut, tmp, steps=4, hf_dir=cut_hf)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("(r) reward fleet and respawns", json.dumps({
@@ -4513,10 +5103,31 @@ def main() -> None:
         relaunch = run_relaunch_drain(cfg, tmp, hf_dir=loop_hf)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print("(s) relaunch and drain", json.dumps({
-        **relaunch, "phase_s_s": time.monotonic() - t_s,
+    print("(s) relaunch and drain with the durable spool", json.dumps({
+        **relaunch, "ms_per_step_o": async_loop["ms_per_step"],
+        "step_ms_o": async_loop["step_ms"],
+        "escalation_to_first_step_s_pr11": 53.37,
+        "phase_s_s": time.monotonic() - t_s,
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
     relaunch_launches = relaunch["launches_total"]
+
+    # (t) the elastic fleet: the autoscaler's second server, cordon and
+    # uncordon
+    t_t = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        elastic = run_elastic_fleet(cfg, tmp, hf_dir=loop_hf)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("(t) elastic fleet", json.dumps({
+        **elastic, "ms_per_step_o": async_loop["ms_per_step"],
+        "phase_t_s": time.monotonic() - t_t,
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+    elastic_launches = elastic["launches_total"]
+    print("phase seconds", json.dumps({
+        "o": t_obs - t_async, "p": t_q - t_obs, "q": t_r - t_q,
+        "r": t_s - t_r, "s": t_t - t_s, "t": time.monotonic() - t_t,
+        "script": time.monotonic() - t_start}), flush=True)
 
     lib_line = ("areal_tpu/ops/pallas/flash_attention.py:200 backward: the "
                 "Pallas TPU library's {} :{} (pallas_call :{})")
@@ -4531,7 +5142,8 @@ def main() -> None:
         + async_launches["flash_attention_fwd"]
         + observed_launches["flash_attention_fwd"] + serving_k1
         + fleet_launches["flash_attention_fwd"]
-        + relaunch_launches["flash_attention_fwd"],
+        + relaunch_launches["flash_attention_fwd"]
+        + elastic_launches["flash_attention_fwd"],
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_attention_fwd"],
                              "trainer": trainer_launches["flash_attention_fwd"],
@@ -4545,7 +5157,9 @@ def main() -> None:
                              "reward_fleet":
                              fleet_launches["flash_attention_fwd"],
                              "relaunch_drain":
-                             relaunch_launches["flash_attention_fwd"]},
+                             relaunch_launches["flash_attention_fwd"],
+                             "elastic_fleet":
+                             elastic_launches["flash_attention_fwd"]},
         "max_abs_err": k1_train_check["max_abs_err"],
         "ms": timing_train["kernel_ms"], "kernel_ms": timing_train["kernel_ms"],
         "plain_ms": timing_train["plain_ms"],
@@ -4567,7 +5181,8 @@ def main() -> None:
             "launches": train_launches[name] + trainer_launches[name]
             + loop_launches[name] + async_launches[name]
             + observed_launches[name] + served_launches[name]
-            + fleet_launches[name] + relaunch_launches[name],
+            + fleet_launches[name] + relaunch_launches[name]
+            + elastic_launches[name],
             "launches_by_path": {"train": train_launches[name],
                                  "trainer": trainer_launches[name],
                                  "sync_loop": loop_launches[name],
@@ -4576,7 +5191,8 @@ def main() -> None:
                                  observed_launches[name],
                                  "serving": served_launches[name],
                                  "reward_fleet": fleet_launches[name],
-                                 "relaunch_drain": relaunch_launches[name]},
+                                 "relaunch_drain": relaunch_launches[name],
+                                 "elastic_fleet": elastic_launches[name]},
             "max_abs_err": err,
             "ms": rec["kernel_ms"], "kernel_ms": rec["kernel_ms"],
             "plain_ms": bwd_timing["plain_bwd_ms"],

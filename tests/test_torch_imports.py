@@ -45,7 +45,7 @@ def test_every_module_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 86  # every module was walked
+    assert int(res.stdout.strip()) >= 88  # every module was walked
 
 
 def test_no_file_names_jax_or_the_reference_package():
@@ -181,6 +181,31 @@ def test_reward_worker_path_imports_no_torch():
     sandbox worker pays no torch in host memory. Torch is blocked."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", _REWARD_NO_TORCH], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+_FLEET_NO_TORCH = """
+import sys
+for blocked in ("torch", "jax", "zmq", "aiohttp", "msgpack", "yaml"):
+    sys.modules[blocked] = None
+from areal_tpu_torch.system import autoscaler, sample_spool
+from areal_tpu_torch.api.cli_args import BaseExperimentConfig, validate_config
+cfg = BaseExperimentConfig(backend="cpu")
+cfg.durability.enabled = cfg.autoscale.enabled = True
+validate_config(cfg)
+assert autoscaler.AutoscalerCore and sample_spool.SampleSpool
+print("ok")
+"""
+
+
+def test_spool_and_autoscaler_modules_import_without_torch():
+    """The durable spool (a rollout worker's process), the autoscaler (the
+    launcher's executor and the manager) and the validation of their config
+    blocks import and run with torch, jax, zmq, aiohttp, msgpack and yaml
+    blocked."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _FLEET_NO_TORCH], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 

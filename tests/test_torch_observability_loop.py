@@ -53,8 +53,6 @@ OBSERVE = ("telemetry.enabled=true", "telemetry.flush_interval_secs=0.5",
 
 # Families only the reference's scrape has, by the piece they wait for.
 NOT_PORTED = {
-    # the autoscaler
-    "areal_autoscale_cordoned_servers", "areal_autoscale_current_size",
     # meshes and MoE
     "areal_train_moe_ep_engaged", "areal_train_pp_engaged",
     "areal_train_ring_engaged",

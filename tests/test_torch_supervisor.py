@@ -212,7 +212,8 @@ def test_reward_workers_are_a_restartable_domain():
         sup._entries["rollout0"].proc.die(-9)
         with pytest.raises(mod.SupervisorEscalation):
             sup.check()
-    assert set(tsup.STATELESS_KINDS) == {"rollout", "gen_fleet", "reward"}
+    assert set(tsup.STATELESS_KINDS) == {"rollout", "gen_fleet", "reward",
+                                         "gen_server"}
 
 
 def _ghost_keys(pkg, exp, trial):
