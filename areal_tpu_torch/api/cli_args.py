@@ -10,12 +10,15 @@ names), :func:`print_config_help` and the parts of
 
 Differences: ``backend`` is ``cuda`` (default) or ``cpu``, the device every
 worker runs on; ``n_gpus_per_node`` defaults to 1, the port's one card; a
-model role's ``backend`` defaults to ``torch_train``;
-``compile_watch.storm_warmup_calls`` is left out (no jitted function to
-watch); a list field also takes a JSON list (``sentinel.rules=[{...}]``:
-the reference sets rule packs through its YAML). Left out with the
-pieces that read them: auto_eval, multi-process trainers, and the YAML dump
-and load (``yaml`` is not known on the card's machine).
+model role's ``backend`` defaults to ``torch_train``; a list field also
+takes a JSON list (``sentinel.rules=[{...}]``: the reference sets rule
+packs through its YAML). Left out with the pieces that read them:
+multi-process trainers, the YAML dump and load (``yaml`` is not known on
+the card's machine) and ``compile_watch.storm_warmup_calls`` (no jitted
+function to watch); left out because nothing reads them:
+``dataset.valid_bs_n_seqs`` and ``dataset.fill_to_max_length`` of the SFT
+dataset, and ``auto_eval_config.eval_job_image``,
+``initial_checkpoint_path`` and ``prompt_type``.
 """
 
 from __future__ import annotations
@@ -123,6 +126,15 @@ class PromptOnlyDatasetConfig:
 
 
 @dataclasses.dataclass
+class PromptAnswerDatasetConfig:
+    """SFT dataset (reference cli_args.py:58)."""
+
+    path: str = ""
+    max_seqlen: int = 1024
+    train_bs_n_seqs: int = 256
+
+
+@dataclasses.dataclass
 class ClusterSpecConfig:
     """Reference cli_args.py:896."""
 
@@ -140,6 +152,21 @@ class WandBConfig:
 @dataclasses.dataclass
 class TensorBoardConfig:
     path: Optional[str] = None
+
+
+@dataclasses.dataclass
+class AutomaticEvaluatorConfig:
+    """Reference cli_args.py:791 (AutomaticEvaluator)."""
+
+    data_names: str = "aime24"
+    max_gen_tokens: int = 32768
+    max_concurrent_jobs: int = 1
+    # pass@k sampling evaluation (apps/eval_ckpt.py): k > 1 draws k
+    # temperature-sampled generations per prompt and the evaluator writes
+    # pass@1 / pass@k / pass^k per task kind for every saved checkpoint;
+    # k = 1 keeps the greedy single-sample accuracy.
+    eval_k: int = 1
+    temperature: float = 0.6
 
 
 @dataclasses.dataclass
@@ -168,6 +195,11 @@ class BaseExperimentConfig:
     wandb: WandBConfig = dataclasses.field(default_factory=WandBConfig)
     tensorboard: TensorBoardConfig = dataclasses.field(
         default_factory=TensorBoardConfig)
+    # Score every saved checkpoint in an eval subprocess on the run's
+    # device (apps/evaluator.py).
+    auto_eval: bool = False
+    auto_eval_config: AutomaticEvaluatorConfig = dataclasses.field(
+        default_factory=AutomaticEvaluatorConfig)
     # Trainer -> generation-fleet weight transport: stream | disk.
     weight_sync: WeightSyncConfig = dataclasses.field(
         default_factory=WeightSyncConfig)
@@ -207,6 +239,10 @@ class BaseExperimentConfig:
         default_factory=DurabilityConfig)
     # Test and bring-up runs: the byte-level mock tokenizer.
     mock_tokenizer: bool = False
+
+    def _device(self) -> Optional[str]:
+        """Every worker's device: the CPU only when asked for."""
+        return "cpu" if self.backend == "cpu" else None
 
     def resolve_trial_name(self) -> str:
         if not self.trial_name:
@@ -343,7 +379,7 @@ VALID_RECOVER_MODES = ("disabled", "resume", "auto", "fault")
 
 # MFC names the PPO experiment graph schedules (experiments/ppo_math_exp.py).
 KNOWN_MFCS = ("actor_train", "actor_gen", "actor_inf", "critic_train",
-              "critic_inf", "ref_inf", "rew_inf")
+              "critic_inf", "ref_inf", "rew_inf", "fused_rew_ref_inf")
 
 
 def validate_config(cfg) -> None:

@@ -29,6 +29,13 @@ reward workers are told to exit (in-flight rollouts return their quota),
 the trainer exits on the master's word, and the rest is terminated; every
 wait is bounded.
 
+With ``auto_eval`` an :class:`~areal_tpu_torch.apps.evaluator.
+AutomaticEvaluator` watches the save directory of the graph's trained role
+(``actor``, or SFT's ``default``) while the run lasts and scores each saved
+checkpoint in an eval subprocess on the run's device; the scores go to
+``eval/*`` beside the master's scalars and into the result's
+``auto_eval``. At the end it is stopped, an eval still running included.
+
 With ``autoscale.enabled`` the monitor loop also steps the
 :class:`~areal_tpu_torch.system.autoscaler.AutoscaleExecutor`: it reads the
 manager's plan and spawns dynamic single-server workers (``gen_server``,
@@ -43,11 +50,14 @@ a worker kind (``trainer``, ``gen_fleet``, ``gen_server``, ``rollout``,
 worker(s) once they are built; a callable it returns is called after the
 worker's run. A respawned child gets its kind's probe too.
 
-Left out: the evaluator, multi-process trainers and slurm (ROADMAP.md).
+Left out: multi-process trainers and slurm (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
@@ -57,14 +67,11 @@ from areal_tpu_torch.base import logging
 logger = logging.getLogger("apps.launcher")
 
 
-def _device(exp_cfg) -> Optional[str]:
-    return "cpu" if getattr(exp_cfg, "backend", "cuda") == "cpu" else None
-
-
 def _resolve_tokenizer(exp_cfg):
     from areal_tpu_torch.experiments import common as C
 
-    return C.make_tokenizer(exp_cfg, exp_cfg.actor.path)
+    role = getattr(exp_cfg, "actor", None) or exp_cfg.model  # SFT: model
+    return C.make_tokenizer(exp_cfg, role.path)
 
 
 def trainer_entry(exp_cfg, trainer_cfg, probe=None) -> None:
@@ -115,7 +122,7 @@ def gen_fleet_entry(exp_cfg, server_cfgs, manager_cfg, probe=None) -> None:
     from areal_tpu_torch.system.gserver_manager import GserverManager
 
     C.setup_name_resolve(exp_cfg)
-    device = resolve_device(_device(exp_cfg))
+    device = resolve_device(exp_cfg._device())
     cfg, params = _build_gen_model(exp_cfg, device)
     eos = getattr(_resolve_tokenizer(exp_cfg), "eos_token_id", None)
     servers = []
@@ -140,33 +147,45 @@ def gen_server_entry(exp_cfg, server_cfg, probe=None) -> None:
     ``names.gen_servers`` and is reconciled to the current version by the
     manager's health gate before it serves; its control endpoint
     (``genserver_<server_id>``) takes the commanded exit of a drained
-    scale-down or of the launcher's shutdown."""
+    scale-down or of the launcher's shutdown. The endpoint opens before
+    the model is built: an exit commanded while the server builds waits
+    there and is served once it is built, and the server then exits
+    without serving (otherwise the command finds no endpoint, and the
+    shutdown terminates the server when its wait runs out)."""
     from areal_tpu_torch import resolve_device
     from areal_tpu_torch.experiments import common as C
     from areal_tpu_torch.system.generation_server import GenerationServer
     from areal_tpu_torch.system.worker_base import WorkerControl
 
     C.setup_name_resolve(exp_cfg)
-    device = resolve_device(_device(exp_cfg))
-    cfg, params = _build_gen_model(exp_cfg, device)
-    eos = getattr(_resolve_tokenizer(exp_cfg), "eos_token_id", None)
-    if eos is not None:
-        server_cfg.eos_token_id = int(eos)
-    srv = GenerationServer(server_cfg, cfg, params, device=device)
-    del params
-    # before the start: the manager may route to the server as soon as it
-    # registers
-    done = probe(srv) if probe is not None else None
-    srv.start()
     ctrl = WorkerControl(exp_cfg.experiment_name, exp_cfg.trial_name,
                          f"genserver_{server_cfg.server_id}")
+    done = None
+
+    def status():  # served once the server is built
+        return {"server_id": server_cfg.server_id, "version": srv.version}
+
     try:
-        while not ctrl.should_exit:
-            ctrl.step(lambda: {"server_id": server_cfg.server_id,
-                               "version": srv.version}, 200)
+        device = resolve_device(exp_cfg._device())
+        cfg, params = _build_gen_model(exp_cfg, device)
+        eos = getattr(_resolve_tokenizer(exp_cfg), "eos_token_id", None)
+        if eos is not None:
+            server_cfg.eos_token_id = int(eos)
+        srv = GenerationServer(server_cfg, cfg, params, device=device)
+        del params
+        # before the start: the manager may route to the server as soon as
+        # it registers
+        done = probe(srv) if probe is not None else None
+        ctrl.step(status)  # an exit commanded while the model was built
+        if not ctrl.should_exit:
+            srv.start()
+        try:
+            while not ctrl.should_exit:
+                ctrl.step(status, 200)
+        finally:
+            srv.stop()
     finally:
         ctrl.close()
-        srv.stop()
     if done is not None:
         done()
 
@@ -221,6 +240,7 @@ class LocalLauncher:
                    or FaultToleranceConfig())
         self.supervisor = None  # built in run() once the trial is known
         self._scaler = None  # the AutoscaleExecutor, with autoscale on
+        self.evaluator = None  # the AutomaticEvaluator, with auto_eval on
         self._drain_evt = threading.Event()
         self._drain_thread: Optional[threading.Thread] = None
         self._drain_deadline: Optional[float] = None
@@ -301,7 +321,7 @@ class LocalLauncher:
         )
 
         exp = self.exp_cfg
-        if _device(exp) is None:
+        if exp._device() is None:
             import torch
 
             # Fail here, not in every child; is_available() leaves this
@@ -342,12 +362,77 @@ class LocalLauncher:
                                 required=rc.max_rollouts is None)
                 if getattr(getattr(exp, "autoscale", None), "enabled", False):
                     self._scaler = self._build_scaler(exp, setup)
+            if getattr(exp, "auto_eval", False):
+                self.evaluator = self._build_evaluator(exp, setup)
+                self.evaluator.start()
             master = MasterWorker(setup["master"], setup["dfg"])
             restore_sigterm = self._install_sigterm()
-            return self._run_master_monitored(master)
+            result = self._run_master_monitored(master)
         finally:
             restore_sigterm()
+            if self.evaluator is not None:
+                self.evaluator.stop()
             self.shutdown()
+        if self.evaluator is not None:
+            result["auto_eval"] = [dataclasses.asdict(s)
+                                   for s in self.evaluator.steps]
+        return result
+
+    def _build_evaluator(self, exp, setup: Dict[str, Any]):
+        """The evaluator of ``auto_eval`` (reference launcher.py:506-572):
+        held-out data, the ``eval/`` writer, the reward-fleet hand-off,
+        and the role whose checkpoints it scores."""
+        from areal_tpu_torch.api.cli_args import AutomaticEvaluatorConfig
+        from areal_tpu_torch.api.dfg import MFCInterfaceType
+        from areal_tpu_torch.apps.evaluator import AutomaticEvaluator
+        from areal_tpu_torch.experiments import common as C
+
+        eval_data = exp.auto_eval_config.data_names
+        default_names = AutomaticEvaluatorConfig().data_names
+        if not os.path.isfile(eval_data):
+            if eval_data and eval_data != default_names:
+                # An explicit eval set that does not exist is a config
+                # error: scoring the training set would pass for held-out
+                # accuracy.
+                raise FileNotFoundError(
+                    f"auto_eval_config.data_names={eval_data!r} does not "
+                    f"exist; point it at a prompt jsonl (the default "
+                    f"{default_names!r} falls back to the training set)")
+            logger.warning(
+                f"auto_eval_config.data_names={eval_data!r} is not a local "
+                f"file: the evaluator scores the training dataset "
+                f"({exp.dataset.path}); eval/* metrics are NOT held-out")
+            eval_data = exp.dataset.path
+        writer = None
+        tb = getattr(setup["master"], "tensorboard_path", None)
+        if tb:
+            from areal_tpu_torch.base.monitor import MetricWriter
+
+            writer = MetricWriter(tensorboard_path=os.path.join(tb, "eval"))
+        # With the reward fleet up, eval generations grade there too:
+        # untrusted output must not run in the eval subprocess either.
+        rs = None
+        if getattr(getattr(exp, "reward_service", None), "enabled", False):
+            nr_cfg = exp.cluster.name_resolve
+            nr_root = ""
+            if nr_cfg.type == "nfs":  # a memory repo cannot cross processes
+                nr_root = (nr_cfg.nfs_record_root
+                           or C.experiment_paths(exp)["name_resolve"])
+            rs = (exp.experiment_name, exp.trial_name, nr_root,
+                  json.dumps(dataclasses.asdict(exp.reward_service)))
+        # The graph's trained role: the master saves each under
+        # {save_dir}/{model_name}/step{N}; PPO's actor, SFT's default.
+        trained = [n.model_name for n in setup["dfg"].nodes.values()
+                   if n.interface_type == MFCInterfaceType.TRAIN_STEP]
+        role = "actor" if "actor" in trained or not trained else trained[0]
+        evaluator = AutomaticEvaluator(
+            exp.auto_eval_config, save_dir=setup["master"].save_dir,
+            dataset_path=eval_data, role=role, metric_writer=writer,
+            mock_tokenizer=bool(getattr(exp, "mock_tokenizer", False)),
+            reward_service=rs, device=exp._device() or "cuda")
+        logger.info(f"automatic evaluator watching "
+                    f"{setup['master'].save_dir}/{role} (data: {eval_data})")
+        return evaluator
 
     def _run_master_monitored(self, master) -> Dict[str, Any]:
         result: Dict[str, Any] = {}

@@ -2,7 +2,7 @@
 
 The port's own copies from ``areal_tpu/base/testing.py``: ``MockTokenizer``
 (and ``ByteTokenizer``, its decode for any vocabulary) and the jsonl makers
-(``:18-135``), and ``bench_trajectory_dist`` (``:137``),
+(``:18-135``, ``make_sft_jsonl`` among them), and ``bench_trajectory_dist`` (``:137``),
 the PPO trajectory length distribution that ``bench.py`` trains on and that
 ``chip_smoke.py`` rebuilds without the JAX package.
 """
@@ -67,6 +67,24 @@ def make_math_jsonl(path: str, n: int = 32, seed: int = 0) -> List[dict]:
                 "prompt": f"What is {a}+{b}? ",
                 "task": "math",
                 "solutions": [f"\\boxed{{{a + b}}}"],
+            }
+        )
+    with open(path, "w") as f:
+        for r in records:
+            f.write(json.dumps(r) + "\n")
+    return records
+
+
+def make_sft_jsonl(path: str, n: int = 32, seed: int = 0) -> List[dict]:
+    rng = random.Random(seed)
+    records = []
+    for i in range(n):
+        a, b = rng.randint(0, 50), rng.randint(0, 50)
+        records.append(
+            {
+                "query_id": f"s{i}",
+                "prompt": f"What is {a}+{b}? ",
+                "answer": f"The answer is {a + b}.",
             }
         )
     with open(path, "w") as f:

@@ -2,10 +2,12 @@
 
 The port's copy of ``areal_tpu/datasets/jsonl.py:30-233`` (reference
 ``realhf/impl/dataset/``): ``PromptDataset`` (prompt_dataset.py:16),
+``PromptAnswerDataset`` (prompt_answer_dataset.py, SFT),
+``RewardModelingPairedDataset`` (rw_paired_dataset.py),
 ``MathCodePromptDataset`` (math_code_dataset.py:90, with dynamic difficulty
 filtering) and the shared loader ``load_shuffle_split`` (realhf
 data_api.py:754: every DP rank deterministically owns a disjoint shard by
-seed). The SFT and paired-reward datasets come with their interfaces.
+seed).
 
 A dataset is a plain object with ``__len__`` / ``__getitem__`` returning
 ``SequenceSample``s (host numpy), plus an optional ``filter(eval_scores)``
@@ -119,6 +121,63 @@ class PromptDataset(JsonlDatasetBase):
         )
 
 
+class PromptAnswerDataset(JsonlDatasetBase):
+    """SFT records: {"prompt": str, "answer": str} → packed_input_ids +
+    prompt_mask (1 on prompt tokens, excluded from the loss; reference
+    prompt_answer_dataset.py)."""
+
+    def _validate(self, d):
+        return (isinstance(d.get("prompt"), str)
+                and isinstance(d.get("answer"), str))
+
+    def __getitem__(self, i: int) -> SequenceSample:
+        d = self.records[i]
+        p = _encode(self.tokenizer, d["prompt"])
+        a = _encode(self.tokenizer, d["prompt"] + d["answer"])[len(p):]
+        if not a:  # degenerate tokenization; fall back to direct encoding
+            a = _encode(self.tokenizer, d["answer"])
+        ids = self._truncate(p + a)
+        mask = ([1] * len(p) + [0] * len(a))[: len(ids)]
+        return SequenceSample.from_default(
+            ids=[str(d.get("query_id", i))],
+            data={
+                "packed_input_ids": np.asarray(ids, np.int32),
+                "prompt_mask": np.asarray(mask, np.int32),
+            },
+            seqlens=[len(ids)],
+        )
+
+
+class RewardModelingPairedDataset(JsonlDatasetBase):
+    """Records: {"prompt", "pos_answers": [...], "neg_answers": [...]} →
+    packed_input_ids holding the pos/neg pairs interleaved as segments of
+    one sample, ``metadata["n_pairs"]`` (reference rw_paired_dataset.py)."""
+
+    def _validate(self, d):
+        return (
+            isinstance(d.get("prompt"), str)
+            and d.get("pos_answers")
+            and d.get("neg_answers")
+            and len(d["pos_answers"]) == len(d["neg_answers"])
+        )
+
+    def __getitem__(self, i: int) -> SequenceSample:
+        d = self.records[i]
+        p = _encode(self.tokenizer, d["prompt"])
+        seqs: List[List[int]] = []
+        for pos, neg in zip(d["pos_answers"], d["neg_answers"]):
+            for ans in (pos, neg):
+                seqs.append(self._truncate(p + _encode(self.tokenizer, ans)))
+        flat = np.asarray([t for s in seqs for t in s], np.int32)
+        return SequenceSample(
+            ids=[str(d.get("query_id", i))],
+            keys={"packed_input_ids"},
+            seqlens={"packed_input_ids": [[len(s) for s in seqs]]},
+            data={"packed_input_ids": flat},
+            metadata={"n_pairs": [len(d["pos_answers"])]},
+        )
+
+
 class MathCodePromptDataset(PromptDataset):
     """RL prompt dataset with per-task metadata and dynamic difficulty
     filtering (reference math_code_dataset.py:90,175).
@@ -193,4 +252,6 @@ class MathCodePromptDataset(PromptDataset):
 
 
 register_dataset("prompt", PromptDataset)
+register_dataset("prompt_answer", PromptAnswerDataset)
+register_dataset("rw_paired", RewardModelingPairedDataset)
 register_dataset("math_code_prompt", MathCodePromptDataset)

@@ -18,6 +18,7 @@ def make_experiment_cls(name: str) -> Type:
     # imported for their registrations
     import areal_tpu_torch.experiments.async_ppo_math_exp  # noqa: F401
     import areal_tpu_torch.experiments.ppo_math_exp  # noqa: F401
+    import areal_tpu_torch.experiments.sft_exp  # noqa: F401
 
     if name not in _REGISTRY:
         raise ValueError(f"unknown experiment '{name}'; have "

@@ -15,11 +15,13 @@ their rewards.
 
 With ``reward_service.enabled`` the setup adds the reward workers
 (:meth:`PPOMATHConfig.build_reward_workers`), and the trainer's rw_inf
-grades on them.
+grades on them. With ``fuse_rew_ref`` (sync mode, a reference model in
+the graph) one ``fused_rew_ref_inf`` node on the ref model
+(``algorithms/fused.py``) replaces rew_inf and ref_inf: the reference
+forward on the device overlaps the rule-based grading on the host.
 
 Differences: the critic role always gets a value head
-(``experiments/common.py``); the fused reward + reference node
-(``fuse_rew_ref``, ``algorithms/fused.py``) is not ported.
+(``experiments/common.py``).
 """
 
 from __future__ import annotations
@@ -83,6 +85,10 @@ class PPOMATHConfig(BaseExperimentConfig):
         default_factory=PPOHyperparameters)
     group_size: int = 1
     ref_ema_eta: Optional[float] = None  # ref := eta*actor + (1-eta)*ref
+    # One node for the reference log-probs and the rule-based reward
+    # (reference fused_interface.py "fused-threading"), sync mode only:
+    # async rollout workers grade off the trainer's path already.
+    fuse_rew_ref: bool = False
 
     @property
     def _use_critic(self) -> bool:
@@ -106,6 +112,7 @@ class PPOMATHConfig(BaseExperimentConfig):
         """``n_prompts`` = train_bs_n_seqs; the nodes after generation see
         n_prompts * group_size trajectories."""
         n_traj = n_prompts * self.group_size
+        fuse = self._fuse(async_mode)
         mfcs: List[MFCDef] = []
 
         def node(name, role, kind, impl, inputs, outputs=(), n_seqs=n_traj,
@@ -120,10 +127,20 @@ class PPOMATHConfig(BaseExperimentConfig):
             node("actor_gen", "actor", MFCInterfaceType.GENERATE,
                  "ppo_actor", ("packed_prompts", "task_ids"), TRAJ_KEYS,
                  n_seqs=n_prompts)
-            node("rew_inf", "rew", MFCInterfaceType.INFERENCE,
-                 "rw_math_code", ("packed_input_ids", "prompt_mask"),
-                 ("rewards",))
-        if self._use_ref:
+            if not fuse:
+                node("rew_inf", "rew", MFCInterfaceType.INFERENCE,
+                     "rw_math_code", ("packed_input_ids", "prompt_mask"),
+                     ("rewards",))
+        if fuse:
+            # the ref model's node, with ref_inf's micro-batch spec
+            mfcs.append(MFCDef(
+                name="fused_rew_ref_inf", model_name="ref",
+                interface_type=MFCInterfaceType.INFERENCE,
+                interface_impl=ModelInterfaceAbstraction("fused_forward"),
+                input_keys=("packed_input_ids", "prompt_mask"),
+                output_keys=("rewards", "packed_ref_logprobs"),
+                n_seqs=n_traj, mb_spec=self.ref_inf.mb_spec))
+        elif self._use_ref:
             node("ref_inf", "ref", MFCInterfaceType.INFERENCE, "ref_logprob",
                  ("packed_input_ids",), ("packed_ref_logprobs",))
         if self._use_actor_inf:
@@ -152,6 +169,9 @@ class PPOMATHConfig(BaseExperimentConfig):
                  [k for k in train_inputs if k != "prox_logprobs"])
         return build_graph(mfcs)
 
+    def _fuse(self, async_mode: bool) -> bool:
+        return self.fuse_rew_ref and self._use_ref and not async_mode
+
     def _dataset_size(self) -> int:
         """The dataset's line count, for epochs and the LR schedule."""
         try:
@@ -161,10 +181,6 @@ class PPOMATHConfig(BaseExperimentConfig):
             logger.warning(f"cannot read dataset {self.dataset.path}; "
                            "assuming 10000 samples for schedule math")
             return 10000
-
-    def _device(self) -> Optional[str]:
-        """Every worker's device: the CPU only when asked for."""
-        return "cpu" if self.backend == "cpu" else None
 
     def _telemetry(self):
         """``self.telemetry`` with ``flight_dir`` defaulted under the
@@ -206,16 +222,25 @@ class PPOMATHConfig(BaseExperimentConfig):
                                                  is_critic=True)))
         ppo = {"interface_args": {"hp": hp}}
         mfcs: Dict[str, MFCRuntimeConfig] = {}
+        rew_args = {"dataset_path": self.dataset.path,
+                    "group_size": self.group_size}
+        fuse = self._fuse(async_mode)
         if not async_mode:
             mfcs["actor_gen"] = MFCRuntimeConfig(
                 interface="ppo_actor", model_name="actor", **ppo)
-            models["rew"] = ModelRoleConfig(init={"null": True},
-                                            backend="null")
-            mfcs["rew_inf"] = MFCRuntimeConfig(
-                interface="rw_math_code", model_name="rew",
-                interface_args={"dataset_path": self.dataset.path,
-                                "group_size": self.group_size})
-        if self._use_ref:
+            if not fuse:
+                models["rew"] = ModelRoleConfig(init={"null": True},
+                                                backend="null")
+                mfcs["rew_inf"] = MFCRuntimeConfig(
+                    interface="rw_math_code", model_name="rew",
+                    interface_args=rew_args)
+        if fuse:
+            mfcs["fused_rew_ref_inf"] = MFCRuntimeConfig(
+                interface="fused_forward", model_name="ref",
+                interface_args={"interfaces": {
+                    "rew": ("rw_math_code", rew_args),
+                    "ref": ("ref_logprob", {})}})
+        elif self._use_ref:
             mfcs["ref_inf"] = MFCRuntimeConfig(interface="ref_logprob",
                                                model_name="ref")
         if self._use_actor_inf:

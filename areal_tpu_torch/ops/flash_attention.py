@@ -70,6 +70,9 @@ KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv",
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 _launches = dict.fromkeys(KERNELS, 0)
+# Launches may come from several threads at once (the fused node's children
+# run in a pool), and ``+=`` on a dict item is not atomic.
+_launch_lock = threading.Lock()
 
 
 def launch_count(kernel: str = "flash_attention_fwd") -> int:
@@ -79,12 +82,14 @@ def launch_count(kernel: str = "flash_attention_fwd") -> int:
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(_launches)
+    with _launch_lock:
+        return dict(_launches)
 
 
 def reset_launch_count() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    with _launch_lock:
+        for name in _launches:
+            _launches[name] = 0
 
 
 def _nvcc() -> str:
@@ -190,7 +195,8 @@ def _call(fn_name: str, kernel: str, *args) -> None:
     if err != 0:
         msg = lib.areal_cuda_error_string(err).decode()
         raise RuntimeError(f"{kernel} kernel failed: {msg} ({err})")
-    _launches[kernel] += 1
+    with _launch_lock:
+        _launches[kernel] += 1
 
 
 def _check_inputs(q, k, v, q_segment_ids, kv_segment_ids) -> None:

@@ -234,8 +234,10 @@ class TrainerWorker:
 
     def setup(self) -> None:
         # The registries fill as their modules import.
+        import areal_tpu_torch.algorithms.fused  # noqa: F401
         import areal_tpu_torch.algorithms.ppo  # noqa: F401
         import areal_tpu_torch.algorithms.reward  # noqa: F401
+        import areal_tpu_torch.algorithms.rw  # noqa: F401
         import areal_tpu_torch.algorithms.sft  # noqa: F401
         import areal_tpu_torch.backend.torch_train  # noqa: F401
         import areal_tpu_torch.datasets.jsonl  # noqa: F401

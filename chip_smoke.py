@@ -67,9 +67,10 @@ Phases (any failed check raises, and the script exits non-zero):
      share and launches of K1, K2 (its partial and reduction kernels), K3,
      GEMMs and the rest of the device time, the device's idle share and the
      kernels per step; K1, K2 and K3 must each show device time;
- (j)-(n) run at 8 of the model's 24 layers (full width; ``CUT_LAYERS``):
-     the cut that makes room for (s) and (t) at full depth in the time
-     limit. Wherever a check below counts per layer, it counts 8.
+ (j)-(n) run at 8 of the model's 24 layers (full width; ``CUT_LAYERS``),
+     as do (p), (q3), (r), (s), (t) and (x): the cuts that make room for
+     (o) and (u)-(w) at full depth in the time limit. Wherever a check
+     of these phases counts per layer, it counts 8.
  (j) the trainer's model functions of the async-PPO recipe (the README's
      `ppo.use_decoupled_loss=true group_size=16`, the rest at defaults:
      kl_ctl 0.1, a critic, 4 PPO minibatches, advantage whitening), the
@@ -156,7 +157,8 @@ Phases (any failed check raises, and the script exits non-zero):
      exits 0. Rehearse on the CPU with
      `run_sync_loop(tiny_cfg, tmpdir, device="cpu", eos=...)` (tied
      embeddings; the launch checks run only on the card);
- (o) the async-PPO loop, the trainer of (n) gone: the README's async recipe
+ (o) the async-PPO loop, the trainer of (n) gone, at full depth: the
+     README's async recipe
      (`max_head_offpolicyness=4 ppo.use_decoupled_loss=true group_size=16`,
      the rest at defaults: a critic, kl_ctl 0.1, 4 PPO minibatches, 256
      new tokens at temperature 1, 64 concurrent rollouts, server batches of
@@ -188,8 +190,8 @@ Phases (any failed check raises, and the script exits non-zero):
      `run_async_loop(tiny_cfg, tmpdir, device="cpu", ...)` under a
      `__main__` guard;
  (p) the loop of (o) again at 8 of the model's 24 layers (full width,
-     from a second seeded checkpoint: the cut that makes room for (t) in
-     the time limit), 3 steps (the first a warm-up), with
+     from a second seeded checkpoint: the cut that makes room for (u)-(w)
+     in the time limit), 3 steps (the first a warm-up), with
      telemetry (the merged /metrics on a free port, flight dumps on
      SIGTERM), goodput, compile_watch (memory sampled every serve-loop
      iteration) and the sentinel (the default rules and an operator rule
@@ -291,7 +293,8 @@ Phases (any failed check raises, and the script exits non-zero):
      verdicts by task kind, the grading call's ms beside (o)'s, each
      reward worker's peak RSS beside a bare ``import torch``'s and
      reward-bench's line;
- (s) relaunch and drain with the durable spool: (o)'s loop with
+ (s) relaunch and drain with the durable spool: (o)'s loop at (p)'s 8
+     layers (since PR 13) with
      ``recover_mode=auto``, a recover checkpoint every step,
      ``durability.enabled=true`` and 4 steps, through ``run_experiment``.
      Once step 1's checkpoint and the actor's v1 publish are in, and the
@@ -322,8 +325,9 @@ Phases (any failed check raises, and the script exits non-zero):
      samples trained twice, the peak depth and bytes and the append
      (write and fsync) ms p50 and p99, overall and during a checkpoint's
      write;
- (t) the elastic fleet: (o)'s loop, 5 steps, with ``autoscale.enabled=
-     true min_servers=1 max_servers=2 interval_secs=1`` (the rest at the
+ (t) the elastic fleet: (o)'s loop at (p)'s 8 layers, 5 steps, with
+     ``autoscale.enabled=true min_servers=1 max_servers=2
+     interval_secs=1`` (the rest at the
      reference's defaults; the one-second tick is a cut: the replacement
      a cordoned gen0 draws is scaled down as soon as it is admitted, so
      that a third server's memory is held briefly on the one card) through
@@ -348,13 +352,68 @@ Phases (any failed check raises, and the script exits non-zero):
      as (r)); the cordoned gen0's outstanding leases only fell to 0 (no new
      lease), it was re-admitted at the fleet's version; no rollout
      abandoned, quota 0 at the end; K1 n_layers x prefills on every
-     server, K1-K3 per MFC as in (n); no child left. Prints the seconds
+     server, plus the launches of a prefill that raised (its request
+     answered 500 and failed over), K1-K3 per MFC as in (n); no child
+     left. Prints the failed prefills per server, the seconds
      from the plan to the spawn, the process start, the model built, its
      registration and admission; each server's decode ms per step and
      generated tokens/s with one server and with two; the loop's ms per
      step after the scale-up beside (o)'s; the card's memory with two
      servers and at its most, and each process's peak; the drain and
-     re-admission seconds.
+     re-admission seconds;
+ (u) SFT through its entry point with automatic evaluation, every earlier
+     engine and server gone: ``run_experiment`` on the port's SFTConfig
+     (what ``python -m areal_tpu_torch.training.main_sft`` builds) at full
+     width and depth from the seed-0 HF checkpoint, on seeded records of
+     prompts of 64-512 and answers of 128-768 byte tokens (the byte
+     tokenizer), ``dataset.max_seqlen=1024 dataset.train_bs_n_seqs=64``
+     (~40k tokens a step), 4096 tokens per micro-batch, 4 steps, a save
+     every 2; ``auto_eval=true`` on a seeded 32-record math + code jsonl,
+     ``max_gen_tokens=128 eval_k=4``: the launcher's evaluator scores each
+     ``default/step*`` in an eval subprocess on the card beside the
+     trainer, in bf16 (the generation servers' dtype). K1 is first checked
+     against its plain version, as in (b), at the eval's prefill shapes
+     ([16, P] for each batch's longest prompt P). The trainer holds step 3,
+     outside its timing, until the launcher's evaluator has scored step 2;
+     the last save's evaluation is stopped with the run, and an evaluator
+     of the phase's own scores it after the run. Checks: finite loss and
+     perplexity every step; K2 and K3 n_layers x micro-batches a step and
+     K1 twice that; the launcher built one evaluator, on ``default``, and
+     its result holds step 2 done with its scores; both saves scored with
+     pass@1, pass@4 and pass^4 overall and per task kind; each eval child
+     generated in bf16 and launched K1 n_layers x its prefills (4 draws x
+     2 batches), as its own count says; no eval process of the phase or
+     other child left. Prints ms per step, trained tokens/s, the trainer's
+     and each eval child's peak memory, seconds per eval, the card's
+     memory while both run (nvidia-smi every second), when step 2 was
+     scored and how long the trainer waited for it;
+ (v) reward-model training at full width and depth: a critic-headed engine
+     from the seed-0 checkpoint (its value head), 16 seeded paired records
+     of 2 pairs (prompts of 32-64, answers of 64-256 byte tokens), 3
+     ``RewardModelingInterface.train_step``s, then ``inference`` on the
+     flattened pairs (one micro-batch, so that no pair is split). Checks:
+     finite loss, grad norm > 0, orphan pairs 0, K1-K3 as in (u), a
+     finite score per sequence, and one micro-batch's loss through K1-K3
+     within 1% of the same micro-batch through the plain attention.
+     Prints ms per step and the peak memory;
+ (w) the fused node at full width and depth: ``FusedForwardInterface``
+     with the children ``ref_inf`` and ``rew_inf`` on a bf16 reference
+     engine from the seed-0 checkpoint, on 64 seeded math trajectories of
+     (o)'s shape (16 prompts x 4, 256 tokens each, the first of each group
+     ending in its boxed answer), against the two children alone on the
+     same batch. Checks: the fused sample's ``packed_ref_logprobs`` equal
+     the lone ``ref_inf``'s bit for bit and its rewards the lone
+     ``rew_inf``'s (1 for the first of each group, else 0); K1 n_layers x
+     micro-batches; the pool thread's forward runs without grad mode and
+     keeps no device memory. Prints the fused wall against the two serial
+     walls;
+ (x) the multi-turn agent: ``MathMultiTurnAgent`` (2 turns, a turn-level
+     discount of 0.9, 128 tokens a turn) on 8 seeded math prompts, its
+     observations answered over HTTP by one port ``GenerationServer`` on
+     the seed-0 weights at 8 of 24 layers, its answers graded by the math
+     environment. Checks: turn 2's prompt is turn 1's context plus the
+     feedback tokens; the rewards follow the reference's discount of the
+     verdicts; K1 n_layers x the server's prefills.
 
 The script exits 0 only when every phase passed and the last line is
 printed; any failed check raises and exits 1, as does a run where
@@ -391,7 +450,8 @@ if __name__ == "__mp_main__" and os.environ.get("CUDA_VISIBLE_DEVICES") == "":
 else:
     import torch  # noqa: E402
 
-# (p), (q3) and (r) run at this many of the model's layers (full width)
+# (j)-(p), (q3), (r), (s) and (x) run at this many of the model's layers
+# (full width)
 CUT_LAYERS = 8
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -1459,6 +1519,14 @@ def mem_peak(device):
     return torch.cuda.max_memory_allocated() / 2 ** 30
 
 
+def reserved_peak(device):
+    """The most this process's caching allocator held, in GiB: what the
+    card gives up to it, beside :func:`mem_peak`'s tensors."""
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_reserved() / 2 ** 30
+
+
 def stream_publisher(conn, cfg, tmp: str, exp: str, trial: str,
                      version: int, device: str) -> None:
     """(m)'s trainer side of the stream, in a process of its own, so that
@@ -1959,7 +2027,7 @@ def expected_micro_batches(model, iface, batch, spec, method: str):
     if method == "generate" or model.module is None:
         return None
     eng = model.module
-    if method != "train_step":
+    if method != "train_step" or not hasattr(iface, "hp"):  # SFT: one pass
         return n_micro_batches(eng, batch, spec)
     k = iface.hp.ppo_n_minibatches
     if isinstance(iface, PPOCriticInterface):
@@ -2427,6 +2495,7 @@ def async_trainer_probe(conn, worker, digest_dir=None):
         conn.send(("done", {
             "records": records, "publishes": publishes, "digests": hashed,
             "kernels_prebuilt": prebuilt, "peak_gb": peak,
+            "reserved_peak_gb": reserved_peak(worker.device),
             "peak_bytes": (torch.cuda.max_memory_allocated() if cuda()
                            else None),
             "ingest": (dict(worker._ingest.counts)
@@ -2509,7 +2578,7 @@ def record_server(srv, first_digest: bool) -> dict:
     from areal_tpu_torch.models import generate as genmod
     from areal_tpu_torch.ops import flash_attention as fa
 
-    prefill_k1, batches = [], []
+    prefill_k1, failed_k1, batches = [], [], []
     prefill, decode = genmod._prefill, srv._decode_batch
     times = {"proc_start": proc_start_wall(), "ready": time.time(),
              "first_update": None}
@@ -2526,7 +2595,14 @@ def record_server(srv, first_digest: bool) -> dict:
 
     def counted_prefill(*a, **k):
         before = fa.launch_counts()["flash_attention_fwd"]
-        out = prefill(*a, **k)
+        try:
+            out = prefill(*a, **k)
+        except BaseException:
+            # the server answers 500 and the client fails over; the K1
+            # launches before the error are this call's
+            failed_k1.append(fa.launch_counts()["flash_attention_fwd"]
+                             - before)
+            raise
         prefill_k1.append(fa.launch_counts()["flash_attention_fwd"] - before)
         return out
 
@@ -2551,7 +2627,8 @@ def record_server(srv, first_digest: bool) -> dict:
     fa.reset_launch_count()
     if srv.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    return {"prefill_k1": prefill_k1, "batches": batches, "times": times,
+    return {"prefill_k1": prefill_k1, "failed_prefill_k1": failed_k1,
+            "batches": batches, "times": times,
             "first_versioned_batch": first}
 
 
@@ -2573,7 +2650,8 @@ def dyn_server_probe(conn, srv):
             **rec, "k1": fa.launch_counts()["flash_attention_fwd"],
             "server_id": srv.cfg.server_id,
             "server_version": srv.version, "stats": stats,
-            "kernels_prebuilt": prebuilt, "peak_gb": mem_peak(srv.device)}))
+            "kernels_prebuilt": prebuilt, "peak_gb": mem_peak(srv.device),
+            "reserved_peak_gb": reserved_peak(srv.device)}))
         conn.close()
     return done
 
@@ -2619,6 +2697,7 @@ def async_fleet_probe(conn, servers, mgr, first_digest: bool = False):
                                if srv.device.type == "cuda" else None),
                 "k1": fa.launch_counts()["flash_attention_fwd"],
                 "prefill_k1": prefill_k1, "batches": batches,
+                "failed_prefill_k1": rec["failed_prefill_k1"],
                 "stats": stats, "server_version": srv.version,
                 "manager_version": mgr.version,
                 "running_rollouts": mgr.running_rollouts,
@@ -2627,7 +2706,8 @@ def async_fleet_probe(conn, servers, mgr, first_digest: bool = False):
                 "digests": sha256_digests(srv.model.state_dict()),
                 "times": times, "first_versioned_batch": first,
                 "kernels_prebuilt": prebuilt,
-                "peak_gb": mem_peak(srv.device)}))
+                "peak_gb": mem_peak(srv.device),
+                "reserved_peak_gb": reserved_peak(srv.device)}))
         except BaseException:  # noqa: BLE001 — reported to the script
             conn.send(("error", traceback.format_exc()))
         finally:
@@ -4675,6 +4755,8 @@ def run_elastic_fleet(cfg, tmp: str, device: str = "cuda", steps: int = 5,
     from areal_tpu_torch.experiments import common as C
 
     cuda = torch.device(device).type == "cuda"
+    script_reserved = (torch.cuda.memory_reserved() / 2 ** 30 if cuda
+                       else None)
     t_setup = time.monotonic()
     exp = async_loop_config(cfg, tmp, "t", device, steps, n_prompts,
                             group_size, chunk_tokens, max_new_tokens,
@@ -4765,9 +4847,12 @@ def run_elastic_fleet(cfg, tmp: str, device: str = "cuda", steps: int = 5,
         for who, f in (("gen0", fleet), *dyns.items()):
             check(f["kernels_prebuilt"] and f["k1"]
                   == cfg.n_layers * len(f["prefill_k1"])
+                  + sum(f["failed_prefill_k1"])
                   and (f["prefill_k1"] or who not in ("gen0", "dyn1")),
                   f"(t): K1 launched {f['k1']} times in {who} over "
-                  f"{len(f['prefill_k1'])} prefills")
+                  f"{len(f['prefill_k1'])} prefills and "
+                  f"{len(f['failed_prefill_k1'])} failed ones "
+                  f"({f['failed_prefill_k1']} launches)")
         for r in recs:
             check_launches(f"(t) {r['mfc']}", r["launches"],
                            r["micro_batches"], cfg.n_layers,
@@ -4825,7 +4910,16 @@ def run_elastic_fleet(cfg, tmp: str, device: str = "cuda", steps: int = 5,
                                           - ev["t_plan"] if mem else None),
         "peak_gb": {"trainer": tr["peak_gb"], "gen0": fleet["peak_gb"],
                     "dyn1": dyn["peak_gb"]},
+        # what each process's allocator held at most, and this process's
+        # own as the phase starts
+        "reserved_peak_gb": {"trainer": tr["reserved_peak_gb"],
+                             "gen0": fleet["reserved_peak_gb"],
+                             **{sid: d["reserved_peak_gb"]
+                                for sid, d in dyns.items()}},
+        "script_reserved_gb": script_reserved,
         "failovers": roll["failovers"], "denials": roll["denials"],
+        "failed_prefills": {who: len(f["failed_prefill_k1"])
+                            for who, f in (("gen0", fleet), *dyns.items())},
         "dynamic_servers": {sid: {
             "batches": len(d["batches"]), "exit_code": exits[sid],
             "prefills": len(d["prefill_k1"]),
@@ -4838,6 +4932,699 @@ def run_elastic_fleet(cfg, tmp: str, device: str = "cuda", steps: int = 5,
         "launches_total": launches, "loop_s": loop_s,
         "setup_s": t0 - t_setup,
     }
+
+
+# ---------------- (u)-(x): SFT with automatic evaluation, reward-model
+# training, the fused node, the multi-turn agent ----------------
+
+def seeded_text(rng, lo: int, hi: int) -> str:
+    """Seeded lower-case words, ``lo``-``hi`` characters (byte tokens)."""
+    n = rng.randint(lo, hi)
+    words, size = [], 0
+    while size < n:
+        w = "".join(rng.choice("abcdefghijklmnopqrstuvwxyz")
+                    for _ in range(rng.randint(1, 9)))
+        words.append(w)
+        size += len(w) + 1
+    return " ".join(words)[:n]
+
+
+def write_sft_records(path: str, n: int, seed: int) -> None:
+    """``n`` prompt-answer records from ``seed``: prompts of 64-512 and
+    answers of 128-768 byte tokens."""
+    import random
+
+    rng = random.Random(seed)
+    with open(path, "w") as f:
+        for i in range(n):
+            f.write(json.dumps({"query_id": f"s{i}",
+                                "prompt": seeded_text(rng, 64, 512),
+                                "answer": seeded_text(rng, 128, 768)})
+                    + "\n")
+
+
+def eval_processes(under: str) -> list:
+    """The pids of live eval subprocesses (``apps.eval_ckpt``) whose
+    command line names a path under ``under`` (one phase's directory)."""
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().split(b"\0")
+            with open(f"/proc/{pid}/stat") as f:
+                state = f.read().split(")")[-1].split()[0]
+        except OSError:
+            continue
+        if (b"areal_tpu_torch.apps.eval_ckpt" in cmd and state != "Z"
+                and any(a.startswith(under.encode()) for a in cmd)):
+            out.append(int(pid))
+    return out
+
+
+EVAL_KEYS = ("pass@1", "pass@4", "pass^4")
+
+
+def check_scores(step: int, scores: dict, cfg, n_records: int, k: int,
+                 batch: int, cuda: bool) -> None:
+    """An evaluation's scores: pass@1, pass@k and pass^k overall and per
+    task kind, in [0, 1]; on the card, the eval child generated in bf16
+    and launched K1 n_layers x its prefills (k draws x its batches)."""
+    for kind in ("", "math/", "code/"):
+        for key in EVAL_KEYS:
+            v = scores.get(kind + key)
+            check(v is not None and 0.0 <= v <= 1.0,
+                  f"(u) eval of step {step}: {kind + key} = {v}")
+    check(scores["n"] == n_records and scores["k"] == k,
+          f"(u) eval of step {step}: n {scores['n']}, k {scores['k']}")
+    dev = scores["device"]
+    if cuda:
+        want = cfg.n_layers * k * math.ceil(n_records / batch)
+        check(dev["type"] == "cuda" and dev["dtype"] == "bfloat16"
+              and dev["flash_attention_fwd_launches"] == want,
+              f"(u) eval of step {step}: the child launched K1 "
+              f"{dev['flash_attention_fwd_launches']} times on "
+              f"{dev['type']} in {dev['dtype']}, expected {want} in "
+              "bfloat16")
+
+
+def gated_trainer_probe(conn, flag: str, hold_from: int, worker):
+    """(u)'s trainer probe: :func:`async_trainer_probe`, and every train
+    step from global step ``hold_from`` on held, outside its timing, until
+    ``flag`` exists (at most 600 s), so that the launcher's evaluator
+    scores the save of step ``hold_from`` while the run lasts."""
+    done = async_trainer_probe(conn, worker)
+    handle = worker._handle_mfc
+
+    def gated(p):
+        if (p.data.get("method") != "noop"
+                and worker.models["default"].version.global_step
+                >= hold_from):
+            deadline = time.monotonic() + 600
+            while not os.path.exists(flag) and time.monotonic() < deadline:
+                time.sleep(0.1)
+        return handle(p)
+
+    worker._handle_mfc = gated
+    return done
+
+
+def eval_prefill_shapes(path: str, batch: int) -> list:
+    """The [B, P] of each prefill the eval child runs on ``path``'s
+    records: its byte tokens, padded per batch as ``eval_ckpt`` pads."""
+    from areal_tpu_torch.base.testing import ByteTokenizer as PortTokenizer
+    from areal_tpu_torch.datasets.jsonl import load_jsonl
+    from areal_tpu_torch.models import generate as G
+
+    tok, recs = PortTokenizer(), load_jsonl(path)
+    return sorted({G.pad_prompts([list(map(int, tok.encode(r["prompt"])))
+                                  for r in recs[i:i + batch]], 0)[0].shape
+                   for i in range(0, len(recs), batch)})
+
+
+def run_sft_auto_eval(cfg, tmp: str, hf_dir: str, device: str = "cuda",
+                      steps: int = 4, n_seqs: int = 64, max_seqlen: int = 1024,
+                      mb_tokens: int = 4096, n_eval: int = 32, eval_k: int = 4,
+                      max_gen_tokens: int = 128, timeout: float = 600.0,
+                      fa=None) -> dict:
+    """(u): SFT through ``run_experiment`` on the port's SFTConfig (what
+    ``python -m areal_tpu_torch.training.main_sft`` builds) from
+    ``hf_dir``, with ``auto_eval=true``: the launcher's evaluator scores
+    each saved ``default/step*`` in an eval subprocess on the same device
+    while the trainer runs. The trainer holds step 3 until the launcher's
+    evaluator has scored step 2's save; the last save's evaluation is
+    stopped with the run, and an evaluator of the phase's own on the same
+    save directory scores it after the run. On the card, K1 is first
+    checked against its plain version at the eval's prefill shapes."""
+    import functools
+    import multiprocessing
+
+    from areal_tpu_torch.api import cli_args as CA
+    from areal_tpu_torch.apps import launcher as L
+    from areal_tpu_torch.apps.evaluator import AutomaticEvaluator
+    from areal_tpu_torch.apps.launcher import run_experiment
+    from areal_tpu_torch.base import name_resolve
+    from areal_tpu_torch.experiments import common as C
+    from areal_tpu_torch.experiments.sft_exp import SFTConfig
+
+    cuda = torch.device(device).type == "cuda"
+    data = os.path.join(tmp, "sft.jsonl")
+    write_sft_records(data, steps * n_seqs, seed=5)
+    eval_data = os.path.join(tmp, "eval.jsonl")
+    write_mixed_prompts(eval_data, n_eval, seed=6)
+    eval_shapes = eval_prefill_shapes(eval_data, 16)
+    k1_eval_checks = ([check_k1(fa, B, P, cfg.n_q_heads, cfg.n_kv_heads,
+                                cfg.head_dim, seed=13 + i)
+                       for i, (B, P) in enumerate(eval_shapes)]
+                      if cuda else [])
+    exp = SFTConfig(experiment_name="chip_smoke", trial_name="u",
+                    backend="cuda" if cuda else "cpu")
+    CA.apply_overrides(exp, [
+        f"cluster.fileroot={tmp}", f"dataset.path={data}",
+        f"model.path={hf_dir}", "mock_tokenizer=true",
+        f"dataset.max_seqlen={max_seqlen}",
+        f"dataset.train_bs_n_seqs={n_seqs}",
+        f"allocation.mb_spec.max_tokens_per_mb={mb_tokens}",
+        f"exp_ctrl.benchmark_steps={steps}", "exp_ctrl.save_freq_steps=2",
+        "auto_eval=true", f"auto_eval_config.data_names={eval_data}",
+        f"auto_eval_config.max_gen_tokens={max_gen_tokens}",
+        f"auto_eval_config.eval_k={eval_k}"])
+    CA.validate_config(exp)
+    ctx = multiprocessing.get_context("spawn")
+    hold = 2  # the first save; the trainer holds step 3 until it is scored
+    flag = os.path.join(tmp, f"step{hold}_scored")
+    pipes = {"trainer": ctx.Pipe(duplex=False)}
+    probes = {"trainer": functools.partial(gated_trainer_probe,
+                                           pipes["trainer"][1], flag, hold)}
+    samples, stop = [], threading.Event()
+
+    def sample_card():  # the card's memory, and whether an eval runs
+        while not stop.is_set():
+            if cuda:
+                samples.append((time.monotonic(), gpu_memory_used_mb(),
+                                bool(eval_processes(tmp))))
+            stop.wait(1.0)
+
+    # the launcher's own evaluator, kept to be read (nothing else changes)
+    built, build = [], L.LocalLauncher._build_evaluator
+
+    def keep_evaluator(self, *a):
+        built.append(build(self, *a))
+        return built[-1]
+
+    old_repo = name_resolve.DEFAULT_REPO
+    sampler = threading.Thread(target=sample_card, daemon=True)
+    sampler.start()
+    L.LocalLauncher._build_evaluator = keep_evaluator
+    t0 = time.monotonic()
+    t_scored = None
+    try:
+        run = LoopRun(lambda: run_experiment(exp, probes=probes), pipes,
+                      "(u) sft")
+        deadline = t0 + timeout
+        while run.thread.is_alive() and time.monotonic() < deadline:
+            if built and any(s.step == hold and s.status in ("done", "failed")
+                             for s in built[0].steps):
+                t_scored = time.monotonic() - t0
+                break
+            time.sleep(0.2)
+        open(flag, "w").close()
+        result = run.join(timeout + 300)
+        run_s = time.monotonic() - t0
+        (tr,) = run.done("trainer")
+    finally:
+        open(flag, "w").close()
+        L.LocalLauncher._build_evaluator = build
+        stop.set()
+        sampler.join(10)
+        name_resolve.DEFAULT_REPO = old_repo
+    check(not eval_processes(tmp), f"(u): eval subprocesses outlived the "
+          f"run: {eval_processes(tmp)}")
+    check(len(built) == 1 and built[0].role == "default",
+          f"(u): the launcher's evaluators {[e.role for e in built]}")
+
+    # the trainer, step by step
+    check(result["steps"] == steps, f"(u): {result['steps']} steps")
+    for i, st in enumerate(result["stats"]):
+        for k in ("trainDefault/loss", "trainDefault/ppl"):
+            check(k in st and math.isfinite(st[k]), f"(u) step {i}: {k} = "
+                  f"{st.get(k)}")
+    recs = tr["records"]
+    check(len(recs) == steps and all(r["mfc"] == "trainDefault"
+                                     for r in recs), f"(u): MFCs {recs}")
+    for i, r in enumerate(recs):
+        check(math.isfinite(r["stats"]["loss"])
+              and math.isfinite(r["stats"]["ppl"])
+              and r["stats"]["grad_norm"] > 0, f"(u) step {i}: {r['stats']}")
+        if cuda:
+            check_launches(f"(u) step {i}", r["launches"],
+                           r["micro_batches"], cfg.n_layers, train=True)
+
+    # every saved step scored: during the run, then here
+    save = os.path.join(C.experiment_paths(exp)["save"], "default")
+    saved = sorted(int(d[4:]) for d in os.listdir(save))
+    check(saved == list(range(2, steps + 1, 2)), f"(u): saved {saved}")
+    # the launcher's evaluator scored step 2 while the trainer held step 3
+    during = {e["step"]: e["scores"] for e in result["auto_eval"]
+              if e["status"] == "done"}
+    check(hold in during and t_scored is not None
+          and next(e for e in result["auto_eval"] if e["step"] == hold)
+          ["ckpt_dir"] == os.path.join(save, f"step{hold}"),
+          f"(u): the launcher's evaluator did not score step {hold} while "
+          f"the run lasted: {result['auto_eval']}")
+    # the saves left, evaluated side by side on the card
+    ev = AutomaticEvaluator(
+        dataclasses.replace(exp.auto_eval_config,
+                            max_concurrent_jobs=len(saved)),
+        save_dir=os.path.dirname(save), dataset_path=eval_data,
+        role="default", mock_tokenizer=True, device=device)
+    ev._seen = {f"step{s}" for s in during}
+    after, eval_walls = {}, []
+    deadline = time.monotonic() + timeout
+    while (set(during) | set(after)) != set(saved) \
+            and time.monotonic() < deadline:
+        t = time.monotonic()
+        if ev.poll_once():
+            eval_walls.append(time.monotonic() - t)
+        after = {s.step: s.scores for s in ev.steps if s.status == "done"}
+        check(not any(s.status == "failed" for s in ev.steps),
+              f"(u): an evaluation failed: {ev.steps}")
+    ev.stop()
+    scores = {**during, **after}
+    check(sorted(scores) == saved, f"(u): scored {sorted(scores)} of {saved}")
+    for s, sc in scores.items():
+        check_scores(s, sc, cfg, n_eval, eval_k, 16, cuda)
+    check(not eval_processes(tmp),
+          "(u): an eval subprocess outlived the phase")
+    check(not multiprocessing.active_children(),
+          f"(u): children left: {multiprocessing.active_children()}")
+
+    tokens = [r["tokens"] for r in recs]
+    timed = recs[1:]  # the first step is a warm-up
+    both = [mb for _, mb, ev_on in samples if ev_on]
+    k1_eval = sum(sc["device"]["flash_attention_fwd_launches"]
+                  for sc in scores.values())
+    launches = {k: sum(r["launches"][k] for r in recs) for k in KERNEL_NAMES}
+    launches["flash_attention_fwd"] += k1_eval
+    rec = {
+        "steps": steps, "run_s": run_s,
+        "tokens_per_step": tokens, "micro_batches": [r["micro_batches"]
+                                                    for r in recs],
+        "ms_per_step": 1e3 * sum(r["wall_s"] for r in timed) / len(timed),
+        "device_ms_per_step": (sum(r["device_ms"] for r in timed) / len(timed)
+                               if cuda else None),
+        "trained_tokens_per_s": sum(r["tokens"] for r in timed)
+        / sum(r["wall_s"] for r in timed),
+        "loss": [r["stats"]["loss"] for r in recs],
+        "ppl": [r["stats"]["ppl"] for r in recs],
+        "trainer_peak_gb": tr["peak_gb"],
+        "scored_while_training": sorted(during),
+        "step2_scored_after_s": t_scored,
+        "launcher_auto_eval": {e["step"]: e["status"]
+                               for e in result["auto_eval"]},
+        "held_s": (recs[hold]["t0"] - recs[hold - 1]["t1"]
+                   if len(recs) > hold else None),
+        "scored_after": sorted(after),
+        "eval_secs": {s: sc["eval_secs"] for s, sc in scores.items()},
+        "eval_wall_s_after": eval_walls,
+        "eval_child_peak_gb": {s: (sc["device"]["peak_memory_bytes"] or 0)
+                               / 2 ** 30 for s, sc in scores.items()},
+        "eval_child_k1": {s: sc["device"]["flash_attention_fwd_launches"]
+                          for s, sc in scores.items()},
+        "eval_child_dtype": {s: sc["device"]["dtype"]
+                             for s, sc in scores.items()},
+        "k1_eval_shape_checks": k1_eval_checks,
+        "scores": {s: {k: v for k, v in sc.items()
+                       if k.split("/")[-1] in EVAL_KEYS}
+                   for s, sc in scores.items()},
+        "card_mb_max": max((mb for _, mb, _ in samples), default=None),
+        "card_mb_max_with_eval": max(both, default=None),
+        "launches": launches,
+    }
+    print("(u) sft with automatic evaluation", json.dumps(rec), flush=True)
+    return rec
+
+
+def write_paired_records(path: str, n: int, seed: int) -> None:
+    """``n`` paired records from ``seed``, 2 pairs each: prompts of 32-64
+    and answers of 64-256 byte tokens."""
+    import random
+
+    rng = random.Random(seed)
+    with open(path, "w") as f:
+        for i in range(n):
+            f.write(json.dumps({
+                "query_id": f"p{i}",
+                "prompt": f"Question {i}: {seeded_text(rng, 20, 52)} ",
+                "pos_answers": [seeded_text(rng, 64, 256) for _ in range(2)],
+                "neg_answers": [seeded_text(rng, 64, 256) for _ in range(2)],
+            }) + "\n")
+
+
+def timed_call(fa, device, fn, *args):
+    """(result, seconds, K1-K3 launches) of one call."""
+    fa.reset_launch_count()
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    sync(device)
+    secs = time.perf_counter() - t0
+    return out, secs, {k: fa.launch_counts()[k] for k in KERNEL_NAMES}
+
+
+def run_reward_model(fa, hf_dir: str, tmp: str, device: str = "cuda",
+                     steps: int = 3, n_records: int = 16) -> dict:
+    """(v): a critic-headed engine from ``hf_dir`` takes ``steps``
+    ``RewardModelingInterface.train_step``s on the paired records, then
+    scores the flattened pairs; one micro-batch's loss through K1-K3
+    against the plain attention."""
+    import numpy as np
+
+    from areal_tpu_torch.algorithms.rw import (
+        RewardModelingInterface,
+        _loss_weight,
+        _pairwise_loss,
+        flatten_pairs,
+    )
+    from areal_tpu_torch.api.data import MicroBatchSpec, SequenceSample
+    from areal_tpu_torch.base.testing import ByteTokenizer
+    from areal_tpu_torch.datasets.jsonl import RewardModelingPairedDataset
+    from areal_tpu_torch.models import hf
+
+    cuda = torch.device(device).type == "cuda"
+    path = os.path.join(tmp, "paired.jsonl")
+    write_paired_records(path, n_records, seed=7)
+    ds = RewardModelingPairedDataset(dataset_path=path,
+                                     tokenizer=ByteTokenizer())
+    batch = SequenceSample.gather([ds[i] for i in range(len(ds))])
+    ccfg, params = hf.load_hf_model(hf_dir, is_critic=True, device=device)
+    model = make_model("rw", ccfg, params, device=device)
+    del params
+    eng = model.module
+    flat = flatten_pairs(batch)
+    # every pair inside one micro-batch: orphans would skip pairs
+    spec = MicroBatchSpec(max_tokens_per_mb=32768)
+    n = n_micro_batches(eng, flat, spec)
+    iface = RewardModelingInterface()
+    mem_reset(device)
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    step_s, stats = [], []
+    for i in range(steps):
+        st, secs, counts = timed_call(fa, device, iface.train_step, model,
+                                      batch, spec)
+        check(math.isfinite(st["loss"]) and st["grad_norm"] > 0
+              and st["orphan_pairs"] == 0.0
+              and st["n_pairs"] == 2 * n_records, f"(v) step {i}: {st}")
+        if cuda:
+            check_launches(f"(v) step {i}", counts, n, ccfg.n_layers,
+                           train=True)
+        for k in KERNEL_NAMES:
+            launches[k] += counts[k]
+        step_s.append(secs)
+        stats.append(st)
+    out, inf_s, counts = timed_call(fa, device, iface.inference, model, flat,
+                                    spec)
+    scores = out.data["scores"]
+    check(scores.shape == (flat.bs,) and bool(np.isfinite(scores).all()),
+          f"(v): scores {scores}")
+    if cuda:
+        check_launches("(v) inference", counts, n, ccfg.n_layers,
+                       train=False)
+    for k in KERNEL_NAMES:
+        launches[k] += counts[k]
+    peak = mem_peak(device)
+
+    # one micro-batch through K1-K3 against the plain attention
+    ub = eng.upload_uniform(flat, spec)
+    weight = _loss_weight(ub.mbs[0])
+    loss = {}
+    for impl in ("auto", "reference"):
+        eng.attn_impl = impl
+        loss[impl], _ = eng.accumulate_grads(ub, _pairwise_loss, [0],
+                                             [weight])
+        loss[impl] = float(loss[impl])
+        for p in eng.params.values():
+            p.grad = None
+    eng.attn_impl = "auto"
+    rel = abs(loss["auto"] - loss["reference"]) / max(
+        abs(loss["reference"]), 1e-30)
+    check(math.isfinite(loss["auto"]) and rel <= 0.01,
+          f"(v): loss through K1-K3 {loss['auto']} against the plain "
+          f"attention's {loss['reference']}")
+    timed = step_s[1:]  # the first step is a warm-up
+    rec = {
+        "pairs": 2 * n_records, "sequences": flat.bs,
+        "tokens": int(flat.total_lens().sum()), "micro_batches": n,
+        "ms_per_step": 1e3 * sum(timed) / len(timed),
+        "step_ms": [1e3 * s for s in step_s], "inference_ms": 1e3 * inf_s,
+        "loss": [st["loss"] for st in stats],
+        "pairwise_accuracy": [st["pairwise_accuracy"] for st in stats],
+        "pos_minus_neg": [st["pos_minus_neg"] for st in stats],
+        "orphan_pairs": [st["orphan_pairs"] for st in stats],
+        "peak_gb": peak, "loss_kernels": loss["auto"],
+        "loss_plain": loss["reference"], "loss_rel_err": rel,
+        "launches": launches,
+    }
+    print("(v) reward-model training", json.dumps(rec), flush=True)
+    del model, eng, ub
+    return rec
+
+
+def fused_batch(path: str, n_prompts: int, group: int, new_tokens: int,
+                seed: int):
+    """``n_prompts`` x ``group`` math trajectories of (o)'s shape: a seeded
+    prompt (100-400 byte tokens) and ``new_tokens`` generated tokens, the
+    first of each group ending in its boxed ground truth; ids "qid@k"."""
+    import random
+
+    import numpy as np
+
+    from areal_tpu_torch.api.data import SequenceSample
+    from areal_tpu_torch.base.testing import ByteTokenizer
+
+    tok, rng = ByteTokenizer(), random.Random(seed)
+    write_math_prompts(path, n_prompts, seed)
+    with open(path) as f:
+        records = [json.loads(line) for line in f]
+    samples = []
+    for r in records:
+        p = tok.encode(r["prompt"])
+        for k in range(group):
+            tail = tok.encode(f" {r['solutions'][0]}" if k == 0 else "")
+            a = [rng.randint(2, 257) for _ in range(new_tokens - len(tail))]
+            a += tail
+            samples.append(SequenceSample.from_default(
+                ids=[f"{r['query_id']}@{k}"],
+                data={"packed_input_ids": np.asarray(p + a, np.int32),
+                      "prompt_mask": np.asarray([1] * len(p) + [0] * len(a),
+                                                np.int32)},
+                seqlens=[len(p) + len(a)]))
+    return SequenceSample.gather(samples)
+
+
+def run_fused(fa, hf_dir: str, tmp: str, device: str = "cuda",
+              n_prompts: int = 16, group: int = 4,
+              new_tokens: int = 256) -> dict:
+    """(w): the sync recipe's ``fused_rew_ref_inf`` node
+    (``FusedForwardInterface`` with ref_inf and rew_inf) on a bf16
+    reference engine from ``hf_dir``, against its two children run alone on
+    the same batch."""
+    import numpy as np
+
+    import areal_tpu_torch.algorithms.ppo  # noqa: F401 (registers)
+    import areal_tpu_torch.algorithms.reward  # noqa: F401 (registers)
+    from areal_tpu_torch.algorithms.fused import FusedForwardInterface
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.api.model import make_interface
+    from areal_tpu_torch.base.testing import ByteTokenizer
+    from areal_tpu_torch.models import hf
+
+    cuda = torch.device(device).type == "cuda"
+    path = os.path.join(tmp, "fused_math.jsonl")
+    batch = fused_batch(path, n_prompts, group, new_tokens, seed=8)
+    lcfg, params = hf.load_hf_model(hf_dir, device=device)
+    ref = make_model("ref", lcfg, {k: v.to(torch.bfloat16)
+                                   for k, v in params.items()},
+                     train=False, device=device)
+    del params
+    ref.tokenizer = ByteTokenizer()
+    eng = ref.module
+    kids = {"rew": ("rw_math_code", {"dataset_path": path,
+                                     "group_size": group}),
+            "ref": ("ref_logprob", {})}
+    spec = MicroBatchSpec(max_tokens_per_mb=4096)
+    n = n_micro_batches(eng, batch, spec)
+    lone = {k: make_interface(name, **kw) for k, (name, kw) in kids.items()}
+    fused = FusedForwardInterface(interfaces=kids)
+    # warm-ups: the pool thread's first GEMMs allocate its cuBLAS workspace
+    lone["ref"].inference(ref, batch, spec)
+    fused.inference(ref, batch, spec)
+    ref_out, ref_s, _ = timed_call(fa, device, lone["ref"].inference, ref,
+                                   batch, spec)
+    rew_out, rew_s, _ = timed_call(fa, device, lone["rew"].inference, ref,
+                                   batch, spec)
+    # grad mode inside the pool thread, read where the forward runs
+    seen, fwd = [], eng._forward_token_logprobs
+
+    def recording(*a, **k):
+        out = fwd(*a, **k)
+        seen.append((threading.current_thread() is threading.main_thread(),
+                     torch.is_grad_enabled(), out.requires_grad))
+        return out
+
+    eng._forward_token_logprobs = recording
+    before = torch.cuda.memory_allocated() if cuda else 0
+    try:
+        out, fused_s, launches = timed_call(fa, device, fused.inference, ref,
+                                            batch, spec)
+    finally:
+        eng._forward_token_logprobs = fwd
+    after = torch.cuda.memory_allocated() if cuda else 0
+    check(out.ids == batch.ids
+          and out.keys == {"rewards", "packed_ref_logprobs"},
+          f"(w): fused output {out.keys}")
+    check(np.array_equal(out.data["packed_ref_logprobs"],
+                         ref_out.data["packed_ref_logprobs"]),
+          "(w): fused ref logprobs differ from ref_inf's alone")
+    check(np.array_equal(out.data["rewards"], rew_out.data["rewards"]),
+          "(w): fused rewards differ from rew_inf's alone")
+    rewards = out.data["rewards"].reshape(n_prompts, group)
+    check(bool((rewards[:, 0] > 0).all()) and bool((rewards[:, 1:] == 0)
+                                                  .all()),
+          f"(w): rewards {rewards.tolist()}")
+    check(seen and all(s == (False, False, False) for s in seen),
+          f"(w): the pool thread's forward ran with grad state: {seen}")
+    check(after == before, f"(w): {after - before} bytes kept by a fused "
+          "call after the first")
+    check(all(not p.requires_grad for p in eng.params.values()),
+          "(w): the reference engine's weights require grad")
+    if cuda:
+        check_launches("(w) fused", launches, n, lcfg.n_layers, train=False)
+    rec = {"trajectories": batch.bs, "tokens": int(batch.total_lens().sum()),
+           "micro_batches": n, "fused_ms": 1e3 * fused_s,
+           "ref_inf_ms": 1e3 * ref_s, "rew_inf_ms": 1e3 * rew_s,
+           "serial_ms": 1e3 * (ref_s + rew_s),
+           "fused_over_serial": fused_s / (ref_s + rew_s),
+           "reward_mean": float(out.data["rewards"].mean()),
+           "launches": launches}
+    print("(w) fused reference + reward node", json.dumps(rec), flush=True)
+    del ref, eng
+    return rec
+
+
+def run_multi_turn(fa, cfg, eos: int, tmp: str, device: str = "cuda",
+                   n_prompts: int = 8, num_turns: int = 2,
+                   turn_tokens: int = 128, discount: float = 0.9) -> dict:
+    """(x): ``MathMultiTurnAgent`` on ``n_prompts`` seeded math prompts,
+    its observations answered by a port ``GenerationServer`` on the seed-0
+    weights (``cfg``'s depth) over HTTP, its answers graded by the math
+    environment."""
+    import asyncio
+
+    import numpy as np
+
+    from areal_tpu_torch.agents.math_multi_turn import MathMultiTurnAgent
+    from areal_tpu_torch.agents.math_single_step import MathCodeSingleStepEnv
+    from areal_tpu_torch.api.data import SequenceSample
+    from areal_tpu_torch.base.testing import ByteTokenizer
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.system.generation_server import (
+        GenerationServer,
+        GenerationServerConfig,
+    )
+
+    path = os.path.join(tmp, "multi_turn.jsonl")
+    write_math_prompts(path, n_prompts, seed=9)
+    with open(path) as f:
+        records = {r["query_id"]: r for r in map(json.loads, f)}
+    tok = ByteTokenizer()
+    params = init_params(cfg, seed=0, device=device, dtype=torch.bfloat16)
+    server = GenerationServer(
+        GenerationServerConfig(chunk_tokens=turn_tokens, eos_token_id=eos,
+                               pad_token_id=eos, batch_window_ms=20),
+        cfg, params, device=device)
+    del params
+
+    class Env(MathCodeSingleStepEnv):
+        def __init__(self, id2info):
+            super().__init__(id2info)
+            self.verdicts = []
+
+        async def step(self, action):
+            out = await super().step(action)
+            self.verdicts.append(float(np.asarray(out[1]).reshape(-1)[0]))
+            return out
+
+    async def episode(url, agent, qid, env):
+        ids = tok.encode(records[qid]["prompt"])
+        prompt = SequenceSample.from_default(
+            ids=[qid], data={"packed_prompts": np.asarray(ids, np.int32)},
+            seqlens=[len(ids)])
+        obs_q, act_q = asyncio.Queue(), asyncio.Queue()
+        task = asyncio.create_task(agent.collect_trajectory(prompt, env,
+                                                            obs_q, act_q))
+        seen = []
+        while True:
+            get = asyncio.create_task(obs_q.get())
+            done, _ = await asyncio.wait({task, get},
+                                         return_when=asyncio.FIRST_COMPLETED)
+            if get not in done:
+                get.cancel()
+                return await task, seen
+            _, token_ids, gconfig = get.result()
+            seen.append(list(token_ids))
+            r = await asyncio.to_thread(post, url, {
+                "prompt_ids": list(token_ids),
+                "gconfig": dataclasses.asdict(gconfig),
+                "max_tokens": gconfig.max_new_tokens})
+            p, g = np.asarray(token_ids, np.int32), np.asarray(
+                r["output_ids"], np.int32)
+            await act_q.put([SequenceSample.from_default(
+                ids=[f"{qid}@t{len(seen) - 1}"],
+                data={"packed_input_ids": np.concatenate([p, g]),
+                      "prompt_mask": np.concatenate(
+                          [np.ones(len(p), np.int32),
+                           np.zeros(len(g), np.int32)]),
+                      "packed_logprobs": np.concatenate(
+                          [np.zeros(len(p), np.float32),
+                           np.asarray(r["output_logprobs"], np.float32)]),
+                      "seq_no_eos_mask": np.asarray(
+                          [0.0 if r["finished"] else 1.0], np.float32),
+                      "version_start": np.asarray([0], np.int32),
+                      "version_end": np.asarray([0], np.int32)},
+                seqlens=[len(p) + len(g)])])
+
+    agent = MathMultiTurnAgent(tokenizer=tok, num_turns=num_turns,
+                               turn_level_discount=discount,
+                               max_new_tokens_per_turn=turn_tokens)
+    envs = {qid: Env(records) for qid in records}
+
+    async def all_episodes(url):
+        return await asyncio.gather(*[episode(url, agent, q, envs[q])
+                                      for q in records])
+
+    url = server.start()
+    try:
+        fa.reset_launch_count()
+        t0 = time.monotonic()
+        results = asyncio.run(all_episodes(url))
+        wall = time.monotonic() - t0
+        k1 = fa.launch_count()
+        stats = server.stats()
+    finally:
+        server.stop()
+    turns = 0
+    for (samples, seen), (qid, env) in zip(results, envs.items()):
+        v = env.verdicts
+        check(len(samples) == len(seen) == len(v) >= 1
+              and (len(v) == num_turns or v[-1] > 0),
+              f"(x) {qid}: {len(samples)} samples, {len(seen)} observations, "
+              f"verdicts {v}")
+        for t in range(1, len(samples)):
+            want = (list(map(int, samples[t - 1].data["packed_input_ids"]))
+                    + agent._feedback_ids(v[t - 1] > 0))
+            check(seen[t] == want, f"(x) {qid}: turn {t + 1}'s prompt is not "
+                  f"turn {t}'s context plus the feedback")
+        raw = [(float(x > 0) - 0.5) * 2 for x in v]
+        want = [sum(raw[j] * discount ** (j - i) for j in range(i, len(raw)))
+                for i in range(len(raw))]
+        got = [float(s.data["rewards"][0]) for s in samples]
+        check(all(abs(a - b) <= 1e-5 for a, b in zip(got, want)),
+              f"(x) {qid}: rewards {got}, the discount gives {want}")
+        turns += len(samples)
+    if torch.device(device).type == "cuda":
+        check(k1 == cfg.n_layers * stats["prefill_calls"],
+              f"(x): K1 launches {k1} != {cfg.n_layers} x "
+              f"{stats['prefill_calls']} prefills")
+    rec = {"prompts": n_prompts, "turns": turns, "wall_s": wall,
+           "prefill_calls": stats["prefill_calls"],
+           "generated_tokens": stats["generated_tokens"],
+           "solved": sum(any(x > 0 for x in e.verdicts)
+                         for e in envs.values()),
+           "k1_launches": k1}
+    print("(x) multi-turn agent", json.dumps(rec), flush=True)
+    return rec
 
 
 def main() -> None:
@@ -4957,8 +5744,9 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # (j) trainer steps of the async-PPO recipe, then the host path; (j)-(n)
-    # and (p), (q3), (r) run at 8 of the 24 layers (full width): the cut
-    # that makes room for (s) and (t) at full depth in the time limit
+    # and (p), (q3), (r), (s), (t), (x) run at 8 of the 24 layers (full
+    # width): the cut that makes room for (o) and (u)-(w) at full depth in
+    # the time limit
     cut = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
     t_trainer = time.monotonic()
     tr, tbatch, tdata, trainer = run_trainer(fa, cut, trainer_batch(
@@ -5010,14 +5798,18 @@ def main() -> None:
     loop_launches = loop["launches_total"]
 
     # (o) the async-PPO loop: run_experiment spawns the trainer, the
-    # generation fleet and a rollout worker; the master runs here. (o), (s)
-    # and (t) load one HF checkpoint at full depth, (p), (q3) and (r) a
-    # second at 8 of the 24 layers (full width); each is written once.
+    # generation fleet and a rollout worker; the master runs here. (o) and
+    # (u)-(w) load one HF checkpoint at full depth, (p), (q3), (r), (s) and
+    # (t) a second at 8 of the 24 layers (full width); each is written
+    # once.
     t_async = time.monotonic()
     hf_tmp = tempfile.mkdtemp(prefix="chip_smoke_hf_")
     atexit.register(shutil.rmtree, hf_tmp, True)
     loop_hf = loop_checkpoint(cfg, os.path.join(hf_tmp, "init_hf"), "cuda")
     cut_hf = loop_checkpoint(cut, os.path.join(hf_tmp, "cut_hf"), "cuda")
+    # the checkpoints' weights are written and freed: hand their cache back
+    # to the card, which the loops' processes share
+    torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_async_")
     try:
         async_loop = run_async_loop(cfg, tmp, steps=4, hf_dir=loop_hf)
@@ -5096,11 +5888,11 @@ def main() -> None:
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
     fleet_launches = fleet["launches_total"]
 
-    # (s) relaunch and drain
+    # (s) relaunch and drain, at the cut depth
     t_s = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_relaunch_")
     try:
-        relaunch = run_relaunch_drain(cfg, tmp, hf_dir=loop_hf)
+        relaunch = run_relaunch_drain(cut, tmp, hf_dir=cut_hf)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("(s) relaunch and drain with the durable spool", json.dumps({
@@ -5116,7 +5908,7 @@ def main() -> None:
     t_t = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
     try:
-        elastic = run_elastic_fleet(cfg, tmp, hf_dir=loop_hf)
+        elastic = run_elastic_fleet(cut, tmp, hf_dir=cut_hf)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("(t) elastic fleet", json.dumps({
@@ -5124,9 +5916,51 @@ def main() -> None:
         "phase_t_s": time.monotonic() - t_t,
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
     elastic_launches = elastic["launches_total"]
+    torch.cuda.empty_cache()  # every earlier engine and server is gone
+
+    # (u) SFT through its entry point, with automatic evaluation on the card
+    t_u = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sft_")
+    try:
+        sft_eval = run_sft_auto_eval(cfg, tmp, loop_hf, fa=fa)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("(u) sft and automatic evaluation", json.dumps({
+        **{k: sft_eval[k] for k in ("ms_per_step", "trained_tokens_per_s",
+                                     "trainer_peak_gb", "eval_child_peak_gb",
+                                     "eval_secs", "card_mb_max_with_eval",
+                                     "scored_while_training",
+                                     "step2_scored_after_s", "held_s",
+                                     "launcher_auto_eval",
+                                     "eval_child_dtype")},
+        "phase_u_s": time.monotonic() - t_u,
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+
+    # (v) reward-model training, (w) the fused node, (x) the multi-turn
+    # agent
+    t_v = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rw_")
+    try:
+        rw = run_reward_model(fa, loop_hf, tmp)
+        torch.cuda.empty_cache()
+        t_w = time.monotonic()
+        fused = run_fused(fa, loop_hf, tmp)
+        torch.cuda.empty_cache()
+        t_x = time.monotonic()
+        multi = run_multi_turn(fa, cut, eos, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("(v)-(x)", json.dumps({
+        "rw_ms_per_step": rw["ms_per_step"], "rw_peak_gb": rw["peak_gb"],
+        "fused_ms": fused["fused_ms"], "serial_ms": fused["serial_ms"],
+        "multi_turn_wall_s": multi["wall_s"],
+        "phase_v_s": t_w - t_v, "phase_w_s": t_x - t_w,
+        "phase_x_s": time.monotonic() - t_x,
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
     print("phase seconds", json.dumps({
         "o": t_obs - t_async, "p": t_q - t_obs, "q": t_r - t_q,
-        "r": t_s - t_r, "s": t_t - t_s, "t": time.monotonic() - t_t,
+        "r": t_s - t_r, "s": t_t - t_s, "t": t_u - t_t, "u": t_v - t_u,
+        "v": t_w - t_v, "w": t_x - t_w, "x": time.monotonic() - t_x,
         "script": time.monotonic() - t_start}), flush=True)
 
     lib_line = ("areal_tpu/ops/pallas/flash_attention.py:200 backward: the "
@@ -5143,7 +5977,10 @@ def main() -> None:
         + observed_launches["flash_attention_fwd"] + serving_k1
         + fleet_launches["flash_attention_fwd"]
         + relaunch_launches["flash_attention_fwd"]
-        + elastic_launches["flash_attention_fwd"],
+        + elastic_launches["flash_attention_fwd"]
+        + sft_eval["launches"]["flash_attention_fwd"]
+        + rw["launches"]["flash_attention_fwd"]
+        + fused["launches"]["flash_attention_fwd"] + multi["k1_launches"],
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_attention_fwd"],
                              "trainer": trainer_launches["flash_attention_fwd"],
@@ -5159,7 +5996,18 @@ def main() -> None:
                              "relaunch_drain":
                              relaunch_launches["flash_attention_fwd"],
                              "elastic_fleet":
-                             elastic_launches["flash_attention_fwd"]},
+                             elastic_launches["flash_attention_fwd"],
+                             # the trainer's and the eval children's
+                             "sft_auto_eval_trainer":
+                             sft_eval["launches"]["flash_attention_fwd"]
+                             - sum(sft_eval["eval_child_k1"].values()),
+                             "sft_auto_eval_children":
+                             sum(sft_eval["eval_child_k1"].values()),
+                             "reward_model":
+                             rw["launches"]["flash_attention_fwd"],
+                             "fused_rew_ref":
+                             fused["launches"]["flash_attention_fwd"],
+                             "multi_turn": multi["k1_launches"]},
         "max_abs_err": k1_train_check["max_abs_err"],
         "ms": timing_train["kernel_ms"], "kernel_ms": timing_train["kernel_ms"],
         "plain_ms": timing_train["plain_ms"],
@@ -5182,7 +6030,8 @@ def main() -> None:
             + loop_launches[name] + async_launches[name]
             + observed_launches[name] + served_launches[name]
             + fleet_launches[name] + relaunch_launches[name]
-            + elastic_launches[name],
+            + elastic_launches[name] + sft_eval["launches"][name]
+            + rw["launches"][name],
             "launches_by_path": {"train": train_launches[name],
                                  "trainer": trainer_launches[name],
                                  "sync_loop": loop_launches[name],
@@ -5192,7 +6041,9 @@ def main() -> None:
                                  "serving": served_launches[name],
                                  "reward_fleet": fleet_launches[name],
                                  "relaunch_drain": relaunch_launches[name],
-                                 "elastic_fleet": elastic_launches[name]},
+                                 "elastic_fleet": elastic_launches[name],
+                                 "sft_auto_eval": sft_eval["launches"][name],
+                                 "reward_model": rw["launches"][name]},
             "max_abs_err": err,
             "ms": rec["kernel_ms"], "kernel_ms": rec["kernel_ms"],
             "plain_ms": bwd_timing["plain_bwd_ms"],

@@ -45,7 +45,7 @@ def test_every_module_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 88  # every module was walked
+    assert int(res.stdout.strip()) >= 96  # every module was walked
 
 
 def test_no_file_names_jax_or_the_reference_package():
@@ -154,6 +154,10 @@ from areal_tpu_torch.experiments.async_ppo_math_exp import AsyncPPOMATHConfig
 from areal_tpu_torch.system.http import request_json
 from areal_tpu_torch.system.reward_worker import RewardWorker
 from areal_tpu_torch.training import main_async_ppo, main_sync_ppo  # noqa
+from areal_tpu_torch.training import main_sft  # noqa
+from areal_tpu_torch.experiments.sft_exp import SFTConfig
+from areal_tpu_torch.apps import evaluator  # noqa
+assert SFTConfig(trial_name='t').model.backend == 'torch_train'
 exp = AsyncPPOMATHConfig(experiment_name="e", trial_name="t")
 exp.reward_service.enabled = True
 exp.cluster.name_resolve.type = "memory"
@@ -229,6 +233,7 @@ def test_entry_points_need_a_device():
     from areal_tpu_torch.experiments.async_ppo_math_exp import (
         AsyncPPOMATHConfig,
     )
+    from areal_tpu_torch.experiments.sft_exp import SFTConfig
     from areal_tpu_torch.backend import torch_train  # noqa: F401 (registry)
     from areal_tpu_torch.models.config import tiny_config
     from areal_tpu_torch.models.convert import params_from_jax
@@ -258,6 +263,7 @@ def test_entry_points_need_a_device():
                  lambda: load_hf_checkpoint("no/such/dir"),
                  lambda: TrainerWorker(TrainerWorkerConfig()).setup(),
                  lambda: run_experiment(AsyncPPOMATHConfig()),
+                 lambda: run_experiment(SFTConfig()),
                  lambda: GenerationServer(GenerationServerConfig(
                      serving=ServingConfig(enabled=True)), cfg, params)):
         with pytest.raises(RuntimeError, match="no CUDA device"):

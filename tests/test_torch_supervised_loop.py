@@ -547,3 +547,75 @@ def test_perf_probe_fleet_status_drain_and_flight_dump(tmp_path, capsys,
     finally:
         stop.set()
         rw.stop()
+
+
+def _exit_while_building_probe(out_dir, exp, trial, srv):
+    """Called once the model is built, before the server starts: commands
+    the server's own exit through its control endpoint, as a scale-down or
+    the launcher's shutdown does while a dynamic server builds. The
+    command waits there (the entry serves it only after this returns), so
+    the reply times out."""
+    from areal_tpu_torch.system.worker_base import WorkerControlPanel
+
+    panel = WorkerControlPanel(exp, trial, timeout=1.0)
+    try:
+        reply = panel.try_command(f"genserver_{srv.cfg.server_id}", "exit")
+    except Exception as e:  # noqa: BLE001 — no endpoint: written below
+        reply = {"ok": False, "error": repr(e)}
+    finally:
+        panel.close()
+
+    def done():
+        with open(os.path.join(out_dir, "dyn.json"), "w") as f:
+            json.dump({"reply": reply,
+                       "generated_tokens": srv.stats()["generated_tokens"]},
+                      f)
+    return done
+
+
+def test_dynamic_server_exits_in_order_when_told_while_it_builds(
+        tmp_path, monkeypatch, nr_restore):
+    """A dynamic generation server (``gen_server_entry``) whose exit is
+    commanded while its model builds exits 0, without serving, and sends
+    its record: its control endpoint is open from the start and the
+    command waits there. Were the endpoint opened only after the build,
+    the command would find none, the server would serve on, and the
+    launcher's shutdown would terminate it without a record."""
+    import copy
+    import multiprocessing
+
+    from areal_tpu_torch.apps.launcher import gen_server_entry
+    from areal_tpu_torch.base import names as tnames
+    from areal_tpu_torch.experiments import common as C
+    from areal_tpu_torch.system.worker_base import worker_control_key
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    exp = "dynbuild"
+    cfg = _config(tmp_path, exp, steps=1)
+    sc = copy.deepcopy(cfg.initial_setup()["gen_servers"][0])
+    sc.server_id, sc.port = "dyn1", None
+    C.setup_name_resolve(cfg)
+    out = tmp_path / "out"
+    out.mkdir()
+    probe = functools.partial(_exit_while_building_probe, str(out), exp,
+                              TRIAL)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=gen_server_entry, args=(cfg, sc, probe), daemon=True)
+    proc.start()
+    try:
+        proc.join(WAIT_SECS)
+        assert not proc.is_alive(), "the commanded exit was not served"
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(10)
+    assert proc.exitcode == 0
+    with open(out / "dyn.json") as f:
+        rec = json.load(f)
+    # no answer while the build held the command; nothing served
+    assert not rec["reply"]["ok"] and rec["generated_tokens"] == 0
+    # it never registered for routing, and its endpoint is withdrawn
+    for key in (tnames.gen_servers(exp, TRIAL, "dyn1"),
+                worker_control_key(exp, TRIAL, "genserver_dyn1")):
+        with pytest.raises(tnr.NameEntryNotFoundError):
+            tnr.get(key)
