@@ -52,13 +52,15 @@ def transformer_flops_per_token(
     backward: bool = True,
     remat: bool = False,
     moe=None,
+    mlp_matmuls: int = 3,
 ) -> float:
     """Analytic FLOPs per token (the llama formula family): matmul terms
     2·m·n·k plus the attention-score quadratic term; backward ≈ 2× forward,
     or 3× under activation rematerialization (the forward runs again in the
     backward). ``moe`` (anything with MoEConfig's fields) counts the
     activated MLP compute: top_k routed experts, the router and the shared
-    expert."""
+    expert. ``mlp_matmuls``: 3 for a gated MLP, 2 for GPT-2's plain one
+    (the reference counts 3 for every dense model)."""
     d, f = hidden_dim, intermediate_dim
     attn_proj = 2 * d * (q_dim + 2 * kv_dim) + 2 * q_dim * d
     attn_score = 2 * 2 * q_dim * avg_seqlen  # QK^T and PV, causal avg ≈ L/2·2
@@ -68,7 +70,7 @@ def transformer_flops_per_token(
         if moe.shared_intermediate_dim:
             mlp += 3 * 2 * d * moe.shared_intermediate_dim
     else:
-        mlp = 3 * 2 * d * f
+        mlp = mlp_matmuls * 2 * d * f
     per_layer = attn_proj + attn_score + mlp
     head = 2 * d * vocab_size
     fwd = n_layers * per_layer + head
@@ -92,6 +94,7 @@ def model_flops_per_token(
         cfg.intermediate_dim, 1 if cfg.is_critic else cfg.vocab_size,
         avg_seqlen, backward=backward, remat=remat,
         moe=getattr(cfg, "moe", None),
+        mlp_matmuls=2 if getattr(cfg, "mlp_type", "gated") == "plain" else 3,
     )
 
 

@@ -1,9 +1,10 @@
 """Transformer configuration.
 
 The port's own copy of ``areal_tpu/models/config.py`` (``MoEConfig``,
-``TransformerConfig``, ``tiny_config``) plus :func:`qwen2_5_0_5b`, the
-geometry the serving slice runs at full width. Families are expressed as
-config differences (bias flags, qk-norm, tying), not separate classes.
+``TransformerConfig``, ``tiny_config``) plus the published geometries the
+card runs at full width: :func:`qwen2_5_0_5b`, :func:`gpt2_small` and
+:func:`gemma_2b`. Families are expressed as config differences (bias flags,
+qk-norm, tying, norm and MLP kinds, positions), not separate classes.
 """
 
 from __future__ import annotations
@@ -121,6 +122,42 @@ def qwen2_5_0_5b(**kw) -> TransformerConfig:
         head_dim=64, intermediate_dim=4864, vocab_size=151936,
         rotary_base=1000000.0, rms_norm_eps=1e-6, use_attention_bias=True,
         tie_word_embeddings=True, hf_family="qwen2", dtype="bfloat16",
+    )
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
+def gpt2_small(**kw) -> TransformerConfig:
+    """GPT-2 (124M) geometry, as the public ``openai-community/gpt2``
+    ``config.json``: 12 layers, hidden 768, 12 heads of 64, inner 3072
+    (``n_inner`` null: 4 x 768), vocab 50257, 1024 learned positions,
+    LayerNorm eps 1e-5 with biases, a plain MLP with biases, tanh GELU
+    (``gelu_new``), tied embeddings; the fields ``models/hf.py``'s
+    ``_gpt2_config`` reads from that file."""
+    base = dict(
+        n_layers=12, hidden_dim=768, n_q_heads=12, n_kv_heads=12,
+        head_dim=64, intermediate_dim=3072, vocab_size=50257,
+        rms_norm_eps=1e-5, tie_word_embeddings=True, use_attention_bias=True,
+        use_attn_output_bias=True, hidden_act="gelu_tanh", mlp_type="plain",
+        norm_type="layer", pos_embedding="learned",
+        max_position_embeddings=1024, hf_family="gpt2", dtype="bfloat16",
+    )
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
+def gemma_2b(**kw) -> TransformerConfig:
+    """Gemma-2B geometry, as the public ``google/gemma-2b``
+    ``config.json``: 18 layers, hidden 2048, 8 query heads over 1 kv head
+    of 256, GeGLU 16384 (tanh GELU), vocab 256000, rope base 10000,
+    RMSNorm eps 1e-6, tied and scaled embeddings; the fields
+    ``models/hf.py``'s ``_gemma_config`` reads from that file."""
+    base = dict(
+        n_layers=18, hidden_dim=2048, n_q_heads=8, n_kv_heads=1,
+        head_dim=256, intermediate_dim=16384, vocab_size=256000,
+        rotary_base=10000.0, rms_norm_eps=1e-6, tie_word_embeddings=True,
+        hidden_act="gelu_tanh", scale_embeddings=True, hf_family="gemma",
+        dtype="bfloat16",
     )
     base.update(kw)
     return TransformerConfig(**base)

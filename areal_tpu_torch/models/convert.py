@@ -6,7 +6,10 @@ pytree flattened (``areal_tpu/models/hf.py:579 flatten_pytree``) to
 and per-layer stacks ``layers/<key> [L, ...]`` with matrices as
 ``[in, out]``. The port's state dict holds ``nn.Linear`` weights as
 ``[out, in]`` under ``layers.<i>.<key>.weight`` / ``.bias``. A critic's
-``value_head [d, 1]`` is the port's ``value_head.weight [1, d]``.
+``value_head [d, 1]`` is the port's ``value_head.weight [1, d]``; GPT-2's
+learned ``pos_embedding [P, d]`` is ``pos_embedding.weight`` as it is, and
+its LayerNorm shifts and MLP / output biases (``ln1_b``, ``ln2_b``,
+``final_ln_b``, ``bo``, ``b_up``, ``b_down``) are the modules' ``.bias``.
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ def _layer_key_map() -> Dict[str, str]:
 
 _TOP = {"embedding": "embedding.weight", "final_ln": "final_ln.weight",
         "final_ln_b": "final_ln.bias", "lm_head": "lm_head.weight",
-        "value_head": "value_head.weight"}
+        "value_head": "value_head.weight",
+        "pos_embedding": "pos_embedding.weight"}
 _TRANSPOSED = set(_LINEAR) | {"lm_head", "value_head"}
 
 

@@ -12,6 +12,13 @@ its KV **in place**; every function that derives a state from another
 (:func:`slice_state`, :func:`stack_states`, :func:`clone_prefix`, a growing
 :func:`grow_state`) returns fresh buffers, so a retained state is never
 mutated through a derived one.
+
+Learned positions (GPT-2): the model refuses a live token at or past
+``max_position_embeddings`` (``models/transformer.py table_positions``).
+Tokens whose outputs are dropped (a finished row's pad steps, the pad tail of
+an extension, the prefill's pad columns) index a clamped position instead,
+as the reference's gather clamps them, so they never trip the check; RoPE
+models see their positions unchanged.
 """
 
 from __future__ import annotations
@@ -31,6 +38,18 @@ from areal_tpu_torch.ops.sampling import (
 from areal_tpu_torch.ops.xent import gather_logprobs
 
 State = Dict[str, torch.Tensor]
+
+
+def _model_positions(model: Transformer, positions: torch.Tensor,
+                     dropped: torch.Tensor) -> torch.Tensor:
+    """``positions`` as the model is given them: for a learned table, those
+    of tokens whose outputs are dropped (``dropped``, broadcast against
+    ``positions``) clamped into the table."""
+    cfg = model.cfg
+    if cfg.pos_embedding != "learned":
+        return positions
+    return torch.where(dropped, positions.clamp(
+        max=cfg.max_position_embeddings - 1), positions)
 
 
 def _prefill(model: Transformer, prompts: torch.Tensor,
@@ -105,8 +124,8 @@ def generate_batch(
                                    plens[:, None] + (slot_ids[None, :] - P))
             valid = valid & ((pos[:, None] - slot_pos) < cfg.sliding_window)
         logits_step, kv_cache = model(
-            token[:, None], pos[:, None], kv_cache=kv_cache,
-            cache_write_index=P + n, kv_valid=valid,
+            token[:, None], _model_positions(model, pos, finished)[:, None],
+            kv_cache=kv_cache, cache_write_index=P + n, kv_valid=valid,
         )
         finished = finished | (token == eos_token_id)
         last_logits = logits_step[:, 0]
@@ -207,8 +226,9 @@ def decode_chunk_rows(
         if cfg.sliding_window is not None:
             valid = valid & ((pos[:, None] - slot_ids[None, :])
                              < cfg.sliding_window)
-        logits_step, kv = model(token[:, None], pos[:, None], kv_cache=kv,
-                                cache_write_index=pos, kv_valid=valid)
+        logits_step, kv = model(
+            token[:, None], _model_positions(model, pos, finished)[:, None],
+            kv_cache=kv, cache_write_index=pos, kv_valid=valid)
         now_finished = finished | (token == eos_token_id)
         cur_len = torch.where(finished, cur_len, cur_len + 1)
         done = done + (~finished).to(torch.int32)
@@ -290,7 +310,8 @@ def extend_state(
     if model.cfg.sliding_window is not None:
         kv_valid = kv_valid & ((positions[:, :, None] - slot_ids[None, None, :])
                                < model.cfg.sliding_window)
-    logits, kv = model(tokens, positions,
+    pad_tail = torch.arange(T, device=dev)[None, :] >= token_lens[:, None]
+    logits, kv = model(tokens, _model_positions(model, positions, pad_tail),
                        kv_cache={"k": state["kv_k"], "v": state["kv_v"]},
                        cache_write_index=cur, kv_valid=kv_valid,
                        attn_impl=attn_impl)

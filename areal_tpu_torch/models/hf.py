@@ -1,21 +1,33 @@
 """HF ↔ port weight conversion and sharded safetensors checkpoints.
 
-Counterpart of ``areal_tpu/models/hf.py`` for the llama-like families
-(llama, qwen2 — Qwen2.5 —, qwen3, mistral): ``config_from_hf:145``,
-``_llama_mapping:166``, ``_llama_from_sd:213``, ``_llama_to_sd:263`` (with
-the critic's ``score.weight``), ``hf_config_dict:404``, the sharded
+Counterpart of ``areal_tpu/models/hf.py`` for the dense families: the
+registry (``register_hf_family:35``, ``HF_FAMILIES:32``) with the
+llama-like four (llama, qwen2 — Qwen2.5 —, qwen3, mistral; ``_llama_like:62``),
+``_gemma_config:79`` and ``_gpt2_config:90``, ``config_from_hf:145``, the
+codecs ``_llama_from_sd:213`` / ``_llama_to_sd:263`` (with Gemma's (w − 1)
+norm storage and the critic's ``score.weight``) and ``_gpt2_from_sd:295`` /
+``_gpt2_to_sd:341`` (fused ``c_attn``, Conv1D ``[in, out]`` weights, the
+optional ``transformer.`` prefix), ``params_from_hf_state_dict:372``,
+``params_to_hf_state_dict:381``, ``hf_config_dict:404``, the sharded
 safetensors IO (``:468-534``), ``save_hf_checkpoint:561`` /
 ``load_hf_checkpoint:662``, the native weight-sync layout
 (``save_native_checkpoint:618``, ``load_native_checkpoint:644``,
-``load_checkpoint_auto:655``) and ``load_hf_model:540`` for a directory.
+``load_checkpoint_auto:655``) and ``load_hf_model:540`` for a directory or
+an in-memory model.
 
 The port's state dict already holds HF's ``[out, in]`` linear layout, so the
-HF mapping is a renaming. The native layout keeps the reference's flattened
+llama-like mapping is a renaming; GPT-2's Conv1D weights are transposed and
+its ``c_attn`` split. The native layout keeps the reference's flattened
 names and stacked ``[in, out]`` layers (through ``models/convert.py``), so a
 checkpoint published by either package loads in the other. Files go through
-``base/safetensors_io.py``; ``config.json`` is read with ``json``. GPT-2,
-Gemma and MoE mappings, and building from an in-memory ``transformers``
-model, wait for a later slice.
+``base/safetensors_io.py``; ``config.json`` is read with ``json``, and
+``transformers`` is never imported. MoE mappings wait for a later slice.
+
+Gemma's activation: the reference reads ``hidden_activation`` (absent:
+``gelu_pytorch_tanh``) and never ``hidden_act``, where ``transformers``
+builds ``GemmaMLP`` from ``hidden_act``. The port reads the reference's key,
+because parity is held to the reference, and writes both keys with the
+model's own activation.
 """
 
 from __future__ import annotations
@@ -24,7 +36,7 @@ import dataclasses
 import json
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -33,21 +45,36 @@ from areal_tpu_torch.base import safetensors_io as sio
 from areal_tpu_torch.models import convert
 from areal_tpu_torch.models.config import MoEConfig, TransformerConfig
 
+# model_type -> builder of a TransformerConfig from a config.json dict with
+# the family's defaults filled in (reference HF_FAMILIES:32)
+HF_FAMILIES: Dict[str, Callable[[Mapping[str, Any]], TransformerConfig]] = {}
+
+
+def register_hf_family(name: str):
+    def deco(fn):
+        HF_FAMILIES[name] = fn
+        return fn
+
+    return deco
+
+
 LLAMA_FAMILIES = ("llama", "qwen2", "qwen3", "mistral")
 _HF_ARCH = {
     "llama": "LlamaForCausalLM",
     "qwen2": "Qwen2ForCausalLM",
     "qwen3": "Qwen3ForCausalLM",
     "mistral": "MistralForCausalLM",
+    "gemma": "GemmaForCausalLM",
+    "gpt2": "GPT2LMHeadModel",
 }
 
 
 # What each family's ``transformers`` config class fills in for a key that
 # ``config.json`` leaves out (``LlamaConfig``, ``Qwen2Config``,
-# ``Qwen3Config``, ``MistralConfig`` as of transformers 4.57). ``None`` for
-# ``num_key_value_heads`` / ``head_dim`` means "derived" (rules in
-# ``config_from_hf``). Llama and Mistral have no ``use_sliding_window``: the
-# reference reads its absence as True.
+# ``Qwen3Config``, ``MistralConfig``, ``GemmaConfig``, ``GPT2Config`` as of
+# transformers 4.57). ``None`` for ``num_key_value_heads`` / ``head_dim``
+# means "derived" (rules in ``_base_kwargs``). Llama and Mistral have no
+# ``use_sliding_window``: the reference reads its absence as True.
 _COMMON = dict(num_hidden_layers=32, hidden_size=4096, num_attention_heads=32,
                rope_theta=10000.0, rms_norm_eps=1e-6,
                tie_word_embeddings=False)
@@ -64,22 +91,20 @@ _HF_DEFAULTS: Dict[str, Dict[str, Any]] = {
     "mistral": dict(_COMMON, vocab_size=32000, intermediate_size=14336,
                     num_key_value_heads=8, head_dim=None,
                     sliding_window=4096, use_sliding_window=True),
+    "gemma": dict(_COMMON, num_hidden_layers=28, hidden_size=3072,
+                  num_attention_heads=16, vocab_size=256000,
+                  intermediate_size=24576, num_key_value_heads=16,
+                  head_dim=256, tie_word_embeddings=True,
+                  hidden_activation=None),
+    "gpt2": dict(n_layer=12, n_embd=768, n_head=12, n_inner=None,
+                 vocab_size=50257, layer_norm_epsilon=1e-5, n_positions=1024),
 }
 
 
-def config_from_hf(hf_config: Mapping[str, Any]) -> TransformerConfig:
-    """A ``TransformerConfig`` from a llama-like ``config.json`` dict
-    (reference ``config_from_hf:145`` over ``_base_kwargs:43`` and
-    ``_llama_like:62``), with each family's defaults for the keys it leaves
-    out, as ``transformers`` resolves them: a missing or null
-    ``num_key_value_heads`` that the family leaves open is the q-head
-    count, a null ``head_dim`` is hidden / heads, and a window counts only
-    with ``use_sliding_window``."""
-    mt = hf_config.get("model_type", "llama")
-    if mt not in LLAMA_FAMILIES:
-        raise NotImplementedError(f"HF model family {mt!r} is not ported yet")
-    c = {**_HF_DEFAULTS[mt], **hf_config}
-    return TransformerConfig(
+def _base_kwargs(c: Mapping[str, Any]) -> Dict[str, Any]:
+    """The reference's ``_base_kwargs:43``: a null ``head_dim`` is hidden /
+    heads, a null ``num_key_value_heads`` the q-head count."""
+    return dict(
         n_layers=c["num_hidden_layers"],
         hidden_dim=c["hidden_size"],
         n_q_heads=c["num_attention_heads"],
@@ -90,6 +115,15 @@ def config_from_hf(hf_config: Mapping[str, Any]) -> TransformerConfig:
         rotary_base=c["rope_theta"],
         rms_norm_eps=c["rms_norm_eps"],
         tie_word_embeddings=c["tie_word_embeddings"],
+    )
+
+
+def _llama_like(c: Mapping[str, Any]) -> TransformerConfig:
+    """llama, qwen2, qwen3, mistral (reference ``_llama_like:62``): a window
+    counts only with ``use_sliding_window``."""
+    mt = c["model_type"]
+    return TransformerConfig(
+        **_base_kwargs(c),
         sliding_window=c["sliding_window"] if c["use_sliding_window"] else None,
         use_attention_bias=mt == "qwen2",
         use_qk_norm=mt == "qwen3",
@@ -97,14 +131,73 @@ def config_from_hf(hf_config: Mapping[str, Any]) -> TransformerConfig:
     )
 
 
-def _check_llama(cfg: TransformerConfig) -> None:
-    fam = cfg.hf_family or "llama"
-    if (fam not in LLAMA_FAMILIES or cfg.moe is not None
-            or cfg.scale_embeddings or cfg.mlp_type != "gated"
-            or cfg.norm_type != "rms" or cfg.pos_embedding != "rope"):
-        raise NotImplementedError(
-            f"only the llama-like HF layouts are ported ({fam!r} config)")
+for _fam in LLAMA_FAMILIES:
+    register_hf_family(_fam)(_llama_like)
 
+
+@register_hf_family("gemma")
+def _gemma_config(c: Mapping[str, Any]) -> TransformerConfig:
+    """Reference ``_gemma_config:79``: scaled embeddings, and the
+    activation from ``hidden_activation`` (see the module docstring)."""
+    act = c.get("hidden_activation") or "gelu_pytorch_tanh"
+    return TransformerConfig(
+        **_base_kwargs(c),
+        hidden_act="gelu_tanh" if "tanh" in act else "gelu",
+        scale_embeddings=True,
+        hf_family="gemma",
+    )
+
+
+@register_hf_family("gpt2")
+def _gpt2_config(c: Mapping[str, Any]) -> TransformerConfig:
+    """Reference ``_gpt2_config:90``: LayerNorm with biases, biased
+    attention and MLP, tanh GELU (``gelu_new``), learned positions, always
+    tied."""
+    d = c["n_embd"]
+    return TransformerConfig(
+        n_layers=c["n_layer"],
+        hidden_dim=d,
+        n_q_heads=c["n_head"],
+        n_kv_heads=c["n_head"],
+        head_dim=d // c["n_head"],
+        intermediate_dim=c["n_inner"] or 4 * d,
+        vocab_size=c["vocab_size"],
+        rms_norm_eps=c["layer_norm_epsilon"],
+        tie_word_embeddings=True,
+        use_attention_bias=True,
+        use_attn_output_bias=True,
+        hidden_act="gelu_tanh",
+        mlp_type="plain",
+        norm_type="layer",
+        pos_embedding="learned",
+        max_position_embeddings=c["n_positions"],
+        hf_family="gpt2",
+    )
+
+
+def config_from_hf(hf_config: Mapping[str, Any]) -> TransformerConfig:
+    """A ``TransformerConfig`` from a ``config.json`` dict (reference
+    ``config_from_hf:145``), with the family's ``transformers`` defaults
+    for the keys it leaves out."""
+    mt = hf_config.get("model_type", "llama")
+    if mt not in HF_FAMILIES:
+        raise NotImplementedError(f"HF model family {mt!r} is not ported yet")
+    return HF_FAMILIES[mt]({**_HF_DEFAULTS[mt], "model_type": mt,
+                            **hf_config})
+
+
+def _check_mapped(cfg: TransformerConfig) -> str:
+    """The config's family, if the port maps its weights (MoE it does
+    not yet)."""
+    fam = cfg.hf_family or "llama"
+    if fam not in HF_FAMILIES or cfg.moe is not None:
+        raise NotImplementedError(
+            f"the HF layout of this config is not ported yet ({fam!r}"
+            f"{', moe' if cfg.moe is not None else ''})")
+    return fam
+
+
+# ---------------- the llama-like codec (and Gemma) ----------------
 
 def _llama_mapping(cfg: TransformerConfig) -> List[Tuple[str, str]]:
     """(port parameter suffix, HF name format) of every per-layer weight."""
@@ -140,45 +233,187 @@ def _top_mapping(cfg: TransformerConfig) -> List[Tuple[str, str]]:
     return m
 
 
-def _llama_from_sd(sd: Mapping[str, torch.Tensor], cfg: TransformerConfig,
-                   dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
-    """HF state dict → the port's ``Transformer`` state dict. A critic
-    without ``score.weight`` gets a zero value head."""
-    _check_llama(cfg)
+# Gemma stores each RMSNorm scale as (w − 1) (reference hf.py:242-252).
+_GEMMA_NORMS = ("ln1.weight", "ln2.weight")
 
+
+def _fold(t: torch.Tensor, by: float, dtype: torch.dtype) -> torch.Tensor:
+    """``t + by`` computed in float32, then in ``dtype``."""
+    return (t.float() + by).to(dtype)
+
+
+def _getter(sd: Mapping[str, torch.Tensor], dtype: torch.dtype, device):
     def get(name: str) -> torch.Tensor:
         if name not in sd:
             raise KeyError(f"missing HF weight {name}; have e.g. {list(sd)[:5]}")
         return sd[name].to(device=device, dtype=dtype)
+    return get
 
+
+def _value_head(sd, cfg, get, dtype, device) -> torch.Tensor:
+    """A critic's head from ``score.weight``, or zeros without one."""
+    if "score.weight" in sd:
+        return get("score.weight")
+    return torch.zeros(1, cfg.hidden_dim, device=device, dtype=dtype)
+
+
+def _llama_from_sd(sd: Mapping[str, torch.Tensor], cfg: TransformerConfig,
+                   dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
+    """HF state dict → the port's ``Transformer`` state dict. A critic
+    without ``score.weight`` gets a zero value head."""
+    get = _getter(sd, dtype, device)
+    gemma = cfg.scale_embeddings
     out: Dict[str, torch.Tensor] = {}
     for port, hf in _top_mapping(cfg):
-        if port == "value_head.weight" and hf not in sd:
-            out[port] = torch.zeros(1, cfg.hidden_dim, device=device,
-                                    dtype=dtype)
+        if port == "value_head.weight":
+            out[port] = _value_head(sd, cfg, get, dtype, device)
+        elif gemma and port == "final_ln.weight":
+            out[port] = _fold(get(hf), 1.0, dtype)
         else:
             out[port] = get(hf)
     for i in range(cfg.n_layers):
         for port, hf in _llama_mapping(cfg):
-            out[f"layers.{i}.{port}"] = get(hf.format(i=i))
+            t = get(hf.format(i=i))
+            if gemma and port in _GEMMA_NORMS:
+                t = _fold(t, 1.0, dtype)
+            out[f"layers.{i}.{port}"] = t
     return out
 
 
 def _llama_to_sd(params: Mapping[str, torch.Tensor],
                  cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
-    """The port's state dict → HF names, each tensor as it is."""
-    _check_llama(cfg)
-    sd = {hf: params[port].detach() for port, hf in _top_mapping(cfg)}
+    """The port's state dict → HF names, each tensor in its own dtype."""
+    gemma = cfg.scale_embeddings
+
+    def put(port: str, t: torch.Tensor) -> torch.Tensor:
+        t = t.detach()
+        if gemma and (port == "final_ln.weight"
+                      or port.split(".", 2)[-1] in _GEMMA_NORMS):
+            return _fold(t, -1.0, t.dtype)
+        return t
+
+    sd = {hf: put(port, params[port]) for port, hf in _top_mapping(cfg)}
     for i in range(cfg.n_layers):
         for port, hf in _llama_mapping(cfg):
-            sd[hf.format(i=i)] = params[f"layers.{i}.{port}"].detach()
+            name = f"layers.{i}.{port}"
+            sd[hf.format(i=i)] = put(name, params[name])
     return sd
 
 
+# ---------------- the GPT-2 codec ----------------
+
+def _gpt2_layer(i: int) -> List[Tuple[str, str]]:
+    """(port parameter suffix, HF name) of layer i's unfused weights; the
+    Conv1D matrices (``.weight`` of a linear) are ``[in, out]`` in HF."""
+    p = f"h.{i}."
+    return [("ln1.weight", p + "ln_1.weight"), ("ln1.bias", p + "ln_1.bias"),
+            ("ln2.weight", p + "ln_2.weight"), ("ln2.bias", p + "ln_2.bias"),
+            ("wo.weight", p + "attn.c_proj.weight"),
+            ("wo.bias", p + "attn.c_proj.bias"),
+            ("w_up.weight", p + "mlp.c_fc.weight"),
+            ("w_up.bias", p + "mlp.c_fc.bias"),
+            ("w_down.weight", p + "mlp.c_proj.weight"),
+            ("w_down.bias", p + "mlp.c_proj.bias")]
+
+
+_GPT2_TOP = [("embedding.weight", "wte.weight"),
+             ("pos_embedding.weight", "wpe.weight"),
+             ("final_ln.weight", "ln_f.weight"),
+             ("final_ln.bias", "ln_f.bias")]
+
+
+def _gpt2_from_sd(sd: Mapping[str, torch.Tensor], cfg: TransformerConfig,
+                  dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
+    """GPT-2 (reference ``_gpt2_from_sd:295``): fused ``c_attn`` (q, k, v
+    along its output columns), Conv1D ``[in, out]`` weights transposed to
+    ``[out, in]``, LayerNorm biases, learned positions, and the
+    ``transformer.`` prefix of ``GPT2LMHeadModel`` (absent in a bare
+    ``GPT2Model``'s state dict)."""
+    pfx = "transformer." if any(k.startswith("transformer.") for k in sd) else ""
+    get = _getter(sd, dtype, device)
+    d = cfg.hidden_dim
+    out = {port: get(pfx + hf) for port, hf in _GPT2_TOP}
+    for i in range(cfg.n_layers):
+        for port, hf in _gpt2_layer(i):
+            t = get(pfx + hf)
+            out[f"layers.{i}.{port}"] = t.T.contiguous() if t.dim() == 2 else t
+        w = get(pfx + f"h.{i}.attn.c_attn.weight")  # [d, 3d]
+        b = get(pfx + f"h.{i}.attn.c_attn.bias")  # [3d]
+        for j, name in enumerate(("wq", "wk", "wv")):
+            out[f"layers.{i}.{name}.weight"] = \
+                w[:, j * d:(j + 1) * d].T.contiguous()
+            out[f"layers.{i}.{name}.bias"] = b[j * d:(j + 1) * d].contiguous()
+    if cfg.is_critic:
+        out["value_head.weight"] = _value_head(sd, cfg, get, dtype, device)
+    return out
+
+
+def _gpt2_to_sd(params: Mapping[str, torch.Tensor],
+                cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`_gpt2_from_sd` (reference ``_gpt2_to_sd:341``),
+    in ``GPT2LMHeadModel``'s names, each tensor in its own dtype."""
+    sd = {"transformer." + hf: params[port].detach() for port, hf in _GPT2_TOP}
+    for i in range(cfg.n_layers):
+        lp = f"layers.{i}."
+        for port, hf in _gpt2_layer(i):
+            t = params[lp + port].detach()
+            sd["transformer." + hf] = t.T.contiguous() if t.dim() == 2 else t
+        sd[f"transformer.h.{i}.attn.c_attn.weight"] = torch.cat(
+            [params[lp + f"{n}.weight"].detach().T for n in ("wq", "wk", "wv")],
+            dim=1).contiguous()
+        sd[f"transformer.h.{i}.attn.c_attn.bias"] = torch.cat(
+            [params[lp + f"{n}.bias"].detach() for n in ("wq", "wk", "wv")])
+    if cfg.is_critic:
+        sd["score.weight"] = params["value_head.weight"].detach()
+    return sd
+
+
+def params_from_hf_state_dict(sd: Mapping[str, torch.Tensor],
+                              cfg: TransformerConfig,
+                              dtype: torch.dtype = torch.float32,
+                              device=None) -> Dict[str, torch.Tensor]:
+    """HF causal-LM state dict (torch tensors) → the port's ``Transformer``
+    state dict in ``dtype`` on ``device`` (cuda unless the caller names one;
+    reference ``params_from_hf_state_dict:372``)."""
+    device = resolve_device(device)
+    if _check_mapped(cfg) == "gpt2":
+        return _gpt2_from_sd(sd, cfg, dtype, device)
+    return _llama_from_sd(sd, cfg, dtype, device)
+
+
+def params_to_hf_state_dict(params: Mapping[str, torch.Tensor],
+                            cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+    """The port's state dict → HF names and layout (reference
+    ``params_to_hf_state_dict:381``), each tensor in its own dtype."""
+    if _check_mapped(cfg) == "gpt2":
+        return _gpt2_to_sd(params, cfg)
+    return _llama_to_sd(params, cfg)
+
+
+def _hf_act(cfg: TransformerConfig) -> str:
+    return {"gelu_tanh": "gelu_pytorch_tanh"}.get(cfg.hidden_act,
+                                                  cfg.hidden_act)
+
+
 def hf_config_dict(cfg: TransformerConfig) -> Dict[str, Any]:
-    """A transformers-loadable ``config.json`` dict for ``cfg``'s family."""
-    _check_llama(cfg)
-    fam = cfg.hf_family or "llama"
+    """A transformers-loadable ``config.json`` dict for ``cfg``'s family
+    (reference ``hf_config_dict:404``)."""
+    fam = _check_mapped(cfg)
+    if fam == "gpt2":
+        return {
+            "model_type": "gpt2",
+            "architectures": [_HF_ARCH["gpt2"]],
+            "n_layer": cfg.n_layers,
+            "n_embd": cfg.hidden_dim,
+            "n_head": cfg.n_q_heads,
+            "n_positions": cfg.max_position_embeddings,
+            "n_ctx": cfg.max_position_embeddings,
+            "n_inner": cfg.intermediate_dim,
+            "vocab_size": cfg.vocab_size,
+            "layer_norm_epsilon": cfg.rms_norm_eps,
+            "activation_function": "gelu_new",
+            "tie_word_embeddings": True,
+        }
     d: Dict[str, Any] = {
         "model_type": fam,
         "architectures": [_HF_ARCH[fam]],
@@ -193,9 +428,12 @@ def hf_config_dict(cfg: TransformerConfig) -> Dict[str, Any]:
         "rms_norm_eps": cfg.rms_norm_eps,
         "tie_word_embeddings": cfg.tie_word_embeddings,
         "max_position_embeddings": cfg.max_position_embeddings or 32768,
-        "hidden_act": cfg.hidden_act,
+        "hidden_act": _hf_act(cfg) if fam == "gemma" else cfg.hidden_act,
         "torch_dtype": "float32",
     }
+    if fam == "gemma":
+        # the key the reference reads, beside the one transformers reads
+        d["hidden_activation"] = _hf_act(cfg)
     if cfg.sliding_window is not None:
         d["sliding_window"] = cfg.sliding_window
     return d
@@ -270,19 +508,23 @@ def load_hf_state_dict(load_dir: str) -> Dict[str, torch.Tensor]:
 
 # ---------------- checkpoints ----------------
 
-def load_hf_model(path: str, is_critic: bool = False, device=None
+def load_hf_model(path, is_critic: bool = False, device=None
                   ) -> Tuple[TransformerConfig, Dict[str, torch.Tensor]]:
     """(config, float32 state dict on ``device``) from an HF model
-    directory (``config.json`` + safetensors). ``device``: cuda unless
-    named. The port has no tokenizer loader, so unlike the reference no
-    tokenizer comes back."""
+    directory (``config.json`` + safetensors) or an in-memory model (any
+    object with ``.config.to_dict()`` and ``.state_dict()``, such as a
+    ``transformers`` model; reference ``load_hf_model:540``). ``device``:
+    cuda unless named. The port has no tokenizer loader, so unlike the
+    reference no tokenizer comes back."""
     device = resolve_device(device)
-    with open(os.path.join(path, "config.json")) as f:
-        cfg = dataclasses.replace(config_from_hf(json.load(f)),
-                                  is_critic=is_critic)
-    params = _llama_from_sd(load_hf_state_dict(path), cfg, torch.float32,
-                            device)
-    return cfg, params
+    if isinstance(path, (str, os.PathLike)):
+        with open(os.path.join(path, "config.json")) as f:
+            hf_cfg = json.load(f)
+        sd = load_hf_state_dict(path)
+    else:  # an in-memory model: its config's dict and its state dict
+        hf_cfg, sd = path.config.to_dict(), path.state_dict()
+    cfg = dataclasses.replace(config_from_hf(hf_cfg), is_critic=is_critic)
+    return cfg, params_from_hf_state_dict(sd, cfg, torch.float32, device)
 
 
 def save_hf_checkpoint(params: Mapping[str, torch.Tensor],
@@ -293,7 +535,7 @@ def save_hf_checkpoint(params: Mapping[str, torch.Tensor],
     ``areal_tpu_config.json`` for :func:`load_hf_checkpoint`. Tensors keep
     their dtype. Returns the bytes of the weight files."""
     os.makedirs(save_dir, exist_ok=True)
-    n = save_hf_state_dict(_llama_to_sd(params, cfg), save_dir)
+    n = save_hf_state_dict(params_to_hf_state_dict(params, cfg), save_dir)
     with open(os.path.join(save_dir, "config.json"), "w") as f:
         json.dump(hf_config_dict(cfg), f, indent=1)
     with open(os.path.join(save_dir, "areal_tpu_config.json"), "w") as f:
@@ -310,8 +552,8 @@ def load_hf_checkpoint(load_dir: str, device=None
     device = resolve_device(device)
     with open(os.path.join(load_dir, "areal_tpu_config.json")) as f:
         cfg = _config_from_dict(json.load(f)["areal_tpu_config"])
-    params = _llama_from_sd(load_hf_state_dict(load_dir), cfg,
-                            getattr(torch, cfg.dtype), device)
+    params = params_from_hf_state_dict(load_hf_state_dict(load_dir), cfg,
+                                       getattr(torch, cfg.dtype), device)
     return cfg, params
 
 

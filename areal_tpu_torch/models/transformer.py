@@ -13,14 +13,23 @@ form, not in arithmetic:
    where the reference returns updated copies. Callers hand ``forward`` only
    cache buffers they own (``models/generate.py``).
 
-Supports GQA, rotate-half RoPE, RMSNorm or LayerNorm, gated or plain MLP,
-optional qk-norm and attention biases, tied or untied embeddings, the
-critic's value head (``is_critic``: ``value_head [1, D]``, no bias, values
-``[B, T]`` in the compute dtype) and the training forward: no KV stack
+Supports GQA, rotate-half RoPE or a learned position table (GPT-2),
+RMSNorm or LayerNorm, gated or plain MLP, optional qk-norm and attention
+biases, scaled embeddings (Gemma), tied or untied embeddings, the critic's
+value head (``is_critic``: ``value_head [1, D]``, no bias, values ``[B, T]``
+in the compute dtype) and the training forward: no KV stack
 (``return_kv=False``), the final hidden instead of logits
 (``return_hidden=True``) and per-layer remat (``_maybe_checkpoint:385``).
-MoE, learned positions and ring/pipeline parallelism wait for later
-slices.
+MoE and ring/pipeline parallelism wait for later slices.
+
+Learned positions differ from the reference in one respect, by design. The
+reference adds ``pos_embedding[positions]`` (``forward:430``), whose gather
+clamps an index past the table, so a token at position >=
+``max_position_embeddings`` silently reuses the last row. Here a kept token
+(segment id != 0 in packed mode; every row in cache mode) at such a position
+raises ``ValueError``; pad tokens (segment 0), whose outputs are masked,
+index a clamped position, so their results equal the reference's and no
+index trips a device assert.
 """
 
 from __future__ import annotations
@@ -171,8 +180,9 @@ class Block(nn.Module):
         if cfg.use_qk_norm:
             q = self.q_norm(q)
             k = self.k_norm(k)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        if cfg.pos_embedding == "rope":
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
 
         if cache_kv is None:
             attn = packed_attention(
@@ -216,17 +226,19 @@ class Block(nn.Module):
 class Transformer(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None, dtype=None):
         super().__init__()
-        unsupported = [name for name, on in (
-            ("moe", cfg.moe is not None),
-            ("pos_embedding='learned'", cfg.pos_embedding != "rope"),
-        ) if on]
-        if unsupported:
-            raise NotImplementedError(
-                f"not ported yet: {', '.join(unsupported)}"
-            )
+        if cfg.moe is not None:
+            raise NotImplementedError("not ported yet: moe")
+        if cfg.pos_embedding not in ("rope", "learned"):
+            raise ValueError(f"unknown pos_embedding {cfg.pos_embedding!r}")
+        if cfg.pos_embedding == "learned" and not cfg.max_position_embeddings:
+            raise ValueError("learned position embeddings need "
+                             "max_position_embeddings")
         f = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_dim, **f)
+        if cfg.pos_embedding == "learned":
+            self.pos_embedding = nn.Embedding(cfg.max_position_embeddings,
+                                              cfg.hidden_dim, **f)
         self.layers = nn.ModuleList(Block(cfg, **f) for _ in range(cfg.n_layers))
         self.final_ln = _norm(cfg, cfg.hidden_dim, **f)
         if cfg.is_critic:
@@ -278,7 +290,12 @@ class Transformer(nn.Module):
         h = self.embedding(tokens)
         if cfg.scale_embeddings:  # gemma normalizer
             h = h * torch.tensor(cfg.hidden_dim ** 0.5, dtype=h.dtype)
-        cos, sin = rope_tables(positions, cfg.head_dim, cfg.rotary_base)
+        if cfg.pos_embedding == "learned":
+            h = h + self.pos_embedding(table_positions(
+                cfg, positions, None if decode else segment_ids))
+            cos = sin = None
+        else:
+            cos, sin = rope_tables(positions, cfg.head_dim, cfg.rotary_base)
         ks, vs = [], []
         for i, layer in enumerate(self.layers):
             if remat:
@@ -310,6 +327,24 @@ class Transformer(nn.Module):
         head = getattr(self, head_param_name(self.cfg).split(".")[0])
         out = head_logits(h, head.weight)
         return out[..., 0] if self.cfg.is_critic else out
+
+
+def table_positions(cfg: TransformerConfig, positions: torch.Tensor,
+                    segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
+    """The rows of the learned position table that ``positions`` index:
+    clamped into the table, after checking that no kept token (segment id
+    != 0; every token when ``segment_ids`` is None) sits at or past
+    ``max_position_embeddings``. The check reads one integer on the host per
+    forward (not per layer); ``ValueError`` names the limit."""
+    limit = cfg.max_position_embeddings
+    kept = positions if segment_ids is None else \
+        positions.masked_fill(segment_ids == 0, 0)
+    top = int(kept.max()) if kept.numel() else 0
+    if top >= limit:
+        raise ValueError(
+            f"position {top} of a kept token is past the learned position "
+            f"table: max_position_embeddings={limit}")
+    return positions.clamp(0, limit - 1)
 
 
 def head_param_name(cfg: TransformerConfig) -> str:

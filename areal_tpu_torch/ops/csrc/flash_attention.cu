@@ -8,9 +8,9 @@
 // row index (causal by index, exactly as the TPU kernel).
 //
 // Differences from the TPU wrapper: GQA reads kv head h / G directly (no
-// repeat of K/V); head_dim 64 and 128 are template cases (no padding to 128
-// lanes); any T and S work (ragged tails are masked); KV tiles wholly in the
-// causal future are never loaded; rows without a valid key (pad queries,
+// repeat of K/V); head_dim 64, 128 and 256 are template cases (no padding to
+// 128 lanes); any T and S work (ragged tails are masked); KV tiles wholly in
+// the causal future are never loaded; rows without a valid key (pad queries,
 // segment 0) come out as exact zeros with logsumexp -inf.
 //
 // What bounds it on this card: at prefill and train shapes (T = S =
@@ -33,13 +33,24 @@
 // ids; pad-only tiles included) are never loaded. The blocks of the last q
 // tiles, which do the most work under causal masking, start first.
 //
+// Head_dim 256 (Gemma): the register plan of D <= 128 does not fit. There a
+// thread would hold 64 registers of Q fragments, 128 of the O accumulator
+// and 32 of S for a 64-key tile, past the 255-register limit, and the
+// shared tiles would take ~160 KB (one block per SM). So at D = 256 the Q
+// fragments are read from shared memory with ldmatrix at each k-step (Q
+// stays resident there for the whole loop) and the kv tiles are 32 keys:
+// ~128 accumulator + 16 score registers a thread, 96 KB of shared memory,
+// two blocks per SM. The arithmetic and the rounding points are the same.
+//
 // float32 (`flash_fwd_kernel`, dtype code 0): the scalar f32-FMA kernel,
 // kept as the exact-f32 specialisation (TF32 tensor cores would not hold
 // float32's tolerances); the model runs bf16. Layout: one block per
 // (64-row q tile, q head, batch row), 256 threads, four threads per query
 // row. Thread (row, quarter) computes the scores of keys quarter + 4*m of
 // each 64-key tile and owns head dims 4*quarter + 16*c + {0..3} of the
-// output accumulator; 16-byte shared loads, rows padded by 4 floats.
+// output accumulator; 16-byte shared loads, rows padded by 4 floats. At
+// D = 256 its tiles take 217,600 bytes of shared memory, under the 232,448 a
+// block may use.
 
 #include <type_traits>
 
@@ -217,11 +228,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // ---------------- bf16 / fp16: tensor cores ----------------
 
 template <int D>
+__host__ __device__ constexpr int fwd_block_kv() {
+  return D <= 128 ? kBlockKV : 32;  // kv columns per tile
+}
+
+template <int D>
 size_t mma_smem_bytes(int n_kv_tiles) {
+  constexpr int BKV = fwd_block_kv<D>();
   // Q tile, K and V tiles x2 (16-bit); q segment ids, kv segment ids x2, the
   // tile count and the list of kept kv tiles.
-  return 2 * (kBlockQ * D + 4 * kBlockKV * D) +
-         sizeof(int) * (kBlockQ + 2 * kBlockKV + 1 + n_kv_tiles);
+  return 2 * (kBlockQ * D + 4 * BKV * D) +
+         sizeof(int) * (kBlockQ + 2 * BKV + 1 + n_kv_tiles);
 }
 
 template <typename T, int D>
@@ -230,16 +247,18 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
                      T* __restrict__ out, float* __restrict__ lse, int T_len, int S_len, int Hq,
                      int Hkv, int causal, float scale_log2) {
-  constexpr int NB = kBlockKV / 8;  // key n-blocks of a tile
-  constexpr int KD = D / 16;        // 16-wide steps over the head dim
+  constexpr int BKV = fwd_block_kv<D>();
+  constexpr int NB = BKV / 8;           // key n-blocks of a tile
+  constexpr int KD = D / 16;            // 16-wide steps over the head dim
+  constexpr bool kQRegs = D <= 128;     // Q's A fragments held in registers
 
   extern __shared__ float4 smem4[];
   T* q_s = reinterpret_cast<T*>(smem4);
-  T* k_s = q_s + kBlockQ * D;    // [2][64][D]
-  T* v_s = k_s + 2 * kBlockKV * D;  // [2][64][D]
-  int* qseg_s = reinterpret_cast<int*>(v_s + 2 * kBlockKV * D);
-  int* kseg_s = qseg_s + kBlockQ;  // [2][64]
-  int* count_s = kseg_s + 2 * kBlockKV;
+  T* k_s = q_s + kBlockQ * D;  // [2][BKV][D]
+  T* v_s = k_s + 2 * BKV * D;  // [2][BKV][D]
+  int* qseg_s = reinterpret_cast<int*>(v_s + 2 * BKV * D);
+  int* kseg_s = qseg_s + kBlockQ;  // [2][BKV]
+  int* count_s = kseg_s + 2 * BKV;
   int* list_s = count_s + 1;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -266,20 +285,20 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   // The kv tiles this q tile needs: not wholly in the causal future, and
   // sharing a range of nonzero segment ids.
   const SegRange q_range = warp_seg_range(qseg_row, q0, kBlockQ, T_len);
-  const int n_kv = (S_len + kBlockKV - 1) / kBlockKV;
+  const int n_kv = (S_len + BKV - 1) / BKV;
   const int q_last = min(q0 + kBlockQ, T_len) - 1;
-  const int kv_end = causal ? min(n_kv, q_last / kBlockKV + 1) : n_kv;
+  const int kv_end = causal ? min(n_kv, q_last / BKV + 1) : n_kv;
   const int n = build_tile_list(list_s, count_s, 0, kv_end, [&](int t) {
-    return ranges_overlap(q_range, warp_seg_range(kseg_row, t * kBlockKV, kBlockKV, S_len));
+    return ranges_overlap(q_range, warp_seg_range(kseg_row, t * BKV, BKV, S_len));
   });
 
   auto load_kv = [&](int i, int buf) {
-    const int k0 = list_s[i] * kBlockKV;
-    load_tile_async<T, kBlockKV, D>(k_s + buf * kBlockKV * D, k_base, kv_stride, k0, S_len);
-    load_tile_async<T, kBlockKV, D>(v_s + buf * kBlockKV * D, v_base, kv_stride, k0, S_len);
-    if (tid < kBlockKV) {
+    const int k0 = list_s[i] * BKV;
+    load_tile_async<T, BKV, D>(k_s + buf * BKV * D, k_base, kv_stride, k0, S_len);
+    load_tile_async<T, BKV, D>(v_s + buf * BKV * D, v_base, kv_stride, k0, S_len);
+    if (tid < BKV) {
       const int s = k0 + tid;
-      cp_async_4(kseg_s + buf * kBlockKV + tid, kseg_row + (s < S_len ? s : 0), s < S_len);
+      cp_async_4(kseg_s + buf * BKV + tid, kseg_row + (s < S_len ? s : 0), s < S_len);
     }
   };
   if (n > 0) load_kv(0, 0);
@@ -287,9 +306,13 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   cp_async_wait<1>();  // this thread's part of the Q tile has landed
   __syncthreads();
 
-  uint32_t qf[KD][4];  // this warp's 16 query rows, the A operand of S = Q K^T
+  // This warp's 16 query rows, the A operand of S = Q K^T: in registers for
+  // D <= 128, read from the resident Q tile at each k-step for D = 256.
+  uint32_t qf[kQRegs ? KD : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], a_frag_addr<D>(q_s, warp * 16, kk, lane));
+    for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], a_frag_addr<D>(q_s, warp * 16, kk, lane));
+  }
 
   // This lane's two rows (r = 0, 1) and its columns 2 (lane % 4) + {0, 1} of
   // every 8-wide n-block.
@@ -309,22 +332,28 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     cp_async_commit();
     cp_async_wait<1>();  // tile `it` has landed
     __syncthreads();
-    const T* kt = k_s + buf * kBlockKV * D;
-    const T* vt = v_s + buf * kBlockKV * D;
-    const int* ks = kseg_s + buf * kBlockKV;
-    const int k0 = list_s[it] * kBlockKV;
+    const T* kt = k_s + buf * BKV * D;
+    const T* vt = v_s + buf * BKV * D;
+    const int* ks = kseg_s + buf * BKV;
+    const int k0 = list_s[it] * BKV;
 
     float s[NB][4];
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kQRegs) {
+        qa[0] = qf[kk][0], qa[1] = qf[kk][1], qa[2] = qf[kk][2], qa[3] = qf[kk][3];
+      } else {
+        ldmatrix_x4(qa, a_frag_addr<D>(q_s, warp * 16, kk, lane));
+      }
 #pragma unroll
       for (int nb2 = 0; nb2 < NB / 2; ++nb2) {
         uint32_t bf[4];
         ldmatrix_x4(bf, b_frag_addr<D>(kt, nb2 * 16, kk, lane));
-        mma_16816<T>(s[2 * nb2], qf[kk], bf[0], bf[1]);
-        mma_16816<T>(s[2 * nb2 + 1], qf[kk], bf[2], bf[3]);
+        mma_16816<T>(s[2 * nb2], qa, bf[0], bf[1]);
+        mma_16816<T>(s[2 * nb2 + 1], qa, bf[2], bf[3]);
       }
     }
 
@@ -372,7 +401,7 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
     // O += P V, P from registers, V through ldmatrix.trans.
 #pragma unroll
-    for (int kk = 0; kk < kBlockKV / 16; ++kk) {
+    for (int kk = 0; kk < BKV / 16; ++kk) {
       uint32_t pa[4];
       acc_to_a<T>(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
@@ -421,7 +450,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* q_seg
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), q_seg,
         kv_seg, static_cast<T*>(out), lse, T_len, S_len, Hq, Hkv, causal, scale * kLog2e);
   } else {
-    const size_t smem = mma_smem_bytes<D>((S_len + kBlockKV - 1) / kBlockKV);
+    const size_t smem = mma_smem_bytes<D>((S_len + fwd_block_kv<D>() - 1) / fwd_block_kv<D>());
     cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma_kernel<T, D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -443,6 +472,9 @@ cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, con
                            scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, q_seg, kv_seg, out, lse, B, T_len, S_len, Hq, Hkv, causal,
+                            scale, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, q_seg, kv_seg, out, lse, B, T_len, S_len, Hq, Hkv, causal,
                             scale, stream);
     default:
       return cudaErrorInvalidValue;

@@ -22,7 +22,7 @@
 //
 // Differences from the TPU kernels: GQA without repeating K/V (K2 sums the
 // G = Hq / Hkv query heads of each kv head, K3 reads kv head h / G); head_dim
-// 64 and 128 are template cases (no padding to 128 lanes); any T and S
+// 64, 128 and 256 are template cases (no padding to 128 lanes); any T and S
 // (ragged tails are masked); no block-size knobs; both kernels skip
 // causal-future tiles and, for bf16 / fp16, tile pairs that share no segment
 // id.
@@ -92,14 +92,31 @@
 // deterministic. kv tiles of 64 columns at D = 64 and 32 at D = 128 keep the
 // fragments in registers (as K2 halves its q tile).
 //
+// Head_dim 256 (Gemma). The register plans of D <= 128 do not fit there:
+//  - K3 would hold Q and dO fragments (64 + 64 registers) beside a dq
+//    accumulator of 128. At D = 256 the Q and dO tiles stay resident in
+//    shared memory and their A fragments are read with ldmatrix at each
+//    k-step; kv tiles are 16 keys (dq_block_kv): ~128 accumulator and 16
+//    score registers a thread, 96 KB of shared memory.
+//  - K2 would hold dk and dv accumulators of 128 registers each. At D = 256
+//    each block owns one half of the head dim (kDkvSplit blocks per kv
+//    tile and q head): it recomputes S^T and dP^T over the full D (K, V,
+//    Q, dO are all read whole) and accumulates dV += P^T dO and
+//    dK += dS^T Q for its 128 columns only, 1.5x the products of one block
+//    over the full D but no exchange between blocks; q tiles are 16 rows.
+//    The partials and the fixed-order G reduction are unchanged, so the
+//    result is as deterministic as at D <= 128.
+//
 // K3 for float32 (`flash_bwd_dq_kernel`) and K2 for float32
 // (`flash_bwd_dkv_kernel`), dtype code 0, are the exact-f32
 // specialisations (TF32 tensor cores would not hold float32's tolerances):
-// f32 FMAs out of shared memory, 256 threads, four per row, 16-byte shared
+// f32 FMAs out of shared memory, four threads per row of an R-row tile
+// (R = 64, 256 threads, for D <= 128; R = 32, 128 threads, at D = 256,
+// where 64-row tiles would need ~285 KB of shared memory), 16-byte shared
 // loads, rows padded by 4 floats, P / dS passed through shared memory
-// within a warp. Scalar K3: one block per (64-row q tile, q head, batch
+// within a warp. Scalar K3: one block per (R-row q tile, q head, batch
 // row), looping over the KV tiles up to the diagonal. Scalar K2: one block
-// per (64-key kv tile, kv head, batch row), looping over the G query heads
+// per (R-key kv tile, kv head, batch row), looping over the G query heads
 // and every q tile at or after the diagonal; dk and dv accumulate in
 // registers and are rounded once.
 
@@ -111,44 +128,52 @@ namespace {
 
 using namespace areal_flash;
 
-constexpr int kRows = kThreads / 4;  // rows of a tile a block works on at once
-static_assert(kRows == kBlockQ && kRows == kBlockKV, "one row per thread quad");
+// Rows of the scalar f32 kernels' tiles (q rows and kv columns alike), four
+// threads a row: 64 for D <= 128; 32 at D = 256, which keeps the tiles in
+// shared memory.
+template <int D>
+__host__ __device__ constexpr int scalar_rows() {
+  return D <= 128 ? kThreads / 4 : 32;
+}
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  // q, dO, k, v tiles [64][D + 4] f32, dS tile [64][64 + 4] f32, two seg vectors.
-  return sizeof(float) * (4 * kRows * (D + kPad) + kRows * (kRows + kPad)) +
-         sizeof(int) * 2 * kRows;
+  constexpr int R = scalar_rows<D>();
+  // q, dO, k, v tiles [R][D + 4] f32, dS tile [R][R + 4] f32, two seg vectors.
+  return sizeof(float) * (4 * R * (D + kPad) + R * (R + kPad)) + sizeof(int) * 2 * R;
 }
 
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  // k, v, q, dO tiles [64][D + 4] f32, P/dS tile [64][64 + 4] f32, lse and di
+  constexpr int R = scalar_rows<D>();
+  // k, v, q, dO tiles [R][D + 4] f32, P/dS tile [R][R + 4] f32, lse and di
   // of the q tile, two seg vectors.
-  return sizeof(float) * (4 * kRows * (D + kPad) + kRows * (kRows + kPad) + 2 * kRows) +
-         sizeof(int) * 2 * kRows;
+  return sizeof(float) * (4 * R * (D + kPad) + R * (R + kPad) + 2 * R) + sizeof(int) * 2 * R;
 }
 
-// Loads rows [r0, r0 + 64) of one head of a [B, L, H, D] tensor into a
-// [64][D + 4] f32 tile; rows at or past `len` are zeros.
+// Loads rows [r0, r0 + R) of one head of a [B, L, H, D] tensor into a
+// [R][D + 4] f32 tile (R = scalar_rows<D>, 4 R threads); rows at or past
+// `len` are zeros.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, const T* base, size_t row_stride, int r0,
                                           int len) {
   constexpr int LD = D + kPad;
-  for (int idx = threadIdx.x; idx < kRows * D; idx += kThreads) {
+  constexpr int R = scalar_rows<D>();
+  for (int idx = threadIdx.x; idx < R * D; idx += 4 * R) {
     const int r = idx / D, c = idx % D, t = r0 + r;
     dst[r * LD + c] = t < len ? to_f32(base[(size_t)t * row_stride + c]) : 0.f;
   }
 }
 
-// acc[4c + e] += sum_j w[j] * tile[j][4*quarter + 16c + e], with the 64
+// acc[4c + e] += sum_j w[j] * tile[j][4*quarter + 16c + e], with the R
 // weights w of this thread's row read from shared memory as float4s.
 template <int D>
 __device__ __forceinline__ void accumulate_rows(float* acc, const float* w_row, const float* tile,
                                                 int quarter) {
   constexpr int LD = D + kPad;
+  constexpr int R = scalar_rows<D>();
   const float4* w4 = reinterpret_cast<const float4*>(w_row);
-  for (int j4 = 0; j4 < kRows / 4; ++j4) {
+  for (int j4 = 0; j4 < R / 4; ++j4) {
     const float4 wv = w4[j4];
     const float wj[4] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
@@ -167,14 +192,14 @@ __device__ __forceinline__ void accumulate_rows(float* acc, const float* w_row, 
 }
 
 // a[m] = own_a . others_a[quarter + 4m], b[m] = own_b . others_b[quarter + 4m]:
-// the two dot products of this thread's row against 16 rows of the other
+// the two dot products of this thread's row against R / 4 rows of the other
 // side (scores and dP share the loop).
 template <int D>
 __device__ __forceinline__ void dot_rows(float* a, float* b, const float* own_a, const float* own_b,
                                          const float* others_a, const float* others_b,
                                          int quarter) {
   constexpr int LD = D + kPad;
-  constexpr int M = kRows / 4;
+  constexpr int M = scalar_rows<D>() / 4;
 #pragma unroll
   for (int m = 0; m < M; ++m) a[m] = b[m] = 0.f;
   const float4* oa = reinterpret_cast<const float4*>(own_a);
@@ -196,12 +221,13 @@ __device__ __forceinline__ void dot_rows(float* a, float* b, const float* own_a,
 // ---------------- K3: dq ----------------
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(4 * scalar_rows<D>())
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ di, T* __restrict__ dq, int T_len, int S_len, int Hq,
                     int Hkv, int causal, float scale) {
+  constexpr int kRows = scalar_rows<D>();  // q rows and kv columns of a tile
   constexpr int LD = D + kPad;
   constexpr int LDP = kRows + kPad;
   constexpr int M = kRows / 4;  // keys per thread per tile
@@ -220,7 +246,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int row = tid >> 2;
   const int quarter = tid & 3;
   // Causal tiles near the end of the row do the most work: start them first.
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -252,9 +278,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int c = 0; c < DPT; ++c) acc[c] = 0.f;
 
   int kv_end = S_len;
-  if (causal) kv_end = min(S_len, min(q0 + kBlockQ, T_len));
+  if (causal) kv_end = min(S_len, min(q0 + kRows, T_len));
 
-  for (int k0 = 0; k0 < kv_end; k0 += kBlockKV) {
+  for (int k0 = 0; k0 < kv_end; k0 += kRows) {
     load_tile<T, D>(k_s, k_base, kv_stride, k0, S_len);
     load_tile<T, D>(v_s, v_base, kv_stride, k0, S_len);
     if (tid < kRows) {
@@ -296,7 +322,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
 template <int D>
 __host__ __device__ constexpr int dq_block_kv() {
-  return 4096 / D;  // kv columns per step: 64 at D = 64, 32 at D = 128
+  return 4096 / D;  // kv columns per step: 64 at D = 64, 32 at 128, 16 at 256
 }
 
 template <int D>
@@ -317,8 +343,9 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         T* __restrict__ dq, int T_len, int S_len, int Hq, int Hkv, int causal,
                         float scale) {
   constexpr int BKV = dq_block_kv<D>();
-  constexpr int NB = BKV / 8;  // key n-blocks of a kv tile
-  constexpr int KD = D / 16;   // 16-wide steps over the head dim
+  constexpr int NB = BKV / 8;         // key n-blocks of a kv tile
+  constexpr int KD = D / 16;          // 16-wide steps over the head dim
+  constexpr bool kQRegs = D <= 128;   // Q's and dO's A fragments in registers
 
   extern __shared__ float4 smem4[];
   T* q_s = reinterpret_cast<T*>(smem4);
@@ -377,12 +404,15 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   // This warp's 16 query rows of Q and dO: the A operands of S = Q K^T and
-  // dP = dO V^T.
-  uint32_t qf[KD][4], of[KD][4];
+  // dP = dO V^T, in registers for D <= 128; read from the resident tiles at
+  // each k-step for D = 256.
+  uint32_t qf[kQRegs ? KD : 1][4], of[kQRegs ? KD : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    ldmatrix_x4(qf[kk], a_frag_addr<D>(q_s, warp * 16, kk, lane));
-    ldmatrix_x4(of[kk], a_frag_addr<D>(do_s, warp * 16, kk, lane));
+    for (int kk = 0; kk < KD; ++kk) {
+      ldmatrix_x4(qf[kk], a_frag_addr<D>(q_s, warp * 16, kk, lane));
+      ldmatrix_x4(of[kk], a_frag_addr<D>(do_s, warp * 16, kk, lane));
+    }
   }
 
   // This lane's two rows (r = 0, 1) and its columns 2 (lane % 4) + {0, 1} of
@@ -428,15 +458,23 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4], oa[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e], oa[e] = of[kk][e];
+      } else {
+        ldmatrix_x4(qa, a_frag_addr<D>(q_s, warp * 16, kk, lane));
+        ldmatrix_x4(oa, a_frag_addr<D>(do_s, warp * 16, kk, lane));
+      }
 #pragma unroll
       for (int nb2 = 0; nb2 < NB / 2; ++nb2) {
         uint32_t bk[4], bv[4];
         ldmatrix_x4(bk, b_frag_addr<D>(kt, nb2 * 16, kk, lane));
-        mma_16816<T>(s[2 * nb2], qf[kk], bk[0], bk[1]);
-        mma_16816<T>(s[2 * nb2 + 1], qf[kk], bk[2], bk[3]);
+        mma_16816<T>(s[2 * nb2], qa, bk[0], bk[1]);
+        mma_16816<T>(s[2 * nb2 + 1], qa, bk[2], bk[3]);
         ldmatrix_x4(bv, b_frag_addr<D>(vt, nb2 * 16, kk, lane));
-        mma_16816<T>(dp[2 * nb2], of[kk], bv[0], bv[1]);
-        mma_16816<T>(dp[2 * nb2 + 1], of[kk], bv[2], bv[3]);
+        mma_16816<T>(dp[2 * nb2], oa, bv[0], bv[1]);
+        mma_16816<T>(dp[2 * nb2 + 1], oa, bv[2], bv[3]);
       }
     }
 
@@ -485,12 +523,13 @@ flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------- K2: dk, dv ----------------
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(4 * scalar_rows<D>())
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ di, T* __restrict__ dk, T* __restrict__ dv,
                      int T_len, int S_len, int Hq, int Hkv, int causal, float scale) {
+  constexpr int kRows = scalar_rows<D>();  // kv rows and q columns of a tile
   constexpr int LD = D + kPad;
   constexpr int LDP = kRows + kPad;
   constexpr int M = kRows / 4;  // queries per thread per tile
@@ -510,7 +549,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int tid = threadIdx.x;
   const int krow = tid >> 2;
   const int quarter = tid & 3;
-  const int k0 = blockIdx.x * kBlockKV;  // the first kv tiles do the most work
+  const int k0 = blockIdx.x * kRows;  // the first kv tiles do the most work
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int G = Hq / Hkv;
@@ -532,13 +571,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int c = 0; c < DPT; ++c) dk_acc[c] = dv_acc[c] = 0.f;
 
   // Causal: rows before this kv tile's first q tile keep none of its columns.
-  const int q_begin = causal ? (k0 / kBlockQ) * kBlockQ : 0;
+  const int q_begin = causal ? k0 : 0;
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
     const T* q_base = q + (size_t)b * T_len * q_stride + (size_t)h * D;
     const T* do_base = dout + (size_t)b * T_len * q_stride + (size_t)h * D;
     const size_t lse_row = ((size_t)b * Hq + h) * T_len;
-    for (int q0 = q_begin; q0 < T_len; q0 += kBlockQ) {
+    for (int q0 = q_begin; q0 < T_len; q0 += kRows) {
       __syncthreads();  // the previous tile's reads of q_s, do_s, p_s are done
       load_tile<T, D>(q_s, q_base, q_stride, q0, T_len);
       load_tile<T, D>(do_s, do_base, q_stride, q0, T_len);
@@ -595,7 +634,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
 template <int D>
 __host__ __device__ constexpr int dkv_block_q() {
-  return 4096 / D;  // q rows per step: 64 at D = 64, 32 at D = 128
+  return 4096 / D;  // q rows per step: 64 at D = 64, 32 at 128, 16 at 256
+}
+
+// Blocks per (kv tile, q head), each accumulating dk and dv for D / split
+// of the head dim: 1 for D <= 128, 2 at D = 256.
+template <int D>
+__host__ __device__ constexpr int kDkvSplit() {
+  return D <= 128 ? 1 : 2;
 }
 
 template <int D>
@@ -617,8 +663,10 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          float* __restrict__ dv_part, int T_len, int S_len, int Hq, int Hkv,
                          int causal, float scale) {
   constexpr int BQ = dkv_block_q<D>();
-  constexpr int NQ = BQ / 8;  // query n-blocks of a q tile
-  constexpr int KD = D / 16;  // 16-wide steps over the head dim
+  constexpr int NQ = BQ / 8;                // query n-blocks of a q tile
+  constexpr int KD = D / 16;                // 16-wide steps over the head dim
+  constexpr int SPLIT = kDkvSplit<D>();
+  constexpr int DA = D / SPLIT;             // head dims this block accumulates
 
   extern __shared__ float4 smem4[];
   T* k_s = reinterpret_cast<T*>(smem4);
@@ -633,11 +681,12 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int* list_s = count_s + 1;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int per_tile = gridDim.x / ((S_len + kBlockKV - 1) / kBlockKV);  // Hq * B
+  const int per_tile = gridDim.x / ((S_len + kBlockKV - 1) / kBlockKV);  // SPLIT * Hq * B
   // The low kv tiles do the most work under causal masking: start them first.
   const int k0 = (int)blockIdx.x / per_tile * kBlockKV;
-  const int h = blockIdx.x % per_tile % Hq;
-  const int b = blockIdx.x % per_tile / Hq;
+  const int part = blockIdx.x % per_tile % SPLIT;  // head dims [part DA, part DA + DA)
+  const int h = blockIdx.x % per_tile / SPLIT % Hq;
+  const int b = blockIdx.x % per_tile / SPLIT / Hq;
   const int G = Hq / Hkv;
   const int hk = h / G;
 
@@ -689,9 +738,9 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ksegs[2] = {kseg_s[key_l], kseg_s[key_l + 8]};
   const int col_l = 2 * (lane & 3);
   const float scale_log2 = scale * kLog2e;
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float dk_acc[DA / 8][4], dv_acc[DA / 8][4];
 #pragma unroll
-  for (int db = 0; db < D / 8; ++db) {
+  for (int db = 0; db < DA / 8; ++db) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[db][e] = dv_acc[db][e] = 0.f;
   }
@@ -750,19 +799,21 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
-    // dV += P^T dO and dK += dS^T Q, the A operands from registers.
+    // dV += P^T dO and dK += dS^T Q over this block's head dims, the A
+    // operands from registers.
 #pragma unroll
     for (int kq = 0; kq < BQ / 16; ++kq) {
       uint32_t pa[4], sa[4];
       acc_to_a<T>(pa, st[2 * kq], st[2 * kq + 1]);
       acc_to_a<T>(sa, dpt[2 * kq], dpt[2 * kq + 1]);
 #pragma unroll
-      for (int db2 = 0; db2 < D / 16; ++db2) {
+      for (int db2 = 0; db2 < DA / 16; ++db2) {
+        const int n16 = part * (DA / 16) + db2;  // 16-column block of the head dim
         uint32_t bo[4], bq[4];
-        ldmatrix_x4_trans(bo, bt_frag_addr<D>(dot, kq * 16, db2, lane));
+        ldmatrix_x4_trans(bo, bt_frag_addr<D>(dot, kq * 16, n16, lane));
         mma_16816<T>(dv_acc[2 * db2], pa, bo[0], bo[1]);
         mma_16816<T>(dv_acc[2 * db2 + 1], pa, bo[2], bo[3]);
-        ldmatrix_x4_trans(bq, bt_frag_addr<D>(qt, kq * 16, db2, lane));
+        ldmatrix_x4_trans(bq, bt_frag_addr<D>(qt, kq * 16, n16, lane));
         mma_16816<T>(dk_acc[2 * db2], sa, bq[0], bq[1]);
         mma_16816<T>(dk_acc[2 * db2 + 1], sa, bq[2], bq[3]);
       }
@@ -775,18 +826,20 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     if (keys[r] >= S_len) continue;
     if (G == 1) {
-      const size_t at = ((size_t)b * S_len + keys[r]) * kv_stride + (size_t)hk * D + col_l;
+      const size_t at =
+          ((size_t)b * S_len + keys[r]) * kv_stride + (size_t)hk * D + part * DA + col_l;
 #pragma unroll
-      for (int db = 0; db < D / 8; ++db) {
+      for (int db = 0; db < DA / 8; ++db) {
         *reinterpret_cast<uint32_t*>(dk + at + db * 8) =
             pack2<T>(dk_acc[db][2 * r] * scale, dk_acc[db][2 * r + 1] * scale);
         *reinterpret_cast<uint32_t*>(dv + at + db * 8) =
             pack2<T>(dv_acc[db][2 * r], dv_acc[db][2 * r + 1]);
       }
     } else {
-      const size_t at = ((size_t)b * S_len + keys[r]) * q_stride + (size_t)h * D + col_l;
+      const size_t at =
+          ((size_t)b * S_len + keys[r]) * q_stride + (size_t)h * D + part * DA + col_l;
 #pragma unroll
-      for (int db = 0; db < D / 8; ++db) {
+      for (int db = 0; db < DA / 8; ++db) {
         *reinterpret_cast<float2*>(dk_part + at + db * 8) =
             make_float2(dk_acc[db][2 * r], dk_acc[db][2 * r + 1]);
         *reinterpret_cast<float2*>(dv_part + at + db * 8) =
@@ -844,8 +897,9 @@ cudaError_t launch_dq(const BwdArgs& a) {
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.T_len + kBlockQ - 1) / kBlockQ, a.Hq, a.B);
-    flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
+    constexpr int R = scalar_rows<D>();
+    const dim3 grid((a.T_len + R - 1) / R, a.Hq, a.B);
+    flash_bwd_dq_kernel<T, D><<<grid, 4 * R, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         a.q_seg, a.kv_seg, static_cast<const T*>(a.dout), a.lse, a.di, static_cast<T*>(a.dq),
         a.T_len, a.S_len, a.Hq, a.Hkv, a.causal, a.scale);
@@ -871,8 +925,9 @@ cudaError_t launch_dkv(const BwdArgs& a) {
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.S_len + kBlockKV - 1) / kBlockKV, a.Hkv, a.B);
-    flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
+    constexpr int R = scalar_rows<D>();
+    const dim3 grid((a.S_len + R - 1) / R, a.Hkv, a.B);
+    flash_bwd_dkv_kernel<T, D><<<grid, 4 * R, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         a.q_seg, a.kv_seg, static_cast<const T*>(a.dout), a.lse, a.di, static_cast<T*>(a.dk),
         static_cast<T*>(a.dv), a.T_len, a.S_len, a.Hq, a.Hkv, a.causal, a.scale);
@@ -885,7 +940,7 @@ cudaError_t launch_dkv(const BwdArgs& a) {
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_mma_kernel<T, D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const int grid = (a.S_len + kBlockKV - 1) / kBlockKV * a.Hq * a.B;
+    const int grid = (a.S_len + kBlockKV - 1) / kBlockKV * kDkvSplit<D>() * a.Hq * a.B;
     flash_bwd_dkv_mma_kernel<T, D><<<grid, kMmaThreads, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         a.q_seg, a.kv_seg, static_cast<const T*>(a.dout), a.lse, a.di, static_cast<T*>(a.dk),
@@ -904,16 +959,25 @@ cudaError_t launch_dkv(const BwdArgs& a) {
   }
 }
 
+// Picks the head_dim instance of `Launch` for one dtype: 64, 128 or 256.
+template <template <typename, int> class Launch, typename T>
+cudaError_t dispatch_dim(int D, const BwdArgs& a) {
+  switch (D) {
+    case 64: return Launch<T, 64>::run(a);
+    case 128: return Launch<T, 128>::run(a);
+    case 256: return Launch<T, 256>::run(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // Picks the (dtype, head_dim) instance of `Launch`: dtype 0 = float32,
-// 1 = bfloat16, 2 = float16; head_dim 64 or 128.
+// 1 = bfloat16, 2 = float16.
 template <template <typename, int> class Launch>
 cudaError_t dispatch(int D, int dtype, const BwdArgs& a) {
-  if (D != 64 && D != 128) return cudaErrorInvalidValue;
   switch (dtype) {
-    case 0: return D == 64 ? Launch<float, 64>::run(a) : Launch<float, 128>::run(a);
-    case 1:
-      return D == 64 ? Launch<__nv_bfloat16, 64>::run(a) : Launch<__nv_bfloat16, 128>::run(a);
-    case 2: return D == 64 ? Launch<__half, 64>::run(a) : Launch<__half, 128>::run(a);
+    case 0: return dispatch_dim<Launch, float>(D, a);
+    case 1: return dispatch_dim<Launch, __nv_bfloat16>(D, a);
+    case 2: return dispatch_dim<Launch, __half>(D, a);
     default: return cudaErrorInvalidValue;
   }
 }

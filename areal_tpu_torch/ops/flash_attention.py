@@ -63,7 +63,7 @@ _NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
 )
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dq")
 
@@ -269,9 +269,8 @@ def tile_walk(q_segment_ids: torch.Tensor, kv_segment_ids: torch.Tensor,
     unless the kv tile lies wholly in the q tile's causal future; it is
     executed only if besides the two tiles' ranges ``[min, max]`` of nonzero
     segment ids overlap. Disjoint ranges share no id, so the skip drops no
-    kept pair whatever the ids. K1 walks (64, 64) tiles; K2 (64, 64) at
-    head_dim 64 and (32, 64) at 128; K3 (64, 64) at head_dim 64 and
-    (64, 32) at 128."""
+    kept pair whatever the ids. Each kernel's (q, kv) tiles at a head_dim
+    are :func:`tile_sizes`'."""
     q_lo, q_hi = _tile_ranges(q_segment_ids, block_q)
     k_lo, k_hi = _tile_ranges(kv_segment_ids, block_kv)
     T = q_segment_ids.shape[1]
@@ -286,6 +285,16 @@ def tile_walk(q_segment_ids: torch.Tensor, kv_segment_ids: torch.Tensor,
                & (q_lo[:, :, None] <= k_hi[:, None, :])
                & (k_lo[:, None, :] <= q_hi[:, :, None]))
     return overlap & visited[None], visited
+
+
+def tile_sizes(head_dim: int) -> Dict[str, Tuple[int, int]]:
+    """The (q rows, kv columns) tiles each tensor-core kernel walks at
+    ``head_dim``: K1 (64, 64), and (64, 32) at 256; K2 (64, 64) at 64,
+    (32, 64) at 128 and (16, 64) at 256; K3 (64, 64) at 64, (64, 32) at 128
+    and (64, 16) at 256."""
+    return {"k1": (64, 64 if head_dim <= 128 else 32),
+            "k2": (4096 // head_dim, 64),
+            "k3": (64, 4096 // head_dim)}
 
 
 def tile_pairs(q_segment_ids: torch.Tensor, kv_segment_ids: torch.Tensor,

@@ -41,6 +41,12 @@ suffix is no narrower than the prompt's own prefill width
 never written: ``clone_prefix`` copies, and ``stack_states`` copies again
 before ``decode_chunk_rows`` writes in place.
 
+A model with a learned position table (GPT-2) answers **413** with the same
+``prompt_too_long`` body, whatever the serving config, to a request whose
+prompt plus its budget (``budget_total``, else ``max_tokens``) passes
+``max_position_embeddings``, before any prefill. The reference clamps such
+positions silently; the port refuses them (ROADMAP Queue 3).
+
 ``POST /update_weights`` swaps the served weights (reference
 ``handle_update_weights:877``): ``{"path", "version"}`` loads a native
 checkpoint (``disk``), ``{"endpoint", "version", "timeout"}`` pulls a
@@ -675,6 +681,13 @@ class GenerationServer:
         if self._http is None:
             raise RuntimeError("generation server is not running")
         budget = d.get("budget_total")
+        if self.model_cfg.pos_embedding == "learned":
+            # The generation's last position must stay inside the learned
+            # table: refused before any prefill, as a prompt too long.
+            limit = self.model_cfg.max_position_embeddings
+            needed = len(p.prompt) + (int(budget) if budget else p.max_tokens)
+            if needed > limit:
+                raise PromptTooLong(needed, limit)
         # Admission and enqueue are one decision under the queue's lock.
         # budget_total (the chunked client's whole remaining budget) makes
         # the feasibility check cover the generation's last chunk.

@@ -7,15 +7,19 @@ Phases (any failed check raises, and the script exits non-zero):
 
  (a) card: print its name and power limit, build the CUDA kernels from the
      sources in this checkout (one nvcc per source, in parallel, sm_90a) and
-     print ptxas's registers and spills for each kernel instance; the
+     print ptxas's registers and spills for each kernel instance (29: K1-K3
+     at head_dim 64, 128 and 256, f32, bf16 and fp16, and K2's two
+     reductions; the head_dim-256 ones on a line of their own); the
      tensor-core instances (bf16, fp16) must not spill;
  (b) K1, the packed flash-attention kernel, against its plain PyTorch
      version computed in float32 on the same bf16 inputs: the main-path
      shape (B=8, T=S=512, 14/2 heads of 64, packed segments and pad rows),
-     a head_dim-128 GQA case (28/4 heads) and a ragged T=200. Tolerance: one
+     a head_dim-128 GQA case (28/4 heads), a ragged T=200, and Gemma's
+     serving shape (head_dim 256, 8 q heads over 1 kv head, B=8, T=512)
+     with a ragged T=200 at head_dim 256. Tolerance: one
      bf16 ulp at the output's largest magnitude (2**-8 * max|ref|); pad rows
      exactly 0; nothing NaN. Times the kernel, the plain version and SDPA
-     (a yardstick only; the port never calls it);
+     (a yardstick only; the port never calls it), at head_dim 64 and 256;
  (c) the slice: Qwen2.5-0.5B at full width in bf16 with weights from a
      seed, behind the port's GenerationServer on a free localhost port.
      Eight concurrent POST /generate requests (prompts of 100-900 tokens,
@@ -37,13 +41,16 @@ Phases (any failed check raises, and the script exits non-zero):
      tensor cores for bf16), against their plain PyTorch version computed
      in float32 on the same bf16 inputs (K1's out and logsumexp, a random
      dO): the train shape (B=2, T=S=1792, 14/2 heads of 64, packed segments
-     with pad tails), D=128 with GQA (28/4 heads) and a ragged T=200.
+     with pad tails), D=128 with GQA (28/4 heads), a ragged T=200, and
+     Gemma's train micro-batch (D=256, 8/1 heads, [1, 4096]) with a ragged
+     T=200 at D=256.
      Tolerance: two bf16 ulps at each gradient's largest magnitude (2**-7 *
      max|ref|; the kernels and the plain version both sum in f32 from the
      same bf16 inputs and round once); pad rows and columns exactly 0;
      nothing NaN. Times K2, K3, the plain backward and SDPA's backward at
-     the train shape, and counts the tile pairs K1, K2 and K3 execute there
-     against the causal walk's (K3 must execute fewer);
+     the train shape and at Gemma's, and counts the tile pairs K1, K2 and
+     K3 execute there against the causal walk's, each at its own tiles
+     (K3 must execute fewer);
  (g) the train slice: PPO actor train steps of Qwen2.5-0.5B at full width
      and depth (bf16 compute, f32 masters, weights from seed 0) on
      bench.py's batch and recipe (32 trajectories, 27,554 tokens, cap 4096
@@ -67,10 +74,12 @@ Phases (any failed check raises, and the script exits non-zero):
      share and launches of K1, K2 (its partial and reduction kernels), K3,
      GEMMs and the rest of the device time, the device's idle share and the
      kernels per step; K1, K2 and K3 must each show device time;
- (j)-(n) run at 8 of the model's 24 layers (full width; ``CUT_LAYERS``),
-     as do (p), (q3), (r), (s), (t) and (x): the cuts that make room for
-     (o) and (u)-(w) at full depth in the time limit. Wherever a check
-     of these phases counts per layer, it counts 8.
+ (j)-(o) run at 4 of the model's 24 layers (full width; ``CUT_LAYERS``),
+     as do (q3) with (p), (r), (s) and (u)-(x); (t) at 8
+     (``ELASTIC_LAYERS``: at 4 its loop ends before the second server is
+     given work): the cuts that make room for (y) and (z) at full depth in
+     the time limit. Wherever a check of these phases counts per layer, it
+     counts 4 (8 in (t)). (c)-(i), (q1) and (q2) run at 24.
  (j) the trainer's model functions of the async-PPO recipe (the README's
      `ppo.use_decoupled_loss=true group_size=16`, the rest at defaults:
      kl_ctl 0.1, a critic, 4 PPO minibatches, advantage whitening), the
@@ -157,7 +166,7 @@ Phases (any failed check raises, and the script exits non-zero):
      exits 0. Rehearse on the CPU with
      `run_sync_loop(tiny_cfg, tmpdir, device="cpu", eos=...)` (tied
      embeddings; the launch checks run only on the card);
- (o) the async-PPO loop, the trainer of (n) gone, at full depth: the
+ (o) the async-PPO loop, the trainer of (n) gone, at 4 layers: the
      README's async recipe
      (`max_head_offpolicyness=4 ppo.use_decoupled_loss=true group_size=16`,
      the rest at defaults: a critic, kl_ctl 0.1, 4 PPO minibatches, 256
@@ -189,9 +198,8 @@ Phases (any failed check raises, and the script exits non-zero):
      master's process (watched every 0.2 s). Rehearse on the CPU with
      `run_async_loop(tiny_cfg, tmpdir, device="cpu", ...)` under a
      `__main__` guard;
- (p) the loop of (o) again at 8 of the model's 24 layers (full width,
-     from a second seeded checkpoint: the cut that makes room for (u)-(w)
-     in the time limit), 3 steps (the first a warm-up), with
+ (p) the loop of (o) again, run as (q3) (one loop for both, to make
+     room for (y) and (z)), 3 steps (the first a warm-up), with
      telemetry (the merged /metrics on a free port, flight dumps on
      SIGTERM), goodput, compile_watch (memory sampled every serve-loop
      iteration) and the sentinel (the default rules and an operator rule
@@ -256,15 +264,15 @@ Phases (any failed check raises, and the script exits non-zero):
      the decode-bench's included.
      Prints per-class latency, queue wait and time to first chunk, the
      429/413 counts and the share of decode row-steps that are dummies.
-     (q3) the loop of (o) at (p)'s 8 layers with ``serving.enabled=true``,
-     3 steps (the first
-     a warm-up), while a thread here sends three interactive requests
-     through the manager: (o)'s checks and at least one interactive reply.
+     (q3) the loop of (o) at 4 layers with ``serving.enabled=true`` and
+     (p)'s observability, 3 steps (the first a warm-up), while a thread
+     here sends three interactive requests through the manager: (o)'s and
+     (p)'s checks and at least one interactive reply.
      Prints ms per step beside (o)'s, prefill tokens per step, prefix hits,
      continuations that re-prefilled and the retained KV's peak bytes,
      beside (o)'s.
 
- (r) the reward fleet and respawns: (o)'s loop at (p)'s 8 layers, 4
+ (r) the reward fleet and respawns: (o)'s loop at 4 layers, 4
      steps (the first a
      warm-up), with ``reward_service.enabled=true n_workers=2`` and
      ``fault_tolerance`` at its defaults, on seeded records half math and
@@ -293,8 +301,8 @@ Phases (any failed check raises, and the script exits non-zero):
      verdicts by task kind, the grading call's ms beside (o)'s, each
      reward worker's peak RSS beside a bare ``import torch``'s and
      reward-bench's line;
- (s) relaunch and drain with the durable spool: (o)'s loop at (p)'s 8
-     layers (since PR 13) with
+ (s) relaunch and drain with the durable spool: (o)'s loop at 4 layers
+     with
      ``recover_mode=auto``, a recover checkpoint every step,
      ``durability.enabled=true`` and 4 steps, through ``run_experiment``.
      Once step 1's checkpoint and the actor's v1 publish are in, and the
@@ -325,7 +333,7 @@ Phases (any failed check raises, and the script exits non-zero):
      samples trained twice, the peak depth and bytes and the append
      (write and fsync) ms p50 and p99, overall and during a checkpoint's
      write;
- (t) the elastic fleet: (o)'s loop at (p)'s 8 layers, 5 steps, with
+ (t) the elastic fleet: (o)'s loop at 8 layers, 5 steps, with
      ``autoscale.enabled=true min_servers=1 max_servers=2
      interval_secs=1`` (the rest at the
      reference's defaults; the one-second tick is a cut: the replacement
@@ -364,7 +372,7 @@ Phases (any failed check raises, and the script exits non-zero):
  (u) SFT through its entry point with automatic evaluation, every earlier
      engine and server gone: ``run_experiment`` on the port's SFTConfig
      (what ``python -m areal_tpu_torch.training.main_sft`` builds) at full
-     width and depth from the seed-0 HF checkpoint, on seeded records of
+     width and 4 layers from the seed-0 HF checkpoint, on seeded records of
      prompts of 64-512 and answers of 128-768 byte tokens (the byte
      tokenizer), ``dataset.max_seqlen=1024 dataset.train_bs_n_seqs=64``
      (~40k tokens a step), 4096 tokens per micro-batch, 4 steps, a save
@@ -387,7 +395,7 @@ Phases (any failed check raises, and the script exits non-zero):
      and each eval child's peak memory, seconds per eval, the card's
      memory while both run (nvidia-smi every second), when step 2 was
      scored and how long the trainer waited for it;
- (v) reward-model training at full width and depth: a critic-headed engine
+ (v) reward-model training at full width and 4 layers: a critic-headed engine
      from the seed-0 checkpoint (its value head), 16 seeded paired records
      of 2 pairs (prompts of 32-64, answers of 64-256 byte tokens), 3
      ``RewardModelingInterface.train_step``s, then ``inference`` on the
@@ -396,7 +404,7 @@ Phases (any failed check raises, and the script exits non-zero):
      finite score per sequence, and one micro-batch's loss through K1-K3
      within 1% of the same micro-batch through the plain attention.
      Prints ms per step and the peak memory;
- (w) the fused node at full width and depth: ``FusedForwardInterface``
+ (w) the fused node at full width and 4 layers: ``FusedForwardInterface``
      with the children ``ref_inf`` and ``rew_inf`` on a bf16 reference
      engine from the seed-0 checkpoint, on 64 seeded math trajectories of
      (o)'s shape (16 prompts x 4, 256 tokens each, the first of each group
@@ -410,10 +418,39 @@ Phases (any failed check raises, and the script exits non-zero):
  (x) the multi-turn agent: ``MathMultiTurnAgent`` (2 turns, a turn-level
      discount of 0.9, 128 tokens a turn) on 8 seeded math prompts, its
      observations answered over HTTP by one port ``GenerationServer`` on
-     the seed-0 weights at 8 of 24 layers, its answers graded by the math
+     the seed-0 weights at 4 of 24 layers, its answers graded by the math
      environment. Checks: turn 2's prompt is turn 1's context plus the
      feedback tokens; the rewards follow the reference's discount of the
-     verdicts; K1 n_layers x the server's prefills.
+     verdicts; K1 n_layers x the server's prefills;
+ (y) GPT-2 small (124M) at full width and depth (12 layers, hidden 768,
+     12 heads of 64, vocab 50257, 1024 learned positions): an HF directory
+     in GPT-2's own layout (fused ``c_attn``, Conv1D, tied, the
+     ``transformer.`` prefix) written from seed 0 and read back through
+     ``load_hf_model`` (weights equal); served in bf16 by a
+     ``GenerationServer``: 8 concurrent byte-token requests (prompts of
+     100-900, 64-120 new tokens, greedy and sampled; positions up to
+     1019), then a request whose prompt plus budget passes 1024 answers 413
+     ``prompt_too_long`` before any prefill and the server stays healthy;
+     the batch's prefill logits through K1 against the plain attention
+     (5% of max|logit|); one greedy request twice gives the same tokens;
+     K1 n_layers x the prefills. Then three SFT ``train_step``s (bench.py's
+     backend: f32 masters, bf16 compute) on 24 packed byte-token records a
+     step (max_seqlen 1024, 4096 tokens per micro-batch), K2 and K3
+     n_layers x the micro-batches and K1 twice that, and one micro-batch
+     through K1-K3 against the plain attention (loss 1%, every grad norm,
+     the position table's among them, 10%, cosine >= 0.99);
+ (z) Gemma-2B at full width and depth (18 layers, hidden 2048, 8 q heads
+     over 1 kv head of 256, GeGLU 16384, vocab 256000): an HF directory in
+     Gemma's layout (bf16, norm scales stored as w - 1) from seed 0, read
+     through ``load_hf_model``; served in process as in (y) (no 413: RoPE);
+     the server freed, SFT through ``run_experiment`` on the SFTConfig that
+     ``python -m areal_tpu_torch.training.main_sft`` builds (the launcher
+     spawns the trainer; f32 masters, bf16 compute and Adam moments, full
+     remat): 3 steps (the first a warm-up) of 24 records (~17k tokens),
+     4096 tokens per micro-batch, with ms per step, trained tokens/s, the
+     trainer's peak memory and K1-K3 per step (finite losses, grad norms >
+     0, the launch counts); then one micro-batch through K1-K3 against the
+     plain attention on a fresh engine of all 18 layers, as in (y).
 
 The script exits 0 only when every phase passed and the last line is
 printed; any failed check raises and exits 1, as does a run where
@@ -450,9 +487,12 @@ if __name__ == "__mp_main__" and os.environ.get("CUDA_VISIBLE_DEVICES") == "":
 else:
     import torch  # noqa: E402
 
-# (j)-(p), (q3), (r), (s) and (x) run at this many of the model's layers
-# (full width)
-CUT_LAYERS = 8
+# (j)-(o), (q3) with (p), (r), (s) and (u)-(x) run at this many of the
+# model's layers (full width)
+CUT_LAYERS = 4
+# (t) runs at this many: at 4 its loop ends before the autoscaler's second
+# server is given work
+ELASTIC_LAYERS = 8
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
@@ -623,11 +663,10 @@ def check_bwd(fa, B, T, Hq, Hkv, D, seed) -> dict:
 
 def kernel_tile_pairs(fa, seg, D: int) -> dict:
     """(executed, causal-walk) tile pairs per head of K1, K2 and K3 at head
-    dim D, each at its own (q, kv) tile sizes: the segment-range skip at
-    work."""
-    return {"k1": fa.tile_pairs(seg, seg, True, 64, 64),
-            "k2": fa.tile_pairs(seg, seg, True, 4096 // D, 64),
-            "k3": fa.tile_pairs(seg, seg, True, 64, 4096 // D)}
+    dim D, each at its own (q, kv) tile sizes (``fa.tile_sizes``): the
+    segment-range skip at work."""
+    return {name: fa.tile_pairs(seg, seg, True, *blocks)
+            for name, blocks in fa.tile_sizes(D).items()}
 
 
 def bwd_records(fa, B=2, T=1792, Hq=14, Hkv=2, D=64, seed=0) -> dict:
@@ -945,49 +984,83 @@ def run_train_slice(fa, cfg, model, iface, batch, spec, steps: int = 3) -> dict:
 
 # ---------------- (h) the backward through K1-K3 vs plain attention ----------------
 
+def compare_grads(eng, ub, loss_fn, mb: int, weight: float, what: str,
+                  null_grads=()) -> dict:
+    """Micro-batch ``mb``'s loss and per-parameter grad norms through
+    K1-K3 against the same micro-batch through the plain attention, on the
+    card: loss within 1%, each grad norm within 10%, gradient cosine >=
+    0.99 (the plain attention rounds scores and probabilities to bf16, the
+    kernels keep scores in f32 and round only P and dS before their
+    products, and the layers carry the difference forward and back).
+    Parameters whose names end in one of ``null_grads`` have a gradient of
+    0 in exact arithmetic, so both runs hold only rounding there: each is
+    held to 1e-3 of the whole gradient's norm instead of a ratio."""
+    res = {}
+    for impl in ("auto", "reference"):
+        eng.attn_impl = impl
+        loss, stats = eng.accumulate_grads(ub, loss_fn, [mb], [weight])
+        res[impl] = (float(loss), stats, {n: p.grad.detach().clone()
+                                          for n, p in eng.params.items()})
+        for p in eng.params.values():
+            p.grad = None
+    eng.attn_impl = "auto"
+    (l_k, st_k, g_k), (l_r, st_r, g_r) = res["auto"], res["reference"]
+    norm = {n: (g_k[n].norm().item(), g_r[n].norm().item()) for n in g_r}
+    dot = sum((g_k[n].double() * g_r[n].double()).sum().item() for n in g_r)
+    nk = math.sqrt(sum(a * a for a, _ in norm.values()))
+    nr = math.sqrt(sum(b * b for _, b in norm.values()))
+    null = {n: v for n, v in norm.items() if n.endswith(tuple(null_grads))}
+    rel = {n: abs(a - b) / max(b, 1e-30) for n, (a, b) in norm.items()
+           if n not in null}
+    worst = max(rel, key=rel.get)
+    rec = {"micro_batch": mb,
+           "micro_batch_shape": list(ub.mbs[mb].layout.shape),
+           "loss_kernels": l_k, "loss_plain": l_r,
+           "loss_rel_err": abs(l_k - l_r) / max(abs(l_r), 1e-30),
+           "grad_norm_kernels": nk, "grad_norm_plain": nr,
+           "grad_cosine": dot / max(nk * nr, 1e-300),
+           "max_grad_norm_rel_err": rel[worst], "worst_param": worst,
+           "stats": (st_k, st_r)}
+    if null:
+        rec["key_bias_grad_norm_max"] = max(max(v) for v in null.values())
+    if "pos_embedding.weight" in norm:
+        rec["pos_embedding_grad_norm"] = norm["pos_embedding.weight"]
+        rec["pos_embedding_grad_norm_rel_err"] = rel["pos_embedding.weight"]
+    check(all(math.isfinite(x) for x in (l_k, nk)) and nk > 0,
+          f"{what}: non-finite loss or grads, or no gradient at all")
+    check(rec["loss_rel_err"] <= 0.01, f"{what}: loss through K1-K3 "
+          f"disagrees: {rec}")
+    check(rec["max_grad_norm_rel_err"] <= 0.1, f"{what}: a grad norm "
+          f"disagrees: {rec}")
+    check(rec["grad_cosine"] >= 0.99, f"{what}: grad directions disagree: "
+          f"{rec}")
+    check(rec.get("key_bias_grad_norm_max", 0.0) <= 1e-3 * nr,
+          f"{what}: a key bias has a gradient: {null}")
+    return rec
+
+
 def compare_attention_impls(model, iface, batch, spec) -> dict:
+    """(h): :func:`compare_grads` on the PPO micro-batch with the most
+    positive-advantage tokens: with random weights every ratio is far
+    below 1 - eps_clip, so only tokens with a positive advantage carry a
+    gradient."""
     from areal_tpu_torch.algorithms.ppo import _action_token_weight
 
     eng = model.module
     ub = eng.upload_uniform(batch, spec)
     eng.run_prep(ub, iface._prep_fn, scalars={"kl_coef": 0.0})
-    # The micro-batch with the most positive-advantage tokens: with random
-    # weights every ratio is far below 1 - eps_clip, so only tokens with a
-    # positive advantage carry a gradient.
     positive = (ub.grids["advantages"] > 0).reshape(ub.n_mbs, -1).sum(-1)
     mb = int(positive.argmax())
-    weight = _action_token_weight(ub.mbs[mb])
-    res = {}
-    for impl in ("auto", "reference"):
-        eng.attn_impl = impl
-        loss, stats = eng.accumulate_grads(ub, iface._loss_fn, [mb], [weight])
-        grads = {n: p.grad.detach().clone() for n, p in eng.params.items()}
-        res[impl] = (float(loss), float(stats["importance_weight_sum"]), grads)
-        for p in eng.params.values():
-            p.grad = None
-    eng.attn_impl = "auto"
-    (l_k, iw_k, g_k), (l_r, iw_r, g_r) = res["auto"], res["reference"]
-    rel = {n: abs(g_k[n].norm().item() - g_r[n].norm().item())
-           / max(g_r[n].norm().item(), 1e-30) for n in g_r}
-    dot = sum((g_k[n].double() * g_r[n].double()).sum().item() for n in g_r)
-    nk = math.sqrt(sum(g_k[n].double().pow(2).sum().item() for n in g_r))
-    nr = math.sqrt(sum(g_r[n].double().pow(2).sum().item() for n in g_r))
-    worst = max(rel, key=rel.get)
-    rec = {"micro_batch": mb, "positive_advantage_tokens": int(positive[mb]),
-           "loss_kernels": l_k, "loss_plain": l_r,
-           "loss_rel_err": abs(l_k - l_r) / max(abs(l_r), 1e-30),
-           "importance_weight_sum_kernels": iw_k,
-           "importance_weight_sum_plain": iw_r,
-           "grad_norm_kernels": nk, "grad_norm_plain": nr,
-           "grad_cosine": dot / max(nk * nr, 1e-300),
-           "max_grad_norm_rel_err": rel[worst], "worst_param": worst}
+    rec = compare_grads(eng, ub, iface._loss_fn, mb,
+                        _action_token_weight(ub.mbs[mb]), "(h)")
+    st_k, st_r = rec.pop("stats")
+    rec.update(positive_advantage_tokens=int(positive[mb]),
+               importance_weight_sum_kernels=float(
+                   st_k["importance_weight_sum"]),
+               importance_weight_sum_plain=float(
+                   st_r["importance_weight_sum"]))
     print("train micro-batch K1-K3 vs plain attention", json.dumps(rec),
           flush=True)
-    check(all(math.isfinite(x) for x in (l_k, nk)) and nk > 0,
-          "non-finite loss or grads, or no gradient at all")
-    check(rec["loss_rel_err"] <= 0.01, "loss through K1-K3 disagrees")
-    check(rec["max_grad_norm_rel_err"] <= 0.1, "a grad norm disagrees")
-    check(rec["grad_cosine"] >= 0.99, "grad directions disagree")
     return rec
 
 
@@ -5627,6 +5700,366 @@ def run_multi_turn(fa, cfg, eos: int, tmp: str, device: str = "cuda",
     return rec
 
 
+# ---------------- (y), (z): the GPT-2 and Gemma families ----------------
+
+def byte_sft_batch(n_seqs: int, seed: int, max_seqlen: int = 1024):
+    """``n_seqs`` SFT records of byte tokens from ``seed``: prompts of
+    64-512 and answers of 128-768 tokens, each cut to ``max_seqlen``
+    (``prompt_mask`` 1 on the prompt)."""
+    import numpy as np
+
+    from areal_tpu_torch.api.data import SequenceSample
+
+    rng = np.random.RandomState(seed)
+    toks, masks, lens = [], [], []
+    for _ in range(n_seqs):
+        p, a = rng.randint(64, 513), rng.randint(128, 769)
+        n = min(p + a, max_seqlen)
+        toks.append(rng.randint(0, 256, n).astype(np.int32))
+        masks.append((np.arange(n) < p).astype(np.int32))
+        lens.append(n)
+    return SequenceSample.from_default(
+        ids=[f"f{i}" for i in range(n_seqs)],
+        data={"packed_input_ids": np.concatenate(toks),
+              "prompt_mask": np.concatenate(masks)},
+        seqlens=lens)
+
+
+def compare_sft_micro_batch(model, batch, spec, what: str) -> dict:
+    """:func:`compare_grads` on the first SFT micro-batch of ``batch``."""
+    from areal_tpu_torch.algorithms import sft
+
+    eng = model.module
+    ub = eng.upload_uniform(sft._attach_loss_mask(batch), spec)
+    # a key bias shifts every score of a query row by the same amount: its
+    # gradient is 0 in exact arithmetic
+    rec = compare_grads(eng, ub, sft.sft_loss, 0,
+                        sft._loss_weight(ub.mbs[0]), what,
+                        null_grads=("wk.bias",))
+    rec.pop("stats")
+    print(f"{what} micro-batch K1-K3 vs plain attention", json.dumps(rec),
+          flush=True)
+    return rec
+
+
+def http_status(url: str, path: str, body: dict) -> tuple:
+    """(status, JSON body) of one POST, error statuses included."""
+    req = urllib.request.Request(url + path, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def serve_family(fa, cfg, params, eos: int, device: str = "cuda",
+                 lens=(100, 231, 377, 456, 598, 640, 777, 900),
+                 new_tokens=(64, 72, 80, 88, 96, 104, 112, 120),
+                 check_413: bool = False) -> dict:
+    """A family's serving checks: 8 concurrent requests of byte-token
+    prompts behind a ``GenerationServer`` (greedy and sampled mixed, each
+    its own budget in one chunk); with ``check_413`` one more request whose
+    prompt plus budget passes the learned table answers 413 before any
+    prefill and the server stays healthy; the batch's last prefill logits
+    through K1 against the plain attention (5% of max|logit|); a greedy
+    request twice gives the same tokens; K1 launched n_layers x the
+    prefills."""
+    from areal_tpu_torch.models import generate as genmod
+    from areal_tpu_torch.models.transformer import Transformer
+    from areal_tpu_torch.system.generation_server import (
+        GenerationServer,
+        GenerationServerConfig,
+    )
+
+    cuda = torch.device(device).type == "cuda"
+    server = GenerationServer(
+        GenerationServerConfig(chunk_tokens=128, eos_token_id=eos,
+                               pad_token_id=eos, batch_window_ms=20),
+        cfg, params, device=device)
+    url = server.start()
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, 256, (n,), generator=gen).tolist()
+               for n in lens]
+    gconfigs = [{"greedy": True} if i % 2 == 0 else
+                {"temperature": 0.7 + 0.1 * i, "top_p": 0.9}
+                for i in range(len(prompts))]
+    rec = {}
+    try:
+        fa.reset_launch_count()
+        t0 = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+            replies = list(pool.map(lambda i: post(url, {
+                "prompt_ids": prompts[i], "gconfig": gconfigs[i],
+                "max_tokens": new_tokens[i]}), range(len(prompts))))
+        rec["wall_s"] = time.monotonic() - t0
+        for i, r in enumerate(replies):
+            check_reply(r, new_tokens[i], eos, f"{cfg.hf_family} request {i}")
+        rec["last_position"] = max(a + b - 1 for a, b in zip(lens, new_tokens))
+        if check_413:
+            limit = cfg.max_position_embeddings
+            calls = server.stats()["prefill_calls"]
+            code, body = http_status(url, "/generate", {
+                "prompt_ids": [5] * (limit - 24), "max_tokens": 64,
+                "gconfig": {"greedy": True}})
+            check(code == 413 and body == {
+                "ok": False, "reason": "prompt_too_long",
+                "needed_slots": limit + 40, "max_slots": limit},
+                f"{cfg.hf_family}: past the table {code} {body}")
+            check(server.stats()["prefill_calls"] == calls,
+                  f"{cfg.hf_family}: the refused request prefilled")
+            with urllib.request.urlopen(url + "/health", timeout=30) as r:
+                check(json.loads(r.read())["ok"], "unhealthy after a 413")
+            rec["past_table"] = {"status": code, **body}
+        greedy = {"prompt_ids": prompts[3], "gconfig": {"greedy": True},
+                  "max_tokens": 64}
+        a, b = post(url, greedy), post(url, greedy)
+        check(a["output_ids"] == b["output_ids"],
+              f"{cfg.hf_family}: a repeated greedy request gave other tokens")
+        stats = server.stats()
+        k1 = fa.launch_count()
+        if cuda:
+            check(k1 == cfg.n_layers * stats["prefill_calls"],
+                  f"{cfg.hf_family}: K1 launches {k1} != {cfg.n_layers} x "
+                  f"{stats['prefill_calls']} prefills")
+        rec.update(prefill_calls=stats["prefill_calls"],
+                   prefill_ms_per_call=1e3 * stats["prefill_secs"]
+                   / stats["prefill_calls"],
+                   decode_ms_per_step=1e3 * stats["decode_secs"]
+                   / stats["decode_steps"],
+                   generated_tokens=stats["generated_tokens"], k1_launches=k1)
+    finally:
+        server.stop()
+    # the batch's prefill through K1 against the plain attention
+    model = Transformer.from_params(cfg, params)
+    padded, plens = genmod.pad_prompts(prompts, eos, bucket=128)
+    toks = torch.from_numpy(padded).to(device)
+    lens_t = torch.from_numpy(plens).to(device)
+    S = padded.shape[1] + 128
+    got = genmod.prefill_state(model, toks, lens_t, S)["last_logits"]
+    ref = genmod.prefill_state(model, toks, lens_t, S,
+                               attn_impl="reference")["last_logits"]
+    diff = (got - ref).abs().max().item()
+    tol = 0.05 * ref.abs().max().item()
+    rec["prefill_k1_vs_plain"] = {
+        "max_abs_err": diff, "tol": tol, "shape": list(padded.shape),
+        "argmax_agree": (got.argmax(-1) == ref.argmax(-1)).float().mean()
+        .item()}
+    check(bool(torch.isfinite(got).all())
+          and tuple(got.shape) == (len(prompts), cfg.vocab_size),
+          f"{cfg.hf_family}: prefill logits not finite / wrong shape")
+    check(diff <= tol, f"{cfg.hf_family}: prefill through K1 disagrees with "
+          f"the plain attention: {rec['prefill_k1_vs_plain']}")
+    return rec
+
+
+def run_gpt2(fa, tmp: str, device: str = "cuda", cfg=None, steps: int = 3,
+             n_seqs: int = 24, mb_tokens: int = 4096) -> dict:
+    """(y): GPT-2 small at full width and depth from a seeded HF directory
+    in GPT-2's own layout, through ``load_hf_model``: served
+    (:func:`serve_family`, with the 413 past the table), then three SFT
+    ``train_step``s on packed byte-token records and one micro-batch
+    through K1-K3 against the plain attention."""
+    import numpy as np
+
+    from areal_tpu_torch.algorithms.sft import SFTInterface
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.base import safetensors_io as sio
+    from areal_tpu_torch.models import hf
+    from areal_tpu_torch.models.config import gpt2_small
+    from areal_tpu_torch.models.transformer import init_params
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = cfg or gpt2_small(dtype="float32")
+    hf_dir = os.path.join(tmp, "gpt2_hf")
+    t0 = time.monotonic()
+    written = init_params(cfg, seed=0, device=device)
+    hf.save_hf_checkpoint(written, cfg, hf_dir)
+    names = set(sio.load_file(os.path.join(hf_dir, "model.safetensors")))
+    check("transformer.h.0.attn.c_attn.weight" in names
+          and "transformer.wpe.weight" in names and "lm_head.weight"
+          not in names, f"(y): not GPT-2's layout: {sorted(names)[:6]}")
+    lcfg, params = hf.load_hf_model(hf_dir, device=device)
+    check(dataclasses.replace(lcfg, dtype=cfg.dtype) == cfg,
+          f"(y): config read back as {lcfg}")
+    check(all(torch.equal(params[k], v) for k, v in written.items()),
+          "(y): weights read back differ")
+    del written
+    rec = {"write_load_s": time.monotonic() - t0}
+    eos = 50256  # GPT-2's <|endoftext|>
+    bf16 = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    rec["serve"] = serve_family(fa, lcfg, bf16, eos, device, check_413=True)
+    del bf16
+    # SFT on the loaded f32 masters, bf16 compute
+    model = make_model("default", lcfg, params, device=device)
+    del params
+    spec = MicroBatchSpec(max_tokens_per_mb=mb_tokens)
+    iface = SFTInterface()
+    batches = [byte_sft_batch(n_seqs, seed=20 + i) for i in range(steps)]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    walls, stats = [], []
+    for b in batches:
+        n = n_micro_batches(model.module, b, spec)
+        fa.reset_launch_count()
+        t = time.perf_counter()
+        st = iface.train_step(model, b, spec)
+        if cuda:
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        stats.append({"loss": st["loss"], "grad_norm": st["grad_norm"],
+                      "micro_batches": n, "launches": fa.launch_counts()})
+        check(math.isfinite(st["loss"]) and st["grad_norm"] > 0,
+              f"(y) sft: {st}")
+        if cuda:
+            check_launches("(y) sft", fa.launch_counts(), n, lcfg.n_layers,
+                           train=True)
+    tokens = [int(b.total_lens().sum()) for b in batches]
+    rec["sft"] = {"steps": stats, "tokens_per_step": tokens,
+                  "ms_per_step": 1e3 * float(np.mean(walls[1:])),
+                  "trained_tokens_per_s": sum(tokens[1:]) / sum(walls[1:]),
+                  "peak_gb": (torch.cuda.max_memory_allocated() / 2 ** 30
+                              if cuda else None)}
+    rec["compare"] = compare_sft_micro_batch(model, batches[0], spec, "(y)")
+    check("pos_embedding_grad_norm" in rec["compare"],
+          "(y): no gradient reached the learned position table")
+    launches = {k: sum(s["launches"][k] for s in stats) for k in KERNEL_NAMES}
+    launches["flash_attention_fwd"] += rec["serve"]["k1_launches"]
+    rec["launches"] = launches
+    del model
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def run_sft_entry(cfg, tmp: str, hf_dir: str, device: str = "cuda",
+                  steps: int = 3, n_seqs: int = 24, max_seqlen: int = 1024,
+                  mb_tokens: int = 4096, timeout: float = 600.0) -> dict:
+    """SFT through ``run_experiment`` on the port's SFTConfig (what
+    ``python -m areal_tpu_torch.training.main_sft`` builds; the launcher
+    spawns the trainer) from ``hf_dir``: bf16 compute, f32 masters, bf16
+    Adam moments, no save. Per step: ms, tokens, micro-batches and K1-K3
+    launches (n_layers x micro-batches, K1 twice that under the remat);
+    finite loss, grad norm > 0."""
+    import functools
+    import multiprocessing
+
+    from areal_tpu_torch.api import cli_args as CA
+    from areal_tpu_torch.apps.launcher import run_experiment
+    from areal_tpu_torch.base import name_resolve
+    from areal_tpu_torch.experiments.sft_exp import SFTConfig
+
+    cuda = torch.device(device).type == "cuda"
+    data = os.path.join(tmp, "sft.jsonl")
+    write_sft_records(data, steps * n_seqs, seed=9)
+    exp = SFTConfig(experiment_name="chip_smoke", trial_name="z",
+                    backend="cuda" if cuda else "cpu")
+    CA.apply_overrides(exp, [
+        f"cluster.fileroot={tmp}", f"dataset.path={data}",
+        f"model.path={hf_dir}", "mock_tokenizer=true",
+        "model.optimizer.mu_dtype=bfloat16",
+        "model.optimizer.nu_dtype=bfloat16",
+        f"dataset.max_seqlen={max_seqlen}",
+        f"dataset.train_bs_n_seqs={n_seqs}",
+        f"allocation.mb_spec.max_tokens_per_mb={mb_tokens}",
+        f"exp_ctrl.benchmark_steps={steps}"])
+    CA.validate_config(exp)
+    ctx = multiprocessing.get_context("spawn")
+    pipes = {"trainer": ctx.Pipe(duplex=False)}
+    probes = {"trainer": functools.partial(async_trainer_probe,
+                                           pipes["trainer"][1])}
+    old_repo = name_resolve.DEFAULT_REPO
+    t0 = time.monotonic()
+    try:
+        run = LoopRun(lambda: run_experiment(exp, probes=probes), pipes,
+                      "sft entry")
+        result = run.join(timeout)
+        (tr,) = run.done("trainer")
+    finally:
+        name_resolve.DEFAULT_REPO = old_repo
+    check(result["steps"] == steps, f"sft entry: {result['steps']} steps")
+    recs = tr["records"]
+    check(len(recs) == steps, f"sft entry: {len(recs)} MFC records")
+    for i, r in enumerate(recs):
+        check(math.isfinite(r["stats"]["loss"])
+              and r["stats"]["grad_norm"] > 0, f"sft entry step {i}: "
+              f"{r['stats']}")
+        if cuda:
+            check_launches(f"sft entry step {i}", r["launches"],
+                           r["micro_batches"], cfg.n_layers, train=True)
+    timed = recs[1:]  # the first step is a warm-up
+    return {
+        "run_s": time.monotonic() - t0, "steps": steps,
+        "tokens_per_step": [r["tokens"] for r in recs],
+        "micro_batches": [r["micro_batches"] for r in recs],
+        "ms_per_step": 1e3 * sum(r["wall_s"] for r in timed) / len(timed),
+        "trained_tokens_per_s": sum(r["tokens"] for r in timed)
+        / sum(r["wall_s"] for r in timed),
+        "loss": [r["stats"]["loss"] for r in recs],
+        "grad_norm": [r["stats"]["grad_norm"] for r in recs],
+        "launches_per_step": [r["launches"] for r in recs],
+        "peak_gb": tr["peak_gb"],
+        "launches": {k: sum(r["launches"][k] for r in recs)
+                     for k in KERNEL_NAMES},
+    }
+
+
+def run_gemma(fa, tmp: str, device: str = "cuda", cfg=None, steps: int = 3,
+              n_seqs: int = 24, mb_tokens: int = 4096) -> dict:
+    """(z): Gemma-2B at full width and depth from a seeded HF directory in
+    Gemma's layout (bf16, norm scales stored as w - 1): served in process
+    (:func:`serve_family`), the server freed; SFT through the entry point's
+    launcher (:func:`run_sft_entry`); then one micro-batch through K1-K3
+    against the plain attention on a fresh engine of the same weights."""
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.base import safetensors_io as sio
+    from areal_tpu_torch.models import hf
+    from areal_tpu_torch.models.config import gemma_2b
+    from areal_tpu_torch.models.transformer import init_params
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = cfg or gemma_2b()
+    hf_dir = os.path.join(tmp, "gemma_hf")
+    t0 = time.monotonic()
+    hf.save_hf_checkpoint(init_params(cfg, seed=0, device=device,
+                                      dtype=torch.bfloat16), cfg, hf_dir)
+    sd = hf.load_hf_state_dict(hf_dir)
+    norm = sd["model.layers.0.input_layernorm.weight"]
+    check(norm.dtype == torch.bfloat16 and not norm.any()
+          and "lm_head.weight" not in sd,
+          "(z): not Gemma's bf16 layout with (w - 1) norm scales")
+    del sd
+    lcfg, params = hf.load_hf_model(hf_dir, device=device)
+    check(dataclasses.replace(lcfg, dtype=cfg.dtype) == cfg,
+          f"(z): config read back as {lcfg}")
+    rec = {"write_load_s": time.monotonic() - t0,
+           "hf_dir_bytes": dir_bytes(hf_dir)}
+    eos = 1  # Gemma's <eos>
+    bf16 = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    del params
+    rec["serve"] = serve_family(fa, lcfg, bf16, eos, device)
+    del bf16
+    if cuda:
+        torch.cuda.empty_cache()
+    rec["sft"] = run_sft_entry(lcfg, tmp, hf_dir, device, steps=steps,
+                               n_seqs=n_seqs, mb_tokens=mb_tokens)
+    print("(z) sft", json.dumps(rec["sft"]), flush=True)
+    _, params = hf.load_hf_model(hf_dir, device=device)
+    model = make_model("default", lcfg, params, device=device)
+    del params
+    rec["compare"] = compare_sft_micro_batch(
+        model, byte_sft_batch(8, seed=30), MicroBatchSpec(
+            max_tokens_per_mb=mb_tokens), "(z)")
+    rec["compare_layers"] = lcfg.n_layers
+    del model
+    launches = dict(rec["sft"]["launches"])
+    launches["flash_attention_fwd"] += rec["serve"]["k1_launches"]
+    rec["launches"] = launches
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -5657,11 +6090,17 @@ def main() -> None:
     print(f"built {', '.join(os.path.relpath(p) for p in libs.values())} in "
           f"{time.monotonic() - t0:.1f}s; ptxas (kernel, type, head_dim, "
           "spill-store bytes, registers):", json.dumps(ptxas), flush=True)
-    # K1: 2 scalar f32 + 4 tensor-core; K2: 2 + 4 + 2 reductions; K3: 2 + 4
-    check(len(ptxas) == 20, f"expected 20 kernel instances, ptxas shows {ptxas}")
-    check(sorted((r[1], r[2]) for r in ptxas if r[0] == "flash_bwd_dq_mma_kernel")
-          == [("bf16", 64), ("bf16", 128), ("fp16", 64), ("fp16", 128)],
-          f"K3's tensor-core instances missing from {ptxas}")
+    # at head_dim 64, 128 and 256: K1 3 scalar f32 + 6 tensor-core; K2 3 + 6
+    # + 2 reductions; K3 3 + 6
+    check(len(ptxas) == 29, f"expected 29 kernel instances, ptxas shows {ptxas}")
+    for kern in ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel",
+                 "flash_bwd_dq_mma_kernel"):
+        check(sorted((r[1], r[2]) for r in ptxas if r[0] == kern)
+              == [(t, d) for t in ("bf16", "fp16") for d in fa.HEAD_DIMS],
+              f"{kern}'s tensor-core instances missing from {ptxas}")
+    print("head_dim 256 instances (kernel, type, spill-store bytes, "
+          "registers):", json.dumps([(r[0], r[1], r[3], r[4]) for r in ptxas
+                                     if r[2] == 256]), flush=True)
     spills = [r for r in ptxas if r[1] != "f32" and r[3] > 0]
     check(not spills, f"tensor-core instances spill: {spills}")
 
@@ -5670,10 +6109,14 @@ def main() -> None:
     check_k1(fa, 2, 512, 28, 4, 128, seed=1)
     check_k1(fa, 3, 200, 14, 2, 64, seed=2)
     k1_train_check = check_k1(fa, 2, 1792, 14, 2, 64, seed=3)
+    # Gemma's heads: 256 wide, 8 q heads over one kv head
+    k1_256_check = check_k1(fa, 8, 512, 8, 1, 256, seed=4)
+    check_k1(fa, 3, 200, 8, 1, 256, seed=5)
     timing = k1_record(fa, 8, 512)
     timing_train = k1_record(fa, 2, 1792)
-    print("K1 timing", json.dumps([timing, timing_train]), f"({card})",
-          flush=True)
+    timing_256 = k1_record(fa, 8, 512, Hq=8, Hkv=1, D=256)
+    print("K1 timing", json.dumps([timing, timing_train, timing_256]),
+          f"({card})", flush=True)
 
     # (c) the serving slice, through the server's HTTP entry point
     cfg = qwen2_5_0_5b()
@@ -5722,8 +6165,13 @@ def main() -> None:
     bwd_train_check = check_bwd(fa, 2, 1792, 14, 2, 64, seed=0)
     check_bwd(fa, 2, 512, 28, 4, 128, seed=1)
     check_bwd(fa, 3, 200, 14, 2, 64, seed=2)
+    # Gemma's train micro-batch, [1, 4096], 8 q heads over one kv head
+    bwd_256_check = check_bwd(fa, 1, 4096, 8, 1, 256, seed=3)
+    check_bwd(fa, 3, 200, 8, 1, 256, seed=4)
     bwd_timing = bwd_records(fa)
-    print("K2/K3 timing", json.dumps(bwd_timing), f"({card})", flush=True)
+    bwd_timing_256 = bwd_records(fa, B=1, T=4096, Hq=8, Hkv=1, D=256)
+    print("K2/K3 timing", json.dumps([bwd_timing, bwd_timing_256]),
+          f"({card})", flush=True)
     torch.cuda.empty_cache()
 
     # (g) the train slice, through PPOActorInterface.train_step
@@ -5743,10 +6191,10 @@ def main() -> None:
     del model, iface  # (j) builds three engines of its own
     torch.cuda.empty_cache()
 
-    # (j) trainer steps of the async-PPO recipe, then the host path; (j)-(n)
-    # and (p), (q3), (r), (s), (t), (x) run at 8 of the 24 layers (full
-    # width): the cut that makes room for (o) and (u)-(w) at full depth in
-    # the time limit
+    # (j) trainer steps of the async-PPO recipe, then the host path; (j)-(o),
+    # (q3) with (p), (r), (s) and (u)-(x) run at 4 of the 24 layers, (t) at
+    # 8 (full width): the cut that makes room for (y) and (z) at full depth
+    # in the time limit
     cut = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
     t_trainer = time.monotonic()
     tr, tbatch, tdata, trainer = run_trainer(fa, cut, trainer_batch(
@@ -5798,21 +6246,23 @@ def main() -> None:
     loop_launches = loop["launches_total"]
 
     # (o) the async-PPO loop: run_experiment spawns the trainer, the
-    # generation fleet and a rollout worker; the master runs here. (o) and
-    # (u)-(w) load one HF checkpoint at full depth, (p), (q3), (r), (s) and
-    # (t) a second at 8 of the 24 layers (full width); each is written
-    # once.
+    # generation fleet and a rollout worker; the master runs here. (o)-(w)
+    # load one HF checkpoint at 4 of the 24 layers, (t) one at 8 (full
+    # width), each written once: the cuts that make room for (y) and (z)
+    # at full depth.
     t_async = time.monotonic()
     hf_tmp = tempfile.mkdtemp(prefix="chip_smoke_hf_")
     atexit.register(shutil.rmtree, hf_tmp, True)
-    loop_hf = loop_checkpoint(cfg, os.path.join(hf_tmp, "init_hf"), "cuda")
     cut_hf = loop_checkpoint(cut, os.path.join(hf_tmp, "cut_hf"), "cuda")
-    # the checkpoints' weights are written and freed: hand their cache back
+    elastic_cfg = dataclasses.replace(cfg, n_layers=ELASTIC_LAYERS)
+    elastic_hf = loop_checkpoint(elastic_cfg, os.path.join(
+        hf_tmp, "elastic_hf"), "cuda")
+    # the checkpoint's weights are written and freed: hand their cache back
     # to the card, which the loops' processes share
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_async_")
     try:
-        async_loop = run_async_loop(cfg, tmp, steps=4, hf_dir=loop_hf)
+        async_loop = run_async_loop(cut, tmp, steps=4, hf_dir=cut_hf)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("async loop", json.dumps({
@@ -5820,27 +6270,8 @@ def main() -> None:
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
     async_launches = async_loop["launches_total"]
 
-    # (p) the same loop with every observability switch on, at the cut depth
-    t_obs = time.monotonic()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_observed_")
-    try:
-        observed = run_async_loop(cut, tmp, steps=3, observe=True,
-                                  hf_dir=cut_hf)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print("observed async loop", json.dumps({
-        "ms_per_step": observed["ms_per_step"],
-        "ms_per_step_o": async_loop["ms_per_step"],
-        "step_ms": observed["step_ms"], "per_mfc": observed["per_mfc"],
-        "trainer_peak_gb": observed["trainer_peak_gb"],
-        "server_peak_gb": observed["server_peak_gb"],
-        **observed["observability"],
-        "phase_p_s": time.monotonic() - t_obs,
-        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
-    observed_launches = observed["launches_total"]
-
-    # (q) the serving engine: prefix reuse, request classes, and the loop
-    # of (o) with the engine on
+    # (q) the serving engine: prefix reuse, request classes, and (q3) the
+    # loop of (o) with the engine on and, as (p), every observability switch
     t_q = time.monotonic()
     params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     prefix = run_prefix_reuse(fa, cfg, params, eos)
@@ -5850,13 +6281,22 @@ def main() -> None:
           flush=True)
     del params
     torch.cuda.empty_cache()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_serving_")
-    try:  # (q3) at the cut depth
-        served = run_async_loop(cut, tmp, steps=3, hf_dir=cut_hf,
+    t_obs = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_served_")
+    try:
+        served = run_async_loop(cut, tmp, steps=3, observe=True,
+                                hf_dir=cut_hf,
                                 extra=("serving.enabled=true",),
                                 interactive=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    print("(p) observed async loop", json.dumps({
+        "ms_per_step": served["ms_per_step"],
+        "ms_per_step_o": async_loop["ms_per_step"],
+        "step_ms": served["step_ms"], "per_mfc": served["per_mfc"],
+        "trainer_peak_gb": served["trainer_peak_gb"],
+        "server_peak_gb": served["server_peak_gb"],
+        **served["observability"]}), f"({card})", flush=True)
     print("(q3) async loop with serving", json.dumps({
         "ms_per_step": served["ms_per_step"],
         "ms_per_step_o": async_loop["ms_per_step"],
@@ -5868,11 +6308,11 @@ def main() -> None:
         "server_peak_gb": served["server_peak_gb"],
         "trainer_peak_gb": served["trainer_peak_gb"],
         "weight_sync": served["weight_sync"],
+        "phase_q3_p_s": time.monotonic() - t_obs,
         "phase_q_s": time.monotonic() - t_q,
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
     served_launches = served["launches_total"]
-    serving_k1 = (prefix["k1_launches"] + classes["k1_launches"]
-                  + served_launches["flash_attention_fwd"])
+    serving_k1 = prefix["k1_launches"] + classes["k1_launches"]
 
     # (r) the reward fleet and respawns in the async loop, at the cut depth
     t_r = time.monotonic()
@@ -5908,7 +6348,7 @@ def main() -> None:
     t_t = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
     try:
-        elastic = run_elastic_fleet(cut, tmp, hf_dir=cut_hf)
+        elastic = run_elastic_fleet(elastic_cfg, tmp, hf_dir=elastic_hf)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("(t) elastic fleet", json.dumps({
@@ -5922,7 +6362,7 @@ def main() -> None:
     t_u = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_sft_")
     try:
-        sft_eval = run_sft_auto_eval(cfg, tmp, loop_hf, fa=fa)
+        sft_eval = run_sft_auto_eval(cut, tmp, cut_hf, fa=fa)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("(u) sft and automatic evaluation", json.dumps({
@@ -5941,10 +6381,10 @@ def main() -> None:
     t_v = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_rw_")
     try:
-        rw = run_reward_model(fa, loop_hf, tmp)
+        rw = run_reward_model(fa, cut_hf, tmp)
         torch.cuda.empty_cache()
         t_w = time.monotonic()
-        fused = run_fused(fa, loop_hf, tmp)
+        fused = run_fused(fa, cut_hf, tmp)
         torch.cuda.empty_cache()
         t_x = time.monotonic()
         multi = run_multi_turn(fa, cut, eos, tmp)
@@ -5957,99 +6397,100 @@ def main() -> None:
         "phase_v_s": t_w - t_v, "phase_w_s": t_x - t_w,
         "phase_x_s": time.monotonic() - t_x,
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+    torch.cuda.empty_cache()
+
+    # (y) GPT-2 small and (z) Gemma-2B, at full width and depth
+    t_y = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gpt2_")
+    try:
+        gpt2 = run_gpt2(fa, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("(y) gpt2 small", json.dumps({
+        **gpt2, "phase_y_s": time.monotonic() - t_y,
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+    t_z = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gemma_")
+    try:
+        gemma = run_gemma(fa, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("(z) gemma 2b", json.dumps({
+        **{k: v for k, v in gemma.items() if k != "sft"},
+        "phase_z_s": time.monotonic() - t_z,
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
     print("phase seconds", json.dumps({
-        "o": t_obs - t_async, "p": t_q - t_obs, "q": t_r - t_q,
+        "a_to_n": t_async - t_start, "o": t_q - t_async,
+        "q1_q2": t_obs - t_q, "q3_p": t_r - t_obs,
         "r": t_s - t_r, "s": t_t - t_s, "t": t_u - t_t, "u": t_v - t_u,
-        "v": t_w - t_v, "w": t_x - t_w, "x": time.monotonic() - t_x,
+        "v": t_w - t_v, "w": t_x - t_w, "x": t_y - t_x, "y": t_z - t_y,
+        "z": time.monotonic() - t_z,
         "script": time.monotonic() - t_start}), flush=True)
 
     lib_line = ("areal_tpu/ops/pallas/flash_attention.py:200 backward: the "
                 "Pallas TPU library's {} :{} (pallas_call :{})")
     train_launches = train["launches"]
-    kernels = [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "areal_tpu_torch/ops/csrc/flash_attention.cu",
-        "replaces": "areal_tpu/ops/pallas/flash_attention.py:200",
-        "launches": serve_launches + train_launches["flash_attention_fwd"]
-        + trainer_launches["flash_attention_fwd"] + wsync["k1_launches"]
-        + loop_launches["flash_attention_fwd"]
-        + async_launches["flash_attention_fwd"]
-        + observed_launches["flash_attention_fwd"] + serving_k1
-        + fleet_launches["flash_attention_fwd"]
-        + relaunch_launches["flash_attention_fwd"]
-        + elastic_launches["flash_attention_fwd"]
-        + sft_eval["launches"]["flash_attention_fwd"]
-        + rw["launches"]["flash_attention_fwd"]
-        + fused["launches"]["flash_attention_fwd"] + multi["k1_launches"],
-        "launches_by_path": {"serve": serve_launches,
-                             "train": train_launches["flash_attention_fwd"],
-                             "trainer": trainer_launches["flash_attention_fwd"],
-                             "weight_sync": wsync["k1_launches"],
-                             "sync_loop": loop_launches["flash_attention_fwd"],
-                             "async_loop":
-                             async_launches["flash_attention_fwd"],
-                             "async_loop_observed":
-                             observed_launches["flash_attention_fwd"],
-                             "serving": serving_k1,
-                             "reward_fleet":
-                             fleet_launches["flash_attention_fwd"],
-                             "relaunch_drain":
-                             relaunch_launches["flash_attention_fwd"],
-                             "elastic_fleet":
-                             elastic_launches["flash_attention_fwd"],
-                             # the trainer's and the eval children's
-                             "sft_auto_eval_trainer":
-                             sft_eval["launches"]["flash_attention_fwd"]
-                             - sum(sft_eval["eval_child_k1"].values()),
-                             "sft_auto_eval_children":
-                             sum(sft_eval["eval_child_k1"].values()),
-                             "reward_model":
-                             rw["launches"]["flash_attention_fwd"],
-                             "fused_rew_ref":
-                             fused["launches"]["flash_attention_fwd"],
-                             "multi_turn": multi["k1_launches"]},
-        "max_abs_err": k1_train_check["max_abs_err"],
-        "ms": timing_train["kernel_ms"], "kernel_ms": timing_train["kernel_ms"],
-        "plain_ms": timing_train["plain_ms"],
-        "bound_ms": timing_train["bound_ms"],
-        "bound_by": timing_train["bound_by"],
-        "library_ms": timing_train["library_ms"],
-    }]
-    for name, fn, line, call, err in (
-            ("flash_attention_bwd_dkv", "_flash_attention_bwd_dkv", 941, 1121,
-             max(bwd_train_check["dk_max_abs_err"],
-                 bwd_train_check["dv_max_abs_err"])),
-            ("flash_attention_bwd_dq", "_flash_attention_bwd_dq", 1287, 1456,
-             bwd_train_check["dq_max_abs_err"])):
-        rec = bwd_timing[name]
+    # launches of each path, K1 (whose server paths add their prefills) and
+    # K2/K3; (z) is the one path at head_dim 256
+    paths = {"train": train_launches, "trainer": trainer_launches,
+             "sync_loop": loop_launches, "async_loop": async_launches,
+             "served_observed_loop": served_launches,
+             "reward_fleet": fleet_launches,
+             "relaunch_drain": relaunch_launches,
+             "elastic_fleet": elastic_launches,
+             "sft_auto_eval": sft_eval["launches"],
+             "reward_model": rw["launches"], "gpt2": gpt2["launches"]}
+    k1_paths = {"serve": serve_launches, "weight_sync": wsync["k1_launches"],
+                "serving": serving_k1,
+                **{k: v["flash_attention_fwd"] for k, v in paths.items()},
+                "fused_rew_ref": fused["launches"]["flash_attention_fwd"],
+                "multi_turn": multi["k1_launches"]}
+    k1_paths["sft_auto_eval_children"] = sum(
+        sft_eval["eval_child_k1"].values())
+    k1_paths["sft_auto_eval"] -= k1_paths["sft_auto_eval_children"]
+    gemma_launches = gemma["launches"]
+    sources = {"fwd": "areal_tpu_torch/ops/csrc/flash_attention.cu",
+               "bwd": "areal_tpu_torch/ops/csrc/flash_attention_bwd.cu"}
+    kernels = []
+    for D, launches_by_path, k1_rec, bwd_rec, k1_t, bwd_t in (
+            (64, None, k1_train_check, bwd_train_check, timing_train,
+             bwd_timing),
+            (256, gemma_launches, k1_256_check, bwd_256_check, timing_256,
+             bwd_timing_256)):
+        tag = "" if D == 64 else f" (head_dim {D})"
+        k1_by = k1_paths if D == 64 else {
+            "gemma": launches_by_path["flash_attention_fwd"]}
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "areal_tpu_torch/ops/csrc/flash_attention_bwd.cu",
-            "replaces": lib_line.format(fn, line, call),
-            "launches": train_launches[name] + trainer_launches[name]
-            + loop_launches[name] + async_launches[name]
-            + observed_launches[name] + served_launches[name]
-            + fleet_launches[name] + relaunch_launches[name]
-            + elastic_launches[name] + sft_eval["launches"][name]
-            + rw["launches"][name],
-            "launches_by_path": {"train": train_launches[name],
-                                 "trainer": trainer_launches[name],
-                                 "sync_loop": loop_launches[name],
-                                 "async_loop": async_launches[name],
-                                 "async_loop_observed":
-                                 observed_launches[name],
-                                 "serving": served_launches[name],
-                                 "reward_fleet": fleet_launches[name],
-                                 "relaunch_drain": relaunch_launches[name],
-                                 "elastic_fleet": elastic_launches[name],
-                                 "sft_auto_eval": sft_eval["launches"][name],
-                                 "reward_model": rw["launches"][name]},
-            "max_abs_err": err,
-            "ms": rec["kernel_ms"], "kernel_ms": rec["kernel_ms"],
-            "plain_ms": bwd_timing["plain_bwd_ms"],
-            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": bwd_timing["sdpa_bwd_ms"],
+            "name": "flash_attention_fwd" + tag, "route": "cuda",
+            "source": sources["fwd"],
+            "replaces": "areal_tpu/ops/pallas/flash_attention.py:200",
+            "launches": sum(k1_by.values()), "launches_by_path": k1_by,
+            "max_abs_err": k1_rec["max_abs_err"],
+            "ms": k1_t["kernel_ms"], "kernel_ms": k1_t["kernel_ms"],
+            "plain_ms": k1_t["plain_ms"], "bound_ms": k1_t["bound_ms"],
+            "bound_by": k1_t["bound_by"], "library_ms": k1_t["library_ms"],
+            "shape": {k: k1_t[k] for k in ("B", "T")},
         })
+        for name, fn, line, call, err in (
+                ("flash_attention_bwd_dkv", "_flash_attention_bwd_dkv", 941,
+                 1121, max(bwd_rec["dk_max_abs_err"],
+                           bwd_rec["dv_max_abs_err"])),
+                ("flash_attention_bwd_dq", "_flash_attention_bwd_dq", 1287,
+                 1456, bwd_rec["dq_max_abs_err"])):
+            rec = bwd_t[name]
+            by = ({k: v[name] for k, v in paths.items()} if D == 64
+                  else {"gemma": launches_by_path[name]})
+            kernels.append({
+                "name": name + tag, "route": "cuda", "source": sources["bwd"],
+                "replaces": lib_line.format(fn, line, call),
+                "launches": sum(by.values()), "launches_by_path": by,
+                "max_abs_err": err,
+                "ms": rec["kernel_ms"], "kernel_ms": rec["kernel_ms"],
+                "plain_ms": bwd_t["plain_bwd_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                "library_ms": bwd_t["sdpa_bwd_ms"],
+                "shape": {k: bwd_t[k] for k in ("B", "T")},
+            })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

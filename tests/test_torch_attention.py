@@ -55,7 +55,8 @@ def _np_lse(q, k, seg, scale):
 
 
 @pytest.mark.parametrize("seqlens,row_len", SEQLENS)
-@pytest.mark.parametrize("D,Hq,Hkv", [(64, 4, 2), (128, 4, 1), (64, 2, 2)])
+@pytest.mark.parametrize("D,Hq,Hkv", [(64, 4, 2), (128, 4, 1), (64, 2, 2),
+                                     (256, 8, 1)])
 def test_plain_flash_matches_reference(seqlens, row_len, D, Hq, Hkv):
     q, k, v, seg, pos = _case(seqlens, row_len, Hq=Hq, Hkv=Hkv, D=D)
     ref = jattn.packed_attention(

@@ -42,7 +42,7 @@ def _reference_grads(q, k, v, seg, pos, dout):
 
 
 @pytest.mark.parametrize("seqlens,row_len", SEQLENS)
-@pytest.mark.parametrize("D,Hq,Hkv", [(64, 4, 2), (128, 6, 2)])
+@pytest.mark.parametrize("D,Hq,Hkv", [(64, 4, 2), (128, 6, 2), (256, 8, 1)])
 def test_plain_backward_matches_reference(seqlens, row_len, D, Hq, Hkv):
     q, k, v, seg, pos = _case(seqlens, row_len, Hq=Hq, Hkv=Hkv, D=D, seed=7)
     dout = np.random.RandomState(8).randn(*q.shape).astype(np.float32)

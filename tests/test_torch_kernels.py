@@ -47,6 +47,8 @@ def _kv_ids(seg):
 # still keep ("any ids"); 40 short documents per row with ids descending or
 # swapped in pairs, where the walk skips most tile pairs; and a query-only
 # document whose q tiles meet no kv tile, so their dq must be exactly 0.
+# Head_dim 256 (Gemma's heads) runs each of these with G = 1 and with
+# Gemma's 8 q heads over one kv head.
 _NON_MONOTONIC = [[(100, 2), (90, 1), (120, 3), (80, 1)], [(150, 3), (150, 2)]]
 _SHORT_DOCS = [[(9 + (7 * i) % 32, 80 - i) for i in range(40)],
                [(12 + (5 * i) % 27, (i ^ 1) + 1) for i in range(40)]]
@@ -60,6 +62,12 @@ _TC_CASES = (
     (_SHORT_DOCS, 1024, 64, 14, 2),
     (_QUERY_ONLY, 768, 64, 14, 2),
     (_QUERY_ONLY, 768, 128, 28, 4),
+    ([[200, 150], [300]], 320, 256, 2, 2),
+    ([[900, 800], [1000, 700]], 1792, 256, 8, 1),
+    (_NON_MONOTONIC, 400, 256, 8, 1),
+    (_SHORT_DOCS, 1024, 256, 8, 1),
+    (_QUERY_ONLY, 768, 256, 8, 1),
+    (_QUERY_ONLY, 768, 256, 2, 2),
 )
 
 
@@ -182,7 +190,8 @@ def test_backward_kernels_match_plain_on_card(dtype, seqlens, T, D, Hq, Hkv):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["dkv", "dq"])
-@pytest.mark.parametrize("D,Hq,Hkv", [(64, 14, 2), (128, 8, 1)])
+@pytest.mark.parametrize("D,Hq,Hkv", [(64, 14, 2), (128, 8, 1), (256, 8, 1),
+                                     (256, 2, 2)])
 def test_dkv_kernel_is_deterministic_on_card(D, Hq, Hkv, kernel):
     """K2 (dk, dv) and K3 (dq) give the same bits on every launch: neither
     uses atomics, and K2 sums the q heads of a kv head in a fixed order."""
@@ -201,7 +210,8 @@ def test_dkv_kernel_is_deterministic_on_card(D, Hq, Hkv, kernel):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("blocks", [(64, 64), (32, 64), (64, 32), (16, 8)])
+@pytest.mark.parametrize("blocks", [(64, 64), (32, 64), (64, 32), (16, 8),
+                                    (16, 64), (64, 16)])
 @pytest.mark.parametrize("ids", ["packed", "shuffled", "few", "short"])
 def test_tile_walk_keeps_every_kept_pair(ids, blocks, causal):
     """The tensor-core kernels skip (q tile, kv tile) pairs whose ranges of

@@ -7,6 +7,8 @@ them into the port. Logits and K/V of ``forward`` must match the reference's
 mode (per-row single-token writes, multi-token extension, a scalar slot).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,16 +27,28 @@ CONFIGS = {
     "qwen3": dict(use_qk_norm=True, rotary_base=1e6),
     "layer_plain": dict(norm_type="layer", mlp_type="plain",
                         hidden_act="gelu_tanh", use_attn_output_bias=True),
+    # GPT-2: learned positions, LayerNorm and plain MLP with biases
+    "gpt2": dict(hf_family="gpt2", n_kv_heads=4, norm_type="layer",
+                 mlp_type="plain", hidden_act="gelu_tanh",
+                 use_attention_bias=True, use_attn_output_bias=True,
+                 pos_embedding="learned", max_position_embeddings=32,
+                 tie_word_embeddings=True),
+    # Gemma: scaled embeddings, tanh GeGLU, MQA, head_dim != hidden / heads
+    "gemma": dict(hf_family="gemma", n_kv_heads=1, head_dim=16,
+                  hidden_act="gelu_tanh", scale_embeddings=True,
+                  tie_word_embeddings=True),
 }
 NORM_SCALES = {"ln1", "ln2", "final_ln", "q_norm", "k_norm"}
 
 
 def make_model(name, seed=0, **over):
     """(reference cfg, port cfg, flat numpy params, port model)."""
-    kw = dict(vocab_size=97, n_layers=2, hidden_dim=32, n_q_heads=4,
-              n_kv_heads=2, **CONFIGS[name], **over)
-    jcfg = jconfig.tiny_config(**kw)
-    tcfg = tconfig.tiny_config(**kw)
+    kw = {**dict(vocab_size=97, n_layers=2, hidden_dim=32, n_q_heads=4,
+                 n_kv_heads=2), **CONFIGS[name], **over}
+    # a head_dim other than hidden / heads (Gemma's) replaces tiny_config's
+    head = {"head_dim": kw.pop("head_dim")} if "head_dim" in kw else {}
+    jcfg = dataclasses.replace(jconfig.tiny_config(**kw), **head)
+    tcfg = dataclasses.replace(tconfig.tiny_config(**kw), **head)
     # Shapes from the reference init; values (incl. biases and norm scales,
     # which the init leaves at 0/1) from one numpy seed.
     shapes = jhf.flatten_pytree(jax.eval_shape(
@@ -149,13 +163,23 @@ def test_qwen2_5_0_5b_geometry():
 
 
 def test_unported_features_raise():
-    """MoE and learned positions still raise (the critic head is ported:
-    tests/test_torch_critic.py); a parameter with no port counterpart is a
-    KeyError."""
-    for kw in (dict(moe=dict(num_experts=4, top_k=2)),
-               dict(pos_embedding="learned", max_position_embeddings=64)):
-        with pytest.raises(NotImplementedError):
-            Transformer(tconfig.tiny_config(**kw), device="meta")
+    """MoE still raises (the critic head is ported:
+    tests/test_torch_critic.py); learned positions are ported: the table is
+    a parameter and a forward through it equals the reference's; a
+    parameter with no port counterpart is a KeyError."""
+    with pytest.raises(NotImplementedError):
+        Transformer(tconfig.tiny_config(moe=dict(num_experts=4, top_k=2)),
+                    device="meta")
+    jcfg, tcfg, flat, model = make_model("gpt2", seed=5)
+    assert tuple(model.pos_embedding.weight.shape) == (32, 32)
+    tokens = np.random.RandomState(5).randint(0, 97, (1, 32)).astype(np.int32)
+    pos = np.arange(32, dtype=np.int32)[None]
+    jl, _ = jtf.forward(_jparams(flat), jcfg, jnp.asarray(tokens),
+                        jnp.asarray(pos), segment_ids=jnp.ones_like(pos))
+    with torch.no_grad():
+        tl, _ = model(torch.from_numpy(tokens), torch.from_numpy(pos),
+                      segment_ids=torch.ones(1, 32, dtype=torch.int32))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
     with pytest.raises(KeyError):
         params_from_jax({"layers/router": np.zeros((2, 32, 4), np.float32)},
                         tconfig.tiny_config(), device="cpu")
