@@ -399,8 +399,12 @@ class PPOActorInterface(ModelInterface):
             )
         model.inc_version()
         n = max(agg.get("n_action_tokens", 1.0), 1.0)
+        # an MoE actor's routing stats, a mean over the optimizer steps
+        moe_stats = {k: v / max(n_steps, 1) for k, v in agg.items()
+                     if k.startswith("moe_")}
         rewards_np = np.asarray(data.data["rewards"], np.float32).reshape(-1)
         return {
+            **moe_stats,
             "actor_loss": agg.get("loss", 0.0),
             "importance_weight": agg.get("importance_weight_sum", 0.0) / n,
             "clip_ratio": agg.get("clip_ratio_sum", 0.0) / n,

@@ -421,6 +421,16 @@ def validate_config(cfg) -> None:
                     f"allocation_mode {label} spec '{spec}' needs "
                     f"{spec.world_size} devices but the experiment has "
                     f"n_nodes×n_gpus_per_node = {n_devices}")
+    tiny = getattr(getattr(cfg, "actor", None), "tiny", None)
+    moe = tiny.get("moe") if isinstance(tiny, dict) else None
+    if isinstance(moe, dict):
+        cf = float(moe.get("capacity_factor", 2.0))
+        if cf <= 0:
+            raise ConfigError(
+                f"actor.tiny.moe.capacity_factor={cf} must be > 0: the "
+                "expert buffer is ceil(top_k * tokens * capacity_factor "
+                "/ num_experts) slots, and a non-positive factor drops "
+                "every routed token (models/moe.py capacity).")
     _validate_serving(cfg)
     _validate_observability(cfg)
     _validate_reward_service(cfg)

@@ -49,9 +49,19 @@ at the end of the fwd-bwd and of the optimizer spans, so that each span
 times the work and not its launches. With telemetry off the step keeps
 its one host sync.
 
-Not ported yet: meshes and MoE (and with them the reference's
-``train/pp_engaged``, ``train/ring_engaged`` and ``train/moe_ep_engaged``
-gauges).
+MoE models (``models/moe.py``): each grad step adds the forward's
+``aux_total`` times ``aux_scale`` (1/n_mbs under the global normalize scope,
+else 1) to the loss and returns the aux as ``moe_*`` stats; the step divides
+them by the micro-batch count, observes the ``[E]`` expert load as the
+``train/moe_expert_load_dist`` distribution and sets the
+``train/moe_dropped_frac`` / ``train/moe_expert_load_ratio`` gauges (the
+reference's ``_finish_stats:757``). ``train/moe_ep_engaged`` is published
+as 0: the port has no mesh. Router jitter (``input_jitter_eps > 0``) draws
+from one ``torch.Generator`` per micro-batch seeded from the optimizer step
+count and the micro-batch index.
+
+Not ported yet: meshes (and with them the reference's ``train/pp_engaged``
+and ``train/ring_engaged`` gauges).
 """
 
 from __future__ import annotations
@@ -308,23 +318,35 @@ class TorchTrainEngine(TrainableEngine):
         return {n: p.to(cd) if p.is_floating_point() else p
                 for n, p in self.params.items()}
 
-    def _hidden_or_logits(self, cast, batch, return_hidden: bool, remat):
+    def _hidden_or_logits(self, cast, batch, return_hidden: bool, remat,
+                          aux: Optional[Dict[str, torch.Tensor]] = None,
+                          rng: Optional[torch.Generator] = None):
         """The model's final hidden, logits, or a critic's values (cast to
-        f32 after the head, as the reference does)."""
-        out, _ = torch.func.functional_call(
+        f32 after the head, as the reference does). An MoE model's aux goes
+        into ``aux`` when a dict is given; ``rng`` draws its router
+        jitter."""
+        out, _, moe_aux = torch.func.functional_call(
             self.model, cast, (batch["tokens"], batch["positions"]),
             dict(segment_ids=batch["segment_ids"], attn_impl=self.attn_impl,
-                 remat=remat, return_kv=False, return_hidden=return_hidden),
+                 remat=remat, return_kv=False, return_hidden=return_hidden,
+                 return_aux=True, rng=rng),
         )
+        if aux is not None:
+            aux.update(moe_aux)
         return out.float() if self.cfg.is_critic and not return_hidden else out
 
-    def _forward_token_logprobs(self, cast, batch, remat) -> torch.Tensor:
+    def _forward_token_logprobs(self, cast, batch, remat,
+                                aux: Optional[Dict[str, torch.Tensor]] = None,
+                                rng: Optional[torch.Generator] = None
+                                ) -> torch.Tensor:
         """[R, L] per-token logprobs through the chunked head: each column
         chunk computes its logits and gathers its scores under checkpoint,
         so the backward recomputes the chunk's logits instead of keeping
         them (the head matmul is redone once). Without grad, the chunks just
-        run one after another."""
-        h = self._hidden_or_logits(cast, batch, return_hidden=True, remat=remat)
+        run one after another. ``aux``, ``rng``: as
+        :meth:`_hidden_or_logits`."""
+        h = self._hidden_or_logits(cast, batch, return_hidden=True,
+                                   remat=remat, aux=aux, rng=rng)
         L = h.shape[1]
         labels = PF.next_token_labels(batch["tokens"])
         C = self.logprob_chunk or L
@@ -353,18 +375,36 @@ class TorchTrainEngine(TrainableEngine):
         batch.update({k: v[i] for k, v in ub.seq.items()})
         return batch
 
-    def _grad_step(self, ub, loss_fn, i, denom, scale):
-        """One micro-batch: forward, loss, backward into the masters'
-        ``.grad`` (which sums over the micro-batches)."""
+    def _jitter_generator(self, i: int) -> Optional[torch.Generator]:
+        """Micro-batch ``i``'s router-jitter generator for this optimizer
+        step (reference ``train_batch:853``: a key per step folded with the
+        micro-batch index), or None when the model has no jitter."""
+        moe = self.cfg.moe
+        if moe is None or moe.input_jitter_eps <= 0:
+            return None
+        return torch.Generator(device=self.device).manual_seed(
+            (self.opt_step_count << 20) + i)
+
+    def _grad_step(self, ub, loss_fn, i, denom, scale, aux_scale):
+        """One micro-batch: forward, loss (plus an MoE model's
+        ``aux_total · aux_scale``, its aux returned as ``moe_*`` stats),
+        backward into the masters' ``.grad`` (which sums over the
+        micro-batches)."""
         batch = self._slice(ub, i)
         cast = self._cast()
+        aux: Dict[str, torch.Tensor] = {}
+        rng = self._jitter_generator(i)
         if self._use_chunked_logprobs(loss_fn):
-            out = self._forward_token_logprobs(cast, batch, self.remat)
+            out = self._forward_token_logprobs(cast, batch, self.remat,
+                                               aux=aux, rng=rng)
         else:
             out = self._hidden_or_logits(cast, batch, return_hidden=False,
-                                         remat=self.remat)
+                                         remat=self.remat, aux=aux, rng=rng)
         loss_sum, stats = loss_fn(out, batch)
         loss = loss_sum / max(denom, 1.0)
+        if aux:
+            loss = loss + aux["aux_total"] * aux_scale
+            stats = dict(stats, **{f"moe_{k}": v for k, v in aux.items()})
         (loss * scale if scale != 1.0 else loss).backward()
         return loss.detach() * scale, {k: v.detach() for k, v in stats.items()}
 
@@ -375,12 +415,14 @@ class TorchTrainEngine(TrainableEngine):
         ``.grad``; returns the summed (loss, stats)."""
         total_w = sum(weights)
         scale = 1.0 if glob else 1.0 / len(idxs)
+        aux_scale = 1.0 / len(idxs) if glob else 1.0
         for p in self.params.values():
             p.grad = None
         loss_acc, stats_acc = None, {}
         for i, w in zip(idxs, weights):
             loss, stats = self._grad_step(ub, loss_fn, i,
-                                          total_w if glob else w, scale)
+                                          total_w if glob else w, scale,
+                                          aux_scale)
             loss_acc = loss if loss_acc is None else loss + loss_acc
             stats_acc = {k: stats[k] + stats_acc[k] if k in stats_acc
                          else stats[k] for k in stats}
@@ -407,6 +449,8 @@ class TorchTrainEngine(TrainableEngine):
             with telemetry.span("train/split_pack"):
                 mbs = self._split(input_, mb_spec)
                 telemetry.set_gauge("train/pack_fill", mbu.pack_fill(mbs))
+            # the expert-parallel path needs a mesh: never engaged here
+            telemetry.set_gauge("train/moe_ep_engaged", 0.0)
         else:
             mbs = self._split(input_, mb_spec)
             telemetry.set_gauge("infer/pack_fill", mbu.pack_fill(mbs))
@@ -492,9 +536,14 @@ class TorchTrainEngine(TrainableEngine):
                 torch.stack(torch._foreach_norm(grads)))
             fetch = {**stats_acc, **(extra_fetch or {}), "loss": loss_acc,
                      "grad_norm": grad_norm}
-            values = torch.stack([v.detach().float().reshape(())
-                                  for v in fetch.values()])
-            fetched = dict(zip(fetch, values.tolist()))  # the one host sync
+            # the one host sync
+            flat = torch.cat([v.detach().float().reshape(-1)
+                              for v in fetch.values()]).tolist()
+            fetched, at = {}, 0
+            for k, v in fetch.items():
+                n = v.numel()
+                fetched[k] = flat[at] if n == 1 else flat[at:at + n]
+                at += n
             t1 = self._phase_clock()
             apply = True
             if skip_update_rule is not None and skip_update_rule[2]:
@@ -513,7 +562,7 @@ class TorchTrainEngine(TrainableEngine):
         t2 = self._phase_clock()
         if self.time_phases:
             self.last_phase_secs = {"fwd_bwd": t1 - t0, "optimizer": t2 - t1}
-        out = self._finish_stats(fetched)
+        out = self._finish_stats(fetched, len(idxs))
         out["update_applied"] = float(apply)
         out["lr"] = applied_lr
         out["total_tokens"] = float(sum(ub.mbs[i].n_tokens for i in idxs))
@@ -532,11 +581,31 @@ class TorchTrainEngine(TrainableEngine):
         self._sync()
         return time.perf_counter()
 
-    @staticmethod
-    def _finish_stats(fetched: Dict[str, Any]) -> Dict[str, float]:
-        """Host-side stat post-processing (reference ``_finish_stats:757``
-        without its MoE and telemetry parts)."""
-        return {k: float(v) for k, v in fetched.items()}
+    # Per-expert routed-load shares cluster around 1/E: log-ish buckets.
+    _EXPERT_LOAD_BUCKETS = (0.001, 0.002, 0.005, 0.01, 0.02, 0.05,
+                            0.1, 0.2, 0.5, 1.0)
+
+    @classmethod
+    def _finish_stats(cls, fetched: Dict[str, Any],
+                      n_mbs: int) -> Dict[str, float]:
+        """Host-side stat post-processing (reference ``_finish_stats:757``):
+        the ``moe_*`` stats, sums of per-micro-batch values, are divided by
+        the micro-batch count; the ``[E]`` ``moe_expert_load`` is split off
+        and observed as ``train/moe_expert_load_dist``; the drop fraction
+        and the load ratio are also set as ``train/moe_*`` gauges."""
+        n_mbs = max(n_mbs, 1)
+        vec = {k: v for k, v in fetched.items() if isinstance(v, list)}
+        out = {k: float(v) for k, v in fetched.items() if k not in vec}
+        for k in out:
+            if k.startswith("moe_"):
+                out[k] /= n_mbs
+        for share in vec.get("moe_expert_load", ()):
+            telemetry.observe("train/moe_expert_load_dist", share / n_mbs,
+                              buckets=cls._EXPERT_LOAD_BUCKETS)
+        for stat in ("moe_dropped_frac", "moe_expert_load_ratio"):
+            if stat in out:
+                telemetry.set_gauge(f"train/{stat}", out[stat])
+        return out
 
     # -------------- TrainableEngine API --------------
 

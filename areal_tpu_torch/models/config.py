@@ -2,8 +2,9 @@
 
 The port's own copy of ``areal_tpu/models/config.py`` (``MoEConfig``,
 ``TransformerConfig``, ``tiny_config``) plus the published geometries the
-card runs at full width: :func:`qwen2_5_0_5b`, :func:`gpt2_small` and
-:func:`gemma_2b`. Families are expressed as config differences (bias flags,
+card runs at full width: :func:`qwen2_5_0_5b`, :func:`gpt2_small`,
+:func:`gemma_2b`, and the MoE ones :func:`qwen3_30b_a3b` and
+:func:`mixtral_8x7b`. Families are expressed as config differences (bias flags,
 qk-norm, tying, norm and MLP kinds, positions), not separate classes.
 """
 
@@ -158,6 +159,45 @@ def gemma_2b(**kw) -> TransformerConfig:
         rotary_base=10000.0, rms_norm_eps=1e-6, tie_word_embeddings=True,
         hidden_act="gelu_tanh", scale_embeddings=True, hf_family="gemma",
         dtype="bfloat16",
+    )
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
+def qwen3_30b_a3b(**kw) -> TransformerConfig:
+    """Qwen3-30B-A3B geometry, as the public ``Qwen/Qwen3-30B-A3B``
+    ``config.json``: 48 layers, hidden 2048, 32 query / 4 kv heads of 128
+    with qk-norm, every layer an MoE of 128 experts of 768
+    (``moe_intermediate_size``) with top-8 routing and ``norm_topk_prob``,
+    ``intermediate_size`` 6144 (no dense layer uses it), vocab 151936, rope
+    base 1e6, RMSNorm eps 1e-6, untied embeddings; the router aux
+    coefficient 1e-3 (``router_aux_loss_coef``) and the reference's
+    capacity factor."""
+    base = dict(
+        n_layers=48, hidden_dim=2048, n_q_heads=32, n_kv_heads=4,
+        head_dim=128, intermediate_dim=6144, vocab_size=151936,
+        rotary_base=1000000.0, rms_norm_eps=1e-6, use_qk_norm=True,
+        tie_word_embeddings=False, hf_family="qwen3_moe", dtype="bfloat16",
+        moe=MoEConfig(num_experts=128, top_k=8, routed_intermediate_dim=768,
+                      aux_loss_coeff=1e-3, norm_topk_prob=True),
+    )
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
+def mixtral_8x7b(**kw) -> TransformerConfig:
+    """Mixtral-8x7B geometry, as the public ``mistralai/Mixtral-8x7B-v0.1``
+    ``config.json``: 32 layers, hidden 4096, 32 query / 8 kv heads of 128,
+    8 experts of 14336 (``intermediate_size``) with top-2 routing, vocab
+    32000, rope base 1e6, RMSNorm eps 1e-5, untied, no sliding window;
+    ``router_aux_loss_coef`` 0.02."""
+    base = dict(
+        n_layers=32, hidden_dim=4096, n_q_heads=32, n_kv_heads=8,
+        head_dim=128, intermediate_dim=14336, vocab_size=32000,
+        rotary_base=1000000.0, rms_norm_eps=1e-5, tie_word_embeddings=False,
+        hf_family="mixtral", dtype="bfloat16",
+        moe=MoEConfig(num_experts=8, top_k=2, aux_loss_coeff=0.02,
+                      norm_topk_prob=True),
     )
     base.update(kw)
     return TransformerConfig(**base)

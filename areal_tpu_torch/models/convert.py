@@ -10,6 +10,10 @@ and per-layer stacks ``layers/<key> [L, ...]`` with matrices as
 learned ``pos_embedding [P, d]`` is ``pos_embedding.weight`` as it is, and
 its LayerNorm shifts and MLP / output biases (``ln1_b``, ``ln2_b``,
 ``final_ln_b``, ``bo``, ``b_up``, ``b_down``) are the modules' ``.bias``.
+An MoE layer's ``router [d, E]`` is ``router.weight [E, d]`` and its shared
+expert ``s_gate``/``s_up``/``s_down`` are linears like ``w_*``; the expert
+stacks ``e_gate``/``e_up [E, d, F]`` and ``e_down [E, F, d]`` keep the
+reference's ``[in, out]`` layout and name.
 """
 
 from __future__ import annotations
@@ -24,7 +28,10 @@ from areal_tpu_torch.models.config import TransformerConfig
 
 # matrix key -> its bias key in the reference layout (None: no bias)
 _LINEAR = {"wq": "bq", "wk": "bk", "wv": "bv", "wo": "bo",
-           "w_gate": None, "w_up": "b_up", "w_down": "b_down"}
+           "w_gate": None, "w_up": "b_up", "w_down": "b_down",
+           "router": None, "s_gate": None, "s_up": None, "s_down": None}
+# MoE expert stacks: plain parameters, layout and name as in the reference
+_EXPERTS = ("e_gate", "e_up", "e_down")
 # norm scale key -> its shift key (LayerNorm only)
 _NORMS = {"ln1": "ln1_b", "ln2": "ln2_b", "q_norm": None, "k_norm": None}
 
@@ -40,6 +47,7 @@ def _layer_key_map() -> Dict[str, str]:
         out[w] = f"{w}.weight"
         if b:
             out[b] = f"{w}.bias"
+    out.update({e: e for e in _EXPERTS})
     return out
 
 

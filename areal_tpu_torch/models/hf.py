@@ -1,11 +1,14 @@
 """HF ↔ port weight conversion and sharded safetensors checkpoints.
 
-Counterpart of ``areal_tpu/models/hf.py`` for the dense families: the
-registry (``register_hf_family:35``, ``HF_FAMILIES:32``) with the
-llama-like four (llama, qwen2 — Qwen2.5 —, qwen3, mistral; ``_llama_like:62``),
-``_gemma_config:79`` and ``_gpt2_config:90``, ``config_from_hf:145``, the
-codecs ``_llama_from_sd:213`` / ``_llama_to_sd:263`` (with Gemma's (w − 1)
-norm storage and the critic's ``score.weight``) and ``_gpt2_from_sd:295`` /
+Counterpart of ``areal_tpu/models/hf.py``: the registry
+(``register_hf_family:35``, ``HF_FAMILIES:32``) with the llama-like four
+(llama, qwen2 — Qwen2.5 —, qwen3, mistral; ``_llama_like:62``),
+``_gemma_config:79``, ``_gpt2_config:90`` and the MoE families
+``_mixtral_config:114`` and ``_qwen3_moe_config:129``,
+``config_from_hf:145``, the codecs ``_llama_from_sd:213`` /
+``_llama_to_sd:263`` (with Gemma's (w − 1) norm storage, the critic's
+``score.weight`` and the MoE layers' router and per-expert weights,
+``_moe_names:179``) and ``_gpt2_from_sd:295`` /
 ``_gpt2_to_sd:341`` (fused ``c_attn``, Conv1D ``[in, out]`` weights, the
 optional ``transformer.`` prefix), ``params_from_hf_state_dict:372``,
 ``params_to_hf_state_dict:381``, ``hf_config_dict:404``, the sharded
@@ -21,7 +24,11 @@ its ``c_attn`` split. The native layout keeps the reference's flattened
 names and stacked ``[in, out]`` layers (through ``models/convert.py``), so a
 checkpoint published by either package loads in the other. Files go through
 ``base/safetensors_io.py``; ``config.json`` is read with ``json``, and
-``transformers`` is never imported. MoE mappings wait for a later slice.
+``transformers`` is never imported. An MoE layer's HF router ``[E, d]`` is
+the port's ``router.weight`` as it is; HF's per-expert ``[F, d]`` / ``[d,
+F]`` linears are transposed into the port's ``[E, d, F]`` / ``[E, F, d]``
+stacks. A shared expert has no HF mapping (neither family has one, and the
+reference maps none), so such a config raises.
 
 Gemma's activation: the reference reads ``hidden_activation`` (absent:
 ``gelu_pytorch_tanh``) and never ``hidden_act``, where ``transformers``
@@ -66,15 +73,20 @@ _HF_ARCH = {
     "mistral": "MistralForCausalLM",
     "gemma": "GemmaForCausalLM",
     "gpt2": "GPT2LMHeadModel",
+    "mixtral": "MixtralForCausalLM",
+    "qwen3_moe": "Qwen3MoeForCausalLM",
 }
 
 
 # What each family's ``transformers`` config class fills in for a key that
 # ``config.json`` leaves out (``LlamaConfig``, ``Qwen2Config``,
-# ``Qwen3Config``, ``MistralConfig``, ``GemmaConfig``, ``GPT2Config`` as of
-# transformers 4.57). ``None`` for ``num_key_value_heads`` / ``head_dim``
-# means "derived" (rules in ``_base_kwargs``). Llama and Mistral have no
-# ``use_sliding_window``: the reference reads its absence as True.
+# ``Qwen3Config``, ``MistralConfig``, ``GemmaConfig``, ``GPT2Config``,
+# ``MixtralConfig``, ``Qwen3MoeConfig`` as of transformers 4.57). ``None``
+# for ``num_key_value_heads`` / ``head_dim`` means "derived" (rules in
+# ``_base_kwargs``; ``Qwen3MoeConfig`` has no ``head_dim`` at all, so a
+# config.json without one gets hidden / heads). Llama and Mistral have no
+# ``use_sliding_window``: the reference reads its absence as True; the
+# reference's Mixtral reads ``sliding_window`` with no flag at all.
 _COMMON = dict(num_hidden_layers=32, hidden_size=4096, num_attention_heads=32,
                rope_theta=10000.0, rms_norm_eps=1e-6,
                tie_word_embeddings=False)
@@ -98,6 +110,17 @@ _HF_DEFAULTS: Dict[str, Dict[str, Any]] = {
                   hidden_activation=None),
     "gpt2": dict(n_layer=12, n_embd=768, n_head=12, n_inner=None,
                  vocab_size=50257, layer_norm_epsilon=1e-5, n_positions=1024),
+    "mixtral": dict(_COMMON, vocab_size=32000, intermediate_size=14336,
+                    num_key_value_heads=8, head_dim=None, rope_theta=1e6,
+                    rms_norm_eps=1e-5, sliding_window=None,
+                    num_local_experts=8, num_experts_per_tok=2,
+                    router_aux_loss_coef=1e-3),
+    "qwen3_moe": dict(_COMMON, num_hidden_layers=24, hidden_size=2048,
+                      vocab_size=151936, intermediate_size=6144,
+                      num_key_value_heads=4, head_dim=None,
+                      moe_intermediate_size=768, num_experts=128,
+                      num_experts_per_tok=8, norm_topk_prob=False,
+                      router_aux_loss_coef=1e-3),
 }
 
 
@@ -175,6 +198,39 @@ def _gpt2_config(c: Mapping[str, Any]) -> TransformerConfig:
     )
 
 
+@register_hf_family("mixtral")
+def _mixtral_config(c: Mapping[str, Any]) -> TransformerConfig:
+    """Reference ``_mixtral_config:114``: ``num_local_experts`` experts of
+    ``intermediate_size``, renormalised top-k gates, and the window
+    whenever ``sliding_window`` is set."""
+    return TransformerConfig(
+        **_base_kwargs(c),
+        sliding_window=c["sliding_window"],
+        moe=MoEConfig(num_experts=c["num_local_experts"],
+                      top_k=c["num_experts_per_tok"],
+                      aux_loss_coeff=c["router_aux_loss_coef"],
+                      norm_topk_prob=True),
+        hf_family="mixtral",
+    )
+
+
+@register_hf_family("qwen3_moe")
+def _qwen3_moe_config(c: Mapping[str, Any]) -> TransformerConfig:
+    """Reference ``_qwen3_moe_config:129``: qk-norm, ``num_experts`` experts
+    of ``moe_intermediate_size``, ``norm_topk_prob`` as the file says (its
+    ``transformers`` default is False), no window."""
+    return TransformerConfig(
+        **_base_kwargs(c),
+        use_qk_norm=True,
+        moe=MoEConfig(num_experts=c["num_experts"],
+                      top_k=c["num_experts_per_tok"],
+                      routed_intermediate_dim=c["moe_intermediate_size"],
+                      aux_loss_coeff=c["router_aux_loss_coef"],
+                      norm_topk_prob=c["norm_topk_prob"]),
+        hf_family="qwen3_moe",
+    )
+
+
 def config_from_hf(hf_config: Mapping[str, Any]) -> TransformerConfig:
     """A ``TransformerConfig`` from a ``config.json`` dict (reference
     ``config_from_hf:145``), with the family's ``transformers`` defaults
@@ -187,13 +243,16 @@ def config_from_hf(hf_config: Mapping[str, Any]) -> TransformerConfig:
 
 
 def _check_mapped(cfg: TransformerConfig) -> str:
-    """The config's family, if the port maps its weights (MoE it does
-    not yet)."""
+    """The config's family, if the port maps its weights (not a shared
+    expert's: no HF family here has one)."""
     fam = cfg.hf_family or "llama"
-    if fam not in HF_FAMILIES or cfg.moe is not None:
+    if fam not in HF_FAMILIES:
         raise NotImplementedError(
-            f"the HF layout of this config is not ported yet ({fam!r}"
-            f"{', moe' if cfg.moe is not None else ''})")
+            f"the HF layout of this config is not ported yet ({fam!r})")
+    if cfg.moe is not None and cfg.moe.shared_intermediate_dim:
+        raise NotImplementedError(
+            "a shared expert has no HF layout (neither Mixtral nor "
+            "Qwen3-MoE has one)")
     return fam
 
 
@@ -209,10 +268,13 @@ def _llama_mapping(cfg: TransformerConfig) -> List[Tuple[str, str]]:
         ("wk.weight", p + "self_attn.k_proj.weight"),
         ("wv.weight", p + "self_attn.v_proj.weight"),
         ("wo.weight", p + "self_attn.o_proj.weight"),
-        ("w_gate.weight", p + "mlp.gate_proj.weight"),
-        ("w_up.weight", p + "mlp.up_proj.weight"),
-        ("w_down.weight", p + "mlp.down_proj.weight"),
     ]
+    if cfg.moe is not None:
+        m.append(("router.weight", _moe_names(cfg)["router"]))
+    else:
+        m += [("w_gate.weight", p + "mlp.gate_proj.weight"),
+              ("w_up.weight", p + "mlp.up_proj.weight"),
+              ("w_down.weight", p + "mlp.down_proj.weight")]
     if cfg.use_attention_bias:
         m += [("wq.bias", p + "self_attn.q_proj.bias"),
               ("wk.bias", p + "self_attn.k_proj.bias"),
@@ -221,6 +283,28 @@ def _llama_mapping(cfg: TransformerConfig) -> List[Tuple[str, str]]:
         m += [("q_norm.weight", p + "self_attn.q_norm.weight"),
               ("k_norm.weight", p + "self_attn.k_norm.weight")]
     return m
+
+
+def _moe_names(cfg: TransformerConfig) -> Dict[str, str]:
+    """HF name formats of an MoE layer's router and expert weights
+    (reference ``_moe_names:179``): Mixtral's ``block_sparse_moe`` with
+    ``w1`` (gate), ``w3`` (up), ``w2`` (down); every other family Qwen3-MoE's
+    ``mlp.gate`` and ``mlp.experts.{e}.*_proj``."""
+    p = "model.layers.{i}."
+    if cfg.hf_family == "mixtral":
+        q = p + "block_sparse_moe."
+        return {"router": q + "gate.weight",
+                "e_gate": q + "experts.{e}.w1.weight",
+                "e_up": q + "experts.{e}.w3.weight",
+                "e_down": q + "experts.{e}.w2.weight"}
+    q = p + "mlp."
+    return {"router": q + "gate.weight",
+            "e_gate": q + "experts.{e}.gate_proj.weight",
+            "e_up": q + "experts.{e}.up_proj.weight",
+            "e_down": q + "experts.{e}.down_proj.weight"}
+
+
+_EXPERT_KEYS = ("e_gate", "e_up", "e_down")
 
 
 def _top_mapping(cfg: TransformerConfig) -> List[Tuple[str, str]]:
@@ -277,6 +361,12 @@ def _llama_from_sd(sd: Mapping[str, torch.Tensor], cfg: TransformerConfig,
             if gemma and port in _GEMMA_NORMS:
                 t = _fold(t, 1.0, dtype)
             out[f"layers.{i}.{port}"] = t
+        if cfg.moe is not None:  # HF [out, in] per expert -> [E, in, out]
+            names = _moe_names(cfg)
+            for key in _EXPERT_KEYS:
+                out[f"layers.{i}.{key}"] = torch.stack([
+                    get(names[key].format(i=i, e=e)).T
+                    for e in range(cfg.moe.num_experts)])
     return out
 
 
@@ -297,6 +387,12 @@ def _llama_to_sd(params: Mapping[str, torch.Tensor],
         for port, hf in _llama_mapping(cfg):
             name = f"layers.{i}.{port}"
             sd[hf.format(i=i)] = put(name, params[name])
+        if cfg.moe is not None:
+            names = _moe_names(cfg)
+            for key in _EXPERT_KEYS:
+                stack = params[f"layers.{i}.{key}"].detach()
+                for e in range(cfg.moe.num_experts):
+                    sd[names[key].format(i=i, e=e)] = stack[e].T.contiguous()
     return sd
 
 
@@ -436,6 +532,19 @@ def hf_config_dict(cfg: TransformerConfig) -> Dict[str, Any]:
         d["hidden_activation"] = _hf_act(cfg)
     if cfg.sliding_window is not None:
         d["sliding_window"] = cfg.sliding_window
+    moe = cfg.moe
+    if moe is not None:  # reference hf.py:445-459
+        d["num_experts_per_tok"] = moe.top_k
+        d["router_aux_loss_coef"] = moe.aux_loss_coeff
+        if fam == "mixtral":
+            d["num_local_experts"] = moe.num_experts
+        else:
+            d["num_experts"] = moe.num_experts
+            d["moe_intermediate_size"] = (moe.routed_intermediate_dim
+                                          or cfg.intermediate_dim)
+            d["norm_topk_prob"] = moe.norm_topk_prob
+            d["decoder_sparse_step"] = 1
+            d["mlp_only_layers"] = []
     return d
 
 

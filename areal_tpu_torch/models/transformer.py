@@ -17,10 +17,12 @@ Supports GQA, rotate-half RoPE or a learned position table (GPT-2),
 RMSNorm or LayerNorm, gated or plain MLP, optional qk-norm and attention
 biases, scaled embeddings (Gemma), tied or untied embeddings, the critic's
 value head (``is_critic``: ``value_head [1, D]``, no bias, values ``[B, T]``
-in the compute dtype) and the training forward: no KV stack
-(``return_kv=False``), the final hidden instead of logits
-(``return_hidden=True``) and per-layer remat (``_maybe_checkpoint:385``).
-MoE and ring/pipeline parallelism wait for later slices.
+in the compute dtype), Mixture-of-Experts blocks (``models/moe.py``; the
+reference's ``_block:260-280``) with their balancing aux (``return_aux``)
+and the training forward: no KV stack (``return_kv=False``), the final
+hidden instead of logits (``return_hidden=True``) and per-layer remat
+(``_maybe_checkpoint:385``). Ring and pipeline parallelism, and the MoE
+expert-parallel path, wait for the multi-device slice.
 
 Learned positions differ from the reference in one respect, by design. The
 reference adds ``pos_embedding[positions]`` (``forward:430``), whose gather
@@ -47,6 +49,7 @@ from torch.utils.checkpoint import (
 )
 
 from areal_tpu_torch import resolve_device
+from areal_tpu_torch.models import moe as moemod
 from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.ops.attention import decode_attention, packed_attention
 
@@ -128,10 +131,17 @@ def _norm(cfg: TransformerConfig, dim: int, **factory) -> nn.Module:
 
 # ---------------- one block ----------------
 
+_MOE_KEYS = ("router", "e_gate", "e_up", "e_down", "s_gate", "s_up", "s_down")
+
+
 class Block(nn.Module):
     """One decoder layer. Parameter names follow the reference's layer keys
     (``wq``/``bq`` become ``wq.weight``/``wq.bias``, ``ln1`` becomes
-    ``ln1.weight``, ...)."""
+    ``ln1.weight``, ...). An MoE layer holds ``router.weight [E, D]``, the
+    expert stacks ``e_gate``/``e_up [E, D, F]`` and ``e_down [E, F, D]`` as
+    plain parameters in the reference's ``[in, out]`` layout, and the
+    optional shared expert ``s_gate``/``s_up``/``s_down`` as linears, in
+    place of the dense MLP."""
 
     def __init__(self, cfg: TransformerConfig, device=None, dtype=None):
         super().__init__()
@@ -148,7 +158,19 @@ class Block(nn.Module):
         if cfg.use_qk_norm:
             self.q_norm = RMSNorm(cfg.head_dim, cfg.rms_norm_eps, **f)
             self.k_norm = RMSNorm(cfg.head_dim, cfg.rms_norm_eps, **f)
-        if cfg.mlp_type == "plain":
+        if cfg.moe is not None:
+            moe = cfg.moe
+            E, fr = moe.num_experts, moe.routed_intermediate_dim or ff
+            self.router = nn.Linear(d, E, bias=False, **f)
+            self.e_gate = nn.Parameter(torch.empty(E, d, fr, **f))
+            self.e_up = nn.Parameter(torch.empty(E, d, fr, **f))
+            self.e_down = nn.Parameter(torch.empty(E, fr, d, **f))
+            if moe.shared_intermediate_dim:
+                fs = moe.shared_intermediate_dim
+                self.s_gate = nn.Linear(d, fs, bias=False, **f)
+                self.s_up = nn.Linear(d, fs, bias=False, **f)
+                self.s_down = nn.Linear(fs, d, bias=False, **f)
+        elif cfg.mlp_type == "plain":
             self.w_up = nn.Linear(d, ff, bias=True, **f)
             self.w_down = nn.Linear(ff, d, bias=True, **f)
         else:
@@ -168,7 +190,11 @@ class Block(nn.Module):
         cache_write_index,  # int slot, or [B] per-row slots
         kv_valid: Optional[torch.Tensor],
         attn_impl: str,
-    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        jitter_seed: Optional[int] = None,  # MoE router jitter (training)
+    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor],
+               Optional[Dict[str, torch.Tensor]]]:
+        """Returns (h, (k, v), aux): aux is the MoE layer's routing stats,
+        None for a dense layer."""
         cfg = self.cfg
         B, T, _ = h.shape
         dh = cfg.head_dim
@@ -214,11 +240,33 @@ class Block(nn.Module):
 
         h = h + self.wo(attn.reshape(B, T, cfg.q_dim))
         x = self.ln2(h)
-        if cfg.mlp_type == "plain":
+        aux = None
+        if cfg.moe is not None:
+            mlp, aux = self.moe(x, segment_ids, jitter_seed)
+        elif cfg.mlp_type == "plain":
             mlp = self.w_down(self.act(self.w_up(x)))
         else:
             mlp = self.w_down(self.act(self.w_gate(x)) * self.w_up(x))
-        return h + mlp, new_kv
+        return h + mlp, new_kv, aux
+
+    def moe(self, x: torch.Tensor, segment_ids: Optional[torch.Tensor],
+            jitter_seed: Optional[int] = None):
+        """The MoE MLP: pad tokens (segment 0) masked out in packed mode;
+        in cache mode (``segment_ids`` None) every row is routed, as the
+        reference does (see ROADMAP.md, Queue 3). The jitter's generator
+        is made here from its seed, so a remat recompute draws the same
+        noise."""
+        lp = {}
+        for key in _MOE_KEYS:
+            mod = getattr(self, key, None)
+            if mod is not None:
+                lp[key] = mod.weight if isinstance(mod, nn.Linear) else mod
+        rng = None
+        if jitter_seed is not None:
+            rng = torch.Generator(device=x.device).manual_seed(jitter_seed)
+        return moemod.moe_mlp(
+            x, lp, self.cfg.moe, rng=rng,
+            mask=None if segment_ids is None else segment_ids > 0)
 
 
 # ---------------- the model ----------------
@@ -226,8 +274,6 @@ class Block(nn.Module):
 class Transformer(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None, dtype=None):
         super().__init__()
-        if cfg.moe is not None:
-            raise NotImplementedError("not ported yet: moe")
         if cfg.pos_embedding not in ("rope", "learned"):
             raise ValueError(f"unknown pos_embedding {cfg.pos_embedding!r}")
         if cfg.pos_embedding == "learned" and not cfg.max_position_embeddings:
@@ -269,11 +315,22 @@ class Transformer(nn.Module):
         remat=False,  # False | True / "full" | "dots" (packed, no KV only)
         return_kv: bool = True,  # False in training: no per-layer K/V stack
         return_hidden: bool = False,  # skip the head; return final hidden
-    ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-        """Returns (output, kv): output is logits [B, T, V] (a critic's
-        values [B, T]; the final hidden [B, T, D] with ``return_hidden``); kv {"k", "v"} stacks per-layer
-        keys/values [n_layers, B, S, Hkv, Dh] (S = T in packed mode, the
-        cache length in decode mode), or is None with ``return_kv=False``.
+        return_aux: bool = False,  # also return the MoE aux
+        rng: Optional[torch.Generator] = None,  # MoE router jitter (train)
+    ):
+        """Returns (output, kv), or (output, kv, aux) with ``return_aux``:
+        output is logits [B, T, V] (a critic's values [B, T]; the final
+        hidden [B, T, D] with ``return_hidden``); kv {"k", "v"} stacks
+        per-layer keys/values [n_layers, B, S, Hkv, Dh] (S = T in packed
+        mode, the cache length in decode mode), or is None with
+        ``return_kv=False``; aux holds the MoE balancing stats
+        (``models/moe.py reduce_layer_aux``: ``aux_total`` summed over the
+        layers, the rest layer means), {} for a dense model.
+
+        ``rng`` draws the router jitter of an MoE model with
+        ``input_jitter_eps > 0`` on the training forward only (packed,
+        ``return_kv=False``), as in the reference: one seed per layer is
+        drawn from it first.
 
         Packed mode: ``segment_ids`` given, no cache — block-causal attention.
         Decode mode: ``kv_cache`` given — T new tokens are written at
@@ -296,21 +353,31 @@ class Transformer(nn.Module):
             cos = sin = None
         else:
             cos, sin = rope_tables(positions, cfg.head_dim, cfg.rotary_base)
-        ks, vs = [], []
+        seeds = [None] * cfg.n_layers
+        if (rng is not None and cfg.moe is not None
+                and cfg.moe.input_jitter_eps > 0 and not decode
+                and not return_kv):
+            seeds = torch.randint(0, 2 ** 62, (cfg.n_layers,), generator=rng,
+                                  device=rng.device).tolist()
+        ks, vs, auxes = [], [], []
         for i, layer in enumerate(self.layers):
             if remat:
-                h = _checkpointed_layer(layer, remat, h, cos, sin, segment_ids,
-                                        positions, attn_impl)
-                continue
-            cache = (kv_cache["k"][i], kv_cache["v"][i]) if decode else None
-            h, (k, v) = layer(
-                h, cos, sin, None if decode else segment_ids,
-                None if decode else positions, cache, cache_write_index,
-                kv_valid, attn_impl,
-            )
-            if return_kv and not decode:
-                ks.append(k)
-                vs.append(v)
+                h, aux = _checkpointed_layer(layer, remat, h, cos, sin,
+                                             segment_ids, positions,
+                                             attn_impl, seeds[i])
+            else:
+                cache = ((kv_cache["k"][i], kv_cache["v"][i]) if decode
+                         else None)
+                h, (k, v), aux = layer(
+                    h, cos, sin, None if decode else segment_ids,
+                    None if decode else positions, cache, cache_write_index,
+                    kv_valid, attn_impl, seeds[i],
+                )
+                if return_kv and not decode:
+                    ks.append(k)
+                    vs.append(v)
+            if aux is not None:
+                auxes.append(aux)
         h = self.final_ln(h)
         if decode:
             kv = kv_cache
@@ -318,7 +385,10 @@ class Transformer(nn.Module):
             kv = {"k": torch.stack(ks), "v": torch.stack(vs)}
         else:
             kv = None
-        return (h if return_hidden else self.apply_head(h)), kv
+        out = h if return_hidden else self.apply_head(h)
+        if return_aux:
+            return out, kv, moemod.reduce_layer_aux(auxes)
+        return out, kv
 
     def apply_head(self, h: torch.Tensor) -> torch.Tensor:
         """Final hidden → logits (tied embeddings or a separate head), or a
@@ -378,20 +448,21 @@ def _save_matmuls(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 
 def _checkpointed_layer(layer: Block, remat, h, cos, sin, segment_ids,
-                        positions, attn_impl) -> torch.Tensor:
-    """One layer under ``torch.utils.checkpoint``. Its parameters go in as
-    explicit inputs and are swapped back in for the recompute, so the
-    recompute sees the tensors the forward saw even when a caller ran the
-    forward through ``torch.func.functional_call`` (the train engine's
-    compute-dtype copies of its masters)."""
+                        positions, attn_impl, jitter_seed=None):
+    """One layer under ``torch.utils.checkpoint``; returns (h, aux). Its
+    parameters go in as explicit inputs and are swapped back in for the
+    recompute, so the recompute sees the tensors the forward saw even when a
+    caller ran the forward through ``torch.func.functional_call`` (the train
+    engine's compute-dtype copies of its masters)."""
     names, tensors = zip(*layer.named_parameters())
 
     def run(h, *tensors):
-        out, _ = torch.func.functional_call(
+        out, _, aux = torch.func.functional_call(
             layer, dict(zip(names, tensors)),
-            (h, cos, sin, segment_ids, positions, None, None, None, attn_impl),
+            (h, cos, sin, segment_ids, positions, None, None, None, attn_impl,
+             jitter_seed),
         )
-        return out
+        return out, aux
 
     kw = {}
     if remat == "dots":

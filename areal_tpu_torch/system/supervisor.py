@@ -440,26 +440,36 @@ class Supervisor:
 
     def _ask_exit(self, kind: str, secs: float) -> None:
         """Command every live worker of ``kind`` to exit and give them
-        ``secs`` in all to end. A worker that no longer answers (a drain
-        already told it to exit) gets the same window."""
+        ``secs`` in all to end. A worker that does not answer is asked
+        again while it lives and the window lasts: one still starting has
+        not registered its control endpoint yet (a dynamic server spawned
+        just before the run ended), and one a drain already told to exit
+        no longer answers (it ends within the window all the same)."""
         live = [e for e in self._entries.values()
                 if e.proc is not None and e.proc.is_alive()
                 and e.spec.kind == kind]
         if not live:
             return
+        deadline = time.monotonic() + secs
         try:
             from areal_tpu_torch.system.worker_base import WorkerControlPanel
 
             panel = WorkerControlPanel(self.experiment, self.trial,
                                        timeout=2.0)
             try:
-                for entry in live:
-                    panel.try_command(entry.spec.name, "exit")
+                pending = live
+                while True:
+                    pending = [
+                        e for e in pending if e.proc.is_alive()
+                        and not panel.try_command(e.spec.name,
+                                                  "exit").get("ok")]
+                    if not pending or time.monotonic() >= deadline:
+                        break
+                    time.sleep(0.2)
             finally:
                 panel.close()
         except Exception:  # noqa: BLE001 — terminate covers it
             pass
-        deadline = time.monotonic() + secs
         for entry in live:
             entry.proc.join(timeout=max(0.05, deadline - time.monotonic()))
 

@@ -450,7 +450,45 @@ Phases (any failed check raises, and the script exits non-zero):
      4096 tokens per micro-batch, with ms per step, trained tokens/s, the
      trainer's peak memory and K1-K3 per step (finite losses, grad norms >
      0, the launch counts); then one micro-batch through K1-K3 against the
-     plain attention on a fresh engine of all 18 layers, as in (y).
+     plain attention on a fresh engine of all 18 layers, as in (y);
+(aa) Mixture-of-Experts, every earlier engine gone: first K1 against its
+     plain version (as (b)) at Qwen3-30B-A3B's heads (B=8, T=1024, 32 q
+     over 4 kv heads of 128: G=8 at head_dim 128) and K2/K3 (as (f)) at
+     [2, 1792], timed against SDPA. Then Qwen3-30B-A3B at full width and
+     depth (48 layers, hidden 2048, 128 experts of 768, top-8; 56.9 GiB
+     of bf16 weights made on the card from seed 0) served as (y) (8
+     concurrent byte-token requests, a 16-token greedy request twice, K1
+     n_layers x the prefills). On the same model: the batch's prefill with
+     each layer's K1 output against the plain attention on that layer's own
+     q, k, v (tolerance one bf16 ulp at max|plain|: 2**(floor(log2 max) -
+     7); pad rows 0); the same prefill through the plain attention, whose
+     last logits and top-k expert choices are reported, not gated (near
+     ties of router probabilities flip under bf16 noise and 48 layers
+     carry them); the prefill's and a 4-step decode's drop fractions (the
+     reference's capacity rule: the decode routes all 8 rows, capacity
+     1); prefill and decode ms and the decode's device-idle share. Then
+     the MoE layer (1 x 4096 tokens, the last eighth padding, bf16 from a
+     seed) at Qwen3-30B-A3B's width, at Mixtral-8x7B's (8 experts of
+     14336 over hidden 4096, top-2) and at Qwen3's with capacity factor
+     0.5 (it must drop): the grouped dispatch against the einsum oracle,
+     forward and backward, within two bf16 ulps at each output's and
+     gradient's largest magnitude (2**-7 * max|ref|), keep masks and drop
+     fractions equal, pad rows of the output and of dx exactly 0. At the
+     first two widths the layer's time split (router and top-k, the sort
+     with its one host read, the permute, the three grouped GEMMs, the
+     combine; CUDA events, launches included) and the segment loop's
+     expert MLP against ``torch._grouped_mm`` on the same segments (a
+     yardstick the port never calls) at 4096 tokens and at 8 decode rows.
+     Then PPO actor steps as (g) at full width and 2 of the 48 layers
+     (1.87 B parameters; bench.py's batch, 8 micro-batches of [2, 1792]):
+     a warm-up and 3 timed steps; finite losses with ``moe_aux_total`` >
+     0, grad norms > 0, the router moved, finite ``moe_*`` stats, each
+     step's expert-load shares summing to 1, the ``train/moe_*`` gauges
+     (``moe_ep_engaged`` 0), K2 and K3 layers x micro-batches x steps and
+     K1 twice that, and one micro-batch through K1-K3 against the plain
+     attention as (h). Last, an HF directory of the 2-layer model in
+     ``Qwen3MoeForCausalLM``'s layout from seed 0 reads back through
+     ``load_hf_model`` with its config and every weight equal.
 
 The script exits 0 only when every phase passed and the last line is
 printed; any failed check raises and exits 1, as does a run where
@@ -799,13 +837,13 @@ def run_slice(fa, cfg, params, eos):
     return stats, launches, wall, prompts
 
 
-def time_breakdown(genmod, model, toks, lens, S, eos) -> dict:
+def time_breakdown(genmod, model, toks, lens, S, eos, steps: int = 16) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from areal_tpu_torch.api.model import GenerationHyperparameters
     from areal_tpu_torch.ops.sampling import sampling_from_gconfigs
 
-    B, dev, steps = toks.shape[0], toks.device, 16
+    B, dev = toks.shape[0], toks.device
     state = genmod.prefill_state(model, toks, lens, S)
     prefill_ms = cuda_ms(lambda: genmod.prefill_state(model, toks, lens, S),
                          iters=3, warmup=1)
@@ -5753,18 +5791,29 @@ def http_status(url: str, path: str, body: dict) -> tuple:
         return e.code, json.loads(e.read())
 
 
+FAMILY_LENS = (100, 231, 377, 456, 598, 640, 777, 900)
+
+
+def family_prompts(lens=FAMILY_LENS) -> list:
+    """The family phases' byte-token prompts, from seed 7."""
+    gen = torch.Generator().manual_seed(7)
+    return [torch.randint(0, 256, (n,), generator=gen).tolist() for n in lens]
+
+
 def serve_family(fa, cfg, params, eos: int, device: str = "cuda",
-                 lens=(100, 231, 377, 456, 598, 640, 777, 900),
+                 lens=FAMILY_LENS,
                  new_tokens=(64, 72, 80, 88, 96, 104, 112, 120),
-                 check_413: bool = False) -> dict:
+                 check_413: bool = False,
+                 compare_prefill: bool = True,
+                 greedy_tokens: int = 64) -> dict:
     """A family's serving checks: 8 concurrent requests of byte-token
     prompts behind a ``GenerationServer`` (greedy and sampled mixed, each
     its own budget in one chunk); with ``check_413`` one more request whose
     prompt plus budget passes the learned table answers 413 before any
-    prefill and the server stays healthy; the batch's last prefill logits
-    through K1 against the plain attention (5% of max|logit|); a greedy
-    request twice gives the same tokens; K1 launched n_layers x the
-    prefills."""
+    prefill and the server stays healthy; with ``compare_prefill`` the
+    batch's last prefill logits through K1 against the plain attention (5%
+    of max|logit|); a greedy request of ``greedy_tokens`` twice gives the
+    same tokens; K1 launched n_layers x the prefills."""
     from areal_tpu_torch.models import generate as genmod
     from areal_tpu_torch.models.transformer import Transformer
     from areal_tpu_torch.system.generation_server import (
@@ -5778,9 +5827,7 @@ def serve_family(fa, cfg, params, eos: int, device: str = "cuda",
                                pad_token_id=eos, batch_window_ms=20),
         cfg, params, device=device)
     url = server.start()
-    gen = torch.Generator().manual_seed(7)
-    prompts = [torch.randint(0, 256, (n,), generator=gen).tolist()
-               for n in lens]
+    prompts = family_prompts(lens)
     gconfigs = [{"greedy": True} if i % 2 == 0 else
                 {"temperature": 0.7 + 0.1 * i, "top_p": 0.9}
                 for i in range(len(prompts))]
@@ -5812,7 +5859,7 @@ def serve_family(fa, cfg, params, eos: int, device: str = "cuda",
                 check(json.loads(r.read())["ok"], "unhealthy after a 413")
             rec["past_table"] = {"status": code, **body}
         greedy = {"prompt_ids": prompts[3], "gconfig": {"greedy": True},
-                  "max_tokens": 64}
+                  "max_tokens": greedy_tokens}
         a, b = post(url, greedy), post(url, greedy)
         check(a["output_ids"] == b["output_ids"],
               f"{cfg.hf_family}: a repeated greedy request gave other tokens")
@@ -5830,6 +5877,8 @@ def serve_family(fa, cfg, params, eos: int, device: str = "cuda",
                    generated_tokens=stats["generated_tokens"], k1_launches=k1)
     finally:
         server.stop()
+    if not compare_prefill:
+        return rec
     # the batch's prefill through K1 against the plain attention
     model = Transformer.from_params(cfg, params)
     padded, plens = genmod.pad_prompts(prompts, eos, bucket=128)
@@ -6057,6 +6106,578 @@ def run_gemma(fa, tmp: str, device: str = "cuda", cfg=None, steps: int = 3,
     rec["launches"] = launches
     if cuda:
         torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------- (aa) Mixture-of-Experts: Qwen3-30B-A3B ----------------
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 numbers at magnitude ``x`` (8 significant
+    bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
+class RoutingRecorder:
+    """While on, every MoE layer call's top-k choices, its token count T and
+    its drop fraction (``models/moe.py``'s ``_routing`` and ``moe_mlp``
+    wrapped; both are looked up at call time), and every packed attention
+    call's K1 output against the plain attention on the same q, k, v (the
+    layer's own input hidden states): ``attention`` holds (max |err|, one
+    bf16 ulp at max |plain|, pad rows exactly 0, 2**-8 * max |plain|) per
+    layer. The ulp is the exact one, 2**(floor(log2 max) - 7): (b)'s
+    2**-8 * max is half of it when the maximum sits just above a power of
+    two, where K1's output rounding to bf16 alone can take half an ulp."""
+
+    def __init__(self, fa, compare_attention: bool = False):
+        from areal_tpu_torch.models import moe as moemod
+        from areal_tpu_torch.models import transformer as tmod
+
+        self.fa, self.moemod, self.tmod = fa, moemod, tmod
+        self.compare_attention = compare_attention
+        self.calls, self.attention = [], []
+
+    def __enter__(self):
+        mm, tm, fa = self.moemod, self.tmod, self.fa
+        self._saved = (mm._routing, mm.moe_mlp, tm.packed_attention)
+        routing, mlp, attention = self._saved
+
+        def rec_routing(*a, **kw):
+            out = routing(*a, **kw)
+            self.calls.append({"top_i": out[1]})
+            return out
+
+        def rec_mlp(x, *a, **kw):
+            y, aux = mlp(x, *a, **kw)
+            self.calls[-1].update(T=x.shape[1], dropped=aux["dropped_frac"])
+            return y, aux
+
+        def rec_attention(q, k, v, qs, ks, **kw):
+            out = attention(q, k, v, qs, ks, **kw)
+            ref, _ = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                              qs, ks)
+            top = ref.abs().max().item()
+            self.attention.append((
+                (out.float() - ref).abs().max().item(), bf16_ulp(top),
+                bool((out[qs == 0] == 0).all().item()), 2.0 ** -8 * top))
+            return out
+
+        mm._routing, mm.moe_mlp = rec_routing, rec_mlp
+        if self.compare_attention:
+            tm.packed_attention = rec_attention
+        return self
+
+    def __exit__(self, *exc):
+        mm, tm = self.moemod, self.tmod
+        mm._routing, mm.moe_mlp, tm.packed_attention = self._saved
+
+    def dropped(self, decode: bool) -> float:
+        d = [c["dropped"] for c in self.calls if (c["T"] == 1) == decode]
+        return float(torch.stack(d).float().mean()) if d else float("nan")
+
+
+def device_busy_ms(fn):
+    """Device ms of one call of ``fn``: the sum of its kernels' device time
+    (torch.profiler), launch gaps left out; None when the profiler saw no
+    device event (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e.device_time for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(dev) / 1e3 if dev else None
+
+
+def moe_layer_inputs(E: int, k: int, F: int, D: int, N: int, seed: int,
+                     device: str, cf: float = 2.0):
+    """One MoE layer in bf16 from ``seed`` (router and experts N(0, 0.02),
+    x N(0, 1) [1, N, D] with its last eighth padding) and its MoEConfig."""
+    from areal_tpu_torch.models.config import MoEConfig
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=0.02):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(
+            torch.bfloat16)
+
+    lp = {"router": rnd(E, D), "e_gate": rnd(E, D, F), "e_up": rnd(E, D, F),
+          "e_down": rnd(E, F, D)}
+    x = rnd(1, N, D, scale=1.0)
+    mask = (torch.arange(N, device=device) < N - N // 8)[None]
+    dy = rnd(1, N, D, scale=1.0)
+    moe = MoEConfig(num_experts=E, top_k=k, routed_intermediate_dim=F,
+                    capacity_factor=cf, aux_loss_coeff=1e-3)
+    return moe, lp, x, mask, dy
+
+
+def check_moe_layer(name: str, E: int, k: int, F: int, D: int, N: int,
+                    seed: int, device: str = "cuda", cf: float = 2.0) -> dict:
+    """The grouped dispatch against the einsum oracle on one layer, forward
+    and backward (cotangent ``dy`` on the output plus ``aux_total``):
+    output and every gradient within two bf16 ulps at the oracle's largest
+    magnitude (2**-7 * max|ref|), keep masks and drop fractions equal, pad
+    rows of the output and of dx exactly 0 (no shared expert)."""
+    from areal_tpu_torch.models import moe as moemod
+
+    moe, lp, x, mask, dy = moe_layer_inputs(E, k, F, D, N, seed, device, cf)
+    res = {}
+    for dispatch in ("grouped", "einsum"):
+        leaves = {"x": x.clone().requires_grad_(),
+                  **{key: t.clone().requires_grad_() for key, t in lp.items()}}
+        y, aux, keep = moemod.moe_mlp(
+            leaves["x"], {key: leaves[key] for key in lp}, moe, mask=mask,
+            dispatch=dispatch, return_keep=True)
+        loss = (y.float() * dy.float()).sum() + aux["aux_total"]
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        res[dispatch] = (y.detach(), dict(zip(leaves, grads)), keep,
+                         float(aux["dropped_frac"]))
+    (gy, gg, gkeep, gdrop), (ey, eg, ekeep, edrop) = (res["grouped"],
+                                                      res["einsum"])
+    pad = ~mask[0]
+    rec = {"case": name, "E": E, "top_k": k, "F": F, "D": D, "tokens": N,
+           "pad_tokens": int(pad.sum()), "capacity": moemod.capacity(N, moe),
+           "dropped_frac": gdrop}
+    errs = {"y": ((gy.float() - ey.float()).abs().max().item(),
+                  2.0 ** -7 * ey.float().abs().max().item())}
+    for key in gg:
+        errs["d" + key] = ((gg[key].float() - eg[key].float()).abs().max()
+                           .item(), 2.0 ** -7 * eg[key].float().abs().max()
+                           .item())
+    rec["max_abs_err_and_tol"] = errs
+    print(f"(aa) MoE layer {name}, grouped vs einsum", json.dumps(rec),
+          flush=True)
+    for key, (err, tol) in errs.items():
+        check(math.isfinite(err) and err <= tol,
+              f"(aa) {name}: grouped {key} disagrees with the einsum oracle: "
+              f"{rec}")
+    check(torch.equal(gkeep, ekeep) and gdrop == edrop,
+          f"(aa) {name}: keep masks or drop fractions differ: {rec}")
+    check(bool((gy[0][pad] == 0).all().item())
+          and bool((gg["x"][0][pad] == 0).all().item()),
+          f"(aa) {name}: pad rows of the output or of dx are not 0")
+    return rec
+
+
+def moe_layer_times(E: int, k: int, F: int, D: int, N: int, seed: int,
+                    decode_rows: int = 8) -> dict:
+    """Where one layer's forward time goes at ``N`` tokens (CUDA events
+    around each stage of the grouped dispatch, the host's launches and its
+    one read of the segment sizes included): router and top-k, the sort
+    (with the host read), the permute, the three grouped GEMMs, the
+    combine; the whole layer both ways. Then the segment loop's expert MLP
+    against ``torch._grouped_mm`` (a yardstick the port never calls) on the
+    same segments, at N tokens and at ``decode_rows`` rows, with the MLP's
+    device busy ms and its bound."""
+    from areal_tpu_torch.models import moe as moemod
+
+    moe, lp, x, mask, _ = moe_layer_inputs(E, k, F, D, N, seed, "cuda")
+    xf = x[0]
+    valid = mask[0].float()
+    C = moemod.capacity(N, moe)
+    rec = {"E": E, "top_k": k, "F": F, "D": D, "tokens": N}
+    with torch.no_grad():
+        top_p, top_i, _, _ = moemod._routing(xf, lp, moe, None, valid)
+        order, inv, sizes, keep = moemod.sort_entries(top_i, valid, E, C)
+        xs = moemod.permute_entries(xf, order, k)
+        ys = moemod.expert_mlp_grouped(xs, lp, sizes)
+        gate = top_p.reshape(-1)[order] * keep
+        rec["stages_ms"] = {
+            "router_topk": cuda_ms(lambda: moemod._routing(
+                xf, lp, moe, None, valid), iters=10),
+            "sort_and_host_read": cuda_ms(lambda: moemod.sort_entries(
+                top_i, valid, E, C), iters=10),
+            "permute": cuda_ms(lambda: moemod.permute_entries(xf, order, k),
+                               iters=10),
+            "grouped_gemms": cuda_ms(lambda: moemod.expert_mlp_grouped(
+                xs, lp, sizes), iters=10),
+            "combine": cuda_ms(lambda: moemod.combine_entries(
+                ys, gate, inv, k), iters=10),
+        }
+        rec["layer_ms"] = {d: cuda_ms(lambda d=d: moemod.moe_mlp(
+            x, lp, moe, mask=mask, dispatch=d), iters=5) for d in
+            ("grouped", "einsum")}
+        rec["yardstick"] = {"prefill": grouped_mm_yardstick(
+            moemod, lp, xs, sizes)}
+        # the decode shape: the first rows routed alone, every row valid
+        rows = xf[:decode_rows]
+        d_p, d_i, _, _ = moemod._routing(
+            rows, lp, moe, None, torch.ones(decode_rows, device="cuda"))
+        d_order, _, d_sizes, _ = moemod.sort_entries(
+            d_i, torch.ones(decode_rows, device="cuda"), E,
+            moemod.capacity(decode_rows, moe))
+        rec["yardstick"]["decode"] = grouped_mm_yardstick(
+            moemod, lp, moemod.permute_entries(rows, d_order, k), d_sizes)
+    return rec
+
+
+def grouped_mm_yardstick(moemod, lp, xs, sizes) -> dict:
+    """The segment loop's three-GEMM expert MLP against the same MLP through
+    ``torch._grouped_mm`` (2-D x 3-D with ``offs``; the weights laid out
+    column-major, the rows past the last segment left out) on the same
+    segments: ms of each (CUDA events, launches included), the loop's device
+    busy ms, the bound of the work (the used rows' FLOPs at the bf16 peak,
+    the non-empty experts' weights plus rows in and out over the memory
+    rate) and the outputs' largest difference. A library error is
+    reported, not raised: the port does not call it."""
+    used = sum(sizes)
+    D, F = lp["e_gate"].shape[1:]
+    active = sum(1 for n in sizes if n)
+    flops = 2 * used * D * F * 3
+    nbytes = 2 * (3 * active * D * F + 2 * used * D + 2 * used * F)
+    rec = {"rows": used, "segments": active,
+           "loop_ms": cuda_ms(lambda: moemod.expert_mlp_grouped(xs, lp, sizes),
+                              iters=10),
+           "loop_device_ms": device_busy_ms(
+               lambda: moemod.expert_mlp_grouped(xs, lp, sizes)),
+           **bound(flops, nbytes)}
+    try:
+        offs = torch.cumsum(torch.tensor(sizes, device=xs.device), 0).to(
+            torch.int32)
+        cm = {key: lp[key].transpose(1, 2).contiguous().transpose(1, 2)
+              for key in ("e_gate", "e_up", "e_down")}
+        xu = xs[:used]
+
+        def lib():
+            h = torch.nn.functional.silu(torch._grouped_mm(
+                xu, cm["e_gate"], offs=offs)) * torch._grouped_mm(
+                xu, cm["e_up"], offs=offs)
+            return torch._grouped_mm(h, cm["e_down"], offs=offs)
+
+        rec["library_ms"] = cuda_ms(lib, iters=10)
+        rec["library_device_ms"] = device_busy_ms(lib)
+        rec["library_max_abs_diff"] = (
+            lib().float() - moemod.expert_mlp_grouped(xs, lp, sizes)[:used]
+            .float()).abs().max().item()
+    except (RuntimeError, AttributeError, TypeError) as e:
+        rec["library_ms"] = None
+        rec["library_error"] = f"{type(e).__name__}: {e}"[:300]
+    return rec
+
+
+def serve_moe(fa, cfg, params, eos: int, device: str = "cuda") -> dict:
+    """(aa) 1-2: the family's serving checks (:func:`serve_family`, no
+    whole-prefill gate), then on the same model the batch's prefill with
+    each layer's K1 against the plain attention on that layer's own q, k, v
+    (one bf16 ulp at max|plain|, pad rows 0), the same prefill through the
+    plain attention (the last logits' difference and the share of top-k
+    expert choices the two runs agree on, reported, not gated: near-tied
+    router probabilities flip under bf16 noise), the prefill's and the
+    decode's drop fractions (the reference's capacity rule; decode routes
+    every row of the batch), and where the time goes (prefill, decode
+    steps and the decode's device-idle share)."""
+    from areal_tpu_torch.models import generate as genmod
+    from areal_tpu_torch.models.transformer import Transformer
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    # the repeated greedy request is 16 tokens: decode runs ~0.24 s a step
+    # here (PERF.md), and repeatability shows in 16 as in 64
+    rec = {"serve": serve_family(fa, cfg, params, eos, device,
+                                 compare_prefill=False, greedy_tokens=16)}
+    if cuda:
+        rec["serve"]["server_peak_gb"] = (
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+    model = Transformer.from_params(cfg, params)
+    padded, plens = genmod.pad_prompts(family_prompts(), eos, bucket=128)
+    toks = torch.from_numpy(padded).to(device)
+    lens = torch.from_numpy(plens).to(device)
+    S = padded.shape[1] + 128
+    with RoutingRecorder(fa, compare_attention=True) as k1:
+        got = genmod.prefill_state(model, toks, lens, S)
+    with RoutingRecorder(fa) as plain:
+        ref = genmod.prefill_state(model, toks, lens, S,
+                                   attn_impl="reference")["last_logits"]
+    errs = k1.attention
+    worst = max(range(len(errs)), key=lambda i: errs[i][0] / errs[i][1])
+    agree = [(a["top_i"] == b["top_i"]).float().mean().item()
+             for a, b in zip(k1.calls, plain.calls)]
+    last = got["last_logits"]
+    diff = (last - ref).abs().max().item()
+    rec["k1_by_layer"] = {
+        "layers": len(errs), "shape": list(padded.shape),
+        "worst_layer": worst, "worst_max_abs_err": errs[worst][0],
+        "worst_tol_ulp": errs[worst][1],
+        "max_err_over_ulp": errs[worst][0] / errs[worst][1],
+        "max_err_over_2e-8_max": max(e[0] / e[3] for e in errs)}
+    rec["prefill_k1_vs_plain"] = {
+        "last_logits_max_abs_err": diff,
+        "max_abs_ref": ref.abs().max().item(),
+        "argmax_agree": (last.argmax(-1) == ref.argmax(-1)).float().mean()
+        .item(),
+        "top_i_agree_mean": sum(agree) / len(agree),
+        "top_i_agree_min_layer": min(agree)}
+    print("(aa) K1 layer by layer and the whole prefill", json.dumps(
+        {k: rec[k] for k in ("k1_by_layer", "prefill_k1_vs_plain")}),
+        flush=True)
+    check(len(errs) == cfg.n_layers, f"(aa): {len(errs)} layers compared")
+    check(all(e[2] for e in errs), "(aa): K1 pad rows not 0")
+    if cuda:  # on the CPU the layers run the bf16 reference attention
+        check(all(e[0] <= e[1] for e in errs),
+              f"(aa): K1 disagrees with the plain attention at layer {worst}: "
+              f"{rec['k1_by_layer']}")
+    check(bool(torch.isfinite(last).all())
+          and tuple(last.shape) == (len(plens), cfg.vocab_size),
+          "(aa): prefill logits not finite / wrong shape")
+    del got, ref, last
+    rec["prefill_dropped_frac"] = k1.dropped(decode=False)
+    from areal_tpu_torch.api.model import GenerationHyperparameters
+    from areal_tpu_torch.ops.sampling import sampling_from_gconfigs
+
+    state = genmod.prefill_state(model, toks, lens, S)
+    with RoutingRecorder(fa) as dec:
+        genmod.decode_chunk_rows(
+            model, state, torch.zeros(len(plens), dtype=torch.int32,
+                                      device=device),
+            torch.Generator(device=device).manual_seed(0),
+            sampling_from_gconfigs([GenerationHyperparameters(greedy=True)]
+                                   * len(plens), device=device),
+            4, eos, eos)
+    del state
+    rec["decode_dropped_frac"] = dec.dropped(decode=True)
+    rec["decode_capacity"] = math.ceil(
+        cfg.moe.top_k * len(plens) * cfg.moe.capacity_factor
+        / cfg.moe.num_experts)
+    if cuda:
+        rec["breakdown"] = time_breakdown(genmod, model, toks, lens, S, eos,
+                                          steps=4)
+    return rec
+
+
+def run_moe_train(fa, cfg, device: str = "cuda", steps: int = 3,
+                  batch=None, spec=None) -> dict:
+    """(aa) 4: PPO actor train steps as in (g) (bench.py's backend and
+    recipe) on ``cfg``: one warm-up step and ``steps`` timed ones. Checks
+    finite losses with ``moe_aux_total`` finite and > 0, grad norms > 0, the
+    router moved, finite ``moe_*`` stats, the expert-load shares of each
+    step summing to 1, the ``train/moe_*`` gauges set (``moe_ep_engaged``
+    0), K2 and K3 launched layers x micro-batches x steps and K1 twice
+    that; then one micro-batch through K1-K3 against the plain attention
+    (:func:`compare_attention_impls`)."""
+    from areal_tpu_torch.algorithms.ppo import (
+        PPOActorInterface,
+        PPOHyperparameters,
+    )
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.base import telemetry
+    from areal_tpu_torch.models.transformer import init_params
+
+    cuda = torch.device(device).type == "cuda"
+    batch = batch or bench_batch(cfg.vocab_size)
+    spec = spec or MicroBatchSpec(max_tokens_per_mb=4096)
+    params = init_params(cfg, seed=0, device=device, dtype=torch.bfloat16)
+    model = make_model("actor", cfg, params, device=device)
+    del params
+    iface = PPOActorInterface(PPOHyperparameters(
+        ppo_n_minibatches=1, adv_norm=True, kl_ctl=0.0, disable_value=True))
+    eng = model.module
+    n_mbs = n_micro_batches(eng, batch, spec)
+    gauges, shares = {}, []
+    saved = telemetry.set_gauge, telemetry.observe
+
+    def set_gauge(name, v):
+        gauges[name] = v
+        saved[0](name, v)
+
+    def observe(name, v, buckets=None):
+        if name == "train/moe_expert_load_dist":
+            shares.append(v)
+        saved[1](name, v, buckets)
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    telemetry.set_gauge, telemetry.observe = set_gauge, observe
+    try:
+        t0 = time.perf_counter()
+        warm = iface.train_step(model, batch, spec)
+        if cuda:
+            torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        router = "layers.0.router.weight"
+        before = eng.params[router].detach().clone()
+        shares.clear()
+        fa.reset_launch_count()
+        stats = []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            stats.append(iface.train_step(model, batch, spec))
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fa.launch_counts()
+    finally:
+        telemetry.set_gauge, telemetry.observe = saved
+    tokens = int(batch.total_lens().sum())
+    moe_keys = ("moe_aux_total", "moe_load_balance_loss", "moe_z_loss",
+                "moe_dropped_frac", "moe_expert_load_ratio")
+    rec = {"n_layers": cfg.n_layers, "n_mbs": n_mbs, "steps": steps,
+           "tokens_per_step": tokens, "warmup_step_s": warm_s,
+           "ms_per_step": 1e3 * wall / steps,
+           "trained_tokens_per_s": steps * tokens / wall,
+           "peak_gb": (torch.cuda.max_memory_allocated() / 2 ** 30
+                       if cuda else None),
+           "loss": [s["actor_loss"] for s in stats],
+           "grad_norm": [s["grad_norm"] for s in stats],
+           "moe": [{k: s[k] for k in moe_keys} for s in stats],
+           "warmup_loss": warm["actor_loss"],
+           "router_max_abs_change": (eng.params[router].detach()
+                                     - before).abs().max().item(),
+           "expert_load_share_sums": [
+               sum(shares[i * cfg.moe.num_experts:(i + 1)
+                          * cfg.moe.num_experts]) for i in range(steps)],
+           "gauges": {k: v for k, v in gauges.items()
+                      if k.startswith("train/moe_")},
+           "launches": launches}
+    for s in stats:
+        check(math.isfinite(s["actor_loss"]) and math.isfinite(s["grad_norm"])
+              and s["grad_norm"] > 0, f"(aa) train: bad stats {s}")
+        check(all(math.isfinite(s[k]) for k in moe_keys)
+              and s["moe_aux_total"] > 0, f"(aa) train: moe stats {s}")
+    check(rec["router_max_abs_change"] > 0,
+          "(aa) train: the router did not move")
+    check(len(shares) == steps * cfg.moe.num_experts
+          and all(abs(x - 1) < 1e-3 for x in rec["expert_load_share_sums"]),
+          f"(aa) train: expert-load shares {rec['expert_load_share_sums']}")
+    check(gauges.get("train/moe_ep_engaged") == 0.0
+          and "train/moe_dropped_frac" in gauges
+          and "train/moe_expert_load_ratio" in gauges,
+          f"(aa) train: gauges {gauges}")
+    if cuda:
+        check_launches("(aa) train", launches, n_mbs * steps, cfg.n_layers,
+                       train=True)
+    rec["compare"] = compare_attention_impls(model, iface, batch, spec)
+    del model, eng
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def safetensors_names(hf_dir: str) -> set:
+    """The tensor names of an HF safetensors directory, from the index or
+    the single file's header (8-byte length, then its JSON)."""
+    index = os.path.join(hf_dir, "model.safetensors.index.json")
+    if os.path.exists(index):
+        with open(index) as f:
+            return set(json.load(f)["weight_map"])
+    with open(os.path.join(hf_dir, "model.safetensors"), "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        return set(json.loads(f.read(n))) - {"__metadata__"}
+
+
+def run_moe_hf(cfg, tmp: str, device: str = "cuda") -> dict:
+    """(aa) 5: an HF directory of ``cfg`` in Qwen3MoeForCausalLM's layout
+    (per-expert ``mlp.experts.{e}.*_proj`` weights, the ``mlp.gate``
+    router; bf16) from seed 0, read back through ``load_hf_model``: the
+    config as written and every weight equal."""
+    from areal_tpu_torch.models import hf
+    from areal_tpu_torch.models.transformer import init_params
+
+    hf_dir = os.path.join(tmp, "qwen3_moe_hf")
+    t0 = time.monotonic()
+    written = init_params(cfg, seed=0, device=device, dtype=torch.bfloat16)
+    nbytes = hf.save_hf_checkpoint(written, cfg, hf_dir)
+    t_write = time.monotonic() - t0
+    with open(os.path.join(hf_dir, "config.json")) as f:
+        hf_cfg = json.load(f)
+    last = cfg.moe.num_experts - 1
+    names = safetensors_names(hf_dir)
+    check(hf_cfg["architectures"] == ["Qwen3MoeForCausalLM"]
+          and f"model.layers.0.mlp.experts.{last}.down_proj.weight" in names
+          and "model.layers.0.mlp.gate.weight" in names
+          and "model.layers.0.mlp.gate_proj.weight" not in names,
+          f"(aa): not Qwen3-MoE's layout: {sorted(names)[:6]}")
+    t0 = time.monotonic()
+    lcfg, params = hf.load_hf_model(hf_dir, device=device)
+    t_read = time.monotonic() - t0
+    check(dataclasses.replace(lcfg, dtype=cfg.dtype) == cfg,
+          f"(aa): config read back as {lcfg}")
+    check(set(params) == set(written)
+          and all(torch.equal(params[k], v.float())
+                  for k, v in written.items()),
+          "(aa): weights read back differ")
+    return {"bytes": nbytes, "tensors": len(names), "write_s": t_write,
+            "read_s": t_read}
+
+
+def run_moe(fa, tmp: str, device: str = "cuda", cfg=None,
+            train_layers: int = 2, layer_tokens: int = 4096,
+            train_batch=None, train_spec=None, eos: int = 151645) -> dict:
+    """(aa): Qwen3-30B-A3B (``cfg``, default the full published geometry)
+    served at full width and depth with weights from seed 0 in bf16
+    (:func:`serve_moe`); the MoE layer's grouped dispatch against its einsum
+    oracle at Qwen3-30B-A3B's and Mixtral-8x7B's widths (and a dropping
+    capacity factor) with the layer's time split and the
+    ``torch._grouped_mm`` yardstick; PPO actor steps at full width and
+    ``train_layers`` layers (:func:`run_moe_train`); the HF round trip of
+    that model (:func:`run_moe_hf`)."""
+    from areal_tpu_torch.models.config import qwen3_30b_a3b
+    from areal_tpu_torch.models.transformer import init_params
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = cfg or qwen3_30b_a3b()  # eos: Qwen3's <|im_end|>
+    rec = {"config": {"n_layers": cfg.n_layers, "hidden": cfg.hidden_dim,
+                      "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+                      "expert_ffn": cfg.moe.routed_intermediate_dim}}
+    if cuda:
+        free, total = torch.cuda.mem_get_info()
+        rec["card_free_gb_before_build"] = free / 2 ** 30
+        print(f"(aa) card memory before the build: {free / 2 ** 30:.2f} of "
+              f"{total / 2 ** 30:.2f} GiB free", flush=True)
+    t0 = time.monotonic()
+    params = init_params(cfg, seed=0, device=device, dtype=torch.bfloat16)
+    if cuda:
+        torch.cuda.synchronize()
+    rec["build_s"] = time.monotonic() - t0
+    stage_s = rec["stage_s"] = {}
+    rec["weights_gib"] = sum(t.numel() * t.element_size()
+                             for t in params.values()) / 2 ** 30
+    rec["serve"] = serve_moe(fa, cfg, params, eos, device)
+    stage_s["serve"] = time.monotonic() - t0
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+    print("(aa) serve", json.dumps(rec["serve"]), flush=True)
+    moe = cfg.moe
+    F = moe.routed_intermediate_dim or cfg.intermediate_dim
+    layers = [("qwen3_30b_a3b", moe.num_experts, moe.top_k, F, cfg.hidden_dim,
+               2.0), ("mixtral_8x7b", 8, 2, 14336, 4096, 2.0),
+              ("qwen3_30b_a3b_drops", moe.num_experts, moe.top_k, F,
+               cfg.hidden_dim, 0.5)]
+    t0 = time.monotonic()
+    if not cuda:  # the rehearsal: the same checks at the config's width
+        layers = [(n, E, k, F, cfg.hidden_dim, cf)
+                  for n, E, k, _, _, cf in layers[::2]]
+    rec["layer_checks"] = [
+        check_moe_layer(n, E, k, f, d, layer_tokens, seed=40 + i,
+                        device=device, cf=cf)
+        for i, (n, E, k, f, d, cf) in enumerate(layers)]
+    check(rec["layer_checks"][-1]["dropped_frac"] > 0,
+          "(aa): the dropping case dropped nothing")
+    if cuda:
+        rec["layer_times"] = [moe_layer_times(E, k, f, d, layer_tokens,
+                                              seed=40 + i)
+                              for i, (_, E, k, f, d, _) in
+                              enumerate(layers[:2])]
+        print("(aa) MoE layer times", json.dumps(rec["layer_times"]),
+              flush=True)
+        torch.cuda.empty_cache()
+    stage_s["layer"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    train_cfg = dataclasses.replace(cfg, n_layers=train_layers)
+    rec["train"] = run_moe_train(fa, train_cfg, device, batch=train_batch,
+                                 spec=train_spec)
+    print("(aa) train", json.dumps(rec["train"]), flush=True)
+    stage_s["train"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    rec["hf"] = run_moe_hf(train_cfg, tmp, device)
+    stage_s["hf"] = time.monotonic() - t0
+    launches = dict(rec["train"]["launches"])
+    launches["flash_attention_fwd"] += rec["serve"]["serve"]["k1_launches"]
+    rec["launches"] = launches
     return rec
 
 
@@ -6419,12 +7040,42 @@ def main() -> None:
         **{k: v for k, v in gemma.items() if k != "sft"},
         "phase_z_s": time.monotonic() - t_z,
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+
+    # (aa) Mixture-of-Experts: K1-K3 at Qwen3-30B-A3B's heads (32 q over 4
+    # kv heads of 128), then the model served at full width and depth, the
+    # MoE layer, PPO steps at 2 layers and the HF round trip
+    t_aa = time.monotonic()
+    k1_128_check = check_k1(fa, 8, 1024, 32, 4, 128, seed=6)
+    timing_128 = k1_record(fa, 8, 1024, Hq=32, Hkv=4, D=128)
+    bwd_128_check = check_bwd(fa, 2, 1792, 32, 4, 128, seed=5)
+    bwd_timing_128 = bwd_records(fa, B=2, T=1792, Hq=32, Hkv=4, D=128)
+    print("K1-K3 at 32/4 heads of 128", json.dumps(
+        [timing_128, bwd_timing_128]), f"({card})", flush=True)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    try:
+        moe = run_moe(fa, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("(aa) qwen3 30b a3b", json.dumps({
+        **{k: moe[k] for k in ("config", "card_free_gb_before_build",
+                               "build_s", "stage_s", "weights_gib",
+                               "launches")},
+        "serve": {k: v for k, v in moe["serve"].items()
+                  if k in ("prefill_dropped_frac", "decode_dropped_frac",
+                           "decode_capacity", "breakdown")},
+        "server": moe["serve"]["serve"],
+        "train": {k: moe["train"][k] for k in (
+            "ms_per_step", "trained_tokens_per_s", "peak_gb",
+            "warmup_step_s")},
+        "hf": moe["hf"], "phase_aa_s": time.monotonic() - t_aa,
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
     print("phase seconds", json.dumps({
         "a_to_n": t_async - t_start, "o": t_q - t_async,
         "q1_q2": t_obs - t_q, "q3_p": t_r - t_obs,
         "r": t_s - t_r, "s": t_t - t_s, "t": t_u - t_t, "u": t_v - t_u,
         "v": t_w - t_v, "w": t_x - t_w, "x": t_y - t_x, "y": t_z - t_y,
-        "z": time.monotonic() - t_z,
+        "z": t_aa - t_z, "aa": time.monotonic() - t_aa,
         "script": time.monotonic() - t_start}), flush=True)
 
     lib_line = ("areal_tpu/ops/pallas/flash_attention.py:200 backward: the "
@@ -6449,17 +7100,20 @@ def main() -> None:
         sft_eval["eval_child_k1"].values())
     k1_paths["sft_auto_eval"] -= k1_paths["sft_auto_eval_children"]
     gemma_launches = gemma["launches"]
+    moe_launches = moe["launches"]
     sources = {"fwd": "areal_tpu_torch/ops/csrc/flash_attention.cu",
                "bwd": "areal_tpu_torch/ops/csrc/flash_attention_bwd.cu"}
     kernels = []
-    for D, launches_by_path, k1_rec, bwd_rec, k1_t, bwd_t in (
-            (64, None, k1_train_check, bwd_train_check, timing_train,
+    for D, path, launches_by_path, k1_rec, bwd_rec, k1_t, bwd_t in (
+            (64, None, None, k1_train_check, bwd_train_check, timing_train,
              bwd_timing),
-            (256, gemma_launches, k1_256_check, bwd_256_check, timing_256,
-             bwd_timing_256)):
+            (256, "gemma", gemma_launches, k1_256_check, bwd_256_check,
+             timing_256, bwd_timing_256),
+            (128, "qwen3_moe", moe_launches, k1_128_check, bwd_128_check,
+             timing_128, bwd_timing_128)):
         tag = "" if D == 64 else f" (head_dim {D})"
         k1_by = k1_paths if D == 64 else {
-            "gemma": launches_by_path["flash_attention_fwd"]}
+            path: launches_by_path["flash_attention_fwd"]}
         kernels.append({
             "name": "flash_attention_fwd" + tag, "route": "cuda",
             "source": sources["fwd"],
@@ -6479,7 +7133,7 @@ def main() -> None:
                  1456, bwd_rec["dq_max_abs_err"])):
             rec = bwd_t[name]
             by = ({k: v[name] for k, v in paths.items()} if D == 64
-                  else {"gemma": launches_by_path[name]})
+                  else {path: launches_by_path[name]})
             kernels.append({
                 "name": name + tag, "route": "cuda", "source": sources["bwd"],
                 "replaces": lib_line.format(fn, line, call),

@@ -255,15 +255,16 @@ def test_config_from_hf_defaults_match_the_reference(family, left_out):
 
 
 def test_unported_families_raise():
-    """MoE's HF layout is not ported yet and raises. GPT-2's and Gemma's
-    are: their config.json dicts equal the reference's and read back, in
-    both packages, to the config they came from."""
-    cfg = tconfig.tiny_config(hf_family="qwen2",
-                              moe=dict(num_experts=4, top_k=2))
+    """Mixtral's and Qwen3-MoE's HF layouts are ported: their config.json
+    dicts equal the reference's and read back, in both packages, to the
+    config they came from, as GPT-2's and Gemma's do. A shared expert has
+    no HF layout and raises; so does a family the port does not know."""
+    with pytest.raises(NotImplementedError, match="shared expert"):
+        thf.hf_config_dict(tconfig.tiny_config(
+            hf_family="qwen3_moe", moe=dict(num_experts=4, top_k=2,
+                                            shared_intermediate_dim=8)))
     with pytest.raises(NotImplementedError):
-        thf.hf_config_dict(cfg)
-    with pytest.raises(NotImplementedError):
-        thf.config_from_hf({"model_type": "mixtral"})
+        thf.config_from_hf({"model_type": "falcon"})
     import transformers
 
     from areal_tpu.models import config as jconfig
@@ -274,7 +275,13 @@ def test_unported_families_raise():
                     pos_embedding="learned", max_position_embeddings=64,
                     tie_word_embeddings=True, rms_norm_eps=1e-5),
                dict(hf_family="gemma", n_kv_heads=1, hidden_act="gelu_tanh",
-                    scale_embeddings=True, tie_word_embeddings=True)):
+                    scale_embeddings=True, tie_word_embeddings=True),
+               dict(hf_family="mixtral", sliding_window=24,
+                    moe=dict(num_experts=4, top_k=2, aux_loss_coeff=0.02)),
+               dict(hf_family="qwen3_moe", use_qk_norm=True,
+                    moe=dict(num_experts=8, top_k=2,
+                             routed_intermediate_dim=16,
+                             norm_topk_prob=False))):
         cfg = tconfig.tiny_config(**kw)
         d = thf.hf_config_dict(cfg)
         assert d == jhf.hf_config_dict(jconfig.tiny_config(**kw))

@@ -37,6 +37,13 @@ CONFIGS = {
     "gemma": dict(hf_family="gemma", n_kv_heads=1, head_dim=16,
                   hidden_act="gelu_tanh", scale_embeddings=True,
                   tie_word_embeddings=True),
+    # MoE (Qwen3-MoE's kind): qk-norm, 4 experts of top-2 at a capacity
+    # factor that drops, a shared expert, the z-loss on
+    "moe": dict(hf_family="qwen3_moe", use_qk_norm=True,
+                moe=dict(num_experts=4, top_k=2, capacity_factor=1.0,
+                         routed_intermediate_dim=24,
+                         shared_intermediate_dim=16, aux_loss_coeff=1e-2,
+                         z_loss_coeff=1e-3)),
 }
 NORM_SCALES = {"ln1", "ln2", "final_ln", "q_norm", "k_norm"}
 
@@ -163,13 +170,35 @@ def test_qwen2_5_0_5b_geometry():
 
 
 def test_unported_features_raise():
-    """MoE still raises (the critic head is ported:
-    tests/test_torch_critic.py); learned positions are ported: the table is
-    a parameter and a forward through it equals the reference's; a
-    parameter with no port counterpart is a KeyError."""
-    with pytest.raises(NotImplementedError):
-        Transformer(tconfig.tiny_config(moe=dict(num_experts=4, top_k=2)),
-                    device="meta")
+    """MoE is ported: a tiny MoE model builds, its parameters are the
+    reference's layer keys (router, expert stacks, shared expert; no dense
+    MLP), and its packed forward with the aux equals the reference's. The
+    critic head is ported (tests/test_torch_critic.py); learned positions
+    are ported: the table is a parameter and a forward through it equals
+    the reference's; a parameter with no port counterpart is a KeyError."""
+    jcfg, tcfg, flat, model = make_model("moe", seed=7)
+    names = set(model.state_dict())
+    assert {"layers.0.router.weight", "layers.0.e_gate", "layers.0.e_up",
+            "layers.0.e_down", "layers.1.s_down.weight"} <= names
+    assert not any("w_gate" in n or "w_up" in n for n in names)
+    assert tuple(model.layers[0].e_down.shape) == (4, 24, 32)
+    tokens = np.random.RandomState(7).randint(0, 97, (2, 16)).astype(np.int32)
+    pos = np.broadcast_to(np.arange(16, dtype=np.int32), (2, 16))
+    seg = np.ones((2, 16), np.int32)
+    seg[1, 12:] = 0
+    jl, _, jaux = jtf.forward(_jparams(flat), jcfg, jnp.asarray(tokens),
+                              jnp.asarray(pos), segment_ids=jnp.asarray(seg),
+                              return_aux=True)
+    with torch.no_grad():
+        tl, _, taux = model(torch.from_numpy(tokens),
+                            torch.from_numpy(pos.copy()),
+                            segment_ids=torch.from_numpy(seg),
+                            return_aux=True)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
+    assert set(taux) == set(jaux)
+    for key, v in jaux.items():
+        np.testing.assert_allclose(taux[key].numpy(), np.asarray(v),
+                                   atol=1e-5, err_msg=key)
     jcfg, tcfg, flat, model = make_model("gpt2", seed=5)
     assert tuple(model.pos_embedding.weight.shape) == (32, 32)
     tokens = np.random.RandomState(5).randint(0, 97, (1, 32)).astype(np.int32)
@@ -181,5 +210,5 @@ def test_unported_features_raise():
                       segment_ids=torch.ones(1, 32, dtype=torch.int32))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
     with pytest.raises(KeyError):
-        params_from_jax({"layers/router": np.zeros((2, 32, 4), np.float32)},
+        params_from_jax({"layers/w_lora": np.zeros((2, 32, 4), np.float32)},
                         tconfig.tiny_config(), device="cpu")

@@ -53,9 +53,8 @@ OBSERVE = ("telemetry.enabled=true", "telemetry.flush_interval_secs=0.5",
 
 # Families only the reference's scrape has, by the piece they wait for.
 NOT_PORTED = {
-    # meshes and MoE
-    "areal_train_moe_ep_engaged", "areal_train_pp_engaged",
-    "areal_train_ring_engaged",
+    # meshes
+    "areal_train_pp_engaged", "areal_train_ring_engaged",
 }
 # Families only the port's scrape has: the server's per-leg upload time of
 # a stream update (absent here: disk sync), nothing else.

@@ -695,3 +695,49 @@ def test_respawned_rollout_worker_returns_its_predecessors_quota():
     assert t2.running_rollouts == 16 and t2.reclaimed_samples == 32
     t2.finish_rollout({"accepted": True, "n_samples": 16, **who2})
     assert t2.running_rollouts == 0 and t2.accepted_rollouts == 32
+
+
+_LATE_WORKER = """
+import sys, time
+sys.path.insert(0, sys.argv[1])
+time.sleep(3.0)  # longer than the shutdown panel's 2 s lookup
+from areal_tpu_torch.base import name_resolve
+from areal_tpu_torch.system.worker_base import WorkerControl
+
+name_resolve.DEFAULT_REPO = name_resolve.NfsNameRecordRepo(sys.argv[2])
+ctrl = WorkerControl("suplate", "t0", "genserver_dyn9")
+give_up = time.monotonic() + 60
+while not ctrl.should_exit and time.monotonic() < give_up:
+    ctrl.step()
+    time.sleep(0.01)
+ctrl.close()
+with open(sys.argv[3], "w") as f:
+    f.write("commanded" if ctrl.should_exit else "gave up")
+"""
+
+
+def test_shutdown_asks_a_late_starting_worker_again(tmp_path):
+    """A dynamic server the autoscaler spawned just before the run ended
+    registers its control endpoint only once its process is up; the
+    shutdown asks it again until it answers, so it exits on the command
+    (and a server's record is sent) instead of being terminated when the
+    exit window runs out."""
+    script = tmp_path / "late.py"
+    script.write_text(_LATE_WORKER)
+    marker = tmp_path / "exit"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sup = tsup.Supervisor("suplate", "t0")
+    sup.spawn(tsup.WorkerSpec(
+        name="genserver_dyn9", kind="gen_server", target=os.system,
+        args=(" ".join([sys.executable, str(script), root,
+                        tnr.DEFAULT_REPO._root, str(marker)]),),
+        required=False, expendable=True))
+    t0 = time.monotonic()
+    try:
+        sup.shutdown(timeout=10.0, exit_secs=30.0)
+        took = time.monotonic() - t0
+    finally:
+        sup.shutdown(timeout=5.0, orderly=False)
+    assert marker.read_text() == "commanded"
+    assert took < 25.0  # ended on the command, not at the window's end
+    assert not any(p.is_alive() for p in sup.procs())
