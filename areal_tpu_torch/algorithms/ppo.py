@@ -428,7 +428,7 @@ class PPOActorInterface(ModelInterface):
         """HF checkpoint of the masters (what the trainer's model factory
         and the evaluation tools load)."""
         engine = model.module
-        hf.save_hf_checkpoint(engine.params, engine.cfg, save_dir,
+        hf.save_hf_checkpoint(engine.full_params(), engine.cfg, save_dir,
                               meta={"version": model.version.global_step})
 
     def state_dict(self):

@@ -12,9 +12,12 @@ Differences: ``backend`` is ``cuda`` (default) or ``cpu``, the device every
 worker runs on; ``n_gpus_per_node`` defaults to 1, the port's one card; a
 model role's ``backend`` defaults to ``torch_train``; a list field also
 takes a JSON list (``sentinel.rules=[{...}]``: the reference sets rule
-packs through its YAML). Left out with the pieces that read them:
-multi-process trainers, the YAML dump and load (``yaml`` is not known on
-the card's machine) and ``compile_watch.storm_warmup_calls`` (no jitted
+packs through its YAML). Left out because a rank holds exactly one
+device: ``trainer_dist_procs`` (the trainer's processes are the world of
+its ``allocation_mode`` spec, ``experiments/common.py trainer_world``) and
+``trainer_dist_devices_per_proc`` (virtual CPU devices per process). Left
+out with the pieces that read them: the YAML dump and load (``yaml`` is
+not known on the card's machine) and ``compile_watch.storm_warmup_calls`` (no jitted
 function to watch); left out because nothing reads them:
 ``dataset.valid_bs_n_seqs`` and ``dataset.fill_to_max_length`` of the SFT
 dataset, and ``auto_eval_config.eval_job_image``,

@@ -44,11 +44,18 @@ class WeightSyncConfig:
 
     ``stream`` serves per-tensor chunks from the trainer's host cache over
     TCP (``system/weight_stream.py``); ``disk`` writes a native checkpoint
-    under the trainer's ``realloc_dir``. The reference's ``device``
-    transport (an on-device reshard) is not ported: asking for it raises,
-    and no other transport stands in for it."""
+    under the trainer's ``realloc_dir``; ``device`` keeps the weights on the
+    card: the trainer packs its compute-dtype weights into one device
+    buffer and hands the servers its CUDA IPC handle, and each server
+    copies them into its own weights device to device
+    (``parallel/reshard.py``; trainer and servers on one card).
 
-    transport: str = "stream"  # stream | disk
+    Left out with the meshed generation fleet that would read them: the
+    reference's ``transfer_group_mb`` and ``gen_parallel_spec`` (the port's
+    servers hold whole tensors on one device each, so a publication is
+    packed as the trainer holds it and nothing is resharded)."""
+
+    transport: str = "stream"  # stream | disk | device
     # Wire chunk size (MB) of the streamed transport.
     chunk_mb: int = 32
     # The servers' window of in-flight chunk requests (the experiments
@@ -56,12 +63,7 @@ class WeightSyncConfig:
     pipeline_depth: int = 4
 
     def __post_init__(self):
-        if self.transport == "device":
-            raise NotImplementedError(
-                "weight_sync.transport='device' (the on-device reshard) is "
-                "not ported yet: ROADMAP.md Queue 1 item 8, multi-GPU "
-                "parallelism. Use 'stream' or 'disk'.")
-        if self.transport not in ("stream", "disk"):
+        if self.transport not in ("stream", "disk", "device"):
             raise ValueError(
                 f"unknown weight_sync.transport {self.transport!r}")
 

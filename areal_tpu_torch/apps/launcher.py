@@ -50,7 +50,16 @@ a worker kind (``trainer``, ``gen_fleet``, ``gen_server``, ``rollout``,
 worker(s) once they are built; a callable it returns is called after the
 worker's run. A respawned child gets its kind's probe too.
 
-Left out: multi-process trainers and slurm (ROADMAP.md).
+Several trainer ranks (a trainer spec wider than one device, reference
+``launcher.py:436-474``): one trainer process per rank, each with its
+``dist_rank`` / ``dist_world``, supervised as the ``trainer`` kind, so a
+dead rank escalates once as a trainer death and the supervisor's shutdown
+(or ``recover_mode=auto``'s relaunch) takes the whole group down and up.
+On ``cuda`` each rank sees one GPU (``CUDA_VISIBLE_DEVICES``, from
+:func:`derive_chip_assignment`), and a decoupled allocation's generation
+fleet sees its own GPUs.
+
+Left out: slurm (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -65,6 +74,35 @@ from typing import Any, Callable, Dict, List, Optional
 from areal_tpu_torch.base import logging
 
 logger = logging.getLogger("apps.launcher")
+
+
+def derive_chip_assignment(alloc_mode: str,
+                           n_gpus: int) -> Dict[str, List[int]]:
+    """This host's GPUs split between the trainer and the generation fleet
+    from a decoupled allocation mode (reference ``derive_chip_assignment:62``;
+    the port sets ``CUDA_VISIBLE_DEVICES`` from it where the reference sets
+    its TPU chip variables). Returns ``{"trainer": [...], "gen": [...]}``;
+    raises when the layout does not fit."""
+    from areal_tpu_torch.parallel.mesh import AllocationMode
+
+    am = AllocationMode.parse(alloc_mode) if alloc_mode else None
+    if am is None or not am.decoupled:
+        return {"trainer": list(range(n_gpus)), "gen": []}
+    need_t = am.global_spec.world_size
+    need_g = am.gen_spec.world_size
+    if need_t + need_g > n_gpus:
+        raise RuntimeError(
+            f"allocation mode '{alloc_mode}' needs {need_t} trainer + "
+            f"{need_g} generation GPUs but this host has {n_gpus}; shrink "
+            "the specs (e.g. gen.d1+d1 needs 2 GPUs) or run sync mode "
+            "(colocated) where trainer and generation share the same GPUs")
+    return {"trainer": list(range(need_t)),
+            "gen": list(range(need_t, need_t + need_g))}
+
+
+def _gpu_env(gpus: Optional[List[int]]) -> Dict[str, str]:
+    return ({} if not gpus
+            else {"CUDA_VISIBLE_DEVICES": ",".join(str(g) for g in gpus)})
 
 
 def _resolve_tokenizer(exp_cfg):
@@ -340,10 +378,20 @@ class LocalLauncher:
             # supervise=false: any death escalates at once
             restartable_kinds=STATELESS_KINDS if self.ft.supervise else ())
         setup = exp.initial_setup()
+        n_dist = C.trainer_world(C.resolve_allocation(exp))
+        gpus = self._gpu_assignment(exp, n_dist)
         restore_sigterm = lambda: None  # noqa: E731
         try:
-            self._spawn(trainer_entry, exp, setup["trainer"], name="trainer",
-                        kind="trainer")
+            for r in range(n_dist):
+                tc = setup["trainer"]
+                if n_dist > 1:
+                    tc = dataclasses.replace(tc, dist_rank=r,
+                                             dist_world=n_dist)
+                self._spawn(
+                    trainer_entry, exp, tc, kind="trainer",
+                    name="trainer" if n_dist == 1 else f"trainer{r}",
+                    env=_gpu_env(None if gpus is None
+                                 else [gpus["trainer"][r]]))
             # The reward fleet before the rollout side: it registers well
             # within the fleet's start-up, so the first grade never races
             # its registration into local code execution.
@@ -353,7 +401,8 @@ class LocalLauncher:
             if "gen_servers" in setup:
                 self._spawn(gen_fleet_entry, exp, setup["gen_servers"],
                             setup["gserver_manager"], name="gen_fleet",
-                            kind="gen_fleet")
+                            kind="gen_fleet",
+                            env=_gpu_env(gpus and gpus["gen"]))
                 for i, rc in enumerate(setup["rollout_workers"]):
                     # A bounded worker (max_rollouts) finishing its quota
                     # exits 0 by design.
@@ -377,6 +426,27 @@ class LocalLauncher:
             result["auto_eval"] = [dataclasses.asdict(s)
                                    for s in self.evaluator.steps]
         return result
+
+    @staticmethod
+    def _gpu_assignment(exp, n_dist: int) -> Optional[Dict[str, List[int]]]:
+        """On ``cuda`` with several trainer ranks or a decoupled
+        allocation: the GPUs of each role (one per trainer rank). None
+        otherwise: every worker sees every GPU, as on one card."""
+        from areal_tpu_torch.parallel.mesh import AllocationMode
+
+        alloc = getattr(exp, "allocation_mode", "") or ""
+        decoupled = bool(alloc) and AllocationMode.parse(alloc).decoupled
+        if exp._device() is not None or (n_dist <= 1 and not decoupled):
+            return None
+        import torch
+
+        asg = derive_chip_assignment(alloc, torch.cuda.device_count())
+        if len(asg["trainer"]) < n_dist:
+            raise RuntimeError(
+                f"a trainer of {n_dist} ranks needs a GPU per rank; the "
+                f"trainer has {len(asg['trainer'])}")
+        logger.info(f"GPU assignment: {asg}")
+        return asg
 
     def _build_evaluator(self, exp, setup: Dict[str, Any]):
         """The evaluator of ``auto_eval`` (reference launcher.py:506-572):

@@ -56,16 +56,51 @@ them by the micro-batch count, observes the ``[E]`` expert load as the
 ``train/moe_expert_load_dist`` distribution and sets the
 ``train/moe_dropped_frac`` / ``train/moe_expert_load_ratio`` gauges (the
 reference's ``_finish_stats:757``). ``train/moe_ep_engaged`` is published
-as 0: the port has no mesh. Router jitter (``input_jitter_eps > 0``) draws
-from one ``torch.Generator`` per micro-batch seeded from the optimizer step
-count and the micro-batch index.
+as 0: expert parallelism is still to come. Router jitter
+(``input_jitter_eps > 0``) draws from one ``torch.Generator`` per
+micro-batch seeded from the optimizer step count and the micro-batch index.
 
-Not ported yet: meshes (and with them the reference's ``train/pp_engaged``
-and ``train/ring_engaged`` gauges).
+On a mesh (``mesh=``, a ``parallel/mesh.py make_mesh`` DeviceMesh; the
+reference's ``JaxTrainEngine(mesh=...)``). The engine is functional
+(``functional_call`` over a meta module), so FSDP2's module hooks do not
+fit it; DTensor placements on the masters carry the reference's layout one
+for one instead:
+
+ - the f32 masters are DTensors placed by ``parallel/sharding.py
+   param_partition_specs`` (``fsdp`` on the hidden dim, ``tp`` on heads and
+   MLP columns, replicated over ``dp``);
+ - the cast (``_CastGather``) casts each master's local shard to the
+   compute dtype, **then** all-gathers it over ``fsdp`` (half the bytes of
+   gathering f32, as FSDP's mixed precision does), and hands the model a
+   plain local tensor (K1-K3 read raw pointers and never see a DTensor).
+   Its backward casts the gradient back to f32 and reduces it into the
+   master's placements: a reduce-scatter over ``fsdp``, a sum over ``dp``,
+   the tp shard kept (``sharding.grad_placements``). The gradients land on
+   the masters' local shards, which are the autograd leaves, so that their
+   sum over the micro-batches runs on plain tensors (a DTensor op pays the
+   sharding propagation over six mesh axes on the host);
+ - the data axes split a step's micro-batches: data rank r runs micro-
+   batches r, r + D, ... (D = dp·fsdp·ep), padded to one count on every
+   rank with zero-weighted replays, so that every rank issues the same
+   collectives. The tp ranks of one data rank run the same micro-batches,
+   each on its heads (``sharding.constrain`` in ``models/transformer.py``);
+ - the losses and stats (sums) and the squared grad norm (local squares,
+   each replicated element counted once) are summed over the world in one
+   all-reduce, fused into the one host sync, so the skip rule still reads
+   the host once;
+ - ``Optimizer.step`` runs on the local shards.
+
+``forward`` (inference) runs every micro-batch on every rank, each on its
+tp share, and ``generate`` runs over weights gathered whole. ``sp``,
+``pp`` and ``ep`` above 1, and MoE layers under ``tp``, raise: they come
+with zig-zag ring attention, the 1F1B pipeline and expert parallelism
+(ROADMAP.md Queue 1). The ``train/pp_engaged`` and ``train/ring_engaged``
+gauges come with them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -100,6 +135,7 @@ from areal_tpu_torch.models.transformer import (
     head_param_name,
 )
 from areal_tpu_torch.ops.xent import gather_logprobs
+from areal_tpu_torch.parallel import sharding as psh
 from areal_tpu_torch.system import memwatch
 
 # Loss functions receive (logits or [R, L] logprobs, batch) and return
@@ -246,6 +282,61 @@ def _chunk_scores(h_c: torch.Tensor, labels_c: torch.Tensor,
     return gather_logprobs(head_logits(h_c, head), labels_c)
 
 
+class _CastGather(torch.autograd.Function):
+    """A master's local shard → its compute copy: cast to ``dtype``, then
+    redistributed into the compute placements (an all-gather over
+    ``fsdp``), returned as a plain local tensor. The backward casts the
+    gradient back to the master's dtype and reduces it from the gradient
+    placements into the master's (reduce-scatter over ``fsdp``, all-reduce
+    over ``dp``).
+
+    ``mesh`` is the mesh's sub-mesh of the axes of degree > 1 (the
+    placements cut to them), or None when every axis has degree 1: then
+    both directions are the identity and only the casts run.
+    """
+
+    @staticmethod
+    def forward(ctx, local, dtype, mesh, placements, compute_pl, grad_pl,
+                shape, stride):
+        from torch.distributed.tensor import DTensor
+
+        ctx.meta = (mesh, placements, grad_pl, shape, stride, local.dtype)
+        out = local.to(dtype)
+        if mesh is not None:
+            out = DTensor.from_local(
+                out, mesh, placements, run_check=False, shape=shape,
+                stride=stride).redistribute(mesh, compute_pl).to_local()
+        # never hand the model the master's own storage
+        return out.clone() if out.data_ptr() == local.data_ptr() else out
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+
+        mesh, placements, grad_pl, shape, stride, dt = ctx.meta
+        g = g.to(dt)
+        if mesh is not None:
+            g = DTensor.from_local(g, mesh, grad_pl, run_check=False,
+                                   shape=shape, stride=stride).redistribute(
+                mesh, placements).to_local()
+        return g, None, None, None, None, None, None, None
+
+
+def _check_mesh(mesh, cfg: TransformerConfig) -> None:
+    """Refuse the mesh axes and layouts the port does not run yet."""
+    later = {"sp": "zig-zag ring attention", "pp": "the 1F1B pipeline",
+             "ep": "expert parallelism"}
+    for axis, piece in later.items():
+        if psh.mesh_degree(mesh, axis) > 1:
+            raise NotImplementedError(
+                f"{axis} > 1 needs {piece}, which the port does not have "
+                f"yet ({piece}, ROADMAP.md Queue 1)")
+    if cfg.moe is not None and psh.mesh_degree(mesh, "tp") > 1:
+        raise NotImplementedError(
+            "tensor parallelism of MoE layers comes with expert "
+            "parallelism (expert parallelism, ROADMAP.md Queue 1)")
+
+
 class TorchTrainEngine(TrainableEngine):
     """Owns the f32 masters and the optimizer state on one device."""
 
@@ -264,8 +355,14 @@ class TorchTrainEngine(TrainableEngine):
         remat=False,
         logprob_chunk: Optional[int] = 512,
         fill_bucket: Optional[int] = None,
+        mesh=None,
     ):
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            _check_mesh(mesh, cfg)
+            if device is None and mesh.device_type == "cpu":
+                device = "cpu"
         self.device = resolve_device(device)
         self.compute_dtype = getattr(torch, compute_dtype)
         self.length_bucket = length_bucket
@@ -290,14 +387,20 @@ class TorchTrainEngine(TrainableEngine):
             n: t.detach().to(
                 self.device,
                 torch.float32 if train and t.is_floating_point() else t.dtype,
-            ).requires_grad_(train)
+            )
             for n, t in params.items()
         }
+        if mesh is not None:
+            self._setup_mesh()
+        # On a mesh the local shards are the autograd leaves: gradients
+        # accumulate over the micro-batches in plain tensors (a DTensor op
+        # pays the sharding propagation over the six mesh axes on the host).
+        for t in self._local_params():
+            t.requires_grad_(train)
         self.optimizer = None
         if train:
             total = ft_spec.total_train_steps if ft_spec is not None else 1000
-            self.optimizer = Optimizer(opt_cfg, list(self.params.values()),
-                                       total)
+            self.optimizer = Optimizer(opt_cfg, self._local_params(), total)
         # With time_phases, train_uniform synchronizes after the fwd-bwd and
         # after the optimizer and records both times in last_phase_secs.
         self.time_phases = False
@@ -311,12 +414,94 @@ class TorchTrainEngine(TrainableEngine):
     def lr_schedule(self) -> Callable[[int], float]:
         return self.optimizer.lr_schedule
 
+    # -------------- the mesh --------------
+
+    def _setup_mesh(self) -> None:
+        """Place the masters on the mesh and precompute, per master, its
+        compute and gradient placements, the kv rows this tp rank reads,
+        and its weight in the grad norm (1 on the first rank of every axis
+        it is replicated over, else 0)."""
+        mesh, cfg = self.mesh, self.cfg
+        tp = psh.mesh_degree(mesh, "tp")
+        layouts = psh.param_layouts(cfg, tp)
+        self.params = psh.shard_params(self.params, mesh, cfg)
+        # The cast's DTensors live on the sub-mesh of the axes of degree >
+        # 1 (DTensor's host cost grows with the mesh's dims), or nowhere.
+        active = [i for i, a in enumerate(psh.AXIS_ORDER)
+                  if psh.mesh_degree(mesh, a) > 1]
+        self._cast_mesh = (mesh[tuple(psh.AXIS_ORDER[i] for i in active)]
+                           if active else None)
+
+        def cut(pl):
+            return tuple(pl[i] for i in active)
+
+        full = psh.placements_of({})
+        self._cast_pl = {
+            n: (cut(p.placements), cut(psh.compute_placements(n, layouts[n])),
+                cut(full), cut(psh.grad_placements(n, layouts[n], cfg, tp)))
+            for n, p in self.params.items()}
+        rows = psh.kv_head_rows(cfg, tp, psh.mesh_coord(mesh, "tp"))
+        self._kv_rows = {n: rows for n in self.params if rows is not None
+                         and n.split(".", 2)[-1] in psh._KV_SUFFIXES}
+        coords = {a: psh.mesh_coord(mesh, a) for a in psh.AXIS_ORDER}
+        self._norm_weight = torch.tensor(
+            [float(all(coords[a] == 0 for a in psh.AXIS_ORDER
+                       if a not in layouts[n]))
+             for n in self.params], device=self.device)
+        deg = {a: psh.mesh_degree(mesh, a) for a in psh.AXIS_ORDER}
+        self._data_degree = deg["dp"] * deg["fsdp"] * deg["ep"]
+        self._data_rank = ((coords["dp"] * deg["fsdp"] + coords["fsdp"])
+                           * deg["ep"] + coords["ep"])
+        # one rank of each data shard reports its sums; rank 0 alone
+        # reports what every rank computed alike
+        self._reports_data = all(coords[a] == 0 for a in ("pp", "sp", "tp"))
+        self._reports_all = all(c == 0 for c in coords.values())
+
+    def _local_params(self) -> List[torch.Tensor]:
+        """The masters' local shards (the masters themselves off a mesh):
+        the tensors autograd and the optimizer update."""
+        if self.mesh is None:
+            return list(self.params.values())
+        return [p._local_tensor for p in self.params.values()]
+
+    def _mesh_ctx(self):
+        return psh.activation_sharding(self.mesh) if self.mesh is not None \
+            else contextlib.nullcontext()
+
+    @torch.no_grad()
+    def full_params(self, dtype: Optional[torch.dtype] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """Every parameter whole on this rank's device (gathered from the
+        mesh), cast to ``dtype`` when given. Off a mesh: the masters (or
+        their casts)."""
+        out = {}
+        for n, p in self.params.items():
+            t = p._local_tensor if self.mesh is not None else p
+            t = t.detach()
+            if dtype is not None and t.is_floating_point():
+                t = t.to(dtype)  # cast, then gather
+            out[n] = t if self.mesh is None else self._whole(n, t)
+        return out
+
     # -------------- internals --------------
 
-    def _cast(self) -> Dict[str, torch.Tensor]:
+    def _cast(self, full: bool = False) -> Dict[str, torch.Tensor]:
+        """Compute-dtype copies of the masters, differentiable back into
+        them. On a mesh: this rank's compute shards (``full``: the whole
+        tensors, for generation)."""
         cd = self.compute_dtype
-        return {n: p.to(cd) if p.is_floating_point() else p
-                for n, p in self.params.items()}
+        if self.mesh is None:
+            return {n: p.to(cd) if p.is_floating_point() else p
+                    for n, p in self.params.items()}
+        out = {}
+        for n, p in self.params.items():
+            pl, compute_pl, full_pl, grad_pl = self._cast_pl[n]
+            t = _CastGather.apply(p._local_tensor, cd, self._cast_mesh, pl,
+                                  full_pl if full else compute_pl, grad_pl,
+                                  p.shape, p.stride())
+            rows = None if full else self._kv_rows.get(n)
+            out[n] = t if rows is None else t[rows]
+        return out
 
     def _hidden_or_logits(self, cast, batch, return_hidden: bool, remat,
                           aux: Optional[Dict[str, torch.Tensor]] = None,
@@ -416,16 +601,30 @@ class TorchTrainEngine(TrainableEngine):
         total_w = sum(weights)
         scale = 1.0 if glob else 1.0 / len(idxs)
         aux_scale = 1.0 / len(idxs) if glob else 1.0
-        for p in self.params.values():
+        for p in self._local_params():
             p.grad = None
+        # (micro-batch, its weight, whether it counts): on a mesh this data
+        # rank's share, padded with zero-scaled replays to the common count
+        work = [(i, w, True) for i, w in zip(idxs, weights)]
+        if self.mesh is not None:
+            n_local = -(-len(work) // self._data_degree)
+            work = work[self._data_rank::self._data_degree]
+            work += [(idxs[0], weights[0], False)] * (n_local - len(work))
         loss_acc, stats_acc = None, {}
-        for i, w in zip(idxs, weights):
-            loss, stats = self._grad_step(ub, loss_fn, i,
-                                          total_w if glob else w, scale,
-                                          aux_scale)
-            loss_acc = loss if loss_acc is None else loss + loss_acc
-            stats_acc = {k: stats[k] + stats_acc[k] if k in stats_acc
-                         else stats[k] for k in stats}
+        with self._mesh_ctx():
+            for i, w, counts in work:
+                loss, stats = self._grad_step(ub, loss_fn, i,
+                                              total_w if glob else w,
+                                              scale if counts else 0.0,
+                                              aux_scale)
+                if not counts:
+                    continue
+                loss_acc = loss if loss_acc is None else loss + loss_acc
+                stats_acc = {k: stats[k] + stats_acc[k] if k in stats_acc
+                             else stats[k] for k in stats}
+        if loss_acc is None:  # a data rank with no micro-batch of its own
+            loss_acc = torch.zeros((), device=self.device)
+            stats_acc = {k: torch.zeros_like(v) for k, v in stats.items()}
         return loss_acc, stats_acc
 
     # -------------- upload-once uniform batches --------------
@@ -529,16 +728,21 @@ class TorchTrainEngine(TrainableEngine):
                 # this sync does not exist.
                 self._sync()
         with telemetry.span("train/optimizer"):
-            params = list(self.params.values())
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                     for p in params]
-            grad_norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
-            fetch = {**stats_acc, **(extra_fetch or {}), "loss": loss_acc,
-                     "grad_norm": grad_norm}
+            params = self._local_params()
+            grads = self._local_grads()
+            if self.mesh is None:
+                grad_norm = torch.linalg.vector_norm(
+                    torch.stack(torch._foreach_norm(grads)))
+                fetch = {**stats_acc, **(extra_fetch or {}),
+                         "loss": loss_acc, "grad_norm": grad_norm}
+                flat_dev = torch.cat([v.detach().float().reshape(-1)
+                                      for v in fetch.values()])
+            else:
+                fetch, flat_dev = self._reduce_fetch(stats_acc, extra_fetch,
+                                                     loss_acc, grads)
+                grad_norm = flat_dev[-1]
             # the one host sync
-            flat = torch.cat([v.detach().float().reshape(-1)
-                              for v in fetch.values()]).tolist()
+            flat = flat_dev.tolist()
             fetched, at = {}, 0
             for k, v in fetch.items():
                 n = v.numel()
@@ -570,6 +774,37 @@ class TorchTrainEngine(TrainableEngine):
         telemetry.inc("train/tokens", out["total_tokens"])
         telemetry.inc("train/optimizer_steps", float(apply))
         return out
+
+    def _local_grads(self) -> List[torch.Tensor]:
+        """The masters' gradients (their local shards on a mesh); zeros for
+        a master the step did not reach."""
+        return [p.grad if p.grad is not None else torch.zeros_like(p)
+                for p in self._local_params()]
+
+    def _reduce_fetch(self, stats_acc, extra_fetch, loss_acc, grads):
+        """The mesh's half of the one host sync: the loss and stats (sums
+        over this rank's micro-batches, counted by one rank of each data
+        shard), the prep scalars (alike on every rank, counted once) and
+        the squared grad norm (each element counted once) summed over the
+        world in one all-reduce; the norm's square root taken after it.
+        Returns (fetch keys, the reduced flat vector)."""
+        import torch.distributed as dist
+
+        with torch.no_grad():
+            sq = (torch.stack(torch._foreach_norm(grads)) ** 2
+                  * self._norm_weight).sum()
+            parts = [(v, self._reports_data) for v in stats_acc.values()]
+            parts += [(v, self._reports_all)
+                      for v in (extra_fetch or {}).values()]
+            parts.append((loss_acc, self._reports_data))
+            flat_dev = torch.cat(
+                [v.detach().float().reshape(-1) * float(keep)
+                 for v, keep in parts] + [sq.reshape(1)])
+            dist.all_reduce(flat_dev)
+            flat_dev[-1] = flat_dev[-1].sqrt()
+        fetch = {**stats_acc, **(extra_fetch or {}), "loss": loss_acc,
+                 "grad_norm": flat_dev[-1]}
+        return fetch, flat_dev
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -648,6 +883,12 @@ class TorchTrainEngine(TrainableEngine):
         use_lp = self._use_chunked_logprobs(post_hook)
         cast = self._cast()
         outs = []
+        with self._mesh_ctx():
+            outs = self._forward_mbs(ub, cast, use_lp, post_hook)
+        return mbu.scatter_back(ub.mbs, outs, input_.bs)
+
+    def _forward_mbs(self, ub, cast, use_lp, post_hook) -> List[np.ndarray]:
+        outs = []
         for i in range(ub.n_mbs):
             batch = self._slice(ub, i)
             if use_lp:
@@ -660,7 +901,7 @@ class TorchTrainEngine(TrainableEngine):
             if out.dtype == torch.bfloat16:  # numpy has no bf16
                 out = out.float()
             outs.append(out.cpu().numpy())
-        return mbu.scatter_back(ub.mbs, outs, input_.bs)
+        return outs
 
     @torch.no_grad()
     def generate(
@@ -686,7 +927,7 @@ class TorchTrainEngine(TrainableEngine):
         prompts = [p for p in prompts for _ in range(gconfig.n)]
         padded, plens = genmod.pad_prompts(prompts, pad_token_id)
         model = Transformer.from_params(
-            self.cfg, {n: p.detach() for n, p in self._cast().items()})
+            self.cfg, {n: p.detach() for n, p in self._cast(full=True).items()})
         out = genmod.generate_batch(
             model, torch.from_numpy(padded).to(self.device),
             torch.from_numpy(plens).to(self.device), generator, gconfig,
@@ -701,34 +942,62 @@ class TorchTrainEngine(TrainableEngine):
         """``params.safetensors`` (the masters) and, with an optimizer,
         ``opt_state.safetensors`` (``mu/<name>``, ``nu/<name>`` in their
         stored dtype, and ``opt_step_count``). Returns the bytes written."""
-        os.makedirs(ckpt_dir, exist_ok=True)
-        n = sio.save_file(self.params,
-                          os.path.join(ckpt_dir, "params.safetensors"))
         opt = self.optimizer
+        state = None
         if opt is not None:
             state = {"opt_step_count": torch.tensor(opt.count)}
             for kind, moments in (("mu", opt.mu), ("nu", opt.nu)):
-                state.update({f"{kind}/{name}": m
+                state.update({f"{kind}/{name}": self._whole(name, m)
                               for name, m in zip(self.params, moments)})
+        params = self.full_params()
+        if self.mesh is not None and self.mesh.get_rank() != 0:
+            return 0  # every rank gathers; rank 0 writes
+        os.makedirs(ckpt_dir, exist_ok=True)
+        n = sio.save_file(params, os.path.join(ckpt_dir, "params.safetensors"))
+        if state is not None:
             n += sio.save_file(state,
                                os.path.join(ckpt_dir, "opt_state.safetensors"))
         return n
+
+    def _whole(self, name: str, local: torch.Tensor) -> torch.Tensor:
+        """A tensor laid out as master ``name`` (e.g. an Adam moment's
+        local shard), whole; off a mesh, as it is."""
+        if self.mesh is None:
+            return local
+        from torch.distributed.tensor import DTensor
+
+        p = self.params[name]
+        return DTensor.from_local(local, self.mesh, p.placements,
+                                  run_check=False, shape=p.shape,
+                                  stride=p.stride()).full_tensor()
+
+    def _shard_of(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of a whole tensor laid out as master
+        ``name``."""
+        if self.mesh is None:
+            return full
+        from torch.distributed.tensor import distribute_tensor
+
+        p = self.params[name]
+        return distribute_tensor(full.to(self.device), self.mesh,
+                                 p.placements, src_data_rank=None).to_local()
 
     @torch.no_grad()
     def load_train_state(self, ckpt_dir: str) -> None:
         """Restore what :meth:`save_train_state` wrote, in place: each tensor
         keeps its dtype, shape and device."""
         z = sio.load_file(os.path.join(ckpt_dir, "params.safetensors"))
-        for name, p in self.params.items():
-            p.copy_(z[name].reshape(p.shape))
+        for (name, p), loc in zip(self.params.items(), self._local_params()):
+            loc.copy_(self._shard_of(name, z[name].reshape(p.shape)))
         path = os.path.join(ckpt_dir, "opt_state.safetensors")
         opt = self.optimizer
         if opt is None or not os.path.exists(path):
             return
         z = sio.load_file(path)
         for kind, moments in (("mu", opt.mu), ("nu", opt.nu)):
-            for name, m in zip(self.params, moments):
-                m.copy_(z[f"{kind}/{name}"].reshape(m.shape))
+            for (name, p), m in zip(self.params.items(), moments):
+                m.copy_(self._shard_of(
+                    name, z[f"{kind}/{name}"].reshape(p.shape)))
         opt.count = int(z["opt_step_count"])
 
 
@@ -748,9 +1017,20 @@ class TorchTrainBackend(ModelBackend):
     logprob_chunk: Optional[int] = 512
     fill_bucket: Optional[int] = None
     train: bool = True  # False: an inference engine, no optimizer
+    # "f2t2"-style spec: the engine runs on a make_mesh mesh over the
+    # current process group (parallel/distributed.initialize first)
+    parallel_spec: Optional[str] = None
 
     def initialize(self, model: Model, spec: FinetuneSpec) -> Model:
         cfg, params = model.module
+        mesh = None
+        if self.parallel_spec:
+            from areal_tpu_torch.parallel import mesh as pmesh
+
+            dev = None if self.device is None else torch.device(self.device)
+            mesh = pmesh.make_mesh(
+                pmesh.ParallelSpec.parse(self.parallel_spec),
+                None if dev is None else dev.type)
         model.module = TorchTrainEngine(
             cfg,
             params,
@@ -765,6 +1045,7 @@ class TorchTrainBackend(ModelBackend):
             remat=self.remat,
             logprob_chunk=self.logprob_chunk,
             fill_bucket=self.fill_bucket,
+            mesh=mesh,
         )
         return model
 

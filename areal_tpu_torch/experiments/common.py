@@ -5,8 +5,11 @@ The port's copy of ``areal_tpu/experiments/common.py`` (reference
 turned into trainer role configs, the tokenizer, the run's paths and the
 name-resolve repository.
 
-Differences: the port runs on one device, so an allocation wider than one
-raises (multi-GPU parallelism is ROADMAP.md Queue 1 item 8); a role's
+Differences: a rank holds one device, so an allocation's trainer spec
+gives its number of trainer processes (the reference's
+``trainer_dist_procs``, which the port derives); ``sp``,
+``pp`` and ``ep`` above 1 raise until zig-zag ring attention, the 1F1B
+pipeline and expert parallelism are ported (ROADMAP.md Queue 1); a role's
 ``type.is_critic`` travels into its init dict, where the port's trainer
 factory builds the value head (the reference drops it: ROADMAP.md Queue
 3); a real tokenizer needs ``transformers``, which the port does not use,
@@ -16,7 +19,7 @@ so only ``mock_tokenizer`` runs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 from areal_tpu_torch.api.cli_args import (
     BaseExperimentConfig,
@@ -26,20 +29,73 @@ from areal_tpu_torch.base import constants
 from areal_tpu_torch.parallel.mesh import AllocationMode, ParallelSpec
 
 
+# The mesh axes the port does not run yet, and the piece that brings each.
+LATER_AXES = {"sp": "zig-zag ring attention", "pp": "the 1F1B pipeline",
+              "ep": "expert parallelism"}
+
+
+def trainer_world(alloc: AllocationMode) -> int:
+    """The trainer's ranks: the world of the allocation's trainer spec, one
+    rank (process) per device. The reference sets it apart as
+    ``trainer_dist_procs``, which the port derives. Every trainer spec
+    must span it: the same ranks serve every role."""
+    trainer = [alloc.global_spec, *(s for m, s in alloc.per_mfc.items()
+                                    if m != "actor_gen")]
+    worlds = sorted({s.world_size for s in trainer})
+    if len(worlds) != 1:
+        raise ValueError(
+            f"trainer specs {[str(s) for s in trainer]} span {worlds} "
+            f"devices: the port runs one trainer process per device, and "
+            f"the same processes serve every role, so they must be equal")
+    return worlds[0]
+
+
 def resolve_allocation(cfg: BaseExperimentConfig) -> AllocationMode:
-    """Parse ``allocation_mode`` (default: every device, pure dp). Raises
-    for a spec wider than one device."""
-    total = cfg.n_nodes * cfg.n_gpus_per_node
+    """Parse ``allocation_mode`` (default: one device). Raises for ``sp``,
+    ``pp`` or ``ep`` above 1, for trainer specs of different worlds
+    (:func:`trainer_world`), and, on ``cuda``, for a world of several
+    ranks wider than the visible GPUs (one rank needs none to build its
+    config: the launcher checks the card)."""
     alloc = (AllocationMode.parse(cfg.allocation_mode) if cfg.allocation_mode
-             else AllocationMode(global_spec=ParallelSpec(dp=total)))
+             else AllocationMode(global_spec=ParallelSpec()))
     specs = [alloc.global_spec, alloc.gen_spec, *alloc.per_mfc.values()]
-    wide = [str(s) for s in specs if s is not None and s.world_size > 1]
-    if wide:
-        raise NotImplementedError(
-            f"allocation {', '.join(wide)} spans more than one device; the "
-            "port runs every role on one device until multi-GPU parallelism "
-            "lands (ROADMAP.md Queue 1 item 8)")
+    for s in specs:
+        for axis, piece in LATER_AXES.items():
+            if s is not None and getattr(s, axis) > 1:
+                raise NotImplementedError(
+                    f"allocation {s}: {axis} > 1 needs {piece}, which the "
+                    f"port does not have yet ({piece}, ROADMAP.md Queue 1)")
+    world = trainer_world(alloc)
+    if cfg._device() is None and world > 1:
+        import torch
+
+        n_gpus = torch.cuda.device_count()
+        if world > n_gpus:
+            raise ValueError(
+                f"allocation {cfg.allocation_mode!r} needs {world} GPUs for "
+                f"the trainer; {n_gpus} are visible")
     return alloc
+
+
+# Which MFCs a model role serves, train-MFC first: a per-MFC allocation
+# override for any of these steers the whole role's engine.
+ROLE_MFCS: Dict[str, tuple] = {
+    "actor": ("actor_train", "actor_inf", "actor_gen"),
+    "critic": ("critic_train", "critic_inf"),
+    "ref": ("ref_inf", "fused_rew_ref_inf"),
+    "rew": ("rew_inf", "fused_rew_ref_inf"),
+}
+
+
+def spec_for_role(alloc: AllocationMode, role: str) -> ParallelSpec:
+    """The ParallelSpec a model role's engine runs under (reference
+    ``spec_for_role:42``): the first of the role's MFCs with a per-MFC
+    override, else ``global_spec``."""
+    for mfc in ROLE_MFCS.get(role, ()):
+        spec = alloc.per_mfc.get(mfc)
+        if spec is not None:
+            return spec
+    return alloc.global_spec
 
 
 def model_init_dict(mc: ModelTrainEvalConfig) -> Dict[str, Any]:
@@ -55,7 +111,8 @@ def model_init_dict(mc: ModelTrainEvalConfig) -> Dict[str, Any]:
                      "spec; use `tiny` or provide a path")
 
 
-def backend_args_for(mc: ModelTrainEvalConfig) -> Dict[str, Any]:
+def backend_args_for(mc: ModelTrainEvalConfig,
+                     spec: Optional[ParallelSpec] = None) -> Dict[str, Any]:
     args: Dict[str, Any] = {
         "optimizer": mc.optimizer,
         "compute_dtype": "bfloat16" if mc.bf16 else "float32",
@@ -65,6 +122,8 @@ def backend_args_for(mc: ModelTrainEvalConfig) -> Dict[str, Any]:
         # CPU-test scale: small buckets so tiny batches do not pad to 128.
         args.update(compute_dtype="float32", length_bucket=16,
                     rows_bucket=2, seqs_bucket=4, remat=False)
+    if spec is not None and spec.world_size > 1:
+        args["parallel_spec"] = str(spec)
     return args
 
 

@@ -200,26 +200,28 @@ class PPOMATHConfig(BaseExperimentConfig):
             TrainerWorkerConfig,
         )
 
-        C.resolve_allocation(self)
+        alloc = C.resolve_allocation(self)
         paths = C.experiment_paths(self)
         dataset_size = self._dataset_size()
         hp = self._hp()
 
-        def role(mc, **kw):
-            return ModelRoleConfig(init=C.model_init_dict(mc),
-                                   backend=mc.backend,
-                                   backend_args=C.backend_args_for(mc), **kw)
+        def role(mc, name, **kw):
+            return ModelRoleConfig(
+                init=C.model_init_dict(mc), backend=mc.backend,
+                backend_args=C.backend_args_for(
+                    mc, C.spec_for_role(alloc, name)), **kw)
 
-        models: Dict[str, ModelRoleConfig] = {"actor": role(self.actor)}
+        models: Dict[str, ModelRoleConfig] = {"actor": role(self.actor,
+                                                            "actor")}
         if self._use_ref:
-            models["ref"] = role(self.ref, train=False)
+            models["ref"] = role(self.ref, "ref", train=False)
         if self._use_critic:
             critic = self.critic
             if not critic.tiny and not critic.path:
                 critic = self.actor  # the critic starts from the actor
             models["critic"] = role(dataclasses.replace(  # a value head
                 critic, type=dataclasses.replace(critic.type,
-                                                 is_critic=True)))
+                                                 is_critic=True)), "critic")
         ppo = {"interface_args": {"hp": hp}}
         mfcs: Dict[str, MFCRuntimeConfig] = {}
         rew_args = {"dataset_path": self.dataset.path,

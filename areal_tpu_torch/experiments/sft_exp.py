@@ -53,7 +53,7 @@ class SFTConfig(BaseExperimentConfig):
             TrainerWorkerConfig,
         )
 
-        C.resolve_allocation(self)
+        alloc = C.resolve_allocation(self)
         paths = C.experiment_paths(self)
         dfg = build_graph([MFCDef(
             name="trainDefault", model_name="default",
@@ -69,7 +69,8 @@ class SFTConfig(BaseExperimentConfig):
             models={"default": ModelRoleConfig(
                 init=C.model_init_dict(self.model),
                 backend=self.model.backend,
-                backend_args=C.backend_args_for(self.model),
+                backend_args=C.backend_args_for(self.model,
+                                                alloc.global_spec),
             )},
             mfcs={"trainDefault": MFCRuntimeConfig(
                 interface="sft", model_name="default")},

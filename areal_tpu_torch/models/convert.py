@@ -18,7 +18,7 @@ reference's ``[in, out]`` layout and name.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Union
+from typing import Dict, List, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -56,6 +56,30 @@ _TOP = {"embedding": "embedding.weight", "final_ln": "final_ln.weight",
         "value_head": "value_head.weight",
         "pos_embedding": "pos_embedding.weight"}
 _TRANSPOSED = set(_LINEAR) | {"lm_head", "value_head"}
+
+
+def reference_leaf_map(cfg: TransformerConfig
+                       ) -> Dict[str, List[Tuple[str, bool]]]:
+    """Each reference leaf key the port's ``Transformer(cfg)`` holds → its
+    port parameters as ``(name, transposed)``: one per layer for a stacked
+    ``layers/<key>`` (whose leading layer axis the port does not have),
+    one for a top-level key. Used to carry a per-leaf layout (a sharding
+    spec) from one package's layout to the other's."""
+    from areal_tpu_torch.models.transformer import Transformer
+
+    names = set(Transformer(cfg, device="meta").state_dict())
+    inv_top = {v: k for k, v in _TOP.items()}
+    inv_layer = {v: k for k, v in _layer_key_map().items()}
+    out: Dict[str, List[Tuple[str, bool]]] = {}
+    for name in sorted(names):
+        if name in inv_top:
+            key = inv_top[name]
+            out[key] = [(name, key in _TRANSPOSED)]
+            continue
+        _, _, suffix = name.split(".", 2)
+        key = inv_layer[suffix]
+        out.setdefault(f"layers/{key}", []).append((name, key in _TRANSPOSED))
+    return out
 
 
 def params_from_jax(flat: Mapping[str, Union[np.ndarray, torch.Tensor]],

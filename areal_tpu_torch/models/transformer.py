@@ -21,8 +21,11 @@ in the compute dtype), Mixture-of-Experts blocks (``models/moe.py``; the
 reference's ``_block:260-280``) with their balancing aux (``return_aux``)
 and the training forward: no KV stack (``return_kv=False``), the final
 hidden instead of logits (``return_hidden=True``) and per-layer remat
-(``_maybe_checkpoint:385``). Ring and pipeline parallelism, and the MoE
-expert-parallel path, wait for the multi-device slice.
+(``_maybe_checkpoint:385``). Tensor parallelism runs inside
+:class:`Block` through ``parallel/sharding.py constrain`` (the rank's heads
+and MLP columns, Megatron's two sums over ``tp``). Ring and pipeline
+parallelism, and the MoE expert-parallel path, are still to come
+(ROADMAP.md Queue 1).
 
 Learned positions differ from the reference in one respect, by design. The
 reference adds ``pos_embedding[positions]`` (``forward:430``), whose gather
@@ -52,6 +55,7 @@ from areal_tpu_torch import resolve_device
 from areal_tpu_torch.models import moe as moemod
 from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.ops.attention import decode_attention, packed_attention
+from areal_tpu_torch.parallel.sharding import constrain, tp_active
 
 KVCache = Dict[str, torch.Tensor]
 
@@ -199,10 +203,12 @@ class Block(nn.Module):
         B, T, _ = h.shape
         dh = cfg.head_dim
 
-        x = self.ln1(h)
-        q = self.wq(x).reshape(B, T, cfg.n_q_heads, dh)
-        k = self.wk(x).reshape(B, T, cfg.n_kv_heads, dh)
-        v = self.wv(x).reshape(B, T, cfg.n_kv_heads, dh)
+        # Under tensor parallelism the projections hold this rank's heads
+        # only: head counts come from the output widths.
+        x = constrain(self.ln1(h), "column_in")
+        q = self.wq(x).reshape(B, T, -1, dh)
+        k = self.wk(x).reshape(B, T, -1, dh)
+        v = self.wv(x).reshape(B, T, -1, dh)
         if cfg.use_qk_norm:
             q = self.q_norm(q)
             k = self.k_norm(k)
@@ -238,15 +244,18 @@ class Block(nn.Module):
             attn = decode_attention(q, k_cache, v_cache, kv_valid)
             new_kv = (k_cache, v_cache)
 
-        h = h + self.wo(attn.reshape(B, T, cfg.q_dim))
+        h = h + _row_parallel(self.wo, attn.reshape(B, T, -1))
         x = self.ln2(h)
         aux = None
         if cfg.moe is not None:
             mlp, aux = self.moe(x, segment_ids, jitter_seed)
         elif cfg.mlp_type == "plain":
-            mlp = self.w_down(self.act(self.w_up(x)))
+            x = constrain(x, "column_in")
+            mlp = _row_parallel(self.w_down, self.act(self.w_up(x)))
         else:
-            mlp = self.w_down(self.act(self.w_gate(x)) * self.w_up(x))
+            x = constrain(x, "column_in")
+            mlp = _row_parallel(self.w_down,
+                                self.act(self.w_gate(x)) * self.w_up(x))
         return h + mlp, new_kv, aux
 
     def moe(self, x: torch.Tensor, segment_ids: Optional[torch.Tensor],
@@ -267,6 +276,16 @@ class Block(nn.Module):
         return moemod.moe_mlp(
             x, lp, self.cfg.moe, rng=rng,
             mask=None if segment_ids is None else segment_ids > 0)
+
+
+def _row_parallel(lin: nn.Linear, a: torch.Tensor) -> torch.Tensor:
+    """A row-parallel linear: under tensor parallelism the partial
+    products are summed over the tp group and the bias is added once,
+    after the sum; otherwise the plain linear."""
+    if not tp_active():
+        return lin(a)
+    y = constrain(F.linear(a, lin.weight), "row_out")
+    return y if lin.bias is None else y + lin.bias
 
 
 # ---------------- the model ----------------

@@ -1,22 +1,36 @@
-"""Allocation strings: ``ParallelSpec`` and ``AllocationMode`` parsing.
+"""Device meshes and the allocation-mode vocabulary.
 
-The port's copy of the parsing half of ``areal_tpu/parallel/mesh.py``
-(``ParallelSpec:46``, ``AllocationMode:135``): the grammar of
-``allocation_mode`` (``d2f2t2``, ``gen.d4+d2t2``, per-MFC
-``actor_gen:d4,actor_train:f4``). The port runs on one device, so the
-experiments accept only specs of world size 1 (``experiments/common.py
-resolve_allocation``); meshes come with multi-GPU parallelism (ROADMAP.md
-Queue 1 item 8).
+The port's counterpart of ``areal_tpu/parallel/mesh.py``: ``ParallelSpec``
+(``:46``), ``make_mesh`` (``:107``), ``DATA_AXES`` and ``AllocationMode``
+(``:135``), with the grammar of ``allocation_mode`` (``d2f2t2``,
+``gen.d4+d2t2``, per-MFC ``actor_gen:d4,actor_train:f4``).
+
+Axis order, as in the reference:
+
+    ("dp", "fsdp", "ep", "pp", "sp", "tp")
+
+A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the current
+process group, one rank per device (the reference has one process per
+host owning several chips). ``tp`` is the innermost axis, so the ranks of
+one tensor-parallel group are neighbours. Parameter layouts over it live
+in ``parallel/sharding.py``.
+
+Importing this module loads no torch: the launcher and the experiment
+configs (torch-free processes) parse allocation strings with it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
+AXIS_ORDER = ("dp", "fsdp", "ep", "pp", "sp", "tp")
 _AXIS_LETTER = {"d": "dp", "f": "fsdp", "p": "pp", "s": "sp", "t": "tp",
                 "e": "ep"}
+# The axes a batch splits over: every flavour of data parallelism (ep is a
+# slice of the data dimension whose shards own disjoint experts).
+DATA_AXES = ("dp", "fsdp", "ep")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +47,14 @@ class ParallelSpec:
     @property
     def world_size(self) -> int:
         return self.dp * self.fsdp * self.ep * self.pp * self.sp * self.tp
+
+    @property
+    def data_degree(self) -> int:
+        """Number of distinct data shards (dp × fsdp × ep)."""
+        return self.dp * self.fsdp * self.ep
+
+    def mesh_shape(self) -> Tuple[int, ...]:
+        return (self.dp, self.fsdp, self.ep, self.pp, self.sp, self.tp)
 
     @classmethod
     def parse(cls, s: str) -> "ParallelSpec":
@@ -59,6 +81,27 @@ class ParallelSpec:
             if getattr(self, a) != 1) or "d1"
 
 
+def make_mesh(spec: ParallelSpec, device_type: Optional[str] = None):
+    """A ``DeviceMesh`` of ``spec``'s shape over the current process group,
+    with ``mesh_dim_names=AXIS_ORDER``. ``device_type`` defaults to
+    ``cuda`` when the group's backend is NCCL, else ``cpu``. Raises when
+    no group is up or its world size differs from ``spec.world_size``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError(f"make_mesh({spec}) needs a process group: call "
+                           "parallel.distributed.initialize first")
+    world = dist.get_world_size()
+    if world != spec.world_size:
+        raise ValueError(f"spec {spec} needs a world of {spec.world_size} "
+                         f"ranks, the process group has {world}")
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, spec.mesh_shape(),
+                            mesh_dim_names=AXIS_ORDER)
+
+
 @dataclasses.dataclass(frozen=True)
 class AllocationMode:
     """Experiment-wide allocation: ``global_spec`` for every MFC,
@@ -67,6 +110,10 @@ class AllocationMode:
     global_spec: ParallelSpec
     gen_spec: Optional[ParallelSpec] = None
     per_mfc: Dict[str, ParallelSpec] = dataclasses.field(default_factory=dict)
+
+    @property
+    def decoupled(self) -> bool:
+        return self.gen_spec is not None
 
     @classmethod
     def parse(cls, s: str) -> "AllocationMode":

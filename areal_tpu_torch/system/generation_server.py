@@ -50,7 +50,11 @@ positions silently; the port refuses them (ROADMAP Queue 3).
 ``POST /update_weights`` swaps the served weights (reference
 ``handle_update_weights:877``): ``{"path", "version"}`` loads a native
 checkpoint (``disk``), ``{"endpoint", "version", "timeout"}`` pulls a
-publish from a ``WeightStreamPublisher`` (``stream``). Either way the new
+publish from a ``WeightStreamPublisher`` (``stream``), and ``{"device":
+true, "role", "digest", "version"}`` copies the trainer's device
+publication (``parallel/reshard.py consume_device``: its gates, then a
+device-to-device copy out of the publication's CUDA IPC buffer, under the
+``genserver/device_consume`` watermark). Either way the new
 tensors (reference names, stacked ``[L, in, out]`` layers) are checked by
 name and shape against the live model, converted into the live dtype on the
 live device as a shadow model, and — for a stream, after the publisher's
@@ -858,6 +862,20 @@ class GenerationServer:
         finally:
             consumer.close()
 
+    def _reshard_published_weights(self, role: str, version: int,
+                                   digest: str) -> Dict[str, torch.Tensor]:
+        """Device transport: the trainer's publication, gated by version,
+        digest, tree, shapes and a live publisher, copied device to device
+        into a shadow state dict in the live dtypes (reference
+        ``_reshard_published_weights:855``). A failed gate raises with the
+        old weights still live."""
+        from areal_tpu_torch.parallel import reshard as rsh
+
+        with self.memwatch.watermark("genserver/device_consume"):
+            return rsh.consume_device(
+                self.cfg.experiment, self.cfg.trial, role, version, digest,
+                self.model.state_dict())
+
     def handle_update_weights(self, d: Dict[str, Any]
                               ) -> Tuple[int, Dict[str, Any]]:
         """Serve one /update_weights body; returns (HTTP status, reply)."""
@@ -874,11 +892,10 @@ class GenerationServer:
                                   else d.get("version", self.version + 1))
                     stream_stats = None
                     if d.get("device"):
-                        raise NotImplementedError(
-                            "the device transport is not ported yet "
-                            "(ROADMAP.md Queue 1 item 8, multi-GPU "
-                            "parallelism)")
-                    if d.get("endpoint"):
+                        params = self._reshard_published_weights(
+                            d.get("role", "actor"), version,
+                            d.get("digest", ""))
+                    elif d.get("endpoint"):
                         params, stream_stats = self._stream_and_put_weights(
                             d["endpoint"], version, d.get("timeout"))
                     else:

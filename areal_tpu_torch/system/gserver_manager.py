@@ -64,8 +64,6 @@ EWMA stays past ``straggler_factor`` x its peers' median; and at
 ``max_servers`` under sustained saturation, capacity denials carry a
 ``retry_after`` hint. The ``autoscale/*`` gauges are on the scrape either
 way.
-
-Left out: the ``device`` transport.
 """
 
 from __future__ import annotations
@@ -371,9 +369,21 @@ class GserverManager:
                             str(self.version))
 
     def _update_payload(self, v: int, path: str) -> Dict:
-        """The /update_weights body for version ``v``: the trainer's stream
-        endpoint when it registered one under ``names.weight_stream``, else
-        the disk checkpoint at ``path``."""
+        """The /update_weights body for version ``v``, the transport found
+        per push, most direct first (reference ``_update_payload:364``): a
+        device publication of version ``v`` under ``names.weight_device``
+        (its digest is the servers' gate; a descriptor of another version
+        falls through rather than steer the fleet at a gate that must
+        fail), else the trainer's stream endpoint under
+        ``names.weight_stream``, else the disk checkpoint at ``path``."""
+        try:
+            desc = json.loads(name_resolve.get(names.weight_device(
+                self.cfg.experiment, self.cfg.trial, self.cfg.model_role)))
+        except name_resolve.NameEntryNotFoundError:
+            desc = None
+        if desc and int(desc.get("version", -1)) == v:
+            return {"device": True, "role": self.cfg.model_role,
+                    "digest": desc.get("digest", ""), "version": v}
         try:
             endpoint = name_resolve.get(names.weight_stream(
                 self.cfg.experiment, self.cfg.trial, self.cfg.model_role))

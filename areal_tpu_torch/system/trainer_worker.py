@@ -17,10 +17,25 @@ role's engine on one device and serves the master's request stream:
 Hooks on an MFC: ``weight_update`` publishes a role's weights for the
 generation servers over ``weight_sync.transport`` (``disk``: a native
 checkpoint under ``realloc_dir/<role>/<version>``; ``stream``: the role's
-``WeightStreamPublisher``), sets ``names.model_version_time`` and
-``names.model_version`` and deletes the other transport's key; ``save``
-writes an HF checkpoint; ``param_realloc`` moves a target role toward a
-source by EMA, in f32.
+``WeightStreamPublisher``; ``device``: one packed device buffer shared by
+its CUDA IPC handle, ``parallel/reshard.py publish_device``), sets
+``names.model_version_time`` and ``names.model_version`` and deletes the
+other transports' keys; ``save`` writes an HF checkpoint;
+``param_realloc`` moves the source role's weights into the target's layout
+(``reshard_pytree``, no copy when they match) and then the target toward
+them by EMA, in f32.
+
+Several ranks (``dist_world > 1``, reference ``trainer_worker.py:144``):
+one trainer process per device joins one process group
+(``parallel/distributed.py initialize``) and each role's engine runs on a
+mesh of the role's ``parallel_spec``. Rank 0 alone owns the control plane
+(the request stream, the dataset or the trajectory puller, telemetry) and
+broadcasts each fetched batch and each request; the other ranks replay them
+in the same order (``_follow_once``). A rank-local failure of a handler
+that mutates state (``mfc``, ``restore``, ``clear``) raises on that rank,
+which brings the group down, rather than let the ranks diverge.
+Checkpoints and published weights are gathered on every rank and written
+by rank 0.
 
 With ``stream_dataset`` (the async loop) there is no dataset: a
 ``TrajectoryPuller`` registered under the trainer's handler name receives
@@ -45,8 +60,6 @@ at the puller (duplicates dropped, a replay past
 ``clear``, which the master sends after the step's recover checkpoint,
 acks the settled samples back to each rollout worker's ack channel.
 
-Left out until the port has them: multi-host broadcast and the ``device``
-transport.
 """
 
 from __future__ import annotations
@@ -111,6 +124,11 @@ from areal_tpu_torch.system.worker_base import WorkerControl
 logger = logging.getLogger("system.trainer")
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (the tensor itself otherwise)."""
+    return getattr(t, "_local_tensor", t)
+
+
 @dataclasses.dataclass
 class ModelRoleConfig:
     """One model role (actor / critic / ref / reward) of the trainer."""
@@ -169,6 +187,10 @@ class TrainerWorkerConfig:
     # the staleness gate of spooled replays (replay_staleness_limit)
     durability: DurabilityConfig = dataclasses.field(
         default_factory=DurabilityConfig)
+    # Several ranks: this process's rank and the group's size (one rank per
+    # device; the launcher starts one process per rank).
+    dist_rank: int = 0
+    dist_world: int = 1
 
 
 class TrainerWorker:
@@ -191,6 +213,7 @@ class TrainerWorker:
         self._epoch_pos = 0
         self._model_factory = model_factory or self._default_model_factory
         self._exiting = False
+        self._followers_told_exit = False
         self._weight_publishers: Dict[str, WeightStreamPublisher] = {}
         self.device: Optional[torch.device] = None
         self._puller: Optional[TrajectoryPuller] = None
@@ -205,6 +228,18 @@ class TrainerWorker:
         self._profiler: Optional[telemetry.ProfilerTriggerWatcher] = None
         self._ledger = goodput_mod.NULL_LEDGER
         self._mfu: Optional[goodput_mod.MfuEmitter] = None
+
+    @property
+    def _rank0(self) -> bool:
+        return self.cfg.dist_rank == 0
+
+    def _bcast(self, obj):
+        """Rank 0's ``obj`` on every rank (itself at one rank)."""
+        if self.cfg.dist_world > 1:
+            from areal_tpu_torch.parallel import distributed as dist
+
+            return dist.broadcast_pyobj(obj)
+        return obj
 
     # ---------------- setup ----------------
 
@@ -244,6 +279,12 @@ class TrainerWorker:
 
         cfg = self.cfg
         self.device = resolve_device(cfg.device)
+        if cfg.dist_world > 1:
+            from areal_tpu_torch.parallel import distributed as dist
+
+            dist.initialize(cfg.experiment, cfg.trial, cfg.dist_rank,
+                            cfg.dist_world, group="trainer",
+                            device=self.device)
         for role, rc in cfg.models.items():
             model = self._model_factory(role, rc)
             if model.tokenizer is None:
@@ -264,6 +305,12 @@ class TrainerWorker:
 
         reward_client.configure_service(cfg.reward_service, cfg.experiment,
                                         cfg.trial)
+        # Rank 0 owns the data plane and the master's request stream; the
+        # other ranks receive everything by broadcast.
+        if not self._rank0:
+            logger.info(f"trainer rank {cfg.dist_rank}/{cfg.dist_world} up "
+                        f"on {self.device}: models={list(self.models)}")
+            return
         if cfg.dataset is not None:
             self._dataset = make_dataset(cfg.dataset, tokenizer=cfg.tokenizer,
                                          **cfg.dataset_args)
@@ -421,6 +468,8 @@ class TrainerWorker:
             attrs["n_seqs"] = batch.bs if batch is not None else 0
         telemetry.set_gauge("trainer/pull_queue_depth", self._pull_q.qsize())
         if batch is not None:
+            # every rank stores the same batch
+            self._bcast(("fetch", batch))
             self._store_batch(batch)
         return {
             "meta": batch.meta() if batch is not None else None,
@@ -587,13 +636,22 @@ class TrainerWorker:
         elif kind == "save":
             self._save_role(hook.get("role", "actor"), hook["path"])
         elif kind == "param_realloc":
-            # EMA: target := eta * source + (1 - eta) * target, in f32,
-            # cast back to each target tensor's dtype.
+            # The source moved into the target's layout first (no copy when
+            # the layouts match, reference :653-683), then the EMA: target
+            # := eta * source + (1 - eta) * target, in f32, cast back to
+            # each target tensor's dtype.
+            from areal_tpu_torch.parallel import reshard as rsh
+
             src = self.models[hook["source"]].module.params
             dst = self.models[hook["target"]].module.params
+            src, plan = rsh.reshard_pytree(src, rsh.shardings_of(dst))
+            if plan.n_moved:
+                logger.info(f"param_realloc reshard {hook['source']} -> "
+                            f"{hook['target']}: {plan.describe()}")
             eta = float(hook.get("eta", 1.0))
             for name, d in dst.items():
-                s = src[name].detach().to(d.device, torch.float32)
+                s, d = _local(src[name]), _local(d)
+                s = s.detach().to(d.device, torch.float32)
                 d.copy_((eta * s + (1 - eta) * d.float()).to(d.dtype))
         else:
             raise ValueError(f"unknown hook {hook}")
@@ -604,14 +662,20 @@ class TrainerWorker:
         """The role's weights under ``path``: an HF checkpoint of the
         masters, or (``fmt="native"``) the weight-sync layout in the
         compute dtype. Returns the bytes written."""
+        from areal_tpu_torch.parallel import distributed as dist
+
         model = self.models[role]
         meta = {"version": model.version.global_step}
+        params = dist.allgather_params(
+            self._compute_dtype_params(role) if fmt == "native"
+            else model.module.params)
+        if not self._rank0:
+            return 0  # every rank joins the gather; rank 0 writes
         if fmt == "native":
-            return hf.save_native_checkpoint(
-                self._compute_dtype_params(role), model.module.cfg, path,
-                meta=meta)
-        return hf.save_hf_checkpoint(model.module.params, model.module.cfg,
-                                     path, meta=meta)
+            return hf.save_native_checkpoint(params, model.module.cfg, path,
+                                             meta=meta)
+        return hf.save_hf_checkpoint(params, model.module.cfg, path,
+                                     meta=meta)
 
     @torch.no_grad()
     def _compute_dtype_params(self, role: str) -> Dict[str, torch.Tensor]:
@@ -623,6 +687,8 @@ class TrainerWorker:
         own dtype) it is cloned."""
         engine = self.models[role].module
         cd = engine.compute_dtype
+        if getattr(engine, "mesh", None) is not None:
+            return engine.full_params(cd)  # cast, then gathered: new tensors
         out = {}
         for name, p in engine.params.items():
             p = p.detach()
@@ -637,6 +703,9 @@ class TrainerWorker:
         if transport == "stream":
             self._publish_weights_stream(role)
             return
+        if transport == "device":
+            self._publish_weights_device(role)
+            return
         if transport != "disk":
             raise ValueError(f"unknown weight_sync.transport {transport!r}")
         version = self.models[role].version.global_step
@@ -646,6 +715,8 @@ class TrainerWorker:
             self._save_role(role, path, fmt="native")
         save_secs = time.monotonic() - t0
         self._publish_done(save_secs)
+        if not self._rank0:
+            return
         # A stream-mode predecessor may have left its endpoint behind.
         self._clear_stale_transport_keys(role, keep="disk")
         self._bump_version(role, version, save_secs)
@@ -659,6 +730,8 @@ class TrainerWorker:
         with self._publish_span(role, version, "stream"):
             flat = convert.params_to_reference(
                 self._compute_dtype_params(role), model.module.cfg)
+            if not self._rank0:
+                return  # every rank joins the gather; rank 0 publishes
             pub = self._weight_publishers.get(role)
             if pub is None:
                 pub = WeightStreamPublisher(
@@ -676,6 +749,40 @@ class TrainerWorker:
         logger.info(f"published {role} weights v{version} -> {pub.endpoint} "
                     f"(stream publish {publish_secs:.2f}s; the gather "
                     "continues in the background)")
+
+    def _publish_weights_device(self, role: str) -> None:
+        """Transport ``device`` (reference ``_publish_weights_device:808``):
+        the role's weights in the compute dtype, whole on this device (the
+        layout the port's un-meshed servers hold), packed into one device
+        buffer whose CUDA IPC handle, manifest and digest go under
+        ``names.weight_device``. Off a mesh the masters are cast as they
+        are packed; on one, every rank gathers and rank 0 publishes. The
+        reference's ``_device_publish_shardings`` (a meshed fleet's layout)
+        comes with such a fleet."""
+        from areal_tpu_torch.parallel import reshard as rsh
+
+        model = self.models[role]
+        engine = model.module
+        version = model.version.global_step
+        t0 = time.monotonic()
+        with self._publish_span(role, version, "device"):
+            if getattr(engine, "mesh", None) is not None:
+                params = engine.full_params(engine.compute_dtype)
+            else:
+                params = {n: p.detach() for n, p in engine.params.items()}
+            if not self._rank0:
+                return
+            pub = rsh.publish_device(
+                self.cfg.experiment, self.cfg.trial, role, params,
+                version=version, dtype=engine.compute_dtype)
+        publish_secs = time.monotonic() - t0
+        self._publish_done(publish_secs)
+        telemetry.observe("trainer/weight_publish_latency_secs",
+                          publish_secs)
+        self._clear_stale_transport_keys(role, keep="device")
+        self._bump_version(role, version, publish_secs)
+        logger.info(f"published {role} weights v{version} on device "
+                    f"({len(pub.manifest)} leaves, {publish_secs:.3f}s)")
 
     @contextlib.contextmanager
     def _publish_span(self, role: str, version: int, transport: str):
@@ -695,7 +802,11 @@ class TrainerWorker:
     def _clear_stale_transport_keys(self, role: str, keep: str) -> None:
         """Drop the other transports' discovery keys, so nothing steers a
         server at a transport this trainer does not publish on."""
-        stale = {"stream": names.weight_stream, "device": names.weight_device}
+        stale = {"stream": names.weight_stream}
+        if keep != "device":  # the key, and this process's publication
+            from areal_tpu_torch.parallel import reshard as rsh
+
+            rsh.clear_publication(self.cfg.experiment, self.cfg.trial, role)
         stale.pop(keep, None)
         for key in stale.values():
             try:
@@ -726,7 +837,7 @@ class TrainerWorker:
 
         cuda = self.device.type == "cuda"
         info: Dict[str, Any] = {
-            "n_devices": 1,  # every role lives on this one device
+            "n_devices": self.cfg.dist_world,  # one device per rank
             "device_kind": (torch.cuda.get_device_name(self.device) if cuda
                             else str(self.device)),
             "roles": {},
@@ -782,6 +893,8 @@ class TrainerWorker:
         iface_states = {n: iface.state_dict()
                         for n, iface in self.interfaces.items()
                         if hasattr(iface, "state_dict")}
+        if not self._rank0:
+            return {"ok": True}
         # trainer_state.json also marks the directory complete
         # (recover.ckpt_is_complete): written whole or not at all.
         path = os.path.join(ckpt_dir, "trainer_state.json")
@@ -860,12 +973,51 @@ class TrainerWorker:
         p = self._server.poll(timeout_ms)
         if p is None:
             return False
+        if p.handle_name != "fetch":
+            # _handle_fetch broadcasts its own batch after rank 0's read;
+            # every other request is replayed as it came
+            self._bcast(("cmd", p.handle_name, p.data, p.mb_spec,
+                         p.pre_hooks, p.post_hooks))
+            self._followers_told_exit |= p.handle_name == "exit"
         self._dispatch(p)
         self._server.reply(p)
         return True
 
+    def _follow_once(self) -> None:
+        """A rank > 0: receive one broadcast request and replay it
+        (reference ``_follow_once:1070``)."""
+        msg = self._bcast(None)
+        if msg[0] == "fetch":
+            self._store_batch(msg[1])
+            return
+        _, handle_name, data, mb_spec, pre, post = msg
+        p = Payload(handler=self.cfg.handler, handle_name=handle_name,
+                    data=data, mb_spec=mb_spec, pre_hooks=pre,
+                    post_hooks=post)
+        self._dispatch(p)
+        if p.exception:
+            # A failure that fails alike on every rank keeps the group in
+            # step (rank 0 logs it and serves on). A rank-local failure of
+            # a handler that mutates state leaves this rank's weights or
+            # store apart from the group's: fail loudly instead.
+            if handle_name in ("mfc", "restore", "clear"):
+                raise RuntimeError(
+                    f"rank {self.cfg.dist_rank} replay of state-mutating "
+                    f"{handle_name} failed; exiting so that the group does "
+                    f"not diverge: {p.exception}")
+            logger.error(f"rank {self.cfg.dist_rank} replay of "
+                         f"{handle_name} failed (read-only; staying in "
+                         f"step): {p.exception}")
+
     def run(self) -> None:
         self.setup()
+        if not self._rank0:
+            try:
+                while not self._exiting:
+                    self._follow_once()
+            finally:
+                self.close()
+            return
         # The heartbeat publishes names.compile_inflight while a kernel
         # library builds (the null watch reports none).
         ctrl = WorkerControl(self.cfg.experiment, self.cfg.trial,
@@ -891,6 +1043,10 @@ class TrainerWorker:
                 memwatch.sample()
                 telemetry.set_gauge("trainer/store_size", len(self.store))
         finally:
+            if self.cfg.dist_world > 1 and not self._followers_told_exit:
+                # rank 0 left without the master's exit (a control-plane
+                # stop): release the ranks waiting on its next broadcast
+                self._bcast(("cmd", "exit", None, None, [], []))
             ctrl.close()
             self.close()
 
@@ -915,6 +1071,12 @@ class TrainerWorker:
         for pub in self._weight_publishers.values():
             pub.close()
         self._weight_publishers.clear()
+        if self.cfg.weight_sync.transport == "device" and self._rank0:
+            from areal_tpu_torch.parallel import reshard as rsh
+
+            for role in self.models:
+                rsh.clear_publication(self.cfg.experiment, self.cfg.trial,
+                                      role)
         if self._profiler is not None:  # this worker armed observability
             self._profiler = None
             self._ledger.flush()

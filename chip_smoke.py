@@ -279,8 +279,11 @@ Phases (any failed check raises, and the script exits non-zero):
      half python code (2-4 stdin/stdout cases each), through the
      launcher's supervisor. The script SIGKILLs ``reward0`` after step 1,
      ``rollout0`` after step 2 and the generation fleet (server and
-     manager) after step 3, each once its next incarnation registered
-     again. While the loop runs: the open /dev/nvidia* nodes of the
+     manager) after step 3 (as the trainer publishes that step's
+     version), and waits after each kill until the worker's next
+     incarnation has registered; the trainer holds step 4, outside its MFCs' timing, until the
+     fleet's respawn has registered (fast steps could otherwise end the
+     loop first). While the loop runs: the open /dev/nvidia* nodes of the
      reward workers (the trainer and the fleet the control), each reward worker's /metrics.json, and ``perf_probe
      reward-bench`` (32 seeded tasks) at the live fleet. Checks: 4 steps
      with finite losses; restarts {reward: 1, rollout: 1, gen_fleet: 1},
@@ -457,8 +460,9 @@ Phases (any failed check raises, and the script exits non-zero):
      [2, 1792], timed against SDPA. Then Qwen3-30B-A3B at full width and
      depth (48 layers, hidden 2048, 128 experts of 768, top-8; 56.9 GiB
      of bf16 weights made on the card from seed 0) served as (y) (8
-     concurrent byte-token requests, a 16-token greedy request twice, K1
-     n_layers x the prefills). On the same model: the batch's prefill with
+     concurrent byte-token requests of 24-38 new tokens since PR 16,
+     64-120 before, a 16-token greedy request twice, K1 n_layers x the
+     prefills). On the same model: the batch's prefill with
      each layer's K1 output against the plain attention on that layer's own
      q, k, v (tolerance one bf16 ulp at max|plain|: 2**(floor(log2 max) -
      7); pad rows 0); the same prefill through the plain attention, whose
@@ -489,6 +493,45 @@ Phases (any failed check raises, and the script exits non-zero):
      attention as (h). Last, an HF directory of the 2-layer model in
      ``Qwen3MoeForCausalLM``'s layout from seed 0 reads back through
      ``load_hf_model`` with its config and every weight equal.
+(bb) multi-GPU parallelism, part one, every earlier engine gone. First
+     the mesh step: a one-rank NCCL process group
+     (``parallel/distributed.py initialize(..., force=True)``) and a
+     ``make_mesh(ParallelSpec())`` mesh on the card, so that the DTensor
+     masters (``parallel/sharding.py`` placements), the cast-then-gather
+     (the identity at degree 1) and the optimizer on local shards run;
+     then (g)'s recipe, model and batch (24 layers, 8 micro-batches of
+     [2, 1792]) on the mesh engine from the same seed-0 weights, one
+     warm-up and 3 timed steps with the engine's phase timing on, as (g)
+     ran them on the plain engine ((g)'s run is the plain one: its
+     stats, its masters after the last step, copied to the host before
+     (h), and its times). Checks: loss and pre-clip grad norm of every
+     step within 1e-5 relative of (g)'s, every master after the last step
+     within 1e-6 absolute, and in each timed step K2 and K3 launched
+     n_layers x micro-batches and K1 twice that ((g) checks its own).
+     Prints ms per step, fwd-bwd and optimizer ms and peak memory of
+     both. At degree 1 no collective moves a byte on the card, so this
+     measures the mesh machinery's cost, not a sharded step's. (Two ranks sharing the card over gloo are not run: DTensor's
+     redistribute over gloo on CUDA tensors dies with SIGSEGV in torch
+     2.11's functional collectives; PERF.md §7.) Then the device
+     transport at full depth: a port server (bf16, seed 0) holding one
+     retained KV state, and a TrainerWorker in a spawned process with a
+     bf16 engine on the seed-1 weights publishing over ``device``; the
+     manager's ``_update_payload`` gives the ``/update_weights`` body.
+     Checks: 200 with the version, ``/health`` at it, the live weights
+     equal to the published ones bit for bit, the KV store empty, greedy
+     tokens equal to a fresh server's on the seed-1 weights, K1 n_layers x
+     the prefills after the swap. The same publisher then publishes over
+     disk and over stream, each swapped in (200) with its publish-to-reply
+     seconds at the same depth. Last the gates, each 500 with the version
+     and the greedy tokens unchanged: a wrong digest, a skewed version, and
+     a publisher killed (SIGKILL) after its publication (v5, published
+     over v4, which no consumer opened). Checks too that the trainer's
+     memory drops back when a consumed publication (v1) and an unopened
+     one (v4) are replaced (the IPC buffer freed). Prints each
+     transport's trainer-side publish seconds and publish-to-reply seconds
+     (from the publish's start to the server's reply), the consume's
+     buffer open and device copy ms, and the trainer's and the server's
+     memory around each swap.
 
 The script exits 0 only when every phase passed and the last line is
 printed; any failed check raises and exits 1, as does a run where
@@ -914,11 +957,12 @@ def bench_batch(vocab: int):
 
 
 def make_model(name: str, cfg, params, train: bool = True,
-               device: str = "cuda"):
+               device: str = "cuda", parallel_spec=None):
     """A Model on bench.py's backend settings (bench.py:56-96): bf16
     compute, f32 masters and AdamW lr 1e-5 with bf16 moments when
     training, "dots" remat, log-prob chunks of 512. Without ``train``, an
-    inference engine that keeps ``params`` as they are."""
+    inference engine that keeps ``params`` as they are. ``parallel_spec``
+    puts the engine on a mesh over the current process group."""
     from areal_tpu_torch.api.model import FinetuneSpec, Model, make_backend
     from areal_tpu_torch.api.train_config import OptimizerConfig
     from areal_tpu_torch.backend import torch_train  # noqa: F401 (registry)
@@ -930,12 +974,13 @@ def make_model(name: str, cfg, params, train: bool = True,
                                   mu_dtype="bfloat16", nu_dtype="bfloat16"),
         device=device, compute_dtype="bfloat16", length_bucket=512,
         rows_bucket=4, seqs_bucket=16, remat="dots", logprob_chunk=512,
+        parallel_spec=parallel_spec,
     )
     return backend.initialize(Model(name, (cfg, params)),
                               FinetuneSpec(1, 512, 64))
 
 
-def build_trainer(cfg):
+def build_trainer(cfg, parallel_spec=None, device: str = "cuda"):
     """bench.py's backend and PPO recipe (bench.py:56-96) on the port."""
     from areal_tpu_torch.algorithms.ppo import (
         PPOActorInterface,
@@ -943,8 +988,9 @@ def build_trainer(cfg):
     )
     from areal_tpu_torch.models.transformer import init_params
 
-    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
-    model = make_model("actor", cfg, params)
+    params = init_params(cfg, seed=0, device=device, dtype=torch.bfloat16)
+    model = make_model("actor", cfg, params, device=device,
+                       parallel_spec=parallel_spec)
     del params  # the engine holds f32 masters
     hp = PPOHyperparameters(ppo_n_minibatches=1, adv_norm=True, kl_ctl=0.0,
                             disable_value=True)
@@ -1003,6 +1049,14 @@ def run_train_slice(fa, cfg, model, iface, batch, spec, steps: int = 3) -> dict:
         "grad_norm": [s["grad_norm"] for s in stats],
         "importance_weight": [s["importance_weight"] for s in stats],
         "warmup_loss": warm["actor_loss"], "param_max_abs_change": moved,
+        # (bb)'s plain engine: the mesh engine runs this recipe again
+        "baseline": {
+            "warm": warm, "stats": stats, "n_mbs": n_mbs,
+            "ms_per_step": 1e3 * wall / steps,
+            "fwd_bwd_ms": 1e3 * sum(p["fwd_bwd"] for p in phases) / steps,
+            "optimizer_ms": 1e3 * sum(p["optimizer"] for p in phases) / steps,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "masters": {n: t.cpu() for n, t in eng.full_params().items()}},
     }
     for s in stats:
         check(math.isfinite(s["actor_loss"]) and math.isfinite(s["grad_norm"])
@@ -4146,6 +4200,24 @@ def wait_master_step(exp, n: int, deadline: float, run: LoopRun) -> int:
     raise SmokeFailure(f"the master never reached step {n}")
 
 
+def wait_trained_version(exp, n: int, deadline: float, run: LoopRun) -> int:
+    """Poll the actor's version in name_resolve, which the trainer bumps as
+    it publishes each train step's weights, until it reaches ``n``. It reads
+    while the master is inside a step (in (r), one the trainer holds),
+    where the master's control status answers only between steps."""
+    from areal_tpu_torch.base import name_resolve, names
+
+    key = names.model_version(exp.experiment_name, exp.trial_name, "actor")
+    while time.monotonic() < deadline:
+        check(run.thread.is_alive(), f"supervised loop ended before "
+              f"version {n}: {run.box.get('error')!r}")
+        v = nr_value(name_resolve, key)
+        if v is not None and int(v) >= n:
+            return int(v)
+        time.sleep(0.05)
+    raise SmokeFailure(f"the trainer never published version {n}")
+
+
 def kill_and_respawn(sup, exp, name: str, deadline: float,
                      run: LoopRun) -> dict:
     """SIGKILL ``name``'s process and wait for its next incarnation's
@@ -4245,14 +4317,16 @@ def check_loop_stats(stats, what: str) -> None:
                   f"{what} step {i}: {k} = {st.get(k)}")
 
 
-def run_reward_fleet(cfg, tmp: str, device: str = "cuda", steps: int = 5,
+def run_reward_fleet(cfg, tmp: str, device: str = "cuda", steps: int = 4,
                      n_prompts: int = 4, group_size: int = 16,
                      chunk_tokens: int = 128, max_new_tokens: int = 256,
                      timeout: float = 600.0, extra=(), hf_dir=None) -> dict:
     """(r): (o)'s loop with the reward fleet on (two reward workers) on a
     seeded half-math half-code dataset, through the launcher's
     supervisor, killing a reward worker, the rollout worker and the
-    generation fleet after steps 1, 2 and 3. The checks of the module
+    generation fleet after steps 1, 2 and 3. The trainer holds the step
+    after the last kill until that kill's respawn has registered, so that
+    fast steps cannot end the loop first. The checks of the module
     docstring; the launch checks only on the card."""
     import functools
     import glob
@@ -4281,9 +4355,17 @@ def run_reward_fleet(cfg, tmp: str, device: str = "cuda", steps: int = 5,
     ctx = multiprocessing.get_context("spawn")
     pipes = {k: ctx.Pipe(duplex=False)
              for k in ("trainer", "gen_fleet", "rollout")}
+    last_kill = REWARD_KILLS[-1][0]
+    check(steps > last_kill, f"(r): {steps} steps leave no step after the "
+          f"kill after step {last_kill}")
+    respawned = os.path.join(tmp, "last_respawn_registered")
+    # the held MFCs are a step's inference ones: they run before its train
+    # MFCs, so the critic_train of the step whose actor_train moved the
+    # version to last_kill goes on, and the step after it waits
     probes = {
-        "trainer": functools.partial(async_trainer_probe,
-                                     pipes["trainer"][1]),
+        "trainer": functools.partial(
+            gated_trainer_probe, pipes["trainer"][1], respawned, last_kill,
+            role="actor", mfcs=("ref_inf", "actor_inf", "critic_inf")),
         "gen_fleet": functools.partial(async_fleet_probe,
                                        pipes["gen_fleet"][1],
                                        first_digest=True),
@@ -4299,10 +4381,11 @@ def run_reward_fleet(cfg, tmp: str, device: str = "cuda", steps: int = 5,
     try:
         kills = []
         for after, name in REWARD_KILLS:
-            step = wait_master_step(exp, after, deadline, run)
+            step = wait_trained_version(exp, after, deadline, run)
             kills.append({**kill_and_respawn(launcher.supervisor, exp, name,
                                              deadline, run),
                           "killed_after_step": step})
+        open(respawned, "w").close()  # the held step goes on
         # while the loop runs: CUDA contexts, the fleet's counters, and a
         # reward-bench burst at the live fleet
         contexts = card_contexts(launcher.supervisor) if cuda else None
@@ -4311,6 +4394,7 @@ def run_reward_fleet(cfg, tmp: str, device: str = "cuda", steps: int = 5,
         bench = perf_probe.reward_bench(exp.experiment_name, "r", 32)
         result = run.join(max(deadline - time.monotonic(), 1))
     finally:
+        open(respawned, "w").close()
         if run.thread.is_alive():
             launcher.request_drain()
             run.thread.join(120)
@@ -5120,17 +5204,21 @@ def check_scores(step: int, scores: dict, cfg, n_records: int, k: int,
               "bfloat16")
 
 
-def gated_trainer_probe(conn, flag: str, hold_from: int, worker):
-    """(u)'s trainer probe: :func:`async_trainer_probe`, and every train
-    step from global step ``hold_from`` on held, outside its timing, until
-    ``flag`` exists (at most 600 s), so that the launcher's evaluator
-    scores the save of step ``hold_from`` while the run lasts."""
+def gated_trainer_probe(conn, flag: str, hold_from: int, worker,
+                        role: str = "default", mfcs=None):
+    """(u)'s and (r)'s trainer probe: :func:`async_trainer_probe`, and every
+    MFC (of ``mfcs`` when given) from ``role``'s global step ``hold_from``
+    on held, outside its timing, until ``flag`` exists (at most 600 s): in
+    (u) so that the launcher's evaluator scores the save of step
+    ``hold_from`` while the run lasts, in (r) so that the loop outlasts its
+    last kill's respawn."""
     done = async_trainer_probe(conn, worker)
     handle = worker._handle_mfc
 
     def gated(p):
         if (p.data.get("method") != "noop"
-                and worker.models["default"].version.global_step
+                and (mfcs is None or p.data.get("mfc") in mfcs)
+                and worker.models[role].version.global_step
                 >= hold_from):
             deadline = time.monotonic() + 600
             while not os.path.exists(flag) and time.monotonic() < deadline:
@@ -6375,9 +6463,12 @@ def serve_moe(fa, cfg, params, eos: int, device: str = "cuda") -> dict:
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    # the repeated greedy request is 16 tokens: decode runs ~0.24 s a step
-    # here (PERF.md), and repeatability shows in 16 as in 64
+    # the repeated greedy request is 16 tokens and the eight requests ask
+    # for 24-38 (not (y)'s 64-120): decode runs ~0.24-0.36 s a step here
+    # (PERF.md), and every check shows in a short budget as in a long one;
+    # the cut makes room for (bb)
     rec = {"serve": serve_family(fa, cfg, params, eos, device,
+                                 new_tokens=tuple(range(24, 40, 2)),
                                  compare_prefill=False, greedy_tokens=16)}
     if cuda:
         rec["serve"]["server_peak_gb"] = (
@@ -6681,6 +6772,383 @@ def run_moe(fa, tmp: str, device: str = "cuda", cfg=None,
     return rec
 
 
+# ---------------- (bb) multi-GPU parallelism, part one ----------------
+
+def empty_cache(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def mesh_train_steps(fa, model, iface, batch, spec, steps: int,
+                     device="cuda") -> dict:
+    """One warm-up and ``steps`` timed PPO steps of ``model``, timed as (g)
+    times them (the engine's phase timing on): the stats, ms per step and
+    per phase, peak memory, K1-K3 launches of each timed step, and the
+    masters after the last step (on the host)."""
+    eng = model.module
+    mem_reset(device)
+    warm = iface.train_step(model, batch, spec)
+    sync(device)
+    eng.time_phases = True
+    stats, launches, phases = [], [], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fa.reset_launch_count()
+        stats.append(iface.train_step(model, batch, spec))
+        launches.append(fa.launch_counts())
+        phases.append(eng.last_phase_secs)
+    sync(device)
+    wall = time.perf_counter() - t0
+    eng.time_phases = False
+    return {"warm": warm, "stats": stats, "launches": launches,
+            "ms_per_step": 1e3 * wall / steps,
+            "fwd_bwd_ms": 1e3 * sum(p["fwd_bwd"] for p in phases) / steps,
+            "optimizer_ms": 1e3 * sum(p["optimizer"] for p in phases) / steps,
+            "peak_gb": mem_peak(device),
+            "n_mbs": len(eng._split(batch, spec)),
+            "masters": {n: t.cpu() for n, t in eng.full_params().items()}}
+
+
+def compare_mesh_run(name: str, got: dict, want: dict, n_layers: int,
+                     n_mbs: int, rel: float = 1e-5, atol: float = 1e-6,
+                     device: str = "cuda") -> dict:
+    """``got``'s steps against ``want``'s: loss and pre-clip grad norm
+    within ``rel``, every master within ``atol``, and in each of ``got``'s
+    timed steps K2/K3 launched n_layers x ``n_mbs`` (the micro-batches the
+    rank ran) and K1 twice that (on the card: the CPU launches none)."""
+    rows = []
+    for a, b in zip([got["warm"]] + got["stats"],
+                    [want["warm"]] + want["stats"]):
+        rows.append({k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                     for k in ("actor_loss", "grad_norm")})
+    worst = {k: max(r[k] for r in rows) for k in rows[0]}
+    gm, wm = got["masters"], want["masters"]
+    check(set(gm) == set(wm), f"{name}: master names differ")
+    diffs = {n: (gm[n].float() - wm[n].float()).abs().max().item()
+             for n in wm}
+    worst_master = max(diffs.values())
+    check(worst["actor_loss"] <= rel and worst["grad_norm"] <= rel,
+          f"{name}: loss / grad norm off the plain engine's by {worst} "
+          f"(limit {rel} relative)")
+    check(worst_master <= atol,
+          f"{name}: a master {max(diffs, key=diffs.get)} differs by "
+          f"{worst_master} (limit {atol})")
+    per = n_layers * n_mbs
+    want_l = {"flash_attention_fwd": 2 * per,
+              "flash_attention_bwd_dkv": per, "flash_attention_bwd_dq": per}
+    for i, l in enumerate(got["launches"] if device == "cuda" else ()):
+        check(l == want_l, f"{name} step {i}: K1-K3 launches {l}, expected "
+              f"{want_l} ({n_layers} layers x {n_mbs} micro-batches)")
+    return {"loss_rel_max": worst["actor_loss"],
+            "grad_norm_rel_max": worst["grad_norm"],
+            "master_abs_max": worst_master}
+
+
+def run_mesh_step(fa, cfg, batch, spec, tmp: str, plain=None,
+                  steps: int = 3, device: str = "cuda") -> dict:
+    """(bb1): the engine on a one-rank NCCL mesh against the plain engine
+    from the same weights. ``plain`` is (g)'s run of the plain engine
+    (``run_train_slice``'s ``baseline``: the same recipe, weights, batch
+    and steps); None runs the plain engine here first (the CPU's
+    rehearsal). Checks and numbers as in the docstring."""
+    from areal_tpu_torch.base import name_resolve
+    from areal_tpu_torch.parallel import distributed as dist
+
+    old_repo = name_resolve.DEFAULT_REPO
+    name_resolve.reconfigure(name_resolve.NameResolveConfig(
+        type="nfs", nfs_record_root=os.path.join(tmp, "name_resolve")))
+    rec: dict = {}
+    runs = {} if plain is None else {"plain": plain}
+    try:
+        check(dist.initialize("chip_smoke", "bb", 0, 1, device=device,
+                              force=True), "no one-rank process group")
+        check(torch.distributed.get_backend()
+              == ("nccl" if device == "cuda" else "gloo"),
+              "the one-rank group is not on NCCL")
+        for label, pspec in (("plain", None), ("mesh", "d1")):
+            if label in runs:
+                continue
+            model, iface = build_trainer(cfg, parallel_spec=pspec,
+                                         device=device)
+            eng = model.module
+            if pspec is not None:
+                check(eng.mesh is not None and eng.mesh.size() == 1
+                      and type(eng.params["layers.0.wq.weight"]).__name__
+                      == "DTensor", "the mesh engine's masters are not "
+                      "DTensors on a one-rank mesh")
+            runs[label] = mesh_train_steps(fa, model, iface, batch, spec,
+                                           steps, device)
+            del model, iface, eng
+            empty_cache(device)
+        check(len(runs["plain"]["stats"]) == steps,
+              f"the plain run took {len(runs['plain']['stats'])} timed "
+              f"steps, the mesh run {steps}")
+        cmp = compare_mesh_run("mesh d1", runs["mesh"], runs["plain"],
+                               cfg.n_layers, runs["mesh"]["n_mbs"],
+                               device=device)
+        rec["d1"] = {
+            "layers": cfg.n_layers, "n_mbs": runs["mesh"]["n_mbs"],
+            "steps": steps,
+            **{f"{k}{sfx}": runs[run][k] for k in (
+                "ms_per_step", "fwd_bwd_ms", "optimizer_ms", "peak_gb")
+               for run, sfx in (("mesh", ""), ("plain", "_plain"))},
+            "loss": [s["actor_loss"] for s in runs["mesh"]["stats"]],
+            "grad_norm": [s["grad_norm"] for s in runs["mesh"]["stats"]],
+            "launches": runs["mesh"]["launches"], **cmp}
+        mesh_launches = {k: sum(l[k] for l in runs["mesh"]["launches"])
+                         for k in KERNEL_NAMES}
+        runs.clear()
+        empty_cache(device)
+    finally:
+        dist.shutdown()
+        name_resolve.DEFAULT_REPO = old_repo
+    print("(bb) mesh step d1", json.dumps(rec["d1"]), flush=True)
+    rec["launches"] = mesh_launches
+    return rec
+
+
+def device_publisher(conn, cfg, tmp: str, exp: str, trial: str,
+                     device: str) -> None:
+    """(bb2)'s trainer side, in a process of its own: a bf16 engine on the
+    seed-1 weights behind a TrainerWorker. On ``conn`` it sends ("ready",
+    card GB in use), then serves ("publish", transport, version) with
+    ("published", record) until "close"; on a failure it sends ("error",
+    traceback)."""
+    import traceback
+
+    try:
+        from areal_tpu_torch.api.train_config import WeightSyncConfig
+        from areal_tpu_torch.base import name_resolve
+        from areal_tpu_torch.models.transformer import init_params
+        from areal_tpu_torch.system.trainer_worker import (
+            TrainerWorker,
+            TrainerWorkerConfig,
+        )
+
+        name_resolve.reconfigure(name_resolve.NameResolveConfig(
+            type="nfs", nfs_record_root=os.path.join(tmp, "name_resolve")))
+        src = make_model("device_src", cfg, init_params(
+            cfg, seed=1, device=device, dtype=torch.bfloat16), train=False,
+            device=device)
+        w = TrainerWorker(TrainerWorkerConfig(
+            experiment=exp, trial=trial, device=device,
+            realloc_dir=os.path.join(tmp, "realloc"),
+            weight_sync=WeightSyncConfig(transport="device")))
+        w.models["actor"] = src  # setup()-free: the publish half only
+        try:
+            conn.send(("ready", mem_reset(device)))
+            while True:
+                if not conn.poll(600):
+                    raise TimeoutError("no command from the parent in 600 s")
+                msg = conn.recv()
+                if msg == "close":
+                    break
+                _, transport, version = msg
+                w.cfg.weight_sync.transport = transport
+                src.version.global_step = version
+                if device == "cuda":  # IPC buffers whose consumer is done
+                    torch.cuda.ipc_collect()
+                before = mem_reset(device)
+                t0 = time.perf_counter()
+                w.publish_weights("actor")
+                publish_s = time.perf_counter() - t0
+                conn.send(("published", {
+                    "publish_s": publish_s, "peak_gb": mem_peak(device),
+                    "allocated_gb_before": before,
+                    "allocated_gb_after": mem_reset(device)}))
+        finally:
+            w.close()
+        conn.send(("closed", None))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+        raise
+
+
+def run_device_sync(fa, cfg, eos: int, tmp: str, device="cuda") -> dict:
+    """(bb2): the device transport at full depth, then disk and stream
+    from the same publisher in the same run, then the three gates. Checks
+    and numbers as in the docstring."""
+    import multiprocessing
+    import types
+
+    from areal_tpu_torch.base import name_resolve
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.parallel import reshard as rsh
+    from areal_tpu_torch.system.generation_server import (
+        GenerationServer,
+        GenerationServerConfig,
+    )
+    from areal_tpu_torch.system.gserver_manager import GserverManager
+
+    exp, trial = "chip_smoke", "bb"
+    old_repo = name_resolve.DEFAULT_REPO
+    name_resolve.reconfigure(name_resolve.NameResolveConfig(
+        type="nfs", nfs_record_root=os.path.join(tmp, "name_resolve")))
+    scfg = GenerationServerConfig(experiment=exp, trial=trial,
+                                  chunk_tokens=32, eos_token_id=eos,
+                                  pad_token_id=eos, batch_window_ms=2)
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, eos, (n,), generator=gen).tolist()
+               for n in (41, 190, 333)]
+    manager = types.SimpleNamespace(cfg=types.SimpleNamespace(
+        experiment=exp, trial=trial, model_role="actor"))
+
+    def payload(v):  # what the manager's fanout would send for version v
+        return GserverManager._update_payload(
+            manager, v, os.path.join(tmp, "realloc", "actor", str(v)))
+
+    def greedy(url, i):
+        return post(url, {"prompt_ids": prompts[i],
+                          "gconfig": {"greedy": True}, "max_tokens": 16})
+
+    ctx = multiprocessing.get_context("spawn")
+    conn, child_conn = ctx.Pipe()
+    proc = ctx.Process(target=device_publisher, daemon=True,
+                       name="device-publisher",
+                       args=(child_conn, cfg, tmp, exp, trial, device))
+    proc.start()
+    server = None
+    rec: dict = {}
+    try:
+        src_params = init_params(cfg, seed=1, device=device,
+                                 dtype=torch.bfloat16)
+        ref_server = GenerationServer(scfg, cfg, src_params, device)
+        url = ref_server.start()
+        try:
+            want_new = [greedy(url, i)["output_ids"]
+                        for i in range(len(prompts))]
+        finally:
+            ref_server.stop()
+        del ref_server
+        rec["publisher_ready_gb"] = from_publisher(conn, proc, "ready")
+        server = GenerationServer(scfg, cfg, init_params(
+            cfg, seed=0, device=device, dtype=torch.bfloat16), device)
+        url = server.start()
+        post(url, {"prompt_ids": prompts[1], "gconfig": {"greedy": True},
+                   "max_tokens": 64, "rid": "bb"})
+        check(server.stats()["kv_states"] == 1, "no retained KV state")
+
+        def swap(transport, v):
+            resident = mem_reset(device)
+            t0 = time.perf_counter()
+            conn.send(("publish", transport, v))
+            pub = from_publisher(conn, proc, "published")
+            body = payload(v)
+            status, reply = post_json(url, "/update_weights", body)
+            out = {"publish_s": pub["publish_s"],
+                   "publish_to_reply_s": time.perf_counter() - t0,
+                   "server_update_s": reply.get("latency_s"),
+                   "trainer_peak_gb": pub["peak_gb"],
+                   "trainer_gb_before": pub["allocated_gb_before"],
+                   "trainer_gb_after": pub["allocated_gb_after"],
+                   "server_peak_gb": mem_peak(device),
+                   "server_gb_before": resident,
+                   "payload": sorted(body)}
+            return status, reply, body, out
+
+        # (1) device
+        status, reply, body, out = swap("device", 1)
+        check(body.get("device") is True and body["version"] == 1,
+              f"the manager's payload for a device publication: {body}")
+        check(status == 200 and reply["version"] == 1,
+              f"device update: {status} {reply}")
+        check(health(url)["version"] == 1, "device: /health not at v1")
+        check(server.stats()["kv_states"] == 0, "device: KV store not cleared")
+        live = server.model.state_dict()
+        check(set(live) == set(src_params) and all(
+            live[k].dtype == src_params[k].dtype
+            and torch.equal(live[k], src_params[k]) for k in src_params),
+            "device: the live weights are not the published ones bit for bit")
+        del live
+        out["consume_open_ms"] = 1e3 * rsh.LAST_CONSUME["open_s"]
+        out["consume_copy_ms"] = 1e3 * rsh.LAST_CONSUME["copy_s"]
+        out["bytes"] = rsh.LAST_CONSUME["nbytes"]
+        p0 = server.stats()["prefill_calls"]
+        fa.reset_launch_count()
+        got = [greedy(url, i)["output_ids"] for i in range(len(prompts))]
+        k1 = fa.launch_count()
+        prefills = server.stats()["prefill_calls"] - p0
+        check(got == want_new, "device: greedy tokens differ from a fresh "
+              "server's on the seed-1 weights")
+        check(device != "cuda" or k1 == cfg.n_layers * prefills > 0,
+              f"device: K1 launches {k1} != {cfg.n_layers} x {prefills} "
+              "prefills after the swap")
+        out.update(k1_launches=k1, prefills=prefills)
+        rec["device"] = out
+        print("(bb) device transport", json.dumps(out), flush=True)
+
+        # (2) disk and stream, the same publisher at the same depth
+        for transport, v in (("disk", 2), ("stream", 3)):
+            status, reply, body, out = swap(transport, v)
+            check(status == 200 and reply["version"] == v,
+                  f"{transport} update: {status} {reply}")
+            check(("path" if transport == "disk" else "endpoint") in body,
+                  f"the manager's payload for {transport}: {body}")
+            rec[transport] = out
+            print(f"(bb) {transport} transport", json.dumps(out), flush=True)
+        check([greedy(url, i)["output_ids"] for i in range(len(prompts))]
+              == want_new, "stream: greedy tokens changed")
+
+        # (3) the gates: a new device publication (v4), then a wrong
+        # digest, a skewed version and a killed publisher
+        conn.send(("publish", "device", 4))
+        rec["republish"] = from_publisher(conn, proc, "published")
+        digest = payload(4)["digest"]
+        gates = {}
+        for gate, bad in (("digest", {"digest": "0" * 8, "version": 4}),
+                          ("version", {"digest": digest, "version": 5})):
+            status, reply = post_json(url, "/update_weights",
+                                      {"device": True, "role": "actor",
+                                       **bad})
+            gates[gate] = (status, reply.get("error", ""))
+        # v4 was never opened: replacing it must free it too (the
+        # publisher gives back the count of every share no consumer took)
+        conn.send(("publish", "device", 5))
+        rec["republish_unconsumed"] = from_publisher(conn, proc, "published")
+        if device == "cuda":
+            held = {k: rec[k]["allocated_gb_after"]
+                    for k in ("republish", "republish_unconsumed")}
+            check(abs(rec["disk"]["trainer_gb_after"]
+                      - rec["device"]["trainer_gb_before"]) < 0.05,
+                  f"the consumed v1 buffer was not freed by the next "
+                  f"publish: {rec['device']} -> {rec['disk']}")
+            check(abs(held["republish_unconsumed"] - held["republish"])
+                  < 0.05, f"the unopened v4 buffer was not freed when v5 "
+                  f"replaced it: the trainer holds {held} GiB")
+        digest = payload(5)["digest"]
+        proc.kill()
+        proc.join(timeout=30)
+        status, reply = post_json(url, "/update_weights", {
+            "device": True, "role": "actor", "digest": digest, "version": 5})
+        gates["dead_publisher"] = (status, reply.get("error", ""))
+        for gate, want_text in (("digest", "digest mismatch"),
+                                ("version", "version skew"),
+                                ("dead_publisher", "is gone")):
+            status, err = gates[gate]
+            check(status == 500 and want_text in err,
+                  f"device gate {gate}: {status} {err}")
+        check(health(url)["version"] == 3, "a failed gate moved the version")
+        check([greedy(url, i)["output_ids"] for i in range(len(prompts))]
+              == want_new, "a failed gate changed the served tokens")
+        rec["gates"] = {g: e[:160] for g, (_, e) in gates.items()}
+        rec["k1_launches"] = rec["device"]["k1_launches"]
+    finally:
+        if server is not None:
+            server.stop()
+        if proc.is_alive():
+            try:
+                conn.send("close")
+            except OSError:
+                pass
+            proc.join(timeout=30)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(timeout=10)
+        conn.close()
+        name_resolve.DEFAULT_REPO = old_repo
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -6800,6 +7268,7 @@ def main() -> None:
     batch = bench_batch(cfg.vocab_size)
     spec = MicroBatchSpec(max_tokens_per_mb=4096)
     train = run_train_slice(fa, cfg, model, iface, batch, spec)
+    plain_run = train.pop("baseline")  # (bb)'s plain engine
     print("train slice", json.dumps(train), f"({card})", flush=True)
 
     # (h) one micro-batch through K1-K3 against the plain attention
@@ -6939,7 +7408,7 @@ def main() -> None:
     t_r = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_reward_")
     try:
-        fleet = run_reward_fleet(cut, tmp, steps=4, hf_dir=cut_hf)
+        fleet = run_reward_fleet(cut, tmp, hf_dir=cut_hf)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("(r) reward fleet and respawns", json.dumps({
@@ -7070,12 +7539,53 @@ def main() -> None:
             "warmup_step_s")},
         "hf": moe["hf"], "phase_aa_s": time.monotonic() - t_aa,
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+    torch.cuda.empty_cache()
+
+    # (bb) multi-GPU parallelism, part one: the train step on a one-rank
+    # NCCL mesh, then the device transport at full depth beside disk and
+    # stream
+    t_bb = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        mesh = run_mesh_step(fa, cfg, batch, spec, tmp, plain=plain_run)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    t_bb2 = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_device_")
+    try:
+        device_sync = run_device_sync(fa, cfg, eos, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("(bb) mesh step and device transport", json.dumps({
+        "mesh_step_d1": {k: mesh["d1"][k] for k in (
+            "ms_per_step", "ms_per_step_plain", "fwd_bwd_ms",
+            "fwd_bwd_ms_plain", "optimizer_ms", "optimizer_ms_plain",
+            "peak_gb", "peak_gb_plain", "loss_rel_max", "grad_norm_rel_max",
+            "master_abs_max")},
+        "publish_to_reply_s": {t: device_sync[t]["publish_to_reply_s"]
+                               for t in ("device", "disk", "stream")},
+        "publish_s": {t: device_sync[t]["publish_s"]
+                      for t in ("device", "disk", "stream")},
+        "device_copy_ms": device_sync["device"]["consume_copy_ms"],
+        "trainer_peak_gb": device_sync["device"]["trainer_peak_gb"],
+        "server_peak_gb": device_sync["device"]["server_peak_gb"],
+        "gates": device_sync["gates"],
+        "trainer_gb_after_publish": {
+            k: device_sync[k]["trainer_gb_after"]
+            for k in ("device", "disk", "stream")},
+        "trainer_gb_republish": [
+            device_sync[k]["allocated_gb_after"]
+            for k in ("republish", "republish_unconsumed")],
+        "phase_bb_mesh_s": t_bb2 - t_bb,
+        "phase_bb_device_s": time.monotonic() - t_bb2,
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
     print("phase seconds", json.dumps({
         "a_to_n": t_async - t_start, "o": t_q - t_async,
         "q1_q2": t_obs - t_q, "q3_p": t_r - t_obs,
         "r": t_s - t_r, "s": t_t - t_s, "t": t_u - t_t, "u": t_v - t_u,
         "v": t_w - t_v, "w": t_x - t_w, "x": t_y - t_x, "y": t_z - t_y,
-        "z": t_aa - t_z, "aa": time.monotonic() - t_aa,
+        "z": t_aa - t_z, "aa": t_bb - t_aa, "bb": time.monotonic() - t_bb,
         "script": time.monotonic() - t_start}), flush=True)
 
     lib_line = ("areal_tpu/ops/pallas/flash_attention.py:200 backward: the "
@@ -7090,12 +7600,14 @@ def main() -> None:
              "relaunch_drain": relaunch_launches,
              "elastic_fleet": elastic_launches,
              "sft_auto_eval": sft_eval["launches"],
-             "reward_model": rw["launches"], "gpt2": gpt2["launches"]}
+             "reward_model": rw["launches"], "gpt2": gpt2["launches"],
+             "mesh_step": mesh["launches"]}
     k1_paths = {"serve": serve_launches, "weight_sync": wsync["k1_launches"],
                 "serving": serving_k1,
                 **{k: v["flash_attention_fwd"] for k, v in paths.items()},
                 "fused_rew_ref": fused["launches"]["flash_attention_fwd"],
-                "multi_turn": multi["k1_launches"]}
+                "multi_turn": multi["k1_launches"],
+                "device_sync": device_sync["k1_launches"]}
     k1_paths["sft_auto_eval_children"] = sum(
         sft_eval["eval_child_k1"].values())
     k1_paths["sft_auto_eval"] -= k1_paths["sft_auto_eval_children"]

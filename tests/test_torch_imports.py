@@ -274,3 +274,38 @@ def test_entry_points_need_a_device():
 
     with pytest.raises(OSError):
         decode_bench(f"http://127.0.0.1:{find_free_port()}", n_requests=2)
+
+
+_MESH_NO_TORCH = """
+import sys
+for blocked in ("torch", "jax"):
+    sys.modules[blocked] = None
+from areal_tpu_torch.parallel import mesh
+from areal_tpu_torch.apps.launcher import derive_chip_assignment
+am = mesh.AllocationMode.parse("gen.d1+f2t2")
+assert am.decoupled and am.global_spec.mesh_shape() == (1, 2, 1, 1, 1, 2)
+assert derive_chip_assignment("gen.d1+f2", 3) == {"trainer": [0, 1],
+                                                  "gen": [2]}
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "parallel.mesh", "parallel.distributed", "parallel.sharding",
+    "parallel.reshard"])
+def test_parallel_modules_import(module):
+    """The multi-GPU modules import on their own and start no process
+    group (the mesh's torch import waits for ``make_mesh``)."""
+    import importlib
+
+    importlib.import_module(f"areal_tpu_torch.{module}")
+    assert not torch.distributed.is_initialized()
+
+
+def test_allocation_and_gpu_assignment_need_no_torch():
+    """The launcher parses allocations and assigns GPUs with torch
+    blocked: the experiment configs and the launcher's process load none."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _MESH_NO_TORCH], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr

@@ -10,7 +10,8 @@ trainer tests:
    KV states are gone;
  - a failed update of any kind (dead endpoint, corrupted / reordered /
    digest-mismatched stream, a wrong or missing tensor, an unknown or
-   malformed version, a bad path, the device transport) answers 500 and
+   malformed version, a bad path, a device update with no publication)
+   answers 500 and
    leaves the old weights, version and stats live;
  - disk and stream deliver identical state dicts;
  - the trainer's stream and disk publishes end to end;
@@ -19,6 +20,7 @@ trainer tests:
 """
 
 import json
+import os
 import threading
 import time
 import urllib.error
@@ -436,13 +438,45 @@ def test_trainer_disk_publish_end_to_end(port_nr, tmp_path):
         server.stop()
 
 
-def test_device_transport_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        WeightSyncConfig(transport="device")
+def test_device_transport_raises(port_nr, tmp_path):
+    """``transport="device"`` is accepted and publishes: the trainer's
+    compute-dtype weights land in one packed buffer whose record, with its
+    version and digest, stands under ``names.weight_device``, the other
+    transports' keys are gone and the version is bumped. What still raises
+    is an unknown transport, and a device consume that finds no
+    publication."""
+    from areal_tpu_torch.parallel import reshard as rsh
+
     with pytest.raises(ValueError):
         WeightSyncConfig(transport="carrier_pigeon")
     assert WeightSyncConfig().transport == "stream"
-    w = TrainerWorker(TrainerWorkerConfig())
-    w.cfg.weight_sync.transport = "device"
-    with pytest.raises(ValueError):
+    assert WeightSyncConfig(transport="device").transport == "device"
+    tcfg, model = _engine()
+    w = TrainerWorker(TrainerWorkerConfig(
+        experiment=EXP, trial=TRIAL, realloc_dir=str(tmp_path / "realloc"),
+        weight_sync=WeightSyncConfig(transport="device"), device="cpu"))
+    w.device = torch.device("cpu")
+    w.models["actor"] = model
+    name_resolve.add(names.weight_stream(EXP, TRIAL, "actor"), "tcp://x:1",
+                     replace=True)
+    try:
         w.publish_weights("actor")
+        rec = rsh.lookup_publication(EXP, TRIAL, "actor")
+        assert rec["version"] == 3 and rec["pid"] == os.getpid()
+        assert rec["digest"] == rsh.manifest_digest(rec["manifest"], 3)
+        assert all(e["dtype"] == "bfloat16" for e in rec["manifest"])
+        assert name_resolve.get(names.model_version(EXP, TRIAL, "actor")) \
+            == "3"
+        with pytest.raises(name_resolve.NameEntryNotFoundError):
+            name_resolve.get(names.weight_stream(EXP, TRIAL, "actor"))
+        assert not (tmp_path / "realloc").exists()
+        live = {k: torch.zeros_like(v, dtype=torch.bfloat16)
+                for k, v in model.module.params.items()}
+        got = rsh.consume_device(EXP, TRIAL, "actor", 3, rec["digest"], live)
+        for k, v in model.module.params.items():
+            assert torch.equal(got[k], v.detach().to(torch.bfloat16)), k
+    finally:
+        w.close()
+    assert rsh.lookup_publication(EXP, TRIAL, "actor") is None
+    with pytest.raises(rsh.DeviceReshardError, match="no device publication"):
+        rsh.consume_device(EXP, TRIAL, "actor", 3, "0" * 8, {})
