@@ -91,11 +91,38 @@ for one instead:
  - ``Optimizer.step`` runs on the local shards.
 
 ``forward`` (inference) runs every micro-batch on every rank, each on its
-tp share, and ``generate`` runs over weights gathered whole. ``sp``,
-``pp`` and ``ep`` above 1, and MoE layers under ``tp``, raise: they come
-with zig-zag ring attention, the 1F1B pipeline and expert parallelism
-(ROADMAP.md Queue 1). The ``train/pp_engaged`` and ``train/ring_engaged``
-gauges come with them.
+tp share, and ``generate`` runs over weights gathered whole.
+
+Sequence parallelism over ``sp`` (``parallel/ring.py``): the ``sp`` ranks
+of one data rank run the same micro-batches, each on its shard of every
+row in the zig-zag layout, attention through the ring over the ``sp``
+group. Each rank runs the head and the log-prob (or the values) on its own
+tokens; only those per-token results are gathered over ``sp`` (the next-
+token labels are formed before the layout), so every loss function sees
+whole rows; each ``sp`` rank backpropagates through its own tokens and the
+masters' gradients are partial over ``sp`` (summed by the cast's
+backward). Where the ring's gate fails, every ``sp`` rank runs whole rows
+and weighs its loss by ``1/sp``.
+
+Pipeline parallelism over ``pp`` (``parallel/pipeline.py``): stage ``k``
+holds only its own layers' masters; the embedding, the final norm and the
+head are held on every stage, used on stage 0 (the lookup) and the last
+(the head: a tied embedding's gradient sums across the stages), and their
+gradients are summed over the ``pp`` group once a step, after the
+micro-batches. The pipeline splits each micro-batch's rows into its
+micro-batches (1F1B, or GPipe under ``AREAL_PP_SCHEDULE=gpipe``); the
+last stage's loss counts, the others weigh theirs by 0
+and backpropagate what reaches them over the pipeline. An MoE model's aux
+is each stage's share of its layers, added to every stage's loss. The
+inference forward broadcasts the last stage's outputs over ``pp``;
+``generate`` and ``full_params`` gather every stage's layers.
+
+``train/pp_engaged`` and ``train/ring_engaged`` are set from the gates
+(``pipeline.pp_engagement``) on every uploaded train batch. Without a
+mesh, an engine whose ``_spec`` has ``sp`` or ``pp`` above 1 runs the same
+ring and pipeline in one process on its device: every rank's shard and
+every stage, one after another (how the card holds them against plain
+attention). ``ep`` above 1, and MoE layers under ``tp`` or ``sp``, raise: they come with expert parallelism (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -135,7 +162,10 @@ from areal_tpu_torch.models.transformer import (
     head_param_name,
 )
 from areal_tpu_torch.ops.xent import gather_logprobs
+from areal_tpu_torch.parallel import pipeline as ppl
+from areal_tpu_torch.parallel import ring as ring_mod
 from areal_tpu_torch.parallel import sharding as psh
+from areal_tpu_torch.parallel.mesh import ParallelSpec
 from areal_tpu_torch.system import memwatch
 
 # Loss functions receive (logits or [R, L] logprobs, batch) and return
@@ -324,17 +354,15 @@ class _CastGather(torch.autograd.Function):
 
 def _check_mesh(mesh, cfg: TransformerConfig) -> None:
     """Refuse the mesh axes and layouts the port does not run yet."""
-    later = {"sp": "zig-zag ring attention", "pp": "the 1F1B pipeline",
-             "ep": "expert parallelism"}
-    for axis, piece in later.items():
-        if psh.mesh_degree(mesh, axis) > 1:
-            raise NotImplementedError(
-                f"{axis} > 1 needs {piece}, which the port does not have "
-                f"yet ({piece}, ROADMAP.md Queue 1)")
-    if cfg.moe is not None and psh.mesh_degree(mesh, "tp") > 1:
+    if psh.mesh_degree(mesh, "ep") > 1:
         raise NotImplementedError(
-            "tensor parallelism of MoE layers comes with expert "
-            "parallelism (expert parallelism, ROADMAP.md Queue 1)")
+            "ep > 1 needs expert parallelism, which the port does not have "
+            "yet (expert parallelism, ROADMAP.md Queue 1)")
+    for axis, what in (("tp", "tensor"), ("sp", "sequence")):
+        if cfg.moe is not None and psh.mesh_degree(mesh, axis) > 1:
+            raise NotImplementedError(
+                f"{what} parallelism of MoE layers comes with expert "
+                f"parallelism (expert parallelism, ROADMAP.md Queue 1)")
 
 
 class TorchTrainEngine(TrainableEngine):
@@ -359,6 +387,12 @@ class TorchTrainEngine(TrainableEngine):
     ):
         self.cfg = cfg
         self.mesh = mesh
+        # sp / pp: over the mesh's groups (set by _setup_mesh); without a
+        # group, every rank and stage runs in this one process
+        self._spec = ParallelSpec()
+        self._sp_rank, self._sp_group = 0, None
+        self._stage, self._pp_group = None, None
+        self._reports_data = self._reports_aux = True
         if mesh is not None:
             _check_mesh(mesh, cfg)
             if device is None and mesh.device_type == "cpu":
@@ -424,6 +458,16 @@ class TorchTrainEngine(TrainableEngine):
         mesh, cfg = self.mesh, self.cfg
         tp = psh.mesh_degree(mesh, "tp")
         layouts = psh.param_layouts(cfg, tp)
+        deg = {a: psh.mesh_degree(mesh, a) for a in psh.AXIS_ORDER}
+        coords = {a: psh.mesh_coord(mesh, a) for a in psh.AXIS_ORDER}
+        self._spec = ParallelSpec(**deg)
+        if deg["sp"] > 1:
+            self._sp_rank, self._sp_group = coords["sp"], mesh.get_group("sp")
+        if deg["pp"] > 1:
+            # each stage holds its own layers' masters only
+            self._stage, self._pp_group = coords["pp"], mesh.get_group("pp")
+            self.params = {n: t for n, t in self.params.items()
+                           if self._stage_of(n) in (None, self._stage)}
         self.params = psh.shard_params(self.params, mesh, cfg)
         # The cast's DTensors live on the sub-mesh of the axes of degree >
         # 1 (DTensor's host cost grows with the mesh's dims), or nowhere.
@@ -443,19 +487,62 @@ class TorchTrainEngine(TrainableEngine):
         rows = psh.kv_head_rows(cfg, tp, psh.mesh_coord(mesh, "tp"))
         self._kv_rows = {n: rows for n in self.params if rows is not None
                          and n.split(".", 2)[-1] in psh._KV_SUFFIXES}
-        coords = {a: psh.mesh_coord(mesh, a) for a in psh.AXIS_ORDER}
+        # a stage's layers are its own (no other stage counts them); every
+        # other replicated element is counted on the axis's first rank
         self._norm_weight = torch.tensor(
             [float(all(coords[a] == 0 for a in psh.AXIS_ORDER
-                       if a not in layouts[n]))
+                       if a not in layouts[n] and not (
+                           a == "pp" and self._stage_of(n) is not None)))
              for n in self.params], device=self.device)
-        deg = {a: psh.mesh_degree(mesh, a) for a in psh.AXIS_ORDER}
         self._data_degree = deg["dp"] * deg["fsdp"] * deg["ep"]
         self._data_rank = ((coords["dp"] * deg["fsdp"] + coords["fsdp"])
                            * deg["ep"] + coords["ep"])
-        # one rank of each data shard reports its sums; rank 0 alone
-        # reports what every rank computed alike
-        self._reports_data = all(coords[a] == 0 for a in ("pp", "sp", "tp"))
+        # one rank of each data shard reports its sums (the loss is whole
+        # on every sp rank, and real on the last stage), each stage its
+        # layers' MoE aux; rank 0 alone reports what every rank computed
+        # alike
+        self._reports_aux = coords["sp"] == 0 and coords["tp"] == 0
+        self._reports_data = (self._reports_aux
+                              and coords["pp"] == deg["pp"] - 1)
         self._reports_all = all(c == 0 for c in coords.values())
+
+    def _stage_of(self, name: str) -> Optional[int]:
+        """The pipeline stage that holds parameter ``name`` (None: every
+        stage, outside the layers)."""
+        if not name.startswith("layers."):
+            return None
+        i = int(name.split(".", 2)[1])
+        for k, (lo, hi) in enumerate(ppl.stage_bounds(self.cfg.n_layers,
+                                                      self._spec.pp)):
+            if lo <= i < hi:
+                return k
+        raise ValueError(name)
+
+    def _parallel(self, batch) -> Tuple[Optional[ring_mod.RingCtx],
+                                        Optional[ppl.PipeCtx]]:
+        """The ring and pipeline contexts for a micro-batch: the ring when
+        ``sp > 1`` and its gate holds for the rows' shape, the pipeline
+        when ``pp > 1``."""
+        R, L = batch["tokens"].shape
+        spec, ring, pipe = self._spec, None, None
+        if ring_mod.ring_eligible(spec, self.cfg, R, L):
+            ring = ring_mod.RingCtx(
+                n=spec.sp, my=self._sp_rank, group=self._sp_group,
+                schedule=ring_mod.resolve_schedule(None, L, spec.sp))
+        if spec.pp > 1:
+            pipe = ppl.PipeCtx(pp=spec.pp, stage=self._stage,
+                               group=self._pp_group, sp=spec.sp)
+        return ring, pipe
+
+    def _loss_share(self, ring) -> float:
+        """The weight of this rank's head loss in its backward: 0 on a
+        stage before the last, ``1/sp`` where every sp rank ran whole rows
+        (the ring's gate failed), else 1."""
+        if self._stage is not None and self._stage != self._spec.pp - 1:
+            return 0.0
+        if self._sp_group is not None and ring is None:
+            return 1.0 / self._spec.sp
+        return 1.0
 
     def _local_params(self) -> List[torch.Tensor]:
         """The masters' local shards (the masters themselves off a mesh):
@@ -481,7 +568,33 @@ class TorchTrainEngine(TrainableEngine):
             if dtype is not None and t.is_floating_point():
                 t = t.to(dtype)  # cast, then gather
             out[n] = t if self.mesh is None else self._whole(n, t)
-        return out
+        return self._fill_stages(out, dtype)
+
+    def _fill_stages(self, out: Dict[str, torch.Tensor],
+                     dtype: Optional[torch.dtype] = None,
+                     prefix: str = "") -> Dict[str, torch.Tensor]:
+        """Under ``pp``, whole tensors (``prefix + name``) of every
+        stage's layers: each broadcast over the ``pp`` group from the stage
+        that holds it, in the model's order on every rank. ``dtype``: of
+        the tensors received (default the masters')."""
+        if self._pp_group is None:
+            return out
+        import torch.distributed as dist
+
+        ranks = dist.get_process_group_ranks(self._pp_group)
+        dt = dtype or next(iter(self.params.values())).dtype
+        full = dict(out)
+        for n, meta in self.model.state_dict().items():
+            k = self._stage_of(n)
+            if k is None:
+                continue
+            t = out.get(prefix + n)
+            if t is None:
+                t = torch.empty(meta.shape, dtype=dt, device=self.device)
+            t = t.contiguous()
+            dist.broadcast(t, ranks[k], group=self._pp_group)
+            full[prefix + n] = t
+        return full
 
     # -------------- internals --------------
 
@@ -501,6 +614,9 @@ class TorchTrainEngine(TrainableEngine):
                                   p.shape, p.stride())
             rows = None if full else self._kv_rows.get(n)
             out[n] = t if rows is None else t[rows]
+        if full:
+            with torch.no_grad():
+                return self._fill_stages(out, cd)
         return out
 
     def _hidden_or_logits(self, cast, batch, return_hidden: bool, remat,
@@ -509,13 +625,17 @@ class TorchTrainEngine(TrainableEngine):
         """The model's final hidden, logits, or a critic's values (cast to
         f32 after the head, as the reference does). An MoE model's aux goes
         into ``aux`` when a dict is given; ``rng`` draws its router
-        jitter."""
+        jitter. Under a multi-rank ring the hidden is this rank's shard in
+        the ring's layout, logits and values are gathered whole."""
+        ring, pipe = self._parallel(batch)
         out, _, moe_aux = torch.func.functional_call(
             self.model, cast, (batch["tokens"], batch["positions"]),
             dict(segment_ids=batch["segment_ids"], attn_impl=self.attn_impl,
                  remat=remat, return_kv=False, return_hidden=return_hidden,
-                 return_aux=True, rng=rng),
+                 return_aux=True, rng=rng, ring=ring, pipeline=pipe),
         )
+        if ring is not None and not ring.one_process and not return_hidden:
+            out = ring_mod.gather_sequence(out, ring)
         if aux is not None:
             aux.update(moe_aux)
         return out.float() if self.cfg.is_critic and not return_hidden else out
@@ -534,6 +654,10 @@ class TorchTrainEngine(TrainableEngine):
                                    remat=remat, aux=aux, rng=rng)
         L = h.shape[1]
         labels = PF.next_token_labels(batch["tokens"])
+        ring, _ = self._parallel(batch)
+        gather = ring is not None and not ring.one_process
+        if gather:  # labels formed before the layout, then this shard's
+            labels = ring_mod.shard_sequence(labels, ring)
         C = self.logprob_chunk or L
         if L % C != 0:
             C = L  # bucketing guarantees divisibility in practice
@@ -545,6 +669,8 @@ class TorchTrainEngine(TrainableEngine):
             else _chunk_scores(h[:, c:c + C], labels[:, c:c + C], head)
             for c in range(0, L, C)
         ], dim=1)
+        if gather:
+            s = ring_mod.gather_sequence(s, ring)
         return PF.shift_mask_scores(s, batch["segment_ids"])
 
     def _use_chunked_logprobs(self, fn) -> bool:
@@ -587,11 +713,20 @@ class TorchTrainEngine(TrainableEngine):
                                          remat=self.remat, aux=aux, rng=rng)
         loss_sum, stats = loss_fn(out, batch)
         loss = loss_sum / max(denom, 1.0)
+        share = self._loss_share(self._parallel(batch)[0])
+        total = loss * share if share != 1.0 else loss
+        # what this rank reports: the head loss where it reports data, the
+        # aux (its stage's share) where it reports aux
+        report = loss.detach() if self._reports_data else \
+            torch.zeros_like(loss.detach())
         if aux:
-            loss = loss + aux["aux_total"] * aux_scale
+            aux_loss = aux["aux_total"] * aux_scale
+            total = total + aux_loss
+            if self._reports_aux:
+                report = report + aux_loss.detach()
             stats = dict(stats, **{f"moe_{k}": v for k, v in aux.items()})
-        (loss * scale if scale != 1.0 else loss).backward()
-        return loss.detach() * scale, {k: v.detach() for k, v in stats.items()}
+        (total * scale if scale != 1.0 else total).backward()
+        return report * scale, {k: v.detach() for k, v in stats.items()}
 
     def accumulate_grads(self, ub: UniformBatch, loss_fn: LossFn,
                          idxs: List[int], weights: List[float],
@@ -625,7 +760,23 @@ class TorchTrainEngine(TrainableEngine):
         if loss_acc is None:  # a data rank with no micro-batch of its own
             loss_acc = torch.zeros((), device=self.device)
             stats_acc = {k: torch.zeros_like(v) for k, v in stats.items()}
+        if self._pp_group is not None:
+            self._sum_over_stages()
         return loss_acc, stats_acc
+
+    @torch.no_grad()
+    def _sum_over_stages(self) -> None:
+        """The gradients of the parameters every stage holds (embedding,
+        final norm, head), summed over the ``pp`` group: stage 0 saw the
+        lookup, the last stage the head."""
+        import torch.distributed as dist
+
+        for n, loc in zip(self.params, self._local_params()):
+            if self._stage_of(n) is not None:
+                continue
+            if loc.grad is None:
+                loc.grad = torch.zeros_like(loc)
+            dist.all_reduce(loc.grad, group=self._pp_group)
 
     # -------------- upload-once uniform batches --------------
 
@@ -654,6 +805,10 @@ class TorchTrainEngine(TrainableEngine):
             mbs = self._split(input_, mb_spec)
             telemetry.set_gauge("infer/pack_fill", mbu.pack_fill(mbs))
         R, L = mbs[0].layout.shape
+        if train:
+            pp_on, ring_on = ppl.pp_engagement(self._spec, self.cfg, R, L)
+            telemetry.set_gauge("train/pp_engaged", pp_on)
+            telemetry.set_gauge("train/ring_engaged", ring_on)
         S = round_up(max(len(mb.seq_mask) for mb in mbs), self.seqs_bucket)
 
         def up(a: np.ndarray) -> torch.Tensor:
@@ -793,12 +948,15 @@ class TorchTrainEngine(TrainableEngine):
         with torch.no_grad():
             sq = (torch.stack(torch._foreach_norm(grads)) ** 2
                   * self._norm_weight).sum()
-            parts = [(v, self._reports_data) for v in stats_acc.values()]
+            parts = [(v, self._reports_aux if k.startswith("moe_")
+                      else self._reports_data) for k, v in stats_acc.items()]
             parts += [(v, self._reports_all)
                       for v in (extra_fetch or {}).values()]
-            parts.append((loss_acc, self._reports_data))
+            parts.append((loss_acc, True))  # masked where it was made
+            # a rank that does not report sends zeros (never 0 * a NaN)
             flat_dev = torch.cat(
-                [v.detach().float().reshape(-1) * float(keep)
+                [v.detach().float().reshape(-1) if keep else
+                 torch.zeros(v.numel(), device=self.device)
                  for v, keep in parts] + [sq.reshape(1)])
             dist.all_reduce(flat_dev)
             flat_dev[-1] = flat_dev[-1].sqrt()
@@ -898,6 +1056,12 @@ class TorchTrainEngine(TrainableEngine):
                                              remat=False)
             if post_hook is not None:
                 out = post_hook(out, batch)
+            if self._pp_group is not None:  # the last stage's is real
+                import torch.distributed as dist
+
+                out = out.contiguous()
+                dist.broadcast(out, dist.get_process_group_ranks(
+                    self._pp_group)[-1], group=self._pp_group)
             if out.dtype == torch.bfloat16:  # numpy has no bf16
                 out = out.float()
             outs.append(out.cpu().numpy())
@@ -949,6 +1113,9 @@ class TorchTrainEngine(TrainableEngine):
             for kind, moments in (("mu", opt.mu), ("nu", opt.nu)):
                 state.update({f"{kind}/{name}": self._whole(name, m)
                               for name, m in zip(self.params, moments)})
+                if moments:
+                    state = self._fill_stages(state, moments[0].dtype,
+                                              prefix=f"{kind}/")
         params = self.full_params()
         if self.mesh is not None and self.mesh.get_rank() != 0:
             return 0  # every rank gathers; rank 0 writes

@@ -7,9 +7,9 @@ name-resolve repository.
 
 Differences: a rank holds one device, so an allocation's trainer spec
 gives its number of trainer processes (the reference's
-``trainer_dist_procs``, which the port derives); ``sp``,
-``pp`` and ``ep`` above 1 raise until zig-zag ring attention, the 1F1B
-pipeline and expert parallelism are ported (ROADMAP.md Queue 1); a role's
+``trainer_dist_procs``, which the port derives; ``sp`` and ``pp`` enter
+that world as every other axis); ``ep`` above 1 raises until expert
+parallelism is ported (ROADMAP.md Queue 1); a role's
 ``type.is_critic`` travels into its init dict, where the port's trainer
 factory builds the value head (the reference drops it: ROADMAP.md Queue
 3); a real tokenizer needs ``transformers``, which the port does not use,
@@ -30,8 +30,7 @@ from areal_tpu_torch.parallel.mesh import AllocationMode, ParallelSpec
 
 
 # The mesh axes the port does not run yet, and the piece that brings each.
-LATER_AXES = {"sp": "zig-zag ring attention", "pp": "the 1F1B pipeline",
-              "ep": "expert parallelism"}
+LATER_AXES = {"ep": "expert parallelism"}
 
 
 def trainer_world(alloc: AllocationMode) -> int:
@@ -51,8 +50,8 @@ def trainer_world(alloc: AllocationMode) -> int:
 
 
 def resolve_allocation(cfg: BaseExperimentConfig) -> AllocationMode:
-    """Parse ``allocation_mode`` (default: one device). Raises for ``sp``,
-    ``pp`` or ``ep`` above 1, for trainer specs of different worlds
+    """Parse ``allocation_mode`` (default: one device). Raises for ``ep``
+    above 1, for trainer specs of different worlds
     (:func:`trainer_world`), and, on ``cuda``, for a world of several
     ranks wider than the visible GPUs (one rank needs none to build its
     config: the launcher checks the card)."""

@@ -23,9 +23,16 @@ and the training forward: no KV stack (``return_kv=False``), the final
 hidden instead of logits (``return_hidden=True``) and per-layer remat
 (``_maybe_checkpoint:385``). Tensor parallelism runs inside
 :class:`Block` through ``parallel/sharding.py constrain`` (the rank's heads
-and MLP columns, Megatron's two sums over ``tp``). Ring and pipeline
-parallelism, and the MoE expert-parallel path, are still to come
-(ROADMAP.md Queue 1).
+and MLP columns, Megatron's two sums over ``tp``). Ring attention over
+``sp`` (``parallel/ring.py``) runs when ``forward`` is given a ``RingCtx``:
+the zig-zag layout is applied to tokens, positions and segment ids at the
+boundary (RoPE then reads the permuted global positions), a multi-rank
+ring keeps this rank's shard and returns its output in that layout, a
+one-process ring holds every shard and returns natural order. The
+training forward hands the layers to the pipeline over ``pp``
+(``parallel/pipeline.py``, the reference's ``forward:460-472``) when given
+a ``PipeCtx``. The MoE expert-parallel path is still to come (ROADMAP.md
+Queue 1).
 
 Learned positions differ from the reference in one respect, by design. The
 reference adds ``pos_embedding[positions]`` (``forward:430``), whose gather
@@ -55,6 +62,9 @@ from areal_tpu_torch import resolve_device
 from areal_tpu_torch.models import moe as moemod
 from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.ops.attention import decode_attention, packed_attention
+from areal_tpu_torch.parallel import pipeline as ppl
+from areal_tpu_torch.parallel.mesh import ParallelSpec
+from areal_tpu_torch.parallel import ring as ring_mod
 from areal_tpu_torch.parallel.sharding import constrain, tp_active
 
 KVCache = Dict[str, torch.Tensor]
@@ -195,10 +205,13 @@ class Block(nn.Module):
         kv_valid: Optional[torch.Tensor],
         attn_impl: str,
         jitter_seed: Optional[int] = None,  # MoE router jitter (training)
+        ring: Optional[ring_mod.RingCtx] = None,  # packed: ring attention
     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor],
                Optional[Dict[str, torch.Tensor]]]:
         """Returns (h, (k, v), aux): aux is the MoE layer's routing stats,
-        None for a dense layer."""
+        None for a dense layer. With ``ring``, the packed attention runs as
+        ring attention over tensors in the ring's layout (the reference's
+        ``_block:199-218``)."""
         cfg = self.cfg
         B, T, _ = h.shape
         dh = cfg.head_dim
@@ -216,7 +229,10 @@ class Block(nn.Module):
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
 
-        if cache_kv is None:
+        if cache_kv is None and ring is not None:
+            attn = ring_mod.ring_attention_inline(q, k, v, segment_ids, ring)
+            new_kv = (k, v)
+        elif cache_kv is None:
             attn = packed_attention(
                 q, k, v, segment_ids, segment_ids,
                 q_positions=positions, kv_positions=positions, causal=True,
@@ -336,6 +352,8 @@ class Transformer(nn.Module):
         return_hidden: bool = False,  # skip the head; return final hidden
         return_aux: bool = False,  # also return the MoE aux
         rng: Optional[torch.Generator] = None,  # MoE router jitter (train)
+        ring: Optional[ring_mod.RingCtx] = None,  # sp: ring attention
+        pipeline: Optional[ppl.PipeCtx] = None,  # pp: pipelined layers
     ):
         """Returns (output, kv), or (output, kv, aux) with ``return_aux``:
         output is logits [B, T, V] (a critic's values [B, T]; the final
@@ -356,13 +374,33 @@ class Transformer(nn.Module):
         ``cache_write_index`` (in place) and attend the ``kv_valid`` slots.
         ``remat`` recomputes each layer in the backward (reference
         ``_maybe_checkpoint:385``); it applies to the training forward only
-        (packed mode with ``return_kv=False``)."""
+        (packed mode with ``return_kv=False``).
+
+        ``ring`` (packed, ``return_kv=False``): attention over ``sp`` as
+        ring attention. A multi-rank ring's output is this rank's shard in
+        the ring's layout (``ring.gather_sequence`` makes it whole); a
+        one-process ring's is whole, in natural order. ``pipeline``
+        (the training forward): the layers as a pipeline over ``pp`` when
+        ``pipeline.pick_pp_microbatches`` returns a count, else its stages
+        in order as one micro-batch; on a process that runs one stage,
+        only the last stage's output is real (zeros elsewhere) and the aux
+        covers this stage's layers. The router jitter does not reach the
+        pipeline, as in the reference."""
         cfg = self.cfg
         decode = kv_cache is not None
         if remat not in _REMAT_MODES:
             raise ValueError(f"unknown remat mode {remat!r}")
         if remat and (decode or return_kv):
             raise ValueError("remat needs the packed forward with return_kv=False")
+        if (ring is not None or pipeline is not None) and (decode
+                                                            or return_kv):
+            raise ValueError("ring and pipeline need the packed forward "
+                             "with return_kv=False")
+        B, T = tokens.shape
+        if ring is not None:
+            tokens, positions, segment_ids = (
+                ring_mod.shard_sequence(x, ring)
+                for x in (tokens, positions, segment_ids))
         h = self.embedding(tokens)
         if cfg.scale_embeddings:  # gemma normalizer
             h = h * torch.tensor(cfg.hidden_dim ** 0.5, dtype=h.dtype)
@@ -375,22 +413,30 @@ class Transformer(nn.Module):
         seeds = [None] * cfg.n_layers
         if (rng is not None and cfg.moe is not None
                 and cfg.moe.input_jitter_eps > 0 and not decode
-                and not return_kv):
+                and not return_kv and pipeline is None):
             seeds = torch.randint(0, 2 ** 62, (cfg.n_layers,), generator=rng,
                                   device=rng.device).tolist()
         ks, vs, auxes = [], [], []
-        for i, layer in enumerate(self.layers):
+        if pipeline is not None:
+            spec = ParallelSpec(pp=pipeline.pp, sp=pipeline.sp)
+            n_micro = ppl.pick_pp_microbatches(
+                spec, cfg, B, seq_len=T) or 1
+            h, pipe_aux = ppl.pipeline_apply_layers(
+                cfg, self.layers, h, cos, sin, segment_ids, positions,
+                pipeline, n_micro, attn_impl=attn_impl, remat=remat,
+                ring=ring)
+        for i, layer in enumerate(self.layers if pipeline is None else ()):
             if remat:
                 h, aux = _checkpointed_layer(layer, remat, h, cos, sin,
                                              segment_ids, positions,
-                                             attn_impl, seeds[i])
+                                             attn_impl, seeds[i], ring=ring)
             else:
                 cache = ((kv_cache["k"][i], kv_cache["v"][i]) if decode
                          else None)
                 h, (k, v), aux = layer(
                     h, cos, sin, None if decode else segment_ids,
                     None if decode else positions, cache, cache_write_index,
-                    kv_valid, attn_impl, seeds[i],
+                    kv_valid, attn_impl, seeds[i], ring,
                 )
                 if return_kv and not decode:
                     ks.append(k)
@@ -398,6 +444,8 @@ class Transformer(nn.Module):
             if aux is not None:
                 auxes.append(aux)
         h = self.final_ln(h)
+        if ring is not None and ring.one_process:
+            h = ring_mod.unshard_sequence(h, ring)
         if decode:
             kv = kv_cache
         elif return_kv:
@@ -406,7 +454,8 @@ class Transformer(nn.Module):
             kv = None
         out = h if return_hidden else self.apply_head(h)
         if return_aux:
-            return out, kv, moemod.reduce_layer_aux(auxes)
+            return out, kv, (pipe_aux if pipeline is not None
+                             else moemod.reduce_layer_aux(auxes))
         return out, kv
 
     def apply_head(self, h: torch.Tensor) -> torch.Tensor:
@@ -467,19 +516,21 @@ def _save_matmuls(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 
 def _checkpointed_layer(layer: Block, remat, h, cos, sin, segment_ids,
-                        positions, attn_impl, jitter_seed=None):
+                        positions, attn_impl, jitter_seed=None, ring=None,
+                        params: Optional[Dict[str, torch.Tensor]] = None):
     """One layer under ``torch.utils.checkpoint``; returns (h, aux). Its
-    parameters go in as explicit inputs and are swapped back in for the
-    recompute, so the recompute sees the tensors the forward saw even when a
-    caller ran the forward through ``torch.func.functional_call`` (the train
-    engine's compute-dtype copies of its masters)."""
-    names, tensors = zip(*layer.named_parameters())
+    parameters (``params``, or the module's own) go in as explicit inputs
+    and are swapped back in for the recompute, so the recompute sees the
+    tensors the forward saw even when a caller ran the forward through
+    ``torch.func.functional_call`` (the train engine's compute-dtype copies
+    of its masters)."""
+    names, tensors = zip(*(params or dict(layer.named_parameters())).items())
 
     def run(h, *tensors):
         out, _, aux = torch.func.functional_call(
             layer, dict(zip(names, tensors)),
             (h, cos, sin, segment_ids, positions, None, None, None, attn_impl,
-             jitter_seed),
+             jitter_seed, ring),
         )
         return out, aux
 

@@ -6,8 +6,9 @@ The port's counterpart of ``areal_tpu/parallel/sharding.py``
 ``constrain``). The reference writes a ``PartitionSpec`` per leaf and lets
 GSPMD insert the collectives. The port keeps the same table, written as
 one DTensor placement per mesh axis (``mesh.AXIS_ORDER``) in its own
-layout (``nn.Linear`` weights are ``[out, in]``, layers are not stacked, so
-the reference's ``pp`` entry of a stacked leaf has no counterpart), and
+layout (``nn.Linear`` weights are ``[out, in]``, layers are not stacked:
+the reference's ``pp`` entry of a stacked leaf becomes the pipeline stage
+that holds the layer, ``backend/torch_train.py``), and
 places the collectives by hand, Megatron's way, at two kinds of point:
 
  - ``constrain(x, "column_in")``: the replicated hidden state enters a
@@ -196,15 +197,19 @@ def compute_placements(name: str, layout: Layout) -> tuple:
 def grad_placements(name: str, layout: Layout, cfg: TransformerConfig,
                     tp: int) -> tuple:
     """The placements of the local gradient of a master's compute copy:
-    partial over the data axes (each data rank saw its own micro-batches);
+    partial over the data axes (each data rank saw its own micro-batches)
+    and over ``sp`` (each sequence rank backpropagated its own tokens);
     over ``tp``, the shard where the copy is sharded, partial where each
-    rank computed only its heads' share, else replicated."""
+    rank computed only its heads' share, else replicated. Over ``pp`` it
+    is replicated: a stage's layers are its own, and the engine sums the
+    parameters every stage holds over the ``pp`` group itself, once a
+    step (``backend/torch_train.py``)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     suffix = name.split(".", 2)[-1]
     out = []
     for a in AXIS_ORDER:
-        if a in DATA_AXES:
+        if a in DATA_AXES or a == "sp":
             out.append(Partial())
         elif a != "tp":
             out.append(Replicate())

@@ -124,6 +124,8 @@ class RewardServiceClient:
         # may still be registering at launch).
         self._fleet_seen = bool(urls)
         self.counts: "collections.Counter[str]" = collections.Counter()
+        # Calls whose callers were cancelled, still out (see _post).
+        self._unsettled: set = set()
 
     def _count(self, what: str) -> None:
         self.counts[what] += 1
@@ -208,9 +210,9 @@ class RewardServiceClient:
                         await asyncio.sleep(self.policy.delay(attempt))
                     continue
                 try:
-                    status, out = await session.post(
-                        f"{url}/{self._endpoint(task)}", task,
-                        timeout=http_total)
+                    status, out = await self._post(
+                        session, f"{url}/{self._endpoint(task)}", task,
+                        http_total)
                     if 400 <= status < 500 and status not in (408, 429):
                         # A deterministic rejection (a malformed task): no
                         # replica accepts it; degrade now.
@@ -244,6 +246,33 @@ class RewardServiceClient:
                 return 0.0
             return await asyncio.to_thread(_grade_local, task,
                                            list(self.cfg.languages))
+
+    async def _post(self, session, url: str, task, timeout: float):
+        """``session.post``. A cancelled caller returns at once, but its
+        request may already be on the wire and a worker may still grade
+        it: the call runs on, is counted as ``remote`` if it comes back
+        graded, and :meth:`settle` waits for such calls (bounded)."""
+        call = asyncio.ensure_future(session.post(url, task, timeout=timeout))
+        try:
+            return await asyncio.shield(call)
+        except asyncio.CancelledError:
+            self._unsettled.add(call)
+            call.add_done_callback(self._settled)
+            raise
+
+    def _settled(self, call: asyncio.Future) -> None:
+        self._unsettled.discard(call)
+        if (not call.cancelled() and call.exception() is None
+                and call.result()[0] == 200):
+            self._count("remote")
+
+    async def settle(self, grace_secs: float) -> int:
+        """Wait up to ``grace_secs`` for the calls whose callers were
+        cancelled, so that the counts match the fleet's when the owner
+        exits with grades in flight. Returns how many are still out."""
+        if self._unsettled:
+            await asyncio.wait(set(self._unsettled), timeout=grace_secs)
+        return len(self._unsettled)
 
     async def abatch(self, tasks: List[Dict[str, Any]]) -> List[float]:
         from areal_tpu_torch.system.http import AsyncHttp

@@ -91,6 +91,10 @@ from areal_tpu_torch.system.streams import TrajectoryPuller, TrajectoryPusher
 
 logger = logging.getLogger("system.rollout")
 
+# How long an exiting worker waits for the grades its cancelled rollouts
+# left on the reward fleet (well inside the supervisor's exit window).
+GRADE_SETTLE_SECS = 10.0
+
 
 @dataclasses.dataclass
 class RolloutWorkerConfig:
@@ -513,6 +517,11 @@ class RolloutWorker:
                 t.cancel()
             if pending:
                 await asyncio.gather(*pending, return_exceptions=True)
+            if svc is not None:
+                # grades those rollouts left on the fleet: counted if they
+                # come back within a short grace, so the client's counts
+                # are final when the worker reports them
+                await svc.settle(GRADE_SETTLE_SECS)
             session.close()
             if self._sender is not None:
                 # a clean exit: in-flight acks get a bounded window, so the

@@ -250,9 +250,10 @@ Phases (any failed check raises, and the script exits non-zero):
      prefills. Prints the seeded extend and unseeded prefill ms and how
      many of the eight greedy continuations equal reuse-off's.
      (q2) classes, on one server (telemetry on, batches of up to 16,
-     queue_limit_interactive=4) behind a manager: 64 rollouts of 256
-     tokens at temperature 1 (two 128-token chunks each, through the
-     manager's leases) in flight, then a burst of 16 interactive requests
+     queue_limit_interactive=4) behind a manager: 64 rollouts of 160
+     tokens at temperature 1 (two chunks each, 128 and 32 tokens, through
+     the manager's leases; 256 before the script outgrew its time limit)
+     in flight, then a burst of 16 interactive requests
      (32 greedy tokens) and a 16,400-token prompt. Checks: some
      interactive requests get 429 with Retry-After "1" and the
      reference's body, the rest 200; the admitted interactive requests'
@@ -532,6 +533,41 @@ Phases (any failed check raises, and the script exits non-zero):
      (from the publish's start to the server's reply), the consume's
      buffer open and device copy ms, and the trainer's and the server's
      memory around each swap.
+(cc) multi-GPU parallelism, part two: zig-zag ring attention over ``sp``
+     with K1-K3 as its block compute, and the pipeline over ``pp``, at
+     Qwen2.5-0.5B's width (hidden 896, 14/2 heads of 64). Two ranks
+     cannot share the card, so the ring's ranks and the pipeline's stages
+     run in this one process (``RingCtx(group=None)``, ``PipeCtx(stage=
+     None)``): the per-rank and per-stage code of the multi-rank path,
+     rotated by re-indexing. (cc1) ring attention alone on bf16 packed
+     rows [2, 7168] of four seeded documents a row and a padded tail, a
+     ring of 4, both schedules: the forward against one K1 call over the
+     whole rows (2^-8 of max|ref|, the merged logsumexp within 1e-3 where
+     finite, -inf where not), dq, dk, dv against one K2/K3 call (2^-7),
+     pad rows 0, no NaN; K1 launched n + 2n(n-1) = 28 times a forward for
+     zig-zag (24 of them ``causal=False`` c x c tiles), n + n(n-1)/2 = 10
+     for naive, K2 and K3 as many; ``ring_skip_ratio`` (n+1)/2n = 0.625;
+     the ring's ms, each rank's body's (their sum and maximum) and one K1
+     call's, and the ring's backward against one K2/K3 call; a zig-zag
+     ring of 8 at the same limits, untimed (2n-1 = 15 tiles a block, each
+     output rounded to bf16 before the f32 merge or sum). (cc2) one
+     forward and backward of (g)'s PPO loss (24 layers) on a [2, 7168]
+     micro-batch (trajectories of 5000, 4000, 2100 and 3000 tokens)
+     through an engine with a one-process ring of 4 against a plain engine from
+     the same weights: (h)'s limits on the loss, every grad norm and the
+     gradient's cosine; K1 2 x 24 x 28 (forward and the "dots" recompute)
+     and K2/K3 24 x 28; each engine's fwd-bwd ms and peak memory. (cc3) a
+     PPO train step (24 layers, (g)'s recipe) on one [8, 1792]
+     micro-batch through 4 one-process stages (6 layers a stage), which
+     ``pick_pp_microbatches`` splits 8 ways, with 1F1B and with GPipe,
+     against the plain engine: loss and grad norm within 1e-4 relative,
+     every master within 1e-7 of the plain step's (``PP_LIMITS``, set
+     between sound and faulty readings); two broken 1F1B
+     runs, stage 0's gradients zeroed and one pipeline micro-batch's
+     backward left out, must each break a limit; K1 48 (plain), 24 x 8 x 2
+     (GPipe) and 24 x 8 x 3 (1F1B: its backward recomputes each stage
+     from the saved input), K2/K3 24 (plain) and 24 x 8; then a second,
+     timed step of each: ms and peak memory, 1F1B's peak below GPipe's.
 
 The script exits 0 only when every phase passed and the last line is
 printed; any failed check raises and exits 1, as does a run where
@@ -544,6 +580,7 @@ from __future__ import annotations
 
 import atexit
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import math
@@ -634,7 +671,7 @@ def ptxas_report(log: str) -> list:
 
 # ---------------- (b) K1 against its plain version ----------------
 
-def packed_inputs(B, T, Hq, Hkv, D, seed):
+def packed_inputs(B, T, Hq, Hkv, D, seed, device: str = "cuda"):
     """bf16 q/k/v on the card and int32 segment ids with several packed
     documents per row and a padded tail (pad rows have segment 0)."""
     gen = torch.Generator().manual_seed(seed)
@@ -648,7 +685,7 @@ def packed_inputs(B, T, Hq, Hkv, D, seed):
     q = torch.randn(B, T, Hq, D, generator=gen)
     k = torch.randn(B, T, Hkv, D, generator=gen)
     v = torch.randn(B, T, Hkv, D, generator=gen)
-    dev = torch.device("cuda")
+    dev = torch.device(device)
     return ([x.to(dev, torch.bfloat16) for x in (q, k, v)], seg.to(dev))
 
 
@@ -902,8 +939,10 @@ def time_breakdown(genmod, model, toks, lens, S, eos, steps: int = 16) -> dict:
     decode_ms = cuda_ms(decode, iters=2, warmup=1) / steps
 
     def device_events(fn):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # device activity only, as in trainer_breakdown: an MoE decode's
+        # host-side events (~15,000 kernels a step) took ~a minute to
+        # collect
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         return [e for e in prof.events()
@@ -980,8 +1019,12 @@ def make_model(name: str, cfg, params, train: bool = True,
                               FinetuneSpec(1, 512, 64))
 
 
-def build_trainer(cfg, parallel_spec=None, device: str = "cuda"):
-    """bench.py's backend and PPO recipe (bench.py:56-96) on the port."""
+def build_trainer(cfg, parallel_spec=None, device: str = "cuda",
+                  sp: int = 1, pp: int = 1):
+    """bench.py's backend and PPO recipe (bench.py:56-96) on the port.
+    ``sp`` / ``pp`` above 1 (no mesh): the engine runs a ring of ``sp``
+    ranks and a pipeline of ``pp`` stages in this one process, every rank
+    and stage on the card (its ``_spec``; no setting selects them)."""
     from areal_tpu_torch.algorithms.ppo import (
         PPOActorInterface,
         PPOHyperparameters,
@@ -992,6 +1035,10 @@ def build_trainer(cfg, parallel_spec=None, device: str = "cuda"):
     model = make_model("actor", cfg, params, device=device,
                        parallel_spec=parallel_spec)
     del params  # the engine holds f32 masters
+    if sp > 1 or pp > 1:
+        from areal_tpu_torch.parallel.mesh import ParallelSpec
+
+        model.module._spec = ParallelSpec(sp=sp, pp=pp)
     hp = PPOHyperparameters(ppo_n_minibatches=1, adv_norm=True, kl_ctl=0.0,
                             disable_value=True)
     return model, PPOActorInterface(hp)
@@ -1097,6 +1144,17 @@ def compare_grads(eng, ub, loss_fn, mb: int, weight: float, what: str,
             p.grad = None
     eng.attn_impl = "auto"
     (l_k, st_k, g_k), (l_r, st_r, g_r) = res["auto"], res["reference"]
+    rec = grad_agreement(what, l_k, g_k, l_r, g_r, null_grads)
+    rec.update(micro_batch=mb,
+               micro_batch_shape=list(ub.mbs[mb].layout.shape),
+               stats=(st_k, st_r))
+    return rec
+
+
+def grad_agreement(what: str, l_k: float, g_k: dict, l_r: float, g_r: dict,
+                   null_grads=()) -> dict:
+    """(h)'s limits on a loss and gradients (``g_k``) against the plain
+    attention's (``g_r``): see :func:`compare_grads`."""
     norm = {n: (g_k[n].norm().item(), g_r[n].norm().item()) for n in g_r}
     dot = sum((g_k[n].double() * g_r[n].double()).sum().item() for n in g_r)
     nk = math.sqrt(sum(a * a for a, _ in norm.values()))
@@ -1105,14 +1163,11 @@ def compare_grads(eng, ub, loss_fn, mb: int, weight: float, what: str,
     rel = {n: abs(a - b) / max(b, 1e-30) for n, (a, b) in norm.items()
            if n not in null}
     worst = max(rel, key=rel.get)
-    rec = {"micro_batch": mb,
-           "micro_batch_shape": list(ub.mbs[mb].layout.shape),
-           "loss_kernels": l_k, "loss_plain": l_r,
+    rec = {"loss_kernels": l_k, "loss_plain": l_r,
            "loss_rel_err": abs(l_k - l_r) / max(abs(l_r), 1e-30),
            "grad_norm_kernels": nk, "grad_norm_plain": nr,
            "grad_cosine": dot / max(nk * nr, 1e-300),
-           "max_grad_norm_rel_err": rel[worst], "worst_param": worst,
-           "stats": (st_k, st_r)}
+           "max_grad_norm_rel_err": rel[worst], "worst_param": worst}
     if null:
         rec["key_bias_grad_norm_max"] = max(max(v) for v in null.values())
     if "pos_embedding.weight" in norm:
@@ -1172,8 +1227,9 @@ KERNEL_CLASSES = (
 def train_breakdown(model, iface, batch, spec, step_ms: float) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only, as in trainer_breakdown: the step's host-side
+    # events take longer to collect than the step
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         iface.train_step(model, batch, spec)
         torch.cuda.synchronize()
@@ -3973,7 +4029,7 @@ def hist_mean(snap: dict, name: str):
 
 
 def run_classes(fa, cfg, params, eos, device="cuda") -> dict:
-    """(q2): 64 rollouts of 256 tokens in flight through the manager, a
+    """(q2): 64 rollouts of 160 tokens in flight through the manager, a
     burst of 16 interactive requests at an interactive queue limit of 4, a
     16,400-token prompt, the scrapes, then ``perf_probe decode-bench``."""
     from areal_tpu_torch.api.train_config import TelemetryConfig
@@ -4028,7 +4084,7 @@ def run_classes(fa, cfg, params, eos, device="cuda") -> dict:
         inter_prompts = [toks(48) for _ in range(16)]
         pool = concurrent.futures.ThreadPoolExecutor(96)
         t0 = time.monotonic()
-        rollouts = [pool.submit(request, "rollout", p, f"ro{i}", 256,
+        rollouts = [pool.submit(request, "rollout", p, f"ro{i}", 160,
                                 {"temperature": 1.0})
                     for i, p in enumerate(rollout_prompts)]
         deadline = time.monotonic() + 120
@@ -4058,7 +4114,7 @@ def run_classes(fa, cfg, params, eos, device="cuda") -> dict:
                 f"(q2) 429 reply {body} Retry-After {hdrs.get('Retry-After')}")
         for r in admitted:
             check_reply(r[1], 32, eos, "(q2) interactive reply")
-        check(all(set(r[0]) == {200} and (r[4] == 256 or r[1]["finished"])
+        check(all(set(r[0]) == {200} and (r[4] == 160 or r[1]["finished"])
                   for r in rollouts),
               f"(q2) a rollout failed: {[r[0] for r in rollouts]}")
         s, body, _ = too_long
@@ -4104,7 +4160,7 @@ def run_classes(fa, cfg, params, eos, device="cuda") -> dict:
         "interactive_429": len(rejected), "interactive_200": len(admitted),
         "too_long_413": too_long[1],
         "interactive_ms_mean": sum(ms) / len(ms),
-        "rollout_256_tokens_ms_mean": sum(rl) / len(rl),
+        "rollout_160_tokens_ms_mean": sum(rl) / len(rl),
         "queue_wait_ms_mean": {c: 1e3 * v for c, v in waits.items()},
         "ttfc_ms_mean": {c: 1e3 * (hist_mean(
             snap, f"serving/{c}/ttfc_secs") or 0.0)
@@ -6214,30 +6270,51 @@ class RoutingRecorder:
     bf16 ulp at max |plain|, pad rows exactly 0, 2**-8 * max |plain|) per
     layer. The ulp is the exact one, 2**(floor(log2 max) - 7): (b)'s
     2**-8 * max is half of it when the maximum sits just above a power of
-    two, where K1's output rounding to bf16 alone can take half an ulp."""
+    two, where K1's output rounding to bf16 alone can take half an ulp.
+    With ``side_k1``, every packed layer also runs once more on the same
+    input hidden state with K1's attention (``attn_impl="flash"``), its
+    output dropped: its routing goes to ``side_calls``, so each layer's
+    choices under the two attentions compare on one input, apart from the
+    drift that earlier layers carry."""
 
-    def __init__(self, fa, compare_attention: bool = False):
+    def __init__(self, fa, compare_attention: bool = False,
+                 side_k1: bool = False):
         from areal_tpu_torch.models import moe as moemod
         from areal_tpu_torch.models import transformer as tmod
 
         self.fa, self.moemod, self.tmod = fa, moemod, tmod
-        self.compare_attention = compare_attention
-        self.calls, self.attention = [], []
+        self.compare_attention, self.side_k1 = compare_attention, side_k1
+        self.calls, self.attention, self.side_calls = [], [], []
+        self._in_side = False
 
     def __enter__(self):
         mm, tm, fa = self.moemod, self.tmod, self.fa
-        self._saved = (mm._routing, mm.moe_mlp, tm.packed_attention)
-        routing, mlp, attention = self._saved
+        self._saved = (mm._routing, mm.moe_mlp, tm.packed_attention,
+                       tm.Block.forward)
+        routing, mlp, attention, block = self._saved
 
         def rec_routing(*a, **kw):
             out = routing(*a, **kw)
-            self.calls.append({"top_i": out[1]})
+            (self.side_calls if self._in_side else self.calls).append(
+                {"top_i": out[1]})
             return out
 
         def rec_mlp(x, *a, **kw):
             y, aux = mlp(x, *a, **kw)
-            self.calls[-1].update(T=x.shape[1], dropped=aux["dropped_frac"])
+            (self.side_calls if self._in_side else self.calls)[-1].update(
+                T=x.shape[1], dropped=aux["dropped_frac"])
             return y, aux
+
+        def rec_block(layer, h, cos, sin, seg, pos, cache, *rest):
+            if cache is None:  # packed: the side run on the same input
+                self._in_side = True
+                try:
+                    with torch.no_grad():
+                        block(layer, h, cos, sin, seg, pos, cache, None,
+                              None, "flash")
+                finally:
+                    self._in_side = False
+            return block(layer, h, cos, sin, seg, pos, cache, *rest)
 
         def rec_attention(q, k, v, qs, ks, **kw):
             out = attention(q, k, v, qs, ks, **kw)
@@ -6252,11 +6329,14 @@ class RoutingRecorder:
         mm._routing, mm.moe_mlp = rec_routing, rec_mlp
         if self.compare_attention:
             tm.packed_attention = rec_attention
+        if self.side_k1:
+            tm.Block.forward = rec_block
         return self
 
     def __exit__(self, *exc):
         mm, tm = self.moemod, self.tmod
-        mm._routing, mm.moe_mlp, tm.packed_attention = self._saved
+        (mm._routing, mm.moe_mlp, tm.packed_attention,
+         tm.Block.forward) = self._saved
 
     def dropped(self, decode: bool) -> float:
         d = [c["dropped"] for c in self.calls if (c["T"] == 1) == decode]
@@ -6480,13 +6560,19 @@ def serve_moe(fa, cfg, params, eos: int, device: str = "cuda") -> dict:
     S = padded.shape[1] + 128
     with RoutingRecorder(fa, compare_attention=True) as k1:
         got = genmod.prefill_state(model, toks, lens, S)
-    with RoutingRecorder(fa) as plain:
+    # the plain prefill, each layer also run on its own input through K1
+    with RoutingRecorder(fa, side_k1=True) as plain:
         ref = genmod.prefill_state(model, toks, lens, S,
                                    attn_impl="reference")["last_logits"]
     errs = k1.attention
     worst = max(range(len(errs)), key=lambda i: errs[i][0] / errs[i][1])
     agree = [(a["top_i"] == b["top_i"]).float().mean().item()
              for a, b in zip(k1.calls, plain.calls)]
+    # one layer's K1-vs-plain error alone: the same input, either attention
+    one = [(a["top_i"] == b["top_i"]).float().mean().item()
+           for a, b in zip(plain.side_calls, plain.calls)]
+    check(len(one) == len(agree) == cfg.n_layers,
+          f"(aa): {len(one)} side and {len(agree)} routed layers")
     last = got["last_logits"]
     diff = (last - ref).abs().max().item()
     rec["k1_by_layer"] = {
@@ -6501,7 +6587,11 @@ def serve_moe(fa, cfg, params, eos: int, device: str = "cuda") -> dict:
         "argmax_agree": (last.argmax(-1) == ref.argmax(-1)).float().mean()
         .item(),
         "top_i_agree_mean": sum(agree) / len(agree),
-        "top_i_agree_min_layer": min(agree)}
+        "top_i_agree_min_layer": min(agree),
+        "top_i_agree_by_layer": agree,
+        "top_i_agree_one_layer_by_layer": one,
+        "top_i_agree_one_layer_mean": sum(one) / len(one),
+        "top_i_agree_one_layer_min": min(one)}
     print("(aa) K1 layer by layer and the whole prefill", json.dumps(
         {k: rec[k] for k in ("k1_by_layer", "prefill_k1_vs_plain")}),
         flush=True)
@@ -6759,8 +6849,9 @@ def run_moe(fa, tmp: str, device: str = "cuda", cfg=None,
     stage_s["layer"] = time.monotonic() - t0
     t0 = time.monotonic()
     train_cfg = dataclasses.replace(cfg, n_layers=train_layers)
-    rec["train"] = run_moe_train(fa, train_cfg, device, batch=train_batch,
-                                 spec=train_spec)
+    # 2 timed steps, cut from 3 to make room for (cc)
+    rec["train"] = run_moe_train(fa, train_cfg, device, steps=2,
+                                 batch=train_batch, spec=train_spec)
     print("(aa) train", json.dumps(rec["train"]), flush=True)
     stage_s["train"] = time.monotonic() - t0
     t0 = time.monotonic()
@@ -7149,6 +7240,384 @@ def run_device_sync(fa, cfg, eos: int, tmp: str, device="cuda") -> dict:
     return rec
 
 
+# ---------------- (cc) multi-GPU parallelism, part two ----------------
+
+# (cc): the ring's ranks and the pipeline's stages, all in this process on
+# the one card (two NCCL ranks cannot share a device)
+RING_N = 4
+PP_STAGES = 4
+
+
+def ring_record(fa, schedule: str, B: int = 2, T: int = 7168, Hq: int = 14,
+                Hkv: int = 2, D: int = 64, seed: int = 7,
+                device: str = "cuda", n: int = RING_N,
+                timed: bool = True) -> dict:
+    """(cc1): ring attention alone at Qwen2.5-0.5B's heads, a one-process
+    ring of ``n`` ranks over packed rows of several seeded documents:
+    forward and backward against one K1 call and one K2/K3 call over the
+    whole rows (2^-8 and 2^-7 of max|ref|), pad rows 0, no NaN; K1-K3
+    launches and the ring's counters; with ``timed``, the ring's ms summed
+    and its slowest rank's against one K1 call."""
+    from areal_tpu_torch.parallel import ring as ring_mod
+
+    cuda = device == "cuda"
+    (q, k, v), seg = packed_inputs(B, T, Hq, Hkv, D, seed, device)
+    scale = D ** -0.5
+    ctx = ring_mod.RingCtx(n=n, schedule=schedule)
+    lay = [ring_mod.shard_sequence(x, ctx).contiguous() for x in (q, k, v)]
+    lseg = ring_mod.shard_sequence(seg, ctx).contiguous()
+    ref, ref_lse = fa.flash_attention(q, k, v, seg, seg, return_lse=True)
+    gen = torch.Generator().manual_seed(seed + 100)
+    dout = torch.randn(q.shape, generator=gen).to(device, torch.bfloat16)
+    ref_grads = fa.flash_attention_bwd(q, k, v, seg, seg, ref, ref_lse, dout)
+    sync(device)
+    fa.reset_launch_count()
+    ring_mod.reset_ring_counters()
+    out_l, lse_l = ring_mod._ring_fwd(*lay, lseg, ctx, True, scale)
+    sync(device)
+    fwd_launches = fa.launch_counts()
+    counters = ring_mod.ring_counters()
+    fa.reset_launch_count()
+    grads_l = ring_mod._ring_bwd(*lay, lseg, out_l, lse_l,
+                                 ring_mod.shard_sequence(dout, ctx)
+                                 .contiguous(), ctx, True, scale)
+    sync(device)
+    bwd_launches = fa.launch_counts()
+    out = ring_mod.unshard_sequence(out_l, ctx)
+    lse = ring_mod.unshard_sequence(lse_l.transpose(1, 2), ctx).transpose(1, 2)
+    pad = seg == 0
+    rec = dict(schedule=schedule, B=B, T=T, n=n,
+               pad_rows=int(pad.sum()), skip_ratio=ring_mod.ring_skip_ratio(),
+               counters=counters, fwd_launches=fwd_launches,
+               bwd_launches=bwd_launches)
+    err = (out.float() - ref.float()).abs().max().item()
+    rec.update(max_abs_err=err, tol=2.0 ** -8 * ref.float().abs().max().item())
+    fin = torch.isfinite(ref_lse)
+    rec["lse_max_abs_err"] = (lse[fin] - ref_lse[fin]).abs().max().item()
+    check(not torch.isnan(out).any().item(), f"(cc1) ring NaN: {rec}")
+    check(err <= rec["tol"], f"(cc1) ring disagrees with one K1 call: {rec}")
+    check(bool((out[pad] == 0).all().item()), f"(cc1) pad rows not 0: {rec}")
+    check(torch.equal(torch.isfinite(lse), fin)
+          and rec["lse_max_abs_err"] <= 1e-3,
+          f"(cc1) the merged logsumexp disagrees: {rec}")
+    for name, a_l, b in zip(("dq", "dk", "dv"), grads_l, ref_grads):
+        a = ring_mod.unshard_sequence(a_l, ctx)
+        e = (a.float() - b.float()).abs().max().item()
+        tol = 2.0 ** -7 * b.float().abs().max().item()
+        rec[f"{name}_max_abs_err"], rec[f"{name}_tol"] = e, tol
+        check(not torch.isnan(a).any().item(), f"(cc1) {name} NaN: {rec}")
+        check(e <= tol, f"(cc1) ring {name} disagrees with K2/K3: {rec}")
+        check(bool((a[pad] == 0).all().item()),
+              f"(cc1) {name} pad rows not 0: {rec}")
+    want = n + 2 * n * (n - 1) if schedule == "zigzag" else \
+        n + n * (n - 1) // 2
+    check(counters["block_calls"] == want, f"(cc1) {counters}: expected "
+          f"{want} blocks")
+    check(not cuda or (fwd_launches["flash_attention_fwd"] == want
+                       and bwd_launches["flash_attention_bwd_dq"] == want
+                       and bwd_launches["flash_attention_bwd_dkv"] == want
+                       and bwd_launches["flash_attention_fwd"] == 0
+                       and fwd_launches["flash_attention_bwd_dq"] == 0),
+          f"(cc1) K1-K3 launches {fwd_launches} / {bwd_launches}, "
+          f"expected {want} a pass")
+    check(abs(rec["skip_ratio"] - (n + 1) / (2 * n)) < 1e-9,
+          f"(cc1) skip ratio {rec['skip_ratio']} != (n+1)/2n")
+    if not (cuda and timed):  # the CPU's rehearsal: no device times
+        print("(cc1) ring attention", json.dumps(rec), flush=True)
+        return rec
+    # times: the whole ring, each rank's body, one K1 call; the backward
+    qs, ks, vs, segs = ([t.contiguous() for t in x.chunk(n, dim=1)]
+                        for x in (*lay, lseg))
+    blocks = list(zip(ks, vs, segs))
+    ranks = [cuda_ms(lambda r=r: ring_mod._fwd_rank(
+        qs[r], segs[r], ring_mod._LocalRing(blocks, r), n, r, schedule,
+        True, scale), queued=True) for r in range(n)]
+    rec.update(
+        ring_fwd_ms=cuda_ms(lambda: ring_mod._ring_fwd(
+            *lay, lseg, ctx, True, scale), queued=True),
+        rank_fwd_ms=ranks, rank_fwd_ms_sum=sum(ranks),
+        rank_fwd_ms_max=max(ranks),
+        k1_whole_ms=cuda_ms(lambda: fa.flash_attention(q, k, v, seg, seg),
+                            queued=True),
+        ring_bwd_ms=cuda_ms(lambda: ring_mod._ring_bwd(
+            *lay, lseg, out_l, lse_l, ring_mod.shard_sequence(dout, ctx)
+            .contiguous(), ctx, True, scale), iters=5, queued=True),
+        k2_k3_whole_ms=cuda_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, seg, seg, ref, ref_lse, dout), iters=5, queued=True))
+    # The ring's host work (K1 launches, merges, copies) outlasts a queued
+    # batch's head start: its kernels' own device time, beside
+    rec.update(
+        ring_fwd_device_ms=device_busy_ms(lambda: ring_mod._ring_fwd(
+            *lay, lseg, ctx, True, scale)),
+        ring_bwd_device_ms=device_busy_ms(lambda: ring_mod._ring_bwd(
+            *lay, lseg, out_l, lse_l, ring_mod.shard_sequence(dout, ctx)
+            .contiguous(), ctx, True, scale)),
+        k1_whole_device_ms=device_busy_ms(
+            lambda: fa.flash_attention(q, k, v, seg, seg)))
+    print("(cc1) ring attention", json.dumps(rec), flush=True)
+    return rec
+
+
+def ring_model_batch(vocab: int, lens=(5000, 4000, 2100, 3000)):
+    """Seeded trajectories (by default 5000, 4000, 2100 and 3000 tokens,
+    256 of prompt each, which the packer lays out as one micro-batch [2,
+    7168])."""
+    import numpy as np
+
+    from areal_tpu_torch.api.data import SequenceSample
+
+    lens = list(lens)
+    plens = [min(256, n // 4) for n in lens]
+    rng = np.random.RandomState(11)
+    total = sum(lens)
+    return SequenceSample.from_default(
+        ids=[f"r{i}" for i in range(len(lens))],
+        data={
+            "packed_input_ids": rng.randint(2, vocab, total).astype(np.int32),
+            "prompt_mask": np.concatenate([np.r_[np.ones(p, np.int32),
+                                                 np.zeros(n - p, np.int32)]
+                                           for n, p in zip(lens, plens)]),
+            "packed_logprobs": np.concatenate([np.r_[
+                np.zeros(p, np.float32), -rng.rand(n - p).astype(
+                    np.float32)] for n, p in zip(lens, plens)]),
+            "rewards": rng.rand(len(lens)).astype(np.float32),
+            "seq_no_eos_mask": np.zeros(len(lens), np.float32),
+        }, seqlens=lens)
+
+
+def ring_model_record(fa, cfg, device: str = "cuda",
+                      lens=(5000, 4000, 2100, 3000),
+                      shape=(2, 7168)) -> dict:
+    """(cc2): one forward and backward of the PPO loss on a [2, 7168]
+    micro-batch, attention through the one-process ring of ``RING_N``
+    ranks, against the same micro-batch through one K1
+    per layer: (h)'s limits; the values, ms and peak memory of each."""
+    from areal_tpu_torch.algorithms.ppo import _action_token_weight
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.parallel import ring as ring_mod
+
+    batch = ring_model_batch(cfg.vocab_size, lens)
+    spec = MicroBatchSpec(max_tokens_per_mb=shape[0] * shape[1])
+    res, rec = {}, {}
+    for label, kw in (("plain", {}), ("ring", {"sp": RING_N})):
+        model, iface = build_trainer(cfg, device=device, **kw)
+        eng = model.module
+        ub = eng.upload_uniform(batch, spec)
+        check(ub.n_mbs == 1 and (ub.R, ub.L) == tuple(shape),
+              f"(cc2) packer gave {ub.n_mbs} x {(ub.R, ub.L)}")
+        eng.run_prep(ub, iface._prep_fn, scalars={"kl_coef": 0.0})
+        w = _action_token_weight(ub.mbs[0])
+        eng.accumulate_grads(ub, iface._loss_fn, [0], [w])  # warm-up
+        sync(device)
+        mem_reset(device)
+        fa.reset_launch_count()
+        ring_mod.reset_ring_counters()
+        t0 = time.perf_counter()
+        loss, _ = eng.accumulate_grads(ub, iface._loss_fn, [0], [w])
+        sync(device)
+        rec[label] = {"fwd_bwd_ms": 1e3 * (time.perf_counter() - t0),
+                      "peak_gb": mem_peak(device),
+                      "launches": fa.launch_counts(),
+                      "ring_counters": ring_mod.ring_counters()}
+        res[label] = (float(loss), {n: p.grad.detach().clone()
+                                    for n, p in eng.params.items()})
+        del model, iface, eng, ub
+        empty_cache(device)
+    agree = grad_agreement("(cc2)", res["ring"][0], res["ring"][1],
+                           res["plain"][0], res["plain"][1])
+    L = cfg.n_layers
+    n = RING_N
+    per = n + 2 * n * (n - 1)
+    got = rec["ring"]["launches"]
+    check(device != "cuda" or got["flash_attention_fwd"] == 2 * L * per
+          and got["flash_attention_bwd_dq"] == L * per
+          and got["flash_attention_bwd_dkv"] == L * per,
+          f"(cc2) ring launches {got}, expected {2 * L * per} K1 (forward "
+          f"and the remat recompute) and {L * per} K2/K3: {L} layers x "
+          f"{per} blocks")
+    rec.update(agree, layers=L, n=n, mb_shape=list(shape))
+    print("(cc2) the model through the ring", json.dumps(rec), flush=True)
+    return rec
+
+
+# (cc3)'s limits on the pipelined step against the plain one, each set
+# between the sound readings (NVIDIA H100 80GB HBM3, 700 W: loss equal,
+# grad norm within 2.5e-6, masters within 7.5e-9) and the faults of
+# pipeline_fault (grad norm 21-48% off, masters 6.8e-7 to 9.1e-7 apart;
+# the loss of a first PPO step reads no gradient, so it stays equal).
+# Adam's first step moves an element by lr g / (|g| + eps): with
+# gradients far below eps = 1e-5 here, masters part linearly in g.
+PP_LIMITS = {"loss_rel_err": 1e-4, "grad_norm_rel_err": 1e-4,
+             "master_abs_max": 1e-7}
+
+
+@contextlib.contextmanager
+def pipeline_fault(kind: str | None):
+    """Break the pipeline for (cc3)'s fault runs, undone on exit:
+    ``"stage0_grads_zeroed"`` drops stage 0's layer gradients;
+    ``"microbatch_bwd_left_out"`` drops the cotangent of the pipeline
+    micro-batch that carries the largest (the PPO loss clips every row of
+    a negative advantage here, whose cotangent is 0 anyway), so its
+    backward adds nothing."""
+    from areal_tpu_torch.parallel import pipeline as ppl
+
+    backward = ppl._Schedule.backward
+
+    def faulty_backward(self, d_out, d_aux):
+        if kind == "microbatch_bwd_left_out":
+            d_out = d_out.clone()
+            chunks = d_out.chunk(self.n_micro)
+            max(chunks, key=lambda c: c.float().norm().item()).zero_()
+        d_h, grads = backward(self, d_out, d_aux)
+        if kind == "stage0_grads_zeroed":
+            for layer in grads.get(0, []):
+                for g in layer.values():
+                    g.zero_()
+        return d_h, grads
+
+    if kind is not None:
+        ppl._Schedule.backward = faulty_backward
+    try:
+        yield
+    finally:
+        ppl._Schedule.backward = backward
+
+
+def pipeline_record(fa, cfg, device: str = "cuda", T: int = 1792) -> dict:
+    """(cc3): a PPO train step on one [8, 1792] micro-batch, through
+    ``PP_STAGES`` one-process stages that ``pick_pp_microbatches`` splits
+    8 ways, with 1F1B and with GPipe, against the plain engine from the
+    same weights: the step's loss, grad norm and masters within
+    ``PP_LIMITS``; then one timed step each (ms, peak memory, K1-K3
+    launches). Two broken 1F1B runs (``pipeline_fault``) must each break
+    a limit: their readings show where the limits sit."""
+    import numpy as np
+
+    from areal_tpu_torch.api.data import SequenceSample
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.parallel import mesh as pmesh
+    from areal_tpu_torch.parallel import pipeline as ppl
+
+    rng = np.random.RandomState(13)
+    lens = [T] * 8
+    total = sum(lens)
+    batch = SequenceSample.from_default(
+        ids=[f"p{i}" for i in range(8)],
+        data={"packed_input_ids": rng.randint(2, cfg.vocab_size, total)
+              .astype(np.int32),
+              "prompt_mask": np.concatenate([np.r_[np.ones(256, np.int32),
+                                                   np.zeros(T - 256, np.int32)]
+                                             for _ in lens]),
+              "packed_logprobs": np.concatenate([np.r_[
+                  np.zeros(256, np.float32), -rng.rand(T - 256).astype(
+                      np.float32)] for _ in lens]),
+              "rewards": rng.rand(8).astype(np.float32),
+              "seq_no_eos_mask": np.zeros(8, np.float32)},
+        seqlens=lens)
+    spec = MicroBatchSpec(max_tokens_per_mb=total)
+    n_micro = ppl.pick_pp_microbatches(pmesh.ParallelSpec(pp=PP_STAGES), cfg,
+                                       8, seq_len=T)
+    check(n_micro == 8, f"(cc3) the gate gave {n_micro} micro-batches")
+    L = cfg.n_layers
+    lr = 1e-5  # make_model's
+    # K1 per layer and micro-batch: "dots" remat runs it twice (forward,
+    # recompute); 1F1B's backward recomputes each stage once more
+    k1_per = {"plain": 2, "gpipe": 2 * n_micro, "1f1b": 3 * n_micro}
+    k23_per = {"plain": 1, "gpipe": n_micro, "1f1b": n_micro}
+    runs, faults, want = {}, {}, None
+    old = os.environ.get("AREAL_PP_SCHEDULE")
+    for label, stages, fault in (
+            ("plain", 1, None), ("1f1b", PP_STAGES, None),
+            ("gpipe", PP_STAGES, None),
+            ("1f1b", PP_STAGES, "stage0_grads_zeroed"),
+            ("1f1b", PP_STAGES, "microbatch_bwd_left_out")):
+        # the schedule is read where the pipeline runs
+        os.environ["AREAL_PP_SCHEDULE"] = "gpipe" if label == "gpipe" \
+            else "1f1b"
+        model, iface = build_trainer(cfg, device=device, pp=stages)
+        eng = model.module
+        fa.reset_launch_count()
+        with pipeline_fault(fault):
+            first = iface.train_step(model, batch, spec)
+        sync(device)
+        launches = fa.launch_counts()
+        # on the host: ~2 GB at 0.5B, kept out of the timed step's peak
+        masters = {n: p.detach().to("cpu", copy=True)
+                   for n, p in eng.params.items()}
+        r = {"loss": first["actor_loss"], "grad_norm": first["grad_norm"]}
+        if want is None:
+            want = (first, masters)
+        else:
+            d = {n: (masters[n] - want[1][n]).abs() for n in masters}
+            r.update(
+                loss_rel_err=abs(r["loss"] - want[0]["actor_loss"])
+                / abs(want[0]["actor_loss"]),
+                grad_norm_rel_err=abs(r["grad_norm"] - want[0]["grad_norm"])
+                / want[0]["grad_norm"],
+                master_abs_max=max(x.max().item() for x in d.values()),
+                # the share of elements more than 1e-3 lr apart
+                master_moved_frac=sum(int((x > 1e-3 * lr).sum())
+                                      for x in d.values())
+                / sum(x.numel() for x in d.values()))
+            del d
+            broken = [k for k, lim in PP_LIMITS.items() if r[k] > lim]
+            if fault is None:  # the limits are the card's (the CPU's
+                # plain bf16 attention parts the masters by ~1.2e-7)
+                check(device != "cuda" or not broken,
+                      f"(cc3) {label} disagrees with the plain engine on "
+                      f"{broken} (limits {PP_LIMITS}): {r}")
+            else:
+                check(bool(broken), f"(cc3) the limits {PP_LIMITS} miss the "
+                      f"fault {fault}: {r}")
+                faults[fault] = r
+                del model, iface, eng, masters
+                empty_cache(device)
+                continue
+        mem_reset(device)
+        t0 = time.perf_counter()
+        iface.train_step(model, batch, spec)
+        sync(device)
+        r.update(ms_per_step=1e3 * (time.perf_counter() - t0),
+                 peak_gb=mem_peak(device), launches=launches)
+        check(device != "cuda"
+              or launches["flash_attention_fwd"] == k1_per[label] * L
+              and launches["flash_attention_bwd_dq"] == k23_per[label] * L
+              and launches["flash_attention_bwd_dkv"] == k23_per[label] * L,
+              f"(cc3) {label} launches {launches}, expected K1 "
+              f"{k1_per[label] * L}, K2/K3 {k23_per[label] * L}")
+        check(math.isfinite(r["loss"]) and r["grad_norm"] > 0,
+              f"(cc3) {label} bad stats {first}")
+        runs[label] = r
+        del model, iface, eng, masters
+        empty_cache(device)
+    if old is None:
+        os.environ.pop("AREAL_PP_SCHEDULE")
+    else:
+        os.environ["AREAL_PP_SCHEDULE"] = old
+    check(device != "cuda" or runs["1f1b"]["peak_gb"]
+          < runs["gpipe"]["peak_gb"],
+          f"(cc3) 1F1B's peak is not below GPipe's: {runs}")
+    rec = {"stages": PP_STAGES, "n_micro": n_micro, "layers": L,
+           "mb_shape": [8, T], "limits": PP_LIMITS, "faults": faults, **runs}
+    print("(cc3) the pipeline", json.dumps(rec), flush=True)
+    return rec
+
+
+def run_ring_and_pipeline(fa, cfg, device: str = "cuda") -> dict:
+    """(cc): (cc1) for both ring schedules, (cc2), (cc3)."""
+    rec = {f"ring_{s}": ring_record(fa, s, device=device)
+           for s in ("zigzag", "naive")}
+    # a ring of 8 at the same limits: each block's output and dk/dv
+    # collect 2n-1 = 15 tiles, each rounded to bf16 by K1 / K2 before the
+    # f32 merge or sum
+    rec["ring_zigzag_n8"] = ring_record(fa, "zigzag", device=device, n=8,
+                                        timed=False)
+    empty_cache(device)
+    rec["ring_model"] = ring_model_record(fa, cfg, device)
+    rec["pipeline"] = pipeline_record(fa, cfg, device)
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -7502,7 +7971,8 @@ def main() -> None:
     t_z = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_gemma_")
     try:
-        gemma = run_gemma(fa, tmp)
+        # 2 SFT steps, cut from 3 to make room for (cc)
+        gemma = run_gemma(fa, tmp, steps=2)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("(z) gemma 2b", json.dumps({
@@ -7580,12 +8050,37 @@ def main() -> None:
         "phase_bb_mesh_s": t_bb2 - t_bb,
         "phase_bb_device_s": time.monotonic() - t_bb2,
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+    torch.cuda.empty_cache()
+
+    # (cc) multi-GPU parallelism, part two: the ring and the pipeline at
+    # full width, their ranks and stages in this process
+    t_cc = time.monotonic()
+    par = run_ring_and_pipeline(fa, cfg)
+    print("(cc) ring attention and the pipeline", json.dumps({
+        "ring_ms": {s: {k: par[f"ring_{s}"][k] for k in (
+            "ring_fwd_ms", "rank_fwd_ms_sum", "rank_fwd_ms_max",
+            "k1_whole_ms", "ring_bwd_ms", "k2_k3_whole_ms",
+            "ring_fwd_device_ms", "ring_bwd_device_ms",
+            "k1_whole_device_ms")}
+            for s in ("zigzag", "naive")},
+        "ring_n8_err_of_tol": {
+            g or "out": par["ring_zigzag_n8"][f"{g}max_abs_err"]
+            / par["ring_zigzag_n8"][f"{g}tol"]
+            for g in ("", "dq_", "dk_", "dv_")},
+        "ring_model": {k: par["ring_model"][k] for k in (
+            "loss_kernels", "loss_plain", "grad_cosine",
+            "max_grad_norm_rel_err", "plain", "ring")},
+        "pipeline": {k: par["pipeline"][k] for k in (
+            "plain", "1f1b", "gpipe", "faults")},
+        "phase_cc_s": time.monotonic() - t_cc,
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
     print("phase seconds", json.dumps({
         "a_to_n": t_async - t_start, "o": t_q - t_async,
         "q1_q2": t_obs - t_q, "q3_p": t_r - t_obs,
         "r": t_s - t_r, "s": t_t - t_s, "t": t_u - t_t, "u": t_v - t_u,
         "v": t_w - t_v, "w": t_x - t_w, "x": t_y - t_x, "y": t_z - t_y,
-        "z": t_aa - t_z, "aa": t_bb - t_aa, "bb": time.monotonic() - t_bb,
+        "z": t_aa - t_z, "aa": t_bb - t_aa, "bb": t_cc - t_bb,
+        "cc": time.monotonic() - t_cc,
         "script": time.monotonic() - t_start}), flush=True)
 
     lib_line = ("areal_tpu/ops/pallas/flash_attention.py:200 backward: the "
@@ -7601,7 +8096,14 @@ def main() -> None:
              "elastic_fleet": elastic_launches,
              "sft_auto_eval": sft_eval["launches"],
              "reward_model": rw["launches"], "gpt2": gpt2["launches"],
-             "mesh_step": mesh["launches"]}
+             "mesh_step": mesh["launches"],
+             **{f"ring_{s}": {k: par[f"ring_{s}"]["fwd_launches"][k]
+                              + par[f"ring_{s}"]["bwd_launches"][k]
+                              for k in KERNEL_NAMES}
+                for s in ("zigzag", "naive", "zigzag_n8")},
+             "ring_model": par["ring_model"]["ring"]["launches"],
+             **{f"pipeline_{s}": par["pipeline"][s]["launches"]
+                for s in ("1f1b", "gpipe")}}
     k1_paths = {"serve": serve_launches, "weight_sync": wsync["k1_launches"],
                 "serving": serving_k1,
                 **{k: v["flash_attention_fwd"] for k, v in paths.items()},

@@ -51,11 +51,9 @@ OBSERVE = ("telemetry.enabled=true", "telemetry.flush_interval_secs=0.5",
            "telemetry.stitch_grace_secs=1", "goodput.enabled=true",
            "sentinel.enabled=true")
 
-# Families only the reference's scrape has, by the piece they wait for.
-NOT_PORTED = {
-    # meshes
-    "areal_train_pp_engaged", "areal_train_ring_engaged",
-}
+# Families only the reference's scrape has, by the piece they wait for
+# (none since the ring and the pipeline publish their gauges).
+NOT_PORTED: set = set()
 # Families only the port's scrape has: the server's per-leg upload time of
 # a stream update (absent here: disk sync), nothing else.
 PORT_ONLY = {"areal_genserver_upload_secs"}

@@ -6,7 +6,8 @@ so each world size is spawned once for the module (gloo over localhost,
 ``parallel/distributed.py run_ranks``) and runs every case of that size;
 the tests below read its results. Weights come from one numpy seed, in
 the reference's layout, through ``convert.params_from_jax``; everything is
-float32 on the CPU.
+float32 on the CPU. The ``sp`` and ``pp`` meshes (``STEP_SPECS``) also take
+a whole optimizer step, with the pipeline engaged, against one rank's.
 """
 
 import numpy as np
@@ -22,8 +23,11 @@ from areal_tpu_torch.parallel import sharding as psh
 
 CFG = dict(n_layers=2, hidden_dim=32, n_q_heads=4, n_kv_heads=2,
            vocab_size=128, use_attention_bias=True)
-WORLD2 = ("f2", "t2")
-WORLD4 = ("d2f2", "f2t2", "t4")
+WORLD2 = ("f2", "t2", "s2", "p2")
+WORLD4 = ("d2f2", "f2t2", "t4", "d2s2", "p2s2")
+WORLD8 = ("d2p2t2",)
+# meshes with sp or pp: one optimizer step each, against one rank's
+STEP_SPECS = ("s2", "p2", "d2s2", "p2s2", "d2p2t2")
 B, T = 4, 16
 
 
@@ -80,11 +84,11 @@ def _batch(n_seq=24, seed=5):
                                        data=data, seqlens=seqlens.tolist())
 
 
-def _engine(flat, spec, train):
+def _engine(flat, spec, train, **cfg_kw):
     from areal_tpu_torch.api.train_config import OptimizerConfig
     from areal_tpu_torch.backend.torch_train import TorchTrainEngine
 
-    cfg = tconfig.tiny_config(**CFG)
+    cfg = tconfig.tiny_config(**CFG, **cfg_kw)
     mesh = None if spec is None else pmesh.make_mesh(
         pmesh.ParallelSpec.parse(spec))
     return TorchTrainEngine(
@@ -94,13 +98,42 @@ def _engine(flat, spec, train):
         length_bucket=16, rows_bucket=2, seqs_bucket=4, mesh=mesh)
 
 
+MOE = dict(CFG, moe=dict(num_experts=4, top_k=2, routed_intermediate_dim=16))
+
+
+def _moe_engine(spec, pp: int = 1):
+    """An MoE model's train engine from a torch seed (the pipeline's MoE
+    parity with the reference is ``tests/test_torch_pipeline.py``'s);
+    without a spec, ``pp`` stages run in this one process (the engine's
+    ``_spec``, as on the card)."""
+    from areal_tpu_torch.api.train_config import OptimizerConfig
+    from areal_tpu_torch.backend.torch_train import TorchTrainEngine
+    from areal_tpu_torch.models.transformer import init_params
+
+    cfg = tconfig.tiny_config(**MOE)
+    mesh = None if spec is None else pmesh.make_mesh(
+        pmesh.ParallelSpec.parse(spec))
+    eng = TorchTrainEngine(
+        cfg, init_params(cfg, 3, device="cpu"),
+        OptimizerConfig(lr=1e-3, lr_scheduler_type="constant"),
+        device="cpu", compute_dtype="float32", length_bucket=16,
+        rows_bucket=2, seqs_bucket=4, mesh=mesh)
+    if mesh is None:
+        eng._spec = pmesh.ParallelSpec(pp=pp)
+    return eng
+
+
 def _logits(eng, inputs):
+    """This rank's logits; None on a pipeline stage before the last (its
+    output is zeros: the engine's forward broadcasts the last stage's)."""
     tokens, positions, seg = (torch.from_numpy(a) for a in inputs)
     with torch.no_grad(), eng._mesh_ctx():
         out = eng._hidden_or_logits(
             eng._cast(), {"tokens": tokens, "positions": positions,
                           "segment_ids": seg}, return_hidden=False,
             remat=False)
+    if eng._stage is not None and eng._stage != eng._spec.pp - 1:
+        return None
     return out.numpy()
 
 
@@ -118,14 +151,40 @@ def _grads(eng):
     weights = [float(tppo._action_token_weight(ub.mbs[i])) for i in idxs]
     eng.accumulate_grads(ub, tppo.PPOActorInterface(hp)._loss_fn, idxs,
                          weights)
-    return ({name: eng._whole(name, loc.grad).numpy()
-             for name, loc in zip(eng.params, eng._local_params())},
-            ub.n_mbs)
+    grads = eng._fill_stages({name: eng._whole(name, loc.grad)
+                              for name, loc in zip(eng.params,
+                                                   eng._local_params())})
+    return {n: g.numpy() for n, g in grads.items()}, ub.n_mbs
+
+
+def _step(eng):
+    """One PPO optimizer step over micro-batches of three rows (the
+    pipeline engages at pp 2): the stats, the gauges, the masters after."""
+    from areal_tpu_torch.algorithms import ppo as tppo
+    from areal_tpu_torch.backend import torch_train as ttrain
+
+    hp = tppo.PPOHyperparameters(adv_norm=False, kl_ctl=0.1,
+                                 disable_value=True)
+    gauges = {}
+    set_gauge = ttrain.telemetry.set_gauge
+    ttrain.telemetry.set_gauge = lambda k, v: gauges.__setitem__(k, v)
+    try:
+        ub = eng.upload_uniform(_batch(),
+                                MicroBatchSpec(max_tokens_per_mb=128))
+    finally:
+        ttrain.telemetry.set_gauge = set_gauge
+    eng.run_prep(ub, tppo.make_advantage_prep(hp),
+                 scalars={"kl_coef": hp.kl_ctl})
+    stats = eng.train_uniform(
+        ub, tppo.PPOActorInterface(hp)._loss_fn,
+        lambda mb: float(tppo._action_token_weight(mb)))
+    return stats, gauges, {n: t.numpy()
+                           for n, t in eng.full_params().items()}
 
 
 def _rank_cases(rank, world, flat, inputs, specs):
     """Every case of one world size, on one rank."""
-    res = {"mesh": {}, "forward": {}, "grads": {}, "later": {}}
+    res = {"mesh": {}, "forward": {}, "grads": {}, "later": {}, "step": {}}
     for spec in specs:
         m = pmesh.make_mesh(pmesh.ParallelSpec.parse(spec))
         res["mesh"][spec] = (tuple(m.mesh_dim_names), tuple(m.shape),
@@ -136,12 +195,22 @@ def _rank_cases(rank, world, flat, inputs, specs):
             res["grads"][spec] = _grads(_engine(flat, spec, train=True))
         else:
             _grads(_engine(flat, spec, train=True))
+        if spec in STEP_SPECS:
+            step = _step(_engine(flat, spec, train=True))
+            res["step"][spec] = step if rank == 0 else step[:2]
     if world == 2:
         from areal_tpu_torch.backend.torch_train import TorchTrainEngine
         from areal_tpu_torch.models.transformer import init_params
 
         cfg = tconfig.tiny_config(**CFG)
-        for axis in ("sp", "pp", "ep"):
+        # sliding-window attention is not ring-expressible: s2 without
+        # the ring
+        win = _step(_engine(flat, "s2", train=True, sliding_window=4))
+        res["window"] = win if rank == 0 else win[:2]
+        # an MoE model through two stages, its aux a share per stage
+        moe = _step(_moe_engine("p2"))
+        res["moe"] = moe if rank == 0 else moe[:2]
+        for axis in ("ep",):
             try:
                 m = pmesh.make_mesh(pmesh.ParallelSpec(**{axis: 2}))
                 TorchTrainEngine(cfg, params_from_jax(flat, cfg,
@@ -188,7 +257,11 @@ def reference(flat):
         {k: jax.numpy.asarray(v) for k, v in flat.items()}), jcfg, tokens,
         positions, segment_ids=seg)
     return {"logits": np.asarray(logits),
-            "grads": _grads(_engine(flat, None, train=True))[0]}
+            "grads": _grads(_engine(flat, None, train=True))[0],
+            "step": _step(_engine(flat, None, train=True)),
+            "window": _step(_engine(flat, None, train=True,
+                                    sliding_window=4)),
+            "moe": _step(_moe_engine(None, pp=2))}
 
 
 def _run(world, specs, flat):
@@ -206,8 +279,15 @@ def world4(flat):
     return _run(4, WORLD4, flat)
 
 
+@pytest.fixture(scope="module")
+def world8(flat):
+    return _run(8, WORLD8, flat)
+
+
 def _world(request, spec):
-    return request.getfixturevalue("world2" if spec in WORLD2 else "world4")
+    return request.getfixturevalue(
+        "world2" if spec in WORLD2 else "world4" if spec in WORLD4
+        else "world8")
 
 
 # ---------------- specs, meshes, allocations ----------------
@@ -245,7 +325,7 @@ def test_spec_for_role_resolution():
     assert str(C.spec_for_role(am, "actor")) == "f2t2"
 
 
-@pytest.mark.parametrize("spec", WORLD2 + WORLD4)
+@pytest.mark.parametrize("spec", WORLD2 + WORLD4 + WORLD8)
 def test_make_mesh_axes(request, spec):
     names, shape, dev = _world(request, spec)[0]["mesh"][spec]
     assert names == pmesh.AXIS_ORDER and dev == "cpu"
@@ -265,16 +345,21 @@ def test_make_mesh_needs_a_process_group():
 # ---------------- the sharded forward and grads ----------------
 
 
-@pytest.mark.parametrize("spec", WORLD2 + WORLD4)
+@pytest.mark.parametrize("spec", WORLD2 + WORLD4 + WORLD8)
 def test_sharded_forward_matches_single_device(request, reference, spec):
     """Every rank's logits equal the JAX package's single-device forward
-    (t4: 2 kv heads for 4 ranks, so wk/wv stay whole on every rank)."""
-    for rank_res in _world(request, spec):
-        np.testing.assert_allclose(rank_res["forward"][spec],
-                                   reference["logits"], atol=2e-4)
+    (t4: 2 kv heads for 4 ranks, so wk/wv stay whole on every rank; under
+    sp, the ring's shards gathered whole; under pp, every rank of the
+    last stage)."""
+    seen = [r["forward"][spec] for r in _world(request, spec)
+            if r["forward"][spec] is not None]
+    assert len(seen) == pmesh.ParallelSpec.parse(spec).world_size // \
+        pmesh.ParallelSpec.parse(spec).pp
+    for logits in seen:
+        np.testing.assert_allclose(logits, reference["logits"], atol=2e-4)
 
 
-@pytest.mark.parametrize("spec", WORLD2 + WORLD4)
+@pytest.mark.parametrize("spec", WORLD2 + WORLD4 + WORLD8)
 def test_sharded_grads_match_one_device(request, reference, spec):
     """The masters' gradients of a PPO loss over several micro-batches (the
     data ranks split them), reduced into their placements and gathered,
@@ -287,6 +372,63 @@ def test_sharded_grads_match_one_device(request, reference, spec):
         assert np.isfinite(grads[name]).all(), name
         np.testing.assert_allclose(grads[name], want[name], atol=1e-5,
                                    rtol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("spec", STEP_SPECS)
+def test_sp_pp_step_matches_one_rank(request, reference, spec):
+    """A PPO optimizer step on a mesh with sp or pp (the ring over the sp
+    group, the pipeline's stages over the pp group, engaged: three rows a
+    micro-batch) equals one rank's: loss and grad norm within 1e-5,
+    masters within 1e-6; every rank's gauges read what the gates say."""
+    want, _, want_masters = reference["step"]
+    ranks = _world(request, spec)
+    stats, _, masters = ranks[0]["step"][spec]
+    for key in ("loss", "grad_norm"):
+        assert stats[key] == pytest.approx(want[key], rel=1e-5, abs=1e-7), key
+    assert set(masters) == set(want_masters)
+    for n in want_masters:
+        np.testing.assert_allclose(masters[n], want_masters[n], atol=1e-6,
+                                   err_msg=n)
+    s = pmesh.ParallelSpec.parse(spec)
+    for r in ranks:
+        gauges = r["step"][spec][1]
+        assert gauges["train/pp_engaged"] == float(s.pp > 1)
+        assert gauges["train/ring_engaged"] == float(s.sp > 1)
+    assert reference["step"][1]["train/pp_engaged"] == 0.0
+    assert reference["step"][1]["train/ring_engaged"] == 0.0
+
+
+def test_sp_without_the_ring_matches_one_rank(world2, reference):
+    """Where the ring's gate fails (a sliding window), the sp ranks run
+    whole rows and weigh their loss by 1/sp: the step still equals one
+    rank's, and the ring gauge reads 0."""
+    want, _, want_masters = reference["window"]
+    stats, _, masters = world2[0]["window"]
+    for key in ("loss", "grad_norm"):
+        assert stats[key] == pytest.approx(want[key], rel=1e-5, abs=1e-7), key
+    for n in want_masters:
+        np.testing.assert_allclose(masters[n], want_masters[n], atol=1e-6,
+                                   err_msg=n)
+    for r in world2:
+        assert r["window"][1]["train/ring_engaged"] == 0.0
+
+
+def test_moe_pipeline_step_over_two_ranks_matches_one_process(world2,
+                                                             reference):
+    """An MoE model's step through two pipeline stages over gloo (each
+    stage's balancing aux in its own loss, the moe_* stats summed over
+    the stages) equals the same two stages in one process: the loss with
+    its aux, the grad norm, every moe_* stat and the masters."""
+    want, _, want_masters = reference["moe"]
+    stats, gauges, masters = world2[0]["moe"]
+    keys = [k for k in want if k.startswith("moe_")] + ["loss", "grad_norm"]
+    assert "moe_aux_total" in keys and want["moe_aux_total"] > 0
+    for key in keys:
+        assert stats[key] == pytest.approx(want[key], rel=1e-5, abs=1e-7), key
+    for n in want_masters:
+        np.testing.assert_allclose(masters[n], want_masters[n], atol=1e-6,
+                                   err_msg=n)
+    assert gauges["train/pp_engaged"] == 1.0
 
 
 # ---------------- the placements table ----------------
@@ -362,17 +504,13 @@ def test_kv_heads_replicated_under_more_ranks_than_kv_heads():
 # ---------------- what the port does not run yet ----------------
 
 
-@pytest.mark.parametrize("axis,piece", [
-    ("sp", "zig-zag ring attention"), ("pp", "the 1F1B pipeline"),
-    ("ep", "expert parallelism")])
+@pytest.mark.parametrize("axis,piece", [("ep", "expert parallelism")])
 def test_later_axes_raise_on_a_mesh(world2, axis, piece):
     msg = world2[0]["later"][axis]
     assert msg is not None and piece in msg and "ROADMAP.md Queue 1" in msg
 
 
-@pytest.mark.parametrize("alloc,piece", [
-    ("s2", "zig-zag ring attention"), ("d2p2", "the 1F1B pipeline"),
-    ("e2", "expert parallelism")])
+@pytest.mark.parametrize("alloc,piece", [("e2", "expert parallelism")])
 def test_later_axes_raise_in_the_allocation(alloc, piece):
     from areal_tpu_torch.experiments import common as C
     from areal_tpu_torch.api.cli_args import BaseExperimentConfig
@@ -381,6 +519,21 @@ def test_later_axes_raise_in_the_allocation(alloc, piece):
                                n_gpus_per_node=4)
     with pytest.raises(NotImplementedError, match=piece):
         C.resolve_allocation(cfg)
+
+
+@pytest.mark.parametrize("alloc,world", [("s2", 2), ("d2p2", 4),
+                                         ("p2s2", 4), ("d2p2t2", 8)])
+def test_sp_and_pp_enter_the_allocation(alloc, world):
+    """``sp`` and ``pp`` specs resolve, and their degrees enter the
+    trainer's world: the launcher starts one rank per device of it."""
+    from areal_tpu_torch.api.cli_args import BaseExperimentConfig
+    from areal_tpu_torch.experiments import common as C
+
+    cfg = BaseExperimentConfig(backend="cpu", allocation_mode=alloc,
+                               n_gpus_per_node=8)
+    am = C.resolve_allocation(cfg)
+    assert str(am.global_spec) == alloc
+    assert C.trainer_world(am) == world
 
 
 def test_moe_under_tensor_parallelism_raises(world2):

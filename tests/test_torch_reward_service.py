@@ -19,6 +19,7 @@ import contextlib
 import json
 import os
 import threading
+import time
 import urllib.request
 
 import pytest
@@ -496,6 +497,57 @@ def test_zombie_below_the_limit_holds_its_permit_until_its_thread_ends(
             assert (t._withheld, _sem_value(t._sem)) == (0, 4)
     finally:
         release.set()
+
+
+def test_cancelled_grade_returns_at_once_and_settles_later():
+    """A rollout cancelled while its grade is wedged on a worker returns at
+    once, without waiting for the reply. The call runs on: ``settle``
+    returns within its grace while the wedge holds, and once the worker
+    answers, the grade counts as ``remote``, as many as the worker
+    graded. The port alone (the reference drops such a call)."""
+    from areal_tpu_torch.system.http import AsyncHttp
+
+    release, entered = threading.Event(), threading.Event()
+
+    def grade(task):
+        entered.set()
+        release.wait(30)
+        return {"score": 1.0, "verdict": "pass"}
+
+    _, tcfg = _cfgs(grade_timeout_secs=60.0)
+    w = _tworker(cfg=tcfg, grade_fn=grade)
+    w.start()
+    client = tclient.RewardServiceClient(tcfg, urls=[w.url])
+
+    async def cancel_then_settle():
+        session = AsyncHttp(max_workers=2)
+        try:
+            task = asyncio.ensure_future(client.grade_one(
+                session, MATH_OK, asyncio.Semaphore(1)))
+            assert await asyncio.to_thread(entered.wait, 30)
+            t0 = time.monotonic()
+            task.cancel()
+            with pytest.raises(asyncio.CancelledError):
+                await task
+            cancel_secs = time.monotonic() - t0
+            t0 = time.monotonic()
+            out = await client.settle(0.2)
+            wedged = (out, time.monotonic() - t0)
+            release.set()
+            return cancel_secs, wedged, await client.settle(30)
+        finally:
+            session.close()
+
+    try:
+        cancel_secs, (out, settle_secs), left = asyncio.run(
+            cancel_then_settle())
+        assert cancel_secs < 1.0
+        assert out == 1 and settle_secs < 2.0
+        assert left == 0
+        assert client.counts["remote"] == 1 == w.service._graded
+    finally:
+        release.set()
+        w.stop()
 
 
 def test_unsupported_language_verdict():
