@@ -5,8 +5,9 @@ cli_args.py``: the dataclasses of the PPO experiments (field names as the
 reference's, so launch commands carry over), :func:`apply_overrides` with
 ``_coerce`` (``a.b.c=value`` onto nested dataclasses, typed by the field's
 annotation; an unknown key raises :class:`ConfigError` with the closest
-names), :func:`print_config_help` and the parts of
-:func:`validate_config` that check ported fields.
+names), :func:`print_config_help`, :func:`validate_config` and the YAML
+dump and load (:func:`save_yaml`, :func:`load_yaml`, :func:`to_yaml_dict`,
+:func:`merge_dict`; reference ``:800-850``).
 
 Differences: ``backend`` is ``cuda`` (default) or ``cpu``, the device every
 worker runs on; ``n_gpus_per_node`` defaults to 1, the port's one card; a
@@ -15,9 +16,11 @@ takes a JSON list (``sentinel.rules=[{...}]``: the reference sets rule
 packs through its YAML). Left out because a rank holds exactly one
 device: ``trainer_dist_procs`` (the trainer's processes are the world of
 its ``allocation_mode`` spec, ``experiments/common.py trainer_world``) and
-``trainer_dist_devices_per_proc`` (virtual CPU devices per process). Left
-out with the pieces that read them: the YAML dump and load (``yaml`` is
-not known on the card's machine) and ``compile_watch.storm_warmup_calls`` (no jitted
+``trainer_dist_devices_per_proc`` (virtual CPU devices per process). ``yaml`` is imported inside the YAML functions
+only; where it is absent, :func:`save_yaml` writes the same dict as JSON
+(a YAML document that ``yaml.safe_load`` reads) and :func:`load_yaml`
+reads it with ``json``; a file that neither reads raises. Left out with
+the piece that reads it: ``compile_watch.storm_warmup_calls`` (no jitted
 function to watch); left out because nothing reads them:
 ``dataset.valid_bs_n_seqs`` and ``dataset.fill_to_max_length`` of the SFT
 dataset, and ``auto_eval_config.eval_job_image``,
@@ -376,7 +379,7 @@ def apply_overrides(cfg, overrides: List[str]):
     return cfg
 
 
-VALID_MODES = ("local",)
+VALID_MODES = ("local", "slurm")
 VALID_BACKENDS = ("cuda", "cpu")
 VALID_RECOVER_MODES = ("disabled", "resume", "auto", "fault")
 
@@ -424,6 +427,7 @@ def validate_config(cfg) -> None:
                     f"allocation_mode {label} spec '{spec}' needs "
                     f"{spec.world_size} devices but the experiment has "
                     f"n_nodes×n_gpus_per_node = {n_devices}")
+        _validate_ep(cfg, alloc)
     tiny = getattr(getattr(cfg, "actor", None), "tiny", None)
     moe = tiny.get("moe") if isinstance(tiny, dict) else None
     if isinstance(moe, dict):
@@ -443,6 +447,43 @@ def validate_config(cfg) -> None:
     if nr is not None and getattr(nr, "type", "nfs") not in ("nfs", "memory"):
         raise ConfigError(f"cluster.name_resolve.type={nr.type!r}: use nfs "
                           "(the default) or memory")
+
+
+def _validate_ep(cfg, alloc) -> None:
+    """The reference's three ``ep`` rules (cli_args.py:526-556): no ``ep``
+    on a generation spec (decode never dispatches over owners), none on a
+    dense model (no experts to shard), and experts that divide over it."""
+    gen_specs = [("generation", alloc.gen_spec)]
+    gen_specs += [(f"MFC '{m}'", s) for m, s in sorted(alloc.per_mfc.items())
+                  if m == "actor_gen"]
+    for label, spec in gen_specs:
+        if spec is not None and spec.ep > 1:
+            raise ConfigError(
+                f"allocation_mode {label} spec '{spec}' sets ep={spec.ep}, "
+                "but expert parallelism only applies to training: decode "
+                "runs the grouped dispatch on whole experts (models/moe.py "
+                "never exchanges under a KV cache). Move the ep factor into "
+                "dp or tp for the generation fleet, e.g. e2 -> d2.")
+    tiny = getattr(getattr(cfg, "actor", None), "tiny", None)
+    moe = tiny.get("moe") if isinstance(tiny, dict) else None
+    train_specs = [("global", alloc.global_spec)]
+    train_specs += [(f"MFC '{m}'", s) for m, s in
+                    sorted(alloc.per_mfc.items()) if m != "actor_gen"]
+    for label, spec in train_specs:
+        if spec is None or spec.ep <= 1:
+            continue
+        if not isinstance(moe, dict):
+            raise ConfigError(
+                f"allocation_mode {label} spec '{spec}' sets ep={spec.ep} "
+                "but the model is dense (actor.tiny.moe is unset): there are "
+                "no experts to shard. Drop the ep factor or configure "
+                "actor.tiny.moe.")
+        n_exp = int(moe.get("num_experts", 8))
+        if n_exp % spec.ep:
+            raise ConfigError(
+                f"allocation_mode {label} spec '{spec}' sets ep={spec.ep}, "
+                f"which does not divide actor.tiny.moe.num_experts={n_exp}: "
+                "every ep rank must own the same number of experts.")
 
 
 def _validate_serving(cfg) -> None:
@@ -619,6 +660,96 @@ def _validate_durability(cfg) -> None:
         raise ConfigError(
             f"durability.push_block_secs={dur.push_block_secs} must be > 0 "
             "(a zero budget fails every send)")
+
+
+# ---------------- the YAML dump and load ----------------
+
+def merge_dict(cfg, d: Dict[str, Any], _path: str = ""):
+    """A (nested) plain dict, e.g. a parsed YAML file, merged onto a
+    dataclass; unknown keys raise :class:`ConfigError` with the closest
+    names (reference ``merge_dict:803``)."""
+    fm = _field_map(cfg)
+    for k, v in d.items():
+        path = f"{_path}.{k}" if _path else k
+        if k not in fm:
+            raise ConfigError(_unknown_key_msg(cfg, k, path))
+        cur = getattr(cfg, k)
+        if dataclasses.is_dataclass(cur) and isinstance(v, dict):
+            cfg = _safe_set(cfg, k, merge_dict(cur, v, path))
+        elif isinstance(v, str) and not isinstance(cur, str) \
+                and not dataclasses.is_dataclass(cur):
+            cfg = _safe_set(cfg, k, _coerce(v, _field_type(cfg, k)))
+        else:
+            cfg = _safe_set(cfg, k, v)
+    return cfg
+
+
+def load_yaml(cfg, path: str):
+    """Merge the YAML file ``path`` onto ``cfg`` (reference ``:821``). A
+    JSON file (what :func:`save_yaml` writes where ``yaml`` is absent) is
+    read with ``json``, with or without ``yaml``; anything else needs
+    ``yaml``. A file that does not read raises :class:`ConfigError`."""
+    with open(path) as f:
+        text = f.read()
+    try:
+        d = json.loads(text) if text.strip() else {}
+    except json.JSONDecodeError as e:
+        try:
+            import yaml
+        except ImportError:
+            raise ConfigError(
+                f"{path} is not JSON and yaml is not installed to read it as "
+                f"YAML: {e}") from None
+        try:
+            d = yaml.safe_load(text) or {}
+        except yaml.YAMLError as e:
+            raise ConfigError(f"{path} does not read as YAML: {e}") from None
+    if not isinstance(d, dict):
+        raise ConfigError(f"{path} holds a {type(d).__name__}, not a mapping "
+                          "of config keys")
+    return merge_dict(cfg, d)
+
+
+def to_yaml_dict(cfg) -> Dict[str, Any]:
+    """A dataclass as a plain dict that ``yaml.dump`` and ``json.dump`` both
+    take: tuples become lists, anything else that is not a plain value its
+    ``repr`` (reference ``:829``)."""
+    def clean(x):
+        if isinstance(x, dict):
+            return {k: clean(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [clean(v) for v in x]
+        if isinstance(x, (str, int, float, bool)) or x is None:
+            return x
+        return repr(x)
+
+    return clean(dataclasses.asdict(cfg))
+
+
+def save_yaml(cfg, path: str) -> None:
+    """``cfg`` written to ``path`` as YAML (reference ``:844``), or as JSON
+    where ``yaml`` is absent: JSON is a YAML document, so the file loads
+    through :func:`load_yaml` either way."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    d = to_yaml_dict(cfg)
+    try:
+        import yaml
+    except ImportError:
+        text = json.dumps(d, indent=2) + "\n"
+    else:
+        text = yaml.dump(d, default_flow_style=False, sort_keys=False)
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def get_log_path(cfg) -> str:
+    """The run's log directory, where the launcher dumps ``config.yaml``
+    (the port's ``base/constants.experiment_paths`` layout)."""
+    from areal_tpu_torch.base import constants
+
+    return constants.experiment_paths(
+        cfg.experiment_name, cfg.trial_name,
+        fileroot=cfg.cluster.fileroot)["log"]
 
 
 def print_config_help(cfg, _indent: int = 0) -> None:

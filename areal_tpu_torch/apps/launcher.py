@@ -59,7 +59,11 @@ On ``cuda`` each rank sees one GPU (``CUDA_VISIBLE_DEVICES``, from
 :func:`derive_chip_assignment`), and a decoupled allocation's generation
 fleet sees its own GPUs.
 
-Left out: slurm (ROADMAP.md).
+The launcher dumps the merged config as ``config.yaml`` into the run's
+log directory (``api/cli_args.save_yaml``; JSON where ``yaml`` is absent),
+as the reference does (``launcher.py:420``); ``mode=slurm`` hands the
+experiment to ``apps/slurm.py SlurmLauncher``, whose tasks start their
+workers through ``apps/remote.py`` from that file.
 """
 
 from __future__ import annotations
@@ -378,6 +382,10 @@ class LocalLauncher:
             # supervise=false: any death escalates at once
             restartable_kinds=STATELESS_KINDS if self.ft.supervise else ())
         setup = exp.initial_setup()
+        # the merged config beside the run, as the remote workers read it
+        from areal_tpu_torch.api import cli_args as CA
+
+        CA.save_yaml(exp, os.path.join(CA.get_log_path(exp), "config.yaml"))
         n_dist = C.trainer_world(C.resolve_allocation(exp))
         gpus = self._gpu_assignment(exp, n_dist)
         restore_sigterm = lambda: None  # noqa: E731
@@ -596,6 +604,10 @@ def run_experiment(exp_cfg, probes: Optional[Dict[str, Callable]] = None
     from areal_tpu_torch.api.cli_args import validate_config
 
     validate_config(exp_cfg)
+    if getattr(exp_cfg, "mode", "local") == "slurm":
+        from areal_tpu_torch.apps.slurm import SlurmLauncher
+
+        return SlurmLauncher(exp_cfg).run()
     recover_mode = getattr(exp_cfg, "recover_mode", "disabled")
     retries = (getattr(exp_cfg, "recover_retries", 1)
                if recover_mode in ("auto", "fault") else 0)

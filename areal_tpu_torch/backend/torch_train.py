@@ -55,8 +55,11 @@ else 1) to the loss and returns the aux as ``moe_*`` stats; the step divides
 them by the micro-batch count, observes the ``[E]`` expert load as the
 ``train/moe_expert_load_dist`` distribution and sets the
 ``train/moe_dropped_frac`` / ``train/moe_expert_load_ratio`` gauges (the
-reference's ``_finish_stats:757``). ``train/moe_ep_engaged`` is published
-as 0: expert parallelism is still to come. Router jitter
+reference's ``_finish_stats:757``). ``train/moe_ep_engaged`` is set from
+the expert-parallel gate on every uploaded train batch (the reference's
+``_ep_engagement:739``): 1 where the dispatch runs over ``ep``, 0 under
+``pp`` (a stage's MoE layers run the grouped dispatch on experts gathered
+over ``ep``, as the reference's stages do). Router jitter
 (``input_jitter_eps > 0``) draws from one ``torch.Generator`` per
 micro-batch seeded from the optimizer step count and the micro-batch index.
 
@@ -122,7 +125,20 @@ inference forward broadcasts the last stage's outputs over ``pp``;
 mesh, an engine whose ``_spec`` has ``sp`` or ``pp`` above 1 runs the same
 ring and pipeline in one process on its device: every rank's shard and
 every stage, one after another (how the card holds them against plain
-attention). ``ep`` above 1, and MoE layers under ``tp`` or ``sp``, raise: they come with expert parallelism (ROADMAP.md Queue 1).
+attention).
+
+Expert parallelism over ``ep`` (``models/moe.py dispatch_ep``): each ``ep``
+rank is a data rank with micro-batches of its own, and the source of its
+tokens; the expert stacks' compute copies keep their ``ep`` shard (each
+rank runs the experts it owns, ``sharding.compute_placements``), the
+exchange runs over the ``ep`` group, and the experts' gradients come back
+whole over ``ep``. Under ``pp`` the stages run the grouped dispatch on
+experts gathered over ``ep``. Without a mesh, an engine whose ``_spec`` has
+``ep`` above 1 runs every source and owner in this process, each
+micro-batch's rows split into ``ep`` sources. MoE layers under ``tp`` split
+each expert's width over ``tp`` and sum the partial products; under ``sp``
+they take their capacity slots and statistics over whole rows
+(``models/moe.py``).
 """
 
 from __future__ import annotations
@@ -154,6 +170,7 @@ from areal_tpu_torch.backend import microbatch as mbu
 from areal_tpu_torch.base import safetensors_io as sio
 from areal_tpu_torch.base import telemetry
 from areal_tpu_torch.models import generate as genmod
+from areal_tpu_torch.models import moe as moemod
 from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.models.packing import round_up
 from areal_tpu_torch.models.transformer import (
@@ -352,19 +369,6 @@ class _CastGather(torch.autograd.Function):
         return g, None, None, None, None, None, None, None
 
 
-def _check_mesh(mesh, cfg: TransformerConfig) -> None:
-    """Refuse the mesh axes and layouts the port does not run yet."""
-    if psh.mesh_degree(mesh, "ep") > 1:
-        raise NotImplementedError(
-            "ep > 1 needs expert parallelism, which the port does not have "
-            "yet (expert parallelism, ROADMAP.md Queue 1)")
-    for axis, what in (("tp", "tensor"), ("sp", "sequence")):
-        if cfg.moe is not None and psh.mesh_degree(mesh, axis) > 1:
-            raise NotImplementedError(
-                f"{what} parallelism of MoE layers comes with expert "
-                f"parallelism (expert parallelism, ROADMAP.md Queue 1)")
-
-
 class TorchTrainEngine(TrainableEngine):
     """Owns the f32 masters and the optimizer state on one device."""
 
@@ -387,14 +391,15 @@ class TorchTrainEngine(TrainableEngine):
     ):
         self.cfg = cfg
         self.mesh = mesh
-        # sp / pp: over the mesh's groups (set by _setup_mesh); without a
-        # group, every rank and stage runs in this one process
+        # sp / pp / ep: over the mesh's groups (set by _setup_mesh);
+        # without a group, every rank, stage and source runs in this one
+        # process
         self._spec = ParallelSpec()
         self._sp_rank, self._sp_group = 0, None
+        self._ep_rank, self._ep_group = 0, None
         self._stage, self._pp_group = None, None
         self._reports_data = self._reports_aux = True
         if mesh is not None:
-            _check_mesh(mesh, cfg)
             if device is None and mesh.device_type == "cpu":
                 device = "cpu"
         self.device = resolve_device(device)
@@ -415,6 +420,11 @@ class TorchTrainEngine(TrainableEngine):
                            f"{sorted(expected - set(params))}, unexpected "
                            f"{sorted(set(params) - expected)}")
         train = opt_cfg is not None
+        if train and remat:
+            # torch.utils.checkpoint imports torch._dynamo on its first
+            # call (seconds in a fresh process): pay it while the trainer
+            # starts, not in its first train step
+            import torch._dynamo as _dynamo  # noqa: F401
         # Training keeps explicit f32 masters: bf16 rounds away small Adam
         # updates; compute still runs in compute_dtype.
         self.params = {
@@ -463,6 +473,14 @@ class TorchTrainEngine(TrainableEngine):
         self._spec = ParallelSpec(**deg)
         if deg["sp"] > 1:
             self._sp_rank, self._sp_group = coords["sp"], mesh.get_group("sp")
+        if deg["ep"] > 1:
+            if cfg.moe is not None and cfg.moe.num_experts % deg["ep"]:
+                raise ValueError(f"ep={deg['ep']} does not divide "
+                                 f"{cfg.moe.num_experts} experts")
+            self._ep_rank, self._ep_group = coords["ep"], mesh.get_group("ep")
+        # the expert-parallel dispatch's layout: each rank its own experts
+        ep_local = (cfg.moe is not None and deg["ep"] > 1
+                    and deg["pp"] == 1)
         if deg["pp"] > 1:
             # each stage holds its own layers' masters only
             self._stage, self._pp_group = coords["pp"], mesh.get_group("pp")
@@ -481,8 +499,10 @@ class TorchTrainEngine(TrainableEngine):
 
         full = psh.placements_of({})
         self._cast_pl = {
-            n: (cut(p.placements), cut(psh.compute_placements(n, layouts[n])),
-                cut(full), cut(psh.grad_placements(n, layouts[n], cfg, tp)))
+            n: (cut(p.placements),
+                cut(psh.compute_placements(n, layouts[n], ep_local)),
+                cut(full),
+                cut(psh.grad_placements(n, layouts[n], cfg, tp, ep_local)))
             for n, p in self.params.items()}
         rows = psh.kv_head_rows(cfg, tp, psh.mesh_coord(mesh, "tp"))
         self._kv_rows = {n: rows for n in self.params if rows is not None
@@ -533,6 +553,22 @@ class TorchTrainEngine(TrainableEngine):
             pipe = ppl.PipeCtx(pp=spec.pp, stage=self._stage,
                                group=self._pp_group, sp=spec.sp)
         return ring, pipe
+
+    def _expert_ctx(self, rows: int, cols: int
+                    ) -> Optional[moemod.ExpertCtx]:
+        """The expert-parallel dispatch's context for ``[rows, cols]``
+        micro-batches (the reference's gate): an MoE model, ``ep`` above 1,
+        no pipeline; without a mesh, one process splits the rows into the
+        ``ep`` sources, so ``moe.ep_eligible`` must hold for the shape."""
+        spec = self._spec
+        if self.cfg.moe is None or spec.ep <= 1 or spec.pp > 1:
+            return None
+        if self._ep_group is not None:
+            return moemod.ExpertCtx(ep=spec.ep, rank=self._ep_rank,
+                                    group=self._ep_group)
+        if not moemod.ep_eligible(spec, self.cfg.moe, rows, cols):
+            return None
+        return moemod.ExpertCtx(ep=spec.ep)
 
     def _loss_share(self, ring) -> float:
         """The weight of this rank's head loss in its backward: 0 on a
@@ -632,7 +668,8 @@ class TorchTrainEngine(TrainableEngine):
             self.model, cast, (batch["tokens"], batch["positions"]),
             dict(segment_ids=batch["segment_ids"], attn_impl=self.attn_impl,
                  remat=remat, return_kv=False, return_hidden=return_hidden,
-                 return_aux=True, rng=rng, ring=ring, pipeline=pipe),
+                 return_aux=True, rng=rng, ring=ring, pipeline=pipe,
+                 ep=self._expert_ctx(*batch["tokens"].shape)),
         )
         if ring is not None and not ring.one_process and not return_hidden:
             out = ring_mod.gather_sequence(out, ring)
@@ -713,7 +750,8 @@ class TorchTrainEngine(TrainableEngine):
                                          remat=self.remat, aux=aux, rng=rng)
         loss_sum, stats = loss_fn(out, batch)
         loss = loss_sum / max(denom, 1.0)
-        share = self._loss_share(self._parallel(batch)[0])
+        ring = self._parallel(batch)[0]
+        share = self._loss_share(ring)
         total = loss * share if share != 1.0 else loss
         # what this rank reports: the head loss where it reports data, the
         # aux (its stage's share) where it reports aux
@@ -721,7 +759,10 @@ class TorchTrainEngine(TrainableEngine):
             torch.zeros_like(loss.detach())
         if aux:
             aux_loss = aux["aux_total"] * aux_scale
-            total = total + aux_loss
+            # sp ranks that ran whole rows each hold the whole aux
+            total = total + (aux_loss / self._spec.sp
+                             if self._sp_group is not None and ring is None
+                             else aux_loss)
             if self._reports_aux:
                 report = report + aux_loss.detach()
             stats = dict(stats, **{f"moe_{k}": v for k, v in aux.items()})
@@ -799,8 +840,9 @@ class TorchTrainEngine(TrainableEngine):
             with telemetry.span("train/split_pack"):
                 mbs = self._split(input_, mb_spec)
                 telemetry.set_gauge("train/pack_fill", mbu.pack_fill(mbs))
-            # the expert-parallel path needs a mesh: never engaged here
-            telemetry.set_gauge("train/moe_ep_engaged", 0.0)
+            telemetry.set_gauge(
+                "train/moe_ep_engaged",
+                float(self._expert_ctx(*mbs[0].layout.shape) is not None))
         else:
             mbs = self._split(input_, mb_spec)
             telemetry.set_gauge("infer/pack_fill", mbu.pack_fill(mbs))

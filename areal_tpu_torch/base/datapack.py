@@ -1,10 +1,11 @@
 """Balanced partitioning of variable-length sequences.
 
 The port's own copy of ``areal_tpu/base/datapack.py`` (contiguous balanced
-partition, first-fit-decreasing allocation, greedy balanced groups), numpy
-and Python only. The reference's native first-fit-decreasing path
-(``_ffd_native:82`` over its C++ host library) gives the same bins faster
-for large inputs; its port is a later item, not a kernel.
+partition, first-fit-decreasing allocation, greedy balanced groups).
+First-fit-decreasing inputs of ``NATIVE_MIN_ITEMS`` or more take the native
+host path (``ops/native.py ffd_assign``, the reference's
+``_ffd_native:82``), which gives the same bins as the Python loop, the plain
+version.
 """
 
 from __future__ import annotations
@@ -78,12 +79,14 @@ def partition_contiguous_balanced(sizes: Sequence[int], k: int) -> List[List[int
     return [list(range(bounds[i], bounds[i + 1])) for i in range(k)]
 
 
-def ffd_allocate(
-    sizes: Sequence[int], capacity: int, min_groups: int = 1,
-) -> List[List[int]]:
-    """First-fit-decreasing bin packing: group indices so that each group's
-    total size is <= capacity (single items larger than capacity get their own
-    group), producing at least ``min_groups`` groups when possible."""
+# From this many items up, first-fit-decreasing takes the native path: the
+# largest crossover of three sweeps on the H100 machine's host
+# (``chip_smoke.py native_sweep``, PERF.md section 6; 64, 96, 96). Below it
+# the ctypes call and the argsort cost more than the Python loop saves.
+NATIVE_MIN_ITEMS = 96
+
+
+def _ffd_python(sizes: Sequence[int], capacity: int):
     bins: List[List[int]] = []
     loads: List[int] = []
     order = sorted(range(len(sizes)), key=lambda i: -sizes[i])
@@ -97,6 +100,40 @@ def ffd_allocate(
         else:
             bins.append([i])
             loads.append(s)
+    return bins, loads
+
+
+def _ffd_native(sizes: Sequence[int], capacity: int):
+    """The native first-fit-decreasing bins (``ops/native.py ffd_assign``)
+    and their loads, each bin's items in decreasing-size order as the
+    Python loop appends them; None where no native library loads."""
+    from areal_tpu_torch.ops import native
+
+    sizes = np.asarray(sizes, np.int64)
+    bin_of = native.ffd_assign(sizes, capacity)
+    if bin_of is None:
+        return None
+    n_bins = int(bin_of.max()) + 1 if len(bin_of) else 0
+    bins: List[List[int]] = [[] for _ in range(n_bins)]
+    order = np.argsort(-sizes, kind="stable")
+    for i, b in zip(order.tolist(), bin_of[order].tolist()):
+        bins[b].append(i)
+    loads = np.bincount(bin_of, weights=sizes, minlength=n_bins)
+    return bins, [int(x) for x in loads]
+
+
+def ffd_allocate(
+    sizes: Sequence[int], capacity: int, min_groups: int = 1,
+) -> List[List[int]]:
+    """First-fit-decreasing bin packing: group indices so that each group's
+    total size is <= capacity (single items larger than capacity get their own
+    group), producing at least ``min_groups`` groups when possible. Inputs
+    of ``NATIVE_MIN_ITEMS`` or more take the native path where it loads;
+    both paths give the same bins."""
+    found = (_ffd_native(sizes, capacity)
+             if len(sizes) >= NATIVE_MIN_ITEMS else None)
+    bins, loads = found if found is not None else _ffd_python(sizes,
+                                                              capacity)
     while len(bins) < min_groups and any(len(b) > 1 for b in bins):
         # Split the heaviest bin among those that can be split.
         candidates = [j for j in range(len(bins)) if len(bins[j]) > 1]

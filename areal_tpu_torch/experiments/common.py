@@ -8,8 +8,7 @@ name-resolve repository.
 Differences: a rank holds one device, so an allocation's trainer spec
 gives its number of trainer processes (the reference's
 ``trainer_dist_procs``, which the port derives; ``sp`` and ``pp`` enter
-that world as every other axis); ``ep`` above 1 raises until expert
-parallelism is ported (ROADMAP.md Queue 1); a role's
+that world as every other axis, and so does ``ep``); a role's
 ``type.is_critic`` travels into its init dict, where the port's trainer
 factory builds the value head (the reference drops it: ROADMAP.md Queue
 3); a real tokenizer needs ``transformers``, which the port does not use,
@@ -29,10 +28,6 @@ from areal_tpu_torch.base import constants
 from areal_tpu_torch.parallel.mesh import AllocationMode, ParallelSpec
 
 
-# The mesh axes the port does not run yet, and the piece that brings each.
-LATER_AXES = {"ep": "expert parallelism"}
-
-
 def trainer_world(alloc: AllocationMode) -> int:
     """The trainer's ranks: the world of the allocation's trainer spec, one
     rank (process) per device. The reference sets it apart as
@@ -50,20 +45,13 @@ def trainer_world(alloc: AllocationMode) -> int:
 
 
 def resolve_allocation(cfg: BaseExperimentConfig) -> AllocationMode:
-    """Parse ``allocation_mode`` (default: one device). Raises for ``ep``
-    above 1, for trainer specs of different worlds
+    """Parse ``allocation_mode`` (default: one device). Raises for trainer
+    specs of different worlds
     (:func:`trainer_world`), and, on ``cuda``, for a world of several
     ranks wider than the visible GPUs (one rank needs none to build its
     config: the launcher checks the card)."""
     alloc = (AllocationMode.parse(cfg.allocation_mode) if cfg.allocation_mode
              else AllocationMode(global_spec=ParallelSpec()))
-    specs = [alloc.global_spec, alloc.gen_spec, *alloc.per_mfc.values()]
-    for s in specs:
-        for axis, piece in LATER_AXES.items():
-            if s is not None and getattr(s, axis) > 1:
-                raise NotImplementedError(
-                    f"allocation {s}: {axis} > 1 needs {piece}, which the "
-                    f"port does not have yet ({piece}, ROADMAP.md Queue 1)")
     world = trainer_world(alloc)
     if cfg._device() is None and world > 1:
         import torch

@@ -63,6 +63,14 @@ def plan_packing(
     )
 
 
+# From this many sequences up, a 1-D key is scattered by the native path:
+# the largest crossover of three sweeps on the H100 machine's host
+# (``chip_smoke.py native_sweep``, PERF.md section 6; 128, 512, 1024).
+# Below it the Python loop of slice assignments costs about as much as the
+# ctypes call and its bounds checks, or less.
+NATIVE_MIN_SEQS = 1024
+
+
 def batch_from_packed(
     packed: np.ndarray,  # 1-D concatenation over sequences (input order)
     layout: PackLayout,
@@ -70,6 +78,18 @@ def batch_from_packed(
 ) -> np.ndarray:
     B, L = layout.shape
     out = np.full((B, L) + packed.shape[1:], fill, dtype=packed.dtype)
+    # the native path (ops/native.py): one C call for a 1-D key instead of
+    # a Python slice assignment per sequence (the reference's
+    # batch_from_packed:79); the same grid
+    if (packed.ndim == 1 and packed.flags.c_contiguous
+            and len(layout.seqlens) >= NATIVE_MIN_SEQS):
+        from areal_tpu_torch.ops import native
+
+        lens = np.asarray(layout.seqlens, np.int64)
+        rows, cols = np.asarray(layout.placements, np.int64).T
+        offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
+        if native.scatter_intervals(packed, out, rows, cols, lens, offs):
+            return out
     off = 0
     for (row, col), n in zip(layout.placements, layout.seqlens):
         out[row, col : col + n] = packed[off : off + n]

@@ -31,8 +31,13 @@ ring keeps this rank's shard and returns its output in that layout, a
 one-process ring holds every shard and returns natural order. The
 training forward hands the layers to the pipeline over ``pp``
 (``parallel/pipeline.py``, the reference's ``forward:460-472``) when given
-a ``PipeCtx``. The MoE expert-parallel path is still to come (ROADMAP.md
-Queue 1).
+a ``PipeCtx``. An MoE layer runs the expert-parallel dispatch
+(``models/moe.py dispatch_ep``) when ``forward`` is given an ``ExpertCtx``,
+with the reference's gate (``_block:258-278``): only in the packed
+forward without a KV cache, and never inside a pipeline stage; elsewhere
+it runs the grouped dispatch on experts gathered over ``ep``. Under a
+ring the MoE layer takes its capacity slots and statistics over the whole
+rows in natural order.
 
 Learned positions differ from the reference in one respect, by design. The
 reference adds ``pos_embedding[positions]`` (``forward:430``), whose gather
@@ -143,6 +148,16 @@ def _norm(cfg: TransformerConfig, dim: int, **factory) -> nn.Module:
     return cls(dim, cfg.rms_norm_eps, **factory)
 
 
+def _embedding(n: int, dim: int, device=None, dtype=None) -> nn.Embedding:
+    """An embedding table; on the meta device without nn.Embedding's
+    normal_ init, whose meta kernel is a Python decomposition that imports
+    torch._dynamo on its first call (seconds in a fresh process)."""
+    if device is not None and torch.device(device).type == "meta":
+        return nn.Embedding(n, dim, _weight=torch.empty(
+            n, dim, device="meta", dtype=dtype))
+    return nn.Embedding(n, dim, device=device, dtype=dtype)
+
+
 # ---------------- one block ----------------
 
 _MOE_KEYS = ("router", "e_gate", "e_up", "e_down", "s_gate", "s_up", "s_down")
@@ -206,12 +221,14 @@ class Block(nn.Module):
         attn_impl: str,
         jitter_seed: Optional[int] = None,  # MoE router jitter (training)
         ring: Optional[ring_mod.RingCtx] = None,  # packed: ring attention
+        ep: Optional[moemod.ExpertCtx] = None,  # packed: expert parallelism
     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor],
                Optional[Dict[str, torch.Tensor]]]:
         """Returns (h, (k, v), aux): aux is the MoE layer's routing stats,
         None for a dense layer. With ``ring``, the packed attention runs as
         ring attention over tensors in the ring's layout (the reference's
-        ``_block:199-218``)."""
+        ``_block:199-218``); with ``ep``, an MoE layer dispatches over the
+        experts' owners."""
         cfg = self.cfg
         B, T, _ = h.shape
         dh = cfg.head_dim
@@ -264,7 +281,9 @@ class Block(nn.Module):
         x = self.ln2(h)
         aux = None
         if cfg.moe is not None:
-            mlp, aux = self.moe(x, segment_ids, jitter_seed)
+            mlp, aux = self.moe(x, segment_ids, jitter_seed,
+                                ring=ring if cache_kv is None else None,
+                                ep=ep if cache_kv is None else None)
         elif cfg.mlp_type == "plain":
             x = constrain(x, "column_in")
             mlp = _row_parallel(self.w_down, self.act(self.w_up(x)))
@@ -275,12 +294,15 @@ class Block(nn.Module):
         return h + mlp, new_kv, aux
 
     def moe(self, x: torch.Tensor, segment_ids: Optional[torch.Tensor],
-            jitter_seed: Optional[int] = None):
+            jitter_seed: Optional[int] = None,
+            ring: Optional[ring_mod.RingCtx] = None,
+            ep: Optional[moemod.ExpertCtx] = None):
         """The MoE MLP: pad tokens (segment 0) masked out in packed mode;
         in cache mode (``segment_ids`` None) every row is routed, as the
         reference does (see ROADMAP.md, Queue 3). The jitter's generator
         is made here from its seed, so a remat recompute draws the same
-        noise."""
+        noise. ``ring``: ``x`` is in the ring's layout; ``ep``: the
+        expert-parallel dispatch."""
         lp = {}
         for key in _MOE_KEYS:
             mod = getattr(self, key, None)
@@ -291,7 +313,8 @@ class Block(nn.Module):
             rng = torch.Generator(device=x.device).manual_seed(jitter_seed)
         return moemod.moe_mlp(
             x, lp, self.cfg.moe, rng=rng,
-            mask=None if segment_ids is None else segment_ids > 0)
+            mask=None if segment_ids is None else segment_ids > 0,
+            ep=ep, ring=ring)
 
 
 def _row_parallel(lin: nn.Linear, a: torch.Tensor) -> torch.Tensor:
@@ -316,10 +339,10 @@ class Transformer(nn.Module):
                              "max_position_embeddings")
         f = dict(device=device, dtype=dtype)
         self.cfg = cfg
-        self.embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_dim, **f)
+        self.embedding = _embedding(cfg.vocab_size, cfg.hidden_dim, **f)
         if cfg.pos_embedding == "learned":
-            self.pos_embedding = nn.Embedding(cfg.max_position_embeddings,
-                                              cfg.hidden_dim, **f)
+            self.pos_embedding = _embedding(cfg.max_position_embeddings,
+                                            cfg.hidden_dim, **f)
         self.layers = nn.ModuleList(Block(cfg, **f) for _ in range(cfg.n_layers))
         self.final_ln = _norm(cfg, cfg.hidden_dim, **f)
         if cfg.is_critic:
@@ -354,6 +377,7 @@ class Transformer(nn.Module):
         rng: Optional[torch.Generator] = None,  # MoE router jitter (train)
         ring: Optional[ring_mod.RingCtx] = None,  # sp: ring attention
         pipeline: Optional[ppl.PipeCtx] = None,  # pp: pipelined layers
+        ep: Optional[moemod.ExpertCtx] = None,  # ep: expert parallelism
     ):
         """Returns (output, kv), or (output, kv, aux) with ``return_aux``:
         output is logits [B, T, V] (a critic's values [B, T]; the final
@@ -385,7 +409,9 @@ class Transformer(nn.Module):
         in order as one micro-batch; on a process that runs one stage,
         only the last stage's output is real (zeros elsewhere) and the aux
         covers this stage's layers. The router jitter does not reach the
-        pipeline, as in the reference."""
+        pipeline, as in the reference. ``ep`` (the packed forward without
+        a KV stack, never with ``pipeline``): the MoE layers' expert-
+        parallel dispatch (``models/moe.py ExpertCtx``)."""
         cfg = self.cfg
         decode = kv_cache is not None
         if remat not in _REMAT_MODES:
@@ -396,6 +422,9 @@ class Transformer(nn.Module):
                                                             or return_kv):
             raise ValueError("ring and pipeline need the packed forward "
                              "with return_kv=False")
+        if ep is not None and (decode or return_kv or pipeline is not None):
+            raise ValueError("expert parallelism runs in the packed forward "
+                             "with return_kv=False, outside a pipeline")
         B, T = tokens.shape
         if ring is not None:
             tokens, positions, segment_ids = (
@@ -429,14 +458,15 @@ class Transformer(nn.Module):
             if remat:
                 h, aux = _checkpointed_layer(layer, remat, h, cos, sin,
                                              segment_ids, positions,
-                                             attn_impl, seeds[i], ring=ring)
+                                             attn_impl, seeds[i], ring=ring,
+                                             ep=ep)
             else:
                 cache = ((kv_cache["k"][i], kv_cache["v"][i]) if decode
                          else None)
                 h, (k, v), aux = layer(
                     h, cos, sin, None if decode else segment_ids,
                     None if decode else positions, cache, cache_write_index,
-                    kv_valid, attn_impl, seeds[i], ring,
+                    kv_valid, attn_impl, seeds[i], ring, ep,
                 )
                 if return_kv and not decode:
                     ks.append(k)
@@ -517,7 +547,8 @@ def _save_matmuls(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 def _checkpointed_layer(layer: Block, remat, h, cos, sin, segment_ids,
                         positions, attn_impl, jitter_seed=None, ring=None,
-                        params: Optional[Dict[str, torch.Tensor]] = None):
+                        params: Optional[Dict[str, torch.Tensor]] = None,
+                        ep=None):
     """One layer under ``torch.utils.checkpoint``; returns (h, aux). Its
     parameters (``params``, or the module's own) go in as explicit inputs
     and are swapped back in for the recompute, so the recompute sees the
@@ -530,7 +561,7 @@ def _checkpointed_layer(layer: Block, remat, h, cos, sin, segment_ids,
         out, _, aux = torch.func.functional_call(
             layer, dict(zip(names, tensors)),
             (h, cos, sin, segment_ids, positions, None, None, None, attn_impl,
-             jitter_seed, ring),
+             jitter_seed, ring, ep),
         )
         return out, aux
 

@@ -34,6 +34,11 @@ PP∘SP: a ring context (``parallel/ring.py RingCtx``) handed in reaches
 every layer of every stage, so attention rings inside the stages; the
 sequence layout is applied once at the model's boundary.
 
+Expert parallelism never runs inside a stage, as in the reference: a
+stage's MoE layers run the grouped dispatch on experts gathered whole
+over ``ep`` (the engine's compute copies, ``parallel/sharding.py
+compute_placements``), and ``ep`` splits the batch as a data axis.
+
 The fallback: where a gate of :func:`pick_pp_microbatches` fails, the
 stages still run (the layers live on their stages), in order, as a single
 pipeline micro-batch; the ``parallel/pp_fallback{reason=...}`` counter is

@@ -30,6 +30,14 @@ and handed to the model as a plain local tensor; its gradient comes back
 as a local tensor whose placements :func:`grad_placements` names (partial
 over the data axes) and is reduced into the master's layout.
 
+Expert stacks (``e_gate``/``e_up``/``e_down``) shard their expert dim over
+``ep``. Where the expert-parallel dispatch runs (``expert_local``), their
+compute copies keep that shard (each rank the experts it owns) and their
+gradients come back whole over ``ep`` (every source's rows reached the
+owner through the exchange); everywhere else (pipeline stages, the
+inference engine's generate, ``full_params``, publication and
+checkpoints) they are gathered whole, as every other master is.
+
 Two departures from the reference's table, both Megatron's rules:
 
  - where ``n_kv_heads % tp != 0`` (and ``tp % n_kv_heads == 0``), each
@@ -186,16 +194,27 @@ _KV_SUFFIXES = ("wk.weight", "wv.weight", "wk.bias", "wv.bias")
 _TP_GATHERED = ("embedding.weight", "lm_head.weight")
 
 
-def compute_placements(name: str, layout: Layout) -> tuple:
+_EXPERT_SUFFIXES = ("e_gate", "e_up", "e_down")
+
+
+def _is_expert_stack(name: str) -> bool:
+    return name.split(".", 2)[-1] in _EXPERT_SUFFIXES
+
+
+def compute_placements(name: str, layout: Layout,
+                       expert_local: bool = False) -> tuple:
     """The placements a master is used in: gathered over every axis but
-    ``tp``, and over ``tp`` too for the embedding and an untied head."""
+    ``tp``, and over ``tp`` too for the embedding and an untied head. With
+    ``expert_local`` an expert stack also keeps its ``ep`` shard (the
+    owner's experts, for the expert-parallel dispatch)."""
+    kept = ("tp", "ep") if expert_local and _is_expert_stack(name) else ("tp",)
     keep = {} if name in _TP_GATHERED else {
-        a: d for a, d in layout.items() if a == "tp"}
+        a: d for a, d in layout.items() if a in kept}
     return placements_of(keep)
 
 
 def grad_placements(name: str, layout: Layout, cfg: TransformerConfig,
-                    tp: int) -> tuple:
+                    tp: int, expert_local: bool = False) -> tuple:
     """The placements of the local gradient of a master's compute copy:
     partial over the data axes (each data rank saw its own micro-batches)
     and over ``sp`` (each sequence rank backpropagated its own tokens);
@@ -203,13 +222,16 @@ def grad_placements(name: str, layout: Layout, cfg: TransformerConfig,
     rank computed only its heads' share, else replicated. Over ``pp`` it
     is replicated: a stage's layers are its own, and the engine sums the
     parameters every stage holds over the ``pp`` group itself, once a
-    step (``backend/torch_train.py``)."""
+    step (``backend/torch_train.py``). With ``expert_local`` an expert
+    stack's gradient is this owner's shard over ``ep``, whole."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     suffix = name.split(".", 2)[-1]
     out = []
     for a in AXIS_ORDER:
-        if a in DATA_AXES or a == "sp":
+        if a == "ep" and expert_local and _is_expert_stack(name):
+            out.append(Shard(layout["ep"]))
+        elif a in DATA_AXES or a == "sp":
             out.append(Partial())
         elif a != "tp":
             out.append(Replicate())

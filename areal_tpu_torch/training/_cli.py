@@ -1,10 +1,11 @@
 """Shared command line of the training entry points.
 
-The port's copy of ``training/_cli.py``: ``key=value`` overrides onto the
-experiment's config (``api/cli_args.apply_overrides``), ``--help`` prints
-the config tree, ``--backend=cuda`` (the default) or ``--backend=cpu``
-picks every worker's device. ``--config <yaml>`` is not supported (the
-card's machine is not known to have ``yaml``).
+The port's copy of ``training/_cli.py``: ``--config <yaml>`` merged onto
+the experiment's config first (``api/cli_args.load_yaml``; a JSON file
+where ``yaml`` is absent), then the ``key=value`` overrides
+(``api/cli_args.apply_overrides``); ``--help`` prints the config tree,
+``--backend=cuda`` (the default) or ``--backend=cpu`` picks every worker's
+device.
 """
 
 from __future__ import annotations
@@ -14,13 +15,18 @@ from typing import List, Optional, Tuple
 
 
 def parse_argv(argv: List[str]) -> Tuple[dict, List[str]]:
-    """Split the flags (--backend, --help) from the key=value overrides."""
-    flags = {"backend": "cuda", "help": False}
+    """Split the flags (--config, --backend, --help) from the key=value
+    overrides."""
+    flags = {"config": None, "backend": "cuda", "help": False}
     overrides: List[str] = []
     it = iter(argv)
     for a in it:
         if a in ("--help", "-h"):
             flags["help"] = True
+        elif a.startswith("--config="):
+            flags["config"] = a.split("=", 1)[1]
+        elif a == "--config":
+            flags["config"] = next(it)
         elif a.startswith("--backend="):
             flags["backend"] = a.split("=", 1)[1]
         elif a == "--backend":
@@ -44,6 +50,8 @@ def main(experiment_name: str, default_cls,
     if flags["backend"] not in CA.VALID_BACKENDS:
         raise SystemExit(f"--backend={flags['backend']}: use one of "
                          f"{', '.join(CA.VALID_BACKENDS)}")
+    if flags["config"]:
+        CA.load_yaml(cfg, flags["config"])
     cfg.backend = flags["backend"]
     CA.apply_overrides(cfg, overrides)
     # Bad settings fail here, while the operator is at the command line.

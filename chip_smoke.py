@@ -5,7 +5,12 @@
 
 Phases (any failed check raises, and the script exits non-zero):
 
- (a) card: print its name and power limit, build the CUDA kernels from the
+ (a) card: print its name and power limit, which of zmq, aiohttp, msgpack,
+     yaml and ml_dtypes import here (a record only: the port needs none
+     of them), the seconds ``import torch`` took here and whether torch
+     ships its bytecode (the script keeps what it compiles under
+     ``build/pycache`` for itself and every process it starts), build the
+     CUDA kernels from the
      sources in this checkout (one nvcc per source, in parallel, sm_90a) and
      print ptxas's registers and spills for each kernel instance (29: K1-K3
      at head_dim 64, 128 and 256, f32, bf16 and fp16, and K2's two
@@ -61,7 +66,13 @@ Phases (any failed check raises, and the script exits non-zero):
      the micro-batches against the causal walk's. Checks finite loss and
      grad norm > 0, moved parameters, K2 and K3 launched layers x
      micro-batches x steps times, and K1 twice that (the "dots" remat
-     reruns K1 in the backward);
+     reruns K1 in the backward). Then the packer on the same batch as
+     the engine runs it, forced through the native host ops
+     (``ops/native.py``, which must build and load here) and through the
+     NumPy path: the host ms of a step's split and of the
+     first-fit-decreasing bins, each path's micro-batches (layouts and
+     grids) and bins equal; and the sweep of 8-4096 sequences that
+     places the native path's thresholds (``native_sweep``);
  (h) one micro-batch's loss and per-parameter grad norms through K1-K3
      against the same micro-batch through the plain attention, on the card;
      the micro-batch with the most positive-advantage tokens, since with
@@ -77,8 +88,8 @@ Phases (any failed check raises, and the script exits non-zero):
  (j)-(o) run at 4 of the model's 24 layers (full width; ``CUT_LAYERS``),
      as do (q3) with (p), (r), (s) and (u)-(x); (t) at 8
      (``ELASTIC_LAYERS``: at 4 its loop ends before the second server is
-     given work): the cuts that make room for (y) and (z) at full depth in
-     the time limit. Wherever a check of these phases counts per layer, it
+     given work): the cuts that make room for the later phases in the
+     time limit. Wherever a check of these phases counts per layer, it
      counts 4 (8 in (t)). (c)-(i), (q1) and (q2) run at 24.
  (j) the trainer's model functions of the async-PPO recipe (the README's
      `ppo.use_decoupled_loss=true group_size=16`, the rest at defaults:
@@ -443,24 +454,27 @@ Phases (any failed check raises, and the script exits non-zero):
      n_layers x the micro-batches and K1 twice that, and one micro-batch
      through K1-K3 against the plain attention (loss 1%, every grad norm,
      the position table's among them, 10%, cosine >= 0.99);
- (z) Gemma-2B at full width and depth (18 layers, hidden 2048, 8 q heads
-     over 1 kv head of 256, GeGLU 16384, vocab 256000): an HF directory in
+ (z) Gemma-2B at full width and 6 of its 18 layers (``GEMMA_LAYERS``;
+     all 18 before the script outgrew its time limit; hidden 2048, 8 q
+     heads over 1 kv head of 256, GeGLU 16384, vocab 256000): an HF
+     directory in
      Gemma's layout (bf16, norm scales stored as w - 1) from seed 0, read
      through ``load_hf_model``; served in process as in (y) (no 413: RoPE);
      the server freed, SFT through ``run_experiment`` on the SFTConfig that
      ``python -m areal_tpu_torch.training.main_sft`` builds (the launcher
      spawns the trainer; f32 masters, bf16 compute and Adam moments, full
-     remat): 3 steps (the first a warm-up) of 24 records (~17k tokens),
+     remat): 2 steps (the first a warm-up) of 24 records (~17k tokens),
      4096 tokens per micro-batch, with ms per step, trained tokens/s, the
      trainer's peak memory and K1-K3 per step (finite losses, grad norms >
      0, the launch counts); then one micro-batch through K1-K3 against the
-     plain attention on a fresh engine of all 18 layers, as in (y);
+     plain attention on a fresh engine of those 6 layers, as in (y);
 (aa) Mixture-of-Experts, every earlier engine gone: first K1 against its
      plain version (as (b)) at Qwen3-30B-A3B's heads (B=8, T=1024, 32 q
      over 4 kv heads of 128: G=8 at head_dim 128) and K2/K3 (as (f)) at
      [2, 1792], timed against SDPA. Then Qwen3-30B-A3B at full width and
-     depth (48 layers, hidden 2048, 128 experts of 768, top-8; 56.9 GiB
-     of bf16 weights made on the card from seed 0) served as (y) (8
+     12 of its 48 layers (``MOE_SERVE_LAYERS``; hidden 2048, 128 experts
+     of 768, top-8; bf16 weights made on the card from seed 0; all 48
+     before the script outgrew its time limit) served as (y) (8
      concurrent byte-token requests of 24-38 new tokens since PR 16,
      64-120 before, a 16-token greedy request twice, K1 n_layers x the
      prefills). On the same model: the batch's prefill with
@@ -468,7 +482,7 @@ Phases (any failed check raises, and the script exits non-zero):
      q, k, v (tolerance one bf16 ulp at max|plain|: 2**(floor(log2 max) -
      7); pad rows 0); the same prefill through the plain attention, whose
      last logits and top-k expert choices are reported, not gated (near
-     ties of router probabilities flip under bf16 noise and 48 layers
+     ties of router probabilities flip under bf16 noise and the layers
      carry them); the prefill's and a 4-step decode's drop fractions (the
      reference's capacity rule: the decode routes all 8 rows, capacity
      1); prefill and decode ms and the decode's device-idle share. Then
@@ -486,12 +500,12 @@ Phases (any failed check raises, and the script exits non-zero):
      yardstick the port never calls) at 4096 tokens and at 8 decode rows.
      Then PPO actor steps as (g) at full width and 2 of the 48 layers
      (1.87 B parameters; bench.py's batch, 8 micro-batches of [2, 1792]):
-     a warm-up and 3 timed steps; finite losses with ``moe_aux_total`` >
+     a warm-up and 2 timed steps; finite losses with ``moe_aux_total`` >
      0, grad norms > 0, the router moved, finite ``moe_*`` stats, each
      step's expert-load shares summing to 1, the ``train/moe_*`` gauges
      (``moe_ep_engaged`` 0), K2 and K3 layers x micro-batches x steps and
      K1 twice that, and one micro-batch through K1-K3 against the plain
-     attention as (h). Last, an HF directory of the 2-layer model in
+     attention as (h). Last, an HF directory of the model cut to 2 layers in
      ``Qwen3MoeForCausalLM``'s layout from seed 0 reads back through
      ``load_hf_model`` with its config and every weight equal.
 (bb) multi-GPU parallelism, part one, every earlier engine gone. First
@@ -569,6 +583,27 @@ Phases (any failed check raises, and the script exits non-zero):
      from the saved input), K2/K3 24 (plain) and 24 x 8; then a second,
      timed step of each: ms and peak memory, 1F1B's peak below GPipe's.
 
+ (dd) expert parallelism at Qwen3-30B-A3B's width, in one process (the
+     card runs one-process EP: ``ExpertCtx(ep)``, every source and owner
+     here, the exchange a re-indexing; two ranks cannot share the card).
+     (dd1) the MoE layer (128 experts of 768, top-8, hidden 2048, bf16,
+     seeded) on [8, 512] tokens (the last eighth of each row padding) at
+     ep 4 and 8: at the capacity factor E/k (no drops) the output within
+     2 bf16 ulps of the grouped dispatch's largest magnitude and the drop
+     fraction 0; at the model's capacity factor and at 0.5 (which must
+     drop) the keep masks and drop fraction exactly those of the einsum
+     oracle run on each source's rows with capacity(N_source), the output
+     within 2 ulps of it; wall and device ms of the EP and grouped
+     layers, the exchange's share. (dd2) 2 of the 48 layers at full
+     width, capacity factor E/k, a PPO batch of 16 trajectories of 1024
+     tokens (4 micro-batches of [4, 1024]) through one engine with its
+     ``_spec.ep`` at 4 and at 1 (plain): every micro-batch's loss and
+     gradients from the same weights, EP's within ``EP_LIMITS`` of
+     plain's (loss, each grad norm, the gradient's cosine) and a
+     misrouted exchange's (two sources' buffers swapped) outside them;
+     ``train/moe_ep_engaged`` 1 under EP and 0 plain; two timed steps of
+     each (ms, peak memory), no drops, K2/K3 2 x 4 x 2 and K1 twice that.
+
 The script exits 0 only when every phase passed and the last line is
 printed; any failed check raises and exits 1, as does a run where
 areal_tpu_torch is not beside the script. The line before the last is the
@@ -597,13 +632,36 @@ import urllib.request
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+def _torch_ships_bytecode() -> bool:
+    import importlib.util
+
+    spec = importlib.util.find_spec("torch")
+    return spec is None or not spec.origin or os.path.isdir(
+        os.path.join(os.path.dirname(spec.origin), "__pycache__"))
+
+
+if __name__ == "__main__" and not _torch_ships_bytecode():
+    # Where torch is installed without bytecode (and PYTHONDONTWRITEBYTECODE
+    # is set), every process would compile torch's sources anew, seconds
+    # for each process this script starts (PERF.md §5). The bytecode is
+    # kept under the checkout's build/ for this process and every one it
+    # starts (they inherit the environment).
+    _pycache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "pycache")
+    os.environ["PYTHONPYCACHEPREFIX"] = _pycache
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix = _pycache
+    sys.dont_write_bytecode = False
+
 if __name__ == "__mp_main__" and os.environ.get("CUDA_VISIBLE_DEVICES") == "":
     # A sandbox reward worker, spawned from this script, imports it again
     # to find its probe: it loads no torch, as under the port's own entry
     # points (``training/main_async_ppo.py``).
     torch = None
 else:
+    _t_import = time.monotonic()
     import torch  # noqa: E402
+    IMPORT_TORCH_S = time.monotonic() - _t_import
 
 # (j)-(o), (q3) with (p), (r), (s) and (u)-(x) run at this many of the
 # model's layers (full width)
@@ -611,6 +669,10 @@ CUT_LAYERS = 4
 # (t) runs at this many: at 4 its loop ends before the autoscaler's second
 # server is given work
 ELASTIC_LAYERS = 8
+# (z) runs Gemma-2B at this many of its 18 layers, and (aa) serves
+# Qwen3-30B-A3B at this many of its 48 (full width)
+GEMMA_LAYERS = 6
+MOE_SERVE_LAYERS = 12
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
@@ -6199,7 +6261,8 @@ def run_sft_entry(cfg, tmp: str, hf_dir: str, device: str = "cuda",
 
 def run_gemma(fa, tmp: str, device: str = "cuda", cfg=None, steps: int = 3,
               n_seqs: int = 24, mb_tokens: int = 4096) -> dict:
-    """(z): Gemma-2B at full width and depth from a seeded HF directory in
+    """(z): Gemma-2B (``cfg``, default ``GEMMA_LAYERS`` of its layers at
+    full width) from a seeded HF directory in
     Gemma's layout (bf16, norm scales stored as w - 1): served in process
     (:func:`serve_family`), the server freed; SFT through the entry point's
     launcher (:func:`run_sft_entry`); then one micro-batch through K1-K3
@@ -6211,7 +6274,7 @@ def run_gemma(fa, tmp: str, device: str = "cuda", cfg=None, steps: int = 3,
     from areal_tpu_torch.models.transformer import init_params
 
     cuda = torch.device(device).type == "cuda"
-    cfg = cfg or gemma_2b()
+    cfg = cfg or dataclasses.replace(gemma_2b(), n_layers=GEMMA_LAYERS)
     hf_dir = os.path.join(tmp, "gemma_hf")
     t0 = time.monotonic()
     hf.save_hf_checkpoint(init_params(cfg, seed=0, device=device,
@@ -6343,21 +6406,39 @@ class RoutingRecorder:
         return float(torch.stack(d).float().mean()) if d else float("nan")
 
 
-def device_busy_ms(fn):
-    """Device ms of one call of ``fn``: the sum of its kernels' device time
-    (torch.profiler), launch gaps left out; None when the profiler saw no
-    device event (not measured)."""
+def device_busy_ms(fn, attempts: int = 3) -> dict:
+    """Device ms of one call of ``fn`` and how it was taken, as ``{"ms",
+    "source"}``: the sum of its kernels' device time (torch.profiler,
+    source "profiler"), launch gaps left out. A first profiled call warms the
+    profiler (CUPTI's buffers and callbacks; a cold session can miss a
+    call's kernels) and is dropped; a session that still sees no device
+    event is run again, up to ``attempts`` times. Where none sees one (on
+    the card, a lone K1 launch through ``ctypes`` is missed in some runs
+    and not in others), the call is timed between CUDA events behind a
+    device-side sleep instead (``cuda_ms(queued=True)``: its kernels run
+    back to back, so the events time the device, not the host's launches,
+    source "cuda_events"), and a line says so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):
         fn()
         torch.cuda.synchronize()
-    dev = [e.device_time for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(dev) / 1e3 if dev else None
+    for _ in range(attempts):
+        with profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e.device_time for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev:
+            return {"ms": sum(dev) / 1e3, "source": "profiler"}
+    ms = cuda_ms(fn, iters=1, warmup=0, queued=True)
+    print(f"device_busy_ms: the profiler saw no device event in {attempts} "
+          f"sessions; CUDA events behind a device sleep: {ms:.4f} ms",
+          flush=True)
+    return {"ms": ms, "source": "cuda_events"}
 
 
 def moe_layer_inputs(E: int, k: int, F: int, D: int, N: int, seed: int,
@@ -6767,9 +6848,10 @@ def run_moe_hf(cfg, tmp: str, device: str = "cuda") -> dict:
     last = cfg.moe.num_experts - 1
     names = safetensors_names(hf_dir)
     check(hf_cfg["architectures"] == ["Qwen3MoeForCausalLM"]
-          and f"model.layers.0.mlp.experts.{last}.down_proj.weight" in names
-          and "model.layers.0.mlp.gate.weight" in names
-          and "model.layers.0.mlp.gate_proj.weight" not in names,
+          and all(f"model.layers.{i}.mlp.experts.{last}.down_proj.weight"
+                  in names and f"model.layers.{i}.mlp.gate.weight" in names
+                  and f"model.layers.{i}.mlp.gate_proj.weight" not in names
+                  for i in range(cfg.n_layers)),
           f"(aa): not Qwen3-MoE's layout: {sorted(names)[:6]}")
     t0 = time.monotonic()
     lcfg, params = hf.load_hf_model(hf_dir, device=device)
@@ -6786,10 +6868,11 @@ def run_moe_hf(cfg, tmp: str, device: str = "cuda") -> dict:
 
 def run_moe(fa, tmp: str, device: str = "cuda", cfg=None,
             train_layers: int = 2, layer_tokens: int = 4096,
-            train_batch=None, train_spec=None, eos: int = 151645) -> dict:
+            train_batch=None, train_spec=None, eos: int = 151645,
+            serve_layers: int = MOE_SERVE_LAYERS) -> dict:
     """(aa): Qwen3-30B-A3B (``cfg``, default the full published geometry)
-    served at full width and depth with weights from seed 0 in bf16
-    (:func:`serve_moe`); the MoE layer's grouped dispatch against its einsum
+    served at full width and ``serve_layers`` of its layers with weights
+    from seed 0 in bf16 (:func:`serve_moe`); the MoE layer's grouped dispatch against its einsum
     oracle at Qwen3-30B-A3B's and Mixtral-8x7B's widths (and a dropping
     capacity factor) with the layer's time split and the
     ``torch._grouped_mm`` yardstick; PPO actor steps at full width and
@@ -6800,7 +6883,11 @@ def run_moe(fa, tmp: str, device: str = "cuda", cfg=None,
 
     cuda = torch.device(device).type == "cuda"
     cfg = cfg or qwen3_30b_a3b()  # eos: Qwen3's <|im_end|>
-    rec = {"config": {"n_layers": cfg.n_layers, "hidden": cfg.hidden_dim,
+    serve_cfg = dataclasses.replace(cfg, n_layers=min(cfg.n_layers,
+                                                      serve_layers))
+    rec = {"config": {"n_layers": cfg.n_layers,
+                      "serve_layers": serve_cfg.n_layers,
+                      "hidden": cfg.hidden_dim,
                       "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
                       "expert_ffn": cfg.moe.routed_intermediate_dim}}
     if cuda:
@@ -6809,14 +6896,15 @@ def run_moe(fa, tmp: str, device: str = "cuda", cfg=None,
         print(f"(aa) card memory before the build: {free / 2 ** 30:.2f} of "
               f"{total / 2 ** 30:.2f} GiB free", flush=True)
     t0 = time.monotonic()
-    params = init_params(cfg, seed=0, device=device, dtype=torch.bfloat16)
+    params = init_params(serve_cfg, seed=0, device=device,
+                         dtype=torch.bfloat16)
     if cuda:
         torch.cuda.synchronize()
     rec["build_s"] = time.monotonic() - t0
     stage_s = rec["stage_s"] = {}
     rec["weights_gib"] = sum(t.numel() * t.element_size()
                              for t in params.values()) / 2 ** 30
-    rec["serve"] = serve_moe(fa, cfg, params, eos, device)
+    rec["serve"] = serve_moe(fa, serve_cfg, params, eos, device)
     stage_s["serve"] = time.monotonic() - t0
     del params
     if cuda:
@@ -7618,6 +7706,487 @@ def run_ring_and_pipeline(fa, cfg, device: str = "cuda") -> dict:
     return rec
 
 
+# ---------------- (dd) expert parallelism ----------------
+
+EP_DEGREES = (4, 8)
+EP_TRAIN = 4  # (dd2)'s one-process ep
+# (dd2)'s limits on the EP engine's loss and gradients against the plain
+# engine's (one-process EP, no drops), set between the sound readings and
+# a misrouted exchange's on the card (NVIDIA H100 80GB HBM3, 700 W): sound
+# loss 0 apart, grad norms within 6.4e-8, 1 - cosine 4.6e-9; two sources
+# swapped: loss 1.07e-5 apart, a grad norm 18.1% off, cosine 0.9623
+EP_LIMITS = {"loss_rel_err": 1e-6, "max_grad_norm_rel_err": 1e-4,
+             "grad_cosine_min": 1 - 1e-5}
+
+
+def ep_layer_inputs(E: int, k: int, F: int, D: int, B: int, T: int,
+                    seed: int, device: str):
+    """(dd1)'s layer in bf16 from ``seed`` (router and experts N(0, 0.02),
+    x N(0, 1) [B, T, D], the last eighth of each row padding): weights,
+    x and mask."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=0.02):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(
+            torch.bfloat16)
+
+    lp = {"router": rnd(E, D), "e_gate": rnd(E, D, F), "e_up": rnd(E, D, F),
+          "e_down": rnd(E, F, D)}
+    mask = (torch.arange(T, device=device) < T - T // 8)[None].expand(B, T)
+    return lp, rnd(B, T, D, scale=1.0), mask
+
+
+def ep_layer_record(cfg, device: str = "cuda", B: int = 8, T: int = 512,
+                    seed: int = 60) -> dict:
+    """(dd1): the MoE layer of ``cfg`` at B x T tokens through one-process
+    EP (``ExpertCtx(ep)``, each ``B/ep`` rows a source) at each of
+    ``EP_DEGREES``. No drops (capacity factor E/k, so C = N_source):
+    output within 2 bf16 ulps of the grouped dispatch's largest magnitude,
+    drop fraction 0. At the model's capacity factor and at 0.5 (which must
+    drop): keep masks and drop fraction exactly those of a plain
+    per-source version (the einsum oracle on each source's rows with
+    capacity(N_source)), outputs within 2 ulps of it. Wall ms (CUDA events) and device ms of the EP and the
+    grouped layers, and the exchange's share of the EP layer's wall."""
+    from areal_tpu_torch.models import moe as moemod
+
+    moe = cfg.moe
+    E, k, D = moe.num_experts, moe.top_k, cfg.hidden_dim
+    F = moe.routed_intermediate_dim or cfg.intermediate_dim
+    lp, x, mask = ep_layer_inputs(E, k, F, D, B, T, seed, device)
+    nodrop = dataclasses.replace(moe, capacity_factor=E / k)
+    cuda = torch.device(device).type == "cuda"
+    rec = {"E": E, "top_k": k, "F": F, "D": D, "shape": [B, T],
+           "pad_tokens": int((~mask).sum()),
+           "capacity_factor_model": moe.capacity_factor, "ep": {}}
+    with torch.no_grad():
+        g_y, g_aux = moemod.moe_mlp(x, lp, nodrop, mask=mask)
+        top = g_y.float().abs().max().item()
+        if cuda:
+            rec["grouped_ms"] = cuda_ms(lambda: moemod.moe_mlp(
+                x, lp, nodrop, mask=mask), iters=5)
+            rec["grouped_device_ms"] = device_busy_ms(lambda: moemod.moe_mlp(
+                x, lp, nodrop, mask=mask))
+        for ep in EP_DEGREES:
+            ctx = moemod.ExpertCtx(ep=ep)
+            rows = B // ep
+            y, aux = moemod.moe_mlp(x, lp, nodrop, mask=mask, ep=ctx)
+            r = {"source_tokens": rows * T,
+                 "capacity_nodrop": moemod.capacity(rows * T, nodrop),
+                 "capacity_model": moemod.capacity(rows * T, moe),
+                 "nodrop_max_abs_err": (y.float() - g_y.float()).abs().max()
+                 .item(), "nodrop_tol": 2 * bf16_ulp(top),
+                 "nodrop_dropped_frac": float(aux["dropped_frac"])}
+            check(r["nodrop_max_abs_err"] <= r["nodrop_tol"]
+                  and r["nodrop_dropped_frac"] == 0.0,
+                  f"(dd1) ep={ep}: EP disagrees with the grouped dispatch "
+                  f"without drops: {r}")
+            # the model's capacity factor, and 0.5, which must drop
+            for tag, m in (("", moe), ("_cf05", dataclasses.replace(
+                    moe, capacity_factor=0.5))):
+                y2, aux2, keep2 = moemod.moe_mlp(x, lp, m, mask=mask, ep=ctx,
+                                                 return_keep=True)
+                parts = [moemod.moe_mlp(x[i * rows:(i + 1) * rows], lp, m,
+                                        mask=mask[i * rows:(i + 1) * rows],
+                                        dispatch="einsum", return_keep=True)
+                         for i in range(ep)]
+                y_or = torch.cat([p[0] for p in parts])
+                keep_or = torch.cat([p[2] for p in parts])
+                n_valid = mask.reshape(-1).float().sum().clamp_min(1.0)
+                drop_or = 1.0 - keep_or.float().sum() / (
+                    n_valid * k).clamp_min(1.0)
+                r.update({
+                    f"dropped_frac{tag}": float(aux2["dropped_frac"]),
+                    f"dropped_frac_plain{tag}": float(drop_or),
+                    f"max_abs_err_plain{tag}": (y2.float() - y_or.float())
+                    .abs().max().item(),
+                    f"tol_plain{tag}": 2 * bf16_ulp(
+                        y_or.float().abs().max().item())})
+                check(torch.equal(keep2, keep_or)
+                      and r[f"dropped_frac{tag}"]
+                      == r[f"dropped_frac_plain{tag}"],
+                      f"(dd1) ep={ep}: drops differ from the per-source "
+                      f"version: {r}")
+                check(r[f"max_abs_err_plain{tag}"] <= r[f"tol_plain{tag}"],
+                      f"(dd1) ep={ep}: EP disagrees with the per-source "
+                      f"version: {r}")
+            check(r["dropped_frac_cf05"] > 0,
+                  f"(dd1) ep={ep}: capacity factor 0.5 dropped nothing: {r}")
+            if cuda:
+                r["ep_ms"] = cuda_ms(lambda: moemod.moe_mlp(
+                    x, lp, nodrop, mask=mask, ep=ctx), iters=5)
+                r["ep_device_ms"] = device_busy_ms(lambda: moemod.moe_mlp(
+                    x, lp, nodrop, mask=mask, ep=ctx))
+                C = r["capacity_nodrop"]
+                # both re-indexings of the layer's [ep, E, C, D] buffers
+                xe = torch.zeros(ep, E, C, D, dtype=x.dtype, device=device)
+                r["exchange_ms"] = cuda_ms(lambda: moemod.exchange_back(
+                    moemod.exchange(xe, ctx), ctx, ep).contiguous(), iters=5)
+                r["exchange_share"] = r["exchange_ms"] / r["ep_ms"]
+                del xe
+            rec["ep"][ep] = r
+    print("(dd1) the MoE layer through one-process EP", json.dumps(rec),
+          flush=True)
+    return rec
+
+
+def ep_batch(vocab: int, n: int = 16, T: int = 1024, prompt: int = 256):
+    """(dd2)'s PPO batch: ``n`` trajectories of ``T`` tokens (``prompt``
+    prompt tokens), seeded: 4096 tokens a micro-batch make [4, 1024] rows,
+    which split into ``EP_TRAIN`` sources of a row."""
+    import numpy as np
+
+    from areal_tpu_torch.api.data import SequenceSample
+
+    rng = np.random.RandomState(17)
+    total = n * T
+    return SequenceSample.from_default(
+        ids=[f"e{i}" for i in range(n)],
+        data={"packed_input_ids": rng.randint(2, vocab, total)
+              .astype(np.int32),
+              "prompt_mask": np.tile(np.r_[np.ones(prompt, np.int32),
+                                           np.zeros(T - prompt, np.int32)],
+                                     n),
+              "packed_logprobs": np.concatenate([np.r_[
+                  np.zeros(prompt, np.float32),
+                  -rng.rand(T - prompt).astype(np.float32)]
+                  for _ in range(n)]),
+              "rewards": rng.rand(n).astype(np.float32),
+              "seq_no_eos_mask": np.zeros(n, np.float32)},
+        seqlens=[T] * n)
+
+
+@contextlib.contextmanager
+def exchange_fault(kind: str | None):
+    """Break the one-process exchange for (dd2)'s fault run, undone on
+    exit: ``"source_rows_misrouted"`` hands source 0's buffers to the
+    owners as source 1's and source 1's as source 0's, so those sources'
+    tokens come back with each other's expert rows."""
+    from areal_tpu_torch.models import moe as moemod
+
+    exchange = moemod.exchange
+
+    def misrouted(xe, ctx, caps=None):
+        if ctx.one_process:
+            order = list(range(xe.shape[0]))
+            order[0], order[1] = 1, 0
+            xe = xe[order]
+        return exchange(xe, ctx, caps)
+
+    if kind is not None:
+        moemod.exchange = misrouted
+    try:
+        yield
+    finally:
+        moemod.exchange = exchange
+
+
+def ep_grads(eng, ub, loss_fn, weights, ep: int) -> tuple:
+    """Every micro-batch's loss and gradients summed (no optimizer step),
+    with the engine's ``_spec.ep`` at ``ep`` (1: the plain engine)."""
+    from areal_tpu_torch.parallel.mesh import ParallelSpec
+
+    eng._spec = ParallelSpec(ep=ep)
+    loss, stats = eng.accumulate_grads(ub, loss_fn, list(range(ub.n_mbs)),
+                                       weights)
+    grads = {n: p.grad for n, p in eng.params.items()}
+    for p in eng.params.values():
+        p.grad = None
+    return float(loss), {k: float(v.sum()) for k, v in stats.items()}, grads
+
+
+def ep_agreement(loss, grads, loss_ref, grads_ref) -> dict:
+    """Loss, per-parameter grad norms and the whole gradient's cosine of
+    one run against the plain engine's."""
+    norm = {n: (grads[n].norm().item(), grads_ref[n].norm().item())
+            for n in grads_ref}
+    dot = sum((grads[n].double() * grads_ref[n].double()).sum().item()
+              for n in grads_ref)
+    na = math.sqrt(sum(a * a for a, _ in norm.values()))
+    nb = math.sqrt(sum(b * b for _, b in norm.values()))
+    rel = {n: abs(a - b) / max(b, 1e-30) for n, (a, b) in norm.items()}
+    worst = max(rel, key=rel.get)
+    return {"loss": loss, "loss_rel_err": abs(loss - loss_ref)
+            / max(abs(loss_ref), 1e-30), "grad_norm": na,
+            "grad_cosine": dot / max(na * nb, 1e-300),
+            "max_grad_norm_rel_err": rel[worst], "worst_param": worst}
+
+
+def ep_broken(r: dict) -> list:
+    return [k for k in ("loss_rel_err", "max_grad_norm_rel_err")
+            if r[k] > EP_LIMITS[k]] + (
+        ["grad_cosine"] if r["grad_cosine"] < EP_LIMITS["grad_cosine_min"]
+        else [])
+
+
+def ep_train_record(fa, cfg, device: str = "cuda", steps: int = 2,
+                    batch=None, spec=None) -> dict:
+    """(dd2): PPO steps of ``cfg`` with the capacity factor E/k (no drops)
+    through one engine, its ``_spec.ep`` at ``EP_TRAIN`` (one-process EP:
+    each micro-batch's rows split into sources, every owner here) and at
+    1 (the plain grouped engine). From the same weights: every
+    micro-batch's loss and gradients, EP's within ``EP_LIMITS`` of plain's
+    and a misrouted exchange's (:func:`exchange_fault`) outside them;
+    ``train/moe_ep_engaged`` 1 under EP, 0 plain; then ``steps`` timed EP
+    steps (K2/K3 launched layers x micro-batches x steps times, K1 twice
+    that; the drop fraction 0) and ``steps`` plain ones: ms per step and
+    peak memory of each."""
+    from areal_tpu_torch.algorithms.ppo import _action_token_weight
+    from areal_tpu_torch.api.data import MicroBatchSpec
+    from areal_tpu_torch.base import telemetry
+    from areal_tpu_torch.parallel.mesh import ParallelSpec
+
+    cuda = torch.device(device).type == "cuda"
+    moe = cfg.moe
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.num_experts / moe.top_k))
+    batch = batch or ep_batch(cfg.vocab_size)
+    spec = spec or MicroBatchSpec(max_tokens_per_mb=4096)
+    t0 = time.monotonic()
+    model, iface = build_trainer(cfg, device=device)
+    eng = model.module
+    rec = {"layers": cfg.n_layers, "ep": EP_TRAIN,
+           "capacity_factor": cfg.moe.capacity_factor,
+           "build_s": time.monotonic() - t0, "limits": EP_LIMITS}
+    gauges = {}
+    set_gauge = telemetry.set_gauge
+
+    def record_gauge(name, v):
+        gauges[name] = v
+        set_gauge(name, v)
+
+    telemetry.set_gauge = record_gauge
+    try:
+        # the gradient runs below warm both dispatches for the timed steps
+        ub = eng.upload_uniform(batch, spec)
+        eng.run_prep(ub, iface._prep_fn, scalars={"kl_coef": 0.0})
+        rec["mb_shape"], rec["n_mbs"] = [ub.R, ub.L], ub.n_mbs
+        check(ub.R % EP_TRAIN == 0, f"(dd2) rows {ub.R} do not split into "
+              f"{EP_TRAIN} sources")
+        weights = [float(_action_token_weight(mb)) for mb in ub.mbs]
+        loss_p, stats_p, grads_p = ep_grads(eng, ub, iface._loss_fn,
+                                            weights, 1)
+        runs = {}
+        for label, fault in (("ep", None),
+                             ("misrouted", "source_rows_misrouted")):
+            with exchange_fault(fault):
+                loss, stats, grads = ep_grads(eng, ub, iface._loss_fn,
+                                              weights, EP_TRAIN)
+            r = ep_agreement(loss, grads, loss_p, grads_p)
+            r["dropped_frac"] = stats.get("moe_dropped_frac")
+            del grads
+            runs[label] = r
+            broken = ep_broken(r)
+            if fault is None:
+                check(not broken and math.isfinite(loss),
+                      f"(dd2) EP disagrees with the plain engine on "
+                      f"{broken} (limits {EP_LIMITS}): {r}")
+            else:
+                check(bool(broken), f"(dd2) the limits {EP_LIMITS} miss "
+                      f"the fault {fault}: {r}")
+        del grads_p
+        rec.update(loss_plain=loss_p, dropped_frac_plain=stats_p.get(
+            "moe_dropped_frac"), **runs)
+        check(runs["ep"]["dropped_frac"] == 0.0
+              and rec["dropped_frac_plain"] == 0.0,
+              f"(dd2) tokens dropped at capacity factor E/k: {rec}")
+        for label, ep in (("ep", EP_TRAIN), ("plain", 1)):
+            eng._spec = ParallelSpec(ep=ep)
+            gauges.pop("train/moe_ep_engaged", None)
+            empty_cache(device)
+            mem_reset(device)
+            fa.reset_launch_count()
+            t0 = time.perf_counter()
+            stats = [iface.train_step(model, batch, spec)
+                     for _ in range(steps)]
+            sync(device)
+            rec[f"ms_per_step_{label}"] = 1e3 * (time.perf_counter()
+                                                 - t0) / steps
+            rec[f"peak_gb_{label}"] = mem_peak(device)
+            rec[f"gauge_{label}"] = gauges.get("train/moe_ep_engaged")
+            rec[f"loss_{label}"] = [s["actor_loss"] for s in stats]
+            rec[f"launches_{label}"] = fa.launch_counts()
+            for st in stats:
+                check(math.isfinite(st["actor_loss"])
+                      and st["grad_norm"] > 0
+                      and st["moe_dropped_frac"] == 0.0,
+                      f"(dd2) {label} bad stats {st}")
+    finally:
+        telemetry.set_gauge = set_gauge
+        eng._spec = ParallelSpec()
+    check(rec["gauge_ep"] == 1.0 and rec["gauge_plain"] == 0.0,
+          f"(dd2) train/moe_ep_engaged read {rec['gauge_ep']} under EP and "
+          f"{rec['gauge_plain']} plain")
+    if cuda:
+        for label in ("ep", "plain"):
+            check_launches(f"(dd2) {label}", rec[f"launches_{label}"],
+                           rec["n_mbs"] * steps, cfg.n_layers, train=True)
+    rec["launches"] = rec["launches_ep"]
+    print("(dd2) PPO steps through one-process EP", json.dumps(rec),
+          flush=True)
+    del model, iface, eng
+    empty_cache(device)
+    return rec
+
+
+def run_ep(fa, device: str = "cuda", cfg=None, train_layers: int = 2,
+           layer_shape=(8, 512), train_batch=None, train_spec=None) -> dict:
+    """(dd): (dd1) at Qwen3-30B-A3B's width (``cfg``), then (dd2) at
+    ``train_layers`` of its layers."""
+    from areal_tpu_torch.models.config import qwen3_30b_a3b
+
+    cfg = cfg or qwen3_30b_a3b()
+    t0 = time.monotonic()
+    layer = ep_layer_record(cfg, device, *layer_shape)
+    empty_cache(device)
+    t1 = time.monotonic()
+    train = ep_train_record(fa, dataclasses.replace(cfg,
+                                                    n_layers=train_layers),
+                            device, batch=train_batch, spec=train_spec)
+    return {"layer": layer, "train": train, "layer_s": t1 - t0,
+            "train_s": time.monotonic() - t1}
+
+
+def optional_modules() -> dict:
+    """Which of the modules the reference uses and the port does not need
+    import on this machine (their versions), for the record only."""
+    import importlib
+
+    out = {}
+    for name in ("zmq", "aiohttp", "msgpack", "yaml", "ml_dtypes"):
+        try:
+            mod = importlib.import_module(name)
+        except ImportError:
+            out[name] = None
+        else:
+            out[name] = str(getattr(mod, "__version__", True))
+    return out
+
+
+@contextlib.contextmanager
+def native_forced():
+    """Every packer call inside takes the native path whatever its size
+    (the thresholds ``datapack.NATIVE_MIN_ITEMS`` and
+    ``packing.NATIVE_MIN_SEQS`` at 0), so that it can be timed below
+    them."""
+    from areal_tpu_torch.base import datapack
+    from areal_tpu_torch.models import packing
+
+    old = datapack.NATIVE_MIN_ITEMS, packing.NATIVE_MIN_SEQS
+    datapack.NATIVE_MIN_ITEMS = packing.NATIVE_MIN_SEQS = 0
+    try:
+        yield
+    finally:
+        datapack.NATIVE_MIN_ITEMS, packing.NATIVE_MIN_SEQS = old
+
+
+def best_ms(fn, reps: int):
+    """The last result of ``reps`` calls of ``fn`` and the least host ms."""
+    out, ms = None, []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return out, min(ms)
+
+
+def native_sweep(counts=(8, 16, 32, 64, 96, 128, 192, 256, 512, 1024, 4096),
+                 reps: int = 7) -> dict:
+    """Where the native host ops start to win: first-fit-decreasing
+    (``ffd_allocate`` at capacity 16384) and the grid scatter
+    (``batch_from_packed`` of an int64 key) over ``counts`` sequences of
+    64-2047 tokens (seeded), each timed through the native path (forced)
+    and the NumPy path (``native.disabled``), results asserted equal. The
+    crossover of each is the least count from which the native path wins
+    at every larger count; ``NATIVE_MIN_ITEMS`` and ``NATIVE_MIN_SEQS``
+    are set from it, and the record says which side each count falls."""
+    import numpy as np
+
+    from areal_tpu_torch.base import datapack
+    from areal_tpu_torch.models import packing
+    from areal_tpu_torch.ops import native
+
+    rng = np.random.default_rng(7)
+    rows = []
+    for n in counts:
+        sizes = rng.integers(64, 2048, n).tolist()
+        layout = packing.plan_packing(sizes, length_bucket=128)
+        flat = rng.integers(0, 1 << 20, sum(sizes)).astype(np.int64)
+        with native_forced():
+            bins_n, ffd_n = best_ms(
+                lambda: datapack.ffd_allocate(sizes, 16384), reps)
+            grid_n, sc_n = best_ms(
+                lambda: packing.batch_from_packed(flat, layout), reps)
+        with native.disabled():
+            bins_p, ffd_p = best_ms(
+                lambda: datapack.ffd_allocate(sizes, 16384), reps)
+            grid_p, sc_p = best_ms(
+                lambda: packing.batch_from_packed(flat, layout), reps)
+        check(bins_n == bins_p and np.array_equal(grid_n, grid_p),
+              f"(g) the native and NumPy packers disagree at {n} sequences")
+        rows.append({"n": n, "ffd_ms_native": ffd_n, "ffd_ms_numpy": ffd_p,
+                     "scatter_ms_native": sc_n, "scatter_ms_numpy": sc_p})
+
+    def crossover(nat, plain):
+        wins = [r[nat] < r[plain] for r in rows]
+        for i in range(len(rows)):
+            if all(wins[i:]):
+                return rows[i]["n"]
+        return None
+
+    return {"rows": rows,
+            "ffd_crossover": crossover("ffd_ms_native", "ffd_ms_numpy"),
+            "scatter_crossover": crossover("scatter_ms_native",
+                                           "scatter_ms_numpy"),
+            "NATIVE_MIN_ITEMS": datapack.NATIVE_MIN_ITEMS,
+            "NATIVE_MIN_SEQS": packing.NATIVE_MIN_SEQS}
+
+
+def packer_record(eng, batch, spec, reps: int = 5) -> dict:
+    """(g): the packer (``backend/microbatch.py`` through the engine's
+    split: first-fit-decreasing bins and the grid scatter of every key)
+    on (g)'s batch as the engine runs it (below the native thresholds:
+    the NumPy path), forced through the native host ops, and through the
+    NumPy path (``ops/native.py disabled``): the host ms of a step's split
+    (best of ``reps``), the micro-batches equal (layouts and grids); the
+    same for ``ffd_allocate`` alone on the batch's lengths; then
+    :func:`native_sweep`. Asserts the native library built and loaded
+    here."""
+    import numpy as np
+
+    from areal_tpu_torch.base import datapack
+    from areal_tpu_torch.ops import native
+
+    check(native.available(), "(g) the native host ops did not build or "
+          "load on this machine")
+    lens = [int(n) for n in batch.total_lens()]
+    cap = spec.max_tokens_per_mb
+
+    mbs_e, ms_e = best_ms(lambda: eng._split(batch, spec), reps)
+    with native_forced():
+        mbs_n, ms_n = best_ms(lambda: eng._split(batch, spec), reps)
+        bins_n, ffd_n = best_ms(lambda: datapack.ffd_allocate(lens, cap),
+                                reps)
+    with native.disabled():
+        mbs_p, ms_p = best_ms(lambda: eng._split(batch, spec), reps)
+        bins_p, ffd_p = best_ms(lambda: datapack.ffd_allocate(lens, cap),
+                                reps)
+    same = all(len(m) == len(mbs_p) and all(
+        a.layout.placements == b.layout.placements
+        and a.layout.seqlens == b.layout.seqlens
+        and a.grids.keys() == b.grids.keys()
+        and all(np.array_equal(a.grids[k], b.grids[k]) for k in a.grids)
+        for a, b in zip(m, mbs_p)) for m in (mbs_e, mbs_n))
+    check(same and bins_n == bins_p, "(g) the native and NumPy packers "
+          "disagree")
+    rec = {"native": True, "split_ms_engine": ms_e,
+           "split_ms_native": ms_n, "split_ms_numpy": ms_p,
+           "ffd_ms_native": ffd_n, "ffd_ms_numpy": ffd_p,
+           "micro_batches": len(mbs_n), "sequences": len(lens),
+           "bins": len(bins_n), "sweep": native_sweep()}
+    print("(g) packer, native vs NumPy", json.dumps(rec), flush=True)
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -7639,6 +8208,11 @@ def main() -> None:
     print(f"card: {card}", flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
+    print("optional modules", json.dumps(optional_modules()), flush=True)
+    print("python start", json.dumps({
+        "import_torch_s": IMPORT_TORCH_S,
+        "torch_ships_bytecode": _torch_ships_bytecode(),
+        "bytecode_cache": sys.pycache_prefix}), flush=True)
 
     # (a) build, one nvcc per source, together
     t0 = time.monotonic()
@@ -7738,6 +8312,7 @@ def main() -> None:
     spec = MicroBatchSpec(max_tokens_per_mb=4096)
     train = run_train_slice(fa, cfg, model, iface, batch, spec)
     plain_run = train.pop("baseline")  # (bb)'s plain engine
+    train["packer"] = packer_record(model.module, batch, spec)
     print("train slice", json.dumps(train), f"({card})", flush=True)
 
     # (h) one micro-batch through K1-K3 against the plain attention
@@ -7752,8 +8327,8 @@ def main() -> None:
 
     # (j) trainer steps of the async-PPO recipe, then the host path; (j)-(o),
     # (q3) with (p), (r), (s) and (u)-(x) run at 4 of the 24 layers, (t) at
-    # 8 (full width): the cut that makes room for (y) and (z) at full depth
-    # in the time limit
+    # 8 (full width): the cut that makes room for the later phases in the
+    # time limit
     cut = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
     t_trainer = time.monotonic()
     tr, tbatch, tdata, trainer = run_trainer(fa, cut, trainer_batch(
@@ -7807,8 +8382,8 @@ def main() -> None:
     # (o) the async-PPO loop: run_experiment spawns the trainer, the
     # generation fleet and a rollout worker; the master runs here. (o)-(w)
     # load one HF checkpoint at 4 of the 24 layers, (t) one at 8 (full
-    # width), each written once: the cuts that make room for (y) and (z)
-    # at full depth.
+    # width), each written once: the cuts that make room for the later
+    # phases.
     t_async = time.monotonic()
     hf_tmp = tempfile.mkdtemp(prefix="chip_smoke_hf_")
     atexit.register(shutil.rmtree, hf_tmp, True)
@@ -7958,7 +8533,7 @@ def main() -> None:
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
     torch.cuda.empty_cache()
 
-    # (y) GPT-2 small and (z) Gemma-2B, at full width and depth
+    # (y) GPT-2 small at full width and depth, (z) Gemma-2B at full width
     t_y = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_gpt2_")
     try:
@@ -7981,7 +8556,7 @@ def main() -> None:
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
 
     # (aa) Mixture-of-Experts: K1-K3 at Qwen3-30B-A3B's heads (32 q over 4
-    # kv heads of 128), then the model served at full width and depth, the
+    # kv heads of 128), then the model served at full width (12 layers), the
     # MoE layer, PPO steps at 2 layers and the HF round trip
     t_aa = time.monotonic()
     k1_128_check = check_k1(fa, 8, 1024, 32, 4, 128, seed=6)
@@ -8074,13 +8649,34 @@ def main() -> None:
             "plain", "1f1b", "gpipe", "faults")},
         "phase_cc_s": time.monotonic() - t_cc,
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+    torch.cuda.empty_cache()
+
+    # (dd) expert parallelism at Qwen3-30B-A3B's width: the layer through
+    # one-process EP, then PPO steps at 2 of 48 layers against plain
+    t_dd = time.monotonic()
+    ep = run_ep(fa)
+    ep_layer, ep_train = ep["layer"], ep["train"]
+    print("(dd) expert parallelism", json.dumps({
+        "layer": {str(e): {k: r[k] for k in (
+            "nodrop_max_abs_err", "nodrop_tol", "dropped_frac",
+            "dropped_frac_plain", "ep_ms", "ep_device_ms", "exchange_ms",
+            "exchange_share")} for e, r in ep_layer["ep"].items()},
+        "grouped_ms": ep_layer["grouped_ms"],
+        "grouped_device_ms": ep_layer["grouped_device_ms"],
+        "train": {k: ep_train[k] for k in (
+            "mb_shape", "n_mbs", "limits", "ep", "misrouted",
+            "ms_per_step_ep", "ms_per_step_plain", "peak_gb_ep",
+            "peak_gb_plain", "gauge_ep", "gauge_plain", "launches")},
+        "phase_dd_layer_s": ep["layer_s"], "phase_dd_train_s": ep["train_s"],
+        "phase_dd_s": time.monotonic() - t_dd,
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
     print("phase seconds", json.dumps({
         "a_to_n": t_async - t_start, "o": t_q - t_async,
         "q1_q2": t_obs - t_q, "q3_p": t_r - t_obs,
         "r": t_s - t_r, "s": t_t - t_s, "t": t_u - t_t, "u": t_v - t_u,
         "v": t_w - t_v, "w": t_x - t_w, "x": t_y - t_x, "y": t_z - t_y,
         "z": t_aa - t_z, "aa": t_bb - t_aa, "bb": t_cc - t_bb,
-        "cc": time.monotonic() - t_cc,
+        "cc": t_dd - t_cc, "dd": time.monotonic() - t_dd,
         "script": time.monotonic() - t_start}), flush=True)
 
     lib_line = ("areal_tpu/ops/pallas/flash_attention.py:200 backward: the "
@@ -8114,20 +8710,22 @@ def main() -> None:
         sft_eval["eval_child_k1"].values())
     k1_paths["sft_auto_eval"] -= k1_paths["sft_auto_eval_children"]
     gemma_launches = gemma["launches"]
-    moe_launches = moe["launches"]
+    moe_launches = {"qwen3_moe": moe["launches"],
+                    "qwen3_moe_ep": ep_train["launches"]}
     sources = {"fwd": "areal_tpu_torch/ops/csrc/flash_attention.cu",
                "bwd": "areal_tpu_torch/ops/csrc/flash_attention_bwd.cu"}
     kernels = []
-    for D, path, launches_by_path, k1_rec, bwd_rec, k1_t, bwd_t in (
-            (64, None, None, k1_train_check, bwd_train_check, timing_train,
+    # (z) is the one path at head_dim 256; (aa) and (dd) at 128
+    for D, launches_by_path, k1_rec, bwd_rec, k1_t, bwd_t in (
+            (64, None, k1_train_check, bwd_train_check, timing_train,
              bwd_timing),
-            (256, "gemma", gemma_launches, k1_256_check, bwd_256_check,
+            (256, {"gemma": gemma_launches}, k1_256_check, bwd_256_check,
              timing_256, bwd_timing_256),
-            (128, "qwen3_moe", moe_launches, k1_128_check, bwd_128_check,
-             timing_128, bwd_timing_128)):
+            (128, moe_launches, k1_128_check, bwd_128_check, timing_128,
+             bwd_timing_128)):
         tag = "" if D == 64 else f" (head_dim {D})"
         k1_by = k1_paths if D == 64 else {
-            path: launches_by_path["flash_attention_fwd"]}
+            p: v["flash_attention_fwd"] for p, v in launches_by_path.items()}
         kernels.append({
             "name": "flash_attention_fwd" + tag, "route": "cuda",
             "source": sources["fwd"],
@@ -8147,7 +8745,7 @@ def main() -> None:
                  1456, bwd_rec["dq_max_abs_err"])):
             rec = bwd_t[name]
             by = ({k: v[name] for k, v in paths.items()} if D == 64
-                  else {path: launches_by_path[name]})
+                  else {p: v[name] for p, v in launches_by_path.items()})
             kernels.append({
                 "name": name + tag, "route": "cuda", "source": sources["bwd"],
                 "replaces": lib_line.format(fn, line, call),
