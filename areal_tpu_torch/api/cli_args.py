@@ -428,6 +428,7 @@ def validate_config(cfg) -> None:
                     f"{spec.world_size} devices but the experiment has "
                     f"n_nodes×n_gpus_per_node = {n_devices}")
         _validate_ep(cfg, alloc)
+        _validate_gen_spec(cfg, alloc)
     tiny = getattr(getattr(cfg, "actor", None), "tiny", None)
     moe = tiny.get("moe") if isinstance(tiny, dict) else None
     if isinstance(moe, dict):
@@ -484,6 +485,62 @@ def _validate_ep(cfg, alloc) -> None:
                 f"allocation_mode {label} spec '{spec}' sets ep={spec.ep}, "
                 f"which does not divide actor.tiny.moe.num_experts={n_exp}: "
                 "every ep rank must own the same number of experts.")
+
+
+def _actor_heads(cfg) -> Optional[tuple]:
+    """(query heads, kv heads) of the actor, from its tiny spec or its HF
+    ``config.json``; None where neither says (a null model)."""
+    actor = getattr(cfg, "actor", None)
+    tiny = getattr(actor, "tiny", None)
+    if isinstance(tiny, dict) and tiny:
+        from areal_tpu_torch.models.config import tiny_config
+
+        c = tiny_config(**{k: v for k, v in tiny.items() if k != "seed"})
+        return c.n_q_heads, c.n_kv_heads
+    path = getattr(actor, "path", "") or ""
+    if not path:
+        return None
+    try:
+        with open(os.path.join(path, "config.json")) as f:
+            c = json.load(f)
+    except (OSError, ValueError):
+        return None
+    n_q = c.get("num_attention_heads")
+    return (n_q, c.get("num_key_value_heads") or n_q) if n_q else None
+
+
+def _validate_gen_spec(cfg, alloc) -> None:
+    """A generation spec's servers shard over ``tp`` only (a server's
+    ranks), with ``dp`` counting servers: ``fsdp``, ``pp`` and ``sp`` are
+    refused for now, and ``tp`` must split the actor's heads by the rules
+    of ``parallel/sharding.py kv_replicated``."""
+    from areal_tpu_torch.parallel.mesh import tp_kv_replicated
+
+    gen_specs = [("generation", alloc.gen_spec)]
+    gen_specs += [(f"MFC '{m}'", s) for m, s in sorted(alloc.per_mfc.items())
+                  if m == "actor_gen"]
+    for label, spec in gen_specs:
+        if spec is None:
+            continue
+        other = {a: getattr(spec, a) for a in ("fsdp", "pp", "sp")
+                 if getattr(spec, a) > 1}
+        if other:
+            raise ConfigError(
+                f"allocation_mode {label} spec '{spec}' sets "
+                f"{', '.join(f'{a}={d}' for a, d in other.items())}: the "
+                "port's generation servers shard over tp only (each server "
+                "a group of tp ranks, dp servers); fsdp, pp and sp on a "
+                "generation spec are the next item of ROADMAP.md Queue 1. "
+                "Use d and t, e.g. gen.d2t2.")
+        heads = _actor_heads(cfg)
+        if heads is not None and spec.tp > 1:
+            try:
+                tp_kv_replicated(heads[0], heads[1], spec.tp)
+            except ValueError as e:
+                raise ConfigError(
+                    f"allocation_mode {label} spec '{spec}': {e} (the "
+                    f"actor has {heads[0]} query / {heads[1]} kv "
+                    "heads)") from None
 
 
 def _validate_serving(cfg) -> None:

@@ -45,15 +45,12 @@ class WeightSyncConfig:
     ``stream`` serves per-tensor chunks from the trainer's host cache over
     TCP (``system/weight_stream.py``); ``disk`` writes a native checkpoint
     under the trainer's ``realloc_dir``; ``device`` keeps the weights on the
-    card: the trainer packs its compute-dtype weights into one device
-    buffer and hands the servers its CUDA IPC handle, and each server
-    copies them into its own weights device to device
-    (``parallel/reshard.py``; trainer and servers on one card).
-
-    Left out with the meshed generation fleet that would read them: the
-    reference's ``transfer_group_mb`` and ``gen_parallel_spec`` (the port's
-    servers hold whole tensors on one device each, so a publication is
-    packed as the trainer holds it and nothing is resharded)."""
+    GPUs: the trainer packs its compute-dtype weights into device buffers
+    in the generation fleet's layout (one per ``tp`` rank of a server) and
+    hands the servers their CUDA IPC handles, and each server rank copies
+    its buffer into its own weights device to device
+    (``parallel/reshard.py``; the trainer's GPU must be visible to the
+    servers, as the launcher arranges)."""
 
     transport: str = "stream"  # stream | disk | device
     # Wire chunk size (MB) of the streamed transport.
@@ -61,6 +58,14 @@ class WeightSyncConfig:
     # The servers' window of in-flight chunk requests (the experiments
     # thread it into GenerationServerConfig.weight_stream_pipeline_depth).
     pipeline_depth: int = 4
+    # Device transport: the transfer-group byte budget (MB) of a publish —
+    # its extra device memory is the packed buffers plus about one group
+    # of whole compute-dtype tensors (gathered from a mesh).
+    transfer_group_mb: int = 64
+    # Device transport: the generation fleet's ParallelSpec (e.g. "d2t2").
+    # None publishes whole tensors, the layout un-meshed servers hold;
+    # decoupled experiments thread AllocationMode.gen_spec through here.
+    gen_parallel_spec: Optional[str] = None
 
     def __post_init__(self):
         if self.transport not in ("stream", "disk", "device"):

@@ -9,7 +9,10 @@ runs, then an orderly teardown.
  - sync (``ppo-math``): the trainer (generation included);
  - async (``async-ppo-math``): the trainer, a generation-fleet process (the
    servers and the manager, each on threads of their own) and the rollout
-   workers, which never initialise CUDA;
+   workers, which never initialise CUDA; with a decoupled allocation
+   (``gen.d2t2+...``) the manager runs alone (``gen_manager``) and each
+   server in processes of its own, one per ``tp`` rank (``gen_replica``),
+   on GPUs of its own (:func:`derive_server_gpus`);
  - either, with ``reward_service.enabled``: the reward workers, CPU-only
    processes that see no card, spawned before the rollout side.
 
@@ -45,9 +48,10 @@ weight reconcile and serves a control endpoint, so that a drained one ends
 in a commanded exit.
 
 ``probes`` is an instrumentation seam for measurement scripts: a map from
-a worker kind (``trainer``, ``gen_fleet``, ``gen_server``, ``rollout``,
-``reward``) to a picklable callable that the child calls with its
-worker(s) once they are built; a callable it returns is called after the
+a worker kind (``trainer``, ``gen_fleet``, ``gen_server``,
+``gen_replica``, ``gen_manager``, ``rollout``, ``reward``) to a picklable
+callable that the child calls with its worker(s) once they are built (a
+meshed server's leader only); a callable it returns is called after the
 worker's run. A respawned child gets its kind's probe too.
 
 Several trainer ranks (a trainer spec wider than one device, reference
@@ -56,8 +60,11 @@ Several trainer ranks (a trainer spec wider than one device, reference
 dead rank escalates once as a trainer death and the supervisor's shutdown
 (or ``recover_mode=auto``'s relaunch) takes the whole group down and up.
 On ``cuda`` each rank sees one GPU (``CUDA_VISIBLE_DEVICES``, from
-:func:`derive_chip_assignment`), and a decoupled allocation's generation
-fleet sees its own GPUs.
+:func:`derive_chip_assignment`), and each rank of a decoupled allocation's
+generation servers sees its own GPU (and, under the ``device`` transport,
+the trainer's rank-0 GPU after it, where the publication lives). A meshed
+server's ranks are one failure domain of the supervisor: a dead rank
+brings the server's ranks down and up together.
 
 The launcher dumps the merged config as ``config.yaml`` into the run's
 log directory (``api/cli_args.save_yaml``; JSON where ``yaml`` is absent),
@@ -102,6 +109,28 @@ def derive_chip_assignment(alloc_mode: str,
             "(colocated) where trainer and generation share the same GPUs")
     return {"trainer": list(range(need_t)),
             "gen": list(range(need_t, need_t + need_g))}
+
+
+def derive_server_gpus(alloc_mode: str, n_gpus: int,
+                       device_transport: bool = False
+                       ) -> List[List[List[int]]]:
+    """Each generation server's GPUs of a decoupled allocation, by rank:
+    server ``i`` takes the generation GPUs ``[i*tp, (i+1)*tp)`` of
+    :func:`derive_chip_assignment`, one per rank (one process each). With
+    the ``device`` transport every rank also sees the trainer's rank-0 GPU,
+    after its own: its publication is opened there (by UUID,
+    ``parallel/reshard.py``) and copied to the rank's GPU. Returns
+    ``[server][rank] -> visible GPUs``; [] when not decoupled."""
+    from areal_tpu_torch.parallel.mesh import AllocationMode
+
+    asg = derive_chip_assignment(alloc_mode, n_gpus)
+    if not asg["gen"]:
+        return []
+    gen_spec = AllocationMode.parse(alloc_mode).gen_spec
+    tp = gen_spec.tp
+    extra = [asg["trainer"][0]] if device_transport else []
+    return [[[asg["gen"][i * tp + r], *extra] for r in range(tp)]
+            for i in range(gen_spec.data_degree)]
 
 
 def _gpu_env(gpus: Optional[List[int]]) -> Dict[str, str]:
@@ -183,23 +212,55 @@ def gen_fleet_entry(exp_cfg, server_cfgs, manager_cfg, probe=None) -> None:
         time.sleep(3600)
 
 
+def _server_mesh(exp_cfg, server_cfg, device):
+    """A meshed server's process group (its tp ranks, a rendezvous of its
+    own under the server's id and incarnation, apart from the trainer's)
+    and its mesh."""
+    from areal_tpu_torch.parallel import distributed as dist_mod
+    from areal_tpu_torch.parallel.mesh import ParallelSpec, make_mesh
+    from areal_tpu_torch.system import worker_base as wb
+
+    inc = os.environ.get(wb.ENV_INCARNATION, "1")
+    dist_mod.initialize(exp_cfg.experiment_name, exp_cfg.trial_name,
+                        server_cfg.tp_rank, server_cfg.tp,
+                        group=f"gen_{server_cfg.server_id}_{inc}",
+                        device=device)
+    return make_mesh(ParallelSpec(tp=server_cfg.tp))
+
+
 def gen_server_entry(exp_cfg, server_cfg, probe=None) -> None:
-    """One dynamic generation server, the autoscaler's unit of scale-up. It
-    starts from the actor's initial weights, registers under
-    ``names.gen_servers`` and is reconciled to the current version by the
-    manager's health gate before it serves; its control endpoint
-    (``genserver_<server_id>``) takes the commanded exit of a drained
-    scale-down or of the launcher's shutdown. The endpoint opens before
-    the model is built: an exit commanded while the server builds waits
-    there and is served once it is built, and the server then exits
+    """One generation server, or rank ``server_cfg.tp_rank`` of a meshed
+    one (``tp`` > 1: one process per rank, ``system/server_mesh.py``): a
+    decoupled allocation's servers, and the autoscaler's unit of
+    scale-up. A server starts from the actor's initial weights, registers
+    under ``names.gen_servers`` and is reconciled to the current version
+    by the manager's health gate before it serves; its control endpoint
+    (``genserver_<server_id>``, the leader's) takes the commanded exit of
+    a drained scale-down or of the launcher's shutdown. The endpoint opens
+    before the model is built: an exit commanded while the server builds
+    waits there and is served once it is built, and the server then exits
     without serving (otherwise the command finds no endpoint, and the
-    shutdown terminates the server when its wait runs out)."""
+    shutdown terminates the server when its wait runs out). A follower
+    replays its leader's calls until the leader stops; a meshed server
+    that fails as a unit ends its process with an error, so that the
+    supervisor respawns its ranks together."""
     from areal_tpu_torch import resolve_device
     from areal_tpu_torch.experiments import common as C
     from areal_tpu_torch.system.generation_server import GenerationServer
+    from areal_tpu_torch.system.server_mesh import MeshServerError
     from areal_tpu_torch.system.worker_base import WorkerControl
 
     C.setup_name_resolve(exp_cfg)
+    device = resolve_device(exp_cfg._device())
+    mesh = (_server_mesh(exp_cfg, server_cfg, device)
+            if server_cfg.tp > 1 else None)
+    if server_cfg.tp_rank > 0:
+        cfg, params = _build_gen_model(exp_cfg, device)
+        srv = GenerationServer(server_cfg, cfg, params, device=device,
+                               mesh=mesh)
+        del params
+        srv.follow()
+        return
     ctrl = WorkerControl(exp_cfg.experiment_name, exp_cfg.trial_name,
                          f"genserver_{server_cfg.server_id}")
     done = None
@@ -208,12 +269,12 @@ def gen_server_entry(exp_cfg, server_cfg, probe=None) -> None:
         return {"server_id": server_cfg.server_id, "version": srv.version}
 
     try:
-        device = resolve_device(exp_cfg._device())
         cfg, params = _build_gen_model(exp_cfg, device)
         eos = getattr(_resolve_tokenizer(exp_cfg), "eos_token_id", None)
         if eos is not None:
             server_cfg.eos_token_id = int(eos)
-        srv = GenerationServer(server_cfg, cfg, params, device=device)
+        srv = GenerationServer(server_cfg, cfg, params, device=device,
+                               mesh=mesh)
         del params
         # before the start: the manager may route to the server as soon as
         # it registers
@@ -223,6 +284,10 @@ def gen_server_entry(exp_cfg, server_cfg, probe=None) -> None:
             srv.start()
         try:
             while not ctrl.should_exit:
+                if srv.failed is not None:
+                    raise MeshServerError(
+                        f"server {server_cfg.server_id} failed as a unit: "
+                        f"{srv.failed!r}")
                 ctrl.step(status, 200)
         finally:
             srv.stop()
@@ -230,6 +295,22 @@ def gen_server_entry(exp_cfg, server_cfg, probe=None) -> None:
         ctrl.close()
     if done is not None:
         done()
+
+
+def gen_manager_entry(exp_cfg, manager_cfg, probe=None) -> None:
+    """The generation manager alone, until the launcher terminates it: a
+    decoupled allocation's servers run in processes of their own
+    (:func:`gen_server_entry`)."""
+    from areal_tpu_torch.experiments import common as C
+    from areal_tpu_torch.system.gserver_manager import GserverManager
+
+    C.setup_name_resolve(exp_cfg)
+    mgr = GserverManager(manager_cfg)
+    mgr.start()
+    if probe is not None:
+        probe(mgr)
+    while True:
+        time.sleep(3600)
 
 
 def reward_worker_entry(exp_cfg, rw_cfg, probe=None) -> None:
@@ -283,6 +364,7 @@ class LocalLauncher:
         self.supervisor = None  # built in run() once the trial is known
         self._scaler = None  # the AutoscaleExecutor, with autoscale on
         self.evaluator = None  # the AutomaticEvaluator, with auto_eval on
+        self._server_gpus: List[List[List[int]]] = []
         self._drain_evt = threading.Event()
         self._drain_thread: Optional[threading.Thread] = None
         self._drain_deadline: Optional[float] = None
@@ -300,13 +382,30 @@ class LocalLauncher:
 
     def _spawn(self, target, *args, name: str, kind: str,
                required: bool = True, expendable: bool = False,
-               env: Optional[Dict[str, str]] = None) -> None:
+               env: Optional[Dict[str, str]] = None,
+               group: Optional[str] = None, rank: int = 0) -> None:
         from areal_tpu_torch.system.supervisor import WorkerSpec
 
         self.supervisor.spawn(WorkerSpec(
             name=name, kind=kind, target=target,
             args=(*args, self.probes.get(kind)), required=required,
-            expendable=expendable, env=env or {}))
+            expendable=expendable, env=env or {}, group=group, rank=rank))
+
+    def _spawn_server(self, exp, sc, kind: str,
+                      gpus: Optional[List[List[int]]] = None,
+                      required: bool = True,
+                      expendable: bool = False) -> None:
+        """One generation server's processes, one per tp rank (``gpus``:
+        each rank's visible GPUs), supervised as one failure domain."""
+        for r in range(sc.tp):
+            self._spawn(
+                gen_server_entry, exp, dataclasses.replace(sc, tp_rank=r),
+                name=(f"genserver_{sc.server_id}" if r == 0
+                      else f"genrank_{sc.server_id}_{r}"),
+                kind=kind, required=required, expendable=expendable,
+                env=_gpu_env(gpus[r] if gpus else None),
+                group=f"genserver_{sc.server_id}" if sc.tp > 1 else None,
+                rank=r)
 
     def _build_scaler(self, exp, setup: Dict[str, Any]):
         """The actuator of the manager's plan: dynamic single-server
@@ -318,14 +417,16 @@ class LocalLauncher:
         from areal_tpu_torch.system.autoscaler import AutoscaleExecutor
 
         template = setup["gen_servers"][0]
+        # a meshed dynamic server's ranks share the GPUs of the first
+        # baseline server's ranks
+        gpus = self._server_gpus[0] if self._server_gpus else None
 
         def spawn_dyn(server_id: str) -> None:
             sc = copy.deepcopy(template)
             sc.server_id = server_id
             sc.port = None
-            self._spawn(gen_server_entry, exp, sc,
-                        name=f"genserver_{server_id}", kind="gen_server",
-                        required=False, expendable=True)
+            self._spawn_server(exp, sc, "gen_server", gpus, required=False,
+                               expendable=True)
 
         return AutoscaleExecutor(exp.experiment_name, exp.trial_name,
                                  self.supervisor, spawn_dyn)
@@ -357,7 +458,7 @@ class LocalLauncher:
         from areal_tpu_torch.experiments import common as C
         from areal_tpu_torch.system.master_worker import MasterWorker
         from areal_tpu_torch.system.supervisor import (
-            STATELESS_KINDS,
+            RESTARTABLE_KINDS,
             RestartPolicy,
             Supervisor,
         )
@@ -380,7 +481,7 @@ class LocalLauncher:
             keepalive_ttl=self.ft.keepalive_ttl_secs,
             heartbeat_interval=self.ft.heartbeat_interval_secs,
             # supervise=false: any death escalates at once
-            restartable_kinds=STATELESS_KINDS if self.ft.supervise else ())
+            restartable_kinds=RESTARTABLE_KINDS if self.ft.supervise else ())
         setup = exp.initial_setup()
         # the merged config beside the run, as the remote workers read it
         from areal_tpu_torch.api import cli_args as CA
@@ -406,11 +507,27 @@ class LocalLauncher:
             for i, rw in enumerate(setup.get("reward_workers", [])):
                 self._spawn(reward_worker_entry, exp, rw, name=f"reward{i}",
                             kind="reward", env={"CUDA_VISIBLE_DEVICES": ""})
-            if "gen_servers" in setup:
+            if "gen_servers" in setup and not C.resolve_allocation(
+                    exp).decoupled:
                 self._spawn(gen_fleet_entry, exp, setup["gen_servers"],
                             setup["gserver_manager"], name="gen_fleet",
                             kind="gen_fleet",
                             env=_gpu_env(gpus and gpus["gen"]))
+            elif "gen_servers" in setup:
+                # decoupled: the manager alone, and each server's ranks in
+                # processes of their own on the server's GPUs
+                self._spawn(gen_manager_entry, exp, setup["gserver_manager"],
+                            name="gen_manager", kind="gen_manager",
+                            env={"CUDA_VISIBLE_DEVICES": ""})
+                if gpus is not None:
+                    self._server_gpus = derive_server_gpus(
+                        exp.allocation_mode, gpus["n_gpus"],
+                        exp.weight_sync.transport == "device")
+                for i, sc in enumerate(setup["gen_servers"]):
+                    self._spawn_server(
+                        exp, sc, "gen_replica",
+                        self._server_gpus[i] if self._server_gpus else None)
+            if "gen_servers" in setup:
                 for i, rc in enumerate(setup["rollout_workers"]):
                     # A bounded worker (max_rollouts) finishing its quota
                     # exits 0 by design.
@@ -448,7 +565,8 @@ class LocalLauncher:
             return None
         import torch
 
-        asg = derive_chip_assignment(alloc, torch.cuda.device_count())
+        n_gpus = torch.cuda.device_count()
+        asg = dict(derive_chip_assignment(alloc, n_gpus), n_gpus=n_gpus)
         if len(asg["trainer"]) < n_dist:
             raise RuntimeError(
                 f"a trainer of {n_dist} ranks needs a GPU per rank; the "

@@ -17,7 +17,9 @@ Usage (what ``apps/slurm.py`` renders):
 ``SLURM_NTASKS`` inside each task (never rendered into the command: the
 batch shell would expand them once, to 0). A trainer rank takes one GPU
 (the port runs one rank per device): the ``SLURM_LOCALID``-th of the GPUs
-the node's task sees.
+the node's task sees. So does a generation task: with several tasks, task
+``p`` runs rank ``p % tp`` of server ``p // tp`` and task 0 also the
+manager; one task runs the whole fleet.
 """
 
 from __future__ import annotations
@@ -97,8 +99,26 @@ def run_role(exp_cfg, role: str, rank: int = 0, world: int = 1,
         if "gen_servers" not in setup:
             raise SystemExit("the experiment has no generation fleet (sync "
                              "mode)")
-        L.gen_fleet_entry(exp_cfg, setup["gen_servers"],
-                          setup["gserver_manager"])
+        if world <= 1:  # one task: the servers and the manager together
+            L.gen_fleet_entry(exp_cfg, setup["gen_servers"],
+                              setup["gserver_manager"])
+            return
+        # one task per server rank: server rank // tp, its rank rank % tp;
+        # task 0 also runs the manager
+        servers = setup["gen_servers"]
+        tp = servers[0].tp
+        if not 0 <= rank < len(servers) * tp:
+            raise SystemExit(f"generation task {rank} out of range (have "
+                             f"{len(servers)} servers of {tp} ranks)")
+        if exp_cfg._device() is None:
+            select_local_gpu()
+        if rank == 0:
+            from areal_tpu_torch.system.gserver_manager import GserverManager
+
+            C.setup_name_resolve(exp_cfg)
+            GserverManager(setup["gserver_manager"]).start()
+        L.gen_server_entry(exp_cfg, dataclasses.replace(
+            servers[rank // tp], tp_rank=rank % tp))
     else:
         rcs = setup.get("rollout_workers", [])
         if not 0 <= index < len(rcs):

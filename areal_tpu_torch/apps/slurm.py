@@ -12,7 +12,8 @@ Differences from the reference, by design: GPUs are requested where it
 requests TPUs (``--gres=gpu:N``, per node); the trainer job runs one task
 per GPU (the port's rank per device, where the reference runs one process
 per host), on ``ceil(world / n_gpus_per_node)`` nodes, and each task
-selects its GPU by ``SLURM_LOCALID`` (``apps/remote.py``).
+selects its GPU by ``SLURM_LOCALID`` (``apps/remote.py``); the generation
+job runs one task per server rank (``data_degree x tp``), one GPU each.
 """
 
 from __future__ import annotations
@@ -217,11 +218,14 @@ def build_job_specs(exp_cfg, config_path: str) -> List[SlurmJobSpec]:
                      mem_per_task_mb=64 * 1024, exclusive=nodes > 1),
     ]
     if am.decoupled:
-        gen = am.gen_spec.world_size
+        # one task per server rank (data_degree servers of tp ranks), one
+        # GPU each; task 0 also runs the manager (apps/remote.py)
+        gen = am.gen_spec.data_degree * am.gen_spec.tp
         gen_nodes = -(-gen // per_node)
         specs.append(SlurmJobSpec(
             name=f"{exp}-gen", cmd=f"{base} --role gen_fleet",
-            ntasks=gen_nodes, nodes=gen_nodes,
+            ntasks=gen, nodes=gen_nodes,
+            ntasks_per_node=min(gen, per_node),
             gpus_per_node=min(gen, per_node), cpus_per_task=8,
             mem_per_task_mb=64 * 1024))
         # no --index: the batch shell would expand $SLURM_PROCID once (to

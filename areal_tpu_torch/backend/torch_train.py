@@ -148,7 +148,7 @@ import dataclasses
 import math
 import os
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -592,27 +592,33 @@ class TorchTrainEngine(TrainableEngine):
             else contextlib.nullcontext()
 
     @torch.no_grad()
-    def full_params(self, dtype: Optional[torch.dtype] = None
+    def full_params(self, dtype: Optional[torch.dtype] = None,
+                    names: Optional[Sequence[str]] = None
                     ) -> Dict[str, torch.Tensor]:
-        """Every parameter whole on this rank's device (gathered from the
-        mesh), cast to ``dtype`` when given. Off a mesh: the masters (or
-        their casts)."""
+        """Every parameter (or those in ``names``: every rank passes the
+        same) whole on this rank's device (gathered from the mesh), cast to
+        ``dtype`` when given. Off a mesh: the masters (or their casts)."""
         out = {}
         for n, p in self.params.items():
+            if names is not None and n not in names:
+                continue
             t = p._local_tensor if self.mesh is not None else p
             t = t.detach()
             if dtype is not None and t.is_floating_point():
                 t = t.to(dtype)  # cast, then gather
             out[n] = t if self.mesh is None else self._whole(n, t)
-        return self._fill_stages(out, dtype)
+        return self._fill_stages(out, dtype, names=names)
 
     def _fill_stages(self, out: Dict[str, torch.Tensor],
                      dtype: Optional[torch.dtype] = None,
-                     prefix: str = "") -> Dict[str, torch.Tensor]:
+                     prefix: str = "",
+                     names: Optional[Sequence[str]] = None
+                     ) -> Dict[str, torch.Tensor]:
         """Under ``pp``, whole tensors (``prefix + name``) of every
-        stage's layers: each broadcast over the ``pp`` group from the stage
-        that holds it, in the model's order on every rank. ``dtype``: of
-        the tensors received (default the masters')."""
+        stage's layers (of those in ``names``, if given): each broadcast
+        over the ``pp`` group from the stage that holds it, in the model's
+        order on every rank. ``dtype``: of the tensors received (default
+        the masters')."""
         if self._pp_group is None:
             return out
         import torch.distributed as dist
@@ -622,7 +628,7 @@ class TorchTrainEngine(TrainableEngine):
         full = dict(out)
         for n, meta in self.model.state_dict().items():
             k = self._stage_of(n)
-            if k is None:
+            if k is None or (names is not None and n not in names):
                 continue
             t = out.get(prefix + n)
             if t is None:

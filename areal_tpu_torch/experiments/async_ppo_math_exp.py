@@ -11,7 +11,9 @@ reward workers when ``reward_service.enabled``: the rollout workers then
 grade there, never in their own process. ``autoscale`` reaches the
 manager (its scaling loop; the launcher's executor reads the same block)
 and ``durability`` the rollout workers (the spool under ``recover_dir``),
-the trainer and the master.
+the trainer and the master. A decoupled allocation (``gen.d2t2+d1``)
+gives one server per data-parallel replica of the generation spec, each of
+its ``tp`` ranks (reference ``:44-49``); otherwise one server.
 """
 
 from __future__ import annotations
@@ -48,8 +50,13 @@ class AsyncPPOMATHConfig(PPOMATHConfig):
         )
         from areal_tpu_torch.system.rollout_worker import RolloutWorkerConfig
 
-        C.resolve_allocation(self)  # one device: one server
-        n_gen = 1
+        alloc = C.resolve_allocation(self)
+        n_gen, tp = 1, 1
+        if alloc.decoupled:
+            # One server per data-parallel replica of the generation spec
+            # (reference :44-49), each a group of tp ranks
+            # (system/server_mesh.py) on GPUs of its own.
+            n_gen, tp = alloc.gen_spec.data_degree, alloc.gen_spec.tp
         paths = C.experiment_paths(self)
         # the mapping validate_config checked the serving policy with, so
         # the servers build exactly the validated policy
@@ -57,7 +64,7 @@ class AsyncPPOMATHConfig(PPOMATHConfig):
         gen_servers = [
             GenerationServerConfig(
                 experiment=self.experiment_name, trial=self.trial_name,
-                server_id=f"gen{i}",
+                server_id=f"gen{i}", tp=tp,
                 chunk_tokens=shape_kw["chunk_tokens"],
                 batch_window_ms=self.gen_batch_window_ms,
                 max_batch_size=shape_kw["max_batch_size"],

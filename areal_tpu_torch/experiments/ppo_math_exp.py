@@ -254,6 +254,14 @@ class PPOMATHConfig(BaseExperimentConfig):
                     interface="ppo_critic", model_name="critic", **ppo)
         mfcs["actor_train"] = MFCRuntimeConfig(
             interface="ppo_actor", model_name="actor", **ppo)
+        weight_sync = self.weight_sync
+        if (weight_sync.transport == "device"
+                and not weight_sync.gen_parallel_spec
+                and alloc.gen_spec is not None):
+            # Decoupled allocation (reference ppo_math_exp.py:327-337): the
+            # device publish packs straight into the fleet's layout.
+            weight_sync = dataclasses.replace(
+                weight_sync, gen_parallel_spec=str(alloc.gen_spec))
         return TrainerWorkerConfig(
             experiment=self.experiment_name, trial=self.trial_name,
             handler="trainer", models=models, mfcs=mfcs,
@@ -269,7 +277,7 @@ class PPOMATHConfig(BaseExperimentConfig):
             tokenizer=None,  # resolved in the trainer's process
             stream_dataset=async_mode,
             realloc_dir=paths["realloc"],
-            weight_sync=self.weight_sync,
+            weight_sync=weight_sync,
             telemetry=self._telemetry(),
             goodput=self.goodput,
             compile_watch=self.compile_watch,

@@ -228,6 +228,18 @@ def broadcast_pyobj(obj: Any) -> Any:
     return pickle.loads(broadcast_bytes(data))
 
 
+def gather_pyobj(obj: Any) -> list:
+    """Every rank's host object, in rank order, on every rank (over the
+    gloo group)."""
+    if not is_multiprocess():
+        return [obj]
+    import torch.distributed as dist
+
+    out: list = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj, group=_HOST_GROUP)
+    return out
+
+
 def allgather_params(params: Dict[str, Any]) -> Dict[str, Any]:
     """Full host tensors of a state dict on every rank: each DTensor is
     gathered (``full_tensor()``), then copied to the CPU; plain tensors are

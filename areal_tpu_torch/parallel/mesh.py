@@ -81,6 +81,25 @@ class ParallelSpec:
             if getattr(self, a) != 1) or "d1"
 
 
+def tp_kv_replicated(n_q_heads: int, n_kv_heads: int, tp: int) -> bool:
+    """The head rules of tensor parallelism (``parallel/sharding.py
+    kv_replicated``, torch-free for the config checks): whether each ``tp``
+    rank keeps whole kv heads (Megatron's rule for fewer kv heads than
+    ranks). Raises for counts no rule splits: ``n_q_heads % tp``, or kv
+    heads that neither divide nor are divided by ``tp``."""
+    if tp <= 1:
+        return False
+    if n_q_heads % tp:
+        raise ValueError(f"tensor parallelism of {tp} does not divide "
+                         f"{n_q_heads} query heads")
+    if n_kv_heads % tp == 0:
+        return False
+    if tp % n_kv_heads:
+        raise ValueError(f"tensor parallelism of {tp} neither divides nor "
+                         f"is divided by {n_kv_heads} kv heads")
+    return True
+
+
 def make_mesh(spec: ParallelSpec, device_type: Optional[str] = None):
     """A ``DeviceMesh`` of ``spec``'s shape over the current process group,
     with ``mesh_dim_names=AXIS_ORDER``. ``device_type`` defaults to

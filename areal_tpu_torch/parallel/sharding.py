@@ -38,6 +38,16 @@ owner through the exchange); everywhere else (pipeline stages, the
 inference engine's generate, ``full_params``, publication and
 checkpoints) they are gathered whole, as every other master is.
 
+A generation server's ``tp`` ranks hold plain tensors, not DTensors:
+:func:`serving_slices` names each rank's slice of every parameter (the
+same table, the embedding and an untied head whole, the kv rule below),
+:func:`serving_shards` cuts them and :func:`rank_config` gives the rank's
+model geometry; the server's forwards run under
+:func:`activation_sharding` like the trainer's (``system/server_mesh.py``).
+:data:`_ACTIVE` is process-wide (a remat recompute runs on autograd's
+device thread): one process holds one rank, so a server's ranks are
+processes, never threads of one.
+
 Two departures from the reference's table, both Megatron's rules:
 
  - where ``n_kv_heads % tp != 0`` (and ``tp % n_kv_heads == 0``), each
@@ -58,7 +68,11 @@ import torch
 import torch.distributed as dist
 
 from areal_tpu_torch.models.config import TransformerConfig
-from areal_tpu_torch.parallel.mesh import AXIS_ORDER, DATA_AXES
+from areal_tpu_torch.parallel.mesh import (
+    AXIS_ORDER,
+    DATA_AXES,
+    tp_kv_replicated,
+)
 
 # A layout: mesh axis -> the tensor dim it shards (absent: replicated).
 Layout = Dict[str, int]
@@ -110,18 +124,8 @@ def kv_replicated(cfg: TransformerConfig, tp: int) -> bool:
     """Whether ``wk``/``wv`` stay whole on every ``tp`` rank (Megatron's rule
     for fewer kv heads than ranks). Raises for head counts that no rule
     splits: ``n_q_heads % tp``, or kv heads that neither divide nor are
-    divided by ``tp``."""
-    if tp <= 1:
-        return False
-    if cfg.n_q_heads % tp:
-        raise ValueError(f"tensor parallelism of {tp} does not divide "
-                         f"{cfg.n_q_heads} query heads")
-    if cfg.n_kv_heads % tp == 0:
-        return False
-    if tp % cfg.n_kv_heads:
-        raise ValueError(f"tensor parallelism of {tp} neither divides nor "
-                         f"is divided by {cfg.n_kv_heads} kv heads")
-    return True
+    divided by ``tp`` (``parallel/mesh.py tp_kv_replicated``)."""
+    return tp_kv_replicated(cfg.n_q_heads, cfg.n_kv_heads, tp)
 
 
 def param_layouts(cfg: TransformerConfig, tp: int = 1) -> Dict[str, Layout]:
@@ -255,6 +259,80 @@ def kv_head_rows(cfg: TransformerConfig, tp: int, tp_rank: int
     group = cfg.n_q_heads // cfg.n_kv_heads
     h = (tp_rank * q_per_rank) // group
     return slice(h * cfg.head_dim, (h + 1) * cfg.head_dim)
+
+
+# ---------------- serving ----------------
+
+# A rank's slice of one tensor: (dim, start, length), or None (whole).
+Slice = Optional[Tuple[int, int, int]]
+
+
+def serving_slices(cfg: TransformerConfig, tp: int) -> Dict[str, List[Slice]]:
+    """State-dict name -> each ``tp`` rank's slice of it, the layout a
+    generation server's ranks hold (the serving counterpart of
+    :func:`shard_params`): ``tp``-sharded parameters split evenly along
+    the dim :func:`param_layouts` names; the embedding and an untied head
+    whole on every rank, as the trainer's ``tp`` uses them (so every rank
+    computes the whole logits); a replicated ``wk``/``wv``/``bk``/``bv``
+    cut to the kv head the rank's q heads read (:func:`kv_head_rows`).
+    Raises for head counts no rule splits (:func:`kv_replicated`)."""
+    from areal_tpu_torch.models.transformer import Transformer
+
+    replicated = kv_replicated(cfg, tp)
+    shapes = {n: t.shape for n, t in
+              Transformer(cfg, device="meta").state_dict().items()}
+    out: Dict[str, List[Slice]] = {}
+    for name, lay in param_layouts(cfg, tp).items():
+        suffix = name.split(".", 2)[-1]
+        if tp > 1 and replicated and suffix in _KV_SUFFIXES:
+            rows = [kv_head_rows(cfg, tp, r) for r in range(tp)]
+            out[name] = [(0, s.start, s.stop - s.start) for s in rows]
+        elif tp > 1 and "tp" in lay and name not in _TP_GATHERED:
+            dim = lay["tp"]
+            n = shapes[name][dim] // tp
+            if n * tp != shapes[name][dim]:
+                raise ValueError(f"tp={tp} does not divide dim {dim} of "
+                                 f"{name} {tuple(shapes[name])}")
+            out[name] = [(dim, r * n, n) for r in range(tp)]
+        else:
+            out[name] = [None] * tp
+    return out
+
+
+def take_slice(t: torch.Tensor, s: Slice) -> torch.Tensor:
+    """A view of ``t``'s slice ``s`` (``t`` itself for None)."""
+    return t if s is None else t.narrow(s[0], s[1], s[2])
+
+
+def serving_shards(params: Dict[str, torch.Tensor], cfg: TransformerConfig,
+                   tp: int, tp_rank: int) -> Dict[str, torch.Tensor]:
+    """This ``tp`` rank's tensors of a whole state dict (views: the caller
+    copies them where it needs its own storage)."""
+    slices = serving_slices(cfg, tp)
+    return {n: take_slice(t, slices[n][tp_rank]) for n, t in params.items()}
+
+
+def rank_config(cfg: TransformerConfig, tp: int) -> TransformerConfig:
+    """The geometry one ``tp`` rank's model holds: its q heads, the kv
+    heads they read, and its share of the MLP (or expert) width. Its KV
+    cache (``init_kv_cache``) then holds the rank's kv heads."""
+    import dataclasses
+
+    if tp <= 1:
+        return cfg
+    replicated = kv_replicated(cfg, tp)
+    kw = dict(n_q_heads=cfg.n_q_heads // tp,
+              n_kv_heads=1 if replicated else cfg.n_kv_heads // tp,
+              intermediate_dim=cfg.intermediate_dim // tp)
+    if cfg.moe is not None:
+        moe = cfg.moe
+        kw["moe"] = dataclasses.replace(
+            moe, routed_intermediate_dim=(
+                moe.routed_intermediate_dim or cfg.intermediate_dim) // tp,
+            shared_intermediate_dim=(moe.shared_intermediate_dim // tp
+                                     if moe.shared_intermediate_dim
+                                     else None))
+    return dataclasses.replace(cfg, **kw)
 
 
 # ---------------- activations ----------------

@@ -41,6 +41,18 @@ suffix is no narrower than the prompt's own prefill width
 never written: ``clone_prefix`` copies, and ``stack_states`` copies again
 before ``decode_chunk_rows`` writes in place.
 
+A meshed server (``mesh=``, reference ``:152-171``) is a group of ``tp``
+ranks, one process and one device each, every rank holding its slices of
+the weights (``parallel/sharding.py serving_shards``) and its kv heads of
+every decode state. The leader (rank 0) is the server as above; its device
+calls (prefill, decode chunk, extend, and the states' clone, grow, slice,
+stack and drop) run on every rank in the same order
+(``system/server_mesh.py``), its followers :meth:`~GenerationServer.follow`
+them, and a weight update loads on every rank and swaps every rank or
+none. A rank's failure fails the server as a unit: ``/health`` answers
+``ok: false``, every later batch fails, and the process running it exits
+(``apps/launcher.py gen_server_entry``).
+
 A model with a learned position table (GPT-2) answers **413** with the same
 ``prompt_too_long`` body, whatever the serving config, to a request whose
 prompt plus its budget (``budget_total``, else ``max_tokens``) passes
@@ -57,7 +69,8 @@ device-to-device copy out of the publication's CUDA IPC buffer, under the
 ``genserver/device_consume`` watermark). Either way the new
 tensors (reference names, stacked ``[L, in, out]`` layers) are checked by
 name and shape against the live model, converted into the live dtype on the
-live device as a shadow model, and — for a stream, after the publisher's
+live device as a shadow model (a meshed rank keeps its slices), and — for
+a stream, after the publisher's
 digest verifies — published with the new version as one ``(model,
 version)`` pair that each batch captures once. The retained KV states and
 the prefix trie are cleared. Any failure leaves the old pair live, the
@@ -82,6 +95,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import logging
@@ -110,10 +124,12 @@ from areal_tpu_torch.models import hf
 from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.models.transformer import Transformer
 from areal_tpu_torch.ops.sampling import sampling_from_gconfigs
+from areal_tpu_torch.parallel import sharding as psh
 from areal_tpu_torch.system import goodput as goodput_mod
 from areal_tpu_torch.system import memwatch as memwatch_mod
 from areal_tpu_torch.system import serving as serving_mod
 from areal_tpu_torch.system.http import FleetHTTPServer
+from areal_tpu_torch.system.server_mesh import ServerMesh
 from areal_tpu_torch.system.serving import (
     REQUEST_CLASSES,
     AdmissionReject,
@@ -142,6 +158,11 @@ class GenerationServerConfig:
     experiment: str = "exp"
     trial: str = "trial"
     server_id: str = "gen0"
+    # tp ranks of a meshed server (one process each; the launcher starts
+    # them and builds the mesh, GenerationServer(mesh=)), and the rank of
+    # the process this config starts
+    tp: int = 1
+    tp_rank: int = 0
     # most new tokens one /generate call decodes
     chunk_tokens: int = serving_mod.GEN_CHUNK_TOKENS_DEFAULT
     batch_window_ms: int = 5
@@ -207,22 +228,45 @@ class _Pending:
 
 class GenerationServer:
     """Serves one model (``params``: the port's state dict) on ``device`` —
-    CUDA unless the caller passes another (``resolve_device``)."""
+    CUDA unless the caller passes another (``resolve_device``) — or, with
+    ``mesh`` (a ``parallel/mesh.py`` mesh of ``tp`` ranks over this
+    server's process group), this rank's slices of it; every rank passes
+    the same whole ``params``."""
 
     def __init__(self, cfg: GenerationServerConfig,
                  model_cfg: TransformerConfig, params: Dict[str, torch.Tensor],
-                 device=None):
+                 device=None, mesh=None):
         self.cfg = cfg
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
+        # A meshed server (reference :164-167): this rank keeps its tp
+        # slices of the whole ``params`` every rank is given, and its
+        # device calls run on every rank (system/server_mesh.py).
+        self.mesh = mesh
+        self.tp = psh.mesh_degree(mesh, "tp") if mesh is not None else 1
+        self._slices = (psh.serving_slices(model_cfg, self.tp)
+                        if self.tp > 1 else None)
+        self.mesh_ctl: Optional[ServerMesh] = None
+        if mesh is not None:
+            self.mesh_ctl = ServerMesh(self, mesh)
+            # copies: a slice must not hold the whole tensor's storage
+            params = {k: v.to(self.device).clone() for k, v in
+                      psh.serving_shards(params, model_cfg, self.tp,
+                                         self.mesh_ctl.rank).items()}
+        # The device calls: models/generate.py, or their replay on every
+        # rank of a meshed server.
+        self._ops = self.mesh_ctl if mesh is not None else genmod
         # The served (model, version) pair: each batch reads it once, and a
         # weight update replaces it in one assignment.
         self._published: Tuple[Transformer, int] = (Transformer.from_params(
-            model_cfg, {k: v.to(self.device) for k, v in params.items()}), 0)
-        # Reference names -> (shape, dtype) of the live weights: what an
+            psh.rank_config(model_cfg, self.tp),
+            {k: v.to(self.device) for k, v in params.items()}), 0)
+        # Reference names -> (shape, dtype) of the whole weights: what an
         # update must deliver (the layout is fixed for the server's life).
-        meta = {k: torch.empty_like(v, device="meta")
-                for k, v in self.model.state_dict().items()}
+        dtypes = {k: v.dtype for k, v in self.model.state_dict().items()}
+        meta = {k: torch.empty(v.shape, dtype=dtypes[k], device="meta")
+                for k, v in Transformer(model_cfg, device="meta")
+                .state_dict().items()}
         self._ref_specs = {k: (tuple(v.shape), v.dtype) for k, v in
                            convert.params_to_reference(meta, model_cfg).items()}
         self._update_lock = threading.Lock()
@@ -312,6 +356,15 @@ class GenerationServer:
     def shapes(self) -> ShapeBucketPolicy:
         return self.serving.shapes
 
+    @property
+    def failed(self) -> Optional[BaseException]:
+        """What failed a meshed server as a unit (None: serving)."""
+        return self.mesh_ctl.failed if self.mesh_ctl is not None else None
+
+    def _batch_lock(self):
+        return (self.mesh_ctl.lock if self.mesh_ctl is not None
+                else contextlib.nullcontext())
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -386,7 +439,7 @@ class GenerationServer:
             shapes.observe("prefill", B_pad, padded.shape[1], S)
             t_wall = time.time()
             t0 = time.monotonic()
-            st = genmod.prefill_state(
+            st = self._ops.prefill_state(
                 model, torch.from_numpy(padded).to(dev),
                 torch.from_numpy(plens).to(dev), S)
             self._sync()
@@ -403,7 +456,7 @@ class GenerationServer:
                 self.telemetry.set_gauge("genserver/prefill_tflops",
                                          pf / prefill_secs / 1e12)
             for i, p in enumerate(fresh):
-                row_states[id(p)] = genmod.slice_state(st, i)
+                row_states[id(p)] = self._ops.slice_state(st, i)
                 if p.trace is not None:
                     # the shared batched prefill, tagged per request
                     self.telemetry.add_span(
@@ -414,7 +467,7 @@ class GenerationServer:
         for p, rs in cont:
             # the retained state itself when large enough: stack_states
             # copies it before the decode writes
-            row_states[id(p)] = genmod.grow_state(
+            row_states[id(p)] = self._ops.grow_state(
                 rs.state, shapes.round_capacity(rs.cur_len + chunk))
 
         # Group rows by KV capacity: one decode call per capacity.
@@ -429,7 +482,7 @@ class GenerationServer:
             rows = shapes.round_rows(len(group))
             n_dummy = rows - len(group)
             states = [row_states[id(p)] for p in group]
-            stacked = genmod.stack_states(states + states[:1] * n_dummy)
+            stacked = self._ops.stack_states(states + states[:1] * n_dummy)
             done = torch.tensor([p.tokens_done for p in group] + [0] * n_dummy,
                                 dtype=torch.int32, device=dev)
             sampling = sampling_from_gconfigs(
@@ -442,7 +495,7 @@ class GenerationServer:
             self._counts["decode_row_steps"] += rows * chunk
             self._counts["dummy_row_steps"] += n_dummy * chunk
             t0 = time.monotonic()
-            new_state, out = genmod.decode_chunk_rows(
+            new_state, out = self._ops.decode_chunk_rows(
                 model, stacked, done, self._generator, sampling,
                 n_tokens=chunk, eos_token_id=cfg.eos_token_id,
                 pad_token_id=cfg.pad_token_id, row_budget=budget)
@@ -480,7 +533,7 @@ class GenerationServer:
                         kv.pop(p.rid)
                     else:
                         kv.put(p.rid, ReqState(
-                            genmod.slice_state(new_state, i),
+                            self._ops.slice_state(new_state, i),
                             cur_len=len(p.prompt) + n, version=version,
                             # the sequence feeds only the prefix trie
                             tokens=np.concatenate([
@@ -525,12 +578,12 @@ class GenerationServer:
                 # /update_weights cleared the store since the acquire
                 return False
             # a copy: extending or decoding it never writes the donor
-            st = genmod.clone_prefix(donor.state, shared)
+            st = self._ops.clone_prefix(donor.state, shared)
             suffix = p.prompt[shared:]
             if len(suffix) == 0:
                 # An exact match of the donor's whole sequence: its last
                 # logits are this prompt's; a pure clone, no prefill.
-                row_states[id(p)] = genmod.grow_state(
+                row_states[id(p)] = self._ops.grow_state(
                     st, shapes.round_capacity(len(p.prompt) + chunk))
             else:
                 try:
@@ -538,12 +591,12 @@ class GenerationServer:
                         max(len(p.prompt) + chunk, shared + T))
                 except PromptTooLong:
                     return False  # near the capacity ceiling: plain prefill
-                st = genmod.grow_state(st, need)
+                st = self._ops.grow_state(st, need)
                 padded = np.full((1, T), cfg.pad_token_id, np.int32)
                 padded[0, :len(suffix)] = suffix
                 shapes.observe("extend", 1, T, st["kv_k"].shape[2])
                 t0 = time.monotonic()
-                row_states[id(p)] = genmod.extend_state(
+                row_states[id(p)] = self._ops.extend_state(
                     model, st, torch.from_numpy(padded).to(self.device),
                     torch.tensor([len(suffix)], dtype=torch.int32,
                                  device=self.device))
@@ -580,8 +633,10 @@ class GenerationServer:
                 with self.telemetry.span("genserver/decode_chunk",
                                          batch_size=len(batch)) as attrs, \
                         self.ledger.state("compute"):
-                    # inference_mode is thread-local: entered in this thread.
-                    with torch.inference_mode():
+                    # inference_mode is thread-local: entered in this
+                    # thread. A meshed server runs the batch's calls on
+                    # every rank under one hold of the mesh lock.
+                    with torch.inference_mode(), self._batch_lock():
                         results = self._decode_batch(batch)
                     attrs["tokens"] = sum(len(r["output_ids"])
                                           for r in results)
@@ -710,7 +765,8 @@ class GenerationServer:
         # the manager's probe doubles as the ledger's heartbeat
         self.ledger.poll()
         return {
-            "ok": True,
+            # a meshed server whose ranks failed serves nothing more
+            "ok": self.failed is None,
             "version": self.version,
             "server_id": self.cfg.server_id,
             "uptime_secs": time.monotonic() - self._t_start,
@@ -774,6 +830,7 @@ class GenerationServer:
             "kv_peak_bytes": self._kv_peak_bytes,
             "shapes": self.shapes.shapes(),
             "version": self.version,
+            "tp": self.tp,
             "last_weight_update_latency_s": self._last_update_latency,
             # prefix hits, tokens saved and skipped seeds, decode and dummy
             # row-steps, continuations that found no state of their own
@@ -810,8 +867,17 @@ class GenerationServer:
                     f"live {spec[0]}")
             seen.add(name)
             t0 = time.monotonic()
-            out.update(convert.params_from_jax(
-                {name: t}, self.model_cfg, device=self.device, dtype=spec[1]))
+            if self._slices is None:
+                out.update(convert.params_from_jax(
+                    {name: t}, self.model_cfg, device=self.device,
+                    dtype=spec[1]))
+            else:  # this rank's slices of the whole tensors
+                rank = self.mesh_ctl.rank
+                for n, w in convert.params_from_jax(
+                        {name: t}, self.model_cfg, device="cpu",
+                        dtype=spec[1]).items():
+                    out[n] = psh.take_slice(w, self._slices[n][rank]).to(
+                        self.device, copy=True)
             upload_secs += time.monotonic() - t0
         missing = sorted(set(self._ref_specs) - seen)
         if missing:
@@ -867,18 +933,54 @@ class GenerationServer:
         """Device transport: the trainer's publication, gated by version,
         digest, tree, shapes and a live publisher, copied device to device
         into a shadow state dict in the live dtypes (reference
-        ``_reshard_published_weights:855``). A failed gate raises with the
-        old weights still live."""
+        ``_reshard_published_weights:855``); a meshed server's rank copies
+        its own rank's part. A failed gate raises with the old weights
+        still live."""
         from areal_tpu_torch.parallel import reshard as rsh
 
         with self.memwatch.watermark("genserver/device_consume"):
             return rsh.consume_device(
                 self.cfg.experiment, self.cfg.trial, role, version, digest,
-                self.model.state_dict())
+                self.model.state_dict(), rank=(
+                    self.mesh_ctl.rank if self.mesh_ctl is not None else 0),
+                n_ranks=self.tp)
+
+    def _load_update(self, d: Dict[str, Any]
+                     ) -> Tuple[Transformer, int, Optional[Dict[str, float]]]:
+        """One /update_weights body's new model (this rank's slices on a
+        meshed server), its version and, for a stream, the consume's
+        stats. Raises with nothing live changed."""
+        # The version first: a bad one fails before any load.
+        version = int(d["version"] if d.get("endpoint")
+                      else d.get("version", self.version + 1))
+        stream_stats = None
+        if d.get("device"):
+            params = self._reshard_published_weights(
+                d.get("role", "actor"), version, d.get("digest", ""))
+        elif d.get("endpoint"):
+            params, stream_stats = self._stream_and_put_weights(
+                d["endpoint"], version, d.get("timeout"))
+        else:
+            params = self._load_and_put_weights(d["path"])
+        new = Transformer.from_params(self.model.cfg, params)
+        # The upload ran on this thread's stream: the shadow weights are
+        # complete before any batch can read them.
+        self._sync()
+        return new, version, stream_stats
+
+    def _commit_update(self, loaded) -> None:
+        """The swap: batches in flight captured the old pair and tag their
+        tokens with the old version."""
+        new, version, _ = loaded
+        self._published = (new, version)
+        # States decoded under the old weights are stale; a continuation
+        # whose state survives a race re-prefills on its version check.
+        self.kv.clear()
 
     def handle_update_weights(self, d: Dict[str, Any]
                               ) -> Tuple[int, Dict[str, Any]]:
-        """Serve one /update_weights body; returns (HTTP status, reply)."""
+        """Serve one /update_weights body; returns (HTTP status, reply). A
+        meshed server loads on every rank and swaps every rank or none."""
         t0 = time.monotonic()
         transport = ("device" if d.get("device")
                      else "stream" if d.get("endpoint") else "disk")
@@ -887,23 +989,12 @@ class GenerationServer:
                 with self.telemetry.span("genserver/weight_update",
                                          transport=transport,
                                          version=d.get("version", -1)):
-                    # The version first: a bad one fails before any load.
-                    version = int(d["version"] if d.get("endpoint")
-                                  else d.get("version", self.version + 1))
-                    stream_stats = None
-                    if d.get("device"):
-                        params = self._reshard_published_weights(
-                            d.get("role", "actor"), version,
-                            d.get("digest", ""))
-                    elif d.get("endpoint"):
-                        params, stream_stats = self._stream_and_put_weights(
-                            d["endpoint"], version, d.get("timeout"))
+                    if self.mesh_ctl is not None:
+                        loaded = self.mesh_ctl.swap_weights(
+                            d, self._load_update, self._commit_update)
                     else:
-                        params = self._load_and_put_weights(d["path"])
-                    new = Transformer.from_params(self.model_cfg, params)
-                    # The upload ran on this thread's stream: the shadow
-                    # weights are complete before any batch can read them.
-                    self._sync()
+                        loaded = self._load_update(d)
+                        self._commit_update(loaded)
             except Exception as e:  # noqa: BLE001 — keep old weights, report
                 self.telemetry.inc("genserver/weight_update_failures")
                 logger.error(f"weight update failed; keeping v{self.version}: "
@@ -914,12 +1005,7 @@ class GenerationServer:
                 # Accrued, not a transition: the update overlaps decodes
                 # whose runner owns the ledger's partition.
                 self.ledger.add_overlap("comm", time.monotonic() - t0)
-            # The swap: batches in flight captured the old pair and tag their
-            # tokens with the old version.
-            self._published = (new, version)
-            # States decoded under the old weights are stale; a continuation
-            # whose state survives a race re-prefills on its version check.
-            self.kv.clear()
+            _, version, stream_stats = loaded
             dt = time.monotonic() - t0
             self._last_update_latency = dt
             if stream_stats is not None:
@@ -939,9 +1025,22 @@ class GenerationServer:
         return names.gen_servers(self.cfg.experiment, self.cfg.trial,
                                  self.cfg.server_id)
 
+    def follow(self) -> None:
+        """A meshed server's follower: replay the leader's device calls on
+        this rank until the leader stops (``system/server_mesh.py``)."""
+        if self.mesh_ctl is None or self.mesh_ctl.is_leader:
+            raise RuntimeError("follow() runs on a meshed server's "
+                               "followers; the leader calls start()")
+        with torch.inference_mode():
+            self.mesh_ctl.follow()
+
     def start(self) -> str:
         """Start the runner and the HTTP server, register the URL under
-        ``names.gen_servers``; returns the URL."""
+        ``names.gen_servers``; returns the URL. On a meshed server only the
+        leader starts (its followers :meth:`follow`)."""
+        if self.mesh_ctl is not None and not self.mesh_ctl.is_leader:
+            raise RuntimeError("a meshed server's follower does not serve "
+                               "HTTP: call follow()")
         server = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -1026,6 +1125,8 @@ class GenerationServer:
         """Stop accepting requests, serve what is queued, fail anything
         still queued after ``timeout``, and join both threads."""
         if self._http is None:
+            if self.mesh_ctl is not None and self.mesh_ctl.is_leader:
+                self.mesh_ctl.stop()  # built, never started: end followers
             return
         if self._hb is not None:
             self._hb.close()
@@ -1049,6 +1150,8 @@ class GenerationServer:
             p.future.set_exception(RuntimeError("generation server stopped"))
         self._http = None
         self._threads = []
+        if self.mesh_ctl is not None:
+            self.mesh_ctl.stop()  # the followers' loops end
         self.ledger.flush()
         self.memwatch.close()
         self.telemetry.close()

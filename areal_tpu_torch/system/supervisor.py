@@ -31,7 +31,15 @@ A dynamic generation server (kind ``gen_server``, spawned by the
 autoscaler's executor) is stateless and also *expendable*: a crash loop
 removes it from supervision instead of escalating, and the executor, which
 counts live workers with :meth:`Supervisor.alive_count`, spawns a fresh one
-within the plan's bounds.
+within the plan's bounds. A decoupled allocation's servers (kind
+``gen_replica``) and their manager (kind ``gen_manager``) run in processes
+of their own and are stateless too.
+
+A meshed generation server runs one process per ``tp`` rank, and its ranks
+are one failure domain (``WorkerSpec.group``): when one dies, the others
+are killed and all respawn together, with one restart counted against the
+breaker; only the leader (``rank`` 0) counts as a live worker and takes a
+commanded exit (its followers end with it).
 
 Processes are spawned, never forked, so no child inherits a CUDA context.
 """
@@ -50,14 +58,18 @@ from areal_tpu_torch.base import logging, name_resolve, names, telemetry
 logger = logging.getLogger("system.supervisor")
 
 # The failure domains the launcher restarts in place ("gen_server": a
-# dynamic single server of the autoscaler, expendable as well).
+# dynamic single server of the autoscaler, expendable as well), and those
+# of a decoupled fleet (its servers, one process per rank, and its
+# manager), stateless too.
 STATELESS_KINDS = ("rollout", "gen_fleet", "reward", "gen_server")
+DECOUPLED_KINDS = ("gen_replica", "gen_manager")
+RESTARTABLE_KINDS = STATELESS_KINDS + DECOUPLED_KINDS
 
 # Workers with a control endpoint that shutdown asks to exit, in this
 # order, before it terminates anything: a rollout worker returns its quota,
-# a reward worker withdraws its URL, a dynamic generation server its
+# a reward worker withdraws its URL, a generation server its
 # registration.
-_ORDERLY_KINDS = ("rollout", "reward", "gen_server")
+_ORDERLY_KINDS = ("rollout", "reward", "gen_server", "gen_replica")
 
 
 class SupervisorEscalation(RuntimeError):
@@ -111,6 +123,12 @@ class WorkerSpec:
     # server) for good instead of escalating: the autoscale plan replaces
     # it, and one flapping server never takes the run down.
     expendable: bool = False
+    # One failure domain of several processes (a meshed generation
+    # server's ranks): a death takes down and respawns every member.
+    group: Optional[str] = None
+    # this member's rank in its group (0 leads: the live count and the
+    # commanded exit are its own)
+    rank: int = 0
 
 
 class _Entry:
@@ -138,7 +156,7 @@ class Supervisor:
                  policy: Optional[RestartPolicy] = None,
                  keepalive_ttl: float = 0.0,
                  heartbeat_interval: float = 0.0,
-                 restartable_kinds: Tuple[str, ...] = STATELESS_KINDS,
+                 restartable_kinds: Tuple[str, ...] = RESTARTABLE_KINDS,
                  clock: Callable[[], float] = time.monotonic):
         self.experiment = experiment
         self.trial = trial
@@ -212,7 +230,7 @@ class Supervisor:
         (crash-looped expendable) workers do not count: that is how the
         autoscale executor sees capacity to replace."""
         return sum(1 for e in self._entries.values()
-                   if e.spec.kind == kind and not e.done)
+                   if e.spec.kind == kind and not e.done and e.spec.rank == 0)
 
     def begin_drain(self) -> None:
         """A planned teardown from here on: child exits (any code) are
@@ -248,8 +266,28 @@ class Supervisor:
                 self.begin_drain()
                 entry.done = True
                 continue
-            self._on_death(entry, code, now)
+            try:
+                self._on_death(entry, code, now)
+            finally:
+                if entry.spec.group is not None:
+                    self._follow_group(entry)
         self._export_heartbeats(now)
+
+    def _follow_group(self, entry: _Entry) -> None:
+        """The rest of ``entry``'s group goes as it went: killed now, then
+        respawned at its respawn time, or left down (escalated, removed)."""
+        for e in self._entries.values():
+            if e is entry or e.spec.group != entry.spec.group:
+                continue
+            if e.proc is not None and e.proc.is_alive():
+                e.proc.kill()
+                e.proc.join(timeout=5)
+            e.respawn_due = entry.respawn_due
+            e.done = entry.done
+        if entry.respawn_due is not None:
+            logger.warning(f"group {entry.spec.group}: {entry.spec.name} "
+                           "died; its other ranks go down and respawn with "
+                           "it")
 
     def _shutdown_signaled(self) -> bool:
         """True iff a commanded teardown newer than this supervisor is
@@ -343,8 +381,9 @@ class Supervisor:
             # out to it now, not when its lease lapses.
             doomed.append(names.reward_worker(
                 self.experiment, self.trial, "rw" + spec.name[len("reward"):]))
-        if spec.kind == "gen_server" and spec.name.startswith("genserver_"):
-            # a dynamic server's discovery key, by its server_id
+        if (spec.kind in ("gen_server", "gen_replica")
+                and spec.name.startswith("genserver_")):
+            # a server's discovery key, by its server_id
             doomed.append(names.gen_servers(
                 self.experiment, self.trial, spec.name[len("genserver_"):]))
         if spec.kind == "gen_fleet":
@@ -363,6 +402,9 @@ class Supervisor:
                 worker = key[len(hb_root.rstrip("/")) + 1:]
                 if worker.startswith(("genserver_", "gserver_manager")):
                     doomed.append(key)
+        if spec.kind == "gen_manager":
+            doomed.append(names.gen_server_manager(self.experiment,
+                                                   self.trial))
         for key in doomed:
             try:
                 name_resolve.delete(key)
@@ -450,6 +492,9 @@ class Supervisor:
                 and e.spec.kind == kind]
         if not live:
             return
+        # a group's followers end with their leader: only leaders are asked
+        followers = [e for e in live if e.spec.rank > 0]
+        live = [e for e in live if e.spec.rank == 0]
         deadline = time.monotonic() + secs
         try:
             from areal_tpu_torch.system.worker_base import WorkerControlPanel
@@ -470,7 +515,7 @@ class Supervisor:
                 panel.close()
         except Exception:  # noqa: BLE001 — terminate covers it
             pass
-        for entry in live:
+        for entry in live + followers:
             entry.proc.join(timeout=max(0.05, deadline - time.monotonic()))
 
 

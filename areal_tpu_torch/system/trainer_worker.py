@@ -17,8 +17,10 @@ role's engine on one device and serves the master's request stream:
 Hooks on an MFC: ``weight_update`` publishes a role's weights for the
 generation servers over ``weight_sync.transport`` (``disk``: a native
 checkpoint under ``realloc_dir/<role>/<version>``; ``stream``: the role's
-``WeightStreamPublisher``; ``device``: one packed device buffer shared by
-its CUDA IPC handle, ``parallel/reshard.py publish_device``), sets
+``WeightStreamPublisher``; ``device``: packed device buffers in the
+generation fleet's layout, one per ``tp`` rank of a server
+(``weight_sync.gen_parallel_spec``), shared by their CUDA IPC handles,
+``parallel/reshard.py publish_device``), sets
 ``names.model_version_time`` and ``names.model_version`` and deletes the
 other transports' keys; ``save`` writes an HF checkpoint;
 ``param_realloc`` moves the source role's weights into the target's layout
@@ -752,29 +754,47 @@ class TrainerWorker:
 
     def _publish_weights_device(self, role: str) -> None:
         """Transport ``device`` (reference ``_publish_weights_device:808``):
-        the role's weights in the compute dtype, whole on this device (the
-        layout the port's un-meshed servers hold), packed into one device
-        buffer whose CUDA IPC handle, manifest and digest go under
-        ``names.weight_device``. Off a mesh the masters are cast as they
-        are packed; on one, every rank gathers and rank 0 publishes. The
-        reference's ``_device_publish_shardings`` (a meshed fleet's layout)
-        comes with such a fleet."""
+        the role's weights in the compute dtype, packed into device
+        buffers in the generation fleet's layout
+        (:meth:`_device_publish_layout`: one buffer per ``tp`` rank of a
+        server, or whole tensors) whose CUDA IPC handles, manifests and
+        digest go under ``names.weight_device``. The leaves are packed one
+        transfer group (``weight_sync.transfer_group_mb``) at a time: off
+        a mesh the masters are cast as they are copied; on one, every rank
+        gathers each group whole and rank 0 packs it."""
         from areal_tpu_torch.parallel import reshard as rsh
 
         model = self.models[role]
         engine = model.module
         version = model.version.global_step
+        cd = engine.compute_dtype
+        target = self._device_publish_layout(role)
+        group_mb = self.cfg.weight_sync.transfer_group_mb
         t0 = time.monotonic()
         with self._publish_span(role, version, "device"):
+            kw = dict(version=version, dtype=cd, target=target,
+                      group_mb=group_mb)
             if getattr(engine, "mesh", None) is not None:
-                params = engine.full_params(engine.compute_dtype)
+                # every stage's names, in the whole shapes
+                params = {n: torch.empty(t.shape, dtype=t.dtype,
+                                         device="meta")
+                          for n, t in engine.model.state_dict().items()}
+
+                def gather(names):
+                    return engine.full_params(cd, names=names)
+
+                if not self._rank0:
+                    for group in rsh.plan_publication(
+                            params, cd, group_mb).groups:
+                        gather(list(group))
+                    return
+                kw.update(gather=gather, device=engine.device)
             else:
                 params = {n: p.detach() for n, p in engine.params.items()}
-            if not self._rank0:
-                return
-            pub = rsh.publish_device(
-                self.cfg.experiment, self.cfg.trial, role, params,
-                version=version, dtype=engine.compute_dtype)
+                if not self._rank0:
+                    return
+            pub = rsh.publish_device(self.cfg.experiment, self.cfg.trial,
+                                     role, params, **kw)
         publish_secs = time.monotonic() - t0
         self._publish_done(publish_secs)
         telemetry.observe("trainer/weight_publish_latency_secs",
@@ -782,7 +802,24 @@ class TrainerWorker:
         self._clear_stale_transport_keys(role, keep="device")
         self._bump_version(role, version, publish_secs)
         logger.info(f"published {role} weights v{version} on device "
-                    f"({len(pub.manifest)} leaves, {publish_secs:.3f}s)")
+                    f"({len(pub.parts)} rank buffer(s) of "
+                    f"{len(pub.manifest)} leaves, {len(pub.plan.groups)} "
+                    f"groups, {publish_secs:.3f}s)")
+
+    def _device_publish_layout(self, role: str):
+        """The target layout of a device publish (reference
+        ``_device_publish_shardings``): the generation spec's servers'
+        layout when ``weight_sync.gen_parallel_spec`` is set (decoupled
+        experiments thread ``AllocationMode.gen_spec`` through), else None:
+        whole tensors, the layout un-meshed servers hold."""
+        from areal_tpu_torch.parallel import reshard as rsh
+        from areal_tpu_torch.parallel.mesh import ParallelSpec
+
+        spec = self.cfg.weight_sync.gen_parallel_spec
+        if not spec:
+            return None
+        return rsh.model_shardings(ParallelSpec.parse(spec),
+                                   self.models[role].module.cfg)
 
     @contextlib.contextmanager
     def _publish_span(self, role: str, version: int, transport: str):

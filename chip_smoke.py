@@ -86,11 +86,19 @@ Phases (any failed check raises, and the script exits non-zero):
      GEMMs and the rest of the device time, the device's idle share and the
      kernels per step; K1, K2 and K3 must each show device time;
  (j)-(o) run at 4 of the model's 24 layers (full width; ``CUT_LAYERS``),
-     as do (q3) with (p), (r), (s) and (u)-(x); (t) at 8
+     as do (q2), (q3) with (p), (r), (s) and (u)-(x); (t) at 8
      (``ELASTIC_LAYERS``: at 4 its loop ends before the second server is
      given work): the cuts that make room for the later phases in the
      time limit. Wherever a check of these phases counts per layer, it
-     counts 4 (8 in (t)). (c)-(i), (q1) and (q2) run at 24.
+     counts 4 (8 in (t)). (c)-(i) and (q1) run at 24.
+     After (i) two lanes share the card: the loop lane, a spawned process
+     of its own, runs (o), (q3) with (p), (r) and (s) one after another,
+     while this process runs (j)-(n), (q1), (q2), (u)-(y), (bb), (cc) and
+     (z); then (t), (aa), (dd) and (ee) run alone. Each phase of either
+     lane starts once the card has room for it (``LANE_ROOM_GB``), so the
+     times of those phases are readings on a shared card; (a)-(i), (t),
+     (aa), (dd) and (ee), and every kernel time of the JSON line, have the
+     card to themselves.
  (j) the trainer's model functions of the async-PPO recipe (the README's
      `ppo.use_decoupled_loss=true group_size=16`, the rest at defaults:
      kl_ctl 0.1, a critic, 4 PPO minibatches, advantage whitening), the
@@ -236,8 +244,8 @@ Phases (any failed check raises, and the script exits non-zero):
      fwd_bwd / optimizer spans, the server's decode-chunk spans, the
      default rules that fired and the device's busy share in the capture;
  (q) the serving engine on the seed-0 weights in bf16 (a fresh copy, the
-     earlier phases' engines freed), every server with
-     ``serving.enabled=true`` at its defaults but as said.
+     earlier phases' engines freed; (q1) at 24 layers, (q2) at 4), every
+     server with ``serving.enabled=true`` at its defaults but as said.
      (q1) prefix reuse: a donor (a 768-token preamble + 32 tokens, greedy,
      one full chunk of 128) on a server with prefix reuse and on one
      without; then eight concurrent requests of the preamble + suffixes of
@@ -284,20 +292,21 @@ Phases (any failed check raises, and the script exits non-zero):
      continuations that re-prefilled and the retained KV's peak bytes,
      beside (o)'s.
 
- (r) the reward fleet and respawns: (o)'s loop at 4 layers, 4
+ (r) the reward fleet and respawns: (o)'s loop at 4 layers, 3
      steps (the first a
      warm-up), with ``reward_service.enabled=true n_workers=2`` and
      ``fault_tolerance`` at its defaults, on seeded records half math and
      half python code (2-4 stdin/stdout cases each), through the
-     launcher's supervisor. The script SIGKILLs ``reward0`` after step 1,
-     ``rollout0`` after step 2 and the generation fleet (server and
-     manager) after step 3 (as the trainer publishes that step's
-     version), and waits after each kill until the worker's next
-     incarnation has registered; the trainer holds step 4, outside its MFCs' timing, until the
+     launcher's supervisor. The script SIGKILLs ``reward0`` and then
+     ``rollout0`` after step 1 and the generation fleet (server and
+     manager) after step 2 (as the trainer publishes that step's
+     version; 4 steps and a kill a step before the script outgrew its
+     time limit), and waits after each kill until the worker's next
+     incarnation has registered; the trainer holds step 3, outside its MFCs' timing, until the
      fleet's respawn has registered (fast steps could otherwise end the
      loop first). While the loop runs: the open /dev/nvidia* nodes of the
      reward workers (the trainer and the fleet the control), each reward worker's /metrics.json, and ``perf_probe
-     reward-bench`` (32 seeded tasks) at the live fleet. Checks: 4 steps
+     reward-bench`` (32 seeded tasks) at the live fleet. Checks: 3 steps
      with finite losses; restarts {reward: 1, rollout: 1, gen_fleet: 1},
      no escalation; no local fallback and no local grade in the rollout
      process, its answered tasks at least the trained trajectories, and
@@ -472,9 +481,9 @@ Phases (any failed check raises, and the script exits non-zero):
      plain version (as (b)) at Qwen3-30B-A3B's heads (B=8, T=1024, 32 q
      over 4 kv heads of 128: G=8 at head_dim 128) and K2/K3 (as (f)) at
      [2, 1792], timed against SDPA. Then Qwen3-30B-A3B at full width and
-     12 of its 48 layers (``MOE_SERVE_LAYERS``; hidden 2048, 128 experts
-     of 768, top-8; bf16 weights made on the card from seed 0; all 48
-     before the script outgrew its time limit) served as (y) (8
+     6 of its 48 layers (``MOE_SERVE_LAYERS``; hidden 2048, 128 experts
+     of 768, top-8; bf16 weights made on the card from seed 0; all 48,
+     then 12, before the script outgrew its time limit) served as (y) (8
      concurrent byte-token requests of 24-38 new tokens since PR 16,
      64-120 before, a 16-token greedy request twice, K1 n_layers x the
      prefills). On the same model: the batch's prefill with
@@ -564,23 +573,25 @@ Phases (any failed check raises, and the script exits non-zero):
      the ring's ms, each rank's body's (their sum and maximum) and one K1
      call's, and the ring's backward against one K2/K3 call; a zig-zag
      ring of 8 at the same limits, untimed (2n-1 = 15 tiles a block, each
-     output rounded to bf16 before the f32 merge or sum). (cc2) one
-     forward and backward of (g)'s PPO loss (24 layers) on a [2, 7168]
+     output rounded to bf16 before the f32 merge or sum). (cc2) and (cc3)
+     run 8 of the 24 layers (``PAR_LAYERS``; 24 before the script outgrew
+     its time limit). (cc2) one
+     forward and backward of (g)'s PPO loss (8 layers) on a [2, 7168]
      micro-batch (trajectories of 5000, 4000, 2100 and 3000 tokens)
      through an engine with a one-process ring of 4 against a plain engine from
      the same weights: (h)'s limits on the loss, every grad norm and the
-     gradient's cosine; K1 2 x 24 x 28 (forward and the "dots" recompute)
-     and K2/K3 24 x 28; each engine's fwd-bwd ms and peak memory. (cc3) a
-     PPO train step (24 layers, (g)'s recipe) on one [8, 1792]
-     micro-batch through 4 one-process stages (6 layers a stage), which
+     gradient's cosine; K1 2 x 8 x 28 (forward and the "dots" recompute)
+     and K2/K3 8 x 28; each engine's fwd-bwd ms and peak memory. (cc3) a
+     PPO train step (8 layers, (g)'s recipe) on one [8, 1792]
+     micro-batch through 4 one-process stages (2 layers a stage), which
      ``pick_pp_microbatches`` splits 8 ways, with 1F1B and with GPipe,
      against the plain engine: loss and grad norm within 1e-4 relative,
      every master within 1e-7 of the plain step's (``PP_LIMITS``, set
      between sound and faulty readings); two broken 1F1B
      runs, stage 0's gradients zeroed and one pipeline micro-batch's
-     backward left out, must each break a limit; K1 48 (plain), 24 x 8 x 2
-     (GPipe) and 24 x 8 x 3 (1F1B: its backward recomputes each stage
-     from the saved input), K2/K3 24 (plain) and 24 x 8; then a second,
+     backward left out, must each break a limit; K1 16 (plain), 8 x 8 x 2
+     (GPipe) and 8 x 8 x 3 (1F1B: its backward recomputes each stage
+     from the saved input), K2/K3 8 (plain) and 8 x 8; then a second,
      timed step of each: ms and peak memory, 1F1B's peak below GPipe's.
 
  (dd) expert parallelism at Qwen3-30B-A3B's width, in one process (the
@@ -603,6 +614,29 @@ Phases (any failed check raises, and the script exits non-zero):
      misrouted exchange's (two sources' buffers swapped) outside them;
      ``train/moe_ep_engaged`` 1 under EP and 0 plain; two timed steps of
      each (ms, peak memory), no drops, K2/K3 2 x 4 x 2 and K1 twice that.
+
+ (ee) the decoupled generation fleet: a tp=2 meshed server of
+     Qwen2.5-0.5B (24 layers, full width, bf16, seed 0) whose two ranks
+     are processes on the one card joined over gloo (two NCCL ranks cannot
+     share it; gloo's plain collectives stage the CUDA tensors through the
+     host); each rank holds 7 q and 1 kv head of every layer. K1 at 7/1
+     heads on [8, 1024] against its plain version and timed. (ee1) (c)'s 8
+     requests (100-900 prompt tokens, 192-token budgets, greedy and
+     sampled, chunks of 128) with continuations: replies well formed; K1
+     24 x prefills on each rank and never the plain attention in a
+     prefill; no prefill for continuations; the greedy prompts' prefill
+     last logits within 5% of max|logit| of the unsharded model's and the
+     first greedy tokens its argmax; each rank's KV bytes half the
+     unsharded state's; prefill ms a call and decode ms a step beside
+     (c)'s. (ee2) a trainer process publishes the seed-1 weights over
+     ``device`` in the t2 layout (``gen_parallel_spec``,
+     ``transfer_group_mb`` 16): one buffer a rank, the publish's extra
+     memory at most the buffers plus one group; the swap answered 200 and
+     every rank's weights bit for bit its slices of the seed-1 weights; a
+     wrong digest and a wrong version each answered 500 with the weights
+     and the version kept; publish-to-reply seconds beside (bb)'s. (ee3)
+     the shares name the card's UUID, which each rank opens (one card: no
+     copy between GPUs).
 
 The script exits 0 only when every phase passed and the last line is
 printed; any failed check raises and exits 1, as does a run where
@@ -672,7 +706,10 @@ ELASTIC_LAYERS = 8
 # (z) runs Gemma-2B at this many of its 18 layers, and (aa) serves
 # Qwen3-30B-A3B at this many of its 48 (full width)
 GEMMA_LAYERS = 6
-MOE_SERVE_LAYERS = 12
+MOE_SERVE_LAYERS = 6
+# (cc2) and (cc3) run Qwen2.5-0.5B at this many of its 24 layers (full
+# width; 2 a pipeline stage)
+PAR_LAYERS = 8
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
@@ -3163,8 +3200,6 @@ class LoopRun:
         self.thread.start()
 
     def join(self, secs: float) -> dict:
-        import multiprocessing
-
         try:
             self.thread.join(secs)
             check(not self.thread.is_alive(),
@@ -3179,9 +3214,8 @@ class LoopRun:
                 send.close()
         if "error" in self.box:
             raise self.box["error"]
-        check(not multiprocessing.active_children(), f"{self.what}: "
-              f"children outlived the teardown: "
-              f"{multiprocessing.active_children()}")
+        check(not phase_children(), f"{self.what}: children outlived the "
+              f"teardown: {phase_children()}")
         return self.box["result"]
 
     def done(self, kind: str) -> list:
@@ -4276,7 +4310,7 @@ def interactive_probe(exp, results: list, stop) -> None:
 # ---------------- (r) the reward fleet and respawns ----------------
 
 # (r): the worker killed after each step
-REWARD_KILLS = ((1, "reward0"), (2, "rollout0"), (3, "gen_fleet"))
+REWARD_KILLS = ((1, "reward0"), (1, "rollout0"), (2, "gen_fleet"))
 
 
 def nr_json(name_resolve, key):
@@ -4435,14 +4469,14 @@ def check_loop_stats(stats, what: str) -> None:
                   f"{what} step {i}: {k} = {st.get(k)}")
 
 
-def run_reward_fleet(cfg, tmp: str, device: str = "cuda", steps: int = 4,
+def run_reward_fleet(cfg, tmp: str, device: str = "cuda", steps: int = 3,
                      n_prompts: int = 4, group_size: int = 16,
                      chunk_tokens: int = 128, max_new_tokens: int = 256,
                      timeout: float = 600.0, extra=(), hf_dir=None) -> dict:
     """(r): (o)'s loop with the reward fleet on (two reward workers) on a
     seeded half-math half-code dataset, through the launcher's
-    supervisor, killing a reward worker, the rollout worker and the
-    generation fleet after steps 1, 2 and 3. The trainer holds the step
+    supervisor, killing a reward worker and then the rollout worker after
+    step 1 and the generation fleet after step 2. The trainer holds the step
     after the last kill until that kill's respawn has registered, so that
     fast steps cannot end the loop first. The checks of the module
     docstring; the launch checks only on the card."""
@@ -4462,6 +4496,10 @@ def run_reward_fleet(cfg, tmp: str, device: str = "cuda", steps: int = 4,
 
     cuda = torch.device(device).type == "cuda"
     t_setup = time.monotonic()
+    # a bare ``import torch``'s resident set, measured while the loop runs
+    rss_pool = concurrent.futures.ThreadPoolExecutor(1)
+    bare_rss = rss_pool.submit(torch_import_rss_mb)
+    rss_pool.shutdown(wait=False)
     exp = async_loop_config(cfg, tmp, "r", device, steps, n_prompts,
                             group_size, chunk_tokens, max_new_tokens,
                             ("reward_service.enabled=true",
@@ -4607,7 +4645,7 @@ def run_reward_fleet(cfg, tmp: str, device: str = "cuda", steps: int = 4,
         "grade_ms_mean": float(np.mean(roll["grade_ms"])),
         "grade_calls": len(roll["grade_ms"]),
         "reward_workers": rewards, "card_contexts": contexts,
-        "torch_import_rss_mb": torch_import_rss_mb(),
+        "torch_import_rss_mb": bare_rss.result(timeout=300),
         "reward_bench": bench,
         "trainer_peak_gb": tr["peak_gb"], "server_peak_gb": fleet["peak_gb"],
         "launches_total": launches, "loop_s": loop_s,
@@ -5514,8 +5552,7 @@ def run_sft_auto_eval(cfg, tmp: str, hf_dir: str, device: str = "cuda",
         check_scores(s, sc, cfg, n_eval, eval_k, 16, cuda)
     check(not eval_processes(tmp),
           "(u): an eval subprocess outlived the phase")
-    check(not multiprocessing.active_children(),
-          f"(u): children left: {multiprocessing.active_children()}")
+    check(not phase_children(), f"(u): children left: {phase_children()}")
 
     tokens = [r["tokens"] for r in recs]
     timed = recs[1:]  # the first step is a warm-up
@@ -8046,6 +8083,390 @@ def run_ep(fa, device: str = "cuda", cfg=None, train_layers: int = 2,
             "train_s": time.monotonic() - t1}
 
 
+# ---------------- (ee) the decoupled generation fleet ----------------
+
+# (ee): a tp=2 meshed server of Qwen2.5-0.5B. Its two ranks are processes
+# on the one card joined over gloo, whose collectives stage the CUDA
+# tensors through the host (two NCCL ranks cannot share a device); the
+# arithmetic is the Block and server code a multi-GPU server runs.
+GEN_TP = 2
+GEN_GROUP_MB = 16
+
+
+def count_plain_in_prefill(genmod, counts: dict) -> None:
+    """Count into ``counts``, in this process, the prefills and the plain
+    attention's calls made inside one (a decode step's attention is the
+    plain one by design)."""
+    from areal_tpu_torch.ops import attention
+
+    counts.update(plain_in_prefill=0, prefills=0)
+    inside = threading.local()
+    orig_ref, orig_prefill = attention.attention_reference, \
+        genmod.prefill_state
+
+    def ref(*a, **k):
+        if getattr(inside, "on", False):
+            counts["plain_in_prefill"] += 1
+        return orig_ref(*a, **k)
+
+    def prefill(*a, **k):
+        counts["prefills"] += 1
+        inside.on = True
+        try:
+            return orig_prefill(*a, **k)
+        finally:
+            inside.on = False
+
+    attention.attention_reference, genmod.prefill_state = ref, prefill
+
+
+_RANK_COUNTS: dict = {}
+
+
+def rank_reset(server) -> None:
+    from areal_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launch_count()
+    for k in _RANK_COUNTS:
+        _RANK_COUNTS[k] = 0
+
+
+def rank_counts(server) -> dict:
+    from areal_tpu_torch.ops import flash_attention as fa
+
+    return {"k1": fa.launch_count(), **_RANK_COUNTS}
+
+
+def rank_kv_bytes(server, sid: int) -> int:
+    st = server.mesh_ctl.state(sid)
+    return st["kv_k"].numel() * st["kv_k"].element_size() * 2
+
+
+def rank_weights(server, cfg, seed: int) -> dict:
+    """How many of this rank's live tensors are bit for bit its slices of
+    the seed's bf16 weights."""
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.parallel import sharding as psh
+
+    want = psh.serving_shards(
+        init_params(cfg, seed=seed, device=server.device,
+                    dtype=torch.bfloat16),
+        cfg, server.tp, server.mesh_ctl.rank)
+    live = server.model.state_dict()
+    bad = [n for n in live if not (live[n].dtype == want[n].dtype
+                                   and torch.equal(live[n], want[n]))]
+    return {"n": len(live), "n_bad": len(bad), "bad": bad[:3],
+            "rank": server.mesh_ctl.rank}
+
+
+def gen_mesh_command(srv, cmd):
+    """The leader's side of one (ee) command from the script."""
+    kind = cmd[0]
+    if kind == "reset":
+        srv.mesh_ctl.gather(rank_reset)
+        return None
+    if kind == "counts":
+        return {"ranks": srv.mesh_ctl.gather(rank_counts),
+                "stats": {k: v for k, v in srv.stats().items()
+                          if not isinstance(v, (list, dict))}}
+    if kind == "prefill":
+        _, padded, plens, S = cmd
+        with srv.mesh_ctl.lock, torch.inference_mode():
+            st = srv._ops.prefill_state(
+                srv.model, torch.from_numpy(padded).to(srv.device),
+                torch.from_numpy(plens).to(srv.device), S)
+            return {"last_logits": st["last_logits"].float().cpu().numpy(),
+                    "kv_bytes": srv.mesh_ctl.gather(rank_kv_bytes, st.sid)}
+    if kind == "weights":
+        return srv.mesh_ctl.gather(rank_weights, cmd[1], cmd[2])
+    raise ValueError(f"unknown (ee) command {kind!r}")
+
+
+def gen_mesh_rank(rank, world, cfg, eos, tmp, urlq, ctl, replies,
+                  device: str) -> dict:
+    """(ee): one rank of the meshed server on the card. The leader serves
+    HTTP, puts its URL on ``urlq`` and answers the script's commands
+    (``ctl`` -> ``replies``) until ("stop",); the follower replays its
+    device calls until the leader stops."""
+    from areal_tpu_torch.base import name_resolve
+    from areal_tpu_torch.models import generate as genmod
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.parallel.mesh import ParallelSpec, make_mesh
+    from areal_tpu_torch.system.generation_server import (
+        GenerationServer,
+        GenerationServerConfig,
+    )
+
+    name_resolve.reconfigure(name_resolve.NameResolveConfig(
+        type="nfs", nfs_record_root=os.path.join(tmp, "name_resolve")))
+    count_plain_in_prefill(genmod, _RANK_COUNTS)
+    mesh = make_mesh(ParallelSpec(tp=world))
+    # A window the 8 concurrent requests all land in on a slow host too: a
+    # second batch runs its own 128 steps after the first's, and on a host
+    # whose requests spread past 20 ms the traffic took ~3x one batch's.
+    srv = GenerationServer(
+        GenerationServerConfig(experiment="chip_smoke", trial="ee",
+                               chunk_tokens=128, eos_token_id=eos,
+                               pad_token_id=eos, batch_window_ms=250),
+        cfg, init_params(cfg, seed=0, device=device, dtype=torch.bfloat16),
+        device=device, mesh=mesh)
+    if rank > 0:
+        srv.follow()
+        return {"rank": rank, **_RANK_COUNTS}
+    urlq.put(srv.start())
+    try:
+        while True:
+            cmd = ctl.get(timeout=900)
+            if cmd[0] == "stop":
+                break
+            replies.put(gen_mesh_command(srv, cmd))
+    finally:
+        srv.stop()
+    return {"rank": 0}
+
+
+def queue_get(q, what: str, alive, timeout: float):
+    """The next item of ``q`` within ``timeout``, while ``alive()``."""
+    import queue as queue_mod
+
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            return q.get(timeout=1.0)
+        except queue_mod.Empty:
+            check(alive() and time.monotonic() < deadline,
+                  f"(ee): no {what} within {timeout} s (ranks alive: "
+                  f"{alive()})")
+
+
+def run_gen_mesh(fa, cfg, eos: int, tmp: str, prompts, served: dict,
+                 device_sync_s, device: str = "cuda") -> dict:
+    """(ee): the meshed server's traffic, its prefill against the
+    unsharded server's, its KV, then a device publication into its layout
+    and the gates. Checks and numbers as in the module docstring."""
+    import multiprocessing
+    import types
+
+    from areal_tpu_torch.api.train_config import WeightSyncConfig
+    from areal_tpu_torch.base import name_resolve
+    from areal_tpu_torch.models import generate as genmod
+    from areal_tpu_torch.models.transformer import Transformer, init_params
+    from areal_tpu_torch.parallel import distributed as dist_mod
+    from areal_tpu_torch.parallel import reshard as rsh
+    from areal_tpu_torch.system.gserver_manager import GserverManager
+    from areal_tpu_torch.system.trainer_worker import (
+        TrainerWorker,
+        TrainerWorkerConfig,
+    )
+
+    exp, trial = "chip_smoke", "ee"
+    old_repo = name_resolve.DEFAULT_REPO
+    name_resolve.reconfigure(name_resolve.NameResolveConfig(
+        type="nfs", nfs_record_root=os.path.join(tmp, "name_resolve")))
+    ctx = multiprocessing.get_context("spawn")
+    urlq, ctl, replies = ctx.Queue(), ctx.Queue(), ctx.Queue()
+    ranks: dict = {}
+
+    def run():
+        try:
+            ranks["out"] = dist_mod.run_ranks(
+                gen_mesh_rank, GEN_TP, cfg, eos, tmp, urlq, ctl, replies,
+                device, timeout=900,
+                device=f"{device}:0" if device == "cuda" else device)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            ranks["error"] = e
+
+    th = threading.Thread(target=run, daemon=True, name="ee-ranks")
+    th.start()
+
+    def alive():
+        return th.is_alive()
+
+    def ask(*cmd, timeout: float = 300):
+        ctl.put(cmd)
+        return queue_get(replies, cmd[0], alive, timeout)
+
+    rec: dict = {"tp": GEN_TP, "legs_s": {}}
+    L = cfg.n_layers
+    trainer = None
+    t_start = time.monotonic()
+    try:
+        url = queue_get(urlq, "server URL", alive, 300)
+        rec["legs_s"]["ranks_up"] = time.monotonic() - t_start
+        gconfigs = [{"greedy": True} if i % 2 == 0 else
+                    {"temperature": 0.7 + 0.1 * i, "top_p": 0.9}
+                    for i in range(len(prompts))]
+        budget, chunk = 192, 128
+        ask("reset")
+        t0 = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+            first = list(pool.map(lambda i: post(url, {
+                "prompt_ids": prompts[i], "gconfig": gconfigs[i],
+                "max_tokens": budget, "rid": f"e{i}"}), range(len(prompts))))
+        for i, r in enumerate(first):
+            check_reply(r, chunk, eos, f"(ee) request {i}")
+        c1 = ask("counts")
+        prefills = c1["stats"]["prefill_calls"]
+        k1 = [r["k1"] for r in c1["ranks"]]
+        check(prefills >= 1, "(ee): no prefill ran")
+        check(device != "cuda" or k1 == [L * prefills] * GEN_TP,
+              f"(ee): K1 launches per rank {k1} != {L} x {prefills} "
+              "prefills on each rank")
+        check(all(r["plain_in_prefill"] == 0 and r["prefills"] == prefills
+                  for r in c1["ranks"]) or device != "cuda",
+              f"(ee): the plain attention ran in a prefill, or the ranks "
+              f"prefilled apart: {c1['ranks']}")
+        open_rows = [i for i, r in enumerate(first) if not r["finished"]]
+        with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+            cont = list(pool.map(lambda i: post(url, {
+                "prompt_ids": prompts[i] + first[i]["output_ids"],
+                "gconfig": gconfigs[i], "max_tokens": budget - chunk,
+                "rid": f"e{i}", "tokens_done": chunk}), open_rows))
+        for i, r in zip(open_rows, cont):
+            check_reply(r, budget - chunk, eos, f"(ee) continuation {i}")
+        wall = time.monotonic() - t0
+        rec["legs_s"]["traffic"] = wall
+        c2 = ask("counts")
+        st = c2["stats"]
+        check(st["prefill_calls"] == prefills
+              and [r["k1"] for r in c2["ranks"]] == k1,
+              f"(ee): a continuation prefilled: {c1} -> {c2}")
+        rec.update(
+            prefills=prefills, k1_launches=sum(k1), k1_per_rank=k1,
+            plain_in_prefill=[r["plain_in_prefill"] for r in c2["ranks"]],
+            continuations=len(cont), wall_s=wall,
+            prefill_ms_per_call=1e3 * st["prefill_secs"] / prefills,
+            decode_ms_per_step=1e3 * st["decode_secs"] / st["decode_steps"],
+            generated_tokens=st["generated_tokens"],
+            unsharded=served)
+        print("(ee1) traffic", json.dumps(rec), flush=True)
+
+        # the greedy requests' prefill against the unsharded server's
+        greedy = [i for i in range(len(prompts)) if i % 2 == 0]
+        padded, plens = genmod.pad_prompts([prompts[i] for i in greedy], eos,
+                                           bucket=128)
+        S = padded.shape[1] + 128
+        got = ask("prefill", padded, plens, S)
+        model = Transformer.from_params(cfg, init_params(
+            cfg, seed=0, device=device, dtype=torch.bfloat16))
+        ref_st = genmod.prefill_state(model, torch.from_numpy(padded).to(
+            device), torch.from_numpy(plens).to(device), S)
+        ref = ref_st["last_logits"].float().cpu()
+        whole_kv = 2 * ref_st["kv_k"].numel() * ref_st["kv_k"].element_size()
+        del model, ref_st
+        mine = torch.from_numpy(got["last_logits"])
+        diff = (mine - ref).abs().max().item()
+        tol = 0.05 * ref.abs().max().item()
+        firsts = [first[i]["output_ids"][0] for i in greedy]
+        rec["logits"] = {
+            "max_abs_err": diff, "tol": tol,
+            "argmax_agree": (mine.argmax(-1) == ref.argmax(-1)).float()
+            .mean().item(),
+            "first_tokens": firsts, "ref_argmax": ref.argmax(-1).tolist()}
+        check(bool(torch.isfinite(mine).all())
+              and tuple(mine.shape) == (len(greedy), cfg.vocab_size),
+              "(ee): prefill logits not finite / wrong shape")
+        check(diff <= tol, f"(ee): the meshed prefill's logits are "
+              f"{diff} from the unsharded server's (limit {tol})")
+        check(firsts == ref.argmax(-1).tolist(),
+              f"(ee): first greedy tokens {firsts} != the unsharded "
+              f"prefill's {ref.argmax(-1).tolist()}")
+        rec["kv_bytes"] = {"ranks": got["kv_bytes"], "unsharded": whole_kv}
+        check(all(2 * b == whole_kv for b in got["kv_bytes"]),
+              f"(ee): rank KV bytes {got['kv_bytes']} are not half the "
+              f"unsharded {whole_kv}")
+
+        # (ee2) a device publication in the t2 layout, group 16 MiB, from
+        # a trainer in this process (the ranks open its buffers)
+        t_pub = time.monotonic()
+        src = make_model("ee_src", cfg, init_params(
+            cfg, seed=1, device=device, dtype=torch.bfloat16), train=False,
+            device=device)
+        src.version.global_step = 1
+        trainer = TrainerWorker(TrainerWorkerConfig(
+            experiment=exp, trial=trial, device=device,
+            realloc_dir=os.path.join(tmp, "realloc"),
+            weight_sync=WeightSyncConfig(
+                transport="device", gen_parallel_spec=f"t{GEN_TP}",
+                transfer_group_mb=GEN_GROUP_MB)))
+        trainer.models["actor"] = src  # setup()-free: the publish half
+        manager = types.SimpleNamespace(cfg=types.SimpleNamespace(
+            experiment=exp, trial=trial, model_role="actor"))
+        before = mem_reset(device)
+        t0 = time.perf_counter()
+        trainer.publish_weights("actor")
+        rec["publish_s"] = time.perf_counter() - t0
+        peak = mem_peak(device)
+        body = GserverManager._update_payload(manager, 1, "")
+        status, reply = post_json(url, "/update_weights", body)
+        rec["publish_to_reply_s"] = time.perf_counter() - t0
+        rec["server_update_s"] = reply.get("latency_s")
+        rec["unsharded_publish_to_reply_s"] = device_sync_s
+        check(status == 200 and reply.get("version") == 1,
+              f"(ee2) device update: {status} {reply}")
+        pub = rsh._REGISTRY[(exp, trial, "actor")]
+        buffers = sum(p.buffer.numel() for p in pub.parts)
+        extra = (peak - before) * 2 ** 30 if peak is not None else 0.0
+        bound = buffers + (GEN_GROUP_MB << 20)
+        rec["publish_memory"] = {
+            "extra_bytes": extra, "buffer_bytes": buffers,
+            "group_bytes": GEN_GROUP_MB << 20, "bound_bytes": bound,
+            "slack_bytes": bound - extra, "ranks": len(pub.parts),
+            "groups": len(pub.plan.groups)}
+        check(len(pub.parts) == GEN_TP,
+              f"(ee2): {len(pub.parts)} rank buffers")
+        check(extra <= bound, f"(ee2): the publish took {extra} B beyond "
+              f"its buffers + one group ({bound} B)")
+        rec_pub = rsh.lookup_publication(exp, trial, "actor")
+        uuids = {s.get("uuid") for p in rsh.record_parts(rec_pub)
+                 for s in p["shares"]}
+        rec["uuid"] = sorted(map(str, uuids))
+        check(device != "cuda" or uuids == {rsh.device_uuid(0)},
+              f"(ee3): the record names {uuids}, the card is "
+              f"{rsh.device_uuid(0) if device == 'cuda' else None}")
+        w = ask("weights", cfg, 1)
+        check(all(r["n_bad"] == 0 for r in w),
+              f"(ee2): swapped weights differ from their slices: {w}")
+        gates = {}
+        for gate, bad, text in (
+                ("digest", {"digest": "0" * 8, "version": 1},
+                 "digest mismatch"),
+                ("version", {"digest": body["digest"], "version": 2},
+                 "version skew")):
+            status, reply = post_json(url, "/update_weights",
+                                      {"device": True, "role": "actor",
+                                       **bad})
+            gates[gate] = (status, reply.get("error", "")[:200])
+            check(status == 500 and text in reply.get("error", ""),
+                  f"(ee2) gate {gate}: {status} {reply}")
+        check(health(url)["version"] == 1, "(ee2): a gate moved the version")
+        w = ask("weights", cfg, 1)
+        check(all(r["n_bad"] == 0 for r in w),
+              f"(ee2): a failed gate changed the weights: {w}")
+        rec["gates"] = gates
+        rec["legs_s"]["publication"] = time.monotonic() - t_pub
+        print("(ee2) device publication", json.dumps({
+            k: rec[k] for k in ("publish_to_reply_s", "publish_s",
+                                "server_update_s",
+                                "unsharded_publish_to_reply_s",
+                                "publish_memory", "uuid", "gates")}),
+            flush=True)
+        trainer.close()
+        trainer = None
+    finally:
+        if trainer is not None:
+            trainer.close()  # withdraws the publication
+        t_stop = time.monotonic()
+        ctl.put(("stop",))
+        th.join(timeout=120)
+        rec["legs_s"]["stop"] = time.monotonic() - t_stop
+        name_resolve.DEFAULT_REPO = old_repo
+    check(not th.is_alive(), "(ee): the ranks did not end within 120 s")
+    if "error" in ranks:
+        raise ranks["error"]
+    return rec
+
+
 def optional_modules() -> dict:
     """Which of the modules the reference uses and the port does not need
     import on this machine (their versions), for the record only."""
@@ -8187,6 +8608,193 @@ def packer_record(eng, batch, spec, reps: int = 5) -> dict:
     return rec
 
 
+# ---------------- the two lanes ----------------
+
+LOOP_LANE = "loop_lane"
+# a phase of either lane starts once the card has this many GiB free
+# (``wait_for_room``): the lanes share the card, and the loops' processes,
+# (cc) and (z) each hold tens of GiB
+LANE_ROOM_GB = {"loop": 40.0, "cc": 40.0, "z": 48.0}
+
+
+def phase_children() -> list:
+    """This process's live multiprocessing children other than the loop
+    lane's process: what a phase's teardown must have ended."""
+    import multiprocessing
+
+    return [p for p in multiprocessing.active_children()
+            if p.name != LOOP_LANE]
+
+
+def wait_for_room(gb: float, timeout: float = 300.0) -> float:
+    """Wait (at most ``timeout`` s) until the card has ``gb`` GiB free, this
+    process's cached blocks handed back first; the seconds waited. A phase
+    that finds no room in time starts all the same: an allocation that
+    then fails fails the phase."""
+    if not torch.cuda.is_available():  # the rehearsal
+        return 0.0
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    while (torch.cuda.mem_get_info()[0] < gb * 2 ** 30
+           and time.monotonic() - t0 < timeout):
+        time.sleep(0.5)
+    return time.monotonic() - t0
+
+
+def run_loop_lane(cut, cut_hf: str, card: str, t_start: float,
+                  device: str = "cuda", loop_kw=None) -> dict:
+    """The loop lane: (o), (q3) with (p), (r) and (s) one after another,
+    each printing its lines (``script_s`` from the main process's start,
+    ``t_start`` on the same monotonic clock); what the main process needs
+    of them. ``loop_kw``: the rehearsal's cuts, passed to every loop."""
+    out, waits, secs = {}, {}, {}
+    kw = {"device": device, "hf_dir": cut_hf, **(loop_kw or {})}
+
+    def phase(name, fn):
+        waits[name] = wait_for_room(LANE_ROOM_GB["loop"])
+        t0 = time.monotonic()
+        tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+        try:
+            return fn(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+            secs[name] = time.monotonic() - t0
+
+    # (o) the async-PPO loop: run_experiment spawns the trainer, the
+    # generation fleet and a rollout worker; the master runs here
+    async_loop = phase("o", lambda tmp: run_async_loop(cut, tmp, steps=4,
+                                                       **kw))
+    print("async loop", json.dumps({
+        **async_loop, "phase_o_s": secs["o"],
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+
+    # (q3) the loop of (o) with the serving engine on and, as (p), every
+    # observability switch
+    served = phase("q3", lambda tmp: run_async_loop(
+        cut, tmp, steps=3, observe=True, interactive=True, **{
+            **kw, "extra": ("serving.enabled=true", *kw.get("extra", ()))}))
+    print("(p) observed async loop", json.dumps({
+        "ms_per_step": served["ms_per_step"],
+        "ms_per_step_o": async_loop["ms_per_step"],
+        "step_ms": served["step_ms"], "per_mfc": served["per_mfc"],
+        "trainer_peak_gb": served["trainer_peak_gb"],
+        "server_peak_gb": served["server_peak_gb"],
+        **served["observability"]}), f"({card})", flush=True)
+    print("(q3) async loop with serving", json.dumps({
+        "ms_per_step": served["ms_per_step"],
+        "ms_per_step_o": async_loop["ms_per_step"],
+        "step_ms": served["step_ms"],
+        "prefill_tokens_per_step": served["prefill_tokens_per_step"],
+        "prefill_tokens_per_step_o": async_loop["prefill_tokens_per_step"],
+        "server": served["server"], "server_o": async_loop["server"],
+        "interactive": served["interactive"],
+        "server_peak_gb": served["server_peak_gb"],
+        "trainer_peak_gb": served["trainer_peak_gb"],
+        "weight_sync": served["weight_sync"],
+        "phase_q3_p_s": secs["q3"],
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+
+    # (r) the reward fleet and respawns, at the cut depth
+    fleet = phase("r", lambda tmp: run_reward_fleet(cut, tmp, **kw))
+    print("(r) reward fleet and respawns", json.dumps({
+        **fleet, "ms_per_step_o": async_loop["ms_per_step"],
+        "grade_ms_mean_o": async_loop["grade_ms_mean"],
+        "phase_r_s": secs["r"],
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+
+    # (s) relaunch and drain, at the cut depth
+    relaunch = phase("s", lambda tmp: run_relaunch_drain(cut, tmp, **kw))
+    print("(s) relaunch and drain with the durable spool", json.dumps({
+        **relaunch, "ms_per_step_o": async_loop["ms_per_step"],
+        "step_ms_o": async_loop["step_ms"],
+        "escalation_to_first_step_s_pr11": 53.37,
+        "phase_s_s": secs["s"],
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+    for name, res in (("o", async_loop), ("q3", served), ("r", fleet),
+                      ("s", relaunch)):
+        out[name] = {"launches_total": res["launches_total"]}
+    out["o"]["ms_per_step"] = async_loop["ms_per_step"]
+    out["seconds"], out["room_waits_s"] = secs, waits
+    return out
+
+
+def loop_lane(conn, card: str, t_start: float, device: str,
+              loop_kw) -> None:
+    """The loop lane's process (spawned by :class:`LoopLane` while the
+    main process runs (g)-(i)): waits for ``(cut, cut_hf)``, then sends
+    ``("done", run_loop_lane(...))`` or ``("error", traceback)``. SIGTERM
+    (the main process stopping it) raises here, so that a running phase's
+    teardown ends its children."""
+    import signal
+    import traceback
+
+    os.setsid()  # a group of its own: stop() can end every descendant
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    try:
+        cut, cut_hf = conn.recv()
+    except EOFError:  # the main process ended before the lane's start
+        return
+    try:
+        conn.send(("done", run_loop_lane(cut, cut_hf, card, t_start, device,
+                                         loop_kw)))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+        raise
+    finally:
+        conn.close()
+
+
+class LoopLane:
+    """The loop lane in a spawned process of its own (its phases' launches
+    set this process's name-resolve repository and patch the launcher
+    while they run), beside the phases the main process runs meanwhile.
+    The process starts (imports) at construction; :meth:`go` starts its
+    phases."""
+
+    def __init__(self, card: str, t_start: float, device: str = "cuda",
+                 loop_kw=None):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child = ctx.Pipe()
+        self.proc = ctx.Process(target=loop_lane, name=LOOP_LANE,
+                                args=(child, card, t_start, device, loop_kw))
+        self.proc.start()
+        child.close()
+        self.t0 = None
+
+    def go(self, cut, cut_hf: str) -> None:
+        self.t0 = time.monotonic()
+        self.conn.send((cut, cut_hf))
+
+    def join(self, timeout: float) -> dict:
+        """The lane's results, or a failure naming its traceback."""
+        got = self.conn.poll(timeout)
+        check(got, f"the loop lane did not finish within {timeout:.0f} s")
+        try:
+            status, res = self.conn.recv()
+        except EOFError:
+            status, res = "error", "it exited without a result"
+        self.proc.join(60)
+        check(status == "done", f"the loop lane failed:\n{res}")
+        check(self.proc.exitcode == 0,
+              f"the loop lane exited {self.proc.exitcode}")
+        res["lane_s"] = time.monotonic() - self.t0
+        return res
+
+    def stop(self) -> None:
+        """End the lane and whatever of its phase's processes outlive it."""
+        import signal
+
+        if self.proc.is_alive():
+            self.proc.terminate()  # its phase's teardown runs
+            self.proc.join(120)
+        with contextlib.suppress(ProcessLookupError, PermissionError):
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.proc.join(10)
+        self.conn.close()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -8306,6 +8914,11 @@ def main() -> None:
           f"({card})", flush=True)
     torch.cuda.empty_cache()
 
+    # the loop lane's process starts (and imports) while (g)-(i) run; its
+    # phases start after (i)
+    lane = LoopLane(card, t_start)
+    atexit.register(lane.stop)  # whatever phase fails, before it starts
+
     # (g) the train slice, through PPOActorInterface.train_step
     model, iface = build_trainer(cfg)
     batch = bench_batch(cfg.vocab_size)
@@ -8325,160 +8938,264 @@ def main() -> None:
     del model, iface  # (j) builds three engines of its own
     torch.cuda.empty_cache()
 
-    # (j) trainer steps of the async-PPO recipe, then the host path; (j)-(o),
-    # (q3) with (p), (r), (s) and (u)-(x) run at 4 of the 24 layers, (t) at
-    # 8 (full width): the cut that makes room for the later phases in the
+    # From here two lanes share the card: the loop lane (a spawned process:
+    # (o), (q3) with (p), (r), (s)) and this process's (j)-(n), (q1), (q2),
+    # (u)-(y), (bb), (cc), (z); then (t), (aa), (dd) and (ee) alone. (j)-(o),
+    # (q2), (q3), (r), (s) and (u)-(x) run at 4 of the 24 layers, (t) at 8
+    # (full width): the cuts that make room for the later phases in the
     # time limit
     cut = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
-    t_trainer = time.monotonic()
-    tr, tbatch, tdata, trainer = run_trainer(fa, cut, trainer_batch(
-        cut.vocab_size), spec)
-    print("trainer step", json.dumps(trainer), f"({card})", flush=True)
-    compare_ref_inf(tr, tbatch, spec)
-    print("trainer breakdown", json.dumps(trainer_breakdown(tr, tbatch, spec)),
-          f"({card})", flush=True)
+    t_lanes = time.monotonic()
+    secs, room_waits = {}, {}
 
-    # (k) checkpoints at full width, under a temporary directory
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    def mark(name, t0):
+        secs[name] = time.monotonic() - t0
+        return secs[name]
+
     try:
-        ckpt = run_checkpoints(tr, cut, tbatch, tdata, spec, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        # the HF checkpoints the loops load, at 4 and (for (t)) 8 layers,
+        # each written once and freed: their cache goes back to the card,
+        # which the loops' processes share
+        hf_tmp = tempfile.mkdtemp(prefix="chip_smoke_hf_")
+        atexit.register(shutil.rmtree, hf_tmp, True)
+        cut_hf = loop_checkpoint(cut, os.path.join(hf_tmp, "cut_hf"), "cuda")
+        torch.cuda.empty_cache()
+        lane.go(cut, cut_hf)
+        elastic_cfg = dataclasses.replace(cfg, n_layers=ELASTIC_LAYERS)
+        elastic_hf = loop_checkpoint(elastic_cfg, os.path.join(
+            hf_tmp, "elastic_hf"), "cuda")
+        torch.cuda.empty_cache()
 
-    # (l) one SFT step
-    sft = run_sft(tr, cut, tbatch, spec)
-    trainer_launches = dict(tr.launches)
-    print("trainer path", json.dumps({
-        "launches": tr.launches, "checkpoints": ckpt, "sft_ms": sft["ms"],
-        "phases_j_to_l_s": time.monotonic() - t_trainer,
-        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+        # (j) trainer steps of the async-PPO recipe, then the host path
+        t_trainer = time.monotonic()
+        tr, tbatch, tdata, trainer = run_trainer(fa, cut, trainer_batch(
+            cut.vocab_size), spec)
+        print("trainer step", json.dumps(trainer), f"({card})", flush=True)
+        compare_ref_inf(tr, tbatch, spec)
+        print("trainer breakdown", json.dumps(trainer_breakdown(
+            tr, tbatch, spec)), f"({card})", flush=True)
 
-    # (m) weight sync: the trained actor over disk, a second model over the
-    # stream, a dead endpoint; under a temporary directory
-    t_sync = time.monotonic()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_sync_")
-    try:
-        wsync = run_weight_sync(fa, cut, tr.actor, eos, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print("weight sync", json.dumps({
-        **wsync, "phase_m_s": time.monotonic() - t_sync,
-        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
-    del tr  # (n)'s trainer process builds its own engines
-    torch.cuda.empty_cache()
+        # (k) checkpoints at full width, under a temporary directory
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            ckpt = run_checkpoints(tr, cut, tbatch, tdata, spec, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
 
-    # (n) the sync-PPO loop: a master here, a trainer in a spawned process
-    t_loop = time.monotonic()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_loop_")
-    try:
-        loop = run_sync_loop(cut, tmp, steps=3, eos=eos)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print("sync loop", json.dumps({
-        **loop, "phase_n_s": time.monotonic() - t_loop,
-        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
-    loop_launches = loop["launches_total"]
+        # (l) one SFT step
+        sft = run_sft(tr, cut, tbatch, spec)
+        trainer_launches = dict(tr.launches)
+        print("trainer path", json.dumps({
+            "launches": tr.launches, "checkpoints": ckpt,
+            "sft_ms": sft["ms"],
+            "phases_j_to_l_s": mark("j_to_l", t_trainer),
+            "script_s": time.monotonic() - t_start}), f"({card})",
+            flush=True)
 
-    # (o) the async-PPO loop: run_experiment spawns the trainer, the
-    # generation fleet and a rollout worker; the master runs here. (o)-(w)
-    # load one HF checkpoint at 4 of the 24 layers, (t) one at 8 (full
-    # width), each written once: the cuts that make room for the later
-    # phases.
-    t_async = time.monotonic()
-    hf_tmp = tempfile.mkdtemp(prefix="chip_smoke_hf_")
-    atexit.register(shutil.rmtree, hf_tmp, True)
-    cut_hf = loop_checkpoint(cut, os.path.join(hf_tmp, "cut_hf"), "cuda")
-    elastic_cfg = dataclasses.replace(cfg, n_layers=ELASTIC_LAYERS)
-    elastic_hf = loop_checkpoint(elastic_cfg, os.path.join(
-        hf_tmp, "elastic_hf"), "cuda")
-    # the checkpoint's weights are written and freed: hand their cache back
-    # to the card, which the loops' processes share
-    torch.cuda.empty_cache()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_async_")
-    try:
-        async_loop = run_async_loop(cut, tmp, steps=4, hf_dir=cut_hf)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print("async loop", json.dumps({
-        **async_loop, "phase_o_s": time.monotonic() - t_async,
-        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
-    async_launches = async_loop["launches_total"]
+        # (m) weight sync: the trained actor over disk, a second model over
+        # the stream, a dead endpoint; under a temporary directory
+        t_sync = time.monotonic()
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_sync_")
+        try:
+            wsync = run_weight_sync(fa, cut, tr.actor, eos, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print("weight sync", json.dumps({
+            **wsync, "phase_m_s": mark("m", t_sync),
+            "script_s": time.monotonic() - t_start}), f"({card})",
+            flush=True)
+        del tr  # (n)'s trainer process builds its own engines
+        torch.cuda.empty_cache()
 
-    # (q) the serving engine: prefix reuse, request classes, and (q3) the
-    # loop of (o) with the engine on and, as (p), every observability switch
-    t_q = time.monotonic()
-    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
-    prefix = run_prefix_reuse(fa, cfg, params, eos)
-    print("(q1) prefix reuse", json.dumps(prefix), f"({card})", flush=True)
-    classes = run_classes(fa, cfg, params, eos)
-    print("(q2) request classes", json.dumps(classes), f"({card})",
-          flush=True)
-    del params
-    torch.cuda.empty_cache()
-    t_obs = time.monotonic()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_served_")
-    try:
-        served = run_async_loop(cut, tmp, steps=3, observe=True,
-                                hf_dir=cut_hf,
-                                extra=("serving.enabled=true",),
-                                interactive=True)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print("(p) observed async loop", json.dumps({
-        "ms_per_step": served["ms_per_step"],
-        "ms_per_step_o": async_loop["ms_per_step"],
-        "step_ms": served["step_ms"], "per_mfc": served["per_mfc"],
-        "trainer_peak_gb": served["trainer_peak_gb"],
-        "server_peak_gb": served["server_peak_gb"],
-        **served["observability"]}), f"({card})", flush=True)
-    print("(q3) async loop with serving", json.dumps({
-        "ms_per_step": served["ms_per_step"],
-        "ms_per_step_o": async_loop["ms_per_step"],
-        "step_ms": served["step_ms"],
-        "prefill_tokens_per_step": served["prefill_tokens_per_step"],
-        "prefill_tokens_per_step_o": async_loop["prefill_tokens_per_step"],
-        "server": served["server"], "server_o": async_loop["server"],
-        "interactive": served["interactive"],
-        "server_peak_gb": served["server_peak_gb"],
-        "trainer_peak_gb": served["trainer_peak_gb"],
-        "weight_sync": served["weight_sync"],
-        "phase_q3_p_s": time.monotonic() - t_obs,
-        "phase_q_s": time.monotonic() - t_q,
-        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
-    served_launches = served["launches_total"]
-    serving_k1 = prefix["k1_launches"] + classes["k1_launches"]
+        # (n) the sync-PPO loop: a master here, a trainer in a spawned
+        # process
+        t_loop = time.monotonic()
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+        try:
+            loop = run_sync_loop(cut, tmp, steps=3, eos=eos)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print("sync loop", json.dumps({
+            **loop, "phase_n_s": mark("n", t_loop),
+            "script_s": time.monotonic() - t_start}), f"({card})",
+            flush=True)
+        loop_launches = loop["launches_total"]
 
-    # (r) the reward fleet and respawns in the async loop, at the cut depth
-    t_r = time.monotonic()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_reward_")
-    try:
-        fleet = run_reward_fleet(cut, tmp, hf_dir=cut_hf)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print("(r) reward fleet and respawns", json.dumps({
-        **fleet, "ms_per_step_o": async_loop["ms_per_step"],
-        "grade_ms_mean_o": async_loop["grade_ms_mean"],
-        "phase_r_s": time.monotonic() - t_r,
-        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
-    fleet_launches = fleet["launches_total"]
+        # (q1) prefix reuse at 24 layers, (q2) request classes at 4
+        t_q = time.monotonic()
+        params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+        prefix = run_prefix_reuse(fa, cfg, params, eos)
+        print("(q1) prefix reuse", json.dumps(prefix), f"({card})",
+              flush=True)
+        del params
+        torch.cuda.empty_cache()
+        params = init_params(cut, seed=0, device="cuda", dtype=torch.bfloat16)
+        classes = run_classes(fa, cut, params, eos)
+        print("(q2) request classes", json.dumps({
+            **classes, "phase_q1_q2_s": mark("q1_q2", t_q),
+            "script_s": time.monotonic() - t_start}), f"({card})",
+            flush=True)
+        del params
+        torch.cuda.empty_cache()
+        serving_k1 = prefix["k1_launches"] + classes["k1_launches"]
 
-    # (s) relaunch and drain, at the cut depth
-    t_s = time.monotonic()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_relaunch_")
-    try:
-        relaunch = run_relaunch_drain(cut, tmp, hf_dir=cut_hf)
+        # (u) SFT through its entry point, with automatic evaluation on the
+        # card
+        t_u = time.monotonic()
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_sft_")
+        try:
+            sft_eval = run_sft_auto_eval(cut, tmp, cut_hf, fa=fa)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print("(u) sft and automatic evaluation", json.dumps({
+            **{k: sft_eval[k] for k in ("ms_per_step", "trained_tokens_per_s",
+                                         "trainer_peak_gb",
+                                         "eval_child_peak_gb", "eval_secs",
+                                         "card_mb_max_with_eval",
+                                         "scored_while_training",
+                                         "step2_scored_after_s", "held_s",
+                                         "launcher_auto_eval",
+                                         "eval_child_dtype")},
+            "phase_u_s": mark("u", t_u),
+            "script_s": time.monotonic() - t_start}), f"({card})",
+            flush=True)
+
+        # (v) reward-model training, (w) the fused node, (x) the
+        # multi-turn agent
+        t_v = time.monotonic()
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_rw_")
+        try:
+            rw = run_reward_model(fa, cut_hf, tmp)
+            torch.cuda.empty_cache()
+            t_w = time.monotonic()
+            fused = run_fused(fa, cut_hf, tmp)
+            torch.cuda.empty_cache()
+            t_x = time.monotonic()
+            multi = run_multi_turn(fa, cut, eos, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        secs["v"], secs["w"] = t_w - t_v, t_x - t_w
+        print("(v)-(x)", json.dumps({
+            "rw_ms_per_step": rw["ms_per_step"], "rw_peak_gb": rw["peak_gb"],
+            "fused_ms": fused["fused_ms"], "serial_ms": fused["serial_ms"],
+            "multi_turn_wall_s": multi["wall_s"],
+            "phase_v_s": secs["v"], "phase_w_s": secs["w"],
+            "phase_x_s": mark("x", t_x),
+            "script_s": time.monotonic() - t_start}), f"({card})",
+            flush=True)
+        torch.cuda.empty_cache()
+
+        # (y) GPT-2 small at full width and depth
+        t_y = time.monotonic()
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_gpt2_")
+        try:
+            gpt2 = run_gpt2(fa, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print("(y) gpt2 small", json.dumps({
+            **gpt2, "phase_y_s": mark("y", t_y),
+            "script_s": time.monotonic() - t_start}), f"({card})",
+            flush=True)
+
+        # (bb) multi-GPU parallelism, part one: the train step on a
+        # one-rank NCCL mesh, then the device transport at full depth
+        # beside disk and stream
+        t_bb = time.monotonic()
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+        try:
+            mesh = run_mesh_step(fa, cfg, batch, spec, tmp, plain=plain_run)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+        secs["bb_mesh"] = time.monotonic() - t_bb
+        t_bb2 = time.monotonic()
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_device_")
+        try:
+            device_sync = run_device_sync(fa, cfg, eos, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print("(bb) mesh step and device transport", json.dumps({
+            "mesh_step_d1": {k: mesh["d1"][k] for k in (
+                "ms_per_step", "ms_per_step_plain", "fwd_bwd_ms",
+                "fwd_bwd_ms_plain", "optimizer_ms", "optimizer_ms_plain",
+                "peak_gb", "peak_gb_plain", "loss_rel_max",
+                "grad_norm_rel_max", "master_abs_max")},
+            "publish_to_reply_s": {t: device_sync[t]["publish_to_reply_s"]
+                                   for t in ("device", "disk", "stream")},
+            "publish_s": {t: device_sync[t]["publish_s"]
+                          for t in ("device", "disk", "stream")},
+            "device_copy_ms": device_sync["device"]["consume_copy_ms"],
+            "trainer_peak_gb": device_sync["device"]["trainer_peak_gb"],
+            "server_peak_gb": device_sync["device"]["server_peak_gb"],
+            "gates": device_sync["gates"],
+            "trainer_gb_after_publish": {
+                k: device_sync[k]["trainer_gb_after"]
+                for k in ("device", "disk", "stream")},
+            "trainer_gb_republish": [
+                device_sync[k]["allocated_gb_after"]
+                for k in ("republish", "republish_unconsumed")],
+            "phase_bb_mesh_s": secs["bb_mesh"],
+            "phase_bb_device_s": mark("bb_device", t_bb2),
+            "script_s": time.monotonic() - t_start}), f"({card})",
+            flush=True)
+        torch.cuda.empty_cache()
+
+        # (cc) multi-GPU parallelism, part two: the ring at full width, the
+        # model through it and the pipeline at 8 of the 24 layers, their
+        # ranks and stages in this process
+        room_waits["cc"] = wait_for_room(LANE_ROOM_GB["cc"])
+        t_cc = time.monotonic()
+        par = run_ring_and_pipeline(fa, dataclasses.replace(
+            cfg, n_layers=PAR_LAYERS))
+        print("(cc) ring attention and the pipeline", json.dumps({
+            "ring_ms": {s: {k: par[f"ring_{s}"][k] for k in (
+                "ring_fwd_ms", "rank_fwd_ms_sum", "rank_fwd_ms_max",
+                "k1_whole_ms", "ring_bwd_ms", "k2_k3_whole_ms",
+                "ring_fwd_device_ms", "ring_bwd_device_ms",
+                "k1_whole_device_ms")}
+                for s in ("zigzag", "naive")},
+            "ring_n8_err_of_tol": {
+                g or "out": par["ring_zigzag_n8"][f"{g}max_abs_err"]
+                / par["ring_zigzag_n8"][f"{g}tol"]
+                for g in ("", "dq_", "dk_", "dv_")},
+            "ring_model": {k: par["ring_model"][k] for k in (
+                "loss_kernels", "loss_plain", "grad_cosine",
+                "max_grad_norm_rel_err", "plain", "ring")},
+            "pipeline": {k: par["pipeline"][k] for k in (
+                "plain", "1f1b", "gpipe", "faults")},
+            "phase_cc_s": mark("cc", t_cc),
+            "script_s": time.monotonic() - t_start}), f"({card})",
+            flush=True)
+        torch.cuda.empty_cache()
+
+        # (z) Gemma-2B at full width
+        room_waits["z"] = wait_for_room(LANE_ROOM_GB["z"])
+        t_z = time.monotonic()
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_gemma_")
+        try:
+            # 2 SFT steps, cut from 3 to make room for (cc)
+            gemma = run_gemma(fa, tmp, steps=2)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print("(z) gemma 2b", json.dumps({
+            **{k: v for k, v in gemma.items() if k != "sft"},
+            "phase_z_s": mark("z", t_z),
+            "script_s": time.monotonic() - t_start}), f"({card})",
+            flush=True)
+        torch.cuda.empty_cache()
+        secs["main_lane"] = time.monotonic() - t_lanes
+        loops = lane.join(900)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print("(s) relaunch and drain with the durable spool", json.dumps({
-        **relaunch, "ms_per_step_o": async_loop["ms_per_step"],
-        "step_ms_o": async_loop["step_ms"],
-        "escalation_to_first_step_s_pr11": 53.37,
-        "phase_s_s": time.monotonic() - t_s,
-        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
-    relaunch_launches = relaunch["launches_total"]
+        lane.stop()
+    secs["lanes"] = time.monotonic() - t_lanes
+    async_launches = loops["o"]["launches_total"]
+    served_launches = loops["q3"]["launches_total"]
+    fleet_launches = loops["r"]["launches_total"]
+    relaunch_launches = loops["s"]["launches_total"]
+    torch.cuda.empty_cache()  # every loop's engine and server is gone
 
     # (t) the elastic fleet: the autoscaler's second server, cordon and
-    # uncordon
+    # uncordon; the card to itself
     t_t = time.monotonic()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
     try:
@@ -8486,77 +9203,14 @@ def main() -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("(t) elastic fleet", json.dumps({
-        **elastic, "ms_per_step_o": async_loop["ms_per_step"],
-        "phase_t_s": time.monotonic() - t_t,
+        **elastic, "ms_per_step_o": loops["o"]["ms_per_step"],
+        "phase_t_s": mark("t", t_t),
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
     elastic_launches = elastic["launches_total"]
-    torch.cuda.empty_cache()  # every earlier engine and server is gone
-
-    # (u) SFT through its entry point, with automatic evaluation on the card
-    t_u = time.monotonic()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_sft_")
-    try:
-        sft_eval = run_sft_auto_eval(cut, tmp, cut_hf, fa=fa)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print("(u) sft and automatic evaluation", json.dumps({
-        **{k: sft_eval[k] for k in ("ms_per_step", "trained_tokens_per_s",
-                                     "trainer_peak_gb", "eval_child_peak_gb",
-                                     "eval_secs", "card_mb_max_with_eval",
-                                     "scored_while_training",
-                                     "step2_scored_after_s", "held_s",
-                                     "launcher_auto_eval",
-                                     "eval_child_dtype")},
-        "phase_u_s": time.monotonic() - t_u,
-        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
-
-    # (v) reward-model training, (w) the fused node, (x) the multi-turn
-    # agent
-    t_v = time.monotonic()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_rw_")
-    try:
-        rw = run_reward_model(fa, cut_hf, tmp)
-        torch.cuda.empty_cache()
-        t_w = time.monotonic()
-        fused = run_fused(fa, cut_hf, tmp)
-        torch.cuda.empty_cache()
-        t_x = time.monotonic()
-        multi = run_multi_turn(fa, cut, eos, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print("(v)-(x)", json.dumps({
-        "rw_ms_per_step": rw["ms_per_step"], "rw_peak_gb": rw["peak_gb"],
-        "fused_ms": fused["fused_ms"], "serial_ms": fused["serial_ms"],
-        "multi_turn_wall_s": multi["wall_s"],
-        "phase_v_s": t_w - t_v, "phase_w_s": t_x - t_w,
-        "phase_x_s": time.monotonic() - t_x,
-        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
     torch.cuda.empty_cache()
 
-    # (y) GPT-2 small at full width and depth, (z) Gemma-2B at full width
-    t_y = time.monotonic()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_gpt2_")
-    try:
-        gpt2 = run_gpt2(fa, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print("(y) gpt2 small", json.dumps({
-        **gpt2, "phase_y_s": time.monotonic() - t_y,
-        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
-    t_z = time.monotonic()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_gemma_")
-    try:
-        # 2 SFT steps, cut from 3 to make room for (cc)
-        gemma = run_gemma(fa, tmp, steps=2)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print("(z) gemma 2b", json.dumps({
-        **{k: v for k, v in gemma.items() if k != "sft"},
-        "phase_z_s": time.monotonic() - t_z,
-        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
-
     # (aa) Mixture-of-Experts: K1-K3 at Qwen3-30B-A3B's heads (32 q over 4
-    # kv heads of 128), then the model served at full width (12 layers), the
+    # kv heads of 128), then the model served at full width (6 layers), the
     # MoE layer, PPO steps at 2 layers and the HF round trip
     t_aa = time.monotonic()
     k1_128_check = check_k1(fa, 8, 1024, 32, 4, 128, seed=6)
@@ -8582,72 +9236,7 @@ def main() -> None:
         "train": {k: moe["train"][k] for k in (
             "ms_per_step", "trained_tokens_per_s", "peak_gb",
             "warmup_step_s")},
-        "hf": moe["hf"], "phase_aa_s": time.monotonic() - t_aa,
-        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
-    torch.cuda.empty_cache()
-
-    # (bb) multi-GPU parallelism, part one: the train step on a one-rank
-    # NCCL mesh, then the device transport at full depth beside disk and
-    # stream
-    t_bb = time.monotonic()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
-    try:
-        mesh = run_mesh_step(fa, cfg, batch, spec, tmp, plain=plain_run)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    torch.cuda.empty_cache()
-    t_bb2 = time.monotonic()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_device_")
-    try:
-        device_sync = run_device_sync(fa, cfg, eos, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print("(bb) mesh step and device transport", json.dumps({
-        "mesh_step_d1": {k: mesh["d1"][k] for k in (
-            "ms_per_step", "ms_per_step_plain", "fwd_bwd_ms",
-            "fwd_bwd_ms_plain", "optimizer_ms", "optimizer_ms_plain",
-            "peak_gb", "peak_gb_plain", "loss_rel_max", "grad_norm_rel_max",
-            "master_abs_max")},
-        "publish_to_reply_s": {t: device_sync[t]["publish_to_reply_s"]
-                               for t in ("device", "disk", "stream")},
-        "publish_s": {t: device_sync[t]["publish_s"]
-                      for t in ("device", "disk", "stream")},
-        "device_copy_ms": device_sync["device"]["consume_copy_ms"],
-        "trainer_peak_gb": device_sync["device"]["trainer_peak_gb"],
-        "server_peak_gb": device_sync["device"]["server_peak_gb"],
-        "gates": device_sync["gates"],
-        "trainer_gb_after_publish": {
-            k: device_sync[k]["trainer_gb_after"]
-            for k in ("device", "disk", "stream")},
-        "trainer_gb_republish": [
-            device_sync[k]["allocated_gb_after"]
-            for k in ("republish", "republish_unconsumed")],
-        "phase_bb_mesh_s": t_bb2 - t_bb,
-        "phase_bb_device_s": time.monotonic() - t_bb2,
-        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
-    torch.cuda.empty_cache()
-
-    # (cc) multi-GPU parallelism, part two: the ring and the pipeline at
-    # full width, their ranks and stages in this process
-    t_cc = time.monotonic()
-    par = run_ring_and_pipeline(fa, cfg)
-    print("(cc) ring attention and the pipeline", json.dumps({
-        "ring_ms": {s: {k: par[f"ring_{s}"][k] for k in (
-            "ring_fwd_ms", "rank_fwd_ms_sum", "rank_fwd_ms_max",
-            "k1_whole_ms", "ring_bwd_ms", "k2_k3_whole_ms",
-            "ring_fwd_device_ms", "ring_bwd_device_ms",
-            "k1_whole_device_ms")}
-            for s in ("zigzag", "naive")},
-        "ring_n8_err_of_tol": {
-            g or "out": par["ring_zigzag_n8"][f"{g}max_abs_err"]
-            / par["ring_zigzag_n8"][f"{g}tol"]
-            for g in ("", "dq_", "dk_", "dv_")},
-        "ring_model": {k: par["ring_model"][k] for k in (
-            "loss_kernels", "loss_plain", "grad_cosine",
-            "max_grad_norm_rel_err", "plain", "ring")},
-        "pipeline": {k: par["pipeline"][k] for k in (
-            "plain", "1f1b", "gpipe", "faults")},
-        "phase_cc_s": time.monotonic() - t_cc,
+        "hf": moe["hf"], "phase_aa_s": mark("aa", t_aa),
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
     torch.cuda.empty_cache()
 
@@ -8668,15 +9257,42 @@ def main() -> None:
             "ms_per_step_ep", "ms_per_step_plain", "peak_gb_ep",
             "peak_gb_plain", "gauge_ep", "gauge_plain", "launches")},
         "phase_dd_layer_s": ep["layer_s"], "phase_dd_train_s": ep["train_s"],
-        "phase_dd_s": time.monotonic() - t_dd,
+        "phase_dd_s": mark("dd", t_dd),
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+    torch.cuda.empty_cache()
+
+    # (ee) the decoupled generation fleet: a tp=2 meshed server of
+    # Qwen2.5-0.5B at full depth, its two ranks on the one card, then a
+    # device publication into its layout; K1 at the ranks' 7/1 heads
+    t_ee = time.monotonic()
+    k1_g7_check = check_k1(fa, 8, 1024, 7, 1, 64, seed=6)
+    k1_g7 = k1_record(fa, 8, 1024, Hq=7, Hkv=1)
+    k1_whole = k1_record(fa, 8, 1024)  # the unsharded server's 14/2 heads
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gen_mesh_")
+    try:
+        gen_mesh = run_gen_mesh(
+            fa, cfg, eos, tmp, prompts,
+            {"prefill_ms_per_call": prefill_ms,
+             "decode_ms_per_step": decode_ms},
+            device_sync["device"]["publish_to_reply_s"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("(ee) decoupled generation fleet", json.dumps({
+        "k1_g7": {**k1_g7, "max_abs_err": k1_g7_check["max_abs_err"]},
+        "k1_14_2": k1_whole,
+        **{k: gen_mesh[k] for k in (
+            "tp", "prefills", "k1_launches", "k1_per_rank",
+            "plain_in_prefill", "prefill_ms_per_call", "decode_ms_per_step",
+            "unsharded", "logits", "kv_bytes", "publish_to_reply_s",
+            "unsharded_publish_to_reply_s", "publish_memory", "uuid",
+            "legs_s")},
+        "phase_ee_s": mark("ee", t_ee),
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
     print("phase seconds", json.dumps({
-        "a_to_n": t_async - t_start, "o": t_q - t_async,
-        "q1_q2": t_obs - t_q, "q3_p": t_r - t_obs,
-        "r": t_s - t_r, "s": t_t - t_s, "t": t_u - t_t, "u": t_v - t_u,
-        "v": t_w - t_v, "w": t_x - t_w, "x": t_y - t_x, "y": t_z - t_y,
-        "z": t_aa - t_z, "aa": t_bb - t_aa, "bb": t_cc - t_bb,
-        "cc": t_dd - t_cc, "dd": time.monotonic() - t_dd,
+        "a_to_i": t_lanes - t_start, "main_lane": secs,
+        "loop_lane": {**loops["seconds"], "lane": loops["lane_s"]},
+        "room_waits_s": {**room_waits, **{
+            f"loop_{k}": v for k, v in loops["room_waits_s"].items()}},
         "script": time.monotonic() - t_start}), flush=True)
 
     lib_line = ("areal_tpu/ops/pallas/flash_attention.py:200 backward: the "
@@ -8705,7 +9321,8 @@ def main() -> None:
                 **{k: v["flash_attention_fwd"] for k, v in paths.items()},
                 "fused_rew_ref": fused["launches"]["flash_attention_fwd"],
                 "multi_turn": multi["k1_launches"],
-                "device_sync": device_sync["k1_launches"]}
+                "device_sync": device_sync["k1_launches"],
+                "gen_mesh": gen_mesh["k1_launches"]}
     k1_paths["sft_auto_eval_children"] = sum(
         sft_eval["eval_child_k1"].values())
     k1_paths["sft_auto_eval"] -= k1_paths["sft_auto_eval_children"]
