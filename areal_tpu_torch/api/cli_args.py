@@ -487,16 +487,16 @@ def _validate_ep(cfg, alloc) -> None:
                 "every ep rank must own the same number of experts.")
 
 
-def _actor_heads(cfg) -> Optional[tuple]:
-    """(query heads, kv heads) of the actor, from its tiny spec or its HF
-    ``config.json``; None where neither says (a null model)."""
+def _actor_geometry(cfg) -> Optional[tuple]:
+    """(query heads, kv heads, layers) of the actor, from its tiny spec or
+    its HF ``config.json``; None where neither says (a null model)."""
     actor = getattr(cfg, "actor", None)
     tiny = getattr(actor, "tiny", None)
     if isinstance(tiny, dict) and tiny:
         from areal_tpu_torch.models.config import tiny_config
 
         c = tiny_config(**{k: v for k, v in tiny.items() if k != "seed"})
-        return c.n_q_heads, c.n_kv_heads
+        return c.n_q_heads, c.n_kv_heads, c.n_layers
     path = getattr(actor, "path", "") or ""
     if not path:
         return None
@@ -506,15 +506,21 @@ def _actor_heads(cfg) -> Optional[tuple]:
     except (OSError, ValueError):
         return None
     n_q = c.get("num_attention_heads")
-    return (n_q, c.get("num_key_value_heads") or n_q) if n_q else None
+    return ((n_q, c.get("num_key_value_heads") or n_q,
+             c.get("num_hidden_layers")) if n_q else None)
 
 
 def _validate_gen_spec(cfg, alloc) -> None:
-    """A generation spec's servers shard over ``tp`` only (a server's
-    ranks), with ``dp`` counting servers: ``fsdp``, ``pp`` and ``sp`` are
-    refused for now, and ``tp`` must split the actor's heads by the rules
-    of ``parallel/sharding.py kv_replicated``."""
-    from areal_tpu_torch.parallel.mesh import tp_kv_replicated
+    """A generation spec's servers: ``dp`` counts them, each a group of
+    ``fsdp × pp × tp`` ranks (``parallel/mesh.py ServerRank``). ``sp`` is
+    refused for the reference's reason (``ep`` by :func:`_validate_ep`);
+    ``tp`` must split the actor's heads by the rules of
+    ``parallel/sharding.py kv_replicated``, and ``pp`` give every stage a
+    layer."""
+    from areal_tpu_torch.parallel.mesh import (
+        GEN_AXIS_REFUSALS,
+        tp_kv_replicated,
+    )
 
     gen_specs = [("generation", alloc.gen_spec)]
     gen_specs += [(f"MFC '{m}'", s) for m, s in sorted(alloc.per_mfc.items())
@@ -522,25 +528,26 @@ def _validate_gen_spec(cfg, alloc) -> None:
     for label, spec in gen_specs:
         if spec is None:
             continue
-        other = {a: getattr(spec, a) for a in ("fsdp", "pp", "sp")
-                 if getattr(spec, a) > 1}
-        if other:
+        if spec.sp > 1:
             raise ConfigError(
-                f"allocation_mode {label} spec '{spec}' sets "
-                f"{', '.join(f'{a}={d}' for a, d in other.items())}: the "
-                "port's generation servers shard over tp only (each server "
-                "a group of tp ranks, dp servers); fsdp, pp and sp on a "
-                "generation spec are the next item of ROADMAP.md Queue 1. "
-                "Use d and t, e.g. gen.d2t2.")
-        heads = _actor_heads(cfg)
-        if heads is not None and spec.tp > 1:
+                f"allocation_mode {label} spec '{spec}' sets sp={spec.sp}, "
+                f"but {GEN_AXIS_REFUSALS['sp']}.")
+        geo = _actor_geometry(cfg)
+        if geo is None:
+            continue
+        if spec.tp > 1:
             try:
-                tp_kv_replicated(heads[0], heads[1], spec.tp)
+                tp_kv_replicated(geo[0], geo[1], spec.tp)
             except ValueError as e:
                 raise ConfigError(
                     f"allocation_mode {label} spec '{spec}': {e} (the "
-                    f"actor has {heads[0]} query / {heads[1]} kv "
+                    f"actor has {geo[0]} query / {geo[1]} kv "
                     "heads)") from None
+        if geo[2] is not None and spec.pp > geo[2]:
+            raise ConfigError(
+                f"allocation_mode {label} spec '{spec}' sets pp={spec.pp}, "
+                f"more stages than the actor's {geo[2]} layers: a server's "
+                "stage holds at least one layer.")
 
 
 def _validate_serving(cfg) -> None:

@@ -10,9 +10,10 @@ runs, then an orderly teardown.
  - async (``async-ppo-math``): the trainer, a generation-fleet process (the
    servers and the manager, each on threads of their own) and the rollout
    workers, which never initialise CUDA; with a decoupled allocation
-   (``gen.d2t2+...``) the manager runs alone (``gen_manager``) and each
-   server in processes of its own, one per ``tp`` rank (``gen_replica``),
-   on GPUs of its own (:func:`derive_server_gpus`);
+   (``gen.d2f2p2t2+...``) the manager runs alone (``gen_manager``) and
+   each of the spec's ``dp`` servers in processes of its own, one per
+   rank of its ``fsdp × pp × tp`` (``gen_replica``), on GPUs of its own
+   (:func:`derive_server_gpus`);
  - either, with ``reward_service.enabled``: the reward workers, CPU-only
    processes that see no card, spawned before the rollout side.
 
@@ -115,22 +116,23 @@ def derive_server_gpus(alloc_mode: str, n_gpus: int,
                        device_transport: bool = False
                        ) -> List[List[List[int]]]:
     """Each generation server's GPUs of a decoupled allocation, by rank:
-    server ``i`` takes the generation GPUs ``[i*tp, (i+1)*tp)`` of
-    :func:`derive_chip_assignment`, one per rank (one process each). With
+    the generation spec's ``dp`` servers, server ``i`` taking the
+    generation GPUs ``[i*n, (i+1)*n)`` of :func:`derive_chip_assignment`
+    for its ``n = fsdp*pp*tp`` ranks, one per rank (one process each). With
     the ``device`` transport every rank also sees the trainer's rank-0 GPU,
     after its own: its publication is opened there (by UUID,
     ``parallel/reshard.py``) and copied to the rank's GPU. Returns
     ``[server][rank] -> visible GPUs``; [] when not decoupled."""
-    from areal_tpu_torch.parallel.mesh import AllocationMode
+    from areal_tpu_torch.parallel.mesh import AllocationMode, server_spec
 
     asg = derive_chip_assignment(alloc_mode, n_gpus)
     if not asg["gen"]:
         return []
     gen_spec = AllocationMode.parse(alloc_mode).gen_spec
-    tp = gen_spec.tp
+    n = server_spec(gen_spec).world_size
     extra = [asg["trainer"][0]] if device_transport else []
-    return [[[asg["gen"][i * tp + r], *extra] for r in range(tp)]
-            for i in range(gen_spec.data_degree)]
+    return [[[asg["gen"][i * n + r], *extra] for r in range(n)]
+            for i in range(gen_spec.dp)]
 
 
 def _gpu_env(gpus: Optional[List[int]]) -> Dict[str, str]:
@@ -213,24 +215,25 @@ def gen_fleet_entry(exp_cfg, server_cfgs, manager_cfg, probe=None) -> None:
 
 
 def _server_mesh(exp_cfg, server_cfg, device):
-    """A meshed server's process group (its tp ranks, a rendezvous of its
-    own under the server's id and incarnation, apart from the trainer's)
-    and its mesh."""
+    """A meshed server's process group (its fsdp x pp x tp ranks, a
+    rendezvous of its own under the server's id and incarnation, apart
+    from the trainer's) and its mesh."""
     from areal_tpu_torch.parallel import distributed as dist_mod
     from areal_tpu_torch.parallel.mesh import ParallelSpec, make_mesh
     from areal_tpu_torch.system import worker_base as wb
 
     inc = os.environ.get(wb.ENV_INCARNATION, "1")
     dist_mod.initialize(exp_cfg.experiment_name, exp_cfg.trial_name,
-                        server_cfg.tp_rank, server_cfg.tp,
+                        server_cfg.rank, server_cfg.world,
                         group=f"gen_{server_cfg.server_id}_{inc}",
                         device=device)
-    return make_mesh(ParallelSpec(tp=server_cfg.tp))
+    return make_mesh(ParallelSpec.parse(server_cfg.spec))
 
 
 def gen_server_entry(exp_cfg, server_cfg, probe=None) -> None:
-    """One generation server, or rank ``server_cfg.tp_rank`` of a meshed
-    one (``tp`` > 1: one process per rank, ``system/server_mesh.py``): a
+    """One generation server, or rank ``server_cfg.rank`` of a meshed one
+    (a spec of more than one rank: one process per rank,
+    ``system/server_mesh.py``): a
     decoupled allocation's servers, and the autoscaler's unit of
     scale-up. A server starts from the actor's initial weights, registers
     under ``names.gen_servers`` and is reconciled to the current version
@@ -253,8 +256,8 @@ def gen_server_entry(exp_cfg, server_cfg, probe=None) -> None:
     C.setup_name_resolve(exp_cfg)
     device = resolve_device(exp_cfg._device())
     mesh = (_server_mesh(exp_cfg, server_cfg, device)
-            if server_cfg.tp > 1 else None)
-    if server_cfg.tp_rank > 0:
+            if server_cfg.world > 1 else None)
+    if server_cfg.rank > 0:
         cfg, params = _build_gen_model(exp_cfg, device)
         srv = GenerationServer(server_cfg, cfg, params, device=device,
                                mesh=mesh)
@@ -395,16 +398,17 @@ class LocalLauncher:
                       gpus: Optional[List[List[int]]] = None,
                       required: bool = True,
                       expendable: bool = False) -> None:
-        """One generation server's processes, one per tp rank (``gpus``:
-        each rank's visible GPUs), supervised as one failure domain."""
-        for r in range(sc.tp):
+        """One generation server's processes, one per rank of its spec
+        (``gpus``: each rank's visible GPUs), supervised as one failure
+        domain."""
+        for r in range(sc.world):
             self._spawn(
-                gen_server_entry, exp, dataclasses.replace(sc, tp_rank=r),
+                gen_server_entry, exp, dataclasses.replace(sc, rank=r),
                 name=(f"genserver_{sc.server_id}" if r == 0
                       else f"genrank_{sc.server_id}_{r}"),
                 kind=kind, required=required, expendable=expendable,
                 env=_gpu_env(gpus[r] if gpus else None),
-                group=f"genserver_{sc.server_id}" if sc.tp > 1 else None,
+                group=f"genserver_{sc.server_id}" if sc.world > 1 else None,
                 rank=r)
 
     def _build_scaler(self, exp, setup: Dict[str, Any]):

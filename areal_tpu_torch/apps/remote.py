@@ -103,13 +103,14 @@ def run_role(exp_cfg, role: str, rank: int = 0, world: int = 1,
             L.gen_fleet_entry(exp_cfg, setup["gen_servers"],
                               setup["gserver_manager"])
             return
-        # one task per server rank: server rank // tp, its rank rank % tp;
-        # task 0 also runs the manager
+        # one task per server rank: server rank // n, its rank rank % n
+        # (n: a server's fsdp x pp x tp ranks); task 0 also runs the
+        # manager
         servers = setup["gen_servers"]
-        tp = servers[0].tp
-        if not 0 <= rank < len(servers) * tp:
+        n = servers[0].world
+        if not 0 <= rank < len(servers) * n:
             raise SystemExit(f"generation task {rank} out of range (have "
-                             f"{len(servers)} servers of {tp} ranks)")
+                             f"{len(servers)} servers of {n} ranks)")
         if exp_cfg._device() is None:
             select_local_gpu()
         if rank == 0:
@@ -118,7 +119,7 @@ def run_role(exp_cfg, role: str, rank: int = 0, world: int = 1,
             C.setup_name_resolve(exp_cfg)
             GserverManager(setup["gserver_manager"]).start()
         L.gen_server_entry(exp_cfg, dataclasses.replace(
-            servers[rank // tp], tp_rank=rank % tp))
+            servers[rank // n], rank=rank % n))
     else:
         rcs = setup.get("rollout_workers", [])
         if not 0 <= index < len(rcs):

@@ -200,7 +200,7 @@ def build_job_specs(exp_cfg, config_path: str) -> List[SlurmJobSpec]:
     allocation the generation fleet and the rollout workers."""
     from areal_tpu_torch.experiments import registered_name_of
     from areal_tpu_torch.experiments.common import trainer_world
-    from areal_tpu_torch.parallel.mesh import AllocationMode
+    from areal_tpu_torch.parallel.mesh import AllocationMode, server_spec
 
     exp = exp_cfg.experiment_name
     base = (f"python -m areal_tpu_torch.apps.remote --experiment-cls "
@@ -218,9 +218,9 @@ def build_job_specs(exp_cfg, config_path: str) -> List[SlurmJobSpec]:
                      mem_per_task_mb=64 * 1024, exclusive=nodes > 1),
     ]
     if am.decoupled:
-        # one task per server rank (data_degree servers of tp ranks), one
-        # GPU each; task 0 also runs the manager (apps/remote.py)
-        gen = am.gen_spec.data_degree * am.gen_spec.tp
+        # one task per server rank (dp servers of fsdp x pp x tp ranks),
+        # one GPU each; task 0 also runs the manager (apps/remote.py)
+        gen = am.gen_spec.dp * server_spec(am.gen_spec).world_size
         gen_nodes = -(-gen // per_node)
         specs.append(SlurmJobSpec(
             name=f"{exp}-gen", cmd=f"{base} --role gen_fleet",

@@ -24,6 +24,7 @@ from typing import Any, Dict
 from areal_tpu_torch.experiments import common as C
 from areal_tpu_torch.experiments import register_experiment
 from areal_tpu_torch.experiments.ppo_math_exp import PPOMATHConfig
+from areal_tpu_torch.parallel.mesh import server_spec
 from areal_tpu_torch.system import serving
 
 
@@ -51,12 +52,14 @@ class AsyncPPOMATHConfig(PPOMATHConfig):
         from areal_tpu_torch.system.rollout_worker import RolloutWorkerConfig
 
         alloc = C.resolve_allocation(self)
-        n_gen, tp = 1, 1
+        n_gen, spec = 1, "d1"
         if alloc.decoupled:
-            # One server per data-parallel replica of the generation spec
-            # (reference :44-49), each a group of tp ranks
-            # (system/server_mesh.py) on GPUs of its own.
-            n_gen, tp = alloc.gen_spec.data_degree, alloc.gen_spec.tp
+            # One server per dp replica of the generation spec, each a
+            # group of fsdp x pp x tp ranks (system/server_mesh.py) on GPUs
+            # of its own; the reference makes dp x fsdp servers (:44-49)
+            # and never applies their fsdp or pp (ROADMAP Queue 3 item 12).
+            n_gen = alloc.gen_spec.dp
+            spec = str(server_spec(alloc.gen_spec))
         paths = C.experiment_paths(self)
         # the mapping validate_config checked the serving policy with, so
         # the servers build exactly the validated policy
@@ -64,7 +67,7 @@ class AsyncPPOMATHConfig(PPOMATHConfig):
         gen_servers = [
             GenerationServerConfig(
                 experiment=self.experiment_name, trial=self.trial_name,
-                server_id=f"gen{i}", tp=tp,
+                server_id=f"gen{i}", spec=spec,
                 chunk_tokens=shape_kw["chunk_tokens"],
                 batch_window_ms=self.gen_batch_window_ms,
                 max_batch_size=shape_kw["max_batch_size"],

@@ -13,6 +13,23 @@ its KV **in place**; every function that derives a state from another
 :func:`grow_state`) returns fresh buffers, so a retained state is never
 mutated through a derived one.
 
+A served model split over ranks (a generation server of ``fsdp`` and ``pp``,
+``system/server_mesh.py``) runs these functions on every rank with a
+:class:`StageChain`: each rank runs its stage's layers on its stage's KV (a
+state's ``kv_k`` / ``kv_v`` hold only those layers), the first stage embeds
+the tokens and each stage hands its hidden state to the next
+(``parallel/pipeline.py _P2PLink``; over gloo through host memory); the last
+stage applies the head and samples, and sends the tokens to the stages
+before it at each step, and the last logits and log-probs once a call, so
+that every rank's state and outputs are the same but for its KV. Decode
+stays un-pipelined, as in the reference: one token at a time passes the
+stages in turn. Under ``fsdp`` each module runs on its weights gathered
+(``parallel/sharding.py FsdpGather``) at most once a call: a prefill or an
+extend gathers each layer just before it runs and drops it after, a decode
+call holds its stage's gathered layers for its steps (a gather a layer a
+step would move the stage's weights once per token), and every call holds
+the embedding and the head.
+
 Learned positions (GPT-2): the model refuses a live token at or past
 ``max_position_embeddings`` (``models/transformer.py table_positions``).
 Tokens whose outputs are dropped (a finished row's pad steps, the pad tail of
@@ -23,7 +40,8 @@ models see their positions unchanged.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,19 +70,96 @@ def _model_positions(model: Transformer, positions: torch.Tensor,
         max=cfg.max_position_embeddings - 1), positions)
 
 
+@dataclasses.dataclass
+class StageChain:
+    """A served model's place among the ranks of a server of ``fsdp`` and
+    ``pp``: this rank's ``stage`` of ``pp``, the ``link`` to the other
+    stages of its chain (``parallel/pipeline.py _P2PLink`` over the ``pp``
+    group; None at ``pp`` 1), and ``gather``, the ``fsdp`` gather of its
+    shards (``parallel/sharding.py FsdpGather``; None at ``fsdp`` 1)."""
+
+    pp: int = 1
+    stage: int = 0
+    link: Any = None
+    gather: Any = None
+
+    @property
+    def last(self) -> bool:
+        return self.stage == self.pp - 1
+
+
+def _params_hook(chain: Optional[StageChain], hold_layers: bool = False):
+    """One call's ``Transformer.forward`` parameters under ``fsdp``: each
+    module gathered when the call first runs it; the embedding's, position
+    table's, final norm's and head's held for the call, a layer's dropped
+    once it has run unless ``hold_layers`` (a decode call, which runs every
+    layer once a step: held for the call's steps). None without a
+    gather."""
+    if chain is None or chain.gather is None:
+        return None
+    held: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    def hook(module, prefix: str) -> Dict[str, torch.Tensor]:
+        if prefix.startswith("layers.") and not hold_layers:
+            return chain.gather(module, prefix)
+        if prefix not in held:
+            held[prefix] = chain.gather(module, prefix)
+        return held[prefix]
+
+    return hook
+
+
+def _forward(model: Transformer, chain: Optional[StageChain], hook,
+             x: torch.Tensor, positions: torch.Tensor, **kw):
+    """The served forward: the whole model, or this rank's stage of the
+    chain (its input from the stage before, its output to the stage
+    after). Returns (logits, kv); logits only on the last stage (None
+    elsewhere)."""
+    if chain is not None and chain.stage > 0:
+        x = chain.link.recv("fwd", chain.stage - 1, chain.stage,
+                            (*positions.shape, model.cfg.hidden_dim),
+                            model.embedding.weight.dtype, positions.device)
+    out, kv = model(x, positions, params=hook, **kw)
+    if chain is None or chain.last:
+        return out, kv
+    chain.link.send("fwd", chain.stage + 1, out)
+    chain.link.flush()
+    return None, kv
+
+
+def _from_last(chain: Optional[StageChain], t: Optional[torch.Tensor],
+               shape, dtype, device) -> torch.Tensor:
+    """``t`` as the chain's last stage holds it, on every stage (sent to
+    each stage before it)."""
+    if chain is None or chain.pp == 1:
+        return t
+    last = chain.pp - 1
+    if chain.last:
+        for k in range(last):
+            chain.link.send("last", k, t)
+        chain.link.flush()
+        return t
+    return chain.link.recv("last", last, chain.stage, shape, dtype, device)
+
+
 def _prefill(model: Transformer, prompts: torch.Tensor,
-             prompt_lens: torch.Tensor, S: int, attn_impl: str):
+             prompt_lens: torch.Tensor, S: int, attn_impl: str,
+             chain: Optional[StageChain] = None):
     """Packed forward over right-padded prompts; KV copied into a
     zero-initialised cache of capacity S. Returns (logits, cache,
-    last_logits)."""
+    last_logits); on a stage before the last, logits and last_logits are
+    None."""
     B, P = prompts.shape
     positions = torch.arange(P, device=prompts.device).expand(B, P)
     seg = (positions < prompt_lens[:, None]).to(torch.int32)
-    logits, kv = model(prompts, positions, segment_ids=seg, attn_impl=attn_impl)
+    logits, kv = _forward(model, chain, _params_hook(chain), prompts,
+                          positions, segment_ids=seg, attn_impl=attn_impl)
     cache = init_kv_cache(model.cfg, B, S, dtype=kv["k"].dtype,
                           device=prompts.device)
     cache["k"][:, :, :P] = kv["k"]
     cache["v"][:, :, :P] = kv["v"]
+    if logits is None:
+        return None, cache, None
     last_idx = (prompt_lens.long() - 1).clamp_min(0)
     last_logits = logits[torch.arange(B, device=prompts.device), last_idx]
     return logits, cache, last_logits
@@ -157,16 +252,21 @@ def prefill_state(
     prompt_lens: torch.Tensor,  # [B]
     S: int,  # KV capacity (>= P + first chunk length)
     attn_impl: str = "auto",
+    chain: Optional[StageChain] = None,
 ) -> State:
     """Prefill → decode state {kv_k, kv_v [L,B,S,Hkv,Dh], last_logits [B,V]
-    f32, cur_len [B] int32}."""
+    f32, cur_len [B] int32}; on a ``chain`` L is the stage's layers."""
     if S < prompts.shape[1]:
         raise ValueError(f"KV capacity {S} < prompt width {prompts.shape[1]}")
-    _, cache, last_logits = _prefill(model, prompts, prompt_lens, S, attn_impl)
+    _, cache, last_logits = _prefill(model, prompts, prompt_lens, S, attn_impl,
+                                     chain)
+    B = prompts.shape[0]
     return {
         "kv_k": cache["k"],
         "kv_v": cache["v"],
-        "last_logits": last_logits.float(),
+        "last_logits": _from_last(
+            chain, None if last_logits is None else last_logits.float(),
+            (B, model.cfg.vocab_size), torch.float32, prompts.device),
         "cur_len": prompt_lens.to(torch.int32),
     }
 
@@ -182,13 +282,17 @@ def decode_chunk_rows(
     eos_token_id: int,
     pad_token_id: int,
     row_budget: Optional[torch.Tensor] = None,  # [B] max tokens THIS chunk
+    chain: Optional[StageChain] = None,
 ) -> Tuple[State, Dict[str, torch.Tensor]]:
     """Continue decoding ``n_tokens`` from a decode state with per-row
     sampling params. ``row_budget`` finishes a row after its own allowance
     even when the chunk is longer. Returns (new_state, out) with out like
     :func:`generate_batch`'s (output_ids / output_logprobs / output_lens /
-    gen_mask)."""
+    gen_mask). On a ``chain`` only the last stage samples (from its
+    generator); each step's tokens reach the stages before it."""
     cfg = model.cfg
+    hook = _params_hook(chain, hold_layers=True)
+    samples = chain is None or chain.last
     kv_k, kv_v = state["kv_k"], state["kv_v"]
     S = kv_k.shape[2]
     cur_len = state["cur_len"].clone()
@@ -208,17 +312,22 @@ def decode_chunk_rows(
     finished = torch.zeros(cur_len.shape, dtype=torch.bool, device=dev)
     kv = {"k": kv_k, "v": kv_v}
     toks, lps, was_fin = [], [], []
+    B = cur_len.shape[0]
     for n in range(n_tokens):
         if row_budget is not None:
             finished = finished | (n >= row_budget)
-        # Forbid EOS while a row is under its min_new_tokens budget.
-        eos_block = (done < sampling["min_new_tokens"])[:, None] & eos_col
-        token, logprob = sample_token_rows(
-            last_logits.masked_fill(eos_block, -1e30), generator, sampling)
-        token = torch.where(finished, pad_token_id, token)
-        logprob = torch.where(finished, 0.0, logprob)
+        token = None
+        if samples:
+            # Forbid EOS while a row is under its min_new_tokens budget.
+            eos_block = (done < sampling["min_new_tokens"])[:, None] & eos_col
+            token, logprob = sample_token_rows(
+                last_logits.masked_fill(eos_block, -1e30), generator,
+                sampling)
+            token = torch.where(finished, pad_token_id, token)
+            logprob = torch.where(finished, 0.0, logprob)
+            lps.append(logprob)
+        token = _from_last(chain, token, (B,), torch.int32, dev)
         toks.append(token)
-        lps.append(logprob)
         was_fin.append(finished)
 
         pos = cur_len.long()  # slot & RoPE position of the new token
@@ -226,25 +335,32 @@ def decode_chunk_rows(
         if cfg.sliding_window is not None:
             valid = valid & ((pos[:, None] - slot_ids[None, :])
                              < cfg.sliding_window)
-        logits_step, kv = model(
-            token[:, None], _model_positions(model, pos, finished)[:, None],
+        logits_step, kv = _forward(
+            model, chain, hook, token[:, None],
+            _model_positions(model, pos, finished)[:, None],
             kv_cache=kv, cache_write_index=pos, kv_valid=valid)
         now_finished = finished | (token == eos_token_id)
         cur_len = torch.where(finished, cur_len, cur_len + 1)
         done = done + (~finished).to(torch.int32)
-        # Freeze last_logits once a row is finished: later steps feed pad
-        # tokens, and a retained state must carry the logits after its last
-        # REAL token.
-        last_logits = torch.where(finished[:, None], last_logits,
-                                  logits_step[:, 0].float())
+        if samples:
+            # Freeze last_logits once a row is finished: later steps feed
+            # pad tokens, and a retained state must carry the logits after
+            # its last REAL token.
+            last_logits = torch.where(finished[:, None], last_logits,
+                                      logits_step[:, 0].float())
         finished = now_finished
 
     gen_mask = ~torch.stack(was_fin, dim=1)
+    logprobs = _from_last(chain, torch.stack(lps, dim=1).float()
+                          if samples else None, (B, n_tokens),
+                          torch.float32, dev)
+    last_logits = _from_last(chain, last_logits if samples else None,
+                             (B, V), torch.float32, dev)
     new_state = {"kv_k": kv["k"], "kv_v": kv["v"],
                  "last_logits": last_logits, "cur_len": cur_len}
     out = {
         "output_ids": torch.stack(toks, dim=1),
-        "output_logprobs": torch.stack(lps, dim=1).float(),
+        "output_logprobs": logprobs,
         "output_lens": gen_mask.sum(dim=1).to(torch.int32),
         "gen_mask": gen_mask,
     }
@@ -291,6 +407,7 @@ def extend_state(
     tokens: torch.Tensor,  # [B, T] suffix, right-padded with pad tokens
     token_lens: torch.Tensor,  # [B] real suffix lengths (>= 1)
     attn_impl: str = "auto",
+    chain: Optional[StageChain] = None,
 ) -> State:
     """Teacher-force ``tokens`` on top of an existing decode state (the
     suffix prefill of prefix seeding). Needs ``S >= max(cur_len + T)``;
@@ -311,15 +428,20 @@ def extend_state(
         kv_valid = kv_valid & ((positions[:, :, None] - slot_ids[None, None, :])
                                < model.cfg.sliding_window)
     pad_tail = torch.arange(T, device=dev)[None, :] >= token_lens[:, None]
-    logits, kv = model(tokens, _model_positions(model, positions, pad_tail),
-                       kv_cache={"k": state["kv_k"], "v": state["kv_v"]},
-                       cache_write_index=cur, kv_valid=kv_valid,
-                       attn_impl=attn_impl)
-    last_idx = (token_lens.long() - 1).clamp_min(0)
+    logits, kv = _forward(
+        model, chain, _params_hook(chain), tokens,
+        _model_positions(model, positions, pad_tail),
+        kv_cache={"k": state["kv_k"], "v": state["kv_v"]},
+        cache_write_index=cur, kv_valid=kv_valid, attn_impl=attn_impl)
+    last = None
+    if logits is not None:
+        last_idx = (token_lens.long() - 1).clamp_min(0)
+        last = logits[torch.arange(B, device=dev), last_idx].float()
     return {
         "kv_k": kv["k"],
         "kv_v": kv["v"],
-        "last_logits": logits[torch.arange(B, device=dev), last_idx].float(),
+        "last_logits": _from_last(chain, last, (B, model.cfg.vocab_size),
+                                  torch.float32, dev),
         "cur_len": (cur + token_lens.long()).to(torch.int32),
     }
 

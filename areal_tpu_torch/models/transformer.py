@@ -37,7 +37,12 @@ with the reference's gate (``_block:258-278``): only in the packed
 forward without a KV cache, and never inside a pipeline stage; elsewhere
 it runs the grouped dispatch on experts gathered over ``ep``. Under a
 ring the MoE layer takes its capacity slots and statistics over the whole
-rows in natural order.
+rows in natural order. A generation server's rank serves one pipeline
+stage (:meth:`Transformer.from_shards`: its stage's layers, whole or as
+``fsdp`` shards; :meth:`Transformer.forward` with ``params``: a hidden
+state in on a later stage, a hidden state out on an earlier one, its
+layers' KV, each module run on what a gather hook returns), un-pipelined
+as the reference decodes.
 
 Learned positions differ from the reference in one respect, by design. The
 reference adds ``pos_embedding[positions]`` (``forward:430``), whose gather
@@ -361,6 +366,34 @@ class Transformer(nn.Module):
         model.load_state_dict(params, strict=True, assign=True)
         return model.eval()
 
+    @classmethod
+    def from_shards(cls, cfg: TransformerConfig,
+                    params: Dict[str, torch.Tensor], first: bool = True,
+                    last: bool = True) -> "Transformer":
+        """A served rank's model: ``cfg`` the geometry it computes with (its
+        stage's layers, named from 0; ``parallel/sharding.py
+        rank_config``), ``params`` its tensors as they are, each the whole
+        tensor or the rank's ``fsdp`` shard of it (no shape is checked:
+        :meth:`forward` runs every module on what its ``params`` hook
+        returns). ``first`` / ``last``: whether the model's stage
+        embeds the tokens / applies the final norm and the head."""
+        model = cls(cfg, device="meta")
+        want = set(model.state_dict())
+        if set(params) != want:
+            diff = sorted(set(params) ^ want)
+            raise ValueError(f"a rank's tensors and its model differ on "
+                             f"{len(diff)} names (e.g. {diff[:3]})")
+        for name, t in params.items():
+            mod, _, leaf = name.rpartition(".")
+            model.get_submodule(mod)._parameters[leaf] = nn.Parameter(
+                t, requires_grad=False)
+        model.first_stage, model.last_stage = first, last
+        return model.eval()
+
+    # a whole model is one stage, its first and its last
+    first_stage = True
+    last_stage = True
+
     def forward(
         self,
         tokens: torch.Tensor,  # [B, T] int
@@ -378,6 +411,7 @@ class Transformer(nn.Module):
         ring: Optional[ring_mod.RingCtx] = None,  # sp: ring attention
         pipeline: Optional[ppl.PipeCtx] = None,  # pp: pipelined layers
         ep: Optional[moemod.ExpertCtx] = None,  # ep: expert parallelism
+        params=None,  # served: module -> its (gathered) parameters
     ):
         """Returns (output, kv), or (output, kv, aux) with ``return_aux``:
         output is logits [B, T, V] (a critic's values [B, T]; the final
@@ -411,9 +445,24 @@ class Transformer(nn.Module):
         covers this stage's layers. The router jitter does not reach the
         pipeline, as in the reference. ``ep`` (the packed forward without
         a KV stack, never with ``pipeline``): the MoE layers' expert-
-        parallel dispatch (``models/moe.py ExpertCtx``)."""
+        parallel dispatch (``models/moe.py ExpertCtx``).
+
+        A served rank's model (:meth:`from_shards`) is one pipeline stage:
+        on a stage after the first, ``tokens`` is the previous stage's
+        hidden state ``[B, T, D]``; a stage before the last returns its
+        hidden state (no final norm, no head). ``params(module, prefix)``,
+        when given (the serving forward only: no ring, pipeline, ep or
+        remat), returns a module's parameters to run it on (a ZeRO-3
+        gather over ``fsdp``, ``parallel/sharding.py FsdpGather``): it is
+        asked for each layer just before the layer runs, and for the
+        embedding, the position table, the final norm and the head where
+        they are used."""
         cfg = self.cfg
         decode = kv_cache is not None
+        if params is not None and (remat or ring is not None
+                                   or pipeline is not None or ep is not None):
+            raise ValueError("params serves the plain forward: no ring, "
+                             "pipeline, ep or remat")
         if remat not in _REMAT_MODES:
             raise ValueError(f"unknown remat mode {remat!r}")
         if remat and (decode or return_kv):
@@ -425,19 +474,29 @@ class Transformer(nn.Module):
         if ep is not None and (decode or return_kv or pipeline is not None):
             raise ValueError("expert parallelism runs in the packed forward "
                              "with return_kv=False, outside a pipeline")
-        B, T = tokens.shape
+        B, T = tokens.shape[:2]
         if ring is not None:
             tokens, positions, segment_ids = (
                 ring_mod.shard_sequence(x, ring)
                 for x in (tokens, positions, segment_ids))
-        h = self.embedding(tokens)
-        if cfg.scale_embeddings:  # gemma normalizer
-            h = h * torch.tensor(cfg.hidden_dim ** 0.5, dtype=h.dtype)
-        if cfg.pos_embedding == "learned":
-            h = h + self.pos_embedding(table_positions(
-                cfg, positions, None if decode else segment_ids))
-            cos = sin = None
-        else:
+
+        def run(name: str, *args):
+            mod = self.get_submodule(name)
+            if params is None:
+                return mod(*args)
+            return torch.func.functional_call(mod, params(mod, name + "."),
+                                              args)
+
+        h = tokens
+        if self.first_stage:
+            h = run("embedding", tokens)
+            if cfg.scale_embeddings:  # gemma normalizer
+                h = h * torch.tensor(cfg.hidden_dim ** 0.5, dtype=h.dtype)
+            if cfg.pos_embedding == "learned":
+                h = h + run("pos_embedding", table_positions(
+                    cfg, positions, None if decode else segment_ids))
+        cos = sin = None
+        if cfg.pos_embedding != "learned":
             cos, sin = rope_tables(positions, cfg.head_dim, cfg.rotary_base)
         seeds = [None] * cfg.n_layers
         if (rng is not None and cfg.moe is not None
@@ -463,8 +522,9 @@ class Transformer(nn.Module):
             else:
                 cache = ((kv_cache["k"][i], kv_cache["v"][i]) if decode
                          else None)
-                h, (k, v), aux = layer(
-                    h, cos, sin, None if decode else segment_ids,
+                h, (k, v), aux = run(
+                    f"layers.{i}", h, cos, sin,
+                    None if decode else segment_ids,
                     None if decode else positions, cache, cache_write_index,
                     kv_valid, attn_impl, seeds[i], ring, ep,
                 )
@@ -473,27 +533,40 @@ class Transformer(nn.Module):
                     vs.append(v)
             if aux is not None:
                 auxes.append(aux)
-        h = self.final_ln(h)
-        if ring is not None and ring.one_process:
-            h = ring_mod.unshard_sequence(h, ring)
         if decode:
             kv = kv_cache
         elif return_kv:
             kv = {"k": torch.stack(ks), "v": torch.stack(vs)}
         else:
             kv = None
-        out = h if return_hidden else self.apply_head(h)
+        if not self.last_stage:
+            return h, kv
+        h = run("final_ln", h)
+        if ring is not None and ring.one_process:
+            h = ring_mod.unshard_sequence(h, ring)
+        if return_hidden:
+            out = h
+        elif params is None:
+            out = self.apply_head(h)
+        else:
+            head = head_param_name(cfg).rpartition(".")[0]
+            out = self.apply_head(h, params(self.get_submodule(head),
+                                            head + ".")["weight"])
         if return_aux:
             return out, kv, (pipe_aux if pipeline is not None
                              else moemod.reduce_layer_aux(auxes))
         return out, kv
 
-    def apply_head(self, h: torch.Tensor) -> torch.Tensor:
+    def apply_head(self, h: torch.Tensor,
+                   weight: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Final hidden → logits (tied embeddings or a separate head), or a
         critic's values ``[..., T]`` (reference ``apply_head:519``), in the
-        hidden's dtype."""
-        head = getattr(self, head_param_name(self.cfg).split(".")[0])
-        out = head_logits(h, head.weight)
+        hidden's dtype; ``weight`` in place of the model's head matrix
+        (a served rank's, gathered)."""
+        if weight is None:
+            weight = getattr(self, head_param_name(self.cfg).split(".")[0]
+                             ).weight
+        out = head_logits(h, weight)
         return out[..., 0] if self.cfg.is_critic else out
 
 

@@ -81,6 +81,20 @@ class ParallelSpec:
             if getattr(self, a) != 1) or "d1"
 
 
+# Why a generation spec takes no sp or ep (the reference's validate_config,
+# areal_tpu/api/cli_args.py:501-527): the decode loop never rings and never
+# exchanges experts.
+GEN_AXIS_REFUSALS = {
+    "sp": "sequence (ring) parallelism is training only: the decode loop "
+          "never rings (a token at a time has no sequence to shard); move "
+          "the sp factor into d or t for the generation fleet, e.g. s2 -> d2",
+    "ep": "expert parallelism is training only: decode runs the grouped "
+          "dispatch on whole experts (models/moe.py never exchanges under a "
+          "KV cache); move the ep factor into d or t for the generation "
+          "fleet, e.g. e2 -> d2",
+}
+
+
 def tp_kv_replicated(n_q_heads: int, n_kv_heads: int, tp: int) -> bool:
     """The head rules of tensor parallelism (``parallel/sharding.py
     kv_replicated``, torch-free for the config checks): whether each ``tp``
@@ -98,6 +112,54 @@ def tp_kv_replicated(n_q_heads: int, n_kv_heads: int, tp: int) -> bool:
         raise ValueError(f"tensor parallelism of {tp} neither divides nor "
                          f"is divided by {n_kv_heads} kv heads")
     return True
+
+
+@dataclasses.dataclass(frozen=True)
+class ServerRank:
+    """One rank of a generation server whose ranks span ``spec``'s
+    ``fsdp``, ``pp`` and ``tp`` axes (``dp`` counts servers, never a
+    server's ranks): its coordinates in the server's mesh, in
+    ``AXIS_ORDER`` (``tp`` innermost: rank ``(f·pp + p)·tp + t``). Rank 0,
+    at ``(fsdp 0, pp 0, tp 0)``, leads. Torch-free, as the launcher and
+    the layouts read it."""
+
+    spec: ParallelSpec
+    rank: int = 0
+
+    def __post_init__(self):
+        s = self.spec
+        if s.dp != 1 or s.sp != 1 or s.ep != 1:
+            raise ValueError(f"a generation server's ranks span fsdp, pp "
+                             f"and tp only, not {s}")
+        if not 0 <= self.rank < s.world_size:
+            raise ValueError(f"rank {self.rank} of a server of "
+                             f"{s.world_size} ranks ({s})")
+
+    @property
+    def fsdp_rank(self) -> int:
+        return self.rank // (self.spec.pp * self.spec.tp)
+
+    @property
+    def pp_rank(self) -> int:
+        return self.rank // self.spec.tp % self.spec.pp
+
+    @property
+    def tp_rank(self) -> int:
+        return self.rank % self.spec.tp
+
+    @property
+    def first_stage(self) -> bool:
+        return self.pp_rank == 0
+
+    @property
+    def last_stage(self) -> bool:
+        return self.pp_rank == self.spec.pp - 1
+
+
+def server_spec(spec: ParallelSpec) -> ParallelSpec:
+    """One server's spec of a generation spec (its ``dp`` counts
+    servers)."""
+    return dataclasses.replace(spec, dp=1)
 
 
 def make_mesh(spec: ParallelSpec, device_type: Optional[str] = None):

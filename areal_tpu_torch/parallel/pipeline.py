@@ -26,9 +26,11 @@ per-stage loops (:meth:`_Schedule.forward`, :meth:`_Schedule.backward`):
 
 The activations and their cotangents travel over a link with two
 implementations: :class:`_P2PLink`, ``isend``/``recv`` over the ``pp``
-process group (one process per stage), and :class:`_LocalLink`, in-memory
-queues for one process that runs every stage on one device, one stage
-after another. A :class:`PipeCtx` names which (``stage`` None: one process).
+process group (one process per stage; a generation server's stages use
+it too, ``models/generate.py StageChain``), and
+:class:`_LocalLink`, in-memory queues for one process that runs every
+stage on one device, one stage after another. A :class:`PipeCtx` names
+which (``stage`` None: one process).
 
 PP∘SP: a ring context (``parallel/ring.py RingCtx``) handed in reaches
 every layer of every stage, so attention rings inside the stages; the
@@ -208,28 +210,36 @@ class _P2PLink:
     """One process per stage over the ``pp`` group: sends are ``isend``s
     waited at :meth:`flush`, receives block. Each pair of neighbours sends
     in one order (micro-batch order) and receives in the same, so the
-    messages match without tags."""
+    messages match without tags. Over gloo (two ranks that share a card
+    run it) a tensor crosses through host memory, since gloo's send and
+    receive take no CUDA tensor: :meth:`send` copies it to the host,
+    :meth:`recv` receives into host memory and copies it onto ``device``.
+    Over NCCL it stays on the device."""
 
     def __init__(self, ctx: PipeCtx):
         import torch.distributed as dist
 
         self.ranks = dist.get_process_group_ranks(ctx.group)
         self.group = ctx.group
+        self.host = dist.get_backend(ctx.group) == "gloo"
         self.pending: List[tuple] = []
 
     def send(self, kind: str, dst: int, t: torch.Tensor) -> None:
         import torch.distributed as dist
 
-        t = t.contiguous()
+        t = t.detach().contiguous()
+        if self.host:
+            t = t.cpu()
         self.pending.append((dist.isend(t, self.ranks[dst],
                                         group=self.group), t))
 
     def recv(self, kind: str, src: int, dst: int, shape, dtype, device):
         import torch.distributed as dist
 
-        buf = torch.empty(shape, dtype=dtype, device=device)
+        buf = torch.empty(shape, dtype=dtype,
+                          device="cpu" if self.host else device)
         dist.recv(buf, self.ranks[src], group=self.group)
-        return buf
+        return buf.to(device)
 
     def flush(self) -> None:
         for work, _ in self.pending:

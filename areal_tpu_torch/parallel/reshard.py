@@ -17,8 +17,8 @@ untouched (no copy) and batches the rest into transfer groups of at most
 ``distribute_tensor``) and synchronized before the next, so the extra
 device memory of a move stays about one group. A generation spec's layout
 (``model_shardings(ParallelSpec)``) is a :class:`ServingLayout`: each of a
-server's ``tp`` ranks' slice of every tensor (``parallel/sharding.py
-serving_slices``).
+server's ``fsdp × pp × tp`` ranks' tensors (its stage's layers and the
+rest) and its cut of each (``parallel/sharding.py serving_slices``).
 
 The ``device`` transport. The reference's trainer and servers share one
 JAX runtime and hand the published tree over through an in-process
@@ -27,8 +27,8 @@ publication crosses processes (an accepted difference):
 
  - ``publish_device`` packs the compute-dtype leaves into **one**
    contiguous device buffer per rank of the target layout (whole tensors:
-   one buffer; a ``ServingLayout``: one per ``tp`` rank, holding its
-   slices), copying one transfer group (:func:`plan_publication`) at a
+   one buffer; a ``ServingLayout``: one per server rank, holding only that
+   rank's tensors, cut), copying one transfer group (:func:`plan_publication`) at a
    time, so the publish's extra device memory is the buffers plus one
    group of gathered tensors; it takes each buffer's CUDA IPC handles
    (``UntypedStorage._share_cuda_``, one share each) and writes ``{pid,
@@ -287,8 +287,8 @@ def model_shardings(mesh, model_cfg):
     uses (``parallel/sharding.py``), as ``(mesh, placements)`` per name.
     (The reference's ``mesh=None``, one device, is a ``torch.device``
     here.) Given a generation spec (a ``ParallelSpec``) in place of a
-    mesh: the :class:`ServingLayout` of its servers' ``tp`` ranks (the
-    spec's ``dp`` counts servers, each of which holds this layout)."""
+    mesh: the :class:`ServingLayout` of its servers' ranks (the spec's
+    ``dp`` counts servers, each of which holds this layout)."""
     from areal_tpu_torch.parallel import sharding as psh
     from areal_tpu_torch.parallel.mesh import ParallelSpec
 
@@ -300,27 +300,31 @@ def model_shardings(mesh, model_cfg):
 
 @dataclasses.dataclass(frozen=True)
 class ServingLayout:
-    """A generation server's layout: each of its ``tp`` ranks' slice of
-    every tensor (``parallel/sharding.py serving_slices``; None: whole).
-    A device publication into it packs one buffer per rank."""
+    """A generation server's layout: for each of its ranks, the tensors it
+    holds and its cut of each (``parallel/sharding.py serving_slices``;
+    ``()``: whole). A device publication into it packs one buffer per
+    rank."""
 
-    tp: int
-    slices: Dict[str, List[Any]]
+    ranks: List[Dict[str, Any]]
+
+    @property
+    def n_ranks(self) -> int:
+        return len(self.ranks)
 
 
 def serving_layout(gen_spec, model_cfg) -> ServingLayout:
-    """The layout of a generation spec's servers. Only ``dp`` (servers)
-    and ``tp`` (each server's ranks) are served; the other axes are
-    refused (ROADMAP.md Queue 1)."""
+    """The layout of a generation spec's servers: each server's ``fsdp``,
+    ``pp`` and ``tp`` ranks (``dp`` counts servers). ``sp`` and ``ep``
+    are refused, for the reference's reasons (``parallel/mesh.py
+    GEN_AXIS_REFUSALS``)."""
     from areal_tpu_torch.parallel import sharding as psh
+    from areal_tpu_torch.parallel.mesh import GEN_AXIS_REFUSALS, server_spec
 
-    other = {a: getattr(gen_spec, a) for a in ("fsdp", "pp", "sp", "ep")
-             if getattr(gen_spec, a) > 1}
-    if other:
-        raise ValueError(f"generation spec {gen_spec}: the servers shard "
-                         f"over tp only, not {other} (ROADMAP.md Queue 1)")
-    return ServingLayout(gen_spec.tp, psh.serving_slices(model_cfg,
-                                                         gen_spec.tp))
+    for axis, why in GEN_AXIS_REFUSALS.items():
+        if getattr(gen_spec, axis) > 1:
+            raise ValueError(f"generation spec {gen_spec} sets {axis}="
+                             f"{getattr(gen_spec, axis)}: {why}")
+    return ServingLayout(psh.serving_slices(model_cfg, server_spec(gen_spec)))
 
 
 def shardings_like(params: Dict[str, torch.Tensor], target) -> Dict[str, Any]:
@@ -537,22 +541,16 @@ def _pid_alive(pid: int) -> bool:
 
 def _layout_of(params: Dict[str, torch.Tensor], target) -> ServingLayout:
     if target is None or isinstance(target, (str, torch.device)):
-        return ServingLayout(1, {n: [None] for n in params})
+        return ServingLayout([{n: () for n in params}])
     if isinstance(target, ServingLayout):
-        if set(target.slices) != set(params):
-            missing = sorted(set(target.slices) ^ set(params))
+        held = set().union(*target.ranks)
+        if held != set(params):
+            missing = sorted(held ^ set(params))
             raise ValueError(f"publication layout and weights differ on "
                              f"{len(missing)} leaves (e.g. {missing[:3]})")
         return target
     raise ValueError(f"a device publication's target is whole tensors or "
                      f"a ServingLayout, not {type(target).__name__}")
-
-
-def _slice_shape(shape, s) -> List[int]:
-    out = list(shape)
-    if s is not None:
-        out[s[0]] = s[2]
-    return out
 
 
 def plan_publication(params: Dict[str, torch.Tensor], dtype=None,
@@ -599,7 +597,7 @@ def publish_device(experiment: str, trial: str, role: str,
     """Trainer-side publish: pack ``params`` (cast to ``dtype`` when
     given) into ``target``'s layout (None: whole tensors, the layout
     un-meshed servers hold; a :class:`ServingLayout`: one buffer per
-    ``tp`` rank holding its slices), share the buffers and advertise them
+    server rank holding its tensors, cut), share the buffers and advertise them
     under ``names.weight_device``. The leaves are copied one transfer
     group at a time (:func:`plan_publication`): ``params`` are whole
     tensors on one device, or, with ``gather``, tensors of the whole
@@ -610,7 +608,7 @@ def publish_device(experiment: str, trial: str, role: str,
     its ``digest`` (over every rank's manifest) is what consumers are
     handed."""
     from areal_tpu_torch.base import name_resolve, names
-    from areal_tpu_torch.parallel.sharding import take_slice
+    from areal_tpu_torch.parallel.sharding import cut_shape, take_slice
     from areal_tpu_torch.system import memwatch
 
     t0 = time.monotonic()
@@ -632,10 +630,10 @@ def publish_device(experiment: str, trial: str, role: str,
         dts = {n: dtype if dtype is not None and t.is_floating_point()
                else t.dtype for n, t in params.items()}
         parts = []
-        for r in range(layout.tp):
+        for r, cuts in enumerate(layout.ranks):
             manifest = []
-            for n in sorted(params):
-                shape = _slice_shape(params[n].shape, layout.slices[n][r])
+            for n in sorted(cuts):
+                shape = cut_shape(params[n].shape, cuts[n])
                 manifest.append({
                     "name": n, "shape": shape, "dtype": _dtype_name(dts[n]),
                     "nbytes": math.prod(shape) * dts[n].itemsize})
@@ -648,10 +646,12 @@ def publish_device(experiment: str, trial: str, role: str,
             for n in group:
                 src = whole[n].detach()
                 for r, part in enumerate(parts):
+                    if n not in part.offsets:  # another stage's layer
+                        continue
                     # copy_ casts as it copies: no staged cast
                     _leaf_view(part.buffer, part.offsets[n],
                                entries[r][n]).copy_(
-                        take_slice(src, layout.slices[n][r]))
+                        take_slice(src, layout.ranks[r][n]))
             _sync([p.buffer for p in parts])
             del whole
     digest = layout_digest([p.manifest for p in parts], version)
@@ -666,7 +666,7 @@ def publish_device(experiment: str, trial: str, role: str,
         part.record = {"shares": shares, "claims": part.claims,
                        "manifest": part.manifest, "offsets": part.offsets}
     record = {"pid": os.getpid(), "version": version, "digest": digest}
-    if layout.tp == 1:
+    if layout.n_ranks == 1:
         record.update(parts[0].record)
     else:
         record["ranks"] = [p.record for p in parts]
@@ -684,7 +684,8 @@ def publish_device(experiment: str, trial: str, role: str,
         _release(old)
     logger.info(
         f"device publish {role} v{version}: {len(parts[0].manifest)} leaves "
-        f"x {layout.tp} rank(s), {sum(p.buffer.numel() for p in parts) >> 20}"
+        f"(rank 0) x {layout.n_ranks} rank(s), "
+        f"{sum(p.buffer.numel() for p in parts) >> 20}"
         f" MB packed in {len(plan.groups)} groups, {pub.publish_secs:.3f}s")
     return pub
 

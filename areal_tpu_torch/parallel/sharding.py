@@ -38,12 +38,16 @@ owner through the exchange); everywhere else (pipeline stages, the
 inference engine's generate, ``full_params``, publication and
 checkpoints) they are gathered whole, as every other master is.
 
-A generation server's ``tp`` ranks hold plain tensors, not DTensors:
-:func:`serving_slices` names each rank's slice of every parameter (the
-same table, the embedding and an untied head whole, the kv rule below),
-:func:`serving_shards` cuts them and :func:`rank_config` gives the rank's
-model geometry; the server's forwards run under
-:func:`activation_sharding` like the trainer's (``system/server_mesh.py``).
+A generation server's ``fsdp × pp × tp`` ranks hold plain tensors, not
+DTensors: :func:`serving_slices` names each rank's tensors (its stage's
+layers and everything outside the layers) and its cut of each (the same
+table: ``tp`` and ``fsdp`` dims split evenly, the embedding and an untied
+head whole over ``tp``, the kv rule below), :func:`serving_shards` cuts
+them and :func:`rank_config` gives the rank's model geometry; a layer's
+``fsdp`` shards are gathered just before it runs (:class:`FsdpGather`,
+ZeRO-3 inference: every ``fsdp`` rank runs the whole batch); the server's
+forwards run under :func:`activation_sharding` like the trainer's
+(``system/server_mesh.py``).
 :data:`_ACTIVE` is process-wide (a remat recompute runs on autograd's
 device thread): one process holds one rank, so a server's ranks are
 processes, never threads of one.
@@ -62,6 +66,7 @@ Two departures from the reference's table, both Megatron's rules:
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -71,6 +76,7 @@ from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.parallel.mesh import (
     AXIS_ORDER,
     DATA_AXES,
+    ParallelSpec,
     tp_kv_replicated,
 )
 
@@ -263,76 +269,200 @@ def kv_head_rows(cfg: TransformerConfig, tp: int, tp_rank: int
 
 # ---------------- serving ----------------
 
-# A rank's slice of one tensor: (dim, start, length), or None (whole).
-Slice = Optional[Tuple[int, int, int]]
+# A rank's cut of one tensor: a (dim, start, length) per cut dim, () whole.
+Cut = Tuple[Tuple[int, int, int], ...]
 
 
-def serving_slices(cfg: TransformerConfig, tp: int) -> Dict[str, List[Slice]]:
-    """State-dict name -> each ``tp`` rank's slice of it, the layout a
-    generation server's ranks hold (the serving counterpart of
-    :func:`shard_params`): ``tp``-sharded parameters split evenly along
-    the dim :func:`param_layouts` names; the embedding and an untied head
-    whole on every rank, as the trainer's ``tp`` uses them (so every rank
-    computes the whole logits); a replicated ``wk``/``wv``/``bk``/``bv``
-    cut to the kv head the rank's q heads read (:func:`kv_head_rows`).
-    Raises for head counts no rule splits (:func:`kv_replicated`)."""
+def _even_cut(name: str, shape, dim: int, n: int, i: int, axis: str
+              ) -> Tuple[int, int, int]:
+    size = shape[dim] // n
+    if size * n != shape[dim]:
+        raise ValueError(f"{axis}={n} does not divide dim {dim} of {name} "
+                         f"{tuple(shape)}")
+    return (dim, i * size, size)
+
+
+def serving_slices(cfg: TransformerConfig, spec: ParallelSpec
+                   ) -> List[Dict[str, Cut]]:
+    """Each rank of a generation server of ``spec`` (its ``fsdp``, ``pp``
+    and ``tp``, ``parallel/mesh.py ServerRank``) ->
+    the tensors it holds, by state-dict name, and its cut of each: the
+    layout a generation server's ranks hold (the serving counterpart of
+    :func:`shard_params`).
+
+     - ``pp``: a rank holds its stage's layers (``parallel/pipeline.py
+       stage_bounds``) and every tensor outside the layers (the embedding,
+       the final norm and an untied head), as the reference replicates
+       them over ``pp``;
+     - ``tp``: ``tp``-sharded parameters split evenly along the dim
+       :func:`param_layouts` names; the embedding and an untied head whole,
+       as the trainer's ``tp`` uses them (so every rank computes the whole
+       logits); a replicated ``wk``/``wv``/``bk``/``bv`` cut to the kv head
+       the rank's q heads read (:func:`kv_head_rows`);
+     - ``fsdp``: every parameter with an ``fsdp`` dim split evenly along
+       it; the server gathers a layer's shards just before the layer runs
+       (:class:`FsdpGather`).
+
+    Raises for head counts no rule splits (:func:`kv_replicated`), a dim
+    an axis does not divide, or a stage without a layer."""
     from areal_tpu_torch.models.transformer import Transformer
+    from areal_tpu_torch.parallel.mesh import ServerRank
+    from areal_tpu_torch.parallel.pipeline import stage_bounds
 
+    tp, fsdp = spec.tp, spec.fsdp
+    if spec.pp > cfg.n_layers:
+        raise ValueError(f"pp={spec.pp} stages for {cfg.n_layers} layers: "
+                         "a stage holds at least one layer")
+    bounds = stage_bounds(cfg.n_layers, spec.pp)
     replicated = kv_replicated(cfg, tp)
     shapes = {n: t.shape for n, t in
               Transformer(cfg, device="meta").state_dict().items()}
-    out: Dict[str, List[Slice]] = {}
-    for name, lay in param_layouts(cfg, tp).items():
-        suffix = name.split(".", 2)[-1]
-        if tp > 1 and replicated and suffix in _KV_SUFFIXES:
-            rows = [kv_head_rows(cfg, tp, r) for r in range(tp)]
-            out[name] = [(0, s.start, s.stop - s.start) for s in rows]
-        elif tp > 1 and "tp" in lay and name not in _TP_GATHERED:
-            dim = lay["tp"]
-            n = shapes[name][dim] // tp
-            if n * tp != shapes[name][dim]:
-                raise ValueError(f"tp={tp} does not divide dim {dim} of "
-                                 f"{name} {tuple(shapes[name])}")
-            out[name] = [(dim, r * n, n) for r in range(tp)]
-        else:
-            out[name] = [None] * tp
+    layouts = param_layouts(cfg, tp)
+    out: List[Dict[str, Cut]] = []
+    for rank in range(spec.world_size):
+        me = ServerRank(spec, rank)
+        lo, hi = bounds[me.pp_rank]
+        cuts: Dict[str, Cut] = {}
+        for name, lay in layouts.items():
+            if name.startswith("layers.") and not (
+                    lo <= int(name.split(".")[1]) < hi):
+                continue
+            suffix = name.split(".", 2)[-1]
+            cut = []
+            if tp > 1 and replicated and suffix in _KV_SUFFIXES:
+                s = kv_head_rows(cfg, tp, me.tp_rank)
+                cut.append((0, s.start, s.stop - s.start))
+            elif tp > 1 and "tp" in lay and name not in _TP_GATHERED:
+                cut.append(_even_cut(name, shapes[name], lay["tp"], tp,
+                                     me.tp_rank, "tp"))
+            if fsdp > 1 and "fsdp" in lay:
+                cut.append(_even_cut(name, shapes[name], lay["fsdp"], fsdp,
+                                     me.fsdp_rank, "fsdp"))
+            cuts[name] = tuple(cut)
+        out.append(cuts)
     return out
 
 
-def take_slice(t: torch.Tensor, s: Slice) -> torch.Tensor:
-    """A view of ``t``'s slice ``s`` (``t`` itself for None)."""
-    return t if s is None else t.narrow(s[0], s[1], s[2])
+def take_slice(t: torch.Tensor, cut: Cut) -> torch.Tensor:
+    """A view of ``t``'s cut (``t`` itself for ``()``)."""
+    for dim, start, length in cut:
+        t = t.narrow(dim, start, length)
+    return t
+
+
+def cut_shape(shape, cut: Cut) -> List[int]:
+    out = list(shape)
+    for dim, _, length in cut:
+        out[dim] = length
+    return out
 
 
 def serving_shards(params: Dict[str, torch.Tensor], cfg: TransformerConfig,
-                   tp: int, tp_rank: int) -> Dict[str, torch.Tensor]:
-    """This ``tp`` rank's tensors of a whole state dict (views: the caller
-    copies them where it needs its own storage)."""
-    slices = serving_slices(cfg, tp)
-    return {n: take_slice(t, slices[n][tp_rank]) for n, t in params.items()}
+                   spec: ParallelSpec, rank: int
+                   ) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s tensors of a whole state dict (global names; views:
+    the caller copies them where it needs its own storage)."""
+    cuts = serving_slices(cfg, spec)[rank]
+    return {n: take_slice(params[n], c) for n, c in cuts.items()}
 
 
-def rank_config(cfg: TransformerConfig, tp: int) -> TransformerConfig:
-    """The geometry one ``tp`` rank's model holds: its q heads, the kv
-    heads they read, and its share of the MLP (or expert) width. Its KV
-    cache (``init_kv_cache``) then holds the rank's kv heads."""
+def shift_layers(params: Dict[str, torch.Tensor], offset: int
+                 ) -> Dict[str, torch.Tensor]:
+    """``params`` with every layer index moved by ``offset``: a stage's
+    model names its layers from 0 (``offset = -lo``), a layout names them
+    by their place in the whole model (``offset = lo``)."""
+    if not offset:
+        return dict(params)
+    out = {}
+    for n, t in params.items():
+        if n.startswith("layers."):
+            _, i, rest = n.split(".", 2)
+            n = f"layers.{int(i) + offset}.{rest}"
+        out[n] = t
+    return out
+
+
+def rank_config(cfg: TransformerConfig, spec: ParallelSpec, rank: int = 0
+                ) -> TransformerConfig:
+    """The geometry rank ``rank`` of a server of ``spec`` computes with: its stage's layers, its q heads, the kv heads
+    they read, and its share of the MLP (or expert) width. ``fsdp`` leaves
+    it whole (a layer runs on its gathered weights). Its KV cache
+    (``init_kv_cache``) then holds the rank's layers and kv heads."""
     import dataclasses
 
-    if tp <= 1:
-        return cfg
-    replicated = kv_replicated(cfg, tp)
-    kw = dict(n_q_heads=cfg.n_q_heads // tp,
-              n_kv_heads=1 if replicated else cfg.n_kv_heads // tp,
-              intermediate_dim=cfg.intermediate_dim // tp)
-    if cfg.moe is not None:
-        moe = cfg.moe
-        kw["moe"] = dataclasses.replace(
-            moe, routed_intermediate_dim=(
-                moe.routed_intermediate_dim or cfg.intermediate_dim) // tp,
-            shared_intermediate_dim=(moe.shared_intermediate_dim // tp
-                                     if moe.shared_intermediate_dim
-                                     else None))
-    return dataclasses.replace(cfg, **kw)
+    from areal_tpu_torch.parallel.mesh import ServerRank
+    from areal_tpu_torch.parallel.pipeline import stage_bounds
+
+    tp, kw = spec.tp, {}
+    if spec.pp > 1:
+        lo, hi = stage_bounds(cfg.n_layers, spec.pp)[
+            ServerRank(spec, rank).pp_rank]
+        kw["n_layers"] = hi - lo
+    if tp > 1:
+        replicated = kv_replicated(cfg, tp)
+        kw.update(n_q_heads=cfg.n_q_heads // tp,
+                  n_kv_heads=1 if replicated else cfg.n_kv_heads // tp,
+                  intermediate_dim=cfg.intermediate_dim // tp)
+        if cfg.moe is not None:
+            moe = cfg.moe
+            kw["moe"] = dataclasses.replace(
+                moe, routed_intermediate_dim=(
+                    moe.routed_intermediate_dim or cfg.intermediate_dim)
+                // tp,
+                shared_intermediate_dim=(moe.shared_intermediate_dim // tp
+                                         if moe.shared_intermediate_dim
+                                         else None))
+    return dataclasses.replace(cfg, **kw) if kw else cfg
+
+
+def fsdp_dims(cfg: TransformerConfig, spec: ParallelSpec) -> Dict[str, int]:
+    """State-dict name -> the dim ``fsdp`` splits, for a server of ``spec``
+    (empty at ``fsdp`` 1): what :class:`FsdpGather` concatenates along."""
+    if spec.fsdp <= 1:
+        return {}
+    return {n: lay["fsdp"] for n, lay in param_layouts(cfg, spec.tp).items()
+            if "fsdp" in lay}
+
+
+class FsdpGather:
+    """ZeRO-3 for a served forward: a module's parameters whole over the
+    ``fsdp`` group, gathered when the forward asks for them and dropped
+    when it lets go. One ``all_gather`` moves all of a module's shards
+    (packed flat; a layer's are about one layer's bytes / ``fsdp``), and
+    each parameter is then put together along the dim
+    :func:`serving_slices` cut. ``dims``: the rank's local state-dict name
+    -> its ``fsdp`` dim (absent: whole). Every rank of the group asks for
+    the same modules in the same order (they run the same batch)."""
+
+    def __init__(self, group, n: int, dims: Dict[str, int]):
+        self.group, self.n, self.dims = group, n, dims
+        # over the rank's life: gathers, bytes received, host seconds
+        self.stats = {"gathers": 0, "bytes": 0, "secs": 0.0}
+
+    def __call__(self, module: torch.nn.Module, prefix: str
+                 ) -> Dict[str, torch.Tensor]:
+        """``module``'s parameters (named as in ``module``) whole;
+        ``prefix`` is its name in the rank's model."""
+        out = dict(module.named_parameters())
+        cut = [n for n in out if prefix + n in self.dims]
+        if not cut:
+            return out
+        t0 = time.perf_counter()
+        flat = torch.cat([out[n].reshape(-1) for n in cut])
+        parts = [torch.empty_like(flat) for _ in range(self.n)]
+        dist.all_gather(parts, flat, group=self.group)
+        self.stats["gathers"] += 1
+        self.stats["bytes"] += flat.numel() * flat.element_size() * (
+            self.n - 1)
+        at = 0
+        for n in cut:
+            shard = out[n]
+            k = shard.numel()
+            out[n] = torch.cat([p[at:at + k].view(shard.shape)
+                                for p in parts], dim=self.dims[prefix + n])
+            at += k
+        self.stats["secs"] += time.perf_counter() - t0
+        return out
 
 
 # ---------------- activations ----------------

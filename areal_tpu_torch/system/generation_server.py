@@ -41,17 +41,18 @@ suffix is no narrower than the prompt's own prefill width
 never written: ``clone_prefix`` copies, and ``stack_states`` copies again
 before ``decode_chunk_rows`` writes in place.
 
-A meshed server (``mesh=``, reference ``:152-171``) is a group of ``tp``
-ranks, one process and one device each, every rank holding its slices of
-the weights (``parallel/sharding.py serving_shards``) and its kv heads of
-every decode state. The leader (rank 0) is the server as above; its device
-calls (prefill, decode chunk, extend, and the states' clone, grow, slice,
-stack and drop) run on every rank in the same order
+A meshed server (``mesh=``, reference ``:152-171``) is a group of
+``fsdp × pp × tp`` ranks, one process and one device each, every rank
+holding its part of the weights (``parallel/sharding.py serving_shards``:
+its stage's layers, cut on ``fsdp`` and ``tp``) and of every decode state
+(its stage's layers, its kv heads). The leader (rank 0) is the server as
+above; its device calls (prefill, decode chunk, extend, and the states'
+clone, grow, slice, stack and drop) run on every rank in the same order
 (``system/server_mesh.py``), its followers :meth:`~GenerationServer.follow`
-them, and a weight update loads on every rank and swaps every rank or
-none. A rank's failure fails the server as a unit: ``/health`` answers
-``ok: false``, every later batch fails, and the process running it exits
-(``apps/launcher.py gen_server_entry``).
+them, and a weight update loads on every rank (each keeps its part) and
+swaps every rank or none. A rank's failure fails the server as a unit:
+``/health`` answers ``ok: false``, every later batch fails, and the
+process running it exits (``apps/launcher.py gen_server_entry``).
 
 A model with a learned position table (GPT-2) answers **413** with the same
 ``prompt_too_long`` body, whatever the serving config, to a request whose
@@ -125,6 +126,8 @@ from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.models.transformer import Transformer
 from areal_tpu_torch.ops.sampling import sampling_from_gconfigs
 from areal_tpu_torch.parallel import sharding as psh
+from areal_tpu_torch.parallel.mesh import ParallelSpec, ServerRank
+from areal_tpu_torch.parallel.pipeline import stage_bounds
 from areal_tpu_torch.system import goodput as goodput_mod
 from areal_tpu_torch.system import memwatch as memwatch_mod
 from areal_tpu_torch.system import serving as serving_mod
@@ -158,11 +161,12 @@ class GenerationServerConfig:
     experiment: str = "exp"
     trial: str = "trial"
     server_id: str = "gen0"
-    # tp ranks of a meshed server (one process each; the launcher starts
-    # them and builds the mesh, GenerationServer(mesh=)), and the rank of
-    # the process this config starts
-    tp: int = 1
-    tp_rank: int = 0
+    # a meshed server's spec, its fsdp, pp and tp ("d1": one rank; one
+    # process a rank, the launcher starts them and builds the mesh,
+    # GenerationServer(mesh=)), and the rank of the process this config
+    # starts (parallel/mesh.py ServerRank)
+    spec: str = "d1"
+    rank: int = 0
     # most new tokens one /generate call decodes
     chunk_tokens: int = serving_mod.GEN_CHUNK_TOKENS_DEFAULT
     batch_window_ms: int = 5
@@ -188,6 +192,11 @@ class GenerationServerConfig:
     # arms the kernel-build watch and the device-memory gauges
     compile_watch: CompileWatchConfig = dataclasses.field(
         default_factory=CompileWatchConfig)
+
+    @property
+    def world(self) -> int:
+        """The server's ranks (processes)."""
+        return ParallelSpec.parse(self.spec).world_size
 
 
 class BadRequest(ValueError):
@@ -229,9 +238,9 @@ class _Pending:
 class GenerationServer:
     """Serves one model (``params``: the port's state dict) on ``device`` —
     CUDA unless the caller passes another (``resolve_device``) — or, with
-    ``mesh`` (a ``parallel/mesh.py`` mesh of ``tp`` ranks over this
-    server's process group), this rank's slices of it; every rank passes
-    the same whole ``params``."""
+    ``mesh`` (a ``parallel/mesh.py`` mesh of ``fsdp``, ``pp`` and ``tp``
+    ranks over this server's process group), this rank's part of it; every
+    rank passes the same whole ``params``."""
 
     def __init__(self, cfg: GenerationServerConfig,
                  model_cfg: TransformerConfig, params: Dict[str, torch.Tensor],
@@ -239,32 +248,46 @@ class GenerationServer:
         self.cfg = cfg
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
-        # A meshed server (reference :164-167): this rank keeps its tp
-        # slices of the whole ``params`` every rank is given, and its
-        # device calls run on every rank (system/server_mesh.py).
+        # A meshed server (reference :164-167): this rank keeps its part of
+        # the whole ``params`` every rank is given (its stage's layers, cut
+        # on fsdp and tp), and its device calls run on every rank
+        # (system/server_mesh.py).
         self.mesh = mesh
-        self.tp = psh.mesh_degree(mesh, "tp") if mesh is not None else 1
-        self._slices = (psh.serving_slices(model_cfg, self.tp)
-                        if self.tp > 1 else None)
-        self.mesh_ctl: Optional[ServerMesh] = None
+        self.mesh_ctl: Optional[ServerMesh] = (
+            ServerMesh(self, mesh) if mesh is not None else None)
+        me = (self.mesh_ctl.me if mesh is not None
+              else ServerRank(ParallelSpec()))
+        self.spec, self.rank, self.tp = me.spec, me.rank, me.spec.tp
+        self._stage = (me.first_stage, me.last_stage)
+        # this rank's tensors (names in the whole model) and their cuts;
+        # None: the whole model
+        self._cuts = (psh.serving_slices(model_cfg, self.spec)[self.rank]
+                      if mesh is not None else None)
+        self._lo = stage_bounds(model_cfg.n_layers,
+                                self.spec.pp)[me.pp_rank][0]
+        self._rank_cfg = psh.rank_config(model_cfg, self.spec, self.rank)
         if mesh is not None:
-            self.mesh_ctl = ServerMesh(self, mesh)
             # copies: a slice must not hold the whole tensor's storage
             params = {k: v.to(self.device).clone() for k, v in
-                      psh.serving_shards(params, model_cfg, self.tp,
-                                         self.mesh_ctl.rank).items()}
+                      psh.serving_shards(params, model_cfg, self.spec,
+                                         self.rank).items()}
         # The device calls: models/generate.py, or their replay on every
         # rank of a meshed server.
         self._ops = self.mesh_ctl if mesh is not None else genmod
         # The served (model, version) pair: each batch reads it once, and a
         # weight update replaces it in one assignment.
-        self._published: Tuple[Transformer, int] = (Transformer.from_params(
-            psh.rank_config(model_cfg, self.tp),
+        self._published: Tuple[Transformer, int] = (self._rank_model(
             {k: v.to(self.device) for k, v in params.items()}), 0)
         # Reference names -> (shape, dtype) of the whole weights: what an
         # update must deliver (the layout is fixed for the server's life).
-        dtypes = {k: v.dtype for k, v in self.model.state_dict().items()}
-        meta = {k: torch.empty(v.shape, dtype=dtypes[k], device="meta")
+        live = self._live_params()
+
+        def dtype_of(k: str) -> torch.dtype:
+            if k not in live:  # another stage's layer: as this stage's
+                k = f"layers.{self._lo}." + k.split(".", 2)[-1]
+            return live[k].dtype
+
+        meta = {k: torch.empty(v.shape, dtype=dtype_of(k), device="meta")
                 for k, v in Transformer(model_cfg, device="meta")
                 .state_dict().items()}
         self._ref_specs = {k: (tuple(v.shape), v.dtype) for k, v in
@@ -343,6 +366,20 @@ class GenerationServer:
     @property
     def model(self) -> Transformer:
         return self._published[0]
+
+    def _rank_model(self, params: Dict[str, torch.Tensor]) -> Transformer:
+        """The model this rank serves over its tensors (``params``, named
+        as in the whole model): its stage's layers (named from 0), each
+        module run on its tensors whole or gathered over ``fsdp``."""
+        if self.mesh_ctl is None or self.mesh_ctl.chain is None:
+            return Transformer.from_params(self._rank_cfg, params)
+        return Transformer.from_shards(
+            self._rank_cfg, psh.shift_layers(params, -self._lo),
+            *self._stage)
+
+    def _live_params(self) -> Dict[str, torch.Tensor]:
+        """This rank's live tensors, named as in the whole model."""
+        return psh.shift_layers(self.model.state_dict(), self._lo)
 
     @property
     def version(self) -> int:
@@ -831,6 +868,7 @@ class GenerationServer:
             "shapes": self.shapes.shapes(),
             "version": self.version,
             "tp": self.tp,
+            "spec": str(self.spec),
             "last_weight_update_latency_s": self._last_update_latency,
             # prefix hits, tokens saved and skipped seeds, decode and dummy
             # row-steps, continuations that found no state of their own
@@ -867,17 +905,17 @@ class GenerationServer:
                     f"live {spec[0]}")
             seen.add(name)
             t0 = time.monotonic()
-            if self._slices is None:
+            if self._cuts is None:
                 out.update(convert.params_from_jax(
                     {name: t}, self.model_cfg, device=self.device,
                     dtype=spec[1]))
-            else:  # this rank's slices of the whole tensors
-                rank = self.mesh_ctl.rank
+            else:  # this rank's part of the whole tensors
                 for n, w in convert.params_from_jax(
                         {name: t}, self.model_cfg, device="cpu",
                         dtype=spec[1]).items():
-                    out[n] = psh.take_slice(w, self._slices[n][rank]).to(
-                        self.device, copy=True)
+                    if n in self._cuts:
+                        out[n] = psh.take_slice(w, self._cuts[n]).to(
+                            self.device, copy=True)
             upload_secs += time.monotonic() - t0
         missing = sorted(set(self._ref_specs) - seen)
         if missing:
@@ -941,9 +979,8 @@ class GenerationServer:
         with self.memwatch.watermark("genserver/device_consume"):
             return rsh.consume_device(
                 self.cfg.experiment, self.cfg.trial, role, version, digest,
-                self.model.state_dict(), rank=(
-                    self.mesh_ctl.rank if self.mesh_ctl is not None else 0),
-                n_ranks=self.tp)
+                self._live_params(), rank=self.rank,
+                n_ranks=self.spec.world_size)
 
     def _load_update(self, d: Dict[str, Any]
                      ) -> Tuple[Transformer, int, Optional[Dict[str, float]]]:
@@ -962,7 +999,7 @@ class GenerationServer:
                 d["endpoint"], version, d.get("timeout"))
         else:
             params = self._load_and_put_weights(d["path"])
-        new = Transformer.from_params(self.model.cfg, params)
+        new = self._rank_model(params)
         # The upload ran on this thread's stream: the shadow weights are
         # complete before any batch can read them.
         self._sync()

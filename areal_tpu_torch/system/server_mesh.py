@@ -4,29 +4,45 @@ on every follower in the same order.
 The port's counterpart of the reference's meshed server
 (``areal_tpu/system/generation_server.py:152-171``, ``mesh=`` ->
 ``psh.shard_params``), where one JAX program runs each call on every chip
-of the server's mesh. Here each ``tp`` rank is a process on one device
-holding its slices of the weights (``parallel/sharding.py
-serving_shards``) and its kv heads of every decode state, and the model's
-two sums per block cross the ranks (``constrain`` under
-``activation_sharding``). Control is single-controller, as in the
-trainer (``system/trainer_worker.py _bcast`` / ``_follow_once``):
+of the server's mesh. Here a server is a group of ``fsdp × pp × tp``
+ranks (``parallel/mesh.py ServerRank``), each a process on one device
+holding its part of the weights (``parallel/sharding.py serving_shards``)
+and of every decode state:
 
- - the leader (``tp`` rank 0) owns HTTP, the serving queue, admission,
-   prefix reuse and the runner; it calls this object where the un-meshed
-   server calls ``models/generate.py`` (the same functions, the same
-   signatures);
+ - ``tp``: the rank's heads and MLP columns, its kv heads of every state,
+   and the model's two sums per block across the ``tp`` group
+   (``constrain`` under ``activation_sharding``);
+ - ``pp``: the rank's stage's layers and their KV; each call runs stage by
+   stage, each stage handing its hidden state to the next, the last
+   sampling and sending the tokens back (``models/generate.py
+   StageChain``);
+ - ``fsdp``: a ``1/fsdp`` shard of each tensor, gathered over the ``fsdp``
+   group when a call first runs the module that uses it (ZeRO-3
+   inference, ``parallel/sharding.py FsdpGather``; a decode call holds
+   its layers for its steps); every ``fsdp`` rank runs the whole batch.
+
+Control is single-controller, as in the trainer
+(``system/trainer_worker.py _bcast`` / ``_follow_once``):
+
+ - the leader (rank 0, at ``(fsdp 0, pp 0, tp 0)``) owns HTTP, the serving
+   queue, admission, prefix reuse and the runner; it calls this object
+   where the un-meshed server calls ``models/generate.py`` (the same
+   functions, the same signatures);
  - a decode state on the leader is a :class:`MeshState` that carries an
    id; every follower keeps its own state under that id. Calls that
    only derive states (slice, stack, grow, clone) run on the leader at
    once and are queued; the next call that runs the model (prefill,
    extend, decode) or a weight swap sends the queue and the call in one
-   host broadcast, and every follower replays them in order. A state the
-   leader lets go (a finaliser) is dropped on the followers the same way;
- - every rank samples the same tokens: the embedding and the head are
-   whole on each rank, so after each block's sum the logits are the same
-   on every rank, and each rank's generator draws from the same seed in
-   the same order. After each decode call the ranks compare the tokens
-   they sampled; a mismatch fails the server;
+   host broadcast, and every follower replays them in order, each on its
+   stage's part of the states. A state the leader lets go (a finaliser)
+   is dropped on the followers the same way;
+ - the ranks that sample (the last stage's) sample the same tokens: the
+   embedding and the head are whole on each of them, so the logits are
+   the same on each, and each rank's generator draws from the same seed
+   in the same order. The tokens, the log-probs and the last logits reach
+   every earlier stage, so every rank ends a call with the same outputs.
+   After each decode call the ranks compare the tokens; a mismatch fails
+   the server;
  - a weight swap loads on every rank, then the ranks gather their
    outcomes and all swap, or none does (500, old weights kept);
  - failures are never caught: a follower whose call raises ends its
@@ -55,6 +71,8 @@ import torch
 from areal_tpu_torch.models import generate as genmod
 from areal_tpu_torch.parallel import distributed as dist_mod
 from areal_tpu_torch.parallel import sharding as psh
+from areal_tpu_torch.parallel.mesh import ParallelSpec, ServerRank
+from areal_tpu_torch.parallel.pipeline import PipeCtx, _P2PLink, stage_bounds
 
 logger = logging.getLogger("areal_tpu_torch.server_mesh")
 
@@ -83,17 +101,41 @@ def _token_crc(out: Dict[str, torch.Tensor]) -> int:
     return zlib.crc32(out["output_ids"].cpu().numpy().tobytes())
 
 
+def server_rank(mesh) -> ServerRank:
+    """This process's rank of the server whose mesh is ``mesh``."""
+    return ServerRank(ParallelSpec(
+        fsdp=psh.mesh_degree(mesh, "fsdp"), pp=psh.mesh_degree(mesh, "pp"),
+        tp=psh.mesh_degree(mesh, "tp")), mesh.get_rank())
+
+
 class ServerMesh:
     """One rank's side of a meshed server. ``server`` is the rank's
     ``GenerationServer`` (its model, generator and weight loading);
     ``mesh`` a ``parallel/mesh.py`` mesh of the server's process group
-    (``tp`` > 1, rank 0 leads)."""
+    (its ``fsdp``, ``pp`` and ``tp``; rank 0 leads)."""
 
     def __init__(self, server, mesh):
         self.server = server
         self.mesh = mesh
-        self.tp = psh.mesh_degree(mesh, "tp")
-        self.rank = psh.mesh_coord(mesh, "tp")
+        self.me = server_rank(mesh)
+        self.spec = self.me.spec
+        self.rank = self.me.rank
+        # the stages' chain and the fsdp gather (none at pp 1 and fsdp 1:
+        # the whole model, its tp slices, on each rank)
+        self.chain: Optional[genmod.StageChain] = None
+        if self.spec.pp > 1 or self.spec.fsdp > 1:
+            lo = stage_bounds(server.model_cfg.n_layers,
+                              self.spec.pp)[self.me.pp_rank][0]
+            self.chain = genmod.StageChain(
+                pp=self.spec.pp, stage=self.me.pp_rank,
+                link=(_P2PLink(PipeCtx(self.spec.pp, self.me.pp_rank,
+                                       mesh.get_group("pp")))
+                      if self.spec.pp > 1 else None),
+                gather=(psh.FsdpGather(
+                    mesh.get_group("fsdp"), self.spec.fsdp,
+                    psh.shift_layers(psh.fsdp_dims(server.model_cfg,
+                                                   self.spec), -lo))
+                    if self.spec.fsdp > 1 else None))
         self.lock = threading.RLock()
         self.failed: Optional[BaseException] = None
         self._stopped = False
@@ -166,7 +208,7 @@ class ServerMesh:
             ("prefill", sid, _host(prompts), _host(prompt_lens), S,
              attn_impl),
             lambda: genmod.prefill_state(model, prompts, prompt_lens, S,
-                                         attn_impl)), sid)
+                                         attn_impl, self.chain)), sid)
 
     def extend_state(self, model, state, tokens, token_lens,
                      attn_impl="auto"):
@@ -175,7 +217,7 @@ class ServerMesh:
             ("extend", sid, state.sid, _host(tokens), _host(token_lens),
              attn_impl),
             lambda: genmod.extend_state(model, state, tokens, token_lens,
-                                        attn_impl)), sid)
+                                        attn_impl, self.chain)), sid)
 
     def decode_chunk_rows(self, model, state, tokens_done, generator,
                           sampling, n_tokens, eos_token_id, pad_token_id,
@@ -183,7 +225,7 @@ class ServerMesh:
         def run():
             new, out = genmod.decode_chunk_rows(
                 model, state, tokens_done, generator, sampling, n_tokens,
-                eos_token_id, pad_token_id, row_budget)
+                eos_token_id, pad_token_id, row_budget, self.chain)
             crcs = dist_mod.gather_pyobj(_token_crc(out))
             if len(set(crcs)) != 1:
                 raise MeshServerError(
@@ -308,17 +350,18 @@ class ServerMesh:
         if kind == "prefill":
             _, sid, prompts, lens, S, impl = op
             s[sid] = genmod.prefill_state(model, _dev(prompts, dev),
-                                          _dev(lens, dev), S, impl)
+                                          _dev(lens, dev), S, impl,
+                                          self.chain)
         elif kind == "extend":
             _, sid, src, toks, lens, impl = op
             s[sid] = genmod.extend_state(model, s[src], _dev(toks, dev),
-                                         _dev(lens, dev), impl)
+                                         _dev(lens, dev), impl, self.chain)
         elif kind == "decode":
             _, sid, src, done, sampling, n, eos, pad, budget = op
             s[sid], out = genmod.decode_chunk_rows(
                 model, s[src], _dev(done, dev), srv._generator,
                 {k: _dev(v, dev) for k, v in sampling.items()}, n, eos, pad,
-                _dev(budget, dev))
+                _dev(budget, dev), self.chain)
             dist_mod.gather_pyobj(_token_crc(out))
         elif kind == "call":
             _, fn, args = op

@@ -35,8 +35,8 @@ within the plan's bounds. A decoupled allocation's servers (kind
 ``gen_replica``) and their manager (kind ``gen_manager``) run in processes
 of their own and are stateless too.
 
-A meshed generation server runs one process per ``tp`` rank, and its ranks
-are one failure domain (``WorkerSpec.group``): when one dies, the others
+A meshed generation server runs one process per rank (its ``fsdp × pp ×
+tp`` ranks), and its ranks are one failure domain (``WorkerSpec.group``): when one dies, the others
 are killed and all respawn together, with one restart counted against the
 breaker; only the leader (``rank`` 0) counts as a live worker and takes a
 commanded exit (its followers end with it).

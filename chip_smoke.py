@@ -94,11 +94,11 @@ Phases (any failed check raises, and the script exits non-zero):
      After (i) two lanes share the card: the loop lane, a spawned process
      of its own, runs (o), (q3) with (p), (r) and (s) one after another,
      while this process runs (j)-(n), (q1), (q2), (u)-(y), (bb), (cc) and
-     (z); then (t), (aa), (dd) and (ee) run alone. Each phase of either
-     lane starts once the card has room for it (``LANE_ROOM_GB``), so the
-     times of those phases are readings on a shared card; (a)-(i), (t),
-     (aa), (dd) and (ee), and every kernel time of the JSON line, have the
-     card to themselves.
+     (z); then (t), (aa), (dd), (ee) and (ff) run alone. Each phase of
+     either lane starts once the card has room for it (``LANE_ROOM_GB``),
+     so the times of those phases are readings on a shared card; (a)-(i),
+     (t), (aa), (dd), (ee) and (ff), and every kernel time of the JSON
+     line, have the card to themselves.
  (j) the trainer's model functions of the async-PPO recipe (the README's
      `ppo.use_decoupled_loss=true group_size=16`, the rest at defaults:
      kl_ctl 0.1, a critic, 4 PPO minibatches, advantage whitening), the
@@ -628,7 +628,8 @@ Phases (any failed check raises, and the script exits non-zero):
      last logits within 5% of max|logit| of the unsharded model's and the
      first greedy tokens its argmax; each rank's KV bytes half the
      unsharded state's; prefill ms a call and decode ms a step beside
-     (c)'s. (ee2) a trainer process publishes the seed-1 weights over
+     (c)'s; each rank's device memory at rest and its peak in that
+     prefill and in a 32-step greedy decode after it. (ee2) a trainer process publishes the seed-1 weights over
      ``device`` in the t2 layout (``gen_parallel_spec``,
      ``transfer_group_mb`` 16): one buffer a rank, the publish's extra
      memory at most the buffers plus one group; the swap answered 200 and
@@ -637,6 +638,25 @@ Phases (any failed check raises, and the script exits non-zero):
      and the version kept; publish-to-reply seconds beside (bb)'s. (ee3)
      the shares name the card's UUID, which each rank opens (one card: no
      copy between GPUs).
+
+ (ff) generation servers over fsdp and pp: an f2p2 meshed server of
+     Qwen2.5-0.5B (24 layers, full width, bf16, seed 0) whose four ranks
+     are processes on the one card over gloo; each rank holds its stage's
+     12 layers and the embedding, every tensor cut to half its fsdp
+     width, gathers a layer's shards over fsdp just before it runs (the
+     embedding and the head once a call), and hands its hidden state to
+     the next stage through host memory. (ff1) (ee1)'s traffic and
+     checks: K1 12 x prefills on each rank and never the plain attention
+     in a prefill; no prefill for continuations; the greedy prefills'
+     last logits bit-equal to the unsharded model's (fsdp and pp move no
+     arithmetic) and the first greedy tokens its argmax; each rank's KV bytes what its layout
+     implies (its stage's layers, every kv head: half the unsharded
+     state's) and its parameter bytes its layout's cuts (beside what it
+     would hold at fsdp 1); its memory as (ee1) reads it; prefill ms a
+     call and decode ms a step beside (c)'s and (ee)'s. (ff2) (ee2)'s device
+     publication into the f2p2 layout (one buffer a rank holding only its
+     tensors) and its checks; every rank's swapped weights bit for bit its
+     part of the seed-1 weights. (ff3) as (ee3).
 
 The script exits 0 only when every phase passed and the last line is
 printed; any failed check raises and exits 1, as does a run where
@@ -8085,11 +8105,12 @@ def run_ep(fa, device: str = "cuda", cfg=None, train_layers: int = 2,
 
 # ---------------- (ee) the decoupled generation fleet ----------------
 
-# (ee): a tp=2 meshed server of Qwen2.5-0.5B. Its two ranks are processes
-# on the one card joined over gloo, whose collectives stage the CUDA
-# tensors through the host (two NCCL ranks cannot share a device); the
-# arithmetic is the Block and server code a multi-GPU server runs.
-GEN_TP = 2
+# (ee): a tp=2 meshed server of Qwen2.5-0.5B; (ff): an f2p2 one. Their
+# ranks are processes on the one card joined over gloo, whose collectives
+# stage the CUDA tensors through the host (two NCCL ranks cannot share a
+# device; the pipeline's sends go through host memory explicitly); the
+# arithmetic is the Block, stage and server code a multi-GPU server runs.
+GEN_SPECS = {"ee": "t2", "ff": "f2p2"}
 GEN_GROUP_MB = 16
 
 
@@ -8134,7 +8155,10 @@ def rank_reset(server) -> None:
 def rank_counts(server) -> dict:
     from areal_tpu_torch.ops import flash_attention as fa
 
-    return {"k1": fa.launch_count(), **_RANK_COUNTS}
+    chain = server.mesh_ctl.chain
+    gather = chain.gather.stats if chain and chain.gather else None
+    return {"k1": fa.launch_count(), **_RANK_COUNTS,
+            "fsdp_gather": dict(gather) if gather else None}
 
 
 def rank_kv_bytes(server, sid: int) -> int:
@@ -8142,8 +8166,52 @@ def rank_kv_bytes(server, sid: int) -> int:
     return st["kv_k"].numel() * st["kv_k"].element_size() * 2
 
 
+def rank_param_bytes(server) -> dict:
+    """This rank's live parameter bytes against what its layout's cuts
+    imply (``serving_slices`` at the served dtype's size), and what it
+    would hold at ``fsdp`` 1 (its cuts without the fsdp one)."""
+    from areal_tpu_torch.models.transformer import Transformer
+    from areal_tpu_torch.parallel import sharding as psh
+
+    live = server._live_params()
+    whole = Transformer(server.model_cfg, device="meta").state_dict()
+    cuts = psh.serving_slices(server.model_cfg, server.spec)[server.rank]
+    fdims = psh.fsdp_dims(server.model_cfg, server.spec)
+    size = next(iter(live.values())).element_size()
+
+    def nbytes(shape, cut):
+        return size * math.prod(psh.cut_shape(shape, cut))
+
+    return {"rank": server.rank, "bytes": sum(
+        t.numel() * t.element_size() for t in live.values()),
+        "layout_bytes": sum(nbytes(whole[n].shape, c)
+                            for n, c in cuts.items()),
+        "fsdp1_bytes": sum(nbytes(whole[n].shape, tuple(
+            x for x in c if n not in fdims or x[0] != fdims[n]))
+            for n, c in cuts.items()),
+        "params": sum(t.numel() for t in live.values())}
+
+
+def rank_mem_reset(server):
+    """Start this rank's peak-memory window; its bytes allocated now (None
+    off the card)."""
+    if torch.device(server.device).type != "cuda":
+        return None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def rank_mem_peak(server):
+    """The most this rank held since :func:`rank_mem_reset`, in bytes."""
+    if torch.device(server.device).type != "cuda":
+        return None
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
 def rank_weights(server, cfg, seed: int) -> dict:
-    """How many of this rank's live tensors are bit for bit its slices of
+    """How many of this rank's live tensors are bit for bit its part of
     the seed's bf16 weights."""
     from areal_tpu_torch.models.transformer import init_params
     from areal_tpu_torch.parallel import sharding as psh
@@ -8151,16 +8219,16 @@ def rank_weights(server, cfg, seed: int) -> dict:
     want = psh.serving_shards(
         init_params(cfg, seed=seed, device=server.device,
                     dtype=torch.bfloat16),
-        cfg, server.tp, server.mesh_ctl.rank)
-    live = server.model.state_dict()
+        cfg, server.spec, server.rank)
+    live = server._live_params()
     bad = [n for n in live if not (live[n].dtype == want[n].dtype
                                    and torch.equal(live[n], want[n]))]
-    return {"n": len(live), "n_bad": len(bad), "bad": bad[:3],
-            "rank": server.mesh_ctl.rank}
+    return {"n": len(live), "n_want": len(want), "n_bad": len(bad),
+            "bad": bad[:3], "rank": server.rank}
 
 
 def gen_mesh_command(srv, cmd):
-    """The leader's side of one (ee) command from the script."""
+    """The leader's side of one (ee) / (ff) command from the script."""
     kind = cmd[0]
     if kind == "reset":
         srv.mesh_ctl.gather(rank_reset)
@@ -8170,24 +8238,47 @@ def gen_mesh_command(srv, cmd):
                 "stats": {k: v for k, v in srv.stats().items()
                           if not isinstance(v, (list, dict))}}
     if kind == "prefill":
-        _, padded, plens, S = cmd
-        with srv.mesh_ctl.lock, torch.inference_mode():
+        # the greedy prompts' prefill, then a greedy decode of n_decode
+        # steps on its state; each rank's bytes at rest, before the
+        # decode (the prefill's state held too) and its peak in each of
+        # the two calls
+        from areal_tpu_torch.api.model import GenerationHyperparameters
+        from areal_tpu_torch.ops.sampling import sampling_from_gconfigs
+
+        _, padded, plens, S, n_decode = cmd
+        mesh, dev, B = srv.mesh_ctl, srv.device, padded.shape[0]
+        with mesh.lock, torch.inference_mode():
+            rest = mesh.gather(rank_mem_reset)
             st = srv._ops.prefill_state(
-                srv.model, torch.from_numpy(padded).to(srv.device),
-                torch.from_numpy(plens).to(srv.device), S)
-            return {"last_logits": st["last_logits"].float().cpu().numpy(),
-                    "kv_bytes": srv.mesh_ctl.gather(rank_kv_bytes, st.sid)}
+                srv.model, torch.from_numpy(padded).to(dev),
+                torch.from_numpy(plens).to(dev), S)
+            prefill_peak = mesh.gather(rank_mem_peak)
+            out = {"last_logits": st["last_logits"].float().cpu().numpy(),
+                   "kv_bytes": mesh.gather(rank_kv_bytes, st.sid)}
+            decode_start = mesh.gather(rank_mem_reset)
+            srv._ops.decode_chunk_rows(
+                srv.model, st, torch.zeros(B, dtype=torch.int32, device=dev),
+                srv._generator, sampling_from_gconfigs(
+                    [GenerationHyperparameters(greedy=True)] * B, dev),
+                n_decode, srv.cfg.eos_token_id, srv.cfg.pad_token_id)
+            out["memory"] = {"rest": rest, "prefill_peak": prefill_peak,
+                             "decode_start": decode_start,
+                             "decode_peak": mesh.gather(rank_mem_peak),
+                             "decode_steps": n_decode, "rows": B}
+            return out
     if kind == "weights":
         return srv.mesh_ctl.gather(rank_weights, cmd[1], cmd[2])
-    raise ValueError(f"unknown (ee) command {kind!r}")
+    if kind == "param_bytes":
+        return srv.mesh_ctl.gather(rank_param_bytes)
+    raise ValueError(f"unknown (ee) / (ff) command {kind!r}")
 
 
 def gen_mesh_rank(rank, world, cfg, eos, tmp, urlq, ctl, replies,
-                  device: str) -> dict:
-    """(ee): one rank of the meshed server on the card. The leader serves
-    HTTP, puts its URL on ``urlq`` and answers the script's commands
-    (``ctl`` -> ``replies``) until ("stop",); the follower replays its
-    device calls until the leader stops."""
+                  device: str, spec: str = "t2", phase: str = "ee") -> dict:
+    """(ee) / (ff): one rank of the meshed server of ``spec`` on the card.
+    The leader serves HTTP, puts its URL on ``urlq`` and answers the
+    script's commands (``ctl`` -> ``replies``) until ("stop",); a
+    follower replays its device calls until the leader stops."""
     from areal_tpu_torch.base import name_resolve
     from areal_tpu_torch.models import generate as genmod
     from areal_tpu_torch.models.transformer import init_params
@@ -8200,14 +8291,15 @@ def gen_mesh_rank(rank, world, cfg, eos, tmp, urlq, ctl, replies,
     name_resolve.reconfigure(name_resolve.NameResolveConfig(
         type="nfs", nfs_record_root=os.path.join(tmp, "name_resolve")))
     count_plain_in_prefill(genmod, _RANK_COUNTS)
-    mesh = make_mesh(ParallelSpec(tp=world))
+    mesh = make_mesh(ParallelSpec.parse(spec))
     # A window the 8 concurrent requests all land in on a slow host too: a
     # second batch runs its own 128 steps after the first's, and on a host
     # whose requests spread past 20 ms the traffic took ~3x one batch's.
     srv = GenerationServer(
-        GenerationServerConfig(experiment="chip_smoke", trial="ee",
+        GenerationServerConfig(experiment="chip_smoke", trial=phase,
                                chunk_tokens=128, eos_token_id=eos,
-                               pad_token_id=eos, batch_window_ms=250),
+                               pad_token_id=eos, batch_window_ms=250,
+                               spec=spec),
         cfg, init_params(cfg, seed=0, device=device, dtype=torch.bfloat16),
         device=device, mesh=mesh)
     if rank > 0:
@@ -8235,15 +8327,17 @@ def queue_get(q, what: str, alive, timeout: float):
             return q.get(timeout=1.0)
         except queue_mod.Empty:
             check(alive() and time.monotonic() < deadline,
-                  f"(ee): no {what} within {timeout} s (ranks alive: "
-                  f"{alive()})")
+                  f"no {what} within {timeout} s from the meshed server's "
+                  f"ranks (alive: {alive()})")
 
 
 def run_gen_mesh(fa, cfg, eos: int, tmp: str, prompts, served: dict,
-                 device_sync_s, device: str = "cuda") -> dict:
-    """(ee): the meshed server's traffic, its prefill against the
-    unsharded server's, its KV, then a device publication into its layout
-    and the gates. Checks and numbers as in the module docstring."""
+                 device_sync_s, device: str = "cuda",
+                 phase: str = "ee") -> dict:
+    """(ee) / (ff): the meshed server's traffic (its spec
+    ``GEN_SPECS[phase]``), its prefill against the unsharded server's, its
+    KV and parameter bytes, then a device publication into its layout and
+    the gates. Checks and numbers as in the module docstring."""
     import multiprocessing
     import types
 
@@ -8253,13 +8347,20 @@ def run_gen_mesh(fa, cfg, eos: int, tmp: str, prompts, served: dict,
     from areal_tpu_torch.models.transformer import Transformer, init_params
     from areal_tpu_torch.parallel import distributed as dist_mod
     from areal_tpu_torch.parallel import reshard as rsh
+    from areal_tpu_torch.parallel import sharding as psh
+    from areal_tpu_torch.parallel.mesh import ParallelSpec
     from areal_tpu_torch.system.gserver_manager import GserverManager
     from areal_tpu_torch.system.trainer_worker import (
         TrainerWorker,
         TrainerWorkerConfig,
     )
 
-    exp, trial = "chip_smoke", "ee"
+    exp, trial = "chip_smoke", phase
+    spec = ParallelSpec.parse(GEN_SPECS[phase])
+    world = spec.world_size
+    tag = f"({phase})"
+    # each rank's layers and kv heads (its KV and its K1 launches)
+    rank_cfgs = [psh.rank_config(cfg, spec, r) for r in range(world)]
     old_repo = name_resolve.DEFAULT_REPO
     name_resolve.reconfigure(name_resolve.NameResolveConfig(
         type="nfs", nfs_record_root=os.path.join(tmp, "name_resolve")))
@@ -8270,13 +8371,13 @@ def run_gen_mesh(fa, cfg, eos: int, tmp: str, prompts, served: dict,
     def run():
         try:
             ranks["out"] = dist_mod.run_ranks(
-                gen_mesh_rank, GEN_TP, cfg, eos, tmp, urlq, ctl, replies,
-                device, timeout=900,
+                gen_mesh_rank, world, cfg, eos, tmp, urlq, ctl, replies,
+                device, str(spec), phase, timeout=900,
                 device=f"{device}:0" if device == "cuda" else device)
         except BaseException as e:  # noqa: BLE001 — raised below
             ranks["error"] = e
 
-    th = threading.Thread(target=run, daemon=True, name="ee-ranks")
+    th = threading.Thread(target=run, daemon=True, name=f"{phase}-ranks")
     th.start()
 
     def alive():
@@ -8286,8 +8387,7 @@ def run_gen_mesh(fa, cfg, eos: int, tmp: str, prompts, served: dict,
         ctl.put(cmd)
         return queue_get(replies, cmd[0], alive, timeout)
 
-    rec: dict = {"tp": GEN_TP, "legs_s": {}}
-    L = cfg.n_layers
+    rec: dict = {"spec": str(spec), "tp": spec.tp, "legs_s": {}}
     trainer = None
     t_start = time.monotonic()
     try:
@@ -8304,17 +8404,18 @@ def run_gen_mesh(fa, cfg, eos: int, tmp: str, prompts, served: dict,
                 "prompt_ids": prompts[i], "gconfig": gconfigs[i],
                 "max_tokens": budget, "rid": f"e{i}"}), range(len(prompts))))
         for i, r in enumerate(first):
-            check_reply(r, chunk, eos, f"(ee) request {i}")
+            check_reply(r, chunk, eos, f"{tag} request {i}")
         c1 = ask("counts")
         prefills = c1["stats"]["prefill_calls"]
         k1 = [r["k1"] for r in c1["ranks"]]
-        check(prefills >= 1, "(ee): no prefill ran")
-        check(device != "cuda" or k1 == [L * prefills] * GEN_TP,
-              f"(ee): K1 launches per rank {k1} != {L} x {prefills} "
-              "prefills on each rank")
+        want_k1 = [c.n_layers * prefills for c in rank_cfgs]
+        check(prefills >= 1, f"{tag}: no prefill ran")
+        check(device != "cuda" or k1 == want_k1,
+              f"{tag}: K1 launches per rank {k1} != each rank's layers x "
+              f"{prefills} prefills {want_k1}")
         check(all(r["plain_in_prefill"] == 0 and r["prefills"] == prefills
                   for r in c1["ranks"]) or device != "cuda",
-              f"(ee): the plain attention ran in a prefill, or the ranks "
+              f"{tag}: the plain attention ran in a prefill, or the ranks "
               f"prefilled apart: {c1['ranks']}")
         open_rows = [i for i, r in enumerate(first) if not r["finished"]]
         with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
@@ -8323,30 +8424,35 @@ def run_gen_mesh(fa, cfg, eos: int, tmp: str, prompts, served: dict,
                 "gconfig": gconfigs[i], "max_tokens": budget - chunk,
                 "rid": f"e{i}", "tokens_done": chunk}), open_rows))
         for i, r in zip(open_rows, cont):
-            check_reply(r, budget - chunk, eos, f"(ee) continuation {i}")
+            check_reply(r, budget - chunk, eos, f"{tag} continuation {i}")
         wall = time.monotonic() - t0
         rec["legs_s"]["traffic"] = wall
         c2 = ask("counts")
         st = c2["stats"]
         check(st["prefill_calls"] == prefills
               and [r["k1"] for r in c2["ranks"]] == k1,
-              f"(ee): a continuation prefilled: {c1} -> {c2}")
+              f"{tag}: a continuation prefilled: {c1} -> {c2}")
         rec.update(
             prefills=prefills, k1_launches=sum(k1), k1_per_rank=k1,
+            k1_per_rank_per_prefill=[k // prefills for k in k1],
             plain_in_prefill=[r["plain_in_prefill"] for r in c2["ranks"]],
             continuations=len(cont), wall_s=wall,
             prefill_ms_per_call=1e3 * st["prefill_secs"] / prefills,
             decode_ms_per_step=1e3 * st["decode_secs"] / st["decode_steps"],
             generated_tokens=st["generated_tokens"],
+            # each rank's fsdp gathers (count, bytes in, host s): after the
+            # first batch (a prefill and a decode call), then in all
+            fsdp_gather_first=[r["fsdp_gather"] for r in c1["ranks"]],
+            fsdp_gather=[r["fsdp_gather"] for r in c2["ranks"]],
             unsharded=served)
-        print("(ee1) traffic", json.dumps(rec), flush=True)
+        print(f"({phase}1) traffic", json.dumps(rec), flush=True)
 
         # the greedy requests' prefill against the unsharded server's
         greedy = [i for i in range(len(prompts)) if i % 2 == 0]
         padded, plens = genmod.pad_prompts([prompts[i] for i in greedy], eos,
                                            bucket=128)
         S = padded.shape[1] + 128
-        got = ask("prefill", padded, plens, S)
+        got = ask("prefill", padded, plens, S, 32)
         model = Transformer.from_params(cfg, init_params(
             cfg, seed=0, device=device, dtype=torch.bfloat16))
         ref_st = genmod.prefill_state(model, torch.from_numpy(padded).to(
@@ -8356,7 +8462,10 @@ def run_gen_mesh(fa, cfg, eos: int, tmp: str, prompts, served: dict,
         del model, ref_st
         mine = torch.from_numpy(got["last_logits"])
         diff = (mine - ref).abs().max().item()
-        tol = 0.05 * ref.abs().max().item()
+        # tp splits the sums (partial products added over the ranks);
+        # fsdp and pp alone move no arithmetic (exact gathers, the same
+        # GEMMs on the same inputs, an exact hand-off): bit-equal
+        tol = 0.05 * ref.abs().max().item() if spec.tp > 1 else 0.0
         firsts = [first[i]["output_ids"][0] for i in greedy]
         rec["logits"] = {
             "max_abs_err": diff, "tol": tol,
@@ -8365,19 +8474,49 @@ def run_gen_mesh(fa, cfg, eos: int, tmp: str, prompts, served: dict,
             "first_tokens": firsts, "ref_argmax": ref.argmax(-1).tolist()}
         check(bool(torch.isfinite(mine).all())
               and tuple(mine.shape) == (len(greedy), cfg.vocab_size),
-              "(ee): prefill logits not finite / wrong shape")
-        check(diff <= tol, f"(ee): the meshed prefill's logits are "
+              f"{tag}: prefill logits not finite / wrong shape")
+        check(diff <= tol, f"{tag}: the meshed prefill's logits are "
               f"{diff} from the unsharded server's (limit {tol})")
         check(firsts == ref.argmax(-1).tolist(),
-              f"(ee): first greedy tokens {firsts} != the unsharded "
+              f"{tag}: first greedy tokens {firsts} != the unsharded "
               f"prefill's {ref.argmax(-1).tolist()}")
-        rec["kv_bytes"] = {"ranks": got["kv_bytes"], "unsharded": whole_kv}
-        check(all(2 * b == whole_kv for b in got["kv_bytes"]),
-              f"(ee): rank KV bytes {got['kv_bytes']} are not half the "
-              f"unsharded {whole_kv}")
+        # a rank's KV: its stage's layers, its kv heads, the whole batch
+        # (fsdp splits no KV)
+        want_kv = [whole_kv * c.n_layers * c.n_kv_heads
+                   // (cfg.n_layers * cfg.n_kv_heads) for c in rank_cfgs]
+        rec["kv_bytes"] = {"ranks": got["kv_bytes"], "unsharded": whole_kv,
+                           "layout": want_kv}
+        check(got["kv_bytes"] == want_kv,
+              f"{tag}: rank KV bytes {got['kv_bytes']} are not the "
+              f"layout's {want_kv} (unsharded {whole_kv})")
+        pb = ask("param_bytes")
+        rec["param_bytes"] = pb
+        check(all(r["bytes"] == r["layout_bytes"] for r in pb),
+              f"{tag}: a rank's parameter bytes differ from its layout's: "
+              f"{pb}")
+        print(f"({phase}) rank parameter bytes", json.dumps(pb), flush=True)
+        # each rank's device memory: at rest (parameters, retained
+        # states), its peak above that in the greedy prefill, and its
+        # peak in the decode call after it above what it held as the
+        # call began (under fsdp the call holds the stage's gathered
+        # layers, the embedding and the head)
+        mem = got["memory"]
 
-        # (ee2) a device publication in the t2 layout, group 16 MiB, from
-        # a trainer in this process (the ranks open its buffers)
+        def above(peaks, starts):
+            return [None if p is None else p - r
+                    for p, r in zip(peaks, starts)]
+
+        rec["memory"] = {
+            **mem,
+            "prefill_above_rest": above(mem["prefill_peak"], mem["rest"]),
+            "decode_above_start": above(mem["decode_peak"],
+                                        mem["decode_start"])}
+        print(f"({phase}) rank memory", json.dumps(rec["memory"]),
+              flush=True)
+
+        # ({phase}2) a device publication in the server's layout, group
+        # 16 MiB, from a trainer in this process (the ranks open its
+        # buffers)
         t_pub = time.monotonic()
         src = make_model("ee_src", cfg, init_params(
             cfg, seed=1, device=device, dtype=torch.bfloat16), train=False,
@@ -8387,7 +8526,7 @@ def run_gen_mesh(fa, cfg, eos: int, tmp: str, prompts, served: dict,
             experiment=exp, trial=trial, device=device,
             realloc_dir=os.path.join(tmp, "realloc"),
             weight_sync=WeightSyncConfig(
-                transport="device", gen_parallel_spec=f"t{GEN_TP}",
+                transport="device", gen_parallel_spec=str(spec),
                 transfer_group_mb=GEN_GROUP_MB)))
         trainer.models["actor"] = src  # setup()-free: the publish half
         manager = types.SimpleNamespace(cfg=types.SimpleNamespace(
@@ -8403,7 +8542,7 @@ def run_gen_mesh(fa, cfg, eos: int, tmp: str, prompts, served: dict,
         rec["server_update_s"] = reply.get("latency_s")
         rec["unsharded_publish_to_reply_s"] = device_sync_s
         check(status == 200 and reply.get("version") == 1,
-              f"(ee2) device update: {status} {reply}")
+              f"({phase}2) device update: {status} {reply}")
         pub = rsh._REGISTRY[(exp, trial, "actor")]
         buffers = sum(p.buffer.numel() for p in pub.parts)
         extra = (peak - before) * 2 ** 30 if peak is not None else 0.0
@@ -8413,20 +8552,20 @@ def run_gen_mesh(fa, cfg, eos: int, tmp: str, prompts, served: dict,
             "group_bytes": GEN_GROUP_MB << 20, "bound_bytes": bound,
             "slack_bytes": bound - extra, "ranks": len(pub.parts),
             "groups": len(pub.plan.groups)}
-        check(len(pub.parts) == GEN_TP,
-              f"(ee2): {len(pub.parts)} rank buffers")
-        check(extra <= bound, f"(ee2): the publish took {extra} B beyond "
-              f"its buffers + one group ({bound} B)")
+        check(len(pub.parts) == world,
+              f"({phase}2): {len(pub.parts)} rank buffers for {world} ranks")
+        check(extra <= bound, f"({phase}2): the publish took {extra} B "
+              f"beyond its buffers + one group ({bound} B)")
         rec_pub = rsh.lookup_publication(exp, trial, "actor")
         uuids = {s.get("uuid") for p in rsh.record_parts(rec_pub)
                  for s in p["shares"]}
         rec["uuid"] = sorted(map(str, uuids))
         check(device != "cuda" or uuids == {rsh.device_uuid(0)},
-              f"(ee3): the record names {uuids}, the card is "
+              f"({phase}3): the record names {uuids}, the card is "
               f"{rsh.device_uuid(0) if device == 'cuda' else None}")
         w = ask("weights", cfg, 1)
-        check(all(r["n_bad"] == 0 for r in w),
-              f"(ee2): swapped weights differ from their slices: {w}")
+        check(all(r["n_bad"] == 0 and r["n"] == r["n_want"] for r in w),
+              f"({phase}2): swapped weights differ from their parts: {w}")
         gates = {}
         for gate, bad, text in (
                 ("digest", {"digest": "0" * 8, "version": 1},
@@ -8438,14 +8577,15 @@ def run_gen_mesh(fa, cfg, eos: int, tmp: str, prompts, served: dict,
                                        **bad})
             gates[gate] = (status, reply.get("error", "")[:200])
             check(status == 500 and text in reply.get("error", ""),
-                  f"(ee2) gate {gate}: {status} {reply}")
-        check(health(url)["version"] == 1, "(ee2): a gate moved the version")
+                  f"({phase}2) gate {gate}: {status} {reply}")
+        check(health(url)["version"] == 1,
+              f"({phase}2): a gate moved the version")
         w = ask("weights", cfg, 1)
         check(all(r["n_bad"] == 0 for r in w),
-              f"(ee2): a failed gate changed the weights: {w}")
+              f"({phase}2): a failed gate changed the weights: {w}")
         rec["gates"] = gates
         rec["legs_s"]["publication"] = time.monotonic() - t_pub
-        print("(ee2) device publication", json.dumps({
+        print(f"({phase}2) device publication", json.dumps({
             k: rec[k] for k in ("publish_to_reply_s", "publish_s",
                                 "server_update_s",
                                 "unsharded_publish_to_reply_s",
@@ -8461,7 +8601,7 @@ def run_gen_mesh(fa, cfg, eos: int, tmp: str, prompts, served: dict,
         th.join(timeout=120)
         rec["legs_s"]["stop"] = time.monotonic() - t_stop
         name_resolve.DEFAULT_REPO = old_repo
-    check(not th.is_alive(), "(ee): the ranks did not end within 120 s")
+    check(not th.is_alive(), f"{tag}: the ranks did not end within 120 s")
     if "error" in ranks:
         raise ranks["error"]
     return rec
@@ -9283,10 +9423,41 @@ def main() -> None:
         **{k: gen_mesh[k] for k in (
             "tp", "prefills", "k1_launches", "k1_per_rank",
             "plain_in_prefill", "prefill_ms_per_call", "decode_ms_per_step",
-            "unsharded", "logits", "kv_bytes", "publish_to_reply_s",
+            "unsharded", "logits", "kv_bytes", "memory",
+            "publish_to_reply_s",
             "unsharded_publish_to_reply_s", "publish_memory", "uuid",
             "legs_s")},
         "phase_ee_s": mark("ee", t_ee),
+        "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
+    torch.cuda.empty_cache()
+
+    # (ff) generation servers over fsdp and pp: an f2p2 server of
+    # Qwen2.5-0.5B at full depth (each rank 12 layers at half their fsdp
+    # width), its four ranks on the one card, then a device publication
+    # into its layout
+    t_ff = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gen_fp_")
+    try:
+        gen_fp = run_gen_mesh(
+            fa, cfg, eos, tmp, prompts,
+            {"prefill_ms_per_call": prefill_ms,
+             "decode_ms_per_step": decode_ms,
+             "tp2_prefill_ms_per_call": gen_mesh["prefill_ms_per_call"],
+             "tp2_decode_ms_per_step": gen_mesh["decode_ms_per_step"]},
+            device_sync["device"]["publish_to_reply_s"], phase="ff")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("(ff) generation servers over fsdp and pp", json.dumps({
+        **{k: gen_fp[k] for k in (
+            "spec", "prefills", "k1_launches", "k1_per_rank",
+            "k1_per_rank_per_prefill", "plain_in_prefill",
+            "prefill_ms_per_call", "decode_ms_per_step", "unsharded",
+            "fsdp_gather_first", "fsdp_gather", "memory",
+            "logits", "kv_bytes", "param_bytes", "publish_to_reply_s",
+            "unsharded_publish_to_reply_s", "publish_memory", "uuid",
+            "legs_s")},
+        "tp2_publish_to_reply_s": gen_mesh["publish_to_reply_s"],
+        "phase_ff_s": mark("ff", t_ff),
         "script_s": time.monotonic() - t_start}), f"({card})", flush=True)
     print("phase seconds", json.dumps({
         "a_to_i": t_lanes - t_start, "main_lane": secs,
@@ -9322,7 +9493,8 @@ def main() -> None:
                 "fused_rew_ref": fused["launches"]["flash_attention_fwd"],
                 "multi_turn": multi["k1_launches"],
                 "device_sync": device_sync["k1_launches"],
-                "gen_mesh": gen_mesh["k1_launches"]}
+                "gen_mesh": gen_mesh["k1_launches"],
+                "gen_mesh_f2p2": gen_fp["k1_launches"]}
     k1_paths["sft_auto_eval_children"] = sum(
         sft_eval["eval_child_k1"].values())
     k1_paths["sft_auto_eval"] -= k1_paths["sft_auto_eval_children"]

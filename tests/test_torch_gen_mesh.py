@@ -295,13 +295,14 @@ def test_tp_generation_matches_the_reference(request, flats, spec):
 def test_kv_rule_picks_the_read_head():
     cfg = _tcfg()
     assert psh.kv_replicated(cfg, 4) and not psh.kv_replicated(cfg, 2)
-    sl = psh.serving_slices(cfg, 4)
+    sl = psh.serving_slices(cfg, ParallelSpec(tp=4))
     # q heads 0,1 read kv head 0; q heads 2,3 read kv head 1 (head_dim 8)
-    assert [s[1] for s in sl["layers.0.wk.weight"]] == [0, 0, 8, 8]
-    assert psh.rank_config(cfg, 4).n_kv_heads == 1
-    assert sl["embedding.weight"] == [None] * 4
+    assert [r["layers.0.wk.weight"] for r in sl] == [
+        ((0, 0, 8),), ((0, 0, 8),), ((0, 8, 8),), ((0, 8, 8),)]
+    assert psh.rank_config(cfg, ParallelSpec(tp=4)).n_kv_heads == 1
+    assert [r["embedding.weight"] for r in sl] == [()] * 4
     with pytest.raises(ValueError, match="does not divide"):
-        psh.serving_slices(cfg, 3)
+        psh.serving_slices(cfg, ParallelSpec(tp=3))
 
 
 def test_meshed_server_continues_without_a_second_prefill(world2, flats):
@@ -332,7 +333,7 @@ def test_meshed_device_swap_is_all_ranks_bit_equal(world2):
     assert out["record_ranks"] == 2  # the trainer's publication, per rank
     assert out["swap"][0] == 200 and out["swap"][1]["version"] == 1
     for r, state in enumerate(out["swapped"]):
-        want = psh.serving_shards(new, cfg, 2, r)
+        want = psh.serving_shards(new, cfg, ParallelSpec(tp=2), r)
         assert set(state) == set(want)
         for n, t in state.items():
             assert np.array_equal(t, want[n].numpy()), (r, n)
@@ -344,7 +345,7 @@ def test_meshed_device_swap_is_all_ranks_bit_equal(world2):
         assert reply["version"] == 0
     old = convert.params_from_jax(_flat(4), cfg, device="cpu")
     for r, state in enumerate(out["kept"]):
-        want = psh.serving_shards(old, cfg, 2, r)
+        want = psh.serving_shards(old, cfg, ParallelSpec(tp=2), r)
         assert all(np.array_equal(t, want[n].numpy())
                    for n, t in state.items())
     assert out["after"][0] == 200 and out["after"][1]["version"] == 1
@@ -510,7 +511,7 @@ def test_a_whole_tensor_publication_is_refused_by_a_meshed_rank(port_nr):
     new = convert.params_from_jax(_flat(5), cfg, device="cpu")
     pub = rsh.publish_device(EXP, TRIAL, "actor", new, version=1)
     try:
-        live = psh.serving_shards(new, cfg, 2, 0)
+        live = psh.serving_shards(new, cfg, ParallelSpec(tp=2), 0)
         with pytest.raises(rsh.DeviceReshardError, match="1 rank"):
             rsh.consume_device(EXP, TRIAL, "actor", 1, pub.digest, live,
                                rank=0, n_ranks=2)
@@ -540,8 +541,8 @@ def test_decoupled_setup_gives_servers_of_tp_ranks(tmp_path):
     cfg.cluster.fileroot = str(tmp_path)
     setup = cfg.initial_setup()
     servers = setup["gen_servers"]
-    assert [(s.server_id, s.tp, s.tp_rank) for s in servers] == [
-        ("gen0", 2, 0), ("gen1", 2, 0)]
+    assert [(s.server_id, s.spec, s.rank) for s in servers] == [
+        ("gen0", "t2", 0), ("gen1", "t2", 0)]
     assert setup["gserver_manager"].n_servers == 2
     ref = JAsync(experiment_name="genmesh", trial_name="t",
                  allocation_mode="gen.d2t2+d1", n_gpus_per_node=8)
@@ -550,7 +551,7 @@ def test_decoupled_setup_gives_servers_of_tp_ranks(tmp_path):
     # one device, not decoupled: one server of one rank
     one = _async_cfg("")
     one.cluster.fileroot = str(tmp_path)
-    assert [s.tp for s in one.initial_setup()["gen_servers"]] == [1]
+    assert [s.world for s in one.initial_setup()["gen_servers"]] == [1]
 
 
 def test_ppo_math_threads_the_generation_spec(tmp_path):
@@ -588,10 +589,10 @@ def test_launcher_slices_the_generation_gpus():
         GenerationServerConfig,
     )
 
-    sc = GenerationServerConfig(server_id="gen1", tp=2)
+    sc = GenerationServerConfig(server_id="gen1", spec="t2")
     launcher._spawn_server(launcher.exp_cfg, sc, "gen_replica",
                            [[4, 0], [5, 0]])
-    assert [(w.name, w.kind, w.group, w.rank, w.args[1].tp_rank,
+    assert [(w.name, w.kind, w.group, w.rank, w.args[1].rank,
              w.env["CUDA_VISIBLE_DEVICES"]) for w in spawned] == [
         ("genserver_gen1", "gen_replica", "genserver_gen1", 0, 0, "4,0"),
         ("genrank_gen1_1", "gen_replica", "genserver_gen1", 1, 1, "5,0")]
@@ -616,7 +617,7 @@ def test_a_slurm_task_runs_its_server_rank(tmp_path, monkeypatch):
 
     seen = []
     monkeypatch.setattr(L, "gen_server_entry", lambda exp, sc: seen.append(
-        (sc.server_id, sc.tp, sc.tp_rank)))
+        (sc.server_id, sc.spec, sc.rank)))
     monkeypatch.setattr(L, "gen_fleet_entry", lambda exp, scs, mgr:
                         seen.append(("fleet", len(scs))))
     started = []
@@ -627,32 +628,36 @@ def test_a_slurm_task_runs_its_server_rank(tmp_path, monkeypatch):
     for task in range(4):
         remote.run_role(cfg, "gen_fleet", rank=task, world=4)
     remote.run_role(cfg, "gen_fleet")
-    assert seen == [("gen0", 2, 0), ("gen0", 2, 1), ("gen1", 2, 0),
-                    ("gen1", 2, 1), ("fleet", 2)]
+    assert seen == [("gen0", "t2", 0), ("gen0", "t2", 1), ("gen1", "t2", 0),
+                    ("gen1", "t2", 1), ("fleet", 2)]
     assert started == [2]
     with pytest.raises(SystemExit):
         remote.run_role(cfg, "gen_fleet", rank=4, world=5)
 
 
 @pytest.mark.parametrize("alloc,text", [
-    ("gen.d1f2+d1", "fsdp=2"), ("gen.d1p2+d1", "pp=2"),
-    ("gen.d1s2+d1", "sp=2"), ("gen.d1t3+d1", "does not divide 4 query"),
+    ("gen.d1s2+d1", "sp=2, but sequence"), ("gen.d1p4+d1", "pp=4, more"),
+    ("gen.d1f2s2+d1", "move the sp factor into d or t"),
+    ("gen.d1t3+d1", "does not divide 4 query"),
 ])
 def test_validate_config_checks_the_generation_spec(alloc, text):
     from areal_tpu_torch.api.cli_args import ConfigError, validate_config
 
     cfg = _async_cfg(alloc)
-    cfg.actor.tiny = {"vocab_size": 96}
-    with pytest.raises(ConfigError, match=text) as e:
+    cfg.actor.tiny = {"vocab_size": 96, "n_layers": 2}
+    with pytest.raises(ConfigError, match=text):
         validate_config(cfg)
-    if text.endswith("=2"):
-        assert "ROADMAP.md Queue 1" in str(e.value)
-    validate_config(_async_cfg("gen.d2t2+d1"))  # d and t pass
+    for ok in ("gen.d2t2+d1", "gen.d1f2p2+d1", "gen.d1f2t2+d1"):
+        validate_config(_async_cfg(ok))  # d, f, p and t pass
 
 
 def test_generation_layout_refuses_other_axes():
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1"):
-        rsh.model_shardings(ParallelSpec(fsdp=2), _tcfg())
+    for spec, text in ((ParallelSpec(sp=2), "sp=2: sequence"),
+                       (ParallelSpec(fsdp=2, ep=2), "ep=2: expert")):
+        with pytest.raises(ValueError, match=text):
+            rsh.model_shardings(spec, _tcfg())
+    layout = rsh.model_shardings(ParallelSpec(dp=2, fsdp=2, pp=2), _tcfg())
+    assert layout.n_ranks == 4  # one server's ranks; dp counts servers
 
 
 # ---------------- the supervisor's failure domain ----------------
@@ -704,8 +709,10 @@ def test_reference_fleet_builds_servers_without_a_mesh(monkeypatch):
     """Reference fault 12 (ROADMAP.md Queue 3): ``apps/launcher.py
     gen_fleet_entry`` builds every server as ``GenerationServer(sc, cfg,
     params)``: no mesh, so a ``gen.d2t2`` fleet is two unsharded servers
-    on the process's default chip and the spec's tp is never applied. The
-    port gives each server its own GPUs and its tp ranks."""
+    on the process's default chip and the spec's tp is never applied; a
+    ``gen.d1f2p2`` fleet is ``dp x fsdp`` = two unsharded servers, its
+    fsdp and pp never applied. The port gives each of the spec's ``dp``
+    servers its own GPUs and its ``fsdp x pp x tp`` ranks."""
     from areal_tpu.apps import launcher as JL
     from areal_tpu.experiments.async_ppo_math_exp import (
         AsyncPPOMATHConfig as JAsync,
@@ -738,13 +745,19 @@ def test_reference_fleet_builds_servers_without_a_mesh(monkeypatch):
     monkeypatch.setattr(JL, "_build_gen_model", lambda init: (None, {}))
     monkeypatch.setattr(JL, "_resolve_tokenizer",
                         lambda exp: types.SimpleNamespace(eos_token_id=1))
-    exp = JAsync(experiment_name="ref", trial_name="t",
-                 allocation_mode="gen.d2t2+d1", n_gpus_per_node=8)
-    setup = exp.initial_setup()
-    with pytest.raises(Stop):
-        JL.gen_fleet_entry(exp, setup["gen_servers"],
-                           setup["gserver_manager"], True)
-    assert built == [("gen0", None), ("gen1", None)]
+    for alloc, spec in (("gen.d2t2+d1", "t2"), ("gen.d1f2p2+d1", "f2p2")):
+        built.clear()
+        exp = JAsync(experiment_name="ref", trial_name="t",
+                     allocation_mode=alloc, n_gpus_per_node=8)
+        setup = exp.initial_setup()
+        with pytest.raises(Stop):
+            JL.gen_fleet_entry(exp, setup["gen_servers"],
+                               setup["gserver_manager"], True)
+        assert built == [("gen0", None), ("gen1", None)], alloc
+        mine = _async_cfg(alloc).initial_setup()["gen_servers"]
+        assert [(s.server_id, s.spec) for s in mine] == (
+            [("gen0", spec), ("gen1", spec)] if spec == "t2"
+            else [("gen0", spec)])
 
 
 # ---------------- a killed follower ----------------
@@ -785,7 +798,7 @@ def test_a_killed_follower_fails_the_server_as_one_unit(tmp_path):
     launcher = L.LocalLauncher(exp)
     launcher.supervisor = sup
     sc = GenerationServerConfig(experiment="killexp", trial="t",
-                                server_id="gen0", tp=2, chunk_tokens=8,
+                                server_id="gen0", spec="t2", chunk_tokens=8,
                                 prompt_bucket=16)
     body = {"prompt_ids": [5, 6, 7], "gconfig": {"greedy": True},
             "max_tokens": 4}
